@@ -1,0 +1,169 @@
+"""tensor-ops-serve on PyTorch: serve a trained network checkpoint.
+
+The port of ``apps/serve.py``, with the same flags plus ``--device``: load
+a ``feedforward`` (``save_network``) or ``fused_mlp`` (``save_fused``)
+checkpoint written by either package, warm the bucketed ``Predictor``, then
+answer prediction requests from an .npy/.npz/CSV file or run a latency
+self-benchmark.
+
+Examples:
+    python -m tensor_ops_tpu_torch.apps.serve ckpt.npz --bench
+    python -m tensor_ops_tpu_torch.apps.serve ckpt.npz -i batch.npy --probs
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from ..backend.rng import Rng
+from ..backend.torch_backend import TorchBackend
+from ..models import activation_by_name, gen_net
+from ..models.fast import FusedMLP
+from ..models.serve import Predictor
+from ..utils.checkpoint import (_fused_from_arrays, load_arrays,
+                                network_from_arrays)
+
+_NOT_PORTED = "not yet ported to the PyTorch package (ROADMAP.md Queue 1)"
+
+
+def load_model(payload, layers, in_dim: int, out_dim: int,
+               act: str, device: torch.device) -> FusedMLP:
+    """Dispatch on the checkpoint's ``kind`` metadata.  Bare Network
+    checkpoints rebuild the op graph from the activation names stored in
+    the checkpoint; older checkpoints without them fall back to the
+    ``--act`` flag for hidden layers + softmax out."""
+    arrays, meta = payload
+    kind = meta.get("kind", "network")
+    if kind == "fused_mlp":
+        return _fused_from_arrays(arrays, meta, device)
+    if kind not in ("feedforward", "network"):
+        raise SystemExit(f"checkpoint kind {kind!r}: {_NOT_PORTED}")
+    be = TorchBackend(torch.float32, device)
+    saved_acts = meta.get("acts")
+    if saved_acts is not None:
+        if len(saved_acts) != len(layers) + 1:
+            raise SystemExit(
+                f"checkpoint has {len(saved_acts)} activations but "
+                f"--layers {','.join(map(str, layers))} implies "
+                f"{len(layers) + 1} — pass the architecture it was "
+                f"trained with")
+        hidden = [activation_by_name(a) for a in saved_acts[:-1]]
+        out_act = activation_by_name(saved_acts[-1])
+    else:
+        hidden = [activation_by_name(act) for _ in layers]
+        out_act = activation_by_name("softmax")
+    net = gen_net(be, in_dim, out_dim,
+                  list(zip(layers, hidden)), out_act, Rng(be, seed=0))
+    net = network_from_arrays(arrays, meta, net, be)
+    return FusedMLP.from_network(net)
+
+
+def _load_array_file(path: str) -> np.ndarray:
+    """.npy / .npz (first array) / CSV -> float32 ndarray."""
+    if path.endswith(".npy"):
+        x = np.load(path)
+    elif path.endswith(".npz"):
+        with np.load(path) as z:
+            x = z[list(z.files)[0]]
+    else:  # CSV
+        x = np.loadtxt(path, delimiter=",")
+    return np.asarray(x, dtype=np.float32)
+
+
+def read_batch(path: str, in_dim: int) -> np.ndarray:
+    x = _load_array_file(path)
+    if x.ndim == 1:
+        # 1-D is ambiguous: N samples of one feature vs one sample of N
+        # features — the model dim decides
+        x = x.reshape(-1, 1) if in_dim == 1 else x.reshape(1, -1)
+    if x.shape[1] != in_dim:
+        raise SystemExit(f"input dim {x.shape[1]} != model dim {in_dim}")
+    return x
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(
+        prog="tensor-ops-serve",
+        description="Serve a trained tensor-ops checkpoint on PyTorch")
+    p.add_argument("checkpoint", help=".npz checkpoint path")
+    p.add_argument("-l", "--layers", type=str, default="300,100",
+                   help="Hidden sizes for bare Network checkpoints "
+                        "(default: 300,100)")
+    p.add_argument("--in-dim", type=int, default=784)
+    p.add_argument("--out-dim", type=int, default=10)
+    p.add_argument("--int8", action="store_true",
+                   help="Quantize weights to int8 at load (" + _NOT_PORTED
+                        + ")")
+    p.add_argument("--bf16", action="store_true",
+                   help="Store weights in bfloat16 (half the weight memory)")
+    p.add_argument("--act", type=str, default="logistic",
+                   choices=("logistic", "relu", "tanh"),
+                   help="Hidden activation for OLD bare-Network "
+                        "checkpoints without stored activation names "
+                        "(new checkpoints carry them)")
+    p.add_argument("--state-act", type=str, default="logistic",
+                   choices=("logistic", "relu", "tanh", "none"),
+                   help="Recurrent checkpoints (" + _NOT_PORTED + ")")
+    p.add_argument("--seq-len", type=int, default=16,
+                   help="Recurrent --bench (" + _NOT_PORTED + ")")
+    p.add_argument("-i", "--input", type=str, default=None,
+                   help="Batch file (.npy/.npz/CSV) to predict")
+    p.add_argument("--probs", action="store_true",
+                   help="Print class probabilities instead of argmax")
+    p.add_argument("--buckets", type=str, default="8,64,512",
+                   help="Padding buckets (served batch shapes)")
+    p.add_argument("--bench", action="store_true",
+                   help="Warm up, run a latency self-benchmark, print JSON")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="Torch device to serve on (default: cuda)")
+    args = p.parse_args(argv)
+
+    layers = [int(x) for x in args.layers.split(",") if x]
+    buckets = tuple(int(x) for x in args.buckets.split(",") if x)
+    if args.int8 and args.bf16:
+        p.error("--int8 and --bf16 are mutually exclusive")
+    if args.int8:
+        p.error(f"--int8: int8 serving is {_NOT_PORTED}")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        p.error(f"--device {args.device}: CUDA is not available")
+
+    payload = load_arrays(args.checkpoint)
+    if payload[1].get("kind") == "recurrent":
+        p.error(f"recurrent checkpoints: {_NOT_PORTED}")
+    model = load_model(payload, layers, args.in_dim, args.out_dim,
+                       args.act, device)
+    pred = Predictor(model, buckets=buckets,
+                     dtype="bf16" if args.bf16 else None)
+    print(f"Serving {type(model).__name__} from {args.checkpoint} "
+          f"on {device} (buckets {buckets})")
+
+    if args.bench:
+        pred.warmup()
+        r = np.random.default_rng(0)
+        for b in buckets:
+            x = r.uniform(0, 1, size=(b, args.in_dim)).astype(np.float32)
+            for _ in range(5):
+                pred.predict(x)
+        print(json.dumps({"latency": pred.latency()}))
+        return
+
+    if args.input:
+        x = read_batch(args.input, args.in_dim)
+        out = pred.predict(x) if args.probs else pred.predict_class(x)
+        for row in np.atleast_1d(out):
+            if args.probs:
+                print(",".join(f"{v:.6f}" for v in np.atleast_1d(row)))
+            else:
+                print(int(row))
+        return
+
+    p.error("nothing to do: pass --bench or -i BATCH")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,23 @@
+"""The models ported so far: activations and losses, feed-forward
+networks, the kernel-fused ``FusedMLP`` and the ``Predictor`` that serves
+it.  Recurrent, autoencoder, training and the optimizers come in later
+slices (ROADMAP.md, Queue 1)."""
+
+from . import fast, feedforward, neuralnet, serve
+from .neuralnet import (
+    Activation,
+    act_logistic,
+    act_map,
+    act_map2,
+    act_relu,
+    act_softmax,
+    act_tanh,
+    activation_by_name,
+    cross_entropy,
+    logistic,
+    softmax,
+    squared_error,
+)
+from .feedforward import Network, ff_layer, gen_net, lift_net, unchain
+from .fast import FusedMLP
+from .serve import Predictor

@@ -1,0 +1,310 @@
+"""The serving path's kernels, each written by hand in CUDA C++ for Hopper
+and kept beside its plain PyTorch version.
+
+* :func:`fused_linear` — ``act(x @ w.T + b)`` (``csrc/fused_linear.cu``),
+  the port of the TPU kernel ``_linear_act_kernel``, with its backward in
+  plain PyTorch as the JAX package's backward is plain XLA.
+* :func:`fused_mlp_forward` — a whole ffLayer chain with an optional
+  softmax output in one launch (``csrc/fused_mlp_forward.cu``), the port of
+  the TPU kernel ``_mlp_kernel``.
+
+A wrapper takes its plain version (``*_ref``) only for tensors on the CPU.
+For CUDA tensors it launches its kernel or raises: no fallback.  Each
+wrapper counts its launches (:func:`launch_counts`), so a run can show that
+its main path went through the kernels.
+
+Precision: the kernels compute in IEEE fp32 FMA for both precision names.
+On the TPU, ``"default"`` meant bf16 multiplies on the MXU; the argument is
+kept (and validated) so that callers and checkpoints carry over.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from typing import Callable, Dict, Sequence
+
+import torch
+
+ACT_CODES = {"identity": 0, "logistic": 1, "relu": 2, "tanh": 3}
+PRECISIONS = ("default", "highest")
+MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory one H100 block may use
+MAX_TILE_ROWS = 32           # fused_mlp_forward: one partial sum per lane
+MAX_LAYERS = 16              # fused_mlp_forward: layers in one launch
+
+_launch_lock = threading.Lock()
+_launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0}
+
+
+def launch_counts() -> Dict[str, int]:
+    """How many times each kernel was launched since the last reset."""
+    with _launch_lock:
+        return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    with _launch_lock:
+        for k in _launches:
+            _launches[k] = 0
+
+
+def _count(name: str) -> None:
+    with _launch_lock:
+        _launches[name] += 1
+
+
+def _act_fn(name: str) -> Callable:
+    if name == "logistic":
+        return lambda z: 1.0 / (1.0 + torch.exp(-z))
+    if name == "relu":
+        return lambda z: torch.clamp_min(z, 0.0)
+    if name == "tanh":
+        return torch.tanh
+    if name == "identity":
+        return lambda z: z
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def _act_grad(name: str) -> Callable:
+    """d act / d z expressed in terms of z."""
+    if name == "logistic":
+        def g(z):
+            s = 1.0 / (1.0 + torch.exp(-z))
+            return s * (1.0 - s)
+        return g
+    if name == "relu":
+        return lambda z: (z > 0).to(z.dtype)
+    if name == "tanh":
+        return lambda z: 1.0 - torch.tanh(z) ** 2
+    if name == "identity":
+        return torch.ones_like
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def _check_names(acts: Sequence[str], precision: str) -> None:
+    for a in acts:
+        if a not in ACT_CODES:
+            raise ValueError(f"unknown activation {a!r} "
+                             f"(known: {sorted(ACT_CODES)})")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+
+
+_bound: dict = {}
+
+
+def _kernel(lib_name: str, fn_name: str, argtypes) -> Callable:
+    """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, built on
+    first use."""
+    fn = _bound.get(fn_name)
+    if fn is None:
+        from .cuda_build import build
+
+        fn = getattr(build(lib_name).lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _bound[fn_name] = fn
+    return fn
+
+
+def _check_launch(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with "
+                           f"cudaError_t {err}")
+
+
+def _p(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# ---------------------------------------------------------------------------
+# fused_linear: act(x @ w.T + b)
+# ---------------------------------------------------------------------------
+
+
+def fused_linear_ref(x, w, b, act: str = "identity", save_z: bool = False):
+    """Plain PyTorch ``act(x @ w.T + b)``: bf16 operands stay bf16, others
+    go through f32, accumulation is f32, and ``y`` has x's dtype.  With
+    ``save_z`` it returns ``(y, z)``, z the f32 pre-activation."""
+    op = x.dtype if x.dtype == torch.bfloat16 else torch.float32
+    z = x.to(op).float() @ w.to(op).float().T + b.float()
+    y = _act_fn(act)(z).to(x.dtype)
+    return (y, z) if save_z else y
+
+
+def _fused_linear_cuda(x, w, b, act: str, save_z: bool):
+    if x.dtype != torch.float32:
+        raise ValueError(
+            f"fused_linear on CUDA takes float32 x, got {x.dtype} (bf16 "
+            f"operands are the next step: ROADMAP.md Queue 2, item 1)")
+    if x.ndim != 2 or w.ndim != 2 or b.ndim != 1:
+        raise ValueError(f"fused_linear wants x (B, K), w (O, K), b (O,); "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(b.shape)}")
+    B, K = x.shape
+    O = w.shape[0]
+    if w.shape[1] != K or b.shape[0] != O:
+        raise ValueError(f"fused_linear: shapes x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, b {tuple(b.shape)} disagree")
+    if w.device != x.device or b.device != x.device:
+        raise ValueError("fused_linear: x, w and b must be on one device")
+    if O > 65535 * 64:
+        raise ValueError(f"fused_linear: {O} outputs exceed the grid")
+    x = x.contiguous()
+    w = w.to(torch.float32).contiguous()
+    b = b.to(torch.float32).contiguous()
+    y = torch.empty((B, O), dtype=torch.float32, device=x.device)
+    z = torch.empty_like(y) if save_z else None
+    if B == 0 or O == 0:
+        return y, z
+    fn = _kernel("fused_linear", "fused_linear_f32",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(_p(x), _p(w), _p(b), _p(y),
+                 _p(z) if z is not None else ctypes.c_void_p(None),
+                 B, K, O, ACT_CODES[act], _stream(x.device))
+    _check_launch("fused_linear", err)
+    _count("fused_linear")
+    return y, z
+
+
+class _FusedLinear(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or its plain version (CPU).  Backward:
+    plain PyTorch, the math of ``_fused_linear_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, act, save_z):
+        if x.is_cuda:
+            y, z = _fused_linear_cuda(x, w, b, act, save_z)
+        else:
+            y, z = fused_linear_ref(x, w, b, act, save_z=True)
+        if save_z:
+            ctx.save_for_backward(x, w, b, z)
+            ctx.act = act
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b, z = ctx.saved_tensors
+        dz = (dy.float() * _act_grad(ctx.act)(z)).to(x.dtype)
+        dx = (dz.float() @ w.float()).to(x.dtype)
+        dw = (dz.float().T @ x.float()).to(w.dtype)
+        db = dz.sum(dim=0).to(b.dtype)
+        return dx, dw, db, None, None
+
+
+def fused_linear(x, w, b, act: str = "identity", precision: str = "default"):
+    """``act(x @ w.T + b)``: x (B, i), w (o, i) in the ffLayer layout
+    (``FeedForward.hs:209-213``), b (o,).  Differentiable; the forward
+    keeps the f32 pre-activation only when a gradient will be taken."""
+    _check_names([act], precision)
+    save_z = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, w, b))
+    return _FusedLinear.apply(x, w, b, act, save_z)
+
+
+# ---------------------------------------------------------------------------
+# fused_mlp_forward: the whole chain in one launch
+# ---------------------------------------------------------------------------
+
+
+def fused_mlp_forward_ref(x, weights, biases, acts: Sequence[str],
+                          softmax_out: bool = True):
+    """Plain PyTorch whole-chain forward: f32 throughout, ``acts[k]``
+    after layer k, and a softmax instead of the last activation when
+    ``softmax_out``.  The result has x's dtype."""
+    h = x.float()
+    n = len(weights)
+    for k in range(n):
+        z = h @ weights[k].float().T + biases[k].float()
+        if k == n - 1 and softmax_out:
+            h = torch.softmax(z, dim=-1)
+        else:
+            h = _act_fn(acts[k])(z)
+    return h.to(x.dtype)
+
+
+def tile_rows(batch: int, widths: Sequence[int]) -> int:
+    """Batch rows per block of the whole-chain kernel: as many as let two
+    ``rows x stride`` f32 activation buffers fit in one block's shared
+    memory, at most :data:`MAX_TILE_ROWS`.  Raises ``ValueError`` when not
+    even one row fits."""
+    widest = max(widths)
+    stride = widest | 1
+    per_row = 2 * stride * 4
+    fit = MAX_SMEM_BYTES // per_row
+    if fit < 1:
+        raise ValueError(
+            f"fused_mlp_forward: a layer width of {widest} needs {per_row} "
+            f"bytes of shared memory per batch row, more than the "
+            f"{MAX_SMEM_BYTES} one block has")
+    return max(1, min(batch, MAX_TILE_ROWS, fit))
+
+
+def _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out):
+    n = len(weights)
+    if n > MAX_LAYERS:
+        raise ValueError(f"fused_mlp_forward: {n} layers exceed the "
+                         f"kernel's {MAX_LAYERS}")
+    if x.ndim != 2:
+        raise ValueError(f"fused_mlp_forward wants x (B, i), got "
+                         f"{tuple(x.shape)}")
+    dims = [x.shape[1]]
+    for w, b in zip(weights, biases):
+        if (w.ndim != 2 or w.shape[1] != dims[-1]
+                or tuple(b.shape) != (w.shape[0],)):
+            raise ValueError(
+                f"fused_mlp_forward: layer {len(dims) - 1} has w "
+                f"{tuple(w.shape)}, b {tuple(b.shape)} after width "
+                f"{dims[-1]}")
+        if w.device != x.device or b.device != x.device:
+            raise ValueError("fused_mlp_forward: x and every weight and "
+                             "bias must be on one device")
+        dims.append(w.shape[0])
+    B = x.shape[0]
+    rows = tile_rows(B, dims)
+    xf = x.to(torch.float32).contiguous()
+    ws = [w.to(torch.float32).contiguous() for w in weights]
+    bs = [b.to(torch.float32).contiguous() for b in biases]
+    y = torch.empty((B, dims[-1]), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return y.to(x.dtype)
+    fn = _kernel("fused_mlp_forward", "fused_mlp_forward_f32",
+                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    w_ptrs = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
+    b_ptrs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
+    c_dims = (ctypes.c_int * (n + 1))(*dims)
+    c_acts = (ctypes.c_int * n)(*(ACT_CODES[a] for a in acts))
+    with torch.cuda.device(x.device):
+        err = fn(_p(xf), _p(y), B, rows, n, w_ptrs, b_ptrs, c_dims, c_acts,
+                 int(bool(softmax_out)), max(dims) | 1, _stream(x.device))
+    _check_launch("fused_mlp_forward", err)
+    _count("fused_mlp_forward")
+    return y.to(x.dtype)
+
+
+def fused_mlp_forward(x, weights, biases, acts: Sequence[str],
+                      softmax_out: bool = True, precision: str = "default"):
+    """Whole ffLayer-chain forward in ONE kernel launch: one block per
+    batch tile, the tile's activations in shared memory across layers,
+    the weights streamed from L2.
+
+    weights[k]: (o_k, i_k) with i_{k+1} == o_k; acts[k] applied after
+    layer k (the last layer uses a softmax over its real width when
+    ``softmax_out``).  Weights of any float dtype are read as f32.  The
+    batch tile is chosen by :func:`tile_rows`."""
+    if not (len(weights) == len(biases) == len(acts)) or not weights:
+        raise ValueError("fused_mlp_forward: need one weight, bias and "
+                         "activation per layer")
+    _check_names(acts, precision)
+    if x.is_cuda:
+        return _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out)
+    return fused_mlp_forward_ref(x, weights, biases, acts, softmax_out)

@@ -1,0 +1,151 @@
+"""Checkpoint / resume, in the JAX package's npz format.
+
+Parameters go to a single ``.npz`` with a small JSON manifest stored as the
+``__meta__`` array of utf-8 bytes (``tensor_ops_tpu/utils/checkpoint.py``),
+so each package reads the other's files: a ``save_network`` checkpoint
+written by either one serves from both.  Tensors are moved to the host on
+save; bf16 tensors are written as float32 (numpy has no bf16, and the
+widening is exact).
+
+This slice carries the feed-forward and ``FusedMLP`` formats; optimizer
+state, quantized, recurrent and pipeline checkpoints come with their
+models (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+
+def _to_numpy(v: Any) -> np.ndarray:
+    import torch
+
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu()
+        if v.dtype == torch.bfloat16:
+            v = v.float()
+        return v.numpy()
+    return np.asarray(v)
+
+
+def save_arrays(path: str, arrays: Dict[str, Any], meta: Optional[dict] = None) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np_arrays = {k: _to_numpy(v) for k, v in arrays.items()}
+    np_arrays["__meta__"] = np.frombuffer(
+        json.dumps(meta or {}).encode(), dtype=np.uint8
+    )
+    # write to a sibling temp file and os.replace() into place: a crash
+    # mid-write must never leave a torn checkpoint where a good one stood
+    # (rename is atomic on POSIX).  Writing through a file handle also
+    # stops np.savez appending ".npz" to the path.
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as f:
+            np.savez(f, **np_arrays)
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def load_arrays(path: str) -> Tuple[Dict[str, np.ndarray], dict]:
+    with np.load(path) as z:
+        meta = json.loads(bytes(z["__meta__"]).decode()) if "__meta__" in z else {}
+        arrays = {k: z[k] for k in z.files if k != "__meta__"}
+    return arrays, meta
+
+
+def load_meta(path: str) -> dict:
+    """Just the JSON manifest of a checkpoint file; array payloads are
+    not materialized."""
+    with np.load(path) as z:
+        return (json.loads(bytes(z["__meta__"]).decode())
+                if "__meta__" in z.files else {})
+
+
+def save_network(path: str, net, extra_meta: Optional[dict] = None) -> None:
+    """Save a feed-forward Network's params (+ activation names)."""
+    arrays = {f"param_{i}": p for i, p in enumerate(net.params)}
+    meta = {
+        "kind": "feedforward",
+        "param_stack": [list(s) for s in net.param_stack],
+        "in_shape": list(net.in_shape),
+        "out_shape": list(net.out_shape),
+    }
+    if net.act_names is not None:
+        # activation names travel with the weights so a serving process
+        # can rebuild the exact graph without out-of-band layer flags
+        meta["acts"] = list(net.act_names)
+    meta.update(extra_meta or {})
+    save_arrays(path, arrays, meta)
+
+
+def network_from_arrays(arrays: Dict[str, np.ndarray], meta: dict, net, be) -> Any:
+    """Rebuild a Network from already-loaded checkpoint contents: the
+    op graph is ``net``'s (code), the parameters are the arrays, moved to
+    ``be``'s dtype and device.  Raises if a shape or the recorded
+    activation names differ from ``net``'s."""
+    from ..models.feedforward import Network
+    from ..ops.shapes import ShapeError
+
+    params = tuple(
+        be.asarray(arrays[f"param_{i}"]) for i in range(len(net.params))
+    )
+    for p, s in zip(params, net.param_stack):
+        if tuple(p.shape) != tuple(s):
+            raise ShapeError(
+                f"checkpoint param shape {tuple(p.shape)} != expected {tuple(s)}"
+            )
+    saved_acts = meta.get("acts")
+    if (saved_acts is not None and net.act_names is not None
+            and tuple(saved_acts) != tuple(net.act_names)):
+        raise ValueError(
+            f"checkpoint activations {tuple(saved_acts)} != the rebuilt "
+            f"graph's {tuple(net.act_names)} — reconstruct the network "
+            f"with the checkpoint's activations")
+    return Network(net.op, params, net.act_names)
+
+
+def load_network(path: str, net, be) -> Any:
+    """Restore params into an architecture-compatible Network."""
+    arrays, meta = load_arrays(path)
+    return network_from_arrays(arrays, meta, net, be)
+
+
+def save_fused(path: str, model, extra_meta: Optional[dict] = None) -> None:
+    """Save a FusedMLP (weights, biases, activation names)."""
+    arrays = {f"w_{i}": w for i, w in enumerate(model.weights)}
+    arrays.update({f"b_{i}": b for i, b in enumerate(model.biases)})
+    meta = {
+        "kind": "fused_mlp",
+        "acts": list(model.acts),
+        "softmax_out": bool(model.softmax_out),
+        "precision": model.precision,
+        "loss_kind": model.loss_kind,
+    }
+    meta.update(extra_meta or {})
+    save_arrays(path, arrays, meta)
+
+
+def _fused_from_arrays(arrays, meta, device="cpu"):
+    from ..models.fast import FusedMLP
+
+    n = sum(1 for k in arrays if k.startswith("w_"))
+    ws = tuple(arrays[f"w_{i}"] for i in range(n))
+    bs = tuple(arrays[f"b_{i}"] for i in range(n))
+    return FusedMLP.from_numpy(ws, bs, tuple(meta["acts"]),
+                               meta["softmax_out"], device=device,
+                               precision=meta.get("precision", "default"),
+                               loss_kind=meta.get("loss_kind", "ce"))
+
+
+def load_fused(path: str, device="cpu"):
+    arrays, meta = load_arrays(path)
+    return _fused_from_arrays(arrays, meta, device)

@@ -1,0 +1,80 @@
+"""The port never imports JAX: every module imports, and the serving path
+runs end to end, in a fresh interpreter where ``import jax`` fails."""
+
+import os
+import re
+import subprocess
+import sys
+
+import tensor_ops_tpu_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, os, pkgutil, sys, tempfile
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+import numpy as np
+import torch
+import tensor_ops_tpu_torch as TT
+
+names = [m.name for m in pkgutil.walk_packages(TT.__path__, "tensor_ops_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+
+from tensor_ops_tpu_torch.backend.rng import Rng
+from tensor_ops_tpu_torch.models import (FusedMLP, Predictor, act_logistic,
+                                         act_softmax, gen_net)
+from tensor_ops_tpu_torch.ops import ir
+from tensor_ops_tpu_torch.utils.checkpoint import load_network, save_network
+from tensor_ops_tpu_torch.apps import serve
+
+be = TT.TorchBackend(torch.float64)
+net = gen_net(be, 12, 4, [(8, act_logistic())], act_softmax(), Rng(be, 0))
+x = be.asarray(np.linspace(0, 1, 12))
+p = net.run(be, x)
+assert abs(float(p.sum()) - 1) < 1e-12
+v, g = ir.value_and_grad(net.op >> TT.prim.sum_rows((4,)), be,
+                         (x,) + net.params)
+assert len(g) == 1 + len(net.params)
+with tempfile.TemporaryDirectory() as d:
+    ck = os.path.join(d, "n.npz")
+    save_network(ck, net)
+    net2 = load_network(ck, net, be)
+    pred = Predictor(FusedMLP.from_network(net2), buckets=(4,))
+    out = pred.predict(np.random.default_rng(0).uniform(size=(3, 12)))
+    assert out.shape == (3, 4)
+    xf = os.path.join(d, "x.npy")
+    np.save(xf, np.zeros((2, 12), np.float32))
+    serve.main([ck, "-l", "8", "--in-dim", "12", "--out-dim", "4", "-i", xf,
+                "--device", "cpu"])
+assert sys.modules["jax"] is None
+assert not any(m.startswith("jax.") or m == "jaxlib" for m in sys.modules)
+print("NAMES", len(names))
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    n = int(proc.stdout.split("NAMES")[-1])
+    assert n >= 15
+
+
+def test_no_jax_import_in_sources():
+    """Neither JAX nor the JAX package is imported anywhere in the port
+    (nor by the smoke script), not even lazily inside a function."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|tensor_ops_tpu)(?!_torch)\b", re.M)
+    pkg = tensor_ops_tpu_torch.__path__[0]
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path) as fh:
+            if pattern.search(fh.read()):
+                offenders.append(os.path.relpath(path, ROOT))
+    assert len(files) > 15 and offenders == []
