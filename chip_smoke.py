@@ -11,17 +11,29 @@ without printing a result line:
 1. Environment: the card's name and power limit (``nvidia-smi``), the torch
    and CUDA versions.  Exits non-zero when CUDA is not available.
 2. Build: compiles the hand-written kernels from ``tensor_ops_tpu_torch/
-   csrc/`` with ``nvcc`` (``sm_90a``) and prints ptxas' resource report.
+   csrc/`` with ``nvcc`` (``sm_90a``), one compiler per source, all at
+   once, and prints ptxas' resource report.
 3. Kernels: each kernel against its plain PyTorch version on the same
-   inputs, TF32 off, ``torch.cuda.synchronize()`` after every launch.
-4. Slice: the flagship MNIST MLP 784-300-100-10 (random weights, seed 0) is
-   saved with ``save_network`` and served through the serve app
+   inputs, TF32 off, ``torch.cuda.synchronize()`` after every launch; the
+   train step also twice on one input, bit for bit.
+4. Serving slice: the flagship MNIST MLP 784-300-100-10 (random weights,
+   seed 0) is saved with ``save_network`` and served through the serve app
    (``tensor_ops_tpu_torch.apps.serve.main``) and through a per-layer
    ``Predictor``; the served probabilities are held against the port's IR
-   forward on the card and a CPU float64 run of the same checkpoint.  Every
-   kernel must have been launched by this phase.
-5. Timing: p50 serving latency per bucket, and each kernel's time beside
-   its plain version's (median of 50 CUDA-event-timed runs after warm-up).
+   forward on the card and a CPU float64 run of the same checkpoint.  Both
+   serving kernels must have been launched by this phase.
+5. Training slice: the mnist app (``tensor_ops_tpu_torch.apps.mnist.main``)
+   trains the flagship for one epoch of the synthetic set (6,000 rows,
+   batches of 1,000) through ``--minibatch 100 --fused`` (the train-step
+   kernel must have been launched) and through ``--minibatch 100``; the
+   training error must fall in both.  Then 5 steps of ``train_fullfused``
+   on the card are held against ``FusedMLP.train`` on the card and the
+   plain step in CPU float64.
+6. Timing: p50 serving latency per bucket, each kernel's time beside its
+   plain version's (median of 50 CUDA-event-timed runs after warm-up), the
+   profiler's device time of the train step's two kernels, where one
+   training step's time goes on each route (wall, kernels, device busy),
+   and the app's training samples/s per route.
 
 The second-to-last line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -29,6 +41,7 @@ The second-to-last line is ``{"kernels": [...]}``; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -63,7 +76,27 @@ KERNELS = {
         route="cuda",
         source="tensor_ops_tpu_torch/csrc/fused_mlp_forward.cu",
         replaces="tensor_ops_tpu/ops/pallas_kernels.py:288"),
+    "fused_mlp_train_step": dict(
+        route="cuda",
+        source="tensor_ops_tpu_torch/csrc/fused_mlp_train_step.cu",
+        replaces="tensor_ops_tpu/ops/pallas_kernels.py:385"),
 }
+SERVE_KERNELS = ("fused_linear", "fused_mlp_forward")
+# The train step against its plain version: the forward's 784-long sums,
+# the gradient's sums over up to 1,000 rows and the update w - lr*g are
+# taken in another order than cuBLAS takes them, so each value differs by a
+# few f32 ulps of the terms it sums.  The mean loss is held to 1e-6 plus
+# 1e-5 of itself (the squared-error losses reach ~80); new weights and
+# biases to 1e-5 plus 1e-5 of themselves (weights reach ~3, where one ulp
+# is 2.4e-7, and the squared-error gradients are 100x the softmax ones).
+TOL_LOSS = (1e-6, 1e-5)
+TOL_PARAM = (1e-5, 1e-5)
+# Five SGD steps from one start: each step adds its own rounding, and the
+# next step's forward and gradient carry the earlier steps' differences on,
+# so the bound is five times one step's (5 x TOL_PARAM); against the f64
+# plain step the f32 run's own rounding of the parameters adds to that.
+TOL_5_STEPS = (5e-5, 5e-5)
+TRAIN_RATE = 0.3
 
 
 class SmokeFailure(RuntimeError):
@@ -113,8 +146,10 @@ def phase_environment() -> str:
 def phase_build() -> None:
     from tensor_ops_tpu_torch.ops import cuda_build
 
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
     for name, k in KERNELS.items():
-        built = cuda_build.build(name)
+        built = builds[name]
         log(f"[build] {k['source']} -> {built.path.name} in "
             f"{built.seconds:.1f} s")
         for line in built.log.splitlines():
@@ -175,7 +210,58 @@ def phase_kernels() -> dict:
         log(f"[kernel] fused_mlp_forward B={B} {'-'.join(map(str, dims))} "
             f"softmax={int(sm)} rows/block={K.tile_rows(B, dims)} "
             f"max|err| {e:.2e} tol {tol[0]:g}+{tol[1]:g}|ref|")
+
+    steps = [((12, 8, 6, 4), ("logistic", "logistic", "identity"), 16,
+              "softmax_xent")]
+    steps += [(FLAGSHIP, ("logistic", "logistic", "identity"), B,
+               "softmax_xent") for B in (1, 37, 100, 1000)]
+    steps += [((8, 3, 8), ("logistic", "logistic"), 37, "squared_error"),
+              ((784, 300, 784), ("tanh", "logistic"), 37, "squared_error")]
+    for n, (dims, acts, B, kind) in enumerate(steps):
+        args = train_step_inputs(90 + n, dims, B, kind) + (0.1, acts)
+        loss, ws, bs = K._fused_mlp_train_step_cuda(*args, kind)
+        torch.cuda.synchronize()
+        loss_r, ws_r, bs_r = K.fused_mlp_train_step_ref(*args,
+                                                        loss_kind=kind)
+        e_loss = max_err(loss, loss_r, TOL_LOSS)
+        e_par = max(max_err(a, b, TOL_PARAM)
+                    for a, b in zip(ws + bs, ws_r + bs_r))
+        worst["fused_mlp_train_step"] = max(worst["fused_mlp_train_step"],
+                                            e_loss, e_par)
+        log(f"[kernel] fused_mlp_train_step {kind} B={B} "
+            f"{'-'.join(map(str, dims))} rows/block="
+            f"{K.train_tile_rows(B, dims)} loss {float(loss):.6f} max|err| "
+            f"loss {e_loss:.2e} (tol {TOL_LOSS[0]:g}+{TOL_LOSS[1]:g}|ref|), "
+            f"params {e_par:.2e} (tol {TOL_PARAM[0]:g}+{TOL_PARAM[1]:g}|ref|)")
+    # the flagship at B = 1000 once more: the step repeats bit for bit
+    args = train_step_inputs(93, FLAGSHIP, 1000, "softmax_xent") + (
+        0.1, ("logistic", "logistic", "identity"))
+    a = K._fused_mlp_train_step_cuda(*args, "softmax_xent")
+    b = K._fused_mlp_train_step_cuda(*args, "softmax_xent")
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in
+               zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]))
+    check(same, "fused_mlp_train_step: two runs on one input differ")
+    log("[kernel] fused_mlp_train_step flagship B=1000 twice: bit-equal")
     return worst
+
+
+def train_step_inputs(seed: int, dims, B: int, kind: str):
+    """x (pixel-like), y (one-hot, or x itself for the squared error) and
+    weights at a trained net's 1/sqrt(fan-in) scale, on the card."""
+    r = np.random.default_rng(seed)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
+
+    x = r.uniform(0, 1, size=(B, dims[0]))
+    y = (np.eye(dims[-1])[r.integers(0, dims[-1], size=B)]
+         if kind == "softmax_xent" else x)
+    ws = [dev(r.normal(size=(dims[k + 1], dims[k])) / np.sqrt(dims[k]))
+          for k in range(len(dims) - 1)]
+    bs = [dev(r.normal(size=dims[k + 1]) * 0.3)
+          for k in range(len(dims) - 1)]
+    return dev(x), dev(y), ws, bs
 
 
 def _served_probs(stdout: str, n: int) -> np.ndarray:
@@ -249,9 +335,119 @@ def phase_slice(tmp: str) -> dict:
         log(f"[slice] {what} rows sum to 1: max|err| {e:.2e}")
         check(np.array_equal(got.argmax(1), f64.argmax(1)),
               f"{what}: classes differ from the CPU f64 run")
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the slice")
     return {"launches": launches, "model": model}
+
+
+@contextlib.contextmanager
+def no_download():
+    """The loader's download attempt fails at once, without a socket: this
+    smoke run never reaches for the network, and the app falls back to its
+    synthetic set as it does offline."""
+    from tensor_ops_tpu_torch.utils import mnist_data
+
+    def refuse(url, timeout=20.0):
+        raise OSError(f"no network in this smoke run ({url})")
+
+    saved, mnist_data._fetch = mnist_data._fetch, refuse
+    try:
+        yield
+    finally:
+        mnist_data._fetch = saved
+
+
+def run_mnist_app(tmp: str, extra) -> dict:
+    """``apps.mnist.main`` for one epoch of the synthetic set at the
+    flagship's widths, in a fresh data directory; the training errors, the
+    samples/s after the first (warm-up) batch from the app's own per-batch
+    ``--metrics`` record, and the launch counts."""
+    from tensor_ops_tpu_torch.apps import mnist
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    data = tempfile.mkdtemp(dir=tmp)
+    record = os.path.join(data, "metrics.jsonl")
+    argv = ["--epochs", "1", "-b", "1000", "-d", data, "--device", DEVICE,
+            "--seed", "0", "--metrics", record, *extra]
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with no_download(), contextlib.redirect_stdout(buf):
+        mnist.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    lines = buf.getvalue().splitlines()
+    i_loaded = lines.index("Loaded data.")
+    check(any("SYNTHETIC" in l for l in lines[:i_loaded]),
+          "the app did not fall back to the synthetic set")
+    train = [float(l.split()[1].rstrip("%")) for l in lines
+             if l.startswith("Training:")]
+    val = [float(l.split()[1].rstrip("%")) for l in lines
+           if l.startswith("Validation:")]
+    with open(record) as f:
+        seconds = [json.loads(l)["batch_seconds"] for l in f]
+    check(len(train) == len(val) == len(seconds) == 6,
+          f"{' '.join(extra)}: {len(train)} training and {len(val)} "
+          f"validation errors for 6 batches")
+    check(train[-1] < train[0], f"{' '.join(extra)}: training error did not "
+          f"fall ({train})")
+    rate = 5 * 1000 / sum(seconds[1:])
+    log(f"[train] mnist {' '.join(extra)}: {wall:.1f} s in all; training "
+        f"error {train} %, validation error {val} %; {rate:.0f} samples/s "
+        f"over batches 2-6 (batch 1: {seconds[0] * 1e3:.2f} ms); launches "
+        f"{launches}")
+    return {"launches": launches, "samples_per_s": rate}
+
+
+def phase_train(tmp: str) -> dict:
+    from tensor_ops_tpu_torch.models import FusedMLP
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.utils.mnist_data import load_mnist
+
+    t0 = time.perf_counter()
+    with no_download(), contextlib.redirect_stdout(io.StringIO()):
+        train_raw, _ = load_mnist(tempfile.mkdtemp(dir=tmp))
+    log(f"[train] offline fallback to the synthetic set in a fresh data "
+        f"directory: {time.perf_counter() - t0:.2f} s "
+        f"({len(train_raw)} training rows)")
+
+    fused = run_mnist_app(tmp, ["--minibatch", "100", "--fused"])
+    check(fused["launches"]["fused_mlp_train_step"] > 0,
+          "the --fused run did not launch fused_mlp_train_step")
+    minibatch = run_mnist_app(tmp, ["--minibatch", "100"])
+
+    # 5 steps on one fixed minibatch of the synthetic set, from one start
+    xb = np.stack([d / 255.0 for _, d in train_raw[:100]])
+    yb = np.eye(10)[[l for l, _ in train_raw[:100]]]
+    r = np.random.default_rng(5)
+    ws = [r.normal(size=(FLAGSHIP[k + 1], FLAGSHIP[k])) * 0.5
+          for k in range(3)]
+    bs = [r.normal(size=FLAGSHIP[k + 1]) * 0.5 for k in range(3)]
+    acts = ("logistic", "logistic", "identity")
+    kernel = plain = FusedMLP.from_numpy(
+        [w.astype(np.float32) for w in ws],
+        [b.astype(np.float32) for b in bs], acts, device=DEVICE)
+    x32 = torch.as_tensor(xb, dtype=torch.float32, device=DEVICE)
+    y32 = torch.as_tensor(yb, dtype=torch.float32, device=DEVICE)
+    ws64, bs64 = ([torch.as_tensor(w) for w in ws],
+                  [torch.as_tensor(b) for b in bs])
+    x64, y64 = torch.as_tensor(xb), torch.as_tensor(yb)
+    for _ in range(5):
+        _, kernel = kernel.train_fullfused(TRAIN_RATE, x32, y32)
+        _, plain = plain.train(TRAIN_RATE, x32, y32)
+        _, ws64, bs64 = K.fused_mlp_train_step_ref(
+            x64, y64, ws64, bs64, TRAIN_RATE, acts)
+    torch.cuda.synchronize()
+    for what, ref in (("FusedMLP.train on the card", plain.to_params()),
+                      ("the plain step in CPU f64",
+                       [p for wb in zip(ws64, bs64) for p in wb])):
+        e = max(max_err(a, b, TOL_5_STEPS)
+                for a, b in zip(kernel.to_params(), ref))
+        log(f"[train] 5 train_fullfused steps (rate {TRAIN_RATE}, B=100) vs "
+            f"{what}: max|err| {e:.2e} tol {TOL_5_STEPS[0]:g}+"
+            f"{TOL_5_STEPS[1]:g}|ref|")
+    return {"fused": fused, "minibatch": minibatch}
 
 
 def _median_ms(fn) -> float:
@@ -321,7 +517,106 @@ def phase_timing(model) -> dict:
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
             if B == 8:
                 times["fused_mlp_forward"] = (k_ms, p_ms)
+
+    acts = ("logistic", "logistic", "identity")
+    for B in (100, 1000):
+        x, y, tw, tb = train_step_inputs(110 + B, FLAGSHIP, B, "softmax_xent")
+        k_ms = _median_ms(lambda: K._fused_mlp_train_step_cuda(
+            x, y, tw, tb, 0.1, acts, "softmax_xent"))
+        p_ms = _median_ms(lambda: K.fused_mlp_train_step_ref(
+            x, y, tw, tb, 0.1, acts))
+        log(f"[timing] fused_mlp_train_step B={B} flagship: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        if B == 100:
+            times["fused_mlp_train_step"] = (k_ms, p_ms)
+        prof = _profile_steps(lambda: K._fused_mlp_train_step_cuda(
+            x, y, tw, tb, 0.1, acts, "softmax_xent"))
+        check(sorted(prof["by_kernel"]) == ["mlp_train_partial_kernel",
+                                            "sgd_reduce_kernel"],
+              f"profiler saw the step's kernels as {sorted(prof['by_kernel'])}")
+        log(f"[timing] fused_mlp_train_step B={B} device time per step "
+            f"(profiler, 10 steps): " + ", ".join(
+                f"{n} {us:.1f} us" for n, us in prof["by_kernel"].items()))
     return times
+
+
+def _profile_steps(step, steps: int = 10) -> dict:
+    """One training step's device work: CUDA kernels launched, copies and
+    memsets, and device busy time per step (``torch.profiler``, kernel and
+    copy rows only), by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    by_kernel, launches, copies, busy = {}, 0, 0, 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        busy += us
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            launches += 1
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = name.replace("void ", "").split("(")[0].split("<")[0]
+        by_kernel[name] = by_kernel.get(name, 0.0) + us / steps
+    return {"launches": launches / steps, "copies": copies / steps,
+            "busy_us": busy / steps,
+            "by_kernel": dict(sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1]))}
+
+
+def phase_train_routes() -> None:
+    """Where a flagship training step's time goes on the card at the
+    app's minibatch of 100, for each route: wall time per step (host clock
+    over 20 steps ending in a synchronise), kernels launched and device
+    busy time per step (profiler), and the device's idle share."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (FusedMLP, act_logistic,
+                                             act_softmax, cross_entropy,
+                                             gen_net)
+    from tensor_ops_tpu_torch.models.training import train_minibatch
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net = gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                  [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
+                  act_softmax(), Rng(be, 0))
+    fm = FusedMLP.from_network(net)
+    loss = cross_entropy(FLAGSHIP[-1])
+    x, y, _, _ = train_step_inputs(120, FLAGSHIP, 100, "softmax_xent")
+    routes = {
+        "--fused (train_fullfused)":
+            lambda: fm.train_fullfused(TRAIN_RATE, x, y),
+        "FusedMLP.train (fused_linear + autograd)":
+            lambda: fm.train(TRAIN_RATE, x, y),
+        "--minibatch (IR, vmapped)":
+            lambda: train_minibatch(net, loss, be, TRAIN_RATE, x, y),
+    }
+    for name, step in routes.items():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / 20 * 1e6
+        prof = _profile_steps(step)
+        top = ", ".join(f"{n} {us:.1f}" for n, us in
+                        list(prof["by_kernel"].items())[:3])
+        log(f"[timing] step B=100 {name}: {wall_us:.1f} us/step wall, "
+            f"{prof['launches']:.0f} kernels + {prof['copies']:.0f} "
+            f"copies/step, device busy "
+            f"{prof['busy_us']:.1f} us/step, idle share "
+            f"{1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): {top}")
 
 
 def main() -> int:
@@ -332,8 +627,19 @@ def main() -> int:
     worst = phase_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         sl = phase_slice(tmp)
+        tr = phase_train(tmp)
     times = phase_timing(sl["model"])
-    kernels = [dict(name=n, **KERNELS[n], launches=sl["launches"][n],
+    phase_train_routes()
+    for route in ("fused", "minibatch"):
+        log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
+            f": {tr[route]['samples_per_s']:.0f} training samples/s "
+            f"(host clock, batches 2-6, the app's --metrics record)")
+    # each kernel's launches are those of the path it serves: the serving
+    # slice for the two forward kernels, the --fused mnist run for the step
+    launches = dict(sl["launches"])
+    launches["fused_mlp_train_step"] = (
+        tr["fused"]["launches"]["fused_mlp_train_step"])
+    kernels = [dict(name=n, **KERNELS[n], launches=launches[n],
                     max_abs_err=worst[n], ms=times[n][0],
                     plain_ms=times[n][1])
                for n in KERNELS]

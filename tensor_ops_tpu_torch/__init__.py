@@ -11,9 +11,10 @@ never ``jax``.  Its layout mirrors the JAX package's:
 * ``ops.kernels`` — the hand-written CUDA kernels and their plain versions
 * ``backend``     — the 13-primitive Tensor seam: ``TorchBackend``
 * ``engine``      — cached graph callables (eager execution)
-* ``models``      — activations/losses, feed-forward, ``FusedMLP``,
-  ``Predictor``
-* ``apps.serve``  — the serving CLI
+* ``models``      — activations/losses, feed-forward networks and their
+  training, ``FusedMLP``, ``Predictor``
+* ``apps``        — the serving CLI (``apps.serve``) and the MNIST
+  trainer (``apps.mnist``)
 """
 
 from .backend.base import (Backend, CustomDistribution, Distribution,

@@ -1,9 +1,10 @@
 """The models ported so far: activations and losses, feed-forward
-networks, the kernel-fused ``FusedMLP`` and the ``Predictor`` that serves
-it.  Recurrent, autoencoder, training and the optimizers come in later
-slices (ROADMAP.md, Queue 1)."""
+networks and their batched training (``training``), the kernel-fused
+``FusedMLP`` and the ``Predictor`` that serves them.  ``fit``, the
+optimizers, recurrent and autoencoder models come in later slices
+(ROADMAP.md, Queue 1)."""
 
-from . import fast, feedforward, neuralnet, serve
+from . import fast, feedforward, neuralnet, serve, training
 from .neuralnet import (
     Activation,
     act_logistic,

@@ -7,10 +7,9 @@ kernel-fused executor: each layer is one ``fused_linear`` launch (matmul +
 bias + activation), inference can use the single-launch whole-network
 ``fused_mlp_forward``, and ``run_xla`` is the same network as plain
 PyTorch matmuls (cuBLAS), as the JAX package leaves it to XLA's own GEMM
-fusion.
-
-This slice carries inference only; ``train`` and ``train_fullfused`` come
-with the training slice (ROADMAP.md, Queue 1, "Flagship learn layer").
+fusion.  ``train`` is one SGD step by autograd through ``fused_linear``;
+``train_fullfused`` is the whole step in the ``fused_mlp_train_step``
+kernel.  Both return a new ``FusedMLP`` and leave this one as it was.
 """
 
 from __future__ import annotations
@@ -21,7 +20,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels import _act_fn, fused_linear, fused_mlp_forward
+from ..ops.kernels import (_act_fn, fused_linear, fused_mlp_forward,
+                           fused_mlp_train_step)
 from .feedforward import Network
 
 
@@ -113,20 +113,23 @@ class FusedMLP:
         return tuple(out)
 
     # -- forward -----------------------------------------------------------
+    def _layers_forward(self, x, weights, biases) -> torch.Tensor:
+        h = x
+        n = len(weights)
+        for k in range(n):
+            if k == n - 1 and self.softmax_out:
+                z = fused_linear(h, weights[k], biases[k], "identity",
+                                 self.precision)
+                h = torch.softmax(z, dim=-1)
+            else:
+                h = fused_linear(h, weights[k], biases[k], self.acts[k],
+                                 self.precision)
+        return h
+
     def run(self, x) -> torch.Tensor:
         """Layer-by-layer forward, one ``fused_linear`` launch per layer
         (differentiable)."""
-        h = x
-        n = len(self.weights)
-        for k in range(n):
-            if k == n - 1 and self.softmax_out:
-                z = fused_linear(h, self.weights[k], self.biases[k],
-                                 "identity", self.precision)
-                h = torch.softmax(z, dim=-1)
-            else:
-                h = fused_linear(h, self.weights[k], self.biases[k],
-                                 self.acts[k], self.precision)
-        return h
+        return self._layers_forward(x, self.weights, self.biases)
 
     def run_xla(self, x) -> torch.Tensor:
         """The same network as plain PyTorch ops (cuBLAS matmuls), the
@@ -146,3 +149,51 @@ class FusedMLP:
         """Whole-network forward in one ``fused_mlp_forward`` launch."""
         return fused_mlp_forward(x, self.weights, self.biases, self.acts,
                                  self.softmax_out, precision=self.precision)
+
+    # -- training -----------------------------------------------------------
+    def _loss(self, x, y, weights, biases) -> torch.Tensor:
+        p = self._layers_forward(x, weights, biases)
+        if self.loss_kind == "mse":
+            return ((y - p) ** 2).sum(dim=-1).mean()
+        # match crossEntropy = -<log p, y>
+        return -(y * torch.log(p + 1e-30)).sum(dim=-1).mean()
+
+    def _replaced(self, weights, biases) -> "FusedMLP":
+        return FusedMLP(tuple(weights), tuple(biases), self.acts,
+                        self.softmax_out, self.precision, self.loss_kind)
+
+    def train(self, rate: float, xb, yb) -> Tuple[torch.Tensor, "FusedMLP"]:
+        """One minibatch SGD step by autograd through the per-layer
+        ``fused_linear`` (its kernel runs the forward on the card).
+        Returns (mean loss as a 0-d tensor, the updated model)."""
+        ws = [w.detach().requires_grad_() for w in self.weights]
+        bs = [b.detach().requires_grad_() for b in self.biases]
+        with torch.enable_grad():
+            v = self._loss(xb, yb, ws, bs)
+            grads = torch.autograd.grad(v, ws + bs)
+        n = len(ws)
+        with torch.no_grad():
+            new_ws = [w - rate * g for w, g in zip(ws, grads[:n])]
+            new_bs = [b - rate * g for b, g in zip(bs, grads[n:])]
+        return v.detach(), self._replaced(new_ws, new_bs)
+
+    def train_fullfused(self, rate: float, xb, yb
+                        ) -> Tuple[float, "FusedMLP"]:
+        """The ENTIRE SGD step (forward, backward, update) in the
+        ``fused_mlp_train_step`` kernel: softmax output + cross-entropy
+        (the flagship configuration), or, with ``softmax_out=False`` and
+        ``loss_kind="mse"``, ``acts[-1]`` output + squared error (the
+        autoencoder configuration).  Returns (mean loss, updated model)."""
+        if self.softmax_out:
+            kind = "softmax_xent"
+            if self.loss_kind == "mse":
+                raise ValueError("mse loss needs softmax_out=False")
+        elif self.loss_kind == "mse":
+            kind = "squared_error"
+        else:
+            raise ValueError(
+                "train_fullfused supports softmax+ce or mse without softmax")
+        v, ws, bs = fused_mlp_train_step(
+            xb, yb, list(self.weights), list(self.biases), rate, self.acts,
+            precision=self.precision, loss_kind=kind)
+        return float(v), self._replaced(ws, bs)

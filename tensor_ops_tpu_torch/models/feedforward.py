@@ -4,11 +4,9 @@
 A :class:`Network` pairs one staged op ``('[i] : ps) -> '[[o]]`` with its
 parameter stack (the reference stores params as an existential shape-list,
 ``FeedForward.hs:57-61``; here just a tuple of tensors whose shapes are the
-op's input stack tail).
-
-This slice of the port carries composition and ``run``; ``train``,
-``net_grad`` and ``induce*`` come with the training slice (ROADMAP.md,
-Queue 1, "Flagship learn layer").
+op's input stack tail).  Training and gradients compose the network op
+with a loss op and run one staged forward + transposition, evaluated
+eagerly (the JAX package jits the same graph into one XLA program).
 """
 
 from __future__ import annotations
@@ -19,6 +17,7 @@ from typing import Any, Callable, Optional, Sequence, Tuple
 from .. import engine
 from ..backend.base import Backend, normal
 from ..backend.rng import Rng
+from ..ops import ir
 from ..ops import prim as P
 from ..ops.ir import Compose, First, TOp
 from ..ops.shapes import ShapeError
@@ -92,6 +91,65 @@ class Network:
         """``runNetwork`` (``FeedForward.hs:123-129``): one sample."""
         fn = engine.compile_run(self.op, be)
         return fn(x, *self.params)[0]
+
+    # -- gradients & training (FeedForward.hs:131-199) -------------------
+    def _loss_op(self, loss: TOp) -> TOp:
+        """Compose ``op *>> loss`` once and cache it on the (stable) op
+        object, so functional parameter updates reuse it (``netGrad``
+        builds ``o' = o *>> loss``, ``FeedForward.hs:196``)."""
+        key = ("loss", loss.struct_key())
+        composed = self.op._compiled.get(key)
+        if composed is None:
+            composed = self.op.lead(loss)
+            self.op._compiled[key] = composed
+        return composed
+
+    def net_grad(self, loss: TOp, be: Backend, x: Any, y: Any
+                 ) -> Tuple[Any, ...]:
+        """Gradient w.r.t. (input, *params): runs ``gradTOp`` on
+        ``op *>> loss`` with stack ``x : params >: y`` and drops the
+        target's gradient (``netGrad``, ``FeedForward.hs:178-199``)."""
+        fn = engine.compile_grad(self._loss_op(loss), be)
+        return fn(x, *self.params, y)[:-1]
+
+    def network_gradient(self, loss: TOp, be: Backend, x: Any, y: Any
+                         ) -> Tuple[Any, ...]:
+        """Parameter gradients only (``networkGradient``,
+        ``FeedForward.hs:166-176``)."""
+        return self.net_grad(loss, be, x, y)[1:]
+
+    def loss_value(self, loss: TOp, be: Backend, x: Any, y: Any) -> Any:
+        fn = engine.compile_run(self._loss_op(loss), be)
+        return fn(x, *self.params, y)[0]
+
+    def train(self, loss: TOp, rate: float, be: Backend, x: Any, y: Any
+              ) -> "Network":
+        """One per-sample SGD step ``p <- p - r*g`` (``trainNetwork``,
+        ``FeedForward.hs:131-148``)."""
+        grads = ir.grad(self._loss_op(loss), be, (x,) + self.params + (y,))
+        new_params = tuple(p - rate * g
+                           for p, g in zip(self.params, grads[1:-1]))
+        return Network(self.op, new_params, self.act_names)
+
+    def induce(self, loss: TOp, rate: float, be: Backend, y: Any, x: Any
+               ) -> Any:
+        """Gradient descent *on the input*, params fixed
+        (``induceNetwork``, ``FeedForward.hs:150-164``)."""
+        dx = self.net_grad(loss, be, x, y)[0]
+        return x - rate * dx
+
+    def induce_many(self, loss: TOp, rate: float, be: Backend, y: Any,
+                    x: Any, steps: int) -> Any:
+        """``steps`` induction iterations (``induceNum`` runs 5000
+        sequential ``induceNetwork`` calls, ``app/MNIST.hs:399-411``), as
+        a Python loop over the staged gradient; the JAX package runs them
+        in one jitted ``fori_loop``."""
+        composed = self._loss_op(loss)
+        xc = x
+        for _ in range(int(steps)):
+            grads = ir.grad(composed, be, (xc,) + self.params + (y,))
+            xc = xc - rate * grads[0]
+        return xc
 
 
 def unchain(op: TOp) -> list:

@@ -1,30 +1,34 @@
 """Serving: a warm, latency-tracked predictor over trained networks.
 
 The reference has no inference story beyond calling ``runNetwork`` in a
-loop; for production serving this wraps a ``FusedMLP`` with shape-bucketed
-forwards, explicit warmup, latency statistics and an atomic hot swap.
+loop; for production serving this wraps a staged-IR ``Network`` (with its
+backend) or a ``FusedMLP`` with shape-bucketed forwards, explicit warmup,
+latency statistics and an atomic hot swap.
 
-Routing is the JAX package's: batches under ``xla_threshold`` go to the
-whole-network kernel ``fused_mlp_forward``, larger ones to plain matmuls
-(``FusedMLP.run_xla``), and ``use_fused_kernel=False`` sends every batch
-through the per-layer kernel ``fused_linear``.
+Routing is the JAX package's: a ``Network`` runs its graph vmapped over the
+batch (``batched_run``); for a ``FusedMLP``, batches under
+``xla_threshold`` go to the whole-network kernel ``fused_mlp_forward``,
+larger ones to plain matmuls (``FusedMLP.run_xla``), and
+``use_fused_kernel=False`` sends every batch through the per-layer kernel
+``fused_linear``.
 
-Not yet ported: a staged-IR ``Network`` served directly (it needs
-``models/training.py``'s ``batched_run``), the mesh-sharded route,
-``QuantizedMLP`` and ``SequencePredictor`` (ROADMAP.md, Queue 1).
+Not yet ported: the mesh-sharded route, ``QuantizedMLP`` and
+``SequencePredictor`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ..backend.base import Backend
 from ..utils.profiling import StepTimer
 from .fast import FusedMLP
 from .feedforward import Network
+from .training import batched_run
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -40,15 +44,16 @@ def _bucket_of(buckets, n: int) -> int:
     return ((n + top - 1) // top) * top
 
 
-def _servable(model, dtype: Optional[str]) -> FusedMLP:
+def _servable(model, be: Optional[Backend], dtype: Optional[str]):
     if isinstance(model, Network):
-        raise TypeError(
-            "serving a staged-IR Network directly needs "
-            "models/training.py's batched_run, which is not ported yet "
-            "(ROADMAP.md Queue 1: 'Flagship learn layer'); convert it "
-            "with FusedMLP.from_network")
+        if be is None:
+            raise ValueError("Network predictor needs a backend")
+        if dtype is not None:
+            raise ValueError("dtype= applies to FusedMLP models (Network "
+                             "predictors follow their backend)")
+        return model
     if not isinstance(model, FusedMLP):
-        raise TypeError(f"Predictor serves a FusedMLP, got "
+        raise TypeError(f"Predictor serves a Network or a FusedMLP, got "
                         f"{type(model).__name__}")
     if dtype is not None:
         # storage-dtype knob: "bf16" halves the weight memory
@@ -60,11 +65,15 @@ def _servable(model, dtype: Optional[str]) -> FusedMLP:
 
 class Predictor:
     """Batched prediction with shape bucketing: a request is padded to the
-    next bucket, so a deployment serves a fixed set of batch shapes."""
+    next bucket, so a deployment serves a fixed set of batch shapes.
+
+    Serves a staged-IR ``Network`` together with its backend ``be``, or a
+    ``FusedMLP`` (whose tensors carry their device)."""
 
     def __init__(
         self,
-        model: FusedMLP,
+        model: Union[Network, FusedMLP],
+        be: Optional[Backend] = None,
         buckets: Sequence[int] = (1, 8, 32, 128, 512),
         use_fused_kernel: bool = True,
         xla_threshold: int = 64,
@@ -75,19 +84,27 @@ class Predictor:
         self.xla_threshold = xla_threshold
         self._dtype = dtype  # remembered so reload() keeps the knob
         self.timer = StepTimer()
-        # ONE attribute holds what a request routes on, so a reload() swap
-        # is a single atomic assignment
-        self._model = _servable(model, dtype)
+        # ONE attribute holds what a request routes on (the backend
+        # included: a Network swapped in by reload() arrives with its
+        # backend), so a reload() swap is a single atomic assignment
+        self._serving = (_servable(model, be, dtype), be)
 
     @property
-    def model(self) -> FusedMLP:
-        return self._model
+    def model(self) -> Union[Network, FusedMLP]:
+        return self._serving[0]
+
+    @property
+    def be(self) -> Optional[Backend]:
+        return self._serving[1]
 
     def _bucket(self, n: int) -> int:
         return _bucket_of(self.buckets, n)
 
-    def _forward(self, model: FusedMLP, xb: torch.Tensor) -> torch.Tensor:
+    def _forward(self, serving, xb: torch.Tensor) -> torch.Tensor:
+        model, be = serving
         with torch.inference_mode():
+            if isinstance(model, Network):
+                return batched_run(model, be)(xb, *model.params)
             if not self.use_fused_kernel:
                 return model.run(xb)
             if xb.shape[0] >= self.xla_threshold:
@@ -96,19 +113,22 @@ class Predictor:
 
     def warmup(self) -> None:
         """Run every bucket once ahead of serving (builds the kernels)."""
-        model = self._model
-        i = model.weights[0].shape[1]
+        serving = self._serving
+        i = _in_width(serving[0])
         for b in self.buckets:
             x = np.zeros((b, i), dtype=np.float32)
-            self._forward(model, self._as(model, x)).cpu()
+            self._forward(serving, self._as(serving, x)).cpu()
 
     @staticmethod
-    def _as(model: FusedMLP, x: np.ndarray) -> torch.Tensor:
+    def _as(serving, x: np.ndarray) -> torch.Tensor:
+        model, be = serving
+        if isinstance(model, Network):
+            return be.asarray(x)
         return torch.as_tensor(x, dtype=torch.float32, device=model.device)
 
     def predict(self, x: Any) -> np.ndarray:
         """Class probabilities for a batch (any leading size)."""
-        model = self._model  # one consistent read per request
+        serving = self._serving  # one consistent read per request
         x = np.asarray(x, dtype=np.float32)
         squeeze = x.ndim == 1
         if squeeze:
@@ -118,7 +138,7 @@ class Predictor:
         if b != n:
             x = np.pad(x, ((0, b - n), (0, 0)))
         self.timer.start()
-        out = self._forward(model, self._as(model, x)).cpu().numpy()
+        out = self._forward(serving, self._as(serving, x)).cpu().numpy()
         self.timer.stop()
         out = out[:n]
         return out[0] if squeeze else out
@@ -132,24 +152,28 @@ class Predictor:
 
     _KEEP = object()  # reload sentinel: inherit this predictor's knob
 
-    def reload(self, model: FusedMLP, dtype=_KEEP) -> None:
+    def reload(self, model, dtype=_KEEP, be: Optional[Backend] = None
+               ) -> None:
         """Zero-downtime model swap: the replacement is converted and
         WARMED for every bucket BEFORE the switch, then swaps in with ONE
         atomic assignment (a concurrent request sees wholly-old or
         wholly-new).  The replacement must serve the same input and
-        output widths.  ``dtype`` defaults to the knob this predictor was
-        built with; pass None or another value to change it.  Latency
-        stats continue across the swap."""
-        if dtype is Predictor._KEEP:
-            dtype = self._dtype
-        new = Predictor(model, buckets=self.buckets,
+        output widths; its kind may change (pass ``be=`` for a Network
+        when this predictor has none).  ``dtype`` defaults to the knob
+        this predictor was built with; pass None or another value to
+        change it.  An inherited knob is not applied to a Network (its
+        backend sets its dtype) but is remembered for a later FusedMLP.
+        Latency stats continue across the swap."""
+        explicit = dtype is not Predictor._KEEP
+        remembered = dtype if explicit else self._dtype
+        if not explicit:
+            dtype = None if isinstance(model, Network) else self._dtype
+        new = Predictor(model, be=be or self.be, buckets=self.buckets,
                         use_fused_kernel=self.use_fused_kernel,
                         xla_threshold=self.xla_threshold, dtype=dtype)
-        old_m, new_m = self._model, new.model
         for what, old_w, new_w in (
-                ("input", old_m.weights[0].shape[1], new_m.weights[0].shape[1]),
-                ("output", old_m.weights[-1].shape[0],
-                 new_m.weights[-1].shape[0])):
+                ("input", _in_width(self.model), _in_width(new.model)),
+                ("output", _out_width(self.model), _out_width(new.model))):
             if old_w != new_w:
                 raise ValueError(
                     f"reload would change the serving interface: "
@@ -157,5 +181,17 @@ class Predictor:
                     f"replacement's is {new_w} — deploy a new Predictor "
                     f"instead")
         new.warmup()  # build and run every bucket before anyone sees it
-        self._dtype = dtype
-        self._model = new.model  # the one atomic switch
+        self._dtype = remembered
+        self._serving = new._serving  # the one atomic switch
+
+
+def _in_width(model) -> int:
+    if isinstance(model, FusedMLP):
+        return model.weights[0].shape[1]
+    return model.in_shape[0]
+
+
+def _out_width(model) -> int:
+    if isinstance(model, FusedMLP):
+        return model.weights[-1].shape[0]
+    return model.out_shape[0]

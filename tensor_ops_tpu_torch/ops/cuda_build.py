@@ -39,7 +39,8 @@ class Built:
     log: str        # nvcc's output (ptxas resource usage), "" when reused
 
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks and _loaded
+_locks: dict = {}         # one per kernel, so different kernels build at once
 _loaded: dict = {}
 
 
@@ -59,8 +60,11 @@ def _nvcc() -> str:
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if its library is missing or stale, load
     it, and return it.  Raises ``RuntimeError`` with nvcc's output when the
-    compile fails."""
+    compile fails.  Different kernels may be built from several threads at
+    once; one kernel is built once."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
@@ -87,5 +91,6 @@ def build(name: str) -> Built:
                     tmp.unlink()
             seconds = time.perf_counter() - t0
         built = Built(ctypes.CDLL(str(so)), so, seconds, log)
-        _loaded[name] = built
+        with _lock:
+            _loaded[name] = built
         return built

@@ -1,5 +1,5 @@
-"""The serving path's kernels, each written by hand in CUDA C++ for Hopper
-and kept beside its plain PyTorch version.
+"""The port's kernels, each written by hand in CUDA C++ for Hopper and kept
+beside its plain PyTorch version.
 
 * :func:`fused_linear` — ``act(x @ w.T + b)`` (``csrc/fused_linear.cu``),
   the port of the TPU kernel ``_linear_act_kernel``, with its backward in
@@ -7,6 +7,9 @@ and kept beside its plain PyTorch version.
 * :func:`fused_mlp_forward` — a whole ffLayer chain with an optional
   softmax output in one launch (``csrc/fused_mlp_forward.cu``), the port of
   the TPU kernel ``_mlp_kernel``.
+* :func:`fused_mlp_train_step` — one whole SGD step (forward, loss,
+  backward, update) in two launches (``csrc/fused_mlp_train_step.cu``), the
+  port of the TPU kernel ``_mlp_train_kernel``.
 
 A wrapper takes its plain version (``*_ref``) only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises: no fallback.  Each
@@ -30,10 +33,14 @@ ACT_CODES = {"identity": 0, "logistic": 1, "relu": 2, "tanh": 3}
 PRECISIONS = ("default", "highest")
 MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory one H100 block may use
 MAX_TILE_ROWS = 32           # fused_mlp_forward: one partial sum per lane
-MAX_LAYERS = 16              # fused_mlp_forward: layers in one launch
+MAX_LAYERS = 16              # whole-chain kernels: layers in one launch
+MAX_TRAIN_TILE_ROWS = 16     # fused_mlp_train_step: batch rows per block
+MAX_TRAIN_SLOTS = 256        # fused_mlp_train_step: partial-gradient slots
+LOSS_KINDS = {"softmax_xent": 0, "squared_error": 1}
 
 _launch_lock = threading.Lock()
-_launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0}
+_launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0,
+                             "fused_mlp_train_step": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -308,3 +315,171 @@ def fused_mlp_forward(x, weights, biases, acts: Sequence[str],
     if x.is_cuda:
         return _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out)
     return fused_mlp_forward_ref(x, weights, biases, acts, softmax_out)
+
+
+# ---------------------------------------------------------------------------
+# fused_mlp_train_step: one whole SGD step
+# ---------------------------------------------------------------------------
+
+
+def fused_mlp_train_step_ref(x, y, weights, biases, lr, acts: Sequence[str],
+                             precision: str = "default",
+                             loss_kind: str = "softmax_xent"):
+    """Plain PyTorch whole SGD step, the math of the TPU kernel
+    ``_mlp_train_kernel``: forward in f32 (in f64 when x is f64, for an
+    exact reference); softmax + cross-entropy
+    ``-sum y log(where(p > 0, p, 1))`` or ``acts[-1]`` + squared error
+    summed over the outputs; both meaned over the batch; the explicit
+    backward of the mean; ``w - lr * g``.  Returns ``(loss, new_weights,
+    new_biases)``, each new parameter in its old dtype."""
+    n = len(weights)
+    batch = x.shape[0]
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    h = x.to(ft)
+    hs, zs = [h], []
+    for k in range(n):
+        z = h @ weights[k].to(ft).T + biases[k].to(ft)
+        zs.append(z)
+        if k < n - 1:
+            h = _act_fn(acts[k])(z)
+            hs.append(h)
+    y = y.to(ft)
+    if loss_kind == "softmax_xent":
+        p = torch.softmax(zs[-1], dim=-1)
+        logp = torch.log(torch.where(p > 0, p, torch.ones_like(p)))
+        loss = -(y * logp).sum() / batch
+        dz = (p - y) / batch
+    else:
+        d = _act_fn(acts[-1])(zs[-1]) - y
+        loss = (d * d).sum() / batch
+        dz = (2.0 * d) * _act_grad(acts[-1])(zs[-1]) / batch
+    new_ws, new_bs = [None] * n, [None] * n
+    for k in range(n - 1, -1, -1):
+        w = weights[k].to(ft)
+        new_ws[k] = (w - lr * (dz.T @ hs[k])).to(weights[k].dtype)
+        new_bs[k] = (biases[k].to(ft) - lr * dz.sum(dim=0)).to(
+            biases[k].dtype)
+        if k > 0:
+            dz = (dz @ w) * _act_grad(acts[k - 1])(zs[k - 1])
+    return loss, new_ws, new_bs
+
+
+def train_smem_bytes(rows: int, widths: Sequence[int]) -> int:
+    """Shared memory one block of the train-step kernel takes for a tile of
+    ``rows`` rows: every layer's input and the output (``rows x width``
+    each), two dz buffers of the widest output, and a loss per row, each
+    rounded up to 4 floats (the layout of ``csrc/fused_mlp_train_step.cu``)."""
+    def r4(n):
+        return (n + 3) // 4 * 4
+
+    floats = (sum(r4(rows * d) for d in widths)
+              + 2 * r4(rows * max(widths[1:])) + r4(rows))
+    return 4 * floats
+
+
+def train_tile_rows(batch: int, widths: Sequence[int]) -> int:
+    """Batch rows per block of the train-step kernel: the power of two that
+    covers the batch, at most :data:`MAX_TRAIN_TILE_ROWS`, halved until the
+    tile's activations fit one block's shared memory.  Raises
+    ``ValueError`` naming the widths when not even one row fits."""
+    rows = 1
+    while rows < min(batch, MAX_TRAIN_TILE_ROWS):
+        rows *= 2
+    while rows > 1 and train_smem_bytes(rows, widths) > MAX_SMEM_BYTES:
+        rows //= 2
+    need = train_smem_bytes(rows, widths)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"fused_mlp_train_step: widths {'-'.join(map(str, widths))} need "
+            f"{need} bytes of shared memory for one batch row, more than "
+            f"the {MAX_SMEM_BYTES} one block has")
+    return rows
+
+
+def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind):
+    n = len(weights)
+    if n > MAX_LAYERS:
+        raise ValueError(f"fused_mlp_train_step: {n} layers exceed the "
+                         f"kernel's {MAX_LAYERS}")
+    if x.ndim != 2 or y.ndim != 2:
+        raise ValueError(f"fused_mlp_train_step wants x (B, i) and y (B, o); "
+                         f"got {tuple(x.shape)}, {tuple(y.shape)}")
+    dims = [x.shape[1]]
+    for w, b in zip(weights, biases):
+        if (w.ndim != 2 or w.shape[1] != dims[-1]
+                or tuple(b.shape) != (w.shape[0],)):
+            raise ValueError(
+                f"fused_mlp_train_step: layer {len(dims) - 1} has w "
+                f"{tuple(w.shape)}, b {tuple(b.shape)} after width "
+                f"{dims[-1]}")
+        dims.append(w.shape[0])
+    batch = x.shape[0]
+    if tuple(y.shape) != (batch, dims[-1]):
+        raise ValueError(f"fused_mlp_train_step: y is {tuple(y.shape)}, "
+                         f"want ({batch}, {dims[-1]})")
+    if batch < 1:
+        raise ValueError("fused_mlp_train_step: empty batch")
+    if any(t.device != x.device for t in (y, *weights, *biases)):
+        raise ValueError("fused_mlp_train_step: x, y and every weight and "
+                         "bias must be on one device")
+    rows = train_tile_rows(batch, dims)
+    n_slots = min(-(-batch // rows), MAX_TRAIN_SLOTS)
+    xf = x.to(torch.float32).contiguous()
+    yf = y.to(torch.float32).contiguous()
+    ws = [w.to(torch.float32).contiguous() for w in weights]
+    bs = [b.to(torch.float32).contiguous() for b in biases]
+    new_ws = [torch.empty_like(w) for w in ws]
+    new_bs = [torch.empty_like(b) for b in bs]
+    n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
+    part = torch.empty((n_slots, n_params), dtype=torch.float32,
+                       device=x.device)
+    part_loss = torch.empty(n_slots, dtype=torch.float32, device=x.device)
+    loss = torch.empty((), dtype=torch.float32, device=x.device)
+    fn = _kernel("fused_mlp_train_step", "fused_mlp_train_step_f32",
+                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
+                 + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
+                 + [ctypes.c_void_p] * 4)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
+
+    c_dims = (ctypes.c_int * (n + 1))(*dims)
+    c_acts = (ctypes.c_int * n)(*(ACT_CODES[a] for a in acts))
+    with torch.cuda.device(x.device):
+        err = fn(_p(xf), _p(yf), batch, rows, n, ptrs(ws), ptrs(bs),
+                 ptrs(new_ws), ptrs(new_bs), c_dims, c_acts,
+                 LOSS_KINDS[loss_kind], float(lr), n_slots, _p(part),
+                 _p(part_loss), _p(loss), _stream(x.device))
+    _check_launch("fused_mlp_train_step", err)
+    _count("fused_mlp_train_step")
+    return (loss,
+            [nw.to(w.dtype) for nw, w in zip(new_ws, weights)],
+            [nb.to(b.dtype) for nb, b in zip(new_bs, biases)])
+
+
+def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
+                         precision: str = "default",
+                         loss_kind: str = "softmax_xent"):
+    """One whole SGD step of an ffLayer chain: forward, loss, backward and
+    ``w -= lr * g``, in one kernel for the step and one for the update.
+
+    x (B, i), y (B, o) targets, weights[k] (o_k, i_k), biases[k] (o_k,).
+    ``loss_kind="softmax_xent"`` (the flagship): softmax output and
+    cross-entropy, ``acts[-1]`` ignored; ``"squared_error"``: ``acts[-1]``
+    output and squared error summed over the outputs (pass ``y = x`` for an
+    autoencoder).  Both are meaned over the batch.  Returns ``(loss,
+    new_weights, new_biases)``; the loss is a 0-d f32 tensor on x's
+    device.  The batch tile is chosen by :func:`train_tile_rows`."""
+    if not (len(weights) == len(biases) == len(acts)) or not weights:
+        raise ValueError("fused_mlp_train_step: need one weight, bias and "
+                         "activation per layer")
+    _check_names(acts, precision)
+    if loss_kind not in LOSS_KINDS:
+        raise ValueError(f"unknown loss_kind {loss_kind!r} "
+                         f"(known: {sorted(LOSS_KINDS)})")
+    if x.is_cuda:
+        return _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts,
+                                          loss_kind)
+    return fused_mlp_train_step_ref(x, y, weights, biases, lr, acts,
+                                    precision, loss_kind)

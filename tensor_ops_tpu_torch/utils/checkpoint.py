@@ -7,15 +7,18 @@ written by either one serves from both.  Tensors are moved to the host on
 save; bf16 tensors are written as float32 (numpy has no bf16, and the
 widening is exact).
 
-This slice carries the feed-forward and ``FusedMLP`` formats; optimizer
+This slice carries the feed-forward and ``FusedMLP`` formats (and an
+asynchronous save for the training loop); optimizer
 state, quantized, recurrent and pipeline checkpoints come with their
 models (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -55,6 +58,24 @@ def save_arrays(path: str, arrays: Dict[str, Any], meta: Optional[dict] = None) 
         raise
 
 
+_ASYNC_POOL = None
+_ASYNC_LOCK = threading.Lock()
+
+
+def save_arrays_async(path: str, arrays: Dict[str, Any],
+                      meta: Optional[dict] = None):
+    """Checkpoint without blocking the training loop: tensors are copied
+    to the host synchronously (cheap), the file write happens on a
+    background thread.  Returns a Future; call ``.result()`` to join."""
+    global _ASYNC_POOL
+    with _ASYNC_LOCK:
+        if _ASYNC_POOL is None:
+            _ASYNC_POOL = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="ckpt")
+    host_arrays = {k: _to_numpy(v) for k, v in arrays.items()}
+    return _ASYNC_POOL.submit(save_arrays, path, host_arrays, meta)
+
+
 def load_arrays(path: str) -> Tuple[Dict[str, np.ndarray], dict]:
     with np.load(path) as z:
         meta = json.loads(bytes(z["__meta__"]).decode()) if "__meta__" in z else {}
@@ -70,8 +91,7 @@ def load_meta(path: str) -> dict:
                 if "__meta__" in z.files else {})
 
 
-def save_network(path: str, net, extra_meta: Optional[dict] = None) -> None:
-    """Save a feed-forward Network's params (+ activation names)."""
+def _network_payload(net, extra_meta: Optional[dict]) -> Tuple[dict, dict]:
     arrays = {f"param_{i}": p for i, p in enumerate(net.params)}
     meta = {
         "kind": "feedforward",
@@ -84,7 +104,18 @@ def save_network(path: str, net, extra_meta: Optional[dict] = None) -> None:
         # can rebuild the exact graph without out-of-band layer flags
         meta["acts"] = list(net.act_names)
     meta.update(extra_meta or {})
-    save_arrays(path, arrays, meta)
+    return arrays, meta
+
+
+def save_network(path: str, net, extra_meta: Optional[dict] = None) -> None:
+    """Save a feed-forward Network's params (+ activation names)."""
+    save_arrays(path, *_network_payload(net, extra_meta))
+
+
+def save_network_async(path: str, net, extra_meta: Optional[dict] = None):
+    """``save_network`` with the file write on the checkpoint thread
+    (tensors are copied to the host synchronously).  Returns a Future."""
+    return save_arrays_async(path, *_network_payload(net, extra_meta))
 
 
 def network_from_arrays(arrays: Dict[str, np.ndarray], meta: dict, net, be) -> Any:

@@ -169,7 +169,8 @@ def test_cpu_path_launches_no_kernel():
     x, w, b = t(r(18, 3, 4)), t(r(19, 2, 4)), t(r(20, 2))
     K.fused_linear(x, w, b, "tanh")
     K.fused_mlp_forward(x, [w], [b], ["identity"])
-    assert K.launch_counts() == {"fused_linear": 0, "fused_mlp_forward": 0}
+    assert K.launch_counts() == {"fused_linear": 0, "fused_mlp_forward": 0,
+                                 "fused_mlp_train_step": 0}
 
 
 def test_names_are_validated():

@@ -1,5 +1,6 @@
-"""The port never imports JAX: every module imports, and the serving path
-runs end to end, in a fresh interpreter where ``import jax`` fails."""
+"""The port never imports JAX: every module imports, and the serving and
+training paths run end to end, in a fresh interpreter where ``import jax``
+fails."""
 
 import os
 import re
@@ -26,7 +27,8 @@ from tensor_ops_tpu_torch.models import (FusedMLP, Predictor, act_logistic,
                                          act_softmax, gen_net)
 from tensor_ops_tpu_torch.ops import ir
 from tensor_ops_tpu_torch.utils.checkpoint import load_network, save_network
-from tensor_ops_tpu_torch.apps import serve
+from tensor_ops_tpu_torch.apps import mnist, serve
+from tensor_ops_tpu_torch.utils import mnist_data
 
 be = TT.TorchBackend(torch.float64)
 net = gen_net(be, 12, 4, [(8, act_logistic())], act_softmax(), Rng(be, 0))
@@ -47,6 +49,18 @@ with tempfile.TemporaryDirectory() as d:
     np.save(xf, np.zeros((2, 12), np.float32))
     serve.main([ck, "-l", "8", "--in-dim", "12", "--out-dim", "4", "-i", xf,
                 "--device", "cpu"])
+    # training: the whole-step route and a Network predictor
+    _, fm = FusedMLP.from_network(net2).train_fullfused(
+        0.5, be.asarray(np.eye(12)[:4]), be.asarray(np.eye(4)))
+    assert all(torch.isfinite(w).all() for w in fm.weights)
+    assert Predictor(net2, be, buckets=(4,)).predict(np.zeros(12)).shape == (4,)
+
+    def offline(url, timeout=20.0):
+        raise OSError("offline")
+
+    mnist_data._fetch = offline
+    mnist.main(["--epochs", "1", "--limit", "100", "-b", "100", "--minibatch",
+                "50", "--fused", "-l", "8", "-c", "-d", d, "--device", "cpu"])
 assert sys.modules["jax"] is None
 assert not any(m.startswith("jax.") or m == "jaxlib" for m in sys.modules)
 print("NAMES", len(names))

@@ -4,7 +4,8 @@ A checkpoint written by one package is served by both, on the same numpy
 inputs, through each ``Predictor`` route: the whole-network kernel (batch
 5), the plain-matmul route (batch 70) and the per-layer kernel
 (``use_fused_kernel=False``).  Probabilities agree to 1e-5 and classes
-exactly."""
+exactly.  A staged-IR ``Network`` served with its f64 backend agrees with
+the JAX package's to 1e-9."""
 
 import contextlib
 import io
@@ -26,8 +27,9 @@ from tensor_ops_tpu.utils import checkpoint as JC
 from tensor_ops_tpu_torch import TorchBackend
 from tensor_ops_tpu_torch.apps import serve as t_app
 from tensor_ops_tpu_torch.backend.rng import Rng as TRng
-from tensor_ops_tpu_torch.models import FusedMLP, Predictor
+from tensor_ops_tpu_torch.models import FusedMLP, Network, Predictor
 from tensor_ops_tpu_torch.models import act_logistic as t_logistic
+from tensor_ops_tpu_torch.models import act_relu as t_relu
 from tensor_ops_tpu_torch.models import act_softmax as t_softmax
 from tensor_ops_tpu_torch.models import gen_net as t_gen_net
 from tensor_ops_tpu_torch.ops import kernels as K
@@ -251,10 +253,42 @@ def test_bf16_predictor_matches_jax_bf16(jax_ckpt):
 
 
 def test_network_predictor_names_roadmap_item():
+    """A Network is served only together with its backend, as in the JAX
+    package (``tensor_ops_tpu/models/serve.py:89-90``)."""
     tb = TorchBackend(torch.float32)
     net = t_gen_net(tb, 6, 3, [(4, t_logistic())], t_softmax(), TRng(tb, 0))
-    with pytest.raises(TypeError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs a backend"):
         Predictor(net)
+    with pytest.raises(ValueError, match="dtype"):
+        Predictor(net, tb, dtype="bf16")
+
+
+@pytest.mark.parametrize("n", [3, 8, 21], ids=["padded", "bucket", "beyond"])
+def test_network_predictor_matches_jax_network_predictor(n):
+    """The same staged-IR Network (the JAX package's parameters copied
+    across as numpy arrays) served by both Predictors with f64 backends."""
+    import jax.numpy as jnp
+
+    jb = T.JaxBackend(dtype=jnp.float64)
+    jnet = j_gen_net(jb, 20, 4, [(12, j_logistic()), (7, j_relu())],
+                     j_softmax(), JRng(jb, seed=3))
+    tb = TorchBackend(torch.float64)
+    tmpl = t_gen_net(tb, 20, 4, [(12, t_logistic()), (7, t_relu())],
+                     t_softmax(), TRng(tb, 0))
+    tnet = Network(tmpl.op, [tb.asarray(np.asarray(p)) for p in jnet.params],
+                   tmpl.act_names)
+    x = np.random.default_rng(12).uniform(0, 1, size=(n, 20))
+    jp = JPredictor(jnet, jb, buckets=(4, 8))
+    tp = Predictor(tnet, tb, buckets=(4, 8))
+    tp.warmup()
+    want, got = jp.predict(x), tp.predict(x)
+    assert got.shape == (n, 4) and got.dtype == np.float64
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(tp.predict_class(x), jp.predict_class(x))
+    assert tp.be is tb and tp.model is tnet
+    # a hot swap to the FusedMLP of the same weights keeps the interface
+    tp.reload(FusedMLP.from_network(tnet))
+    np.testing.assert_allclose(tp.predict(x), want, atol=ATOL)
 
 
 def test_cpu_serving_launches_no_kernel(jax_ckpt):
@@ -262,4 +296,5 @@ def test_cpu_serving_launches_no_kernel(jax_ckpt):
     for fused in (True, False):
         Predictor(port_model(jax_ckpt), buckets=(8,),
                   use_fused_kernel=fused).predict(pixels(11, 3))
-    assert K.launch_counts() == {"fused_linear": 0, "fused_mlp_forward": 0}
+    assert K.launch_counts() == {"fused_linear": 0, "fused_mlp_forward": 0,
+                                 "fused_mlp_train_step": 0}
