@@ -29,14 +29,32 @@ without printing a result line:
    training error must fall in both.  Then 5 steps of ``train_fullfused``
    on the card are held against ``FusedMLP.train`` on the card and the
    plain step in CPU float64.
-6. Timing: p50 serving latency per bucket, each kernel's time beside its
+6. int8 kernels: ``fused_linear_w8`` at the flagship's three layers (B = 1,
+   8, 37, both precisions), ``fused_linear_w8a8`` at the same shapes, a
+   misaligned 257-wide case and an int32-exact case, and
+   ``fused_mlp_w8a8_forward`` at the uniform serving stack (4 x 4096, seed
+   0, B = 16 and 5), each against its plain version; the whole-MLP kernel
+   bit for bit against the per-layer CUDA chain and (relu) its plain
+   version.
+7. int8 serving slice: the serve app serves the phase-4 checkpoint with
+   ``--int8`` (3 ``fused_linear_w8a8`` launches per request), a ``mode="w8"``
+   ``quantized_mlp`` checkpoint of it (``fused_linear_w8``), and the 4 x 4096
+   stack saved with ``save_quantized`` (``fused_mlp_w8a8_forward``); each
+   is held against the plain ``QuantizedMLP`` on the CPU, and the int8
+   classes against the f32 ones.
+8. Timing: p50 serving latency per bucket, each kernel's time beside its
    plain version's (median of 50 CUDA-event-timed runs after warm-up), the
-   profiler's device time of the train step's two kernels, where one
-   training step's time goes on each route (wall, kernels, device busy),
-   and the app's training samples/s per route.
+   profiler's device time of the kernels, where one training step's and
+   one int8 request's time goes on each route (wall, kernels, device
+   busy), the device memory each served model holds (f32 vs int8), and the
+   app's training samples/s per route.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
+on its main path, its largest difference from its plain version, its time
+and its plain version's, its bound (the larger of the bytes it must move
+over 3.35 TB/s and its operations over the peak rate of their type) and
+the time of one PyTorch call computing the same function (null: none
+does).  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ import concurrent.futures
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -80,8 +99,32 @@ KERNELS = {
         route="cuda",
         source="tensor_ops_tpu_torch/csrc/fused_mlp_train_step.cu",
         replaces="tensor_ops_tpu/ops/pallas_kernels.py:385"),
+    "fused_linear_w8": dict(
+        route="cuda", source="tensor_ops_tpu_torch/csrc/fused_linear_w8.cu",
+        replaces="tensor_ops_tpu/ops/pallas_kernels.py:622"),
+    "fused_linear_w8a8": dict(
+        route="cuda",
+        source="tensor_ops_tpu_torch/csrc/fused_linear_w8a8.cu",
+        replaces="tensor_ops_tpu/ops/pallas_kernels.py:725"),
+    "fused_mlp_w8a8_forward": dict(
+        route="cuda",
+        source="tensor_ops_tpu_torch/csrc/fused_mlp_w8a8_forward.cu",
+        replaces="tensor_ops_tpu/ops/pallas_kernels.py:823"),
 }
 SERVE_KERNELS = ("fused_linear", "fused_mlp_forward")
+# The uniform int8 serving stack of examples/bench_int8_serving.py:32-46 and
+# bench.py:297-321: 4 layers of 4096 x 4096, ReLU, batch 16.
+STACK_N, STACK_L, STACK_B = 4096, 4, 16
+STACK_ACTS = ("relu", "relu", "relu", "identity")
+FLAGSHIP_INT8_ACTS = ("logistic", "logistic", "identity")
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense): the bound of
+# a kernel is the larger of its bytes over HBM_BPS and its operations over
+# the peak of their type.
+HBM_BPS = 3.35e12
+PEAK_OPS = {"f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+# A logistic or tanh epilogue against its plain version: expf/tanhf in the
+# kernel and torch's on the card may differ by a few ulps of values <= 1.
+TOL_ACT = (1e-6, 0.0)
 # The train step against its plain version: the forward's 784-long sums,
 # the gradient's sums over up to 1,000 rows and the update w - lr*g are
 # taken in another order than cuBLAS takes them, so each value differs by a
@@ -126,7 +169,7 @@ def max_err(got: torch.Tensor, want: torch.Tensor, tol) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def phase_environment() -> str:
+def phase_environment():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this smoke run needs an NVIDIA GPU")
@@ -134,13 +177,14 @@ def phase_environment() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]} device {name}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return name
+    return name, card
 
 
 def phase_build() -> None:
@@ -264,8 +308,135 @@ def train_step_inputs(seed: int, dims, B: int, kind: str):
     return dev(x), dev(y), ws, bs
 
 
+def int8_stack_cpu():
+    """The 4 x 4096 serving stack as a plain ``QuantizedMLP`` on the CPU:
+    weights normal * sqrt(2/N) from ``default_rng(0)``, zero biases, acts
+    relu, relu, relu, identity, raw logits out; and its batch of 16 rows
+    drawn next from the same generator."""
+    from tensor_ops_tpu_torch.models import FusedMLP, QuantizedMLP
+
+    r = np.random.default_rng(0)
+    n = STACK_N
+    ws = [(r.normal(size=(n, n)) * math.sqrt(2.0 / n)).astype(np.float32)
+          for _ in range(STACK_L)]
+    x = r.normal(size=(STACK_B, n)).astype(np.float32)
+    fm = FusedMLP.from_numpy(ws, [np.zeros(n, np.float32)] * STACK_L,
+                             STACK_ACTS, softmax_out=False, device="cpu")
+    return QuantizedMLP.from_fused(fm), ws, x
+
+
+def phase_int8_kernels(stack) -> dict:
+    """Kernels 4-6 against their plain versions on the card."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    worst = {"fused_linear_w8": 0.0, "fused_linear_w8a8": 0.0,
+             "fused_mlp_w8a8_forward": 0.0}
+
+    def layer(seed, B, Kd, O):
+        x = _rand(seed, B, Kd, uniform=True)
+        w = _rand(seed + 1, O, Kd, scale=1 / math.sqrt(Kd))
+        b = _rand(seed + 2, O, scale=0.3)
+        q, s = K.quantize_weights_int8(w)
+        return x, q, s, b
+
+    shapes = [(B, FLAGSHIP[i], FLAGSHIP[i + 1])
+              for B in (1, 8, 37) for i in range(3)]
+    for n, (B, Kd, O) in enumerate(shapes):
+        x, q, s, b = layer(300 + 3 * n, B, Kd, O)
+        errs = []
+        for prec in ("default", "highest"):
+            for act in ("logistic", "identity"):
+                y = K._fused_linear_w8_cuda(x, q, s, b, act, prec)
+                torch.cuda.synchronize()
+                e = max_err(y, K.fused_linear_w8_ref(x, q, s, b, act, prec),
+                            TOL_Z)
+                worst["fused_linear_w8"] = max(worst["fused_linear_w8"], e)
+                errs.append(f"{prec}/{act} {e:.1e}")
+        log(f"[kernel] fused_linear_w8 B={B} {Kd}->{O} max|err| "
+            f"{', '.join(errs)}; tol {TOL_Z[0]:g}+{TOL_Z[1]:g}|ref|")
+
+    for n, (B, Kd, O) in enumerate(shapes + [(40, 257, 130)]):
+        x, q, s, b = layer(400 + 3 * n, B, Kd, O)
+        x = x * 4 - 2  # signed activations
+        errs = []
+        for act in ("identity", "relu", "logistic", "tanh"):
+            y = K._fused_linear_w8a8_cuda(x, q, s, b, act)
+            torch.cuda.synchronize()
+            ref = K.fused_linear_w8a8_ref(x, q, s, b, act)
+            if act in ("identity", "relu"):
+                check(torch.equal(y, ref), f"fused_linear_w8a8 {act} B={B} "
+                      f"{Kd}->{O}: not bit-equal to its plain version")
+                e = 0.0
+            else:
+                e = max_err(y, ref, TOL_ACT)
+            worst["fused_linear_w8a8"] = max(worst["fused_linear_w8a8"], e)
+            errs.append(f"{act} {e:.1e}")
+        log(f"[kernel] fused_linear_w8a8 B={B} {Kd}->{O} (K padded to "
+            f"{K.padded_width(Kd)}) identity, relu bit-equal; max|err| "
+            f"{', '.join(errs)}; tol {TOL_ACT[0]:g}")
+    r = np.random.default_rng(7)
+    xi = r.integers(-127, 128, size=(5, 12)).astype(np.float32)
+    xi[:, 0] = 127.0  # scale 1: the codes are x itself
+    wi = r.integers(-127, 128, size=(9, 12)).astype(np.int8)
+    y = K._fused_linear_w8a8_cuda(
+        torch.as_tensor(xi, device=DEVICE), torch.as_tensor(wi, device=DEVICE),
+        torch.ones(9, 1, device=DEVICE), torch.zeros(9, device=DEVICE),
+        "identity")
+    torch.cuda.synchronize()
+    exact = xi.astype(np.int64) @ wi.astype(np.int64).T
+    check(np.array_equal(y.cpu().numpy(), exact.astype(np.float32)),
+          "fused_linear_w8a8: the int32-exact case is not exact")
+    log("[kernel] fused_linear_w8a8 int32-exact case (B=5, 12->9): exact")
+
+    wq3, sw2, b2 = (t.to(DEVICE) for t in stack["model"]._cache["stacked"])
+    cases = [(B, wq3, sw2, b2, "relu") for B in (STACK_B, 5)]
+    rs = np.random.default_rng(8)
+    small = torch.as_tensor(rs.normal(size=(3, 512, 512)) / math.sqrt(512),
+                            dtype=torch.float32)
+    q3, s3 = zip(*(K.quantize_weights_int8(w) for w in small))
+    cases.append((37, torch.stack(q3).to(DEVICE),
+                  torch.stack([s.reshape(-1) for s in s3]).to(DEVICE),
+                  torch.zeros(3, 512, device=DEVICE), "logistic"))
+    for n, (B, wq, sw, bb, act) in enumerate(cases):
+        L, N = wq.shape[0], wq.shape[1]
+        x = torch.as_tensor(stack["x"][:B] if N == STACK_N
+                            else rs.normal(size=(B, N)).astype(np.float32),
+                            device=DEVICE)
+        y = K._fused_mlp_w8a8_forward_cuda(x, wq, sw, bb, act)
+        h = x
+        for l in range(L):
+            h = K._fused_linear_w8a8_cuda(h, wq[l], sw[l], bb[l],
+                                          act if l < L - 1 else "identity")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all()), "fused_mlp_w8a8_forward: "
+              "non-finite output")
+        check(torch.equal(y, h), f"fused_mlp_w8a8_forward {L}x{N} B={B} "
+              f"{act}: not bit-equal to the per-layer CUDA chain")
+        ref = K.fused_mlp_w8a8_forward_ref(x, wq, sw, bb, act)
+        if act == "relu":
+            check(torch.equal(y, ref), f"fused_mlp_w8a8_forward {L}x{N} "
+                  f"B={B}: not bit-equal to its plain version")
+            e = 0.0
+            what = "bit-equal to its plain version"
+        else:
+            # a logistic layer's values lie in [0, 1]: its row scale is at
+            # most 1/127, so one code flipped by an ulp of expf moves a
+            # logit by at most the last layer's largest weight scale
+            step = float(sw[-1].max())
+            e = max_err(y, ref, (step, 0.0))
+            what = (f"max|err| {e:.2e} against its plain version (tol one "
+                    f"code step {step:.2e})")
+        worst["fused_mlp_w8a8_forward"] = max(
+            worst["fused_mlp_w8a8_forward"], e)
+        log(f"[kernel] fused_mlp_w8a8_forward {L}x{N} B={B} {act}: "
+            f"bit-equal to the per-layer CUDA chain, {what}; rows/block "
+            f"{K.int8_tile_rows(B, N, 1)}")
+    return worst
+
+
 def _served_probs(stdout: str, n: int) -> np.ndarray:
-    rows = [l for l in stdout.splitlines() if l and l[0].isdigit()]
+    rows = [l for l in stdout.splitlines()
+            if l and (l[0].isdigit() or l[0] == "-")]
     check(len(rows) == n, f"serve app printed {len(rows)} rows, want {n}")
     return np.array([[float(v) for v in r.split(",")] for r in rows])
 
@@ -337,7 +508,152 @@ def phase_slice(tmp: str) -> dict:
               f"{what}: classes differ from the CPU f64 run")
     for name in SERVE_KERNELS:
         check(launches[name] > 0, f"{name} was not launched by the slice")
-    return {"launches": launches, "model": model}
+    return {"launches": launches, "model": model, "ckpt": ckpt}
+
+
+def _run_app(argv) -> str:
+    from tensor_ops_tpu_torch.apps import serve as serve_app
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_app.main(argv)
+    return buf.getvalue()
+
+
+def _resident(load):
+    """A model loaded by ``load()`` (with its input width) and the device
+    bytes it holds: ``torch.cuda.memory_allocated`` before loading and after
+    one forward, so the kernels' cached forms of the weights count."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model, width = load()
+    with torch.inference_mode():
+        model.run(torch.zeros(1, width, device=DEVICE))
+    torch.cuda.synchronize()
+    return model, torch.cuda.memory_allocated() - before
+
+
+def phase_int8_serving(tmp: str, ckpt: str, stack) -> dict:
+    """The serve app on the three int8 routes, each driven with the launch
+    counts set to 0 just before and read just after."""
+    from tensor_ops_tpu_torch.apps import serve as serve_app
+    from tensor_ops_tpu_torch.models import FusedMLP, QuantizedMLP
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.utils.checkpoint import (load_arrays,
+                                                       load_quantized,
+                                                       save_quantized)
+
+    buckets = ",".join(map(str, BUCKETS))
+    x = np.random.default_rng(3).uniform(0, 1, size=(64, FLAGSHIP[0]))
+    x = x.astype(np.float32)
+    xfile = os.path.join(tmp, "int8_batch.npy")
+    np.save(xfile, x)
+    payload = load_arrays(ckpt)
+    layers, cpu = list(FLAGSHIP[1:-1]), torch.device("cpu")
+    f32_cpu = serve_app.load_model(payload, layers, FLAGSHIP[0], FLAGSHIP[-1],
+                                   "logistic", cpu)
+    plain = serve_app.load_model(payload, layers, FLAGSHIP[0], FLAGSHIP[-1],
+                                 "logistic", cpu, int8=True)
+    f32_classes = f32_cpu.run(torch.as_tensor(x)).numpy().argmax(1)
+    out, launches = {}, {}
+    # one code flipped by an ulp of expf moves a logit (and a probability)
+    # by at most the last layer's largest weight scale (its input, a
+    # logistic layer, has row scales <= 1/127); 5e-7 is the app's printing
+    rounding = 5e-7
+    step = float(plain.scales[-1].max())
+
+    K.reset_launch_counts()
+    served = _served_probs(_run_app(
+        [ckpt, "--int8", "-i", xfile, "--probs", "--device", DEVICE,
+         "--buckets", buckets]), len(x))
+    torch.cuda.synchronize()
+    launches["fused_linear_w8a8"] = K.launch_counts()["fused_linear_w8a8"]
+    check(launches["fused_linear_w8a8"] == 3, f"--int8 flagship: "
+          f"{launches['fused_linear_w8a8']} fused_linear_w8a8 launches for "
+          f"one request, want 3")
+    want = plain.run(torch.as_tensor(x)).numpy()
+    e = max_err(torch.as_tensor(served), torch.as_tensor(want),
+                (step + rounding, 0.0))
+    agree = float((served.argmax(1) == f32_classes).mean())
+    check(agree > 0.8, f"--int8 classes agree with f32 on {agree:.3f} < 0.8")
+    log(f"[int8] serve app --int8 (w8a8) on the flagship checkpoint, "
+        f"{len(x)} rows: 3 fused_linear_w8a8 launches; vs the plain "
+        f"QuantizedMLP on the CPU max|err| {e:.2e} (tol one code step "
+        f"{step:.2e} + {rounding:g}); classes agree with f32 on "
+        f"{agree:.3f} (JAX test: > 0.8)")
+    out["w8a8_err"] = e
+
+    w8 = QuantizedMLP.from_fused(f32_cpu, mode="w8")
+    w8path = os.path.join(tmp, "flagship_w8.npz")
+    save_quantized(w8path, w8)
+    K.reset_launch_counts()
+    served = _served_probs(_run_app(
+        [w8path, "-i", xfile, "--probs", "--device", DEVICE, "--buckets",
+         buckets]), len(x))
+    torch.cuda.synchronize()
+    launches["fused_linear_w8"] = K.launch_counts()["fused_linear_w8"]
+    check(launches["fused_linear_w8"] == 3, f"w8 checkpoint: "
+          f"{launches['fused_linear_w8']} fused_linear_w8 launches, want 3")
+    want = w8.run(torch.as_tensor(x)).numpy()
+    e = max_err(torch.as_tensor(served), torch.as_tensor(want),
+                (TOL_P[0] + rounding, 0.0))
+    agree = float((served.argmax(1) == f32_classes).mean())
+    check(agree > 0.8, f"w8 classes agree with f32 on {agree:.3f} < 0.8")
+    log(f"[int8] serve app on a mode=w8 quantized_mlp checkpoint: 3 "
+        f"fused_linear_w8 launches; vs the plain QuantizedMLP on the CPU "
+        f"max|err| {e:.2e} (tol {TOL_P[0]:g} + {rounding:g}); classes "
+        f"agree with f32 on {agree:.3f}")
+
+    qm, xs = stack["model"], stack["x"]
+    spath = os.path.join(tmp, "stack_4x4096.npz")
+    save_quantized(spath, qm)
+    xsfile = os.path.join(tmp, "stack_batch.npy")
+    np.save(xsfile, xs)
+    K.reset_launch_counts()
+    served = _served_probs(_run_app(
+        [spath, "-i", xsfile, "--probs", "--device", DEVICE, "--in-dim",
+         str(STACK_N), "--out-dim", str(STACK_N), "--buckets",
+         str(STACK_B)]), len(xs))
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    launches["fused_mlp_w8a8_forward"] = counts["fused_mlp_w8a8_forward"]
+    check(counts["fused_mlp_w8a8_forward"] == 1
+          and counts["fused_linear_w8a8"] == 0,
+          f"4x4096 stack: launches {counts}, want one fused_mlp_w8a8_forward")
+    want = qm.run_fused(torch.as_tensor(xs))
+    e = max_err(torch.as_tensor(served), want, (rounding, 0.0))
+    gpu_qm = load_quantized(spath, device=DEVICE)
+    with torch.inference_mode():
+        got = gpu_qm.run_fused(torch.as_tensor(xs, device=DEVICE))
+    check(torch.equal(got.cpu(), want), "4x4096 stack on the card is not "
+          "bit-equal to the plain QuantizedMLP on the CPU")
+    log(f"[int8] serve app on the 4x4096 quantized_mlp checkpoint, B=16: one "
+        f"fused_mlp_w8a8_forward launch; printed logits vs the plain "
+        f"QuantizedMLP on the CPU max|err| {e:.2e} (tol {rounding:g}, the "
+        f"printing); run_fused on the card bit-equal to it")
+
+    sizes = {}
+    for name, load in (
+            ("flagship f32", lambda: (serve_app.load_model(
+                payload, layers, FLAGSHIP[0], FLAGSHIP[-1], "logistic",
+                torch.device(DEVICE)), FLAGSHIP[0])),
+            ("flagship int8 (w8a8)", lambda: (serve_app.load_model(
+                payload, layers, FLAGSHIP[0], FLAGSHIP[-1], "logistic",
+                torch.device(DEVICE), int8=True), FLAGSHIP[0])),
+            ("4x4096 f32", lambda: (FusedMLP.from_numpy(
+                stack["weights"], [np.zeros(STACK_N, np.float32)] * STACK_L,
+                STACK_ACTS, softmax_out=False, device=DEVICE), STACK_N)),
+            ("4x4096 int8", lambda: (load_quantized(spath, device=DEVICE),
+                                     STACK_N))):
+        model, nbytes = _resident(load)
+        sizes[name] = nbytes
+        del model
+        log(f"[int8] device memory held by the {name} model: {nbytes} bytes "
+            f"(torch.cuda.memory_allocated before and after loading and one "
+            f"forward)")
+    out.update(launches=launches, int8_flagship=plain, gpu_stack=gpu_qm,
+               w8=w8)
+    return out
 
 
 @contextlib.contextmanager
@@ -541,23 +857,28 @@ def phase_timing(model) -> dict:
 
 
 def _profile_steps(step, steps: int = 10) -> dict:
-    """One training step's device work: CUDA kernels launched, copies and
-    memsets, and device busy time per step (``torch.profiler``, kernel and
-    copy rows only), by kernel name."""
+    """The device work of one call of ``step`` (a training step, a request
+    or a kernel): CUDA kernels launched, copies and memsets, and device busy
+    time per call (``torch.profiler`` over ``steps`` calls, kernel and copy
+    rows only), by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-        torch.cuda.synchronize()
+    # the profiler now and then hands back no device events at all (seen
+    # once in a dozen runs on the card): profile again, at most twice more
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if device:
+            break
     by_kernel, launches, copies, busy = {}, 0, 0, 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device:
         us = e.time_range.elapsed_us()
         busy += us
         if e.name.startswith(("Memcpy", "Memset")):
@@ -566,11 +887,122 @@ def _profile_steps(step, steps: int = 10) -> dict:
             launches += 1
         name = e.name.replace("(anonymous namespace)::", "")
         name = name.replace("void ", "").split("(")[0].split("<")[0]
+        name = name.split("::")[-1]
         by_kernel[name] = by_kernel.get(name, 0.0) + us / steps
     return {"launches": launches / steps, "copies": copies / steps,
             "busy_us": busy / steps,
             "by_kernel": dict(sorted(by_kernel.items(),
                                      key=lambda kv: -kv[1]))}
+
+
+def phase_int8_timing(sv, stack) -> dict:
+    """int8 serving on the card: p50 request latency per bucket, each int8
+    kernel's CUDA-event median beside its plain version's and its profiler
+    device time, and where one request's time goes on each int8 route."""
+    from tensor_ops_tpu_torch.models import Predictor
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    qm_flag = sv["int8_flagship"]
+    flag = type(qm_flag)(*(tuple(t.to(DEVICE) for t in ts) for ts in (
+        qm_flag.wqs, qm_flag.scales, qm_flag.biases)), qm_flag.acts,
+        qm_flag.softmax_out, qm_flag.mode)
+    w8 = type(flag)(flag.wqs, flag.scales, flag.biases, flag.acts,
+                    flag.softmax_out, "w8")
+    stack_gpu = sv["gpu_stack"]
+    r = np.random.default_rng(4)
+    preds = [("int8 flagship (w8a8, fused_linear_w8a8 x3)",
+              Predictor(flag, buckets=BUCKETS), BUCKETS, FLAGSHIP[0]),
+             ("w8 flagship (fused_linear_w8 x3)",
+              Predictor(w8, buckets=BUCKETS), BUCKETS, FLAGSHIP[0]),
+             ("4x4096 stack (fused_mlp_w8a8_forward)",
+              Predictor(stack_gpu, buckets=(STACK_B,)), (STACK_B,), STACK_N)]
+    for name, pred, buckets, width in preds:
+        pred.warmup()
+        for b in buckets:
+            x = r.uniform(0, 1, size=(b, width)).astype(np.float32)
+            pred.timer.samples.clear()
+            for _ in range(TIMED_RUNS):
+                pred.predict(x)
+            log(f"[timing] {name} Predictor bucket {b}: p50 "
+                f"{pred.latency()['p50_s'] * 1e3:.4f} ms host clock "
+                f"(n={TIMED_RUNS})")
+        b = buckets[0]
+        x = r.uniform(0, 1, size=(b, width)).astype(np.float32)
+        for _ in range(3):
+            pred.predict(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            pred.predict(x)
+        wall_us = (time.perf_counter() - t0) / 20 * 1e6
+        prof = _profile_steps(lambda: pred.predict(x))
+        top = ", ".join(f"{n} {us:.1f}" for n, us in
+                        list(prof["by_kernel"].items())[:3])
+        log(f"[timing] request bucket {b} {name}: {wall_us:.1f} us/request "
+            f"wall, {prof['launches']:.0f} kernels + {prof['copies']:.0f} "
+            f"copies/request, device busy {prof['busy_us']:.1f} us/request, "
+            f"idle share {1 - prof['busy_us'] / wall_us:.3f}; largest "
+            f"(us/request): {top}")
+
+    times = {}
+    with torch.inference_mode():
+        B = 8
+        hs = [_rand(500, B, FLAGSHIP[0], uniform=True)]
+        for q, s_, b, a in zip(flag._padded(), flag.scales, flag.biases,
+                               FLAGSHIP_INT8_ACTS):
+            hs.append(K.fused_linear_w8a8_ref(hs[-1], q, s_, b, a))
+        for name, cuda, ref in (
+                ("fused_linear_w8", lambda h, q, s_, b, a:
+                 K._fused_linear_w8_cuda(h, q, s_, b, a, "default"),
+                 lambda h, q, s_, b, a:
+                 K.fused_linear_w8_ref(h, q, s_, b, a, "default")),
+                ("fused_linear_w8a8", K._fused_linear_w8a8_cuda,
+                 K.fused_linear_w8a8_ref)):
+            tk = tp = dev = 0.0
+            for i, (q, s_, b, a) in enumerate(zip(
+                    flag._padded(), flag.scales, flag.biases,
+                    FLAGSHIP_INT8_ACTS)):
+                h = hs[i]
+                k_ms = _median_ms(lambda: cuda(h, q, s_, b, a))
+                p_ms = _median_ms(lambda: ref(h, q, s_, b, a))
+                d = _profile_steps(lambda: cuda(h, q, s_, b, a))["busy_us"]
+                tk, tp, dev = tk + k_ms, tp + p_ms, dev + d
+                log(f"[timing] {name} B={B} {FLAGSHIP[i]}->{FLAGSHIP[i + 1]} "
+                    f"{a}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, device "
+                    f"{d:.1f} us")
+            log(f"[timing] {name} B={B} three flagship layers: kernel "
+                f"{tk:.4f} ms, plain {tp:.4f} ms, device {dev:.1f} us")
+            times[name] = (tk, tp)
+        wq3, sw2, b2 = stack_gpu._cache["stacked"]
+        x = torch.as_tensor(stack["x"], device=DEVICE)
+        k_ms = _median_ms(lambda: K._fused_mlp_w8a8_forward_cuda(
+            x, wq3, sw2, b2, "relu"))
+        p_ms = _median_ms(lambda: K.fused_mlp_w8a8_forward_ref(
+            x, wq3, sw2, b2, "relu"))
+
+        def chain():
+            h = x
+            for l in range(STACK_L):
+                h = K._fused_linear_w8a8_cuda(h, wq3[l], sw2[l], b2[l],
+                                              STACK_ACTS[l])
+            return h
+
+        c_ms = _median_ms(chain)
+        prof = _profile_steps(lambda: K._fused_mlp_w8a8_forward_cuda(
+            x, wq3, sw2, b2, "relu"))
+        gemm_us = prof["by_kernel"].get("w8a8_gemm_kernel", 0.0)
+        check(gemm_us > 0, f"the profiler saw the stack's kernels as "
+              f"{sorted(prof['by_kernel'])}")
+        log(f"[timing] fused_mlp_w8a8_forward 4x4096 B={STACK_B}: kernel "
+            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, per-layer "
+            f"fused_linear_w8a8 chain {c_ms:.4f} ms; device "
+            f"{prof['busy_us']:.1f} us in {prof['launches']:.0f} kernels ("
+            + ", ".join(f"{n} {us:.1f} us" for n, us in
+                        prof["by_kernel"].items())
+            + f"); the products stream the int8 weights at "
+            f"{STACK_L * STACK_N * STACK_N / (gemm_us * 1e-6) / 1e9:.0f} GB/s")
+        times["fused_mlp_w8a8_forward"] = (k_ms, p_ms)
+    return times
 
 
 def phase_train_routes() -> None:
@@ -619,30 +1051,94 @@ def phase_train_routes() -> None:
             f"{1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): {top}")
 
 
+def _bound(nbytes: float, ops: float, kind: str):
+    """(least ms, what bounds it): the larger of the bytes over the HBM
+    rate and the operations over the peak rate of their type."""
+    by_bytes = nbytes / HBM_BPS * 1e3
+    by_ops = ops / PEAK_OPS[kind] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def bounds() -> dict:
+    """Each kernel's bound at the shape its time is taken at: each input
+    read once, each output written once, the operations its inputs need."""
+    layers = list(zip(FLAGSHIP[:-1], FLAGSHIP[1:]))  # (K, O)
+    kos = sum(k * o for k, o in layers)
+    params = kos + sum(o for _, o in layers)
+
+    def per_layer(B, x_bytes, w_bytes, n_vectors, kind):
+        parts = [_bound(B * k * x_bytes + o * k * w_bytes
+                        + n_vectors * o * 4 + B * o * 4, 2 * B * k * o, kind)
+                 for k, o in layers]
+        return (sum(ms for ms, _ in parts),
+                max(parts, key=lambda p: p[0])[1])
+
+    B, T = 8, 100
+    n, L, Bs = STACK_N, STACK_L, STACK_B
+    return {
+        # three flagship layers at B=8, f32 weights and one bias vector
+        "fused_linear": per_layer(B, 4, 4, 1, "f32"),
+        "fused_mlp_forward": _bound(
+            4 * (B * FLAGSHIP[0] + params + B * FLAGSHIP[-1]),
+            2 * B * kos, "f32"),
+        # B=100: x, one-hot y, the parameters read and written, the loss;
+        # forward, weight gradients and all but the first input gradient
+        "fused_mlp_train_step": _bound(
+            4 * (T * FLAGSHIP[0] + T * FLAGSHIP[-1] + 2 * params + 1),
+            2 * T * (2 * kos + kos - layers[0][0] * layers[0][1]), "f32"),
+        # int8 codes, f32 scale and bias; w8's products are bf16 at default
+        "fused_linear_w8": per_layer(B, 4, 1, 2, "bf16"),
+        "fused_linear_w8a8": per_layer(B, 4, 1, 2, "int8"),
+        "fused_mlp_w8a8_forward": _bound(
+            Bs * n * 4 + L * n * n + 2 * L * n * 4 + Bs * n * 4,
+            2 * L * Bs * n * n, "int8"),
+    }
+
+
 def main() -> int:
-    name = phase_environment()
+    name, card = phase_environment()
     t0 = time.perf_counter()
     phase_build()
     log(f"[build] done in {time.perf_counter() - t0:.1f} s")
     worst = phase_kernels()
+    t0 = time.perf_counter()
+    qm, weights, xs = int8_stack_cpu()
+    stack = {"model": qm, "weights": weights, "x": xs}
+    log(f"[int8] 4x4096 stack made and quantized on the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    worst.update(phase_int8_kernels(stack))
     with tempfile.TemporaryDirectory() as tmp:
         sl = phase_slice(tmp)
+        sv = phase_int8_serving(tmp, sl["ckpt"], stack)
         tr = phase_train(tmp)
     times = phase_timing(sl["model"])
+    times.update(phase_int8_timing(sv, stack))
     phase_train_routes()
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "
             f"(host clock, batches 2-6, the app's --metrics record)")
     # each kernel's launches are those of the path it serves: the serving
-    # slice for the two forward kernels, the --fused mnist run for the step
+    # slice for the two forward kernels, the --fused mnist run for the step,
+    # the int8 serve app's route for each int8 kernel
     launches = dict(sl["launches"])
     launches["fused_mlp_train_step"] = (
         tr["fused"]["launches"]["fused_mlp_train_step"])
+    launches.update(sv["launches"])
+    least = bounds()
+    for n in KERNELS:
+        log(f"[bound] {n}: {least[n][0]:.6f} ms by {least[n][1]} (H100 SXM "
+            f"peaks: {HBM_BPS / 1e12:g} TB/s, {PEAK_OPS})")
+    # no single PyTorch call computes any of these functions with its
+    # epilogue (activation, softmax, SGD update, int8 rescale), so
+    # library_ms is null throughout
     kernels = [dict(name=n, **KERNELS[n], launches=launches[n],
                     max_abs_err=worst[n], ms=times[n][0],
-                    plain_ms=times[n][1])
+                    plain_ms=times[n][1], bound_ms=least[n][0],
+                    bound_by=least[n][1], library_ms=None)
                for n in KERNELS]
+    log(f"[card] every time above was taken on: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

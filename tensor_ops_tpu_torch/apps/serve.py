@@ -1,14 +1,17 @@
 """tensor-ops-serve on PyTorch: serve a trained network checkpoint.
 
 The port of ``apps/serve.py``, with the same flags plus ``--device``: load
-a ``feedforward`` (``save_network``) or ``fused_mlp`` (``save_fused``)
-checkpoint written by either package, warm the bucketed ``Predictor``, then
-answer prediction requests from an .npy/.npz/CSV file or run a latency
-self-benchmark.
+a ``feedforward`` (``save_network``), ``fused_mlp`` (``save_fused``) or
+``quantized_mlp`` (``save_quantized``) checkpoint written by either package,
+optionally quantize it to int8 at load (``--int8``, w8a8), warm the bucketed
+``Predictor``, then answer prediction requests from an .npy/.npz/CSV file or
+run a latency self-benchmark.  A ``quantized_mlp`` checkpoint serves in the
+mode it was saved with (w8 or w8a8).
 
 Examples:
     python -m tensor_ops_tpu_torch.apps.serve ckpt.npz --bench
     python -m tensor_ops_tpu_torch.apps.serve ckpt.npz -i batch.npy --probs
+    python -m tensor_ops_tpu_torch.apps.serve ckpt.npz --int8 --bench
 """
 
 from __future__ import annotations
@@ -22,24 +25,28 @@ import torch
 from ..backend.rng import Rng
 from ..backend.torch_backend import TorchBackend
 from ..models import activation_by_name, gen_net
-from ..models.fast import FusedMLP
+from ..models.fast import FusedMLP, QuantizedMLP
 from ..models.serve import Predictor
-from ..utils.checkpoint import (_fused_from_arrays, load_arrays,
-                                network_from_arrays)
+from ..utils.checkpoint import (_fused_from_arrays, _quantized_from_arrays,
+                                load_arrays, network_from_arrays)
 
 _NOT_PORTED = "not yet ported to the PyTorch package (ROADMAP.md Queue 1)"
 
 
 def load_model(payload, layers, in_dim: int, out_dim: int,
-               act: str, device: torch.device) -> FusedMLP:
-    """Dispatch on the checkpoint's ``kind`` metadata.  Bare Network
-    checkpoints rebuild the op graph from the activation names stored in
-    the checkpoint; older checkpoints without them fall back to the
-    ``--act`` flag for hidden layers + softmax out."""
+               act: str, device: torch.device, int8: bool = False):
+    """Dispatch on the checkpoint's ``kind`` metadata; with ``int8`` a
+    float model is quantized to a w8a8 ``QuantizedMLP`` on ``device``.
+    Bare Network checkpoints rebuild the op graph from the activation names
+    stored in the checkpoint; older checkpoints without them fall back to
+    the ``--act`` flag for hidden layers + softmax out."""
     arrays, meta = payload
     kind = meta.get("kind", "network")
+    if kind == "quantized_mlp":
+        return _quantized_from_arrays(arrays, meta, device)
     if kind == "fused_mlp":
-        return _fused_from_arrays(arrays, meta, device)
+        fm = _fused_from_arrays(arrays, meta, device)
+        return QuantizedMLP.from_fused(fm) if int8 else fm
     if kind not in ("feedforward", "network"):
         raise SystemExit(f"checkpoint kind {kind!r}: {_NOT_PORTED}")
     be = TorchBackend(torch.float32, device)
@@ -59,7 +66,8 @@ def load_model(payload, layers, in_dim: int, out_dim: int,
     net = gen_net(be, in_dim, out_dim,
                   list(zip(layers, hidden)), out_act, Rng(be, seed=0))
     net = network_from_arrays(arrays, meta, net, be)
-    return FusedMLP.from_network(net)
+    fm = FusedMLP.from_network(net)
+    return QuantizedMLP.from_fused(fm) if int8 else fm
 
 
 def _load_array_file(path: str) -> np.ndarray:
@@ -96,8 +104,8 @@ def main(argv=None):
     p.add_argument("--in-dim", type=int, default=784)
     p.add_argument("--out-dim", type=int, default=10)
     p.add_argument("--int8", action="store_true",
-                   help="Quantize weights to int8 at load (" + _NOT_PORTED
-                        + ")")
+                   help="Quantize weights to int8 at load (w8a8: int8 x "
+                        "int8 -> int32 kernels)")
     p.add_argument("--bf16", action="store_true",
                    help="Store weights in bfloat16 (half the weight memory)")
     p.add_argument("--act", type=str, default="logistic",
@@ -126,8 +134,6 @@ def main(argv=None):
     buckets = tuple(int(x) for x in args.buckets.split(",") if x)
     if args.int8 and args.bf16:
         p.error("--int8 and --bf16 are mutually exclusive")
-    if args.int8:
-        p.error(f"--int8: int8 serving is {_NOT_PORTED}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         p.error(f"--device {args.device}: CUDA is not available")
@@ -136,7 +142,10 @@ def main(argv=None):
     if payload[1].get("kind") == "recurrent":
         p.error(f"recurrent checkpoints: {_NOT_PORTED}")
     model = load_model(payload, layers, args.in_dim, args.out_dim,
-                       args.act, device)
+                       args.act, device, int8=args.int8)
+    if args.bf16 and isinstance(model, QuantizedMLP):
+        p.error("--bf16 does not apply to an int8 (quantized_mlp) "
+                "checkpoint — it is already the smaller artifact")
     pred = Predictor(model, buckets=buckets,
                      dtype="bf16" if args.bf16 else None)
     print(f"Serving {type(model).__name__} from {args.checkpoint} "

@@ -9,7 +9,8 @@ Pointwise-lift VJPs use ``torch.func.vjp`` of the (elementwise) function at
 the tensor level, which is exactly the per-element gradient the reference
 computes via ``TT.gradLift`` (``src/TensorOps/Tensor.hs:119-129``).
 Dtype and device are explicit on every tensor the backend makes; the
-global default dtype is never touched.
+global default dtype is never touched.  The device is the card unless the
+caller names another.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ class TorchBackend(Backend):
     name = "torch"
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 device: "str | torch.device" = "cpu"):
+                 device: "str | torch.device" = "cuda"):
         if not isinstance(dtype, torch.dtype):
             raise TypeError(f"dtype must be a torch.dtype, got {dtype!r}")
         self.dtype = dtype

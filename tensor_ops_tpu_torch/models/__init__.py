@@ -1,6 +1,7 @@
 """The models ported so far: activations and losses, feed-forward
 networks and their batched training (``training``), the kernel-fused
-``FusedMLP`` and the ``Predictor`` that serves them.  ``fit``, the
+``FusedMLP``, the int8 ``QuantizedMLP`` and the ``Predictor`` that serves
+them.  ``fit``, the
 optimizers, recurrent and autoencoder models come in later slices
 (ROADMAP.md, Queue 1)."""
 
@@ -20,5 +21,5 @@ from .neuralnet import (
     squared_error,
 )
 from .feedforward import Network, ff_layer, gen_net, lift_net, unchain
-from .fast import FusedMLP
+from .fast import FusedMLP, QuantizedMLP
 from .serve import Predictor

@@ -10,18 +10,24 @@ PyTorch matmuls (cuBLAS), as the JAX package leaves it to XLA's own GEMM
 fusion.  ``train`` is one SGD step by autograd through ``fused_linear``;
 ``train_fullfused`` is the whole step in the ``fused_mlp_train_step``
 kernel.  Both return a new ``FusedMLP`` and leave this one as it was.
+
+``QuantizedMLP`` is the int8 serving model: per-channel int8 weights
+served through ``fused_linear_w8a8`` or ``fused_linear_w8`` per layer, or,
+for a uniform stack, the whole-MLP ``fused_mlp_w8a8_forward``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.kernels import (_act_fn, fused_linear, fused_mlp_forward,
-                           fused_mlp_train_step)
+from ..ops.kernels import (_act_fn, fused_linear, fused_linear_w8,
+                           fused_linear_w8a8, fused_mlp_forward,
+                           fused_mlp_train_step, fused_mlp_w8a8_forward,
+                           pad_codes, quantize_weights_int8)
 from .feedforward import Network
 
 
@@ -86,7 +92,7 @@ class FusedMLP:
     @classmethod
     def from_numpy(cls, weights: Sequence[Any], biases: Sequence[Any],
                    acts: Sequence[str], softmax_out: bool = True,
-                   device: "str | torch.device" = "cpu",
+                   device: "str | torch.device" = "cuda",
                    precision: str = "default",
                    loss_kind: str = "ce") -> "FusedMLP":
         """From host arrays — e.g. the JAX package's FusedMLP parameters
@@ -197,3 +203,130 @@ class FusedMLP:
             xb, yb, list(self.weights), list(self.biases), rate, self.acts,
             precision=self.precision, loss_kind=kind)
         return float(v), self._replaced(ws, bs)
+
+
+@dataclass
+class QuantizedMLP:
+    """int8 serving model: per-channel symmetric int8 codes of every
+    ffLayer weight (``wqs[k]`` (o_k, i_k) int8, ``scales[k]`` (o_k, 1)
+    f32, ``biases[k]`` (o_k,) f32), all on one device, with two modes:
+
+    - ``mode="w8a8"`` (default): activations quantized per row, int8 x
+      int8 -> int32 (``fused_linear_w8a8``);
+    - ``mode="w8"``: weight-only int8, dequantized in the kernel and
+      rounded to bf16 with x (``fused_linear_w8``).
+
+    The model is immutable: the kernels' forms of the weights (codes padded
+    to 16-byte rows, the layer stack of ``run_fused``) are made once per
+    model and cached, never per request.  A uniform 128-multiple stack
+    holds its codes as views of one ``(L, N, N)`` tensor, so the stack
+    costs no second copy."""
+
+    wqs: Tuple[torch.Tensor, ...]
+    scales: Tuple[torch.Tensor, ...]
+    biases: Tuple[torch.Tensor, ...]
+    acts: Tuple[str, ...]
+    softmax_out: bool = True
+    mode: str = "w8a8"
+    _cache: dict = field(default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.mode not in ("w8", "w8a8"):
+            raise ValueError(f"unknown QuantizedMLP mode {self.mode!r}")
+        self.wqs, self.scales = tuple(self.wqs), tuple(self.scales)
+        self.biases, self.acts = tuple(self.biases), tuple(self.acts)
+        if not (len(self.wqs) == len(self.scales) == len(self.biases)
+                == len(self.acts)) or not self.wqs:
+            raise ValueError("QuantizedMLP: need one code matrix, scale, "
+                             "bias and activation per layer")
+        ts = self.wqs + self.scales + self.biases
+        if not all(isinstance(t, torch.Tensor) for t in ts):
+            raise TypeError("QuantizedMLP holds torch tensors; use "
+                            "QuantizedMLP.from_numpy for numpy arrays")
+        if len({t.device for t in ts}) > 1:
+            raise ValueError("QuantizedMLP: codes, scales and biases must "
+                             "be on one device")
+        if any(q.dtype != torch.int8 for q in self.wqs):
+            raise ValueError("QuantizedMLP: codes must be int8")
+        if self._cache is None:
+            self._cache = {}
+        if self.uniform() and "stacked" not in self._cache:
+            # one (L, N, N) copy; the per-layer codes become its views
+            stack = torch.stack(self.wqs)
+            self.wqs = tuple(stack.unbind(0))
+            self._cache["stacked"] = (
+                stack, torch.stack([s.reshape(-1) for s in self.scales]),
+                torch.stack(self.biases))
+
+    @property
+    def device(self) -> torch.device:
+        return self.wqs[0].device
+
+    def uniform(self) -> bool:
+        """Every layer N x N with N % 128 == 0: the stacks the whole-MLP
+        kernel ``fused_mlp_w8a8_forward`` takes."""
+        n = self.wqs[0].shape[1]
+        return n % 128 == 0 and all(tuple(q.shape) == (n, n)
+                                    for q in self.wqs)
+
+    @classmethod
+    def from_fused(cls, fm: FusedMLP, mode: str = "w8a8") -> "QuantizedMLP":
+        """Quantize a FusedMLP's weights on their device; biases to f32."""
+        qs, ss = zip(*(quantize_weights_int8(w) for w in fm.weights))
+        return cls(tuple(qs), tuple(ss),
+                   tuple(b.to(torch.float32) for b in fm.biases), fm.acts,
+                   fm.softmax_out, mode)
+
+    @classmethod
+    def from_numpy(cls, wqs: Sequence[Any], scales: Sequence[Any],
+                   biases: Sequence[Any], acts: Sequence[str],
+                   softmax_out: bool = True, mode: str = "w8a8",
+                   device: "str | torch.device" = "cuda") -> "QuantizedMLP":
+        """From host arrays — e.g. the JAX package's QuantizedMLP arrays
+        as numpy — onto ``device``: codes int8, scales and biases f32."""
+        def t(a, dtype):
+            return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+        return cls(tuple(t(q, torch.int8) for q in wqs),
+                   tuple(t(s, torch.float32) for s in scales),
+                   tuple(t(b, torch.float32) for b in biases), tuple(acts),
+                   softmax_out, mode)
+
+    def _padded(self) -> Tuple[torch.Tensor, ...]:
+        padded = self._cache.get("padded")
+        if padded is None:
+            padded = tuple(pad_codes(q) for q in self.wqs)
+            self._cache["padded"] = padded
+        return padded
+
+    def run(self, x) -> torch.Tensor:
+        """Layer by layer, one ``fused_linear_w8a8`` (or ``fused_linear_w8``)
+        launch per layer; softmax over the last layer when ``softmax_out``."""
+        layer = fused_linear_w8a8 if self.mode == "w8a8" else fused_linear_w8
+        h = x
+        n = len(self.wqs)
+        for k, (q, s, b) in enumerate(zip(self._padded(), self.scales,
+                                          self.biases)):
+            if k == n - 1 and self.softmax_out:
+                h = torch.softmax(layer(h, q, s, b, "identity"), dim=-1)
+            else:
+                h = layer(h, q, s, b, self.acts[k])
+        return h
+
+    def run_fused(self, x) -> torch.Tensor:
+        """The whole MLP through ``fused_mlp_w8a8_forward``: needs a uniform
+        128-multiple stack and one shared hidden activation.  The kernel
+        gives raw logits; the softmax, or ``acts[-1]`` when
+        ``softmax_out=False``, is applied here, so ``run_fused`` computes
+        what ``run`` does."""
+        if not self.uniform():
+            raise ValueError("run_fused needs a uniform 128-multiple stack")
+        hidden = set(self.acts[:-1])
+        if len(hidden) > 1:
+            raise ValueError(
+                f"run_fused needs one hidden activation, got {hidden}")
+        act = next(iter(hidden)) if hidden else "identity"
+        z = fused_mlp_w8a8_forward(x, *self._cache["stacked"], act)
+        if self.softmax_out:
+            return torch.softmax(z, dim=-1)
+        return _act_fn(self.acts[-1])(z)

@@ -2,18 +2,22 @@
 
 The reference has no inference story beyond calling ``runNetwork`` in a
 loop; for production serving this wraps a staged-IR ``Network`` (with its
-backend) or a ``FusedMLP`` with shape-bucketed forwards, explicit warmup,
-latency statistics and an atomic hot swap.
+backend), a ``FusedMLP`` or an int8 ``QuantizedMLP`` with shape-bucketed
+forwards, explicit warmup, latency statistics and an atomic hot swap.
 
 Routing is the JAX package's: a ``Network`` runs its graph vmapped over the
 batch (``batched_run``); for a ``FusedMLP``, batches under
 ``xla_threshold`` go to the whole-network kernel ``fused_mlp_forward``,
 larger ones to plain matmuls (``FusedMLP.run_xla``), and
 ``use_fused_kernel=False`` sends every batch through the per-layer kernel
-``fused_linear``.
+``fused_linear``.  A ``QuantizedMLP`` whose stack is uniform (every layer
+N x N, N % 128 == 0) and has one hidden activation runs the whole-MLP
+kernel ``fused_mlp_w8a8_forward`` (``run_fused``); any other, or any with
+``use_fused_kernel=False``, runs its per-layer int8 kernel (``run``).  No
+``xla_threshold`` applies to int8.
 
-Not yet ported: the mesh-sharded route, ``QuantizedMLP`` and
-``SequencePredictor`` (ROADMAP.md, Queue 1).
+Not yet ported: the mesh-sharded route and ``SequencePredictor``
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from ..backend.base import Backend
 from ..utils.profiling import StepTimer
-from .fast import FusedMLP
+from .fast import FusedMLP, QuantizedMLP
 from .feedforward import Network
 from .training import batched_run
 
@@ -52,9 +56,14 @@ def _servable(model, be: Optional[Backend], dtype: Optional[str]):
             raise ValueError("dtype= applies to FusedMLP models (Network "
                              "predictors follow their backend)")
         return model
+    if isinstance(model, QuantizedMLP):
+        if dtype is not None:
+            raise ValueError("dtype= applies to FusedMLP models (a "
+                             "QuantizedMLP is int8 already)")
+        return model
     if not isinstance(model, FusedMLP):
-        raise TypeError(f"Predictor serves a Network or a FusedMLP, got "
-                        f"{type(model).__name__}")
+        raise TypeError(f"Predictor serves a Network, a FusedMLP or a "
+                        f"QuantizedMLP, got {type(model).__name__}")
     if dtype is not None:
         # storage-dtype knob: "bf16" halves the weight memory
         if dtype not in _DTYPES:
@@ -68,11 +77,11 @@ class Predictor:
     next bucket, so a deployment serves a fixed set of batch shapes.
 
     Serves a staged-IR ``Network`` together with its backend ``be``, or a
-    ``FusedMLP`` (whose tensors carry their device)."""
+    ``FusedMLP`` or ``QuantizedMLP`` (whose tensors carry their device)."""
 
     def __init__(
         self,
-        model: Union[Network, FusedMLP],
+        model: Union[Network, FusedMLP, QuantizedMLP],
         be: Optional[Backend] = None,
         buckets: Sequence[int] = (1, 8, 32, 128, 512),
         use_fused_kernel: bool = True,
@@ -87,10 +96,13 @@ class Predictor:
         # ONE attribute holds what a request routes on (the backend
         # included: a Network swapped in by reload() arrives with its
         # backend), so a reload() swap is a single atomic assignment
-        self._serving = (_servable(model, be, dtype), be)
+        model = _servable(model, be, dtype)
+        q_uniform = (isinstance(model, QuantizedMLP) and use_fused_kernel
+                     and model.uniform() and len(set(model.acts[:-1])) <= 1)
+        self._serving = (model, be, q_uniform)
 
     @property
-    def model(self) -> Union[Network, FusedMLP]:
+    def model(self) -> Union[Network, FusedMLP, QuantizedMLP]:
         return self._serving[0]
 
     @property
@@ -101,10 +113,12 @@ class Predictor:
         return _bucket_of(self.buckets, n)
 
     def _forward(self, serving, xb: torch.Tensor) -> torch.Tensor:
-        model, be = serving
+        model, be, q_uniform = serving
         with torch.inference_mode():
             if isinstance(model, Network):
                 return batched_run(model, be)(xb, *model.params)
+            if isinstance(model, QuantizedMLP):
+                return model.run_fused(xb) if q_uniform else model.run(xb)
             if not self.use_fused_kernel:
                 return model.run(xb)
             if xb.shape[0] >= self.xla_threshold:
@@ -121,7 +135,7 @@ class Predictor:
 
     @staticmethod
     def _as(serving, x: np.ndarray) -> torch.Tensor:
-        model, be = serving
+        model, be, _ = serving
         if isinstance(model, Network):
             return be.asarray(x)
         return torch.as_tensor(x, dtype=torch.float32, device=model.device)
@@ -162,12 +176,13 @@ class Predictor:
         when this predictor has none).  ``dtype`` defaults to the knob
         this predictor was built with; pass None or another value to
         change it.  An inherited knob is not applied to a Network (its
-        backend sets its dtype) but is remembered for a later FusedMLP.
-        Latency stats continue across the swap."""
+        backend sets its dtype) or a QuantizedMLP (int8 already) but is
+        remembered for a later FusedMLP.  Latency stats continue across
+        the swap."""
         explicit = dtype is not Predictor._KEEP
         remembered = dtype if explicit else self._dtype
         if not explicit:
-            dtype = None if isinstance(model, Network) else self._dtype
+            dtype = self._dtype if isinstance(model, FusedMLP) else None
         new = Predictor(model, be=be or self.be, buckets=self.buckets,
                         use_fused_kernel=self.use_fused_kernel,
                         xla_threshold=self.xla_threshold, dtype=dtype)
@@ -186,12 +201,16 @@ class Predictor:
 
 
 def _in_width(model) -> int:
+    if isinstance(model, QuantizedMLP):
+        return model.wqs[0].shape[1]
     if isinstance(model, FusedMLP):
         return model.weights[0].shape[1]
     return model.in_shape[0]
 
 
 def _out_width(model) -> int:
+    if isinstance(model, QuantizedMLP):
+        return model.wqs[-1].shape[0]
     if isinstance(model, FusedMLP):
         return model.weights[-1].shape[0]
     return model.out_shape[0]

@@ -1,11 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  At first
-use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared
-library under ``build/kernels/`` at the root of the checkout, and loaded
-with ``ctypes``.  The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Nothing here runs at import: a build needs ``nvcc``, which only
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface; kernels
+may share ``csrc/*.cuh`` headers.  At first use it is compiled with
+``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``build/kernels/`` at the root of the checkout, and loaded with ``ctypes``.
+The library's file name carries a hash of the source, of every header in
+``csrc/`` and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.  Nothing here runs at import: a build needs ``nvcc``, which only
 the machine with the card has.
 """
 
@@ -57,6 +58,16 @@ def _nvcc() -> str:
         "kernels are built from source on the machine with the GPU")
 
 
+def source_digest(name: str, csrc: Path = CSRC_DIR) -> str:
+    """The hash in the library's file name: ``csrc/<name>.cu``, every
+    ``csrc/*.cuh`` (by name and content) and the nvcc flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` if its library is missing or stale, load
     it, and return it.  Raises ``RuntimeError`` with nvcc's output when the
@@ -68,8 +79,7 @@ def build(name: str) -> Built:
         if name in _loaded:
             return _loaded[name]
         src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        digest = source_digest(name)
         so = BUILD_DIR / f"{name}-{digest}.so"
         seconds, log = 0.0, ""
         if not so.exists():

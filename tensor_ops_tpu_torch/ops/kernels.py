@@ -10,15 +10,29 @@ beside its plain PyTorch version.
 * :func:`fused_mlp_train_step` — one whole SGD step (forward, loss,
   backward, update) in two launches (``csrc/fused_mlp_train_step.cu``), the
   port of the TPU kernel ``_mlp_train_kernel``.
+* :func:`fused_linear_w8` — weight-only int8 ``act(x @ (q * s).T + b)``
+  (``csrc/fused_linear_w8.cu``), the port of ``_linear_w8_kernel``.
+* :func:`fused_linear_w8a8` — int8 x int8 -> int32 ``act((q(x) @ q.T) * sx
+  * sw.T + b)`` (``csrc/fused_linear_w8a8.cu``), the port of
+  ``_linear_w8a8_kernel``: one launch quantizes the rows of x, a second
+  takes the product.
+* :func:`fused_mlp_w8a8_forward` — a whole uniform-width int8 MLP from one
+  call, each layer a requantizing launch and a product launch
+  (``csrc/fused_mlp_w8a8_forward.cu``), the port of ``_mlp_w8a8_kernel``.
+
+The quantizers :func:`quantize_weights_int8` and :func:`quantize_acts_int8`
+are plain PyTorch on every device, as the JAX package leaves them to XLA.
 
 A wrapper takes its plain version (``*_ref``) only for tensors on the CPU.
 For CUDA tensors it launches its kernel or raises: no fallback.  Each
 wrapper counts its launches (:func:`launch_counts`), so a run can show that
 its main path went through the kernels.
 
-Precision: the kernels compute in IEEE fp32 FMA for both precision names.
-On the TPU, ``"default"`` meant bf16 multiplies on the MXU; the argument is
-kept (and validated) so that callers and checkpoints carry over.
+Precision: the f32 kernels compute in IEEE fp32 FMA for both precision
+names.  On the TPU, ``"default"`` meant bf16 multiplies on the MXU; the
+argument is kept (and validated) so that callers and checkpoints carry
+over.  ``fused_linear_w8`` is the exception: its TPU body rounds x and the
+dequantized weight to bf16 at ``"default"``, so both its versions do.
 """
 
 from __future__ import annotations
@@ -40,7 +54,9 @@ LOSS_KINDS = {"softmax_xent": 0, "squared_error": 1}
 
 _launch_lock = threading.Lock()
 _launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0,
-                             "fused_mlp_train_step": 0}
+                             "fused_mlp_train_step": 0, "fused_linear_w8": 0,
+                             "fused_linear_w8a8": 0,
+                             "fused_mlp_w8a8_forward": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -483,3 +499,278 @@ def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
                                           loss_kind)
     return fused_mlp_train_step_ref(x, y, weights, biases, lr, acts,
                                     precision, loss_kind)
+
+
+# ---------------------------------------------------------------------------
+# int8 serving: the quantizers and the three int8 kernels
+# ---------------------------------------------------------------------------
+
+K_ALIGN = 16             # int8 kernels: codes per 16-byte load along K
+INT8_MAX_TILE_ROWS = 16  # int8 kernels: batch rows per block
+
+
+def _quantize_rows_int8(a: torch.Tensor):
+    """Symmetric int8 quantization of each row of ``a`` (2-D): codes
+    ``clip(round(a / s), -127, 127)`` and f32 scales ``s = amax / 127``
+    (``(rows, 1)``), ``s = 1`` for an all-zero row.  Both divisions are IEEE
+    divisions by a tensor: PyTorch on CUDA turns a division by a Python
+    scalar into a multiplication by its reciprocal, which rounds otherwise.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    a = a.to(torch.float32)
+    amax = a.abs().amax(dim=1, keepdim=True)
+    scale = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                        torch.ones_like(amax))
+    q = torch.clamp(torch.round(a / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_weights_int8(w):
+    """Per-output-channel symmetric int8 quantization of an ffLayer weight
+    ``w: (o, i)``: (int8 codes (o, i), f32 scales (o, 1)) with
+    ``w ~= codes * scales`` (``pallas_kernels.quantize_weights_int8``)."""
+    return _quantize_rows_int8(w)
+
+
+def quantize_acts_int8(x):
+    """Per-row dynamic symmetric int8 quantization of an activation batch
+    ``x: (B, i)``: (int8 codes, f32 scales (B, 1))
+    (``pallas_kernels.quantize_acts_int8``)."""
+    return _quantize_rows_int8(x)
+
+
+def padded_width(k: int) -> int:
+    """``k`` rounded up to :data:`K_ALIGN`: the row width of int8 codes as
+    the int8 kernels read them (16-byte aligned rows)."""
+    return -(-k // K_ALIGN) * K_ALIGN
+
+
+def pad_codes(wq: torch.Tensor) -> torch.Tensor:
+    """int8 codes ``(o, i)`` with zero codes appended up to
+    :func:`padded_width` ``(i)`` (zeros add nothing to a sum), or ``wq``
+    itself when its rows are already aligned.  Models pad once and keep the
+    result; an int8 wrapper given unpadded codes pads them per call."""
+    k = wq.shape[1]
+    if k == padded_width(k):
+        return wq
+    return torch.nn.functional.pad(wq, (0, padded_width(k) - k))
+
+
+def int8_tile_rows(batch: int, k_padded: int, bytes_per_value: int) -> int:
+    """Batch rows per block of an int8 kernel: the power of two that covers
+    the batch, at most :data:`INT8_MAX_TILE_ROWS`, halved until the rows'
+    ``k_padded`` values of ``bytes_per_value`` bytes (codes for w8a8, f32
+    for w8) fit one block's shared memory.  Raises ``ValueError`` when not
+    even one row fits."""
+    rows = 1
+    while rows < min(batch, INT8_MAX_TILE_ROWS):
+        rows *= 2
+    while rows > 1 and rows * k_padded * bytes_per_value > MAX_SMEM_BYTES:
+        rows //= 2
+    if k_padded * bytes_per_value > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"int8 kernels: an input width of {k_padded} needs "
+            f"{k_padded * bytes_per_value} bytes of shared memory per batch "
+            f"row, more than the {MAX_SMEM_BYTES} one block has")
+    return rows
+
+
+def _int8_shapes(name: str, x, wq, scale, b):
+    """(B, K, O) of an int8 layer, after checking x (B, K), wq (O, K) or
+    (O, padded_width(K)) int8, scale of O values and b (O,)."""
+    if x.ndim != 2 or wq.ndim != 2 or b.ndim != 1:
+        raise ValueError(f"{name} wants x (B, i), wq (o, i), b (o,); got "
+                         f"{tuple(x.shape)}, {tuple(wq.shape)}, "
+                         f"{tuple(b.shape)}")
+    if wq.dtype != torch.int8:
+        raise ValueError(f"{name}: wq must be int8 codes, got {wq.dtype}")
+    B, K = x.shape
+    O = wq.shape[0]
+    if (wq.shape[1] not in (K, padded_width(K)) or b.shape[0] != O
+            or scale.numel() != O):
+        raise ValueError(f"{name}: shapes x {tuple(x.shape)}, wq "
+                         f"{tuple(wq.shape)}, scale {tuple(scale.shape)}, b "
+                         f"{tuple(b.shape)} disagree")
+    if any(t.device != x.device for t in (wq, scale, b)):
+        raise ValueError(f"{name}: x, wq, scale and b must be on one device")
+    return B, K, O
+
+
+def _aligned_f32(x: torch.Tensor) -> torch.Tensor:
+    """x as a contiguous f32 tensor whose data starts on a 16-byte boundary
+    (the int8 kernels read its rows with 16-byte loads)."""
+    x = x.to(torch.float32).contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _int8_operands(x, wq, scale, b):
+    """The kernels' operands: x f32 and 16-byte aligned, codes padded to
+    16-byte rows, scale and bias as f32 vectors, all contiguous."""
+    q = pad_codes(wq).contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    return (_aligned_f32(x), q,
+            scale.to(torch.float32).reshape(-1).contiguous(),
+            b.to(torch.float32).contiguous())
+
+
+def fused_linear_w8_ref(x, wq, scale, b, act: str = "identity",
+                        precision: str = "default"):
+    """Plain PyTorch ``act(x @ (wq * scale).T + b)``: the codes are
+    dequantized in f32; at ``"default"`` x and the dequantized weight are
+    rounded to bf16 (their products are exact in f32), at ``"highest"``
+    everything stays f32.  Codes past column i (padding) are ignored.  The
+    result has x's dtype."""
+    K = x.shape[1]
+    w = wq[:, :K].to(torch.float32) * scale.to(torch.float32).reshape(-1, 1)
+    xf = x.to(torch.float32)
+    if precision != "highest":
+        xf = xf.to(torch.bfloat16).float()
+        w = w.to(torch.bfloat16).float()
+    z = xf @ w.T + b.to(torch.float32)
+    return _act_fn(act)(z).to(x.dtype)
+
+
+def _fused_linear_w8_cuda(x, wq, scale, b, act, precision):
+    B, K, O = _int8_shapes("fused_linear_w8", x, wq, scale, b)
+    xf, q, s, bf = _int8_operands(x, wq, scale, b)
+    y = torch.empty((B, O), dtype=torch.float32, device=x.device)
+    if B == 0 or O == 0:
+        return y.to(x.dtype)
+    Kp = q.shape[1]
+    rows = int8_tile_rows(B, Kp, 4)
+    fn = _kernel("fused_linear_w8", "fused_linear_w8_f32",
+                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(_p(xf), _p(q), _p(s), _p(bf), _p(y), B, K, Kp, O, rows,
+                 ACT_CODES[act], int(precision == "highest"),
+                 _stream(x.device))
+    _check_launch("fused_linear_w8", err)
+    _count("fused_linear_w8")
+    return y.to(x.dtype)
+
+
+def fused_linear_w8(x, wq, scale, b, act: str = "identity",
+                    precision: str = "default"):
+    """``act(x @ (wq * scale).T + b)`` with int8 weights dequantized in the
+    kernel.  x (B, i); wq (o, i) int8 codes, or (o, padded_width(i)) with
+    zero codes past i (:func:`pad_codes`); scale (o, 1) or (o,) f32; b
+    (o,).  Not differentiable (a serving kernel)."""
+    _check_names([act], precision)
+    if x.is_cuda:
+        return _fused_linear_w8_cuda(x, wq, scale, b, act, precision)
+    return fused_linear_w8_ref(x, wq, scale, b, act, precision)
+
+
+def fused_linear_w8a8_ref(x, wq, scale, b, act: str = "identity"):
+    """Plain PyTorch ``act((xq @ wq.T) * sx * sw.T + b)``: x quantized per
+    row (:func:`quantize_acts_int8`), the int8 products summed exactly (in
+    f64, exact below 2**53, since PyTorch has no int32 matmul on CUDA), the
+    sum rounded once to f32, then ``((acc * sx) * sw) + b`` op by op, as the
+    kernel's epilogue does.  Codes past column i are ignored.  The result
+    has x's dtype."""
+    K = x.shape[1]
+    xq, sx = quantize_acts_int8(x)
+    acc = (xq.to(torch.float64) @ wq[:, :K].to(torch.float64).T).float()
+    z = acc * sx * scale.to(torch.float32).reshape(1, -1) \
+        + b.to(torch.float32)
+    return _act_fn(act)(z).to(x.dtype)
+
+
+def _fused_linear_w8a8_cuda(x, wq, scale, b, act):
+    B, K, O = _int8_shapes("fused_linear_w8a8", x, wq, scale, b)
+    xf, q, s, bf = _int8_operands(x, wq, scale, b)
+    y = torch.empty((B, O), dtype=torch.float32, device=x.device)
+    if B == 0 or O == 0:
+        return y.to(x.dtype)
+    Kp = q.shape[1]
+    rows = int8_tile_rows(B, Kp, 1)
+    xq = torch.empty((B, Kp), dtype=torch.int8, device=x.device)
+    sx = torch.empty(B, dtype=torch.float32, device=x.device)
+    fn = _kernel("fused_linear_w8a8", "fused_linear_w8a8_f32",
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(_p(xf), _p(q), _p(s), _p(bf), _p(y), _p(xq), _p(sx), B, K,
+                 Kp, O, rows, ACT_CODES[act], _stream(x.device))
+    _check_launch("fused_linear_w8a8", err)
+    _count("fused_linear_w8a8")
+    return y.to(x.dtype)
+
+
+def fused_linear_w8a8(x, wq, scale, b, act: str = "identity"):
+    """``act((xq @ wq.T) * sx * sw.T + b)`` with both operands int8 and an
+    int32 accumulator; x (B, i) float is quantized per row by a CUDA pass of
+    its own before the product (on the CPU by :func:`quantize_acts_int8`).  wq (o, i) int8
+    codes, or (o, padded_width(i)) with zero codes past i; scale (o, 1) or
+    (o,) f32; b (o,)."""
+    _check_names([act], "default")
+    if x.is_cuda:
+        return _fused_linear_w8a8_cuda(x, wq, scale, b, act)
+    return fused_linear_w8a8_ref(x, wq, scale, b, act)
+
+
+def fused_mlp_w8a8_forward_ref(x, wqs, sws, bs, hidden_act: str = "relu"):
+    """Plain PyTorch whole uniform int8 MLP: the chain of
+    :func:`fused_linear_w8a8_ref`, ``hidden_act`` after every layer but the
+    last, which gives raw f32 logits."""
+    L = wqs.shape[0]
+    h = x
+    for l in range(L):
+        h = fused_linear_w8a8_ref(h, wqs[l], sws[l], bs[l],
+                                  hidden_act if l < L - 1 else "identity")
+    return h.to(torch.float32)
+
+
+def _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act):
+    B, N = x.shape
+    L = wqs.shape[0]
+    if any(t.device != x.device for t in (wqs, sws, bs)):
+        raise ValueError("fused_mlp_w8a8_forward: x, wqs, sws and bs must be "
+                         "on one device")
+    xf = _aligned_f32(x)
+    q = wqs.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    s = sws.to(torch.float32).reshape(L, N).contiguous()
+    bf = bs.to(torch.float32).reshape(L, N).contiguous()
+    y = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    if B == 0:
+        return y
+    hbuf = torch.empty((2, B, N), dtype=torch.float32, device=x.device)
+    xq = torch.empty((B, N), dtype=torch.int8, device=x.device)
+    sx = torch.empty(B, dtype=torch.float32, device=x.device)
+    rows = int8_tile_rows(B, N, 1)
+    fn = _kernel("fused_mlp_w8a8_forward", "fused_mlp_w8a8_forward_f32",
+                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(_p(xf), _p(q), _p(s), _p(bf), _p(y), _p(hbuf), _p(xq),
+                 _p(sx), B, N, L, rows, ACT_CODES[hidden_act],
+                 _stream(x.device))
+    _check_launch("fused_mlp_w8a8_forward", err)
+    _count("fused_mlp_w8a8_forward")
+    return y
+
+
+def fused_mlp_w8a8_forward(x, wqs, sws, bs, hidden_act: str = "relu"):
+    """Whole uniform-width int8 MLP: x (B, N) float; wqs (L, N, N) int8
+    codes (layer-stacked); sws (L, N) f32 scales; bs (L, N) f32 biases.
+    Hidden layers apply ``hidden_act`` and are requantized per row for the
+    next layer; the last layer gives raw f32 logits (B, N).  Needs
+    N % 128 == 0 (the JAX kernel's rule, on which ``Predictor`` routes);
+    other stacks use the per-layer :func:`fused_linear_w8a8`."""
+    _check_names([hidden_act], "default")
+    if x.ndim != 2:
+        raise ValueError(f"fused_mlp_w8a8_forward wants x (B, N), got "
+                         f"{tuple(x.shape)}")
+    B, N = x.shape
+    if (wqs.ndim != 3 or wqs.shape[1] != N or wqs.shape[2] != N or N % 128
+            or wqs.dtype != torch.int8):
+        raise ValueError(
+            f"fused_mlp_w8a8_forward needs uniform 128-multiple dims and "
+            f"int8 codes, got x {tuple(x.shape)}, wqs {tuple(wqs.shape)} "
+            f"{wqs.dtype}")
+    if x.is_cuda:
+        return _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act)
+    return fused_mlp_w8a8_forward_ref(x, wqs, sws, bs, hidden_act)

@@ -7,10 +7,11 @@ written by either one serves from both.  Tensors are moved to the host on
 save; bf16 tensors are written as float32 (numpy has no bf16, and the
 widening is exact).
 
-This slice carries the feed-forward and ``FusedMLP`` formats (and an
-asynchronous save for the training loop); optimizer
-state, quantized, recurrent and pipeline checkpoints come with their
-models (ROADMAP.md, Queue 1).
+This slice carries the feed-forward, ``FusedMLP`` and ``QuantizedMLP``
+formats (and an asynchronous save for the training loop); int8 codes stay
+int8 in the file.  Optimizer state, recurrent and pipeline checkpoints come
+with their models (ROADMAP.md, Queue 1).  Loaders place the model on the
+card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -165,7 +166,7 @@ def save_fused(path: str, model, extra_meta: Optional[dict] = None) -> None:
     save_arrays(path, arrays, meta)
 
 
-def _fused_from_arrays(arrays, meta, device="cpu"):
+def _fused_from_arrays(arrays, meta, device="cuda"):
     from ..models.fast import FusedMLP
 
     n = sum(1 for k in arrays if k.startswith("w_"))
@@ -177,6 +178,38 @@ def _fused_from_arrays(arrays, meta, device="cpu"):
                                loss_kind=meta.get("loss_kind", "ce"))
 
 
-def load_fused(path: str, device="cpu"):
+def load_fused(path: str, device="cuda"):
     arrays, meta = load_arrays(path)
     return _fused_from_arrays(arrays, meta, device)
+
+
+def save_quantized(path: str, model, extra_meta: Optional[dict] = None) -> None:
+    """Save a QuantizedMLP (int8 codes, f32 scales and biases, activation
+    names, mode) under the JAX package's keys: ``wq_i``, ``s_i``, ``b_i``."""
+    arrays = {f"wq_{i}": q for i, q in enumerate(model.wqs)}
+    arrays.update({f"s_{i}": s for i, s in enumerate(model.scales)})
+    arrays.update({f"b_{i}": b for i, b in enumerate(model.biases)})
+    meta = {
+        "kind": "quantized_mlp",
+        "acts": list(model.acts),
+        "softmax_out": bool(model.softmax_out),
+        "mode": model.mode,
+    }
+    meta.update(extra_meta or {})
+    save_arrays(path, arrays, meta)
+
+
+def _quantized_from_arrays(arrays, meta, device="cuda"):
+    from ..models.fast import QuantizedMLP
+
+    n = sum(1 for k in arrays if k.startswith("wq_"))
+    return QuantizedMLP.from_numpy(
+        [arrays[f"wq_{i}"] for i in range(n)],
+        [arrays[f"s_{i}"] for i in range(n)],
+        [arrays[f"b_{i}"] for i in range(n)], tuple(meta["acts"]),
+        meta["softmax_out"], meta.get("mode", "w8a8"), device=device)
+
+
+def load_quantized(path: str, device="cuda"):
+    arrays, meta = load_arrays(path)
+    return _quantized_from_arrays(arrays, meta, device)

@@ -36,7 +36,7 @@ TOL = 1e-9
 
 @pytest.fixture(scope="module")
 def tb():
-    return TT.TorchBackend(torch.float64)
+    return TT.TorchBackend(torch.float64, "cpu")
 
 
 def close(got, want, tol=TOL):

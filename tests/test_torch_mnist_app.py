@@ -121,7 +121,7 @@ def test_per_sample_route_trains_and_checkpoints(tmp_path):
                    "-d", str(tmp_path), "-c", "-l", "16", "--seed", "4",
                    "--checkpoint", ck])
     assert len(training_errors(out)) == 1
-    be = TorchBackend(torch.float32)
+    be = TorchBackend(torch.float32, "cpu")
     tmpl = gen_net(be, 784, 10, [(16, act_logistic())], act_softmax(),
                    Rng(be, 0))
     saved = checkpoint.load_network(ck, tmpl, be)

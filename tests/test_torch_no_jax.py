@@ -1,6 +1,6 @@
-"""The port never imports JAX: every module imports, and the serving and
-training paths run end to end, in a fresh interpreter where ``import jax``
-fails."""
+"""The port never imports JAX: every module imports, and the serving
+(f32 and int8) and training paths run end to end, in a fresh interpreter
+where ``import jax`` fails."""
 
 import os
 import re
@@ -30,7 +30,7 @@ from tensor_ops_tpu_torch.utils.checkpoint import load_network, save_network
 from tensor_ops_tpu_torch.apps import mnist, serve
 from tensor_ops_tpu_torch.utils import mnist_data
 
-be = TT.TorchBackend(torch.float64)
+be = TT.TorchBackend(torch.float64, "cpu")
 net = gen_net(be, 12, 4, [(8, act_logistic())], act_softmax(), Rng(be, 0))
 x = be.asarray(np.linspace(0, 1, 12))
 p = net.run(be, x)
@@ -49,6 +49,22 @@ with tempfile.TemporaryDirectory() as d:
     np.save(xf, np.zeros((2, 12), np.float32))
     serve.main([ck, "-l", "8", "--in-dim", "12", "--out-dim", "4", "-i", xf,
                 "--device", "cpu"])
+    # int8 serving: --int8 quantizes at load (w8a8), a saved w8 model
+    # serves in its mode, a uniform stack runs the whole-MLP route
+    serve.main([ck, "-l", "8", "--in-dim", "12", "--out-dim", "4", "-i", xf,
+                "--int8", "--device", "cpu"])
+    from tensor_ops_tpu_torch.models import QuantizedMLP
+    from tensor_ops_tpu_torch.utils.checkpoint import save_quantized
+    qk = os.path.join(d, "q.npz")
+    save_quantized(qk, QuantizedMLP.from_fused(FusedMLP.from_network(net2),
+                                               mode="w8"))
+    serve.main([qk, "--in-dim", "12", "--out-dim", "4", "-i", xf, "--probs",
+                "--device", "cpu"])
+    wide = FusedMLP.from_numpy([np.eye(128, dtype=np.float32)] * 2,
+                               [np.zeros(128, np.float32)] * 2,
+                               ["relu", "identity"], device="cpu")
+    qp = Predictor(QuantizedMLP.from_fused(wide), buckets=(4,))
+    assert qp._serving[2] and qp.predict(np.ones((3, 128))).shape == (3, 128)
     # training: the whole-step route and a Network predictor
     _, fm = FusedMLP.from_network(net2).train_fullfused(
         0.5, be.asarray(np.eye(12)[:4]), be.asarray(np.eye(4)))

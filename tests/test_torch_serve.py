@@ -134,7 +134,7 @@ def test_cli_bench_prints_latency(jax_ckpt):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--int8", "--bench"], "int8"),
+    (["--int8", "--bf16", "--bench"], "int8"),
     (["--bench", "--device", "cuda"], None),
     ([], None),
 ])
@@ -162,7 +162,7 @@ def test_checkpoints_cross_both_ways(tmp_path):
     jnet = jax_flagship(seed=4, act=j_relu)
     path = str(tmp_path / "j.npz")
     JC.save_network(path, jnet)
-    tb = TorchBackend(torch.float32)
+    tb = TorchBackend(torch.float32, "cpu")
     template = t_gen_net(tb, IN, OUT, [(h, t_logistic()) for h in HIDDEN],
                          t_softmax(), TRng(tb, 0))
     with pytest.raises(ValueError, match="activations"):
@@ -189,7 +189,7 @@ def test_checkpoints_cross_both_ways(tmp_path):
     jfm = JFusedMLP.from_network(jnet)
     path3 = str(tmp_path / "jf.npz")
     JC.save_fused(path3, jfm)
-    tfm = TC.load_fused(path3)
+    tfm = TC.load_fused(path3, device="cpu")
     assert tfm.acts == jfm.acts and tfm.softmax_out == jfm.softmax_out
     path4 = str(tmp_path / "tf.npz")
     TC.save_fused(path4, tfm)
@@ -205,7 +205,7 @@ def test_from_numpy_matches_jax_fused():
     jfm = JFusedMLP.from_network(jax_flagship(seed=7))
     tfm = FusedMLP.from_numpy([np.asarray(w) for w in jfm.weights],
                               [np.asarray(b) for b in jfm.biases],
-                              jfm.acts, jfm.softmax_out)
+                              jfm.acts, jfm.softmax_out, device="cpu")
     x = pixels(8, 4)
     for t_run, j_run in ((tfm.run, jfm.run), (tfm.run_xla, jfm.run_xla),
                          (tfm.run_fused_inference, jfm.run_fused_inference)):
@@ -218,9 +218,9 @@ def test_from_numpy_matches_jax_fused():
 def test_reload_hot_swaps_and_keeps_dtype(jax_ckpt):
     x = pixels(9, 5)
     old, new = port_model(jax_ckpt), FusedMLP.from_network(
-        t_gen_net(TorchBackend(torch.float32), IN, OUT,
+        t_gen_net(TorchBackend(torch.float32, "cpu"), IN, OUT,
                   [(h, t_logistic()) for h in HIDDEN], t_softmax(),
-                  TRng(TorchBackend(torch.float32), 11)))
+                  TRng(TorchBackend(torch.float32, "cpu"), 11)))
     p = Predictor(old, buckets=(8,), dtype="bf16")
     assert p.model.weights[0].dtype == torch.bfloat16
     before = p.predict(x)
@@ -236,7 +236,7 @@ def test_reload_hot_swaps_and_keeps_dtype(jax_ckpt):
                                .predict(x), atol=0)
     assert p.latency()["n"] == 3
     narrow = FusedMLP.from_numpy([np.zeros((3, IN))], [np.zeros(3)],
-                                 ["identity"])
+                                 ["identity"], device="cpu")
     with pytest.raises(ValueError, match="output width"):
         p.reload(narrow)
 
@@ -255,7 +255,7 @@ def test_bf16_predictor_matches_jax_bf16(jax_ckpt):
 def test_network_predictor_names_roadmap_item():
     """A Network is served only together with its backend, as in the JAX
     package (``tensor_ops_tpu/models/serve.py:89-90``)."""
-    tb = TorchBackend(torch.float32)
+    tb = TorchBackend(torch.float32, "cpu")
     net = t_gen_net(tb, 6, 3, [(4, t_logistic())], t_softmax(), TRng(tb, 0))
     with pytest.raises(ValueError, match="needs a backend"):
         Predictor(net)
@@ -272,7 +272,7 @@ def test_network_predictor_matches_jax_network_predictor(n):
     jb = T.JaxBackend(dtype=jnp.float64)
     jnet = j_gen_net(jb, 20, 4, [(12, j_logistic()), (7, j_relu())],
                      j_softmax(), JRng(jb, seed=3))
-    tb = TorchBackend(torch.float64)
+    tb = TorchBackend(torch.float64, "cpu")
     tmpl = t_gen_net(tb, 20, 4, [(12, t_logistic()), (7, t_relu())],
                      t_softmax(), TRng(tb, 0))
     tnet = Network(tmpl.op, [tb.asarray(np.asarray(p)) for p in jnet.params],
@@ -297,4 +297,6 @@ def test_cpu_serving_launches_no_kernel(jax_ckpt):
         Predictor(port_model(jax_ckpt), buckets=(8,),
                   use_fused_kernel=fused).predict(pixels(11, 3))
     assert K.launch_counts() == {"fused_linear": 0, "fused_mlp_forward": 0,
-                                 "fused_mlp_train_step": 0}
+                                 "fused_mlp_train_step": 0,
+                                 "fused_linear_w8": 0, "fused_linear_w8a8": 0,
+                                 "fused_mlp_w8a8_forward": 0}

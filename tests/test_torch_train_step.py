@@ -136,7 +136,7 @@ def jax_fused(seed=0):
 def port_fused(jfm, **kw):
     return FusedMLP.from_numpy([np.asarray(w) for w in jfm.weights],
                                [np.asarray(b) for b in jfm.biases],
-                               jfm.acts, jfm.softmax_out,
+                               jfm.acts, jfm.softmax_out, device="cpu",
                                precision="highest", **kw)
 
 
@@ -180,7 +180,7 @@ def test_mse_routes_agree_and_refuse_mixed_kinds():
         [r.normal(size=3) * 0.3, r.normal(size=8) * 0.3]
     fm = FusedMLP.from_numpy([f32(w) for w in ws], [f32(b) for b in bs],
                              ("logistic", "logistic"), softmax_out=False,
-                             loss_kind="mse")
+                             device="cpu", loss_kind="mse")
     x = torch.tensor(f32(r.uniform(0, 1, size=(6, 8))))
     v1, fm1 = fm.train(0.5, x, x)
     v2, fm2 = fm.train_fullfused(0.5, x, x)
@@ -244,4 +244,6 @@ def test_cpu_train_step_launches_no_kernel():
     fm.train_fullfused(0.1, torch.tensor(x), torch.tensor(y))
     fm.train(0.1, torch.tensor(x), torch.tensor(y))
     assert K.launch_counts() == {"fused_linear": 0, "fused_mlp_forward": 0,
-                                 "fused_mlp_train_step": 0}
+                                 "fused_mlp_train_step": 0,
+                                 "fused_linear_w8": 0, "fused_linear_w8a8": 0,
+                                 "fused_mlp_w8a8_forward": 0}

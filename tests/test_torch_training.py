@@ -33,7 +33,7 @@ ATOL = 1e-9
 SMALL = (12, (8,), 4)
 FLAGSHIP = (784, (300, 100), 10)
 JB = T.JaxBackend(dtype=jnp.float64)
-TB = TorchBackend(torch.float64)
+TB = TorchBackend(torch.float64, "cpu")
 
 
 def nets(shape, seed=0):
