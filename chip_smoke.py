@@ -42,18 +42,35 @@ without printing a result line:
    stack saved with ``save_quantized`` (``fused_mlp_w8a8_forward``); each
    is held against the plain ``QuantizedMLP`` on the CPU, and the int8
    classes against the f32 ones.
-8. Timing: p50 serving latency per bucket, each kernel's time beside its
+8. Recurrent kernel: ``fused_rnn_step`` against its plain version at the
+   recurrent slice's shapes (B = 1 and 256, 32 -> 512) and ragged ones (B =
+   37 and 5, 3 -> 45), every activation, bit for bit on a rerun, and the
+   gradients of its ``autograd.Function`` against autograd through the
+   plain version.
+9. Recurrent slice: the Elman 32 -> [512] -> 32 model of
+   ``scratch/fit_seq_realized.py`` (random weights, seed 7) is saved with
+   ``save_recurrent`` and 8 sequences of 64 steps are served through the
+   serve app (``--probs`` trajectories, then ``--bench --seq-len 64``),
+   held against the port's ``SequencePredictor`` on the CPU in float64;
+   ``FusedRNN(impl="pallas")`` built from the served model's cell runs the
+   8 sequences, one ``fused_rnn_step`` launch per timestep, and the served
+   trajectories are rebuilt from its outputs; five ``FusedRNN.train``
+   steps on the two impls and in CPU float64 agree; the sequence gradient
+   is bit-identical with and without ``offload_tape``.
+10. Timing: p50 serving latency per bucket, each kernel's time beside its
    plain version's (median of 50 CUDA-event-timed runs after warm-up), the
-   profiler's device time of the kernels, where one training step's and
-   one int8 request's time goes on each route (wall, kernels, device
-   busy), the device memory each served model holds (f32 vs int8), and the
-   app's training samples/s per route.
+   profiler's device time of the kernels, where one training step's, one
+   int8 request's and one recurrent request's time goes on each route
+   (wall, kernels, device busy), the device memory each served model holds
+   (f32 vs int8), the app's training samples/s per route, and a FusedRNN
+   sequence's wall time and launches.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
 and its plain version's, its bound (the larger of the bytes it must move
 over 3.35 TB/s and its operations over the peak rate of their type) and
-the time of one PyTorch call computing the same function (null: none
+the time of one PyTorch call computing the same function (``torch.addmm``
+for ``fused_linear``, timed at an identity layer; null where no one call
 does).  The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -110,6 +127,9 @@ KERNELS = {
         route="cuda",
         source="tensor_ops_tpu_torch/csrc/fused_mlp_w8a8_forward.cu",
         replaces="tensor_ops_tpu/ops/pallas_kernels.py:823"),
+    "fused_rnn_step": dict(
+        route="cuda", source="tensor_ops_tpu_torch/csrc/fused_rnn_step.cu",
+        replaces="tensor_ops_tpu/ops/pallas_kernels.py:959"),
 }
 SERVE_KERNELS = ("fused_linear", "fused_mlp_forward")
 # The uniform int8 serving stack of examples/bench_int8_serving.py:32-46 and
@@ -140,6 +160,29 @@ TOL_PARAM = (1e-5, 1e-5)
 # plain step the f32 run's own rounding of the parameters adds to that.
 TOL_5_STEPS = (5e-5, 5e-5)
 TRAIN_RATE = 0.3
+# The recurrent model the repo measures (scratch/fit_seq_realized.py:14-18,
+# 38-47; BENCH.md:665): Elman 32 -> [512, logistic output and state] -> 32
+# logistic, seed 7, sequences of 64 steps, batch 256.  8 sequences are
+# served through the app; the SequencePredictor is timed at buckets 8 and
+# 256.
+RNN_IN, RNN_HIDDEN, RNN_OUT, RNN_N, RNN_SEED = 32, 512, 32, 64, 7
+RNN_SEQS, RNN_BUCKETS = 8, (8, 256)
+RNN_STEP_SHAPES = ((1, RNN_IN, RNN_HIDDEN), (256, RNN_IN, RNN_HIDDEN),
+                   (37, 3, 45), (5, 3, 45))
+ACTS = ("identity", "logistic", "relu", "tanh")
+# The step kernel against its plain version: y = z, a 544-long f32 sum in
+# another order, is held as the pre-activations above (TOL_Z); s' = act(z)
+# to 1e-5 (weights at 1/sqrt(K) scale keep |z| of order 1, where the sums
+# differ by ~1e-6 and act has slope <= 1).  Gradients sum over up to 512
+# products or 256 rows in another order: 1e-4 + 1e-5 of themselves.
+TOL_RNN_S = (1e-5, 0.0)
+TOL_RNN_GRAD = (1e-4, 1e-5)
+# FusedRNN.train is held over the first 8 steps of a sequence: over all 64
+# this random N(0, 0.5) cell of width 512 is chaotic (a parameter step that
+# small still raises the sequence loss, and f32 gradients drift from f64's),
+# so no f32 run can match f64 there; over 8 steps SGD at this rate lowers
+# the loss and the gradients are well-conditioned.
+RNN_TRAIN_N, RNN_TRAIN_RATE = 8, 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -822,7 +865,31 @@ def phase_timing(model) -> dict:
             log(f"[timing] fused_linear B={B} three flagship layers: "
                 f"kernel {tk:.4f} ms, plain {tp:.4f} ms")
             if B == 8:
-                times["fused_linear"] = (tk, tp)
+                last = (hs[2], ws[2], bs[2])
+        # the flagship's last layer runs as an identity layer under
+        # softmax_out, where one torch.addmm computes what kernel 1 does:
+        # that call is kernel 1's library time, here and at 4096^3
+        g = torch.Generator(DEVICE).manual_seed(91)
+        big = (torch.rand(4096, 4096, device=DEVICE, generator=g),
+               torch.randn(4096, 4096, device=DEVICE, generator=g) / 64,
+               torch.randn(4096, device=DEVICE, generator=g))
+        for what, (h, w, b) in (("flagship 100->10, B=8", last),
+                                ("4096^3", big)):
+            y = K._fused_linear_cuda(h, w, b, "identity", False)[0]
+            e = max_err(y, torch.addmm(b, h, w.T), TOL_Z)
+            k_ms = _median_ms(lambda: K._fused_linear_cuda(
+                h, w, b, "identity", False))
+            p_ms = _median_ms(lambda: K.fused_linear_ref(h, w, b))
+            l_ms = _median_ms(lambda: torch.addmm(b, h, w.T))
+            (B, k), o = h.shape, w.shape[0]
+            least = _bound(4 * (B * k + o * k + o + B * o), 2 * B * k * o,
+                           "f32")
+            log(f"[timing] fused_linear identity layer {what}: kernel "
+                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.addmm "
+                f"{l_ms:.4f} ms (kernel vs addmm max|err| {e:.1e}); bound "
+                f"{least[0]:.6f} ms by {least[1]}")
+            if what.startswith("flagship"):
+                times["fused_linear"] = (k_ms, p_ms, l_ms)
         for B in (1, 8, 63):
             x = _rand(80 + B, B, FLAGSHIP[0], uniform=True)
             k_ms = _median_ms(lambda: K._fused_mlp_forward_cuda(
@@ -1050,6 +1117,289 @@ def phase_train_routes() -> None:
             f"{prof['busy_us']:.1f} us/step, idle share "
             f"{1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): {top}")
 
+def rnn_step_inputs(seed: int, B: int, I: int, O: int):
+    """x normal, s a logistic state in (0, 1), weights at 1/sqrt(I + O)
+    scale and a bias, all f32 on the card."""
+    r = np.random.default_rng(seed)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=DEVICE)
+
+    k = math.sqrt(I + O)
+    return (dev(r.normal(size=(B, I))),
+            dev(1 / (1 + np.exp(-r.normal(size=(B, O))))),
+            dev(r.normal(size=(O, I)) / k), dev(r.normal(size=(O, O)) / k),
+            dev(r.normal(size=O) * 0.3))
+
+
+def phase_rnn_kernels() -> float:
+    """Kernel 7 against its plain version on the card: every activation at
+    each shape, bit for bit on a rerun, and the gradients of the
+    ``autograd.Function`` against autograd through the plain version."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    worst = 0.0
+    for n, (B, I, O) in enumerate(RNN_STEP_SHAPES):
+        args = rnn_step_inputs(600 + n, B, I, O)
+        errs = []
+        for act in ACTS:
+            y, s = K._fused_rnn_step_cuda(*args, act)
+            y2, s2 = K._fused_rnn_step_cuda(*args, act)
+            torch.cuda.synchronize()
+            check(torch.equal(y, y2) and torch.equal(s, s2),
+                  f"fused_rnn_step B={B} {I}->{O} {act}: a rerun differs")
+            y_ref, s_ref = K.fused_rnn_step_ref(*args, act)
+            e = max(max_err(y, y_ref, TOL_Z), max_err(s, s_ref, TOL_RNN_S))
+            worst = max(worst, e)
+            errs.append(f"{act} {e:.1e}")
+        grads = []
+        # relu's kink: a z within the sums' rounding of 0 takes the other
+        # side in one version, so relu's gradients are compared where z
+        # has few entries (B <= 37)
+        for act in ACTS if B <= 37 else ("identity", "logistic", "tanh"):
+            r = np.random.default_rng(700 + n)
+            cy, cs = (torch.as_tensor(r.normal(size=(B, O)), dtype=torch.float32,
+                                      device=DEVICE) for _ in range(2))
+            sides = []
+            for fn in (K.fused_rnn_step, K.fused_rnn_step_ref):
+                ts = [a.clone().requires_grad_() for a in args]
+                y, s = fn(*ts, act)
+                ((y * cy).sum() + (s * cs).sum()).backward()
+                sides.append([t.grad for t in ts])
+            torch.cuda.synchronize()
+            e = max(max_err(a, b, TOL_RNN_GRAD) for a, b in zip(*sides))
+            grads.append(f"{act} {e:.1e}")
+        log(f"[rnn-kernel] fused_rnn_step B={B} {I}->{O}: bit-equal on a "
+            f"rerun; max|err| {', '.join(errs)} (y tol {TOL_Z[0]:g}+"
+            f"{TOL_Z[1]:g}|ref|, s' tol {TOL_RNN_S[0]:g}); gradients of the "
+            f"autograd.Function vs autograd through the plain version max|err| "
+            f"{', '.join(grads)} (tol {TOL_RNN_GRAD[0]:g}+{TOL_RNN_GRAD[1]:g}"
+            f"|ref|)")
+    return worst
+
+
+def rnn_model(be, seed: int = RNN_SEED):
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import act_logistic
+    from tensor_ops_tpu_torch.models import recurrent as R
+
+    lg = act_logistic
+    return R.gen_net(be, RNN_IN, RNN_OUT, [(RNN_HIDDEN, lg(), lg())], lg(),
+                     None, Rng(be, seed))
+
+
+def phase_rnn_slice(tmp: str) -> dict:
+    """The recurrent slice at full width: the serve app on a recurrent
+    checkpoint, FusedRNN on the kernel route rebuilding the served
+    trajectories, five training steps on both impls, and the offloaded
+    tape."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import (FusedRNN, SequencePredictor,
+                                             squared_error)
+    from tensor_ops_tpu_torch.models.recurrent import seq_scan_op
+    from tensor_ops_tpu_torch.ops import ir
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.utils.checkpoint import (load_arrays,
+                                                       load_recurrent,
+                                                       recurrent_from_arrays,
+                                                       save_recurrent)
+
+    be = TorchBackend(torch.float32, DEVICE)
+    ckpt = os.path.join(tmp, "rnn.npz")
+    save_recurrent(ckpt, rnn_model(be))
+    xs = np.random.default_rng(0).standard_normal(
+        (RNN_SEQS, RNN_N, RNN_IN)).astype(np.float32)
+    xfile = os.path.join(tmp, "seqs.npy")
+    np.save(xfile, xs)
+    buckets = ",".join(map(str, RNN_BUCKETS))
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = _run_app([ckpt, "-i", xfile, "--probs", "--device", DEVICE,
+                    "--buckets", buckets])
+    torch.cuda.synchronize()
+    app_launches = K.launch_counts()
+    served = _served_probs(out, RNN_SEQS * RNN_N).reshape(
+        RNN_SEQS, RNN_N, RNN_OUT)
+    wall = time.perf_counter() - t0
+    bench = json.loads(_run_app(
+        [ckpt, "--bench", "--seq-len", str(RNN_N), "--device", DEVICE,
+         "--buckets", buckets]).strip().splitlines()[-1])["latency"]
+    log(f"[rnn] serve app: {RNN_SEQS} sequences of {RNN_N} steps through a "
+        f"{RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT} recurrent checkpoint in "
+        f"{wall:.1f} s (load, warm-up and one request; the IR scan, no hand "
+        f"kernel: launches {app_launches}); --bench --seq-len {RNN_N} over "
+        f"buckets {RNN_BUCKETS}: n={bench['n']}, p50 "
+        f"{bench['p50_s'] * 1e3:.3f} ms")
+
+    # the same checkpoint on the CPU, in f64 (the reference) and in f32
+    # (the drift of an f32 recurrence of 64 steps from f64: the card's f32
+    # runs are held to 1e-5 plus twice that, and the printing's rounding)
+    arrays, meta = load_arrays(ckpt)
+    cpu = {}
+    for dt in (torch.float64, torch.float32):
+        cb = TorchBackend(dt, "cpu")
+        net_c = recurrent_from_arrays(arrays, meta, rnn_model(cb, 0), cb)
+        cpu[dt] = SequencePredictor(net_c, cb, buckets=(RNN_SEQS,)).predict(xs)
+    drift = float(np.abs(cpu[torch.float32] - cpu[torch.float64]).max())
+    rounding = 5e-7
+    tol_seq = (1e-5 + 2 * drift, 0.0)
+    e_app = max_err(torch.as_tensor(served),
+                    torch.as_tensor(cpu[torch.float64]),
+                    (tol_seq[0] + rounding, 0.0))
+    log(f"[rnn] served trajectories vs the port's SequencePredictor on the "
+        f"CPU in f64: max|err| {e_app:.2e} (tol 1e-5 + 2 x {drift:.2e}, the "
+        f"CPU f32 run's drift from f64, + {rounding:g} printing)")
+
+    net = load_recurrent(ckpt, rnn_model(be, 0), be)
+    wS, wX, b, w2, b2 = net.params
+    frnn = FusedRNN(wX, wS, b, net.states[0], "logistic", impl="pallas")
+    xs_dev = torch.as_tensor(xs, device=DEVICE)
+    K.reset_launch_counts()
+    ys = [frnn.seq_forward(x)[0] for x in xs_dev]
+    torch.cuda.synchronize()
+    launches = K.launch_counts()["fused_rnn_step"]
+    check(launches == RNN_SEQS * RNN_N, f"FusedRNN(impl='pallas') over "
+          f"{RNN_SEQS} x {RNN_N} steps launched fused_rnn_step {launches} "
+          f"times")
+    logistic = K._act_fn("logistic")
+    rebuilt = torch.stack([logistic(logistic(y) @ w2.T + b2) for y in ys])
+    e_k = max_err(rebuilt, torch.as_tensor(served),
+                  (tol_seq[0] + rounding, 0.0))
+    e_k64 = max_err(rebuilt, torch.as_tensor(cpu[torch.float64]), tol_seq)
+    log(f"[rnn] FusedRNN(impl='pallas') from the served model's cell (params "
+        f"0-2, state 0): {launches} fused_rnn_step launches for {RNN_SEQS} "
+        f"sequences of {RNN_N}; logistic(logistic(ys) W2^T + b2) vs the "
+        f"served trajectories max|err| {e_k:.2e}, vs the CPU f64 run "
+        f"{e_k64:.2e} (tol as above)")
+
+    # five SGD steps over the first RNN_TRAIN_N steps of sequence 0
+    x_tr = xs[0][:RNN_TRAIN_N]
+    m64 = FusedRNN(*(t.detach().double().cpu() for t in (wX, wS, b,
+                                                         net.states[0])))
+    ys64 = m64.seq_forward(x_tr)[0].numpy()
+    tg = ys64 + 0.5 * np.random.default_rng(1).standard_normal(ys64.shape)
+    models = {"pallas": frnn, "xla": FusedRNN(wX, wS, b, net.states[0]),
+              "cpu f64": m64}
+    losses = {k: [] for k in models}
+    for _ in range(5):
+        for k in models:
+            v, models[k] = models[k].train(RNN_TRAIN_RATE, RNN_TRAIN_RATE,
+                                           x_tr, tg)
+            losses[k].append(v)
+    torch.cuda.synchronize()
+    check(losses["pallas"][-1] < losses["pallas"][0],
+          f"FusedRNN(impl='pallas').train did not lower the loss: "
+          f"{losses['pallas']}")
+    check(models["pallas"].impl == "pallas", "train lost the impl")
+
+    def params(m):
+        return (m.wX, m.wS, m.b, m.s0)
+
+    for ref in ("xla", "cpu f64"):
+        e = max(max_err(a, c, TOL_5_STEPS) for a, c in
+                zip(params(models["pallas"]), params(models[ref])))
+        log(f"[rnn] 5 FusedRNN.train steps (rate {RNN_TRAIN_RATE:g}, "
+            f"{RNN_TRAIN_N} steps of sequence 0), impl='pallas' vs {ref}: "
+            f"max|err| {e:.2e} tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|;"
+            f" losses {[round(v, 3) for v in losses['pallas']]}")
+
+    # the sequence gradient with the tape on the card and in pinned host
+    # memory: bit for bit
+    loss = squared_error(RNN_OUT)
+    tgt = torch.as_tensor(np.random.default_rng(2).uniform(
+        0, 1, size=(RNN_N, RNN_OUT)), dtype=torch.float32, device=DEVICE)
+    args = (xs_dev[0],) + net.states + net.params + (tgt,)
+    for remat in (None, 8):
+        v_on, g_on = ir.value_and_grad(
+            net._seq_graph(loss, RNN_N, remat_every=remat), be, args)
+        v_off, g_off = ir.value_and_grad(
+            net._seq_graph(loss, RNN_N, remat_every=remat,
+                           offload_tape=True), be, args)
+        torch.cuda.synchronize()
+        check(torch.equal(v_on, v_off) and all(
+            torch.equal(a, c) for a, c in zip(g_on, g_off)),
+            f"offload_tape (remat_every={remat}) changed the sequence "
+            f"gradient")
+    scan = seq_scan_op(net.op, RNN_N, 1, None, True)
+    _, tape = scan.apply_tape(be, args[:-1])
+    torch.cuda.synchronize()
+    host = tape[1].slices[0][0]
+    check(host.device.type == "cpu" and host.is_pinned() and
+          len(tape[1].slices) == RNN_N, "offload_tape did not tape to pinned "
+          "host memory")
+    log(f"[rnn] sequence gradient (n={RNN_N}) with offload_tape: "
+        f"bit-identical to the on-device tape, plain and remat_every=8; "
+        f"the {RNN_N} taped carries are pinned host tensors")
+    return {"launches": launches, "net": net, "frnn": frnn, "be": be,
+            "xs": xs_dev, "served_err": e_app}
+
+
+def phase_rnn_timing(rs) -> dict:
+    """Kernel 7 vs its plain version at B = 1 and 256, a FusedRNN
+    sequence's wall time and launches, and SequencePredictor requests at
+    buckets 8 and 256 (p50, and where a request's time goes)."""
+    from tensor_ops_tpu_torch.models import SequencePredictor
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    times = {}
+    with torch.inference_mode():
+        for B in (1, 256):
+            args = rnn_step_inputs(800 + B, B, RNN_IN, RNN_HIDDEN)
+            k_ms = _median_ms(lambda: K._fused_rnn_step_cuda(*args,
+                                                             "logistic"))
+            p_ms = _median_ms(lambda: K.fused_rnn_step_ref(*args,
+                                                           "logistic"))
+            prof = _profile_steps(lambda: K._fused_rnn_step_cuda(
+                *args, "logistic"))
+            name = "rnn_step_gemv_kernel" if B == 1 else "rnn_step_gemm_kernel"
+            check(list(prof["by_kernel"]) == [name], f"profiler saw "
+                  f"{sorted(prof['by_kernel'])} for fused_rnn_step B={B}")
+            bound = rnn_step_bound(B)
+            log(f"[timing] fused_rnn_step B={B} {RNN_IN}->{RNN_HIDDEN} "
+                f"logistic: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, device "
+                f"{prof['busy_us']:.2f} us ({name}); bound "
+                f"{bound[0] * 1e3:.3f} us by {bound[1]}")
+            times[B] = (k_ms, p_ms, prof["busy_us"])
+
+    frnn, xs = rs["frnn"], rs["xs"]
+    for x in xs[:2]:
+        frnn.seq_forward(x)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for x in xs:
+        frnn.seq_forward(x)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / len(xs) * 1e3
+    per_seq = K.launch_counts()["fused_rnn_step"] / len(xs)
+    prof = _profile_steps(lambda: frnn.seq_forward(xs[0]), steps=4)
+    log(f"[timing] FusedRNN(impl='pallas').seq_forward n={RNN_N}: "
+        f"{wall_ms:.3f} ms/sequence wall, {per_seq:.0f} fused_rnn_step "
+        f"launches/sequence; device busy {prof['busy_us']:.1f} us/sequence "
+        f"in {prof['launches']:.0f} kernels, idle share "
+        f"{1 - prof['busy_us'] / (wall_ms * 1e3):.3f}")
+
+    sp = SequencePredictor(rs["net"], rs["be"], buckets=RNN_BUCKETS)
+    sp.warmup([RNN_N])
+    r = np.random.default_rng(9)
+    for b in RNN_BUCKETS:
+        x = r.standard_normal((b, RNN_N, RNN_IN)).astype(np.float32)
+        sp.timer.samples.clear()
+        for _ in range(20):
+            sp.predict(x)
+        p50 = sp.latency()["p50_s"] * 1e3
+        prof = _profile_steps(lambda: sp.predict(x), steps=2)
+        log(f"[timing] SequencePredictor bucket {b}, n={RNN_N}: p50 "
+            f"{p50:.3f} ms host clock (n=20); device busy "
+            f"{prof['busy_us'] / 1e3:.3f} ms/request in "
+            f"{prof['launches']:.0f} kernels + {prof['copies']:.0f} copies, "
+            f"idle share {1 - prof['busy_us'] / (p50 * 1e3):.3f}; largest "
+            f"(us/request): " + ", ".join(
+                f"{n} {us:.1f}" for n, us in
+                list(prof["by_kernel"].items())[:3]))
+    return times
+
 
 def _bound(nbytes: float, ops: float, kind: str):
     """(least ms, what bounds it): the larger of the bytes over the HBM
@@ -1076,9 +1426,11 @@ def bounds() -> dict:
 
     B, T = 8, 100
     n, L, Bs = STACK_N, STACK_L, STACK_B
+    k, o = layers[-1]
     return {
-        # three flagship layers at B=8, f32 weights and one bias vector
-        "fused_linear": per_layer(B, 4, 4, 1, "f32"),
+        # the flagship's identity layer (100 -> 10) at B=8
+        "fused_linear": _bound(4 * (B * k + o * k + o + B * o), 2 * B * k * o,
+                               "f32"),
         "fused_mlp_forward": _bound(
             4 * (B * FLAGSHIP[0] + params + B * FLAGSHIP[-1]),
             2 * B * kos, "f32"),
@@ -1093,50 +1445,73 @@ def bounds() -> dict:
         "fused_mlp_w8a8_forward": _bound(
             Bs * n * 4 + L * n * n + 2 * L * n * 4 + Bs * n * 4,
             2 * L * Bs * n * n, "int8"),
+        # FusedRNN's per-timestep launch: B=1 at 32 -> 512
+        "fused_rnn_step": rnn_step_bound(1),
     }
+
+
+def rnn_step_bound(B: int):
+    """Kernel 7 at the recurrent slice's widths: x, s, Wx, Ws and b read,
+    y and s' written, 2 B (I + O) O f32 operations."""
+    I, O = RNN_IN, RNN_HIDDEN
+    return _bound(4 * (B * I + B * O + O * I + O * O + O + 2 * B * O),
+                  2 * B * (I + O) * O, "f32")
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, logging the phase's wall time."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
     name, card = phase_environment()
-    t0 = time.perf_counter()
-    phase_build()
-    log(f"[build] done in {time.perf_counter() - t0:.1f} s")
-    worst = phase_kernels()
-    t0 = time.perf_counter()
-    qm, weights, xs = int8_stack_cpu()
+    timed("build", phase_build)
+    worst = timed("kernels 1-3", phase_kernels)
+    qm, weights, xs = timed("4x4096 stack on the CPU", int8_stack_cpu)
     stack = {"model": qm, "weights": weights, "x": xs}
-    log(f"[int8] 4x4096 stack made and quantized on the CPU in "
-        f"{time.perf_counter() - t0:.1f} s")
-    worst.update(phase_int8_kernels(stack))
+    worst.update(timed("int8 kernels", phase_int8_kernels, stack))
+    worst["fused_rnn_step"] = timed("recurrent kernel", phase_rnn_kernels)
     with tempfile.TemporaryDirectory() as tmp:
-        sl = phase_slice(tmp)
-        sv = phase_int8_serving(tmp, sl["ckpt"], stack)
-        tr = phase_train(tmp)
-    times = phase_timing(sl["model"])
-    times.update(phase_int8_timing(sv, stack))
-    phase_train_routes()
+        sl = timed("serving slice", phase_slice, tmp)
+        sv = timed("int8 serving", phase_int8_serving, tmp, sl["ckpt"],
+                   stack)
+        tr = timed("training slice", phase_train, tmp)
+        rs = timed("recurrent slice", phase_rnn_slice, tmp)
+    times = timed("serving timing", phase_timing, sl["model"])
+    times.update(timed("int8 timing", phase_int8_timing, sv, stack))
+    timed("training routes", phase_train_routes)
+    times["fused_rnn_step"] = timed("recurrent timing", phase_rnn_timing,
+                                    rs)[1]
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "
             f"(host clock, batches 2-6, the app's --metrics record)")
     # each kernel's launches are those of the path it serves: the serving
     # slice for the two forward kernels, the --fused mnist run for the step,
-    # the int8 serve app's route for each int8 kernel
+    # the int8 serve app's route for each int8 kernel, FusedRNN over the
+    # served sequences for the Elman step
     launches = dict(sl["launches"])
     launches["fused_mlp_train_step"] = (
         tr["fused"]["launches"]["fused_mlp_train_step"])
     launches.update(sv["launches"])
+    launches["fused_rnn_step"] = rs["launches"]
     least = bounds()
     for n in KERNELS:
         log(f"[bound] {n}: {least[n][0]:.6f} ms by {least[n][1]} (H100 SXM "
             f"peaks: {HBM_BPS / 1e12:g} TB/s, {PEAK_OPS})")
-    # no single PyTorch call computes any of these functions with its
-    # epilogue (activation, softmax, SGD update, int8 rescale), so
-    # library_ms is null throughout
+    b256 = rnn_step_bound(256)
+    log(f"[bound] fused_rnn_step at B=256: {b256[0]:.6f} ms by {b256[1]}")
+    # library_ms: torch.addmm for kernel 1's identity layer; no single
+    # PyTorch call computes the others with their epilogues (activation,
+    # softmax, SGD update, int8 rescale, both y and act(z)), so null
     kernels = [dict(name=n, **KERNELS[n], launches=launches[n],
                     max_abs_err=worst[n], ms=times[n][0],
                     plain_ms=times[n][1], bound_ms=least[n][0],
-                    bound_by=least[n][1], library_ms=None)
+                    bound_by=least[n][1],
+                    library_ms=times[n][2] if n == "fused_linear" else None)
                for n in KERNELS]
     log(f"[card] every time above was taken on: {card}")
     print(json.dumps({"kernels": kernels}))

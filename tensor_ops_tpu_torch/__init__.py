@@ -8,11 +8,14 @@ never ``jax``.  Its layout mirrors the JAX package's:
 * ``ops.shapes``  — shape/stack algebra (copied: framework-free)
 * ``ops.ir``      — the staged ``TOp`` IR + transposition AD (copied)
 * ``ops.prim``    — the primitive op library (copied)
+* ``ops.loops``   — ``ScanOp``, ``MappedOp``, ``Remat``: the recurrence and
+  batching IR nodes
 * ``ops.kernels`` — the hand-written CUDA kernels and their plain versions
 * ``backend``     — the 13-primitive Tensor seam: ``TorchBackend``
 * ``engine``      — cached graph callables (eager execution)
-* ``models``      — activations/losses, feed-forward networks and their
-  training, ``FusedMLP``, ``Predictor``
+* ``models``      — activations/losses, feed-forward and recurrent
+  networks and their training, ``FusedMLP``, ``QuantizedMLP``,
+  ``FusedRNN``, ``Predictor``, ``SequencePredictor``
 * ``apps``        — the serving CLI (``apps.serve``) and the MNIST
   trainer (``apps.mnist``)
 """

@@ -1,17 +1,22 @@
 """tensor-ops-serve on PyTorch: serve a trained network checkpoint.
 
 The port of ``apps/serve.py``, with the same flags plus ``--device``: load
-a ``feedforward`` (``save_network``), ``fused_mlp`` (``save_fused``) or
-``quantized_mlp`` (``save_quantized``) checkpoint written by either package,
-optionally quantize it to int8 at load (``--int8``, w8a8), warm the bucketed
-``Predictor``, then answer prediction requests from an .npy/.npz/CSV file or
-run a latency self-benchmark.  A ``quantized_mlp`` checkpoint serves in the
-mode it was saved with (w8 or w8a8).
+a ``feedforward`` (``save_network``), ``fused_mlp`` (``save_fused``),
+``quantized_mlp`` (``save_quantized``) or ``recurrent``
+(``save_recurrent``) checkpoint written by either package, optionally
+quantize a feed-forward model to int8 at load (``--int8``, w8a8), warm the
+bucketed ``Predictor`` (``SequencePredictor`` for a recurrent model), then
+answer prediction requests from an .npy/.npz/CSV file (whole sequences,
+``(B, n, in_dim)``, for a recurrent model) or run a latency self-benchmark.
+A ``quantized_mlp`` checkpoint serves in the mode it was saved with (w8 or
+w8a8).  Everything runs on ``--device`` (default cuda).
 
 Examples:
     python -m tensor_ops_tpu_torch.apps.serve ckpt.npz --bench
     python -m tensor_ops_tpu_torch.apps.serve ckpt.npz -i batch.npy --probs
     python -m tensor_ops_tpu_torch.apps.serve ckpt.npz --int8 --bench
+    python -m tensor_ops_tpu_torch.apps.serve rnn.npz -i seqs.npy --probs
+    python -m tensor_ops_tpu_torch.apps.serve rnn.npz --bench --seq-len 64
 """
 
 from __future__ import annotations
@@ -26,11 +31,47 @@ from ..backend.rng import Rng
 from ..backend.torch_backend import TorchBackend
 from ..models import activation_by_name, gen_net
 from ..models.fast import FusedMLP, QuantizedMLP
-from ..models.serve import Predictor
+from ..models.serve import Predictor, SequencePredictor
+from ..ops.shapes import ShapeError
 from ..utils.checkpoint import (_fused_from_arrays, _quantized_from_arrays,
-                                load_arrays, network_from_arrays)
+                                load_arrays, network_from_arrays,
+                                recurrent_from_arrays)
 
-_NOT_PORTED = "not yet ported to the PyTorch package (ROADMAP.md Queue 1)"
+
+def load_recurrent_model(payload, layers, in_dim: int, out_dim: int,
+                         act: str, state_act: str, device: torch.device):
+    """Rebuild the recurrent template on ``device`` — from the checkpoint's
+    stored ``arch`` metadata when present (no flags needed), else from the
+    architecture flags — and load the checkpoint's states and params into
+    it (count- and shape-validated).  Returns ``(network, backend)``."""
+    from ..models.recurrent import gen_net as gen_rnet
+
+    be = TorchBackend(torch.float32, device)
+    arrays, meta = payload
+    arch = meta.get("arch")
+    if arch is not None:
+        hidden = [
+            (h, activation_by_name(a),
+             activation_by_name(s) if s is not None else None)
+            for h, a, s in zip(arch["sizes"], arch["acts"],
+                               arch["state_acts"])
+        ]
+        out_act = activation_by_name(arch["acts"][-1])
+        s_last = arch["state_acts"][-1]
+        out_sact = activation_by_name(s_last) if s_last is not None else None
+        rnet = gen_rnet(be, arch["in"], arch["out"], hidden, out_act,
+                        out_sact, Rng(be, seed=0))
+    else:
+
+        def _sact():
+            return (None if state_act == "none"
+                    else activation_by_name(state_act))
+
+        rnet = gen_rnet(
+            be, in_dim, out_dim,
+            [(h, activation_by_name(act), _sact()) for h in layers],
+            activation_by_name(act), _sact(), Rng(be, seed=0))
+    return recurrent_from_arrays(arrays, meta, rnet, be), be
 
 
 def load_model(payload, layers, in_dim: int, out_dim: int,
@@ -48,7 +89,8 @@ def load_model(payload, layers, in_dim: int, out_dim: int,
         fm = _fused_from_arrays(arrays, meta, device)
         return QuantizedMLP.from_fused(fm) if int8 else fm
     if kind not in ("feedforward", "network"):
-        raise SystemExit(f"checkpoint kind {kind!r}: {_NOT_PORTED}")
+        raise SystemExit(f"checkpoint kind {kind!r} is not a feed-forward "
+                         f"model")
     be = TorchBackend(torch.float32, device)
     saved_acts = meta.get("acts")
     if saved_acts is not None:
@@ -112,12 +154,15 @@ def main(argv=None):
                    choices=("logistic", "relu", "tanh"),
                    help="Hidden activation for OLD bare-Network "
                         "checkpoints without stored activation names "
-                        "(new checkpoints carry them)")
+                        "(new checkpoints carry them); also the "
+                        "recurrent template's activation")
     p.add_argument("--state-act", type=str, default="logistic",
                    choices=("logistic", "relu", "tanh", "none"),
-                   help="Recurrent checkpoints (" + _NOT_PORTED + ")")
+                   help="Recurrent checkpoints without a stored "
+                        "architecture: the state activation ('none' = "
+                        "stateless layers)")
     p.add_argument("--seq-len", type=int, default=16,
-                   help="Recurrent --bench (" + _NOT_PORTED + ")")
+                   help="Recurrent --bench: sequence length to time")
     p.add_argument("-i", "--input", type=str, default=None,
                    help="Batch file (.npy/.npz/CSV) to predict")
     p.add_argument("--probs", action="store_true",
@@ -140,7 +185,9 @@ def main(argv=None):
 
     payload = load_arrays(args.checkpoint)
     if payload[1].get("kind") == "recurrent":
-        p.error(f"recurrent checkpoints: {_NOT_PORTED}")
+        if args.int8 or args.bf16:
+            p.error("--int8/--bf16 do not apply to recurrent checkpoints")
+        return serve_recurrent(p, args, layers, buckets, payload, device)
     model = load_model(payload, layers, args.in_dim, args.out_dim,
                        args.act, device, int8=args.int8)
     if args.bf16 and isinstance(model, QuantizedMLP):
@@ -172,6 +219,61 @@ def main(argv=None):
         return
 
     p.error("nothing to do: pass --bench or -i BATCH")
+
+
+def serve_recurrent(p, args, layers, buckets, payload, device):
+    """Recurrent-checkpoint serving: whole sequences through the
+    ``SequencePredictor`` (input: a ``(B, n, in_dim)`` .npy/.npz; output:
+    one line per sequence — the final timestep's outputs, or the full
+    per-timestep trajectory with ``--probs``)."""
+    try:
+        rnet, be = load_recurrent_model(
+            payload, layers, args.in_dim, args.out_dim, args.act,
+            args.state_act, device)
+    except (ValueError, KeyError, ShapeError) as e:
+        raise SystemExit(f"error: cannot rebuild the recurrent network "
+                         f"from this checkpoint: {e!r}")
+    sp = SequencePredictor(rnet, be, buckets=buckets)
+    print(f"Serving RecurrentNetwork from {args.checkpoint} "
+          f"on {device} (buckets {buckets})")
+    in_dim = rnet.in_shape[0]
+
+    if args.bench:
+        sp.warmup(lengths=(args.seq_len,))
+        r = np.random.default_rng(0)
+        for b in buckets:
+            xs = r.uniform(0, 1, size=(b, args.seq_len, in_dim)) \
+                .astype(np.float32)
+            for _ in range(5):
+                sp.predict(xs)
+        print(json.dumps({"latency": sp.latency()}))
+        return
+
+    if args.input:
+        if not args.input.endswith((".npy", ".npz")):
+            raise SystemExit("recurrent serving needs a (B, n, in_dim) "
+                             ".npy/.npz of sequences")
+        xs = _load_array_file(args.input)
+        if xs.ndim == 2:
+            xs = xs[None]
+        if xs.ndim != 3 or xs.shape[2] != in_dim:
+            raise SystemExit(f"expected (B, n, {in_dim}) sequences, "
+                             f"got {xs.shape}")
+        out = sp.predict(xs)
+        for seq_out in out:
+            if args.probs:
+                # full trajectory: one line per timestep, blank between
+                # sequences
+                for t in range(seq_out.shape[0]):
+                    print(",".join(f"{v:.6f}"
+                                   for v in np.atleast_1d(seq_out[t])))
+                print()
+            else:
+                print(",".join(f"{v:.6f}"
+                               for v in np.atleast_1d(seq_out[-1])))
+        return
+
+    p.error("nothing to do: pass --bench or -i SEQS")
 
 
 if __name__ == "__main__":

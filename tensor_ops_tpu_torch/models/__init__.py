@@ -1,11 +1,11 @@
 """The models ported so far: activations and losses, feed-forward
-networks and their batched training (``training``), the kernel-fused
-``FusedMLP``, the int8 ``QuantizedMLP`` and the ``Predictor`` that serves
-them.  ``fit``, the
-optimizers, recurrent and autoencoder models come in later slices
+networks and their batched training (``training``), recurrent networks
+(``recurrent``), the kernel-fused ``FusedMLP`` and ``FusedRNN``, the int8
+``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
+them.  ``fit``, the optimizers and the autoencoder come in later slices
 (ROADMAP.md, Queue 1)."""
 
-from . import fast, feedforward, neuralnet, serve, training
+from . import fast, feedforward, neuralnet, recurrent, serve, training
 from .neuralnet import (
     Activation,
     act_logistic,
@@ -21,5 +21,6 @@ from .neuralnet import (
     squared_error,
 )
 from .feedforward import Network, ff_layer, gen_net, lift_net, unchain
-from .fast import FusedMLP, QuantizedMLP
-from .serve import Predictor
+from .recurrent import RecurrentNetwork, fully_connected, stateless
+from .fast import FusedMLP, FusedRNN, QuantizedMLP
+from .serve import Predictor, SequencePredictor

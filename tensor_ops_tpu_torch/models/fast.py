@@ -14,6 +14,11 @@ kernel.  Both return a new ``FusedMLP`` and leave this one as it was.
 ``QuantizedMLP`` is the int8 serving model: per-channel int8 weights
 served through ``fused_linear_w8a8`` or ``fused_linear_w8`` per layer, or,
 for a uniform stack, the whole-MLP ``fused_mlp_w8a8_forward``.
+
+``FusedRNN`` is the Elman layer (the recurrent ``fully_connected`` cell)
+driven over a sequence by a loop of steps, each step either plain PyTorch
+(``impl="xla"``) or one launch of the ``fused_rnn_step`` kernel
+(``impl="pallas"``).
 """
 
 from __future__ import annotations
@@ -24,10 +29,11 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.kernels import (_act_fn, fused_linear, fused_linear_w8,
-                           fused_linear_w8a8, fused_mlp_forward,
-                           fused_mlp_train_step, fused_mlp_w8a8_forward,
-                           pad_codes, quantize_weights_int8)
+from ..ops.kernels import (_act_fn, _check_names, fused_linear,
+                           fused_linear_w8, fused_linear_w8a8,
+                           fused_mlp_forward, fused_mlp_train_step,
+                           fused_mlp_w8a8_forward, fused_rnn_step, pad_codes,
+                           quantize_weights_int8)
 from .feedforward import Network
 
 
@@ -330,3 +336,127 @@ class QuantizedMLP:
         if self.softmax_out:
             return torch.softmax(z, dim=-1)
         return _act_fn(self.acts[-1])(z)
+
+
+RNN_IMPLS = ("xla", "pallas")
+
+
+@dataclass
+class FusedRNN:
+    """Fused Elman recurrent layer (the ``fullyConnected`` cell,
+    ``Recurrent.hs:97-125``) run over a sequence by a loop of steps.
+    Parameters follow the reference layout: wX (o, i), wS (o, o), b (o,),
+    and the initial state s0 (o,), all tensors on one device.
+
+    ``impl`` keeps the JAX package's names, for callers that pass them:
+
+    - ``"xla"`` (default): each step is the plain PyTorch cell
+      ``wX @ xt + wS @ s + b`` and the activation (cuBLAS on the card, no
+      hand-written kernel), as the JAX package leaves it to XLA;
+    - ``"pallas"``: each step is one launch of the hand-written
+      ``fused_rnn_step`` kernel (its plain version on the CPU).
+
+    The model is immutable: ``train`` returns a new one, with the same
+    ``impl``."""
+
+    wX: torch.Tensor
+    wS: torch.Tensor
+    b: torch.Tensor
+    s0: torch.Tensor   # initial state (o,)
+    act: str = "logistic"
+    precision: str = "default"
+    impl: str = "xla"
+
+    def __post_init__(self):
+        _check_names([self.act], self.precision)
+        if self.impl not in RNN_IMPLS:
+            raise ValueError(f"unknown FusedRNN impl {self.impl!r} "
+                             f"(known: {RNN_IMPLS})")
+        ts = (self.wX, self.wS, self.b, self.s0)
+        if not all(isinstance(t, torch.Tensor) for t in ts):
+            raise TypeError("FusedRNN holds torch tensors; use "
+                            "FusedRNN.from_numpy for numpy arrays")
+        if len({t.device for t in ts}) > 1:
+            raise ValueError("FusedRNN: wX, wS, b and s0 must be on one "
+                             "device")
+
+    @property
+    def device(self) -> torch.device:
+        return self.wX.device
+
+    @classmethod
+    def from_recurrent(cls, net, act: str = "logistic",
+                       precision: str = "default") -> "FusedRNN":
+        """From a single-layer ``fully_connected`` RecurrentNetwork (params
+        ``(wS, wX, b)``, one state), as float32 on the net's device."""
+        wS, wX, b = (p.to(torch.float32) for p in net.params)
+        (s0,) = net.states
+        return cls(wX, wS, b, s0.to(torch.float32), act, precision)
+
+    @classmethod
+    def from_numpy(cls, wX: Any, wS: Any, b: Any, s0: Any,
+                   act: str = "logistic", precision: str = "default",
+                   impl: str = "xla",
+                   device: "str | torch.device" = "cuda") -> "FusedRNN":
+        """From host arrays — e.g. the JAX package's FusedRNN parameters as
+        numpy arrays — onto ``device``, keeping each array's dtype."""
+        def t(a):
+            return torch.tensor(np.asarray(a), device=device)  # a copy
+
+        return cls(t(wX), t(wS), t(b), t(s0), act, precision, impl)
+
+    def _step_builder(self):
+        """(wX, wS, b) -> step ``(s, xt) -> (s', y)`` with y = z the
+        pre-activation and s' = act(z), per the chosen ``impl``."""
+        if self.impl == "pallas":
+            def make(wX, wS, b):
+                def step(s, xt):
+                    y, snew = fused_rnn_step(xt[None], s[None], wX, wS, b,
+                                             self.act, self.precision)
+                    return snew[0], y[0]
+                return step
+        else:
+            act = _act_fn(self.act)
+
+            def make(wX, wS, b):
+                def step(s, xt):
+                    z = wX @ xt + wS @ s + b
+                    return act(z), z
+                return step
+        return make
+
+    def _scan(self, wX, wS, b, s0, xs):
+        step = self._step_builder()(wX, wS, b)
+        s, ys = s0, []
+        for t in range(xs.shape[0]):
+            s, y = step(s, xs[t])
+            ys.append(y)
+        return torch.stack(ys), s
+
+    def _as(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=self.wX.dtype, device=self.device)
+
+    def seq_forward(self, xs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """xs: (n, i) -> (ys: (n, o) pre-activations, final state (o,))."""
+        with torch.no_grad():
+            return self._scan(self.wX, self.wS, self.b, self.s0,
+                              self._as(xs))
+
+    def train(self, rate_state: float, rate_param: float, xs, targets
+              ) -> Tuple[float, "FusedRNN"]:
+        """One SGD step on the summed squared sequence loss
+        ``sum((targets - ys) ** 2)`` by autograd through the steps, with the
+        reference's dual state/param rates (``trainNetwork'``).  Returns
+        (loss before the step, the updated model)."""
+        xs, tg = self._as(xs), self._as(targets)
+        ps = [p.detach().requires_grad_()
+              for p in (self.wX, self.wS, self.b, self.s0)]
+        with torch.enable_grad():
+            ys, _ = self._scan(*ps, xs)
+            v = ((tg - ys) ** 2).sum()
+            g = torch.autograd.grad(v, ps)
+        with torch.no_grad():
+            wX, wS, b = (p - rate_param * gp for p, gp in zip(ps[:3], g[:3]))
+            s0 = ps[3] - rate_state * g[3]
+        return float(v.detach()), FusedRNN(wX, wS, b, s0, self.act,
+                                           self.precision, impl=self.impl)

@@ -16,8 +16,11 @@ kernel ``fused_mlp_w8a8_forward`` (``run_fused``); any other, or any with
 ``use_fused_kernel=False``, runs its per-layer int8 kernel (``run``).  No
 ``xla_threshold`` applies to int8.
 
-Not yet ported: the mesh-sharded route and ``SequencePredictor``
-(ROADMAP.md, Queue 1).
+``SequencePredictor`` serves the recurrent family: whole sequences through
+the ``RecurrentNetwork``'s scan, ``torch.func.vmap``-ed over a batch padded
+to a bucket.
+
+Not yet ported: the mesh-sharded route (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ..backend.base import Backend
+from ..ops import ir
 from ..utils.profiling import StepTimer
 from .fast import FusedMLP, QuantizedMLP
 from .feedforward import Network
@@ -214,3 +218,116 @@ def _out_width(model) -> int:
     if isinstance(model, FusedMLP):
         return model.weights[-1].shape[0]
     return model.out_shape[0]
+
+
+class SequencePredictor:
+    """Serving for the recurrent family: batched whole-sequence prediction
+    with shape bucketing on the BATCH axis (a deployment serves a fixed set
+    of batch shapes per sequence length).
+
+    Stateless per request: every sequence starts from the network's stored
+    initial states — the deployment analog of the reference's per-sequence
+    ``runNetwork`` fold — and a batch runs as ONE scan
+    (``RecurrentNetwork.run_seq``'s graph) mapped over the batch with
+    ``torch.func.vmap``.  The forward of each length is cached in the op's
+    ``CompiledCache`` under ``("serve_seq", n) + be.cache_key()``.
+    Requests run under ``torch.inference_mode()``."""
+
+    def __init__(self, rnet, be: Backend, buckets: Sequence[int] = (1, 8, 32)):
+        # one tuple, swapped atomically by reload() — a request racing a
+        # swap sees wholly-old or wholly-new (network, backend)
+        self._serving = (rnet, be)
+        self.buckets = sorted(buckets)
+        self.timer = StepTimer()
+        self._warmed: set = set()  # lengths warmup ran (for reload)
+
+    @property
+    def rnet(self):
+        return self._serving[0]
+
+    @property
+    def be(self) -> Backend:
+        return self._serving[1]
+
+    def _forward_fn(self, n: int):
+        from .recurrent import seq_scan_op
+
+        rnet, be = self._serving  # capture locals, not self: the
+        # op._compiled cache must not pin predictors (nor their timers)
+        k = len(rnet.states)
+        key = ("serve_seq", n) + be.cache_key()
+        fn = rnet.op._compiled.get(key)
+        if fn is None:
+            scan = seq_scan_op(rnet.op, n, k)
+
+            def one(xs, *sp):
+                return ir.run(scan, be, (xs,) + sp)[0]
+
+            nsp = k + len(rnet.params)
+            fn = torch.func.vmap(one, in_dims=(0,) + (None,) * nsp)
+            rnet.op._compiled[key] = fn
+        return fn
+
+    def warmup(self, lengths: Sequence[int]) -> None:
+        """Run every (bucket, length) pair once ahead of serving (sequence
+        length is part of the forward, so it must be supplied)."""
+        rnet, be = self._serving
+        in_shape = tuple(rnet.in_shape)
+        for n in lengths:
+            fn = self._forward_fn(int(n))
+            for b in self.buckets:
+                x = be.asarray(np.zeros((b, int(n)) + in_shape, np.float32))
+                with torch.inference_mode():
+                    fn(x, *rnet.states, *rnet.params).cpu()
+            self._warmed.add(int(n))
+
+    def predict(self, xs: Any) -> np.ndarray:
+        """``(B, n, *in_shape)`` sequences -> ``(B, n, *out_shape)``
+        outputs (a single ``(n, *in_shape)`` sequence is auto-batched)."""
+        rnet, be = self._serving  # one consistent read per request
+        xs = np.asarray(xs, dtype=np.float32)
+        squeeze = xs.ndim == len(rnet.in_shape) + 1
+        if squeeze:
+            xs = xs[None]
+        B = xs.shape[0]
+        b = _bucket_of(self.buckets, B)
+        if b != B:
+            xs = np.pad(xs, ((0, b - B),) + ((0, 0),) * (xs.ndim - 1))
+        fn = self._forward_fn(int(xs.shape[1]))
+        self.timer.start()
+        with torch.inference_mode():
+            out = fn(be.asarray(xs), *rnet.states, *rnet.params).cpu()
+        self.timer.stop()
+        out = out.numpy()[:B]
+        return out[0] if squeeze else out
+
+    def latency(self) -> dict:
+        return self.timer.summary()
+
+    def reload(self, rnet, be: Optional[Backend] = None,
+               warm_lengths: Optional[Sequence[int]] = None) -> None:
+        """Zero-downtime recurrent model swap (``Predictor.reload``'s
+        semantics): the replacement is warmed for every previously-warmed
+        sequence length plus any extra ``warm_lengths``, for every bucket,
+        BEFORE the (rnet, be) pair swaps in one atomic assignment.  The
+        replacement must serve the same interface (in/out shapes)."""
+        be = be or self.be
+        for what, old_s, new_s in (
+                ("input", tuple(self.rnet.in_shape), tuple(rnet.in_shape)),
+                ("output", tuple(self.rnet.out_shape),
+                 tuple(rnet.out_shape))):
+            if old_s != new_s:
+                raise ValueError(
+                    f"reload would change the serving interface: "
+                    f"current model's {what} shape is {old_s}, the "
+                    f"replacement's is {new_s} — deploy a new "
+                    f"SequencePredictor instead")
+        # warm the UNION of previously-warmed lengths and any extras the
+        # caller names — every length that was warm stays warm across the
+        # swap, so _warmed never overstates what has been run
+        lengths = sorted(self._warmed
+                         | set(int(n) for n in (warm_lengths or ())))
+        staging = SequencePredictor(rnet, be, buckets=self.buckets)
+        staging.warmup(lengths)  # run before anyone sees it
+        self._warmed = set(lengths)
+        self._serving = (rnet, be)  # the one atomic switch

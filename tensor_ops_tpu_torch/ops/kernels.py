@@ -19,6 +19,10 @@ beside its plain PyTorch version.
 * :func:`fused_mlp_w8a8_forward` — a whole uniform-width int8 MLP from one
   call, each layer a requantizing launch and a product launch
   (``csrc/fused_mlp_w8a8_forward.cu``), the port of ``_mlp_w8a8_kernel``.
+* :func:`fused_rnn_step` — one Elman step ``z = x @ wx.T + s @ ws.T + b``,
+  ``(y, s') = (z, act(z))`` (``csrc/fused_rnn_step.cu``), the port of
+  ``_rnn_step_kernel``, with its backward in plain PyTorch as the JAX
+  package's VJP is plain XLA.
 
 The quantizers :func:`quantize_weights_int8` and :func:`quantize_acts_int8`
 are plain PyTorch on every device, as the JAX package leaves them to XLA.
@@ -56,7 +60,8 @@ _launch_lock = threading.Lock()
 _launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0,
                              "fused_mlp_train_step": 0, "fused_linear_w8": 0,
                              "fused_linear_w8a8": 0,
-                             "fused_mlp_w8a8_forward": 0}
+                             "fused_mlp_w8a8_forward": 0,
+                             "fused_rnn_step": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -774,3 +779,92 @@ def fused_mlp_w8a8_forward(x, wqs, sws, bs, hidden_act: str = "relu"):
     if x.is_cuda:
         return _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act)
     return fused_mlp_w8a8_forward_ref(x, wqs, sws, bs, hidden_act)
+
+
+# ---------------------------------------------------------------------------
+# fused_rnn_step: one Elman step
+# ---------------------------------------------------------------------------
+
+
+def fused_rnn_step_ref(x, s, wx, ws, b, act: str = "logistic"):
+    """Plain PyTorch Elman step: ``z = x @ wx.T + s @ ws.T + b`` in f32 (in
+    f64 when x is f64, for an exact reference); returns ``(y, s_new) =
+    (z, act(z))``, both in x's dtype."""
+    ft = torch.float64 if x.dtype == torch.float64 else torch.float32
+    z = x.to(ft) @ wx.to(ft).T + s.to(ft) @ ws.to(ft).T + b.to(ft)
+    return z.to(x.dtype), _act_fn(act)(z).to(x.dtype)
+
+
+def _fused_rnn_step_cuda(x, s, wx, ws, b, act: str):
+    if x.ndim != 2 or s.ndim != 2 or wx.ndim != 2 or ws.ndim != 2 \
+            or b.ndim != 1:
+        raise ValueError(
+            f"fused_rnn_step wants x (B, i), s (B, o), wx (o, i), ws (o, o), "
+            f"b (o,); got {tuple(x.shape)}, {tuple(s.shape)}, "
+            f"{tuple(wx.shape)}, {tuple(ws.shape)}, {tuple(b.shape)}")
+    B, I = x.shape
+    O = wx.shape[0]
+    if (tuple(s.shape) != (B, O) or wx.shape[1] != I
+            or tuple(ws.shape) != (O, O) or b.shape[0] != O):
+        raise ValueError(
+            f"fused_rnn_step: shapes x {tuple(x.shape)}, s {tuple(s.shape)}, "
+            f"wx {tuple(wx.shape)}, ws {tuple(ws.shape)}, b {tuple(b.shape)} "
+            f"disagree")
+    ts = (x, s, wx, ws, b)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(
+            f"fused_rnn_step on CUDA takes float32 operands, got "
+            f"{[str(t.dtype) for t in ts]}")
+    if any(t.device != x.device for t in ts):
+        raise ValueError("fused_rnn_step: x, s, wx, ws and b must be on one "
+                         "device")
+    if O > 65535 * 64:
+        raise ValueError(f"fused_rnn_step: {O} outputs exceed the grid")
+    x, s, wx, ws, b = (t.contiguous() for t in ts)
+    y = torch.empty((B, O), dtype=torch.float32, device=x.device)
+    snew = torch.empty_like(y)
+    if B == 0 or O == 0:
+        return y, snew
+    fn = _kernel("fused_rnn_step", "fused_rnn_step_f32",
+                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = fn(_p(x), _p(s), _p(wx), _p(ws), _p(b), _p(y), _p(snew), B, I,
+                 O, ACT_CODES[act], _stream(x.device))
+    _check_launch("fused_rnn_step", err)
+    _count("fused_rnn_step")
+    return y, snew
+
+
+class _FusedRNNStep(torch.autograd.Function):
+    """Forward: the kernel (CUDA) or its plain version (CPU).  Backward:
+    plain PyTorch, the math of ``_rnn_step_bwd``:
+    ``dz = dy + ds' * act'(z)``; ``dx = dz wx``, ``ds = dz ws``,
+    ``dwx = dzᵀ x``, ``dws = dzᵀ s``, ``db = Σ dz``."""
+
+    @staticmethod
+    def forward(ctx, x, s, wx, ws, b, act):
+        if x.is_cuda:
+            y, snew = _fused_rnn_step_cuda(x, s, wx, ws, b, act)
+        else:
+            y, snew = fused_rnn_step_ref(x, s, wx, ws, b, act)
+        ctx.save_for_backward(x, s, wx, ws, b, y)
+        ctx.act = act
+        return y, snew
+
+    @staticmethod
+    def backward(ctx, dy, dsnew):
+        x, s, wx, ws, b, z = ctx.saved_tensors
+        dz = dy + dsnew * _act_grad(ctx.act)(z)
+        return (dz @ wx, dz @ ws, dz.T @ x, dz.T @ s, dz.sum(dim=0), None)
+
+
+def fused_rnn_step(x, s, wx, ws, b, act: str = "logistic",
+                   precision: str = "default"):
+    """Fused Elman step, batched over sequences: x (B, i), s (B, o), wx
+    (o, i), ws (o, o), b (o,) -> ``(y, s_new)``, y the pre-activation
+    ``z = x @ wx.T + s @ ws.T + b`` and ``s_new = act(z)``, both (B, o).
+    Differentiable (the backward is plain PyTorch); drive it over time with
+    a loop for BPTT."""
+    _check_names([act], precision)
+    return _FusedRNNStep.apply(x, s, wx, ws, b, act)

@@ -252,8 +252,7 @@ def mat_mat(m: int, n: int, o: int) -> TOp:
 
 def remat(op: TOp) -> TOp:
     """Checkpoint ``op``: keep only its inputs as residuals and recompute
-    the forward during the backward pass.  Not yet ported: it needs
-    ``ops/loops.py`` (ROADMAP.md, Queue 1, "Recurrent and autoencoder")."""
-    raise NotImplementedError(
-        "remat needs ops/loops.py, which is not ported yet "
-        "(ROADMAP.md Queue 1: 'Recurrent and autoencoder' — ops/loops.py)")
+    the forward during the backward pass (``loops.Remat``)."""
+    from .loops import Remat
+
+    return Remat(op)

@@ -7,11 +7,11 @@ written by either one serves from both.  Tensors are moved to the host on
 save; bf16 tensors are written as float32 (numpy has no bf16, and the
 widening is exact).
 
-This slice carries the feed-forward, ``FusedMLP`` and ``QuantizedMLP``
-formats (and an asynchronous save for the training loop); int8 codes stay
-int8 in the file.  Optimizer state, recurrent and pipeline checkpoints come
-with their models (ROADMAP.md, Queue 1).  Loaders place the model on the
-card unless the caller names another device.
+This slice carries the feed-forward, recurrent, ``FusedMLP`` and
+``QuantizedMLP`` formats (and an asynchronous save for the training loop);
+int8 codes stay int8 in the file.  Optimizer state and pipeline checkpoints
+come with their models (ROADMAP.md, Queue 1).  Loaders place the model on
+the card unless the caller names another device.
 """
 
 from __future__ import annotations
@@ -213,3 +213,66 @@ def _quantized_from_arrays(arrays, meta, device="cuda"):
 def load_quantized(path: str, device="cuda"):
     arrays, meta = load_arrays(path)
     return _quantized_from_arrays(arrays, meta, device)
+
+
+def _recurrent_payload(net, extra_meta: Optional[dict]) -> Tuple[dict, dict]:
+    arrays = {f"param_{i}": p for i, p in enumerate(net.params)}
+    arrays.update({f"state_{i}": s for i, s in enumerate(net.states)})
+    meta = {"kind": "recurrent", "n_states": len(net.states)}
+    if getattr(net, "arch", None) is not None:
+        # gen_net's architecture record: lets serving rebuild the exact
+        # graph (sizes + activations) with no out-of-band flags
+        meta["arch"] = net.arch
+    meta.update(extra_meta or {})
+    return arrays, meta
+
+
+def save_recurrent(path: str, net, extra_meta: Optional[dict] = None) -> None:
+    """Save a RecurrentNetwork's params, states and ``arch`` record."""
+    save_arrays(path, *_recurrent_payload(net, extra_meta))
+
+
+def save_recurrent_async(path: str, net, extra_meta: Optional[dict] = None):
+    """``save_recurrent`` with the file write on the checkpoint thread."""
+    return save_arrays_async(path, *_recurrent_payload(net, extra_meta))
+
+
+def recurrent_from_arrays(arrays, meta, net, be) -> Any:
+    """Rebuild a RecurrentNetwork from already-loaded checkpoint contents,
+    or carry a JAX net's weights across (its ``params``/``states`` as numpy
+    arrays under the same keys): the op graph is ``net``'s, the states and
+    params are the arrays on ``be``'s dtype and device.  Counts AND shapes
+    are validated against the template (a wrong architecture raises a clean
+    error, never a KeyError)."""
+    from ..models.recurrent import RecurrentNetwork
+    from ..ops.shapes import ShapeError
+
+    n_p = sum(1 for k in arrays if k.startswith("param_"))
+    n_s = sum(1 for k in arrays if k.startswith("state_"))
+    if n_p != len(net.params) or n_s != len(net.states):
+        raise ValueError(
+            f"recurrent checkpoint has {n_p} params / {n_s} states but "
+            f"the template network expects {len(net.params)} / "
+            f"{len(net.states)} — rebuild with the architecture it was "
+            f"trained with" + (f" (stored arch: {meta['arch']})"
+                               if "arch" in meta else ""))
+    params = tuple(be.asarray(arrays[f"param_{i}"]) for i in range(n_p))
+    states = tuple(be.asarray(arrays[f"state_{i}"]) for i in range(n_s))
+    for got, want, what in (
+        (params, net.param_stack, "param"),
+        (states, net.state_stack, "state"),
+    ):
+        for i, (a, sh) in enumerate(zip(got, want)):
+            if tuple(a.shape) != tuple(sh):
+                raise ShapeError(
+                    f"recurrent checkpoint {what} {i} has shape "
+                    f"{tuple(a.shape)}, expected {tuple(sh)}")
+    return RecurrentNetwork(net.op, states, params,
+                            meta.get("arch", net.arch))
+
+
+def load_recurrent(path: str, net, be) -> Any:
+    """Restore states and params into an architecture-compatible
+    RecurrentNetwork ``net`` on ``be``'s device."""
+    arrays, meta = load_arrays(path)
+    return recurrent_from_arrays(arrays, meta, net, be)

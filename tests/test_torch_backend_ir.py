@@ -188,9 +188,19 @@ def test_default_dtype_untouched(tb):
     assert torch.get_default_dtype() == torch.float32
 
 
-def test_remat_names_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.remat(TP.identity([(3,)]))
+def test_remat_names_roadmap_item(tb, jb):
+    """``remat`` (once a ROADMAP item, now ported with ``ops/loops.py``)
+    gives the wrapped op's forward and gradients, as the JAX remat does."""
+    def graph(P):
+        return P.remat(P.mat_vec(3, 4) >> P.map_op((3,), lambda v: v * v)) \
+            >> P.sum_rows((3,))
+
+    w, v = r(3, 3, 4), r(4, 4)
+    got = t_ir.value_and_grad(graph(TP), tb, (tb.asarray(w), tb.asarray(v)))
+    want = j_ir.value_and_grad(graph(JP), jb, (jb.asarray(w), jb.asarray(v)))
+    close(got[0], want[0])
+    for a, b in zip(got[1], want[1]):
+        close(a, b)
 
 
 # -- graphs through the IR ----------------------------------------------------

@@ -1,6 +1,6 @@
 """The port never imports JAX: every module imports, and the serving
-(f32 and int8) and training paths run end to end, in a fresh interpreter
-where ``import jax`` fails."""
+(f32, int8 and recurrent) and training paths run end to end, in a fresh
+interpreter where ``import jax`` fails."""
 
 import os
 import re
@@ -73,6 +73,25 @@ with tempfile.TemporaryDirectory() as d:
 
     def offline(url, timeout=20.0):
         raise OSError("offline")
+
+    # recurrent serving from the stored arch, and FusedRNN on the kernel
+    # route's plain version
+    from tensor_ops_tpu_torch.models import FusedRNN
+    from tensor_ops_tpu_torch.models import recurrent as R
+    from tensor_ops_tpu_torch.utils.checkpoint import save_recurrent
+    be32 = TT.TorchBackend(torch.float32, "cpu")
+    rnet = R.gen_net(be32, 3, 2, [(6, act_logistic(), act_logistic())],
+                     act_logistic(), None, Rng(be32, 1))
+    rk = os.path.join(d, "r.npz")
+    save_recurrent(rk, rnet)
+    sf = os.path.join(d, "s.npy")
+    np.save(sf, np.zeros((2, 5, 3), np.float32))
+    serve.main([rk, "-i", sf, "--probs", "--buckets", "2", "--device", "cpu"])
+    cell = R.fully_connected(act_logistic(), be32, 3, 4, Rng(be32, 2))
+    m = FusedRNN.from_recurrent(cell)
+    m = FusedRNN(m.wX, m.wS, m.b, m.s0, impl="pallas")
+    v, m = m.train(0.01, 0.01, np.ones((5, 3)), np.zeros((5, 4)))
+    assert m.impl == "pallas" and v > 0
 
     mnist_data._fetch = offline
     mnist.main(["--epochs", "1", "--limit", "100", "-b", "100", "--minibatch",

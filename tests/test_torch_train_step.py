@@ -246,4 +246,5 @@ def test_cpu_train_step_launches_no_kernel():
     assert K.launch_counts() == {"fused_linear": 0, "fused_mlp_forward": 0,
                                  "fused_mlp_train_step": 0,
                                  "fused_linear_w8": 0, "fused_linear_w8a8": 0,
-                                 "fused_mlp_w8a8_forward": 0}
+                                 "fused_mlp_w8a8_forward": 0,
+                                 "fused_rnn_step": 0}
