@@ -57,21 +57,40 @@ without printing a result line:
    trajectories are rebuilt from its outputs; five ``FusedRNN.train``
    steps on the two impls and in CPU float64 agree; the sequence gradient
    is bit-identical with and without ``offload_tape``.
-10. Timing: p50 serving latency per bucket, each kernel's time beside its
+10. Ring kernels: ``ring_all_reduce`` (one-way) and ``bidir_ring`` (``ar``,
+   ``rs``, ``ag``) against their plain versions at R = 2, 4 and 8 ranks on
+   one card, int32 and f32 N(0, 1), on the JAX tests' shapes and the
+   flagship's six parameter shapes, bit for bit; two calls back to back on
+   one scratch; rs then ag against ar; and, in a second interpreter with a
+   time limit, the refusal of more ranks than one launch takes and of a
+   cooperative grid larger than the card holds.  With two or more cards, the ring at one rank per card
+   against its plain version; otherwise one line says it was not run.
+11. Data-parallel slice: the flagship (random weights, seed 0, as
+   ``gen_net`` draws them) for 5 steps of ``dp_megakernel_train_step`` at 4
+   ranks x 100 rows of the synthetic set, on the bidirectional and the
+   one-way ring: ranks bit-identical after every step, step 1 against one
+   ``fused_mlp_train_step`` on the 400-row batch, 5 steps against the plain
+   dp step in CPU float64, the loss falls, and 4 train-step and 6 ring
+   launches per step.
+12. Timing: p50 serving latency per bucket, each kernel's time beside its
    plain version's (median of 50 CUDA-event-timed runs after warm-up), the
    profiler's device time of the kernels, where one training step's, one
    int8 request's and one recurrent request's time goes on each route
    (wall, kernels, device busy), the device memory each served model holds
-   (f32 vs int8), the app's training samples/s per route, and a FusedRNN
-   sequence's wall time and launches.
+   (f32 vs int8), the app's training samples/s per route, a FusedRNN
+   sequence's wall time and launches, each ring phase at the flagship's
+   300x784 weight on 4 ranks beside its plain version and one PyTorch call,
+   and a dp step's wall time, profile and samples/s on each route beside a
+   single-rank ``train_fullfused`` step on the same 400 rows.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
 and its plain version's, its bound (the larger of the bytes it must move
 over 3.35 TB/s and its operations over the peak rate of their type) and
 the time of one PyTorch call computing the same function (``torch.addmm``
-for ``fused_linear``, timed at an identity layer; null where no one call
-does).  The last line is ``{"ok": true, "device": {...}}``.
+for ``fused_linear``, timed at an identity layer; ``torch.stack(xs).sum(0)``
+for the rings' all-reduce; null where no one call does).  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -130,6 +149,12 @@ KERNELS = {
     "fused_rnn_step": dict(
         route="cuda", source="tensor_ops_tpu_torch/csrc/fused_rnn_step.cu",
         replaces="tensor_ops_tpu/ops/pallas_kernels.py:959"),
+    "ring_all_reduce": dict(
+        route="cuda", source="tensor_ops_tpu_torch/csrc/ring_all_reduce.cu",
+        replaces="tensor_ops_tpu/parallel/collective_kernels.py:46"),
+    "bidir_ring": dict(
+        route="cuda", source="tensor_ops_tpu_torch/csrc/bidir_ring.cu",
+        replaces="tensor_ops_tpu/parallel/collective_kernels.py:143"),
 }
 SERVE_KERNELS = ("fused_linear", "fused_mlp_forward")
 # The uniform int8 serving stack of examples/bench_int8_serving.py:32-46 and
@@ -183,6 +208,17 @@ TOL_RNN_GRAD = (1e-4, 1e-5)
 # so no f32 run can match f64 there; over 8 steps SGD at this rate lowers
 # the loss and the gradients are well-conditioned.
 RNN_TRAIN_N, RNN_TRAIN_RATE = 8, 1e-6
+# The data-parallel slice: the flagship over DP_RANKS ranks of DP_ROWS rows
+# each (global batch 400), DP_STEPS steps of dp_megakernel_train_step.  The
+# ring kernels are held against their plain versions at RING_RANKS ranks on
+# the JAX tests' shapes (per rank; the leading axis a multiple of R, so that
+# the reduce-scatter splits it) and the flagship's six parameter shapes.
+DP_RANKS, DP_ROWS, DP_STEPS = 4, 100, 5
+RING_RANKS = (2, 4, 8)
+FLAGSHIP_PARAM_SHAPES = tuple(
+    s for k in range(3) for s in ((FLAGSHIP[k + 1], FLAGSHIP[k]),
+                                  (FLAGSHIP[k + 1],)))
+RING_PHASES = ("one-way ar", "ar", "rs", "ag")
 
 
 class SmokeFailure(RuntimeError):
@@ -1401,6 +1437,348 @@ def phase_rnn_timing(rs) -> dict:
     return times
 
 
+def _ring_call(phase: str, xs, plain: bool = False):
+    """One ring collective over the per-rank tensors ``xs``: the wrapper
+    (the kernel on CUDA tensors) or its plain version."""
+    from tensor_ops_tpu_torch.parallel import collective_kernels as C
+
+    if phase == "one-way ar":
+        return (C.ring_all_reduce_ref if plain else C.ring_all_reduce)(xs)
+    if plain:
+        return C.bidir_ring_ref(xs, phase)
+    return {"ar": C.ring_all_reduce_bidir, "rs": C.ring_reduce_scatter,
+            "ag": C.ring_all_gather}[phase](xs)
+
+
+def _ring_inputs(seed: int, devices, shape, dtype: str):
+    """One tensor per rank, on that rank's device: int32 in [-1000, 1000)
+    or f32 N(0, 1) from ``default_rng(seed)``."""
+    r = np.random.default_rng(seed)
+    n = len(devices)
+    a = (r.integers(-1000, 1000, size=(n,) + shape).astype(np.int32)
+         if dtype == "int32" else
+         r.normal(size=(n,) + shape).astype(np.float32))
+    return [torch.as_tensor(a[i], device=d) for i, d in enumerate(devices)]
+
+
+def _same_bits(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a.dtype == b.dtype and a.shape == b.shape
+        and torch.equal(a.contiguous().view(torch.int32).cpu(),
+                        b.contiguous().view(torch.int32).cpu())
+        for a, b in zip(got, want))
+
+
+def _ring_kernel_name(phase: str) -> str:
+    return "ring_all_reduce" if phase == "one-way ar" else "bidir_ring"
+
+
+def _ring_cases(devices, seed: int):
+    """Every ring phase against its plain version on the JAX tests' shapes
+    (per rank) and the flagship's six parameter shapes, int32 and f32,
+    bit for bit.  Returns the number of cases held and skipped (rs needs
+    the leading axis divisible by R), and per kernel the largest
+    |kernel - plain| seen (0 where every case is bit-equal)."""
+    R = len(devices)
+    shapes = [(R * 16, 128), (R * 8, 3, 7), (R * 8, 50), (R * 8,)]
+    shapes += list(FLAGSHIP_PARAM_SHAPES)
+    held = skipped = 0
+    worst = {"ring_all_reduce": 0.0, "bidir_ring": 0.0}
+    for phase in RING_PHASES:
+        name = _ring_kernel_name(phase)
+        for i, shape in enumerate(shapes):
+            if phase == "rs" and shape[0] % R:
+                skipped += 2
+                continue
+            for dtype in ("int32", "float32"):
+                xs = _ring_inputs(seed + 10 * i, devices, shape, dtype)
+                got = _ring_call(phase, xs)
+                torch.cuda.synchronize()
+                want = _ring_call(phase, xs, plain=True)
+                worst[name] = max([worst[name]] + [
+                    float((a.cpu().double() - b.cpu().double()).abs().max())
+                    for a, b in zip(got, want) if a.numel()])
+                check(_same_bits(got, want),
+                      f"ring {phase} R={R} {shape} {dtype} on {devices}: not "
+                      f"bit-equal to its plain version")
+                held += 1
+    return held, skipped, worst
+
+
+# A second interpreter asks for what one card cannot run at once and must
+# be refused, not hang: more ranks than one launch takes (ValueError before
+# any launch), and, with the wrapper told the card holds 4x the blocks it
+# does, 4 ranks of cap blocks each: the wrapper plans a grid the card cannot
+# hold, and cudaLaunchCooperativeKernel must refuse it (RuntimeError).
+CORESIDENCY_CHECK = r"""
+import torch
+from tensor_ops_tpu_torch.parallel import collective_kernels as C
+cap = C.ring_capacity("bidir_ring", "cuda:0")
+x = torch.zeros(8, device="cuda")
+R = C.MAX_LOCAL_RANKS + 1
+try:
+    C.ring_all_reduce_bidir([x] * R)
+    raise SystemExit(f"R={R} ranks were not refused")
+except ValueError as e:
+    print("[ring] refused:", e)
+C.ring_capacity = lambda lib, device: 4 * cap
+# two pieces of cap * 512 elements per rank: cap blocks per rank
+xs = [torch.zeros(4 * cap * C.CHUNK, device="cuda") for _ in range(4)]
+try:
+    C.ring_all_reduce_bidir(xs)
+    torch.cuda.synchronize()
+    raise SystemExit(f"4 ranks x {cap} blocks were not refused")
+except RuntimeError as e:
+    print("[ring] refused:", e)
+print("[ring] card holds", cap, "blocks")
+"""
+
+
+def phase_ring_kernels() -> dict:
+    """Kernels 8 and 9 against their plain versions on one card at R = 2, 4
+    and 8 ranks; two calls back to back on one scratch; rs then ag against
+    ar; and the refusal of a grid the card cannot hold, in a second
+    interpreter with a time limit."""
+    from tensor_ops_tpu_torch.parallel import collective_kernels as C
+
+    worst = {"ring_all_reduce": 0.0, "bidir_ring": 0.0}
+    for R in RING_RANKS:
+        held, skipped, errs = _ring_cases([DEVICE] * R, 1000 + 100 * R)
+        worst = {n: max(e, errs[n]) for n, e in worst.items()}
+        log(f"[ring] R={R} ranks on one card: {held} cases (one-way ar, "
+            f"bidirectional ar/rs/ag; int32 and f32 N(0,1); the JAX tests' "
+            f"shapes and the flagship's six parameters) bit-equal to the plain "
+            f"versions; {skipped} rs cases skipped (shape[0] not divisible "
+            f"by R)")
+    for phase in RING_PHASES:
+        big = _ring_inputs(2000, [DEVICE] * 4, (300, 784), "float32")
+        small = _ring_inputs(2001, [DEVICE] * 4, (100,), "float32")
+        a = _ring_call(phase, big)
+        b = _ring_call(phase, small)
+        c = _ring_call(phase, big)
+        torch.cuda.synchronize()
+        check(_same_bits(a, c) and _same_bits(
+            b, _ring_call(phase, small, plain=True)),
+            f"ring {phase}: calls back to back on one scratch differ")
+    for R in RING_RANKS:
+        xs = _ring_inputs(2100 + R, [DEVICE] * R, (R * 16, 128), "int32")
+        rs_ag = C.ring_all_gather(C.ring_reduce_scatter(xs))
+        check(_same_bits(rs_ag, C.ring_all_reduce_bidir(xs)),
+              f"rs then ag differs from ar at R={R}")
+    log("[ring] back to back on one scratch (300x784, 100, 300x784) bit-equal "
+        "in every phase; rs then ag == ar (int32) at R=2, 4, 8")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", CORESIDENCY_CHECK], capture_output=True,
+        text=True, timeout=300, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, f"co-residency check failed:\n"
+          f"{proc.stdout}{proc.stderr[-3000:]}")
+    for line in proc.stdout.splitlines():
+        log(line)
+    return worst
+
+
+def phase_ring_cross_card() -> None:
+    """The ring at one rank per card against its plain version, where the
+    machine has several cards."""
+    from tensor_ops_tpu_torch.parallel import RankGroup
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[ring] cross-card ring not run: {count} card visible (it needs "
+            f"two or more)")
+        return
+    group = RankGroup(count)  # one rank per card; peer access checked
+    held, skipped, _ = _ring_cases([str(d) for d in group.devices], 4000)
+    log(f"[ring] cross-card: R={count} ranks, one per card: {held} cases "
+        f"bit-equal to the plain versions ({skipped} rs cases skipped)")
+
+
+def phase_dp_slice(tmp: str) -> dict:
+    """The flagship at full width (gen_net, seed 0) for DP_STEPS steps of
+    dp_megakernel_train_step over DP_RANKS ranks of DP_ROWS rows of the
+    synthetic set, on each route (bidirectional ring, then one-way)."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (FusedMLP, act_logistic,
+                                             act_softmax, gen_net)
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.parallel import (RankGroup,
+                                               dp_megakernel_train_step)
+    from tensor_ops_tpu_torch.utils.mnist_data import load_mnist
+
+    with no_download(), contextlib.redirect_stdout(io.StringIO()):
+        train_raw, _ = load_mnist(tempfile.mkdtemp(dir=tmp))
+    B = DP_RANKS * DP_ROWS
+    xb = np.stack([d / 255.0 for _, d in train_raw[:B]])
+    yb = np.eye(10)[[l for l, _ in train_raw[:B]]]
+    x32 = torch.as_tensor(xb, dtype=torch.float32, device=DEVICE)
+    y32 = torch.as_tensor(yb, dtype=torch.float32, device=DEVICE)
+    be = TorchBackend(torch.float32, DEVICE)
+    net = gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                  [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
+                  act_softmax(), Rng(be, 0))
+    fm = FusedMLP.from_network(net)
+    ws0 = [w.float() for w in fm.weights]
+    bs0 = [b.float() for b in fm.biases]
+    acts = ("logistic", "logistic", "identity")
+    group = RankGroup(DP_RANKS)
+    cpu_group = RankGroup(devices=["cpu"] * DP_RANKS)
+    out = {"group": group, "x": x32, "y": y32, "ws": ws0, "bs": bs0,
+           "fm": fm}
+    for bidirectional in (True, False):
+        route = "bidir_ring" if bidirectional else "ring_all_reduce"
+        other = "ring_all_reduce" if bidirectional else "bidir_ring"
+        step = dp_megakernel_train_step(group, acts, lr=TRAIN_RATE,
+                                        bidirectional=bidirectional)
+        ws, bs, losses = ws0, bs0, []
+        K.reset_launch_counts()
+        for i in range(DP_STEPS):
+            loss, ws, bs = step(x32, y32, ws, bs)
+            if i == 0:
+                first = (loss, ws, bs)
+            r0 = step.replicas[0][0] + step.replicas[0][1]
+            for r, (r_ws, r_bs) in enumerate(step.replicas[1:], 1):
+                check(all(torch.equal(a, c) for a, c in zip(r0, r_ws + r_bs)),
+                      f"dp {route}: rank {r}'s parameters differ from rank "
+                      f"0's after step {i + 1}")
+            losses.append(float(loss))
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        want = {"fused_mlp_train_step": DP_RANKS * DP_STEPS,
+                route: 6 * DP_STEPS, other: 0}
+        check(all(counts[k] == v for k, v in want.items()),
+              f"dp {route}: launches {counts}, want {want}")
+        check(losses[-1] < losses[0], f"dp {route}: the loss did not fall "
+              f"({losses})")
+        # one dp step against one step on the whole batch, on the card
+        loss1, ws1, bs1 = K._fused_mlp_train_step_cuda(
+            x32, y32, ws0, bs0, TRAIN_RATE, acts, "softmax_xent")
+        torch.cuda.synchronize()
+        e_loss = max_err(first[0], loss1, TOL_LOSS)
+        e_par = max(max_err(a, c, TOL_PARAM) for a, c in
+                    zip(first[1] + first[2], ws1 + bs1))
+        # five steps against the plain dp step in CPU f64
+        cpu_step = dp_megakernel_train_step(cpu_group, acts, lr=TRAIN_RATE,
+                                            bidirectional=bidirectional)
+        w64 = [w.double().cpu() for w in ws0]
+        b64 = [b.double().cpu() for b in bs0]
+        x64, y64 = torch.as_tensor(xb), torch.as_tensor(yb)
+        for _ in range(DP_STEPS):
+            _, w64, b64 = cpu_step(x64, y64, w64, b64)
+        e5 = max(max_err(a, c, TOL_5_STEPS) for a, c in
+                 zip(ws + bs, w64 + b64))
+        log(f"[dp] {route}: {DP_STEPS} steps of dp_megakernel_train_step, "
+            f"{DP_RANKS} ranks x {DP_ROWS} rows on "
+            f"{sorted(set(map(str, group.devices)))}, "
+            f"rate {TRAIN_RATE}: losses {[round(v, 5) for v in losses]}; "
+            f"launches {counts}; ranks bit-identical after every step; step 1"
+            f" vs fused_mlp_train_step on the {B}-row batch max|err| loss "
+            f"{e_loss:.2e} (tol {TOL_LOSS[0]:g}+{TOL_LOSS[1]:g}|ref|), params "
+            f"{e_par:.2e} (tol {TOL_PARAM[0]:g}+{TOL_PARAM[1]:g}|ref|); "
+            f"{DP_STEPS} steps vs the plain dp step in CPU f64 max|err| "
+            f"{e5:.2e} (tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|)")
+        out[route] = {"launches": counts[route], "losses": losses}
+    return out
+
+
+def ring_bound(phase: str, R: int, shape):
+    """(least ms, what bounds it) of one ring call on R ranks of one card,
+    for the function and not the ring algorithm: every rank reads its input
+    (``size`` f32 elements, the shard for ag) once and writes its output
+    once (size for ar, size / R for rs, R * size for ag), and the sum
+    takes (R - 1) adds per element reduced:
+        bytes = 4 R (size + out)           over HBM_BPS,
+        ops   = (R - 1) size for ar and rs over the f32 peak.
+    The comm-slot traffic a ring adds is its own cost: ring_slot_ms."""
+    p = "ar" if phase == "one-way ar" else phase
+    size = math.prod(shape)
+    out = {"ar": size, "rs": size // R, "ag": R * size}[p]
+    adds = (R - 1) * size if p in ("ar", "rs") else 0
+    return _bound(4 * R * (size + out), adds, "f32")
+
+
+def ring_slot_ms(phase: str, R: int, shape) -> float:
+    """The ring algorithm's own HBM traffic on one card, over HBM_BPS: at
+    each of its n_steps steps every rank writes one padded chunk (D pieces
+    of H f32 elements) into a neighbour's comm slot, which the neighbour
+    reads back: 2 * 4 R n_steps D H bytes."""
+    from tensor_ops_tpu_torch.parallel import collective_kernels as C
+
+    one_way = phase == "one-way ar"
+    p = "ar" if one_way else phase
+    D, H = C._layout(p, shape, R, one_way)[:2]
+    n_steps = 2 * (R - 1) if p == "ar" else R - 1
+    return 2 * 4 * R * n_steps * D * H / HBM_BPS * 1e3
+
+
+def phase_dp_timing(dp) -> dict:
+    """Each ring phase at the flagship's 300x784 weight on DP_RANKS ranks:
+    CUDA-event medians of the kernel, its plain version and one PyTorch call
+    for the same values, the profiler's device time and the bound; then a
+    dp step's wall time, kernels, device busy time and idle share on each
+    route, and samples/s beside a single-rank train_fullfused step on the
+    whole batch."""
+    times = {}
+    shape = FLAGSHIP_PARAM_SHAPES[0]
+    xs = _ring_inputs(3000, [DEVICE] * DP_RANKS, shape, "float32")
+    library = {"one-way ar": lambda: torch.stack(xs).sum(0),
+               "ar": lambda: torch.stack(xs).sum(0),
+               # every rank's block at once
+               "rs": lambda: torch.stack(xs).sum(0),
+               "ag": lambda: torch.cat(xs)}
+    for phase in RING_PHASES:
+        name = _ring_kernel_name(phase)
+        k_ms = _median_ms(lambda: _ring_call(phase, xs))
+        p_ms = _median_ms(lambda: _ring_call(phase, xs, plain=True))
+        l_ms = _median_ms(library[phase])
+        prof = _profile_steps(lambda: _ring_call(phase, xs))
+        dev_us = prof["by_kernel"].get(f"{name}_kernel", 0.0)
+        check(dev_us > 0, f"the profiler saw {sorted(prof['by_kernel'])} for "
+              f"ring {phase}")
+        least = ring_bound(phase, DP_RANKS, shape)
+        log(f"[timing] ring {phase} ({name}) R={DP_RANKS} on one card, "
+            f"{'x'.join(map(str, shape))} f32 per rank: kernel {k_ms:.4f} ms, "
+            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms; device "
+            f"{dev_us:.2f} us in {prof['launches']:.0f} kernels; bound "
+            f"{least[0] * 1e3:.3f} us by {least[1]}; the ring's own "
+            f"comm-slot traffic {ring_slot_ms(phase, DP_RANKS, shape) * 1e3:.3f}"
+            f" us more")
+        if phase in ("one-way ar", "ar"):
+            times[name] = (k_ms, p_ms, l_ms)
+
+    from tensor_ops_tpu_torch.parallel import dp_megakernel_train_step
+
+    acts = ("logistic", "logistic", "identity")
+    x, y, ws, bs = dp["x"], dp["y"], dp["ws"], dp["bs"]
+    routes = {f"dp step, {r}": dp_megakernel_train_step(
+        dp["group"], acts, lr=TRAIN_RATE, bidirectional=(r == "bidir_ring"))
+        for r in ("bidir_ring", "ring_all_reduce")}
+    routes = {k: (lambda s=s: s(x, y, ws, bs)) for k, s in routes.items()}
+    routes[f"single rank train_fullfused, B={len(x)}"] = (
+        lambda: dp["fm"].train_fullfused(TRAIN_RATE, x, y))
+    for name, step in routes.items():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) / 20 * 1e6
+        prof = _profile_steps(step)
+        top = ", ".join(f"{n} {us:.1f}" for n, us in
+                        list(prof["by_kernel"].items())[:4])
+        log(f"[timing] {name}: {wall_us:.1f} us/step wall, "
+            f"{len(x) / (wall_us * 1e-6):.0f} samples/s, "
+            f"{prof['launches']:.0f} kernels + {prof['copies']:.0f} "
+            f"copies/step, device busy {prof['busy_us']:.1f} us/step, idle "
+            f"share {1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): "
+            f"{top}")
+    return times
+
+
 def _bound(nbytes: float, ops: float, kind: str):
     """(least ms, what bounds it): the larger of the bytes over the HBM
     rate and the operations over the peak rate of their type."""
@@ -1447,6 +1825,10 @@ def bounds() -> dict:
             2 * L * Bs * n * n, "int8"),
         # FusedRNN's per-timestep launch: B=1 at 32 -> 512
         "fused_rnn_step": rnn_step_bound(1),
+        # the flagship's 300x784 weight over the dp slice's ranks
+        "ring_all_reduce": ring_bound("one-way ar", DP_RANKS,
+                                      FLAGSHIP_PARAM_SHAPES[0]),
+        "bidir_ring": ring_bound("ar", DP_RANKS, FLAGSHIP_PARAM_SHAPES[0]),
     }
 
 
@@ -1474,17 +1856,21 @@ def main() -> int:
     stack = {"model": qm, "weights": weights, "x": xs}
     worst.update(timed("int8 kernels", phase_int8_kernels, stack))
     worst["fused_rnn_step"] = timed("recurrent kernel", phase_rnn_kernels)
+    worst.update(timed("ring kernels", phase_ring_kernels))
+    timed("cross-card ring", phase_ring_cross_card)
     with tempfile.TemporaryDirectory() as tmp:
         sl = timed("serving slice", phase_slice, tmp)
         sv = timed("int8 serving", phase_int8_serving, tmp, sl["ckpt"],
                    stack)
         tr = timed("training slice", phase_train, tmp)
         rs = timed("recurrent slice", phase_rnn_slice, tmp)
+        dp = timed("data-parallel slice", phase_dp_slice, tmp)
     times = timed("serving timing", phase_timing, sl["model"])
     times.update(timed("int8 timing", phase_int8_timing, sv, stack))
     timed("training routes", phase_train_routes)
     times["fused_rnn_step"] = timed("recurrent timing", phase_rnn_timing,
                                     rs)[1]
+    times.update(timed("data-parallel timing", phase_dp_timing, dp))
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "
@@ -1498,20 +1884,26 @@ def main() -> int:
         tr["fused"]["launches"]["fused_mlp_train_step"])
     launches.update(sv["launches"])
     launches["fused_rnn_step"] = rs["launches"]
+    # the dp slice's DP_STEPS steps on each ring's route
+    for n in ("ring_all_reduce", "bidir_ring"):
+        launches[n] = dp[n]["launches"]
     least = bounds()
     for n in KERNELS:
         log(f"[bound] {n}: {least[n][0]:.6f} ms by {least[n][1]} (H100 SXM "
             f"peaks: {HBM_BPS / 1e12:g} TB/s, {PEAK_OPS})")
     b256 = rnn_step_bound(256)
     log(f"[bound] fused_rnn_step at B=256: {b256[0]:.6f} ms by {b256[1]}")
-    # library_ms: torch.addmm for kernel 1's identity layer; no single
-    # PyTorch call computes the others with their epilogues (activation,
-    # softmax, SGD update, int8 rescale, both y and act(z)), so null
+    # library_ms: torch.addmm for kernel 1's identity layer and
+    # torch.stack(xs).sum(0) for the rings' all-reduce; no single PyTorch
+    # call computes the others with their epilogues (activation, softmax,
+    # SGD update, int8 rescale, both y and act(z)), so null
     kernels = [dict(name=n, **KERNELS[n], launches=launches[n],
                     max_abs_err=worst[n], ms=times[n][0],
                     plain_ms=times[n][1], bound_ms=least[n][0],
                     bound_by=least[n][1],
-                    library_ms=times[n][2] if n == "fused_linear" else None)
+                    library_ms=times[n][2] if n in (
+                        "fused_linear", "ring_all_reduce", "bidir_ring")
+                    else None)
                for n in KERNELS]
     log(f"[card] every time above was taken on: {card}")
     print(json.dumps({"kernels": kernels}))

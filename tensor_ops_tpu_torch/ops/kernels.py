@@ -61,7 +61,9 @@ _launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0,
                              "fused_mlp_train_step": 0, "fused_linear_w8": 0,
                              "fused_linear_w8a8": 0,
                              "fused_mlp_w8a8_forward": 0,
-                             "fused_rnn_step": 0}
+                             "fused_rnn_step": 0,
+                             # the ring collectives of parallel/
+                             "ring_all_reduce": 0, "bidir_ring": 0}
 
 
 def launch_counts() -> Dict[str, int]:

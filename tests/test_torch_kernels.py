@@ -173,7 +173,8 @@ def test_cpu_path_launches_no_kernel():
                                  "fused_mlp_train_step": 0,
                                  "fused_linear_w8": 0, "fused_linear_w8a8": 0,
                                  "fused_mlp_w8a8_forward": 0,
-                                 "fused_rnn_step": 0}
+                                 "fused_rnn_step": 0, "ring_all_reduce": 0,
+                                 "bidir_ring": 0}
 
 
 def test_names_are_validated():

@@ -1,6 +1,6 @@
 """The port never imports JAX: every module imports, and the serving
-(f32, int8 and recurrent) and training paths run end to end, in a fresh
-interpreter where ``import jax`` fails."""
+(f32, int8 and recurrent), training and data-parallel paths run end to end,
+in a fresh interpreter where ``import jax`` fails."""
 
 import os
 import re
@@ -92,6 +92,22 @@ with tempfile.TemporaryDirectory() as d:
     m = FusedRNN(m.wX, m.wS, m.b, m.s0, impl="pallas")
     v, m = m.train(0.01, 0.01, np.ones((5, 3)), np.zeros((5, 4)))
     assert m.impl == "pallas" and v > 0
+
+    # the data-parallel slice: each ring wrapper, then one dp step on CPU
+    # ranks
+    from tensor_ops_tpu_torch import parallel as PL
+    xs = [torch.full((4, 3), float(r)) for r in range(4)]
+    for ring in (PL.ring_all_reduce, PL.ring_all_reduce_bidir):
+        assert all(torch.equal(s, torch.full((4, 3), 6.0)) for s in ring(xs))
+    rs = PL.ring_reduce_scatter(xs)
+    assert torch.equal(PL.ring_all_gather(rs)[0], torch.full((4, 3), 6.0))
+    group = PL.RankGroup(devices=["cpu"] * 4)
+    step = PL.dp_megakernel_train_step(group, ["logistic", "identity"], lr=0.1)
+    xb = torch.rand(8, 12, generator=torch.Generator().manual_seed(0))
+    loss, dws, dbs = step(xb, torch.eye(4)[[0, 1, 2, 3] * 2],
+                          [torch.zeros(8, 12), torch.zeros(4, 8)],
+                          [torch.zeros(8), torch.zeros(4)])
+    assert float(loss) > 0 and len(step.replicas) == 4
 
     mnist_data._fetch = offline
     mnist.main(["--epochs", "1", "--limit", "100", "-b", "100", "--minibatch",
