@@ -15,7 +15,10 @@ without printing a result line:
    once, and prints ptxas' resource report.
 3. Kernels: each kernel against its plain PyTorch version on the same
    inputs, TF32 off, ``torch.cuda.synchronize()`` after every launch; the
-   train step also twice on one input, bit for bit.
+   train step also twice on one input, bit for bit; ``fused_linear`` also
+   with bf16 operands (y to one bf16 ulp of the plain y, z to 1e-4 +
+   1e-5|z|, each launch counted, the backward's dtypes those of the JAX
+   VJP).
 4. Serving slice: the flagship MNIST MLP 784-300-100-10 (random weights,
    seed 0) is saved with ``save_network`` and served through the serve app
    (``tensor_ops_tpu_torch.apps.serve.main``) and through a per-layer
@@ -57,30 +60,39 @@ without printing a result line:
    trajectories are rebuilt from its outputs; five ``FusedRNN.train``
    steps on the two impls and in CPU float64 agree; the sequence gradient
    is bit-identical with and without ``offload_tape``.
-10. Ring kernels: ``ring_all_reduce`` (one-way) and ``bidir_ring`` (``ar``,
-   ``rs``, ``ag``) against their plain versions at R = 2, 4 and 8 ranks on
-   one card, int32 and f32 N(0, 1), on the JAX tests' shapes and the
-   flagship's six parameter shapes, bit for bit; two calls back to back on
-   one scratch; rs then ag against ar; and, in a second interpreter with a
-   time limit, the refusal of more ranks than one launch takes and of a
-   cooperative grid larger than the card holds.  With two or more cards, the ring at one rank per card
-   against its plain version; otherwise one line says it was not run.
+10. Collectives (kernels 8-9): the one-shot, through ``ring_all_reduce``
+   (one-way) and ``ring_all_reduce_bidir`` / ``ring_reduce_scatter`` /
+   ``ring_all_gather``, against ``oneshot_ref`` and the ring protocol's
+   plain version at R = 2, 3, 4 and 8 ranks on one card, int32 and f32
+   N(0, 1), on the JAX tests' shapes and the flagship's six parameter
+   shapes, f32 ar and rs also with the 1/R scale, bit for bit; the ring
+   protocol (``_ring_cuda``, the route of ranks on several cards) called
+   directly against its plain version at R = 2, 4 and 8; two protocol calls
+   back to back on one scratch; rs then ag against ar on both routes; and,
+   in a second interpreter with a time limit, the refusal of more ranks
+   than one launch takes (both routes) and of a cooperative grid larger
+   than the card holds.  With two or more cards, the wrappers at one rank
+   per card against the plain versions; otherwise one line says it was not
+   run.
 11. Data-parallel slice: the flagship (random weights, seed 0, as
    ``gen_net`` draws them) for 5 steps of ``dp_megakernel_train_step`` at 4
    ranks x 100 rows of the synthetic set, on the bidirectional and the
    one-way ring: ranks bit-identical after every step, step 1 against one
    ``fused_mlp_train_step`` on the 400-row batch, 5 steps against the plain
-   dp step in CPU float64, the loss falls, and 4 train-step and 6 ring
-   launches per step.
+   dp step in CPU float64, the loss falls, and 4 train-step and 6 one-shot
+   launches per step (the 1/n inside them; no ring-protocol launch).
 12. Timing: p50 serving latency per bucket, each kernel's time beside its
    plain version's (median of 50 CUDA-event-timed runs after warm-up), the
    profiler's device time of the kernels, where one training step's, one
    int8 request's and one recurrent request's time goes on each route
    (wall, kernels, device busy), the device memory each served model holds
    (f32 vs int8), the app's training samples/s per route, a FusedRNN
-   sequence's wall time and launches, each ring phase at the flagship's
-   300x784 weight on 4 ranks beside its plain version and one PyTorch call,
-   and a dp step's wall time, profile and samples/s on each route beside a
+   sequence's wall time and launches, kernel 1's device time at its
+   identity layer and at 4096^3, each collective phase at the flagship's
+   300x784 weight on 4 ranks (the one-shot in turns with one PyTorch call
+   over 3 repetitions, its plain version, its device time against the
+   bound; the ring protocol beside it), and a dp step's wall time, profile
+   (18 kernels, 6 one-shot launches) and samples/s on each route beside a
    single-rank ``train_fullfused`` step on the same 400 rows.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
@@ -89,8 +101,12 @@ and its plain version's, its bound (the larger of the bytes it must move
 over 3.35 TB/s and its operations over the peak rate of their type) and
 the time of one PyTorch call computing the same function (``torch.addmm``
 for ``fused_linear``, timed at an identity layer; ``torch.stack(xs).sum(0)``
-for the rings' all-reduce; null where no one call does).  The last line is
-``{"ok": true, "device": {...}}``.
+for the collectives' all-reduce; null where no one call does).  Kernels 8
+and 9 appear twice: under their names the one-shot, the one-card route the
+dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
+several cards, whose launches on the one-card path are 0 and whose times
+come from calling it directly.  The last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -149,13 +165,26 @@ KERNELS = {
     "fused_rnn_step": dict(
         route="cuda", source="tensor_ops_tpu_torch/csrc/fused_rnn_step.cu",
         replaces="tensor_ops_tpu/ops/pallas_kernels.py:959"),
+    # kernels 8-9 on one card: the one-shot (csrc/oneshot.cuh) under the
+    # libraries' names; across cards, the ring protocol (csrc/ring.cuh), its
+    # launches counted apart as NAME.ring
     "ring_all_reduce": dict(
-        route="cuda", source="tensor_ops_tpu_torch/csrc/ring_all_reduce.cu",
+        route="cuda", source="tensor_ops_tpu_torch/csrc/oneshot.cuh",
         replaces="tensor_ops_tpu/parallel/collective_kernels.py:46"),
     "bidir_ring": dict(
-        route="cuda", source="tensor_ops_tpu_torch/csrc/bidir_ring.cu",
+        route="cuda", source="tensor_ops_tpu_torch/csrc/oneshot.cuh",
+        replaces="tensor_ops_tpu/parallel/collective_kernels.py:143"),
+    "ring_all_reduce.ring": dict(
+        route="cuda", source="tensor_ops_tpu_torch/csrc/ring.cuh",
+        replaces="tensor_ops_tpu/parallel/collective_kernels.py:46"),
+    "bidir_ring.ring": dict(
+        route="cuda", source="tensor_ops_tpu_torch/csrc/ring.cuh",
         replaces="tensor_ops_tpu/parallel/collective_kernels.py:143"),
 }
+# the kernel libraries: csrc/<lib>.cu, one nvcc each
+LIBS = tuple(dict.fromkeys(name.split(".")[0] for name in KERNELS))
+RING_NAMES = ("ring_all_reduce", "bidir_ring", "ring_all_reduce.ring",
+              "bidir_ring.ring")
 SERVE_KERNELS = ("fused_linear", "fused_mlp_forward")
 # The uniform int8 serving stack of examples/bench_int8_serving.py:32-46 and
 # bench.py:297-321: 4 layers of 4096 x 4096, ReLU, batch 16.
@@ -210,11 +239,21 @@ TOL_RNN_GRAD = (1e-4, 1e-5)
 RNN_TRAIN_N, RNN_TRAIN_RATE = 8, 1e-6
 # The data-parallel slice: the flagship over DP_RANKS ranks of DP_ROWS rows
 # each (global batch 400), DP_STEPS steps of dp_megakernel_train_step.  The
-# ring kernels are held against their plain versions at RING_RANKS ranks on
-# the JAX tests' shapes (per rank; the leading axis a multiple of R, so that
-# the reduce-scatter splits it) and the flagship's six parameter shapes.
+# one-shot is held against its plain version at RING_RANKS ranks, and the
+# ring protocol, called directly, against its own at PROTOCOL_RANKS, on the
+# JAX tests' shapes (per rank; the leading axis a multiple of R, so that the
+# reduce-scatter splits it) and the flagship's six parameter shapes.
 DP_RANKS, DP_ROWS, DP_STEPS = 4, 100, 5
-RING_RANKS = (2, 4, 8)
+RING_RANKS = (2, 3, 4, 8)
+PROTOCOL_RANKS = (2, 4, 8)
+# kernels per dp step: 4 x 2 train-step launches, 6 collectives, and the
+# loss's 3 adds and 1/n
+DP_KERNELS_PER_STEP = 4 * 2 + 6 + 4
+# bf16 fused_linear against its plain version: the f32 pre-activation is
+# held to TOL_Z; y = act(z) rounded to bf16 to one bf16 ulp of the plain
+# y beyond what z's tolerance carries through act (slope <= 1), since the
+# two z's, a few f32 ulps apart, may round to neighbouring bf16 values.
+BF16_ULP = 2.0 ** -7
 FLAGSHIP_PARAM_SHAPES = tuple(
     s for k in range(3) for s in ((FLAGSHIP[k + 1], FLAGSHIP[k]),
                                   (FLAGSHIP[k + 1],)))
@@ -269,12 +308,12 @@ def phase_environment():
 def phase_build() -> None:
     from tensor_ops_tpu_torch.ops import cuda_build
 
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
-    for name, k in KERNELS.items():
+    with concurrent.futures.ThreadPoolExecutor(len(LIBS)) as pool:
+        builds = dict(zip(LIBS, pool.map(cuda_build.build, LIBS)))
+    for name in LIBS:
         built = builds[name]
-        log(f"[build] {k['source']} -> {built.path.name} in "
-            f"{built.seconds:.1f} s")
+        log(f"[build] tensor_ops_tpu_torch/csrc/{name}.cu -> "
+            f"{built.path.name} in {built.seconds:.1f} s")
         for line in built.log.splitlines():
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
@@ -311,6 +350,7 @@ def phase_kernels() -> dict:
                 worst["fused_linear"] = max(worst["fused_linear"], e)
         log(f"[kernel] fused_linear B={B} {Kd}->{O} max|err| "
             f"{', '.join(errs)}; tol {TOL_Z[0]:g}+{TOL_Z[1]:g}|ref|")
+    worst["fused_linear"] = max(worst["fused_linear"], phase_linear_bf16())
 
     nets = [(FLAGSHIP, ("logistic", "logistic", "identity"), B, sm)
             for B in (1, 8, 63) for sm in (True, False)]
@@ -366,6 +406,78 @@ def phase_kernels() -> dict:
                zip([a[0], *a[1], *a[2]], [b[0], *b[1], *b[2]]))
     check(same, "fused_mlp_train_step: two runs on one input differ")
     log("[kernel] fused_mlp_train_step flagship B=1000 twice: bit-equal")
+    return worst
+
+
+def bf16_y_ulps(y, y_ref, z_ref):
+    """The largest |y - y_ref| in bf16 ulps of y_ref, the count of values
+    beyond one ulp and the largest |y_ref| among them, and the count of
+    values, after checking every element against one ulp plus z's
+    tolerance (see BF16_ULP)."""
+    y, y_ref, z_ref = (t.double().cpu() for t in (y, y_ref, z_ref))
+    check(bool(torch.isfinite(y).all()), "non-finite bf16 output")
+    ulp = torch.exp2(torch.floor(torch.log2(
+        y_ref.abs().clamp_min(2.0 ** -126)))) * BF16_ULP
+    diff = (y - y_ref).abs()
+    check(bool((diff <= ulp + TOL_Z[0] + TOL_Z[1] * z_ref.abs()).all()),
+          f"bf16 y beyond one ulp: max {float((diff / ulp).max()):.2f} ulps")
+    beyond = diff > ulp
+    return ((float((diff / ulp).max()) if diff.numel() else 0.0),
+            int(beyond.sum()), float(y_ref.abs()[beyond].max())
+            if beyond.any() else 0.0, diff.numel())
+
+
+def phase_linear_bf16() -> float:
+    """Kernel 1's bf16 instance against its plain version at the flagship's
+    layers and a ragged shape, every activation, with and without z; each
+    call's launch counted; the wrapper's backward keeps the JAX VJP's
+    dtypes.  Returns the largest |z - z_ref|."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    worst, ulps, calls, beyond, beyond_y, elems = 0.0, 0.0, 0, 0, 0.0, 0
+    before = K.launch_counts()["fused_linear"]
+    shapes = [(B, FLAGSHIP[i], FLAGSHIP[i + 1])
+              for B in (1, 8, 512) for i in range(3)] + [(33, 40, 10)]
+    for n, (B, Kd, O) in enumerate(shapes):
+        x = _rand(150 + n, B, Kd, uniform=True).to(torch.bfloat16)
+        w = _rand(160 + n, O, Kd, scale=0.5)
+        b = _rand(170 + n, O, scale=0.5)
+        for act in ACTS:
+            for save_z in (False, True):
+                y, z = K._fused_linear_cuda(x, w, b, act, save_z)
+                calls += 1
+                torch.cuda.synchronize()
+                y_ref, z_ref = K.fused_linear_ref(x, w, b, act, save_z=True)
+                check(y.dtype == torch.bfloat16 and (z is None or
+                                                      z.dtype == torch.float32),
+                      f"bf16 fused_linear gave y {y.dtype}")
+                u, nb, yb, ne = bf16_y_ulps(y, y_ref, z_ref)
+                ulps, beyond, beyond_y = max(ulps, u), beyond + nb, max(
+                    beyond_y, yb)
+                elems += ne
+                if save_z:
+                    worst = max(worst, max_err(z, z_ref, TOL_Z))
+    check(K.launch_counts()["fused_linear"] - before == calls,
+          f"bf16 fused_linear: {calls} calls, launches "
+          f"{K.launch_counts()['fused_linear'] - before}")
+    # through the public wrapper: a differentiable call keeps z, and the
+    # backward gives dx and dw in bf16, db in f32 (the JAX VJP's dtypes)
+    x = _rand(180, 8, 300, uniform=True).to(torch.bfloat16).requires_grad_()
+    w = _rand(181, 100, 300, scale=0.1).to(torch.bfloat16).requires_grad_()
+    b = _rand(182, 100, scale=0.5).requires_grad_()
+    K.fused_linear(x, w, b, "logistic").float().sum().backward()
+    torch.cuda.synchronize()
+    check((x.grad.dtype, w.grad.dtype, b.grad.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.float32),
+        f"bf16 grads {x.grad.dtype} {w.grad.dtype} {b.grad.dtype}")
+    log(f"[kernel] fused_linear bf16 operands: {calls} launches counted "
+        f"(B=1, 8, 512 at the flagship's layers and 33x40->10, every act, "
+        f"with and without z); y max {ulps:.2f} bf16 ulps of the plain y "
+        f"(tol 1 ulp + {TOL_Z[0]:g}+{TOL_Z[1]:g}|z|), beyond one ulp in "
+        f"{beyond} of {elems} values, all with |y| <= {beyond_y:.2e}; z "
+        f"max|err| "
+        f"{worst:.2e} (tol {TOL_Z[0]:g}+{TOL_Z[1]:g}|ref|); grads dx, dw "
+        f"bf16, db f32")
     return worst
 
 
@@ -917,15 +1029,23 @@ def phase_timing(model) -> dict:
                 h, w, b, "identity", False))
             p_ms = _median_ms(lambda: K.fused_linear_ref(h, w, b))
             l_ms = _median_ms(lambda: torch.addmm(b, h, w.T))
+            prof = _profile_steps(lambda: K._fused_linear_cuda(
+                h, w, b, "identity", False))
+            dev_us = _per_launch_us(prof, "fused_linear_kernel")
+            check(dev_us > 0, f"the profiler saw {sorted(prof['by_kernel'])}"
+                  f" for fused_linear")
+            lib = _profile_steps(lambda: torch.addmm(b, h, w.T))
             (B, k), o = h.shape, w.shape[0]
             least = _bound(4 * (B * k + o * k + o + B * o), 2 * B * k * o,
                            "f32")
             log(f"[timing] fused_linear identity layer {what}: kernel "
                 f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.addmm "
-                f"{l_ms:.4f} ms (kernel vs addmm max|err| {e:.1e}); bound "
-                f"{least[0]:.6f} ms by {least[1]}")
+                f"{l_ms:.4f} ms (kernel vs addmm max|err| {e:.1e}); device "
+                f"(profiler) kernel {dev_us:.2f} us, torch.addmm "
+                f"{lib['busy_us']:.2f} us in {lib['launches']:.0f} kernels; "
+                f"bound {least[0]:.6f} ms by {least[1]}")
             if what.startswith("flagship"):
-                times["fused_linear"] = (k_ms, p_ms, l_ms)
+                times["fused_linear"] = (k_ms, p_ms, l_ms, dev_us)
         for B in (1, 8, 63):
             x = _rand(80 + B, B, FLAGSHIP[0], uniform=True)
             k_ms = _median_ms(lambda: K._fused_mlp_forward_cuda(
@@ -959,11 +1079,33 @@ def phase_timing(model) -> dict:
     return times
 
 
+def _per_launch_us(prof: dict, kernel: str) -> float:
+    """A kernel's device time per launch the profiler saw (0 if none)."""
+    calls = prof["calls"].get(kernel, 0)
+    return prof["by_kernel"][kernel] / calls if calls else 0.0
+
+
+def _host_us(fn, calls: int = 1000) -> float:
+    """Host time per call of ``fn``: the host clock over ``calls`` calls
+    after warm-up, the card's queue drained before and not waited on
+    inside (the card keeps up when each call's kernels are shorter than its
+    host time)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _profile_steps(step, steps: int = 10) -> dict:
     """The device work of one call of ``step`` (a training step, a request
     or a kernel): CUDA kernels launched, copies and memsets, and device busy
     time per call (``torch.profiler`` over ``steps`` calls, kernel and copy
-    rows only), by kernel name."""
+    rows only), and time and launches per call by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -980,7 +1122,7 @@ def _profile_steps(step, steps: int = 10) -> dict:
         device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if device:
             break
-    by_kernel, launches, copies, busy = {}, 0, 0, 0.0
+    by_kernel, calls, launches, copies, busy = {}, {}, 0, 0, 0.0
     for e in device:
         us = e.time_range.elapsed_us()
         busy += us
@@ -992,8 +1134,10 @@ def _profile_steps(step, steps: int = 10) -> dict:
         name = name.replace("void ", "").split("(")[0].split("<")[0]
         name = name.split("::")[-1]
         by_kernel[name] = by_kernel.get(name, 0.0) + us / steps
+        calls[name] = calls.get(name, 0) + 1
     return {"launches": launches / steps, "copies": copies / steps,
             "busy_us": busy / steps,
+            "calls": {n: c / steps for n, c in calls.items()},
             "by_kernel": dict(sorted(by_kernel.items(),
                                      key=lambda kv: -kv[1]))}
 
@@ -1437,17 +1581,28 @@ def phase_rnn_timing(rs) -> dict:
     return times
 
 
-def _ring_call(phase: str, xs, plain: bool = False):
-    """One ring collective over the per-rank tensors ``xs``: the wrapper
-    (the kernel on CUDA tensors) or its plain version."""
+def _ring_call(phase: str, xs, route: str = "kernel", scale=None):
+    """One collective over the per-rank tensors ``xs`` by ``route``:
+    "kernel" the public wrapper (the one-shot when the ranks share a card;
+    for rs with a scale, the one-shot directly), "plain" its plain version
+    ``oneshot_ref``, "ring" the ring protocol called directly, "ring plain"
+    the ring protocol's plain version."""
     from tensor_ops_tpu_torch.parallel import collective_kernels as C
 
-    if phase == "one-way ar":
-        return (C.ring_all_reduce_ref if plain else C.ring_all_reduce)(xs)
-    if plain:
-        return C.bidir_ring_ref(xs, phase)
-    return {"ar": C.ring_all_reduce_bidir, "rs": C.ring_reduce_scatter,
-            "ag": C.ring_all_gather}[phase](xs)
+    one_way = phase == "one-way ar"
+    p = "ar" if one_way else phase
+    if route == "kernel":
+        if p == "ar":
+            fn = C.ring_all_reduce if one_way else C.ring_all_reduce_bidir
+            return fn(xs, scale=scale)
+        if scale is not None:
+            return C._oneshot(xs, p, False, scale)
+        return {"rs": C.ring_reduce_scatter, "ag": C.ring_all_gather}[p](xs)
+    if route == "plain":
+        return C.oneshot_ref(xs, p, one_way, scale)
+    if route == "ring":
+        return C._ring_cuda(xs, p, one_way)
+    return C.ring_all_reduce_ref(xs) if one_way else C.bidir_ring_ref(xs, p)
 
 
 def _ring_inputs(seed: int, devices, shape, dtype: str):
@@ -1469,104 +1624,136 @@ def _same_bits(got, want) -> bool:
         for a, b in zip(got, want))
 
 
-def _ring_kernel_name(phase: str) -> str:
-    return "ring_all_reduce" if phase == "one-way ar" else "bidir_ring"
+def _ring_kernel_name(phase: str, route: str = "kernel") -> str:
+    name = "ring_all_reduce" if phase == "one-way ar" else "bidir_ring"
+    return name + ".ring" if route == "ring" else name
 
 
-def _ring_cases(devices, seed: int):
-    """Every ring phase against its plain version on the JAX tests' shapes
-    (per rank) and the flagship's six parameter shapes, int32 and f32,
-    bit for bit.  Returns the number of cases held and skipped (rs needs
-    the leading axis divisible by R), and per kernel the largest
-    |kernel - plain| seen (0 where every case is bit-equal)."""
+def _ring_cases(devices, seed: int, route: str):
+    """Every phase against its plain version on the JAX tests' shapes (per
+    rank) and the flagship's six parameter shapes, int32 and f32, bit for
+    bit: route "kernel" (the wrappers) against ``oneshot_ref`` and the ring
+    protocol's plain version, and, for f32 ar and rs, with the 1/R scale
+    against ``oneshot_ref`` with it; route "ring" (the ring protocol called
+    directly) against its plain version.  Returns the number of cases held
+    and skipped (rs needs the leading axis divisible by R), and per kernel
+    the largest |kernel - plain| seen (0 where every case is bit-equal)."""
     R = len(devices)
     shapes = [(R * 16, 128), (R * 8, 3, 7), (R * 8, 50), (R * 8,)]
     shapes += list(FLAGSHIP_PARAM_SHAPES)
     held = skipped = 0
-    worst = {"ring_all_reduce": 0.0, "bidir_ring": 0.0}
+    worst = {}
     for phase in RING_PHASES:
-        name = _ring_kernel_name(phase)
+        name = _ring_kernel_name(phase, route)
+        worst.setdefault(name, 0.0)
         for i, shape in enumerate(shapes):
             if phase == "rs" and shape[0] % R:
                 skipped += 2
                 continue
             for dtype in ("int32", "float32"):
                 xs = _ring_inputs(seed + 10 * i, devices, shape, dtype)
-                got = _ring_call(phase, xs)
-                torch.cuda.synchronize()
-                want = _ring_call(phase, xs, plain=True)
-                worst[name] = max([worst[name]] + [
-                    float((a.cpu().double() - b.cpu().double()).abs().max())
-                    for a, b in zip(got, want) if a.numel()])
-                check(_same_bits(got, want),
-                      f"ring {phase} R={R} {shape} {dtype} on {devices}: not "
-                      f"bit-equal to its plain version")
-                held += 1
+                scales = [None]
+                # the wrappers take a scale for ar; rs takes it from the
+                # one-shot directly, which runs the ranks of one card
+                if (route == "kernel" and dtype == "float32" and phase != "ag"
+                        and (phase != "rs" or len(set(devices)) == 1)):
+                    scales.append(1.0 / R)
+                for scale in scales:
+                    got = _ring_call(phase, xs, route, scale)
+                    torch.cuda.synchronize()
+                    wants = [_ring_call(phase, xs, "ring plain")]
+                    if route == "kernel":
+                        wants.insert(0, _ring_call(phase, xs, "plain", scale))
+                        if scale is not None:
+                            wants[1] = [t * scale for t in wants[1]]
+                    worst[name] = max([worst[name]] + [
+                        float((a.cpu().double() - b.cpu().double()).abs().max())
+                        for a, b in zip(got, wants[0]) if a.numel()])
+                    for want in wants:
+                        check(_same_bits(got, want),
+                              f"ring {phase} ({route}) R={R} {shape} {dtype} "
+                              f"scale {scale} on {devices}: not bit-equal to "
+                              f"its plain version")
+                    held += 1
     return held, skipped, worst
 
 
 # A second interpreter asks for what one card cannot run at once and must
 # be refused, not hang: more ranks than one launch takes (ValueError before
-# any launch), and, with the wrapper told the card holds 4x the blocks it
-# does, 4 ranks of cap blocks each: the wrapper plans a grid the card cannot
-# hold, and cudaLaunchCooperativeKernel must refuse it (RuntimeError).
+# any launch, on both routes), and, with the wrapper told the card holds 4x
+# the blocks it does, the ring protocol at 4 ranks of cap blocks each: it
+# plans a grid the card cannot hold, and cudaLaunchCooperativeKernel must
+# refuse it (RuntimeError).
 CORESIDENCY_CHECK = r"""
 import torch
 from tensor_ops_tpu_torch.parallel import collective_kernels as C
 cap = C.ring_capacity("bidir_ring", "cuda:0")
 x = torch.zeros(8, device="cuda")
 R = C.MAX_LOCAL_RANKS + 1
-try:
-    C.ring_all_reduce_bidir([x] * R)
-    raise SystemExit(f"R={R} ranks were not refused")
-except ValueError as e:
-    print("[ring] refused:", e)
+for route, call in (("one-shot", C.ring_all_reduce_bidir),
+                    ("ring", lambda xs: C._ring_cuda(xs, "ar", False))):
+    try:
+        call([x] * R)
+        raise SystemExit(f"R={R} ranks were not refused ({route})")
+    except ValueError as e:
+        print(f"[ring] {route} refused:", e)
 C.ring_capacity = lambda lib, device: 4 * cap
 # two pieces of cap * 512 elements per rank: cap blocks per rank
 xs = [torch.zeros(4 * cap * C.CHUNK, device="cuda") for _ in range(4)]
 try:
-    C.ring_all_reduce_bidir(xs)
+    C._ring_cuda(xs, "ar", False)
     torch.cuda.synchronize()
     raise SystemExit(f"4 ranks x {cap} blocks were not refused")
 except RuntimeError as e:
-    print("[ring] refused:", e)
+    print("[ring] ring refused:", e)
 print("[ring] card holds", cap, "blocks")
 """
 
 
 def phase_ring_kernels() -> dict:
-    """Kernels 8 and 9 against their plain versions on one card at R = 2, 4
-    and 8 ranks; two calls back to back on one scratch; rs then ag against
-    ar; and the refusal of a grid the card cannot hold, in a second
-    interpreter with a time limit."""
-    from tensor_ops_tpu_torch.parallel import collective_kernels as C
-
-    worst = {"ring_all_reduce": 0.0, "bidir_ring": 0.0}
-    for R in RING_RANKS:
-        held, skipped, errs = _ring_cases([DEVICE] * R, 1000 + 100 * R)
-        worst = {n: max(e, errs[n]) for n, e in worst.items()}
-        log(f"[ring] R={R} ranks on one card: {held} cases (one-way ar, "
-            f"bidirectional ar/rs/ag; int32 and f32 N(0,1); the JAX tests' "
-            f"shapes and the flagship's six parameters) bit-equal to the plain "
-            f"versions; {skipped} rs cases skipped (shape[0] not divisible "
-            f"by R)")
+    """Kernels 8 and 9 on one card: the one-shot against its plain version
+    (and the ring protocol's) at RING_RANKS ranks, with and without the
+    1/R scale; the ring protocol, called directly, against its plain
+    version at PROTOCOL_RANKS; two ring-protocol calls back to back on one
+    scratch; rs then ag against ar on both routes; and the refusals, in a
+    second interpreter with a time limit."""
+    worst = {name: 0.0 for name in RING_NAMES}
+    for route, ranks in (("kernel", RING_RANKS), ("ring", PROTOCOL_RANKS)):
+        for R in ranks:
+            held, skipped, errs = _ring_cases([DEVICE] * R, 1000 + 100 * R,
+                                              route)
+            for name, e in errs.items():
+                worst[name] = max(worst[name], e)
+            what = ("one-shot (the wrappers) vs oneshot_ref and the ring's "
+                    "plain version, f32 ar/rs also with the 1/R scale"
+                    if route == "kernel" else
+                    "ring protocol (_ring_cuda) vs its plain version")
+            log(f"[ring] R={R} ranks on one card, {what}: {held} cases "
+                f"(one-way ar, bidirectional ar/rs/ag; int32 and f32 N(0,1); "
+                f"the JAX tests' shapes and the flagship's six parameters) "
+                f"bit-equal; {skipped} rs cases skipped (shape[0] not "
+                f"divisible by R)")
     for phase in RING_PHASES:
         big = _ring_inputs(2000, [DEVICE] * 4, (300, 784), "float32")
         small = _ring_inputs(2001, [DEVICE] * 4, (100,), "float32")
-        a = _ring_call(phase, big)
-        b = _ring_call(phase, small)
-        c = _ring_call(phase, big)
+        a = _ring_call(phase, big, "ring")
+        b = _ring_call(phase, small, "ring")
+        c = _ring_call(phase, big, "ring")
         torch.cuda.synchronize()
         check(_same_bits(a, c) and _same_bits(
-            b, _ring_call(phase, small, plain=True)),
+            b, _ring_call(phase, small, "ring plain")),
             f"ring {phase}: calls back to back on one scratch differ")
     for R in RING_RANKS:
         xs = _ring_inputs(2100 + R, [DEVICE] * R, (R * 16, 128), "int32")
-        rs_ag = C.ring_all_gather(C.ring_reduce_scatter(xs))
-        check(_same_bits(rs_ag, C.ring_all_reduce_bidir(xs)),
-              f"rs then ag differs from ar at R={R}")
-    log("[ring] back to back on one scratch (300x784, 100, 300x784) bit-equal "
-        "in every phase; rs then ag == ar (int32) at R=2, 4, 8")
+        routes = [("kernel", lambda p, v: _ring_call(p, v))]
+        if R in PROTOCOL_RANKS:
+            routes.append(("ring", lambda p, v: _ring_call(p, v, "ring")))
+        for route, call in routes:
+            check(_same_bits(call("ag", call("rs", xs)), call("ar", xs)),
+                  f"rs then ag differs from ar at R={R} ({route})")
+    log("[ring] ring protocol back to back on one scratch (300x784, 100, "
+        "300x784) bit-equal in every phase; rs then ag == ar (int32) at "
+        "R=2, 3, 4, 8 (one-shot) and 2, 4, 8 (ring protocol)")
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
         [sys.executable, "-c", CORESIDENCY_CHECK], capture_output=True,
@@ -1580,8 +1767,9 @@ def phase_ring_kernels() -> dict:
 
 
 def phase_ring_cross_card() -> None:
-    """The ring at one rank per card against its plain version, where the
-    machine has several cards."""
+    """The wrappers at one rank per card (the ring protocol's route)
+    against the ring's plain version, where the machine has several
+    cards."""
     from tensor_ops_tpu_torch.parallel import RankGroup
 
     count = torch.cuda.device_count()
@@ -1590,7 +1778,8 @@ def phase_ring_cross_card() -> None:
             f"two or more)")
         return
     group = RankGroup(count)  # one rank per card; peer access checked
-    held, skipped, _ = _ring_cases([str(d) for d in group.devices], 4000)
+    held, skipped, _ = _ring_cases([str(d) for d in group.devices], 4000,
+                                   "kernel")
     log(f"[ring] cross-card: R={count} ranks, one per card: {held} cases "
         f"bit-equal to the plain versions ({skipped} rs cases skipped)")
 
@@ -1646,8 +1835,11 @@ def phase_dp_slice(tmp: str) -> dict:
             losses.append(float(loss))
         torch.cuda.synchronize()
         counts = K.launch_counts()
+        # one one-shot launch per tensor; the ring protocol is the route of
+        # ranks on several cards and runs no time here
         want = {"fused_mlp_train_step": DP_RANKS * DP_STEPS,
-                route: 6 * DP_STEPS, other: 0}
+                route: 6 * DP_STEPS, other: 0, f"{route}.ring": 0,
+                f"{other}.ring": 0}
         check(all(counts[k] == v for k, v in want.items()),
               f"dp {route}: launches {counts}, want {want}")
         check(losses[-1] < losses[0], f"dp {route}: the loss did not fall "
@@ -1679,7 +1871,8 @@ def phase_dp_slice(tmp: str) -> dict:
             f"{e_par:.2e} (tol {TOL_PARAM[0]:g}+{TOL_PARAM[1]:g}|ref|); "
             f"{DP_STEPS} steps vs the plain dp step in CPU f64 max|err| "
             f"{e5:.2e} (tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|)")
-        out[route] = {"launches": counts[route], "losses": losses}
+        out[route] = {"launches": counts[route], "losses": losses,
+                      "protocol launches": counts[f"{route}.ring"]}
     return out
 
 
@@ -1714,12 +1907,13 @@ def ring_slot_ms(phase: str, R: int, shape) -> float:
 
 
 def phase_dp_timing(dp) -> dict:
-    """Each ring phase at the flagship's 300x784 weight on DP_RANKS ranks:
-    CUDA-event medians of the kernel, its plain version and one PyTorch call
-    for the same values, the profiler's device time and the bound; then a
-    dp step's wall time, kernels, device busy time and idle share on each
-    route, and samples/s beside a single-rank train_fullfused step on the
-    whole batch."""
+    """Each phase at the flagship's 300x784 weight on DP_RANKS ranks of one
+    card: the one-shot's and one PyTorch call's CUDA-event medians and host
+    time per call, taken in turns over 3 repetitions, the one-shot's plain
+    version, the profiler's device time and the bound; the ring protocol
+    called directly beside it; then a dp step's wall time, kernels, device
+    busy time and idle share on each route, and samples/s beside a
+    single-rank train_fullfused step on the whole batch."""
     times = {}
     shape = FLAGSHIP_PARAM_SHAPES[0]
     xs = _ring_inputs(3000, [DEVICE] * DP_RANKS, shape, "float32")
@@ -1728,37 +1922,68 @@ def phase_dp_timing(dp) -> dict:
                # every rank's block at once
                "rs": lambda: torch.stack(xs).sum(0),
                "ag": lambda: torch.cat(xs)}
+    from tensor_ops_tpu_torch.parallel import collective_kernels as C
+
+    wrapper = {"one-way ar": C.ring_all_reduce,
+               "ar": C.ring_all_reduce_bidir, "rs": C.ring_reduce_scatter,
+               "ag": C.ring_all_gather}
     for phase in RING_PHASES:
         name = _ring_kernel_name(phase)
-        k_ms = _median_ms(lambda: _ring_call(phase, xs))
-        p_ms = _median_ms(lambda: _ring_call(phase, xs, plain=True))
-        l_ms = _median_ms(library[phase])
-        prof = _profile_steps(lambda: _ring_call(phase, xs))
-        dev_us = prof["by_kernel"].get(f"{name}_kernel", 0.0)
-        check(dev_us > 0, f"the profiler saw {sorted(prof['by_kernel'])} for "
-              f"ring {phase}")
+        reps = []
+        fn = wrapper[phase]
+        for _ in range(3):
+            reps.append((_median_ms(lambda: fn(xs)),
+                         _median_ms(library[phase]),
+                         _host_us(lambda: fn(xs)),
+                         _host_us(library[phase])))
+        k_ms, l_ms, k_us, l_us = (statistics.median(rep[i] for rep in reps)
+                                  for i in range(4))
+        p_ms = _median_ms(lambda: _ring_call(phase, xs, "plain"))
+        prof = _profile_steps(lambda: fn(xs))
+        dev_us = _per_launch_us(prof, f"{name}_oneshot_kernel")
+        check(dev_us > 0, f"the profiler saw {prof['calls']} for the "
+              f"one-shot {phase}")
+        r_ms = _median_ms(lambda: _ring_call(phase, xs, "ring"))
+        rp_ms = _median_ms(lambda: _ring_call(phase, xs, "ring plain"))
+        rprof = _profile_steps(lambda: _ring_call(phase, xs, "ring"))
+        ring_us = _per_launch_us(rprof, f"{name}_kernel")
+        check(ring_us > 0, f"the profiler saw {sorted(rprof['by_kernel'])} "
+              f"for the ring protocol {phase}")
         least = ring_bound(phase, DP_RANKS, shape)
-        log(f"[timing] ring {phase} ({name}) R={DP_RANKS} on one card, "
-            f"{'x'.join(map(str, shape))} f32 per rank: kernel {k_ms:.4f} ms, "
-            f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms; device "
-            f"{dev_us:.2f} us in {prof['launches']:.0f} kernels; bound "
-            f"{least[0] * 1e3:.3f} us by {least[1]}; the ring's own "
-            f"comm-slot traffic {ring_slot_ms(phase, DP_RANKS, shape) * 1e3:.3f}"
-            f" us more")
+        log(f"[timing] {phase} ({name}) R={DP_RANKS} on one card, "
+            f"{'x'.join(map(str, shape))} f32 per rank: one-shot device "
+            f"{dev_us:.2f} us ({dev_us / (least[0] * 1e3):.2f}x the bound "
+            f"{least[0] * 1e3:.3f} us by {least[1]}), {prof['launches']:.0f} "
+            f"kernels + {prof['copies']:.0f} copies per call; events, in "
+            f"turns over 3 repetitions, one-shot "
+            f"{', '.join(f'{rep[0]:.4f}' for rep in reps)} ms vs library "
+            f"{', '.join(f'{rep[1]:.4f}' for rep in reps)} ms (medians "
+            f"{k_ms:.4f} vs {l_ms:.4f}); host clock per call, in the same "
+            f"turns, one-shot {', '.join(f'{rep[2]:.2f}' for rep in reps)} "
+            f"us vs library {', '.join(f'{rep[3]:.2f}' for rep in reps)} us "
+            f"(medians {k_us:.2f} vs {l_us:.2f}); plain {p_ms:.4f} ms")
+        log(f"[timing] {phase} ring protocol (_ring_cuda) R={DP_RANKS} on "
+            f"one card: device {ring_us:.2f} us in {rprof['launches']:.0f} "
+            f"kernels + {rprof['copies']:.0f} copies, events {r_ms:.4f} ms, "
+            f"plain {rp_ms:.4f} ms; its comm-slot traffic "
+            f"{ring_slot_ms(phase, DP_RANKS, shape) * 1e3:.3f} us beyond the "
+            f"bound")
         if phase in ("one-way ar", "ar"):
-            times[name] = (k_ms, p_ms, l_ms)
+            times[name] = (k_ms, p_ms, l_ms, dev_us)
+            times[f"{name}.ring"] = (r_ms, rp_ms, l_ms, ring_us)
 
     from tensor_ops_tpu_torch.parallel import dp_megakernel_train_step
 
     acts = ("logistic", "logistic", "identity")
     x, y, ws, bs = dp["x"], dp["y"], dp["ws"], dp["bs"]
-    routes = {f"dp step, {r}": dp_megakernel_train_step(
+    routes = {r: dp_megakernel_train_step(
         dp["group"], acts, lr=TRAIN_RATE, bidirectional=(r == "bidir_ring"))
         for r in ("bidir_ring", "ring_all_reduce")}
-    routes = {k: (lambda s=s: s(x, y, ws, bs)) for k, s in routes.items()}
+    routes = {f"dp step, {r}": (r, lambda s=s: s(x, y, ws, bs))
+              for r, s in routes.items()}
     routes[f"single rank train_fullfused, B={len(x)}"] = (
-        lambda: dp["fm"].train_fullfused(TRAIN_RATE, x, y))
-    for name, step in routes.items():
+        None, lambda: dp["fm"].train_fullfused(TRAIN_RATE, x, y))
+    for name, (ring, step) in routes.items():
         for _ in range(3):
             step()
         torch.cuda.synchronize()
@@ -1770,12 +1995,25 @@ def phase_dp_timing(dp) -> dict:
         prof = _profile_steps(step)
         top = ", ".join(f"{n} {us:.1f}" for n, us in
                         list(prof["by_kernel"].items())[:4])
+        extra = ""
+        if ring is not None:
+            # the profiler's count (the wrappers' counters hold the exact
+            # launches in the dp slice phase; the profiler may drop an event)
+            ones = prof["calls"].get(f"{ring}_oneshot_kernel", 0)
+            elementwise = sum(c for n, c in prof["calls"].items()
+                              if "elementwise" in n)
+            check(ones > 0, f"{name}: the profiler saw no one-shot launch")
+            extra = (f"; {ones:.1f} one-shot launches per step (the 1/n "
+                     f"inside them), {elementwise:.1f} elementwise kernels "
+                     f"(the loss's sum and 1/n), no parameter multiplies; "
+                     f"want {DP_KERNELS_PER_STEP} kernels and 6 one-shot "
+                     f"launches per step")
         log(f"[timing] {name}: {wall_us:.1f} us/step wall, "
             f"{len(x) / (wall_us * 1e-6):.0f} samples/s, "
             f"{prof['launches']:.0f} kernels + {prof['copies']:.0f} "
             f"copies/step, device busy {prof['busy_us']:.1f} us/step, idle "
             f"share {1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): "
-            f"{top}")
+            f"{top}{extra}")
     return times
 
 
@@ -1825,10 +2063,15 @@ def bounds() -> dict:
             2 * L * Bs * n * n, "int8"),
         # FusedRNN's per-timestep launch: B=1 at 32 -> 512
         "fused_rnn_step": rnn_step_bound(1),
-        # the flagship's 300x784 weight over the dp slice's ranks
+        # the flagship's 300x784 weight over the dp slice's ranks, on
+        # either route: the function's bytes, whatever the algorithm
         "ring_all_reduce": ring_bound("one-way ar", DP_RANKS,
                                       FLAGSHIP_PARAM_SHAPES[0]),
         "bidir_ring": ring_bound("ar", DP_RANKS, FLAGSHIP_PARAM_SHAPES[0]),
+        "ring_all_reduce.ring": ring_bound("one-way ar", DP_RANKS,
+                                           FLAGSHIP_PARAM_SHAPES[0]),
+        "bidir_ring.ring": ring_bound("ar", DP_RANKS,
+                                      FLAGSHIP_PARAM_SHAPES[0]),
     }
 
 
@@ -1884,9 +2127,12 @@ def main() -> int:
         tr["fused"]["launches"]["fused_mlp_train_step"])
     launches.update(sv["launches"])
     launches["fused_rnn_step"] = rs["launches"]
-    # the dp slice's DP_STEPS steps on each ring's route
+    # the dp slice's DP_STEPS steps on each ring's route: the one-shot's
+    # launches, and the ring protocol's (the route of ranks on several
+    # cards: 0 on one card)
     for n in ("ring_all_reduce", "bidir_ring"):
         launches[n] = dp[n]["launches"]
+        launches[f"{n}.ring"] = dp[n]["protocol launches"]
     least = bounds()
     for n in KERNELS:
         log(f"[bound] {n}: {least[n][0]:.6f} ms by {least[n][1]} (H100 SXM "
@@ -1894,7 +2140,7 @@ def main() -> int:
     b256 = rnn_step_bound(256)
     log(f"[bound] fused_rnn_step at B=256: {b256[0]:.6f} ms by {b256[1]}")
     # library_ms: torch.addmm for kernel 1's identity layer and
-    # torch.stack(xs).sum(0) for the rings' all-reduce; no single PyTorch
+    # torch.stack(xs).sum(0) for the collectives' all-reduce; no single PyTorch
     # call computes the others with their epilogues (activation, softmax,
     # SGD update, int8 rescale, both y and act(z)), so null
     kernels = [dict(name=n, **KERNELS[n], launches=launches[n],
@@ -1902,8 +2148,7 @@ def main() -> int:
                     plain_ms=times[n][1], bound_ms=least[n][0],
                     bound_by=least[n][1],
                     library_ms=times[n][2] if n in (
-                        "fused_linear", "ring_all_reduce", "bidir_ring")
-                    else None)
+                        "fused_linear",) + RING_NAMES else None)
                for n in KERNELS]
     log(f"[card] every time above was taken on: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -13,8 +13,13 @@
 // Every chunk is two pieces of H elements: piece 0 travels to the right,
 // piece 1 to the left, with slots, flags and credits of its own per
 // direction; each step starts both sends before waiting on either receive.
-// The ccw index math mirrors the cw one (2 me + 2 n - x).  The protocol,
-// its ordering and what bounds it are in ring.cuh.
+// The ccw index math mirrors the cw one (2 me + 2 n - x).
+//
+// Two routes: ranks that share one card take the one-shot kernel
+// (oneshot.cuh: one launch, each element folded in the order its piece
+// travels); ranks on several cards take the ring protocol (ring.cuh: its
+// ordering and what bounds it).
+#include "oneshot.cuh"
 #include "ring.cuh"
 
 namespace {
@@ -25,7 +30,15 @@ __global__ void __launch_bounds__(ring::kThreads)
   ring::ring_body<T>(a);
 }
 
+template <typename T, int W, int MAXR>
+__global__ void __launch_bounds__(oneshot::kThreads)
+    bidir_ring_oneshot_kernel(const oneshot::Args a) {
+  oneshot::body<T, W, MAXR>(a);
+}
+
 }  // namespace
 
 // bidir_ring_launch / _capacity / _enable_peer: see ring.cuh (D = 2).
 RING_C_ENTRIES(bidir_ring, bidir_ring_kernel, 2)
+// bidir_ring_oneshot: see oneshot.cuh (D = 2, every phase).
+ONESHOT_C_ENTRY(bidir_ring, bidir_ring_oneshot_kernel)

@@ -4,9 +4,16 @@
 // pallas_kernels.py), reached there through `fused_linear` ->
 // `_fused_linear_fwd_impl` -> `_fused_linear_padded`.
 //
-// Shapes: x (B, K) f32 row-major, w (O, K) f32 in the ffLayer layout, b (O,)
-// f32; y and z (B, O) f32.  w is read in its (O, K) layout: both operands are
+// Shapes: x (B, K) row-major, w (O, K) in the ffLayer layout, b (O,) f32, z
+// (B, O) f32; x, w and y are all f32 (fused_linear_f32) or all bf16
+// (fused_linear_bf16).  w is read in its (O, K) layout: both operands are
 // contracted on their second axis, and no transposed copy is made.
+//
+// bf16 operands stay bf16 in memory, as `_fused_linear_fwd_impl` keeps them
+// (half the bytes); each is widened with __bfloat162float on its way into
+// shared memory, the products and their sum are f32 (a bf16 x bf16 product
+// is exact in f32), z is f32, and y = act(z) is rounded once to bf16 with
+// __float2bfloat16_rn, as the plain version's `.to(torch.bfloat16)` does.
 //
 // What bounds it on the H100: at the serving path's shapes (B <= 512,
 // K, O <= 784) the work is tiny (2·B·K·O <= 0.24 GFLOP) and the weight is
@@ -21,6 +28,7 @@
 // Precision: both precision names ("default" and "highest") compute in IEEE
 // fp32 FMA on the CUDA cores.  On the TPU "default" meant bf16 multiplies on
 // the MXU; tensor cores (wgmma, TF32/bf16) are later work.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,10 +50,20 @@ __device__ __forceinline__ float apply_act(float z) {
   return z;
 }
 
-template <int ACT, bool SAVE_Z>
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// T: the operands' and y's type, float or __nv_bfloat16.
+template <typename T, int ACT, bool SAVE_Z>
 __global__ void __launch_bounds__(kThreads)
-fused_linear_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ b, float* __restrict__ y,
+fused_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                    const float* __restrict__ b, T* __restrict__ y,
                     float* __restrict__ z, int B, int K, int O) {
   // Stored k-major so the inner loop reads a row of each tile.
   __shared__ float xs[kTileK][kTileB + kPad];
@@ -70,13 +88,13 @@ fused_linear_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int e = tid; e < kTileB * kTileK; e += kThreads) {
       const int r = e / kTileK, kk = e % kTileK;
       const int gr = row0 + r, gk = k0 + kk;
-      xs[kk][r] = (gr < B && gk < K) ? x[(int64_t)gr * K + gk] : 0.0f;
+      xs[kk][r] = (gr < B && gk < K) ? widen(x[(int64_t)gr * K + gk]) : 0.0f;
     }
 #pragma unroll
     for (int e = tid; e < kTileO * kTileK; e += kThreads) {
       const int c = e / kTileK, kk = e % kTileK;
       const int gc = col0 + c, gk = k0 + kk;
-      ws[kk][c] = (gc < O && gk < K) ? w[(int64_t)gc * K + gk] : 0.0f;
+      ws[kk][c] = (gc < O && gk < K) ? widen(w[(int64_t)gc * K + gk]) : 0.0f;
     }
     __syncthreads();
 #pragma unroll
@@ -107,42 +125,55 @@ fused_linear_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const float zz = acc[i][j] + b[c];
       const int64_t at = (int64_t)r * O + c;
       if (SAVE_Z) z[at] = zz;
-      y[at] = apply_act<ACT>(zz);
+      put(y + at, apply_act<ACT>(zz));
     }
   }
 }
 
-template <int ACT>
-void launch(const float* x, const float* w, const float* b, float* y,
-            float* z, int B, int K, int O, cudaStream_t stream) {
+template <typename T, int ACT>
+void launch(const T* x, const T* w, const float* b, T* y, float* z, int B,
+            int K, int O, cudaStream_t stream) {
   const dim3 grid((B + kTileB - 1) / kTileB, (O + kTileO - 1) / kTileO);
   if (z != nullptr)
-    fused_linear_kernel<ACT, true><<<grid, kThreads, 0, stream>>>(
+    fused_linear_kernel<T, ACT, true><<<grid, kThreads, 0, stream>>>(
         x, w, b, y, z, B, K, O);
   else
-    fused_linear_kernel<ACT, false><<<grid, kThreads, 0, stream>>>(
+    fused_linear_kernel<T, ACT, false><<<grid, kThreads, 0, stream>>>(
         x, w, b, y, z, B, K, O);
+}
+
+template <typename T>
+int dispatch(const void* x, const void* w, const void* b, void* y, void* z,
+             int B, int K, int O, int act, void* stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const float* bf = static_cast<const float*>(b);
+  T* yt = static_cast<T*>(y);
+  float* zf = static_cast<float*>(z);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (act) {
+    case kIdentity: launch<T, kIdentity>(xt, wt, bf, yt, zf, B, K, O, s); break;
+    case kLogistic: launch<T, kLogistic>(xt, wt, bf, yt, zf, B, K, O, s); break;
+    case kRelu: launch<T, kRelu>(xt, wt, bf, yt, zf, B, K, O, s); break;
+    case kTanh: launch<T, kTanh>(xt, wt, bf, yt, zf, B, K, O, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes.  `z` may be null (no pre-activation out).
-// Returns cudaGetLastError() after the launch: 0 on success.
+// Plain C entry points for ctypes: f32 operands and y, or bf16 operands and
+// y; b and z are f32 in both.  `z` may be null (no pre-activation out).
+// Return cudaGetLastError() after the launch: 0 on success.
 extern "C" int fused_linear_f32(const void* x, const void* w, const void* b,
                                 void* y, void* z, int B, int K, int O,
                                 int act, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(b);
-  float* yf = static_cast<float*>(y);
-  float* zf = static_cast<float*>(z);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case kIdentity: launch<kIdentity>(xf, wf, bf, yf, zf, B, K, O, s); break;
-    case kLogistic: launch<kLogistic>(xf, wf, bf, yf, zf, B, K, O, s); break;
-    case kRelu: launch<kRelu>(xf, wf, bf, yf, zf, B, K, O, s); break;
-    case kTanh: launch<kTanh>(xf, wf, bf, yf, zf, B, K, O, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<float>(x, w, b, y, z, B, K, O, act, stream);
+}
+
+extern "C" int fused_linear_bf16(const void* x, const void* w, const void* b,
+                                 void* y, void* z, int B, int K, int O,
+                                 int act, void* stream) {
+  return dispatch<__nv_bfloat16>(x, w, b, y, z, B, K, O, act, stream);
 }

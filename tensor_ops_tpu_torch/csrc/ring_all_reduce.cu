@@ -6,8 +6,13 @@
 // reduce-scatter steps then n - 1 all-gather steps, every chunk sent to the
 // right neighbour, two comm slots, a credit per consumed slot.  The buffer
 // is viewed as n chunks of H = ceil(size / (n * 1024)) * 1024 elements (the
-// TPU kernel's (n, R, 128) view); the tail past the input is zero.  The
-// protocol, its ordering and what bounds it are in ring.cuh.
+// TPU kernel's (n, R, 128) view); the tail past the input is zero.
+//
+// Two routes: ranks that share one card take the one-shot kernel
+// (oneshot.cuh: one launch, each rank's input read once, each element
+// folded in the ring's order); ranks on several cards take the ring protocol
+// (ring.cuh: its ordering and what bounds it).
+#include "oneshot.cuh"
 #include "ring.cuh"
 
 namespace {
@@ -18,8 +23,16 @@ __global__ void __launch_bounds__(ring::kThreads)
   ring::ring_body<T>(a);
 }
 
+template <typename T, int W, int MAXR>
+__global__ void __launch_bounds__(oneshot::kThreads)
+    ring_all_reduce_oneshot_kernel(const oneshot::Args a) {
+  oneshot::body<T, W, MAXR>(a);
+}
+
 }  // namespace
 
 // ring_all_reduce_launch / _capacity / _enable_peer: see ring.cuh (D = 1;
 // phase 0 only, x_stride = x_len = H).
 RING_C_ENTRIES(ring_all_reduce, ring_all_reduce_kernel, 1)
+// ring_all_reduce_oneshot: see oneshot.cuh (D = 1, phase 0).
+ONESHOT_C_ENTRY(ring_all_reduce, ring_all_reduce_oneshot_kernel)

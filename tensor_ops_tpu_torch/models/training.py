@@ -132,6 +132,28 @@ def batch_loss(net: Network, loss: TOp, be: Backend, xb: Any,
     return float(fn(be.asarray(xb), be.asarray(yb), *net.params).mean())
 
 
+def seq_batch_loss(rnet, loss: TOp, be: Backend, XS: Any, TS: Any) -> float:
+    """Mean scan-BPTT sequence loss over ``(N, n, *in)`` sequences: the
+    value-only evaluation ``fit_sequences`` uses for ``val=`` (``rnet`` is
+    any RecurrentNetwork-shaped object: ``._seq_graph``, ``.states``,
+    ``.params``, ``.op``).  The sequence graph is mapped over the N
+    sequences with ``torch.func.vmap``, states and params broadcast."""
+    XS, TS = be.asarray(XS), be.asarray(TS)
+    n = int(XS.shape[1])
+    key = ("sbloss", loss.struct_key(), n) + be.cache_key()
+
+    def build():
+        g = rnet._seq_graph(loss, n)
+
+        def single(xs, ts, *sp):
+            return g.apply(be, (xs,) + sp + (ts,))[0]
+
+        return _vmap(single, 2, len(rnet.states) + len(rnet.params))
+
+    fn = _cache(rnet, key, build)
+    return float(fn(XS, TS, *rnet.states, *rnet.params).mean())
+
+
 def confusion(net: Network, be: Backend, xb: Any, yb_idx: Any,
               n_classes: int) -> np.ndarray:
     """Confusion matrix ``count[predicted, actual]`` (the ``confusion``

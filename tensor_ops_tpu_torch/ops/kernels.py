@@ -2,8 +2,9 @@
 beside its plain PyTorch version.
 
 * :func:`fused_linear` — ``act(x @ w.T + b)`` (``csrc/fused_linear.cu``),
-  the port of the TPU kernel ``_linear_act_kernel``, with its backward in
-  plain PyTorch as the JAX package's backward is plain XLA.
+  the port of the TPU kernel ``_linear_act_kernel``, for f32 operands or,
+  with bf16 ``x``, bf16 operands and y (f32 accumulation), with its
+  backward in plain PyTorch as the JAX package's backward is plain XLA.
 * :func:`fused_mlp_forward` — a whole ffLayer chain with an optional
   softmax output in one launch (``csrc/fused_mlp_forward.cu``), the port of
   the TPU kernel ``_mlp_kernel``.
@@ -62,8 +63,11 @@ _launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0,
                              "fused_linear_w8a8": 0,
                              "fused_mlp_w8a8_forward": 0,
                              "fused_rnn_step": 0,
-                             # the ring collectives of parallel/
-                             "ring_all_reduce": 0, "bidir_ring": 0}
+                             # the collectives of parallel/: the one-shot
+                             # (ranks on one card) under the kernel's name,
+                             # the ring protocol (several cards) as .ring
+                             "ring_all_reduce": 0, "bidir_ring": 0,
+                             "ring_all_reduce.ring": 0, "bidir_ring.ring": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -166,11 +170,17 @@ def fused_linear_ref(x, w, b, act: str = "identity", save_z: bool = False):
     return (y, z) if save_z else y
 
 
+_LINEAR_ENTRIES = {torch.float32: "fused_linear_f32",
+                   torch.bfloat16: "fused_linear_bf16"}
+
+
 def _fused_linear_cuda(x, w, b, act: str, save_z: bool):
-    if x.dtype != torch.float32:
-        raise ValueError(
-            f"fused_linear on CUDA takes float32 x, got {x.dtype} (bf16 "
-            f"operands are the next step: ROADMAP.md Queue 2, item 1)")
+    """The kernel: f32 x with f32 operands, or bf16 x with bf16 operands (w
+    rounded to bf16 as the plain version rounds it); f32 accumulation, b
+    and z f32, y in x's dtype."""
+    if x.dtype not in _LINEAR_ENTRIES:
+        raise ValueError(f"fused_linear on CUDA takes float32 or bfloat16 "
+                         f"x, got {x.dtype}")
     if x.ndim != 2 or w.ndim != 2 or b.ndim != 1:
         raise ValueError(f"fused_linear wants x (B, K), w (O, K), b (O,); "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}, "
@@ -185,13 +195,14 @@ def _fused_linear_cuda(x, w, b, act: str, save_z: bool):
     if O > 65535 * 64:
         raise ValueError(f"fused_linear: {O} outputs exceed the grid")
     x = x.contiguous()
-    w = w.to(torch.float32).contiguous()
+    w = w.to(x.dtype).contiguous()
     b = b.to(torch.float32).contiguous()
-    y = torch.empty((B, O), dtype=torch.float32, device=x.device)
-    z = torch.empty_like(y) if save_z else None
+    y = torch.empty((B, O), dtype=x.dtype, device=x.device)
+    z = (torch.empty((B, O), dtype=torch.float32, device=x.device)
+         if save_z else None)
     if B == 0 or O == 0:
         return y, z
-    fn = _kernel("fused_linear", "fused_linear_f32",
+    fn = _kernel("fused_linear", _LINEAR_ENTRIES[x.dtype],
                  [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                  + [ctypes.c_void_p])
     with torch.cuda.device(x.device):

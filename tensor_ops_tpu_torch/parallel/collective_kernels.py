@@ -16,20 +16,27 @@ wrappers take the R per-rank tensors and return the R per-rank results:
 * :func:`dp_megakernel_train_step` — ``fused_mlp_train_step`` on each rank's
   shard of the batch, then a ring all-reduce of every updated parameter.
 
-The buffers take the JAX chunk layout (chunks of whole 1,024-element pieces,
-zero tail), and each element of chunk c is summed in the JAX ring's order,
-so the plain versions :func:`ring_all_reduce_ref` and :func:`bidir_ring_ref`
-(step-by-step simulations of the TPU schedule) equal the JAX ring bit for
-bit on random f32, and the kernels equal the plain versions bit for bit.
+Each element is summed in the JAX ring's order: the JAX chunk layout
+(chunks of whole 1,024-element pieces) fixes, per element, the rank where
+its fold starts and the direction it goes round the ring.  The ring
+protocol's plain versions :func:`ring_all_reduce_ref` and
+:func:`bidir_ring_ref` simulate the TPU schedule step by step;
+:func:`oneshot_ref` folds each element in that order in closed form.  All
+three equal the JAX rings bit for bit on random f32, and each kernel equals
+its plain version bit for bit.
 
-A wrapper takes its plain version only for CPU tensors.  For CUDA tensors it
-launches its kernel (one cooperative launch per card, every rank of the card
-in it) or raises: no fallback, no staging through the host.  Calls are
-ordered on each card's current stream.
+Routes: CPU tensors take :func:`oneshot_ref`.  When every rank sits on one
+card, a wrapper launches the one-shot kernel once on that card's current
+stream (``csrc/oneshot.cuh``): it reads each rank's input once and writes
+each rank's output once.  Ranks spread over several cards take the ring
+protocol (``csrc/ring.cuh``: one cooperative launch per card, neighbours
+reached by peer access).  No route falls back to another or stages through
+the host.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
 import math
 import threading
@@ -234,8 +241,7 @@ def bidir_ring_ref(xs, phase: str = "ar") -> List[torch.Tensor]:
     ``_bidir_ring_kernel``: ``ar`` every rank's sum, ``rs`` rank r's summed
     r-th block of the leading axis, ``ag`` the leading-axis concatenation
     of the shards in rank order."""
-    if phase not in PHASES:
-        raise ValueError(f"unknown phase {phase!r} (known: {sorted(PHASES)})")
+    _check_phase(phase)
     xs = _check_inputs(xs, f"bidir_ring {phase}")
     _check_phase_shape(xs, phase)
     if len(xs) == 1:
@@ -243,7 +249,63 @@ def bidir_ring_ref(xs, phase: str = "ar") -> List[torch.Tensor]:
     return _ring_ref(xs, phase, one_way=False)
 
 
+def _fold_plan(phase: str, shape, n: int, one_way: bool, device):
+    """Per element of the flat input (``ar``, ``rs``): the rank where the
+    ring's fold of it starts, and the step round the ring (1 to the right,
+    n - 1 to the left).  See ``csrc/oneshot.cuh`` for the rule and a
+    worked R = 4 example."""
+    D, H, _, _, size = _layout(phase, shape, n, one_way)
+    i = torch.arange(size, device=device)
+    if phase == "ar":
+        piece = i // H
+        start, d = piece // D, piece % D
+    else:  # rs: element j of rank r's block, r = i // part
+        part = size // n
+        r = i // part
+        d = (i - r * part) // H
+        start = torch.where(d == 0, (r + 1) % n, (r + n - 1) % n)
+    return start, torch.where(d == 0, 1, n - 1)
+
+
+def oneshot_ref(xs, phase: str = "ar", one_way: bool = False,
+                scale: Optional[float] = None) -> List[torch.Tensor]:
+    """Plain PyTorch one-shot collective: each element of the result folded
+    over the ranks in the order the ring folds it (``one_way``: kernel 8's
+    layout, else kernel 9's), then, for ``ar`` and ``rs``, multiplied by
+    ``scale`` when one is given.  Returns what :func:`ring_all_reduce_ref`
+    / :func:`bidir_ring_ref` return, bit for bit, each rank's result in
+    memory of its own."""
+    _check_phase(phase)
+    if one_way and phase != "ar":
+        raise ValueError(f"the one-way ring has no phase {phase!r}")
+    xs = _check_inputs(xs, f"oneshot {phase}")
+    _check_phase_shape(xs, phase)
+    n, shape = len(xs), tuple(xs[0].shape)
+    home = xs[0].device
+    flat = torch.stack([x.reshape(-1).to(home) for x in xs])
+    if phase == "ag":
+        whole = flat.reshape((n * shape[0],) + shape[1:])
+        return [whole.clone().to(x.device) for x in xs]
+    if flat.shape[1] == 0:
+        acc = flat[0]
+    else:
+        rank, step = _fold_plan(phase, shape, n, one_way, home)
+        i = torch.arange(flat.shape[1], device=home)
+        acc = flat[rank, i]
+        for _ in range(n - 1):
+            rank = (rank + step) % n
+            acc = acc + flat[rank, i]
+    if scale is not None:
+        acc = acc * scale
+    if phase == "rs":
+        blocks = acc.reshape((n, shape[0] // n) + shape[1:])
+        return [blocks[r].clone().to(x.device) for r, x in enumerate(xs)]
+    return [acc.reshape(shape).clone().to(x.device) for x in xs]
+
+
 def _check_inputs(xs, name: str):
+    """The ranks' tensors as a list, after checking that they agree in
+    shape and dtype and lie all on the CPU or all on CUDA cards."""
     xs = list(xs)
     if not xs or not all(isinstance(x, torch.Tensor) for x in xs):
         raise ValueError(f"{name}: want one tensor per rank, got {xs!r}")
@@ -253,10 +315,15 @@ def _check_inputs(xs, name: str):
             raise ValueError(
                 f"{name}: rank {r} has {tuple(x.shape)} {x.dtype}, rank 0 "
                 f"{tuple(x0.shape)} {x0.dtype}")
-    if len({x.device.type for x in xs}) != 1:
+    if len({x.is_cuda for x in xs}) != 1:
         raise ValueError(f"{name}: ranks must all be on the CPU or all on "
                          f"CUDA cards")
     return xs
+
+
+def _check_phase(phase: str) -> None:
+    if phase not in PHASES:
+        raise ValueError(f"unknown phase {phase!r} (known: {sorted(PHASES)})")
 
 
 def _check_phase_shape(xs, phase: str) -> None:
@@ -410,7 +477,10 @@ def _get_scratch(lib: str, devices, words: int,
         return sc, sc.epoch
 
 
-def _ring_cuda(xs, phase: str, one_way: bool):
+def _ring_cuda(xs, phase: str, one_way: bool, scale: Optional[float] = None):
+    """The ring protocol (``csrc/ring.cuh``): the route of ranks spread over
+    several cards, one cooperative launch per card.  ``scale`` multiplies
+    the results after the ring, as a separate operation."""
     lib = "ring_all_reduce" if one_way else "bidir_ring"
     if xs[0].dtype not in _DTYPE_CODES:
         raise ValueError(f"{lib} on CUDA takes float32 or int32 tensors, got "
@@ -421,9 +491,10 @@ def _ring_cuda(xs, phase: str, one_way: bool):
     layout = _layout(phase, shape, n, one_way)
     D, H, x_stride, x_len, x_size = layout
     if H == 0:
-        return [_extract(torch.empty((n, D, 0), dtype=x.dtype, device=d),
+        outs = [_extract(torch.empty((n, D, 0), dtype=x.dtype, device=d),
                          phase, shape, n, r, layout)
                 for r, (x, d) in enumerate(zip(xs, devices))]
+        return outs if scale is None else [t * scale for t in outs]
     _enable_peers(lib, devices)
     cards: dict = {}
     for r, d in enumerate(devices):
@@ -455,32 +526,185 @@ def _ring_cuda(xs, phase: str, one_way: bool):
                 f"{lib}: the cooperative launch of {nb} blocks for each of "
                 f"R={len(ranks)} ranks on {dev} failed with cudaError_t {err}"
                 f" (720: more blocks than the card holds at once)")
-        K._count(lib)
-    return [_extract(o, phase, shape, n, r, layout)
+        K._count(f"{lib}.ring")
+    outs = [_extract(o, phase, shape, n, r, layout)
             for r, o in enumerate(outs)]
+    return outs if scale is None else [t * scale for t in outs]
 
 
-def _collective(xs, phase: str, one_way: bool, name: str):
+class _Desc(ctypes.Structure):
+    """csrc/oneshot.cuh ``oneshot::Desc``: one call shape's constants."""
+
+    _fields_ = [("size", ctypes.c_longlong), ("H", ctypes.c_longlong),
+                ("part", ctypes.c_longlong), ("scale", ctypes.c_float),
+                ("has_scale", ctypes.c_int), ("dtype", ctypes.c_int),
+                ("phase", ctypes.c_int), ("n", ctypes.c_int),
+                ("D", ctypes.c_int), ("vec", ctypes.c_int)]
+
+
+class _OneShotCall:
+    """The one-shot for one call shape (phase, layout, input shape, R,
+    dtype, scale), everything but the pointers worked out once: each
+    rank's result shape in one ``(R, *result)`` buffer, the JAX layout's
+    piece length and directions, whether 16-byte positions apply (the
+    size, and for ``rs`` each rank's block, a multiple of 4; the C entry
+    also checks the pointers' alignment), and the bound C entry."""
+
+    def __init__(self, phase: str, shape, n: int, one_way: bool, dtype,
+                 scale: Optional[float], card: int):
+        self.lib = "ring_all_reduce" if one_way else "bidir_ring"
+        if dtype not in _DTYPE_CODES:
+            raise ValueError(f"{self.lib} on CUDA takes float32 or int32 "
+                             f"tensors, got {dtype}")
+        if scale is not None and dtype != torch.float32:
+            raise ValueError(f"{self.lib}: a scale applies to float32 sums, "
+                             f"got {dtype}")
+        if n > MAX_LOCAL_RANKS:
+            raise ValueError(f"{self.lib}: R={n} ranks on one card; one "
+                             f"launch runs at most {MAX_LOCAL_RANKS} ranks "
+                             f"of a card")
+        shape = tuple(shape)
+        D, H, _, _, size = _layout(phase, shape, n, one_way)
+        part = size // n if phase == "rs" else size
+        if phase == "rs":
+            out_shape = (shape[0] // n,) + shape[1:]
+        elif phase == "ag":
+            out_shape = (n * shape[0],) + shape[1:]
+        else:
+            out_shape = shape
+        self.n, self.shape, self.dtype, self.card = n, shape, dtype, card
+        self.buf_shape = (n,) + out_shape
+        # the result buffer's shape, dtype and card on one element:
+        # empty_like of it is the cheapest allocation per call
+        self.like = torch.empty(1, dtype=dtype, device=(
+            card if card >= 0 else "cpu")).expand(self.buf_shape)
+        self.out_elems = math.prod(out_shape)
+        self.desc = _Desc(size, H, part, 0.0 if scale is None else scale,
+                          int(scale is not None), _DTYPE_CODES[dtype],
+                          PHASES[phase], n, D,
+                          int(size % 4 == 0 and part % 4 == 0))
+        self.desc_ptr = ctypes.addressof(self.desc)
+        self.fn = None
+
+    def fast(self, xs) -> Optional[List[torch.Tensor]]:
+        """The launch for R contiguous tensors of this call's shape and
+        dtype on its card, checked in the one pass that reads their
+        addresses; None when any rank differs (the caller then takes the
+        checks that name the fault, or another route)."""
+        shape, dtype, card = self.shape, self.dtype, self.card
+        ptrs = []
+        for x in xs:
+            if (x.shape != shape or x.dtype is not dtype
+                    or x.get_device() != card or not x.is_contiguous()):
+                return None
+            ptrs.append(x.data_ptr())
+        return self.launch(ptrs)
+
+    def __call__(self, xs) -> List[torch.Tensor]:
+        xs = [x.contiguous() for x in xs]  # alive until the launch
+        return self.launch([x.data_ptr() for x in xs])
+
+    def launch(self, ptrs: list) -> List[torch.Tensor]:
+        out = torch.empty_like(self.like)
+        if self.out_elems:
+            if self.fn is None:
+                self.fn = _oneshot_entry(self.lib)
+            card = self.card
+            base = out.data_ptr()
+            step = self.out_elems * out.element_size()
+            ptrs += range(base, base + self.n * step, step)
+            ptrs.append(torch._C._cuda_getCurrentRawStream(card))
+            # the 2n + 1 addresses as one buffer of 64-bit words
+            words = array.array("Q", ptrs)
+            if card == torch._C._cuda_getDevice():
+                err = self.fn(self.desc_ptr, words.buffer_info()[0])
+            else:
+                with torch.cuda.device(card):
+                    err = self.fn(self.desc_ptr, words.buffer_info()[0])
+            if err:
+                K._check_launch(f"{self.lib} one-shot", err)
+            K._count(self.lib)
+        return list(torch.unbind(out))
+
+
+_calls: dict = {}  # (phase, one_way, scale, R, shape, dtype, card) -> call
+_oneshot_entries: dict = {}  # lib -> its bound C entry NAME_oneshot
+
+
+def _oneshot_entry(lib: str):
+    """``<lib>_oneshot`` of the built library, bound through ``ctypes.PyDLL``:
+    the call keeps the GIL, which saves its release and re-acquisition (~1
+    us of a ~15 us wrapper call, H100 host) around a launch that only
+    queues work."""
+    fn = _oneshot_entries.get(lib)
+    if fn is None:
+        from ..ops.cuda_build import build
+
+        fn = getattr(ctypes.PyDLL(str(build(lib).path)), f"{lib}_oneshot")
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _oneshot_entries[lib] = fn
+    return fn
+
+
+def _oneshot(xs, phase: str, one_way: bool, scale: Optional[float] = None):
+    """The one-shot kernel (``csrc/oneshot.cuh``): every rank on one card,
+    one launch on its current stream, the results written straight into
+    one ``(R, *result)`` buffer whose rows are returned."""
+    x0 = xs[0]
+    key = (phase, one_way, scale, len(xs), x0.shape, x0.dtype,
+           x0.get_device())
+    call = _calls.get(key)
+    if call is None:
+        call = _OneShotCall(phase, x0.shape, len(xs), one_way, x0.dtype,
+                            scale, key[-1])
+        _calls[key] = call
+    return call(xs)
+
+
+def _cards(xs) -> set:
+    """The card index of every rank (-1 on the CPU)."""
+    return {x.get_device() for x in xs}
+
+
+def _collective(xs, phase: str, one_way: bool, name: str,
+                scale: Optional[float] = None):
+    # a call shape the one-shot has run before: one pass over the ranks (on
+    # one card the wrapper's host time is most of a call)
+    if type(xs) is list and len(xs) > 1 and type(xs[0]) is torch.Tensor:
+        x0 = xs[0]
+        call = _calls.get((phase, one_way, scale, len(xs), x0.shape,
+                           x0.dtype, x0.get_device()))
+        if call is not None:
+            out = call.fast(xs)
+            if out is not None:
+                return out
     xs = _check_inputs(xs, name)
     _check_phase_shape(xs, phase)
     if len(xs) == 1:
-        return list(xs)
-    if xs[0].is_cuda:
-        return _ring_cuda(xs, phase, one_way)
-    return _ring_ref(xs, phase, one_way)
+        return list(xs) if scale is None else [xs[0] * scale]
+    cards = _cards(xs)
+    if -1 in cards:
+        return oneshot_ref(xs, phase, one_way, scale)
+    if len(cards) == 1:
+        return _oneshot(xs, phase, one_way, scale)
+    return _ring_cuda(xs, phase, one_way, scale)
 
 
-def ring_all_reduce(xs) -> List[torch.Tensor]:
+def ring_all_reduce(xs, scale: Optional[float] = None) -> List[torch.Tensor]:
     """Sum the R per-rank tensors with the one-way ring (``psum``): returns R
     tensors, each the sum, in the input's shape and dtype (f32 or int32 on
-    CUDA; any dtype on the CPU).  One rank returns its input."""
-    return _collective(xs, "ar", True, "ring_all_reduce")
+    CUDA; any dtype on the CPU).  One rank returns its input.  ``scale``
+    multiplies the finished sum (f32 on CUDA), as ``sum * scale`` would."""
+    return _collective(xs, "ar", True, "ring_all_reduce", scale)
 
 
-def ring_all_reduce_bidir(xs) -> List[torch.Tensor]:
+def ring_all_reduce_bidir(xs, scale: Optional[float] = None
+                          ) -> List[torch.Tensor]:
     """Sum the R per-rank tensors with the bidirectional ring (``psum``):
-    each chunk's two pieces travel opposite ways round the ring."""
-    return _collective(xs, "ar", False, "ring_all_reduce_bidir")
+    each chunk's two pieces travel opposite ways round the ring.
+    ``scale`` as for :func:`ring_all_reduce`."""
+    return _collective(xs, "ar", False, "ring_all_reduce_bidir", scale)
 
 
 def ring_reduce_scatter(xs) -> List[torch.Tensor]:
@@ -531,13 +755,14 @@ class _DPStep:
             new_ws.append(w_r)
             new_bs.append(b_r)
         inv = 1.0 / n
-        # one ring call per tensor, as the JAX step does
-        red_w = [self.all_reduce([w_r[i] for w_r in new_ws])
+        # one ring call per tensor, as the JAX step does; the 1/n is the
+        # collective's scale, applied to each finished sum
+        red_w = [self.all_reduce([w_r[i] for w_r in new_ws], scale=inv)
                  for i in range(len(ws))]
-        red_b = [self.all_reduce([b_r[i] for b_r in new_bs])
+        red_b = [self.all_reduce([b_r[i] for b_r in new_bs], scale=inv)
                  for i in range(len(bs))]
-        self.replicas = [([t[r] * inv for t in red_w],
-                          [t[r] * inv for t in red_b]) for r in range(n)]
+        self.replicas = [([t[r] for t in red_w], [t[r] for t in red_b])
+                         for r in range(n)]
         total = losses[0]
         for v in losses[1:]:
             total = total + v.to(total.device)
@@ -552,7 +777,8 @@ def dp_megakernel_train_step(group: RankGroup, acts, *, lr,
     batch (split in rank order along the leading axis), then every updated
     weight and bias is summed by the ring (one call per tensor; kernel 9
     with ``bidirectional=True``, the default, kernel 8 with ``False``) and
-    multiplied by ``1 / n``: the mean-gradient SGD step on the whole batch.
+    multiplied by ``1 / n`` inside that call: the mean-gradient SGD step on
+    the whole batch.
     The loss is the rank-order sum of the ranks' losses times ``1 / n``.
 
     Returns ``step(xb, yb, ws, bs) -> (loss, new_ws, new_bs)``.  ``ws`` and

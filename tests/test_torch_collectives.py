@@ -2,9 +2,12 @@
 as ``tests/test_collective_kernels.py`` runs them: in TPU interpret mode
 under ``shard_map`` on the 8-device CPU mesh of ``tests/conftest.py``.
 
-On the CPU the wrappers take their plain versions (step-by-step
-simulations of the TPU schedule on the JAX chunk layout); the CUDA kernels
-are held against the same plain versions on the card by ``chip_smoke.py``.
+On the CPU the wrappers take the one-shot's plain version
+(``oneshot_ref``: each element folded over the ranks in the ring's order,
+in closed form); the ring protocol's plain versions simulate the TPU
+schedule step by step on the JAX chunk layout.  Both are held against the
+JAX rings, and against each other at ragged sizes; the CUDA kernels are held
+against the same plain versions on the card by ``chip_smoke.py``.
 Every comparison is bit for bit, for int32 and for random-normal f32: each
 element is summed in the same ring order, so no tolerance is needed.  The
 global input is split over the ranks along its leading axis, as
@@ -39,6 +42,9 @@ RINGS = {
     "ag": (JC.ring_all_gather, C.ring_all_gather,
            lambda xs: C.bidir_ring_ref(xs, "ag")),
 }
+# ring -> oneshot_ref's (phase, one_way)
+ONESHOT = {"one-way": ("ar", True), "bidir-ar": ("ar", False),
+           "rs": ("rs", False), "ag": ("ag", False)}
 
 # (ring, ranks, global shape, dtype, seed): the shapes of
 # test_collective_kernels.py, its awkward shapes (:72-80, :125-131) shared
@@ -123,6 +129,8 @@ def test_plain_ring_matches_jax_ring_bit_for_bit(jax_results, ring, n, shape,
     assert all(g.dtype == xs[0].dtype for g in got)
     assert same_bits(torch.cat(got).numpy(), want)
     assert same_bits(torch.cat(ref(xs)).numpy(), want)
+    oneshot = C.oneshot_ref(xs, *ONESHOT[ring])
+    assert same_bits(torch.cat(oneshot).numpy(), want)
 
 
 def test_rs_then_ag_composes_to_all_reduce(jax_results):
@@ -214,6 +222,7 @@ def test_cpu_collectives_launch_no_kernel():
         fn(xs)
     counts = K.launch_counts()
     assert counts["ring_all_reduce"] == counts["bidir_ring"] == 0
+    assert counts["ring_all_reduce.ring"] == counts["bidir_ring.ring"] == 0
 
 
 def test_blocks_per_rank_fills_the_card_and_refuses_what_cannot_be_resident(
@@ -291,3 +300,164 @@ def test_a_new_scratch_is_ordered_after_its_fills(monkeypatch):
     sc2, epoch = C._get_scratch("bidir_ring", devs, 2048, 4)
     assert sc2 is not sc and made[-1] == (4096, 4) and epoch == 1
     assert ordered == [[0, 1], [0, 1]]
+
+
+# -- the one-shot route ---------------------------------------------------------
+
+
+def ring_input(shape, n, dtype, seed):
+    """One tensor per rank: f32 N(0, 1), or int32 of magnitude within 1,000
+    of the int32 limit and random sign, so that the sums wrap."""
+    r = np.random.default_rng(seed)
+    if dtype == "int32":
+        mag = r.integers(2 ** 31 - 1000, 2 ** 31, size=(n,) + shape)
+        a = (mag * r.choice([-1, 1], size=mag.shape)).astype(np.int32)
+    else:
+        a = r.normal(size=(n,) + shape).astype(np.float32)
+    return [torch.as_tensor(a[i]) for i in range(n)]
+
+
+def oneshot_shapes(ring, n):
+    """The layouts' edge cases: 0-d, one element, ragged tails either side
+    of a 1,024-element piece, the flagship's 300x784 weight, and sizes
+    below one piece per rank (n * 1024); rs blocks (the leading axis split
+    n ways) whose length is or is not a multiple of 4."""
+    if ring in ("one-way", "bidir-ar"):
+        return [(), (1,), (3,), (1023,), (1025,), (300, 784),
+                (n * 1024 - 3,), (n, 7, 11)]
+    if ring == "rs":
+        return [(n,), (3 * n,), (n, 1023), (n, 1025), (75 * n, 784),
+                (2 * n, 513), (n, 7, 11)]
+    return [(1,), (3,), (1023,), (1025,), (300, 784), (2, 5, 3)]
+
+
+def same_tensors(got, want):
+    return len(got) == len(want) and all(
+        g.shape == w.shape and same_bits(g.numpy(), w.numpy())
+        for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("ring", sorted(RINGS))
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8])
+def test_oneshot_ref_equals_the_ring_protocol_bit_for_bit(n, ring, dtype):
+    """The closed-form fold (each element's start rank and direction) gives
+    the step-by-step ring simulation's bits, each rank's result in memory
+    of its own."""
+    ref = RINGS[ring][2]
+    for k, shape in enumerate(oneshot_shapes(ring, n)):
+        xs = ring_input(shape, n, dtype, 100 * n + k)
+        got = C.oneshot_ref(xs, *ONESHOT[ring])
+        assert same_tensors(got, ref(xs)), shape
+        assert len({g.data_ptr() for g in got}) == n
+
+
+@pytest.mark.parametrize("ring", ["one-way", "bidir-ar", "rs"])
+@pytest.mark.parametrize("n", [2, 3, 4, 8])
+def test_scale_is_the_separate_multiply_bit_for_bit(ring, n):
+    """``scale`` multiplies each finished f32 sum: the bits of the dp step's
+    former ``sum * (1 / n)`` after the collective."""
+    inv = 1.0 / n
+    shapes = [(75 * n, 784), (n * 5, 7), (n,)]
+    for k, shape in enumerate(shapes):
+        xs = ring_input(shape, n, "float32", 31 * n + k)
+        want = [t * inv for t in RINGS[ring][2](xs)]
+        assert same_tensors(C.oneshot_ref(xs, *ONESHOT[ring], scale=inv),
+                            want)
+        if ring != "rs":
+            assert same_tensors(RINGS[ring][1](xs, scale=inv), want)
+
+
+class _Routes:
+    """Fake launch functions: record each route's (phase, one_way, scale)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def fake(self, route):
+        def launch(xs, phase, one_way, scale=None):
+            self.calls.append((route, phase, one_way, scale))
+            return list(xs)
+        return launch
+
+
+@pytest.mark.parametrize("cards,route", [
+    ([0, 0, 0, 0], "oneshot"), ([1, 1], "oneshot"),
+    ([0, 1, 0, 1], "ring"), ([0, 1, 2, 3], "ring")])
+def test_ranks_on_one_card_take_the_oneshot_and_on_several_the_ring(
+        monkeypatch, cards, route):
+    routes = _Routes()
+    monkeypatch.setattr(C, "_cards", lambda xs: set(cards))
+    monkeypatch.setattr(C, "_oneshot", routes.fake("oneshot"))
+    monkeypatch.setattr(C, "_ring_cuda", routes.fake("ring"))
+    xs = [torch.ones(2 * len(cards), 3) for _ in cards]
+    C.ring_all_reduce(xs)
+    C.ring_all_reduce(xs, scale=0.25)
+    C.ring_all_reduce_bidir(xs, scale=0.5)
+    C.ring_reduce_scatter(xs)
+    C.ring_all_gather(xs)
+    assert routes.calls == [(route, "ar", True, None),
+                            (route, "ar", True, 0.25),
+                            (route, "ar", False, 0.5),
+                            (route, "rs", False, None),
+                            (route, "ag", False, None)]
+
+
+@pytest.mark.parametrize("phase,shape,one_way,buf,vec", [
+    ("ar", (300, 784), False, (4, 300, 784), True),
+    ("ar", (300, 784), True, (4, 300, 784), True),
+    ("ar", (10,), False, (4, 10), False),
+    ("rs", (12, 3), False, (4, 3, 3), False),
+    ("rs", (8, 4), False, (4, 2, 4), True),
+    ("ag", (5, 3), False, (4, 20, 3), False),
+    ("ag", (5, 4), False, (4, 20, 4), True),
+])
+def test_oneshot_call_writes_the_callers_result_shape(phase, shape, one_way,
+                                                      buf, vec):
+    """The results go straight into one (R, *result) buffer: the input's
+    shape for ar, the leading axis / R for rs, x R for ag; 16-byte
+    positions where the size (and each rs block) is a multiple of 4."""
+    call = C._OneShotCall(phase, shape, 4, one_way, torch.float32, None, -1)
+    d = call.desc
+    assert (call.buf_shape, bool(d.vec)) == (buf, vec)
+    D, H = C._layout(phase, shape, 4, one_way)[:2]
+    size = int(np.prod(shape))
+    part = size // 4 if phase == "rs" else size
+    assert (d.size, d.H, d.D, d.part, d.n) == (size, H, D, part, 4)
+    assert (d.phase, d.dtype, d.has_scale) == (C.PHASES[phase], 0, 0)
+    assert torch.empty_like(call.like).shape == buf
+    assert torch.empty_like(call.like).is_contiguous()
+    scaled = C._OneShotCall(phase, shape, 4, one_way, torch.float32, 0.25,
+                            -1)
+    assert (scaled.desc.has_scale, scaled.desc.scale) == (1, 0.25)
+
+
+def test_oneshot_refuses_what_its_kernel_does_not_take():
+    """Checked before any launch: more ranks than one launch takes, a dtype
+    the kernel has no instance for, a scale on integer sums."""
+    with pytest.raises(ValueError, match="R=17 ranks .* at most 16"):
+        C._oneshot([torch.zeros(4)] * 17, "ar", False)
+    with pytest.raises(ValueError, match="float32 or int32"):
+        C._oneshot([torch.zeros(4, dtype=torch.float64)] * 2, "ar", True)
+    with pytest.raises(ValueError, match="scale applies to float32"):
+        C._oneshot([torch.zeros(4, dtype=torch.int32)] * 2, "ar", True,
+                   scale=0.5)
+    with pytest.raises(ValueError, match="one-way ring has no phase 'rs'"):
+        C.oneshot_ref([torch.zeros(4)] * 2, "rs", one_way=True)
+
+
+def test_oneshot_fast_path_takes_only_its_own_call_shape(monkeypatch):
+    """A cached call launches only for R contiguous tensors of its shape,
+    dtype and card, read in one pass; anything else goes back to the
+    checks and the routing (None)."""
+    call = C._OneShotCall("ar", (3, 4), 2, False, torch.float32, None, -1)
+    launched = []
+    monkeypatch.setattr(call, "launch", lambda ptrs: launched.append(ptrs)
+                        or "launched")
+    xs = [torch.zeros(3, 4), torch.ones(3, 4)]
+    assert call.fast(xs) == "launched"
+    assert launched == [[x.data_ptr() for x in xs]]
+    for other in (torch.zeros(4, 3), torch.zeros(3, 4, dtype=torch.int32),
+                  torch.zeros(4, 3).T):
+        assert call.fast([xs[0], other]) is None
+    assert len(launched) == 1

@@ -20,6 +20,7 @@ from tensor_ops_tpu.parallel import collective_kernels as JC
 from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.parallel import (RankGroup, dp_megakernel_train_step,
                                            ring_all_reduce)
+from tensor_ops_tpu_torch.parallel import collective_kernels as C
 
 N_DEV = 8
 DIMS, ACTS, LR = (16, 32, 10), ("logistic", "identity"), 0.05
@@ -132,6 +133,29 @@ def test_flagship_dp_step_equals_single_step_in_f64(bidirectional):
         assert got.dtype == torch.float64
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("bidirectional", [True, False],
+                         ids=["bidir", "one-way"])
+def test_replicas_are_the_ring_sum_times_inverse_n_bit_for_bit(bidirectional,
+                                                               dtype):
+    """The 1/n the collective applies to each finished sum gives the bits of
+    the ring protocol's sum followed by a separate ``* (1 / n)``: every
+    rank's replica, unchanged bit for bit."""
+    step, _, (x, y, w0, b0) = port_dp(4, jax_test_case(), bidirectional,
+                                      dtype)
+    ring = (C.bidir_ring_ref if bidirectional else
+            lambda xs, _: C.ring_all_reduce_ref(xs))
+    parts = [K.fused_mlp_train_step(x[8 * r:8 * (r + 1)], y[8 * r:8 * (r + 1)],
+                                    w0, b0, LR, ACTS) for r in range(4)]
+    want = [[t * 0.25 for t in ring([p[k][i] for p in parts], "ar")]
+            for k in (1, 2) for i in range(2)]
+    for r, (r_ws, r_bs) in enumerate(step.replicas):
+        got = r_ws + r_bs
+        assert all(g.dtype == dtype and torch.equal(g, wnt[r])
+                   for g, wnt in zip(got, want))
 
 
 def test_loss_is_the_rank_order_mean():

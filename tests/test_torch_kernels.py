@@ -91,6 +91,45 @@ def test_fused_linear_bf16_operands_stay_bf16():
     close(got.float(), np.asarray(want.astype(jnp.float32)), 1e-2)
 
 
+def within_bf16_ulps(got, want, ulps):
+    """|got - want| <= ulps bf16 ulps of |want| (at least of the smallest
+    normal), elementwise."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    scale = np.exp2(np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126))))
+    return bool((np.abs(got - want) <= ulps * scale * 2.0 ** -7).all())
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_fused_linear_bf16_values_and_grads_match_jax(act):
+    """bf16 x and w with an f32 bias against the JAX kernel (interpret
+    mode) and its custom VJP (``tests/test_pallas.py:406-418``): y bf16
+    within one bf16 ulp; dx and dw bf16, db f32, each within two bf16 ulps
+    (their f32 sums are rounded to bf16 after summing in another order)."""
+    x, w, b = r(60, 8, 16), r(61, 4, 16) * 0.2, r(62, 4) * 0.1
+    jx, jw = j(x).astype(jnp.bfloat16), j(w).astype(jnp.bfloat16)
+
+    def jloss(x, w, b):
+        return jnp.sum(PK.fused_linear(x, w, b, act, "highest")
+                       .astype(jnp.float32) ** 2)
+
+    want_y = PK.fused_linear(jx, jw, j(b), act, "highest")
+    want_g = jax.grad(jloss, argnums=(0, 1, 2))(jx, jw, j(b))
+    tx = t(x).to(torch.bfloat16).requires_grad_()
+    tw = t(w).to(torch.bfloat16).requires_grad_()
+    tbias = t(b, True)
+    y = K.fused_linear(tx, tw, tbias, act, "highest")
+    assert y.dtype == torch.bfloat16
+    assert within_bf16_ulps(y.detach().float().numpy(),
+                            np.asarray(want_y.astype(jnp.float32)), 1)
+    (y.float() ** 2).sum().backward()
+    assert (tx.grad.dtype, tw.grad.dtype, tbias.grad.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.float32)
+    for got, wnt in zip((tx.grad, tw.grad, tbias.grad), want_g):
+        assert within_bf16_ulps(got.float().numpy(),
+                                np.asarray(wnt.astype(jnp.float32)), 2)
+
+
 @pytest.mark.parametrize("act", ACTS)
 def test_fused_linear_grads_match_jax(act):
     """Autograd through the port's ``torch.autograd.Function`` against
@@ -174,7 +213,8 @@ def test_cpu_path_launches_no_kernel():
                                  "fused_linear_w8": 0, "fused_linear_w8a8": 0,
                                  "fused_mlp_w8a8_forward": 0,
                                  "fused_rnn_step": 0, "ring_all_reduce": 0,
-                                 "bidir_ring": 0}
+                                 "bidir_ring": 0, "ring_all_reduce.ring": 0,
+                                 "bidir_ring.ring": 0}
 
 
 def test_names_are_validated():

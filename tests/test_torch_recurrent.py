@@ -204,6 +204,43 @@ def test_train_batch_is_mean_of_singles(nb, jb, tb, kind):
         close(a, b)
 
 
+@pytest.mark.parametrize("kind", ["fc", "gen-net", "two-states"])
+def test_seq_batch_loss_matches_jax(nb, jb, tb, kind):
+    """``seq_batch_loss`` (the value ``fit_sequences`` validates with): the
+    JAX package's vmapped mean over N sequences, in f64."""
+    from tensor_ops_tpu.models.training import seq_batch_loss as j_sbl
+    from tensor_ops_tpu_torch.models.training import seq_batch_loss
+
+    jnet, tnet = pair(kind, nb, tb, seed=41)
+    i, o = jnet.in_shape[0], jnet.out_shape[0]
+    XS, TS = r(80, 5, 6, i), r(81, 5, 6, o)
+    want = j_sbl(on_jax(jnet, jb), JM.squared_error(o), jb, XS, TS)
+    got = seq_batch_loss(tnet, TM.squared_error(o), tb, XS, TS)
+    assert isinstance(got, float)
+    close(got, want)
+
+
+def test_seq_batch_loss_is_the_mean_of_seq_losses(tb):
+    """The port of ``tests/test_production_knobs.py:319-330``: the batched
+    loss equals the mean of per-sequence ``seq_loss`` on phase-shifted sine
+    waves, for two sequence lengths from one cache."""
+    from tensor_ops_tpu_torch.models.training import seq_batch_loss
+
+    t = np.linspace(0, 1, 10)
+    waves = np.sin(2 * np.pi * t[None, :]
+                   + np.random.default_rng(14).uniform(0, np.pi, size=(16, 1)))
+    net = TR.gen_net(tb, 1, 1, [(6, TM.act_logistic(), TM.act_logistic())],
+                     TM.act_logistic(), None, TRng(tb, seed=15))
+    loss = TM.squared_error(1)
+    for n in (9, 4):
+        XS, TS = waves[:, :n, None], waves[:, 1:n + 1, None]
+        got = seq_batch_loss(net, loss, tb, XS, TS)
+        want = np.mean([float(net.seq_loss(loss, tb, tb.asarray(xs),
+                                           tb.asarray(ts)))
+                        for xs, ts in zip(XS, TS)])
+        close(got, want, 1e-12)
+
+
 # -- structure ------------------------------------------------------------------
 
 

@@ -248,4 +248,5 @@ def test_cpu_train_step_launches_no_kernel():
                                  "fused_linear_w8": 0, "fused_linear_w8a8": 0,
                                  "fused_mlp_w8a8_forward": 0,
                                  "fused_rnn_step": 0, "ring_all_reduce": 0,
-                                 "bidir_ring": 0}
+                                 "bidir_ring": 0, "ring_all_reduce.ring": 0,
+                                 "bidir_ring.ring": 0}
