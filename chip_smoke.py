@@ -14,11 +14,15 @@ without printing a result line:
    csrc/`` with ``nvcc`` (``sm_90a``), one compiler per source, all at
    once, and prints ptxas' resource report.
 3. Kernels: each kernel against its plain PyTorch version on the same
-   inputs, TF32 off, ``torch.cuda.synchronize()`` after every launch; the
-   train step also twice on one input, bit for bit; ``fused_linear`` also
-   with bf16 operands (y to one bf16 ulp of the plain y, z to 1e-4 +
-   1e-5|z|, each launch counted, the backward's dtypes those of the JAX
-   VJP).
+   inputs, TF32 off, ``torch.cuda.synchronize()`` after every launch.
+   ``fused_linear``: every instance of ``linear_plan`` (gemv, tile with K
+   split over blocks, large) at the flagship's layers for B = 1 to 512,
+   K = 13 and 783 (scalar loads) and 4096^3, every activation with and
+   without z, each shape rerun bit for bit, and with bf16 operands (y to
+   one bf16 ulp of the plain y, z to 1e-4 + 1e-5|z|, each launch counted,
+   the backward's dtypes those of the JAX VJP).  The train step at B = 1
+   to 1000 and both loss kinds, as one cooperative launch and as one
+   launch per stage (bit-equal), and twice on one input, bit for bit.
 4. Serving slice: the flagship MNIST MLP 784-300-100-10 (random weights,
    seed 0) is saved with ``save_network`` and served through the serve app
    (``tensor_ops_tpu_torch.apps.serve.main``) and through a per-layer
@@ -87,12 +91,16 @@ without printing a result line:
    int8 request's and one recurrent request's time goes on each route
    (wall, kernels, device busy), the device memory each served model holds
    (f32 vs int8), the app's training samples/s per route, a FusedRNN
-   sequence's wall time and launches, kernel 1's device time at its
-   identity layer and at 4096^3, each collective phase at the flagship's
+   sequence's wall time and launches, kernel 1's device time and event
+   median against ``torch.addmm``'s in turns over 3 repetitions beside its
+   bound at the identity layer, 784->300 at B = 8, the three flagship
+   layers at B = 100 and 4096^3, kernel 3 at B = 100, 400 and 1000 as one
+   cooperative launch and as one launch per stage with its grid and
+   barrier count, each collective phase at the flagship's
    300x784 weight on 4 ranks (the one-shot in turns with one PyTorch call
    over 3 repetitions, its plain version, its device time against the
    bound; the ring protocol beside it), and a dp step's wall time, profile
-   (18 kernels, 6 one-shot launches) and samples/s on each route beside a
+   (14 kernels, 6 one-shot launches) and samples/s on each route beside a
    single-rank ``train_fullfused`` step on the same 400 rows.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
@@ -246,14 +254,22 @@ RNN_TRAIN_N, RNN_TRAIN_RATE = 8, 1e-6
 DP_RANKS, DP_ROWS, DP_STEPS = 4, 100, 5
 RING_RANKS = (2, 3, 4, 8)
 PROTOCOL_RANKS = (2, 4, 8)
-# kernels per dp step: 4 x 2 train-step launches, 6 collectives, and the
+# kernels per dp step: 4 train-step launches, 6 collectives, and the
 # loss's 3 adds and 1/n
-DP_KERNELS_PER_STEP = 4 * 2 + 6 + 4
+DP_KERNELS_PER_STEP = 4 + 6 + 4
 # bf16 fused_linear against its plain version: the f32 pre-activation is
 # held to TOL_Z; y = act(z) rounded to bf16 to one bf16 ulp of the plain
 # y beyond what z's tolerance carries through act (slope <= 1), since the
 # two z's, a few f32 ulps apart, may round to neighbouring bf16 values.
 BF16_ULP = 2.0 ** -7
+# kernel 1 against its plain version: the flagship's layers at the serving
+# buckets, the gemv's edge (16) and the tile's first batch (17), the
+# training minibatch (100), and ragged shapes: K = 13 and K = 783 take the
+# scalar loads of the gemv and of the tile
+LINEAR_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
+                      for B in (1, 8, 16, 17, 63, 100, 512)
+                      for i in range(3)) + ((7, 13, 5), (33, 40, 10),
+                                            (100, 783, 300))
 FLAGSHIP_PARAM_SHAPES = tuple(
     s for k in range(3) for s in ((FLAGSHIP[k + 1], FLAGSHIP[k]),
                                   (FLAGSHIP[k + 1],)))
@@ -330,15 +346,13 @@ def phase_kernels() -> dict:
     from tensor_ops_tpu_torch.ops import kernels as K
 
     worst = {name: 0.0 for name in KERNELS}
-    shapes = [(B, FLAGSHIP[i], FLAGSHIP[i + 1])
-              for B in (1, 8, 63, 512) for i in range(3)]
-    shapes += [(7, 13, 5), (33, 40, 10)]
-    for n, (B, Kd, O) in enumerate(shapes):
+    held = {}  # instance -> shapes held
+    for n, (B, Kd, O) in enumerate(LINEAR_SHAPES):
         x = _rand(10 + n, B, Kd, uniform=True)
         w = _rand(20 + n, O, Kd, scale=0.5)
         b = _rand(30 + n, O, scale=0.5)
         errs = []
-        for act in ("identity", "logistic", "relu", "tanh"):
+        for act in ACTS:
             for save_z in (False, True):
                 y, z = K._fused_linear_cuda(x, w, b, act, save_z)
                 torch.cuda.synchronize()
@@ -348,8 +362,34 @@ def phase_kernels() -> dict:
                     e = max(e, max_err(z, z_ref, TOL_Z))
                 errs.append(f"{act}{'+z' if save_z else ''} {e:.1e}")
                 worst["fused_linear"] = max(worst["fused_linear"], e)
-        log(f"[kernel] fused_linear B={B} {Kd}->{O} max|err| "
-            f"{', '.join(errs)}; tol {TOL_Z[0]:g}+{TOL_Z[1]:g}|ref|")
+        # the instance repeats bit for bit (a split's partials are added in
+        # split order whichever block adds them)
+        y2, z2 = K._fused_linear_cuda(x, w, b, "tanh", True)
+        torch.cuda.synchronize()
+        check(torch.equal(y2, y) and torch.equal(z2, z),
+              f"fused_linear B={B} {Kd}->{O}: a rerun differs")
+        p = K.linear_plan(B, Kd, O)
+        held.setdefault(p.instance, []).append(f"{B}x{Kd}->{O}")
+        log(f"[kernel] fused_linear B={B} {Kd}->{O} instance {p.instance} "
+            f"({'16-byte' if p.vec else 'scalar'} loads, grid {p.grid}, "
+            f"split {p.split}) max|err| {', '.join(errs)}; tol "
+            f"{TOL_Z[0]:g}+{TOL_Z[1]:g}|ref|; rerun bit-equal")
+    big = big_linear_inputs()
+    y = K._fused_linear_cuda(*big, "identity", False)[0]
+    y2 = K._fused_linear_cuda(*big, "identity", False)[0]
+    torch.cuda.synchronize()
+    e = max_err(y, K.fused_linear_ref(*big), TOL_Z)
+    check(torch.equal(y, y2), "fused_linear 4096^3: a rerun differs")
+    worst["fused_linear"] = max(worst["fused_linear"], e)
+    held.setdefault(K.linear_plan(4096, 4096, 4096).instance, []).append(
+        "4096^3")
+    log(f"[kernel] fused_linear 4096^3 identity instance "
+        f"{K.linear_plan(4096, 4096, 4096).instance} max|err| {e:.1e} vs "
+        f"the plain version; rerun bit-equal")
+    check(set(held) == set(K.LINEAR_INSTANCES),
+          f"fused_linear instances held: {sorted(held)}")
+    log("[kernel] fused_linear instances held: " + "; ".join(
+        f"{i}: {', '.join(v)}" for i, v in sorted(held.items())))
     worst["fused_linear"] = max(worst["fused_linear"], phase_linear_bf16())
 
     nets = [(FLAGSHIP, ("logistic", "logistic", "identity"), B, sm)
@@ -377,25 +417,33 @@ def phase_kernels() -> dict:
     steps = [((12, 8, 6, 4), ("logistic", "logistic", "identity"), 16,
               "softmax_xent")]
     steps += [(FLAGSHIP, ("logistic", "logistic", "identity"), B,
-               "softmax_xent") for B in (1, 37, 100, 1000)]
+               "softmax_xent") for B in (1, 37, 100, 400, 1000)]
     steps += [((8, 3, 8), ("logistic", "logistic"), 37, "squared_error"),
               ((784, 300, 784), ("tanh", "logistic"), 37, "squared_error")]
     for n, (dims, acts, B, kind) in enumerate(steps):
         args = train_step_inputs(90 + n, dims, B, kind) + (0.1, acts)
-        loss, ws, bs = K._fused_mlp_train_step_cuda(*args, kind)
-        torch.cuda.synchronize()
         loss_r, ws_r, bs_r = K.fused_mlp_train_step_ref(*args,
                                                         loss_kind=kind)
-        e_loss = max_err(loss, loss_r, TOL_LOSS)
-        e_par = max(max_err(a, b, TOL_PARAM)
-                    for a, b in zip(ws + bs, ws_r + bs_r))
-        worst["fused_mlp_train_step"] = max(worst["fused_mlp_train_step"],
-                                            e_loss, e_par)
+        # both designs of the step: one cooperative launch (the wrapper's)
+        # and one launch per stage; the same sums, so the same bits
+        outs = []
+        for mode in (0, 1):
+            loss, ws, bs = K._fused_mlp_train_step_cuda(*args, kind,
+                                                        mode=mode)
+            torch.cuda.synchronize()
+            e_loss = max_err(loss, loss_r, TOL_LOSS)
+            e_par = max(max_err(a, b, TOL_PARAM)
+                        for a, b in zip(ws + bs, ws_r + bs_r))
+            worst["fused_mlp_train_step"] = max(
+                worst["fused_mlp_train_step"], e_loss, e_par)
+            outs.append([loss, *ws, *bs])
+        check(all(torch.equal(u, v) for u, v in zip(*outs)),
+              f"fused_mlp_train_step {kind} B={B}: the two designs differ")
         log(f"[kernel] fused_mlp_train_step {kind} B={B} "
-            f"{'-'.join(map(str, dims))} rows/block="
-            f"{K.train_tile_rows(B, dims)} loss {float(loss):.6f} max|err| "
+            f"{'-'.join(map(str, dims))} loss {float(loss):.6f} max|err| "
             f"loss {e_loss:.2e} (tol {TOL_LOSS[0]:g}+{TOL_LOSS[1]:g}|ref|), "
-            f"params {e_par:.2e} (tol {TOL_PARAM[0]:g}+{TOL_PARAM[1]:g}|ref|)")
+            f"params {e_par:.2e} (tol {TOL_PARAM[0]:g}+{TOL_PARAM[1]:g}|ref|);"
+            f" per-stage launches bit-equal")
     # the flagship at B = 1000 once more: the step repeats bit for bit
     args = train_step_inputs(93, FLAGSHIP, 1000, "softmax_xent") + (
         0.1, ("logistic", "logistic", "identity"))
@@ -407,6 +455,15 @@ def phase_kernels() -> dict:
     check(same, "fused_mlp_train_step: two runs on one input differ")
     log("[kernel] fused_mlp_train_step flagship B=1000 twice: bit-equal")
     return worst
+
+
+def big_linear_inputs():
+    """x (4096, 4096) uniform, w (4096, 4096) N(0, 1/64²), b N(0, 1), made
+    on the card from one seed: kernel 1's large instance."""
+    g = torch.Generator(DEVICE).manual_seed(91)
+    return (torch.rand(4096, 4096, device=DEVICE, generator=g),
+            torch.randn(4096, 4096, device=DEVICE, generator=g) / 64,
+            torch.randn(4096, device=DEVICE, generator=g))
 
 
 def bf16_y_ulps(y, y_ref, z_ref):
@@ -437,7 +494,8 @@ def phase_linear_bf16() -> float:
     worst, ulps, calls, beyond, beyond_y, elems = 0.0, 0.0, 0, 0, 0.0, 0
     before = K.launch_counts()["fused_linear"]
     shapes = [(B, FLAGSHIP[i], FLAGSHIP[i + 1])
-              for B in (1, 8, 512) for i in range(3)] + [(33, 40, 10)]
+              for B in (1, 8, 17, 100, 512) for i in range(3)] + [
+                  (33, 40, 10)]
     for n, (B, Kd, O) in enumerate(shapes):
         x = _rand(150 + n, B, Kd, uniform=True).to(torch.bfloat16)
         w = _rand(160 + n, O, Kd, scale=0.5)
@@ -471,8 +529,9 @@ def phase_linear_bf16() -> float:
         torch.bfloat16, torch.bfloat16, torch.float32),
         f"bf16 grads {x.grad.dtype} {w.grad.dtype} {b.grad.dtype}")
     log(f"[kernel] fused_linear bf16 operands: {calls} launches counted "
-        f"(B=1, 8, 512 at the flagship's layers and 33x40->10, every act, "
-        f"with and without z); y max {ulps:.2f} bf16 ulps of the plain y "
+        f"(B=1, 8, 17, 100, 512 at the flagship's layers and 33x40->10: "
+        f"the gemv and the tile with its split, every act, with and without "
+        f"z); y max {ulps:.2f} bf16 ulps of the plain y "
         f"(tol 1 ulp + {TOL_Z[0]:g}+{TOL_Z[1]:g}|z|), beyond one ulp in "
         f"{beyond} of {elems} values, all with |y| <= {beyond_y:.2e}; z "
         f"max|err| "
@@ -1013,39 +1072,22 @@ def phase_timing(model) -> dict:
             log(f"[timing] fused_linear B={B} three flagship layers: "
                 f"kernel {tk:.4f} ms, plain {tp:.4f} ms")
             if B == 8:
-                last = (hs[2], ws[2], bs[2])
+                small = hs[:3]
         # the flagship's last layer runs as an identity layer under
         # softmax_out, where one torch.addmm computes what kernel 1 does:
-        # that call is kernel 1's library time, here and at 4096^3
-        g = torch.Generator(DEVICE).manual_seed(91)
-        big = (torch.rand(4096, 4096, device=DEVICE, generator=g),
-               torch.randn(4096, 4096, device=DEVICE, generator=g) / 64,
-               torch.randn(4096, device=DEVICE, generator=g))
-        for what, (h, w, b) in (("flagship 100->10, B=8", last),
-                                ("4096^3", big)):
-            y = K._fused_linear_cuda(h, w, b, "identity", False)[0]
-            e = max_err(y, torch.addmm(b, h, w.T), TOL_Z)
-            k_ms = _median_ms(lambda: K._fused_linear_cuda(
-                h, w, b, "identity", False))
-            p_ms = _median_ms(lambda: K.fused_linear_ref(h, w, b))
-            l_ms = _median_ms(lambda: torch.addmm(b, h, w.T))
-            prof = _profile_steps(lambda: K._fused_linear_cuda(
-                h, w, b, "identity", False))
-            dev_us = _per_launch_us(prof, "fused_linear_kernel")
-            check(dev_us > 0, f"the profiler saw {sorted(prof['by_kernel'])}"
-                  f" for fused_linear")
-            lib = _profile_steps(lambda: torch.addmm(b, h, w.T))
-            (B, k), o = h.shape, w.shape[0]
-            least = _bound(4 * (B * k + o * k + o + B * o), 2 * B * k * o,
-                           "f32")
-            log(f"[timing] fused_linear identity layer {what}: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, torch.addmm "
-                f"{l_ms:.4f} ms (kernel vs addmm max|err| {e:.1e}); device "
-                f"(profiler) kernel {dev_us:.2f} us, torch.addmm "
-                f"{lib['busy_us']:.2f} us in {lib['launches']:.0f} kernels; "
-                f"bound {least[0]:.6f} ms by {least[1]}")
-            if what.startswith("flagship"):
-                times["fused_linear"] = (k_ms, p_ms, l_ms, dev_us)
+        # that call is kernel 1's library time (the kernels line's entry)
+        h100 = [_rand(75, 100, FLAGSHIP[0], uniform=True)]
+        for w, b, a in zip(ws, bs, acts):
+            h100.append(K.fused_linear_ref(h100[-1], w, b, a))
+        cases = (("identity layer 100->10, B=8", [(small[2], ws[2], bs[2])]),
+                 ("784->300, B=8", [(small[0], ws[0], bs[0])]),
+                 ("the three flagship layers, B=100",
+                  list(zip(h100[:3], ws, bs))),
+                 ("4096^3", [big_linear_inputs()]))
+        for what, layers in cases:
+            times_l = linear_timing(what, layers)
+            if what.startswith("identity"):
+                times["fused_linear"] = times_l
         for B in (1, 8, 63):
             x = _rand(80 + B, B, FLAGSHIP[0], uniform=True)
             k_ms = _median_ms(lambda: K._fused_mlp_forward_cuda(
@@ -1057,26 +1099,100 @@ def phase_timing(model) -> dict:
             if B == 8:
                 times["fused_mlp_forward"] = (k_ms, p_ms)
 
+    times["fused_mlp_train_step"] = train_step_timing()
+    return times
+
+
+def linear_timing(what: str, layers) -> tuple:
+    """Kernel 1 (identity epilogue) on ``layers`` (x, w, b) one after
+    another against one ``torch.addmm`` per layer: CUDA-event medians and
+    profiler device time of both, in turns over 3 repetitions, beside the
+    bound.  Returns (kernel ms, plain ms, addmm ms, kernel device us) as
+    the kernels line takes them."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    def kernel():
+        for h, w, b in layers:
+            K._fused_linear_cuda(h, w, b, "identity", False)
+
+    def library():
+        for h, w, b in layers:
+            torch.addmm(b, h, w.T)
+
+    plans = [K.linear_plan(h.shape[0], h.shape[1], w.shape[0])
+             for h, w, _ in layers]
+    names = {"linear_gemv_kernel" if p.instance == "gemv"
+             else "linear_tile_kernel" for p in plans}
+    e = max(max_err(K._fused_linear_cuda(h, w, b, "identity", False)[0],
+                    torch.addmm(b, h, w.T), TOL_Z) for h, w, b in layers)
+    reps = []
+    for _ in range(3):
+        prof = _profile_steps(kernel)
+        check(set(prof["by_kernel"]) == names, f"fused_linear {what}: the "
+              f"profiler saw {sorted(prof['by_kernel'])}, want {names}")
+        lib = _profile_steps(library)
+        reps.append((_median_ms(kernel), _median_ms(library),
+                     prof["busy_us"], lib["busy_us"]))
+    k_ms, l_ms, k_us, l_us = (statistics.median(r[i] for r in reps)
+                              for i in range(4))
+    p_ms = _median_ms(lambda: [K.fused_linear_ref(h, w, b)
+                               for h, w, b in layers])
+    parts = [_bound(4 * (h.shape[0] * h.shape[1] + w.numel() + w.shape[0]
+                         + h.shape[0] * w.shape[0]),
+                    2 * h.shape[0] * h.shape[1] * w.shape[0], "f32")
+             for h, w, _ in layers]
+    least = (sum(p[0] for p in parts), max(parts)[1])
+    log(f"[timing] fused_linear {what}: instances "
+        f"{', '.join(f'{p.instance} grid {p.grid}' for p in plans)}; device "
+        f"(profiler), in turns over 3 repetitions, kernel "
+        f"{', '.join(f'{r[2]:.2f}' for r in reps)} us vs torch.addmm "
+        f"{', '.join(f'{r[3]:.2f}' for r in reps)} us (medians {k_us:.2f} vs "
+        f"{l_us:.2f} us: {k_us / l_us:.2f}x); events kernel "
+        f"{', '.join(f'{r[0]:.4f}' for r in reps)} ms vs torch.addmm "
+        f"{', '.join(f'{r[1]:.4f}' for r in reps)} ms (medians {k_ms:.4f} vs "
+        f"{l_ms:.4f} ms); plain {p_ms:.4f} ms; bound {least[0] * 1e3:.4f} us "
+        f"by {least[1]}; kernel vs addmm max|err| {e:.1e}")
+    return k_ms, p_ms, l_ms, k_us
+
+
+def train_step_timing() -> tuple:
+    """Kernel 3 on the flagship at B = 100, 400, 1000: the cooperative
+    launch (the wrapper's design) and one launch per stage, each by CUDA
+    events and by profiler device time, in one run, with the grid and the
+    barrier count.  Returns (kernel ms, plain ms) at B = 100."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
     acts = ("logistic", "logistic", "identity")
-    for B in (100, 1000):
+    grid = K.train_grid(K._train_step_capacity(0), K._sm_count(0), 100,
+                        FLAGSHIP)
+    stages = K.train_stages(len(FLAGSHIP) - 1)
+    log(f"[timing] fused_mlp_train_step: grid {grid} blocks of "
+        f"{K.TRAIN_THREADS} threads (one per SM; the card holds "
+        f"{K._train_step_capacity(0)}), {len(stages)} stages "
+        f"{'/'.join(stages)}, {len(stages) - 1} grid barriers")
+    out = None
+    for B in (100, 400, 1000):
         x, y, tw, tb = train_step_inputs(110 + B, FLAGSHIP, B, "softmax_xent")
-        k_ms = _median_ms(lambda: K._fused_mlp_train_step_cuda(
-            x, y, tw, tb, 0.1, acts, "softmax_xent"))
+        row = {}
+        for mode, design in ((0, "cooperative"), (1, "per-stage launches")):
+            def step(mode=mode):
+                return K._fused_mlp_train_step_cuda(x, y, tw, tb, 0.1, acts,
+                                                    "softmax_xent", mode=mode)
+            prof = _profile_steps(step)
+            # names only: the profiler may drop an event (its count is no
+            # launch count)
+            check(list(prof["by_kernel"]) == ["mlp_train_step_kernel"],
+                  f"fused_mlp_train_step {design}: the profiler saw "
+                  f"{sorted(prof['by_kernel'])}")
+            row[design] = (_median_ms(step), prof["busy_us"])
         p_ms = _median_ms(lambda: K.fused_mlp_train_step_ref(
             x, y, tw, tb, 0.1, acts))
-        log(f"[timing] fused_mlp_train_step B={B} flagship: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+        log(f"[timing] fused_mlp_train_step B={B} flagship: " + "; ".join(
+            f"{d} events {ms:.4f} ms, device {us:.2f} us"
+            for d, (ms, us) in row.items()) + f"; plain {p_ms:.4f} ms")
         if B == 100:
-            times["fused_mlp_train_step"] = (k_ms, p_ms)
-        prof = _profile_steps(lambda: K._fused_mlp_train_step_cuda(
-            x, y, tw, tb, 0.1, acts, "softmax_xent"))
-        check(sorted(prof["by_kernel"]) == ["mlp_train_partial_kernel",
-                                            "sgd_reduce_kernel"],
-              f"profiler saw the step's kernels as {sorted(prof['by_kernel'])}")
-        log(f"[timing] fused_mlp_train_step B={B} device time per step "
-            f"(profiler, 10 steps): " + ", ".join(
-                f"{n} {us:.1f} us" for n, us in prof["by_kernel"].items()))
-    return times
+            out = (row["cooperative"][0], p_ms)
+    return out
 
 
 def _per_launch_us(prof: dict, kernel: str) -> float:

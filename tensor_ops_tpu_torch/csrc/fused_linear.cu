@@ -6,156 +6,338 @@
 //
 // Shapes: x (B, K) row-major, w (O, K) in the ffLayer layout, b (O,) f32, z
 // (B, O) f32; x, w and y are all f32 (fused_linear_f32) or all bf16
-// (fused_linear_bf16).  w is read in its (O, K) layout: both operands are
-// contracted on their second axis, and no transposed copy is made.
+// (fused_linear_bf16).  Both operands are contracted on their contiguous
+// second axis; no transposed or padded copy is made.  bf16 operands are
+// widened to f32 on load (a bf16 x bf16 product is exact in f32), z is f32,
+// and y = act(z) is rounded once with __float2bfloat16_rn.
 //
-// bf16 operands stay bf16 in memory, as `_fused_linear_fwd_impl` keeps them
-// (half the bytes); each is widened with __bfloat162float on its way into
-// shared memory, the products and their sum are f32 (a bf16 x bf16 product
-// is exact in f32), z is f32, and y = act(z) is rounded once to bf16 with
-// __float2bfloat16_rn, as the plain version's `.to(torch.bfloat16)` does.
-//
-// What bounds it on the H100: at the serving path's shapes (B <= 512,
-// K, O <= 784) the work is tiny (2·B·K·O <= 0.24 GFLOP) and the weight is
-// read once per row tile, so at small B the kernel is bound by launch and
-// memory latency, not by arithmetic.  The design is the simplest one that is
-// right: a 2-D grid of 64 x 64 output tiles, a K loop over 16-deep tiles of
-// x and w staged in shared memory, a 4 x 4 register tile of f32 accumulators
-// per thread, and a bias + activation epilogue.  Edges are masked (loads
-// give 0 outside the matrix, stores are skipped), so no operand is padded to
-// the TPU's 128 lanes.
+// What bounds it on the H100 depends on the shape, so the wrapper's plan
+// (`linear_plan` in ops/kernels.py) picks one of three instances:
+//  0 gemv (B <= 16: serving buckets, the identity layer).  Bound by latency:
+//    the work (2·B·K·O <= 7.5 MFLOP at 784->300) is far below what one SM
+//    does in a microsecond, and the weight (<= 1 MB) is read once.  One
+//    warp per output column, 4 warps a block, so O outputs make O / 4
+//    blocks (75 at 784->300) instead of one 64-row tile that was 7/8
+//    masked rows.  The block stages its <= 16 rows of x in shared memory
+//    in chunks of 512 k; each lane issues all of its chunk's 16-byte
+//    weight loads before the chunk's x is staged, so the weight latency
+//    and the x latency overlap; an xor butterfly adds the lanes' partials
+//    in a fixed order, transposing so that lane r ends with row r.
+//  1 tile (the training and bucket-64/512 shapes, e.g. B = 100 at
+//    784 -> 300).  Bound by latency and by filling the card: 32 x 64
+//    output tiles, 128 threads with 4 x 4 accumulators, 16-deep stages
+//    double-buffered (csrc/simt_tile.cuh).  Where the tiles alone leave
+//    SMs idle, the plan splits K over gridDim.z blocks; each writes its
+//    partial tile to a scratch slot, and the last block of a tile to
+//    arrive (an integer counter per tile) adds the partials in split order
+//    and runs the epilogue.  The order of the sum is fixed; only which
+//    block adds it varies.
+//  2 large (4096^3 and up: enough 128 x 128 tiles for every SM).  Bound by
+//    f32 FMA (2.05 ms at 67 TFLOP/s for 4096^3): 128 x 128 tiles, 256
+//    threads with 8 x 8 accumulators in two quadrants (16-byte, broadcast
+//    shared-memory reads: 4 per 64 FMAs), 8-deep stages double-buffered,
+//    16-byte global loads transposed into k-major shared memory from
+//    registers (cp.async cannot transpose).
+// Each instance has a scalar-load variant for K % 4 != 0 or an unaligned
+// pointer (vec = 0).  Ragged edges are masked and nothing is padded.  No
+// float atomics: each output is summed by one thread (or added from the
+// split partials in split order by one thread), so a rerun is bit-equal.
 //
 // Precision: both precision names ("default" and "highest") compute in IEEE
-// fp32 FMA on the CUDA cores.  On the TPU "default" meant bf16 multiplies on
-// the MXU; tensor cores (wgmma, TF32/bf16) are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// fp32 FMA on the CUDA cores, with no contraction into TF32; tensor cores
+// at "default" are a numerics decision of their own (ROADMAP.md).
+#include "simt_tile.cuh"
 
 namespace {
 
-constexpr int kTileB = 64;   // rows of x per block
-constexpr int kTileO = 64;   // rows of w (output columns) per block
-constexpr int kTileK = 16;   // contraction depth per shared-memory stage
-constexpr int kThreads = 256;
-constexpr int kPad = 4;      // breaks shared-memory bank conflicts on stores
+using simt::Stage;
+using simt::Tile;
 
-enum Act { kIdentity = 0, kLogistic = 1, kRelu = 2, kTanh = 3 };
+constexpr int kGemvWarps = 4;      // output columns per gemv block
+constexpr int kGemvChunk = 512;    // k per staged chunk of x
+constexpr int kGemvVecs = kGemvChunk / 4 / 32;  // 16-byte weight loads a lane keeps in flight
+constexpr unsigned kFull = 0xffffffffu;
 
-template <int ACT>
-__device__ __forceinline__ float apply_act(float z) {
-  if (ACT == kLogistic) return 1.0f / (1.0f + expf(-z));
-  if (ACT == kRelu) return z > 0.0f ? z : 0.0f;
-  if (ACT == kTanh) return tanhf(z);
-  return z;
-}
+using MidTile = Tile<32, 64, 16, 4, 4>;      // instance 1, 128 threads
+using LargeTile = Tile<128, 128, 8, 8, 8>;   // instance 2, 256 threads
 
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// T: the operands' and y's type, float or __nv_bfloat16.
-template <typename T, int ACT, bool SAVE_Z>
-__global__ void __launch_bounds__(kThreads)
-fused_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                    const float* __restrict__ b, T* __restrict__ y,
-                    float* __restrict__ z, int B, int K, int O) {
-  // Stored k-major so the inner loop reads a row of each tile.
-  __shared__ float xs[kTileK][kTileB + kPad];
-  __shared__ float ws[kTileK][kTileO + kPad];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // this thread's columns: tx + 16 * j
-  const int ty = tid / 16;  // this thread's rows:    ty + 16 * i
-  const int row0 = blockIdx.x * kTileB;
-  const int col0 = blockIdx.y * kTileO;
-
-  float acc[4][4];
+// Sum acc[0..R) over the warp's 32 lanes in a fixed order; afterwards lane
+// L holds in acc[0] the sum for row L % R.
+template <int R>
+__device__ __forceinline__ void warp_rows_sum(float (&acc)[R], int lane) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int off = 16; off >= R; off >>= 1)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    // 64 x 16 elements of each operand, 4 per thread; consecutive threads
-    // read consecutive k, so each row segment is one coalesced read.
+    for (int i = 0; i < R; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
 #pragma unroll
-    for (int e = tid; e < kTileB * kTileK; e += kThreads) {
-      const int r = e / kTileK, kk = e % kTileK;
-      const int gr = row0 + r, gk = k0 + kk;
-      xs[kk][r] = (gr < B && gk < K) ? widen(x[(int64_t)gr * K + gk]) : 0.0f;
-    }
+  for (int off = R / 2; off >= 1; off >>= 1) {
+    const bool upper = (lane & off) != 0;
 #pragma unroll
-    for (int e = tid; e < kTileO * kTileK; e += kThreads) {
-      const int c = e / kTileK, kk = e % kTileK;
-      const int gc = col0 + c, gk = k0 + kk;
-      ws[kk][c] = (gc < O && gk < K) ? widen(w[(int64_t)gc * K + gk]) : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: consecutive threads hold consecutive columns, so the stores
-  // of a row are coalesced.
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c >= O) continue;
-      const float zz = acc[i][j] + b[c];
-      const int64_t at = (int64_t)r * O + c;
-      if (SAVE_Z) z[at] = zz;
-      put(y + at, apply_act<ACT>(zz));
+    for (int i = 0; i < off; ++i) {
+      const float send = upper ? acc[i] : acc[i + off];
+      const float keep = upper ? acc[i + off] : acc[i];
+      acc[i] = keep + __shfl_xor_sync(kFull, send, off);
     }
   }
-}
-
-template <typename T, int ACT>
-void launch(const T* x, const T* w, const float* b, T* y, float* z, int B,
-            int K, int O, cudaStream_t stream) {
-  const dim3 grid((B + kTileB - 1) / kTileB, (O + kTileO - 1) / kTileO);
-  if (z != nullptr)
-    fused_linear_kernel<T, ACT, true><<<grid, kThreads, 0, stream>>>(
-        x, w, b, y, z, B, K, O);
-  else
-    fused_linear_kernel<T, ACT, false><<<grid, kThreads, 0, stream>>>(
-        x, w, b, y, z, B, K, O);
 }
 
 template <typename T>
-int dispatch(const void* x, const void* w, const void* b, void* y, void* z,
-             int B, int K, int O, int act, void* stream) {
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(w);
-  const float* bf = static_cast<const float*>(b);
-  T* yt = static_cast<T*>(y);
-  float* zf = static_cast<float*>(z);
+__device__ __forceinline__ void epilogue(T* y, float* z, int64_t at,
+                                         float zz, int act) {
+  if (z != nullptr) z[at] = zz;
+  simt::put(y + at, simt::apply_act(act, zz));
+}
+
+// Instance 0.  R (1, 4, 8 or 16) >= B rows; rows past B are staged as 0.
+template <typename T, int R, bool VEC>
+__global__ void __launch_bounds__(32 * kGemvWarps)
+linear_gemv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const float* __restrict__ b, T* __restrict__ y,
+                   float* __restrict__ z, int B, int K, int O, int act) {
+  __shared__ __align__(16) float xs[R][kGemvChunk];
+  const int lane = threadIdx.x % 32;
+  const int c = blockIdx.x * kGemvWarps + threadIdx.x / 32;
+  // a warp past O still helps stage x; it reads row O - 1 and stores nothing
+  const T* wc = w + static_cast<int64_t>(c < O ? c : O - 1) * K;
+  float acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kGemvChunk) {
+    const int kn = min(kGemvChunk, K - k0);
+    if constexpr (VEC) {
+      float4 wv[kGemvVecs];
+#pragma unroll
+      for (int j = 0; j < kGemvVecs; ++j) {
+        const int q = 4 * (lane + 32 * j);
+        wv[j] = q < kn ? simt::load4<false>(wc + k0 + q)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      // this thread's share of the chunk's x: every load issued before the
+      // first store
+      const int nq = kn / 4;
+      float4 xv[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int e = threadIdx.x + j * 32 * kGemvWarps;
+        const int r = e / nq, q = 4 * (e - r * nq);
+        xv[j] = (e < R * nq && r < B)
+                    ? simt::load4<false>(x + static_cast<int64_t>(r) * K + k0 + q)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();  // the previous chunk's reads of xs are done
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int e = threadIdx.x + j * 32 * kGemvWarps;
+        const int r = e / nq, q = 4 * (e - r * nq);
+        if (e < R * nq) *reinterpret_cast<float4*>(&xs[r][q]) = xv[j];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kGemvVecs; ++j) {
+        const int q = 4 * (lane + 32 * j);
+        if (q < kn) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            const float4 v = *reinterpret_cast<const float4*>(&xs[r][q]);
+            acc[r] = fmaf(v.x, wv[j].x, acc[r]);
+            acc[r] = fmaf(v.y, wv[j].y, acc[r]);
+            acc[r] = fmaf(v.z, wv[j].z, acc[r]);
+            acc[r] = fmaf(v.w, wv[j].w, acc[r]);
+          }
+        }
+      }
+    } else {
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * kn; e += 32 * kGemvWarps) {
+        const int r = e / kn, k = e - r * kn;
+        xs[r][k] = r < B ? simt::load1<false>(
+                               x + static_cast<int64_t>(r) * K + k0 + k)
+                         : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int k = lane; k < kn; k += 32) {
+        const float wk = simt::load1<false>(wc + k0 + k);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = fmaf(xs[r][k], wk, acc[r]);
+      }
+    }
+  }
+  warp_rows_sum<R>(acc, lane);
+  if (c < O && lane < R && lane < B)
+    epilogue(y, z, static_cast<int64_t>(lane) * O + c, acc[0] + b[c], act);
+}
+
+// Instances 1 and 2: one BM x BN tile per (blockIdx.x, blockIdx.y) over the
+// k range of split blockIdx.z (kchunk each).
+template <class TL, typename T, bool VEC>
+__global__ void __launch_bounds__(TL::NT, TL::BM == 128 ? 2 : 4)
+linear_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const float* __restrict__ b, T* __restrict__ y,
+                   float* __restrict__ z, int B, int K, int O, int act,
+                   int kchunk, float* __restrict__ part,
+                   int* __restrict__ counters) {
+  __shared__ __align__(16) float smem[TL::kSmemFloats];
+  __shared__ int is_last;
+  const int n0 = blockIdx.x * TL::BN, m0 = blockIdx.y * TL::BM;
+  const int nsplit = gridDim.z;
+  const int kbeg = blockIdx.z * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  const int n_stages = (kend - kbeg + TL::BK - 1) / TL::BK;
+  const Stage<T, TL::BM, TL::BK, TL::NT, true, VEC, false> la{x, K, B, kend};
+  const Stage<T, TL::BN, TL::BK, TL::NT, true, VEC, false> lb{w, K, O, kend};
+  float acc[TL::TM][TL::TN];
+  TL::run(acc, la, lb, m0, n0, kbeg, n_stages, smem);
+
+  if (!TL::kSplit || nsplit == 1) {
+#pragma unroll
+    for (int i = 0; i < TL::TM; ++i) {
+      const int m = m0 + TL::row(i);
+      if (m >= B) continue;
+#pragma unroll
+      for (int j = 0; j < TL::TN; ++j) {
+        const int n = n0 + TL::col(j);
+        if (n < O)
+          epilogue(y, z, static_cast<int64_t>(m) * O + n, acc[i][j] + b[n],
+                   act);
+      }
+    }
+    return;
+  }
+  if constexpr (TL::kSplit) {
+  // split K: this split's partial tile into its slot ...
+  const int64_t slot = static_cast<int64_t>(B) * O;
+  float* mine = part + blockIdx.z * slot;
+#pragma unroll
+  for (int i = 0; i < TL::TM; ++i) {
+    const int m = m0 + TL::row(i);
+#pragma unroll
+    for (int j = 0; j < TL::TN; ++j) {
+      const int n = n0 + TL::col(j);
+      if (m < B && n < O) mine[static_cast<int64_t>(m) * O + n] = acc[i][j];
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(counters + tile, 1) == nsplit - 1;
+  __syncthreads();
+  if (!is_last) return;
+  // ... and the last block of the tile adds the slots in split order, each
+  // slot's TM x TN loads issued together
+  __threadfence();
+#pragma unroll
+  for (int i = 0; i < TL::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TL::TN; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+  for (int p = 0; p < nsplit; ++p) {
+    float v[TL::TM][TL::TN];
+#pragma unroll
+    for (int i = 0; i < TL::TM; ++i) {
+      const int m = m0 + TL::row(i);
+#pragma unroll
+      for (int j = 0; j < TL::TN; ++j) {
+        const int n = n0 + TL::col(j);
+        v[i][j] = (m < B && n < O)
+                      ? __ldcg(part + p * slot + static_cast<int64_t>(m) * O + n)
+                      : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TL::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TL::TN; ++j) acc[i][j] += v[i][j];
+  }
+#pragma unroll
+  for (int i = 0; i < TL::TM; ++i) {
+    const int m = m0 + TL::row(i);
+    if (m >= B) continue;
+#pragma unroll
+    for (int j = 0; j < TL::TN; ++j) {
+      const int n = n0 + TL::col(j);
+      if (n < O)
+        epilogue(y, z, static_cast<int64_t>(m) * O + n, acc[i][j] + b[n], act);
+    }
+  }
+  if (threadIdx.x == 0) counters[tile] = 0;  // ready for the next launch
+  }
+}
+
+template <typename T, int R>
+void launch_gemv(bool vec, const T* x, const T* w, const float* b, T* y,
+                 float* z, int B, int K, int O, int act, dim3 grid,
+                 cudaStream_t s) {
+  if (vec)
+    linear_gemv_kernel<T, R, true><<<grid, 32 * kGemvWarps, 0, s>>>(
+        x, w, b, y, z, B, K, O, act);
+  else
+    linear_gemv_kernel<T, R, false><<<grid, 32 * kGemvWarps, 0, s>>>(
+        x, w, b, y, z, B, K, O, act);
+}
+
+template <class TL, typename T>
+void launch_tile(bool vec, const T* x, const T* w, const float* b, T* y,
+                 float* z, int B, int K, int O, int act, dim3 grid,
+                 int kchunk, float* part, int* counters, cudaStream_t s) {
+  if (vec)
+    linear_tile_kernel<TL, T, true><<<grid, TL::NT, 0, s>>>(
+        x, w, b, y, z, B, K, O, act, kchunk, part, counters);
+  else
+    linear_tile_kernel<TL, T, false><<<grid, TL::NT, 0, s>>>(
+        x, w, b, y, z, B, K, O, act, kchunk, part, counters);
+}
+
+template <typename T>
+int dispatch(const void* xp, const void* wp, const void* bp, void* yp,
+             void* zp, int B, int K, int O, int act, int instance, int vec,
+             int rows, int gx, int gy, int gz, int kchunk, void* part,
+             void* counters, void* stream) {
+  const T* x = static_cast<const T*>(xp);
+  const T* w = static_cast<const T*>(wp);
+  const float* b = static_cast<const float*>(bp);
+  T* y = static_cast<T*>(yp);
+  float* z = static_cast<float*>(zp);
+  float* pf = static_cast<float*>(part);
+  int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (act) {
-    case kIdentity: launch<T, kIdentity>(xt, wt, bf, yt, zf, B, K, O, s); break;
-    case kLogistic: launch<T, kLogistic>(xt, wt, bf, yt, zf, B, K, O, s); break;
-    case kRelu: launch<T, kRelu>(xt, wt, bf, yt, zf, B, K, O, s); break;
-    case kTanh: launch<T, kTanh>(xt, wt, bf, yt, zf, B, K, O, s); break;
+  const dim3 grid(gx, gy, gz);
+  if (act < simt::kIdentity || act > simt::kTanh || B < 1 || O < 1 || K < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (instance) {
+    case 0:
+      // the grid must cover O with one warp per column
+      if (static_cast<int64_t>(gx) * kGemvWarps < O || gy != 1 || gz != 1 ||
+          B > rows)
+        return static_cast<int>(cudaErrorInvalidValue);
+      switch (rows) {
+        case 1: launch_gemv<T, 1>(vec, x, w, b, y, z, B, K, O, act, grid, s); break;
+        case 4: launch_gemv<T, 4>(vec, x, w, b, y, z, B, K, O, act, grid, s); break;
+        case 8: launch_gemv<T, 8>(vec, x, w, b, y, z, B, K, O, act, grid, s); break;
+        case 16: launch_gemv<T, 16>(vec, x, w, b, y, z, B, K, O, act, grid, s); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+      break;
+    case 1:
+    case 2: {
+      const int bm = instance == 1 ? MidTile::BM : LargeTile::BM;
+      const int bn = instance == 1 ? MidTile::BN : LargeTile::BN;
+      // the grid must cover the output once and K with its splits
+      if (static_cast<int64_t>(gx) * bn < O || static_cast<int64_t>(gy) * bm < B ||
+          gz < 1 || kchunk < 1 || static_cast<int64_t>(gz) * kchunk < K ||
+          (gz > 1 && (part == nullptr || counters == nullptr ||
+                      static_cast<int64_t>(gz - 1) * kchunk >= K)))
+        return static_cast<int>(cudaErrorInvalidValue);
+      if (instance == 1)
+        launch_tile<MidTile, T>(vec, x, w, b, y, z, B, K, O, act, grid, kchunk,
+                                pf, cnt, s);
+      else
+        launch_tile<LargeTile, T>(vec, x, w, b, y, z, B, K, O, act, grid,
+                                  kchunk, pf, cnt, s);
+      break;
+    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
@@ -165,15 +347,26 @@ int dispatch(const void* x, const void* w, const void* b, void* y, void* z,
 
 // Plain C entry points for ctypes: f32 operands and y, or bf16 operands and
 // y; b and z are f32 in both.  `z` may be null (no pre-activation out).
-// Return cudaGetLastError() after the launch: 0 on success.
+// `instance` (0 gemv, 1 tile, 2 large), `vec` (16-byte loads), `rows` (the
+// gemv's row bound: 1, 4, 8 or 16), the grid (gx, gy, gz) and `kchunk` (k
+// per split) are the plan of `linear_plan` in ops/kernels.py; with gz > 1,
+// `part` holds gz x B x O floats and `counters` gx x gy zeroed ints (left
+// zeroed).  Returns cudaGetLastError() after the launch: 0 on success.
 extern "C" int fused_linear_f32(const void* x, const void* w, const void* b,
                                 void* y, void* z, int B, int K, int O,
-                                int act, void* stream) {
-  return dispatch<float>(x, w, b, y, z, B, K, O, act, stream);
+                                int act, int instance, int vec, int rows,
+                                int gx, int gy, int gz, int kchunk,
+                                void* part, void* counters, void* stream) {
+  return dispatch<float>(x, w, b, y, z, B, K, O, act, instance, vec, rows, gx,
+                         gy, gz, kchunk, part, counters, stream);
 }
 
 extern "C" int fused_linear_bf16(const void* x, const void* w, const void* b,
                                  void* y, void* z, int B, int K, int O,
-                                 int act, void* stream) {
-  return dispatch<__nv_bfloat16>(x, w, b, y, z, B, K, O, act, stream);
+                                 int act, int instance, int vec, int rows,
+                                 int gx, int gy, int gz, int kchunk,
+                                 void* part, void* counters, void* stream) {
+  return dispatch<__nv_bfloat16>(x, w, b, y, z, B, K, O, act, instance, vec,
+                                 rows, gx, gy, gz, kchunk, part, counters,
+                                 stream);
 }

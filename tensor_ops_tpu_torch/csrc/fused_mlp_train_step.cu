@@ -1,5 +1,5 @@
 // fused_mlp_train_step: one whole SGD step of an ffLayer chain — forward,
-// loss, backward, update — in two launches.
+// loss, backward, update — in one cooperative launch.
 //
 // Replaces the TPU kernel `_mlp_train_kernel` (tensor_ops_tpu/ops/
 // pallas_kernels.py), reached there through `fused_mlp_train_step`.  The loss
@@ -8,122 +8,103 @@
 // summed over the outputs (`loss_kind` 1, the autoencoder configuration).
 // Both are meaned over the batch, and the gradient is the mean gradient.
 //
-// What bounds it on the H100, and what the design does about it:
-//   * The TPU kernel keeps every weight and every gradient accumulator in
-//     VMEM and adds batch tiles into the accumulators in grid order,
-//     updating on the last tile.  A block here has at most 227 KB of shared
-//     memory, and the flagship's 266,200 f32 parameters (1.06 MB) and their
-//     gradients do not fit; nor do blocks run in order.  So:
-//   * phase 1 (`mlp_train_partial_kernel`): one block per batch tile of R
-//     rows (R <= 16; a block walks several tiles when the batch has more
-//     tiles than the wrapper's block cap).  The tile's activations stay in
-//     shared memory: every layer's input h_l (the backward needs them all)
-//     and two ping-pong buffers for dz.  act'(z) is computed from h =
-//     act(z) (logistic h(1-h), tanh 1-h², relu h>0, identity 1), so z is
-//     not kept.  For the flagship at R = 16 that is 114,880 bytes; at 32
-//     rows it would leave under 3 KB and double the registers per thread.
-//     Weights stream from L2 (50 MB holds them all).  The block writes its
-//     PARTIAL weight, bias and loss sums to its own slot of a scratch buffer
-//     that the wrapper allocates;
-//   * phase 2 (`sgd_reduce_kernel`): one thread per parameter adds the
-//     partials of every slot in fixed slot order and writes w - lr * sum.
-//   No float atomics anywhere: every sum is taken in a fixed order, so a
-//   step repeats bit for bit.
-//   * Nothing is padded: rows past B are zero on input, finite through the
-//     forward, and get dz = 0 and no loss, so they add exact zeros.  In the
-//     squared-error mode this matters because act(b) != 0 on such rows.
-//   * The cross-entropy is -sum y * log(p > 0 ? p : 1), as the TPU kernel
-//     takes it (not FusedMLP._loss's log(p + 1e-30)).
-// At the flagship's widths phase 1 is bound by the in-block products
-// (3 x 266,200 x R FMAs per tile) and by streaming the weights through each
-// block; phase 2 by reading the n_blocks partial slots (4 bytes x 266,200
-// per slot).
+// What bounds it on the H100.  The work is small (the flagship at B = 100:
+// 0.11 GFLOP, 1.7 µs at the 67 TFLOP/s f32 peak) and sequential: every
+// layer waits for the one before it, forward and then backward.  So the
+// step is bound by latency, and what it can do is spread each stage's work
+// over every SM.  The TPU kernel keeps every weight and gradient accumulator
+// in VMEM and walks batch tiles in grid order; here no block holds the
+// flagship's 1.06 MB of parameters, and blocks run at once.  So the step is
+// a sequence of stages, each spread over all blocks of one persistent
+// launch (one block per SM: with two, the barriers cost more than the
+// second block gave), with a grid-wide barrier between stages.  For L layers, H_0 = x:
+//   F_l  (l = 0..L-1)  H_{l+1} = act_l(H_l · W_lᵀ + b_l); the last layer
+//        gives the logits (or acts[L-1] in the squared-error mode).  Work:
+//        32 x 32 tiles of (batch rows x outputs); where they are fewer than
+//        the blocks (784 -> 300 at B = 100: 40 tiles), K is split over
+//        blocks and the last split of each tile adds the partials in split
+//        order (an integer counter per tile; no float atomics).
+//   loss  one warp per row: softmax + -Σ y·log(where(p > 0, p, 1)), or the
+//        squared error; writes dz_{L-1} (÷B) and the row's loss.
+//   G_l  (l = L-1..0)  new_W_l = W_l - lr·(dz_lᵀ · H_l) in 32 x 32 tiles of
+//        (outputs x inputs), new_b_l = b_l - lr·Σ_r dz_l (summed beside the
+//        tiles of the first 32 inputs, from the same staged dz), and for l > 0
+//        dz_{l-1} = (dz_l · W_l) ∘ act'(H_l) in 32 x 32 tiles of (rows x
+//        inputs), reading the old W_l (the outputs never alias it).  G_{L-1}
+//        also takes the mean loss.
+// That is 2L + 1 stages and 2L barriers.  The tiles are csrc/simt_tile.cuh's:
+// 256 threads make one 32 x 32 tile, each 64-deep double-buffered stage's k
+// split over 4 groups of 64 threads with 4 x 4 accumulators each (a 2 x 2
+// tile per thread over the whole stage spends two shared-memory wavefronts
+// per four FMAs: the SM's shared memory, not its FMA units, set the pace).
+// The
+// activations and dz live in a global scratch that the wrapper allocates
+// once per size; at the flagship's widths it stays in the 50 MB L2.  Data
+// written by other blocks in this launch is read through L2 (ld.global.cg).
+// act'(z) is computed from h = act(z) (logistic h(1-h), tanh 1-h², relu
+// h>0, identity 1), so z is not kept.
+//
+// No float atomics: every sum is taken in a fixed order (each thread over
+// its k, or batch rows, in order; then the four groups' sums in group order;
+// the mean loss by a fixed tree), so a step repeats bit for bit whatever
+// the grid.  Rows past B do not exist (no
+// padding); the scratch's rows are padded to 4 floats so that 16-byte loads
+// can read them.  The cross-entropy is -Σ y·log(p > 0 ? p : 1), as the TPU
+// kernel takes it (not FusedMLP._loss's log(p + 1e-30)).  The update is
+// w - lr·g with each product and difference rounded on its own, as the
+// plain version's `w - lr * g`.
+//
+// `mode` 1 runs the same stages as one plain launch each, the kernel
+// boundary as the barrier (to weigh the barrier against launch gaps).
 //
 // Precision: both precision names compute in IEEE fp32 FMA.  On the TPU
 // "default" meant bf16 multiplies on the MXU.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <cooperative_groups.h>
+
+#include "simt_tile.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+using simt::Stage;
+
 constexpr int kMaxLayers = 16;
-constexpr int kThreads = 512;
+// 32 x 32 output tiles, 64-deep stages, each stage's k split over 4 groups
+// of 64 threads with 4 x 4 accumulators each
+using StepTile = simt::Tile<32, 32, 64, 4, 4, 4>;
+constexpr int kThreads = StepTile::NT;  // 256
+constexpr int TM = StepTile::TM, TN = StepTile::TN;
+template <bool KMAJOR, bool VEC, bool CG>
+using StepStage = Stage<float, 32, StepTile::BK, kThreads, KMAJOR, VEC, CG>;
 constexpr int kWarps = kThreads / 32;
-constexpr int kOChunk = 32;  // output neurons per weight-gradient work item
-constexpr int kReduceThreads = 256;
-constexpr int kMaxSmemBytes = 227 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Act { kIdentity = 0, kLogistic = 1, kRelu = 2, kTanh = 3 };
 enum Loss { kSoftmaxXent = 0, kSquaredError = 1 };
 
-struct TrainArgs {
+struct StepArgs {
+  const float* y;
   const float* w[kMaxLayers];  // (dims[l+1], dims[l]) row-major
-  const float* b[kMaxLayers];  // (dims[l+1],)
-  int64_t part_w[kMaxLayers];  // offsets of layer l's gradients in a slot
-  int64_t part_b[kMaxLayers];
-  int64_t part_stride;         // floats per slot (every parameter once)
+  const float* b[kMaxLayers];
+  float* new_w[kMaxLayers];
+  float* new_b[kMaxLayers];
+  const float* h[kMaxLayers + 1];  // h[0] = x; h[l] (B, ldh[l]) in scratch
+  int ldh[kMaxLayers + 1];
+  float* dz[2];      // dz_l in dz[l & 1], (B, round4(dims[l+1]))
+  float* row_loss;   // B
+  float* loss;       // the mean
+  float* part;       // split-K partials of a forward stage, part_cap floats
+  int* counters;     // one per output tile, zero between launches
+  int part_cap;
   int dims[kMaxLayers + 1];
   int acts[kMaxLayers];
-  int h_off[kMaxLayers + 1];   // shared-memory offset of layer l's input;
-                               // [n_layers] holds the last layer's output
-  int dz_off[2];               // the dz ping-pong pair, (width, R) layout
-  int loss_off;                // R per-row losses
   int n_layers;
   int loss_kind;
-  int B;
-  int n_tiles;
-};
-
-struct ReduceArgs {
-  const float* src[2 * kMaxLayers];  // w_0..w_{L-1}, then b_0..b_{L-1}
-  float* dst[2 * kMaxLayers];
-  int64_t off[2 * kMaxLayers];       // segment offset in a slot
-  int64_t n[2 * kMaxLayers];         // segment length
-  int64_t part_stride;
-  int n_slots;
   int B;
   float lr;
 };
 
-__device__ __forceinline__ float apply_act(int act, float z) {
-  switch (act) {
-    case kLogistic: return 1.0f / (1.0f + expf(-z));
-    case kRelu: return z > 0.0f ? z : 0.0f;
-    case kTanh: return tanhf(z);
-    default: return z;
-  }
-}
-
-// d act / d z, from the activation's output h = act(z)
-__device__ __forceinline__ float act_grad_from_out(int act, float h) {
-  switch (act) {
-    case kLogistic: return h * (1.0f - h);
-    case kRelu: return h > 0.0f ? 1.0f : 0.0f;
-    case kTanh: return 1.0f - h * h;
-    default: return 1.0f;
-  }
-}
-
-// Sum acc[0..R) over the warp's 32 lanes; afterwards lane L holds in acc[0]
-// the sum for row L % R (the transposing butterfly of fused_mlp_forward.cu).
-template <int R>
-__device__ __forceinline__ void warp_rows_sum(float (&acc)[R], int lane) {
-#pragma unroll
-  for (int off = 16; off >= R; off >>= 1)
-#pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] += __shfl_xor_sync(kFull, acc[i], off);
-#pragma unroll
-  for (int off = R / 2; off >= 1; off >>= 1) {
-    const bool upper = (lane & off) != 0;
-#pragma unroll
-    for (int i = 0; i < off; ++i) {
-      const float send = upper ? acc[i] : acc[i + off];
-      const float keep = upper ? acc[i + off] : acc[i];
-      acc[i] = keep + __shfl_xor_sync(kFull, send, off);
-    }
-  }
-}
+__device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
+__device__ __forceinline__ int round4(int n) { return (n + 3) / 4 * 4; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -138,306 +119,354 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// The R values of one dz row (R consecutive floats, 16-byte aligned when
-// R % 4 == 0) into registers.
-template <int R>
-__device__ __forceinline__ void load_dz(const float* p, float (&v)[R]) {
-  if constexpr (R % 4 == 0) {
+// F_l: items (row tile, output tile), and where the tiles leave blocks
+// idle, (K split, tile): each split walks its own stages and writes its
+// partial tile, and the last split of a tile to arrive (an integer counter
+// per tile) adds the partials in split order and writes act(Σ + b).
+template <bool VEC>
+__device__ void forward_stage(const StepArgs& a, int l, float* smem) {
+  __shared__ int is_last;
+  const int K = a.dims[l], O = a.dims[l + 1], B = a.B;
+  const bool last = l == a.n_layers - 1;
+  const int act = (last && a.loss_kind == kSoftmaxXent) ? simt::kIdentity
+                                                        : a.acts[l];
+  const int nt = ceil_div(O, StepTile::BN);
+  const int tiles = ceil_div(B, StepTile::BM) * nt;
+  const int n_k = max(1, ceil_div(K, StepTile::BK));  // stages over all K
+  int split = 1;
+  if (tiles < static_cast<int>(gridDim.x))  // at least 2 stages a split
+    split = min(min(static_cast<int>(gridDim.x) / tiles, max(1, n_k / 2)),
+                a.part_cap / (B * O));
+  const int chunk = ceil_div(n_k, max(split, 1));  // stages per split
+  split = ceil_div(n_k, chunk);
+  const StepStage<true, VEC, true> la{a.h[l], a.ldh[l], B, K};
+  const StepStage<true, VEC, false> lb{a.w[l], K, O, K};
+  float* out = const_cast<float*>(a.h[l + 1]);
+  const int ldo = a.ldh[l + 1];
+  const int64_t slot = static_cast<int64_t>(B) * O;
+  for (int it = blockIdx.x; it < tiles * split; it += gridDim.x) {
+    const int sp = it / tiles, t = it % tiles;
+    const int m0 = (t / nt) * StepTile::BM, n0 = (t % nt) * StepTile::BN;
+    float acc[TM][TN];
+    StepTile::run(acc, la, lb, m0, n0, sp * chunk * StepTile::BK,
+                  min(chunk, n_k - sp * chunk), smem);
+    if (split > 1) {
+      if (StepTile::leader()) {
 #pragma unroll
-    for (int i = 0; i < R / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(p)[i];
-      v[4 * i] = t.x;
-      v[4 * i + 1] = t.y;
-      v[4 * i + 2] = t.z;
-      v[4 * i + 3] = t.w;
-    }
-  } else {
+        for (int i = 0; i < TM; ++i) {
+          const int r = m0 + StepTile::row(i);
 #pragma unroll
-    for (int r = 0; r < R; ++r) v[r] = p[r];
-  }
-}
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-mlp_train_partial_kernel(const float* __restrict__ x,
-                         const float* __restrict__ y, float* __restrict__ part,
-                         float* __restrict__ part_loss, TrainArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int L = a.n_layers;
-  const int n_out = a.dims[L];
-  const float batch = static_cast<float>(a.B);
-  float* slot = part + static_cast<int64_t>(blockIdx.x) * a.part_stride;
-  float block_loss = 0.0f;  // thread 0's running sum, in tile order
-
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const bool first = tile == static_cast<int>(blockIdx.x);
-    const int row0 = tile * R;
-    const int nrows = min(R, a.B - row0);
-
-    // ---- the x tile; rows past B are zero ----
-    const int k_in = a.dims[0];
-    float* h0 = smem + a.h_off[0];
-    for (int e = threadIdx.x; e < R * k_in; e += kThreads) {
-      const int r = e / k_in, k = e - r * k_in;
-      h0[e] = r < nrows ? x[static_cast<int64_t>(row0 + r) * k_in + k] : 0.0f;
-    }
-    __syncthreads();
-
-    // ---- forward: one warp per output neuron, every layer's input kept ----
-    for (int l = 0; l < L; ++l) {
-      const float* in = smem + a.h_off[l];
-      float* out = smem + a.h_off[l + 1];
-      const int K = a.dims[l], O = a.dims[l + 1];
-      const bool last = l == L - 1;
-      const int act =
-          (last && a.loss_kind == kSoftmaxXent) ? kIdentity : a.acts[l];
-      for (int o = warp; o < O; o += kWarps) {
-        float acc[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-        const float* wrow = a.w[l] + static_cast<int64_t>(o) * K;
-#pragma unroll 4
-        for (int k = lane; k < K; k += 32) {
-          const float wv = __ldg(wrow + k);
-#pragma unroll
-          for (int r = 0; r < R; ++r) acc[r] = fmaf(in[r * K + k], wv, acc[r]);
-        }
-        warp_rows_sum<R>(acc, lane);
-        if (lane < R) out[lane * O + o] = apply_act(act, acc[0] + __ldg(a.b[l] + o));
-      }
-      __syncthreads();
-    }
-
-    // ---- loss and the output layer's dz, one warp per row ----
-    {
-      const float* hl = smem + a.h_off[L];
-      float* dz = smem + a.dz_off[0];
-      float* row_loss = smem + a.loss_off;
-      for (int r = warp; r < R; r += kWarps) {
-        if (r >= nrows) {
-          for (int o = lane; o < n_out; o += 32) dz[o * R + r] = 0.0f;
-          if (lane == 0) row_loss[r] = 0.0f;
-          continue;
-        }
-        const float* zr = hl + r * n_out;
-        const float* yr = y + static_cast<int64_t>(row0 + r) * n_out;
-        float lsum = 0.0f;
-        if (a.loss_kind == kSoftmaxXent) {
-          float m = -__int_as_float(0x7f800000);  // -inf
-          for (int o = lane; o < n_out; o += 32) m = fmaxf(m, zr[o]);
-          m = warp_max(m);
-          float s = 0.0f;
-          for (int o = lane; o < n_out; o += 32) s += expf(zr[o] - m);
-          s = warp_sum(s);
-          for (int o = lane; o < n_out; o += 32) {
-            const float p = expf(zr[o] - m) / s;
-            const float yv = __ldg(yr + o);
-            lsum += yv * logf(p > 0.0f ? p : 1.0f);
-            dz[o * R + r] = (p - yv) / batch;
+          for (int j = 0; j < TN; ++j) {
+            const int o = n0 + StepTile::col(j);
+            if (r < B && o < O)
+              a.part[sp * slot + static_cast<int64_t>(r) * O + o] = acc[i][j];
           }
-          lsum = -warp_sum(lsum);
-        } else {
-          const int act = a.acts[L - 1];
-          for (int o = lane; o < n_out; o += 32) {
-            const float h = zr[o];
-            const float d = h - __ldg(yr + o);
-            lsum += d * d;
-            dz[o * R + r] = (2.0f * d) * act_grad_from_out(act, h) / batch;
-          }
-          lsum = warp_sum(lsum);
         }
-        if (lane == 0) row_loss[r] = lsum;
       }
+      __threadfence();
       __syncthreads();
       if (threadIdx.x == 0)
-        for (int r = 0; r < nrows; ++r) block_loss += row_loss[r];
-    }
-
-    // ---- backward: this tile's gradient sums into the block's slot ----
-    int cur = 0;
-    for (int l = L - 1; l >= 0; --l) {
-      const float* dzc = smem + a.dz_off[cur];
-      float* dzn = smem + a.dz_off[cur ^ 1];
-      const float* hin = smem + a.h_off[l];
-      const int K = a.dims[l], O = a.dims[l + 1];
-      float* gw = slot + a.part_w[l];
-      float* gb = slot + a.part_b[l];
-
-      // dW[o, k] = sum_r dz[r, o] h[r, k]: one item per (k, chunk of
-      // outputs), so a warp's stores for one o are consecutive in k
-      const int n_chunks = (O + kOChunk - 1) / kOChunk;
-      for (int it = threadIdx.x; it < K * n_chunks; it += kThreads) {
-        const int k = it % K, c = it / K;
-        float hk[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) hk[r] = hin[r * K + k];
-        const int o_end = min(O, (c + 1) * kOChunk);
-        for (int o = c * kOChunk; o < o_end; ++o) {
-          float d[R];
-          load_dz<R>(dzc + o * R, d);
-          float g = 0.0f;
-#pragma unroll
-          for (int r = 0; r < R; ++r) g = fmaf(d[r], hk[r], g);
-          float* dst = gw + static_cast<int64_t>(o) * K + k;
-          *dst = first ? g : *dst + g;
-        }
-      }
-      // db[o] = sum_r dz[r, o]
-      for (int o = threadIdx.x; o < O; o += kThreads) {
-        float d[R];
-        load_dz<R>(dzc + o * R, d);
-        float g = 0.0f;
-#pragma unroll
-        for (int r = 0; r < R; ++r) g += d[r];
-        gb[o] = first ? g : gb[o] + g;
-      }
-      // dz_{l-1}[r, k] = (sum_o dz[r, o] W[o, k]) * act'_{l-1}(h[r, k])
-      if (l > 0) {
-        const int act_prev = a.acts[l - 1];
-        const float* wl = a.w[l];
-        for (int k = threadIdx.x; k < K; k += kThreads) {
-          float acc[R];
-#pragma unroll
-          for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-          for (int o = 0; o < O; ++o) {
-            const float wv = __ldg(wl + static_cast<int64_t>(o) * K + k);
-            float d[R];
-            load_dz<R>(dzc + o * R, d);
-#pragma unroll
-            for (int r = 0; r < R; ++r) acc[r] = fmaf(d[r], wv, acc[r]);
-          }
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            dzn[k * R + r] = acc[r] * act_grad_from_out(act_prev, hin[r * K + k]);
-        }
-      }
+        is_last = atomicAdd(a.counters + t, 1) == split - 1;
       __syncthreads();
-      cur ^= 1;
+      if (!is_last) continue;
+      __threadfence();
+      if (threadIdx.x == 0) a.counters[t] = 0;  // ready for the next launch
+      if (!StepTile::leader()) continue;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+      for (int p = 0; p < split; ++p) {
+        float v[TM][TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int r = m0 + StepTile::row(i);
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            const int o = n0 + StepTile::col(j);
+            v[i][j] = (r < B && o < O)
+                          ? __ldcg(a.part + p * slot + static_cast<int64_t>(r) * O + o)
+                          : 0.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] += v[i][j];
+      }
+    } else if (!StepTile::leader()) {
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = m0 + StepTile::row(i);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int o = n0 + StepTile::col(j);
+        if (r < B && o < O)
+          out[static_cast<int64_t>(r) * ldo + o] =
+              simt::apply_act(act, acc[i][j] + __ldg(a.b[l] + o));
+      }
     }
   }
-  if (threadIdx.x == 0) part_loss[blockIdx.x] = block_loss;
 }
 
-// new = old - lr * (sum of the slots' partial gradients, in slot order);
-// segment blockIdx.y is one weight or bias.  Thread (0, 0) of segment 0 also
-// writes the mean loss.
-__global__ void __launch_bounds__(kReduceThreads)
-sgd_reduce_kernel(const float* __restrict__ part,
-                  const float* __restrict__ part_loss, float* __restrict__ loss,
-                  ReduceArgs a) {
-  const int s = blockIdx.y;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * kReduceThreads + threadIdx.x;
-  if (s == 0 && j == 0) {
-    float t = 0.0f;
-    for (int i = 0; i < a.n_slots; ++i) t += part_loss[i];
-    *loss = t / static_cast<float>(a.B);
+// The loss and the last layer's dz: one warp per row.
+__device__ void loss_stage(const StepArgs& a) {
+  const int L = a.n_layers, n_out = a.dims[L], B = a.B;
+  const float batch = static_cast<float>(B);
+  const int lane = threadIdx.x % 32;
+  const int ldz = round4(n_out);
+  float* dz = a.dz[(L - 1) & 1];
+  for (int r = blockIdx.x * kWarps + threadIdx.x / 32; r < B;
+       r += gridDim.x * kWarps) {
+    const float* zr = a.h[L] + static_cast<int64_t>(r) * a.ldh[L];
+    const float* yr = a.y + static_cast<int64_t>(r) * n_out;
+    float* dzr = dz + static_cast<int64_t>(r) * ldz;
+    float lsum = 0.f;
+    if (a.loss_kind == kSoftmaxXent) {
+      float m = -__int_as_float(0x7f800000);  // -inf
+      for (int o = lane; o < n_out; o += 32) m = fmaxf(m, __ldcg(zr + o));
+      m = warp_max(m);
+      float s = 0.f;
+      for (int o = lane; o < n_out; o += 32) s += expf(__ldcg(zr + o) - m);
+      s = warp_sum(s);
+      for (int o = lane; o < n_out; o += 32) {
+        const float p = expf(__ldcg(zr + o) - m) / s;
+        const float yv = __ldg(yr + o);
+        lsum += yv * logf(p > 0.f ? p : 1.f);
+        dzr[o] = (p - yv) / batch;
+      }
+      lsum = -warp_sum(lsum);
+    } else {
+      const int act = a.acts[L - 1];
+      for (int o = lane; o < n_out; o += 32) {
+        const float h = __ldcg(zr + o);
+        const float d = h - __ldg(yr + o);
+        lsum += d * d;
+        dzr[o] = (2.f * d) * simt::act_grad_from_out(act, h) / batch;
+      }
+      lsum = warp_sum(lsum);
+    }
+    if (lane == 0) a.row_loss[r] = lsum;
   }
-  if (j >= a.n[s]) return;
-  const float* p = part + a.off[s] + j;
-  float g = 0.0f;
-  for (int i = 0; i < a.n_slots; ++i) g += p[static_cast<int64_t>(i) * a.part_stride];
-  a.dst[s][j] = a.src[s][j] - a.lr * g;
 }
 
-int round4(int n) { return (n + 3) / 4 * 4; }
+// The mean loss: thread t adds rows t, t + 256, ... in order, then each
+// warp's butterfly, then thread 0 adds the warps' sums in order.
+__device__ void mean_loss(const StepArgs& a) {
+  __shared__ float warp_sums[kWarps];
+  float t = 0.f;
+  for (int r = threadIdx.x; r < a.B; r += kThreads) t += __ldcg(a.row_loss + r);
+  t = warp_sum(t);
+  if (threadIdx.x % 32 == 0) warp_sums[threadIdx.x / 32] = t;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
+    *a.loss = s / static_cast<float>(a.B);
+  }
+}
 
-template <int R>
-int launch_partial(const float* x, const float* y, float* part,
-                   float* part_loss, int n_slots, const TrainArgs& a,
-                   size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      mlp_train_partial_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mlp_train_partial_kernel<R><<<n_slots, kThreads, smem, stream>>>(
-      x, y, part, part_loss, a);
-  return static_cast<int>(cudaGetLastError());
+// G_l: weight-gradient tiles (the tiles of the first 32 inputs also sum
+// the bias gradient), then (l > 0) dz_{l-1} tiles, then (l = L-1) the mean
+// loss.
+template <bool VEC>
+__device__ void backward_stage(const StepArgs& a, int l, float* smem) {
+  const int K = a.dims[l], O = a.dims[l + 1], B = a.B;
+  const float lr = a.lr;
+  const float* dz = a.dz[l & 1];
+  const int ldz = round4(O);
+  const int w_nt = ceil_div(K, StepTile::BN);
+  const int w_items = ceil_div(O, StepTile::BM) * w_nt;
+  const int d_items = l > 0 ? ceil_div(B, StepTile::BM) * w_nt : 0;
+  const int items = w_items + d_items + (l == a.n_layers - 1 ? 1 : 0);
+  // dW[o][k] = Σ_r dz[r][o] · h[r][k]: both operands contiguous along the
+  // output axis, the contraction over the batch rows
+  const StepStage<false, VEC, true> gw_a{dz, ldz, O, B};
+  const StepStage<false, VEC, true> gw_b{a.h[l], a.ldh[l], K, B};
+  // dz_{l-1}[r][k] = Σ_o dz[r][o] · W[o][k]
+  const StepStage<true, VEC, true> gd_a{dz, ldz, B, O};
+  const StepStage<false, VEC, false> gd_b{a.w[l], K, K, O};
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    if (it < w_items) {
+      const int m0 = (it / w_nt) * StepTile::BM;
+      const int n0 = (it % w_nt) * StepTile::BN;
+      float acc[TM][TN], db[TM];
+      const int n_stages = ceil_div(B, StepTile::BK);
+      if (n0 == 0) {
+        // db[o] = Σ_r dz[r][o], beside the tile's products
+        StepTile::run<true>(acc, gw_a, gw_b, m0, n0, 0, n_stages, smem, db);
+        if (StepTile::leader() && StepTile::col(0) == 0) {
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            const int o = m0 + StepTile::row(i);
+            if (o < O)
+              a.new_b[l][o] = __fsub_rn(__ldg(a.b[l] + o), __fmul_rn(lr, db[i]));
+          }
+        }
+      } else {
+        StepTile::run(acc, gw_a, gw_b, m0, n0, 0, n_stages, smem);
+      }
+      if (!StepTile::leader()) continue;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int o = m0 + StepTile::row(i);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int k = n0 + StepTile::col(j);
+          if (o < O && k < K) {
+            const int64_t at = static_cast<int64_t>(o) * K + k;
+            a.new_w[l][at] = __fsub_rn(__ldg(a.w[l] + at),
+                                       __fmul_rn(lr, acc[i][j]));
+          }
+        }
+      }
+    } else if (it < w_items + d_items) {
+      const int t = it - w_items;
+      const int m0 = (t / w_nt) * StepTile::BM;
+      const int n0 = (t % w_nt) * StepTile::BN;
+      float acc[TM][TN];
+      StepTile::run(acc, gd_a, gd_b, m0, n0, 0, ceil_div(O, StepTile::BK),
+                    smem);
+      if (!StepTile::leader()) continue;
+      const int act_prev = a.acts[l - 1];
+      float* dzn = a.dz[(l - 1) & 1];
+      const int ldn = round4(K);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const int r = m0 + StepTile::row(i);
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const int k = n0 + StepTile::col(j);
+          if (r < B && k < K) {
+            const float h = __ldcg(a.h[l] + static_cast<int64_t>(r) * a.ldh[l] + k);
+            dzn[static_cast<int64_t>(r) * ldn + k] =
+                acc[i][j] * simt::act_grad_from_out(act_prev, h);
+          }
+        }
+      }
+    } else {
+      mean_loss(a);
+    }
+  }
+}
+
+// Stages [s0, s1) of the step, with a grid barrier between two stages of one
+// launch (only a cooperative launch runs more than one).
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_train_step_kernel(StepArgs a, int s0, int s1) {
+  __shared__ __align__(16) float smem[StepTile::kSmemFloats];
+  const int L = a.n_layers;
+  for (int s = s0; s < s1; ++s) {
+    if (s < L)
+      forward_stage<VEC>(a, s, smem);
+    else if (s == L)
+      loss_stage(a);
+    else
+      backward_stage<VEC>(a, 2 * L - s, smem);
+    if (s + 1 < s1) cg::this_grid().sync();
+  }
 }
 
 }  // namespace
+
+// Blocks of the step kernel one card holds at once (blocks per SM x SMs; 0
+// when the card cannot launch cooperatively).  Returns a cudaError_t.
+extern "C" int fused_mlp_train_step_capacity(int* blocks) {
+  int dev = 0, sms = 0, coop = 0, f = 0, g = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &f, mlp_train_step_kernel<true>, kThreads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &g, mlp_train_step_kernel<false>, kThreads, 0);
+  *blocks = coop ? (f < g ? f : g) * sms : 0;
+  return static_cast<int>(e);
+}
 
 // Plain C entry point for ctypes.  `ws`, `bs`, `new_ws`, `new_bs` are host
 // arrays of n_layers device pointers (f32, contiguous); `dims` has
 // n_layers + 1 widths; `acts` one activation code per layer (0 identity,
 // 1 logistic, 2 relu, 3 tanh); `loss_kind` 0 softmax + cross-entropy, 1
-// squared error.  `rows` (1, 2, 4, 8 or 16) is the batch tile; `n_slots`
-// blocks each own one slot of `part` (n_slots x every parameter) and one of
-// `part_loss` (n_slots); `loss` receives the mean loss.  Returns a
-// cudaError_t: 0 on success, the first failure otherwise.
+// squared error.  `scratch` holds train_step_scratch_floats(B, dims) floats
+// (ops/kernels.py): h_1..h_L, the two dz buffers and the row losses, each
+// row padded to 4 floats.  `vec` selects 16-byte loads (every dims[l], l <
+// L, a multiple of 4, and x and the weights 16-byte aligned).  `grid` blocks
+// (at most fused_mlp_train_step_capacity's) run the step; `mode` 0 is one
+// cooperative launch, 1 one plain launch per stage.  `loss` receives the
+// mean loss.  Returns a cudaError_t: 0 on success, the first failure
+// otherwise.
 extern "C" int fused_mlp_train_step_f32(
-    const void* x, const void* y, int B, int rows, int n_layers,
-    const void* const* ws, const void* const* bs, void* const* new_ws,
-    void* const* new_bs, const int* dims, const int* acts, int loss_kind,
-    float lr, int n_slots, void* part, void* part_loss, void* loss,
-    void* stream) {
-  if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || n_slots < 1 ||
+    const void* x, const void* y, int B, int n_layers, const void* const* ws,
+    const void* const* bs, void* const* new_ws, void* const* new_bs,
+    const int* dims, const int* acts, int loss_kind, float lr, void* scratch,
+    void* part, void* counters, int part_cap, void* loss, int vec, int grid,
+    int mode, void* stream) {
+  if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || grid < 1 ||
       (loss_kind != kSoftmaxXent && loss_kind != kSquaredError) ||
-      !(rows == 1 || rows == 2 || rows == 4 || rows == 8 || rows == 16))
+      (mode != 0 && mode != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  TrainArgs a;
-  ReduceArgs ra;
-  int smem_floats = 0, widest_out = 0;
-  int64_t params = 0, widest_seg = 0;
+  StepArgs a;
+  a.y = static_cast<const float*>(y);
+  a.h[0] = static_cast<const float*>(x);
+  a.ldh[0] = dims[0];
+  float* s = static_cast<float*>(scratch);
+  int widest = 0;
   for (int l = 0; l <= n_layers; ++l) {
     a.dims[l] = dims[l];
-    a.h_off[l] = smem_floats;
-    smem_floats += round4(rows * dims[l]);
-    if (l > 0) widest_out = dims[l] > widest_out ? dims[l] : widest_out;
+    if (l == 0) continue;
+    const int ld = (dims[l] + 3) / 4 * 4;
+    a.h[l] = s;
+    a.ldh[l] = ld;
+    s += static_cast<int64_t>(B) * ld;
+    widest = ld > widest ? ld : widest;
   }
+  a.dz[0] = s;
+  a.dz[1] = s + static_cast<int64_t>(B) * widest;
+  a.row_loss = a.dz[1] + static_cast<int64_t>(B) * widest;
+  a.loss = static_cast<float*>(loss);
+  a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
+  a.part_cap = part_cap;
   for (int l = 0; l < n_layers; ++l) {
-    const int64_t nw = static_cast<int64_t>(dims[l + 1]) * dims[l];
     a.w[l] = static_cast<const float*>(ws[l]);
     a.b[l] = static_cast<const float*>(bs[l]);
+    a.new_w[l] = static_cast<float*>(new_ws[l]);
+    a.new_b[l] = static_cast<float*>(new_bs[l]);
     a.acts[l] = acts[l];
-    a.part_w[l] = params;
-    a.part_b[l] = params + nw;
-    ra.src[l] = a.w[l];
-    ra.dst[l] = static_cast<float*>(new_ws[l]);
-    ra.off[l] = params;
-    ra.n[l] = nw;
-    ra.src[n_layers + l] = a.b[l];
-    ra.dst[n_layers + l] = static_cast<float*>(new_bs[l]);
-    ra.off[n_layers + l] = params + nw;
-    ra.n[n_layers + l] = dims[l + 1];
-    widest_seg = nw > widest_seg ? nw : widest_seg;
-    params += nw + dims[l + 1];
   }
-  a.dz_off[0] = smem_floats;
-  a.dz_off[1] = smem_floats + round4(rows * widest_out);
-  a.loss_off = a.dz_off[1] + round4(rows * widest_out);
-  smem_floats = a.loss_off + round4(rows);
-  const size_t smem = static_cast<size_t>(smem_floats) * sizeof(float);
-  if (smem > static_cast<size_t>(kMaxSmemBytes))
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.part_stride = params;
   a.n_layers = n_layers;
   a.loss_kind = loss_kind;
   a.B = B;
-  a.n_tiles = (B + rows - 1) / rows;
-
-  const float* xf = static_cast<const float*>(x);
-  const float* yf = static_cast<const float*>(y);
-  float* pf = static_cast<float*>(part);
-  float* plf = static_cast<float*>(part_loss);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int err;
-  switch (rows) {
-    case 1: err = launch_partial<1>(xf, yf, pf, plf, n_slots, a, smem, s); break;
-    case 2: err = launch_partial<2>(xf, yf, pf, plf, n_slots, a, smem, s); break;
-    case 4: err = launch_partial<4>(xf, yf, pf, plf, n_slots, a, smem, s); break;
-    case 8: err = launch_partial<8>(xf, yf, pf, plf, n_slots, a, smem, s); break;
-    default: err = launch_partial<16>(xf, yf, pf, plf, n_slots, a, smem, s); break;
+  a.lr = lr;
+  const void* kernel = vec ? reinterpret_cast<const void*>(mlp_train_step_kernel<true>)
+                           : reinterpret_cast<const void*>(mlp_train_step_kernel<false>);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n_stages = 2 * n_layers + 1;
+  if (mode == 0) {
+    int s0 = 0, s1 = n_stages;
+    void* params[] = {&a, &s0, &s1};
+    cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid),
+                                                dim3(kThreads), params, 0, st);
+    if (e != cudaSuccess) {
+      cudaGetLastError();  // clear it: the wrapper raises
+      return static_cast<int>(e);
+    }
+    return static_cast<int>(cudaGetLastError());
   }
-  if (err != 0) return err;
-
-  ra.part_stride = params;
-  ra.n_slots = n_slots;
-  ra.B = B;
-  ra.lr = lr;
-  const dim3 grid(static_cast<unsigned>((widest_seg + kReduceThreads - 1) / kReduceThreads),
-                  static_cast<unsigned>(2 * n_layers));
-  sgd_reduce_kernel<<<grid, kReduceThreads, 0, s>>>(
-      pf, plf, static_cast<float*>(loss), ra);
+  for (int s0 = 0; s0 < n_stages; ++s0) {
+    int s1 = s0 + 1;
+    void* params[] = {&a, &s0, &s1};
+    cudaError_t e = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads),
+                                     params, 0, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,12 +5,15 @@ beside its plain PyTorch version.
   the port of the TPU kernel ``_linear_act_kernel``, for f32 operands or,
   with bf16 ``x``, bf16 operands and y (f32 accumulation), with its
   backward in plain PyTorch as the JAX package's backward is plain XLA.
+  :func:`linear_plan` picks one of its three instances per shape.
 * :func:`fused_mlp_forward` — a whole ffLayer chain with an optional
   softmax output in one launch (``csrc/fused_mlp_forward.cu``), the port of
   the TPU kernel ``_mlp_kernel``.
 * :func:`fused_mlp_train_step` — one whole SGD step (forward, loss,
-  backward, update) in two launches (``csrc/fused_mlp_train_step.cu``), the
-  port of the TPU kernel ``_mlp_train_kernel``.
+  backward, update) in one cooperative launch whose stages
+  (:func:`train_stages`) each spread over the whole card
+  (``csrc/fused_mlp_train_step.cu``), the port of the TPU kernel
+  ``_mlp_train_kernel``.
 * :func:`fused_linear_w8` — weight-only int8 ``act(x @ (q * s).T + b)``
   (``csrc/fused_linear_w8.cu``), the port of ``_linear_w8_kernel``.
 * :func:`fused_linear_w8a8` — int8 x int8 -> int32 ``act((q(x) @ q.T) * sx
@@ -44,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -53,9 +56,8 @@ PRECISIONS = ("default", "highest")
 MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory one H100 block may use
 MAX_TILE_ROWS = 32           # fused_mlp_forward: one partial sum per lane
 MAX_LAYERS = 16              # whole-chain kernels: layers in one launch
-MAX_TRAIN_TILE_ROWS = 16     # fused_mlp_train_step: batch rows per block
-MAX_TRAIN_SLOTS = 256        # fused_mlp_train_step: partial-gradient slots
 LOSS_KINDS = {"softmax_xent": 0, "squared_error": 1}
+H100_SMS = 132               # streaming multiprocessors of one H100
 
 _launch_lock = threading.Lock()
 _launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0,
@@ -127,17 +129,23 @@ def _check_names(acts: Sequence[str], precision: str) -> None:
 _bound: dict = {}
 
 
-def _kernel(lib_name: str, fn_name: str, argtypes) -> Callable:
+def _kernel(lib_name: str, fn_name: str, argtypes,
+            keep_gil: bool = False) -> Callable:
     """The C entry point ``fn_name`` of ``csrc/<lib_name>.cu``, built on
-    first use."""
-    fn = _bound.get(fn_name)
+    first use.  ``keep_gil`` binds it through ``ctypes.PyDLL``: the call
+    keeps the GIL, which saves its release and re-acquisition around a C
+    call that only queues work (the per-call wrappers on the hot path)."""
+    key = (fn_name, keep_gil)
+    fn = _bound.get(key)
     if fn is None:
         from .cuda_build import build
 
-        fn = getattr(build(lib_name).lib, fn_name)
+        built = build(lib_name)
+        lib = ctypes.PyDLL(str(built.path)) if keep_gil else built.lib
+        fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _bound[fn_name] = fn
+        _bound[key] = fn
     return fn
 
 
@@ -153,6 +161,44 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
 
 def _stream(device: torch.device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+_sm_counts: Dict[int, int] = {}
+
+
+def _sm_count(dev: int) -> int:
+    n = _sm_counts.get(dev)
+    if n is None:
+        n = torch.cuda.get_device_properties(dev).multi_processor_count
+        _sm_counts[dev] = n
+    return n
+
+
+def _launch_on(dev: int, fn: Callable, *args) -> int:
+    """``fn(*args)`` with card ``dev`` current (a launch goes to the current
+    card; a stream of another card would refuse it)."""
+    if dev == torch._C._cuda_getDevice():
+        return fn(*args)
+    with torch.cuda.device(dev):
+        return fn(*args)
+
+
+_scratch: Dict[tuple, torch.Tensor] = {}
+
+
+def _scratch_for(name: str, dev: int, stream: int, numel: int,
+                 dtype: torch.dtype, zeroed: bool = False) -> torch.Tensor:
+    """A buffer of at least ``numel`` elements kept per (kernel, card,
+    stream) and grown as needed, so a launch allocates nothing; the stream
+    orders its reuse.  ``zeroed`` buffers start zeroed (the kernels that
+    take them leave them so)."""
+    key = (name, dev, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel:
+        make = torch.zeros if zeroed else torch.empty
+        buf = make(max(numel, 1), dtype=dtype, device=torch.device("cuda", dev))
+        _scratch[key] = buf
+    return buf
 
 
 # ---------------------------------------------------------------------------
@@ -172,44 +218,139 @@ def fused_linear_ref(x, w, b, act: str = "identity", save_z: bool = False):
 
 _LINEAR_ENTRIES = {torch.float32: "fused_linear_f32",
                    torch.bfloat16: "fused_linear_bf16"}
+# the instances of csrc/fused_linear.cu, by code: (rows, columns, k) of one
+# block's output tile and stage, and threads per block
+LINEAR_INSTANCES = {"gemv": (0, None, 128), "tile": (1, (32, 64, 16), 128),
+                    "large": (2, (128, 128, 8), 256)}
+GEMV_ROWS = (1, 4, 8, 16)     # the gemv's row bounds; B <= 16 takes it
+GEMV_WARPS = 4                # gemv: output columns per block
+SPLIT_MIN_K = 64              # tile: the least k a split of K walks
+GRID_YZ_MAX = 65535
+
+
+class LinearPlan(NamedTuple):
+    """How ``fused_linear`` runs one shape: the instance, 16-byte loads or
+    scalar ones, the gemv's row bound (the tile's rows otherwise), the grid,
+    threads per block, the split of K over ``grid[2]`` blocks with
+    ``kchunk`` k each, and the f32 scratch the split's partials take."""
+    instance: str
+    vec: bool
+    rows: int
+    grid: Tuple[int, int, int]
+    block: int
+    split: int
+    kchunk: int
+    scratch_floats: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def linear_plan(B: int, K: int, O: int, dtype=torch.float32,
+                aligned: bool = True, sms: int = H100_SMS) -> LinearPlan:
+    """The instance of ``fused_linear`` for x (B, K), w (O, K), a fixed
+    rule (not an autotuner):
+
+    * B <= 16: ``gemv``, one warp per output column, 4 columns a block;
+    * at least ``sms`` 128 x 128 output tiles: ``large``;
+    * otherwise ``tile`` (32 x 64 output tiles); where the tiles are fewer
+      than ``sms`` and K > 64, K is split over enough blocks to give every
+      SM one (each split walking at least 64 k, a multiple of 16), the
+      partials added in split order by the last block of each tile.
+
+    ``vec`` (16-byte loads) needs K % 4 == 0 and ``aligned`` operands (x
+    and w 4-element aligned); otherwise the same instance loads scalars.
+    f32 and bf16 operands take the same plan.  Raises ``ValueError`` for a
+    dtype the kernel does not take or a grid the card cannot launch."""
+    if dtype not in _LINEAR_ENTRIES:
+        raise ValueError(f"fused_linear on CUDA takes float32 or bfloat16 "
+                         f"x, got {dtype}")
+    vec = K % 4 == 0 and aligned
+    if B <= GEMV_ROWS[-1]:
+        rows = next(r for r in GEMV_ROWS if r >= B)
+        return LinearPlan("gemv", vec, rows, (_cdiv(O, GEMV_WARPS), 1, 1),
+                          LINEAR_INSTANCES["gemv"][2], 1, max(K, 1), 0)
+    bm, bn, _ = LINEAR_INSTANCES["large"][1]
+    gx, gy = _cdiv(O, bn), _cdiv(B, bm)
+    if gx * gy >= sms:
+        instance = "large"
+    else:
+        instance = "tile"
+        bm, bn, _ = LINEAR_INSTANCES["tile"][1]
+        gx, gy = _cdiv(O, bn), _cdiv(B, bm)
+    if gy > GRID_YZ_MAX:
+        raise ValueError(f"fused_linear: {B} rows need {gy} row tiles, more "
+                         f"than the grid's {GRID_YZ_MAX}")
+    split, kchunk = 1, max(K, 1)
+    if instance == "tile" and gx * gy < sms and K > SPLIT_MIN_K:
+        bk = LINEAR_INSTANCES["tile"][1][2]
+        split = min(_cdiv(sms, gx * gy), _cdiv(K, SPLIT_MIN_K))
+        kchunk = _cdiv(_cdiv(K, split), bk) * bk
+        split = _cdiv(K, kchunk)
+    return LinearPlan(instance, vec, bm, (gx, gy, split),
+                      LINEAR_INSTANCES[instance][2], split, kchunk,
+                      split * B * O if split > 1 else 0)
+
+
+_linear_calls: dict = {}  # (B, K, O, dtype, aligned, card) -> (plan, entry)
+_LINEAR_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                    + [ctypes.c_void_p] * 3)
 
 
 def _fused_linear_cuda(x, w, b, act: str, save_z: bool):
     """The kernel: f32 x with f32 operands, or bf16 x with bf16 operands (w
     rounded to bf16 as the plain version rounds it); f32 accumulation, b
-    and z f32, y in x's dtype."""
-    if x.dtype not in _LINEAR_ENTRIES:
+    and z f32, y in x's dtype.  The instance is ``linear_plan``'s, cached
+    per call shape."""
+    entry = _LINEAR_ENTRIES.get(x.dtype)
+    if entry is None:
         raise ValueError(f"fused_linear on CUDA takes float32 or bfloat16 "
                          f"x, got {x.dtype}")
-    if x.ndim != 2 or w.ndim != 2 or b.ndim != 1:
+    if (x.ndim != 2 or w.ndim != 2 or b.ndim != 1
+            or w.shape[1] != x.shape[1] or b.shape[0] != w.shape[0]):
         raise ValueError(f"fused_linear wants x (B, K), w (O, K), b (O,); "
                          f"got {tuple(x.shape)}, {tuple(w.shape)}, "
                          f"{tuple(b.shape)}")
+    dev = x.get_device()
+    if w.get_device() != dev or b.get_device() != dev:
+        raise ValueError("fused_linear: x, w and b must be on one device")
+    if w.dtype != x.dtype:
+        w = w.to(x.dtype)
+    if b.dtype != torch.float32:
+        b = b.float()
+    x, w, b = x.contiguous(), w.contiguous(), b.contiguous()
     B, K = x.shape
     O = w.shape[0]
-    if w.shape[1] != K or b.shape[0] != O:
-        raise ValueError(f"fused_linear: shapes x {tuple(x.shape)}, "
-                         f"w {tuple(w.shape)}, b {tuple(b.shape)} disagree")
-    if w.device != x.device or b.device != x.device:
-        raise ValueError("fused_linear: x, w and b must be on one device")
-    if O > 65535 * 64:
-        raise ValueError(f"fused_linear: {O} outputs exceed the grid")
-    x = x.contiguous()
-    w = w.to(x.dtype).contiguous()
-    b = b.to(torch.float32).contiguous()
-    y = torch.empty((B, O), dtype=x.dtype, device=x.device)
-    z = (torch.empty((B, O), dtype=torch.float32, device=x.device)
-         if save_z else None)
+    y = x.new_empty((B, O))
+    z = x.new_empty((B, O), dtype=torch.float32) if save_z else None
     if B == 0 or O == 0:
         return y, z
-    fn = _kernel("fused_linear", _LINEAR_ENTRIES[x.dtype],
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(_p(x), _p(w), _p(b), _p(y),
-                 _p(z) if z is not None else ctypes.c_void_p(None),
-                 B, K, O, ACT_CODES[act], _stream(x.device))
-    _check_launch("fused_linear", err)
+    xp, wp = x.data_ptr(), w.data_ptr()
+    aligned = (xp | wp) % (4 * x.element_size()) == 0
+    key = (B, K, O, x.dtype, aligned, dev)
+    call = _linear_calls.get(key)
+    if call is None:
+        call = (linear_plan(B, K, O, x.dtype, aligned, _sm_count(dev)),
+                _kernel("fused_linear", entry, _LINEAR_ARGTYPES,
+                        keep_gil=True))
+        _linear_calls[key] = call
+    plan, fn = call
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    part = counters = None
+    if plan.split > 1:
+        part = _scratch_for("fused_linear.part", dev, stream,
+                            plan.scratch_floats, torch.float32).data_ptr()
+        counters = _scratch_for("fused_linear.counters", dev, stream,
+                                plan.grid[0] * plan.grid[1], torch.int32,
+                                zeroed=True).data_ptr()
+    err = _launch_on(dev, fn, xp, wp, b.data_ptr(), y.data_ptr(),
+                     None if z is None else z.data_ptr(), B, K, O,
+                     ACT_CODES[act], LINEAR_INSTANCES[plan.instance][0],
+                     int(plan.vec), plan.rows, *plan.grid, plan.kchunk, part,
+                     counters, stream)
+    if err:
+        _check_launch("fused_linear", err)
     _count("fused_linear")
     return y, z
 
@@ -398,39 +539,47 @@ def fused_mlp_train_step_ref(x, y, weights, biases, lr, acts: Sequence[str],
     return loss, new_ws, new_bs
 
 
-def train_smem_bytes(rows: int, widths: Sequence[int]) -> int:
-    """Shared memory one block of the train-step kernel takes for a tile of
-    ``rows`` rows: every layer's input and the output (``rows x width``
-    each), two dz buffers of the widest output, and a loss per row, each
-    rounded up to 4 floats (the layout of ``csrc/fused_mlp_train_step.cu``)."""
-    def r4(n):
-        return (n + 3) // 4 * 4
-
-    floats = (sum(r4(rows * d) for d in widths)
-              + 2 * r4(rows * max(widths[1:])) + r4(rows))
-    return 4 * floats
+TRAIN_THREADS = 256   # threads per block of the step kernel
+TRAIN_TILE = 32       # rows and columns of its output tiles
 
 
-def train_tile_rows(batch: int, widths: Sequence[int]) -> int:
-    """Batch rows per block of the train-step kernel: the power of two that
-    covers the batch, at most :data:`MAX_TRAIN_TILE_ROWS`, halved until the
-    tile's activations fit one block's shared memory.  Raises
-    ``ValueError`` naming the widths when not even one row fits."""
-    rows = 1
-    while rows < min(batch, MAX_TRAIN_TILE_ROWS):
-        rows *= 2
-    while rows > 1 and train_smem_bytes(rows, widths) > MAX_SMEM_BYTES:
-        rows //= 2
-    need = train_smem_bytes(rows, widths)
-    if need > MAX_SMEM_BYTES:
+def train_stages(n_layers: int) -> List[str]:
+    """The step kernel's stages in order, a grid barrier between each two:
+    ``F0 .. F{L-1}`` (forward), ``loss`` (softmax or squared error, the
+    last layer's dz), ``G{L-1} .. G0`` (each layer's update and the dz of
+    the layer below)."""
+    return ([f"F{l}" for l in range(n_layers)] + ["loss"]
+            + [f"G{l}" for l in reversed(range(n_layers))])
+
+
+def train_step_scratch_floats(batch: int, widths: Sequence[int]) -> int:
+    """f32 scratch of one step (``csrc/fused_mlp_train_step.cu``'s layout):
+    each layer's output h_1 .. h_L and two dz buffers of the widest, ``batch
+    x width`` each with rows padded to 4 floats, and a loss per row.  x is
+    read in place."""
+    outs = [-(-d // 4) * 4 for d in widths[1:]]
+    return batch * sum(outs) + 2 * batch * max(outs) + batch
+
+
+def train_grid(capacity: int, sms: int, batch: int,
+               widths: Sequence[int]) -> int:
+    """The step kernel's grid: one block per SM (``sms``), at most the
+    blocks the card holds at once (``capacity``), since the stages meet at
+    grid barriers, whose cost grows with the blocks that meet (a second
+    block per SM made the step slower on the H100).  Raises ``ValueError``
+    naming the shapes when the card holds none."""
+    if capacity < 1:
         raise ValueError(
-            f"fused_mlp_train_step: widths {'-'.join(map(str, widths))} need "
-            f"{need} bytes of shared memory for one batch row, more than "
-            f"the {MAX_SMEM_BYTES} one block has")
-    return rows
+            f"fused_mlp_train_step: the card cannot hold a cooperative grid "
+            f"of the step kernel ({capacity} co-resident blocks of "
+            f"{TRAIN_THREADS} threads) for widths "
+            f"{'-'.join(map(str, widths))} at batch {batch}")
+    return min(capacity, sms)
 
 
-def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind):
+def _train_step_widths(x, y, weights, biases) -> List[int]:
+    """The chain's widths ``[i, o_0, .., o_{L-1}]`` after checking the
+    shapes, the layer count and that every tensor is on x's device."""
     n = len(weights)
     if n > MAX_LAYERS:
         raise ValueError(f"fused_mlp_train_step: {n} layers exceed the "
@@ -456,35 +605,75 @@ def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind):
     if any(t.device != x.device for t in (y, *weights, *biases)):
         raise ValueError("fused_mlp_train_step: x, y and every weight and "
                          "bias must be on one device")
-    rows = train_tile_rows(batch, dims)
-    n_slots = min(-(-batch // rows), MAX_TRAIN_SLOTS)
-    xf = x.to(torch.float32).contiguous()
-    yf = y.to(torch.float32).contiguous()
-    ws = [w.to(torch.float32).contiguous() for w in weights]
-    bs = [b.to(torch.float32).contiguous() for b in biases]
+    return dims
+
+
+_train_capacity: Dict[int, int] = {}
+
+
+def _train_step_capacity(dev: int) -> int:
+    """Blocks of the step kernel card ``dev`` holds at once (cached)."""
+    cap = _train_capacity.get(dev)
+    if cap is None:
+        fn = _kernel("fused_mlp_train_step", "fused_mlp_train_step_capacity",
+                     [ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        err = _launch_on(dev, fn, ctypes.byref(out))
+        _check_launch("fused_mlp_train_step capacity", err)
+        cap = _train_capacity[dev] = out.value
+    return cap
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype != torch.float32:
+        t = t.float()
+    return t.contiguous()
+
+
+def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
+                               mode: int = 0):
+    """The kernel: ``mode`` 0 one cooperative launch with grid barriers
+    between the stages; 1 one plain launch per stage (the same stages and
+    sums, the kernel boundary as the barrier)."""
+    dims = _train_step_widths(x, y, weights, biases)
+    n, batch, dev = len(weights), x.shape[0], x.get_device()
+    grid = train_grid(_train_step_capacity(dev), _sm_count(dev), batch,
+                      dims)
+    xf, yf = _f32(x), _f32(y)
+    ws = [_f32(w) for w in weights]
+    bs = [_f32(b) for b in biases]
     new_ws = [torch.empty_like(w) for w in ws]
     new_bs = [torch.empty_like(b) for b in bs]
-    n_params = sum(w.numel() + b.numel() for w, b in zip(ws, bs))
-    part = torch.empty((n_slots, n_params), dtype=torch.float32,
-                       device=x.device)
-    part_loss = torch.empty(n_slots, dtype=torch.float32, device=x.device)
-    loss = torch.empty((), dtype=torch.float32, device=x.device)
+    loss = xf.new_empty(())
+    vec = (all(d % 4 == 0 for d in dims[:-1])
+           and all(t.data_ptr() % 16 == 0 for t in (xf, *ws)))
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    scratch = _scratch_for("fused_mlp_train_step", dev, stream,
+                           train_step_scratch_floats(batch, dims),
+                           torch.float32)
+    # the forward stages' split-K partials: one 32 x 32 tile per block
+    part_cap = grid * TRAIN_TILE * TRAIN_TILE
+    part = _scratch_for("fused_mlp_train_step.part", dev, stream, part_cap,
+                        torch.float32)
+    counters = _scratch_for("fused_mlp_train_step.counters", dev, stream,
+                            grid, torch.int32, zeroed=True)
     fn = _kernel("fused_mlp_train_step", "fused_mlp_train_step_f32",
                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6
-                 + [ctypes.c_int, ctypes.c_float, ctypes.c_int]
-                 + [ctypes.c_void_p] * 4)
+                  ctypes.c_int] + [ctypes.c_void_p] * 6
+                 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+                 + [ctypes.c_void_p])
 
     def ptrs(ts):
         return (ctypes.c_void_p * n)(*(t.data_ptr() for t in ts))
 
     c_dims = (ctypes.c_int * (n + 1))(*dims)
     c_acts = (ctypes.c_int * n)(*(ACT_CODES[a] for a in acts))
-    with torch.cuda.device(x.device):
-        err = fn(_p(xf), _p(yf), batch, rows, n, ptrs(ws), ptrs(bs),
-                 ptrs(new_ws), ptrs(new_bs), c_dims, c_acts,
-                 LOSS_KINDS[loss_kind], float(lr), n_slots, _p(part),
-                 _p(part_loss), _p(loss), _stream(x.device))
+    err = _launch_on(dev, fn, xf.data_ptr(), yf.data_ptr(), batch, n,
+                     ptrs(ws), ptrs(bs), ptrs(new_ws), ptrs(new_bs), c_dims,
+                     c_acts, LOSS_KINDS[loss_kind], float(lr),
+                     scratch.data_ptr(), part.data_ptr(), counters.data_ptr(),
+                     part_cap, loss.data_ptr(), int(vec), grid, mode, stream)
     _check_launch("fused_mlp_train_step", err)
     _count("fused_mlp_train_step")
     return (loss,
@@ -496,7 +685,7 @@ def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
                          precision: str = "default",
                          loss_kind: str = "softmax_xent"):
     """One whole SGD step of an ffLayer chain: forward, loss, backward and
-    ``w -= lr * g``, in one kernel for the step and one for the update.
+    ``w -= lr * g``, in one cooperative launch over the whole card.
 
     x (B, i), y (B, o) targets, weights[k] (o_k, i_k), biases[k] (o_k,).
     ``loss_kind="softmax_xent"`` (the flagship): softmax output and
@@ -504,7 +693,7 @@ def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
     output and squared error summed over the outputs (pass ``y = x`` for an
     autoencoder).  Both are meaned over the batch.  Returns ``(loss,
     new_weights, new_biases)``; the loss is a 0-d f32 tensor on x's
-    device.  The batch tile is chosen by :func:`train_tile_rows`."""
+    device.  On the card the stages are :func:`train_stages`."""
     if not (len(weights) == len(biases) == len(acts)) or not weights:
         raise ValueError("fused_mlp_train_step: need one weight, bias and "
                          "activation per layer")

@@ -227,6 +227,70 @@ def test_names_are_validated():
         K.fused_mlp_forward(x, [w], [b, b], ["relu"])
 
 
+@pytest.mark.parametrize("B,K_,O,instance,vec,rows,grid", [
+    # the flagship's layers at the main path's batches
+    (1, 784, 300, "gemv", True, 1, (75, 1, 1)),
+    (8, 784, 300, "gemv", True, 8, (75, 1, 1)),
+    (8, 100, 10, "gemv", True, 8, (3, 1, 1)),      # the identity layer
+    (16, 784, 300, "gemv", True, 16, (75, 1, 1)),
+    (17, 784, 300, "tile", True, 32, (5, 1, 13)),
+    (100, 784, 300, "tile", True, 32, (5, 4, 7)),
+    (100, 300, 100, "tile", True, 32, (2, 4, 5)),
+    (100, 100, 10, "tile", True, 32, (1, 4, 2)),
+    (512, 784, 300, "tile", True, 32, (5, 16, 2)),
+    (4096, 4096, 4096, "large", True, 128, (32, 32, 1)),
+    # K % 4 != 0: the same instance with scalar loads
+    (100, 783, 300, "tile", False, 32, (5, 4, 7)),
+    (7, 13, 5, "gemv", False, 8, (2, 1, 1)),
+])
+def test_linear_plan_picks_the_instance(B, K_, O, instance, vec, rows, grid):
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = K.linear_plan(B, K_, O, dtype)
+        assert (plan.instance, plan.vec, plan.rows, plan.grid) == (
+            instance, vec, rows, grid)
+        assert plan.block == K.LINEAR_INSTANCES[instance][2]
+
+
+def test_linear_plan_unaligned_operands_load_scalars():
+    assert K.linear_plan(100, 784, 300).vec
+    assert not K.linear_plan(100, 784, 300, aligned=False).vec
+
+
+@pytest.mark.parametrize("B,K_,O", [
+    (100, 784, 300), (100, 300, 100), (100, 100, 10), (17, 784, 300),
+    (512, 784, 300), (100, 783, 300), (33, 40, 10), (200, 64, 64),
+])
+def test_linear_plan_split_covers_k_once(B, K_, O):
+    """Each split walks kchunk k (a multiple of 16, at least 64), the splits
+    cover K with no empty one, the grid covers the output once, and the
+    partials' scratch is split x B x O floats."""
+    p = K.linear_plan(B, K_, O)
+    gx, gy, gz = p.grid
+    assert gz == p.split and gx * 64 >= O and gy * 32 >= B
+    if p.split > 1:
+        assert p.kchunk % 16 == 0 and p.kchunk >= K.SPLIT_MIN_K
+        assert (p.split - 1) * p.kchunk < K_ <= p.split * p.kchunk
+        assert p.scratch_floats == p.split * B * O
+        assert gx * gy * (p.split - 1) < K.H100_SMS  # no more than fills SMs
+    else:
+        assert p.scratch_floats == 0 and p.kchunk >= K_
+
+
+def test_linear_plan_flagship_layers_fill_the_card_at_batch_100():
+    """The training forward's first layer: 20 tiles split 7 ways, 140
+    blocks on the 132 SMs (the design before ran 2 x 5 blocks)."""
+    p = K.linear_plan(100, 784, 300)
+    assert p.split == 7 and p.kchunk == 112
+    assert p.grid[0] * p.grid[1] * p.grid[2] == 140
+
+
+def test_linear_plan_refuses_what_the_kernel_cannot_run():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K.linear_plan(8, 4, 4, torch.float64)
+    with pytest.raises(ValueError, match="row tiles"):
+        K.linear_plan(128 * 65536, 8, 8)
+
+
 @pytest.mark.parametrize("batch,widths,want", [
     (8, FLAGSHIP, 8),
     (63, FLAGSHIP, 32),

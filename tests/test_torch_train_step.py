@@ -208,33 +208,69 @@ def test_train_step_validates_its_arguments():
 
 
 @pytest.mark.parametrize("batch,widths,want", [
-    (1, FLAGSHIP, 1),
-    (5, FLAGSHIP, 8),
-    (100, FLAGSHIP, 16),
-    (1000, FLAGSHIP, 16),
-    (37, (784, 300, 784), 16),
-    (64, (3000, 3000, 10), 4),
-    (64, (20000, 10), 2),
-    (64, (40000, 10), 1),
+    # h_1..h_L and two dz buffers of the widest, rows padded to 4 floats,
+    # and a loss per row; x is read in place
+    (1000, FLAGSHIP, 1000 * (300 + 100 + 12) + 2 * 1000 * 300 + 1000),
+    (100, FLAGSHIP, 100 * 412 + 2 * 100 * 300 + 100),
+    (1, FLAGSHIP, 412 + 2 * 300 + 1),
+    (37, (8, 3, 8), 37 * (4 + 8) + 2 * 37 * 8 + 37),
+    (37, (784, 300, 784), 37 * 1084 + 2 * 37 * 784 + 37),
 ])
-def test_train_tile_rows_fits_shared_memory(batch, widths, want):
-    rows = K.train_tile_rows(batch, widths)
-    assert rows == want
-    assert K.train_smem_bytes(rows, widths) <= K.MAX_SMEM_BYTES
-    if rows < min(K.MAX_TRAIN_TILE_ROWS, batch):
-        assert K.train_smem_bytes(2 * rows, widths) > K.MAX_SMEM_BYTES
+def test_train_step_scratch_floats(batch, widths, want):
+    assert K.train_step_scratch_floats(batch, widths) == want
 
 
-def test_train_tile_rows_names_widths_too_wide():
-    with pytest.raises(ValueError, match="60000-10"):
-        K.train_tile_rows(4, (60000, 10))
+def test_flagship_scratch_at_batch_1000_is_4_mb_and_l2_resident():
+    """The flagship's step scratch at B = 1000: 4.05 MB, far inside the
+    H100's 50 MB L2 (the slots of the design before held 67 MB)."""
+    nbytes = 4 * K.train_step_scratch_floats(1000, FLAGSHIP)
+    assert nbytes == 4_052_000 and nbytes < 50e6
 
 
-def test_flagship_tile_fits_and_needs_no_padding():
-    """16 rows of the flagship: 1,194 floats of activations per row plus
-    the two 300-wide dz buffers, 114,880 bytes of one block's 232,448."""
-    assert K.train_smem_bytes(16, FLAGSHIP) == 114880
-    assert K.train_smem_bytes(32, FLAGSHIP) <= K.MAX_SMEM_BYTES
+@pytest.mark.parametrize("n_layers,want", [
+    (1, ["F0", "loss", "G0"]),
+    (2, ["F0", "F1", "loss", "G1", "G0"]),
+    (3, ["F0", "F1", "F2", "loss", "G2", "G1", "G0"]),
+])
+def test_train_stages_and_barriers(n_layers, want):
+    stages = K.train_stages(n_layers)
+    assert stages == want
+    assert len(stages) - 1 == 2 * n_layers  # grid barriers between stages
+
+
+@pytest.mark.parametrize("capacity,sms,want", [
+    (264, 132, 132),   # one block per SM, though two fit
+    (132, 132, 132),
+    (100, 132, 100),   # never more than the card holds at once
+])
+def test_train_grid_is_one_block_per_sm(capacity, sms, want):
+    assert K.train_grid(capacity, sms, 100, FLAGSHIP) == want
+
+
+def test_train_grid_names_the_shapes_when_the_card_holds_none():
+    with pytest.raises(ValueError, match="784-300-100-10 at batch 100"):
+        K.train_grid(0, 132, 100, FLAGSHIP)
+
+
+def test_train_step_refuses_more_layers_than_the_kernel_takes():
+    n = K.MAX_LAYERS + 1
+    x, y = torch.zeros(2, 4), torch.zeros(2, 4)
+    ws, bs = [torch.zeros(4, 4)] * n, [torch.zeros(4)] * n
+    with pytest.raises(ValueError, match=f"{n} layers exceed the kernel's "
+                                         f"{K.MAX_LAYERS}"):
+        K._train_step_widths(x, y, ws, bs)
+    assert K._train_step_widths(x, y, ws[:2], bs[:2]) == [4, 4, 4]
+
+
+@pytest.mark.parametrize("what,ys,ws,want", [
+    ("targets", (3, 5), [(4, 6)], "y is \\(3, 5\\), want \\(3, 4\\)"),
+    ("chain", (3, 4), [(4, 5)], "layer 0 has w \\(4, 5\\)"),
+])
+def test_train_step_widths_name_the_shapes(what, ys, ws, want):
+    with pytest.raises(ValueError, match=want):
+        K._train_step_widths(torch.zeros(3, 6), torch.zeros(*ys),
+                             [torch.zeros(*s) for s in ws],
+                             [torch.zeros(s[0]) for s in ws])
 
 
 def test_cpu_train_step_launches_no_kernel():
