@@ -21,8 +21,7 @@ without printing a result line:
    without z, each shape rerun bit for bit, and with bf16 operands (y to
    one bf16 ulp of the plain y, z to 1e-4 + 1e-5|z|, each launch counted,
    the backward's dtypes those of the JAX VJP).  The train step at B = 1
-   to 1000 and both loss kinds, as one cooperative launch and as one
-   launch per stage (bit-equal), and twice on one input, bit for bit.
+   to 1000 and both loss kinds, and twice on one input, bit for bit.
 4. Serving slice: the flagship MNIST MLP 784-300-100-10 (random weights,
    seed 0) is saved with ``save_network`` and served through the serve app
    (``tensor_ops_tpu_torch.apps.serve.main``) and through a per-layer
@@ -94,9 +93,8 @@ without printing a result line:
    sequence's wall time and launches, kernel 1's device time and event
    median against ``torch.addmm``'s in turns over 3 repetitions beside its
    bound at the identity layer, 784->300 at B = 8, the three flagship
-   layers at B = 100 and 4096^3, kernel 3 at B = 100, 400 and 1000 as one
-   cooperative launch and as one launch per stage with its grid and
-   barrier count, each collective phase at the flagship's
+   layers at B = 100 and 4096^3, kernel 3 at B = 100, 400 and 1000 with
+   its grid and barrier count, each collective phase at the flagship's
    300x784 weight on 4 ranks (the one-shot in turns with one PyTorch call
    over 3 repetitions, its plain version, its device time against the
    bound; the ring protocol beside it), and a dp step's wall time, profile
@@ -424,26 +422,17 @@ def phase_kernels() -> dict:
         args = train_step_inputs(90 + n, dims, B, kind) + (0.1, acts)
         loss_r, ws_r, bs_r = K.fused_mlp_train_step_ref(*args,
                                                         loss_kind=kind)
-        # both designs of the step: one cooperative launch (the wrapper's)
-        # and one launch per stage; the same sums, so the same bits
-        outs = []
-        for mode in (0, 1):
-            loss, ws, bs = K._fused_mlp_train_step_cuda(*args, kind,
-                                                        mode=mode)
-            torch.cuda.synchronize()
-            e_loss = max_err(loss, loss_r, TOL_LOSS)
-            e_par = max(max_err(a, b, TOL_PARAM)
-                        for a, b in zip(ws + bs, ws_r + bs_r))
-            worst["fused_mlp_train_step"] = max(
-                worst["fused_mlp_train_step"], e_loss, e_par)
-            outs.append([loss, *ws, *bs])
-        check(all(torch.equal(u, v) for u, v in zip(*outs)),
-              f"fused_mlp_train_step {kind} B={B}: the two designs differ")
+        loss, ws, bs = K._fused_mlp_train_step_cuda(*args, kind)
+        torch.cuda.synchronize()
+        e_loss = max_err(loss, loss_r, TOL_LOSS)
+        e_par = max(max_err(a, b, TOL_PARAM)
+                    for a, b in zip(ws + bs, ws_r + bs_r))
+        worst["fused_mlp_train_step"] = max(
+            worst["fused_mlp_train_step"], e_loss, e_par)
         log(f"[kernel] fused_mlp_train_step {kind} B={B} "
             f"{'-'.join(map(str, dims))} loss {float(loss):.6f} max|err| "
             f"loss {e_loss:.2e} (tol {TOL_LOSS[0]:g}+{TOL_LOSS[1]:g}|ref|), "
-            f"params {e_par:.2e} (tol {TOL_PARAM[0]:g}+{TOL_PARAM[1]:g}|ref|);"
-            f" per-stage launches bit-equal")
+            f"params {e_par:.2e} (tol {TOL_PARAM[0]:g}+{TOL_PARAM[1]:g}|ref|)")
     # the flagship at B = 1000 once more: the step repeats bit for bit
     args = train_step_inputs(93, FLAGSHIP, 1000, "softmax_xent") + (
         0.1, ("logistic", "logistic", "identity"))
@@ -1156,10 +1145,9 @@ def linear_timing(what: str, layers) -> tuple:
 
 
 def train_step_timing() -> tuple:
-    """Kernel 3 on the flagship at B = 100, 400, 1000: the cooperative
-    launch (the wrapper's design) and one launch per stage, each by CUDA
-    events and by profiler device time, in one run, with the grid and the
-    barrier count.  Returns (kernel ms, plain ms) at B = 100."""
+    """Kernel 3 on the flagship at B = 100, 400, 1000 by CUDA events and
+    by profiler device time, with the grid and the barrier count.  Returns
+    (kernel ms, plain ms) at B = 100."""
     from tensor_ops_tpu_torch.ops import kernels as K
 
     acts = ("logistic", "logistic", "identity")
@@ -1173,25 +1161,24 @@ def train_step_timing() -> tuple:
     out = None
     for B in (100, 400, 1000):
         x, y, tw, tb = train_step_inputs(110 + B, FLAGSHIP, B, "softmax_xent")
-        row = {}
-        for mode, design in ((0, "cooperative"), (1, "per-stage launches")):
-            def step(mode=mode):
-                return K._fused_mlp_train_step_cuda(x, y, tw, tb, 0.1, acts,
-                                                    "softmax_xent", mode=mode)
-            prof = _profile_steps(step)
-            # names only: the profiler may drop an event (its count is no
-            # launch count)
-            check(list(prof["by_kernel"]) == ["mlp_train_step_kernel"],
-                  f"fused_mlp_train_step {design}: the profiler saw "
-                  f"{sorted(prof['by_kernel'])}")
-            row[design] = (_median_ms(step), prof["busy_us"])
+
+        def step():
+            return K._fused_mlp_train_step_cuda(x, y, tw, tb, 0.1, acts,
+                                                "softmax_xent")
+        prof = _profile_steps(step)
+        # names only: the profiler may drop an event (its count is no
+        # launch count)
+        check(list(prof["by_kernel"]) == ["mlp_train_step_kernel"],
+              f"fused_mlp_train_step: the profiler saw "
+              f"{sorted(prof['by_kernel'])}")
+        k_ms = _median_ms(step)
         p_ms = _median_ms(lambda: K.fused_mlp_train_step_ref(
             x, y, tw, tb, 0.1, acts))
-        log(f"[timing] fused_mlp_train_step B={B} flagship: " + "; ".join(
-            f"{d} events {ms:.4f} ms, device {us:.2f} us"
-            for d, (ms, us) in row.items()) + f"; plain {p_ms:.4f} ms")
+        log(f"[timing] fused_mlp_train_step B={B} flagship: events "
+            f"{k_ms:.4f} ms, device {prof['busy_us']:.2f} us; plain "
+            f"{p_ms:.4f} ms")
         if B == 100:
-            out = (row["cooperative"][0], p_ms)
+            out = (k_ms, p_ms)
     return out
 
 

@@ -179,7 +179,6 @@ linear_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    int kchunk, float* __restrict__ part,
                    int* __restrict__ counters) {
   __shared__ __align__(16) float smem[TL::kSmemFloats];
-  __shared__ int is_last;
   const int n0 = blockIdx.x * TL::BN, m0 = blockIdx.y * TL::BM;
   const int nsplit = gridDim.z;
   const int kbeg = blockIdx.z * kchunk;
@@ -189,67 +188,13 @@ linear_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const Stage<T, TL::BN, TL::BK, TL::NT, true, VEC, false> lb{w, K, O, kend};
   float acc[TL::TM][TL::TN];
   TL::run(acc, la, lb, m0, n0, kbeg, n_stages, smem);
-
-  if (!TL::kSplit || nsplit == 1) {
-#pragma unroll
-    for (int i = 0; i < TL::TM; ++i) {
-      const int m = m0 + TL::row(i);
-      if (m >= B) continue;
-#pragma unroll
-      for (int j = 0; j < TL::TN; ++j) {
-        const int n = n0 + TL::col(j);
-        if (n < O)
-          epilogue(y, z, static_cast<int64_t>(m) * O + n, acc[i][j] + b[n],
-                   act);
-      }
-    }
-    return;
-  }
+  // split K: the last block of the tile adds the splits' partials in split
+  // order (the 8 x 8 tile is never split)
   if constexpr (TL::kSplit) {
-  // split K: this split's partial tile into its slot ...
-  const int64_t slot = static_cast<int64_t>(B) * O;
-  float* mine = part + blockIdx.z * slot;
-#pragma unroll
-  for (int i = 0; i < TL::TM; ++i) {
-    const int m = m0 + TL::row(i);
-#pragma unroll
-    for (int j = 0; j < TL::TN; ++j) {
-      const int n = n0 + TL::col(j);
-      if (m < B && n < O) mine[static_cast<int64_t>(m) * O + n] = acc[i][j];
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  if (threadIdx.x == 0)
-    is_last = atomicAdd(counters + tile, 1) == nsplit - 1;
-  __syncthreads();
-  if (!is_last) return;
-  // ... and the last block of the tile adds the slots in split order, each
-  // slot's TM x TN loads issued together
-  __threadfence();
-#pragma unroll
-  for (int i = 0; i < TL::TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TL::TN; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int p = 0; p < nsplit; ++p) {
-    float v[TL::TM][TL::TN];
-#pragma unroll
-    for (int i = 0; i < TL::TM; ++i) {
-      const int m = m0 + TL::row(i);
-#pragma unroll
-      for (int j = 0; j < TL::TN; ++j) {
-        const int n = n0 + TL::col(j);
-        v[i][j] = (m < B && n < O)
-                      ? __ldcg(part + p * slot + static_cast<int64_t>(m) * O + n)
-                      : 0.f;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TL::TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TL::TN; ++j) acc[i][j] += v[i][j];
+    if (nsplit > 1 &&
+        !simt::split_k_reduce<TL>(acc, part, blockIdx.z, nsplit, m0, n0, B, O,
+                                  counters + blockIdx.y * gridDim.x + blockIdx.x))
+      return;
   }
 #pragma unroll
   for (int i = 0; i < TL::TM; ++i) {
@@ -261,8 +206,6 @@ linear_tile_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (n < O)
         epilogue(y, z, static_cast<int64_t>(m) * O + n, acc[i][j] + b[n], act);
     }
-  }
-  if (threadIdx.x == 0) counters[tile] = 0;  // ready for the next launch
   }
 }
 
@@ -324,9 +267,11 @@ int dispatch(const void* xp, const void* wp, const void* bp, void* yp,
     case 2: {
       const int bm = instance == 1 ? MidTile::BM : LargeTile::BM;
       const int bn = instance == 1 ? MidTile::BN : LargeTile::BN;
-      // the grid must cover the output once and K with its splits
+      // the grid must cover the output once and K with its splits (the
+      // large instance is never split)
       if (static_cast<int64_t>(gx) * bn < O || static_cast<int64_t>(gy) * bm < B ||
-          gz < 1 || kchunk < 1 || static_cast<int64_t>(gz) * kchunk < K ||
+          gz < 1 || (instance == 2 && gz != 1) || kchunk < 1 ||
+          static_cast<int64_t>(gz) * kchunk < K ||
           (gz > 1 && (part == nullptr || counters == nullptr ||
                       static_cast<int64_t>(gz - 1) * kchunk >= K)))
         return static_cast<int>(cudaErrorInvalidValue);

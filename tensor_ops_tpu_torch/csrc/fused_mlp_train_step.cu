@@ -37,8 +37,7 @@
 // split over 4 groups of 64 threads with 4 x 4 accumulators each (a 2 x 2
 // tile per thread over the whole stage spends two shared-memory wavefronts
 // per four FMAs: the SM's shared memory, not its FMA units, set the pace).
-// The
-// activations and dz live in a global scratch that the wrapper allocates
+// The activations and dz live in a global scratch that the wrapper allocates
 // once per size; at the flagship's widths it stays in the 50 MB L2.  Data
 // written by other blocks in this launch is read through L2 (ld.global.cg).
 // act'(z) is computed from h = act(z) (logistic h(1-h), tanh 1-h², relu
@@ -46,16 +45,15 @@
 //
 // No float atomics: every sum is taken in a fixed order (each thread over
 // its k, or batch rows, in order; then the four groups' sums in group order;
-// the mean loss by a fixed tree), so a step repeats bit for bit whatever
-// the grid.  Rows past B do not exist (no
-// padding); the scratch's rows are padded to 4 floats so that 16-byte loads
-// can read them.  The cross-entropy is -Σ y·log(p > 0 ? p : 1), as the TPU
-// kernel takes it (not FusedMLP._loss's log(p + 1e-30)).  The update is
+// a forward stage's K splits in split order; the mean loss by a fixed tree),
+// so a step repeats bit for bit at a given grid.  The forward stages' K split
+// follows the grid (one block per SM), so a card with another SM count may
+// round differently.  Rows past B do not exist (no padding); the scratch's
+// rows are padded to 4 floats so that 16-byte loads can read them.  The
+// cross-entropy is -Σ y·log(p > 0 ? p : 1), as the TPU kernel takes it (not
+// FusedMLP._loss's log(p + 1e-30)).  The update is
 // w - lr·g with each product and difference rounded on its own, as the
 // plain version's `w - lr * g`.
-//
-// `mode` 1 runs the same stages as one plain launch each, the kernel
-// boundary as the barrier (to weigh the barrier against launch gaps).
 //
 // Precision: both precision names compute in IEEE fp32 FMA.  On the TPU
 // "default" meant bf16 multiplies on the MXU.
@@ -125,7 +123,6 @@ __device__ __forceinline__ float warp_max(float v) {
 // per tile) adds the partials in split order and writes act(Σ + b).
 template <bool VEC>
 __device__ void forward_stage(const StepArgs& a, int l, float* smem) {
-  __shared__ int is_last;
   const int K = a.dims[l], O = a.dims[l + 1], B = a.B;
   const bool last = l == a.n_layers - 1;
   const int act = (last && a.loss_kind == kSoftmaxXent) ? simt::kIdentity
@@ -143,60 +140,17 @@ __device__ void forward_stage(const StepArgs& a, int l, float* smem) {
   const StepStage<true, VEC, false> lb{a.w[l], K, O, K};
   float* out = const_cast<float*>(a.h[l + 1]);
   const int ldo = a.ldh[l + 1];
-  const int64_t slot = static_cast<int64_t>(B) * O;
   for (int it = blockIdx.x; it < tiles * split; it += gridDim.x) {
     const int sp = it / tiles, t = it % tiles;
     const int m0 = (t / nt) * StepTile::BM, n0 = (t % nt) * StepTile::BN;
     float acc[TM][TN];
     StepTile::run(acc, la, lb, m0, n0, sp * chunk * StepTile::BK,
                   min(chunk, n_k - sp * chunk), smem);
-    if (split > 1) {
-      if (StepTile::leader()) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int r = m0 + StepTile::row(i);
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int o = n0 + StepTile::col(j);
-            if (r < B && o < O)
-              a.part[sp * slot + static_cast<int64_t>(r) * O + o] = acc[i][j];
-          }
-        }
-      }
-      __threadfence();
-      __syncthreads();
-      if (threadIdx.x == 0)
-        is_last = atomicAdd(a.counters + t, 1) == split - 1;
-      __syncthreads();
-      if (!is_last) continue;
-      __threadfence();
-      if (threadIdx.x == 0) a.counters[t] = 0;  // ready for the next launch
-      if (!StepTile::leader()) continue;
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-      for (int p = 0; p < split; ++p) {
-        float v[TM][TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int r = m0 + StepTile::row(i);
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            const int o = n0 + StepTile::col(j);
-            v[i][j] = (r < B && o < O)
-                          ? __ldcg(a.part + p * slot + static_cast<int64_t>(r) * O + o)
-                          : 0.f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] += v[i][j];
-      }
-    } else if (!StepTile::leader()) {
+    if (split > 1 && !simt::split_k_reduce<StepTile>(acc, a.part, sp, split,
+                                                      m0, n0, B, O,
+                                                      a.counters + t))
       continue;
-    }
+    if (!StepTile::leader()) continue;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int r = m0 + StepTile::row(i);
@@ -352,21 +306,20 @@ __device__ void backward_stage(const StepArgs& a, int l, float* smem) {
   }
 }
 
-// Stages [s0, s1) of the step, with a grid barrier between two stages of one
-// launch (only a cooperative launch runs more than one).
+// The 2L + 1 stages of the step, with a grid barrier between each two.
 template <bool VEC>
 __global__ void __launch_bounds__(kThreads, 1)
-mlp_train_step_kernel(StepArgs a, int s0, int s1) {
+mlp_train_step_kernel(StepArgs a) {
   __shared__ __align__(16) float smem[StepTile::kSmemFloats];
   const int L = a.n_layers;
-  for (int s = s0; s < s1; ++s) {
+  for (int s = 0; s <= 2 * L; ++s) {
+    if (s > 0) cg::this_grid().sync();
     if (s < L)
       forward_stage<VEC>(a, s, smem);
     else if (s == L)
       loss_stage(a);
     else
       backward_stage<VEC>(a, 2 * L - s, smem);
-    if (s + 1 < s1) cg::this_grid().sync();
   }
 }
 
@@ -399,19 +352,17 @@ extern "C" int fused_mlp_train_step_capacity(int* blocks) {
 // (ops/kernels.py): h_1..h_L, the two dz buffers and the row losses, each
 // row padded to 4 floats.  `vec` selects 16-byte loads (every dims[l], l <
 // L, a multiple of 4, and x and the weights 16-byte aligned).  `grid` blocks
-// (at most fused_mlp_train_step_capacity's) run the step; `mode` 0 is one
-// cooperative launch, 1 one plain launch per stage.  `loss` receives the
-// mean loss.  Returns a cudaError_t: 0 on success, the first failure
+// (at most fused_mlp_train_step_capacity's) run the step as one cooperative
+// launch.  `loss` receives the mean loss.  Returns a cudaError_t: 0 on success, the first failure
 // otherwise.
 extern "C" int fused_mlp_train_step_f32(
     const void* x, const void* y, int B, int n_layers, const void* const* ws,
     const void* const* bs, void* const* new_ws, void* const* new_bs,
     const int* dims, const int* acts, int loss_kind, float lr, void* scratch,
     void* part, void* counters, int part_cap, void* loss, int vec, int grid,
-    int mode, void* stream) {
+    void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || grid < 1 ||
-      (loss_kind != kSoftmaxXent && loss_kind != kSquaredError) ||
-      (mode != 0 && mode != 1))
+      (loss_kind != kSoftmaxXent && loss_kind != kSquaredError))
     return static_cast<int>(cudaErrorInvalidValue);
   StepArgs a;
   a.y = static_cast<const float*>(y);
@@ -448,25 +399,13 @@ extern "C" int fused_mlp_train_step_f32(
   a.lr = lr;
   const void* kernel = vec ? reinterpret_cast<const void*>(mlp_train_step_kernel<true>)
                            : reinterpret_cast<const void*>(mlp_train_step_kernel<false>);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_stages = 2 * n_layers + 1;
-  if (mode == 0) {
-    int s0 = 0, s1 = n_stages;
-    void* params[] = {&a, &s0, &s1};
-    cudaError_t e = cudaLaunchCooperativeKernel(kernel, dim3(grid),
-                                                dim3(kThreads), params, 0, st);
-    if (e != cudaSuccess) {
-      cudaGetLastError();  // clear it: the wrapper raises
-      return static_cast<int>(e);
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
-  for (int s0 = 0; s0 < n_stages; ++s0) {
-    int s1 = s0 + 1;
-    void* params[] = {&a, &s0, &s1};
-    cudaError_t e = cudaLaunchKernel(kernel, dim3(grid), dim3(kThreads),
-                                     params, 0, st);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  void* params[] = {&a};
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kThreads), params, 0,
+      static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(e);
   }
   return static_cast<int>(cudaGetLastError());
 }

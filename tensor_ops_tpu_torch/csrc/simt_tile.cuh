@@ -335,4 +335,67 @@ struct Tile {
   }
 };
 
+// Split K over blocks: `split` blocks each hold one K range's partial of
+// the same output tile (m0, n0) of a rows x cols output.  Each writes its
+// partial to its slot `sp` of `part` (split slots of rows x cols floats,
+// row-major), and the last of them to arrive (an integer counter per tile,
+// `counter`) adds the slots in split order into acc.  Returns, to every
+// thread of the block, whether this block is that last one; then its
+// leader threads hold the sum.  No float atomics: the order of the sum is
+// fixed, only which block adds it varies.  Leaves *counter at 0 for the next
+// use.  Call from every thread of the block.
+template <class TL>
+__device__ bool split_k_reduce(float (&acc)[TL::TM][TL::TN], float* part,
+                               int sp, int split, int m0, int n0, int rows,
+                               int cols, int* counter) {
+  __shared__ int is_last;
+  const int64_t slot = static_cast<int64_t>(rows) * cols;
+  if (TL::leader()) {
+    float* mine = part + sp * slot;
+#pragma unroll
+    for (int i = 0; i < TL::TM; ++i) {
+      const int m = m0 + TL::row(i);
+#pragma unroll
+      for (int j = 0; j < TL::TN; ++j) {
+        const int n = n0 + TL::col(j);
+        if (m < rows && n < cols)
+          mine[static_cast<int64_t>(m) * cols + n] = acc[i][j];
+      }
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(counter, 1) == split - 1;
+  __syncthreads();
+  if (!is_last) return false;
+  __threadfence();
+  if (threadIdx.x == 0) *counter = 0;
+  if (!TL::leader()) return true;
+#pragma unroll
+  for (int i = 0; i < TL::TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TL::TN; ++j) acc[i][j] = 0.f;
+  // each slot's TM x TN loads issued together
+#pragma unroll 2
+  for (int p = 0; p < split; ++p) {
+    float v[TL::TM][TL::TN];
+#pragma unroll
+    for (int i = 0; i < TL::TM; ++i) {
+      const int m = m0 + TL::row(i);
+#pragma unroll
+      for (int j = 0; j < TL::TN; ++j) {
+        const int n = n0 + TL::col(j);
+        v[i][j] = (m < rows && n < cols)
+                      ? __ldcg(part + p * slot + static_cast<int64_t>(m) * cols + n)
+                      : 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < TL::TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TL::TN; ++j) acc[i][j] += v[i][j];
+  }
+  return true;
+}
+
 }  // namespace simt

@@ -219,7 +219,9 @@ def fused_linear_ref(x, w, b, act: str = "identity", save_z: bool = False):
 _LINEAR_ENTRIES = {torch.float32: "fused_linear_f32",
                    torch.bfloat16: "fused_linear_bf16"}
 # the instances of csrc/fused_linear.cu, by code: (rows, columns, k) of one
-# block's output tile and stage, and threads per block
+# block's output tile and stage, and threads per block.  These and the step
+# kernel's TRAIN_* below copy the sources' MidTile, LargeTile, kGemvWarps
+# and StepTile; tests/test_torch_kernels.py holds each copy to its source.
 LINEAR_INSTANCES = {"gemv": (0, None, 128), "tile": (1, (32, 64, 16), 128),
                     "large": (2, (128, 128, 8), 256)}
 GEMV_ROWS = (1, 4, 8, 16)     # the gemv's row bounds; B <= 16 takes it
@@ -630,11 +632,9 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
-                               mode: int = 0):
-    """The kernel: ``mode`` 0 one cooperative launch with grid barriers
-    between the stages; 1 one plain launch per stage (the same stages and
-    sums, the kernel boundary as the barrier)."""
+def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind):
+    """The kernel: one cooperative launch with a grid barrier between each
+    two of :func:`train_stages`."""
     dims = _train_step_widths(x, y, weights, biases)
     n, batch, dev = len(weights), x.shape[0], x.get_device()
     grid = train_grid(_train_step_capacity(dev), _sm_count(dev), batch,
@@ -661,7 +661,7 @@ def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_int] + [ctypes.c_void_p] * 6
                  + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
-                 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 3
+                 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p])
 
     def ptrs(ts):
@@ -673,7 +673,7 @@ def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
                      ptrs(ws), ptrs(bs), ptrs(new_ws), ptrs(new_bs), c_dims,
                      c_acts, LOSS_KINDS[loss_kind], float(lr),
                      scratch.data_ptr(), part.data_ptr(), counters.data_ptr(),
-                     part_cap, loss.data_ptr(), int(vec), grid, mode, stream)
+                     part_cap, loss.data_ptr(), int(vec), grid, stream)
     _check_launch("fused_mlp_train_step", err)
     _count("fused_mlp_train_step")
     return (loss,

@@ -10,6 +10,8 @@ Tolerances: 1e-6 at the ``tests/test_pallas.py`` shapes (as there); 1e-5
 at the flagship widths, whose 784-long f32 sums are added in another order;
 1e-5 for gradients (as ``test_pallas.py:49-64``)."""
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from tensor_ops_tpu.ops import pallas_kernels as PK
 from tensor_ops_tpu.testing import rand as r
 from tensor_ops_tpu_torch.ops import kernels as K
+from tensor_ops_tpu_torch.ops.cuda_build import CSRC_DIR
 
 ACTS = ("identity", "logistic", "relu", "tanh")
 FLAGSHIP = (784, 300, 100, 10)
@@ -282,6 +285,49 @@ def test_linear_plan_flagship_layers_fill_the_card_at_batch_100():
     p = K.linear_plan(100, 784, 300)
     assert p.split == 7 and p.kchunk == 112
     assert p.grid[0] * p.grid[1] * p.grid[2] == 140
+
+
+def _cu_tile(source: str, name: str):
+    """(BM, BN, BK, threads) of ``using <name> = ...Tile<BM, BN, BK, TM, TN
+    [, KS]>;`` in ``csrc/<source>``."""
+    text = (CSRC_DIR / source).read_text()
+    m = re.search(rf"using {name} = (?:simt::)?Tile<([\d,\s]+)>;", text)
+    assert m, f"{name} not found in {source}"
+    bm, bn, bk, tm, tn, *ks = map(int, m.group(1).split(","))
+    return bm, bn, bk, (bm // tm) * (bn // tn) * (ks[0] if ks else 1)
+
+
+def _cu_int(source: str, name: str) -> int:
+    m = re.search(rf"constexpr int {name} = (\d+);",
+                  (CSRC_DIR / source).read_text())
+    assert m, f"{name} not found in {source}"
+    return int(m.group(1))
+
+
+@pytest.mark.parametrize("what", ["tile", "large", "gemv", "gemv_rows",
+                                  "train_tile", "train_layers"])
+def test_host_geometry_matches_the_kernel_sources(what):
+    """The host's copy of each kernel's tile shapes (which the plans and
+    scratch sizes are computed from) equals the constants in its source."""
+    if what in ("tile", "large"):
+        tile = {"tile": "MidTile", "large": "LargeTile"}[what]
+        _, shape, threads = K.LINEAR_INSTANCES[what]
+        assert _cu_tile("fused_linear.cu", tile) == (*shape, threads)
+    elif what == "gemv":
+        warps = _cu_int("fused_linear.cu", "kGemvWarps")
+        assert warps == K.GEMV_WARPS
+        assert 32 * warps == K.LINEAR_INSTANCES["gemv"][2]
+    elif what == "gemv_rows":
+        text = (CSRC_DIR / "fused_linear.cu").read_text()
+        rows = tuple(int(r) for r in re.findall(
+            r"case (\d+): launch_gemv<T, \1>", text))
+        assert rows == K.GEMV_ROWS
+    elif what == "train_tile":
+        bm, bn, _, threads = _cu_tile("fused_mlp_train_step.cu", "StepTile")
+        assert (bm, bn, threads) == (K.TRAIN_TILE, K.TRAIN_TILE,
+                                     K.TRAIN_THREADS)
+    else:
+        assert _cu_int("fused_mlp_train_step.cu", "kMaxLayers") == K.MAX_LAYERS
 
 
 def test_linear_plan_refuses_what_the_kernel_cannot_run():
