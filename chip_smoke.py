@@ -20,8 +20,11 @@ without printing a result line:
    K = 13 and 783 (scalar loads) and 4096^3, every activation with and
    without z, each shape rerun bit for bit, and with bf16 operands (y to
    one bf16 ulp of the plain y, z to 1e-4 + 1e-5|z|, each launch counted,
-   the backward's dtypes those of the JAX VJP).  The train step at B = 1
-   to 1000 and both loss kinds, and twice on one input, bit for bit.
+   the backward's dtypes those of the JAX VJP).  The whole-chain forward
+   (one cluster of 16 blocks per row tile) at the flagship for B = 1, 8, 32
+   and 63 and at 33-20-7 for B = 37, with and without softmax, each rerun
+   bit for bit.  The train step at B = 1 to 1000 and both loss kinds, and
+   twice on one input, bit for bit.
 4. Serving slice: the flagship MNIST MLP 784-300-100-10 (random weights,
    seed 0) is saved with ``save_network`` and served through the serve app
    (``tensor_ops_tpu_torch.apps.serve.main``) and through a per-layer
@@ -52,14 +55,18 @@ without printing a result line:
    recurrent slice's shapes (B = 1 and 256, 32 -> 512) and ragged ones (B =
    37 and 5, 3 -> 45), every activation, bit for bit on a rerun, and the
    gradients of its ``autograd.Function`` against autograd through the
-   plain version.
+   plain version.  The sequence kernel (one cluster launch per sequence)
+   against ``fused_rnn_seq_ref`` and bit for bit against n step launches
+   at 32 -> 512 (n = 64, B = 1 and n = 8, B = 4) and 3 -> 45 (n = 5), every
+   activation, bit for bit on a rerun; the "steps" plan at 32 -> 1024.
 9. Recurrent slice: the Elman 32 -> [512] -> 32 model of
    ``scratch/fit_seq_realized.py`` (random weights, seed 7) is saved with
    ``save_recurrent`` and 8 sequences of 64 steps are served through the
    serve app (``--probs`` trajectories, then ``--bench --seq-len 64``),
    held against the port's ``SequencePredictor`` on the CPU in float64;
    ``FusedRNN(impl="pallas")`` built from the served model's cell runs the
-   8 sequences, one ``fused_rnn_step`` launch per timestep, and the served
+   8 sequences, one launch of the sequence kernel each (8
+   ``fused_rnn_step.seq`` launches, no ``fused_rnn_step``), and the served
    trajectories are rebuilt from its outputs; five ``FusedRNN.train``
    steps on the two impls and in CPU float64 agree; the sequence gradient
    is bit-identical with and without ``offload_tape``.
@@ -90,7 +97,10 @@ without printing a result line:
    int8 request's and one recurrent request's time goes on each route
    (wall, kernels, device busy), the device memory each served model holds
    (f32 vs int8), the app's training samples/s per route, a FusedRNN
-   sequence's wall time and launches, kernel 1's device time and event
+   sequence's wall and device time, launches, idle share and bound, kernel
+   2's device time and event median at B = 1, 8 and 63 beside its bound, its
+   plain version and kernel 1's three per-layer launches, kernel 1's
+   device time and event
    median against ``torch.addmm``'s in turns over 3 repetitions beside its
    bound at the identity layer, 784->300 at B = 8, the three flagship
    layers at B = 100 and 4096^3, kernel 3 at B = 100, 400 and 1000 with
@@ -111,8 +121,12 @@ for the collectives' all-reduce; null where no one call does).  Kernels 8
 and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
-come from calling it directly.  The last line is ``{"ok": true, "device":
-{...}}``.
+come from calling it directly.  Kernel 7 appears twice too: as
+``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
+launches for the 8 served sequences, timed at n = 64, B = 1), and as
+``fused_rnn_step`` the per-step entry (the public per-step function and the
+"steps" plan of a cell too wide for the cluster: 0 launches on that path,
+timed at B = 1).  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -169,6 +183,10 @@ KERNELS = {
         source="tensor_ops_tpu_torch/csrc/fused_mlp_w8a8_forward.cu",
         replaces="tensor_ops_tpu/ops/pallas_kernels.py:823"),
     "fused_rnn_step": dict(
+        route="cuda", source="tensor_ops_tpu_torch/csrc/fused_rnn_step.cu",
+        replaces="tensor_ops_tpu/ops/pallas_kernels.py:959"),
+    # kernel 7's whole-sequence entry (FusedRNN's route), the same library
+    "fused_rnn_step.seq": dict(
         route="cuda", source="tensor_ops_tpu_torch/csrc/fused_rnn_step.cu",
         replaces="tensor_ops_tpu/ops/pallas_kernels.py:959"),
     # kernels 8-9 on one card: the one-shot (csrc/oneshot.cuh) under the
@@ -230,6 +248,15 @@ RNN_SEQS, RNN_BUCKETS = 8, (8, 256)
 RNN_STEP_SHAPES = ((1, RNN_IN, RNN_HIDDEN), (256, RNN_IN, RNN_HIDDEN),
                    (37, 3, 45), (5, 3, 45))
 ACTS = ("identity", "logistic", "relu", "tanh")
+# The sequence kernel against n step launches (bit for bit) and its plain
+# version: FusedRNN's shape (n = 64, B = 1), its row bound (B = 4) and a
+# ragged cell (3 -> 45).  Against the plain loop each step's z is held as
+# above (TOL_Z): the weights at 1/sqrt(I + O) scale make the step a
+# contraction (|Ws| near 1), so one step's rounding does not grow over the
+# sequence, and the final state as z.
+RNN_SEQ_SHAPES = ((RNN_N, 1, RNN_IN, RNN_HIDDEN), (8, 4, RNN_IN, RNN_HIDDEN),
+                  (5, 1, 3, 45))
+TOL_SEQ = TOL_Z
 # The step kernel against its plain version: y = z, a 544-long f32 sum in
 # another order, is held as the pre-activations above (TOL_Z); s' = act(z)
 # to 1e-5 (weights at 1/sqrt(K) scale keep |z| of order 1, where the sums
@@ -391,7 +418,7 @@ def phase_kernels() -> dict:
     worst["fused_linear"] = max(worst["fused_linear"], phase_linear_bf16())
 
     nets = [(FLAGSHIP, ("logistic", "logistic", "identity"), B, sm)
-            for B in (1, 8, 63) for sm in (True, False)]
+            for B in (1, 8, 32, 63) for sm in (True, False)]
     nets += [((33, 20, 7), ("tanh", "relu"), 37, False),
              ((33, 20, 7), ("relu", "identity"), 37, True)]
     for n, (dims, acts, B, sm) in enumerate(nets):
@@ -401,16 +428,22 @@ def phase_kernels() -> dict:
         bs = [_rand(60 + 10 * n + i, dims[i + 1], scale=0.5)
               for i in range(len(dims) - 1)]
         y = K._fused_mlp_forward_cuda(x, ws, bs, acts, sm)
+        y2 = K._fused_mlp_forward_cuda(x, ws, bs, acts, sm)
         torch.cuda.synchronize()
+        check(torch.equal(y, y2), f"fused_mlp_forward B={B} {dims}: a rerun "
+              f"differs")
         y_ref = K.fused_mlp_forward_ref(x, ws, bs, acts, sm)
         tol = TOL_P if sm else TOL_Z
         e = max_err(y, y_ref, tol)
         if sm:
             max_err(y.sum(dim=1), torch.ones(B), TOL_P)
         worst["fused_mlp_forward"] = max(worst["fused_mlp_forward"], e)
+        plan = K.mlp_forward_plan(B, dims)
         log(f"[kernel] fused_mlp_forward B={B} {'-'.join(map(str, dims))} "
-            f"softmax={int(sm)} rows/block={K.tile_rows(B, dims)} "
-            f"max|err| {e:.2e} tol {tol[0]:g}+{tol[1]:g}|ref|")
+            f"softmax={int(sm)} rows/tile {plan.rows}, {plan.tiles} clusters "
+            f"of {K.MLP_CLUSTER} blocks ({plan.smem_bytes} bytes of shared "
+            f"memory each) max|err| {e:.2e} tol {tol[0]:g}+{tol[1]:g}|ref|; "
+            f"rerun bit-equal")
 
     steps = [((12, 8, 6, 4), ("logistic", "logistic", "identity"), 16,
               "softmax_xent")]
@@ -1078,18 +1111,61 @@ def phase_timing(model) -> dict:
             if what.startswith("identity"):
                 times["fused_linear"] = times_l
         for B in (1, 8, 63):
-            x = _rand(80 + B, B, FLAGSHIP[0], uniform=True)
-            k_ms = _median_ms(lambda: K._fused_mlp_forward_cuda(
-                x, ws, bs, acts, True))
-            p_ms = _median_ms(lambda: K.fused_mlp_forward_ref(
-                x, ws, bs, acts, True))
-            log(f"[timing] fused_mlp_forward B={B} flagship: kernel "
-                f"{k_ms:.4f} ms, plain {p_ms:.4f} ms")
+            times_b = mlp_forward_timing(B, ws, bs, acts)
             if B == 8:
-                times["fused_mlp_forward"] = (k_ms, p_ms)
+                times["fused_mlp_forward"] = times_b
 
     times["fused_mlp_train_step"] = train_step_timing()
     return times
+
+
+def mlp_forward_timing(B: int, ws, bs, acts) -> tuple:
+    """Kernel 2 on the flagship at batch B: its profiler device time and
+    CUDA-event median beside its bound, its plain version and kernel 1's
+    three per-layer launches at the same B (the per-layer route's kernel
+    time, which the whole-chain kernel exists to beat).  Returns (kernel
+    ms, plain ms, device us)."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    x = _rand(80 + B, B, FLAGSHIP[0], uniform=True)
+
+    def kernel():
+        return K._fused_mlp_forward_cuda(x, ws, bs, acts, True)
+
+    def per_layer():
+        h = x
+        for w, b, a in zip(ws, bs, acts):
+            h = K._fused_linear_cuda(h, w, b, a, False)[0]
+        return torch.softmax(h, dim=-1)
+
+    prof = _profile_steps(kernel)
+    check(list(prof["by_kernel"]) == ["mlp_forward_kernel"], f"profiler saw "
+          f"{sorted(prof['by_kernel'])} for fused_mlp_forward B={B}")
+    layers = _profile_steps(per_layer)
+    linear_us = sum(us for n, us in layers["by_kernel"].items()
+                    if n.startswith("linear_"))
+    k_ms = _median_ms(kernel)
+    p_ms = _median_ms(lambda: K.fused_mlp_forward_ref(x, ws, bs, acts, True))
+    l_ms = _median_ms(per_layer)
+    plan = K.mlp_forward_plan(B, FLAGSHIP)
+    least = mlp_forward_bound(B)
+    log(f"[timing] fused_mlp_forward B={B} flagship: {plan.tiles} clusters "
+        f"of {K.MLP_CLUSTER} blocks, {plan.rows} rows a tile; device "
+        f"{prof['busy_us']:.2f} us ({prof['busy_us'] / (least[0] * 1e3):.1f}x"
+        f" the bound {least[0] * 1e3:.3f} us by {least[1]}); kernel 1's three "
+        f"per-layer launches ({', '.join(K.linear_plan(B, k, o).instance for k, o in zip(FLAGSHIP[:-1], FLAGSHIP[1:]))}) "
+        f"{linear_us:.2f} us of device time; events kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, per-layer route {l_ms:.4f} ms")
+    return k_ms, p_ms, None, prof["busy_us"]
+
+
+def mlp_forward_bound(B: int):
+    """Kernel 2 on the flagship at batch B: x, every weight and bias read
+    once, the probabilities written once; 2 B sum(k o) f32 operations."""
+    layers = list(zip(FLAGSHIP[:-1], FLAGSHIP[1:]))
+    params = sum(k * o + o for k, o in layers)
+    return _bound(4 * (B * FLAGSHIP[0] + params + B * FLAGSHIP[-1]),
+                  2 * B * sum(k * o for k, o in layers), "f32")
 
 
 def linear_timing(what: str, layers) -> tuple:
@@ -1461,6 +1537,69 @@ def phase_rnn_kernels() -> float:
     return worst
 
 
+def rnn_seq_inputs(seed: int, n: int, B: int, I: int, O: int):
+    """xs (n, B, I) normal and the step's s0, Wx, Ws, b (rnn_step_inputs),
+    all f32 on the card."""
+    _, s0, wx, ws, b = rnn_step_inputs(seed, B, I, O)
+    xs = np.random.default_rng(seed + 1).normal(size=(n, B, I))
+    return (torch.as_tensor(xs.astype(np.float32), device=DEVICE), s0, wx, ws,
+            b)
+
+
+def phase_rnn_seq_kernel() -> float:
+    """Kernel 7's sequence entry against its plain version and, bit for bit,
+    against n step launches, every activation, rerun bit for bit; then the
+    "steps" plan of a cell too wide for the cluster, through the public
+    wrapper, with its launches counted."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    worst = 0.0
+    for n_case, (n, B, I, O) in enumerate(RNN_SEQ_SHAPES):
+        args = rnn_seq_inputs(900 + n_case, n, B, I, O)
+        check(K.rnn_seq_plan(B, I, O) == "resident",
+              f"rnn_seq_plan({B}, {I}, {O}) is not resident")
+        errs = []
+        for act in ACTS:
+            ys, sf = K._fused_rnn_seq_cuda(*args, act)
+            ys2, sf2 = K._fused_rnn_seq_cuda(*args, act)
+            st, out = args[1], []
+            for t in range(n):
+                y, st = K._fused_rnn_step_cuda(args[0][t], st, *args[2:], act)
+                out.append(y)
+            torch.cuda.synchronize()
+            check(torch.equal(ys, ys2) and torch.equal(sf, sf2),
+                  f"fused_rnn_seq n={n} B={B} {I}->{O} {act}: a rerun differs")
+            check(torch.equal(ys, torch.stack(out)) and torch.equal(sf, st),
+                  f"fused_rnn_seq n={n} B={B} {I}->{O} {act}: not bit-equal "
+                  f"to {n} fused_rnn_step launches")
+            y_ref, s_ref = K.fused_rnn_seq_ref(*args, act)
+            e = max(max_err(ys, y_ref, TOL_SEQ), max_err(sf, s_ref, TOL_SEQ))
+            worst = max(worst, e)
+            errs.append(f"{act} {e:.1e}")
+        log(f"[rnn-kernel] fused_rnn_seq n={n} B={B} {I}->{O}: one launch "
+            f"of {K.RNN_SEQ_CLUSTER} blocks ({K.rnn_seq_smem_bytes(B, I, O)} "
+            f"bytes of shared memory each; the card holds "
+            f"{K._seq_cluster_capacity(0, B, I, O)} such clusters at once); "
+            f"bit-equal to {n} fused_rnn_step launches and on a rerun; vs "
+            f"fused_rnn_seq_ref max|err| {', '.join(errs)} (tol "
+            f"{TOL_SEQ[0]:g}+{TOL_SEQ[1]:g}|ref|)")
+    n, B, I, O = 3, 1, RNN_IN, 2 * RNN_HIDDEN
+    check(K.rnn_seq_plan(B, I, O) == "steps", f"rnn_seq_plan({B}, {I}, {O})")
+    args = rnn_seq_inputs(990, n, B, I, O)
+    K.reset_launch_counts()
+    ys, sf = K.fused_rnn_seq(*args, "tanh")
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    check(counts["fused_rnn_step"] == n and counts["fused_rnn_step.seq"] == 0,
+          f"the steps plan launched {counts}")
+    y_ref, s_ref = K.fused_rnn_seq_ref(*args, "tanh")
+    e = max(max_err(ys, y_ref, TOL_SEQ), max_err(sf, s_ref, TOL_SEQ))
+    log(f"[rnn-kernel] fused_rnn_seq n={n} B={B} {I}->{O}: plan steps "
+        f"({K.rnn_seq_smem_bytes(B, I, O)} bytes a block would need), {n} "
+        f"fused_rnn_step launches, 0 sequence launches; max|err| {e:.1e}")
+    return max(worst, e)
+
+
 def rnn_model(be, seed: int = RNN_SEED):
     from tensor_ops_tpu_torch.backend.rng import Rng
     from tensor_ops_tpu_torch.models import act_logistic
@@ -1541,17 +1680,20 @@ def phase_rnn_slice(tmp: str) -> dict:
     K.reset_launch_counts()
     ys = [frnn.seq_forward(x)[0] for x in xs_dev]
     torch.cuda.synchronize()
-    launches = K.launch_counts()["fused_rnn_step"]
-    check(launches == RNN_SEQS * RNN_N, f"FusedRNN(impl='pallas') over "
-          f"{RNN_SEQS} x {RNN_N} steps launched fused_rnn_step {launches} "
-          f"times")
+    counts = K.launch_counts()
+    launches = counts["fused_rnn_step.seq"]
+    check(launches == RNN_SEQS and counts["fused_rnn_step"] == 0,
+          f"FusedRNN(impl='pallas') over {RNN_SEQS} x {RNN_N} steps launched "
+          f"fused_rnn_step.seq {launches} and fused_rnn_step "
+          f"{counts['fused_rnn_step']} times, want {RNN_SEQS} and 0")
     logistic = K._act_fn("logistic")
     rebuilt = torch.stack([logistic(logistic(y) @ w2.T + b2) for y in ys])
     e_k = max_err(rebuilt, torch.as_tensor(served),
                   (tol_seq[0] + rounding, 0.0))
     e_k64 = max_err(rebuilt, torch.as_tensor(cpu[torch.float64]), tol_seq)
     log(f"[rnn] FusedRNN(impl='pallas') from the served model's cell (params "
-        f"0-2, state 0): {launches} fused_rnn_step launches for {RNN_SEQS} "
+        f"0-2, state 0): {launches} fused_rnn_step.seq launches (one a "
+        f"sequence) and 0 fused_rnn_step for {RNN_SEQS} "
         f"sequences of {RNN_N}; logistic(logistic(ys) W2^T + b2) vs the "
         f"served trajectories max|err| {e_k:.2e}, vs the CPU f64 run "
         f"{e_k64:.2e} (tol as above)")
@@ -1614,14 +1756,17 @@ def phase_rnn_slice(tmp: str) -> dict:
     log(f"[rnn] sequence gradient (n={RNN_N}) with offload_tape: "
         f"bit-identical to the on-device tape, plain and remat_every=8; "
         f"the {RNN_N} taped carries are pinned host tensors")
-    return {"launches": launches, "net": net, "frnn": frnn, "be": be,
+    return {"launches": launches, "step launches": counts["fused_rnn_step"],
+            "net": net, "frnn": frnn, "be": be,
             "xs": xs_dev, "served_err": e_app}
 
 
 def phase_rnn_timing(rs) -> dict:
-    """Kernel 7 vs its plain version at B = 1 and 256, a FusedRNN
-    sequence's wall time and launches, and SequencePredictor requests at
-    buckets 8 and 256 (p50, and where a request's time goes)."""
+    """Kernel 7's step entry vs its plain version at B = 1 and 256, its
+    sequence entry at n = 64, B = 1 vs its plain version and the 64 step
+    launches, a FusedRNN sequence's wall and device time, launches and idle
+    share, and SequencePredictor requests at buckets 8 and 256 (p50, and
+    where a request's time goes)."""
     from tensor_ops_tpu_torch.models import SequencePredictor
     from tensor_ops_tpu_torch.ops import kernels as K
 
@@ -1645,6 +1790,25 @@ def phase_rnn_timing(rs) -> dict:
                 f"{bound[0] * 1e3:.3f} us by {bound[1]}")
             times[B] = (k_ms, p_ms, prof["busy_us"])
 
+    # the sequence entry alone, at FusedRNN's shape, against its plain
+    # version and the 64 step launches it replaces
+    with torch.inference_mode():
+        args = rnn_seq_inputs(810, RNN_N, 1, RNN_IN, RNN_HIDDEN)
+        k_ms = _median_ms(lambda: K._fused_rnn_seq_cuda(*args, "logistic"))
+        p_ms = _median_ms(lambda: K.fused_rnn_seq_ref(*args, "logistic"))
+        prof = _profile_steps(lambda: K._fused_rnn_seq_cuda(*args,
+                                                            "logistic"))
+        check(list(prof["by_kernel"]) == ["rnn_seq_kernel"], f"profiler saw "
+              f"{sorted(prof['by_kernel'])} for fused_rnn_seq")
+        least = rnn_seq_bound(RNN_N, 1)
+        log(f"[timing] fused_rnn_seq n={RNN_N} B=1 {RNN_IN}->{RNN_HIDDEN} "
+            f"logistic: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; device "
+            f"{prof['busy_us']:.2f} us ({prof['busy_us'] / RNN_N:.3f} us a "
+            f"step) against {RNN_N} step launches' {RNN_N * times[1][2]:.2f} "
+            f"us; bound {least[0] * 1e3:.3f} us by {least[1]} (the {RNN_N} "
+            f"dependent steps set the pace, not this bound)")
+        times["seq"] = (k_ms, p_ms, prof["busy_us"])
+
     frnn, xs = rs["frnn"], rs["xs"]
     for x in xs[:2]:
         frnn.seq_forward(x)
@@ -1655,13 +1819,18 @@ def phase_rnn_timing(rs) -> dict:
         frnn.seq_forward(x)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / len(xs) * 1e3
-    per_seq = K.launch_counts()["fused_rnn_step"] / len(xs)
+    counts = K.launch_counts()
     prof = _profile_steps(lambda: frnn.seq_forward(xs[0]), steps=4)
     log(f"[timing] FusedRNN(impl='pallas').seq_forward n={RNN_N}: "
-        f"{wall_ms:.3f} ms/sequence wall, {per_seq:.0f} fused_rnn_step "
+        f"{wall_ms:.3f} ms/sequence wall, "
+        f"{counts['fused_rnn_step.seq'] / len(xs):.0f} fused_rnn_step.seq and "
+        f"{counts['fused_rnn_step'] / len(xs):.0f} fused_rnn_step "
         f"launches/sequence; device busy {prof['busy_us']:.1f} us/sequence "
-        f"in {prof['launches']:.0f} kernels, idle share "
-        f"{1 - prof['busy_us'] / (wall_ms * 1e3):.3f}")
+        f"({prof['busy_us'] / RNN_N:.3f} us/step) in "
+        f"{prof['launches']:.0f} kernels + {prof['copies']:.0f} copies, idle "
+        f"share {1 - prof['busy_us'] / (wall_ms * 1e3):.3f}; largest "
+        f"(us/sequence): " + ", ".join(f"{n} {us:.1f}" for n, us in
+                                       list(prof["by_kernel"].items())[:3]))
 
     sp = SequencePredictor(rs["net"], rs["be"], buckets=RNN_BUCKETS)
     sp.warmup([RNN_N])
@@ -2150,9 +2319,7 @@ def bounds() -> dict:
         # the flagship's identity layer (100 -> 10) at B=8
         "fused_linear": _bound(4 * (B * k + o * k + o + B * o), 2 * B * k * o,
                                "f32"),
-        "fused_mlp_forward": _bound(
-            4 * (B * FLAGSHIP[0] + params + B * FLAGSHIP[-1]),
-            2 * B * kos, "f32"),
+        "fused_mlp_forward": mlp_forward_bound(B),
         # B=100: x, one-hot y, the parameters read and written, the loss;
         # forward, weight gradients and all but the first input gradient
         "fused_mlp_train_step": _bound(
@@ -2164,8 +2331,10 @@ def bounds() -> dict:
         "fused_mlp_w8a8_forward": _bound(
             Bs * n * 4 + L * n * n + 2 * L * n * 4 + Bs * n * 4,
             2 * L * Bs * n * n, "int8"),
-        # FusedRNN's per-timestep launch: B=1 at 32 -> 512
+        # one step at B=1, 32 -> 512 (the per-step function)
         "fused_rnn_step": rnn_step_bound(1),
+        # FusedRNN's sequence: 64 steps at B=1, 32 -> 512
+        "fused_rnn_step.seq": rnn_seq_bound(RNN_N, 1),
         # the flagship's 300x784 weight over the dp slice's ranks, on
         # either route: the function's bytes, whatever the algorithm
         "ring_all_reduce": ring_bound("one-way ar", DP_RANKS,
@@ -2186,6 +2355,15 @@ def rnn_step_bound(B: int):
                   2 * B * (I + O) * O, "f32")
 
 
+def rnn_seq_bound(n: int, B: int):
+    """Kernel 7's sequence entry at the recurrent slice's widths: the
+    weights and bias once, xs, s0, ys and the final state; 2 n B (I + O) O
+    f32 operations.  The n dependent steps set its pace, not this bound."""
+    I, O = RNN_IN, RNN_HIDDEN
+    return _bound(4 * (O * I + O * O + O + n * B * I + B * O + n * B * O
+                       + B * O), 2 * n * B * (I + O) * O, "f32")
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging the phase's wall time."""
     t0 = time.perf_counter()
@@ -2202,6 +2380,8 @@ def main() -> int:
     stack = {"model": qm, "weights": weights, "x": xs}
     worst.update(timed("int8 kernels", phase_int8_kernels, stack))
     worst["fused_rnn_step"] = timed("recurrent kernel", phase_rnn_kernels)
+    worst["fused_rnn_step.seq"] = timed("recurrent sequence kernel",
+                                        phase_rnn_seq_kernel)
     worst.update(timed("ring kernels", phase_ring_kernels))
     timed("cross-card ring", phase_ring_cross_card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2214,8 +2394,9 @@ def main() -> int:
     times = timed("serving timing", phase_timing, sl["model"])
     times.update(timed("int8 timing", phase_int8_timing, sv, stack))
     timed("training routes", phase_train_routes)
-    times["fused_rnn_step"] = timed("recurrent timing", phase_rnn_timing,
-                                    rs)[1]
+    rnn_times = timed("recurrent timing", phase_rnn_timing, rs)
+    times["fused_rnn_step"] = rnn_times[1]
+    times["fused_rnn_step.seq"] = rnn_times["seq"]
     times.update(timed("data-parallel timing", phase_dp_timing, dp))
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
@@ -2224,12 +2405,15 @@ def main() -> int:
     # each kernel's launches are those of the path it serves: the serving
     # slice for the two forward kernels, the --fused mnist run for the step,
     # the int8 serve app's route for each int8 kernel, FusedRNN over the
-    # served sequences for the Elman step
+    # served sequences for the Elman sequence (one launch each; the step
+    # kernel, the route of a cell too wide for the cluster and of the
+    # per-step function, is launched 0 times there)
     launches = dict(sl["launches"])
     launches["fused_mlp_train_step"] = (
         tr["fused"]["launches"]["fused_mlp_train_step"])
     launches.update(sv["launches"])
-    launches["fused_rnn_step"] = rs["launches"]
+    launches["fused_rnn_step"] = rs["step launches"]
+    launches["fused_rnn_step.seq"] = rs["launches"]
     # the dp slice's DP_STEPS steps on each ring's route: the one-shot's
     # launches, and the ring protocol's (the route of ranks on several
     # cards: 0 on one card)

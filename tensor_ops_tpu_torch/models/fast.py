@@ -16,9 +16,9 @@ served through ``fused_linear_w8a8`` or ``fused_linear_w8`` per layer, or,
 for a uniform stack, the whole-MLP ``fused_mlp_w8a8_forward``.
 
 ``FusedRNN`` is the Elman layer (the recurrent ``fully_connected`` cell)
-driven over a sequence by a loop of steps, each step either plain PyTorch
-(``impl="xla"``) or one launch of the ``fused_rnn_step`` kernel
-(``impl="pallas"``).
+driven over a sequence either by a loop of plain PyTorch steps
+(``impl="xla"``) or by one ``fused_rnn_seq`` call, one launch of the
+sequence kernel on the card (``impl="pallas"``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ import torch
 from ..ops.kernels import (_act_fn, _check_names, fused_linear,
                            fused_linear_w8, fused_linear_w8a8,
                            fused_mlp_forward, fused_mlp_train_step,
-                           fused_mlp_w8a8_forward, fused_rnn_step, pad_codes,
+                           fused_mlp_w8a8_forward, fused_rnn_seq, pad_codes,
                            quantize_weights_int8)
 from .feedforward import Network
 
@@ -344,7 +344,7 @@ RNN_IMPLS = ("xla", "pallas")
 @dataclass
 class FusedRNN:
     """Fused Elman recurrent layer (the ``fullyConnected`` cell,
-    ``Recurrent.hs:97-125``) run over a sequence by a loop of steps.
+    ``Recurrent.hs:97-125``) run over a sequence.
     Parameters follow the reference layout: wX (o, i), wS (o, o), b (o,),
     and the initial state s0 (o,), all tensors on one device.
 
@@ -353,8 +353,10 @@ class FusedRNN:
     - ``"xla"`` (default): each step is the plain PyTorch cell
       ``wX @ xt + wS @ s + b`` and the activation (cuBLAS on the card, no
       hand-written kernel), as the JAX package leaves it to XLA;
-    - ``"pallas"``: each step is one launch of the hand-written
-      ``fused_rnn_step`` kernel (its plain version on the CPU).
+    - ``"pallas"``: the whole sequence is one ``fused_rnn_seq`` call: on
+      the card one launch of the hand-written sequence kernel (or, for a
+      cell too wide for it, one ``fused_rnn_step`` launch per step), on the
+      CPU its plain version.
 
     The model is immutable: ``train`` returns a new one, with the same
     ``impl``."""
@@ -405,32 +407,20 @@ class FusedRNN:
 
         return cls(t(wX), t(wS), t(b), t(s0), act, precision, impl)
 
-    def _step_builder(self):
-        """(wX, wS, b) -> step ``(s, xt) -> (s', y)`` with y = z the
-        pre-activation and s' = act(z), per the chosen ``impl``."""
-        if self.impl == "pallas":
-            def make(wX, wS, b):
-                def step(s, xt):
-                    y, snew = fused_rnn_step(xt[None], s[None], wX, wS, b,
-                                             self.act, self.precision)
-                    return snew[0], y[0]
-                return step
-        else:
-            act = _act_fn(self.act)
-
-            def make(wX, wS, b):
-                def step(s, xt):
-                    z = wX @ xt + wS @ s + b
-                    return act(z), z
-                return step
-        return make
-
     def _scan(self, wX, wS, b, s0, xs):
-        step = self._step_builder()(wX, wS, b)
+        """xs (n, i) from s0 (o,) -> (ys (n, o) pre-activations, final
+        state): one ``fused_rnn_seq`` call (``impl="pallas"``) or a loop of
+        the plain cell (``impl="xla"``)."""
+        if self.impl == "pallas":
+            ys, s = fused_rnn_seq(xs[:, None], s0[None], wX, wS, b, self.act,
+                                  self.precision)
+            return ys[:, 0], s[0]
+        act = _act_fn(self.act)
         s, ys = s0, []
         for t in range(xs.shape[0]):
-            s, y = step(s, xs[t])
-            ys.append(y)
+            z = wX @ xs[t] + wS @ s + b
+            s = act(z)
+            ys.append(z)
         return torch.stack(ys), s
 
     def _as(self, a) -> torch.Tensor:

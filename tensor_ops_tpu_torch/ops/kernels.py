@@ -7,8 +7,9 @@ beside its plain PyTorch version.
   backward in plain PyTorch as the JAX package's backward is plain XLA.
   :func:`linear_plan` picks one of its three instances per shape.
 * :func:`fused_mlp_forward` — a whole ffLayer chain with an optional
-  softmax output in one launch (``csrc/fused_mlp_forward.cu``), the port of
-  the TPU kernel ``_mlp_kernel``.
+  softmax output in one launch of a thread block cluster per batch tile
+  (``csrc/fused_mlp_forward.cu``; :func:`mlp_forward_plan` sizes it), the
+  port of the TPU kernel ``_mlp_kernel``.
 * :func:`fused_mlp_train_step` — one whole SGD step (forward, loss,
   backward, update) in one cooperative launch whose stages
   (:func:`train_stages`) each spread over the whole card
@@ -26,7 +27,9 @@ beside its plain PyTorch version.
 * :func:`fused_rnn_step` — one Elman step ``z = x @ wx.T + s @ ws.T + b``,
   ``(y, s') = (z, act(z))`` (``csrc/fused_rnn_step.cu``), the port of
   ``_rnn_step_kernel``, with its backward in plain PyTorch as the JAX
-  package's VJP is plain XLA.
+  package's VJP is plain XLA; and :func:`fused_rnn_seq`, a whole sequence
+  of such steps in one launch of a thread block cluster that keeps the
+  weights on chip (:func:`rnn_seq_plan`), with plain BPTT as its backward.
 
 The quantizers :func:`quantize_weights_int8` and :func:`quantize_acts_int8`
 are plain PyTorch on every device, as the JAX package leaves them to XLA.
@@ -54,7 +57,6 @@ import torch
 ACT_CODES = {"identity": 0, "logistic": 1, "relu": 2, "tanh": 3}
 PRECISIONS = ("default", "highest")
 MAX_SMEM_BYTES = 227 * 1024  # dynamic shared memory one H100 block may use
-MAX_TILE_ROWS = 32           # fused_mlp_forward: one partial sum per lane
 MAX_LAYERS = 16              # whole-chain kernels: layers in one launch
 LOSS_KINDS = {"softmax_xent": 0, "squared_error": 1}
 H100_SMS = 132               # streaming multiprocessors of one H100
@@ -65,6 +67,9 @@ _launches: Dict[str, int] = {"fused_linear": 0, "fused_mlp_forward": 0,
                              "fused_linear_w8a8": 0,
                              "fused_mlp_w8a8_forward": 0,
                              "fused_rnn_step": 0,
+                             # a whole sequence in one launch of the same
+                             # library (fused_rnn_seq)
+                             "fused_rnn_step.seq": 0,
                              # the collectives of parallel/: the one-shot
                              # (ranks on one card) under the kernel's name,
                              # the ring protocol (several cards) as .ring
@@ -413,24 +418,60 @@ def fused_mlp_forward_ref(x, weights, biases, acts: Sequence[str],
     return h.to(x.dtype)
 
 
-def tile_rows(batch: int, widths: Sequence[int]) -> int:
-    """Batch rows per block of the whole-chain kernel: as many as let two
-    ``rows x stride`` f32 activation buffers fit in one block's shared
-    memory, at most :data:`MAX_TILE_ROWS`.  Raises ``ValueError`` when not
-    even one row fits."""
+MLP_CLUSTER = 16          # fused_mlp_forward: blocks per row tile (a cluster)
+MLP_THREADS = 512         # fused_mlp_forward: threads per block
+MLP_ROWS = (1, 2, 4, 8)   # fused_mlp_forward: its row-tile instances
+
+
+class MlpPlan(NamedTuple):
+    """How ``fused_mlp_forward`` runs a batch: tiles of ``rows`` rows, each
+    one cluster of :data:`MLP_CLUSTER` blocks (``tiles`` clusters, ``blocks``
+    blocks in all), activation rows of ``stride`` floats in two buffers,
+    ``smem_bytes`` per block with the layers' mbarriers."""
+    rows: int
+    stride: int
+    tiles: int
+    blocks: int
+    smem_bytes: int
+
+
+def mlp_forward_plan(batch: int, widths: Sequence[int]) -> MlpPlan:
+    """The whole-chain kernel's plan for ``batch`` rows through layers of
+    ``widths`` (``[i, o_0, .., o_{L-1}]``), a fixed rule: the row tile is
+    the least of :data:`MLP_ROWS` that covers ``min(batch, 8)``, halved
+    while its two ``rows x stride`` f32 buffers and the 16 layers' 8-byte
+    mbarriers overflow one block's shared memory; ``stride`` is the widest width rounded up to 4 floats (16-byte
+    rows), plus 4 where that is a multiple of 32 (rows on distinct banks).
+    Raises ``ValueError`` naming the width when not even one row fits."""
     widest = max(widths)
-    stride = widest | 1
-    per_row = 2 * stride * 4
-    fit = MAX_SMEM_BYTES // per_row
-    if fit < 1:
+    stride = _cdiv(widest, 4) * 4
+    if stride % 32 == 0:
+        stride += 4
+    def smem(rows):
+        return 2 * rows * stride * 4 + 8 * MAX_LAYERS
+
+    rows = next(r for r in MLP_ROWS if r >= min(batch, MLP_ROWS[-1]))
+    while rows > 1 and smem(rows) > MAX_SMEM_BYTES:
+        rows //= 2
+    if smem(1) > MAX_SMEM_BYTES:
         raise ValueError(
-            f"fused_mlp_forward: a layer width of {widest} needs {per_row} "
-            f"bytes of shared memory per batch row, more than the "
-            f"{MAX_SMEM_BYTES} one block has")
-    return max(1, min(batch, MAX_TILE_ROWS, fit))
+            f"fused_mlp_forward: a layer width of {widest} needs "
+            f"{2 * stride * 4} bytes of shared memory per batch row, more "
+            f"than the {MAX_SMEM_BYTES} one block has")
+    tiles = _cdiv(batch, rows)
+    return MlpPlan(rows, stride, tiles, tiles * MLP_CLUSTER, smem(rows))
 
 
-def _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out):
+_mlp_calls: dict = {}  # (B, dims, acts, softmax_out, card) -> call
+_MLP_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _mlp_widths(x, weights, biases) -> List[int]:
+    """``[i, o_0, .., o_{L-1}]`` after checking the layer count, the shapes
+    and that every tensor is on x's device."""
     n = len(weights)
     if n > MAX_LAYERS:
         raise ValueError(f"fused_mlp_forward: {n} layers exceed the "
@@ -450,41 +491,58 @@ def _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out):
             raise ValueError("fused_mlp_forward: x and every weight and "
                              "bias must be on one device")
         dims.append(w.shape[0])
-    B = x.shape[0]
-    rows = tile_rows(B, dims)
-    xf = x.to(torch.float32).contiguous()
-    ws = [w.to(torch.float32).contiguous() for w in weights]
-    bs = [b.to(torch.float32).contiguous() for b in biases]
-    y = torch.empty((B, dims[-1]), dtype=torch.float32, device=x.device)
+    return dims
+
+
+def _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out):
+    """The kernel: ``mlp_forward_plan``'s row tiles, one cluster each; the
+    plan, the C entry and the ctypes widths and activations cached per call
+    shape."""
+    n, B, dev = len(weights), x.shape[0], x.get_device()
+    key = (tuple(x.shape), tuple(tuple(w.shape) for w in weights),
+           tuple(tuple(b.shape) for b in biases), tuple(acts),
+           bool(softmax_out), dev)
+    call = _mlp_calls.get(key)
+    if call is None:
+        dims = _mlp_widths(x, weights, biases)
+        call = (mlp_forward_plan(B, dims),
+                _kernel("fused_mlp_forward", "fused_mlp_forward_f32",
+                        _MLP_ARGTYPES, keep_gil=True),
+                (ctypes.c_int * (n + 1))(*dims),
+                (ctypes.c_int * n)(*(ACT_CODES[a] for a in acts)), dims[-1])
+        _mlp_calls[key] = call
+    elif any(t.device != x.device for t in (*weights, *biases)):
+        raise ValueError("fused_mlp_forward: x and every weight and bias "
+                         "must be on one device")
+    plan, fn, c_dims, c_acts, n_out = call
+    xf = _f32(x)
+    ws = [_f32(w) for w in weights]
+    bs = [_f32(b) for b in biases]
+    y = xf.new_empty((B, n_out))
     if B == 0:
         return y.to(x.dtype)
-    fn = _kernel("fused_mlp_forward", "fused_mlp_forward_f32",
-                 [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                  ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     w_ptrs = (ctypes.c_void_p * n)(*(w.data_ptr() for w in ws))
     b_ptrs = (ctypes.c_void_p * n)(*(b.data_ptr() for b in bs))
-    c_dims = (ctypes.c_int * (n + 1))(*dims)
-    c_acts = (ctypes.c_int * n)(*(ACT_CODES[a] for a in acts))
-    with torch.cuda.device(x.device):
-        err = fn(_p(xf), _p(y), B, rows, n, w_ptrs, b_ptrs, c_dims, c_acts,
-                 int(bool(softmax_out)), max(dims) | 1, _stream(x.device))
-    _check_launch("fused_mlp_forward", err)
+    err = _launch_on(dev, fn, xf.data_ptr(), y.data_ptr(), B, plan.rows, n,
+                     w_ptrs, b_ptrs, c_dims, c_acts, int(bool(softmax_out)),
+                     plan.stride, torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _check_launch("fused_mlp_forward", err)
     _count("fused_mlp_forward")
     return y.to(x.dtype)
 
 
 def fused_mlp_forward(x, weights, biases, acts: Sequence[str],
                       softmax_out: bool = True, precision: str = "default"):
-    """Whole ffLayer-chain forward in ONE kernel launch: one block per
-    batch tile, the tile's activations in shared memory across layers,
-    the weights streamed from L2.
+    """Whole ffLayer-chain forward in ONE kernel launch: one cluster of 16
+    blocks per batch tile, the tile's activations in every block's shared
+    memory across layers, each layer's columns spread over the cluster's
+    warps, the weights streamed from L2.
 
     weights[k]: (o_k, i_k) with i_{k+1} == o_k; acts[k] applied after
     layer k (the last layer uses a softmax over its real width when
     ``softmax_out``).  Weights of any float dtype are read as f32.  The
-    batch tile is chosen by :func:`tile_rows`."""
+    batch tile is chosen by :func:`mlp_forward_plan`."""
     if not (len(weights) == len(biases) == len(acts)) or not weights:
         raise ValueError("fused_mlp_forward: need one weight, bias and "
                          "activation per layer")
@@ -997,7 +1055,9 @@ def fused_rnn_step_ref(x, s, wx, ws, b, act: str = "logistic"):
     return z.to(x.dtype), _act_fn(act)(z).to(x.dtype)
 
 
-def _fused_rnn_step_cuda(x, s, wx, ws, b, act: str):
+def _step_shapes_checked(x, s, wx, ws, b) -> None:
+    """Raises ``ValueError`` unless x (B, i), s (B, o), wx (o, i), ws (o,
+    o) and b (o,) agree, are f32 and lie on one device."""
     if x.ndim != 2 or s.ndim != 2 or wx.ndim != 2 or ws.ndim != 2 \
             or b.ndim != 1:
         raise ValueError(
@@ -1020,8 +1080,15 @@ def _fused_rnn_step_cuda(x, s, wx, ws, b, act: str):
     if any(t.device != x.device for t in ts):
         raise ValueError("fused_rnn_step: x, s, wx, ws and b must be on one "
                          "device")
+
+
+def _fused_rnn_step_cuda(x, s, wx, ws, b, act: str):
+    _step_shapes_checked(x, s, wx, ws, b)
+    B, I = x.shape
+    O = wx.shape[0]
     if O > 65535 * 64:
         raise ValueError(f"fused_rnn_step: {O} outputs exceed the grid")
+    ts = (x, s, wx, ws, b)
     x, s, wx, ws, b = (t.contiguous() for t in ts)
     y = torch.empty((B, O), dtype=torch.float32, device=x.device)
     snew = torch.empty_like(y)
@@ -1070,3 +1137,165 @@ def fused_rnn_step(x, s, wx, ws, b, act: str = "logistic",
     a loop for BPTT."""
     _check_names([act], precision)
     return _FusedRNNStep.apply(x, s, wx, ws, b, act)
+
+
+# ---------------------------------------------------------------------------
+# fused_rnn_seq: a whole sequence of Elman steps in one launch
+# ---------------------------------------------------------------------------
+
+RNN_SEQ_CLUSTER = 16      # blocks of the sequence kernel's one cluster
+RNN_SEQ_THREADS = 1024    # its threads per block (a warp per column)
+RNN_SEQ_ROWS = 4          # the rows (B) it takes at most
+RNN_SEQ_MAX_O = RNN_SEQ_CLUSTER * RNN_SEQ_THREADS // 32  # a warp per column
+
+
+def rnn_seq_smem_bytes(B: int, I: int, O: int) -> int:
+    """Shared memory of one block of the sequence kernel
+    (``seq_smem_floats`` in ``csrc/fused_rnn_step.cu``): its two
+    mbarriers, its ``ceil(O / 16)`` columns of ``[Wx | Ws]``, the state
+    double-buffered, its biases and its B rows of the new state."""
+    cpb = _cdiv(O, RNN_SEQ_CLUSTER)
+    return 4 * (4 + cpb * (I + O) + 2 * B * O + cpb + B * cpb)
+
+
+def rnn_seq_plan(B: int, I: int, O: int) -> str:
+    """How ``fused_rnn_seq`` runs B sequences through an Elman cell I -> O
+    on the card, a fixed rule: ``"resident"`` (one launch of the sequence
+    kernel, the weights spread over a 16-block cluster's shared memory) when
+    B <= 4, O <= 512 (a warp per column) and :func:`rnn_seq_smem_bytes`
+    fits one block;
+    otherwise ``"steps"`` (one ``fused_rnn_step`` launch per timestep).
+    Raises ``ValueError`` for an empty shape."""
+    if B < 1 or I < 0 or O < 1:
+        raise ValueError(f"rnn_seq_plan: no sequence kernel for B={B}, "
+                         f"I={I}, O={O}")
+    if (B <= RNN_SEQ_ROWS and O <= RNN_SEQ_MAX_O
+            and rnn_seq_smem_bytes(B, I, O) <= MAX_SMEM_BYTES):
+        return "resident"
+    return "steps"
+
+
+def fused_rnn_seq_ref(xs, s0, wx, ws, b, act: str = "logistic"):
+    """Plain PyTorch sequence: the loop of :func:`fused_rnn_step_ref` over
+    xs (n, B, i) from s0 (B, o); returns ``(ys, s_final)``, ys (n, B, o) the
+    pre-activations."""
+    s, ys = s0, []
+    for t in range(xs.shape[0]):
+        y, s = fused_rnn_step_ref(xs[t], s, wx, ws, b, act)
+        ys.append(y)
+    if not ys:
+        return xs.new_empty((0,) + tuple(s0.shape)), s0.to(xs.dtype)
+    return torch.stack(ys), s
+
+
+_seq_clusters: Dict[tuple, int] = {}
+_SEQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def _seq_cluster_capacity(dev: int, B: int, I: int, O: int) -> int:
+    """Clusters of the sequence kernel card ``dev`` holds at once at (B, I,
+    O) (``cudaOccupancyMaxActiveClusters``, cached)."""
+    key = (dev, B, I, O)
+    n = _seq_clusters.get(key)
+    if n is None:
+        fn = _kernel("fused_rnn_step", "fused_rnn_seq_clusters",
+                     [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        _check_launch("fused_rnn_seq clusters",
+                      _launch_on(dev, fn, B, I, O, ctypes.byref(out)))
+        n = _seq_clusters[key] = out.value
+    return n
+
+
+def _fused_rnn_seq_cuda(xs, s0, wx, ws, b, act: str):
+    """The card's route: ``rnn_seq_plan``'s, one launch of the sequence
+    kernel or one step launch per timestep.  Raises where the plan's launch
+    cannot run (no cluster of 16 blocks fits the card, or the launch is
+    refused); it never falls back to the plain version."""
+    if xs.ndim != 3 or s0.ndim != 2:
+        raise ValueError(f"fused_rnn_seq wants xs (n, B, i) and s0 (B, o); "
+                         f"got {tuple(xs.shape)}, {tuple(s0.shape)}")
+    n, B, I = xs.shape
+    if n == 0 or B == 0:
+        _step_shapes_checked(xs.new_empty((B, I)), s0, wx, ws, b)
+        return xs.new_empty((n, B, wx.shape[0])), s0.clone()
+    plan = rnn_seq_plan(B, I, wx.shape[0])
+    if plan == "steps":
+        s, ys = s0, []
+        for t in range(n):
+            y, s = _fused_rnn_step_cuda(xs[t], s, wx, ws, b, act)
+            ys.append(y)
+        return torch.stack(ys), s
+    # one step's checks cover the shapes, dtypes and devices
+    _step_shapes_checked(xs[0], s0, wx, ws, b)
+    O, dev = wx.shape[0], xs.get_device()
+    if _seq_cluster_capacity(dev, B, I, O) < 1:
+        raise RuntimeError(
+            f"fused_rnn_seq: the card cannot hold one cluster of "
+            f"{RNN_SEQ_CLUSTER} blocks of {RNN_SEQ_THREADS} threads with "
+            f"{rnn_seq_smem_bytes(B, I, O)} bytes of shared memory each")
+    xs, s0, wx, ws, b = (t.contiguous() for t in (xs, s0, wx, ws, b))
+    ys = xs.new_empty((n, B, O))
+    sfin = xs.new_empty((B, O))
+    fn = _kernel("fused_rnn_step", "fused_rnn_seq_f32", _SEQ_ARGTYPES,
+                 keep_gil=True)
+    err = _launch_on(dev, fn, xs.data_ptr(), s0.data_ptr(), wx.data_ptr(),
+                     ws.data_ptr(), b.data_ptr(), ys.data_ptr(),
+                     sfin.data_ptr(), n, B, I, O, ACT_CODES[act],
+                     torch._C._cuda_getCurrentRawStream(dev))
+    if err:
+        _check_launch("fused_rnn_seq", err)
+    _count("fused_rnn_step.seq")
+    return ys, sfin
+
+
+class _FusedRNNSeq(torch.autograd.Function):
+    """Forward: the card's route (CUDA) or the plain loop (CPU).  Backward:
+    BPTT in plain PyTorch, the per-step math of ``_FusedRNNStep.backward``
+    (``dz_t = dy_t + ds_{t+1} act'(z_t)``, ``ds_t = dz_t ws``, ``dx_t =
+    dz_t wx``) with the weight gradients summed over time."""
+
+    @staticmethod
+    def forward(ctx, xs, s0, wx, ws, b, act):
+        if xs.is_cuda:
+            ys, sfin = _fused_rnn_seq_cuda(xs, s0, wx, ws, b, act)
+        else:
+            ys, sfin = fused_rnn_seq_ref(xs, s0, wx, ws, b, act)
+        ctx.save_for_backward(xs, s0, wx, ws, b, ys)
+        ctx.act = act
+        return ys, sfin
+
+    @staticmethod
+    def backward(ctx, dys, dsfin):
+        xs, s0, wx, ws, b, zs = ctx.saved_tensors
+        n = xs.shape[0]
+        act_grad = _act_grad(ctx.act)
+        ds, dzs = dsfin, [None] * n
+        for t in range(n - 1, -1, -1):
+            dz = dys[t] + ds * act_grad(zs[t])
+            dzs[t] = dz
+            ds = dz @ ws
+        if n == 0:
+            return (xs.new_zeros(xs.shape), ds, torch.zeros_like(wx),
+                    torch.zeros_like(ws), torch.zeros_like(b), None)
+        dz = torch.stack(dzs)                      # (n, B, o)
+        # the states s_0 .. s_{n-1} the steps read
+        states = torch.cat([s0[None].to(zs.dtype),
+                            _act_fn(ctx.act)(zs[:-1])])
+        flat = dz.reshape(-1, dz.shape[-1])
+        return (dz @ wx, ds, flat.T @ xs.reshape(-1, xs.shape[-1]),
+                flat.T @ states.reshape(-1, states.shape[-1]),
+                flat.sum(dim=0), None)
+
+
+def fused_rnn_seq(xs, s0, wx, ws, b, act: str = "logistic",
+                  precision: str = "default"):
+    """A whole Elman sequence: xs (n, B, i), s0 (B, o), wx (o, i), ws (o,
+    o), b (o,) -> ``(ys, s_final)``, ys (n, B, o) the pre-activations
+    ``z_t = x_t @ wx.T + s_t @ ws.T + b`` and ``s_{t+1} = act(z_t)``.  On
+    the card, :func:`rnn_seq_plan` picks one launch for the sequence (counted
+    as ``fused_rnn_step.seq``) or one ``fused_rnn_step`` launch per step;
+    on the CPU it is the plain loop.  Differentiable (BPTT in plain
+    PyTorch)."""
+    _check_names([act], precision)
+    return _FusedRNNSeq.apply(xs, s0, wx, ws, b, act)

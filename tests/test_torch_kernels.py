@@ -215,7 +215,8 @@ def test_cpu_path_launches_no_kernel():
                                  "fused_mlp_train_step": 0,
                                  "fused_linear_w8": 0, "fused_linear_w8a8": 0,
                                  "fused_mlp_w8a8_forward": 0,
-                                 "fused_rnn_step": 0, "ring_all_reduce": 0,
+                                 "fused_rnn_step": 0,
+                                 "fused_rnn_step.seq": 0, "ring_all_reduce": 0,
                                  "bidir_ring": 0, "ring_all_reduce.ring": 0,
                                  "bidir_ring.ring": 0}
 
@@ -305,7 +306,8 @@ def _cu_int(source: str, name: str) -> int:
 
 
 @pytest.mark.parametrize("what", ["tile", "large", "gemv", "gemv_rows",
-                                  "train_tile", "train_layers"])
+                                  "train_tile", "train_layers", "mlp_cluster",
+                                  "mlp_rows", "rnn_seq", "rnn_seq_smem"])
 def test_host_geometry_matches_the_kernel_sources(what):
     """The host's copy of each kernel's tile shapes (which the plans and
     scratch sizes are computed from) equals the constants in its source."""
@@ -326,8 +328,33 @@ def test_host_geometry_matches_the_kernel_sources(what):
         bm, bn, _, threads = _cu_tile("fused_mlp_train_step.cu", "StepTile")
         assert (bm, bn, threads) == (K.TRAIN_TILE, K.TRAIN_TILE,
                                      K.TRAIN_THREADS)
-    else:
+    elif what == "train_layers":
         assert _cu_int("fused_mlp_train_step.cu", "kMaxLayers") == K.MAX_LAYERS
+    elif what == "mlp_cluster":
+        src = "fused_mlp_forward.cu"
+        assert (_cu_int(src, "kCluster"), _cu_int(src, "kThreads"),
+                _cu_int(src, "kMaxLayers")) == (
+                    K.MLP_CLUSTER, K.MLP_THREADS, K.MAX_LAYERS)
+        assert ("2ull * rows * a.stride * sizeof(float) + kMaxLayers * "
+                "sizeof(uint64_t)" in (CSRC_DIR / src).read_text())
+    elif what == "mlp_rows":
+        text = (CSRC_DIR / "fused_mlp_forward.cu").read_text()
+        rows = tuple(int(r) for r in re.findall(
+            r"case (\d+): return launch<\1>", text))
+        assert rows == K.MLP_ROWS
+    elif what == "rnn_seq":
+        src = "fused_rnn_step.cu"
+        assert (_cu_int(src, "kCluster"), _cu_int(src, "kSeqThreads"),
+                _cu_int(src, "kSeqRows")) == (
+                    K.RNN_SEQ_CLUSTER, K.RNN_SEQ_THREADS, K.RNN_SEQ_ROWS)
+        assert "O > kCluster * kSeqWarps" in (CSRC_DIR / src).read_text()
+    else:
+        # the host's shared-memory count is the source's formula
+        text = (CSRC_DIR / "fused_rnn_step.cu").read_text()
+        assert ("return 4 + cpb * (I + O) + 2ll * B * O + cpb + B * cpb;"
+                in text)
+        assert K.rnn_seq_smem_bytes(1, 32, 512) == 4 * (
+            4 + 32 * 544 + 2 * 512 + 32 + 32)
 
 
 def test_linear_plan_refuses_what_the_kernel_cannot_run():
@@ -337,21 +364,29 @@ def test_linear_plan_refuses_what_the_kernel_cannot_run():
         K.linear_plan(128 * 65536, 8, 8)
 
 
-@pytest.mark.parametrize("batch,widths,want", [
-    (8, FLAGSHIP, 8),
-    (63, FLAGSHIP, 32),
-    (1000, FLAGSHIP, 32),
-    (5, (33, 20, 7), 5),
-    (64, (14000, 10), 2),   # 2 rows x 2 buffers x 14001 floats fit
-    (64, (20000, 10), 1),
+@pytest.mark.parametrize("batch,widths,rows,stride,tiles", [
+    (1, FLAGSHIP, 1, 784, 1),
+    (8, FLAGSHIP, 8, 784, 1),       # bucket 8: one cluster of 16 blocks
+    (32, FLAGSHIP, 8, 784, 4),
+    (63, FLAGSHIP, 8, 784, 8),      # 8 clusters, 128 blocks
+    (1000, FLAGSHIP, 8, 784, 125),
+    (3, (33, 20, 7), 4, 36, 1),
+    (37, (33, 20, 7), 8, 36, 5),
+    (64, (14000, 10), 2, 14000, 32),   # 2 rows x 2 buffers x 14000 fit
+    (64, (20000, 10), 1, 20004, 64),   # a multiple of 32 gets 4 more
 ])
-def test_tile_rows_fits_shared_memory(batch, widths, want):
-    rows = K.tile_rows(batch, widths)
-    assert rows == want
-    stride = max(widths) | 1
-    assert 2 * rows * stride * 4 <= K.MAX_SMEM_BYTES
+def test_mlp_forward_plan_fits_shared_memory(batch, widths, rows, stride,
+                                             tiles):
+    plan = K.mlp_forward_plan(batch, widths)
+    assert (plan.rows, plan.stride, plan.tiles) == (rows, stride, tiles)
+    assert plan.blocks == tiles * K.MLP_CLUSTER
+    assert plan.smem_bytes == 2 * rows * stride * 4 + 8 * K.MAX_LAYERS
+    assert plan.smem_bytes <= K.MAX_SMEM_BYTES
+    assert plan.rows in K.MLP_ROWS and plan.stride % 4 == 0
+    assert plan.stride % 32 and plan.stride >= max(widths)
+    assert plan.rows * plan.tiles >= batch > plan.rows * (plan.tiles - 1)
 
 
-def test_tile_rows_names_a_width_too_wide():
+def test_mlp_forward_plan_names_a_width_too_wide():
     with pytest.raises(ValueError, match="30000"):
-        K.tile_rows(4, (30000, 10))
+        K.mlp_forward_plan(4, (30000, 10))

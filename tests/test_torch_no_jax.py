@@ -1,6 +1,7 @@
 """The port never imports JAX: every module imports, and the serving
-(f32, int8 and recurrent), training and data-parallel paths run end to end,
-in a fresh interpreter where ``import jax`` fails."""
+(f32, int8 and recurrent), training, recurrent-sequence (``FusedRNN`` on
+``fused_rnn_seq``) and data-parallel paths run end to end, in a fresh
+interpreter where ``import jax`` fails."""
 
 import os
 import re
@@ -92,6 +93,15 @@ with tempfile.TemporaryDirectory() as d:
     m = FusedRNN(m.wX, m.wS, m.b, m.s0, impl="pallas")
     v, m = m.train(0.01, 0.01, np.ones((5, 3)), np.zeros((5, 4)))
     assert m.impl == "pallas" and v > 0
+    # the sequence route: FusedRNN's one fused_rnn_seq call, its plain loop
+    # and plan here
+    from tensor_ops_tpu_torch.ops import kernels as K
+    ys, sf = m.seq_forward(np.ones((5, 3)))
+    want, wsf = K.fused_rnn_seq(torch.ones(5, 1, 3), m.s0[None], m.wX, m.wS,
+                                m.b)
+    assert torch.equal(ys, want[:, 0]) and torch.equal(sf, wsf[0])
+    assert K.rnn_seq_plan(1, 32, 512) == "resident"
+    assert K.mlp_forward_plan(8, (784, 300, 100, 10)).tiles == 1
 
     # the data-parallel slice: each ring wrapper, then one dp step on CPU
     # ranks

@@ -135,7 +135,9 @@ def test_cpu_step_launches_no_kernel():
     K.fused_rnn_step(*args)
     FusedRNN(args[2], args[3], args[4], args[1][0], impl="pallas") \
         .seq_forward(np.zeros((3, 3), np.float32))
-    assert K.launch_counts()["fused_rnn_step"] == 0
+    K.fused_rnn_seq(args[0][None], *args[1:])
+    counts = K.launch_counts()
+    assert counts["fused_rnn_step"] == counts["fused_rnn_step.seq"] == 0
 
 
 # -- FusedRNN ----------------------------------------------------------------
@@ -225,3 +227,132 @@ def test_fused_rnn_from_recurrent_trains_like_the_ir(nb):
     for _ in range(30):
         v1, trained = trained.train(0.02, 0.05, xs, tg)
     assert v1 < 0.7 * v0
+
+
+# -- fused_rnn_seq: a whole sequence -----------------------------------------
+
+
+def seq_inputs(seed, n, B, i, o, dtype=np.float32):
+    """xs (n, B, i) normal and the step's s0, wx, ws, b (``step_inputs``)."""
+    x, s, wx, ws, b = step_inputs(seed, B, i, o)
+    xs = np.random.default_rng(seed + 1).normal(size=(n, B, i))
+    return tuple(np.asarray(a, dtype) for a in (xs, s, wx, ws, b))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_seq_matches_jax_fused_rnn(impl):
+    """``fused_rnn_seq_ref`` and ``FusedRNN(impl="pallas")`` on the CPU
+    against the JAX ``FusedRNN.seq_forward``: in f64 at 1e-9 against the
+    JAX cell loop (``impl="xla"``), in f32 at the file's 1e-5 against the
+    JAX kernel in interpret mode (``impl="pallas"``, an f32 kernel)."""
+    dt, tol = (np.float64, 1e-9) if impl == "xla" else (np.float32, TOL)
+    xs, s, wx, ws, b = seq_inputs(41, 9, 1, 5, 7, dt)
+    xs = xs.astype(np.float32).astype(dt)  # the JAX model reads xs in f32
+    jm = JF.FusedRNN(*(jnp.asarray(a) for a in (wx, ws, b, s[0])),
+                     precision="highest", impl=impl)
+    jys, jsf = jm.seq_forward(xs[:, 0])
+    ys, sf = K.fused_rnn_seq(*(torch.tensor(a) for a in (xs, s, wx, ws, b)))
+    assert ys.shape == (9, 1, 7) and ys.dtype == torch.tensor(xs).dtype
+    close(ys[:, 0], jys, tol)
+    close(sf[0], jsf, tol)
+    tm = FusedRNN.from_numpy(wx, ws, b, s[0], impl="pallas", device="cpu")
+    tys, tsf = tm.seq_forward(xs[:, 0])
+    close(tys, jys, tol)
+    close(tsf, jsf, tol)
+
+
+@pytest.mark.parametrize("act", ACTS)
+def test_seq_equals_the_step_loop(act):
+    """On the CPU the sequence is the loop of ``fused_rnn_step`` bit for bit,
+    at several rows, and its BPTT gradients are autograd's through that
+    loop (f64, 1e-12: the same products summed in another order)."""
+    xs, s, wx, ws, b = (torch.tensor(a) for a in
+                        seq_inputs(43, 6, 3, 4, 5, np.float64))
+    ys, sf = K.fused_rnn_seq(xs, s, wx, ws, b, act)
+    st, out = s, []
+    for t in range(xs.shape[0]):
+        y, st = K.fused_rnn_step(xs[t], st, wx, ws, b, act)
+        out.append(y)
+    assert torch.equal(ys, torch.stack(out)) and torch.equal(sf, st)
+    rr = np.random.default_rng(44)
+    cy = torch.tensor(rr.normal(size=tuple(ys.shape)))
+    cs = torch.tensor(rr.normal(size=tuple(sf.shape)))
+    grads = []
+    for seq in (True, False):
+        ts = [a.clone().requires_grad_() for a in (xs, s, wx, ws, b)]
+        if seq:
+            y, f = K.fused_rnn_seq(*ts, act)
+        else:
+            f, out = ts[1], []
+            for t in range(xs.shape[0]):
+                yt, f = K.fused_rnn_step(ts[0][t], f, *ts[2:], act)
+                out.append(yt)
+            y = torch.stack(out)
+        ((y * cy).sum() + (f * cs).sum()).backward()
+        grads.append([a.grad for a in ts])
+    for got, want in zip(*grads):
+        close(got, want.numpy(), 1e-12)
+
+
+def test_seq_gradients_match_jax_scan_of_the_kernel():
+    """The sequence's BPTT against ``jax.grad`` through ``lax.scan`` of the
+    JAX kernel's custom VJP (interpret mode), all five inputs, at 1e-5."""
+    xs, s, wx, ws, b = seq_inputs(45, 7, 2, 3, 6)
+    rr = np.random.default_rng(46)
+    cy = f32(rr.normal(size=(7, 2, 6)))
+
+    def j_loss(xs, s0, wx, ws, b):
+        def step(st, xt):
+            y, st = PK.fused_rnn_step(xt, st, wx, ws, b, "tanh", "highest")
+            return st, y
+        sf, ys = jax.lax.scan(step, s0, xs)
+        return jnp.sum(ys * cy) + jnp.sum(sf)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (xs, s, wx, ws, b)))
+    ts = [torch.tensor(a, requires_grad=True) for a in (xs, s, wx, ws, b)]
+    ys, sf = K.fused_rnn_seq(*ts, "tanh", "highest")
+    ((ys * torch.tensor(cy)).sum() + sf.sum()).backward()
+    for t, w in zip(ts, want):
+        close(t.grad, w)
+
+
+def test_seq_of_no_steps_keeps_the_state():
+    xs, s, wx, ws, b = (torch.tensor(a) for a in seq_inputs(47, 0, 2, 3, 4))
+    ys, sf = K.fused_rnn_seq(xs, s, wx, ws, b)
+    assert ys.shape == (0, 2, 4) and torch.equal(sf, s)
+
+
+@pytest.mark.parametrize("B,i,o,plan", [
+    (1, 32, 512, "resident"),   # FusedRNN at the recurrent slice's widths
+    (4, 32, 512, "resident"),
+    (1, 3, 45, "resident"),
+    (3, 1024, 64, "resident"),
+    (5, 32, 512, "steps"),      # more rows than the kernel takes
+    (1, 32, 513, "steps"),      # more columns than the cluster's warps
+    (1, 32, 1024, "steps"),     # 64 columns x 1056 floats > 227 KB a block
+    (256, 32, 512, "steps"),
+])
+def test_rnn_seq_plan_per_shape(B, i, o, plan):
+    assert K.rnn_seq_plan(B, i, o) == plan
+    fits = K.rnn_seq_smem_bytes(B, i, o) <= K.MAX_SMEM_BYTES
+    assert plan == "steps" or fits
+
+
+def test_rnn_seq_plan_and_wrapper_refuse_what_they_cannot_run():
+    with pytest.raises(ValueError, match="no sequence kernel"):
+        K.rnn_seq_plan(0, 3, 4)
+    with pytest.raises(ValueError, match="no sequence kernel"):
+        K.rnn_seq_plan(1, 3, 0)
+    xs, s, wx, ws, b = (torch.tensor(a) for a in seq_inputs(48, 3, 1, 3, 4))
+    # checked before any launch (these tensors lie on the CPU)
+    with pytest.raises(ValueError, match=r"xs \(n, B, i\)"):
+        K._fused_rnn_seq_cuda(xs[0], s, wx, ws, b, "tanh")
+    with pytest.raises(ValueError, match="disagree"):
+        K._fused_rnn_seq_cuda(xs, s, ws, ws, b, "tanh")
+    with pytest.raises(ValueError, match="float32"):
+        K._fused_rnn_seq_cuda(xs.double(), s, wx, ws, b, "tanh")
+    with pytest.raises(ValueError, match="one device"):
+        K._fused_rnn_seq_cuda(xs, s, wx, ws, b.to("meta"), "tanh")
+    with pytest.raises(ValueError, match="activation"):
+        K.fused_rnn_seq(xs, s, wx, ws, b, "gelu")
