@@ -39,18 +39,24 @@ without printing a result line:
    on the card are held against ``FusedMLP.train`` on the card and the
    plain step in CPU float64.
 6. int8 kernels: ``fused_linear_w8`` at the flagship's three layers (B = 1,
-   8, 37, both precisions), ``fused_linear_w8a8`` at the same shapes, a
-   misaligned 257-wide case and an int32-exact case, and
-   ``fused_mlp_w8a8_forward`` at the uniform serving stack (4 x 4096, seed
-   0, B = 16 and 5), each against its plain version; the whole-MLP kernel
-   bit for bit against the per-layer CUDA chain and (relu) its plain
-   version.
+   8, 16, 17, 37, 64 and 512) and ragged shapes, both precisions, logistic
+   and identity, covering every instance of ``w8_plan`` (gemv, the bf16
+   tensor-core tile, the "highest" SIMT tile) with and without a split of
+   K, each rerun bit for bit; ``fused_linear_w8a8`` at the flagship's
+   layers, a misaligned 257-wide case and an int32-exact case; and
+   ``fused_mlp_w8a8_forward`` (one cooperative launch a forward) at the
+   uniform serving stack (4 x 4096, seed 0, B = 16, 5, 64 and 100, the last
+   in two row groups) and 3 x 512 logistic at B = 37, each bit for bit
+   against the per-layer CUDA chain, on a rerun and (relu) against its
+   plain version; its int32-exact cases (one layer of 256 at B = 16 and 37,
+   of 8192 at B = 16); and the refusal of a grid larger than the card
+   holds.
 7. int8 serving slice: the serve app serves the phase-4 checkpoint with
    ``--int8`` (3 ``fused_linear_w8a8`` launches per request), a ``mode="w8"``
    ``quantized_mlp`` checkpoint of it (``fused_linear_w8``), and the 4 x 4096
    stack saved with ``save_quantized`` (``fused_mlp_w8a8_forward``); each
    is held against the plain ``QuantizedMLP`` on the CPU, and the int8
-   classes against the f32 ones.
+   classes against the f32 ones; a request makes 3, 3 and 1 launches.
 8. Recurrent kernel: ``fused_rnn_step`` against its plain version at the
    recurrent slice's shapes (B = 1 and 256, 32 -> 512) and ragged ones (B =
    37 and 5, 3 -> 45), every activation, bit for bit on a rerun, and the
@@ -96,7 +102,10 @@ without printing a result line:
    profiler's device time of the kernels, where one training step's, one
    int8 request's and one recurrent request's time goes on each route
    (wall, kernels, device busy), the device memory each served model holds
-   (f32 vs int8), the app's training samples/s per route, a FusedRNN
+   (f32 vs int8), kernel 4 per layer at B = 8, 64 and 512 in turns with
+   kernel 1 on the same weights in f32, kernel 6's device time (back to
+   back and with L2 flushed), weight-stream rate and event median beside
+   the per-layer chain, the app's training samples/s per route, a FusedRNN
    sequence's wall and device time, launches, idle share and bound, kernel
    2's device time and event median at B = 1, 8 and 63 beside its bound, its
    plain version and kernel 1's three per-layer launches, kernel 1's
@@ -215,6 +224,16 @@ SERVE_KERNELS = ("fused_linear", "fused_mlp_forward")
 STACK_N, STACK_L, STACK_B = 4096, 4, 16
 STACK_ACTS = ("relu", "relu", "relu", "identity")
 FLAGSHIP_INT8_ACTS = ("logistic", "logistic", "identity")
+W8_TIMED_BATCHES = (8, 64, 512)  # the w8 Predictor's buckets
+# kernel 4 against its plain version: the flagship's layers at every w8_plan
+# instance (gemv B <= 16, the bf16 mma tile and the "highest" SIMT tile
+# above), with and without a split of K, and ragged shapes (K = 257)
+W8_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
+                  for B in (1, 8, 16, 17, 37, 64, 512)
+                  for i in range(3)) + ((5, 257, 130), (40, 257, 130),
+                                        (8, 4096, 64), (600, 64, 600))
+W8A8_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
+                    for B in (1, 8, 37) for i in range(3)) + ((40, 257, 130),)
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense): the bound of
 # a kernel is the larger of its bytes over HBM_BPS and its operations over
 # the peak of their type.
@@ -611,9 +630,8 @@ def phase_int8_kernels(stack) -> dict:
         q, s = K.quantize_weights_int8(w)
         return x, q, s, b
 
-    shapes = [(B, FLAGSHIP[i], FLAGSHIP[i + 1])
-              for B in (1, 8, 37) for i in range(3)]
-    for n, (B, Kd, O) in enumerate(shapes):
+    held = {}  # (instance, split or not) -> shapes held
+    for n, (B, Kd, O) in enumerate(W8_SHAPES):
         x, q, s, b = layer(300 + 3 * n, B, Kd, O)
         errs = []
         for prec in ("default", "highest"):
@@ -624,10 +642,27 @@ def phase_int8_kernels(stack) -> dict:
                             TOL_Z)
                 worst["fused_linear_w8"] = max(worst["fused_linear_w8"], e)
                 errs.append(f"{prec}/{act} {e:.1e}")
+            # the instance repeats bit for bit (a split's partials are added
+            # in split order whichever block adds them)
+            y2 = K._fused_linear_w8_cuda(x, q, s, b, "identity", prec)
+            torch.cuda.synchronize()
+            check(torch.equal(y2, y), f"fused_linear_w8 {prec} B={B} "
+                  f"{Kd}->{O}: a rerun differs")
+            p = K.w8_plan(B, Kd, O, prec)
+            held.setdefault((p.instance, p.split > 1), []).append(
+                f"{B}x{Kd}->{O}")
+            errs.append(f"{prec}: {p.instance} grid {p.grid}")
         log(f"[kernel] fused_linear_w8 B={B} {Kd}->{O} max|err| "
-            f"{', '.join(errs)}; tol {TOL_Z[0]:g}+{TOL_Z[1]:g}|ref|")
+            f"{', '.join(errs)}; tol {TOL_Z[0]:g}+{TOL_Z[1]:g}|ref|; reruns "
+            f"bit-equal")
+    want = {("gemv", False), ("gemv", True), ("mma", False), ("mma", True),
+            ("simt", False), ("simt", True)}
+    check(set(held) == want, f"fused_linear_w8 plans held: {sorted(held)}")
+    log("[kernel] fused_linear_w8 instances held (instance, K split): "
+        + "; ".join(f"{i}{' split' * sp}: {', '.join(v)}"
+                    for (i, sp), v in sorted(held.items())))
 
-    for n, (B, Kd, O) in enumerate(shapes + [(40, 257, 130)]):
+    for n, (B, Kd, O) in enumerate(W8A8_SHAPES):
         x, q, s, b = layer(400 + 3 * n, B, Kd, O)
         x = x * 4 - 2  # signed activations
         errs = []
@@ -659,9 +694,21 @@ def phase_int8_kernels(stack) -> dict:
     check(np.array_equal(y.cpu().numpy(), exact.astype(np.float32)),
           "fused_linear_w8a8: the int32-exact case is not exact")
     log("[kernel] fused_linear_w8a8 int32-exact case (B=5, 12->9): exact")
+    worst["fused_mlp_w8a8_forward"] = mlp_w8a8_cases(stack)
+    return worst
 
+
+def mlp_w8a8_cases(stack) -> float:
+    """Kernel 6, one cooperative launch per forward: the serving stack at
+    B = 16, 5, 64 (one group of 4 m16 tiles) and 100 (two groups), 3 x 512
+    logistic at B = 37, each bit-equal to the per-layer fused_linear_w8a8
+    chain, to itself on a rerun and (relu) to its plain version; the
+    int32-exact cases; and a grid larger than the card holds, refused."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    worst = 0.0
     wq3, sw2, b2 = (t.to(DEVICE) for t in stack["model"]._cache["stacked"])
-    cases = [(B, wq3, sw2, b2, "relu") for B in (STACK_B, 5)]
+    cases = [(B, wq3, sw2, b2, "relu") for B in (STACK_B, 5, 64, 100)]
     rs = np.random.default_rng(8)
     small = torch.as_tensor(rs.normal(size=(3, 512, 512)) / math.sqrt(512),
                             dtype=torch.float32)
@@ -669,12 +716,14 @@ def phase_int8_kernels(stack) -> dict:
     cases.append((37, torch.stack(q3).to(DEVICE),
                   torch.stack([s.reshape(-1) for s in s3]).to(DEVICE),
                   torch.zeros(3, 512, device=DEVICE), "logistic"))
-    for n, (B, wq, sw, bb, act) in enumerate(cases):
+    groups = set()
+    for B, wq, sw, bb, act in cases:
         L, N = wq.shape[0], wq.shape[1]
-        x = torch.as_tensor(stack["x"][:B] if N == STACK_N
+        x = torch.as_tensor(stack["x"][:B] if N == STACK_N and B <= STACK_B
                             else rs.normal(size=(B, N)).astype(np.float32),
                             device=DEVICE)
         y = K._fused_mlp_w8a8_forward_cuda(x, wq, sw, bb, act)
+        y2 = K._fused_mlp_w8a8_forward_cuda(x, wq, sw, bb, act)
         h = x
         for l in range(L):
             h = K._fused_linear_w8a8_cuda(h, wq[l], sw[l], bb[l],
@@ -684,6 +733,8 @@ def phase_int8_kernels(stack) -> dict:
               "non-finite output")
         check(torch.equal(y, h), f"fused_mlp_w8a8_forward {L}x{N} B={B} "
               f"{act}: not bit-equal to the per-layer CUDA chain")
+        check(torch.equal(y, y2), f"fused_mlp_w8a8_forward {L}x{N} B={B} "
+              f"{act}: a rerun differs")
         ref = K.fused_mlp_w8a8_forward_ref(x, wq, sw, bb, act)
         if act == "relu":
             check(torch.equal(y, ref), f"fused_mlp_w8a8_forward {L}x{N} "
@@ -698,11 +749,61 @@ def phase_int8_kernels(stack) -> dict:
             e = max_err(y, ref, (step, 0.0))
             what = (f"max|err| {e:.2e} against its plain version (tol one "
                     f"code step {step:.2e})")
-        worst["fused_mlp_w8a8_forward"] = max(
-            worst["fused_mlp_w8a8_forward"], e)
-        log(f"[kernel] fused_mlp_w8a8_forward {L}x{N} B={B} {act}: "
-            f"bit-equal to the per-layer CUDA chain, {what}; rows/block "
-            f"{K.int8_tile_rows(B, N, 1)}")
+        worst = max(worst, e)
+        plan = K.mlp_w8a8_plan(B, N, L)
+        groups.add(plan.groups > 1)
+        log(f"[kernel] fused_mlp_w8a8_forward {L}x{N} B={B} {act}: one "
+            f"cooperative launch ({plan.grid} blocks, {plan.groups} group(s) "
+            f"of {plan.rows} rows, ring of {plan.depth} stages of {plan.kc} k,"
+            f" {plan.smem_bytes} bytes of shared memory a block); bit-equal "
+            f"to the per-layer CUDA chain and on a rerun, {what}")
+    check(groups == {False, True}, "fused_mlp_w8a8_forward: no case held "
+          "both one and several row groups")
+    # int32-exact: x integers with 127 in every row (scale 1, codes = x),
+    # one layer of random codes, scale 1, zero bias, identity: the logits are
+    # the exact integer products, so a wrong fragment map shows as a wrong
+    # integer.  N = 8192 gives each block two column tiles.
+    r = np.random.default_rng(9)
+    for B, N in ((16, 256), (37, 256), (16, 8192)):
+        xi = r.integers(-127, 128, size=(B, N)).astype(np.float32)
+        xi[:, 0] = 127.0
+        wi = r.integers(-127, 128, size=(1, N, N)).astype(np.int8)
+        y = K._fused_mlp_w8a8_forward_cuda(
+            torch.as_tensor(xi, device=DEVICE),
+            torch.as_tensor(wi, device=DEVICE), torch.ones(1, N, device=DEVICE),
+            torch.zeros(1, N, device=DEVICE), "identity")
+        torch.cuda.synchronize()
+        exact = xi.astype(np.int64) @ wi[0].astype(np.int64).T
+        check(np.array_equal(y.cpu().numpy(), exact.astype(np.float32)),
+              f"fused_mlp_w8a8_forward: the int32-exact case B={B} N={N} is "
+              f"not exact")
+        log(f"[kernel] fused_mlp_w8a8_forward int32-exact case (B={B}, 1 "
+            f"layer of {N}, {K.mlp_w8a8_plan(B, N, 1).tiles} column tile(s) "
+            f"a block): exact")
+    # the most blocks the kernel takes (one per column tile at N = 8192, each
+    # with ~213 KB of shared memory) are more than the card holds at once:
+    # the cooperative launch is refused
+    B, N = 16, 8192
+    xr = torch.zeros(B, N, device=DEVICE)
+    q = torch.zeros(1, N, N, dtype=torch.int8, device=DEVICE)
+    ones, zeros = torch.ones(1, N, device=DEVICE), torch.zeros(1, N, device=DEVICE)
+    plan, fn = K._mlp_w8a8_call(B, N, 1, 0)
+    big = plan._replace(grid=K.MLP8_MAX_GRID,
+                        tiles=-(-N // K.MLP8_COLS // K.MLP8_MAX_GRID))
+    check(big.grid > K._sm_count(0), "the card holds the kernel's largest "
+          "grid: no refusal to show")
+    try:
+        K._mlp_w8a8_launch(big, fn, xr, q, ones, zeros, torch.empty_like(xr),
+                           "identity", 0)
+    except RuntimeError as err:
+        check("720" in str(err), f"fused_mlp_w8a8_forward: the large grid "
+              f"failed otherwise than by a refused cooperative launch: {err}")
+        log(f"[kernel] fused_mlp_w8a8_forward: a grid of {big.grid} blocks "
+            f"(the card holds {plan.grid}) is refused: {err}")
+    else:
+        raise SmokeFailure("fused_mlp_w8a8_forward: a grid larger than the "
+                           "card holds was launched")
+    torch.cuda.synchronize()
     return worst
 
 
@@ -1377,58 +1478,138 @@ def phase_int8_timing(sv, stack) -> dict:
         for q, s_, b, a in zip(flag._padded(), flag.scales, flag.biases,
                                FLAGSHIP_INT8_ACTS):
             hs.append(K.fused_linear_w8a8_ref(hs[-1], q, s_, b, a))
-        for name, cuda, ref in (
-                ("fused_linear_w8", lambda h, q, s_, b, a:
-                 K._fused_linear_w8_cuda(h, q, s_, b, a, "default"),
-                 lambda h, q, s_, b, a:
-                 K.fused_linear_w8_ref(h, q, s_, b, a, "default")),
-                ("fused_linear_w8a8", K._fused_linear_w8a8_cuda,
-                 K.fused_linear_w8a8_ref)):
-            tk = tp = dev = 0.0
-            for i, (q, s_, b, a) in enumerate(zip(
-                    flag._padded(), flag.scales, flag.biases,
-                    FLAGSHIP_INT8_ACTS)):
-                h = hs[i]
-                k_ms = _median_ms(lambda: cuda(h, q, s_, b, a))
-                p_ms = _median_ms(lambda: ref(h, q, s_, b, a))
-                d = _profile_steps(lambda: cuda(h, q, s_, b, a))["busy_us"]
-                tk, tp, dev = tk + k_ms, tp + p_ms, dev + d
-                log(f"[timing] {name} B={B} {FLAGSHIP[i]}->{FLAGSHIP[i + 1]} "
-                    f"{a}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, device "
-                    f"{d:.1f} us")
-            log(f"[timing] {name} B={B} three flagship layers: kernel "
-                f"{tk:.4f} ms, plain {tp:.4f} ms, device {dev:.1f} us")
-            times[name] = (tk, tp)
-        wq3, sw2, b2 = stack_gpu._cache["stacked"]
-        x = torch.as_tensor(stack["x"], device=DEVICE)
-        k_ms = _median_ms(lambda: K._fused_mlp_w8a8_forward_cuda(
-            x, wq3, sw2, b2, "relu"))
-        p_ms = _median_ms(lambda: K.fused_mlp_w8a8_forward_ref(
-            x, wq3, sw2, b2, "relu"))
-
-        def chain():
-            h = x
-            for l in range(STACK_L):
-                h = K._fused_linear_w8a8_cuda(h, wq3[l], sw2[l], b2[l],
-                                              STACK_ACTS[l])
-            return h
-
-        c_ms = _median_ms(chain)
-        prof = _profile_steps(lambda: K._fused_mlp_w8a8_forward_cuda(
-            x, wq3, sw2, b2, "relu"))
-        gemm_us = prof["by_kernel"].get("w8a8_gemm_kernel", 0.0)
-        check(gemm_us > 0, f"the profiler saw the stack's kernels as "
-              f"{sorted(prof['by_kernel'])}")
-        log(f"[timing] fused_mlp_w8a8_forward 4x4096 B={STACK_B}: kernel "
-            f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, per-layer "
-            f"fused_linear_w8a8 chain {c_ms:.4f} ms; device "
-            f"{prof['busy_us']:.1f} us in {prof['launches']:.0f} kernels ("
-            + ", ".join(f"{n} {us:.1f} us" for n, us in
-                        prof["by_kernel"].items())
-            + f"); the products stream the int8 weights at "
-            f"{STACK_L * STACK_N * STACK_N / (gemm_us * 1e-6) / 1e9:.0f} GB/s")
-        times["fused_mlp_w8a8_forward"] = (k_ms, p_ms)
+        tk = tp = dev = 0.0
+        for i, (q, s_, b, a) in enumerate(zip(
+                flag._padded(), flag.scales, flag.biases, FLAGSHIP_INT8_ACTS)):
+            h = hs[i]
+            k_ms = _median_ms(lambda: K._fused_linear_w8a8_cuda(h, q, s_, b, a))
+            p_ms = _median_ms(lambda: K.fused_linear_w8a8_ref(h, q, s_, b, a))
+            d = _profile_steps(lambda: K._fused_linear_w8a8_cuda(
+                h, q, s_, b, a))["busy_us"]
+            tk, tp, dev = tk + k_ms, tp + p_ms, dev + d
+            log(f"[timing] fused_linear_w8a8 B={B} {FLAGSHIP[i]}->"
+                f"{FLAGSHIP[i + 1]} {a}: kernel {k_ms:.4f} ms, plain "
+                f"{p_ms:.4f} ms, device {d:.1f} us")
+        log(f"[timing] fused_linear_w8a8 B={B} three flagship layers: kernel "
+            f"{tk:.4f} ms, plain {tp:.4f} ms, device {dev:.1f} us")
+        times["fused_linear_w8a8"] = (tk, tp)
+        for B in W8_TIMED_BATCHES:
+            t = w8_timing(B, w8)
+            if B == 8:
+                times["fused_linear_w8"] = t
+        times["fused_mlp_w8a8_forward"] = mlp_w8a8_timing(stack_gpu, stack)
     return times
+
+
+def w8_timing(B: int, model) -> tuple:
+    """Kernel 4 on the w8 flagship's three layers at batch B ("default"),
+    each layer in turns with kernel 1 on the same weights dequantized to f32
+    (the instance linear_plan picks) over 3 repetitions: profiler device
+    time and CUDA-event medians per layer and in sum, beside kernel 4's
+    bound and its plain version.  Returns (kernel ms, plain ms, None, device
+    us), summed over the layers."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    h = _rand(520 + B, B, FLAGSHIP[0], uniform=True)
+    sums = [0.0] * 5
+    for i, (q, s_, b, a) in enumerate(zip(model._padded(), model.scales,
+                                          model.biases, FLAGSHIP_INT8_ACTS)):
+        k, o = FLAGSHIP[i], FLAGSHIP[i + 1]
+        w = q[:, :k].float() * s_.float().reshape(-1, 1)
+
+        def w8():
+            return K._fused_linear_w8_cuda(h, q, s_, b, a, "default")
+
+        def f32():
+            return K._fused_linear_cuda(h, w, b, a, False)
+
+        reps = []
+        for _ in range(3):
+            kp, lp = _profile_steps(w8), _profile_steps(f32)
+            reps.append((kp["busy_us"], lp["busy_us"], _median_ms(w8),
+                         _median_ms(f32)))
+        k_us, l_us, k_ms, l_ms = (statistics.median(r[j] for r in reps)
+                                  for j in range(4))
+        p_ms = _median_ms(lambda: K.fused_linear_w8_ref(h, q, s_, b, a))
+        plan, lplan = K.w8_plan(B, k, o), K.linear_plan(B, k, o)
+        for j, v in enumerate((k_us, l_us, k_ms, l_ms, p_ms)):
+            sums[j] += v
+        log(f"[timing] fused_linear_w8 B={B} {k}->{o} {a}: {plan.instance} "
+            f"grid {plan.grid}; device (profiler) in turns over 3 "
+            f"repetitions {', '.join(f'{r[0]:.2f}' for r in reps)} us vs "
+            f"kernel 1 ({lplan.instance} grid {lplan.grid}, f32 weights) "
+            f"{', '.join(f'{r[1]:.2f}' for r in reps)} us (medians "
+            f"{k_us:.2f} vs {l_us:.2f}); events {k_ms:.4f} vs {l_ms:.4f} ms; "
+            f"plain {p_ms:.4f} ms")
+        h = K.fused_linear_w8_ref(h, q, s_, b, a, "default")
+    least = w8_bound(B)
+    log(f"[timing] fused_linear_w8 B={B} three flagship layers: device "
+        f"{sums[0]:.2f} us vs kernel 1's {sums[1]:.2f} us; events "
+        f"{sums[2]:.4f} vs {sums[3]:.4f} ms; plain {sums[4]:.4f} ms; bound "
+        f"{least[0] * 1e3:.4f} us by {least[1]}")
+    return sums[2], sums[4], None, sums[0]
+
+
+def mlp_w8a8_timing(stack_gpu, stack) -> tuple:
+    """Kernel 6 on the 4 x 4096 stack at B = 16: profiler device time over
+    3 repetitions of 10 back-to-back calls and with L2 flushed before each
+    call, the CUDA-event median, its plain version, the per-layer
+    fused_linear_w8a8 chain (events and kernels), the weight stream's rate;
+    and device time at B = 64.  Returns (kernel ms, plain ms)."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    wq3, sw2, b2 = stack_gpu._cache["stacked"]
+    x = torch.as_tensor(stack["x"], device=DEVICE)
+
+    def kernel(xx=x):
+        return K._fused_mlp_w8a8_forward_cuda(xx, wq3, sw2, b2, "relu")
+
+    def chain():
+        h = x
+        for l in range(STACK_L):
+            h = K._fused_linear_w8a8_cuda(h, wq3[l], sw2[l], b2[l],
+                                          STACK_ACTS[l])
+        return h
+
+    flush = torch.empty(2 * 64 * 2**20 // 4, device=DEVICE)  # 128 MB > L2
+
+    def cold():
+        flush.fill_(1.0)
+        return kernel()
+
+    warm_us = []
+    for _ in range(3):
+        prof = _profile_steps(kernel)
+        check(list(prof["by_kernel"]) == ["mlp_w8a8_kernel"], f"the profiler "
+              f"saw the stack's forward as {sorted(prof['by_kernel'])}")
+        warm_us.append(prof["busy_us"])
+    cold_us = _profile_steps(cold)["by_kernel"]["mlp_w8a8_kernel"]
+    k_ms = _median_ms(kernel)
+    p_ms = _median_ms(lambda: K.fused_mlp_w8a8_forward_ref(
+        x, wq3, sw2, b2, "relu"))
+    c_ms = _median_ms(chain)
+    cprof = _profile_steps(chain)
+    xb = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(64, STACK_N)).astype(np.float32), device=DEVICE)
+    b64_us = _profile_steps(lambda: kernel(xb))["busy_us"]
+    us = statistics.median(warm_us)
+    least = bounds()["fused_mlp_w8a8_forward"]
+    nbytes = STACK_L * STACK_N * STACK_N
+    plan = K.mlp_w8a8_plan(STACK_B, STACK_N, STACK_L)
+    log(f"[timing] fused_mlp_w8a8_forward 4x4096 B={STACK_B}: 1 kernel a "
+        f"forward ({plan.grid} blocks, ring of {plan.depth} x {plan.kc} k, "
+        f"{2 * STACK_L} grid barriers); device (profiler, 10 back-to-back "
+        f"calls) {', '.join(f'{u:.2f}' for u in warm_us)} us, median {us:.2f} "
+        f"us ({us / (least[0] * 1e3):.2f}x the bound {least[0] * 1e3:.3f} us "
+        f"by {least[1]}), with L2 flushed before each call {cold_us:.2f} us; "
+        f"the weights stream at {nbytes / (us * 1e-6) / 1e9:.0f} GB/s "
+        f"({nbytes / (cold_us * 1e-6) / 1e9:.0f} GB/s cold) against "
+        f"{HBM_BPS / 1e9:.0f}; events kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, per-layer fused_linear_w8a8 chain {c_ms:.4f} ms "
+        f"({cprof['launches']:.0f} kernels, {cprof['busy_us']:.1f} us); "
+        f"B=64 device {b64_us:.2f} us "
+        f"({K.mlp_w8a8_plan(64, STACK_N, STACK_L).groups} group)")
+    return k_ms, p_ms
 
 
 def phase_train_routes() -> None:
@@ -2325,8 +2506,7 @@ def bounds() -> dict:
         "fused_mlp_train_step": _bound(
             4 * (T * FLAGSHIP[0] + T * FLAGSHIP[-1] + 2 * params + 1),
             2 * T * (2 * kos + kos - layers[0][0] * layers[0][1]), "f32"),
-        # int8 codes, f32 scale and bias; w8's products are bf16 at default
-        "fused_linear_w8": per_layer(B, 4, 1, 2, "bf16"),
+        "fused_linear_w8": w8_bound(B),
         "fused_linear_w8a8": per_layer(B, 4, 1, 2, "int8"),
         "fused_mlp_w8a8_forward": _bound(
             Bs * n * 4 + L * n * n + 2 * L * n * 4 + Bs * n * 4,
@@ -2345,6 +2525,15 @@ def bounds() -> dict:
         "bidir_ring.ring": ring_bound("ar", DP_RANKS,
                                       FLAGSHIP_PARAM_SHAPES[0]),
     }
+
+
+def w8_bound(B: int):
+    """Kernel 4 over the flagship's three layers at batch B: x, the int8
+    codes, the f32 scale and bias read once, y written once; its products
+    are bf16 at "default"."""
+    parts = [_bound(B * k * 4 + o * k + 2 * o * 4 + B * o * 4, 2 * B * k * o,
+                    "bf16") for k, o in zip(FLAGSHIP[:-1], FLAGSHIP[1:])]
+    return (sum(ms for ms, _ in parts), max(parts, key=lambda p: p[0])[1])
 
 
 def rnn_step_bound(B: int):

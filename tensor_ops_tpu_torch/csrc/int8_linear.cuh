@@ -1,8 +1,8 @@
-// What the int8 kernels share: the per-row activation quantizer, the
-// rescaling epilogue, and the two w8a8 kernels (quantize the rows, then the
-// int8 product) that both `fused_linear_w8a8.cu` and
-// `fused_mlp_w8a8_forward.cu` launch.  Sharing one body is what makes the
-// whole-MLP route bit-equal to the per-layer chain.
+// What the int8 kernels share: the per-row activation quantizer's scale and
+// codes (row_scale, code_byte), the rescaling epilogue and the activations,
+// which fused_mlp_w8a8_forward.cu also takes, so that the whole-MLP route is
+// bit-equal to the per-layer chain; and the two w8a8 kernels (quantize the
+// rows, then the int8 product) that `fused_linear_w8a8.cu` launches.
 //
 // Layout: x (B, K) f32 row-major; codes (O, Kp) int8 in the ffLayer layout,
 // Kp = K rounded up to kAlign with zero codes past K (zeros add nothing to an
@@ -18,8 +18,8 @@
 // product needs every code of its rows.  Quantizing them in each block's
 // prologue repeated the row's K loads and IEEE divisions in all O / 32
 // blocks: on the H100 (chip_smoke.py) the 4 x 4096 stack at B = 16 took
-// 316 us of device time that way, and takes 77 us with one quantizing launch
-// per layer (17 us) before the product (60 us).
+// 316 us of device time that way, and 77 us with one quantizing launch per
+// layer (17 us) before the product (60 us).
 #pragma once
 
 #include <cuda_runtime.h>

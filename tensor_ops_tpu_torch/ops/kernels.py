@@ -16,14 +16,18 @@ beside its plain PyTorch version.
   (``csrc/fused_mlp_train_step.cu``), the port of the TPU kernel
   ``_mlp_train_kernel``.
 * :func:`fused_linear_w8` — weight-only int8 ``act(x @ (q * s).T + b)``
-  (``csrc/fused_linear_w8.cu``), the port of ``_linear_w8_kernel``.
+  (``csrc/fused_linear_w8.cu``), the port of ``_linear_w8_kernel``;
+  :func:`w8_plan` picks one of its three instances (a gemv, a bf16
+  tensor-core tile, an fp32 SIMT tile) and a split of K per shape.
 * :func:`fused_linear_w8a8` — int8 x int8 -> int32 ``act((q(x) @ q.T) * sx
   * sw.T + b)`` (``csrc/fused_linear_w8a8.cu``), the port of
   ``_linear_w8a8_kernel``: one launch quantizes the rows of x, a second
   takes the product.
-* :func:`fused_mlp_w8a8_forward` — a whole uniform-width int8 MLP from one
-  call, each layer a requantizing launch and a product launch
-  (``csrc/fused_mlp_w8a8_forward.cu``), the port of ``_mlp_w8a8_kernel``.
+* :func:`fused_mlp_w8a8_forward` — a whole uniform-width int8 MLP in one
+  cooperative launch on the int8 tensor cores, its weights streamed
+  through a ring of stages across layer boundaries
+  (``csrc/fused_mlp_w8a8_forward.cu``; :func:`mlp_w8a8_plan` sizes it),
+  the port of ``_mlp_w8a8_kernel``.
 * :func:`fused_rnn_step` — one Elman step ``z = x @ wx.T + s @ ws.T + b``,
   ``(y, s') = (z, act(z))`` (``csrc/fused_rnn_step.cu``), the port of
   ``_rnn_step_kernel``, with its backward in plain PyTorch as the JAX
@@ -895,22 +899,118 @@ def fused_linear_w8_ref(x, wq, scale, b, act: str = "identity",
     return _act_fn(act)(z).to(x.dtype)
 
 
+# the instances of csrc/fused_linear_w8.cu, by code: (rows, columns, k) of
+# one block's output tile and stage, and threads per block; the gemv's
+# columns per block and row bounds.  tests/test_torch_kernels.py holds each
+# copy to its source.
+W8_INSTANCES = {"gemv": (0, None, 256), "mma": (1, (32, 32, 32), 128),
+                "simt": (2, (32, 64, 16), 128)}
+W8_GEMV_WARPS = 4        # gemv: output columns per block (two warps each)
+W8_GEMV_ROWS = (1, 4, 8, 16)
+W8_GEMV_K = 16           # gemv: codes per 16-byte load, the step of a split
+# The least k a split of K walks.  A split costs one more round trip through
+# L2 (each split's partial written, the last block adding them): about
+# 1.2-1.5 us on the H100, which the gemv's flagship layers (K <= 784) never
+# won back, while the tiles' 784-deep layers at B = 64 ran in 0.6x the time
+# split five ways (chip_smoke.py's phase 6 shapes, timed by a probe).
+W8_SPLIT_MIN_K = 128
+W8_GEMV_SPLIT_MIN_K = 1024
+
+
+class W8Plan(NamedTuple):
+    """How ``fused_linear_w8`` runs one shape: the instance, 16-byte loads
+    of x or scalar ones, the gemv's row bound (the tile's rows otherwise),
+    the grid (columns, rows, splits of K), threads per block, the split of K
+    over ``grid[2]`` blocks with ``kchunk`` k each, and the f32 scratch the
+    split's partials take."""
+    instance: str
+    vec: bool
+    rows: int
+    grid: Tuple[int, int, int]
+    block: int
+    split: int
+    kchunk: int
+    scratch_floats: int
+
+
+def w8_plan(B: int, K: int, O: int, precision: str = "default",
+            sms: int = H100_SMS) -> W8Plan:
+    """The instance of ``fused_linear_w8`` for x (B, K) and codes (O,
+    padded_width(K)), a fixed rule:
+
+    * B <= 16: ``gemv``, a warp per output column, 4 columns a block;
+    * B > 16 at ``"default"``: ``mma``, 32 x 32 tiles on the bf16 tensor
+      cores; at ``"highest"``: ``simt``, the fp32 SIMT tile (32 x 64);
+
+    and where the blocks are fewer than ``sms``, K is split over enough
+    blocks to give every SM one, as long as each split walks at least
+    :data:`W8_SPLIT_MIN_K` k (:data:`W8_GEMV_SPLIT_MIN_K` for the gemv), a
+    multiple of the instance's k step; the partials are added in split
+    order by the last block of each tile.  ``vec`` (16-byte loads of x) needs
+    K % 4 == 0.  Raises ``ValueError`` for a K whose padded rows do not fit
+    one block's shared memory as f32 (the refusal of :func:`int8_tile_rows`)
+    and for a grid the card cannot launch."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    int8_tile_rows(B, padded_width(K), 4)
+    if B <= W8_GEMV_ROWS[-1]:
+        instance, bk, min_k = "gemv", W8_GEMV_K, W8_GEMV_SPLIT_MIN_K
+        rows = next(r for r in W8_GEMV_ROWS if r >= B)
+        gx, gy = _cdiv(O, W8_GEMV_WARPS), 1
+    else:
+        instance = "mma" if precision == "default" else "simt"
+        rows, bn, bk = W8_INSTANCES[instance][1]
+        gx, gy, min_k = _cdiv(O, bn), _cdiv(B, rows), W8_SPLIT_MIN_K
+    if gy > GRID_YZ_MAX:
+        raise ValueError(f"fused_linear_w8: {B} rows need {gy} row tiles, "
+                         f"more than the grid's {GRID_YZ_MAX}")
+    split, kchunk = 1, max(K, 1)
+    if gx * gy < sms and K >= 2 * min_k:
+        split = min(_cdiv(sms, gx * gy), K // min_k)
+        kchunk = _cdiv(_cdiv(K, split), bk) * bk
+        split = _cdiv(K, kchunk)
+    return W8Plan(instance, K % 4 == 0, rows, (gx, gy, split),
+                  W8_INSTANCES[instance][2], split, kchunk,
+                  split * B * O if split > 1 else 0)
+
+
+_w8_calls: dict = {}  # (B, K, Kp, O, precision, card) -> (plan, entry)
+_W8_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
+                + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+
+
 def _fused_linear_w8_cuda(x, wq, scale, b, act, precision):
+    """The kernel: ``w8_plan``'s instance, the plan and the C entry cached
+    per call shape, the split's scratch kept per card and stream."""
     B, K, O = _int8_shapes("fused_linear_w8", x, wq, scale, b)
     xf, q, s, bf = _int8_operands(x, wq, scale, b)
     y = torch.empty((B, O), dtype=torch.float32, device=x.device)
     if B == 0 or O == 0:
         return y.to(x.dtype)
-    Kp = q.shape[1]
-    rows = int8_tile_rows(B, Kp, 4)
-    fn = _kernel("fused_linear_w8", "fused_linear_w8_f32",
-                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(_p(xf), _p(q), _p(s), _p(bf), _p(y), B, K, Kp, O, rows,
-                 ACT_CODES[act], int(precision == "highest"),
-                 _stream(x.device))
-    _check_launch("fused_linear_w8", err)
+    dev, Kp = x.get_device(), q.shape[1]
+    key = (B, K, Kp, O, precision, dev)
+    call = _w8_calls.get(key)
+    if call is None:
+        call = (w8_plan(B, K, O, precision, _sm_count(dev)),
+                _kernel("fused_linear_w8", "fused_linear_w8_f32",
+                        _W8_ARGTYPES, keep_gil=True))
+        _w8_calls[key] = call
+    plan, fn = call
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    part = counters = None
+    if plan.split > 1:
+        part = _scratch_for("fused_linear_w8.part", dev, stream,
+                            plan.scratch_floats, torch.float32).data_ptr()
+        counters = _scratch_for("fused_linear_w8.counters", dev, stream,
+                                plan.grid[0] * plan.grid[1], torch.int32,
+                                zeroed=True).data_ptr()
+    err = _launch_on(dev, fn, xf.data_ptr(), q.data_ptr(), s.data_ptr(),
+                     bf.data_ptr(), y.data_ptr(), B, K, Kp, O,
+                     ACT_CODES[act], W8_INSTANCES[plan.instance][0],
+                     int(plan.vec), plan.rows, *plan.grid, plan.kchunk, part,
+                     counters, int(precision == "highest"), stream)
+    if err:
+        _check_launch("fused_linear_w8", err)
     _count("fused_linear_w8")
     return y.to(x.dtype)
 
@@ -920,7 +1020,8 @@ def fused_linear_w8(x, wq, scale, b, act: str = "identity",
     """``act(x @ (wq * scale).T + b)`` with int8 weights dequantized in the
     kernel.  x (B, i); wq (o, i) int8 codes, or (o, padded_width(i)) with
     zero codes past i (:func:`pad_codes`); scale (o, 1) or (o,) f32; b
-    (o,).  Not differentiable (a serving kernel)."""
+    (o,).  Not differentiable (a serving kernel).  On the card the instance
+    is :func:`w8_plan`'s."""
     _check_names([act], precision)
     if x.is_cuda:
         return _fused_linear_w8_cuda(x, wq, scale, b, act, precision)
@@ -987,7 +1088,116 @@ def fused_mlp_w8a8_forward_ref(x, wqs, sws, bs, hidden_act: str = "relu"):
     return h.to(torch.float32)
 
 
+MLP8_THREADS = 256      # fused_mlp_w8a8_forward: threads per block
+MLP8_COLS = 32          # its column tile: output columns a block owns
+MLP8_STAGE_K = 1024     # k of one stage of its weight ring, at most
+MLP8_MAX_STAGES = 8     # stages of the ring, at most
+MLP8_MAX_ROWS = 64      # rows of one group (4 m16 tiles), at most
+MLP8_MAX_GRID = 160     # blocks of one launch at most (one per SM)
+
+
+class MlpW8a8Plan(NamedTuple):
+    """How ``fused_mlp_w8a8_forward`` runs a batch: ``groups`` groups of at
+    most ``rows`` rows one after another (the weights streamed once per
+    group), ``grid`` blocks in one cooperative launch, each owning at most
+    ``tiles`` tiles of 32 columns, a ring of ``depth`` stages of ``kc`` k,
+    ``smem_bytes`` of shared memory a block."""
+    rows: int
+    groups: int
+    grid: int
+    tiles: int
+    kc: int
+    depth: int
+    smem_bytes: int
+
+
+def mlp_w8a8_smem_bytes(rows: int, kc: int, depth: int, tiles: int) -> int:
+    """Shared memory of one block of the whole-MLP int8 kernel, the formula
+    of ``smem_bytes`` in ``csrc/fused_mlp_w8a8_forward.cu``: the ring (each
+    stage 32 weight rows and the code rows of whole m16 tiles, kc bytes
+    each) and 128 bytes to align it, the own columns' f32 values, the eight
+    warps' int32 partial m16 tiles (rows of 33), the row scales, and the
+    ring's mbarriers and stage numbers."""
+    stage = (MLP8_COLS + 16 * _cdiv(rows, 16)) * kc
+    return (depth * stage + 128 + 4 * rows * tiles * MLP8_COLS
+            + 4 * (MLP8_THREADS // 32) * 16 * (MLP8_COLS + 1)
+            + 4 * MLP8_MAX_ROWS + 12 * MLP8_MAX_STAGES)
+
+
+def mlp_w8a8_plan(B: int, N: int, L: int,
+                  sms: int = H100_SMS) -> MlpW8a8Plan:
+    """The whole-MLP int8 kernel's plan for B rows through L layers of
+    N x N (N a multiple of 128), a fixed rule: one block per SM, at most one
+    per 32-column tile (``grid = min(N / 32, sms)``, each block the tiles
+    blk, blk + grid, ...); stages of ``kc = min(N, 1024)`` k; the most rows
+    a group (at most 64) whose ring of 2 stages fits one block's shared
+    memory, the groups then evened out; and the deepest ring (at most 8
+    stages) that fits.  Refuses, naming the width, only what
+    :func:`int8_tile_rows` refuses (a row of N codes wider than a block's
+    shared memory); every other (B, N) runs, a batch too large for one
+    group as several groups in the same launch."""
+    int8_tile_rows(B, N, 1)
+    if N % 128 or N < 128 or B < 1 or L < 1:
+        raise ValueError(f"fused_mlp_w8a8_forward: B={B}, N={N}, L={L}; "
+                         f"needs B, L >= 1 and N a multiple of 128")
+    n_tiles = N // MLP8_COLS
+    grid = min(n_tiles, sms, MLP8_MAX_GRID)
+    tiles = _cdiv(n_tiles, grid)
+    kc = min(N, MLP8_STAGE_K)
+    rows = min(B, MLP8_MAX_ROWS)
+    while rows > 1 and mlp_w8a8_smem_bytes(rows, kc, 2, tiles) > MAX_SMEM_BYTES:
+        rows -= 1
+    groups = _cdiv(B, rows)
+    rows = _cdiv(B, groups)
+    depth = 2
+    while (depth < MLP8_MAX_STAGES and mlp_w8a8_smem_bytes(
+            rows, kc, depth + 1, tiles) <= MAX_SMEM_BYTES):
+        depth += 1
+    return MlpW8a8Plan(rows, groups, grid, tiles, kc, depth,
+                       mlp_w8a8_smem_bytes(rows, kc, depth, tiles))
+
+
+_mlp8_calls: dict = {}  # (B, N, L, card) -> (plan, entry)
+_MLP8_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                  + [ctypes.c_void_p])
+
+
+def _mlp_w8a8_call(B: int, N: int, L: int, dev: int):
+    """(plan, C entry) of one call shape, cached."""
+    key = (B, N, L, dev)
+    call = _mlp8_calls.get(key)
+    if call is None:
+        call = (mlp_w8a8_plan(B, N, L, _sm_count(dev)),
+                _kernel("fused_mlp_w8a8_forward",
+                        "fused_mlp_w8a8_forward_f32", _MLP8_ARGTYPES,
+                        keep_gil=True))
+        _mlp8_calls[key] = call
+    return call
+
+
+def _mlp_w8a8_launch(plan: MlpW8a8Plan, fn, xf, q, s, bf, y,
+                     hidden_act: str, dev: int) -> None:
+    """Launches ``plan`` as one cooperative launch (raises ``RuntimeError``
+    when the C entry refuses it, the card cannot hold the grid at once or
+    the launch fails)."""
+    B, N = xf.shape
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    act = _scratch_for("fused_mlp_w8a8_forward.codes", dev, stream,
+                       plan.rows * N, torch.int8)
+    pmax = _scratch_for("fused_mlp_w8a8_forward.pmax", dev, stream,
+                        plan.rows * plan.grid, torch.float32)
+    err = _launch_on(dev, fn, xf.data_ptr(), q.data_ptr(), s.data_ptr(),
+                     bf.data_ptr(), y.data_ptr(), act.data_ptr(),
+                     pmax.data_ptr(), B, N, q.shape[0], plan.rows, plan.kc,
+                     plan.depth, plan.grid, ACT_CODES[hidden_act], stream)
+    if err:
+        _check_launch("fused_mlp_w8a8_forward", err)
+
+
 def _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act):
+    """The kernel: ``mlp_w8a8_plan``'s one cooperative launch, the plan and
+    the C entry cached per call shape, the scratch kept per card and
+    stream."""
     B, N = x.shape
     L = wqs.shape[0]
     if any(t.device != x.device for t in (wqs, sws, bs)):
@@ -1002,18 +1212,9 @@ def _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act):
     y = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if B == 0:
         return y
-    hbuf = torch.empty((2, B, N), dtype=torch.float32, device=x.device)
-    xq = torch.empty((B, N), dtype=torch.int8, device=x.device)
-    sx = torch.empty(B, dtype=torch.float32, device=x.device)
-    rows = int8_tile_rows(B, N, 1)
-    fn = _kernel("fused_mlp_w8a8_forward", "fused_mlp_w8a8_forward_f32",
-                 [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(_p(xf), _p(q), _p(s), _p(bf), _p(y), _p(hbuf), _p(xq),
-                 _p(sx), B, N, L, rows, ACT_CODES[hidden_act],
-                 _stream(x.device))
-    _check_launch("fused_mlp_w8a8_forward", err)
+    dev = x.get_device()
+    plan, fn = _mlp_w8a8_call(B, N, L, dev)
+    _mlp_w8a8_launch(plan, fn, xf, q, s, bf, y, hidden_act, dev)
     _count("fused_mlp_w8a8_forward")
     return y
 
@@ -1022,7 +1223,10 @@ def fused_mlp_w8a8_forward(x, wqs, sws, bs, hidden_act: str = "relu"):
     """Whole uniform-width int8 MLP: x (B, N) float; wqs (L, N, N) int8
     codes (layer-stacked); sws (L, N) f32 scales; bs (L, N) f32 biases.
     Hidden layers apply ``hidden_act`` and are requantized per row for the
-    next layer; the last layer gives raw f32 logits (B, N).  Needs
+    next layer; the last layer gives raw f32 logits (B, N).  On the card the
+    whole forward is one cooperative launch planned by
+    :func:`mlp_w8a8_plan`, bit-equal to the chain of
+    :func:`fused_linear_w8a8`.  Needs
     N % 128 == 0 (the JAX kernel's rule, on which ``Predictor`` routes);
     other stacks use the per-layer :func:`fused_linear_w8a8`."""
     _check_names([hidden_act], "default")

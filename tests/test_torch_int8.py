@@ -295,6 +295,110 @@ def test_int8_tile_rows_names_a_width_too_wide():
         K.int8_tile_rows(4, 60000, 4)
 
 
+# w8_plan per shape: (B, K, O, precision) -> (instance, vec, rows, grid,
+# kchunk).  The flagship's layers at the w8 buckets and the gemv's edges;
+# the tiles split K where they are fewer than the SMs and a split still
+# walks 128 k; the gemv splits only K of 2048 and more.
+W8_PLANS = [
+    (1, 784, 300, "default", "gemv", True, 1, (75, 1, 1), 784),
+    (1, 100, 10, "highest", "gemv", True, 1, (3, 1, 1), 100),
+    (8, 784, 300, "default", "gemv", True, 8, (75, 1, 1), 784),
+    (8, 300, 100, "default", "gemv", True, 8, (25, 1, 1), 300),
+    (8, 100, 10, "default", "gemv", True, 8, (3, 1, 1), 100),
+    (8, 784, 300, "highest", "gemv", True, 8, (75, 1, 1), 784),
+    (16, 300, 100, "default", "gemv", True, 16, (25, 1, 1), 300),
+    (17, 784, 300, "default", "mma", True, 32, (10, 1, 5), 160),
+    (17, 784, 300, "highest", "simt", True, 32, (5, 1, 6), 144),
+    (64, 784, 300, "default", "mma", True, 32, (10, 2, 5), 160),
+    (64, 300, 100, "default", "mma", True, 32, (4, 2, 2), 160),
+    (64, 100, 10, "default", "mma", True, 32, (1, 2, 1), 100),
+    (64, 784, 300, "highest", "simt", True, 32, (5, 2, 6), 144),
+    (512, 784, 300, "default", "mma", True, 32, (10, 16, 1), 784),
+    (512, 300, 100, "default", "mma", True, 32, (4, 16, 2), 160),
+    (512, 100, 10, "default", "mma", True, 32, (1, 16, 1), 100),
+    (512, 784, 300, "highest", "simt", True, 32, (5, 16, 2), 400),
+    # ragged K (scalar loads of x), a long K split over blocks
+    (5, 257, 130, "default", "gemv", False, 8, (33, 1, 1), 257),
+    (40, 257, 130, "default", "mma", False, 32, (5, 2, 2), 160),
+    (40, 257, 130, "highest", "simt", False, 32, (3, 2, 2), 144),
+    (8, 4096, 64, "default", "gemv", True, 8, (16, 1, 4), 1024),
+]
+
+
+@pytest.mark.parametrize("B,K_,O,precision,instance,vec,rows,grid,kchunk",
+                         W8_PLANS)
+def test_w8_plan_per_shape(B, K_, O, precision, instance, vec, rows, grid,
+                           kchunk):
+    plan = K.w8_plan(B, K_, O, precision)
+    assert (plan.instance, plan.vec, plan.rows, plan.grid, plan.kchunk) == (
+        instance, vec, rows, grid, kchunk)
+    assert plan.block == K.W8_INSTANCES[instance][2]
+    assert plan.split == grid[2]
+    # the splits cover K once, each a multiple of the instance's k step and
+    # at least the least k a split walks; the partials' scratch
+    step = K.W8_GEMV_K if instance == "gemv" else K.W8_INSTANCES[instance][1][2]
+    least = K.W8_GEMV_SPLIT_MIN_K if instance == "gemv" else K.W8_SPLIT_MIN_K
+    if plan.split > 1:
+        assert plan.kchunk % step == 0 and plan.kchunk >= least
+        assert (plan.split - 1) * plan.kchunk < K_ <= plan.split * plan.kchunk
+        assert plan.scratch_floats == plan.split * B * O
+    else:
+        assert plan.scratch_floats == 0 and plan.kchunk >= K_
+
+
+def test_w8_plan_refuses_what_the_kernel_refuses():
+    """Only a K whose padded row of f32 does not fit one block's shared
+    memory (int8_tile_rows' refusal, naming the width), and an unknown
+    precision."""
+    assert K.w8_plan(4, 58112, 10).instance == "gemv"  # the widest that runs
+    with pytest.raises(ValueError, match="58128"):
+        K.w8_plan(4, 58113, 10)
+    with pytest.raises(ValueError, match="58128"):
+        K.int8_tile_rows(4, 58128, 4)
+    with pytest.raises(ValueError, match="precision"):
+        K.w8_plan(4, 64, 10, "fast")
+
+
+@pytest.mark.parametrize("B,N,L,rows,groups,grid,tiles,kc,depth", [
+    (16, 4096, 4, 16, 1, 128, 1, 1024, 4),   # the serving stack, bucket 16
+    (5, 4096, 4, 5, 1, 128, 1, 1024, 4),
+    (64, 4096, 4, 64, 1, 128, 1, 1024, 2),   # four m16 tiles in one group
+    (100, 4096, 4, 50, 2, 128, 1, 1024, 2),  # two groups of 50 rows
+    (37, 512, 3, 37, 1, 16, 1, 512, 5),
+    (16, 256, 1, 16, 1, 8, 1, 256, 8),
+    (16, 8192, 1, 16, 1, 132, 2, 1024, 4),   # two column tiles a block
+    (1, 232448, 2, 1, 1, 132, 56, 1024, 4),  # the widest row that runs
+])
+def test_mlp_w8a8_plan_per_shape(B, N, L, rows, groups, grid, tiles, kc,
+                                 depth):
+    plan = K.mlp_w8a8_plan(B, N, L)
+    assert (plan.rows, plan.groups, plan.grid, plan.tiles, plan.kc,
+            plan.depth) == (rows, groups, grid, tiles, kc, depth)
+    assert plan.smem_bytes == K.mlp_w8a8_smem_bytes(rows, kc, depth, tiles)
+    assert plan.smem_bytes <= K.MAX_SMEM_BYTES
+    # no deeper ring fits, the groups cover B, the blocks' tiles cover N
+    assert (depth == K.MLP8_MAX_STAGES or K.mlp_w8a8_smem_bytes(
+        rows, kc, depth + 1, tiles) > K.MAX_SMEM_BYTES)
+    assert rows * groups >= B > rows * (groups - 1)
+    assert rows <= K.MLP8_MAX_ROWS and grid <= K.H100_SMS
+    assert grid * tiles * K.MLP8_COLS >= N > grid * (tiles - 1) * K.MLP8_COLS
+
+
+@pytest.mark.parametrize("B", [1, 16, 65, 512])
+def test_mlp_w8a8_plan_runs_every_width_that_runs_today(B):
+    """Every N that int8_tile_rows takes gets a plan that fits; the first N
+    past it is refused naming the width, as int8_tile_rows refuses it."""
+    for N in (128, 4096, 65536, 232448):
+        assert K.int8_tile_rows(B, N, 1) >= 1
+        plan = K.mlp_w8a8_plan(B, N, 3)
+        assert plan.smem_bytes <= K.MAX_SMEM_BYTES
+        assert plan.depth >= 2 and plan.rows * plan.groups >= B
+    with pytest.raises(ValueError, match="232576"):
+        K.int8_tile_rows(B, 232576, 1)
+    with pytest.raises(ValueError, match="232576"):
+        K.mlp_w8a8_plan(B, 232576, 3)
+
+
 def test_cpu_int8_path_launches_no_kernel():
     K.reset_launch_counts()
     x, _, b, q, s = jax_quantized_layer(60, 3, 5, 16)

@@ -307,7 +307,9 @@ def _cu_int(source: str, name: str) -> int:
 
 @pytest.mark.parametrize("what", ["tile", "large", "gemv", "gemv_rows",
                                   "train_tile", "train_layers", "mlp_cluster",
-                                  "mlp_rows", "rnn_seq", "rnn_seq_smem"])
+                                  "mlp_rows", "rnn_seq", "rnn_seq_smem",
+                                  "w8_gemv", "w8_tiles", "mlp8",
+                                  "mlp8_smem"])
 def test_host_geometry_matches_the_kernel_sources(what):
     """The host's copy of each kernel's tile shapes (which the plans and
     scratch sizes are computed from) equals the constants in its source."""
@@ -348,6 +350,46 @@ def test_host_geometry_matches_the_kernel_sources(what):
                 _cu_int(src, "kSeqRows")) == (
                     K.RNN_SEQ_CLUSTER, K.RNN_SEQ_THREADS, K.RNN_SEQ_ROWS)
         assert "O > kCluster * kSeqWarps" in (CSRC_DIR / src).read_text()
+    elif what == "w8_gemv":
+        src = "fused_linear_w8.cu"
+        assert _cu_int(src, "kGemvWarps") == K.W8_GEMV_WARPS
+        assert _cu_int(src, "kGemvThreads") == K.W8_INSTANCES["gemv"][2]
+        assert 64 * K.W8_GEMV_WARPS == K.W8_INSTANCES["gemv"][2]
+        assert _cu_int("int8_linear.cuh", "kAlign") == K.W8_GEMV_K
+        rows = tuple(int(r) for r in re.findall(
+            r"case (\d+): launch_gemv<\1>", (CSRC_DIR / src).read_text()))
+        assert rows == K.W8_GEMV_ROWS
+    elif what == "w8_tiles":
+        src = "fused_linear_w8.cu"
+        _, shape, threads = K.W8_INSTANCES["mma"]
+        tile = _cu_int(src, "kMmaTile")
+        assert (tile, tile, tile, _cu_int(src, "kMmaThreads")) == (*shape,
+                                                                   threads)
+        _, shape, threads = K.W8_INSTANCES["simt"]
+        assert _cu_tile(src, "SimtTile") == (*shape, threads)
+    elif what == "mlp8":
+        src = "fused_mlp_w8a8_forward.cu"
+        assert (_cu_int(src, "kThreads"), _cu_int(src, "kCols"),
+                _cu_int(src, "kMaxStages"), _cu_int(src, "kMaxRows"),
+                _cu_int(src, "kMaxGrid")) == (
+                    K.MLP8_THREADS, K.MLP8_COLS, K.MLP8_MAX_STAGES,
+                    K.MLP8_MAX_ROWS, K.MLP8_MAX_GRID)
+    elif what == "mlp8_smem":
+        # the host's shared-memory count is the source's formula
+        src = "fused_mlp_w8a8_forward.cu"
+        text = (CSRC_DIR / src).read_text()
+        assert "return (kCols + 16 * ((rows + 15) / 16)) * kc;" in text
+        assert ("return int64_t{depth} * stage_bytes(rows, kc) + 128 + 4ll * "
+                "rows * tiles * kCols + 4ll * kWarps * 16 * kRedStride + 4ll * "
+                "kMaxRows + 12ll * kMaxStages;" in text)
+        assert (_cu_int(src, "kRedStride") == K.MLP8_COLS + 1
+                and "constexpr int kWarps = kThreads / 32;" in text)
+        assert K.mlp_w8a8_smem_bytes(16, 1024, 4, 1) == (
+            4 * 48 * 1024 + 128 + 4 * 16 * 32 + 4 * 8 * 16 * 33 + 4 * 64
+            + 12 * 8)
+        # a stage of 37 code rows of 512, padded to three m16 tiles
+        assert (K.mlp_w8a8_smem_bytes(37, 512, 2, 1)
+                - K.mlp_w8a8_smem_bytes(37, 512, 1, 1)) == (32 + 48) * 512
     else:
         # the host's shared-memory count is the source's formula
         text = (CSRC_DIR / "fused_rnn_step.cu").read_text()
