@@ -43,7 +43,12 @@ without printing a result line:
    and identity, covering every instance of ``w8_plan`` (gemv, the bf16
    tensor-core tile, the "highest" SIMT tile) with and without a split of
    K, each rerun bit for bit; ``fused_linear_w8a8`` at the flagship's
-   layers, a misaligned 257-wide case and an int32-exact case; and
+   layers (B = 1, 8, 37, 64 and 512), B = 20, a misaligned 257-wide case
+   and the 4096-wide layer, each on ``w8a8_plan``'s instance and on the
+   other one (the quantizer and product under programmatic dependent
+   launch, and the one launch), covering both with and without a split of
+   K over a cluster and every row tile, each rerun bit for bit, and its
+   int32-exact cases (B = 37 at K = 4096, and K = 200); and
    ``fused_mlp_w8a8_forward`` (one cooperative launch a forward) at the
    uniform serving stack (4 x 4096, seed 0, B = 16, 5, 64 and 100, the last
    in two row groups) and 3 x 512 logistic at B = 37, each bit for bit
@@ -101,11 +106,16 @@ without printing a result line:
    plain version's (median of 50 CUDA-event-timed runs after warm-up), the
    profiler's device time of the kernels, where one training step's, one
    int8 request's and one recurrent request's time goes on each route
-   (wall, kernels, device busy), the device memory each served model holds
-   (f32 vs int8), kernel 4 per layer at B = 8, 64 and 512 in turns with
-   kernel 1 on the same weights in f32, kernel 6's device time (back to
-   back and with L2 flushed), weight-stream rate and event median beside
-   the per-layer chain, the app's training samples/s per route, a FusedRNN
+   (wall, kernels, device busy, the kernels by name), the device memory
+   each served model holds (f32 vs int8), kernel 5 per layer at the
+   flagship's B = 8, 64 and 512 and at 4096^2, B = 16 and 64, in turns with
+   its other instance, kernel 4, kernel 1 (f32) and ``torch._int_mm`` (the
+   bare product) on the same weights and codes (device time per call in a
+   CUDA graph, profiler time, events, bound), kernel 4 per layer at B = 8,
+   64 and 512 in turns with kernel 1 on the same weights in f32, kernel 6's
+   device time (back to back and with L2 flushed), weight-stream rate and
+   event median beside the per-layer chain (and both in CUDA graphs), the
+   app's training samples/s per route, a FusedRNN
    sequence's wall and device time, launches, idle share and bound, kernel
    2's device time and event median at B = 1, 8 and 63 beside its bound, its
    plain version and kernel 1's three per-layer launches, kernel 1's
@@ -232,8 +242,16 @@ W8_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
                   for B in (1, 8, 16, 17, 37, 64, 512)
                   for i in range(3)) + ((5, 257, 130), (40, 257, 130),
                                         (8, 4096, 64), (600, 64, 600))
+# kernel 5 against its plain version: the flagship's layers at the --int8
+# buckets and B = 1 and 37, a row tile of 32 (B = 20), a ragged K (257), the
+# 4096-wide layer at B = 16 and 64 (whose codes need a split of K to fit a
+# block), and a long K over few columns (a split over a cluster); each shape
+# on w8a8_plan's instance and on the other one (the pair or the one launch)
 W8A8_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
-                    for B in (1, 8, 37) for i in range(3)) + ((40, 257, 130),)
+                    for B in (1, 8, 37, 64, 512) for i in range(3)) + (
+                        (20, 300, 100), (40, 257, 130), (16, 4096, 4096),
+                        (64, 4096, 4096), (37, 4096, 64))
+W8A8_TIMED = ((8, 64, 512), (16, 64))  # flagship buckets; 4096^2 batches
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense): the bound of
 # a kernel is the larger of its bytes over HBM_BPS and its operations over
 # the peak of their type.
@@ -662,38 +680,81 @@ def phase_int8_kernels(stack) -> dict:
         + "; ".join(f"{i}{' split' * sp}: {', '.join(v)}"
                     for (i, sp), v in sorted(held.items())))
 
+    held, rows_seen = {}, set()  # (instance, K split) -> shapes; rows a block
+    dev = torch.cuda.current_device()
+    fn = K._w8a8_call(1, 16, 16, 16, dev)[1]
     for n, (B, Kd, O) in enumerate(W8A8_SHAPES):
         x, q, s, b = layer(400 + 3 * n, B, Kd, O)
         x = x * 4 - 2  # signed activations
+        xf, qq, ss, bf = K._int8_operands(x, q, s, b)
+        plan = K.w8a8_plan(B, Kd, O, K._sm_count(dev))
+        other = K.w8a8_plan(B, Kd, O, K._sm_count(dev), instance=(
+            "fused" if plan.instance == "pdl" else "pdl"))
         errs = []
-        for act in ("identity", "relu", "logistic", "tanh"):
-            y = K._fused_linear_w8a8_cuda(x, q, s, b, act)
+        for p in (plan, other):
+            for act in ("identity", "relu", "logistic", "tanh"):
+                y = torch.empty(B, O, device=DEVICE)
+                if p is plan:
+                    y = K._fused_linear_w8a8_cuda(x, q, s, b, act)
+                else:
+                    K._w8a8_launch(p, fn, xf, qq, ss, bf, y, act, dev)
+                torch.cuda.synchronize()
+                ref = K.fused_linear_w8a8_ref(x, q, s, b, act)
+                if act in ("identity", "relu"):
+                    check(torch.equal(y, ref), f"fused_linear_w8a8 {act} B={B} "
+                          f"{Kd}->{O} ({p.instance}, grid {p.grid}): not "
+                          f"bit-equal to its plain version")
+                    e = 0.0
+                else:
+                    e = max_err(y, ref, TOL_ACT)
+                worst["fused_linear_w8a8"] = max(worst["fused_linear_w8a8"], e)
+                errs.append(f"{p.instance}/{act} {e:.1e}")
+            y2 = torch.empty(B, O, device=DEVICE)
+            K._w8a8_launch(p, fn, xf, qq, ss, bf, y2, "tanh", dev)
             torch.cuda.synchronize()
-            ref = K.fused_linear_w8a8_ref(x, q, s, b, act)
-            if act in ("identity", "relu"):
-                check(torch.equal(y, ref), f"fused_linear_w8a8 {act} B={B} "
-                      f"{Kd}->{O}: not bit-equal to its plain version")
-                e = 0.0
-            else:
-                e = max_err(y, ref, TOL_ACT)
-            worst["fused_linear_w8a8"] = max(worst["fused_linear_w8a8"], e)
-            errs.append(f"{act} {e:.1e}")
+            check(torch.equal(y2, y), f"fused_linear_w8a8 B={B} {Kd}->{O} "
+                  f"({p.instance}): a rerun differs")
+            held.setdefault((p.instance, p.split > 1), []).append(
+                f"{B}x{Kd}->{O}")
+            rows_seen.add(p.rows)
         log(f"[kernel] fused_linear_w8a8 B={B} {Kd}->{O} (K padded to "
-            f"{K.padded_width(Kd)}) identity, relu bit-equal; max|err| "
-            f"{', '.join(errs)}; tol {TOL_ACT[0]:g}")
+            f"{K.padded_width(Kd)}): plan {plan.instance} rows {plan.rows} "
+            f"tiles {plan.tiles} grid {plan.grid}, and {other.instance} grid "
+            f"{other.grid}; identity, relu bit-equal, reruns bit-equal; "
+            f"max|err| {', '.join(errs)}; tol {TOL_ACT[0]:g}")
+    want = {("pdl", False), ("pdl", True), ("fused", False)}
+    check(set(held) == want, f"fused_linear_w8a8 plans held: {sorted(held)}")
+    check(rows_seen == set(K.W8A8_ROWS), f"fused_linear_w8a8 rows a block "
+          f"held: {sorted(rows_seen)}")
+    log("[kernel] fused_linear_w8a8 instances held (instance, K split): "
+        + "; ".join(f"{i}{' split' * sp}: {', '.join(v)}"
+                    for (i, sp), v in sorted(held.items()))
+        + f"; rows a block {sorted(rows_seen)}")
+    # int32-exact: integer x with 127 in every row (scale 1, codes = x),
+    # codes scale 1, zero bias: the outputs are the exact integer products,
+    # so a wrong fragment map shows as a wrong integer; at a tensor-core
+    # shape with a split (B = 37, K = 4096) and at K = 200 (not a multiple of
+    # the 64-k chunk), on both instances
     r = np.random.default_rng(7)
-    xi = r.integers(-127, 128, size=(5, 12)).astype(np.float32)
-    xi[:, 0] = 127.0  # scale 1: the codes are x itself
-    wi = r.integers(-127, 128, size=(9, 12)).astype(np.int8)
-    y = K._fused_linear_w8a8_cuda(
-        torch.as_tensor(xi, device=DEVICE), torch.as_tensor(wi, device=DEVICE),
-        torch.ones(9, 1, device=DEVICE), torch.zeros(9, device=DEVICE),
-        "identity")
-    torch.cuda.synchronize()
-    exact = xi.astype(np.int64) @ wi.astype(np.int64).T
-    check(np.array_equal(y.cpu().numpy(), exact.astype(np.float32)),
-          "fused_linear_w8a8: the int32-exact case is not exact")
-    log("[kernel] fused_linear_w8a8 int32-exact case (B=5, 12->9): exact")
+    for B, Kd, O in ((5, 12, 9), (37, 4096, 64), (16, 200, 40)):
+        xi = r.integers(-127, 128, size=(B, Kd)).astype(np.float32)
+        xi[:, 0] = 127.0  # scale 1: the codes are x itself
+        wi = r.integers(-127, 128, size=(O, Kd)).astype(np.int8)
+        exact = (xi.astype(np.int64) @ wi.astype(np.int64).T).astype(np.float32)
+        xt, wt = (torch.as_tensor(a, device=DEVICE) for a in (xi, wi))
+        ones, zeros = torch.ones(O, device=DEVICE), torch.zeros(O, device=DEVICE)
+        grids = []
+        for inst in ("fused", "pdl"):
+            p = K.w8a8_plan(B, Kd, O, K._sm_count(dev), instance=inst)
+            y = torch.empty(B, O, device=DEVICE)
+            K._w8a8_launch(p, fn, xt, K.pad_codes(wt).contiguous(), ones, zeros,
+                           y, "identity", dev)
+            torch.cuda.synchronize()
+            check(np.array_equal(y.cpu().numpy(), exact), f"fused_linear_w8a8: "
+                  f"the int32-exact case B={B} K={Kd} ({inst}) is not exact")
+            grids.append(f"{inst} grid {p.grid}")
+        log(f"[kernel] fused_linear_w8a8 int32-exact case (B={B}, {Kd}->{O}; "
+            f"{', '.join(grids)}): exact")
     worst["fused_mlp_w8a8_forward"] = mlp_w8a8_cases(stack)
     return worst
 
@@ -1381,6 +1442,39 @@ def _host_us(fn, calls: int = 1000) -> float:
     return us
 
 
+def _graph_us(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph and replayed ``reps`` times, timed with CUDA events, the median per
+    call.  No host time and no profiler between the kernels: a call of two
+    kernels under programmatic dependent launch overlaps as it does on its
+    own.  ``fn`` first runs twice on the capture stream, so that scratch
+    kept per stream is made outside the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=side):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        g.replay()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) * 1e3 / calls)
+    del g
+    return statistics.median(out)
+
+
 def _profile_steps(step, steps: int = 10) -> dict:
     """The device work of one call of ``step`` (a training step, a request
     or a kernel): CUDA kernels launched, copies and memsets, and device busy
@@ -1465,6 +1559,8 @@ def phase_int8_timing(sv, stack) -> dict:
         prof = _profile_steps(lambda: pred.predict(x))
         top = ", ".join(f"{n} {us:.1f}" for n, us in
                         list(prof["by_kernel"].items())[:3])
+        log(f"[timing] request bucket {b} {name}: kernels per request "
+            + ", ".join(f"{n} x{c:g}" for n, c in prof["calls"].items()))
         log(f"[timing] request bucket {b} {name}: {wall_us:.1f} us/request "
             f"wall, {prof['launches']:.0f} kernels + {prof['copies']:.0f} "
             f"copies/request, device busy {prof['busy_us']:.1f} us/request, "
@@ -1473,32 +1569,100 @@ def phase_int8_timing(sv, stack) -> dict:
 
     times = {}
     with torch.inference_mode():
-        B = 8
-        hs = [_rand(500, B, FLAGSHIP[0], uniform=True)]
-        for q, s_, b, a in zip(flag._padded(), flag.scales, flag.biases,
-                               FLAGSHIP_INT8_ACTS):
-            hs.append(K.fused_linear_w8a8_ref(hs[-1], q, s_, b, a))
-        tk = tp = dev = 0.0
-        for i, (q, s_, b, a) in enumerate(zip(
-                flag._padded(), flag.scales, flag.biases, FLAGSHIP_INT8_ACTS)):
-            h = hs[i]
-            k_ms = _median_ms(lambda: K._fused_linear_w8a8_cuda(h, q, s_, b, a))
-            p_ms = _median_ms(lambda: K.fused_linear_w8a8_ref(h, q, s_, b, a))
-            d = _profile_steps(lambda: K._fused_linear_w8a8_cuda(
-                h, q, s_, b, a))["busy_us"]
-            tk, tp, dev = tk + k_ms, tp + p_ms, dev + d
-            log(f"[timing] fused_linear_w8a8 B={B} {FLAGSHIP[i]}->"
-                f"{FLAGSHIP[i + 1]} {a}: kernel {k_ms:.4f} ms, plain "
-                f"{p_ms:.4f} ms, device {d:.1f} us")
-        log(f"[timing] fused_linear_w8a8 B={B} three flagship layers: kernel "
-            f"{tk:.4f} ms, plain {tp:.4f} ms, device {dev:.1f} us")
-        times["fused_linear_w8a8"] = (tk, tp)
+        flag_layers = list(zip(flag._padded(), flag.scales, flag.biases,
+                               FLAGSHIP_INT8_ACTS))
+        for B in W8A8_TIMED[0]:
+            t = w8a8_timing(B, flag_layers, _rand(500 + B, B, FLAGSHIP[0],
+                                                  uniform=True), "flagship")
+            if B == 8:
+                times["fused_linear_w8a8"] = t
+        wq3, sw2, b2 = stack_gpu._cache["stacked"]
+        for B in W8A8_TIMED[1]:
+            x = torch.as_tensor(stack["x"] if B == STACK_B else np.random.
+                                default_rng(6).normal(size=(B, STACK_N)).
+                                astype(np.float32), device=DEVICE)
+            w8a8_timing(B, [(wq3[0], sw2[0], b2[0], "relu")], x, "4096^2")
         for B in W8_TIMED_BATCHES:
             t = w8_timing(B, w8)
             if B == 8:
                 times["fused_linear_w8"] = t
         times["fused_mlp_w8a8_forward"] = mlp_w8a8_timing(stack_gpu, stack)
     return times
+
+
+def w8a8_timing(B: int, layers, h, what: str) -> tuple:
+    """Kernel 5 on ``layers`` ((codes, scale, bias, act) each) from the input
+    ``h`` (B rows), each layer in turns, twice, with kernel 5 forced to its
+    other instance, kernel 4 ("default") on the same codes, kernel 1 on the
+    same weights dequantized to f32 and ``torch._int_mm`` on the same int8
+    codes (the bare product, where it takes the shape): device time per call
+    in a CUDA graph and the profiler's kernel time (busy, overlap counted
+    twice), and kernel 5's CUDA-event median beside its plain version's and
+    its bound.  Returns (kernel ms, plain ms, None, graph us), summed over
+    the layers."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    dev = torch.cuda.current_device()
+    names = ("k5", "k5 other", "kernel 4", "kernel 1", "_int_mm")
+    sums = dict.fromkeys(names + ("busy", "events", "plain", "bound"), 0.0)
+    for q, s_, b, a in layers:
+        k, o, kp = h.shape[1], q.shape[0], q.shape[1]
+        plan = K.w8a8_plan(B, k, o, K._sm_count(dev))
+        other = K.w8a8_plan(B, k, o, K._sm_count(dev), instance=(
+            "fused" if plan.instance == "pdl" else "pdl"))
+        xf, qq, ss, bf = K._int8_operands(h, q, s_, b)
+        y = torch.empty(B, o, device=DEVICE)
+        fn = K._w8a8_call(B, k, kp, o, dev)[1]
+        w = q[:, :k].float() * s_.float().reshape(-1, 1)
+        xq = K.quantize_acts_int8(h)[0]
+        calls = {
+            "k5": lambda: K._fused_linear_w8a8_cuda(h, q, s_, b, a),
+            "k5 other": lambda: K._w8a8_launch(other, fn, xf, qq, ss, bf, y,
+                                               a, dev),
+            "kernel 4": lambda: K._fused_linear_w8_cuda(h, q, s_, b, a,
+                                                        "default"),
+            "kernel 1": lambda: K._fused_linear_cuda(h, w, b, a, False),
+            "_int_mm": lambda: torch._int_mm(xq, qq[:, :k].t()),
+        }
+        try:
+            calls["_int_mm"]()
+            torch.cuda.synchronize()
+        except RuntimeError as err:
+            refused = str(err).splitlines()[0][:120]
+            del calls["_int_mm"]
+        graph, busy = {}, {}
+        for n in list(calls) + list(calls)[::-1]:
+            graph.setdefault(n, []).append(_graph_us(calls[n]))
+            busy.setdefault(n, []).append(_profile_steps(calls[n])["busy_us"])
+        g = {n: statistics.median(v) for n, v in graph.items()}
+        bz = {n: statistics.median(v) for n, v in busy.items()}
+        k_ms = _median_ms(calls["k5"])
+        p_ms = _median_ms(lambda: K.fused_linear_w8a8_ref(h, q, s_, b, a))
+        least = _bound(B * k * 4 + o * k + 2 * o * 4 + B * o * 4,
+                       2 * B * k * o, "int8")
+        for n in g:
+            sums[n] += g[n]
+        sums["busy"] += bz["k5"]
+        sums["events"] += k_ms
+        sums["plain"] += p_ms
+        sums["bound"] += least[0] * 1e3
+        log(f"[timing] fused_linear_w8a8 {what} B={B} {k}->{o} {a}: plan "
+            f"{plan.instance} rows {plan.rows} tiles {plan.tiles} grid "
+            f"{plan.grid}; device per call (CUDA graph, median of 2 in turns) "
+            + ", ".join(f"{n} {g[n]:.2f}" for n in g)
+            + ("" if "_int_mm" in g else f", _int_mm refused ({refused})")
+            + f" us ({other.instance} grid {other.grid}); profiler busy "
+            + ", ".join(f"{n} {bz[n]:.2f}" for n in bz)
+            + f" us; events k5 {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
+            f"{least[0] * 1e3:.4f} us by {least[1]}")
+        h = K.fused_linear_w8a8_ref(h, q, s_, b, a)
+    log(f"[timing] fused_linear_w8a8 {what} B={B}, {len(layers)} layer(s): "
+        f"device per call (CUDA graph) "
+        + ", ".join(f"{n} {sums[n]:.2f}" for n in names if sums[n])
+        + f" us; k5 profiler busy {sums['busy']:.2f} us; events "
+        f"{sums['events']:.4f} ms, plain {sums['plain']:.4f} ms; bound "
+        f"{sums['bound']:.4f} us")
+    return sums["events"], sums["plain"], None, sums["k5"]
 
 
 def w8_timing(B: int, model) -> tuple:
@@ -1589,6 +1753,17 @@ def mlp_w8a8_timing(stack_gpu, stack) -> tuple:
         x, wq3, sw2, b2, "relu"))
     c_ms = _median_ms(chain)
     cprof = _profile_steps(chain)
+    # device time per forward without host time: the whole-MLP kernel and
+    # the per-layer chain, in turns (a stream capture may refuse the
+    # cooperative launch: then its times read nan)
+    graphs = []
+    for f in (kernel, chain, chain, kernel):
+        try:
+            graphs.append(_graph_us(f))
+        except RuntimeError as err:
+            log(f"[timing] a CUDA graph of {f.__name__} failed: {err}")
+            graphs.append(float("nan"))
+            torch.cuda.synchronize()
     xb = torch.as_tensor(np.random.default_rng(5).normal(
         size=(64, STACK_N)).astype(np.float32), device=DEVICE)
     b64_us = _profile_steps(lambda: kernel(xb))["busy_us"]
@@ -1607,7 +1782,9 @@ def mlp_w8a8_timing(stack_gpu, stack) -> tuple:
         f"{HBM_BPS / 1e9:.0f}; events kernel {k_ms:.4f} ms, plain "
         f"{p_ms:.4f} ms, per-layer fused_linear_w8a8 chain {c_ms:.4f} ms "
         f"({cprof['launches']:.0f} kernels, {cprof['busy_us']:.1f} us); "
-        f"B=64 device {b64_us:.2f} us "
+        f"device per forward in a CUDA graph, in turns: kernel 6 "
+        f"{graphs[0]:.2f}, {graphs[3]:.2f} us, chain {graphs[1]:.2f}, "
+        f"{graphs[2]:.2f} us; B=64 device {b64_us:.2f} us "
         f"({K.mlp_w8a8_plan(64, STACK_N, STACK_L).groups} group)")
     return k_ms, p_ms
 

@@ -21,8 +21,8 @@ beside its plain PyTorch version.
   tensor-core tile, an fp32 SIMT tile) and a split of K per shape.
 * :func:`fused_linear_w8a8` — int8 x int8 -> int32 ``act((q(x) @ q.T) * sx
   * sw.T + b)`` (``csrc/fused_linear_w8a8.cu``), the port of
-  ``_linear_w8a8_kernel``: one launch quantizes the rows of x, a second
-  takes the product.
+  ``_linear_w8a8_kernel``, on the int8 tensor cores; each block of
+  :func:`w8a8_plan` quantizes its own k-slice of x in the same launch.
 * :func:`fused_mlp_w8a8_forward` — a whole uniform-width int8 MLP in one
   cooperative launch on the int8 tensor cores, its weights streamed
   through a ring of stages across layer boundaries
@@ -825,11 +825,13 @@ def pad_codes(wq: torch.Tensor) -> torch.Tensor:
 
 
 def int8_tile_rows(batch: int, k_padded: int, bytes_per_value: int) -> int:
-    """Batch rows per block of an int8 kernel: the power of two that covers
-    the batch, at most :data:`INT8_MAX_TILE_ROWS`, halved until the rows'
-    ``k_padded`` values of ``bytes_per_value`` bytes (codes for w8a8, f32
-    for w8) fit one block's shared memory.  Raises ``ValueError`` when not
-    even one row fits."""
+    """Batch rows per block of the int8 kernels' first design: the power of
+    two that covers the batch, at most :data:`INT8_MAX_TILE_ROWS`, halved
+    until the rows' ``k_padded`` values of ``bytes_per_value`` bytes fit one
+    block's shared memory.  Raises ``ValueError`` when not even one row
+    fits.  Its callers now: the width refusals of :func:`w8_plan` (f32 rows)
+    and :func:`mlp_w8a8_plan` (rows of codes), and the tools that time an
+    older checkout's kernels 4 and 5, whose C entries took these rows."""
     rows = 1
     while rows < min(batch, INT8_MAX_TILE_ROWS):
         rows *= 2
@@ -1043,33 +1045,194 @@ def fused_linear_w8a8_ref(x, wq, scale, b, act: str = "identity"):
     return _act_fn(act)(z).to(x.dtype)
 
 
+# fused_linear_w8a8 (csrc/fused_linear_w8a8.cu): its instances by code,
+# rows per block (n8 tiles of 8), m16 tiles of 16 columns
+# per block, the k of one fragment chunk, the most blocks of a split of K
+# (one portable cluster) and the pad of its partial tile's rows.
+# tests/test_torch_kernels.py holds each copy to its source.
+W8A8_INSTANCES = {"fused": 0, "pdl": 1}
+W8A8_ROWS = (8, 16, 32, 64)
+W8A8_TILES = (1, 2, 4, 8)
+W8A8_TILE_COLS = 16
+W8A8_CHUNK = 64
+W8A8_MAX_SPLIT = 8
+W8A8_PART_PAD = 4
+# The plan's thresholds, from CUDA-graph timings of every instance, tile and
+# split on one H100 (tools/w8a8_before_after.py): the one launch, whose
+# every block quantizes its rows whole, only beat the pair where a block's
+# rows hold at most this many values (the flagship's 100 -> 10 layer at
+# B <= 8); a split of K (a cluster barrier and remote reads) only paid where
+# each block still walks at least W8A8_SPLIT_MIN_K of k.
+W8A8_FUSED_MAX_VALUES = 1024
+W8A8_SPLIT_MIN_K = 512
+
+
+class W8a8Plan(NamedTuple):
+    """How ``fused_linear_w8a8`` runs one shape: the instance (``"pdl"``,
+    the row quantizer and the product under programmatic dependent launch;
+    ``"fused"``, one launch whose blocks quantize their rows themselves),
+    rows of x a block takes (the n8 side of the int8 products; the weights
+    are always on the m16 side), m16 tiles of 16 columns a block, the grid
+    (split, column groups, row tiles), the split of K over the ``split``
+    blocks of one cluster with ``kchunk`` k each, shared memory a block,
+    and the bytes of scratch (the pdl instance's codes and scales)."""
+    instance: str
+    rows: int
+    tiles: int
+    grid: Tuple[int, int, int]
+    split: int
+    kchunk: int
+    smem_bytes: int
+    scratch_bytes: int
+
+
+def w8a8_smem_bytes(instance: str, rows: int, tiles: int, kchunk: int) -> int:
+    """Shared memory of one block of ``fused_linear_w8a8``, the formula of
+    ``smem_bytes`` in ``csrc/fused_linear_w8a8.cu``: (fused) the block's rows
+    of x in f32, the slice's codes (rows padded by 64 bytes when the slice
+    is a multiple of 128), the int32 partial tile and the row scales."""
+    stride = kchunk if kchunk % 128 else kchunk + 64
+    return ((4 * rows * kchunk if instance == "fused" else 0) + rows * stride
+            + 4 * rows * (W8A8_TILE_COLS * tiles + W8A8_PART_PAD) + 4 * rows)
+
+
+def w8a8_plan(B: int, K: int, O: int, sms: int = H100_SMS,
+              instance: str = None) -> W8a8Plan:
+    """The plan of ``fused_linear_w8a8`` for x (B, K) and codes (O,
+    padded_width(K)), a fixed rule:
+
+    * rows: the least of :data:`W8A8_ROWS` that holds B, else 64 (row tiles);
+    * ``"fused"`` where those rows hold at most
+      :data:`W8A8_FUSED_MAX_VALUES` values of x, else ``"pdl"``;
+    * tiles: the fewest m16 tiles a block (1, 2, 4, 8) that keeps the blocks
+      within ``sms``, splits included (8 if none does);
+    * split (pdl only; the one launch never splits): over as many blocks as
+      the SMs leave room for, at
+      most :data:`W8A8_MAX_SPLIT`, each walking at least
+      :data:`W8A8_SPLIT_MIN_K` of k; more where a block's codes would not
+      fit its shared memory, and then fewer rows a block.
+
+    ``instance`` forces the instance (to time the two designs against each
+    other).  Raises ``ValueError`` for an unknown instance, a grid the card
+    cannot launch, and a K whose slice does not fit a block's shared memory
+    even at 8 rows and the largest split (naming the width: K > 230,912 at
+    any B)."""
+    if instance is not None and instance not in W8A8_INSTANCES:
+        raise ValueError(f"fused_linear_w8a8: unknown instance {instance!r}")
+    if B < 1 or K < 1 or O < 1:
+        raise ValueError(f"fused_linear_w8a8: empty shape {(B, K, O)}")
+    rows = next((r for r in W8A8_ROWS if r >= B), W8A8_ROWS[-1])
+    if instance is None:
+        instance = ("fused" if rows * K <= W8A8_FUSED_MAX_VALUES else "pdl")
+    chunks = _cdiv(K, W8A8_CHUNK)
+    n16 = _cdiv(O, W8A8_TILE_COLS)
+
+    def fits(r, t, s):
+        kc = W8A8_CHUNK * _cdiv(chunks, s)
+        return w8a8_smem_bytes(instance, r, t, kc) <= MAX_SMEM_BYTES
+
+    def choose(r, t):
+        """(split, blocks) at rows r and tiles t."""
+        blocks = _cdiv(n16, t) * _cdiv(B, r)
+        s = 1
+        if instance == "pdl":
+            s = max(1, min(W8A8_MAX_SPLIT, sms // blocks,
+                           K // W8A8_SPLIT_MIN_K))
+            while not fits(r, t, s) and s < min(W8A8_MAX_SPLIT, chunks):
+                s += 1
+        return s, blocks * s
+
+    for t in W8A8_TILES:
+        s, n = choose(rows, t)
+        if n <= sms:
+            break
+    while not fits(rows, t, s) and rows > W8A8_ROWS[0]:
+        rows //= 2
+        s, _ = choose(rows, t)
+    s = min(max(s, 1), chunks)
+    kchunk = W8A8_CHUNK * _cdiv(chunks, s)
+    s = _cdiv(chunks, kchunk // W8A8_CHUNK)
+    smem = w8a8_smem_bytes(instance, rows, t, kchunk)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"fused_linear_w8a8: an input width of {K} needs {smem} bytes of "
+            f"shared memory per block ({rows} rows x {kchunk} k, split {s} "
+            f"ways), more than the {MAX_SMEM_BYTES} one block has")
+    gx, gy = _cdiv(n16, t), _cdiv(B, rows)
+    if gx > GRID_YZ_MAX or gy > GRID_YZ_MAX:
+        raise ValueError(f"fused_linear_w8a8: {B} rows and {O} columns need a "
+                         f"grid of {gx} x {gy} blocks, more than "
+                         f"{GRID_YZ_MAX} a side")
+    return W8a8Plan(instance, rows, t, (s, gx, gy), s, kchunk, smem,
+                    B * padded_width(K) + 4 * B if instance == "pdl" else 0)
+
+
+_w8a8_calls: dict = {}  # (B, K, Kp, O, card) -> (plan, entry)
+_W8A8_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                  + [ctypes.c_void_p])
+
+
+def _w8a8_call(B: int, K: int, Kp: int, O: int, dev: int):
+    """(plan, C entry) of one call shape, cached."""
+    key = (B, K, Kp, O, dev)
+    call = _w8a8_calls.get(key)
+    if call is None:
+        call = (w8a8_plan(B, K, O, _sm_count(dev)),
+                _kernel("fused_linear_w8a8", "fused_linear_w8a8_f32",
+                        _W8A8_ARGTYPES, keep_gil=True))
+        _w8a8_calls[key] = call
+    return call
+
+
+def _w8a8_launch(plan: W8a8Plan, fn, xf, q, s, bf, y, act: str,
+                 dev: int) -> None:
+    """Launches ``plan`` on x ``xf`` (B, K), codes ``q`` (O, Kp) into ``y``;
+    raises ``RuntimeError`` when the C entry refuses the plan or the launch
+    fails.  The pdl instance's codes and scales are kept per card and
+    stream."""
+    B, K = xf.shape
+    O, Kp = q.shape
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    xq = sx = None
+    if plan.instance == "pdl":
+        xq = _scratch_for("fused_linear_w8a8.codes", dev, stream, B * Kp,
+                          torch.int8).data_ptr()
+        sx = _scratch_for("fused_linear_w8a8.scales", dev, stream, B,
+                          torch.float32).data_ptr()
+    err = _launch_on(dev, fn, xf.data_ptr(), q.data_ptr(), s.data_ptr(),
+                     bf.data_ptr(), y.data_ptr(), xq, sx, B, K, Kp, O,
+                     ACT_CODES[act], W8A8_INSTANCES[plan.instance], plan.rows,
+                     plan.tiles, plan.split, plan.kchunk, stream)
+    if err:
+        _check_launch("fused_linear_w8a8", err)
+
+
 def _fused_linear_w8a8_cuda(x, wq, scale, b, act):
+    """The kernel: ``w8a8_plan``'s instance, the plan and the C entry cached
+    per call shape."""
     B, K, O = _int8_shapes("fused_linear_w8a8", x, wq, scale, b)
     xf, q, s, bf = _int8_operands(x, wq, scale, b)
     y = torch.empty((B, O), dtype=torch.float32, device=x.device)
     if B == 0 or O == 0:
         return y.to(x.dtype)
-    Kp = q.shape[1]
-    rows = int8_tile_rows(B, Kp, 1)
-    xq = torch.empty((B, Kp), dtype=torch.int8, device=x.device)
-    sx = torch.empty(B, dtype=torch.float32, device=x.device)
-    fn = _kernel("fused_linear_w8a8", "fused_linear_w8a8_f32",
-                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(_p(xf), _p(q), _p(s), _p(bf), _p(y), _p(xq), _p(sx), B, K,
-                 Kp, O, rows, ACT_CODES[act], _stream(x.device))
-    _check_launch("fused_linear_w8a8", err)
+    dev = x.get_device()
+    plan, fn = _w8a8_call(B, K, q.shape[1], O, dev)
+    _w8a8_launch(plan, fn, xf, q, s, bf, y, act, dev)
     _count("fused_linear_w8a8")
     return y.to(x.dtype)
 
 
 def fused_linear_w8a8(x, wq, scale, b, act: str = "identity"):
     """``act((xq @ wq.T) * sx * sw.T + b)`` with both operands int8 and an
-    int32 accumulator; x (B, i) float is quantized per row by a CUDA pass of
-    its own before the product (on the CPU by :func:`quantize_acts_int8`).  wq (o, i) int8
-    codes, or (o, padded_width(i)) with zero codes past i; scale (o, 1) or
-    (o,) f32; b (o,)."""
+    int32 accumulator; x (B, i) float is quantized per row (``amax / 127``,
+    round half to even).  wq (o, i) int8 codes, or (o, padded_width(i))
+    with zero codes past i; scale (o, 1) or (o,) f32; b (o,).  On the card
+    the rows are quantized inside the product's launch: each block of
+    :func:`w8a8_plan` encodes only its k-slice after the blocks of its
+    cluster have exchanged their partial row maxima (the ``"pdl"`` instance,
+    for slices too large for a block, quantizes in a launch of its own that
+    the product overlaps).  On the CPU x is quantized by
+    :func:`quantize_acts_int8`."""
     _check_names([act], "default")
     if x.is_cuda:
         return _fused_linear_w8a8_cuda(x, wq, scale, b, act)

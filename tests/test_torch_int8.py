@@ -359,6 +359,80 @@ def test_w8_plan_refuses_what_the_kernel_refuses():
         K.w8_plan(4, 64, 10, "fast")
 
 
+# w8a8_plan per shape: (B, K, O) -> (instance, rows, tiles, grid, kchunk).
+# The flagship's layers at the --int8 buckets (and B = 1), the 4096-wide
+# layer at B = 16 and 64, a ragged K; K split over a cluster where it is long
+# and the blocks few (4096 -> 64) or where a block's codes would not fit its
+# shared memory (4096 at B = 64); the one launch only for the 100 -> 10
+# layer at B <= 8 (rows of at most 1024 values).
+W8A8_PLANS = [
+    (1, 784, 300, "pdl", 8, 1, (1, 19, 1), 832),
+    (1, 300, 100, "pdl", 8, 1, (1, 7, 1), 320),
+    (1, 100, 10, "fused", 8, 1, (1, 1, 1), 128),
+    (8, 784, 300, "pdl", 8, 1, (1, 19, 1), 832),
+    (8, 300, 100, "pdl", 8, 1, (1, 7, 1), 320),
+    (8, 100, 10, "fused", 8, 1, (1, 1, 1), 128),
+    (64, 784, 300, "pdl", 64, 1, (1, 19, 1), 832),
+    (64, 300, 100, "pdl", 64, 1, (1, 7, 1), 320),
+    (64, 100, 10, "pdl", 64, 1, (1, 1, 1), 128),
+    (512, 784, 300, "pdl", 64, 2, (1, 10, 8), 832),
+    (512, 300, 100, "pdl", 64, 1, (1, 7, 8), 320),
+    (512, 100, 10, "pdl", 64, 1, (1, 1, 8), 128),
+    (16, 4096, 4096, "pdl", 16, 2, (1, 128, 1), 4096),
+    (64, 4096, 4096, "pdl", 64, 4, (2, 64, 1), 2048),
+    (40, 257, 130, "pdl", 64, 1, (1, 9, 1), 320),
+    (5, 12, 9, "fused", 8, 1, (1, 1, 1), 64),
+    (37, 4096, 64, "pdl", 64, 1, (8, 4, 1), 512),
+    (8, 4096, 64, "pdl", 8, 1, (8, 4, 1), 512),
+]
+
+
+@pytest.mark.parametrize("B,K_,O,instance,rows,tiles,grid,kchunk", W8A8_PLANS)
+def test_w8a8_plan_per_shape(B, K_, O, instance, rows, tiles, grid, kchunk):
+    plan = K.w8a8_plan(B, K_, O)
+    assert (plan.instance, plan.rows, plan.tiles, plan.grid, plan.kchunk) == (
+        instance, rows, tiles, grid, kchunk)
+    split, gx, gy = plan.grid
+    # the split's blocks cover K once, each a whole number of 64-k chunks;
+    # the tiles cover O and the row tiles B; the smem and scratch counts
+    assert plan.split == split <= K.W8A8_MAX_SPLIT
+    assert plan.kchunk % K.W8A8_CHUNK == 0
+    assert (split - 1) * plan.kchunk < K_ <= split * plan.kchunk
+    assert gx * tiles * K.W8A8_TILE_COLS >= O and gy * rows >= B
+    assert plan.smem_bytes == K.w8a8_smem_bytes(instance, rows, tiles, kchunk)
+    assert plan.smem_bytes <= K.MAX_SMEM_BYTES
+    assert plan.scratch_bytes == (B * K.padded_width(K_) + 4 * B
+                                  if instance == "pdl" else 0)
+    assert instance == "pdl" or split == 1
+
+
+def test_w8a8_plan_forced_instance():
+    """The timing's forced instance is kept; the one launch never splits and
+    holds no scratch, the pair's scratch is its codes and scales."""
+    p = K.w8a8_plan(8, 784, 300, instance="fused")
+    assert (p.instance, p.split, p.grid, p.scratch_bytes) == (
+        "fused", 1, (1, 19, 1), 0)
+    p = K.w8a8_plan(37, 4096, 64, instance="fused")
+    assert (p.split, p.rows) == (1, 8)  # fewer rows a block, never a split
+    p = K.w8a8_plan(8, 100, 10, instance="pdl")
+    assert p.instance == "pdl" and p.scratch_bytes == 8 * 112 + 32
+
+
+def test_w8a8_plan_refuses_what_the_kernel_refuses():
+    """A K whose slice does not fit a block's shared memory even at 8 rows
+    and the largest split (naming the width), an unknown instance; an
+    unknown act is refused by the wrapper before any plan."""
+    for B in (1, 512):
+        assert K.w8a8_plan(B, 230912, 10)[4:6] == (K.W8A8_MAX_SPLIT, 28864)
+        with pytest.raises(ValueError, match="input width of 230913"):
+            K.w8a8_plan(B, 230913, 10)
+    with pytest.raises(ValueError, match="instance"):
+        K.w8a8_plan(8, 64, 10, instance="dp4a")
+    x, _, b, q, s = jax_quantized_layer(51, 4, 6, 20)
+    with pytest.raises(ValueError, match="activation"):
+        K.fused_linear_w8a8(t(x), t(q), t(s), t(b), "softplus")
+
+
 @pytest.mark.parametrize("B,N,L,rows,groups,grid,tiles,kc,depth", [
     (16, 4096, 4, 16, 1, 128, 1, 1024, 4),   # the serving stack, bucket 16
     (5, 4096, 4, 5, 1, 128, 1, 1024, 4),

@@ -309,7 +309,7 @@ def _cu_int(source: str, name: str) -> int:
                                   "train_tile", "train_layers", "mlp_cluster",
                                   "mlp_rows", "rnn_seq", "rnn_seq_smem",
                                   "w8_gemv", "w8_tiles", "mlp8",
-                                  "mlp8_smem"])
+                                  "mlp8_smem", "w8a8", "w8a8_smem"])
 def test_host_geometry_matches_the_kernel_sources(what):
     """The host's copy of each kernel's tile shapes (which the plans and
     scratch sizes are computed from) equals the constants in its source."""
@@ -390,6 +390,32 @@ def test_host_geometry_matches_the_kernel_sources(what):
         # a stage of 37 code rows of 512, padded to three m16 tiles
         assert (K.mlp_w8a8_smem_bytes(37, 512, 2, 1)
                 - K.mlp_w8a8_smem_bytes(37, 512, 1, 1)) == (32 + 48) * 512
+    elif what == "w8a8":
+        src = "fused_linear_w8a8.cu"
+        text = (CSRC_DIR / src).read_text()
+        assert (_cu_int(src, "kTileCols"), _cu_int(src, "kMaxSplit"),
+                _cu_int(src, "kPartPad"), _cu_int("int8_mma.cuh", "kChunk"),
+                _cu_int(src, "kThreads") // 32) == (
+                    K.W8A8_TILE_COLS, K.W8A8_MAX_SPLIT, K.W8A8_PART_PAD,
+                    K.W8A8_CHUNK, K.W8A8_TILES[-1])
+        assert "enum Instance { kFused = %d, kPdl = %d };" % (
+            K.W8A8_INSTANCES["fused"], K.W8A8_INSTANCES["pdl"]) in text
+        rows = re.findall(r"case (\d+): return launch<(\d+)>", text)
+        assert tuple(int(r) for r, _ in rows) == K.W8A8_ROWS
+        assert all(int(r) == 8 * int(nt) for r, nt in rows)
+        assert ("(tiles != 1 && tiles != 2 && tiles != 4 && tiles != 8)"
+                in text and K.W8A8_TILES == (1, 2, 4, 8))
+    elif what == "w8a8_smem":
+        # the host's shared-memory count is the source's formula
+        text = (CSRC_DIR / "fused_linear_w8a8.cu").read_text()
+        assert "return kslice % 128 ? kslice : kslice + 64;" in text
+        assert ("return (fused ? 4ll * rows * kslice : 0) + int64_t{rows} * "
+                "codes_stride(kslice) + 4ll * rows * (kTileCols * tiles + "
+                "kPartPad) + 4ll * rows;" in text)
+        assert K.w8a8_smem_bytes("fused", 8, 1, 128) == (
+            4 * 8 * 128 + 8 * 192 + 4 * 8 * 20 + 4 * 8)
+        assert K.w8a8_smem_bytes("pdl", 64, 2, 832) == (
+            64 * 832 + 4 * 64 * 36 + 4 * 64)
     else:
         # the host's shared-memory count is the source's formula
         text = (CSRC_DIR / "fused_rnn_step.cu").read_text()

@@ -140,11 +140,15 @@ def test_port_runs_without_jax():
 
 def test_no_jax_import_in_sources():
     """Neither JAX nor the JAX package is imported anywhere in the port
-    (nor by the smoke script), not even lazily inside a function."""
+    (nor by the smoke script and the port's tools), not even lazily inside a
+    function."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|tensor_ops_tpu)(?!_torch)\b", re.M)
     pkg = tensor_ops_tpu_torch.__path__[0]
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    tools = os.path.join(ROOT, "tools")
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(tools, f) for f in sorted(os.listdir(tools))
+        if f.endswith(".py")]
     for dirpath, _, names in os.walk(pkg):
         files += [os.path.join(dirpath, f) for f in names if f.endswith(".py")]
     offenders = []
