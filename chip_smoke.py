@@ -252,6 +252,10 @@ W8A8_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
                         (20, 300, 100), (40, 257, 130), (16, 4096, 4096),
                         (64, 4096, 4096), (37, 4096, 64))
 W8A8_TIMED = ((8, 64, 512), (16, 64))  # flagship buckets; 4096^2 batches
+# kernel 5's instances launched as a request launches them, in turns: the
+# flagship's layers at these batches, and one 4096^2 layer at these
+W8A8_DIRECT = ((8, 16, 64, 512), (8, 16))
+W8A8_TURNS = ("fused", "pdl", "pdl", "fused", "fused", "pdl")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense): the bound of
 # a kernel is the larger of its bytes over HBM_BPS and its operations over
 # the peak of their type.
@@ -1475,6 +1479,112 @@ def _graph_us(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(out)
 
 
+@contextlib.contextmanager
+def w8a8_instance(instance: str):
+    """Every ``fused_linear_w8a8`` call inside runs ``instance`` (``"pdl"``
+    or ``"fused"``) through the same wrapper: the wrapper's cached plans are
+    set aside and ``w8a8_plan`` runs with the instance forced, so the two
+    designs are timed with the same host work."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    saved, plan = dict(K._w8a8_calls), K.w8a8_plan
+    K._w8a8_calls.clear()
+    K.w8a8_plan = lambda *a, **kw: plan(*a, instance=instance, **kw)
+    try:
+        yield
+    finally:
+        K.w8a8_plan = plan
+        K._w8a8_calls.clear()
+        K._w8a8_calls.update(saved)
+
+
+def w8a8_direct(B: int, layers, h, what: str) -> dict:
+    """Kernel 5's two instances as a served request launches them: through
+    the wrapper, one layer after another from the host, the card idle before
+    the first (as between requests), no graph and no profiler.  CUDA events
+    recorded between the layers give each layer's span (its host time until
+    its kernels are queued, and their device time where it outlasts that);
+    TIMED_RUNS chains a turn, the instances in the turns of W8A8_TURNS.
+    Both instances' outputs are held bit-equal first.  Returns {instance:
+    median chain us}."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    def chain():
+        x = h
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(layers) + 1)]
+        ev[0].record()
+        for i, (q, s_, b, a) in enumerate(layers):
+            x = K._fused_linear_w8a8_cuda(x, q, s_, b, a)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return x, [ev[i].elapsed_time(ev[i + 1]) * 1e3
+                   for i in range(len(layers))]
+
+    widths = [h.shape[1]] + [q.shape[0] for q, _, _, _ in layers]
+    outs, plans = {}, {}
+    for inst in ("fused", "pdl"):
+        with w8a8_instance(inst):
+            outs[inst] = chain()[0]
+            plans[inst] = [K.w8a8_plan(B, k, o).grid
+                           for k, o in zip(widths, widths[1:])]
+    check(torch.equal(outs["fused"], outs["pdl"]), f"fused_linear_w8a8 "
+          f"{what} B={B}: the two instances' chains differ")
+    spans = {"fused": [], "pdl": []}  # instance -> [layer spans] per chain
+    turns = {"fused": [], "pdl": []}  # instance -> median chain per turn
+    for inst in W8A8_TURNS:
+        with w8a8_instance(inst):
+            for _ in range(5):
+                chain()
+            runs = [chain()[1] for _ in range(TIMED_RUNS)]
+        spans[inst] += runs
+        turns[inst].append(statistics.median(sum(r) for r in runs))
+    med = {i: [statistics.median(r[j] for r in spans[i])
+               for j in range(len(layers))] for i in spans}
+    total = {i: statistics.median(sum(r) for r in spans[i]) for i in spans}
+    log(f"[timing] fused_linear_w8a8 {what} B={B}, direct launches through "
+        f"the wrapper (event spans, median of {len(spans['pdl'])} chains in "
+        f"turns {'/'.join(W8A8_TURNS)}): "
+        + "; ".join(f"{i} " + " + ".join(f"{u:.2f}" for u in med[i])
+                    + f" = {total[i]:.2f} us (turns "
+                    + ", ".join(f"{u:.2f}" for u in turns[i])
+                    + f"; grids {plans[i]})" for i in med))
+    return total
+
+
+def w8a8_request_turns(pred, x) -> None:
+    """The --int8 flagship request on each instance of kernel 5, in the
+    turns of W8A8_TURNS: each turn's median host-clock wall time of
+    TIMED_RUNS ``Predictor.predict`` calls, unprofiled, then the profiler's
+    kernels and device busy time per request over 10 more."""
+    wall = {"fused": [], "pdl": []}
+    busy = {"fused": [], "pdl": []}
+    kernels = {}
+    for inst in W8A8_TURNS:
+        with w8a8_instance(inst):
+            for _ in range(3):
+                pred.predict(x)
+            torch.cuda.synchronize()
+            ts = []
+            for _ in range(TIMED_RUNS):
+                t0 = time.perf_counter()
+                pred.predict(x)
+                ts.append((time.perf_counter() - t0) * 1e6)
+            wall[inst].append(statistics.median(ts))
+            prof = _profile_steps(lambda: pred.predict(x))
+        busy[inst].append(prof["busy_us"])
+        kernels[inst] = ", ".join(f"{n} x{c:g}"
+                                  for n, c in prof["calls"].items())
+    for inst in wall:
+        log(f"[timing] --int8 flagship request bucket {len(x)} on the "
+            f"{inst} instance (turns {'/'.join(W8A8_TURNS)}): wall "
+            f"{statistics.median(wall[inst]):.1f} us/request (turn medians "
+            + ", ".join(f"{u:.1f}" for u in wall[inst])
+            + f"), device busy {statistics.median(busy[inst]):.2f} us ("
+            + ", ".join(f"{u:.2f}" for u in busy[inst])
+            + f"); kernels {kernels[inst]}")
+
+
 def _profile_steps(step, steps: int = 10) -> dict:
     """The device work of one call of ``step`` (a training step, a request
     or a kernel): CUDA kernels launched, copies and memsets, and device busy
@@ -1566,17 +1676,26 @@ def phase_int8_timing(sv, stack) -> dict:
             f"copies/request, device busy {prof['busy_us']:.1f} us/request, "
             f"idle share {1 - prof['busy_us'] / wall_us:.3f}; largest "
             f"(us/request): {top}")
+    for b in BUCKETS[:2]:
+        w8a8_request_turns(preds[0][1], r.uniform(0, 1, size=(
+            b, FLAGSHIP[0])).astype(np.float32))
 
     times = {}
     with torch.inference_mode():
         flag_layers = list(zip(flag._padded(), flag.scales, flag.biases,
                                FLAGSHIP_INT8_ACTS))
+        wq3, sw2, b2 = stack_gpu._cache["stacked"]
+        for B in W8A8_DIRECT[0]:
+            w8a8_direct(B, flag_layers, _rand(520 + B, B, FLAGSHIP[0],
+                                              uniform=True), "flagship")
+        for B in W8A8_DIRECT[1]:
+            w8a8_direct(B, [(wq3[0], sw2[0], b2[0], "relu")],
+                        _rand(540 + B, B, STACK_N), "4096^2")
         for B in W8A8_TIMED[0]:
             t = w8a8_timing(B, flag_layers, _rand(500 + B, B, FLAGSHIP[0],
                                                   uniform=True), "flagship")
             if B == 8:
                 times["fused_linear_w8a8"] = t
-        wq3, sw2, b2 = stack_gpu._cache["stacked"]
         for B in W8A8_TIMED[1]:
             x = torch.as_tensor(stack["x"] if B == STACK_B else np.random.
                                 default_rng(6).normal(size=(B, STACK_N)).
@@ -1606,24 +1725,20 @@ def w8a8_timing(B: int, layers, h, what: str) -> tuple:
     names = ("k5", "k5 other", "kernel 4", "kernel 1", "_int_mm")
     sums = dict.fromkeys(names + ("busy", "events", "plain", "bound"), 0.0)
     for q, s_, b, a in layers:
-        k, o, kp = h.shape[1], q.shape[0], q.shape[1]
+        k, o = h.shape[1], q.shape[0]
         plan = K.w8a8_plan(B, k, o, K._sm_count(dev))
         other = K.w8a8_plan(B, k, o, K._sm_count(dev), instance=(
             "fused" if plan.instance == "pdl" else "pdl"))
-        xf, qq, ss, bf = K._int8_operands(h, q, s_, b)
-        y = torch.empty(B, o, device=DEVICE)
-        fn = K._w8a8_call(B, k, kp, o, dev)[1]
         w = q[:, :k].float() * s_.float().reshape(-1, 1)
         xq = K.quantize_acts_int8(h)[0]
         calls = {
             "k5": lambda: K._fused_linear_w8a8_cuda(h, q, s_, b, a),
-            "k5 other": lambda: K._w8a8_launch(other, fn, xf, qq, ss, bf, y,
-                                               a, dev),
             "kernel 4": lambda: K._fused_linear_w8_cuda(h, q, s_, b, a,
                                                         "default"),
             "kernel 1": lambda: K._fused_linear_cuda(h, w, b, a, False),
-            "_int_mm": lambda: torch._int_mm(xq, qq[:, :k].t()),
+            "_int_mm": lambda: torch._int_mm(xq, q[:, :k].t()),
         }
+        calls["k5 other"] = calls["k5"]  # run under w8a8_instance below
         try:
             calls["_int_mm"]()
             torch.cuda.synchronize()
@@ -1632,8 +1747,11 @@ def w8a8_timing(B: int, layers, h, what: str) -> tuple:
             del calls["_int_mm"]
         graph, busy = {}, {}
         for n in list(calls) + list(calls)[::-1]:
-            graph.setdefault(n, []).append(_graph_us(calls[n]))
-            busy.setdefault(n, []).append(_profile_steps(calls[n])["busy_us"])
+            with (w8a8_instance(other.instance) if n == "k5 other"
+                  else contextlib.nullcontext()):
+                graph.setdefault(n, []).append(_graph_us(calls[n]))
+                busy.setdefault(n, []).append(
+                    _profile_steps(calls[n])["busy_us"])
         g = {n: statistics.median(v) for n, v in graph.items()}
         bz = {n: statistics.median(v) for n, v in busy.items()}
         k_ms = _median_ms(calls["k5"])

@@ -25,6 +25,7 @@ limit first.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import os
@@ -82,7 +83,6 @@ def main(argv) -> int:
     r = np.random.default_rng(0)
     ls = layers(r)
     dev = torch.cuda.current_device()
-    fn = K._w8a8_call(1, 16, 16, 16, dev)[1]
     cases = [(B, ls[:3]) for B in C.W8A8_TIMED[0]] + [
         (B, ls[3:]) for B in C.W8A8_TIMED[1]]
     for B, group in cases:
@@ -92,7 +92,7 @@ def main(argv) -> int:
         sums = {}
         for q, s, b, a in group:
             k, o, kp = h.shape[1], q.shape[0], q.shape[1]
-            y_old, y_alt = (torch.empty(B, o, device=C.DEVICE) for _ in "ab")
+            y_old = torch.empty(B, o, device=C.DEVICE)
             xq = torch.empty(B, kp, dtype=torch.int8, device=C.DEVICE)
             sx = torch.empty(B, device=C.DEVICE)
             plan = K.w8a8_plan(B, k, o, K._sm_count(dev))
@@ -114,23 +114,27 @@ def main(argv) -> int:
             def after():
                 return K._fused_linear_w8a8_cuda(xf, q, s, b, a)
 
-            def alt():
-                K._w8a8_launch(other, fn, xf, q, s, b, y_alt, a, dev)
-                return y_alt
+            def forced(name):
+                """``name``'s instance: "other" runs the same wrapper with
+                the other instance forced."""
+                return (C.w8a8_instance(other.instance) if name == "other"
+                        else contextlib.nullcontext())
 
             want = before().clone()
-            for f in (after, alt):
-                got = f()
+            for name in ("new", "other"):
+                with forced(name):
+                    got = after()
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
-                    raise SystemExit(f"B={B} {k}->{o}: {f.__name__} is not "
+                    raise SystemExit(f"B={B} {k}->{o}: {name} is not "
                                      f"bit-equal to the old kernel")
             runs = {"old": [], "new": [], "other": []}
             for name in ("old", "new", "other", "other", "new", "old"):
-                f = {"old": before, "new": after, "other": alt}[name]
-                runs[name].append((C._graph_us(f),
-                                   C._profile_steps(f)["busy_us"],
-                                   C._median_ms(f)))
+                f = before if name == "old" else after
+                with forced(name):
+                    runs[name].append((C._graph_us(f),
+                                       C._profile_steps(f)["busy_us"],
+                                       C._median_ms(f)))
             med = {n: [statistics.median(v[j] for v in runs[n])
                        for j in range(3)] for n in runs}
             for n in med:
