@@ -242,19 +242,21 @@ W8_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
                   for B in (1, 8, 16, 17, 37, 64, 512)
                   for i in range(3)) + ((5, 257, 130), (40, 257, 130),
                                         (8, 4096, 64), (600, 64, 600))
-# kernel 5 against its plain version: the flagship's layers at the --int8
-# buckets and B = 1 and 37, a row tile of 32 (B = 20), a ragged K (257), the
-# 4096-wide layer at B = 16 and 64 (whose codes need a split of K to fit a
-# block), and a long K over few columns (a split over a cluster); each shape
-# on w8a8_plan's instance and on the other one (the pair or the one launch)
+# kernel 5 against its plain version, each shape on w8a8_plan's instance:
+# the flagship's layers at the --int8 buckets and B = 1 and 37 (the one
+# launch at B <= 8, the pair above), a row tile of 32 (B = 20), a ragged K
+# (257) on each instance, the 4096-wide layer at B = 16 and 64 (whose codes
+# need a split of K to fit a block), and a long K over few columns (a split
+# over a cluster) at 8 and 37 rows
 W8A8_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
                     for B in (1, 8, 37, 64, 512) for i in range(3)) + (
-                        (20, 300, 100), (40, 257, 130), (16, 4096, 4096),
-                        (64, 4096, 4096), (37, 4096, 64))
+                        (20, 300, 100), (5, 257, 130), (40, 257, 130),
+                        (16, 4096, 4096), (64, 4096, 4096), (8, 4096, 64),
+                        (37, 4096, 64))
 W8A8_TIMED = ((8, 64, 512), (16, 64))  # flagship buckets; 4096^2 batches
-# kernel 5's instances launched as a request launches them, in turns: the
-# flagship's layers at these batches, and one 4096^2 layer at these
-W8A8_DIRECT = ((8, 16, 64, 512), (8, 16))
+# kernel 5's two instances launched as a request launches them, in turns,
+# at the one launch's bucket: the flagship's layers, and one 4096^2 layer
+W8A8_DIRECT_B = 8
 W8A8_TURNS = ("fused", "pdl", "pdl", "fused", "fused", "pdl")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense): the bound of
 # a kernel is the larger of its bytes over HBM_BPS and its operations over
@@ -686,46 +688,35 @@ def phase_int8_kernels(stack) -> dict:
 
     held, rows_seen = {}, set()  # (instance, K split) -> shapes; rows a block
     dev = torch.cuda.current_device()
-    fn = K._w8a8_call(1, 16, 16, 16, dev)[1]
     for n, (B, Kd, O) in enumerate(W8A8_SHAPES):
         x, q, s, b = layer(400 + 3 * n, B, Kd, O)
         x = x * 4 - 2  # signed activations
-        xf, qq, ss, bf = K._int8_operands(x, q, s, b)
-        plan = K.w8a8_plan(B, Kd, O, K._sm_count(dev))
-        other = K.w8a8_plan(B, Kd, O, K._sm_count(dev), instance=(
-            "fused" if plan.instance == "pdl" else "pdl"))
+        p = K.w8a8_plan(B, Kd, O, K._sm_count(dev))
         errs = []
-        for p in (plan, other):
-            for act in ("identity", "relu", "logistic", "tanh"):
-                y = torch.empty(B, O, device=DEVICE)
-                if p is plan:
-                    y = K._fused_linear_w8a8_cuda(x, q, s, b, act)
-                else:
-                    K._w8a8_launch(p, fn, xf, qq, ss, bf, y, act, dev)
-                torch.cuda.synchronize()
-                ref = K.fused_linear_w8a8_ref(x, q, s, b, act)
-                if act in ("identity", "relu"):
-                    check(torch.equal(y, ref), f"fused_linear_w8a8 {act} B={B} "
-                          f"{Kd}->{O} ({p.instance}, grid {p.grid}): not "
-                          f"bit-equal to its plain version")
-                    e = 0.0
-                else:
-                    e = max_err(y, ref, TOL_ACT)
-                worst["fused_linear_w8a8"] = max(worst["fused_linear_w8a8"], e)
-                errs.append(f"{p.instance}/{act} {e:.1e}")
-            y2 = torch.empty(B, O, device=DEVICE)
-            K._w8a8_launch(p, fn, xf, qq, ss, bf, y2, "tanh", dev)
+        for act in ("identity", "relu", "logistic", "tanh"):
+            y = K._fused_linear_w8a8_cuda(x, q, s, b, act)
             torch.cuda.synchronize()
-            check(torch.equal(y2, y), f"fused_linear_w8a8 B={B} {Kd}->{O} "
-                  f"({p.instance}): a rerun differs")
-            held.setdefault((p.instance, p.split > 1), []).append(
-                f"{B}x{Kd}->{O}")
-            rows_seen.add(p.rows)
+            ref = K.fused_linear_w8a8_ref(x, q, s, b, act)
+            if act in ("identity", "relu"):
+                check(torch.equal(y, ref), f"fused_linear_w8a8 {act} B={B} "
+                      f"{Kd}->{O} ({p.instance}, grid {p.grid}): not "
+                      f"bit-equal to its plain version")
+                e = 0.0
+            else:
+                e = max_err(y, ref, TOL_ACT)
+            worst["fused_linear_w8a8"] = max(worst["fused_linear_w8a8"], e)
+            errs.append(f"{act} {e:.1e}")
+        y2 = K._fused_linear_w8a8_cuda(x, q, s, b, "tanh")
+        torch.cuda.synchronize()
+        check(torch.equal(y2, y), f"fused_linear_w8a8 B={B} {Kd}->{O} "
+              f"({p.instance}): a rerun differs")
+        held.setdefault((p.instance, p.split > 1), []).append(
+            f"{B}x{Kd}->{O}")
+        rows_seen.add(p.rows)
         log(f"[kernel] fused_linear_w8a8 B={B} {Kd}->{O} (K padded to "
-            f"{K.padded_width(Kd)}): plan {plan.instance} rows {plan.rows} "
-            f"tiles {plan.tiles} grid {plan.grid}, and {other.instance} grid "
-            f"{other.grid}; identity, relu bit-equal, reruns bit-equal; "
-            f"max|err| {', '.join(errs)}; tol {TOL_ACT[0]:g}")
+            f"{K.padded_width(Kd)}): plan {p.instance} rows {p.rows} tiles "
+            f"{p.tiles} grid {p.grid}; identity, relu bit-equal, a rerun "
+            f"bit-equal; max|err| {', '.join(errs)}; tol {TOL_ACT[0]:g}")
     want = {("pdl", False), ("pdl", True), ("fused", False)}
     check(set(held) == want, f"fused_linear_w8a8 plans held: {sorted(held)}")
     check(rows_seen == set(K.W8A8_ROWS), f"fused_linear_w8a8 rows a block "
@@ -738,27 +729,22 @@ def phase_int8_kernels(stack) -> dict:
     # codes scale 1, zero bias: the outputs are the exact integer products,
     # so a wrong fragment map shows as a wrong integer; at a tensor-core
     # shape with a split (B = 37, K = 4096) and at K = 200 (not a multiple of
-    # the 64-k chunk), on both instances
+    # the 64-k chunk), on each instance
     r = np.random.default_rng(7)
-    for B, Kd, O in ((5, 12, 9), (37, 4096, 64), (16, 200, 40)):
+    for B, Kd, O in ((5, 12, 9), (8, 200, 40), (37, 4096, 64), (16, 200, 40)):
         xi = r.integers(-127, 128, size=(B, Kd)).astype(np.float32)
         xi[:, 0] = 127.0  # scale 1: the codes are x itself
         wi = r.integers(-127, 128, size=(O, Kd)).astype(np.int8)
         exact = (xi.astype(np.int64) @ wi.astype(np.int64).T).astype(np.float32)
         xt, wt = (torch.as_tensor(a, device=DEVICE) for a in (xi, wi))
         ones, zeros = torch.ones(O, device=DEVICE), torch.zeros(O, device=DEVICE)
-        grids = []
-        for inst in ("fused", "pdl"):
-            p = K.w8a8_plan(B, Kd, O, K._sm_count(dev), instance=inst)
-            y = torch.empty(B, O, device=DEVICE)
-            K._w8a8_launch(p, fn, xt, K.pad_codes(wt).contiguous(), ones, zeros,
-                           y, "identity", dev)
-            torch.cuda.synchronize()
-            check(np.array_equal(y.cpu().numpy(), exact), f"fused_linear_w8a8: "
-                  f"the int32-exact case B={B} K={Kd} ({inst}) is not exact")
-            grids.append(f"{inst} grid {p.grid}")
+        p = K.w8a8_plan(B, Kd, O, K._sm_count(dev))
+        y = K._fused_linear_w8a8_cuda(xt, wt, ones, zeros, "identity")
+        torch.cuda.synchronize()
+        check(np.array_equal(y.cpu().numpy(), exact), f"fused_linear_w8a8: "
+              f"the int32-exact case B={B} K={Kd} ({p.instance}) is not exact")
         log(f"[kernel] fused_linear_w8a8 int32-exact case (B={B}, {Kd}->{O}; "
-            f"{', '.join(grids)}): exact")
+            f"{p.instance} grid {p.grid}): exact")
     worst["fused_mlp_w8a8_forward"] = mlp_w8a8_cases(stack)
     return worst
 
@@ -1676,21 +1662,26 @@ def phase_int8_timing(sv, stack) -> dict:
             f"copies/request, device busy {prof['busy_us']:.1f} us/request, "
             f"idle share {1 - prof['busy_us'] / wall_us:.3f}; largest "
             f"(us/request): {top}")
-    for b in BUCKETS[:2]:
-        w8a8_request_turns(preds[0][1], r.uniform(0, 1, size=(
-            b, FLAGSHIP[0])).astype(np.float32))
+        if pred is preds[0][1]:
+            # the w8a8 request at bucket 8: one launch a layer, no
+            # quantizer kernel before a product
+            check("quantize_rows_kernel" not in prof["calls"]
+                  and prof["calls"].get("w8a8_kernel") == 3,
+                  f"--int8 request bucket {b}: kernels {prof['calls']}, "
+                  f"want 3 w8a8_kernel and no quantize_rows_kernel")
+    w8a8_request_turns(preds[0][1], r.uniform(0, 1, size=(
+        W8A8_DIRECT_B, FLAGSHIP[0])).astype(np.float32))
 
     times = {}
     with torch.inference_mode():
         flag_layers = list(zip(flag._padded(), flag.scales, flag.biases,
                                FLAGSHIP_INT8_ACTS))
         wq3, sw2, b2 = stack_gpu._cache["stacked"]
-        for B in W8A8_DIRECT[0]:
-            w8a8_direct(B, flag_layers, _rand(520 + B, B, FLAGSHIP[0],
-                                              uniform=True), "flagship")
-        for B in W8A8_DIRECT[1]:
-            w8a8_direct(B, [(wq3[0], sw2[0], b2[0], "relu")],
-                        _rand(540 + B, B, STACK_N), "4096^2")
+        B = W8A8_DIRECT_B
+        w8a8_direct(B, flag_layers, _rand(528, B, FLAGSHIP[0], uniform=True),
+                    "flagship")
+        w8a8_direct(B, [(wq3[0], sw2[0], b2[0], "relu")],
+                    _rand(548, B, STACK_N), "4096^2")
         for B in W8A8_TIMED[0]:
             t = w8a8_timing(B, flag_layers, _rand(500 + B, B, FLAGSHIP[0],
                                                   uniform=True), "flagship")
@@ -1712,8 +1703,9 @@ def phase_int8_timing(sv, stack) -> dict:
 def w8a8_timing(B: int, layers, h, what: str) -> tuple:
     """Kernel 5 on ``layers`` ((codes, scale, bias, act) each) from the input
     ``h`` (B rows), each layer in turns, twice, with kernel 5 forced to its
-    other instance, kernel 4 ("default") on the same codes, kernel 1 on the
-    same weights dequantized to f32 and ``torch._int_mm`` on the same int8
+    other instance (where it takes B rows), kernel 4 ("default") on the same
+    codes, kernel 1 on the same weights dequantized to f32 and
+    ``torch._int_mm`` on the same int8
     codes (the bare product, where it takes the shape): device time per call
     in a CUDA graph and the profiler's kernel time (busy, overlap counted
     twice), and kernel 5's CUDA-event median beside its plain version's and
@@ -1727,8 +1719,10 @@ def w8a8_timing(B: int, layers, h, what: str) -> tuple:
     for q, s_, b, a in layers:
         k, o = h.shape[1], q.shape[0]
         plan = K.w8a8_plan(B, k, o, K._sm_count(dev))
-        other = K.w8a8_plan(B, k, o, K._sm_count(dev), instance=(
-            "fused" if plan.instance == "pdl" else "pdl"))
+        other = None  # the other instance, where it takes B rows
+        if B <= K.W8A8_ROWS[0]:
+            other = K.w8a8_plan(B, k, o, K._sm_count(dev), instance=(
+                "fused" if plan.instance == "pdl" else "pdl"))
         w = q[:, :k].float() * s_.float().reshape(-1, 1)
         xq = K.quantize_acts_int8(h)[0]
         calls = {
@@ -1738,7 +1732,8 @@ def w8a8_timing(B: int, layers, h, what: str) -> tuple:
             "kernel 1": lambda: K._fused_linear_cuda(h, w, b, a, False),
             "_int_mm": lambda: torch._int_mm(xq, q[:, :k].t()),
         }
-        calls["k5 other"] = calls["k5"]  # run under w8a8_instance below
+        if other is not None:  # run under w8a8_instance below
+            calls["k5 other"] = calls["k5"]
         try:
             calls["_int_mm"]()
             torch.cuda.synchronize()
@@ -1769,7 +1764,9 @@ def w8a8_timing(B: int, layers, h, what: str) -> tuple:
             f"{plan.grid}; device per call (CUDA graph, median of 2 in turns) "
             + ", ".join(f"{n} {g[n]:.2f}" for n in g)
             + ("" if "_int_mm" in g else f", _int_mm refused ({refused})")
-            + f" us ({other.instance} grid {other.grid}); profiler busy "
+            + (f" us ({other.instance} grid {other.grid})" if other else
+               " us (the one launch takes at most 8 rows)")
+            + "; profiler busy "
             + ", ".join(f"{n} {bz[n]:.2f}" for n in bz)
             + f" us; events k5 {k_ms:.4f} ms, plain {p_ms:.4f} ms; bound "
             f"{least[0] * 1e3:.4f} us by {least[1]}")

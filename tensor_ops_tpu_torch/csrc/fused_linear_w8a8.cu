@@ -34,11 +34,14 @@
 //    issues its first weight fragments and loads its epilogue's scales and
 //    biases, then waits for the codes (griddepcontrol.wait) and copies its
 //    slice of them into shared memory.  Each (row, k) is quantized once.
-//  0 fused: one launch, for layers whose rows are a few hundred values (the
-//    flagship's last layer at B <= 8).  A block reads its rows whole, takes
+//  0 fused: one launch, for one n8 tile of rows (B <= 8) of at most 1,024
+//    values (the flagship at bucket 8).  A block reads its rows whole, takes
 //    each row's maximum and scale (row_scale) and encodes the rows
 //    (code_byte) in shared memory before the product; every block repeats
-//    those divisions, which is why larger layers take the pair.
+//    those divisions, which is why more rows or longer ones take the pair.
+//    Launched from the host one layer at a time, as a request launches it,
+//    the pair's second launch comes after its quantizer has finished, so
+//    there the one launch saves a launch and a kernel in series.
 //
 // Filling the card: the plan takes the fewest columns a block that keeps the
 // blocks within the SMs, and splits K over the `split` blocks of one thread
@@ -364,16 +367,10 @@ int launch_product(const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
   return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
-template <int NT>
-int launch(bool fused, const Args& a, dim3 grid, size_t smem, cudaStream_t s) {
-  return fused ? launch_product<NT, true>(a, grid, smem, s)
-               : launch_product<NT, false>(a, grid, smem, s);
-}
-
 }  // namespace
 
 // Plain C entry point for ctypes.  `instance` (0 fused, 1 pdl), `rows` (8,
-// 16, 32 or 64 rows a block), `tiles` (1, 2, 4 or 8 m16 tiles a block),
+// 16, 32 or 64 rows a block; the fused instance takes 8), `tiles` (1, 2, 4 or 8 m16 tiles a block),
 // `split` (blocks of one cluster along K, <= 8) and `kslice` (k a block, a
 // multiple of 64; the split's blocks cover K once, each at least one chunk)
 // are the plan of `w8a8_plan` in ops/kernels.py.  The pdl instance takes xq
@@ -392,7 +389,7 @@ extern "C" int fused_linear_w8a8_f32(const void* x, const void* wq,
       (instance != kFused && instance != kPdl) ||
       (rows != 8 && rows != 16 && rows != 32 && rows != 64) ||
       (tiles != 1 && tiles != 2 && tiles != 4 && tiles != 8) || split < 1 ||
-      split > kMaxSplit || (instance == kFused && split != 1) ||
+      split > kMaxSplit || (instance == kFused && (split != 1 || rows != 8)) ||
       kslice < kChunk || kslice % kChunk != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t kchunks = (K + kChunk - 1) / kChunk * int64_t{kChunk};
@@ -427,12 +424,13 @@ extern "C" int fused_linear_w8a8_f32(const void* x, const void* wq,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid(split, static_cast<unsigned>(gx), static_cast<unsigned>(gy));
-  const bool fused = instance == kFused;
+  const size_t bytes = static_cast<size_t>(smem);
+  if (instance == kFused) return launch_product<1, true>(a, grid, bytes, s);
   switch (rows) {
-    case 8: return launch<1>(fused, a, grid, static_cast<size_t>(smem), s);
-    case 16: return launch<2>(fused, a, grid, static_cast<size_t>(smem), s);
-    case 32: return launch<4>(fused, a, grid, static_cast<size_t>(smem), s);
-    case 64: return launch<8>(fused, a, grid, static_cast<size_t>(smem), s);
+    case 8: return launch_product<1, false>(a, grid, bytes, s);
+    case 16: return launch_product<2, false>(a, grid, bytes, s);
+    case 32: return launch_product<4, false>(a, grid, bytes, s);
+    case 64: return launch_product<8, false>(a, grid, bytes, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -21,8 +21,9 @@ beside its plain PyTorch version.
   tensor-core tile, an fp32 SIMT tile) and a split of K per shape.
 * :func:`fused_linear_w8a8` — int8 x int8 -> int32 ``act((q(x) @ q.T) * sx
   * sw.T + b)`` (``csrc/fused_linear_w8a8.cu``), the port of
-  ``_linear_w8a8_kernel``, on the int8 tensor cores; each block of
-  :func:`w8a8_plan` quantizes its own k-slice of x in the same launch.
+  ``_linear_w8a8_kernel``, on the int8 tensor cores, its row quantizer
+  under programmatic dependent launch or, at B <= 8, inside the product's
+  one launch (:func:`w8a8_plan`).
 * :func:`fused_mlp_w8a8_forward` — a whole uniform-width int8 MLP in one
   cooperative launch on the int8 tensor cores, its weights streamed
   through a ring of stages across layer boundaries
@@ -1057,20 +1058,21 @@ W8A8_TILE_COLS = 16
 W8A8_CHUNK = 64
 W8A8_MAX_SPLIT = 8
 W8A8_PART_PAD = 4
-# The plan's thresholds, from CUDA-graph timings of every instance, tile and
-# split on one H100 (tools/w8a8_before_after.py): the one launch, whose
-# every block quantizes its rows whole, only beat the pair where a block's
-# rows hold at most this many values (the flagship's 100 -> 10 layer at
-# B <= 8); a split of K (a cluster barrier and remote reads) only paid where
-# each block still walks at least W8A8_SPLIT_MIN_K of k.
-W8A8_FUSED_MAX_VALUES = 1024
+# The plan's thresholds, from timings on one H100.  The one launch, whose
+# every block quantizes its rows whole, takes one n8 tile of rows (B <= 8)
+# of at most W8A8_FUSED_MAX_K values: launched from the host as a request
+# launches them, it beat the pair over the flagship's three layers at B = 8
+# and lost to it at 4096 -> 4096 (chip_smoke.w8a8_direct).  A split of K (a
+# cluster barrier and remote reads) only paid where each block still walks
+# at least W8A8_SPLIT_MIN_K of k (CUDA-graph sweeps).
+W8A8_FUSED_MAX_K = 1024
 W8A8_SPLIT_MIN_K = 512
 
 
 class W8a8Plan(NamedTuple):
     """How ``fused_linear_w8a8`` runs one shape: the instance (``"pdl"``,
     the row quantizer and the product under programmatic dependent launch;
-    ``"fused"``, one launch whose blocks quantize their rows themselves),
+    ``"fused"``, one launch whose blocks quantize their 8 rows themselves),
     rows of x a block takes (the n8 side of the int8 products; the weights
     are always on the m16 side), m16 tiles of 16 columns a block, the grid
     (split, column groups, row tiles), the split of K over the ``split``
@@ -1102,8 +1104,8 @@ def w8a8_plan(B: int, K: int, O: int, sms: int = H100_SMS,
     padded_width(K)), a fixed rule:
 
     * rows: the least of :data:`W8A8_ROWS` that holds B, else 64 (row tiles);
-    * ``"fused"`` where those rows hold at most
-      :data:`W8A8_FUSED_MAX_VALUES` values of x, else ``"pdl"``;
+    * ``"fused"`` where B <= 8 and K <= :data:`W8A8_FUSED_MAX_K`, else
+      ``"pdl"``;
     * tiles: the fewest m16 tiles a block (1, 2, 4, 8) that keeps the blocks
       within ``sms``, splits included (8 if none does);
     * split (pdl only; the one launch never splits): over as many blocks as
@@ -1113,17 +1115,21 @@ def w8a8_plan(B: int, K: int, O: int, sms: int = H100_SMS,
       fit its shared memory, and then fewer rows a block.
 
     ``instance`` forces the instance (to time the two designs against each
-    other).  Raises ``ValueError`` for an unknown instance, a grid the card
-    cannot launch, and a K whose slice does not fit a block's shared memory
-    even at 8 rows and the largest split (naming the width: K > 230,912 at
-    any B)."""
+    other).  Raises ``ValueError`` for an unknown instance, the one launch
+    at more than 8 rows, a grid the card cannot launch, and a K whose slice
+    does not fit a block's shared memory even at 8 rows and the largest
+    split (naming the width: K > 230,912 at any B)."""
     if instance is not None and instance not in W8A8_INSTANCES:
         raise ValueError(f"fused_linear_w8a8: unknown instance {instance!r}")
     if B < 1 or K < 1 or O < 1:
         raise ValueError(f"fused_linear_w8a8: empty shape {(B, K, O)}")
     rows = next((r for r in W8A8_ROWS if r >= B), W8A8_ROWS[-1])
     if instance is None:
-        instance = ("fused" if rows * K <= W8A8_FUSED_MAX_VALUES else "pdl")
+        instance = ("fused" if rows == W8A8_ROWS[0] and K <= W8A8_FUSED_MAX_K
+                    else "pdl")
+    if instance == "fused" and rows > W8A8_ROWS[0]:
+        raise ValueError(f"fused_linear_w8a8: the one launch takes at most "
+                         f"{W8A8_ROWS[0]} rows, not {B}")
     chunks = _cdiv(K, W8A8_CHUNK)
     n16 = _cdiv(O, W8A8_TILE_COLS)
 
@@ -1184,14 +1190,19 @@ def _w8a8_call(B: int, K: int, Kp: int, O: int, dev: int):
     return call
 
 
-def _w8a8_launch(plan: W8a8Plan, fn, xf, q, s, bf, y, act: str,
-                 dev: int) -> None:
-    """Launches ``plan`` on x ``xf`` (B, K), codes ``q`` (O, Kp) into ``y``;
+def _fused_linear_w8a8_cuda(x, wq, scale, b, act):
+    """The kernel: ``w8a8_plan``'s instance, the plan and the C entry cached
+    per call shape, the pair's codes and scales kept per card and stream;
     raises ``RuntimeError`` when the C entry refuses the plan or the launch
-    fails.  The pdl instance's codes and scales are kept per card and
-    stream."""
-    B, K = xf.shape
-    O, Kp = q.shape
+    fails."""
+    B, K, O = _int8_shapes("fused_linear_w8a8", x, wq, scale, b)
+    xf, q, s, bf = _int8_operands(x, wq, scale, b)
+    y = torch.empty((B, O), dtype=torch.float32, device=x.device)
+    if B == 0 or O == 0:
+        return y.to(x.dtype)
+    dev = x.get_device()
+    Kp = q.shape[1]
+    plan, fn = _w8a8_call(B, K, Kp, O, dev)
     stream = torch._C._cuda_getCurrentRawStream(dev)
     xq = sx = None
     if plan.instance == "pdl":
@@ -1205,19 +1216,6 @@ def _w8a8_launch(plan: W8a8Plan, fn, xf, q, s, bf, y, act: str,
                      plan.tiles, plan.split, plan.kchunk, stream)
     if err:
         _check_launch("fused_linear_w8a8", err)
-
-
-def _fused_linear_w8a8_cuda(x, wq, scale, b, act):
-    """The kernel: ``w8a8_plan``'s instance, the plan and the C entry cached
-    per call shape."""
-    B, K, O = _int8_shapes("fused_linear_w8a8", x, wq, scale, b)
-    xf, q, s, bf = _int8_operands(x, wq, scale, b)
-    y = torch.empty((B, O), dtype=torch.float32, device=x.device)
-    if B == 0 or O == 0:
-        return y.to(x.dtype)
-    dev = x.get_device()
-    plan, fn = _w8a8_call(B, K, q.shape[1], O, dev)
-    _w8a8_launch(plan, fn, xf, q, s, bf, y, act, dev)
     _count("fused_linear_w8a8")
     return y.to(x.dtype)
 
@@ -1227,12 +1225,14 @@ def fused_linear_w8a8(x, wq, scale, b, act: str = "identity"):
     int32 accumulator; x (B, i) float is quantized per row (``amax / 127``,
     round half to even).  wq (o, i) int8 codes, or (o, padded_width(i))
     with zero codes past i; scale (o, 1) or (o,) f32; b (o,).  On the card
-    the rows are quantized inside the product's launch: each block of
-    :func:`w8a8_plan` encodes only its k-slice after the blocks of its
-    cluster have exchanged their partial row maxima (the ``"pdl"`` instance,
-    for slices too large for a block, quantizes in a launch of its own that
-    the product overlaps).  On the CPU x is quantized by
-    :func:`quantize_acts_int8`."""
+    the products run on the int8 tensor cores in the instance that
+    :func:`w8a8_plan` picks: ``"fused"`` (B <= 8, K <= 1,024), one launch
+    whose every block quantizes its rows whole before its product, or
+    ``"pdl"``, the row quantizer and then the product, launched under
+    programmatic dependent launch so that the product issues its weight
+    loads before it waits for the codes; K is split over a cluster of up to
+    8 blocks where it is long and the blocks few.  On the CPU x is
+    quantized by :func:`quantize_acts_int8`."""
     _check_names([act], "default")
     if x.is_cuda:
         return _fused_linear_w8a8_cuda(x, wq, scale, b, act)

@@ -363,14 +363,14 @@ def test_w8_plan_refuses_what_the_kernel_refuses():
 # The flagship's layers at the --int8 buckets (and B = 1), the 4096-wide
 # layer at B = 16 and 64, a ragged K; K split over a cluster where it is long
 # and the blocks few (4096 -> 64) or where a block's codes would not fit its
-# shared memory (4096 at B = 64); the one launch only for the 100 -> 10
-# layer at B <= 8 (rows of at most 1024 values).
+# shared memory (4096 at B = 64); the one launch at B <= 8 and K <= 1024
+# (the flagship at bucket 8, the bound at 1024 and 1025).
 W8A8_PLANS = [
-    (1, 784, 300, "pdl", 8, 1, (1, 19, 1), 832),
-    (1, 300, 100, "pdl", 8, 1, (1, 7, 1), 320),
+    (1, 784, 300, "fused", 8, 1, (1, 19, 1), 832),
+    (1, 300, 100, "fused", 8, 1, (1, 7, 1), 320),
     (1, 100, 10, "fused", 8, 1, (1, 1, 1), 128),
-    (8, 784, 300, "pdl", 8, 1, (1, 19, 1), 832),
-    (8, 300, 100, "pdl", 8, 1, (1, 7, 1), 320),
+    (8, 784, 300, "fused", 8, 1, (1, 19, 1), 832),
+    (8, 300, 100, "fused", 8, 1, (1, 7, 1), 320),
     (8, 100, 10, "fused", 8, 1, (1, 1, 1), 128),
     (64, 784, 300, "pdl", 64, 1, (1, 19, 1), 832),
     (64, 300, 100, "pdl", 64, 1, (1, 7, 1), 320),
@@ -381,7 +381,11 @@ W8A8_PLANS = [
     (16, 4096, 4096, "pdl", 16, 2, (1, 128, 1), 4096),
     (64, 4096, 4096, "pdl", 64, 4, (2, 64, 1), 2048),
     (40, 257, 130, "pdl", 64, 1, (1, 9, 1), 320),
+    (5, 257, 130, "fused", 8, 1, (1, 9, 1), 320),
     (5, 12, 9, "fused", 8, 1, (1, 1, 1), 64),
+    (8, 1024, 300, "fused", 8, 1, (1, 19, 1), 1024),
+    (8, 1025, 300, "pdl", 8, 1, (2, 19, 1), 576),
+    (9, 100, 10, "pdl", 16, 1, (1, 1, 1), 128),
     (37, 4096, 64, "pdl", 64, 1, (8, 4, 1), 512),
     (8, 4096, 64, "pdl", 8, 1, (8, 4, 1), 512),
 ]
@@ -407,13 +411,17 @@ def test_w8a8_plan_per_shape(B, K_, O, instance, rows, tiles, grid, kchunk):
 
 
 def test_w8a8_plan_forced_instance():
-    """The timing's forced instance is kept; the one launch never splits and
-    holds no scratch, the pair's scratch is its codes and scales."""
-    p = K.w8a8_plan(8, 784, 300, instance="fused")
+    """The timing's forced instance is kept; the one launch never splits,
+    holds no scratch and takes at most 8 rows; the pair's scratch is its
+    codes and scales."""
+    p = K.w8a8_plan(8, 784, 300, instance="pdl")
     assert (p.instance, p.split, p.grid, p.scratch_bytes) == (
-        "fused", 1, (1, 19, 1), 0)
-    p = K.w8a8_plan(37, 4096, 64, instance="fused")
-    assert (p.split, p.rows) == (1, 8)  # fewer rows a block, never a split
+        "pdl", 1, (1, 19, 1), 8 * 784 + 32)
+    p = K.w8a8_plan(8, 4096, 64, instance="fused")
+    assert (p.instance, p.split, p.rows, p.scratch_bytes) == (
+        "fused", 1, 8, 0)  # never a split
+    with pytest.raises(ValueError, match="at most 8 rows"):
+        K.w8a8_plan(9, 100, 10, instance="fused")
     p = K.w8a8_plan(8, 100, 10, instance="pdl")
     assert p.instance == "pdl" and p.scratch_bytes == 8 * 112 + 32
 

@@ -400,9 +400,14 @@ def test_host_geometry_matches_the_kernel_sources(what):
                     K.W8A8_CHUNK, K.W8A8_TILES[-1])
         assert "enum Instance { kFused = %d, kPdl = %d };" % (
             K.W8A8_INSTANCES["fused"], K.W8A8_INSTANCES["pdl"]) in text
-        rows = re.findall(r"case (\d+): return launch<(\d+)>", text)
+        rows = re.findall(r"case (\d+): return launch_product<(\d+), false>",
+                          text)
         assert tuple(int(r) for r, _ in rows) == K.W8A8_ROWS
         assert all(int(r) == 8 * int(nt) for r, nt in rows)
+        # the one launch: one n8 tile of rows, refused at any other
+        assert re.findall(r"launch_product<(\d+), true>\(a", text) == ["1"]
+        assert ("(instance == kFused && (split != 1 || rows != 8))" in text
+                and K.W8A8_ROWS[0] == 8)
         assert ("(tiles != 1 && tiles != 2 && tiles != 4 && tiles != 8)"
                 in text and K.W8A8_TILES == (1, 2, 4, 8))
     elif what == "w8a8_smem":

@@ -14,13 +14,14 @@ checkout's nvcc flags into ``build/kernels/old/``.  Both are timed at the
 flagship's three layers (784->300->100->10, logistic, logistic, identity) at
 B = 8, 64 and 512 and at one 4096 x 4096 relu layer at B = 16 and 64, on the
 same random int8 weights (seed 0), beside this checkout's kernel forced to
-its other instance (the quantizer and the product under programmatic
-dependent launch, or the one launch): device time per call in a CUDA graph
-(``chip_smoke._graph_us``), the profiler's kernel time and the CUDA-event
-median, in the order old, new, other, other, new, old.  Each new result is
-held to the old one bit for bit (both sum int32 exactly and share the
-epilogue).  Prints one line per layer and batch, the card's name and power
-limit first.
+its other instance where that takes the batch (at B = 8: the quantizer and
+the product under programmatic dependent launch, or the one launch, through
+the same wrapper, ``chip_smoke.w8a8_instance``): device time per call in a
+CUDA graph (``chip_smoke._graph_us``), the profiler's kernel time and the
+CUDA-event median, in the order old, new, other, other, new, old.  Each new
+result is held to the old one bit for bit (both sum int32 exactly and share
+the epilogue).  Prints one line per layer and batch, the card's name and
+power limit first.
 """
 
 from __future__ import annotations
@@ -73,6 +74,16 @@ def layers(r):
     return out
 
 
+def report(graph, med, label) -> str:
+    """One line of times: device per call in a CUDA graph (each turn's),
+    the profiler's busy time and the CUDA-event median, per design."""
+    return ("device per call (CUDA graph) " + ", ".join(
+        f"{label[n]} {', '.join(f'{g:.2f}' for g in graph[n])}"
+        for n in graph) + " us; profiler busy " + ", ".join(
+        f"{n} {med[n][1]:.2f}" for n in med) + " us; events " + ", ".join(
+        f"{n} {med[n][2]:.4f}" for n in med) + " ms")
+
+
 def main(argv) -> int:
     if len(argv) != 1 or not torch.cuda.is_available():
         raise SystemExit(__doc__)
@@ -96,8 +107,11 @@ def main(argv) -> int:
             xq = torch.empty(B, kp, dtype=torch.int8, device=C.DEVICE)
             sx = torch.empty(B, device=C.DEVICE)
             plan = K.w8a8_plan(B, k, o, K._sm_count(dev))
-            other = K.w8a8_plan(B, k, o, K._sm_count(dev), instance=(
-                "fused" if plan.instance == "pdl" else "pdl"))
+            other = None  # the other instance, where it takes B rows
+            if B <= K.W8A8_ROWS[0]:
+                other = K.w8a8_plan(B, k, o, K._sm_count(dev), instance=(
+                    "fused" if plan.instance == "pdl" else "pdl"))
+            names = ("old", "new", "other") if other else ("old", "new")
             xf = h.contiguous()
 
             def before():
@@ -121,15 +135,15 @@ def main(argv) -> int:
                         else contextlib.nullcontext())
 
             want = before().clone()
-            for name in ("new", "other"):
+            for name in names[1:]:
                 with forced(name):
                     got = after()
                 torch.cuda.synchronize()
                 if not torch.equal(got, want):
                     raise SystemExit(f"B={B} {k}->{o}: {name} is not "
                                      f"bit-equal to the old kernel")
-            runs = {"old": [], "new": [], "other": []}
-            for name in ("old", "new", "other", "other", "new", "old"):
+            runs = {n: [] for n in names}
+            for name in names + names[::-1]:
                 f = before if name == "old" else after
                 with forced(name):
                     runs[name].append((C._graph_us(f),
@@ -140,24 +154,17 @@ def main(argv) -> int:
             for n in med:
                 sums[n] = [x + y for x, y in zip(sums.get(n, [0.0] * 3),
                                                   med[n])]
-            print(f"fused_linear_w8a8 B={B} {k}->{o} {a}: device per call "
-                  f"(CUDA graph) old {', '.join(f'{g:.2f}' for g, _, _ in runs['old'])}"
-                  f", new ({plan.instance} grid {plan.grid}) "
-                  f"{', '.join(f'{g:.2f}' for g, _, _ in runs['new'])}, "
-                  f"other ({other.instance} grid {other.grid}) "
-                  f"{', '.join(f'{g:.2f}' for g, _, _ in runs['other'])} us; "
-                  f"profiler busy old {med['old'][1]:.2f}, new "
-                  f"{med['new'][1]:.2f}, other {med['other'][1]:.2f} us; "
-                  f"events old {med['old'][2]:.4f}, new {med['new'][2]:.4f}, "
-                  f"other {med['other'][2]:.4f} ms", flush=True)
+            label = {"old": "old", "new": f"new ({plan.instance} grid "
+                     f"{plan.grid})"}
+            if other:
+                label["other"] = f"other ({other.instance} grid {other.grid})"
+            print(f"fused_linear_w8a8 B={B} {k}->{o} {a}: " + report(
+                {n: [g for g, _, _ in runs[n]] for n in names},
+                med, label), flush=True)
             h = after().clone()
-        print(f"fused_linear_w8a8 B={B}, {len(group)} layer(s): device per "
-              f"call (CUDA graph) old {sums['old'][0]:.2f}, new "
-              f"{sums['new'][0]:.2f}, other {sums['other'][0]:.2f} us; "
-              f"profiler busy old {sums['old'][1]:.2f}, new "
-              f"{sums['new'][1]:.2f}, other {sums['other'][1]:.2f} us; events "
-              f"old {sums['old'][2]:.4f}, new {sums['new'][2]:.4f}, other "
-              f"{sums['other'][2]:.4f} ms", flush=True)
+        print(f"fused_linear_w8a8 B={B}, {len(group)} layer(s): " + report(
+            {n: [sums[n][0]] for n in sums}, sums, {n: n for n in sums}),
+            flush=True)
     return 0
 
 
