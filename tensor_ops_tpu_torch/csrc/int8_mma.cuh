@@ -1,7 +1,8 @@
 // What the int8 tensor-core kernels share: the m16n8k32 s8 product, the
 // k order of its fragments, and the 16-byte asynchronous copies that stream
 // operands into shared memory, counted on an mbarrier
-// (fused_mlp_w8a8_forward.cu; kernel 5 is to take the same pieces).
+// (fused_mlp_w8a8_forward.cu takes them all; fused_linear_w8a8.cu the
+// product and its k order, its weights loaded straight into registers).
 //
 // The copies: a stage's operands, rows of kc bytes at a stride of N, each
 // come by one Tensor Memory Accelerator copy of a 3-D box (tma_load_3d:
