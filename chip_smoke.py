@@ -102,7 +102,31 @@ without printing a result line:
    ``fused_mlp_train_step`` on the 400-row batch, 5 steps against the plain
    dp step in CPU float64, the loss falls, and 4 train-step and 6 one-shot
    launches per step (the 1/n inside them; no ring-protocol launch).
-12. Timing: p50 serving latency per bucket, each kernel's time beside its
+12. Fit slice: the flagship (random weights, seed 0, as ``gen_net`` draws
+   them on the card) through ``fit`` (adam, lr 0.02, B = 100, 2 epochs =
+   120 steps of the synthetic set's 6,000 rows, its 1,000 test rows as
+   ``val`` every 10 steps, ``metrics_path``, a checkpoint every 60 steps):
+   the loss falls, the metrics record equals the history, the loader is
+   the native one; a crash/resume chain (1 epoch, then ``resume=True`` to
+   2) and runs with ``prefetch=2`` and ``prefetch=0`` are bit-equal to it;
+   5 sgd steps over the first 500 rows against the same ``fit`` on the CPU
+   in float64 (``TOL_5_STEPS``); samples/s over steps 11-120 and the first
+   step's wall time from ``fit``'s start, of the first fit on this network
+   in the process (the ``prefetch=2`` run) and warm (the ``prefetch=0``
+   run, the last), from the history's host-clock stamps, each after a
+   synchronise; one step's wall time, kernels, device busy time and idle
+   share; the peak device memory of the run.
+13. Autoencoder: ``Encoder`` 784 -> 128 -> 32 -> 128 -> 784 (logistic,
+   seed 0) and ``FusedAutoencoder.from_encoder``: 5 ``train`` steps at
+   B = 100 of synthetic rows/255, exactly 5 train-step launches (the
+   squared-error mode at 4 layers), held against ``FusedMLP.train`` on the
+   card and the plain step in CPU float64 (``TOL_5_STEPS``); kernel 3's
+   device time at this shape beside its bound; ``Encoder.fit`` for 2
+   epochs with the reconstruction loss falling; a ``save_autoencoder`` ->
+   ``load_autoencoder`` round trip, bit for bit.
+14. Dots app: ``tensor_ops_tpu_torch.apps.dots torch --minibatch 50`` on
+   the card, its render and time.
+15. Timing: p50 serving latency per bucket, each kernel's time beside its
    plain version's (median of 50 CUDA-event-timed runs after warm-up), the
    profiler's device time of the kernels, where one training step's, one
    int8 request's and one recurrent request's time goes on each route
@@ -338,6 +362,21 @@ LINEAR_SHAPES = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1])
                       for B in (1, 8, 16, 17, 63, 100, 512)
                       for i in range(3)) + ((7, 13, 5), (33, 40, 10),
                                             (100, 783, 300))
+# The fit slice: the flagship (gen_net seed 0) through fit on the
+# synthetic set's 6,000 training rows (its 1,000 test rows as val), the
+# configuration the mnist app trains; adam, as a production run would.
+FIT_EPOCHS, FIT_BATCH, FIT_LR = 2, 100, 0.02
+FIT_LOG_EVERY, FIT_CHECKPOINT_EVERY = 10, 60
+# samples/s over steps 11 to 120: the log boundaries at steps 10 and 120
+FIT_TIMED_FROM = 10
+# 5 sgd steps against CPU f64: the first 500 rows, one epoch of 5 batches
+FIT_SGD_ROWS = 500
+# The autoencoder of examples/autoencoder_digits.py: 784 -> 128 -> 32 ->
+# 128 -> 784, logistic, seed 0, trained on reconstruction (squared error);
+# the train-step kernel runs it in its squared-error mode.
+AE_DIMS = (784, 128, 32, 128, 784)
+AE_RATE, AE_ROWS, AE_STEPS = 0.05, 100, 5
+AE_FIT_LR = 0.005
 FLAGSHIP_PARAM_SHAPES = tuple(
     s for k in range(3) for s in ((FLAGSHIP[k + 1], FLAGSHIP[k]),
                                   (FLAGSHIP[k + 1],)))
@@ -1949,6 +1988,324 @@ def phase_train_routes() -> None:
             f"{prof['busy_us']:.1f} us/step, idle share "
             f"{1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): {top}")
 
+def synthetic_set(tmp: str):
+    """The synthetic pseudo-MNIST set (the offline fallback of the loader,
+    in a fresh data directory): training rows/255 and one-hot labels, test
+    rows/255 and labels, float64."""
+    from tensor_ops_tpu_torch.utils.mnist_data import load_mnist
+
+    with no_download(), contextlib.redirect_stdout(io.StringIO()):
+        train_raw, test_raw = load_mnist(tempfile.mkdtemp(dir=tmp))
+    tX = np.stack([d / 255.0 for _, d in train_raw])
+    tY = np.eye(FLAGSHIP[-1])[[l for l, _ in train_raw]]
+    vX = np.stack([d / 255.0 for _, d in test_raw])
+    vL = np.array([l for l, _ in test_raw])
+    return tX, tY, vX, vL
+
+
+def _fit_rate(res, batch: int) -> tuple:
+    """(samples/s over the steps after FIT_TIMED_FROM, the first record's
+    ms) from a fit run's history: each record's ``t`` is the host clock
+    from fit's start to its log boundary, after the synchronise that reads
+    the loss (and the validation, where there is one), so the first
+    record of a run without ``val`` is its first step's wall time, the
+    loader's build and first copies included."""
+    t = {h["step"]: h["t"] for h in res.history}
+    last = res.history[-1]["step"]
+    rate = (last - FIT_TIMED_FROM) * batch / (t[last] - t[FIT_TIMED_FROM])
+    return rate, t[1] * 1e3
+
+
+def phase_fit(tmp: str) -> dict:
+    """The fit slice: the flagship through ``fit`` on the card (adam), its
+    crash/resume chain and ``prefetch=0`` run bit for bit against it, 5 sgd
+    steps against the same ``fit`` on the CPU in f64, and one step's
+    profile."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (Network, act_logistic,
+                                             act_softmax, adam,
+                                             cross_entropy, fit, gen_net,
+                                             sgd)
+    from tensor_ops_tpu_torch.models.trainer import make_opt_step
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.utils.checkpoint import load_meta
+    from tensor_ops_tpu_torch.utils.native import NativeLoader
+
+    tX, tY, vX, vL = synthetic_set(tmp)
+    be = TorchBackend(torch.float32, DEVICE)
+    net = gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                  [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
+                  act_softmax(), Rng(be, 0))
+    loss = cross_entropy(FLAGSHIP[-1])
+    probe = NativeLoader(tX[:2], tY[:2], batch=1)
+    native = probe.is_native
+    probe.close()
+    check(native, "NativeLoader fell back to NumPy: the C++ loader did not "
+          "build (g++ is on the card machine, since nvcc needs it)")
+    kw = dict(epochs=FIT_EPOCHS, batch_size=FIT_BATCH, lr=FIT_LR,
+              log_every=FIT_LOG_EVERY, verbose=False)
+    steps = FIT_EPOCHS * (-(-len(tX) // FIT_BATCH))
+
+    # prefetch=2 (the default) without val, the first fit on this network
+    # in the process: its first record is the first step's wall time
+    runs = {2: fit(net, loss, be, tX, tY, optimizer=adam(), prefetch=2,
+                   **kw)}
+
+    ck = os.path.join(tmp, "fit.npz")
+    metrics = os.path.join(tmp, "fit.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    main = fit(net, loss, be, tX, tY, optimizer=adam(), val=(vX, vL),
+               metrics_path=metrics, checkpoint_path=ck,
+               checkpoint_every=FIT_CHECKPOINT_EVERY, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    h = main.history
+    with open(metrics) as f:
+        recorded = [json.loads(line) for line in f]
+    check(main.steps == steps, f"fit ran {main.steps} steps, want {steps}")
+    check(recorded == h, "the metrics record differs from the history")
+    check(h[-1]["loss"] < h[0]["loss"],
+          f"fit: the loss did not fall ({h[0]['loss']} -> {h[-1]['loss']})")
+    check(all(math.isfinite(x["loss"]) for x in h), "fit: non-finite loss")
+    check(load_meta(ck + ".state")["step"] == steps,
+          "fit: the last .state checkpoint is not at the last step")
+    log(f"[fit] flagship {'-'.join(map(str, FLAGSHIP))} fit(adam, lr "
+        f"{FIT_LR}, B={FIT_BATCH}, {FIT_EPOCHS} epochs = {steps} steps, val "
+        f"{len(vX)} rows every {FIT_LOG_EVERY} steps, checkpoint every "
+        f"{FIT_CHECKPOINT_EVERY}): loss {h[0]['loss']:.4f} -> "
+        f"{h[-1]['loss']:.4f}, val_acc {h[0]['val_acc']:.3f} -> "
+        f"{h[-1]['val_acc']:.3f}; {wall:.2f} s in all; peak device memory "
+        f"{peak} bytes (torch.cuda.max_memory_allocated); NativeLoader "
+        f"native: {native}; hand-written kernel launches {launches}")
+
+    # crash at the end of epoch 1, resume to the 2-epoch budget
+    ck2 = os.path.join(tmp, "crash.npz")
+    fit(net, loss, be, tX, tY, optimizer=adam(), checkpoint_path=ck2,
+        checkpoint_every=FIT_CHECKPOINT_EVERY, **dict(kw, epochs=1))
+    other = gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                    [(h_, act_logistic()) for h_ in FLAGSHIP[1:-1]],
+                    act_softmax(), Rng(be, 99))
+    resumed = fit(other, loss, be, tX, tY, optimizer=adam(),
+                  checkpoint_path=ck2, resume=True, **kw)
+    check(resumed.steps == steps and resumed.history[0]["step"] ==
+          steps // FIT_EPOCHS + 1, "the resumed run did not continue at the "
+          "saved step")
+    check(all(torch.equal(a, b) for a, b in
+              zip(resumed.net.params, main.net.params)),
+          "crash/resume: the resumed run differs from the straight run")
+    log(f"[fit] crash/resume (1 epoch with a checkpoint at step "
+        f"{FIT_CHECKPOINT_EVERY}, then resume=True to {FIT_EPOCHS} epochs): "
+        f"bit-equal to the straight run")
+
+    # prefetch=0 without val, after the runs above: its first step is
+    # warm. Both prefetch runs are bit-equal to the main run, and their log
+    # boundaries time the steps
+    runs[0] = fit(net, loss, be, tX, tY, optimizer=adam(), prefetch=0, **kw)
+    for depth, r in runs.items():
+        check([x["loss"] for x in r.history] ==
+              [x["loss"] for x in h], f"prefetch={depth}: losses differ")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(r.net.params, main.net.params)),
+              f"prefetch={depth}: parameters differ from the main run")
+    rates = {d: _fit_rate(r, FIT_BATCH) for d, r in runs.items()}
+    log("[fit] prefetch=2 and prefetch=0: bit-equal to each other and to "
+        "the main run")
+    for depth, what in ((2, "the first fit on this network in the "
+                            "process"),
+                        (0, "after four fits on it: warm")):
+        rate, first_ms = rates[depth]
+        log(f"[fit] samples/s over steps {FIT_TIMED_FROM + 1}-{steps} "
+            f"(host clock at the log boundaries, each after a synchronise), "
+            f"prefetch={depth}: {rate:.1f}; first step {first_ms:.1f} ms "
+            f"from fit's start ({what})")
+
+    # 5 sgd steps, on the card in f32 and on the CPU in f64, from the same
+    # parameters
+    cpu = TorchBackend(torch.float64, "cpu")
+    net64 = Network(net.op, tuple(cpu.asarray(p.cpu()) for p in net.params),
+                    net.act_names)
+    few = dict(kw, epochs=1, log_every=1)
+    on_card = fit(net, loss, be, tX[:FIT_SGD_ROWS], tY[:FIT_SGD_ROWS],
+                  optimizer=sgd(), **few)
+    on_cpu = fit(net64, loss, cpu, tX[:FIT_SGD_ROWS], tY[:FIT_SGD_ROWS],
+                 optimizer=sgd(), **few)
+    check(on_card.steps == on_cpu.steps == FIT_SGD_ROWS // FIT_BATCH,
+          "the sgd runs did not take 5 steps")
+    e_loss = max_err(torch.tensor([x["loss"] for x in on_card.history]),
+                     torch.tensor([x["loss"] for x in on_cpu.history]),
+                     TOL_5_STEPS)
+    e_par = max(max_err(a, b, TOL_5_STEPS)
+                for a, b in zip(on_card.net.params, on_cpu.net.params))
+    log(f"[fit] 5 sgd steps (lr {FIT_LR}, B={FIT_BATCH}, the first "
+        f"{FIT_SGD_ROWS} rows) vs the same fit on the CPU in f64: losses "
+        f"max|err| {e_loss:.2e}, parameters {e_par:.2e}, tol "
+        f"{TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|")
+
+    # one step's device work: the vmapped per-sample gradient, its mean and
+    # the adam update
+    step_fn = make_opt_step(net, loss, be, adam())
+    xb = be.asarray(tX[:FIT_BATCH].astype(np.float32))
+    yb = be.asarray(tY[:FIT_BATCH].astype(np.float32))
+    opt = adam()
+    state = [opt.init(net.params), net.params]
+
+    def one_step():
+        v, state[0], state[1] = step_fn(FIT_LR, xb, yb, state[0], state[1])
+        return v
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        one_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / 20 * 1e6
+    prof = _profile_steps(one_step)
+    top = ", ".join(f"{n} {us:.1f}" for n, us in
+                    list(prof["by_kernel"].items())[:4])
+    log(f"[timing] fit step B={FIT_BATCH} (vmapped IR gradient + mean + "
+        f"adam): {wall_us:.1f} us/step wall, {prof['launches']:.0f} kernels "
+        f"+ {prof['copies']:.0f} copies/step, device busy "
+        f"{prof['busy_us']:.1f} us/step, idle share "
+        f"{1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): {top}")
+    return {"launches": launches, "rates": rates, "peak": peak}
+
+
+def phase_autoencoder(tmp: str) -> dict:
+    """The autoencoder of examples/autoencoder_digits.py: 5 whole-step
+    ``FusedAutoencoder.train`` steps (kernel 3, squared error, 4 layers)
+    against ``FusedMLP.train`` on the card and the plain step in CPU f64,
+    kernel 3's time at this shape, ``Encoder.fit``, and the autoencoder
+    checkpoint round trip."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (Encoder, FusedAutoencoder,
+                                             act_logistic, adam, gen_net,
+                                             squared_error)
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.utils.checkpoint import (load_autoencoder,
+                                                       save_autoencoder)
+
+    be = TorchBackend(torch.float32, DEVICE)
+    rng = Rng(be, 0)
+    i, h, z = AE_DIMS[0], AE_DIMS[1], AE_DIMS[2]
+    enc = Encoder(gen_net(be, i, z, [(h, act_logistic())], act_logistic(), rng),
+                  gen_net(be, z, i, [(h, act_logistic())], act_logistic(), rng))
+    fae = FusedAutoencoder.from_encoder(enc)
+    tX = synthetic_set(tmp)[0]
+    x32 = torch.as_tensor(tX[:AE_ROWS], dtype=torch.float32, device=DEVICE)
+    x64 = torch.as_tensor(tX[:AE_ROWS])
+    acts = fae.mlp.acts
+    ws64 = [w.double().cpu() for w in fae.mlp.weights]
+    bs64 = [b.double().cpu() for b in fae.mlp.biases]
+
+    kernel, plain = fae, fae.mlp
+    K.reset_launch_counts()
+    losses = []
+    for _ in range(AE_STEPS):
+        v, kernel = kernel.train(AE_RATE, x32)
+        losses.append(v)
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    check(launches["fused_mlp_train_step"] == AE_STEPS,
+          f"FusedAutoencoder.train: {launches['fused_mlp_train_step']} "
+          f"train-step launches for {AE_STEPS} steps")
+    ref_losses = []
+    for _ in range(AE_STEPS):
+        _, plain = plain.train(AE_RATE, x32, x32)
+        v64, ws64, bs64 = K.fused_mlp_train_step_ref(
+            x64, x64, ws64, bs64, AE_RATE, acts, loss_kind="squared_error")
+        ref_losses.append(float(v64))
+    torch.cuda.synchronize()
+    e_loss = max_err(torch.tensor(losses), torch.tensor(ref_losses),
+                     TOL_5_STEPS)
+    log(f"[autoencoder] {'-'.join(map(str, AE_DIMS))} logistic (seed 0): "
+        f"{AE_STEPS} FusedAutoencoder.train steps (rate {AE_RATE}, "
+        f"B={AE_ROWS}): {launches['fused_mlp_train_step']} "
+        f"fused_mlp_train_step launches; losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, vs the plain step in CPU f64 max|err| "
+        f"{e_loss:.2e}")
+    for what, ref in (("FusedMLP.train on the card", plain.to_params()),
+                      ("the plain step in CPU f64",
+                       [p for wb in zip(ws64, bs64) for p in wb])):
+        e = max(max_err(a, b, TOL_5_STEPS)
+                for a, b in zip(kernel.mlp.to_params(), ref))
+        log(f"[autoencoder] {AE_STEPS} steps' parameters vs {what}: "
+            f"max|err| {e:.2e} tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|")
+
+    # kernel 3 at this shape
+    ws, bs = list(fae.mlp.weights), list(fae.mlp.biases)
+
+    def step():
+        return K._fused_mlp_train_step_cuda(x32, x32, ws, bs, AE_RATE, acts,
+                                            "squared_error")
+    prof = _profile_steps(step)
+    k_ms = _median_ms(step)
+    p_ms = _median_ms(lambda: K.fused_mlp_train_step_ref(
+        x32, x32, ws, bs, AE_RATE, acts, loss_kind="squared_error"))
+    bound_ms, bound_by = train_step_bound(AE_DIMS, AE_ROWS)
+    stages = K.train_stages(len(AE_DIMS) - 1)
+    grid = K.train_grid(K._train_step_capacity(0), K._sm_count(0), AE_ROWS,
+                        AE_DIMS)
+    log(f"[timing] fused_mlp_train_step {'-'.join(map(str, AE_DIMS))} "
+        f"squared error B={AE_ROWS}: device {prof['busy_us']:.2f} us "
+        f"(profiler; kernels {sorted(prof['by_kernel'])}), events "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms; bound {bound_ms * 1e3:.3f} us "
+        f"by {bound_by}; grid {grid}, {len(stages)} stages, "
+        f"{len(stages) - 1} grid barriers")
+
+    # Encoder.fit: the joint network through fit, on the synthetic rows
+    enc2, res = enc.fit(squared_error(i), be, tX, epochs=2, batch_size=AE_ROWS,
+                        lr=AE_FIT_LR, optimizer=adam(), log_every=10,
+                        verbose=False)
+    hist = res.history
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          f"Encoder.fit: the reconstruction loss did not fall "
+          f"({hist[0]['loss']} -> {hist[-1]['loss']})")
+    rate, first_ms = _fit_rate(res, AE_ROWS)
+    log(f"[autoencoder] Encoder.fit (adam, lr {AE_FIT_LR}, B={AE_ROWS}, 2 "
+        f"epochs = {res.steps} steps): reconstruction loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}; {rate:.1f} "
+        f"samples/s over steps {FIT_TIMED_FROM + 1}-{res.steps}, first step "
+        f"{first_ms:.1f} ms")
+
+    path = os.path.join(tmp, "autoencoder.npz")
+    save_autoencoder(path, kernel)
+    back = load_autoencoder(path, device=DEVICE)
+    check(back.n_enc == kernel.n_enc and back.mlp.acts == kernel.mlp.acts
+          and back.mlp.loss_kind == "mse"
+          and all(torch.equal(a, b) for a, b in
+                  zip(back.mlp.to_params(), kernel.mlp.to_params())),
+          "save_autoencoder -> load_autoencoder is not bit for bit")
+    log("[autoencoder] save_autoencoder -> load_autoencoder: bit for bit")
+    return {"launches": launches["fused_mlp_train_step"],
+            "device_us": prof["busy_us"], "bound_ms": bound_ms}
+
+
+def phase_dots() -> None:
+    """The dots app on the card: the torch backend, minibatches of 50."""
+    from tensor_ops_tpu_torch.apps import dots
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        dots.main(["torch", "--minibatch", "50", "--device", DEVICE])
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    raster = [l for l in lines if len(l) == 51]
+    check(len(raster) == 21, f"dots: {len(raster)} raster lines, want 21")
+    for line in lines:
+        log(f"[dots] {line}")
+    log(f"[dots] {wall:.2f} s in all")
+
+
 def rnn_step_inputs(seed: int, B: int, I: int, O: int):
     """x normal, s a logistic state in (0, 1), weights at 1/sqrt(I + O)
     scale and a bias, all f32 on the card."""
@@ -2775,8 +3132,6 @@ def bounds() -> dict:
     """Each kernel's bound at the shape its time is taken at: each input
     read once, each output written once, the operations its inputs need."""
     layers = list(zip(FLAGSHIP[:-1], FLAGSHIP[1:]))  # (K, O)
-    kos = sum(k * o for k, o in layers)
-    params = kos + sum(o for _, o in layers)
 
     def per_layer(B, x_bytes, w_bytes, n_vectors, kind):
         parts = [_bound(B * k * x_bytes + o * k * w_bytes
@@ -2785,7 +3140,7 @@ def bounds() -> dict:
         return (sum(ms for ms, _ in parts),
                 max(parts, key=lambda p: p[0])[1])
 
-    B, T = 8, 100
+    B = 8
     n, L, Bs = STACK_N, STACK_L, STACK_B
     k, o = layers[-1]
     return {
@@ -2793,11 +3148,7 @@ def bounds() -> dict:
         "fused_linear": _bound(4 * (B * k + o * k + o + B * o), 2 * B * k * o,
                                "f32"),
         "fused_mlp_forward": mlp_forward_bound(B),
-        # B=100: x, one-hot y, the parameters read and written, the loss;
-        # forward, weight gradients and all but the first input gradient
-        "fused_mlp_train_step": _bound(
-            4 * (T * FLAGSHIP[0] + T * FLAGSHIP[-1] + 2 * params + 1),
-            2 * T * (2 * kos + kos - layers[0][0] * layers[0][1]), "f32"),
+        "fused_mlp_train_step": train_step_bound(FLAGSHIP, 100),
         "fused_linear_w8": w8_bound(B),
         "fused_linear_w8a8": per_layer(B, 4, 1, 2, "int8"),
         "fused_mlp_w8a8_forward": _bound(
@@ -2817,6 +3168,18 @@ def bounds() -> dict:
         "bidir_ring.ring": ring_bound("ar", DP_RANKS,
                                       FLAGSHIP_PARAM_SHAPES[0]),
     }
+
+
+def train_step_bound(dims, B: int):
+    """Kernel 3 on the chain ``dims`` at batch B: x and the targets y read,
+    the parameters read and written, the loss written; the forward, the
+    weight gradients and every input gradient but the first layer's, 2 B
+    K O f32 operations each."""
+    layers = list(zip(dims[:-1], dims[1:]))
+    kos = sum(k * o for k, o in layers)
+    params = kos + sum(o for _, o in layers)
+    return _bound(4 * (B * dims[0] + B * dims[-1] + 2 * params + 1),
+                  2 * B * (3 * kos - layers[0][0] * layers[0][1]), "f32")
 
 
 def w8_bound(B: int):
@@ -2872,6 +3235,9 @@ def main() -> int:
         tr = timed("training slice", phase_train, tmp)
         rs = timed("recurrent slice", phase_rnn_slice, tmp)
         dp = timed("data-parallel slice", phase_dp_slice, tmp)
+        timed("fit slice", phase_fit, tmp)
+        timed("autoencoder", phase_autoencoder, tmp)
+        timed("dots app", phase_dots)
     times = timed("serving timing", phase_timing, sl["model"])
     times.update(timed("int8 timing", phase_int8_timing, sv, stack))
     timed("training routes", phase_train_routes)

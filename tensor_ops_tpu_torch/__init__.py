@@ -11,17 +11,21 @@ never ``jax``.  Its layout mirrors the JAX package's:
 * ``ops.loops``   — ``ScanOp``, ``MappedOp``, ``Remat``: the recurrence and
   batching IR nodes
 * ``ops.kernels`` — the hand-written CUDA kernels and their plain versions
-* ``backend``     — the 13-primitive Tensor seam: ``TorchBackend``
+* ``backend``     — the 13-primitive Tensor seam: ``TorchBackend`` and the
+  float64 NumPy oracle ``NumpyBackend``
 * ``engine``      — cached graph callables (eager execution)
 * ``models``      — activations/losses, feed-forward and recurrent
-  networks and their training, ``FusedMLP``, ``QuantizedMLP``,
-  ``FusedRNN``, ``Predictor``, ``SequencePredictor``
-* ``apps``        — the serving CLI (``apps.serve``) and the MNIST
-  trainer (``apps.mnist``)
+  networks and their training, the optimizers and ``fit``, the
+  autoencoder, ``FusedMLP``, ``QuantizedMLP``, ``FusedRNN``,
+  ``FusedAutoencoder``, ``Predictor``, ``SequencePredictor``
+* ``utils.native`` — the C++ runtime's threaded loader and kernels
+* ``apps``        — the serving CLI (``apps.serve``), the MNIST trainer
+  (``apps.mnist``) and the dots demo (``apps.dots``)
 """
 
 from .backend.base import (Backend, CustomDistribution, Distribution,
                            beta, custom, exponential, gamma, normal, uniform)
+from .backend.numpy_backend import NumpyBackend
 from .backend.torch_backend import TorchBackend
 from .ops import prim
 from .ops.ir import TOp, grad, run, value_and_grad, vjp
@@ -35,6 +39,7 @@ __all__ = [
     "Backend",
     "CustomDistribution",
     "Distribution",
+    "NumpyBackend",
     "Shape",
     "ShapeError",
     "Stack",

@@ -2,11 +2,14 @@
 confusion matrix, white-noise class and digit induction.
 
 The port of ``apps/mnist.py``, with the same flags and defaults
-(``MNIST.hs:89-133``) and the same output, except that ``--backend`` is
-replaced by ``--device`` (default ``cuda``; asking for CUDA where it is
-absent is an error, never a silent CPU run).  Routes:
+(``MNIST.hs:89-133``) and the same output.  ``--backend`` is ``torch``
+(default, on ``--device``: default ``cuda``; asking for CUDA where it is
+absent is an error, never a silent CPU run) or ``np``, the float64 NumPy
+oracle on the host, whose seed draws the same network as the JAX app's
+``--backend np``.  Routes:
 
-* per-sample SGD like the reference (default): ``train_fold``;
+* per-sample SGD like the reference (default): ``train_fold`` (a loop of
+  ``Network.train`` on ``np``);
 * ``--minibatch N``: vmapped minibatch SGD (``train_minibatch``);
 * ``--minibatch N --fused``: the whole step in the ``fused_mlp_train_step``
   kernel (``FusedMLP.train_fullfused``).
@@ -14,6 +17,7 @@ absent is an error, never a silent CPU run).  Routes:
 Examples:
     python -m tensor_ops_tpu_torch.apps.mnist --epochs 1 --minibatch 100 --fused
     python -m tensor_ops_tpu_torch.apps.mnist --epochs 1 --device cpu -c
+    python -m tensor_ops_tpu_torch.apps.mnist --epochs 1 --backend np --limit 200 -b 100
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..backend.base import uniform
+from ..backend.numpy_backend import NumpyBackend
 from ..backend.rng import Rng
 from ..backend.torch_backend import TorchBackend
 from ..models import act_logistic, act_softmax, cross_entropy, gen_net
@@ -61,6 +66,10 @@ def render_digit(x: np.ndarray) -> str:
 
     rows = np.asarray(x, dtype=np.float64).reshape(28, 28)
     return "\n".join("".join(render(v) * 2 for v in row) for row in rows)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def print_confusion(mat: np.ndarray) -> None:
@@ -101,8 +110,11 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=0,
                    help="Number of epochs (0 = run until interrupted, like the reference)")
     p.add_argument("--seed", type=int, default=0, help="RNG seed")
+    p.add_argument("--backend", choices=["torch", "np"], default="torch",
+                   help="torch (on --device) or np, the float64 NumPy oracle "
+                        "(default: torch)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="Torch device to train on (default: cuda)")
+                   help="Torch device of the torch backend (default: cuda)")
     p.add_argument("--minibatch", type=int, default=0,
                    help="Vmapped minibatch size (0 = per-sample SGD like the reference)")
     p.add_argument("--fused", action="store_true",
@@ -128,8 +140,11 @@ def main(argv=None):
         p.error(f"Number {args.induce} out of range ({hi})")
     if args.fused and args.minibatch <= 1:
         p.error("--fused requires --minibatch N (the whole-step kernel trains minibatches)")
+    if args.fused and args.backend != "torch":
+        p.error("--fused requires the torch backend")
     device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if (args.backend == "torch" and device.type == "cuda"
+            and not torch.cuda.is_available()):
         p.error(f"--device {args.device}: CUDA is not available")
 
     layers = [int(x) for x in args.layers.split(",") if x]
@@ -143,7 +158,8 @@ def main(argv=None):
         print(f"Recording accuracy trajectory to {args.metrics}")
 
     o = 11 if args.white else 10
-    be = TorchBackend(torch.float32, device)
+    be = (TorchBackend(torch.float32, device) if args.backend == "torch"
+          else NumpyBackend())
     rng = Rng(be, seed=args.seed)
     shuffle_rng = np.random.default_rng(args.seed + 1)
 
@@ -237,9 +253,12 @@ def main(argv=None):
                                 xs_dev[k : k + args.minibatch],
                                 ys_dev[k : k + args.minibatch],
                             )
-                    else:
+                    elif be.name == "torch":
                         net = train_fold(net, loss, be, args.rate, xs_dev,
                                          ys_dev)
+                    else:
+                        for x, y in zip(xs_dev, ys_dev):
+                            net = net.train(loss, args.rate, be, x, y)
                     return net.params
 
                 _, t = timed(train_chunk)
@@ -249,7 +268,8 @@ def main(argv=None):
                     # only the fresh noise rows transfer each batch; the
                     # real rows sit on the device once (vX_dev)
                     nx, nl = white_extras(len(vX) // 10)
-                    vXe_dev = torch.cat([vX_dev, be.asarray(nx)])
+                    cat = np.concatenate if be.name == "numpy" else torch.cat
+                    vXe_dev = cat([vX_dev, be.asarray(nx)])
                     vLe = np.concatenate([vL, nl])
                 else:
                     vXe_dev, vLe = vX_dev, vL
@@ -278,9 +298,9 @@ def main(argv=None):
                     x0 = rng.draw(uniform(0, 0.05), (784,))
                     # 5000 induction steps (induceNum, MNIST.hs:399-411)
                     x1 = net.induce_many(loss, 1.0, be, target, x0, 5000)
-                    print(render_digit(x1.cpu().numpy()))
+                    print(render_digit(_host(x1)))
                     yhat = batched_run(net, be)(x1[None], *net.params)[0]
-                    print("/".join(f"{v:.2f}" for v in yhat.cpu().numpy()))
+                    print("/".join(f"{v:.2f}" for v in _host(yhat)))
             epoch += 1
     except KeyboardInterrupt:
         print("\nInterrupted.")

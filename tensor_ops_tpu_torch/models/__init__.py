@@ -1,11 +1,14 @@
 """The models ported so far: activations and losses, feed-forward
-networks and their batched training (``training``), recurrent networks
-(``recurrent``), the kernel-fused ``FusedMLP`` and ``FusedRNN``, the int8
+networks and their batched training (``training``), the optimizers
+(``optim``) and the production loop ``fit`` (``trainer``), recurrent
+networks (``recurrent``), the autoencoder (``autoencoder``), the
+kernel-fused ``FusedMLP``, ``FusedRNN`` and ``FusedAutoencoder``, the int8
 ``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
-them.  ``fit``, the optimizers and the autoencoder come in later slices
-(ROADMAP.md, Queue 1)."""
+them.  ``fit_sequences`` and the rest of the production knobs come in later
+slices (ROADMAP.md, Queue 1)."""
 
-from . import fast, feedforward, neuralnet, recurrent, serve, training
+from . import (autoencoder, fast, feedforward, neuralnet, optim, recurrent,
+               serve, trainer, training)
 from .neuralnet import (
     Activation,
     act_logistic,
@@ -22,5 +25,8 @@ from .neuralnet import (
 )
 from .feedforward import Network, ff_layer, gen_net, lift_net, unchain
 from .recurrent import RecurrentNetwork, fully_connected, stateless
-from .fast import FusedMLP, FusedRNN, QuantizedMLP
+from .fast import FusedAutoencoder, FusedMLP, FusedRNN, QuantizedMLP
 from .serve import Predictor, SequencePredictor
+from .autoencoder import Encoder
+from .optim import adam, adamw, momentum, sgd
+from .trainer import FitResult, fit

@@ -10,6 +10,8 @@ PyTorch matmuls (cuBLAS), as the JAX package leaves it to XLA's own GEMM
 fusion.  ``train`` is one SGD step by autograd through ``fused_linear``;
 ``train_fullfused`` is the whole step in the ``fused_mlp_train_step``
 kernel.  Both return a new ``FusedMLP`` and leave this one as it was.
+``FusedAutoencoder`` trains an encoder>>decoder chain on reconstruction
+through the same kernel in its squared-error mode.
 
 ``QuantizedMLP`` is the int8 serving model: per-channel int8 weights
 served through ``fused_linear_w8a8`` or ``fused_linear_w8`` per layer, or,
@@ -209,6 +211,51 @@ class FusedMLP:
             xb, yb, list(self.weights), list(self.biases), rate, self.acts,
             precision=self.precision, loss_kind=kind)
         return float(v), self._replaced(ws, bs)
+
+
+@dataclass
+class FusedAutoencoder:
+    """The encoder>>decoder ffLayer chain as one ``FusedMLP`` trained on
+    reconstruction (target = input) by the whole-step kernel in its
+    squared-error mode: the kernel-fused executor for ``Encoder`` /
+    ``trainEncoder`` (``AutoEncoder.hs:87-110``).
+
+    ``n_enc`` records where the encoder's layer stack ends, so the model
+    converts back to the staged-IR ``Encoder``."""
+
+    mlp: FusedMLP
+    n_enc: int
+
+    @classmethod
+    def from_encoder(cls, enc, precision: str = "default"
+                     ) -> "FusedAutoencoder":
+        fe = FusedMLP.from_network(enc.encoder, softmax_out=False,
+                                   precision=precision)
+        fd = FusedMLP.from_network(enc.decoder, softmax_out=False,
+                                   precision=precision)
+        mlp = FusedMLP(fe.weights + fd.weights, fe.biases + fd.biases,
+                       fe.acts + fd.acts, softmax_out=False,
+                       precision=precision, loss_kind="mse")
+        return cls(mlp, len(fe.weights))
+
+    def to_encoder(self, enc):
+        """Write the trained params back into a template staged-IR
+        Encoder."""
+        ps = self.mlp.to_params()
+        ne = 2 * self.n_enc
+        return type(enc)(
+            Network(enc.encoder.op, ps[:ne], enc.encoder.act_names),
+            Network(enc.decoder.op, ps[ne:], enc.decoder.act_names),
+        )
+
+    def encode_decode(self, x) -> torch.Tensor:
+        return self.mlp.run(x)
+
+    def train(self, rate: float, xb) -> Tuple[float, "FusedAutoencoder"]:
+        """One joint SGD step on reconstruction loss, the whole step in one
+        ``fused_mlp_train_step`` launch on the card."""
+        v, m = self.mlp.train_fullfused(rate, xb, xb)
+        return v, FusedAutoencoder(m, self.n_enc)
 
 
 @dataclass

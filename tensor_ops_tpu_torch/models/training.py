@@ -5,7 +5,9 @@ The staged per-sample graph is mapped over the batch axis with
 ``torch.func.vmap`` (params broadcast) and the per-sample gradients are
 averaged, so the card sees ``[B, i] x [o, i]`` products instead of rank-1
 chains.  The AD is still the framework's own graph transposition (vmap maps
-over it); ``torch.autograd`` is never used on the model.
+over it); ``torch.autograd`` is never used on the model.  On the NumPy
+oracle (``NumpyBackend``) each function loops over the samples, as the JAX
+package's numpy branches do.
 """
 
 from __future__ import annotations
@@ -47,11 +49,48 @@ def make_vmapped_grads(net: Network, loss: TOp, be: Backend) -> Callable:
     return _vmap(sample_vag, 2, len(net.params))
 
 
+def make_mean_grads(net: Network, loss: TOp, be: Backend) -> Callable:
+    """``fn(xb, yb, *params) -> (mean loss, mean param grads)`` over a
+    batch: :func:`make_vmapped_grads` and its batch mean, or on the NumPy
+    oracle a loop over the samples that sums their gradients (the JAX
+    package's numpy branch; nothing of batch size is stacked)."""
+    if be.name == "numpy":
+        composed = net._loss_op(loss)
+
+        def loop(xb, yb, *params):
+            vals = []
+            sums = [np.zeros_like(p) for p in params]
+            for x, y in zip(xb, yb):
+                v, grads = ir.value_and_grad(composed, be,
+                                             (x,) + params + (y,))
+                vals.append(v)
+                for acc, g in zip(sums, grads[1:-1]):
+                    acc += g
+            return float(np.mean(vals)), tuple(s / len(xb) for s in sums)
+
+        return loop
+
+    vmapped = make_vmapped_grads(net, loss, be)
+
+    def mean(xb, yb, *params):
+        vals, grads = vmapped(xb, yb, *params)
+        return vals.mean(), tuple(g.mean(dim=0) for g in grads)
+
+    return mean
+
+
 def batched_run(net: Network, be: Backend) -> Callable:
     """Batched inference ``fn(xb, *params) -> yb``."""
     key = ("brun",) + be.cache_key()
 
     def build():
+        if be.name == "numpy":
+            def loop(xb, *params):
+                return np.stack([net.op.apply(be, (x,) + tuple(params))[0]
+                                 for x in xb])
+
+            return loop
+
         def single(x, *params):
             return net.op.apply(be, (x,) + params)[0]
 
@@ -66,13 +105,11 @@ def batched_step(net: Network, loss: TOp, be: Backend) -> Callable:
     key = ("bstep", loss.struct_key()) + be.cache_key()
 
     def build():
-        vmapped = make_vmapped_grads(net, loss, be)
+        mean_grads = make_mean_grads(net, loss, be)
 
         def step(rate, xb, yb, *params):
-            vals, grads = vmapped(xb, yb, *params)
-            new_params = tuple(p - rate * g.mean(dim=0)
-                               for p, g in zip(params, grads))
-            return vals.mean(), new_params
+            v, grads = mean_grads(xb, yb, *params)
+            return v, tuple(p - rate * g for p, g in zip(params, grads))
 
         return step
 
@@ -104,6 +141,8 @@ def train_minibatch(net: Network, loss: TOp, be: Backend, rate: float,
 
 def _predictions(net: Network, be: Backend, xb: Any) -> np.ndarray:
     out = batched_run(net, be)(be.asarray(xb), *net.params)
+    if isinstance(out, np.ndarray):
+        return out.argmax(axis=1)
     return out.argmax(dim=1).cpu().numpy()
 
 
@@ -122,6 +161,13 @@ def batch_loss(net: Network, loss: TOp, be: Backend, xb: Any,
 
     def build():
         composed = net._loss_op(loss)
+        if be.name == "numpy":
+            def loop(xb, yb, *params):
+                return np.mean([
+                    composed.apply(be, (x,) + tuple(params) + (y,))[0]
+                    for x, y in zip(xb, yb)])
+
+            return loop
 
         def single(x, y, *params):
             return composed.apply(be, (x,) + params + (y,))[0]

@@ -7,11 +7,14 @@ written by either one serves from both.  Tensors are moved to the host on
 save; bf16 tensors are written as float32 (numpy has no bf16, and the
 widening is exact).
 
-This slice carries the feed-forward, recurrent, ``FusedMLP`` and
-``QuantizedMLP`` formats (and an asynchronous save for the training loop);
-int8 codes stay int8 in the file.  Optimizer state and pipeline checkpoints
-come with their models (ROADMAP.md, Queue 1).  Loaders place the model on
-the card unless the caller names another device.
+This module carries the feed-forward, recurrent, ``FusedMLP``,
+``QuantizedMLP`` and ``FusedAutoencoder`` formats, and the train-state
+format that ``fit`` writes beside its servable checkpoint (parameters,
+optimizer state and the global step: a ``.state`` file of either package
+resumes in the other), with asynchronous saves for the training loop; int8
+codes stay int8 in the file.  Pipeline checkpoints come with their models
+(ROADMAP.md, Queue 1).  Loaders place the model on the card unless the
+caller names another device.
 """
 
 from __future__ import annotations
@@ -181,6 +184,140 @@ def _fused_from_arrays(arrays, meta, device="cuda"):
 def load_fused(path: str, device="cuda"):
     arrays, meta = load_arrays(path)
     return _fused_from_arrays(arrays, meta, device)
+
+
+def _tree_leaves(tree) -> list:
+    """Flatten a nested tuple/list/NamedTuple/dict tree of array/scalar
+    leaves (every optimizer state of ``optim.py``) in the JAX package's
+    order: ``None`` is an empty subtree, dicts go in sorted-key order."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in _tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        out = []
+        for t in tree:
+            out.extend(_tree_leaves(t))
+        return out
+    return [tree]
+
+
+def _tree_unflatten(template, leaves_iter):
+    if template is None:
+        return None
+    if isinstance(template, dict):
+        return {k: _tree_unflatten(template[k], leaves_iter)
+                for k in sorted(template)}
+    if isinstance(template, (tuple, list)):
+        vals = [_tree_unflatten(t, leaves_iter) for t in template]
+        if hasattr(template, "_fields"):  # NamedTuple states
+            return type(template)(*vals)
+        return type(template)(vals)
+    leaf = next(leaves_iter)
+    if isinstance(template, bool):
+        return bool(leaf)
+    if isinstance(template, int):
+        return int(leaf)  # e.g. adam's step count
+    if isinstance(template, float):
+        return float(leaf)
+    if isinstance(template, np.ndarray):
+        return np.asarray(leaf, dtype=template.dtype)
+    import torch
+
+    if isinstance(template, torch.Tensor):
+        return torch.as_tensor(leaf, dtype=template.dtype,
+                               device=template.device)
+    return leaf
+
+
+def _train_state_payload(params, opt_state, step: int, opt_key,
+                         extra_meta: Optional[dict]) -> Tuple[dict, dict]:
+    arrays = {f"p_{i}": p for i, p in enumerate(params)}
+    leaves = _tree_leaves(opt_state)
+    arrays.update({f"o_{i}": l for i, l in enumerate(leaves)})
+    meta = {"kind": "train_state", "step": int(step),
+            "n_params": len(params), "n_opt_leaves": len(leaves)}
+    if opt_key is not None:
+        # structural identity of the update rule (Optimizer.struct_key):
+        # resuming under other hyperparameters would silently reinterpret
+        # the moments, so it is recorded for load-time validation
+        meta["opt_key"] = json.dumps(opt_key)
+    meta.update(extra_meta or {})
+    return arrays, meta
+
+
+def save_train_state(path: str, params, opt_state, step: int,
+                     extra_meta: Optional[dict] = None, opt_key=None) -> None:
+    """Full training-state checkpoint: parameters AND optimizer state
+    AND the global step, what exact resume needs (``fit(resume=True)``).
+    ``opt_key`` (``opt.struct_key()``) is stored so that resume can refuse
+    a changed optimizer or hyperparameters."""
+    save_arrays(path, *_train_state_payload(params, opt_state, step,
+                                            opt_key, extra_meta))
+
+
+def save_train_state_async(path: str, params, opt_state, step: int,
+                           extra_meta: Optional[dict] = None, opt_key=None):
+    """``save_train_state`` with the file write off the training thread
+    (tensors are copied to the host synchronously).  Returns a Future."""
+    return save_arrays_async(path, *_train_state_payload(
+        params, opt_state, step, opt_key, extra_meta))
+
+
+def load_train_state(path: str, opt_state_template, opt_key=None,
+                     expect_meta: Optional[dict] = None):
+    """``(params, opt_state, step)``: the parameters as host arrays, the
+    optimizer leaves restored into the structure of ``opt_state_template``
+    (``opt.init(params)``), each array leaf with the template leaf's dtype
+    and device and each scalar of its Python type.  A stored
+    ``opt_key`` that differs from the caller's raises, and so does a key
+    of ``expect_meta`` present in both the file and the expectation with
+    another value (``fit``'s ``layout``)."""
+    arrays, meta = load_arrays(path)
+    if meta.get("kind") != "train_state":
+        raise ValueError(f"{path} is not a train_state checkpoint")
+    for key, want in (expect_meta or {}).items():
+        have = meta.get(key)
+        if have is not None and have != want:
+            raise ValueError(
+                f"train-state mismatch on {key!r}: checkpoint was saved "
+                f"with {have!r}, resume requested {want!r} — resume with "
+                f"the same configuration")
+    saved_key = meta.get("opt_key")
+    if saved_key is not None and opt_key is not None:
+        if saved_key != json.dumps(opt_key):
+            raise ValueError(
+                f"optimizer mismatch: checkpoint was saved with "
+                f"{saved_key}, resume requested {json.dumps(opt_key)} — "
+                f"resume with the same optimizer/hyperparameters")
+    params = tuple(arrays[f"p_{i}"] for i in range(meta["n_params"]))
+    n = meta["n_opt_leaves"]
+    leaves = [arrays[f"o_{i}"] for i in range(n)]
+    n_expected = len(_tree_leaves(opt_state_template))
+    if n_expected != n:
+        raise ValueError(
+            f"optimizer state mismatch: checkpoint has {n} leaves, the "
+            f"current optimizer expects {n_expected} — resume "
+            f"with the same optimizer/hyperparameters")
+    opt_state = _tree_unflatten(opt_state_template, iter(leaves))
+    return params, opt_state, int(meta["step"])
+
+
+def save_autoencoder(path: str, model, extra_meta: Optional[dict] = None
+                     ) -> None:
+    """Save a FusedAutoencoder: the stacked encoder+decoder ``FusedMLP`` and
+    the encoder/decoder split point."""
+    meta = {"kind": "fused_autoencoder", "n_enc": int(model.n_enc)}
+    meta.update(extra_meta or {})
+    save_fused(path, model.mlp, meta)
+
+
+def load_autoencoder(path: str, device="cuda"):
+    from ..models.fast import FusedAutoencoder
+
+    arrays, meta = load_arrays(path)
+    return FusedAutoencoder(_fused_from_arrays(arrays, meta, device),
+                            int(meta["n_enc"]))
 
 
 def save_quantized(path: str, model, extra_meta: Optional[dict] = None) -> None:

@@ -161,3 +161,37 @@ def test_metrics_and_checkpoint(tmp_path):
     arrays, meta = checkpoint.load_arrays(str(tmp_path / "c.npz"))
     assert meta["kind"] == "feedforward" and len(arrays) == 4
     assert np.asarray(arrays["param_0"]).shape == (8, 784)
+
+
+def test_numpy_backend_matches_the_jax_app(tmp_path, monkeypatch):
+    """``--backend np`` (the float64 NumPy oracle) prints what the JAX
+    app's ``--backend np`` prints for one batch of per-sample SGD and its
+    validation, from "Loaded data." on, the timing line excluded: the
+    oracle's seed draws the same network in both packages."""
+    import apps.mnist as jmnist
+    from tensor_ops_tpu.utils import mnist_data as jdata
+
+    def refuse(url, timeout=20.0):
+        raise OSError("offline")
+
+    monkeypatch.setattr(jdata, "_fetch", refuse)
+    argv = ["--epochs", "1", "--limit", "60", "-b", "60", "-l", "8", "-r",
+            "0.5", "--seed", "2", "--backend", "np"]
+
+    def tail(main, d):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv + ["-d", str(tmp_path / d)])
+        out = buf.getvalue()
+        out = out[out.index("Loaded data."):]
+        return re.sub(r"samples in \d+\.\d+s", "samples in Xs", out)
+
+    got = tail(mnist.main, "port")
+    assert got == tail(jmnist.main, "jax")
+    assert "Validation:" in got and "[ 9]" in got
+
+
+def test_numpy_backend_refuses_fused(tmp_path):
+    with pytest.raises(SystemExit):
+        run_cli(["--backend", "np", "--minibatch", "10", "--fused", "-d",
+                 str(tmp_path)])

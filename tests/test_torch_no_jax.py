@@ -1,6 +1,7 @@
 """The port never imports JAX: every module imports, and the serving
 (f32, int8 and recurrent), training, recurrent-sequence (``FusedRNN`` on
-``fused_rnn_seq``) and data-parallel paths run end to end, in a fresh
+``fused_rnn_seq``), data-parallel and ``fit`` paths (with the NumPy
+oracle, the dots app and the autoencoder) run end to end, in a fresh
 interpreter where ``import jax`` fails."""
 
 import os
@@ -122,6 +123,37 @@ with tempfile.TemporaryDirectory() as d:
     mnist_data._fetch = offline
     mnist.main(["--epochs", "1", "--limit", "100", "-b", "100", "--minibatch",
                 "50", "--fused", "-l", "8", "-c", "-d", d, "--device", "cpu"])
+    mnist.main(["--epochs", "1", "--limit", "20", "-b", "20", "-l", "8", "-c",
+                "-d", d, "--backend", "np"])
+
+    # the fit slice: fit with adam through a checkpoint and a resume, the
+    # NumPy oracle and its RNG, the dots app, the autoencoder
+    from tensor_ops_tpu_torch.apps import dots
+    from tensor_ops_tpu_torch.models import (Encoder, FusedAutoencoder,
+                                             adam, cross_entropy, fit,
+                                             squared_error)
+    X = np.random.default_rng(0).uniform(size=(40, 12))
+    Y = np.eye(4)[np.arange(40) % 4]
+    fk = os.path.join(d, "f.npz")
+    fit(net, cross_entropy(4), be, X, Y, epochs=1, batch_size=16,
+        optimizer=adam(), checkpoint_path=fk, checkpoint_every=3,
+        verbose=False)
+    res = fit(net, cross_entropy(4), be, X, Y, epochs=2, batch_size=16,
+              optimizer=adam(), checkpoint_path=fk, resume=True,
+              verbose=False)
+    assert res.steps == 6 and res.history[0]["step"] == 4
+    nb = TT.NumpyBackend()
+    onet = gen_net(nb, 12, 4, [(8, act_logistic())], act_softmax(), Rng(nb, 3))
+    assert isinstance(onet.params[0], np.ndarray)
+    assert fit(onet, cross_entropy(4), nb, X, Y, batch_size=20,
+               verbose=False).steps == 2
+    dots.main(["-s", "100", "np", "torch", "--device", "cpu"])
+    enc = Encoder(gen_net(be, 12, 3, [], act_logistic(), Rng(be, 4)),
+                  gen_net(be, 3, 12, [], act_logistic(), Rng(be, 5)))
+    enc2, _ = enc.fit(squared_error(12), be, X, batch_size=20, verbose=False)
+    fae = FusedAutoencoder.from_encoder(enc2)
+    loss_ae, fae = fae.train(0.1, torch.as_tensor(X[:4], dtype=torch.float64))
+    assert loss_ae > 0 and fae.n_enc == 1
 assert sys.modules["jax"] is None
 assert not any(m.startswith("jax.") or m == "jaxlib" for m in sys.modules)
 print("NAMES", len(names))
@@ -135,7 +167,7 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("NAMES")[-1])
-    assert n >= 15
+    assert n >= 40  # the package walk reaches every module, examples too
 
 
 def test_no_jax_import_in_sources():
