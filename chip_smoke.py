@@ -153,6 +153,39 @@ without printing a result line:
    bound; the ring protocol beside it), and a dp step's wall time, profile
    (14 kernels, 6 one-shot launches) and samples/s on each route beside a
    single-rank ``train_fullfused`` step on the same 400 rows.
+16. Recurrent fit slice (this phase and the next two run after every
+   profiled phase above: run before them, they left the profiler losing
+   device events): ``fit_sequences`` on the recurrent model of phase 9
+   (seed 7) at the full size of ``scratch/fit_seq_realized.py``: 4,096
+   sequences of 64 steps (inputs and targets standard normal, seed 0),
+   batch 256, dual-rate SGD for 2 epochs (32 steps): the loss falls and
+   the caller's network is unchanged; a crash/resume chain (1 epoch, then
+   ``resume=True`` to 2) is bit-equal to the straight run; ``accum_steps=2``
+   against the whole-batch step (``TOL_5_STEPS``); adam with ``ema_decay``
+   and ``accum_steps=2``, interrupted by a Ctrl-C at step 2 and resumed,
+   bit-equal to the straight run, EMA included; ``offload_activations``
+   bit-equal; 3 steps against the same loop on the CPU in f64, run in a
+   second interpreter (within 1e-5 plus twice the CPU f32 run's drift);
+   sequences/s over steps 2-32 and the first step's time from the
+   history's host-clock stamps, and the peak device memory.
+17. Production fit: ``tensor_ops_tpu_torch.examples.production_fit`` on
+   the card (fit with adamw, a cosine schedule, clipping and EMA; a crash
+   and a resume to the full budget; the EMA net served in int8 by
+   ``Predictor``): the served accuracy above 0.9 and exactly 2 launches of
+   ``fused_linear_w8a8`` per request and warm-up; kernel 5 at the served
+   2 -> 32 -> 2 shapes (B = 8, 64 and 512) bit-equal to its plain version,
+   and its device time per call at B = 64 beside its plain version's and
+   its bound.
+18. adam8bit fit: the flagship through ``fit`` with ``adam8bit`` (nearest
+   rounding) for 2 steps of B = 100, each step also taken from the card's
+   state on the CPU in f64 and f32 (the card within 1e-5 plus twice the CPU
+   f32 step's distance from f64; the share of int8 moment codes that
+   differ; the largest parameter), the replay bit-equal to the fit; a
+   Ctrl-C at step 1 whose checkpoint, resumed to the budget, is bit-equal
+   to the straight run.
+19. Recurrent fit timing: one ``fit_sequences`` step's wall time, kernels,
+   device busy time and idle share (its profile holds some 10,000 kernel
+   events).
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -374,6 +407,44 @@ FIT_SGD_ROWS = 500
 # The autoencoder of examples/autoencoder_digits.py: 784 -> 128 -> 32 ->
 # 128 -> 784, logistic, seed 0, trained on reconstruction (squared error);
 # the train-step kernel runs it in its squared-error mode.
+# The recurrent fit slice: fit_sequences on the recurrent model above at
+# the source's full size (scratch/fit_seq_realized.py:36-62): 4,096
+# sequences of n = 64 steps, inputs and targets standard normal (seed 0),
+# batch 256 (16 steps an epoch), dual-rate SGD at the source's rates for 2
+# epochs; adam with EMA and accum_steps=2 for SEQ_FIT_ADAM_STEPS steps; and
+# SEQ_FIT_CPU_STEPS steps held against the same loop on the CPU in f64.
+SEQ_FIT_SEQS, SEQ_FIT_BATCH, SEQ_FIT_EPOCHS = 4096, 256, 2
+SEQ_FIT_RATES = dict(rate_state=0.01, rate_param=0.05)
+SEQ_FIT_LOG_EVERY = 4
+SEQ_FIT_ADAM_STEPS, SEQ_FIT_EMA = 4, 0.9
+SEQ_FIT_CPU_STEPS = 3
+# The card's f32 run against CPU f64 over SEQ_FIT_CPU_STEPS steps: each
+# step's sums over 256 sequences of 64 steps of 544-long products are taken
+# in another order, and BPTT through the recurrence carries those
+# differences on (the recurrent slice's 64-step trajectories drift by what
+# the host's BLAS gives); as there, the bound is 1e-5 plus twice the drift
+# of the same steps in f32 on the CPU from f64, measured in the same run.
+TOL_SEQ_FIT = 1e-5
+# production_fit's int8 Predictor: 2 -> 32 relu -> 2 (softmax) served at
+# buckets 8, 64 and 512: a warm-up of each bucket, one request of 512 rows
+# and 20 of 37 rows (bucket 64), two fused_linear_w8a8 launches each
+PROD_BUCKETS = (8, 64, 512)
+PROD_REQUESTS = len(PROD_BUCKETS) + 1 + 20
+# adam8bit (nearest rounding) through fit on the flagship: A8_STEPS steps
+# of B = 100 over the synthetic set's first A8_STEPS * 100 rows on the
+# card, each step also taken from the card's state on the CPU in f64 and
+# f32; a Ctrl-C at step A8_CRASH, resumed to the budget, against the
+# straight run.  From the same state the step's parameters come from the
+# unquantized moments: they differ from f64 by f32 rounding, and by up to
+# 2 lr where a gradient is a cancellation residue whose sign f32 and f64
+# round apart (adam's first steps take lr * sign(g)); the bound is TOL_A8
+# plus twice the CPU f32 step's distance from f64, measured per step.
+# Nearest rounding lets v round to code 0 under a nonzero m, a step of
+# lr * m / eps: from step 2 on the flagship's parameters reach thousands
+# (the update is the JAX package's), and the loss soon turns NaN.
+# A8_STEPS stops before a loss is computed from such parameters.
+A8_STEPS, A8_CRASH = 2, 1
+TOL_A8 = 1e-5
 AE_DIMS = (784, 128, 32, 128, 784)
 AE_RATE, AE_ROWS, AE_STEPS = 0.05, 100, 5
 AE_FIT_LR = 0.005
@@ -2178,6 +2249,464 @@ def phase_fit(tmp: str) -> dict:
     return {"launches": launches, "rates": rates, "peak": peak}
 
 
+def _leaves(net) -> list:
+    return list(net.states) + list(net.params)
+
+
+def _seq_fit_on_cpu(src: str, dst: str) -> None:
+    """The recurrent fit slice's CPU runs, in a second interpreter (a run
+    at this size on the CPU left the profiler of the process that made it
+    losing device events): ``fit_sequences`` from the start leaves in the
+    npz ``src`` over its sequences, in f64 and in f32, one record a step;
+    writes each run's losses, final leaves and seconds to the npz
+    ``dst``."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import fit_sequences, squared_error
+    from tensor_ops_tpu_torch.models.recurrent import RecurrentNetwork
+
+    z = np.load(src)
+    out = {}
+    for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
+        cpu = TorchBackend(dtype, "cpu")
+        tmpl = rnn_model(cpu)
+        k = len(tmpl.states)
+        leaves = [cpu.asarray(z[f"leaf_{i}"])
+                  for i in range(k + len(tmpl.params))]
+        net = RecurrentNetwork(tmpl.op, leaves[:k], leaves[k:], tmpl.arch)
+        t0 = time.perf_counter()
+        res = fit_sequences(net, squared_error(RNN_OUT), cpu, z["XS"],
+                            z["TS"], epochs=1, batch_size=SEQ_FIT_BATCH,
+                            log_every=1, verbose=False, **SEQ_FIT_RATES)
+        out[f"{tag}_s"] = time.perf_counter() - t0
+        out[f"{tag}_loss"] = np.array([x["loss"] for x in res.history])
+        out[f"{tag}_leaves"] = np.concatenate(
+            [t.numpy().reshape(-1) for t in _leaves(res.net)])
+    np.savez(dst, **out)
+
+
+def _held_to_f64(card, cpu: dict, floor: float) -> str:
+    """The card run's losses and leaves against the CPU f64 run's, each
+    within ``floor`` plus twice the CPU f32 run's largest distance from the
+    f64 one (its drift), measured apart for the losses and the leaves;
+    returns the log line."""
+    got = {"loss": torch.tensor([x["loss"] for x in card.history]),
+           "leaves": torch.cat([t.double().cpu().reshape(-1)
+                                for t in _leaves(card.net)])}
+    out = []
+    for name, c in got.items():
+        ref = torch.as_tensor(cpu[f"f64_{name}"])
+        drift = float((torch.as_tensor(cpu[f"f32_{name}"]).double()
+                       - ref).abs().max())
+        tol = floor + 2 * drift
+        e = max_err(c, ref, (tol, 0.0))
+        out.append(f"{name} max|err| {e:.2e} (tol {tol:.2e} = {floor:g} + 2 "
+                   f"x the CPU f32 run's drift {drift:.2e})")
+    return "; ".join(out)
+
+
+def phase_seq_fit(tmp: str) -> dict:
+    """The recurrent fit slice: ``fit_sequences`` at full width on the card
+    (dual-rate SGD, 2 epochs), its crash/resume chain bit for bit,
+    accumulation, adam with EMA and accumulation through a Ctrl-C, the
+    offloaded tape, 3 steps against CPU f64, the caller's network
+    unchanged; returns what :func:`phase_seq_fit_timing` times."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import adam, fit_sequences, squared_error
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.utils.checkpoint import load_meta
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net = rnn_model(be)
+    before = [t.clone() for t in _leaves(net)]
+    r = np.random.default_rng(0)
+    XS = r.standard_normal((SEQ_FIT_SEQS, RNN_N, RNN_IN)).astype(np.float32)
+    TS = r.standard_normal((SEQ_FIT_SEQS, RNN_N, RNN_OUT)).astype(np.float32)
+    loss = squared_error(RNN_OUT)
+    B = SEQ_FIT_BATCH
+    spe = SEQ_FIT_SEQS // B
+    steps = SEQ_FIT_EPOCHS * spe
+    kw = dict(batch_size=B, log_every=SEQ_FIT_LOG_EVERY, verbose=False,
+              **SEQ_FIT_RATES)
+    shape = (f"Elman {RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT}, n={RNN_N}, B={B}, "
+             f"{SEQ_FIT_SEQS} sequences")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    main = fit_sequences(net, loss, be, XS, TS, epochs=SEQ_FIT_EPOCHS, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = K.launch_counts()
+    h = main.history
+    check(main.steps == steps, f"fit_sequences ran {main.steps} steps, "
+          f"want {steps}")
+    check(all(math.isfinite(x["loss"]) for x in h),
+          "fit_sequences: non-finite loss")
+    first = [x["loss"] for x in h if x["step"] <= spe]
+    last = [x["loss"] for x in h if x["step"] > spe]
+    check(h[-1]["loss"] < h[0]["loss"] and
+          statistics.mean(last) < statistics.mean(first),
+          f"fit_sequences: the loss did not fall ({[x['loss'] for x in h]})")
+    check(all(torch.equal(a, b) for a, b in zip(before, _leaves(net))),
+          "fit_sequences changed the caller's network")
+    t = {x["step"]: x["t"] for x in h}
+    rate = (steps - 1) * B / (t[steps] - t[1])
+    log(f"[seqfit] fit_sequences ({shape}, dual-rate SGD rate_state "
+        f"{SEQ_FIT_RATES['rate_state']} rate_param "
+        f"{SEQ_FIT_RATES['rate_param']}, {SEQ_FIT_EPOCHS} epochs = {steps} "
+        f"steps): loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} (epoch "
+        f"means {statistics.mean(first):.4f} -> {statistics.mean(last):.4f});"
+        f" {wall:.2f} s in all; the caller's network unchanged; "
+        f"hand-written kernel launches {launches}")
+    log(f"[seqfit] sequences/s over steps 2-{steps} (host clock at the log "
+        f"boundaries, each after a synchronise): {rate:.1f}; the first step "
+        f"{t[1] * 1e3:.1f} ms from fit_sequences' start (the first run on "
+        f"this network in the process); peak device memory {peak} bytes "
+        f"(torch.cuda.max_memory_allocated)")
+
+    # crash at the end of epoch 1, resume to the budget
+    ck = os.path.join(tmp, "seq.npz")
+    fit_sequences(net, loss, be, XS, TS, epochs=1, checkpoint_path=ck,
+                  checkpoint_every=spe, **kw)
+    check(load_meta(ck + ".state")["step"] == spe,
+          "fit_sequences: the checkpoint is not at the end of epoch 1")
+    resumed = fit_sequences(rnn_model(be, RNN_SEED + 1), loss, be, XS, TS,
+                            epochs=SEQ_FIT_EPOCHS, checkpoint_path=ck,
+                            resume=True, **kw)
+    check(resumed.steps == steps and resumed.history[0]["step"] == spe + 1,
+          "the resumed fit_sequences did not continue at the saved step")
+    check(all(torch.equal(a, b) for a, b in
+              zip(_leaves(resumed.net), _leaves(main.net))),
+          "fit_sequences crash/resume: the resumed run differs from the "
+          "straight run")
+    log(f"[seqfit] crash/resume (1 epoch with a checkpoint at step {spe}, "
+        f"then resume=True to {SEQ_FIT_EPOCHS} epochs): states and params "
+        f"bit-equal to the straight run")
+
+    # accumulation: two half-batch means over 2 against the whole batch,
+    # dual-rate SGD (the same mean up to f32 grouping)
+    n_a = SEQ_FIT_ADAM_STEPS * B
+    sub = (XS[:n_a], TS[:n_a])
+    akw = dict(kw, log_every=1)
+    acc = fit_sequences(net, loss, be, *sub, epochs=1, accum_steps=2, **akw)
+    whole = fit_sequences(net, loss, be, *sub, epochs=1, **akw)
+    e_acc = max(max_err(a, b, TOL_5_STEPS) for a, b in
+                zip(_leaves(acc.net), _leaves(whole.net)))
+    log(f"[seqfit] accum_steps=2, {SEQ_FIT_ADAM_STEPS} dual-rate steps: "
+        f"states and params max|err| {e_acc:.2e} from the whole-batch run "
+        f"(tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|)")
+
+    # adam with the EMA and accumulation, Ctrl-C at step 2 and resumed to
+    # the budget: bit-equal to the straight run, EMA included
+    ck2 = os.path.join(tmp, "seq_adam.npz")
+
+    def boom(s):
+        if s == 2:
+            raise KeyboardInterrupt
+        return SEQ_FIT_RATES["rate_param"]
+
+    ekw = dict(akw, optimizer=adam(), ema_decay=SEQ_FIT_EMA, accum_steps=2)
+    try:
+        fit_sequences(net, loss, be, *sub, epochs=1, lr_schedule=boom,
+                      checkpoint_path=ck2, **ekw)
+        check(False, "the interrupted fit_sequences did not stop")
+    except KeyboardInterrupt:
+        pass
+    check(load_meta(ck2 + ".state")["step"] == 2,
+          "fit_sequences: the Ctrl-C checkpoint is not at the interrupted "
+          "step")
+    flat = lambda s: SEQ_FIT_RATES["rate_param"]  # noqa: E731
+    res_a = fit_sequences(rnn_model(be, RNN_SEED + 1), loss, be, *sub,
+                          epochs=1, lr_schedule=flat, checkpoint_path=ck2,
+                          resume=True, **ekw)
+    straight = fit_sequences(net, loss, be, *sub, epochs=1, lr_schedule=flat,
+                             **ekw)
+    check(all(math.isfinite(x["loss"]) for x in straight.history),
+          "adam + EMA + accum_steps: non-finite loss")
+    check(all(torch.equal(a, b) for a, b in
+              zip(_leaves(res_a.net) + _leaves(res_a.ema_net),
+                  _leaves(straight.net) + _leaves(straight.ema_net))),
+          "adam + EMA + accum_steps: the Ctrl-C/resume chain differs from "
+          "the straight run")
+    check(not all(torch.equal(a, b) for a, b in
+                  zip(_leaves(straight.ema_net), _leaves(straight.net))),
+          "the EMA does not trail the leaves")
+    log(f"[seqfit] adam + ema_decay {SEQ_FIT_EMA} + accum_steps=2, "
+        f"{SEQ_FIT_ADAM_STEPS} steps: loss {straight.history[0]['loss']:.4f} "
+        f"-> {straight.history[-1]['loss']:.4f}; Ctrl-C at step 2 (its "
+        f"checkpoint), resumed to the budget: leaves and EMA bit-equal to "
+        f"the straight run")
+
+    # the carry tape through pinned host memory under the vmapped step
+    off = fit_sequences(net, loss, be, XS[:B], TS[:B], epochs=1,
+                        offload_activations=True, **akw)
+    on = fit_sequences(net, loss, be, XS[:B], TS[:B], epochs=1, **akw)
+    check(all(torch.equal(a, b) for a, b in
+              zip(_leaves(off.net), _leaves(on.net))),
+          "offload_activations changed the step")
+    log("[seqfit] offload_activations=True (the scan's carry tape through "
+        "pinned host memory, under the vmapped step): one step bit-equal to "
+        "the run without it")
+
+    # the first steps on the card in f32 against the CPU in f64 (and f32,
+    # for the drift), the CPU runs in a second interpreter
+    n_c = SEQ_FIT_CPU_STEPS * B
+    card = fit_sequences(net, loss, be, XS[:n_c], TS[:n_c], epochs=1,
+                         **dict(kw, log_every=1))
+    src, dst = os.path.join(tmp, "seq_cpu_in.npz"), os.path.join(
+        tmp, "seq_cpu_out.npz")
+    np.savez(src, XS=XS[:n_c], TS=TS[:n_c],
+             **{f"leaf_{i}": t.cpu().numpy()
+                for i, t in enumerate(_leaves(net))})
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke._seq_fit_on_cpu(*sys.argv[1:])", src, dst],
+        capture_output=True, text=True, timeout=600, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, f"the CPU runs of fit_sequences failed:\n"
+          f"{proc.stdout}{proc.stderr[-3000:]}")
+    cpu = dict(np.load(dst))
+    log(f"[seqfit] {SEQ_FIT_CPU_STEPS} dual-rate steps vs the same "
+        f"fit_sequences on the CPU in f64: "
+        f"{_held_to_f64(card, cpu, TOL_SEQ_FIT)} (CPU runs in a second "
+        f"interpreter, {float(cpu['f64_s']):.1f} s in f64, "
+        f"{float(cpu['f32_s']):.1f} s in f32)")
+
+    return {"net": net, "loss": loss, "batch": (XS[:B], TS[:B]),
+            "shape": shape}
+
+
+def phase_seq_fit_timing(sf) -> None:
+    """One ``fit_sequences`` step's device work (the vmapped scan-BPTT
+    gradient, its mean and the dual-rate update): wall time, kernels,
+    device busy time and idle share.  Its profile holds some 10,000 kernel
+    events, so it runs after every other profile of the smoke: in one run
+    the profiler handed back no device events to a profile taken after
+    it."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models.trainer import _seq_train_step
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net, B = sf["net"], SEQ_FIT_BATCH
+    step_fn = _seq_train_step(net, sf["loss"], be, RNN_N)
+    xb, tb = (be.asarray(a) for a in sf["batch"])
+    state = [net.states, net.params]
+
+    def one_step():
+        v, state[0], state[1] = step_fn(SEQ_FIT_RATES["rate_state"],
+                                        SEQ_FIT_RATES["rate_param"], xb, tb,
+                                        state[0], state[1])
+        return v
+
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / 5 * 1e6
+    prof = _profile_steps(one_step, steps=2)
+    top = ", ".join(f"{n} {us:.1f}" for n, us in
+                    list(prof["by_kernel"].items())[:4])
+    log(f"[timing] fit_sequences step ({sf['shape']}; vmapped scan-BPTT "
+        f"gradient + mean + dual-rate SGD): {wall_us:.1f} us/step wall "
+        f"({B / wall_us * 1e6:.1f} sequences/s), {prof['launches']:.0f} "
+        f"kernels + {prof['copies']:.0f} copies/step, device busy "
+        f"{prof['busy_us']:.1f} us/step, idle share "
+        f"{1 - prof['busy_us'] / wall_us:.3f}; largest (us/step): {top}")
+
+
+def phase_production_fit(tmp: str) -> None:
+    """``examples/production_fit.py`` on the card: fit with adamw, a cosine
+    schedule, clipping and EMA, a crash and a resume, and the EMA net served
+    in int8 by ``Predictor`` through kernel 5 at 2 -> 32 -> 2; kernel 5 at
+    those shapes against its plain version."""
+    from tensor_ops_tpu_torch.examples import production_fit
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        res = production_fit.main(["--device", DEVICE, "--workdir",
+                                   os.path.join(tmp, "production_fit")])
+    launches = K.launch_counts()
+    lines = out.getvalue().splitlines()
+    check(res["acc"] > 0.9, f"production_fit served {res['acc']} (> 0.9)")
+    check(any(x.startswith("resumed from") for x in lines),
+          "production_fit did not resume")
+    qm = res["pred"].model
+    n_layers = len(qm.wqs)
+    want = PROD_REQUESTS * n_layers
+    check(launches.get("fused_linear_w8a8", 0) == want,
+          f"production_fit: {launches} hand-written kernel launches, want "
+          f"{want} of fused_linear_w8a8")
+    log(f"[prodfit] examples/production_fit.py on the card: "
+        f"{lines[-2].strip()}; hand-written kernel launches {launches} "
+        f"({PROD_REQUESTS} requests x {n_layers} layers)")
+
+    # kernel 5 at the served shapes, each layer fed the plain chain's
+    # activations, against its plain version: bit for bit (relu, identity)
+    shapes = []
+    x0 = torch.as_tensor(
+        np.random.default_rng(3).uniform(-1, 1, size=(max(PROD_BUCKETS), 2)),
+        dtype=torch.float32, device=DEVICE)
+    for B in PROD_BUCKETS:
+        x = x0[:B]
+        for q, s, b, act in zip(qm.wqs, qm.scales, qm.biases, qm.acts):
+            y = K._fused_linear_w8a8_cuda(x, q, s, b, act)
+            torch.cuda.synchronize()
+            ref = K.fused_linear_w8a8_ref(x, q, s, b, act)
+            check(torch.equal(y, ref), f"fused_linear_w8a8 {act} B={B} "
+                  f"{q.shape[1]}->{q.shape[0]}: not bit-equal to its plain "
+                  f"version")
+            p = K.w8a8_plan(B, q.shape[1], q.shape[0],
+                            K._sm_count(torch.cuda.current_device()))
+            shapes.append(f"B={B} {q.shape[1]}->{q.shape[0]} {act} "
+                          f"({p.instance})")
+            x = ref
+    log(f"[prodfit] fused_linear_w8a8 at the served shapes, bit-equal to "
+        f"its plain version: {'; '.join(shapes)}")
+
+    # the request's two layers at bucket 64 on the card, per call in a CUDA
+    # graph, beside the plain chain
+    x = x0[:64]
+
+    def chain(layer):
+        h = x
+        for q, s, b, act in zip(qm.wqs, qm.scales, qm.biases, qm.acts):
+            h = layer(h, q, s, b, act)
+        return h
+
+    us = _graph_us(lambda: chain(K._fused_linear_w8a8_cuda))
+    plain_us = _graph_us(lambda: chain(K.fused_linear_w8a8_ref))
+    nbytes = sum(64 * q.shape[1] * 4 + q.numel() + 2 * q.shape[0] * 4
+                 + 64 * q.shape[0] * 4 for q in qm.wqs)
+    ops = sum(2 * 64 * q.numel() for q in qm.wqs)
+    bound = _bound(nbytes, ops, "int8")
+    log(f"[timing] fused_linear_w8a8 at production_fit's 2->32->2, B=64 (two "
+        f"layers, device time per call in a CUDA graph): {us:.2f} us, plain "
+        f"version {plain_us:.2f} us; bound {bound[0] * 1e3:.4f} us by "
+        f"{bound[1]}")
+
+
+def _a8_state_on(cpu, state):
+    """adam8bit's state ``(t, ((mq, ms, vq, vs), ...))`` on the CPU backend
+    ``cpu``: the int8 codes as they are, the scales in its dtype."""
+    t, qs = state
+    return t, tuple(tuple(x.cpu() if x.dtype == torch.int8
+                          else cpu.asarray(x.cpu()) for x in leaf)
+                    for leaf in qs)
+
+
+def phase_adam8bit_fit(tmp: str) -> None:
+    """``fit`` with adam8bit (nearest rounding) on the flagship: each of
+    its A8_STEPS steps on the card against the same step from the same
+    state on the CPU in f64, the share of int8 codes that differ, and a
+    Ctrl-C at step A8_CRASH resumed bit for bit."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (act_logistic, act_softmax,
+                                             adam8bit, cross_entropy, fit,
+                                             gen_net)
+    from tensor_ops_tpu_torch.models.trainer import make_opt_step
+    from tensor_ops_tpu_torch.utils.checkpoint import load_meta
+    from tensor_ops_tpu_torch.utils.native import NativeLoader
+
+    tX, tY, _, _ = synthetic_set(tmp)
+    n = A8_STEPS * FIT_BATCH
+    X, Y = tX[:n], tY[:n]
+    be = TorchBackend(torch.float32, DEVICE)
+    cpus = {d: TorchBackend(d, "cpu") for d in (torch.float64, torch.float32)}
+
+    def flagship(seed):
+        return gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                       [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
+                       act_softmax(), Rng(be, seed))
+
+    net = flagship(0)
+    loss = cross_entropy(FLAGSHIP[-1])
+    kw = dict(epochs=1, batch_size=FIT_BATCH, lr=FIT_LR, log_every=1,
+              verbose=False)
+    res = fit(net, loss, be, X, Y, optimizer=adam8bit(), **kw)
+    check(res.steps == A8_STEPS and all(math.isfinite(x["loss"])
+                                        for x in res.history),
+          "adam8bit fit: wrong steps or a non-finite loss")
+
+    # fit's steps again (its loader stream, its step), each also taken from
+    # the card's state on the CPU in f64 and in f32
+    opt = adam8bit()
+    step_fn = make_opt_step(net, loss, be, opt)
+    cpu_steps = {d: make_opt_step(net, loss, cpu, opt)
+                 for d, cpu in cpus.items()}
+    loader = NativeLoader(X, Y, batch=FIT_BATCH, seed=0)
+    params, state = tuple(net.params), opt.init(tuple(net.params))
+    try:
+        for k in range(1, A8_STEPS + 1):
+            xb, yb = loader.next()
+            _, new_state, new_params = step_fn(
+                FIT_LR, be.asarray(xb), be.asarray(yb), state, params)
+            cpu_out = {}
+            for d, cpu in cpus.items():
+                cpu_out[d] = cpu_steps[d](
+                    FIT_LR, cpu.asarray(xb), cpu.asarray(yb),
+                    _a8_state_on(cpu, state),
+                    tuple(cpu.asarray(p.cpu()) for p in params))
+            _, st64, p64 = cpu_out[torch.float64]
+            drift = max(float((a.double() - b).abs().max()) for a, b in
+                        zip(cpu_out[torch.float32][2], p64))
+            tol = (TOL_A8 + 2 * drift, 0.0)
+            e_par = max(max_err(a, b, tol) for a, b in zip(new_params, p64))
+            differ = total = 0
+            for leaf, leaf64 in zip(new_state[1], st64[1]):
+                for j in (0, 2):
+                    differ += int((leaf[j].cpu() != leaf64[j]).sum())
+                    total += leaf[j].numel()
+            big = max(float(p.abs().max()) for p in new_params)
+            log(f"[adam8bit] step {k}: parameters max|err| {e_par:.2e} from "
+                f"the same step in f64 (tol {tol[0]:.2e} = {TOL_A8:g} + 2 x "
+                f"the CPU f32 step's drift {drift:.2e}); int8 moment codes "
+                f"that differ: {differ} of {total} ({differ / total:.2e}); "
+                f"max|parameter| {big:.4g}")
+            params, state = new_params, new_state
+    finally:
+        loader.close()
+    check(all(torch.equal(a, b) for a, b in zip(params, res.net.params)),
+          "adam8bit: the replayed steps differ from fit's")
+    log(f"[adam8bit] flagship fit(adam8bit, nearest rounding, lr {FIT_LR}, "
+        f"B={FIT_BATCH}), {A8_STEPS} steps: loss "
+        f"{res.history[0]['loss']:.4f} -> {res.history[-1]['loss']:.4f}; "
+        f"the replay of its steps above is bit-equal to it")
+
+    # Ctrl-C at step A8_CRASH: its checkpoint, resumed to the budget,
+    # equals the straight run bit for bit
+    ck = os.path.join(tmp, "a8_intr.npz")
+
+    def boom(step):
+        if step == A8_CRASH:
+            raise KeyboardInterrupt
+        return FIT_LR
+
+    try:
+        fit(net, loss, be, X, Y, optimizer=adam8bit(), lr_schedule=boom,
+            checkpoint_path=ck, **kw)
+        check(False, "the interrupted adam8bit run did not stop")
+    except KeyboardInterrupt:
+        pass
+    check(load_meta(ck + ".state")["step"] == A8_CRASH,
+          "adam8bit: the Ctrl-C checkpoint is not at the interrupted step")
+    resumed = fit(flagship(99), loss, be, X, Y, optimizer=adam8bit(),
+                  checkpoint_path=ck, resume=True, **kw)
+    check(resumed.steps == A8_STEPS and all(
+        torch.equal(a, b) for a, b in zip(resumed.net.params,
+                                          res.net.params)),
+          "adam8bit: the Ctrl-C/resume chain differs from the straight run")
+    log(f"[adam8bit] Ctrl-C at step {A8_CRASH} of {A8_STEPS} (the "
+        f"checkpoint it leaves), resumed to the budget: bit-equal to the "
+        f"straight run")
+
+
 def phase_autoencoder(tmp: str) -> dict:
     """The autoencoder of examples/autoencoder_digits.py: 5 whole-step
     ``FusedAutoencoder.train`` steps (kernel 3, squared error, 4 layers)
@@ -3245,6 +3774,14 @@ def main() -> int:
     times["fused_rnn_step"] = rnn_times[1]
     times["fused_rnn_step.seq"] = rnn_times["seq"]
     times.update(timed("data-parallel timing", phase_dp_timing, dp))
+    # the recurrent loop's phases run after every profiled phase above: run
+    # before them, they left torch.profiler losing device events of the
+    # int8 request's profile (the same 10-20% in two runs)
+    with tempfile.TemporaryDirectory() as tmp:
+        sf = timed("recurrent fit slice", phase_seq_fit, tmp)
+        timed("production fit", phase_production_fit, tmp)
+        timed("adam8bit fit", phase_adam8bit_fit, tmp)
+    timed("recurrent fit timing", phase_seq_fit_timing, sf)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "

@@ -15,8 +15,8 @@ never ``jax``.  Its layout mirrors the JAX package's:
   float64 NumPy oracle ``NumpyBackend``
 * ``engine``      — cached graph callables (eager execution)
 * ``models``      — activations/losses, feed-forward and recurrent
-  networks and their training, the optimizers and ``fit``, the
-  autoencoder, ``FusedMLP``, ``QuantizedMLP``, ``FusedRNN``,
+  networks and their training, the optimizers (``adam8bit`` among them)
+  and the loops ``fit`` and ``fit_sequences``, the autoencoder, ``FusedMLP``, ``QuantizedMLP``, ``FusedRNN``,
   ``FusedAutoencoder``, ``Predictor``, ``SequencePredictor``
 * ``utils.native`` — the C++ runtime's threaded loader and kernels
 * ``apps``        — the serving CLI (``apps.serve``), the MNIST trainer

@@ -1,11 +1,11 @@
 """The models ported so far: activations and losses, feed-forward
 networks and their batched training (``training``), the optimizers
-(``optim``) and the production loop ``fit`` (``trainer``), recurrent
-networks (``recurrent``), the autoencoder (``autoencoder``), the
-kernel-fused ``FusedMLP``, ``FusedRNN`` and ``FusedAutoencoder``, the int8
-``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
-them.  ``fit_sequences`` and the rest of the production knobs come in later
-slices (ROADMAP.md, Queue 1)."""
+(``optim``, ``adam8bit`` among them) and the production loops ``fit`` and
+``fit_sequences`` (``trainer``), recurrent networks (``recurrent``), the
+autoencoder (``autoencoder``), the kernel-fused ``FusedMLP``, ``FusedRNN``
+and ``FusedAutoencoder``, the int8 ``QuantizedMLP``, and the ``Predictor``
+and ``SequencePredictor`` that serve them.  Mixed precision and the rest of
+the loops' options come in later slices (ROADMAP.md, Queue 1)."""
 
 from . import (autoencoder, fast, feedforward, neuralnet, optim, recurrent,
                serve, trainer, training)
@@ -28,5 +28,5 @@ from .recurrent import RecurrentNetwork, fully_connected, stateless
 from .fast import FusedAutoencoder, FusedMLP, FusedRNN, QuantizedMLP
 from .serve import Predictor, SequencePredictor
 from .autoencoder import Encoder
-from .optim import adam, adamw, momentum, sgd
-from .trainer import FitResult, fit
+from .optim import adam, adam8bit, adamw, momentum, sgd
+from .trainer import FitResult, FitSeqResult, fit, fit_sequences

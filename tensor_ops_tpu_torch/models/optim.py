@@ -7,8 +7,7 @@ tuple of parameters with its state threaded explicitly.  The state of each
 optimizer has the JAX package's structure (adam's is ``(t, m, v)`` with an
 int ``t``) and its ``hyper``, so a ``.state`` checkpoint passes between
 the packages.  The updates work on torch tensors and on the NumPy oracle's
-arrays alike.  ``adam8bit`` waits for its own parity design (ROADMAP.md,
-Queue 1 item 5).
+arrays alike.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 Params = Tuple[Any, ...]
@@ -36,6 +36,11 @@ class Optimizer(NamedTuple):
     update: Callable[[Any, Params, Grads, float], Tuple[Any, Params]]
     name: str = "optimizer"
     hyper: Optional[tuple] = None
+    # set by adam8bit(exact_reduction=True): under ZeRO stages >= 2 the JAX
+    # package then keeps the batch gradients on the replicated run's
+    # reduction order (ROADMAP.md, Queue 1 item 9); one device has one
+    # order, so here it only keys caches and checkpoints (through hyper)
+    exact_reduction: bool = False
 
     def struct_key(self) -> tuple:
         if self.hyper is not None:
@@ -109,15 +114,134 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                      hyper=(b1, b2, eps, weight_decay))
 
 
+_SR_SALT = 0xA8B17  # stream id of adam8bit's rounding noise, fixed forever
+
+
+def _sr_uniform(t: int, stream: int, like):
+    """U(0, 1) noise of ``like``'s shape for stochastic rounding, a pure
+    function of (step ``t``, leaf stream id): on NumPy arrays the JAX
+    package's own numpy stream (``default_rng((salt, t, stream))``), on
+    torch tensors a ``torch.Generator`` on the tensor's device seeded from
+    the same triple.  The torch stream is not the JAX package's (threefry):
+    it is held by its properties, not by equal bits."""
+    if isinstance(like, torch.Tensor):
+        seed = np.random.SeedSequence((_SR_SALT, int(t), int(stream)))
+        gen = torch.Generator(device=like.device)
+        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0]))
+        return torch.rand(like.shape, generator=gen, dtype=like.dtype,
+                          device=like.device)
+    return np.random.default_rng(
+        (_SR_SALT, int(t), int(stream))).uniform(size=like.shape)
+
+
+def adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+             block: int = 256, stochastic_rounding: bool = False,
+             exact_reduction: bool = False) -> Optimizer:
+    """Adam with block-wise 8-bit moments (the JAX package's ``adam8bit``,
+    the bitsandbytes recipe with symmetric per-block absmax): m and v are
+    int8 codes with one scale per ``block`` elements, a quarter of f32
+    adam's optimizer memory.  The update dequantizes, steps in full
+    precision and requantizes; parameters stay full precision.
+
+    m rounds to nearest, or with ``stochastic_rounding=True`` unbiasedly
+    (``floor(x/s + u)``, u ~ U(0, 1) from :func:`_sr_uniform`), and v then
+    rounds away from zero (it sits under the step's square root, where an
+    underestimate explodes a step).  The noise is a pure function of the
+    step and the leaf index, so crash/resume chains stay bit-exact.
+    ``exact_reduction`` changes only the order of the ZeRO gradient
+    reduction in the JAX package; on one device the update is the same,
+    and the flag keys caches and checkpoints.
+
+    State: ``(t, ((mq, ms, vq, vs), ...))``, ``mq``/``vq`` int8
+    ``(n_blocks, block)`` and ``ms``/``vs`` ``(n_blocks, 1)`` in the
+    parameter's dtype; the JAX package's layout, so ``.state`` files pass
+    between the packages."""
+
+    def _q(x, t=None, stream=0, mode="nearest"):
+        # x: (n_blocks, block) -> int8 codes + per-block scale
+        if isinstance(x, torch.Tensor):
+            s = x.abs().amax(dim=1, keepdim=True) / 127.0
+            y = x / torch.where(s > 0, s, torch.ones_like(s))
+            if mode == "sr" and t is not None:
+                y = torch.floor(y + _sr_uniform(t, stream, x))
+            elif mode == "ceil":
+                y = torch.sign(y) * torch.ceil(y.abs())
+            else:
+                y = torch.round(y)  # half to even, as rint
+            return torch.clamp(y, -127, 127).to(torch.int8), s.to(x.dtype)
+        s = np.max(np.abs(x), axis=1, keepdims=True) / 127.0
+        y = x / np.where(s > 0, s, 1.0)
+        if mode == "sr" and t is not None:
+            y = np.floor(y + _sr_uniform(t, stream, x))
+        elif mode == "ceil":
+            y = np.sign(y) * np.ceil(np.abs(y))
+        else:
+            y = np.rint(y)
+        return np.clip(y, -127, 127).astype("int8"), s.astype(x.dtype)
+
+    def _blocks(g):
+        n = g.numel() if isinstance(g, torch.Tensor) else g.size
+        nb = -(-n // block)
+        if isinstance(g, torch.Tensor):
+            flat = g.reshape(-1)
+            if nb * block != n:
+                flat = torch.cat([flat, flat.new_zeros(nb * block - n)])
+        else:
+            flat = np.ravel(g)
+            if nb * block != n:
+                flat = np.concatenate(
+                    [flat, np.zeros((nb * block - n,), flat.dtype)])
+        return flat.reshape(nb, block)
+
+    def init(params):
+        state = []
+        for p in params:
+            zq, zs = _q(_blocks(p * 0))
+            state.append((zq, zs, zq, zs))
+        return (0, tuple(state))
+
+    def update(state, params, grads, lr):
+        t, qs = state
+        t = t + 1
+        mmode = "sr" if stochastic_rounding else "nearest"
+        vmode = "ceil" if stochastic_rounding else "nearest"
+        new_qs, new_params = [], []
+        for idx, (p, g, (mq, ms, vq, vs)) in enumerate(
+                zip(params, grads, qs)):
+            gb = _blocks(g)
+            m = b1 * (mq * ms) + (1 - b1) * gb
+            v = b2 * (vq * vs) + (1 - b2) * gb * gb
+            mc = m / (1 - b1**t)
+            vc = v / (1 - b2**t)
+            n = p.numel() if isinstance(p, torch.Tensor) else p.size
+            step = (lr * mc / (vc**0.5 + eps)).reshape(-1)[:n]
+            new_params.append(p - step.reshape(p.shape))
+            new_qs.append(_q(m, t=t, stream=2 * idx, mode=mmode)
+                          + _q(v, t=t, stream=2 * idx + 1, mode=vmode))
+        return (t, tuple(new_qs)), tuple(new_params)
+
+    # the JAX package's hyper: its historical 4-tuple by default, a flag
+    # appended for stochastic rounding and a marker for exact_reduction
+    hyper = ((b1, b2, eps, block, True) if stochastic_rounding
+             else (b1, b2, eps, block))
+    if exact_reduction:
+        hyper = hyper + ("exact",)
+    return Optimizer(init, update, "adam8bit", hyper=hyper,
+                     exact_reduction=exact_reduction)
+
+
 def moment_footprint(opt: Optional[Optimizer], dtype_bytes: int) -> float:
     """Bytes of optimizer state PER PARAMETER ELEMENT: 0 for sgd, one
-    full-precision buffer for momentum, two for adam and adamw.  Unknown
-    stateful optimizers default to adam's footprint.  ``adam8bit``'s
-    branch comes with ``adam8bit`` (ROADMAP.md, Queue 1 item 5)."""
+    full-precision buffer for momentum, two for adam and adamw, two 1-byte
+    code buffers plus their per-block scales for adam8bit.  Unknown
+    stateful optimizers default to adam's footprint."""
     if opt is None or opt.name == "sgd":
         return 0.0
     if opt.name == "momentum":
         return float(dtype_bytes)
+    if opt.name == "adam8bit":
+        block = opt.hyper[3] if opt.hyper else 256
+        return 2.0 * (1.0 + dtype_bytes / block)
     return 2.0 * dtype_bytes
 
 

@@ -19,12 +19,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence, Tuple
 
-import torch
-
 from .. import engine
 from ..backend.base import Backend, normal
 from ..backend.rng import Rng
-from ..ops import ir
 from ..ops import prim as P
 from ..ops.ir import TOp, First, Shuffle
 from ..ops.loops import MappedOp, ScanOp
@@ -202,8 +199,8 @@ class RecurrentNetwork:
         """One SGD step with separate state/param learning rates
         (``trainNetwork'``, ``Recurrent.hs:326-354``)."""
         _, gS, gP = self.seq_grad(loss, be, xs, targets)
-        new_s = tuple(s - rate_state * g for s, g in zip(self.states, gS))
-        new_p = tuple(p - rate_param * g for p, g in zip(self.params, gP))
+        new_s, new_p = dual_rate_sgd(rate_state, rate_param, self.states,
+                                     self.params, gS, gP)
         return RecurrentNetwork(self.op, new_s, new_p, self.arch)
 
     def train_batch(
@@ -218,35 +215,24 @@ class RecurrentNetwork:
         """Batched-sequence SGD (rebuild extra — the reference trains one
         sequence at a time): ``torch.func.vmap`` of the scan-BPTT gradient
         over a leading batch axis of ``(B, n, *in_shape)`` inputs, the
-        gradients meaned over the batch."""
+        gradients meaned over the batch (``training.make_seq_mean_grads``,
+        which ``fit_sequences`` steps on too)."""
+        from .training import make_seq_mean_grads
+
         n = int(be.shape_of(xs_batch)[1])
-        g = self._seq_graph(loss, n)
         k = len(self.states)
-        key = ("seq_batch", loss.struct_key(), n) + be.cache_key()
-        fn = self.op._compiled.get(key)
-        if fn is None:
+        _, grads = make_seq_mean_grads(self, loss, be, n)(
+            xs_batch, targets_batch, self.states + self.params)
+        new_s, new_p = dual_rate_sgd(rate_state, rate_param, self.states,
+                                     self.params, grads[:k], grads[k:])
+        return RecurrentNetwork(self.op, new_s, new_p, self.arch)
 
-            def one(xs, tgt, *sp):
-                grads = ir.grad(g, be, (xs,) + sp + (tgt,))
-                return grads[1:-1]  # state+param grads
 
-            vmapped = torch.func.vmap(
-                one, in_dims=(0, 0) + (None,) * (k + len(self.params)))
-
-            def fn(rs, rp, xb, tb, states, params):
-                grads = vmapped(xb, tb, *states, *params)
-                gS = tuple(gr.mean(dim=0) for gr in grads[:k])
-                gP = tuple(gr.mean(dim=0) for gr in grads[k:])
-                return (
-                    tuple(s - rs * gg for s, gg in zip(states, gS)),
-                    tuple(p - rp * gg for p, gg in zip(params, gP)),
-                )
-
-            self.op._compiled[key] = fn
-        new_s, new_p = fn(rate_state, rate_param, xs_batch, targets_batch,
-                          self.states, self.params)
-        return RecurrentNetwork(self.op, tuple(new_s), tuple(new_p),
-                                self.arch)
+def dual_rate_sgd(rate_state, rate_param, states, params, gS, gP):
+    """``trainNetwork'``'s update (``Recurrent.hs:326-354``): the states
+    step at ``rate_state``, the parameters at ``rate_param``."""
+    return (tuple(s - rate_state * g for s, g in zip(states, gS)),
+            tuple(p - rate_param * g for p, g in zip(params, gP)))
 
 
 def seq_scan_op(op: TOp, n: int, n_state: int, remat_every=None,

@@ -79,6 +79,53 @@ def make_mean_grads(net: Network, loss: TOp, be: Backend) -> Callable:
     return mean
 
 
+def make_seq_mean_grads(rnet, loss: TOp, be: Backend, n: int,
+                        remat_every=None, offload_tape: bool = False
+                        ) -> Callable:
+    """``fn(xb, tb, leaves) -> (mean loss, mean grads)`` over a batch of
+    ``(B, n, *in)`` sequences, ``leaves`` the states then the params and
+    the grads in that order: the scan-BPTT sequence graph's value and
+    gradient (``rnet._seq_graph``), vmapped over the sequences with the
+    leaves broadcast, and its batch mean; on the NumPy oracle a loop over
+    the sequences that sums their gradients (the JAX package's numpy
+    branch).  Cached on the step op.  ``RecurrentNetwork.train_batch``
+    and ``fit_sequences`` step on it."""
+    key = ("seq_mean_grads", loss.struct_key(), n, remat_every,
+           offload_tape) + be.cache_key()
+
+    def build():
+        g = rnet._seq_graph(loss, n, remat_every=remat_every,
+                            offload_tape=offload_tape)
+        if be.name == "numpy":
+            def loop(xb, tb, leaves):
+                sums = [np.zeros_like(x) for x in leaves]
+                vals = []
+                for x, t in zip(xb, tb):
+                    v, grads = ir.value_and_grad(g, be,
+                                                 (x,) + tuple(leaves) + (t,))
+                    vals.append(float(np.asarray(v)))
+                    for acc, gg in zip(sums, grads[1:-1]):
+                        acc += gg
+                return (float(np.mean(vals)),
+                        tuple(s / len(xb) for s in sums))
+
+            return loop
+
+        def one(xs, tgt, *sp):
+            v, grads = ir.value_and_grad(g, be, (xs,) + sp + (tgt,))
+            return v, grads[1:-1]
+
+        vmapped = _vmap(one, 2, len(rnet.states) + len(rnet.params))
+
+        def mean(xb, tb, leaves):
+            vals, grads = vmapped(xb, tb, *leaves)
+            return vals.mean(), tuple(gr.mean(dim=0) for gr in grads)
+
+        return mean
+
+    return _cache(rnet, key, build)
+
+
 def batched_run(net: Network, be: Backend) -> Callable:
     """Batched inference ``fn(xb, *params) -> yb``."""
     key = ("brun",) + be.cache_key()

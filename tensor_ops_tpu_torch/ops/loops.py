@@ -14,17 +14,25 @@ as ``jax.lax.scan``.
 Every loop here is written so that it runs under ``torch.func.vmap``
 (``SequencePredictor`` and ``RecurrentNetwork.train_batch`` map it over a
 batch of sequences): no in-place updates, no ``.item()``, no numpy and no
-Python branching on tensor values.
+Python branching on tensor values.  On the NumPy oracle (``NumpyBackend``)
+the same loops stack numpy arrays, and ``MappedOp`` loops over its rows,
+as the JAX package's numpy branches do.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from .ir import TOp
 from .shapes import ShapeError, fmt_stack
+
+
+def _stack(be, xs):
+    return np.stack(xs) if be.name == "numpy" else torch.stack(xs)
 
 
 def _sqrt_divisor(n: int) -> int:
@@ -44,15 +52,19 @@ class _HostTape:
     CUDA tensor).  Each carry is copied device-to-host with
     ``non_blocking=True`` on a side stream as it is taped; the event recorded
     after the last copy is what the backward's stream waits on before it
-    copies a slice back (:meth:`slice`)."""
+    copies a slice back (:meth:`slice`).  A carry is held until the event
+    after its copy has passed, so its memory is not reused before the copy
+    has read it; holding it (not ``record_stream``, which has no batching
+    rule) works under ``torch.func.vmap`` too."""
 
-    __slots__ = ("device", "stream", "slices", "event")
+    __slots__ = ("device", "stream", "slices", "event", "in_flight")
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
         self.slices = []
         self.event = None
+        self.in_flight = collections.deque()  # (copied event, carry)
 
     def put(self, carry: Tuple[torch.Tensor, ...]) -> None:
         current = torch.cuda.current_stream(self.device)
@@ -61,9 +73,11 @@ class _HostTape:
             # a non-blocking copy to the CPU lands in pinned memory
             self.slices.append(tuple(c.to("cpu", non_blocking=True)
                                      for c in carry))
-        for c in carry:
-            # the carry's memory is not reused before the copy has read it
-            c.record_stream(self.stream)
+            copied = torch.cuda.Event()
+            copied.record(self.stream)
+        self.in_flight.append((copied, carry))
+        while self.in_flight and self.in_flight[0][0].query():
+            self.in_flight.popleft()
 
     def seal(self) -> None:
         self.event = torch.cuda.Event()
@@ -103,8 +117,8 @@ class ScanOp(TOp):
     on the copies' event.  The scan's residual device memory drops to
     O(state).  Gradients are bit-identical: placement changes nothing
     numerically.  On CPU tensors it changes nothing.  Composes with
-    ``remat_every`` (only the block-entry carries travel).  The offloaded
-    tape is for a scan run outside ``torch.func.vmap``."""
+    ``remat_every`` (only the block-entry carries travel), and runs under
+    ``torch.func.vmap`` (``fit_sequences(offload_activations=True)``)."""
 
     __slots__ = ("step", "n", "n_state", "remat_every", "offload_tape")
 
@@ -176,24 +190,23 @@ class ScanOp(TOp):
             outs = self.step.apply(be, (xarr[t],) + s + params)
             ys.append(outs[0])
             s = tuple(outs[1:])
-        out = (torch.stack(ys),) + s
+        out = (_stack(be, ys),) + s
         if not with_tape:
             return out, None
         if host is not None:
             host.seal()
             return out, (xarr, host, params)
-        stacked = tuple(torch.stack([si[j] for si in s_ins])
-                        for j in range(self.n_state))
-        return out, (xarr, stacked, params)
+        # the carries as the steps wrote them (not stacked): the backward's
+        # products then read the same layout whether the tape stayed on the
+        # card or went through the host, so offload_tape is bit-identical
+        # under torch.func.vmap too
+        return out, (xarr, tuple(s_ins), params)
 
     def transpose(self, be, tape, cts):
         xarr, s_ins, params = tape
         y_cts, s_ct = cts[0], tuple(cts[1 : 1 + self.n_state])
-        if isinstance(s_ins, _HostTape):
-            carry_in = s_ins.slice
-        else:
-            def carry_in(j):
-                return tuple(si[j] for si in s_ins)
+        carry_in = (s_ins.slice if isinstance(s_ins, _HostTape)
+                    else s_ins.__getitem__)
 
         def backstep(s_ct, t, s_in):
             """One reverse step: recompute the forward from the saved
@@ -203,7 +216,8 @@ class ScanOp(TOp):
             return (tuple(in_cts[1 : 1 + self.n_state]), in_cts[0],
                     tuple(in_cts[1 + self.n_state :]))
 
-        p_acc = tuple(torch.zeros_like(p) for p in params)
+        p_acc = tuple(np.zeros_like(p) if be.name == "numpy"
+                      else torch.zeros_like(p) for p in params)
         dxs = [None] * self.n
         k = self.remat_every or 1
         # blocks in reverse; inside a block, re-run its forward from the
@@ -219,7 +233,7 @@ class ScanOp(TOp):
             for t in range(t0 + k - 1, t0 - 1, -1):
                 s_ct, dxs[t], dp = backstep(s_ct, t, block[t - t0])
                 p_acc = tuple(a + d for a, d in zip(p_acc, dp))
-        return (torch.stack(dxs),) + s_ct + p_acc
+        return (_stack(be, dxs),) + s_ct + p_acc
 
 
 class MappedOp(TOp):
@@ -246,10 +260,25 @@ class MappedOp(TOp):
         return (self.op.struct_key(), self.n)
 
     def apply_tape(self, be, xs, with_tape=True):
+        if be.name == "numpy":
+            rows, tapes = [], []
+            for t in range(self.n):
+                y, tp = self.op.apply_tape(be, tuple(x[t] for x in xs),
+                                           with_tape)
+                rows.append(y)
+                tapes.append(tp)
+            ys = tuple(np.stack([r[j] for r in rows])
+                       for j in range(len(self.op.out_stack)))
+            return ys, (tapes if with_tape else None)
         ys = torch.func.vmap(lambda *row: self.op.apply(be, row))(*xs)
         return tuple(ys), (tuple(xs) if with_tape else None)
 
     def transpose(self, be, tape, cts):
+        if be.name == "numpy":
+            outs = [self.op.transpose(be, tape[t], tuple(c[t] for c in cts))
+                    for t in range(self.n)]
+            return tuple(np.stack([o[j] for o in outs])
+                         for j in range(len(self.op.in_stack)))
         k = len(self.op.in_stack)
 
         def row_vjp(*row):

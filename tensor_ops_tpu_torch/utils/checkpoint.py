@@ -9,9 +9,9 @@ widening is exact).
 
 This module carries the feed-forward, recurrent, ``FusedMLP``,
 ``QuantizedMLP`` and ``FusedAutoencoder`` formats, and the train-state
-format that ``fit`` writes beside its servable checkpoint (parameters,
-optimizer state and the global step: a ``.state`` file of either package
-resumes in the other), with asynchronous saves for the training loop; int8
+format that ``fit`` and ``fit_sequences`` write beside their servable
+checkpoints (parameters, optimizer state, the Polyak average and the global
+step: a ``.state`` file of either package resumes in the other), with asynchronous saves for the training loop; int8
 codes stay int8 in the file.  Pipeline checkpoints come with their models
 (ROADMAP.md, Queue 1).  Loaders place the model on the card unless the
 caller names another device.
@@ -231,12 +231,18 @@ def _tree_unflatten(template, leaves_iter):
 
 
 def _train_state_payload(params, opt_state, step: int, opt_key,
-                         extra_meta: Optional[dict]) -> Tuple[dict, dict]:
+                         extra_meta: Optional[dict],
+                         ema=None) -> Tuple[dict, dict]:
     arrays = {f"p_{i}": p for i, p in enumerate(params)}
     leaves = _tree_leaves(opt_state)
     arrays.update({f"o_{i}": l for i, l in enumerate(leaves)})
     meta = {"kind": "train_state", "step": int(step),
             "n_params": len(params), "n_opt_leaves": len(leaves)}
+    if ema is not None:
+        # the Polyak average lives in the same file as the parameters it
+        # averages, so one atomic write keeps the pair consistent
+        arrays.update({f"e_{i}": l for i, l in enumerate(ema)})
+        meta["n_ema_leaves"] = len(ema)
     if opt_key is not None:
         # structural identity of the update rule (Optimizer.struct_key):
         # resuming under other hyperparameters would silently reinterpret
@@ -247,32 +253,38 @@ def _train_state_payload(params, opt_state, step: int, opt_key,
 
 
 def save_train_state(path: str, params, opt_state, step: int,
-                     extra_meta: Optional[dict] = None, opt_key=None) -> None:
+                     extra_meta: Optional[dict] = None, opt_key=None,
+                     ema=None) -> None:
     """Full training-state checkpoint: parameters AND optimizer state
     AND the global step, what exact resume needs (``fit(resume=True)``).
     ``opt_key`` (``opt.struct_key()``) is stored so that resume can refuse
-    a changed optimizer or hyperparameters."""
+    a changed optimizer or hyperparameters; ``ema`` (leaves matching
+    ``params``) stores the Polyak average in the same atomic write."""
     save_arrays(path, *_train_state_payload(params, opt_state, step,
-                                            opt_key, extra_meta))
+                                            opt_key, extra_meta, ema))
 
 
 def save_train_state_async(path: str, params, opt_state, step: int,
-                           extra_meta: Optional[dict] = None, opt_key=None):
+                           extra_meta: Optional[dict] = None, opt_key=None,
+                           ema=None):
     """``save_train_state`` with the file write off the training thread
     (tensors are copied to the host synchronously).  Returns a Future."""
     return save_arrays_async(path, *_train_state_payload(
-        params, opt_state, step, opt_key, extra_meta))
+        params, opt_state, step, opt_key, extra_meta, ema))
 
 
 def load_train_state(path: str, opt_state_template, opt_key=None,
-                     expect_meta: Optional[dict] = None):
-    """``(params, opt_state, step)``: the parameters as host arrays, the
-    optimizer leaves restored into the structure of ``opt_state_template``
-    (``opt.init(params)``), each array leaf with the template leaf's dtype
-    and device and each scalar of its Python type.  A stored
-    ``opt_key`` that differs from the caller's raises, and so does a key
-    of ``expect_meta`` present in both the file and the expectation with
-    another value (``fit``'s ``layout``)."""
+                     expect_meta: Optional[dict] = None,
+                     with_ema: bool = False):
+    """``(params, opt_state, step)``, or with ``with_ema=True``
+    ``(params, opt_state, step, ema)`` where ``ema`` is None when the
+    saving run kept no Polyak average: the parameters and EMA leaves as
+    host arrays, the optimizer leaves restored into the structure of
+    ``opt_state_template`` (``opt.init(params)``), each array leaf with the
+    template leaf's dtype and device and each scalar of its Python type.
+    A stored ``opt_key`` that differs from the caller's raises, and so
+    does a key of ``expect_meta`` present in both the file and the
+    expectation with another value (``fit``'s ``layout``)."""
     arrays, meta = load_arrays(path)
     if meta.get("kind") != "train_state":
         raise ValueError(f"{path} is not a train_state checkpoint")
@@ -300,7 +312,12 @@ def load_train_state(path: str, opt_state_template, opt_key=None,
             f"current optimizer expects {n_expected} — resume "
             f"with the same optimizer/hyperparameters")
     opt_state = _tree_unflatten(opt_state_template, iter(leaves))
-    return params, opt_state, int(meta["step"])
+    if not with_ema:
+        return params, opt_state, int(meta["step"])
+    n_e = meta.get("n_ema_leaves")
+    ema = (tuple(arrays[f"e_{i}"] for i in range(n_e))
+           if n_e is not None else None)
+    return params, opt_state, int(meta["step"]), ema
 
 
 def save_autoencoder(path: str, model, extra_meta: Optional[dict] = None

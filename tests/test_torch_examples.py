@@ -1,0 +1,68 @@
+"""The port's example scripts run end to end on the CPU, each as a
+subprocess (as ``tests/test_examples.py`` runs the JAX package's), so
+that a change of the API breaks a test, not a user.  Each example is
+``python -m tensor_ops_tpu_torch.examples.<name> --device cpu``; on the
+card the default device (cuda) runs them."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(module, *args, timeout=300):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-m", f"tensor_ops_tpu_torch.examples.{module}",
+         "--device", "cpu", *args],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    assert r.returncode == 0, (f"{module} failed:\n{r.stdout[-3000:]}\n"
+                               f"{r.stderr[-3000:]}")
+    return r.stdout
+
+
+def test_recurrent_sine_runs():
+    """The Elman demo: the sequence loss falls over 300 BPTT steps, and the
+    trained net rolls forward step by step."""
+    out = _run("recurrent_sine")
+    line = next(x for x in out.splitlines() if x.startswith("loss "))
+    first, last = line[len("loss "):].split(" -> ")
+    assert float(last) < float(first)
+    assert "first 10 predictions:" in out and "first 10 targets:" in out
+
+
+def test_production_fit_runs(tmp_path):
+    """The training-to-serving journey: fit with adamw, a cosine schedule,
+    clipping and EMA; a crash and a resume to the full budget; the EMA net
+    served in int8 above 90% accuracy; the artifacts in the workdir."""
+    out = _run("production_fit", "--workdir", str(tmp_path))
+    assert "== phase 2: resume to the full budget ==" in out
+    assert "resumed from" in out
+    acc = float(out.split("served int8 accuracy ")[1].split()[0])
+    assert acc > 0.9
+    for name in ("model.npz", "model.npz.state", "metrics.jsonl"):
+        assert os.path.exists(tmp_path / name)
+    with open(tmp_path / "metrics.jsonl") as f:
+        steps = [json.loads(line)["step"] for line in f]
+    assert steps[-1] == 8 * (2048 // 64)
+
+
+@pytest.mark.parametrize("module", ["recurrent_sine", "production_fit"])
+def test_examples_refuse_a_missing_card(module):
+    """Without ``--device cpu`` an example runs on cuda; with no card it
+    fails instead of falling back to the CPU."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: this checks the refusal without one")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-m", f"tensor_ops_tpu_torch.examples.{module}"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0

@@ -1,8 +1,9 @@
 """The port never imports JAX: every module imports, and the serving
 (f32, int8 and recurrent), training, recurrent-sequence (``FusedRNN`` on
-``fused_rnn_seq``), data-parallel and ``fit`` paths (with the NumPy
-oracle, the dots app and the autoencoder) run end to end, in a fresh
-interpreter where ``import jax`` fails."""
+``fused_rnn_seq``), data-parallel, ``fit`` (with the NumPy oracle, the dots
+app and the autoencoder) and ``fit_sequences`` paths (with ``adam8bit``,
+EMA, accumulation and both examples' entry points) run end to end, in a
+fresh interpreter where ``import jax`` fails."""
 
 import os
 import re
@@ -154,6 +155,30 @@ with tempfile.TemporaryDirectory() as d:
     fae = FusedAutoencoder.from_encoder(enc2)
     loss_ae, fae = fae.train(0.1, torch.as_tensor(X[:4], dtype=torch.float64))
     assert loss_ae > 0 and fae.n_enc == 1
+
+    # the recurrent loop and the knobs: fit_sequences (adam8bit with
+    # stochastic rounding, accumulation, EMA, a crash and a resume), fit
+    # with EMA and accumulation, and both examples' entry points
+    from tensor_ops_tpu_torch.models import (FitSeqResult, adam8bit,
+                                             fit_sequences)
+    from tensor_ops_tpu_torch.examples import production_fit, recurrent_sine
+    XS = np.random.default_rng(1).uniform(size=(16, 4, 3))
+    TS = np.random.default_rng(2).uniform(size=(16, 4, 2))
+    rk2 = os.path.join(d, "rs.npz")
+    kw = dict(batch_size=8, optimizer=adam8bit(stochastic_rounding=True),
+              accum_steps=2, ema_decay=0.9, checkpoint_path=rk2,
+              checkpoint_every=2, verbose=False)
+    fit_sequences(rnet, squared_error(2), be32, XS, TS, epochs=1, **kw)
+    sres = fit_sequences(rnet, squared_error(2), be32, XS, TS, epochs=2,
+                         resume=True, **kw)
+    assert isinstance(sres, FitSeqResult) and sres.steps == 4
+    assert sres.history[0]["step"] == 3 and sres.ema_net is not None
+    eres = fit(net, cross_entropy(4), be, X, Y, epochs=1, batch_size=16,
+               accum_steps=2, ema_decay=0.5, verbose=False)
+    assert eres.ema_net is not None
+    assert production_fit.main(["--device", "cpu", "--workdir", d])[
+        "acc"] > 0.9
+    assert callable(recurrent_sine.main)  # runs in test_torch_examples
 assert sys.modules["jax"] is None
 assert not any(m.startswith("jax.") or m == "jaxlib" for m in sys.modules)
 print("NAMES", len(names))

@@ -426,8 +426,8 @@ def test_remat_tape_is_smaller_and_divisor_checked(nb, tb):
     args = (tb.asarray(r(9, n, 3)),) + tnet.states + tnet.params
     _, tape_p = ScanOp(tnet.op, n, 1).apply_tape(tb, args)
     _, tape_c = ScanOp(tnet.op, n, 1, remat_every=k).apply_tape(tb, args)
-    assert tape_p[1][0].shape[0] == n
-    assert tape_c[1][0].shape[0] == n // k
+    assert len(tape_p[1]) == n
+    assert len(tape_c[1]) == n // k
     with pytest.raises(ShapeError, match="divisor"):
         ScanOp(tnet.op, 10, 1, remat_every=3)
     assert _sqrt_divisor(4096) == 64

@@ -281,10 +281,8 @@ def test_prefetch_is_identical_to_no_prefetch():
 
 
 REFUSED = [
-    (dict(accum_steps=2), "item 5"),
     (dict(mixed_precision=True), "item 5"),
     (dict(mixed_precision="bf16"), "item 5"),
-    (dict(ema_decay=0.9), "item 5"),
     (dict(chain_steps=4), "item 6"),
     (dict(chain_shuffle="device"), "item 6"),
     (dict(profile_dir="prof"), "item 8"),
