@@ -185,7 +185,27 @@ without printing a result line:
    to the straight run.
 19. Recurrent fit timing: one ``fit_sequences`` step's wall time, kernels,
    device busy time and idle share (its profile holds some 10,000 kernel
-   events).
+   events).  Phases 12, 16, 18 and 19 run one step at a time
+   (``chain_steps=1``); phases 20-22 run in a second interpreter.
+20. Fit chained: the fit slice's configuration (with ``ema_decay``) with
+   ``chain_steps=1`` and ``"auto"`` in turns: parameters, EMA and history
+   bit-equal, samples/s over steps 11-120 of each, one capture a chained
+   run (its host time) and one graph replay a step, the peak device
+   memory; one unchained step and one chained window of 10 steps profiled
+   (per step: host-issued graph launches, kernel launches and copies, the
+   card's kernels, busy time and idle share); ``chain_shuffle="device"``
+   and ``"device_fixed"``: each epoch visits every row once (the row tables
+   the graph read on the card), window caps 4 and 10 and a crash/resume
+   chain bit-equal; ``adam8bit`` with stochastic rounding chained against
+   unchained, bit-equal.
+21. fit_sequences chained: phase 16's run with ``chain_steps=1`` and
+   ``"auto"`` in turns, bit-equal, sequences/s; one chained window of 4
+   steps profiled.
+22. Mixed precision: the router's f32 and bf16 step times and decision at
+   the flagship (B = 100) and at 784 -> 2048 -> 2048 -> 10 (B = 128); a
+   bf16 flagship run learns on f32 masters; one bf16 sgd step's gradients
+   against the full-precision step in CPU f64 (``TOL_BF16_GRAD``); the bf16
+   step's product kernels by name (bf16 tensor-core GEMMs).
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -448,6 +468,26 @@ TOL_A8 = 1e-5
 AE_DIMS = (784, 128, 32, 128, 784)
 AE_RATE, AE_ROWS, AE_STEPS = 0.05, 100, 5
 AE_FIT_LR = 0.005
+# Chained steps (phases 20-22, in a second interpreter): the fit slice's
+# configuration with the EMA on (CHAIN_EMA) and a checkpoint every
+# FIT_CHECKPOINT_EVERY steps, run unchained (chain_steps=1) and chained
+# ("auto") in the turns CHAIN_TURNS; the device shuffles at window caps of
+# 4 and 10; a chained window of CHAIN_WINDOW steps profiled.  The recurrent
+# fit slice's configuration likewise, a window of SEQ_CHAIN_WINDOW steps
+# profiled.
+CHAIN_EMA = 0.99
+CHAIN_TURNS = (1, "auto", "auto", 1)
+CHAIN_WINDOW, SEQ_CHAIN_WINDOW = 10, 4
+# Mixed precision: the router at the flagship (B = 100) and at a wider MLP
+# whose per-sample f32 weight gradients fit on the card (784 -> 2048 ->
+# 2048 -> 10 at B = 128: 2.1 GB for the 2048 x 2048 layer); a bf16 flagship
+# run for FIT_EPOCHS epochs; one bf16 sgd step's gradients against the
+# gradients of the full-precision step in CPU f64.  Each bf16 operand and product is
+# rounded to 8 significant bits (2**-8 relative), and the step's values
+# pass through some 20 roundings between input and gradient; the bound is
+# 2**-4 of the leaf's largest gradient.
+MP_WIDE, MP_WIDE_BATCH = (784, 2048, 2048, 10), 128
+TOL_BF16_GRAD = 2.0 ** -4
 FLAGSHIP_PARAM_SHAPES = tuple(
     s for k in range(3) for s in ((FLAGSHIP[k + 1], FLAGSHIP[k]),
                                   (FLAGSHIP[k + 1],)))
@@ -1681,11 +1721,20 @@ def w8a8_request_turns(pred, x) -> None:
             + f"); kernels {kernels[inst]}")
 
 
+# the runtime calls by which the host launches work on the card
+HOST_LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cudaLaunchCooperativeKernel", "cuLaunchKernel",
+                   "cuLaunchKernelEx", "cudaMemcpyAsync", "cudaMemsetAsync",
+                   "cudaGraphLaunch")
+
+
 def _profile_steps(step, steps: int = 10) -> dict:
     """The device work of one call of ``step`` (a training step, a request
     or a kernel): CUDA kernels launched, copies and memsets, and device busy
     time per call (``torch.profiler`` over ``steps`` calls, kernel and copy
-    rows only), and time and launches per call by kernel name."""
+    rows only), and time and launches per call by kernel name; and the
+    launches the host issued per call (the runtime calls the profiler
+    records: graph launches apart from kernel launches and copies)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1699,9 +1748,15 @@ def _profile_steps(step, steps: int = 10) -> dict:
             for _ in range(steps):
                 step()
             torch.cuda.synchronize()
-        device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        events = prof.events()
+        device = [e for e in events if e.device_type == DeviceType.CUDA]
         if device:
             break
+    api = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in HOST_LAUNCH_API:
+            api[e.name] = api.get(e.name, 0) + 1
+    graphs = api.get("cudaGraphLaunch", 0)
     by_kernel, calls, launches, copies, busy = {}, {}, 0, 0, 0.0
     for e in device:
         us = e.time_range.elapsed_us()
@@ -1717,6 +1772,9 @@ def _profile_steps(step, steps: int = 10) -> dict:
         calls[name] = calls.get(name, 0) + 1
     return {"launches": launches / steps, "copies": copies / steps,
             "busy_us": busy / steps,
+            "graph_launches": graphs / steps,
+            "other_launches": (sum(api.values()) - graphs) / steps,
+            "names": sorted({e.name for e in device}),
             "calls": {n: c / steps for n, c in calls.items()},
             "by_kernel": dict(sorted(by_kernel.items(),
                                      key=lambda kv: -kv[1]))}
@@ -2114,8 +2172,10 @@ def phase_fit(tmp: str) -> dict:
     probe.close()
     check(native, "NativeLoader fell back to NumPy: the C++ loader did not "
           "build (g++ is on the card machine, since nvcc needs it)")
+    # one step at a time, as before chaining: phase 20 times the chained
+    # loop beside it
     kw = dict(epochs=FIT_EPOCHS, batch_size=FIT_BATCH, lr=FIT_LR,
-              log_every=FIT_LOG_EVERY, verbose=False)
+              log_every=FIT_LOG_EVERY, verbose=False, chain_steps=1)
     steps = FIT_EPOCHS * (-(-len(tX) // FIT_BATCH))
 
     # prefetch=2 (the default) without val, the first fit on this network
@@ -2276,7 +2336,8 @@ def _seq_fit_on_cpu(src: str, dst: str) -> None:
         t0 = time.perf_counter()
         res = fit_sequences(net, squared_error(RNN_OUT), cpu, z["XS"],
                             z["TS"], epochs=1, batch_size=SEQ_FIT_BATCH,
-                            log_every=1, verbose=False, **SEQ_FIT_RATES)
+                            log_every=1, verbose=False, chain_steps=1,
+                            **SEQ_FIT_RATES)
         out[f"{tag}_s"] = time.perf_counter() - t0
         out[f"{tag}_loss"] = np.array([x["loss"] for x in res.history])
         out[f"{tag}_leaves"] = np.concatenate(
@@ -2325,8 +2386,10 @@ def phase_seq_fit(tmp: str) -> dict:
     B = SEQ_FIT_BATCH
     spe = SEQ_FIT_SEQS // B
     steps = SEQ_FIT_EPOCHS * spe
+    # one step at a time, as before chaining: phase 21 times the chained
+    # loop beside it
     kw = dict(batch_size=B, log_every=SEQ_FIT_LOG_EVERY, verbose=False,
-              **SEQ_FIT_RATES)
+              chain_steps=1, **SEQ_FIT_RATES)
     shape = (f"Elman {RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT}, n={RNN_N}, B={B}, "
              f"{SEQ_FIT_SEQS} sequences")
 
@@ -2595,7 +2658,7 @@ def _a8_state_on(cpu, state):
     """adam8bit's state ``(t, ((mq, ms, vq, vs), ...))`` on the CPU backend
     ``cpu``: the int8 codes as they are, the scales in its dtype."""
     t, qs = state
-    return t, tuple(tuple(x.cpu() if x.dtype == torch.int8
+    return t.cpu(), tuple(tuple(x.cpu() if x.dtype == torch.int8
                           else cpu.asarray(x.cpu()) for x in leaf)
                     for leaf in qs)
 
@@ -2628,7 +2691,7 @@ def phase_adam8bit_fit(tmp: str) -> None:
     net = flagship(0)
     loss = cross_entropy(FLAGSHIP[-1])
     kw = dict(epochs=1, batch_size=FIT_BATCH, lr=FIT_LR, log_every=1,
-              verbose=False)
+              verbose=False, chain_steps=1)
     res = fit(net, loss, be, X, Y, optimizer=adam8bit(), **kw)
     check(res.steps == A8_STEPS and all(math.isfinite(x["loss"])
                                         for x in res.history),
@@ -3737,6 +3800,404 @@ def rnn_seq_bound(n: int, B: int):
                        + B * O), 2 * n * B * (I + O) * O, "f32")
 
 
+# ---------------------------------------------------------------------------
+# phases 20-22: chained steps and mixed precision (a second interpreter)
+# ---------------------------------------------------------------------------
+
+def _same_fit(a, b, what: str) -> None:
+    check(all(torch.equal(x, y) for x, y in zip(a.net.params, b.net.params)),
+          f"{what}: parameters differ")
+    if a.ema_net is not None:
+        check(all(torch.equal(x, y) for x, y in
+                  zip(a.ema_net.params, b.ema_net.params)),
+              f"{what}: EMA differs")
+    check([{k: v for k, v in r.items() if k != "t"} for r in a.history] ==
+          [{k: v for k, v in r.items() if k != "t"} for r in b.history],
+          f"{what}: history differs")
+
+
+@contextlib.contextmanager
+def _recorded_rows(out: list):
+    """Record the row table each chained window's graph read on the card."""
+    from tensor_ops_tpu_torch.models import chain as C
+
+    run = C.StepChain.run
+
+    def recording(self, scalars, rows, leaves):
+        res = run(self, scalars, rows, leaves)
+        out.append(self.idx[:scalars.shape[0]].clone())
+        return res
+
+    C.StepChain.run = recording
+    try:
+        yield
+    finally:
+        C.StepChain.run = run
+
+
+def phase_fit_chained(tmp: str) -> None:
+    """Phase 20: the fit slice chained.  ``chain_steps=1`` and ``"auto"``
+    in turns (bit-equal params, EMA and history; samples/s each); one
+    chained window's profile beside one unchained step's; capture time and
+    peak memory; the device shuffles (each row once an epoch, from the rows
+    the graph read; window caps 4 and 10 bit-equal; crash/resume);
+    adam8bit with stochastic rounding chained against unchained."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (act_logistic, act_softmax, adam,
+                                             adam8bit, cross_entropy, fit,
+                                             gen_net)
+    from tensor_ops_tpu_torch.models import chain as C
+    from tensor_ops_tpu_torch.models.trainer import (_ChainedStep,
+                                                     make_opt_step)
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.utils.native import NativeLoader
+
+    tX, tY, vX, vL = synthetic_set(tmp)
+    be = TorchBackend(torch.float32, DEVICE)
+
+    def flagship(seed=0):
+        return gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                       [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
+                       act_softmax(), Rng(be, seed))
+
+    net, loss = flagship(), cross_entropy(FLAGSHIP[-1])
+    steps = FIT_EPOCHS * (len(tX) // FIT_BATCH)
+    kw = dict(epochs=FIT_EPOCHS, batch_size=FIT_BATCH, lr=FIT_LR,
+              log_every=FIT_LOG_EVERY, verbose=False, optimizer=adam(),
+              ema_decay=CHAIN_EMA, val=(vX, vL),
+              checkpoint_every=FIT_CHECKPOINT_EVERY)
+    runs, peaks, rates = {}, {}, {}
+    K.reset_launch_counts()
+    C.reset_chain_counts()
+    for i, mode in enumerate(CHAIN_TURNS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = fit(net, loss, be, tX, tY, chain_steps=mode,
+                  checkpoint_path=os.path.join(tmp, f"chain{i}.npz"), **kw)
+        torch.cuda.synchronize()
+        peaks.setdefault(mode, []).append(torch.cuda.max_memory_allocated())
+        rates.setdefault(mode, []).append(_fit_rate(res, FIT_BATCH)[0])
+        runs.setdefault(mode, []).append(res)
+    counts, launches = C.chain_counts(), K.launch_counts()
+    ref = runs[1][0]
+    for mode, rs in runs.items():
+        for r in rs:
+            check(r.steps == steps, f"chain_steps={mode!r}: {r.steps} steps")
+            _same_fit(r, ref, f"fit chain_steps={mode!r}")
+    n_chained = CHAIN_TURNS.count("auto")
+    check(counts["captures"] == n_chained and
+          counts["replays"] == n_chained * steps,
+          f"chained fit: {counts} (want one capture and {steps} replays a "
+          f"run)")
+    log(f"[chain] flagship fit(adam, B={FIT_BATCH}, {FIT_EPOCHS} epochs = "
+        f"{steps} steps, val every {FIT_LOG_EVERY}, ema_decay {CHAIN_EMA}, "
+        f"a checkpoint every {FIT_CHECKPOINT_EVERY}), chain_steps in the "
+        f"turns {CHAIN_TURNS}: parameters, EMA and history bit-equal; loss "
+        f"{ref.history[0]['loss']:.4f} -> {ref.history[-1]['loss']:.4f}; "
+        f"{counts['captures']} captures taking "
+        f"{counts['capture_s'] / counts['captures'] * 1e3:.1f} ms each "
+        f"(host clock: warm-up step and capture), {counts['replays']} graph "
+        f"replays; hand-written kernel launches {launches}")
+    for mode in (1, "auto"):
+        log(f"[chain] fit samples/s over steps {FIT_TIMED_FROM + 1}-{steps} "
+            f"(host clock at the log boundaries, val included), chain_steps="
+            f"{mode!r}: {', '.join(f'{r:.1f}' for r in rates[mode])}; peak "
+            f"device memory {', '.join(map(str, peaks[mode]))} bytes")
+
+    # one unchained step and one chained window, profiled
+    opt = adam()
+    step_fn = make_opt_step(net, loss, be, opt)
+    lr_t = torch.tensor(FIT_LR, device=DEVICE)
+    xb = be.asarray(tX[:FIT_BATCH].astype(np.float32))
+    yb = be.asarray(tY[:FIT_BATCH].astype(np.float32))
+    state = [opt.init(net.params), net.params]
+
+    def one_step():
+        v, state[0], state[1] = step_fn(lr_t, xb, yb, state[0], state[1])
+        return v
+
+    loader = NativeLoader(tX, tY, batch=FIT_BATCH, seed=0, index_mode=True)
+    X_dev, Y_dev = be.asarray(loader.X), be.asarray(loader.Y)
+    chain_fn = _ChainedStep(step_fn, None, None, 1, X_dev, Y_dev, FIT_BATCH,
+                            be.dtype)
+    chain_fn.reserve(CHAIN_WINDOW)
+    cstate = [opt.init(net.params), net.params, ()]
+    lrs = [FIT_LR] * CHAIN_WINDOW
+
+    def window():
+        rows = np.stack([loader.next_indices() for _ in range(CHAIN_WINDOW)])
+        v, *cstate[:] = chain_fn(lrs, rows, *cstate)
+        return v
+
+    walls = {}
+    for name, fn, n in (("unchained", one_step, 1), ("chained", window,
+                                                     CHAIN_WINDOW)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) / (20 * n) * 1e6
+        p = _profile_steps(fn, 10 if n == 1 else 2)
+        log(f"[timing] fit step B={FIT_BATCH}, {name} (adam; per step: wall "
+            f"on the host clock over {20 * n} steps, the rest from the "
+            f"profiler): {walls[name]:.1f} us wall, host-issued "
+            f"{p['graph_launches'] / n:.2f} graph launches + "
+            f"{p['other_launches'] / n:.2f} kernel launches and copies; the "
+            f"card ran {p['launches'] / n:.1f} kernels + "
+            f"{p['copies'] / n:.2f} copies, busy {p['busy_us'] / n:.1f} us, "
+            f"idle share {1 - p['busy_us'] / n / walls[name]:.3f}")
+    loader.close()
+
+    # the device shuffles: every row once an epoch (the rows each graph
+    # read), window caps 4 and 10 bit-equal, a crash/resume chain
+    dkw = dict(kw, val=None, ema_decay=None, checkpoint_every=0)
+    spe = len(tX) // FIT_BATCH
+    for mode in ("device", "device_fixed"):
+        rows = []
+        with _recorded_rows(rows):
+            r4 = fit(net, loss, be, tX, tY, chain_shuffle=mode,
+                     chain_steps=4, **dkw)
+        r10 = fit(net, loss, be, tX, tY, chain_shuffle=mode, chain_steps=10,
+                  **dkw)
+        _same_fit(r4, r10, f"{mode}: chain_steps 4 against 10")
+        seen = torch.cat(rows).cpu().numpy()
+        check(seen.shape == (steps, FIT_BATCH), f"{mode}: {seen.shape} rows")
+        for e in range(FIT_EPOCHS):
+            check(np.array_equal(np.sort(seen[e * spe:(e + 1) * spe]
+                                         .ravel()), np.arange(len(tX))),
+                  f"{mode}: epoch {e} does not visit every row once")
+        ck = os.path.join(tmp, f"{mode}.npz")
+        fit(net, loss, be, tX, tY, chain_shuffle=mode, checkpoint_path=ck,
+            **dict(dkw, epochs=1, checkpoint_every=FIT_CHECKPOINT_EVERY))
+        res = fit(flagship(99), loss, be, tX, tY, chain_shuffle=mode,
+                  checkpoint_path=ck, resume=True, **dkw)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(res.net.params, r4.net.params)),
+              f"{mode}: the crash/resume chain differs from the straight run")
+        log(f"[chain] chain_shuffle={mode!r}: each of {FIT_EPOCHS} epochs "
+            f"visits every one of {len(tX)} rows once (the row tables the "
+            f"graph read on the card); chain_steps 4 and 10 bit-equal; "
+            f"crash/resume bit-equal; loss {r4.history[0]['loss']:.4f} -> "
+            f"{r4.history[-1]['loss']:.4f}; samples/s "
+            f"{_fit_rate(r4, FIT_BATCH)[0]:.1f} (cap 4), "
+            f"{_fit_rate(r10, FIT_BATCH)[0]:.1f} (cap 10)")
+
+    akw = dict(dkw, epochs=1, optimizer=adam8bit(stochastic_rounding=True),
+               ema_decay=CHAIN_EMA)
+    a = fit(net, loss, be, tX, tY, chain_steps=1, **akw)
+    b = fit(net, loss, be, tX, tY, chain_steps="auto", **akw)
+    _same_fit(a, b, "adam8bit (stochastic rounding) chained")
+    log(f"[chain] adam8bit(stochastic_rounding=True), {a.steps} steps: "
+        f"chained bit-equal to unchained, EMA included; loss "
+        f"{a.history[0]['loss']:.4f} -> {a.history[-1]['loss']:.4f}")
+
+
+def phase_seq_chained() -> None:
+    """Phase 21: the recurrent fit slice chained: ``chain_steps=1`` and
+    ``"auto"`` in turns, bit-equal; sequences/s; one chained window's
+    profile."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import chain as C
+    from tensor_ops_tpu_torch.models import fit_sequences, squared_error
+    from tensor_ops_tpu_torch.models.trainer import (_ChainedStep,
+                                                     _SeqStream,
+                                                     _seq_train_step)
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net = rnn_model(be)
+    r = np.random.default_rng(0)
+    XS = r.standard_normal((SEQ_FIT_SEQS, RNN_N, RNN_IN)).astype(np.float32)
+    TS = r.standard_normal((SEQ_FIT_SEQS, RNN_N, RNN_OUT)).astype(np.float32)
+    loss, B = squared_error(RNN_OUT), SEQ_FIT_BATCH
+    spe = SEQ_FIT_SEQS // B
+    steps = SEQ_FIT_EPOCHS * spe
+    kw = dict(batch_size=B, log_every=SEQ_FIT_LOG_EVERY, verbose=False,
+              epochs=SEQ_FIT_EPOCHS, **SEQ_FIT_RATES)
+    runs, rates, peaks = {}, {}, {}
+    C.reset_chain_counts()
+    for mode in CHAIN_TURNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res = fit_sequences(net, loss, be, XS, TS, chain_steps=mode, **kw)
+        torch.cuda.synchronize()
+        t = {x["step"]: x["t"] for x in res.history}
+        rates.setdefault(mode, []).append((steps - 1) * B / (t[steps] - t[1]))
+        peaks.setdefault(mode, []).append(torch.cuda.max_memory_allocated())
+        runs.setdefault(mode, []).append(res)
+    counts = C.chain_counts()
+    ref = runs[1][0]
+    for mode, rs in runs.items():
+        for res in rs:
+            check(all(torch.equal(a, b) for a, b in
+                      zip(_leaves(res.net), _leaves(ref.net))),
+                  f"fit_sequences chain_steps={mode!r}: leaves differ")
+            check([x["loss"] for x in res.history] ==
+                  [x["loss"] for x in ref.history],
+                  f"fit_sequences chain_steps={mode!r}: losses differ")
+    log(f"[chain] fit_sequences (Elman {RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT}, "
+        f"n={RNN_N}, B={B}, {SEQ_FIT_SEQS} sequences, dual-rate SGD, "
+        f"{steps} steps), chain_steps in the turns {CHAIN_TURNS}: states, "
+        f"params and losses bit-equal; {counts['captures']} captures taking "
+        f"{counts['capture_s'] / max(counts['captures'], 1):.2f} s each "
+        f"(host clock: warm-up step and capture), {counts['replays']} "
+        f"replays")
+    for mode in (1, "auto"):
+        log(f"[chain] fit_sequences sequences/s over steps 2-{steps} (host "
+            f"clock at the log boundaries), chain_steps={mode!r}: "
+            f"{', '.join(f'{x:.1f}' for x in rates[mode])}; peak device "
+            f"memory {', '.join(map(str, peaks[mode]))} bytes")
+
+    stream = _SeqStream(XS, TS, B, 0, 0, spe)
+    XS_dev, TS_dev = be.asarray(XS), be.asarray(TS)
+    chain_fn = _ChainedStep(_seq_train_step(net, loss, be, RNN_N), None,
+                            None, 2, XS_dev, TS_dev, B, be.dtype)
+    chain_fn.reserve(SEQ_CHAIN_WINDOW)
+    cstate = [net.states, net.params, ()]
+    rates_w = [(SEQ_FIT_RATES["rate_state"], SEQ_FIT_RATES["rate_param"])] \
+        * SEQ_CHAIN_WINDOW
+
+    def window():
+        rows = np.stack([stream.next_indices()
+                         for _ in range(SEQ_CHAIN_WINDOW)])
+        v, *cstate[:] = chain_fn(rates_w, rows, *cstate)
+        return v
+
+    window()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        window()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / (2 * SEQ_CHAIN_WINDOW) * 1e6
+    p = _profile_steps(window, 1)
+    n = SEQ_CHAIN_WINDOW
+    log(f"[timing] fit_sequences step (B={B}), chained (per step: wall on "
+        f"the host clock over {2 * n} steps, the rest from the profiler "
+        f"over {n}): {wall:.1f} us wall ({B / wall * 1e6:.1f} sequences/s), "
+        f"host-issued {p['graph_launches'] / n:.2f} graph launches + "
+        f"{p['other_launches'] / n:.2f} kernel launches and copies; the card "
+        f"ran {p['launches'] / n:.1f} kernels + {p['copies'] / n:.2f} copies, "
+        f"busy {p['busy_us'] / n:.1f} us, idle share "
+        f"{1 - p['busy_us'] / n / wall:.3f}")
+
+
+def phase_mixed_precision(tmp: str) -> None:
+    """Phase 22: ``mixed_precision``: the router's measurement and decision
+    at the flagship and at a wider MLP; a bf16 run that learns on f32
+    masters; one bf16 step's gradients against CPU f64; the bf16 product's
+    kernels on the card."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (Network, act_logistic,
+                                             act_softmax, cross_entropy, fit,
+                                             gen_net, sgd)
+    from tensor_ops_tpu_torch.models.trainer import make_opt_step
+
+    tX, tY, _, _ = synthetic_set(tmp)
+    be = TorchBackend(torch.float32, DEVICE)
+    loss = cross_entropy(FLAGSHIP[-1])
+
+    def mlp(dims, seed=0):
+        return gen_net(be, dims[0], dims[-1],
+                       [(h, act_logistic()) for h in dims[1:-1]],
+                       act_softmax(), Rng(be, seed))
+
+    for dims, B in ((FLAGSHIP, FIT_BATCH), (MP_WIDE, MP_WIDE_BATCH)):
+        m = os.path.join(tmp, f"mp{dims[1]}.jsonl")
+        n = 10 * B
+        fit(mlp(dims), loss, be, tX[:n], tY[:n], epochs=1, batch_size=B,
+            lr=FIT_LR, mixed_precision=True, metrics_path=m, verbose=False,
+            log_every=10)
+        with open(m) as f:
+            rec = json.loads(f.readline())
+        check(rec.get("mp_route") in ("f32", "bf16"),
+              f"the router recorded {rec}")
+        log(f"[mp] router at {'-'.join(map(str, dims))}, B={B} (sgd; one "
+            f"captured step a route, 20 replays by CUDA events, the routes "
+            f"in turns, the least of 3): f32 "
+            f"{rec['mp_f32_us']} us, bf16 {rec['mp_bf16_us']} us -> "
+            f"{rec['mp_route']} (bf16 only when more than 3% faster)")
+
+    net = mlp(FLAGSHIP)
+    res = fit(net, loss, be, tX, tY, epochs=FIT_EPOCHS, batch_size=FIT_BATCH,
+              lr=FIT_LR, mixed_precision="bf16", log_every=FIT_LOG_EVERY,
+              verbose=False)
+    h = [x["loss"] for x in res.history]
+    half = len(h) // 2
+    check(all(math.isfinite(x) for x in h) and h[-1] < h[0] and
+          statistics.mean(h[half:]) < statistics.mean(h[:half]),
+          f"the bf16 run did not learn: {h}")
+    check(all(p.dtype == torch.float32 for p in res.net.params),
+          "the bf16 run's masters are not f32")
+    log(f"[mp] flagship fit(mixed_precision='bf16', sgd, {res.steps} steps): "
+        f"loss {h[0]:.4f} -> {h[-1]:.4f}; masters "
+        f"{res.net.params[0].dtype}")
+
+    # one bf16 step's gradients against the full-precision step in f64
+    cpu = TorchBackend(torch.float64, "cpu")
+    xb, yb = tX[:FIT_BATCH], tY[:FIT_BATCH]
+    step_bf16 = make_opt_step(net, loss, be, sgd(), mixed_precision=True)
+    _, _, p_card = step_bf16(torch.tensor(1.0, device=DEVICE),
+                             be.asarray(xb), be.asarray(yb), (), net.params)
+    net64 = Network(net.op, tuple(cpu.asarray(p.cpu()) for p in net.params),
+                    net.act_names)
+    _, _, p64 = make_opt_step(net64, loss, cpu, sgd())(
+        1.0, cpu.asarray(xb), cpu.asarray(yb), (), net64.params)
+    worst = 0.0
+    for p0, pc, pr in zip(net64.params, p_card, p64):
+        g_card, g64 = p0 - pc.double().cpu(), p0 - pr
+        rel = float((g_card - g64).abs().max() / g64.abs().max())
+        worst = max(worst, rel)
+    check(worst <= TOL_BF16_GRAD, f"bf16 gradients {worst:.3e} of the "
+          f"largest from f64 (tol {TOL_BF16_GRAD:g})")
+    log(f"[mp] one bf16 sgd step (B={FIT_BATCH}) on the card against the "
+        f"full-precision step in CPU f64: gradients within {worst:.3e} of each "
+        f"leaf's largest (tol {TOL_BF16_GRAD:g})")
+
+    lr_t = torch.tensor(FIT_LR, device=DEVICE)
+    xd, yd = be.asarray(xb), be.asarray(yb)
+    p = _profile_steps(lambda: step_bf16(lr_t, xd, yd, (), net.params), 3)
+    gemms = [n for n in p["names"] if any(
+        w in n.lower() for w in ("gemm", "tensorop", "gemv", "xmma"))]
+    bf16 = [n for n in gemms if "bf16" in n or "bfloat16" in n]
+    f32 = [n for n in gemms if n not in bf16]
+    check(any("tensorop" in n and "bf16" in n for n in bf16),
+          f"no bf16 tensor-core GEMM among the bf16 step's kernels: {gemms}")
+    log(f"[mp] the bf16 step's products on the card: {len(bf16)} kernels "
+        f"on bf16 operands, {len(f32)} on others; {p['launches']:.0f} "
+        f"kernels a step, busy {p['busy_us']:.1f} us")
+    for n in bf16 + f32:
+        log(f"[mp]   {'bf16' if n in bf16 else 'other'}: {n[:200]}")
+
+
+def chained_main() -> None:
+    """Phases 20-22 in their own interpreter (the profiler of the smoke's
+    process has run 14 profiles and the recurrent fit by then)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("fit chained", phase_fit_chained, tmp)
+        timed("fit_sequences chained", phase_seq_chained)
+        timed("mixed precision", phase_mixed_precision, tmp)
+
+
+def phase_chained() -> None:
+    """Run :func:`chained_main` in a second interpreter; its lines print as
+    they come."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.chained_main()"],
+        timeout=900, cwd=here, env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, "the chained-steps and mixed-precision "
+          f"phases failed (exit {proc.returncode})")
+
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging the phase's wall time."""
     t0 = time.perf_counter()
@@ -3746,6 +4207,7 @@ def timed(name: str, fn, *args):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     name, card = phase_environment()
     timed("build", phase_build)
     worst = timed("kernels 1-3", phase_kernels)
@@ -3782,6 +4244,7 @@ def main() -> int:
         timed("production fit", phase_production_fit, tmp)
         timed("adam8bit fit", phase_adam8bit_fit, tmp)
     timed("recurrent fit timing", phase_seq_fit_timing, sf)
+    timed("chained steps and mixed precision", phase_chained)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "
@@ -3821,6 +4284,7 @@ def main() -> int:
                     library_ms=times[n][2] if n in (
                         "fused_linear",) + RING_NAMES else None)
                for n in KERNELS]
+    log(f"[phase] the whole smoke: {time.perf_counter() - t_start:.1f} s")
     log(f"[card] every time above was taken on: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,12 @@ never ``jax``.  Its layout mirrors the JAX package's:
   float64 NumPy oracle ``NumpyBackend``
 * ``engine``      — cached graph callables (eager execution)
 * ``models``      — activations/losses, feed-forward and recurrent
-  networks and their training, the optimizers (``adam8bit`` among them)
-  and the loops ``fit`` and ``fit_sequences``, the autoencoder, ``FusedMLP``, ``QuantizedMLP``, ``FusedRNN``,
-  ``FusedAutoencoder``, ``Predictor``, ``SequencePredictor``
+  networks and their training (the batched loss graph among them), the
+  optimizers (``adam8bit`` among them) and the loops ``fit`` and
+  ``fit_sequences`` (mixed precision; windows of steps replayed from one
+  CUDA graph, ``models.chain``), the autoencoder, ``FusedMLP``,
+  ``QuantizedMLP``, ``FusedRNN``, ``FusedAutoencoder``, ``Predictor``,
+  ``SequencePredictor``
 * ``utils.native`` — the C++ runtime's threaded loader and kernels
 * ``apps``        — the serving CLI (``apps.serve``), the MNIST trainer
   (``apps.mnist``) and the dots demo (``apps.dots``)

@@ -3,7 +3,8 @@
 Plays the role of the reference's BLAS-accelerated ``BTensor`` backend
 (``src/TensorOps/Backend/BTensor.hs``) and of the JAX package's
 ``JaxBackend``: every ``gmul`` case is one ``torch.tensordot`` (cuBLAS on
-the card), and execution is eager.
+the card; in bf16 on the card, a bf16 product on the tensor cores), and
+execution is eager.
 
 Pointwise-lift VJPs use ``torch.func.vjp`` of the (elementwise) function at
 the tensor level, which is exactly the per-element gradient the reference
@@ -23,6 +24,18 @@ import torch
 from ..ops.shapes import Shape, ShapeError
 from ..ops.vfunc import VFunc
 from .base import Backend, Distribution
+
+
+def _bf16_tensordot(x: torch.Tensor, y: torch.Tensor, dims) -> torch.Tensor:
+    """A bf16 ``tensordot`` with ``allow_bf16_reduced_precision_reduction``
+    off for the call and restored after it."""
+    flags = torch.backends.cuda.matmul
+    prev = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        return torch.tensordot(x, y, dims=dims)
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = prev
 
 
 class TorchBackend(Backend):
@@ -72,13 +85,20 @@ class TorchBackend(Backend):
     def gmul(self, lm: int, lo: int, ln: int, x: torch.Tensor,
              y: torch.Tensor) -> torch.Tensor:
         """Contract x's trailing ``lo`` axes with y's leading ``lo`` axes
-        in REVERSED order (``jax_backend.py:73-84``); bf16 accumulates in
-        f32 as the JAX backend's ``preferred_element_type`` does."""
+        in REVERSED order (``jax_backend.py:73-84``).  bf16 accumulates in
+        f32 and rounds once to bf16, as the JAX backend's
+        ``preferred_element_type=f32`` then ``astype(bf16)`` does: on the
+        card one bf16 cuBLAS product on the tensor cores with its f32
+        reduction kept (no reduced-precision split-K, the flag set for
+        this call only), elsewhere the operands upcast to f32."""
+        contract_x = list(range(lm, lm + lo))
+        contract_y = list(range(lo - 1, -1, -1))
+        if self.dtype == torch.bfloat16 and self.device.type == "cuda":
+            return _bf16_tensordot(x.to(self.dtype), y.to(self.dtype),
+                                   (contract_x, contract_y))
         acc = torch.float32 if self.dtype == torch.bfloat16 else self.dtype
         x = torch.as_tensor(x, device=self.device).to(acc)
         y = torch.as_tensor(y, device=self.device).to(acc)
-        contract_x = list(range(lm, lm + lo))
-        contract_y = list(range(lo - 1, -1, -1))
         out = torch.tensordot(x, y, dims=(contract_x, contract_y))
         return out.to(self.dtype)
 

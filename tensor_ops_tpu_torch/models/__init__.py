@@ -1,14 +1,16 @@
 """The models ported so far: activations and losses, feed-forward
-networks and their batched training (``training``), the optimizers
-(``optim``, ``adam8bit`` among them) and the production loops ``fit`` and
-``fit_sequences`` (``trainer``), recurrent networks (``recurrent``), the
-autoencoder (``autoencoder``), the kernel-fused ``FusedMLP``, ``FusedRNN``
-and ``FusedAutoencoder``, the int8 ``QuantizedMLP``, and the ``Predictor``
-and ``SequencePredictor`` that serve them.  Mixed precision and the rest of
-the loops' options come in later slices (ROADMAP.md, Queue 1)."""
+networks and their batched training (``training``, and the batched loss
+graph of ``batched``), the optimizers (``optim``, ``adam8bit`` among them)
+and the production loops ``fit`` and ``fit_sequences`` (``trainer``, with
+mixed precision and step chaining, ``chain``), recurrent networks
+(``recurrent``), the autoencoder (``autoencoder``), the kernel-fused
+``FusedMLP``, ``FusedRNN`` and ``FusedAutoencoder``, the int8
+``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
+them.  The loops' mesh, ZeRO, offload and pipeline options come in a later
+slice (ROADMAP.md, Queue 1 item 9)."""
 
-from . import (autoencoder, fast, feedforward, neuralnet, optim, recurrent,
-               serve, trainer, training)
+from . import (autoencoder, batched, chain, fast, feedforward, neuralnet,
+               optim, recurrent, serve, trainer, training)
 from .neuralnet import (
     Activation,
     act_logistic,

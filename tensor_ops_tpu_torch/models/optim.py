@@ -4,10 +4,18 @@ The reference knows only per-sample SGD (``p - r*g`` inline in
 ``trainNetwork``, ``FeedForward.hs:141-147``).  As in the JAX package, that
 stays the default beside the standard updaters, each a pure transform of a
 tuple of parameters with its state threaded explicitly.  The state of each
-optimizer has the JAX package's structure (adam's is ``(t, m, v)`` with an
-int ``t``) and its ``hyper``, so a ``.state`` checkpoint passes between
-the packages.  The updates work on torch tensors and on the NumPy oracle's
-arrays alike.
+optimizer has the JAX package's structure (adam's is ``(t, m, v)``) and its
+``hyper``, so a ``.state`` checkpoint passes between the packages.  The
+updates work on torch tensors and on the NumPy oracle's arrays alike.
+
+On tensors every value that changes from step to step is read from the
+device: ``lr`` may be a 0-d tensor, adam's step count ``t`` is a 0-d int32
+tensor on the parameters' device (the JAX package's traced int), its bias
+corrections ``1 - b**t`` are computed there, and
+``adam8bit``'s rounding noise is a counter-based hash of the step tensor.
+Nothing in an update reads the device from the host, so a step can be
+captured in a CUDA graph and replayed (``models/chain.py``).  On the NumPy
+oracle ``t`` stays a Python int and the numbers are the JAX package's.
 """
 
 from __future__ import annotations
@@ -75,23 +83,55 @@ def momentum(beta: float = 0.9, nesterov: bool = False) -> Optimizer:
     return Optimizer(init, update, "momentum", hyper=(beta, nesterov))
 
 
+def _step0(params):
+    """Adam's step count before the first update: a 0-d int32 tensor on the
+    parameters' device for tensors, the int 0 on the NumPy oracle."""
+    if params and isinstance(params[0], torch.Tensor):
+        return torch.zeros((), dtype=torch.int32, device=params[0].device)
+    return 0
+
+
+def _next_step(t, params):
+    """``t + 1``, a tensor on the parameters' device when they are tensors
+    (a Python ``t``, or a tensor elsewhere, as a caller may hand in, is
+    moved there first)."""
+    if params and isinstance(params[0], torch.Tensor):
+        dev = params[0].device
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor(int(t), dtype=torch.int32, device=dev)
+        elif t.device != dev:
+            t = t.to(dev)
+    return t + 1
+
+
+def _bias_corrections(t, b1: float, b2: float, like):
+    """``(1 - b1**t, 1 - b2**t)``: for a tensor ``t`` computed on its
+    device in float64 and rounded once to ``like``'s dtype (the value a
+    float64 host computation divides by, and the JAX package's traced-int
+    step in x64); in Python floats for an int ``t``."""
+    if isinstance(t, torch.Tensor):
+        tf = t.to(torch.float64)
+        return ((1 - b1 ** tf).to(like.dtype), (1 - b2 ** tf).to(like.dtype))
+    return 1 - b1**t, 1 - b2**t
+
+
 def _adam_impl(b1: float, b2: float, eps: float, weight_decay: float):
     """The one adam update both :func:`adam` and :func:`adamw` wrap.
     ``weight_decay`` is DECOUPLED (multiplies the parameter, never the
     moments); 0.0 reproduces classic adam bit for bit."""
 
     def init(params):
-        return (0, tuple(p * 0 for p in params),
+        return (_step0(params), tuple(p * 0 for p in params),
                 tuple(p * 0 for p in params))
 
     def update(state, params, grads, lr):
         t, m, v = state
-        t = t + 1
+        t = _next_step(t, params)
         m = tuple(b1 * mi + (1 - b1) * g for mi, g in zip(m, grads))
         v = tuple(b2 * vi + (1 - b2) * g * g for vi, g in zip(v, grads))
-        # bias correction
-        mc = tuple(mi / (1 - b1**t) for mi in m)
-        vc = tuple(vi / (1 - b2**t) for vi in v)
+        c1, c2 = _bias_corrections(t, b1, b2, params[0])
+        mc = tuple(mi / c1 for mi in m)
+        vc = tuple(vi / c2 for vi in v)
         new_params = tuple(
             p - lr * (mi / ((vi**0.5) + eps) + weight_decay * p)
             for p, mi, vi in zip(params, mc, vc))
@@ -115,21 +155,42 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
 
 _SR_SALT = 0xA8B17  # stream id of adam8bit's rounding noise, fixed forever
+_M32 = 0xFFFFFFFF
 
 
-def _sr_uniform(t: int, stream: int, like):
+def _mix32(h):
+    """A 32-bit integer finalizer (xor-shift-multiply rounds) on int64
+    tensors holding values in [0, 2**32).  The multipliers are odd and below
+    2**31, so no product leaves int64."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x2C1B3C6D) & _M32
+    h = h ^ (h >> 13)
+    h = (h * 0x297A2D39) & _M32
+    return h ^ (h >> 16)
+
+
+def _sr_uniform(t, stream: int, like):
     """U(0, 1) noise of ``like``'s shape for stochastic rounding, a pure
-    function of (step ``t``, leaf stream id): on NumPy arrays the JAX
-    package's own numpy stream (``default_rng((salt, t, stream))``), on
-    torch tensors a ``torch.Generator`` on the tensor's device seeded from
-    the same triple.  The torch stream is not the JAX package's (threefry):
-    it is held by its properties, not by equal bits."""
+    function of (step ``t``, leaf stream id, element).  On NumPy arrays the
+    JAX package's own numpy stream (``default_rng((salt, t, stream))``).
+    On torch tensors a counter-based hash computed on the tensor's device
+    from (salt, ``t``, stream, element index), ``t`` an int or a 0-d tensor
+    there: no generator is seeded from the host, so a step that draws it
+    can be replayed from a CUDA graph.  The torch stream is not the JAX
+    package's (threefry): it is held by its properties, not by equal
+    bits."""
     if isinstance(like, torch.Tensor):
-        seed = np.random.SeedSequence((_SR_SALT, int(t), int(stream)))
-        gen = torch.Generator(device=like.device)
-        gen.manual_seed(int(seed.generate_state(1, np.uint64)[0]))
-        return torch.rand(like.shape, generator=gen, dtype=like.dtype,
-                          device=like.device)
+        dev = like.device
+        t = torch.as_tensor(t, dtype=torch.int64, device=dev)
+        key = _mix32((t & _M32) ^ ((_SR_SALT * 0x9E37 + int(stream)
+                                    * 0x61C8864F) & _M32))
+        idx = torch.arange(like.numel(), dtype=torch.int64, device=dev)
+        h = _mix32(_mix32((idx & _M32) ^ key) ^ (idx >> 32))
+        # the top 24 bits as a float in [0, 1): exact in every float dtype
+        u = (h >> 8).to(like.dtype) * (1.0 / (1 << 24))
+        return u.reshape(like.shape)
     return np.random.default_rng(
         (_SR_SALT, int(t), int(stream))).uniform(size=like.shape)
 
@@ -198,11 +259,12 @@ def adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         for p in params:
             zq, zs = _q(_blocks(p * 0))
             state.append((zq, zs, zq, zs))
-        return (0, tuple(state))
+        return (_step0(params), tuple(state))
 
     def update(state, params, grads, lr):
         t, qs = state
-        t = t + 1
+        t = _next_step(t, params)
+        c1, c2 = _bias_corrections(t, b1, b2, params[0]) if params else (1, 1)
         mmode = "sr" if stochastic_rounding else "nearest"
         vmode = "ceil" if stochastic_rounding else "nearest"
         new_qs, new_params = [], []
@@ -211,8 +273,8 @@ def adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             gb = _blocks(g)
             m = b1 * (mq * ms) + (1 - b1) * gb
             v = b2 * (vq * vs) + (1 - b2) * gb * gb
-            mc = m / (1 - b1**t)
-            vc = v / (1 - b2**t)
+            mc = m / c1
+            vc = v / c2
             n = p.numel() if isinstance(p, torch.Tensor) else p.size
             step = (lr * mc / (vc**0.5 + eps)).reshape(-1)[:n]
             new_params.append(p - step.reshape(p.shape))

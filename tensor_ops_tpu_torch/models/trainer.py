@@ -15,11 +15,20 @@ scan-BPTT sequence graph (``training.make_seq_mean_grads``) with the
 reference's dual state/param rates.  On the NumPy oracle the samples are
 looped, as the JAX package does.
 
-Both loops run on :func:`_drive`, the window driver: step, log boundary,
-validation, early stop, checkpoints and the Ctrl-C checkpoint, independent
-of what a step computes.  This slice runs single-device and unchained;
-the options of the JAX package's loops that need the rest of the port
-raise ``ValueError`` naming their ROADMAP item.
+``mixed_precision`` runs the forward and backward in bf16 on f32 masters
+(``fit`` through the batched graph of ``models/batched.py`` where it
+applies); ``True`` measures the f32 and the bf16 step once and keeps the
+faster (:func:`_resolve_mp_route`).  ``chain_steps`` runs each window of
+steps between observation boundaries over the dataset resident on the
+device (``models/chain.py``): on the card one CUDA graph of one step,
+replayed once per step; ``chain_shuffle`` takes the host loader's indices
+or computes them on the device (:func:`_device_window_indices`).
+
+Both loops run on :func:`_drive`, the window driver: windows of steps, log
+boundary, validation, early stop, checkpoints and the Ctrl-C checkpoint,
+independent of what a step computes.  This package runs on one device;
+``profile_dir`` and the mesh, ZeRO, offload and pipeline options raise
+``ValueError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,21 +37,26 @@ import os
 import signal
 import sys
 import threading
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..backend.base import Backend
+from ..ops import ir
 from ..ops.ir import TOp
 from ..utils.metrics import MetricsLogger
 from ..utils.native import DevicePrefetcher, NativeLoader
+from . import chain as C
 from .feedforward import Network
 from .optim import Optimizer, clip_by_global_norm, sgd
 from .recurrent import RecurrentNetwork, dual_rate_sgd
 from .training import (accuracy, batch_loss, make_mean_grads,
-                       make_seq_mean_grads, seq_batch_loss)
+                       make_seq_mean_grads, make_vmapped_grads,
+                       seq_batch_loss)
 
 
 @dataclass
@@ -105,37 +119,375 @@ def _accum(vag: Callable, xb, yb, accum_steps: int):
     return vsum / accum_steps, tuple(g / accum_steps for g in gsum)
 
 
+def _normalize_mp(mixed_precision) -> str:
+    """``'off' | 'auto' | 'bf16'`` from the ``mixed_precision`` knob (the
+    JAX package's).  ``True`` (or ``"auto"``) measures the f32 and the bf16
+    step once and keeps the faster (:func:`_resolve_mp_route`): a "go
+    faster" switch must never go slower.  ``"bf16"`` forces the bf16 path.
+    Other truthy or falsy values (ints, numpy bools) keep their truthiness;
+    an unknown string raises."""
+    if mixed_precision is False or mixed_precision is None:
+        return "off"
+    if mixed_precision is True or mixed_precision == "auto":
+        return "auto"
+    if mixed_precision == "bf16":
+        return "bf16"
+    if not isinstance(mixed_precision, str):
+        return "auto" if mixed_precision else "off"
+    raise ValueError(
+        f"mixed_precision must be False, True/'auto' (measure f32 vs "
+        f"bf16 once and take the faster), or 'bf16' (force the bf16 "
+        f"path), got {mixed_precision!r}")
+
+
+def _measure_mp_route(step_f32, step_bf16, args, carry_from: int = 3,
+                      rounds: int = 3, steps: int = 20):
+    """``(f32_us, bf16_us)``: the device time of one step of each compiled
+    route on the same ``args``, the training state ``args[carry_from:]``
+    carried from step to step so no step repeats another's work.  On the
+    card each route is captured in a CUDA graph that updates its own copy
+    of the state, and ``steps`` replays are timed by CUDA events, the two
+    routes in turns, the minimum of ``rounds``; elsewhere the same loops
+    on the host clock."""
+    head, carry0 = tuple(args[:carry_from]), tuple(args[carry_from:])
+    leaves0 = C.flatten(carry0)
+    dev = next((x.device for x in leaves0 if isinstance(x, torch.Tensor)),
+               torch.device("cpu"))
+    runs = []
+    for step in (step_f32, step_bf16):
+        bufs = [x.clone() for x in leaves0]
+
+        def once(commit=True, step=step, bufs=bufs):
+            out = step(*head, *C.unflatten(carry0, bufs))
+            if commit:
+                for b, n in zip(bufs, C.flatten(out[1:])):
+                    b.copy_(n)
+
+        if C.uses_graphs(dev):
+            runs.append(C.capture(once, dev).replay)
+        else:
+            runs.append(once)
+    best = [float("inf"), float("inf")]
+    for _ in range(rounds):
+        for i, run in enumerate(runs):
+            run()  # the state carried in, the caches warm
+            if C.uses_graphs(dev):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                for _ in range(steps):
+                    run()
+                e1.record()
+                e1.synchronize()
+                us = e0.elapsed_time(e1) * 1e3 / steps
+            else:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    run()
+                us = (time.perf_counter() - t0) * 1e6 / steps
+            best[i] = min(best[i], us)
+    return best[0], best[1]
+
+
+def _decide_mp_route(build_step, make_args, carry_from: int = 3):
+    """Measure-once routing for ``mixed_precision=True``: build both steps,
+    time them on a dummy batch (:func:`_measure_mp_route`) and keep bf16
+    only when it is more than 3% faster (near-ties stay on f32, so
+    repeated runs of one configuration do not flip routes on timing
+    noise).  Returns ``(use_bf16, {"mp_f32_us", "mp_bf16_us"})``."""
+    f32_us, bf16_us = _measure_mp_route(build_step(False), build_step(True),
+                                        make_args(), carry_from=carry_from)
+    return bf16_us < 0.97 * f32_us, {"mp_f32_us": round(f32_us, 2),
+                                     "mp_bf16_us": round(bf16_us, 2)}
+
+
+def _resolve_mp_route(net, build_step, dummy_args, route_key, *, resume,
+                      state_path, carry_from, verbose):
+    """The routing ladder both loops share (the JAX package's): the route
+    recorded in the checkpoint being resumed (the resumed chain re-takes
+    the saving run's numerics exactly) > a resumed checkpoint with no
+    ``mp_route`` (saved where ``mixed_precision=True`` forced bf16) adopts
+    bf16 with a warning > the measurement cached in-process on the network
+    op > measure both steps now.  Returns ``(mp_active, mp_rec)``."""
+    mp_rec = None
+    stored = legacy = None
+    if resume and state_path and os.path.exists(state_path):
+        from ..utils.checkpoint import load_meta
+
+        stored = load_meta(state_path).get("mp_route")
+        legacy = stored is None
+    if stored in ("f32", "bf16"):
+        mp_active = stored == "bf16"
+        mp_src = f"route recorded in {state_path}"
+    elif legacy:
+        warnings.warn(
+            f"resuming {state_path} which records no mp_route (saved "
+            "by a pre-auto-routing build, where mixed_precision=True "
+            "forced bf16) — adopting bf16 to preserve the saving "
+            "run's numerics; pass mixed_precision='bf16' or False to "
+            "choose explicitly", stacklevel=3)
+        mp_active = True
+        mp_src = "legacy checkpoint (no recorded route): bf16 adopted"
+    elif net.op._compiled.get(route_key) is not None:
+        mp_active, mp_rec = net.op._compiled.get(route_key)
+        mp_src = (f"cached measurement: f32 {mp_rec['mp_f32_us']}us "
+                  f"vs bf16 {mp_rec['mp_bf16_us']}us")
+    else:
+        mp_active, mp_rec = _decide_mp_route(build_step, dummy_args,
+                                             carry_from=carry_from)
+        net.op._compiled[route_key] = (mp_active, mp_rec)
+        mp_src = (f"measured f32 {mp_rec['mp_f32_us']}us vs "
+                  f"bf16 {mp_rec['mp_bf16_us']}us")
+    if verbose:
+        print(f"mixed_precision auto-routed to "
+              f"{'bf16' if mp_active else 'f32'} ({mp_src})")
+    return mp_active, mp_rec
+
+
+# sibling streams of one seed: each epoch's rows ("device"), each epoch's
+# slot order and the once-per-run rows ("device_fixed")
+_ROW_SALT, _SLOT_SALT, _FIXED_SALT = 0x524F57, 0x534C4F54, 0x464958
+
+
+def _epoch_perm(seed: int, salt: int, epoch: int, n: int, device):
+    """A permutation of ``n`` drawn on ``device`` by a ``torch.Generator``
+    seeded from (salt, seed, epoch) alone: a pure function of its
+    arguments, so any window and any resumed run draws it again."""
+    word = np.random.SeedSequence((salt, int(seed), int(epoch)))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(word.generate_state(1, np.uint64)[0]) >> 1)
+    return torch.randperm(n, generator=gen, device=device)
+
+
+def _device_window_indices(seed: int, n_rows: int, batch: int, spe: int,
+                           step0: int, k: int, device="cpu"):
+    """``(k, batch)`` int64 row indices on ``device`` for global steps
+    ``step0 .. step0+k-1`` (``chain_shuffle="device"``): epoch ``e``'s
+    batches are consecutive ``batch``-sized slices of its permutation
+    (:func:`_epoch_perm`), so every epoch visits every row once.  A pure
+    function of (seed, absolute step): every window partition and every
+    crash/resume chain replays the same batches, and no index byte comes
+    from the host.  The JAX package draws its permutations from threefry;
+    these are torch's, held by the same properties, not by equal bits.
+    Requires ``n_rows % batch == 0`` (``spe = n_rows // batch``)."""
+    e0 = step0 // spe
+    E = (k - 1) // spe + 2  # the most epochs k steps can touch
+    perms = torch.stack([_epoch_perm(seed, _ROW_SALT, e0 + j, n_rows, device)
+                         for j in range(E)])
+    s = torch.arange(step0, step0 + k, device=device)
+    cols = (s % spe * batch).unsqueeze(1) + torch.arange(batch,
+                                                         device=device)
+    return perms[(s // spe - e0).unsqueeze(1), cols]
+
+
+def _device_window_offsets(seed: int, batch: int, spe: int, step0: int,
+                           k: int, device="cpu"):
+    """``(k,)`` int64 row offsets into the once-shuffled resident dataset
+    for global steps ``step0 .. step0+k-1`` (``chain_shuffle=
+    "device_fixed"``): epoch ``e`` visits the ``spe`` fixed batch slots in
+    the order of its slot permutation, a sibling stream of
+    :func:`_device_fixed_perm`'s; step ``s`` reads ``batch`` consecutive
+    rows from ``slot * batch``.  The same purity as
+    :func:`_device_window_indices`."""
+    e0 = step0 // spe
+    E = (k - 1) // spe + 2
+    sperm = torch.stack([_epoch_perm(seed, _SLOT_SALT, e0 + j, spe, device)
+                         for j in range(E)])
+    s = torch.arange(step0, step0 + k, device=device)
+    return sperm[s // spe - e0, s % spe] * batch
+
+
+def _device_fixed_perm(seed: int, n_rows: int, device="cpu"):
+    """The once-per-run row permutation ``chain_shuffle="device_fixed"``
+    applies to the resident dataset before training."""
+    return _epoch_perm(seed, _FIXED_SALT, 0, n_rows, device)
+
+
+def _window_rows(chain_spec, step0: int, k: int, device):
+    """The ``(k, batch)`` row table of a device-shuffled window from the
+    absolute step ``step0``, ``chain_spec=(n_rows, batch, spe, seed,
+    mode)`` (``mode="fixed"``: each step's consecutive rows from its
+    offset into the once-shuffled dataset)."""
+    n_rows, batch, spe, seed, mode = chain_spec
+    if mode == "fixed":
+        offs = _device_window_offsets(seed, batch, spe, step0, k, device)
+        return offs.unsqueeze(1) + torch.arange(batch, device=device)
+    return _device_window_indices(seed, n_rows, batch, spe, step0, k, device)
+
+
+def _scalars(xs, like):
+    """A step's step-varying scalars ``xs`` (a sequence of floats) as one
+    tensor in ``like``'s dtype on its device, rounded from float64 as a
+    chained window's table is, and copied to the card from pinned memory:
+    the host does not wait for the card (it unpacks into 0-d views).  On
+    the NumPy oracle ``xs`` itself."""
+    if not isinstance(like, torch.Tensor):
+        return xs
+    t = torch.tensor(xs, dtype=torch.float64).to(like.dtype)
+    if like.device.type == "cpu":
+        return t
+    return t.pin_memory().to(like.device, non_blocking=True)
+
+
 def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
                   accum_steps: int = 1,
-                  clip_norm: Optional[float] = None) -> Callable:
+                  clip_norm: Optional[float] = None,
+                  mixed_precision: bool = False) -> Callable:
     """``(lr, xb, yb, opt_state, params) -> (loss, opt_state, params)``:
-    one optimizer step on a batch.  ``loss`` comes back as a 0-d tensor on
-    the device (no synchronise), or a float on the NumPy oracle.
-    ``accum_steps > 1`` takes the batch mean as the sum of equal chunks'
-    means over their count (:func:`_accum`); the NumPy oracle loops over
-    the whole batch's samples whatever ``accum_steps``, as the JAX
-    package's numpy branch does (the same mean).  Cached on the network's
-    op by the loss's and optimizer's structural keys."""
+    one optimizer step on a batch.  ``lr`` is a float or a 0-d tensor;
+    ``loss`` comes back as a 0-d tensor on the device (no synchronise), or
+    a float on the NumPy oracle.  ``accum_steps > 1`` takes the batch mean
+    as the sum of equal chunks' means over their count (:func:`_accum`);
+    the NumPy oracle loops over the whole batch's samples whatever
+    ``accum_steps``, as the JAX package's numpy branch does (the same
+    mean).  Cached on the network's op by the loss's and optimizer's
+    structural keys.
+
+    ``mixed_precision=True`` (torch only) runs the forward and backward in
+    bf16 on a ``TorchBackend(bfloat16)`` on the same device: through
+    :func:`~tensor_ops_tpu_torch.models.batched.batched_loss_graph` where
+    the network is in its family (the weight gradients one contraction
+    over the batch each), else the vmapped per-sample graph.  The
+    parameters are cast to bf16 for it only, the masters the optimizer
+    carries keep their dtype, and the values and gradients are upcast to
+    f32 BEFORE the batch mean.  :class:`_ChainedStep` chains it."""
+    if mixed_precision and be.name != "torch":
+        raise ValueError("mixed_precision requires the torch backend — fit "
+                         "gates this itself")
     key = ("optstep", loss.struct_key(), opt.struct_key(), int(accum_steps),
-           clip_norm) + be.cache_key()
+           clip_norm, bool(mixed_precision)) + be.cache_key()
     fn = net.op._compiled.get(key)
     if fn is not None:
         return fn
-    mean_grads = make_mean_grads(net, loss, be)
+    if mixed_precision:
+        batch_vag = _bf16_vag(net, loss, be)
+    else:
+        mean_grads = make_mean_grads(net, loss, be)
+
+        def batch_vag(xb, yb, params):
+            return mean_grads(xb, yb, *params)
 
     def step(lr, xb, yb, opt_state, params):
+        params = tuple(params)
         if accum_steps > 1 and be.name != "numpy":
-            v, grads = _accum(lambda x, y: mean_grads(x, y, *params), xb, yb,
+            v, grads = _accum(lambda x, y: batch_vag(x, y, params), xb, yb,
                               accum_steps)
         else:
-            v, grads = mean_grads(xb, yb, *params)
+            v, grads = batch_vag(xb, yb, params)
         if clip_norm:
             grads = clip_by_global_norm(grads, clip_norm)
-        opt_state, params = opt.update(opt_state, tuple(params), grads, lr)
+        opt_state, params = opt.update(opt_state, params, grads, lr)
         return v, opt_state, params
 
     net.op._compiled[key] = step
     return step
+
+
+def _bf16_vag(net: Network, loss: TOp, be: Backend) -> Callable:
+    """``(xb, yb, params) -> (mean loss, mean grads)`` in f32 from a bf16
+    forward and backward (``make_opt_step(mixed_precision=True)``)."""
+    from ..backend.torch_backend import TorchBackend
+    from .batched import batched_loss_graph
+
+    bf16 = torch.bfloat16
+    be_c = TorchBackend(bf16, be.device)
+    vmapped = make_vmapped_grads(net, loss, be_c)
+
+    def vag(xb, yb, params):
+        lp = tuple(p.to(bf16) for p in params)
+        g = batched_loss_graph(net, loss, int(xb.shape[0]))
+        if g is not None:
+            v, grads = ir.value_and_grad(
+                g, be_c, (xb.to(bf16),) + lp + (yb.to(bf16),))
+            return v.float(), tuple(gg.float() for gg in grads[1:-1])
+        vals, grads = vmapped(xb.to(bf16), yb.to(bf16), *lp)
+        # upcast BEFORE the mean: the batch mean carries more precision
+        # than any single bf16 sample
+        return (vals.float().mean(),
+                tuple(gg.float().mean(dim=0) for gg in grads))
+
+    return vag
+
+
+class _ChainedStep(C.StepChain):
+    """The chained step of either loop over its dataset held on the device
+    ``(Xd, Yd)``: ``step(*scalars, xb, yb, *state)`` is the loop's
+    unchained step (:func:`make_opt_step`, :func:`_seq_train_step`), its
+    ``n_scalars`` step-varying scalars read from the window's table;
+    ``ema_update`` is the Polyak update (or None) and ``ema_of(new_state)``
+    the leaves it follows.
+
+    A call ``(table, sel, *state, ema) -> (loss_last, *state, ema)`` runs
+    ``k = len(table)`` steps in one window (:class:`chain.StepChain`): step
+    ``i`` takes the table's row ``i`` (``fit``'s lr; ``fit_sequences``'
+    two rates) and gathers its batch by row ``i`` of the row table, then
+    the EMA updates with the same ``d*e + (1-d)*p`` (``ema`` is ``()``
+    without one).  ``sel`` is the ``(k, batch)`` table of the host
+    stream's indices, or, with ``chain_spec=(n_rows, batch,
+    steps_per_epoch, seed, mode)``, the window's absolute start step, whose
+    rows the device streams give (``mode`` ``"perm"``:
+    :func:`_device_window_indices`; ``"fixed"``:
+    :func:`_device_window_offsets` into the once-shuffled dataset).  The
+    math is the unchained step's on the same tensors, so a chained run
+    equals the unchained one bit for bit in host mode.  Each holds its own
+    CUDA graph and buffers; ``reserve(cap)`` sizes them for windows of up
+    to ``cap`` steps, and ``close()`` releases the graph."""
+
+    def __init__(self, step: Callable, ema_update: Optional[Callable],
+                 ema_of: Callable, n_scalars: int, Xd: torch.Tensor,
+                 Yd: torch.Tensor, batch: int, dtype: torch.dtype,
+                 chain_spec=None):
+        super().__init__(self._body, Xd, Yd, n_scalars, batch, dtype)
+        self.step, self.ema_update, self.ema_of = step, ema_update, ema_of
+        self.chain_spec = chain_spec
+
+    def __call__(self, scalars, sel, *state):
+        scalars = np.asarray(scalars, dtype=np.float64).reshape(
+            -1, self.n_scalars)
+        k = scalars.shape[0]
+        rows = (sel if self.chain_spec is None
+                else _window_rows(self.chain_spec, int(sel), k, self.device))
+        self._tmpl = tuple(state[:-1]) + ((state[-1] or None),)
+        v, leaves = self.run(scalars, rows, C.flatten(self._tmpl))
+        *out, ema = C.unflatten(self._tmpl, leaves)
+        return (v,) + tuple(out) + (ema or (),)
+
+    def _body(self, sc, xb, yb, leaves):
+        *st, ema = C.unflatten(self._tmpl, leaves)
+        out = self.step(*sc, xb, yb, *st)
+        v, new = out[0], tuple(out[1:])
+        if ema is not None:
+            ema = self.ema_update(ema, self.ema_of(new))
+        return v, C.flatten(new + (ema,))
+
+
+def _chained(be: Backend, X, Y, step_fn: Callable, n_scalars: int,
+             ema_of: Callable, dtype: torch.dtype, *, ema_decay, chain_steps,
+             chain_shuffle: str, seed: int, batch: int, steps_per_epoch: int,
+             step: int, total_steps: int, log_every: int,
+             checkpoint_every: int, ragged: bool):
+    """``(chain_fn, window_len)`` of a chained run of either loop from
+    global step ``step``: ``step_fn`` chained (:class:`_ChainedStep`) over
+    ``(X, Y)`` put on the device once (its rows shuffled once for
+    ``"device_fixed"``), and the window planner (:func:`_window_planner`),
+    the graph sized for the run's longest window."""
+    Xd, Yd = be.asarray(X), be.asarray(Y)
+    spec = None
+    if chain_shuffle != "host":
+        mode = "perm"
+        if chain_shuffle == "device_fixed":
+            perm = _device_fixed_perm(seed, X.shape[0], be.device)
+            Xd, Yd, mode = Xd[perm], Yd[perm], "fixed"
+        spec = (X.shape[0], batch, steps_per_epoch, seed, mode)
+    chain_fn = _ChainedStep(
+        step_fn, None if ema_decay is None else _ema_update(ema_decay),
+        ema_of, n_scalars, Xd, Yd, batch, dtype, spec)
+    window_len = _window_planner(
+        first_step=step + 1, total_steps=total_steps, log_every=log_every,
+        checkpoint_every=checkpoint_every, steps_per_epoch=steps_per_epoch,
+        chain_steps=chain_steps, batch=batch, ragged=ragged)
+    chain_fn.reserve(_longest_window(window_len, step, total_steps))
+    return chain_fn, window_len
 
 
 class _sigint_shield:
@@ -209,32 +561,40 @@ def _ema_init(r_ema, leaves, be: Backend, resumed_step: int, label: str):
     return tuple(leaves)
 
 
-def _drive(state, step_fn: Callable, next_batch: Callable, *, step: int,
-           total_steps: int, steps_per_epoch: int,
-           lr_at: Callable[[int], Any], log_every: int,
-           logger: MetricsLogger, evaluate: Optional[Callable] = None,
+def _drive(state, run_window: Callable, *, step: int, total_steps: int,
+           steps_per_epoch: int, log_every: int, logger: MetricsLogger,
+           window_len: Optional[Callable[[int], int]] = None,
+           evaluate: Optional[Callable] = None,
            early_stop_patience: int = 0, save: Optional[Callable] = None,
-           checkpoint_every: int = 0, verbose: bool = True):
-    """The window driver of both loops: run ``step_fn`` from global step
-    ``step`` to ``total_steps`` and return ``(state, history, step)``.
+           checkpoint_every: int = 0, verbose: bool = True,
+           torn: Optional[Callable[[], bool]] = None):
+    """The window driver of both loops: run from global step ``step`` to
+    ``total_steps`` and return ``(state, history, step)``.
 
-    Each step is ``v, state = step_fn(lr_at(step), *next_batch(), state)``
-    under :class:`_sigint_shield`; a snapshot ``(state, step)`` replaced
-    by one assignment after each step is what a Ctrl-C saves.  A log
-    boundary (every ``log_every`` steps, and the run's first step) reads
-    the loss (one synchronise), calls ``evaluate(state) -> (name, value,
-    score)`` when given (higher score is better; ``early_stop_patience``
-    evaluations without a gain stop the run), and appends the record
-    ``logger.log`` makes (its ``t`` is the host clock after that
-    synchronise and the evaluation) to the history.  A boundary without
-    ``evaluate`` reads its loss at once too, where the JAX package's
-    ``fit`` defers that read a few windows: the host waits there for the
-    card.  Every ``checkpoint_every`` steps ``save(state, step)`` returns
-    futures of asynchronous writes, joined before the driver returns; a
-    write error is raised unless another exception is already unwinding.
-    On ``KeyboardInterrupt`` with ``save`` given and a step taken, the
-    snapshot is saved (after the writes in flight) before it propagates,
-    whatever ``checkpoint_every``: resuming from it continues exactly."""
+    Each window is ``v, state = run_window(step, k, state)``, the ``k =
+    window_len(step)`` steps from ``step`` (1 without ``window_len``: the
+    unchained loop), ``v`` the last step's loss, under
+    :class:`_sigint_shield`: a Ctrl-C waits for the window's edge.  A
+    snapshot ``(state, step)`` replaced by one assignment after each window
+    is what a Ctrl-C saves.  Windows end at the observation boundaries
+    (``window_len`` guarantees it), so what follows a window sees the same
+    steps as an unchained run: a log boundary (every ``log_every`` steps,
+    and the run's first step) reads the loss (one synchronise), calls
+    ``evaluate(state) -> (name, value, score)`` when given (higher score is
+    better; ``early_stop_patience`` evaluations without a gain stop the
+    run), and appends the record ``logger.log`` makes (its ``t`` is the
+    host clock after that synchronise and the evaluation) to the history.
+    A boundary without ``evaluate`` reads its loss at once too, where the
+    JAX package's ``fit`` defers that read a few windows: the host waits
+    there for the card.  Every ``checkpoint_every`` steps ``save(state,
+    step)`` returns futures of asynchronous writes, joined before the
+    driver returns; a write error is raised unless another exception is
+    already unwinding.  On ``KeyboardInterrupt`` with ``save`` given and a
+    step taken, the snapshot is saved (after the writes in flight) before
+    it propagates, whatever ``checkpoint_every``: resuming from it
+    continues exactly.  ``torn()`` true means a second Ctrl-C escaped in
+    the middle of a window whose state is updated in place (a CUDA graph's
+    buffers): then nothing is saved and the last checkpoint stands."""
     history = []
     saves = _CheckpointWrites()
     best, since_best = float("-inf"), 0
@@ -242,13 +602,12 @@ def _drive(state, step_fn: Callable, next_batch: Callable, *, step: int,
     snap = (state, step)
     try:
         while step < total_steps:
-            epoch = step // steps_per_epoch
-            lr_now = lr_at(step)
-            xb, yb = next_batch()
+            k = window_len(step) if window_len is not None else 1
             with _sigint_shield():
-                v, new_state = step_fn(lr_now, xb, yb, state)
-                snap = (new_state, step + 1)
+                v, new_state = run_window(step, k, state)
+                snap = (new_state, step + k)
                 state, step = snap
+            epoch = (step - 1) // steps_per_epoch
             stop = False
             if step % log_every == 0 or step == first:
                 rec = {"epoch": epoch, "loss": float(v)}
@@ -283,6 +642,11 @@ def _drive(state, step_fn: Callable, next_batch: Callable, *, step: int,
         # Ctrl-C leaves an exact-resume checkpoint at the snapshot's step
         s_state, s_step = snap
         if save is not None and s_step > 0:
+            if torn is not None and torn():
+                if verbose:
+                    print("interrupt landed inside a window (double Ctrl-C): "
+                          "its state is torn; no checkpoint written")
+                raise
             saves.join()  # the writes in flight land first
             for f in save(s_state, s_step):
                 f.result()
@@ -297,29 +661,59 @@ def _drive(state, step_fn: Callable, next_batch: Callable, *, step: int,
     return state, history, step
 
 
+def _window_planner(*, first_step: int, total_steps: int, log_every: int,
+                    checkpoint_every: int, steps_per_epoch: int,
+                    chain_steps, batch: int, ragged: bool):
+    """``window_len(s)`` of a chained run (the JAX package's
+    ``_window_len``): the steps from ``s`` to the next observation
+    boundary (each ``log_every``, each ``checkpoint_every`` (0: none), the
+    run's first step, the budget), capped by an int ``chain_steps``;
+    with a ``ragged`` last batch each epoch's final step is a window of
+    its own.  Boundaries are absolute step positions, so a resumed run
+    cuts the same windows."""
+    kcap = max(1, (1 << 25) // max(batch, 1))
+    if isinstance(chain_steps, int):
+        kcap = min(kcap, chain_steps)
+
+    def window_len(s: int) -> int:
+        nb = total_steps
+        if s < first_step:
+            nb = min(nb, first_step)
+        nb = min(nb, (s // log_every + 1) * log_every)
+        if checkpoint_every:
+            nb = min(nb, (s // checkpoint_every + 1) * checkpoint_every)
+        if ragged:
+            rag = ((s // steps_per_epoch) * steps_per_epoch
+                   + steps_per_epoch - 1)
+            if s == rag:
+                return 1
+            nb = min(nb, rag)
+        return max(1, min(nb - s, kcap))
+
+    return window_len
+
+
+def _longest_window(window_len: Callable, step: int, total: int) -> int:
+    """The longest window a run from ``step`` to ``total`` will cut."""
+    longest = 1
+    while step < total:
+        k = window_len(step)
+        longest, step = max(longest, k), step + k
+    return longest
+
+
 def _refuse(caller: str, what: str, item: int) -> None:
     raise ValueError(
         f"{caller}: {what} is not ported to the PyTorch package yet "
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def _check_ported(caller: str, *, mixed_precision, chain_steps,
-                  chain_shuffle, mesh, shard_opt_state, zero_stage,
+def _check_ported(caller: str, *, mesh, shard_opt_state, zero_stage,
                   offload_opt_state, **later) -> None:
     """Refuse every option of the JAX package's loop ``caller`` that this
     package does not run yet, naming the ROADMAP item that will port it:
     none is silently ignored.  ``later`` holds ``fit``'s ``profile_dir``
     (item 8) and ``pipeline_*`` options (item 9)."""
-    if mixed_precision not in (False, None, "off"):
-        _refuse(caller, "mixed_precision", 5)
-    if chain_steps != "auto" and (not isinstance(chain_steps, int)
-                                  or chain_steps < 1):
-        raise ValueError(f"chain_steps must be 'auto' or an int >= 1, got "
-                         f"{chain_steps!r}")
-    if isinstance(chain_steps, int) and chain_steps > 1:
-        _refuse(caller, "chain_steps > 1", 6)
-    if chain_shuffle != "host":
-        _refuse(caller, f"chain_shuffle={chain_shuffle!r}", 6)
     if later.pop("profile_dir", None):
         _refuse(caller, "profile_dir", 8)
     for name, value in (("mesh", mesh), ("zero_stage", zero_stage),
@@ -330,6 +724,53 @@ def _check_ported(caller: str, *, mixed_precision, chain_steps,
         _refuse(caller, "shard_opt_state", 9)
     if offload_opt_state:
         _refuse(caller, "offload_opt_state", 9)
+
+
+def _check_chain(chain_steps, chain_shuffle: str, n_rows: int,
+                 batch_size: int, ragged_msg: str) -> None:
+    """The JAX package's eager checks of ``chain_steps`` and
+    ``chain_shuffle`` (``ragged_msg`` ends the device modes' message about
+    a dataset that does not divide into batches)."""
+    if chain_steps != "auto" and (not isinstance(chain_steps, int)
+                                  or chain_steps < 1):
+        raise ValueError(f"chain_steps must be 'auto' or an int >= 1, got "
+                         f"{chain_steps!r}")
+    if chain_shuffle not in ("host", "device", "device_fixed"):
+        raise ValueError(
+            f"chain_shuffle must be 'host', 'device', or "
+            f"'device_fixed', got {chain_shuffle!r}")
+    if chain_shuffle != "host" and n_rows % batch_size != 0:
+        raise ValueError(f"chain_shuffle={chain_shuffle!r} computes the "
+                         f"batch stream on the device {ragged_msg}")
+
+
+def _use_chain(be: Backend, chain_steps, chain_shuffle: str,
+               n_values: int, what: str, allowed: bool = True) -> bool:
+    """Whether the run chains: ``allowed``, a torch backend and
+    ``chain_steps != 1``, and for ``"auto"`` a dataset of at most 1 GiB on
+    the device (the JAX package's gate; its mesh, ``profile_dir`` and
+    offload back-offs are refused before this).  A device
+    ``chain_shuffle`` without chaining raises, as there."""
+    use = False
+    if allowed and be.name == "torch" and chain_steps != 1:
+        use = (chain_steps != "auto"
+               or n_values * be.dtype.itemsize <= (1 << 30))
+    if chain_shuffle != "host" and not use:
+        raise ValueError(
+            f"chain_shuffle={chain_shuffle!r} needs step chaining to "
+            f"engage: the torch backend, chain_steps != 1, and (in auto "
+            f"mode) a dataset small enough to stay on the device — this "
+            f"configuration fell back to unchained steps, where the host "
+            f"{what} already owns the shuffle")
+    return use
+
+
+def _check_mp(mixed_precision, be: Backend) -> str:
+    mp_mode = _normalize_mp(mixed_precision)
+    if mp_mode != "off" and be.name != "torch":
+        raise ValueError("mixed_precision requires the torch backend (the "
+                         "numpy oracle has no bf16 compute path)")
+    return mp_mode
 
 
 def _check_knobs(accum_steps: int, ema_decay, batch_size: int,
@@ -361,7 +802,7 @@ def fit(
     accum_steps: int = 1,
     clip_norm: Optional[float] = None,
     lr_schedule: Optional[Callable[[int], float]] = None,
-    mixed_precision: bool = False,
+    mixed_precision=False,
     shard_opt_state: bool = False,
     zero_stage: Optional[int] = None,
     offload_opt_state: bool = False,
@@ -395,8 +836,9 @@ def fit(
     rate (``optim.cosine_schedule``, ``optim.exponential_schedule``);
     ``clip_norm`` clips the mean gradient by its global L2 norm.  On a
     ``TorchBackend``, ``prefetch > 1`` keeps that many batches in flight
-    to the device (:class:`DevicePrefetcher`); the batches and the result
-    are the same as with ``prefetch=0``.
+    to the device (:class:`DevicePrefetcher`) in an unchained run (a
+    chained one gathers its batches on the device); the batches and the
+    result are the same as with ``prefetch=0``.
 
     Every ``log_every`` steps (and at the run's first step) the loss goes
     to the history, to ``metrics_path`` (JSONL) and, with ``verbose``, to
@@ -428,14 +870,42 @@ def fit(
     (a second one raises at once).  The ``.state`` format is the JAX
     package's: a file of either package resumes in the other.
 
-    ``chain_steps`` takes ``"auto"`` or 1; both run one step at a time.
-    ``mixed_precision``, ``chain_steps > 1``, a ``chain_shuffle`` other
-    than ``"host"``, ``profile_dir``, ``mesh``, ZeRO (``shard_opt_state``,
-    ``zero_stage``), ``offload_opt_state`` and the ``pipeline_*`` options
-    raise ``ValueError`` naming the ROADMAP item that ports them."""
-    _check_ported("fit", mixed_precision=mixed_precision,
-                  chain_steps=chain_steps, chain_shuffle=chain_shuffle,
-                  mesh=mesh, shard_opt_state=shard_opt_state,
+    ``chain_steps`` (the JAX package's): between observation boundaries
+    (``log_every``, ``checkpoint_every``, the run's first step, the
+    budget, and each epoch's ragged last batch) a chained run takes each
+    window of steps from the dataset held on the device (``models/
+    chain.py``): on the card one CUDA graph of one step, replayed once a
+    step; on the CPU the same step run eagerly.  The math is the unchained
+    step's, so results, EMA, exact resume and Ctrl-C are unchanged (an
+    interrupt waits for the window's edge).  ``"auto"`` (the default)
+    chains on a ``TorchBackend`` whose float copy of ``(X, Y)`` fits in
+    1 GiB; an int >= 2 forces chaining with that window cap; ``1`` runs
+    one step at a time.  A step that cannot be captured raises
+    (``chain.CaptureError``), naming the operation; pass
+    ``chain_steps=1``.  ``chain_shuffle``: ``"host"`` (the default) takes
+    the loader's indices, bit for bit the batches of an unchained run;
+    ``"device"`` draws each epoch's permutation on the device
+    (:func:`_device_window_indices`) and ``"device_fixed"`` shuffles the
+    rows once and each epoch only the order of the batch slots
+    (:func:`_device_window_offsets`): no index byte from the host, every
+    row once an epoch, a pure function of (seed, step); their order is
+    not the host loader's.  The device modes need chaining and a dataset
+    that divides into batches.
+
+    ``mixed_precision`` (torch only): ``"bf16"`` runs the forward and
+    backward in bf16 (through the batched graph where the network allows,
+    :func:`make_opt_step`) on masters of the backend's dtype; ``True`` /
+    ``"auto"`` measures the f32 and the bf16 step once and keeps bf16 only
+    when it is more than 3% faster, prints the decision, writes it to the
+    metrics JSONL (``mp_route``, ``mp_f32_us``, ``mp_bf16_us``), caches it
+    on the network and records it in every ``.state`` checkpoint, so
+    ``resume=True`` re-takes it without measuring.
+
+    ``profile_dir``, ``mesh``, ZeRO (``shard_opt_state``, ``zero_stage``),
+    ``offload_opt_state`` and the ``pipeline_*`` options raise
+    ``ValueError`` naming the ROADMAP item that ports them."""
+    mp_mode = _check_mp(mixed_precision, be)
+    _check_ported("fit", mesh=mesh, shard_opt_state=shard_opt_state,
                   zero_stage=zero_stage, offload_opt_state=offload_opt_state,
                   profile_dir=profile_dir,
                   pipeline_microbatches=pipeline_microbatches,
@@ -452,9 +922,15 @@ def fit(
             f"val_metric must be 'accuracy' (val=(Xv, class labels)) or "
             f"'loss' (val=(Xv, targets) through the training loss — for "
             f"regression/reconstruction objectives), got {val_metric!r}")
+    _check_chain(chain_steps, chain_shuffle, X.shape[0], batch_size,
+                 f"and needs the dataset ({X.shape[0]} rows) to divide "
+                 f"evenly into batches ({batch_size}): a ragged tail batch "
+                 f"cannot ride the fixed-shape index window — trim the "
+                 f"dataset or use chain_shuffle='host'")
+    use_chain = _use_chain(be, chain_steps, chain_shuffle, X.size + Y.size,
+                           "loader")
+    chain_dev = use_chain and chain_shuffle != "host"
     opt = optimizer or sgd()
-    step_fn = make_opt_step(net, loss, be, opt, accum_steps=accum_steps,
-                            clip_norm=clip_norm)
     steps_per_epoch = (X.shape[0] + batch_size - 1) // batch_size
     total_steps = epochs * steps_per_epoch
     params = tuple(net.params)
@@ -463,17 +939,43 @@ def fit(
     # id-based struct keys (custom optimizers without `hyper`) do not
     # survive process restarts: only factory-made optimizers are checked
     opt_key = opt.struct_key() if opt.hyper is not None else None
-    state_meta = {"layout": "flat"}
 
     def as_network(ps) -> Network:
         return Network(net.op, tuple(ps), net.act_names)
 
+    def build_step(mp_active: bool):
+        return make_opt_step(net, loss, be, opt, accum_steps=accum_steps,
+                             clip_norm=clip_norm, mixed_precision=mp_active)
+
     # the records' `t` counts from here, so the first one holds the
     # loader's build and its first copies as well as the first step
     logger = MetricsLogger(metrics_path)
-    loader = None
+    loader = chain_fn = None
     try:
-        loader = NativeLoader(X, Y, batch=batch_size, seed=seed)
+        loader = NativeLoader(X, Y, batch=batch_size, seed=seed,
+                              index_mode=use_chain and not chain_dev)
+        mp_active, mp_rec = mp_mode == "bf16", None
+        if mp_mode == "auto":
+            def dummy_args():
+                rows = min(batch_size, X.shape[0])
+                xb = be.zeros((rows,) + tuple(X.shape[1:]))
+                yb = be.zeros((rows,) + tuple(Y.shape[1:]))
+                return (_scalars([lr], params[0])[0], xb, yb, opt_state,
+                        params)
+
+            route_key = ("mproute", loss.struct_key(), opt.struct_key(),
+                         clip_norm, int(accum_steps), int(batch_size),
+                         tuple(X.shape[1:]),
+                         tuple(Y.shape[1:])) + be.cache_key()
+            mp_active, mp_rec = _resolve_mp_route(
+                net, build_step, dummy_args, route_key, resume=resume,
+                state_path=state_path, carry_from=3, verbose=verbose)
+        step_fn = build_step(mp_active)
+        # the route travels with every .state checkpoint, so resume
+        # re-takes it without measuring
+        state_meta = {"layout": "flat"}
+        if mp_mode != "off":
+            state_meta["mp_route"] = "bf16" if mp_active else "f32"
         step = 0
         r_ema = None
         if resume and state_path and os.path.exists(state_path):
@@ -481,7 +983,7 @@ def fit(
 
             rparams, opt_state, step, r_ema = load_train_state(
                 state_path, opt_state, opt_key=opt_key,
-                expect_meta=state_meta, with_ema=True)
+                expect_meta={"layout": "flat"}, with_ema=True)
             if len(rparams) != len(params):
                 raise ValueError(
                     f"checkpoint holds {len(rparams)} parameter leaves but "
@@ -489,30 +991,61 @@ def fit(
                     f"same model")
             params = tuple(be.asarray(p) for p in rparams)
             # stream position == global step: the resumed run continues
-            # the epoch's shuffle where the saving run stopped
-            if step < total_steps:
+            # the epoch's shuffle where the saving run stopped (the device
+            # streams are a function of the step: nothing to skip)
+            if step < total_steps and not chain_dev:
                 loader.skip(step)
             if verbose:
                 print(f"resumed from {state_path} at step {step} "
                       f"({max(total_steps - step, 0)} of {total_steps} "
                       f"steps remaining)")
+        if mp_mode != "off":
+            # the decision lands in the metrics JSONL too
+            logger.log(step, mp_route=state_meta["mp_route"],
+                       **(mp_rec or {}))
         ema = None
         if ema_decay is not None:
             ema = _ema_init(r_ema, params, be, step, "fit")
             ema_step = _ema_update(ema_decay)
+        lr_at = lr_schedule or (lambda s: lr)
+        window_len = torn = None
 
-        if prefetch > 1 and be.name == "torch" and step < total_steps:
-            next_batch = DevicePrefetcher(loader, be.device, be.dtype,
-                                          depth=prefetch).next
+        if use_chain:
+            # the loader's own float32 rows are the chained path's data:
+            # gathering them on the device gives bit for bit the rows the
+            # loader assembles on the host
+            chain_fn, window_len = _chained(
+                be, loader.X, loader.Y, step_fn, 1, lambda new: tuple(new[-1]),
+                params[0].dtype, ema_decay=ema_decay,
+                chain_steps=chain_steps, chain_shuffle=chain_shuffle,
+                seed=seed, batch=batch_size, steps_per_epoch=steps_per_epoch,
+                step=step, total_steps=total_steps, log_every=log_every,
+                checkpoint_every=checkpoint_every if checkpoint_path else 0,
+                ragged=X.shape[0] % batch_size != 0)
+            torn = lambda: chain_fn.busy  # noqa: E731
+
+            def run_window(s, k, state):
+                ps, o, e = state
+                sel = (s if chain_dev else
+                       np.stack([loader.next_indices() for _ in range(k)]))
+                lrs = [lr_at(i) for i in range(s, s + k)]
+                v, o, ps, e = chain_fn(lrs, sel, o, ps, e or ())
+                return v, (ps, o, e or None)
         else:
-            def next_batch():
-                xb, yb = loader.next()
-                return be.asarray(xb), be.asarray(yb)
+            if prefetch > 1 and be.name == "torch" and step < total_steps:
+                next_batch = DevicePrefetcher(loader, be.device, be.dtype,
+                                              depth=prefetch).next
+            else:
+                def next_batch():
+                    xb, yb = loader.next()
+                    return be.asarray(xb), be.asarray(yb)
 
-        def train_step(lr_now, xb, yb, state):
-            ps, o, e = state
-            v, o, ps = step_fn(lr_now, xb, yb, o, ps)
-            return v, (ps, o, None if e is None else ema_step(e, ps))
+            def run_window(s, k, state):
+                ps, o, e = state
+                (lr_now,) = _scalars([lr_at(s)], ps[0])
+                xb, yb = next_batch()
+                v, o, ps = step_fn(lr_now, xb, yb, o, ps)
+                return v, (ps, o, None if e is None else ema_step(e, ps))
 
         evaluate = None
         if val is not None:
@@ -542,15 +1075,17 @@ def fit(
                                                extra_meta=state_meta))
 
         (params, _, ema), history, step = _drive(
-            (params, opt_state, ema), train_step, next_batch, step=step,
+            (params, opt_state, ema), run_window, step=step,
             total_steps=total_steps, steps_per_epoch=steps_per_epoch,
-            lr_at=lr_schedule or (lambda s: lr), log_every=log_every,
-            logger=logger, evaluate=evaluate,
-            early_stop_patience=early_stop_patience, save=save,
-            checkpoint_every=checkpoint_every, verbose=verbose)
+            window_len=window_len, log_every=log_every, logger=logger,
+            evaluate=evaluate, early_stop_patience=early_stop_patience,
+            save=save, checkpoint_every=checkpoint_every, verbose=verbose,
+            torn=torn)
     finally:
         if loader is not None:
             loader.close()
+        if chain_fn is not None:
+            chain_fn.close()
         logger.close()
     return FitResult(as_network(params), history, step,
                      ema_net=None if ema is None else as_network(ema))
@@ -559,8 +1094,8 @@ def fit(
 def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
                     opt: Optional[Optimizer] = None,
                     clip_norm: Optional[float] = None, remat_every=None,
-                    accum_steps: int = 1, offload_tape: bool = False
-                    ) -> Callable:
+                    accum_steps: int = 1, offload_tape: bool = False,
+                    mixed_precision: bool = False) -> Callable:
     """One sequence-batch step: the scan-BPTT mean loss and gradients
     (``training.make_seq_mean_grads``, the step ``train_batch`` takes) and
     the update, the logged loss from the same pass.
@@ -573,20 +1108,43 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
     update through the optimizer at rate ``rp``, the state gradients
     scaled first by ``ratio`` = rate_state / rate_param, an explicit
     argument: a warmup schedule reaches rp == 0, where rs / rp taken
-    inside the step would be 0/0.  ``clip_norm`` clips the joint
-    state+param gradient; ``remat_every`` and ``offload_tape`` go to the
-    scan (``ScanOp``); ``accum_steps > 1`` accumulates equal chunks
-    (:func:`_accum`), torch only.  Cached on the step op."""
+    inside the step would be 0/0.  The rates are floats or 0-d tensors.
+    ``clip_norm`` clips the joint state+param gradient; ``remat_every``
+    and ``offload_tape`` go to the scan (``ScanOp``); ``accum_steps > 1``
+    accumulates equal chunks (:func:`_accum`), torch only.
+    ``mixed_precision`` runs the scan-BPTT forward and backward in bf16 on
+    full-precision master states and params, the values and gradients
+    upcast to f32 before the batch mean (as :func:`make_opt_step`).
+    Cached on the step op.  :class:`_ChainedStep` chains it (a table row a
+    step: ``(rs, rp)``, or with ``opt`` ``(ratio, rp)``), the EMA over the
+    states and params."""
+    if mixed_precision and be.name != "torch":
+        raise ValueError("mixed_precision requires the torch backend — "
+                         "fit_sequences gates this itself")
     k = len(rnet.states)
     key = ("seq_fit_step", loss.struct_key(), n,
            opt.struct_key() if opt is not None else None, clip_norm,
-           remat_every, int(accum_steps), bool(offload_tape)) + be.cache_key()
+           remat_every, int(accum_steps), bool(offload_tape),
+           bool(mixed_precision)) + be.cache_key()
     fn = rnet.op._compiled.get(key)
     if fn is not None:
         return fn
-    mean_grads = make_seq_mean_grads(rnet, loss, be, n,
-                                     remat_every=remat_every,
-                                     offload_tape=offload_tape)
+    if mixed_precision:
+        from ..backend.torch_backend import TorchBackend
+
+        bf16 = torch.bfloat16
+        lp_grads = make_seq_mean_grads(
+            rnet, loss, TorchBackend(bf16, be.device), n,
+            remat_every=remat_every, offload_tape=offload_tape,
+            upcast=torch.float32)
+
+        def mean_grads(xb, tb, leaves):
+            return lp_grads(xb.to(bf16), tb.to(bf16),
+                            tuple(x.to(bf16) for x in leaves))
+    else:
+        mean_grads = make_seq_mean_grads(rnet, loss, be, n,
+                                         remat_every=remat_every,
+                                         offload_tape=offload_tape)
 
     def grads_of(xb, tb, states, params):
         leaves = tuple(states) + tuple(params)
@@ -632,12 +1190,18 @@ class _SeqStream:
         self._b = start_step % steps_per_epoch
 
     def next(self):
+        idx = self.next_indices()
+        return self.XS[idx], self.TS[idx]
+
+    def next_indices(self) -> np.ndarray:
+        """The next batch's sequence indices, advancing the same stream
+        position as :meth:`next`: chained host-mode windows consume it."""
         idx = self._perm[self._b * self.batch:(self._b + 1) * self.batch]
         self._b += 1
         if self._b == self.spe:
             self._b = 0
             self._perm = self._rng.permutation(self.XS.shape[0])
-        return self.XS[idx], self.TS[idx]
+        return idx
 
 
 def fit_sequences(
@@ -655,7 +1219,7 @@ def fit_sequences(
     accum_steps: int = 1,
     clip_norm: Optional[float] = None,
     lr_schedule: Optional[Callable[[int], float]] = None,
-    mixed_precision: bool = False,
+    mixed_precision=False,
     shard_opt_state: bool = False,
     zero_stage: Optional[int] = None,
     offload_opt_state: bool = False,
@@ -709,15 +1273,21 @@ def fit_sequences(
     and ``early_stop_patience=k`` stops once it has not improved over k
     evaluations in a row.  The ``.state`` format is the JAX package's.
 
-    ``chain_steps`` takes ``"auto"`` or 1; both run one step at a time.
-    ``mixed_precision``, ``chain_steps > 1``, a ``chain_shuffle`` other
-    than ``"host"``, ``mesh``, ZeRO (``shard_opt_state``, ``zero_stage``)
-    and ``offload_opt_state`` raise ``ValueError`` naming the ROADMAP item
-    that ports them."""
-    _check_ported("fit_sequences", mixed_precision=mixed_precision,
-                  chain_steps=chain_steps, chain_shuffle=chain_shuffle,
-                  mesh=mesh, shard_opt_state=shard_opt_state,
-                  zero_stage=zero_stage, offload_opt_state=offload_opt_state)
+    ``chain_steps`` / ``chain_shuffle`` chain the windows between
+    observation boundaries exactly as ``fit``'s do (no ragged batches
+    here: the stream drops them), over the sequences held on the device;
+    ``"host"`` consumes :class:`_SeqStream`'s indices, bit for bit the
+    unchained run; ``"auto"`` backs off with ``offload_activations``
+    (whose host copies cannot ride a graph; an int ``chain_steps > 1``
+    with it raises).  ``mixed_precision`` runs the scan-BPTT step in bf16
+    on full-precision masters, routed as in ``fit`` (``True`` measures
+    once, records ``mp_route``).  ``mesh``, ZeRO (``shard_opt_state``,
+    ``zero_stage``) and ``offload_opt_state`` raise ``ValueError`` naming
+    the ROADMAP item that ports them."""
+    mp_mode = _check_mp(mixed_precision, be)
+    _check_ported("fit_sequences", mesh=mesh,
+                  shard_opt_state=shard_opt_state, zero_stage=zero_stage,
+                  offload_opt_state=offload_opt_state)
     if offload_activations and be.name == "numpy":
         raise ValueError(
             "offload_activations streams the scan-BPTT carry tape "
@@ -732,11 +1302,25 @@ def fit_sequences(
         raise ValueError("accum_steps > 1 requires the torch backend (the "
                          "numpy oracle's per-sequence loop has no batched "
                          "activations to amortize)")
+    _check_chain(chain_steps, chain_shuffle, XS.shape[0], batch_size,
+                 f"over {XS.shape[0]} sequences, which must divide into "
+                 f"whole batches of {batch_size} — trim the dataset or use "
+                 f"chain_shuffle='host'")
+    if (isinstance(chain_steps, int) and chain_steps > 1
+            and offload_activations):
+        raise ValueError(
+            "chain_steps > 1 cannot combine with offload_activations: the "
+            "host copies of the carry tape cannot ride a captured step — "
+            "use chain_steps='auto' (which backs off) or chain_steps=1")
     N = XS.shape[0]
     if N < batch_size:
         raise ValueError(
             f"dataset ({N} sequences) must hold at least one batch "
             f"({batch_size}); ragged batches are dropped")
+    use_chain = _use_chain(be, chain_steps, chain_shuffle,
+                           XS.size + TS.size, "stream",
+                           allowed=not offload_activations)
+    chain_dev = use_chain and chain_shuffle != "host"
     opt = optimizer
     steps_per_epoch = N // batch_size
     total_steps = epochs * steps_per_epoch
@@ -746,13 +1330,44 @@ def fit_sequences(
     state_path = (checkpoint_path + ".state") if checkpoint_path else None
     opt_key = (opt.struct_key()
                if opt is not None and opt.hyper is not None else None)
+    ratio = rate_state / rate_param if opt is not None else None
 
     def as_rnet(ls) -> RecurrentNetwork:
         return RecurrentNetwork(rnet.op, tuple(ls[:k]), tuple(ls[k:]),
                                 rnet.arch)
 
+    def build_step(mp_active: bool):
+        return _seq_train_step(rnet, loss, be, XS.shape[1], opt=opt,
+                               clip_norm=clip_norm, remat_every=remat_every,
+                               accum_steps=accum_steps,
+                               offload_tape=offload_activations,
+                               mixed_precision=mp_active)
+
     logger = MetricsLogger(metrics_path)
+    chain_fn = None
     try:
+        mp_active, mp_rec = mp_mode == "bf16", None
+        if mp_mode == "auto":
+            def dummy_args():
+                xb = be.zeros((batch_size,) + tuple(XS.shape[1:]))
+                tb = be.zeros((batch_size,) + tuple(TS.shape[1:]))
+                rs, rp = _scalars((rate_state, rate_param), leaves[-1])
+                if opt is None:
+                    return (rs, rp, xb, tb, leaves[:k], leaves[k:])
+                return (ratio, rp, xb, tb, opt_state, leaves[:k], leaves[k:])
+
+            route_key = ("mproute_seq", loss.struct_key(),
+                         opt.struct_key() if opt is not None else None,
+                         clip_norm, int(accum_steps), int(batch_size),
+                         remat_every, bool(offload_activations),
+                         tuple(XS.shape[1:]),
+                         tuple(TS.shape[1:])) + be.cache_key()
+            mp_active, mp_rec = _resolve_mp_route(
+                rnet, build_step, dummy_args, route_key, resume=resume,
+                state_path=state_path, carry_from=4, verbose=verbose)
+        step_fn = build_step(mp_active)
+        state_meta = ({"mp_route": "bf16" if mp_active else "f32"}
+                      if mp_mode != "off" else None)
         step = 0
         r_ema = None
         if resume and state_path and os.path.exists(state_path):
@@ -770,25 +1385,15 @@ def fit_sequences(
                 print(f"resumed from {state_path} at step {step} "
                       f"({max(total_steps - step, 0)} of {total_steps} "
                       f"steps remaining)")
+        if mp_mode != "off":
+            logger.log(step, mp_route=state_meta["mp_route"],
+                       **(mp_rec or {}))
         ema = None
         if ema_decay is not None:
             ema = _ema_init(r_ema, leaves, be, step, "fit_sequences")
             ema_step = _ema_update(ema_decay)
 
         stream = _SeqStream(XS, TS, batch_size, seed, step, steps_per_epoch)
-        if prefetch > 1 and be.name == "torch" and step < total_steps:
-            next_batch = DevicePrefetcher(stream, be.device, be.dtype,
-                                          depth=prefetch).next
-        else:
-            def next_batch():
-                xb, tb = stream.next()
-                return be.asarray(xb), be.asarray(tb)
-
-        step_fn = _seq_train_step(rnet, loss, be, XS.shape[1], opt=opt,
-                                  clip_norm=clip_norm,
-                                  remat_every=remat_every,
-                                  accum_steps=accum_steps,
-                                  offload_tape=offload_activations)
 
         def rates_at(s):
             if lr_schedule is None:
@@ -796,19 +1401,59 @@ def fit_sequences(
             rp = lr_schedule(s)
             return rate_state * (rp / rate_param), rp
 
-        def train_step(rates, xb, tb, state):
-            ls, o, e = state
-            rs, rp = rates
-            if opt is None:
-                v, new_s, new_p = step_fn(rs, rp, xb, tb, ls[:k], ls[k:])
+        window_len = torn = None
+        if use_chain:
+            # the whole dataset cast once: gathering rows of the cast copy
+            # is bit for bit the unchained path's cast of gathered rows
+            chain_fn, window_len = _chained(
+                be, XS, TS, step_fn, 2,
+                lambda new: tuple(new[-2]) + tuple(new[-1]),
+                leaves[-1].dtype, ema_decay=ema_decay,
+                chain_steps=chain_steps, chain_shuffle=chain_shuffle,
+                seed=seed, batch=batch_size, steps_per_epoch=steps_per_epoch,
+                step=step, total_steps=total_steps, log_every=log_every,
+                checkpoint_every=checkpoint_every if checkpoint_path else 0,
+                ragged=False)
+            torn = lambda: chain_fn.busy  # noqa: E731
+
+            def run_window(s, kw, state):
+                ls, o, e = state
+                sel = (s if chain_dev else
+                       np.stack([stream.next_indices() for _ in range(kw)]))
+                rates = [rates_at(i) for i in range(s, s + kw)]
+                opt_part = ()
+                if opt is not None:
+                    # the ratio rides the scalar table beside rp
+                    rates = [(ratio, rp) for _, rp in rates]
+                    opt_part = (o,)
+                v, *out, e = chain_fn(rates, sel, *opt_part, ls[:k], ls[k:],
+                                      e or ())
+                if opt is not None:
+                    o = out[0]
+                return v, (out[-2] + out[-1], o, e or None)
+        else:
+            if prefetch > 1 and be.name == "torch" and step < total_steps:
+                next_batch = DevicePrefetcher(stream, be.device, be.dtype,
+                                              depth=prefetch).next
             else:
-                # the ratio is schedule-invariant (rs and rp scale
-                # together); passed explicitly, a warmup rp == 0 stays
-                # finite
-                v, o, new_s, new_p = step_fn(rate_state / rate_param, rp, xb,
-                                             tb, o, ls[:k], ls[k:])
-            ls = new_s + new_p
-            return v, (ls, o, None if e is None else ema_step(e, ls))
+                def next_batch():
+                    xb, tb = stream.next()
+                    return be.asarray(xb), be.asarray(tb)
+
+            def run_window(s, kw, state):
+                ls, o, e = state
+                rs, rp = _scalars(rates_at(s), ls[-1])
+                xb, tb = next_batch()
+                if opt is None:
+                    v, new_s, new_p = step_fn(rs, rp, xb, tb, ls[:k], ls[k:])
+                else:
+                    # the ratio is schedule-invariant (rs and rp scale
+                    # together); passed explicitly, a warmup rp == 0 stays
+                    # finite
+                    v, o, new_s, new_p = step_fn(ratio, rp, xb, tb, o,
+                                                 ls[:k], ls[k:])
+                ls = new_s + new_p
+                return v, (ls, o, None if e is None else ema_step(e, ls))
 
         evaluate = None
         if val is not None:
@@ -827,15 +1472,19 @@ def fit_sequences(
                                              as_rnet(state[0])),
                         save_train_state_async(state_path, state[0],
                                                state[1], at, opt_key=opt_key,
-                                               ema=state[2]))
+                                               ema=state[2],
+                                               extra_meta=state_meta))
 
         (leaves, _, ema), history, step = _drive(
-            (leaves, opt_state, ema), train_step, next_batch, step=step,
+            (leaves, opt_state, ema), run_window, step=step,
             total_steps=total_steps, steps_per_epoch=steps_per_epoch,
-            lr_at=rates_at, log_every=log_every, logger=logger,
+            window_len=window_len, log_every=log_every, logger=logger,
             evaluate=evaluate, early_stop_patience=early_stop_patience,
-            save=save, checkpoint_every=checkpoint_every, verbose=verbose)
+            save=save, checkpoint_every=checkpoint_every, verbose=verbose,
+            torn=torn)
     finally:
+        if chain_fn is not None:
+            chain_fn.close()
         logger.close()
     return FitSeqResult(as_rnet(leaves), history, step,
                         ema_net=None if ema is None else as_rnet(ema))

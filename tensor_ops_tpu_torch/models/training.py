@@ -12,7 +12,7 @@ package's numpy branches do.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -80,18 +80,20 @@ def make_mean_grads(net: Network, loss: TOp, be: Backend) -> Callable:
 
 
 def make_seq_mean_grads(rnet, loss: TOp, be: Backend, n: int,
-                        remat_every=None, offload_tape: bool = False
-                        ) -> Callable:
+                        remat_every=None, offload_tape: bool = False,
+                        upcast: Optional[torch.dtype] = None) -> Callable:
     """``fn(xb, tb, leaves) -> (mean loss, mean grads)`` over a batch of
     ``(B, n, *in)`` sequences, ``leaves`` the states then the params and
     the grads in that order: the scan-BPTT sequence graph's value and
     gradient (``rnet._seq_graph``), vmapped over the sequences with the
     leaves broadcast, and its batch mean; on the NumPy oracle a loop over
     the sequences that sums their gradients (the JAX package's numpy
-    branch).  Cached on the step op.  ``RecurrentNetwork.train_batch``
-    and ``fit_sequences`` step on it."""
+    branch).  ``upcast`` casts the per-sequence values and gradients to
+    that dtype BEFORE the mean (the bf16 step's f32 mean).  Cached on the
+    step op.  ``RecurrentNetwork.train_batch`` and ``fit_sequences`` step
+    on it."""
     key = ("seq_mean_grads", loss.struct_key(), n, remat_every,
-           offload_tape) + be.cache_key()
+           offload_tape, upcast) + be.cache_key()
 
     def build():
         g = rnet._seq_graph(loss, n, remat_every=remat_every,
@@ -119,6 +121,9 @@ def make_seq_mean_grads(rnet, loss: TOp, be: Backend, n: int,
 
         def mean(xb, tb, leaves):
             vals, grads = vmapped(xb, tb, *leaves)
+            if upcast is not None:
+                vals = vals.to(upcast)
+                grads = tuple(gr.to(upcast) for gr in grads)
             return vals.mean(), tuple(gr.mean(dim=0) for gr in grads)
 
         return mean

@@ -464,11 +464,27 @@ def test_resume_without_ema_warns_and_restarts(tmp_path):
     assert res.ema_net is not None and res.steps == 4
 
 
+ACCEPTED = [dict(mixed_precision=True), dict(mixed_precision="bf16"),
+            dict(chain_steps=4), dict(chain_shuffle="device")]
+
+
+def _option_id(kw):
+    return next(iter(kw)) + "=" + str(next(iter(kw.values())))
+
+
+@pytest.mark.parametrize("kw", ACCEPTED, ids=[_option_id(k) for k in ACCEPTED])
+def test_ported_options_train(kw):
+    """The options ROADMAP items 5 and 6 ported (mixed precision, chained
+    steps, the device shuffle) run and train."""
+    XS, TS = sine(n_seqs=32, T_=6)
+    res = t_fit_seq(trnet(TB, jrnet(JNB, 6, 0)), t_sq(1), TB, XS, TS,
+                    epochs=6, batch_size=8, rate_state=0.05, rate_param=0.5,
+                    log_every=4, verbose=False, **kw)
+    assert res.steps == 24
+    assert res.history[-1]["loss"] < res.history[0]["loss"]
+
+
 REFUSED = [
-    (dict(mixed_precision=True), "item 5"),
-    (dict(mixed_precision="bf16"), "item 5"),
-    (dict(chain_steps=4), "item 6"),
-    (dict(chain_shuffle="device"), "item 6"),
     (dict(mesh="a mesh"), "item 9"),
     (dict(shard_opt_state=True), "item 9"),
     (dict(zero_stage=2), "item 9"),
@@ -477,8 +493,7 @@ REFUSED = [
 
 
 @pytest.mark.parametrize("kw,item", REFUSED,
-                         ids=[next(iter(k)) + "=" + str(next(iter(k.values())))
-                              for k, _ in REFUSED])
+                         ids=[_option_id(k) for k, _ in REFUSED])
 def test_unported_options_raise(kw, item):
     XS, TS = sine(n_seqs=8, T_=3)
     with pytest.raises(ValueError, match=f"ROADMAP.md, Queue 1 {item}"):
@@ -494,6 +509,7 @@ def test_option_values_checked_as_jax_does():
                     (dict(batch_size=9), "at least one batch")):
         with pytest.raises(ValueError, match=msg):
             t_fit_seq(net, t_sq(1), TB, XS, TS, verbose=False, **kw)
+    # chain_steps=1 runs one step at a time, "auto" chains the windows
     for chain in (1, "auto"):
         res = t_fit_seq(net, t_sq(1), TB, XS, TS, batch_size=4,
                         chain_steps=chain, verbose=False)

@@ -2,8 +2,9 @@
 (f32, int8 and recurrent), training, recurrent-sequence (``FusedRNN`` on
 ``fused_rnn_seq``), data-parallel, ``fit`` (with the NumPy oracle, the dots
 app and the autoencoder) and ``fit_sequences`` paths (with ``adam8bit``,
-EMA, accumulation and both examples' entry points) run end to end, in a
-fresh interpreter where ``import jax`` fails."""
+EMA, accumulation and both examples' entry points), chained steps (host
+and device shuffles, both loops) and a ``mixed_precision`` bf16 step run
+end to end, in a fresh interpreter where ``import jax`` fails."""
 
 import os
 import re
@@ -179,6 +180,31 @@ with tempfile.TemporaryDirectory() as d:
     assert production_fit.main(["--device", "cpu", "--workdir", d])[
         "acc"] > 0.9
     assert callable(recurrent_sine.main)  # runs in test_torch_examples
+
+    # chained steps and mixed precision: a chained fit equals the unchained
+    # one, the device shuffle and a chained fit_sequences run, a bf16 step
+    # through the batched graph keeps f64 masters
+    from tensor_ops_tpu_torch.models import chain, trainer
+    from tensor_ops_tpu_torch.models.batched import batched_loss_graph
+    one = fit(net, cross_entropy(4), be, X, Y, epochs=2, batch_size=8,
+              optimizer=adam(), chain_steps=1, log_every=3, verbose=False)
+    chained = fit(net, cross_entropy(4), be, X, Y, epochs=2, batch_size=8,
+                  optimizer=adam(), chain_steps="auto", log_every=3,
+                  verbose=False)
+    assert all(torch.equal(a, b)
+               for a, b in zip(one.net.params, chained.net.params))
+    assert fit(net, cross_entropy(4), be, X, Y, epochs=1, batch_size=8,
+               chain_shuffle="device", verbose=False).steps == 5
+    assert fit_sequences(rnet, squared_error(2), be32, XS, TS, epochs=2,
+                         batch_size=8, chain_steps=2,
+                         verbose=False).steps == 4
+    assert batched_loss_graph(net, cross_entropy(4), 8) is not None
+    step = trainer.make_opt_step(net, cross_entropy(4), be, adam(),
+                                 mixed_precision=True)
+    v, _, ps = step(0.01, be.asarray(X[:8]), be.asarray(Y[:8]),
+                    adam().init(net.params), net.params)
+    assert float(v) > 0 and all(p.dtype == torch.float64 for p in ps)
+    assert chain.chain_counts()["captures"] == 0  # no card here
 assert sys.modules["jax"] is None
 assert not any(m.startswith("jax.") or m == "jaxlib" for m in sys.modules)
 print("NAMES", len(names))

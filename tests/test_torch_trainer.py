@@ -246,8 +246,9 @@ def test_port_state_loads_in_jax(tmp_path):
     lambda p: np.asarray(p, dtype=np.float64)], ids=["torch_f32", "numpy"])
 def test_load_train_state_restores_onto_the_template(tmp_path, template_of):
     """The port's ``load_train_state`` gives each optimizer leaf the
-    template leaf's type, dtype and device (adam's step an int), with the
-    values of a JAX-written file."""
+    template leaf's type, dtype and device (adam's step the template's: a
+    0-d int32 tensor beside tensor parameters, an int beside NumPy ones),
+    with the values of a JAX-written file."""
     X, Y, _ = data(70, 1)
     jn = jnet(JB, seed=4)
     ck = str(tmp_path / "j.npz")
@@ -261,7 +262,9 @@ def test_load_train_state_restores_onto_the_template(tmp_path, template_of):
         expect_meta={"layout": "flat"})
     _, (_, jm, jv), _ = JC.load_train_state(ck + ".state",
                                             JO.adam().init(jn.params))
-    assert step == t == 5 and isinstance(t, int)
+    assert step == int(t) == 5 and type(t) is type(template[0])
+    if isinstance(t, torch.Tensor):
+        assert t.dtype == template[0].dtype == torch.int32 and t.ndim == 0
     for got, want, tmpl in zip(m + v, jm + jv, template[1] + template[2]):
         assert type(got) is type(tmpl) and got.dtype == tmpl.dtype
         np.testing.assert_array_equal(
@@ -271,20 +274,37 @@ def test_load_train_state_restores_onto_the_template(tmp_path, template_of):
 def test_prefetch_is_identical_to_no_prefetch():
     X, Y, _ = data(70, 1)
     params = jnet(JNB, seed=2).params
+    # chain_steps=1: a chained run gathers its batches on the device and
+    # builds no prefetcher
     runs = [t_fit(tnet(TB, params), t_xent(O), TB, X, Y, epochs=2,
                   batch_size=16, lr=0.3, log_every=1, prefetch=depth,
-                  verbose=False) for depth in (2, 0)]
+                  chain_steps=1, verbose=False) for depth in (2, 0)]
     assert [h["loss"] for h in runs[0].history] == \
         [h["loss"] for h in runs[1].history]
     for a, b in zip(runs[0].net.params, runs[1].net.params):
         assert torch.equal(a, b)
 
 
+ACCEPTED = [dict(mixed_precision=True), dict(mixed_precision="bf16"),
+            dict(chain_steps=4), dict(chain_shuffle="device")]
+
+
+def _option_id(kw):
+    return next(iter(kw)) + "=" + str(next(iter(kw.values())))
+
+
+@pytest.mark.parametrize("kw", ACCEPTED, ids=[_option_id(k) for k in ACCEPTED])
+def test_ported_options_train(kw):
+    """The options ROADMAP items 5 and 6 ported (mixed precision, chained
+    steps, the device shuffle) run and train."""
+    X, Y, _ = data(80, 1)
+    res = t_fit(tnet(TB, jnet(JNB).params), t_xent(O), TB, X, Y, epochs=4,
+                batch_size=20, lr=0.5, log_every=4, verbose=False, **kw)
+    assert res.steps == 16
+    assert res.history[-1]["loss"] < res.history[0]["loss"]
+
+
 REFUSED = [
-    (dict(mixed_precision=True), "item 5"),
-    (dict(mixed_precision="bf16"), "item 5"),
-    (dict(chain_steps=4), "item 6"),
-    (dict(chain_shuffle="device"), "item 6"),
     (dict(profile_dir="prof"), "item 8"),
     (dict(mesh="a mesh"), "item 9"),
     (dict(shard_opt_state=True), "item 9"),
@@ -297,8 +317,7 @@ REFUSED = [
 
 
 @pytest.mark.parametrize("kw,item", REFUSED,
-                         ids=[next(iter(k)) + "=" + str(next(iter(k.values())))
-                              for k, _ in REFUSED])
+                         ids=[_option_id(k) for k, _ in REFUSED])
 def test_unported_options_raise(kw, item):
     X, Y, _ = data(20, 1)
     with pytest.raises(ValueError, match=f"ROADMAP.md, Queue 1 {item}"):
@@ -315,7 +334,7 @@ def test_option_values_checked_as_jax_does():
                     (dict(early_stop_patience=2), "early_stop_patience")):
         with pytest.raises(ValueError, match=msg):
             t_fit(net, t_xent(O), TB, X, Y, verbose=False, **kw)
-    # chain_steps 1 and "auto" both run one step at a time
+    # chain_steps=1 runs one step at a time, "auto" chains the windows
     for chain in (1, "auto"):
         res = t_fit(net, t_xent(O), TB, X, Y, batch_size=10, chain_steps=chain,
                     verbose=False)
@@ -332,11 +351,12 @@ def test_cuda_backend_raises_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         tnet(cuda, jnet(JNB).params)
     # a network on the CPU handed to a cuda backend: the first batch's
-    # move to the card raises, with and without the prefetcher
+    # move to the card raises, with and without the prefetcher (which
+    # only an unchained run builds)
     for depth in (2, 0):
         with pytest.raises((RuntimeError, AssertionError)):
             t_fit(tnet(TB, jnet(JNB).params), t_xent(O), cuda, X, Y,
-                  prefetch=depth, verbose=False)
+                  prefetch=depth, chain_steps=1, verbose=False)
 
 
 def test_metrics_and_checkpoints_written(tmp_path):
