@@ -206,6 +206,28 @@ without printing a result line:
    bf16 flagship run learns on f32 masters; one bf16 sgd step's gradients
    against the full-precision step in CPU f64 (``TOL_BF16_GRAD``); the bf16
    step's product kernels by name (bf16 tensor-core GEMMs).
+23. The mesh's data axis, in a second interpreter: the flagship through
+   ``fit`` on ``make_mesh(4, shape=(4, 1), devices=["cuda"] * 4)`` (4
+   ranks on the card, 25 rows each of B = 100; adam, lr 0.02, one epoch of
+   the synthetic set = 60 steps), replicated, ``shard_opt_state``,
+   ``zero_stage`` 2 and 3, ZeRO-3 with ``offload_opt_state``, and
+   ``adam8bit`` (stochastic rounding) replicated and with
+   ``exact_reduction`` at ZeRO-3: the loss falls in each; kernel 9's
+   launches by phase (ar, rs, ag) equal ``MESH_RUNS``' prediction; ZeRO-1
+   bit-equal to the replicated run, ZeRO-2 within ``TOL_MESH``, ZeRO-3
+   bit-equal to ZeRO-2, offload to ZeRO-3, exact adam8bit to replicated
+   adam8bit; a Ctrl-C at step 30 of ZeRO-3, resumed, bit-equal; 5 sgd steps
+   against ``fit`` on one device (``TOL_5_STEPS``); each rank's resident
+   bytes equal ``training_memory_report``'s rows; samples/s over steps
+   11-60 of each; one ZeRO-3 step's wall time, profile and idle share.
+   Then ``fit_sequences`` (phase 9's model, adam, ZeRO-2, 4 steps of 256
+   sequences) against one device within ``TOL_SEQ_FIT`` plus twice the
+   distance ``accum_steps=4`` makes.  With 4 or more cards the replicated
+   and ZeRO-3 runs also run on 4 cards (the ring protocol), bit-equal to
+   the one-card runs (a one-card machine skips them).
+   ``chip_smoke.cards_main()`` runs only the phases that need several
+   cards (the cross-card ring and these 4-card runs) on a four-card
+   machine.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -217,7 +239,8 @@ for the collectives' all-reduce; null where no one call does).  Kernels 8
 and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
-come from calling it directly.  Kernel 7 appears twice too: as
+come from calling it directly; ``bidir_ring``'s launches add the mesh
+phase's.  Kernel 7 appears twice too: as
 ``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
 launches for the 8 served sequences, timed at n = 64, B = 1), and as
 ``fused_rnn_step`` the per-step entry (the public per-step function and the
@@ -238,6 +261,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -4174,6 +4198,449 @@ def phase_mixed_precision(tmp: str) -> None:
         log(f"[mp]   {'bf16' if n in bf16 else 'other'}: {n[:200]}")
 
 
+# The mesh's data axis (phase 23): the flagship through fit on a (4, 1) mesh
+# whose 4 data ranks share the card, MESH_B = 100 rows a step (25 a rank),
+# adam at lr 0.02 for one epoch of the synthetic set (60 steps), log every
+# 10, in each configuration of MESH_RUNS.
+MESH_DP, MESH_B, MESH_LR, MESH_LOG_EVERY, MESH_CRASH = 4, 100, 0.02, 10, 30
+# Kernel 9's launches per step, (ar, rs, ag), as the design predicts them.
+# Of the flagship's 6 leaves the ZeRO rule shards 4 over the data axis (the
+# first free dimension 4 divides: W0's 784 columns, W1's and b1's 100 rows,
+# W2's 100 columns); b0 keeps its model-axis entry and b2 (10) does not
+# divide, so both stay whole.  Every step all-reduces the loss (1 ar); the
+# gradients are all-reduced (6 ar), or at ZeRO-2/3 the 4 sharded ones
+# reduce-scattered (4 rs) and the 2 whole ones all-reduced; at ZeRO-1/2 each
+# rank's adam updates its blocks of the 4 sharded leaves and an all-gather
+# rebuilds each (4 ag); at ZeRO-3 the 4 sharded params are gathered at use
+# (4 ag) and stay sharded after the update.  adam8bit's update is not
+# elementwise (one scale per block of 256 elements of the whole leaf): on
+# ZeRO-3 it runs on whole leaves, so the 12 sharded int8 code buffers and
+# 2 sharded scale buffers are all-gathered first (14 ag); under
+# exact_reduction its gradients take the replicated run's 6 ar.  A ZeRO-3
+# run gathers its 4 params once more at the end (FitResult.net).
+MESH_RUNS = (
+    ("replicated", "adam", {}, (7, 0, 0)),
+    ("zero1", "adam", dict(shard_opt_state=True), (7, 0, 4)),
+    ("zero2", "adam", dict(zero_stage=2), (3, 4, 4)),
+    ("zero3", "adam", dict(zero_stage=3), (3, 4, 4)),
+    ("zero3+offload", "adam", dict(zero_stage=3, offload_opt_state=True),
+     (3, 4, 4)),
+    ("adam8bit replicated", "adam8bit", {}, (7, 0, 0)),
+    ("adam8bit exact zero3", "adam8bit exact", dict(zero_stage=3),
+     (7, 0, 18)),
+)
+# ZeRO-2 against the replicated run: 60 adam steps in f32 whose gradient
+# sums differ only in order (the reduce-scatter's fold, the all-reduce's).
+# A step moves a parameter by lr * m / sqrt(v): a few ulps where the
+# gradient is well above its rounding, but up to lr where it is a
+# cancellation residue whose sign the two orders round apart (adam's first
+# steps take lr * sign(g)).  Such residues are few: the parameters are held
+# to 1e-3 + 1e-3|ref| (5x the 2.0e-4 an f32 rehearsal on the CPU measured;
+# 1e-4, set before it, was too tight), the losses to TOL_5_STEPS.  ZeRO-3
+# takes the same sums as ZeRO-2 (its params gathered at use are ZeRO-2's
+# replicated ones): bit for bit.
+TOL_MESH = (1e-3, 1e-3)
+# the recurrent model of phase 9 on the mesh: adam at ZeRO-2, MESH_SEQ_STEPS
+# steps of 256 sequences (64 a rank)
+MESH_SEQ_STEPS = 4
+
+
+def _opt(name: str):
+    from tensor_ops_tpu_torch.models import adam, adam8bit
+
+    # adam8bit with stochastic rounding: nearest rounding explodes the
+    # flagship within a few steps (phase 18)
+    return {"adam": adam(), "adam8bit": adam8bit(stochastic_rounding=True),
+            "adam8bit exact": adam8bit(stochastic_rounding=True,
+                                       exact_reduction=True)}[name]
+
+
+def _bit_equal(a, b) -> bool:
+    return ([x["loss"] for x in a.history] == [x["loss"] for x in b.history]
+            and all(torch.equal(x, y) for x, y in
+                    zip(a.net.params, b.net.params)))
+
+
+def _mesh_flagship(tmp: str):
+    """The mesh phase's configuration: the flagship (seed 0), its loss, the
+    backend, the synthetic set, the (MESH_DP, 1) mesh of ranks sharing the
+    card and fit's keyword arguments."""
+    from types import SimpleNamespace
+
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (act_logistic, act_softmax,
+                                             cross_entropy, gen_net)
+    from tensor_ops_tpu_torch.parallel import make_mesh
+
+    tX, tY, _, _ = synthetic_set(tmp)
+    be = TorchBackend(torch.float32, DEVICE)
+
+    def net(seed=0):
+        return gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                       [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
+                       act_softmax(), Rng(be, seed))
+
+    return SimpleNamespace(
+        net=net(), make_net=net, loss=cross_entropy(FLAGSHIP[-1]), be=be,
+        tX=tX, tY=tY,
+        mesh=make_mesh(MESH_DP, shape=(MESH_DP, 1),
+                       devices=[DEVICE] * MESH_DP),
+        kw=dict(epochs=1, batch_size=MESH_B, lr=MESH_LR,
+                log_every=MESH_LOG_EVERY, verbose=False))
+
+
+def _mesh_fit_runs(f, names=None):
+    """The MESH_RUNS configurations (those in ``names``, else all) through
+    fit on the card's mesh, each holding kernel 9's launches to the design's
+    counts.  Returns ``(results by name, launches by kernel name)``."""
+    from tensor_ops_tpu_torch.models import fit
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+
+    net, loss, be, tX, tY, mesh, kw = (f.net, f.loss, f.be, f.tX, f.tY,
+                                       f.mesh, f.kw)
+    steps = -(-len(tX) // MESH_B)
+    shape = (f"flagship {'-'.join(map(str, FLAGSHIP))}, adam lr {MESH_LR}, "
+             f"B={MESH_B} over {MESH_DP} ranks of one card, 1 epoch = "
+             f"{steps} steps")
+    runs, launches = {}, {n: 0 for n in RING_NAMES}
+    for name, opt, zkw, per_step in MESH_RUNS:
+        if names is not None and name not in names:
+            continue
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        CK.reset_phase_counts()
+        res = fit(net, loss, be, tX, tY, optimizer=_opt(opt), mesh=mesh,
+                  **zkw, **kw)
+        torch.cuda.synchronize()
+        counts, phases = K.launch_counts(), CK.phase_counts()
+        runs[name] = res
+        h = res.history
+        check(res.steps == steps and all(math.isfinite(x["loss"]) for x in h),
+              f"mesh {name}: {res.steps} steps, losses {h}")
+        check(h[-1]["loss"] < h[0]["loss"], f"mesh {name}: the loss did not "
+              f"fall ({h[0]['loss']} -> {h[-1]['loss']})")
+        end = (0, 0, 4) if zkw.get("zero_stage") == 3 else (0, 0, 0)
+        want = {p: steps * n + e for p, n, e in zip(("ar", "rs", "ag"),
+                                                     per_step, end)}
+        check(phases == want and counts["bidir_ring"] == sum(want.values())
+              and counts["bidir_ring.ring"] == 0 and sum(want.values()) > 0,
+              f"mesh {name}: kernel 9 launches {phases} (bidir_ring "
+              f"{counts['bidir_ring']}), the design predicts {want}")
+        for n in RING_NAMES:
+            launches[n] += counts[n]
+        rate, first_ms = _fit_rate(res, MESH_B)
+        log(f"[mesh] {name} ({shape}): loss {h[0]['loss']:.4f} -> "
+            f"{h[-1]['loss']:.4f}; kernel 9 launches {phases} = per step "
+            f"{dict(zip(('ar', 'rs', 'ag'), per_step))} x {steps}"
+            f"{' + 4 ag at the end' if end[2] else ''}, as predicted; "
+            f"{rate:.1f} samples/s over steps {FIT_TIMED_FROM + 1}-{steps} "
+            f"(host clock at the log boundaries); first step "
+            f"{first_ms:.1f} ms")
+    return runs, launches
+
+
+def phase_mesh(tmp: str) -> dict:
+    """The mesh's data axis on the card (phase 23): returns the kernel
+    launches of its fit runs."""
+    from tensor_ops_tpu_torch.models import fit, sgd
+    from tensor_ops_tpu_torch.models.trainer import (_mesh_setup,
+                                                     _offload_state,
+                                                     make_opt_step)
+    from tensor_ops_tpu_torch.parallel import param_specs
+    from tensor_ops_tpu_torch.utils.profiling import training_memory_report
+
+    f = _mesh_flagship(tmp)
+    net, loss, be, tX, tY, mesh, kw = (f.net, f.loss, f.be, f.tX, f.tY,
+                                       f.mesh, f.kw)
+    runs, launches = _mesh_fit_runs(f)
+    rep = runs["replicated"]
+    check(_bit_equal(runs["zero1"], rep), "mesh zero1 differs from the "
+          "replicated run (the same all-reduce, an elementwise update)")
+    e = max(max_err(a, b, TOL_MESH) for a, b in
+            zip(runs["zero2"].net.params, rep.net.params))
+    e_l = max_err(torch.tensor([x["loss"] for x in runs["zero2"].history]),
+                  torch.tensor([x["loss"] for x in rep.history]), TOL_5_STEPS)
+    log(f"[mesh] zero2 vs the replicated run: params max|err| {e:.2e} (tol "
+        f"{TOL_MESH[0]:g}+{TOL_MESH[1]:g}|ref|), losses {e_l:.2e} (tol "
+        f"{TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|): the reduce-scatter "
+        f"sums in another order")
+    check(_bit_equal(runs["zero3"], runs["zero2"]),
+          "mesh: zero3 differs from zero2 (the same sums)")
+    check(_bit_equal(runs["zero3+offload"], runs["zero3"]),
+          "mesh: offload_opt_state changed the ZeRO-3 run")
+    check(_bit_equal(runs["adam8bit exact zero3"],
+                     runs["adam8bit replicated"]),
+          "mesh: adam8bit(exact_reduction=True) at ZeRO-3 differs from the "
+          "replicated adam8bit run")
+    log("[mesh] zero1 bit-equal to the replicated run; zero3 to zero2; "
+        "zero3+offload to zero3; adam8bit(exact_reduction=True) at zero3 "
+        "to the replicated adam8bit run")
+
+    # a Ctrl-C at step MESH_CRASH of the ZeRO-3 run, resumed to the budget,
+    # with the moments on the card and offloaded to pinned host memory
+    for name, zkw in (("zero3", {}), ("zero3+offload",
+                                      dict(offload_opt_state=True))):
+        _crash_resume(f, mesh, zkw, runs["zero3"],
+                      os.path.join(tmp, f"mesh{len(zkw)}.npz"), name)
+
+    # 5 sgd steps on the mesh against 5 of fit on one device, the same
+    # 100-row batches: the mean of the ranks' means against the batch mean
+    # (sgd: TOL_5_STEPS is five sgd steps' bound; adam's sign steps on
+    # cancellation residues would exceed it, see TOL_MESH).  sgd moves each
+    # parameter by lr times its gradient, so the comparison also holds the
+    # 1/dp scale of the ZeRO-2 reduce-scatter (along W0's and W2's columns,
+    # W1's and b1's rows) and ZeRO-3's gather at use to the bound (sgd has
+    # no state to shard: both rungs warn that ZeRO-1 has nothing to do)
+    n5 = 5 * MESH_B
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        single, *five = [fit(net, loss, be, tX[:n5], tY[:n5], optimizer=sgd(),
+                             chain_steps=1, **dict(kw, log_every=1), **m)
+                         for m in ({}, dict(mesh=mesh),
+                                   dict(mesh=mesh, zero_stage=2),
+                                   dict(mesh=mesh, zero_stage=3))]
+    e5 = [max(max_err(a, b, TOL_5_STEPS) for a, b in
+              zip(res.net.params, single.net.params)) for res in five]
+    log(f"[mesh] 5 sgd steps on the mesh vs fit on one device: params "
+        f"max|err| replicated {e5[0]:.2e}, zero2 {e5[1]:.2e}, zero3 "
+        f"{e5[2]:.2e} (tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|)")
+
+    # each rank's resident bytes (its shards) against the report's rows
+    for name, opt, zkw, _ in MESH_RUNS:
+        stage = zkw.get("zero_stage", 1 if zkw.get("shard_opt_state") else 0)
+        params, state, _ = _mesh_setup(net.params, param_specs(
+            net.param_stack, mesh), _opt(opt), mesh, be, stage)
+        if zkw.get("offload_opt_state"):
+            state = _offload_state(state, "smoke")
+        row = training_memory_report(
+            net, optimizer=_opt(opt), batch_size=MESH_B, mesh=mesh,
+            zero_stage=stage, offload_opt_state=bool(
+                zkw.get("offload_opt_state")))["per_device"]
+        moments = [x for x in _tree(state) if x.shape]
+        key = ("optimizer_host_bytes" if zkw.get("offload_opt_state")
+               else "optimizer_bytes")
+        for r in range(MESH_DP):
+            got = (sum(p.rank_nbytes(r) for p in params),
+                   sum(x.rank_nbytes(r) for x in moments))
+            check(got == (row["params_bytes"], row[key]),
+                  f"mesh {name}: rank {r} holds {got} bytes of params and "
+                  f"moments, training_memory_report says "
+                  f"{(row['params_bytes'], row[key])}")
+        log(f"[mesh] {name}: each rank holds {got[0]} bytes of params and "
+            f"{got[1]} of moments{' (pinned host)' * bool(zkw.get('offload_opt_state'))}"
+            f", as training_memory_report's per_device rows")
+
+    # one ZeRO-3 step profiled: kernels, busy time, idle share
+    opt = _opt("adam")
+    params, state, pins = _mesh_setup(net.params, param_specs(
+        net.param_stack, mesh), opt, mesh, be, 3)
+    step_fn = make_opt_step(net, loss, be, opt, mesh=mesh, **pins)
+    xb = be.asarray(tX[:MESH_B].astype(np.float32))
+    yb = be.asarray(tY[:MESH_B].astype(np.float32))
+    box = [state, params]
+
+    def one_step():
+        v, box[0], box[1] = step_fn(MESH_LR, xb, yb, box[0], box[1])
+        return v
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        one_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / 20 * 1e6
+    prof = _profile_steps(one_step)
+    top = ", ".join(f"{n} {us:.1f} us" for n, us in
+                    list(prof["by_kernel"].items())[:6])
+    log(f"[mesh] one zero3 step ({MESH_DP} ranks x {MESH_B // MESH_DP} "
+        f"rows): {wall_us:.1f} us wall (host clock, 20 steps between "
+        f"synchronises); {prof['launches']:.0f} kernels and "
+        f"{prof['copies']:.0f} copies a step, device busy "
+        f"{prof['busy_us']:.1f} us, idle share "
+        f"{1 - prof['busy_us'] / wall_us:.3f}; most device time: {top}")
+
+    launches_seq = phase_mesh_seq(be, mesh)
+    for n in RING_NAMES:
+        launches[n] += launches_seq[n]
+    if torch.cuda.device_count() >= MESH_DP:
+        phase_mesh_cards(f, runs, tmp)
+    else:
+        log(f"[mesh] {torch.cuda.device_count()} card(s): the {MESH_DP}-card "
+            f"mesh (ring protocol) does not run here")
+    return launches
+
+
+def _tree(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in _tree(t)]
+    return [] if tree is None else [tree]
+
+
+def phase_mesh_seq(be, mesh) -> dict:
+    """fit_sequences on the mesh: the recurrent model (seed 7) with adam at
+    ZeRO-2 against fit_sequences on one device, within TOL_SEQ_FIT plus
+    twice the distance that regrouping the batch's sum into the mesh's 4
+    chunks of 64 sequences (accum_steps=4 on one device) makes."""
+    from tensor_ops_tpu_torch.models import adam, fit_sequences, squared_error
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+    from tensor_ops_tpu_torch.parallel import mesh as M
+
+    net = rnn_model(be)
+    r = np.random.default_rng(0)
+    n = MESH_SEQ_STEPS * SEQ_FIT_BATCH
+    XS = r.standard_normal((n, RNN_N, RNN_IN)).astype(np.float32)
+    TS = r.standard_normal((n, RNN_N, RNN_OUT)).astype(np.float32)
+    loss = squared_error(RNN_OUT)
+    kw = dict(epochs=1, batch_size=SEQ_FIT_BATCH, log_every=1, verbose=False,
+              chain_steps=1, optimizer=adam(), **SEQ_FIT_RATES)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    CK.reset_phase_counts()
+    on_mesh = fit_sequences(net, loss, be, XS, TS, mesh=mesh, zero_stage=2,
+                            **kw)
+    torch.cuda.synchronize()
+    counts, phases = K.launch_counts(), CK.phase_counts()
+    single = fit_sequences(net, loss, be, XS, TS, **kw)
+    chunked = fit_sequences(net, loss, be, XS, TS, accum_steps=MESH_DP, **kw)
+    # the design: the loss and each whole leaf all-reduced, each leaf the
+    # ZeRO rule shards reduce-scattered and all-gathered after its update
+    leaves = list(net.states) + list(net.params)
+    specs = [(None,) * s.dim() for s in net.states] + list(
+        M.param_specs(net.param_stack, mesh))
+    n_z = sum(M.extend_spec(sp, tuple(x.shape), MESH_DP) is not None
+              for x, sp in zip(leaves, specs))
+    want = {"ar": MESH_SEQ_STEPS * (1 + len(leaves) - n_z),
+            "rs": MESH_SEQ_STEPS * n_z, "ag": MESH_SEQ_STEPS * n_z}
+    check(phases == want and n_z > 0, f"mesh fit_sequences: kernel 9 "
+          f"launches {phases}, the design predicts {want}")
+    check(all(math.isfinite(x["loss"]) for x in on_mesh.history),
+          "mesh fit_sequences: non-finite loss")
+    out = []
+    for name, get in (("loss", lambda res: torch.tensor(
+            [x["loss"] for x in res.history])),
+                      ("leaves", lambda res: torch.cat(
+                          [t.double().cpu().reshape(-1)
+                           for t in _leaves(res.net)]))):
+        ref = get(single).double()
+        drift = float((get(chunked).double() - ref).abs().max())
+        tol = TOL_SEQ_FIT + 2 * drift
+        e = max_err(get(on_mesh), ref, (tol, 0.0))
+        out.append(f"{name} max|err| {e:.2e} (tol {tol:.2e} = "
+                   f"{TOL_SEQ_FIT:g} + 2 x accum_steps={MESH_DP}'s "
+                   f"{drift:.2e})")
+    log(f"[mesh] fit_sequences (Elman {RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT}, "
+        f"n={RNN_N}, B={SEQ_FIT_BATCH} over {MESH_DP} ranks, adam, "
+        f"zero_stage=2, {MESH_SEQ_STEPS} steps) vs one device: "
+        f"{'; '.join(out)}; kernel 9 launches {phases} as predicted "
+        f"({n_z} of {len(leaves)} leaves shard)")
+    return counts
+
+
+def _crash_resume(f, mesh, zkw, straight, ck: str, name: str) -> None:
+    """A ZeRO-3 run on ``mesh`` (with ``zkw``) stopped by Ctrl-C at step
+    MESH_CRASH, which writes its checkpoint to ``ck``, and resumed from it to
+    the budget from other weights: bit-equal to the ``straight`` run."""
+    from tensor_ops_tpu_torch.models import fit
+
+    def boom(s):
+        if s == MESH_CRASH:
+            raise KeyboardInterrupt
+        return MESH_LR
+
+    zkw = dict(zkw, zero_stage=3, checkpoint_path=ck)
+    try:
+        fit(f.net, f.loss, f.be, f.tX, f.tY, optimizer=_opt("adam"),
+            mesh=mesh, lr_schedule=boom, **zkw, **f.kw)
+        check(False, f"the interrupted mesh fit ({name}) did not stop")
+    except KeyboardInterrupt:
+        pass
+    resumed = fit(f.make_net(99), f.loss, f.be, f.tX, f.tY,
+                  optimizer=_opt("adam"), mesh=mesh,
+                  lr_schedule=lambda s: MESH_LR, resume=True, **zkw, **f.kw)
+    check(resumed.history[0]["step"] == MESH_CRASH + 1 and all(
+        torch.equal(a, b) for a, b in zip(resumed.net.params,
+                                          straight.net.params)),
+          f"mesh {name}: the crash/resume chain differs from the straight "
+          f"ZeRO-3 run")
+    log(f"[mesh] {name}: Ctrl-C at step {MESH_CRASH} (its checkpoint), "
+        f"resumed to the budget: bit-equal to the straight zero3 run")
+
+
+def phase_mesh_cards(f, runs, tmp: str) -> None:
+    """The replicated and ZeRO-3 runs on 4 cards (the ring protocol):
+    bit-equal to the same runs with the 4 ranks on one card; and a ZeRO-3
+    run with its moments offloaded, stopped by Ctrl-C at step MESH_CRASH
+    (its checkpoint reads the moments' copies from all 4 cards) and
+    resumed to the budget, bit-equal to the one-card ZeRO-3 run."""
+    from tensor_ops_tpu_torch.models import fit
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.parallel import make_mesh
+
+    mesh4 = make_mesh(MESH_DP, shape=(MESH_DP, 1))
+    for name, zkw in (("replicated", {}), ("zero3", dict(zero_stage=3))):
+        K.reset_launch_counts()
+        res = fit(f.net, f.loss, f.be, f.tX, f.tY, optimizer=_opt("adam"),
+                  mesh=mesh4, **zkw, **f.kw)
+        torch.cuda.synchronize()
+        ring = K.launch_counts()["bidir_ring.ring"]
+        check(ring > 0 and _bit_equal(res, runs[name]),
+              f"mesh {name} on {MESH_DP} cards: {ring} ring launches; "
+              f"bit-equal to one card: {_bit_equal(res, runs[name])}")
+        log(f"[mesh] {name} on {MESH_DP} cards: {ring} ring-protocol "
+            f"launches, bit-equal to the one-card run")
+
+    _crash_resume(f, mesh4, dict(offload_opt_state=True), runs["zero3"],
+                  os.path.join(tmp, "mesh4.npz"),
+                  f"zero3+offload on {MESH_DP} cards")
+
+
+def cards_main() -> None:
+    """The phases that need several cards, alone (on a machine with 4):
+    the cross-card ring against its plain versions, and the 4-card mesh
+    runs of :func:`phase_mesh_cards` against the same runs on one card.
+    ``python3 -c "import chip_smoke; chip_smoke.cards_main()"``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(torch.cuda.device_count() >= MESH_DP, f"cards_main needs "
+          f"{MESH_DP} cards, {torch.cuda.device_count()} visible")
+    timed("cross-card ring", phase_ring_cross_card)
+    with tempfile.TemporaryDirectory() as tmp:
+        f = _mesh_flagship(tmp)
+        runs, _ = _mesh_fit_runs(f, ("replicated", "zero3"))
+        timed("mesh on 4 cards", phase_mesh_cards, f, runs, tmp)
+
+
+def mesh_main(out: str) -> None:
+    """Phase 23 in its own interpreter (after every profiled phase of the
+    smoke's process); writes its kernel launches to ``out``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = timed("mesh", phase_mesh, tmp)
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def phase_mesh_proc(tmp: str) -> dict:
+    """Run :func:`mesh_main` in a second interpreter; its lines print as
+    they come; returns its kernel launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "mesh_launches.json")
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.mesh_main(sys.argv[1])", out],
+        timeout=600, cwd=here, env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, f"the mesh phase failed (exit "
+          f"{proc.returncode})")
+    with open(out) as f:
+        return json.load(f)
+
+
 def chained_main() -> None:
     """Phases 20-22 in their own interpreter (the profiler of the smoke's
     process has run 14 profiles and the recurrent fit by then)."""
@@ -4245,6 +4712,9 @@ def main() -> int:
         timed("adam8bit fit", phase_adam8bit_fit, tmp)
     timed("recurrent fit timing", phase_seq_fit_timing, sf)
     timed("chained steps and mixed precision", phase_chained)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_launches = timed("mesh (second interpreter)", phase_mesh_proc,
+                              tmp)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "
@@ -4267,6 +4737,9 @@ def main() -> int:
     for n in ("ring_all_reduce", "bidir_ring"):
         launches[n] = dp[n]["launches"]
         launches[f"{n}.ring"] = dp[n]["protocol launches"]
+    # and kernel 9 on the mesh's fit and fit_sequences runs (phase 23)
+    for n in RING_NAMES:
+        launches[n] += mesh_launches[n]
     least = bounds()
     for n in KERNELS:
         log(f"[bound] {n}: {least[n][0]:.6f} ms by {least[n][1]} (H100 SXM "

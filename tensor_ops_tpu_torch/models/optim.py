@@ -44,10 +44,12 @@ class Optimizer(NamedTuple):
     update: Callable[[Any, Params, Grads, float], Tuple[Any, Params]]
     name: str = "optimizer"
     hyper: Optional[tuple] = None
-    # set by adam8bit(exact_reduction=True): under ZeRO stages >= 2 the JAX
-    # package then keeps the batch gradients on the replicated run's
-    # reduction order (ROADMAP.md, Queue 1 item 9); one device has one
-    # order, so here it only keys caches and checkpoints (through hyper)
+    # set by adam8bit(exact_reduction=True): under ZeRO stages >= 2 on a
+    # mesh the batch gradients keep the replicated run's all-reduce (kernel
+    # 9's ar, then each rank's slice) instead of a reduce-scatter, so the
+    # run equals the replicated one bit for bit (trainer._mesh_setup); on
+    # one device there is one order and the flag only keys caches and
+    # checkpoints (through hyper)
     exact_reduction: bool = False
 
     def struct_key(self) -> tuple:
@@ -209,9 +211,10 @@ def adam8bit(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     rounds away from zero (it sits under the step's square root, where an
     underestimate explodes a step).  The noise is a pure function of the
     step and the leaf index, so crash/resume chains stay bit-exact.
-    ``exact_reduction`` changes only the order of the ZeRO gradient
-    reduction in the JAX package; on one device the update is the same,
-    and the flag keys caches and checkpoints.
+    ``exact_reduction`` keeps the batch gradients of a ZeRO-2/3 mesh run on
+    the replicated run's all-reduce (a reduce-scatter sums in another
+    order, and the int8 quantization amplifies that epsilon); the update
+    itself is the same, and the flag keys caches and checkpoints.
 
     State: ``(t, ((mq, ms, vq, vs), ...))``, ``mq``/``vq`` int8
     ``(n_blocks, block)`` and ``ms``/``vs`` ``(n_blocks, 1)`` in the

@@ -26,9 +26,17 @@ or computes them on the device (:func:`_device_window_indices`).
 
 Both loops run on :func:`_drive`, the window driver: windows of steps, log
 boundary, validation, early stop, checkpoints and the Ctrl-C checkpoint,
-independent of what a step computes.  This package runs on one device;
-``profile_dir`` and the mesh, ZeRO, offload and pipeline options raise
-``ValueError`` naming their ROADMAP item.
+independent of what a step computes.
+
+``mesh`` (``parallel.make_mesh(n, shape=(n, 1))``) trains data-parallel:
+:func:`_mesh_setup` places the leaves and climbs the ZeRO ladder
+(``shard_opt_state`` / ``zero_stage``), and :func:`_mesh_step` splits each
+batch over the data ranks and reduces and gathers through kernel 9's
+collectives; ``offload_opt_state`` keeps the optimizer state in pinned
+host memory between steps.  A mesh or an offloaded state runs unchained.
+``profile_dir`` (item 8), a model axis > 1 (item 9b), the ``pipeline_*``
+options (item 9c) and several processes (item 9d) raise ``ValueError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -141,15 +149,20 @@ def _normalize_mp(mixed_precision) -> str:
 
 
 def _measure_mp_route(step_f32, step_bf16, args, carry_from: int = 3,
-                      rounds: int = 3, steps: int = 20):
+                      rounds: int = 3, steps: int = 20, graphs: bool = True):
     """``(f32_us, bf16_us)``: the device time of one step of each compiled
     route on the same ``args``, the training state ``args[carry_from:]``
     carried from step to step so no step repeats another's work.  On the
     card each route is captured in a CUDA graph that updates its own copy
     of the state, and ``steps`` replays are timed by CUDA events, the two
     routes in turns, the minimum of ``rounds``; elsewhere the same loops
-    on the host clock."""
+    on the host clock.  ``graphs=False`` (a mesh step, an offloaded state:
+    the loop runs them eagerly) times the eager steps as the loop runs
+    them, on the host clock between two synchronises."""
     head, carry0 = tuple(args[:carry_from]), tuple(args[carry_from:])
+    if not graphs:
+        return _measure_eager(step_f32, step_bf16, head, carry0, rounds,
+                              steps)
     leaves0 = C.flatten(carry0)
     dev = next((x.device for x in leaves0 if isinstance(x, torch.Tensor)),
                torch.device("cpu"))
@@ -189,20 +202,51 @@ def _measure_mp_route(step_f32, step_bf16, args, carry_from: int = 3,
     return best[0], best[1]
 
 
-def _decide_mp_route(build_step, make_args, carry_from: int = 3):
+def _measure_eager(step_f32, step_bf16, head, carry0, rounds: int,
+                   steps: int):
+    """:func:`_measure_mp_route` of steps that run eagerly: each route
+    carries its own state from call to call; ``steps`` calls between two
+    synchronises of every card, the routes in turns, the minimum of
+    ``rounds``."""
+    from ..parallel.mesh import Sharded
+
+    devices = [t.device for x in C.flatten(carry0)
+               for t in (x.shards if isinstance(x, Sharded) else (x,))
+               if isinstance(t, torch.Tensor)]
+
+    def sync():
+        _sync_cards(devices)
+
+    carries = [carry0, carry0]
+    best = [float("inf"), float("inf")]
+    for _ in range(rounds):
+        for i, step in enumerate((step_f32, step_bf16)):
+            carries[i] = tuple(step(*head, *carries[i])[1:])  # caches warm
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                carries[i] = tuple(step(*head, *carries[i])[1:])
+            sync()
+            best[i] = min(best[i], (time.perf_counter() - t0) * 1e6 / steps)
+    return best[0], best[1]
+
+
+def _decide_mp_route(build_step, make_args, carry_from: int = 3,
+                     graphs: bool = True):
     """Measure-once routing for ``mixed_precision=True``: build both steps,
     time them on a dummy batch (:func:`_measure_mp_route`) and keep bf16
     only when it is more than 3% faster (near-ties stay on f32, so
     repeated runs of one configuration do not flip routes on timing
     noise).  Returns ``(use_bf16, {"mp_f32_us", "mp_bf16_us"})``."""
     f32_us, bf16_us = _measure_mp_route(build_step(False), build_step(True),
-                                        make_args(), carry_from=carry_from)
+                                        make_args(), carry_from=carry_from,
+                                        graphs=graphs)
     return bf16_us < 0.97 * f32_us, {"mp_f32_us": round(f32_us, 2),
                                      "mp_bf16_us": round(bf16_us, 2)}
 
 
 def _resolve_mp_route(net, build_step, dummy_args, route_key, *, resume,
-                      state_path, carry_from, verbose):
+                      state_path, carry_from, verbose, graphs: bool = True):
     """The routing ladder both loops share (the JAX package's): the route
     recorded in the checkpoint being resumed (the resumed chain re-takes
     the saving run's numerics exactly) > a resumed checkpoint with no
@@ -234,7 +278,8 @@ def _resolve_mp_route(net, build_step, dummy_args, route_key, *, resume,
                   f"vs bf16 {mp_rec['mp_bf16_us']}us")
     else:
         mp_active, mp_rec = _decide_mp_route(build_step, dummy_args,
-                                             carry_from=carry_from)
+                                             carry_from=carry_from,
+                                             graphs=graphs)
         net.op._compiled[route_key] = (mp_active, mp_rec)
         mp_src = (f"measured f32 {mp_rec['mp_f32_us']}us vs "
                   f"bf16 {mp_rec['mp_bf16_us']}us")
@@ -329,10 +374,265 @@ def _scalars(xs, like):
     return t.pin_memory().to(like.device, non_blocking=True)
 
 
+# the optimizers whose state is step counters and moments of their leaves'
+# shapes, in leaf order, and whose update is elementwise: each rank updates
+# its shards alone (ZeRO's shard-local update)
+_ELEMENTWISE = ("sgd", "momentum", "adam", "adamw")
+
+
+def _moment_slots(state_leaves, leaves) -> Optional[list]:
+    """For each flattened optimizer-state leaf, the index of the training
+    leaf whose moment it is (moments come in groups of the leaves' shapes,
+    in leaf order), or None for a step counter; ``None`` when an array
+    leaf does not fit that pattern."""
+    slots, cursor, n = [], 0, len(leaves)
+    for x in state_leaves:
+        shape = tuple(getattr(x, "shape", ()))
+        if not shape:
+            slots.append(None)
+        elif n and shape == tuple(leaves[cursor % n].shape):
+            slots.append(cursor % n)
+            cursor += 1
+        else:
+            return None
+    return slots
+
+
+def _mesh_opt_init(opt: Optimizer, placed, resident, mesh):
+    """The optimizer state of ``placed`` (replicated :class:`Sharded` leaves)
+    on the mesh: ``opt.init`` of each rank's whole leaves, every moment of
+    an elementwise optimizer on its leaf's ``resident`` spec (the JAX
+    package's moments inherit their params' shardings), every other leaf
+    replicated."""
+    from ..parallel.mesh import Sharded, _tree_leaves, _tree_unflatten, reshard
+
+    per_rank = [opt.init(tuple(x.shards[r] for x in placed))
+                for r in range(len(mesh.data_devices))]
+    flat = [_tree_leaves(st) for st in per_rank]
+    slots = (_moment_slots(flat[0], placed) if opt.name in _ELEMENTWISE
+             else None) or [None] * len(flat[0])
+    out = []
+    for j, slot in enumerate(slots):
+        leaf = Sharded((), [f[j] for f in flat], mesh)
+        if slot is not None:
+            leaf = reshard(leaf, resident[slot].spec, own=True)
+        out.append(leaf)
+    return _tree_unflatten(per_rank[0], out)
+
+
+def _clip_mesh(grads, max_norm: float):
+    """:func:`clip_by_global_norm` over :class:`Sharded` gradients: with
+    every gradient whole on every rank, that function on each rank's
+    copies; otherwise each rank's squared sums of its blocks are
+    all-reduced (kernel 9) and the whole gradients' added on every rank."""
+    from ..parallel.mesh import Sharded, ring_all_reduce_bidir
+
+    n = len(grads[0].shards)
+    if all(g.dim is None for g in grads):
+        per_rank = [clip_by_global_norm(tuple(g.shards[r] for g in grads),
+                                        max_norm) for r in range(n)]
+    else:
+        parts = []
+        for r in range(n):
+            part = 0.0
+            for g in grads:
+                if g.dim is not None:
+                    part = part + (g.shards[r] * g.shards[r]).sum()
+            parts.append(part.reshape(1))
+        sharded = ring_all_reduce_bidir(parts)
+        per_rank = []
+        for r in range(n):
+            total = sharded[r].reshape(())
+            for g in grads:
+                if g.dim is None:
+                    total = total + (g.shards[r] * g.shards[r]).sum()
+            scale = torch.clamp(max_norm / (total ** 0.5 + 1e-12), max=1.0)
+            per_rank.append(tuple(g.shards[r] * scale for g in grads))
+    return tuple(Sharded(g.spec, [pr[i] for pr in per_rank], g.mesh, g.shape)
+                 for i, g in enumerate(grads))
+
+
+def _offload_out(state):
+    """``offload_opt_state``: every tensor of an optimizer state (the shards
+    of a :class:`Sharded` leaf) copied into new pinned host memory, the
+    copies queued on the current stream of each tensor's card (the next
+    step's copy in is queued after them; a host read first waits on every
+    rank's card with :func:`_sync_cards`).  CPU tensors
+    are host memory already and stay."""
+    from ..parallel.mesh import Sharded
+
+    def host(x):
+        if not isinstance(x, torch.Tensor) or not x.is_cuda:
+            return x
+        out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        return out.copy_(x, non_blocking=True)
+
+    def leaf(x):
+        if isinstance(x, Sharded):
+            return Sharded(x.spec, [host(s) for s in x.shards], x.mesh,
+                           x.shape)
+        return host(x)
+
+    return C.unflatten(state, [leaf(x) for x in C.flatten(state)])
+
+
+def _offload_in(state, devices):
+    """The offloaded optimizer state back on the card at a step's start:
+    each leaf (each rank's shard) copied to ``devices`` (one per rank, or
+    one for a single device) from pinned memory, without waiting."""
+    from ..parallel.mesh import Sharded
+
+    def leaf(x):
+        if isinstance(x, Sharded):
+            return Sharded(x.spec, [s.to(d, non_blocking=True)
+                                    for s, d in zip(x.shards, devices)],
+                           x.mesh, x.shape)
+        if isinstance(x, torch.Tensor):
+            return x.to(devices[0], non_blocking=True)
+        return x
+
+    return C.unflatten(state, [leaf(x) for x in C.flatten(state)])
+
+
+def _sync_cards(devices) -> None:
+    """Wait for the work queued on each distinct card of ``devices``: a
+    mesh's ranks may lie on several cards, each with its own queue (the
+    CPU needs no wait)."""
+    for d in dict.fromkeys(torch.device(d) for d in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def _offload_state(opt_state, label: str):
+    """Place an optimizer state in pinned host memory between steps
+    (``offload_opt_state=True``), each leaf keeping its spec; warns when
+    the state holds no arrays (sgd is stateless: nothing to offload)."""
+    if not any(getattr(x, "shape", ()) for x in C.flatten(opt_state)):
+        warnings.warn(
+            f"{label}: offload_opt_state=True but the optimizer state "
+            f"holds no arrays (sgd is stateless) — nothing to offload",
+            stacklevel=3)
+        return opt_state
+    return _offload_out(opt_state)
+
+
+def _mesh_step(mesh, rank_vags, update: Callable, *, accum_steps: int,
+               clip_norm, elementwise: bool, grad_constrain=None,
+               param_unshard=None, offload: bool = False) -> Callable:
+    """The data-parallel step on a mesh whose model axis is 1:
+    ``step(scalars, xb, yb, opt_state, leaves) -> (loss, opt_state,
+    leaves)``, ``leaves`` and the state's arrays :class:`Sharded`, the
+    batch whole (split here over the data ranks, accumulation chunk by
+    chunk), the loss a 0-d tensor on rank 0's device.
+
+    Each rank takes its rows' mean loss and gradients with
+    ``rank_vags[r](x, y, leaves_r)`` on its whole copy of the leaves (ZeRO-3:
+    gathered at use by ``param_unshard``, one all-gather each); the loss and
+    each gradient reduce to their mean (kernel 9: an all-reduce, or a
+    reduce-scatter onto ``grad_constrain``'s spec at ZeRO-2/3); ``clip_norm``
+    clips them (:func:`_clip_mesh`).  Then each rank runs ``update(scalars,
+    state, leaves, grads) -> (state, leaves)`` on its layout of them: for an
+    ``elementwise`` update each leaf on the data spec of any of its sharded
+    forms (param, gradient or moments: one rule gives them all the same),
+    every rank its block alone; otherwise on whole leaves, the sharded
+    moments all-gathered first.  The results go back to the specs the
+    state and leaves came in with: a replicated leaf updated in blocks is
+    all-gathered, a sharded one updated whole keeps its block.
+    ``offload`` copies the state in from pinned host memory at the start
+    and out to new pinned memory at the end."""
+    from ..parallel.mesh import (Sharded, _split_rows, _tree_leaves,
+                                 _tree_unflatten, reduce_mean, reshard)
+
+    devs = mesh.data_devices
+    dp = len(devs)
+
+    def base(spec):
+        return tuple(None if a == "data" else a for a in spec)
+
+    def step(scalars, xb, yb, opt_state, leaves):
+        leaves = tuple(leaves)
+        if offload:
+            opt_state = _offload_in(opt_state, devs)
+        full = param_unshard(leaves) if param_unshard is not None else leaves
+        vals, grads = [], []
+        for r, dev in enumerate(devs):
+            x_r = _split_rows(xb, dp, r, dev, accum_steps)
+            y_r = _split_rows(yb, dp, r, dev, accum_steps)
+            ps = tuple(p.shards[r] for p in full)
+            if accum_steps > 1:
+                v, g = _accum(lambda x, y: rank_vags[r](x, y, ps), x_r, y_r,
+                              accum_steps)
+            else:
+                v, g = rank_vags[r](x_r, y_r, ps)
+            vals.append(v.reshape(1))
+            grads.append(g)
+        v = reduce_mean(vals, (None,), mesh).shards[0].reshape(())
+        gspecs = (grad_constrain.specs if grad_constrain is not None
+                  else (None,) * len(leaves))
+        mean = tuple(reduce_mean([g[i] for g in grads], gs or full[i].spec,
+                                 mesh)
+                     for i, gs in enumerate(gspecs))
+        if clip_norm:
+            mean = _clip_mesh(mean, clip_norm)
+        st_leaves = _tree_leaves(opt_state)
+        slots = _moment_slots(st_leaves, leaves) if elementwise else None
+        work = []
+        for i, p in enumerate(leaves):
+            spec = base(p.spec)
+            if slots is not None:
+                forms = [p, mean[i]] + [x for x, s in zip(st_leaves, slots)
+                                        if s == i]
+                spec = next((f.spec for f in forms if f.dim is not None),
+                            spec)
+            work.append(spec)
+        slots = slots or [None] * len(st_leaves)
+        st_work = [reshard(x, work[s] if s is not None else base(x.spec))
+                   for x, s in zip(st_leaves, slots)]
+        p_work = [reshard(full[i] if "data" not in w else leaves[i], w)
+                  for i, w in enumerate(work)]
+        g_work = [reshard(g, w) for g, w in zip(mean, work)]
+        new_st, new_ps = [], []
+        for r, dev in enumerate(devs):
+            sc = tuple(s.to(dev) if isinstance(s, torch.Tensor) else s
+                       for s in scalars)
+            st_r = _tree_unflatten(opt_state, [x.shards[r] for x in st_work])
+            st_r, ps_r = update(sc, st_r, tuple(p.shards[r] for p in p_work),
+                                tuple(g.shards[r] for g in g_work))
+            new_st.append(_tree_leaves(st_r))
+            new_ps.append(tuple(ps_r))
+        state = _tree_unflatten(opt_state, [
+            reshard(Sharded(w.spec, [f[j] for f in new_st], mesh, w.shape),
+                    x.spec, own=True)
+            for j, (x, w) in enumerate(zip(st_leaves, st_work))])
+        out = tuple(
+            reshard(Sharded(w, [f[i] for f in new_ps], mesh, p.shape),
+                    p.spec, own=True)
+            for i, (p, w) in enumerate(zip(leaves, work)))
+        if offload:
+            state = _offload_out(state)
+        return v, state, out
+
+    return step
+
+
+def _offload_step(step: Callable, device, n_head: int) -> Callable:
+    """``offload_opt_state`` on one device: ``step(*head, opt_state, *rest)``
+    with the state copied in from pinned host memory at the start and out
+    to new pinned memory at the end (``n_head`` arguments before it)."""
+    def run(*args):
+        head, o, rest = args[:n_head], args[n_head], args[n_head + 1:]
+        out = step(*head, _offload_in(o, (device,)), *rest)
+        return (out[0], _offload_out(out[1])) + tuple(out[2:])
+
+    return run
+
+
 def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
                   accum_steps: int = 1,
                   clip_norm: Optional[float] = None,
-                  mixed_precision: bool = False) -> Callable:
+                  mixed_precision: bool = False,
+                  mesh=None, grad_constrain=None, param_unshard=None,
+                  offload: bool = False) -> Callable:
     """``(lr, xb, yb, opt_state, params) -> (loss, opt_state, params)``:
     one optimizer step on a batch.  ``lr`` is a float or a 0-d tensor;
     ``loss`` comes back as a 0-d tensor on the device (no synchronise), or
@@ -350,15 +650,63 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
     over the batch each), else the vmapped per-sample graph.  The
     parameters are cast to bf16 for it only, the masters the optimizer
     carries keep their dtype, and the values and gradients are upcast to
-    f32 BEFORE the batch mean.  :class:`_ChainedStep` chains it."""
+    f32 BEFORE the batch mean.  :class:`_ChainedStep` chains it.
+
+    ``mesh`` (a :class:`~tensor_ops_tpu_torch.parallel.mesh.Mesh` whose
+    model axis is 1; torch only) makes it the data-parallel step of
+    :func:`_mesh_step`: ``params`` and the state's arrays are
+    :class:`~tensor_ops_tpu_torch.parallel.mesh.Sharded` leaves, the batch
+    is split over the data ranks and the gradients are reduced by kernel
+    9.  The ZeRO pins come from ``parallel.mesh``: ``grad_constrain``
+    (``zero2_grad_constrain``, or the ZeRO-3 gradient pin) reduce-scatters
+    the gradients onto its specs, ``param_unshard`` (``zero3_param_place``)
+    gathers sharded params at use.  The updated state and params keep the
+    specs they came in with.
+
+    ``offload=True`` keeps the optimizer state in pinned host memory
+    between steps: the step copies it to the device at its start and to
+    new pinned memory at its end (:func:`_offload_in`,
+    :func:`_offload_out`); the update is the same, bit for bit."""
     if mixed_precision and be.name != "torch":
         raise ValueError("mixed_precision requires the torch backend — fit "
                          "gates this itself")
+    if (mesh is not None or offload) and be.name != "torch":
+        raise ValueError("mesh sharding and offload require the torch "
+                         "backend — fit gates this itself")
+
+    def specs(pin):
+        return None if pin is None else pin.specs
+
     key = ("optstep", loss.struct_key(), opt.struct_key(), int(accum_steps),
-           clip_norm, bool(mixed_precision)) + be.cache_key()
+           clip_norm, bool(mixed_precision), mesh, specs(grad_constrain),
+           specs(param_unshard), bool(offload)) + be.cache_key()
     fn = net.op._compiled.get(key)
     if fn is not None:
         return fn
+    if mesh is not None:
+        from ..parallel.mesh import _rank_backend
+
+        rank_vags = []
+        for dev in mesh.data_devices:
+            be_r = _rank_backend(be, dev)
+            if mixed_precision:
+                rank_vags.append(_bf16_vag(net, loss, be_r))
+            else:
+                mg = make_mean_grads(net, loss, be_r)
+                rank_vags.append(lambda x, y, ps, mg=mg: mg(x, y, *ps))
+        inner = _mesh_step(
+            mesh, rank_vags,
+            lambda sc, st, ps, gs: opt.update(st, ps, gs, sc[0]),
+            accum_steps=accum_steps, clip_norm=clip_norm,
+            elementwise=opt.name in _ELEMENTWISE,
+            grad_constrain=grad_constrain, param_unshard=param_unshard,
+            offload=offload)
+
+        def mesh_step(lr, xb, yb, opt_state, params):
+            return inner((lr,), xb, yb, opt_state, params)
+
+        net.op._compiled[key] = mesh_step
+        return mesh_step
     if mixed_precision:
         batch_vag = _bf16_vag(net, loss, be)
     else:
@@ -379,6 +727,8 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
         opt_state, params = opt.update(opt_state, params, grads, lr)
         return v, opt_state, params
 
+    if offload:
+        step = _offload_step(step, be.device, 3)
     net.op._compiled[key] = step
     return step
 
@@ -552,7 +902,12 @@ def _ema_init(r_ema, leaves, be: Backend, resumed_step: int, label: str):
                 f"checkpoint EMA holds {len(r_ema)} leaves but this "
                 f"configuration expects {len(leaves)} — resume with the "
                 f"same model")
-        return tuple(be.asarray(e) for e in r_ema)
+        from ..parallel.mesh import Sharded, place
+
+        # on a mesh each leaf back on its template's spec
+        return tuple(place(e, t.spec, t.mesh, t.dtype)
+                     if isinstance(t, Sharded) else be.asarray(e)
+                     for e, t in zip(r_ema, leaves))
     if resumed_step > 0:
         warnings.warn(
             f"{label}: the resumed checkpoint carries no EMA (the saving "
@@ -702,28 +1057,219 @@ def _longest_window(window_len: Callable, step: int, total: int) -> int:
     return longest
 
 
-def _refuse(caller: str, what: str, item: int) -> None:
+def _refuse(caller: str, what: str, item: str) -> None:
     raise ValueError(
         f"{caller}: {what} is not ported to the PyTorch package yet "
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def _check_ported(caller: str, *, mesh, shard_opt_state, zero_stage,
-                  offload_opt_state, **later) -> None:
+def _check_later(caller: str, **later) -> None:
     """Refuse every option of the JAX package's loop ``caller`` that this
     package does not run yet, naming the ROADMAP item that will port it:
-    none is silently ignored.  ``later`` holds ``fit``'s ``profile_dir``
-    (item 8) and ``pipeline_*`` options (item 9)."""
+    ``profile_dir`` (item 8) and the ``pipeline_*`` options (item 9c).
+    None is silently ignored."""
     if later.pop("profile_dir", None):
-        _refuse(caller, "profile_dir", 8)
-    for name, value in (("mesh", mesh), ("zero_stage", zero_stage),
-                        *later.items()):
+        _refuse(caller, "profile_dir", "8")
+    for name, value in later.items():
         if value is not None:
-            _refuse(caller, name, 9)
-    if shard_opt_state:
-        _refuse(caller, "shard_opt_state", 9)
-    if offload_opt_state:
-        _refuse(caller, "offload_opt_state", 9)
+            _refuse(caller, name, "9c")
+
+
+def _normalize_zero_stage(shard_opt_state: bool, zero_stage):
+    """One ladder, two spellings (the JAX package's): ``shard_opt_state=
+    True`` is ZeRO-1; ``zero_stage=1|2|3`` names the rung (1: moments
+    shard, 2: + gradients reduce-scatter, 3: + params shard between steps,
+    gathered at use).  Returns ``(shard_opt_state, stage)``; an explicit
+    ``zero_stage=0`` beside ``shard_opt_state=True`` is refused."""
+    if zero_stage is None:
+        return shard_opt_state, (1 if shard_opt_state else 0)
+    if zero_stage not in (0, 1, 2, 3):
+        raise ValueError(
+            f"zero_stage must be 0, 1, 2, or 3, got {zero_stage!r}")
+    if zero_stage == 0 and shard_opt_state:
+        raise ValueError(
+            "zero_stage=0 contradicts shard_opt_state=True — drop one "
+            "(shard_opt_state=True is exactly zero_stage=1)")
+    return zero_stage >= 1, int(zero_stage)
+
+
+def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
+                        zstage: int, offload_opt_state: bool, batch_size: int,
+                        chain_steps) -> int:
+    """The JAX package's eager checks of the mesh, ZeRO and offload options
+    both loops share, and the refusals of what this package does not run
+    (a model axis > 1: item 9b; a stage axis: item 9c; several processes:
+    item 9d).  Returns the data-axis size (1 without a mesh)."""
+    if shard_opt_state and mesh is None:
+        raise ValueError(
+            f"ZeRO-{zstage} (shard_opt_state/zero_stage) shards over "
+            f"the mesh's data axis — pass mesh=make_mesh(...)")
+    if offload_opt_state and be.name != "torch":
+        raise ValueError(
+            "offload_opt_state keeps optimizer state in pinned host "
+            "memory and requires the torch backend (numpy state already "
+            "lives on the host)")
+    if (isinstance(chain_steps, int) and chain_steps > 1
+            and offload_opt_state):
+        raise ValueError(
+            "chain_steps > 1 cannot combine with offload_opt_state: the "
+            "moments' host copies cannot ride inside a captured step — "
+            "use chain_steps='auto' (which backs off) or chain_steps=1")
+    if (torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        _refuse(caller, "training in several processes", "9d")
+    if mesh is None:
+        return 1
+    from ..parallel.mesh import DATA_AXIS, check_data_mesh
+
+    if be.name != "torch":
+        raise ValueError("mesh sharding requires the torch backend")
+    check_data_mesh(mesh, caller)
+    dp = mesh.shape[DATA_AXIS]
+    if batch_size % dp != 0:
+        raise ValueError(
+            f"batch_size ({batch_size}) must be divisible by the "
+            f"data-axis size ({dp})")
+    return dp
+
+
+def _zero2_grads(leaves, mesh, exact: bool = False):
+    """ZeRO-2 gradient pin over the placed training leaves
+    (``parallel.mesh.zero2_grad_constrain``), warning loudly when nothing
+    can shard: the run continues as ZeRO-1, never silently.
+    ``exact=True`` (``adam8bit(exact_reduction=True)``) returns None
+    without the warning: the gradients keep the replicated run's
+    all-reduce, bit for bit its order, instead of a reduce-scatter whose
+    different grouping perturbs them by an epsilon that int8 block
+    quantization amplifies; moments (and at stage 3 params) stay
+    sharded."""
+    if exact:
+        return None
+    from ..parallel.mesh import zero2_grad_constrain
+
+    cons = zero2_grad_constrain(leaves, mesh)
+    if cons is None:
+        warnings.warn(
+            "zero_stage=2: no gradient leaf can shard over the data "
+            "axis (no data axis in the mesh, dp == 1, or no dp-divisible "
+            "dimension) — continuing with replicated gradients (ZeRO-1)",
+            stacklevel=4)
+    return cons
+
+
+def _zero3_params(leaves, mesh):
+    """ZeRO-3 placement over the training leaves
+    (``parallel.mesh.zero3_param_place``); warns loudly when nothing can
+    shard (the run continues as ZeRO-2)."""
+    from ..parallel.mesh import zero3_param_place
+
+    placed, unshard, _, shs = zero3_param_place(leaves, mesh)
+    if unshard is None:
+        warnings.warn(
+            "zero_stage=3: no parameter leaf can shard over the data "
+            "axis (no data axis in the mesh, dp == 1, or no dp-divisible "
+            "dimension) — continuing with replicated params (ZeRO-2)",
+            stacklevel=4)
+    return placed, unshard, shs
+
+
+def _zero3_opt_init(opt: Optimizer, whole, params, mesh):
+    """ZeRO-3 optimizer state: moments of an elementwise optimizer inherit
+    their sharded params' specs (:func:`_mesh_opt_init`), as ``opt.init``
+    on sharded params does in the JAX package; the ZeRO-1 rule extends
+    the rest (``adam8bit``'s blocks, whose specs the JAX package leaves
+    to XLA's propagation)."""
+    from ..parallel.mesh import zero1_place
+
+    return zero1_place(_mesh_opt_init(opt, whole, params, mesh), mesh)[0]
+
+
+def _zero1_wrap(opt_state, mesh):
+    """The optimizer state on its ZeRO-1 specs
+    (``parallel.mesh.zero1_place``); warns loudly when nothing shards (no
+    data axis, dp == 1, a stateless optimizer, or no divisible
+    dimension): the moments then stay replicated, never silently."""
+    from ..parallel.mesh import zero1_place
+
+    opt_state, zero_cons = zero1_place(opt_state, mesh)
+    if zero_cons is None:
+        warnings.warn(
+            "shard_opt_state: no optimizer-state leaf can shard over "
+            "the data axis (no data axis in the mesh, dp == 1, a "
+            "stateless optimizer, or no dp-divisible dimension) — "
+            "continuing with replicated moments", stacklevel=4)
+    return opt_state
+
+
+def _mesh_setup(leaves, specs, opt: Optional[Optimizer], mesh, be: Backend,
+                zstage: int):
+    """The one mesh setup of both loops: the training ``leaves`` placed on
+    ``mesh`` by ``specs`` (replicated over the data ranks), then up the
+    ZeRO ladder to ``zstage``: 3 shards the leaves (:func:`_zero3_params`),
+    1 and up the optimizer state (:func:`_zero3_opt_init` /
+    :func:`_zero1_wrap`), 2 and up the gradients (:func:`_zero2_grads`, or
+    the ZeRO-3 leaves' specs; none under ``exact_reduction``).  Returns
+    ``(placed, opt_state, pins)``, ``pins`` the keyword arguments of the
+    step (``make_opt_step``, ``_seq_train_step``)."""
+    from ..parallel.mesh import pin_shardings, place
+
+    whole = tuple(place(be.asarray(x), s, mesh) for x, s in zip(leaves, specs))
+    placed = whole
+    pins = dict(grad_constrain=None, param_unshard=None)
+    if zstage >= 3:
+        placed, pins["param_unshard"], z3 = _zero3_params(whole, mesh)
+    if opt is None:
+        return placed, (), pins
+    exact = opt.exact_reduction
+    if zstage >= 3 and pins["param_unshard"] is not None:
+        opt_state = _zero3_opt_init(opt, whole, placed, mesh)
+        if not exact:
+            pins["grad_constrain"] = pin_shardings(
+                z3, what="zero_stage=3 gradient shards")
+        return placed, opt_state, pins
+    opt_state = _mesh_opt_init(opt, whole, placed, mesh)
+    if zstage >= 1:
+        opt_state = _zero1_wrap(opt_state, mesh)
+        if zstage >= 2:
+            pins["grad_constrain"] = _zero2_grads(placed, mesh, exact=exact)
+    return placed, opt_state, pins
+
+
+def _whole(x):
+    """A training leaf whole on one device: a :class:`Sharded` leaf on rank
+    0's (gathered by kernel 9 when sharded), anything else as it is."""
+    from ..parallel.mesh import Sharded
+
+    return x.full() if isinstance(x, Sharded) else x
+
+
+def _like(leaves):
+    """A tensor of the training leaves' dtype and (rank 0's) device."""
+    from ..parallel.mesh import Sharded
+
+    x = leaves[0] if len(leaves) else None
+    return x.shards[0] if isinstance(x, Sharded) else x
+
+
+def _memory_line(net, opt, batch_size: int, mesh, shard_opt_state: bool,
+                 zstage: int, mp_active: bool, offload: bool) -> str:
+    """``fit``'s verbose line of the training state per device
+    (:func:`~tensor_ops_tpu_torch.utils.profiling.training_memory_report`)."""
+    from ..utils.profiling import training_memory_report
+
+    rep = training_memory_report(
+        net, optimizer=opt, batch_size=batch_size, mesh=mesh,
+        shard_opt_state=shard_opt_state, zero_stage=zstage,
+        mixed_precision=mp_active, offload_opt_state=offload)["per_device"]
+    return (f"training state/device: "
+            f"params {rep['params_bytes'] / 1e6:.2f} MB + "
+            f"grads {rep['grads_bytes'] / 1e6:.2f} MB + "
+            f"moments {rep['optimizer_bytes'] / 1e6:.2f} MB"
+            + (f" (zero{zstage})" if shard_opt_state else "")
+            + (f" (+{rep['optimizer_host_bytes'] / 1e6:.2f} MB "
+               f"host-offloaded)" if offload else "")
+            + f" + batch {rep['batch_bytes'] / 1e6:.2f} MB")
 
 
 def _check_chain(chain_steps, chain_shuffle: str, n_rows: int,
@@ -901,16 +1447,39 @@ def fit(
     on the network and records it in every ``.state`` checkpoint, so
     ``resume=True`` re-takes it without measuring.
 
-    ``profile_dir``, ``mesh``, ZeRO (``shard_opt_state``, ``zero_stage``),
-    ``offload_opt_state`` and the ``pipeline_*`` options raise
-    ``ValueError`` naming the ROADMAP item that ports them."""
+    ``mesh`` (torch only; ``parallel.make_mesh(n, shape=(n, 1))``, whose
+    ranks may share a card) trains data-parallel: the parameters are placed
+    by ``param_specs`` on every data rank, each batch (``batch_size``
+    divisible by the data-axis size dp, accumulation chunks too) splits
+    over the ranks, and each rank's mean gradient is reduced to the global
+    mean by kernel 9 (an all-reduce, scale 1/dp); every rank steps its own
+    copy.  ``shard_opt_state=True`` (ZeRO-1, ``zero_stage=1``) shards the
+    optimizer moments over the data axis (the first free dimension dp
+    divides): each rank updates its blocks and an all-gather rebuilds the
+    parameters; ``zero_stage=2`` also reduce-scatters the gradients;
+    ``zero_stage=3`` also keeps the parameters sharded between steps,
+    gathered at use.  ``adam8bit(exact_reduction=True)`` keeps the
+    all-reduce at stages 2 and 3 (bit-equal to the replicated run).  A
+    stage with nothing to shard warns and continues one rung down.
+    ``offload_opt_state=True`` keeps the optimizer state in pinned host
+    memory between steps (the same numbers, bit for bit).  Checkpoints
+    gather sharded leaves to the JAX package's ``.state`` format; a resume
+    on a mesh places them by their specs.  A mesh or offload runs
+    unchained (an int ``chain_steps > 1`` with offload raises); with
+    ``verbose`` a mesh run prints ``training_memory_report``'s line.
+
+    ``profile_dir`` (item 8), a mesh whose model axis is larger than 1
+    (item 9b) and the ``pipeline_*`` options (item 9c) raise
+    ``ValueError`` naming their ROADMAP item."""
     mp_mode = _check_mp(mixed_precision, be)
-    _check_ported("fit", mesh=mesh, shard_opt_state=shard_opt_state,
-                  zero_stage=zero_stage, offload_opt_state=offload_opt_state,
-                  profile_dir=profile_dir,
-                  pipeline_microbatches=pipeline_microbatches,
-                  pipeline_schedule=pipeline_schedule,
-                  pipeline_chunks=pipeline_chunks)
+    _check_later("fit", profile_dir=profile_dir,
+                 pipeline_microbatches=pipeline_microbatches,
+                 pipeline_schedule=pipeline_schedule,
+                 pipeline_chunks=pipeline_chunks)
+    shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
+                                                    zero_stage)
+    dp = _check_mesh_options("fit", be, mesh, shard_opt_state, zstage,
+                             offload_opt_state, batch_size, chain_steps)
     _check_knobs(accum_steps, ema_decay, batch_size, "samples")
     if early_stop_patience and val is None:
         raise ValueError(
@@ -927,25 +1496,49 @@ def fit(
                  f"evenly into batches ({batch_size}): a ragged tail batch "
                  f"cannot ride the fixed-shape index window — trim the "
                  f"dataset or use chain_shuffle='host'")
+    if mesh is not None:
+        tail = X.shape[0] % batch_size
+        if tail and (tail // accum_steps) % dp:
+            raise ValueError(
+                f"the epoch's last batch of {tail} rows (dataset "
+                f"{X.shape[0]}, batch_size {batch_size}) does not split "
+                f"evenly over the {dp} data ranks — trim the dataset")
+        if (batch_size // accum_steps) % dp:
+            raise ValueError(
+                f"each accumulation chunk ({batch_size // accum_steps} "
+                f"rows) must split evenly over the {dp} data ranks")
+    # a mesh or an offloaded state runs unchained (the JAX package's gate)
     use_chain = _use_chain(be, chain_steps, chain_shuffle, X.size + Y.size,
-                           "loader")
+                           "loader",
+                           allowed=mesh is None and not offload_opt_state)
     chain_dev = use_chain and chain_shuffle != "host"
     opt = optimizer or sgd()
     steps_per_epoch = (X.shape[0] + batch_size - 1) // batch_size
     total_steps = epochs * steps_per_epoch
     params = tuple(net.params)
-    opt_state = opt.init(params)
+    pins = {}
+    if mesh is not None:
+        from ..parallel.mesh import param_specs, place
+
+        params, opt_state, pins = _mesh_setup(
+            params, param_specs(net.param_stack, mesh), opt, mesh, be,
+            zstage if shard_opt_state else 0)
+    else:
+        opt_state = opt.init(params)
+    if offload_opt_state:
+        opt_state = _offload_state(opt_state, "fit")
     state_path = (checkpoint_path + ".state") if checkpoint_path else None
     # id-based struct keys (custom optimizers without `hyper`) do not
     # survive process restarts: only factory-made optimizers are checked
     opt_key = opt.struct_key() if opt.hyper is not None else None
 
     def as_network(ps) -> Network:
-        return Network(net.op, tuple(ps), net.act_names)
+        return Network(net.op, tuple(_whole(p) for p in ps), net.act_names)
 
     def build_step(mp_active: bool):
         return make_opt_step(net, loss, be, opt, accum_steps=accum_steps,
-                             clip_norm=clip_norm, mixed_precision=mp_active)
+                             clip_norm=clip_norm, mixed_precision=mp_active,
+                             mesh=mesh, offload=offload_opt_state, **pins)
 
     # the records' `t` counts from here, so the first one holds the
     # loader's build and its first copies as well as the first step
@@ -960,16 +1553,20 @@ def fit(
                 rows = min(batch_size, X.shape[0])
                 xb = be.zeros((rows,) + tuple(X.shape[1:]))
                 yb = be.zeros((rows,) + tuple(Y.shape[1:]))
-                return (_scalars([lr], params[0])[0], xb, yb, opt_state,
+                return (_scalars([lr], _like(params))[0], xb, yb, opt_state,
                         params)
 
+            # the ZeRO rung changes the step's collectives: a verdict
+            # measured at one must not be reused at another
             route_key = ("mproute", loss.struct_key(), opt.struct_key(),
-                         clip_norm, int(accum_steps), int(batch_size),
-                         tuple(X.shape[1:]),
+                         clip_norm, int(accum_steps), int(batch_size), mesh,
+                         zstage if shard_opt_state else 0,
+                         bool(offload_opt_state), tuple(X.shape[1:]),
                          tuple(Y.shape[1:])) + be.cache_key()
             mp_active, mp_rec = _resolve_mp_route(
                 net, build_step, dummy_args, route_key, resume=resume,
-                state_path=state_path, carry_from=3, verbose=verbose)
+                state_path=state_path, carry_from=3, verbose=verbose,
+                graphs=mesh is None and not offload_opt_state)
         step_fn = build_step(mp_active)
         # the route travels with every .state checkpoint, so resume
         # re-takes it without measuring
@@ -989,7 +1586,13 @@ def fit(
                     f"checkpoint holds {len(rparams)} parameter leaves but "
                     f"this network has {len(params)} -- resume with the "
                     f"same model")
-            params = tuple(be.asarray(p) for p in rparams)
+            if mesh is not None:
+                # each leaf back on the spec it trains on (ZeRO-3: its
+                # block); the moments came back on their templates' specs
+                params = tuple(place(p, t.spec, mesh, be.dtype)
+                               for p, t in zip(rparams, params))
+            else:
+                params = tuple(be.asarray(p) for p in rparams)
             # stream position == global step: the resumed run continues
             # the epoch's shuffle where the saving run stopped (the device
             # streams are a function of the step: nothing to skip)
@@ -1042,10 +1645,14 @@ def fit(
 
             def run_window(s, k, state):
                 ps, o, e = state
-                (lr_now,) = _scalars([lr_at(s)], ps[0])
+                (lr_now,) = _scalars([lr_at(s)], _like(ps))
                 xb, yb = next_batch()
                 v, o, ps = step_fn(lr_now, xb, yb, o, ps)
                 return v, (ps, o, None if e is None else ema_step(e, ps))
+
+        if verbose and mesh is not None:
+            print(_memory_line(net, opt, batch_size, mesh, shard_opt_state,
+                               zstage, mp_active, offload_opt_state))
 
         evaluate = None
         if val is not None:
@@ -1067,8 +1674,12 @@ def fit(
                                             save_train_state_async)
 
             def save(state, at):
-                return (save_network_async(checkpoint_path,
-                                           as_network(state[0])),
+                if offload_opt_state:  # the copies out, on every rank's card
+                    _sync_cards(mesh.data_devices if mesh is not None
+                                else (be.device,))
+                # sharded leaves gather to the host in the checkpoint writer
+                return (save_network_async(checkpoint_path, Network(
+                            net.op, tuple(state[0]), net.act_names)),
                         save_train_state_async(state_path, state[0],
                                                state[1], at, opt_key=opt_key,
                                                ema=state[2],
@@ -1095,7 +1706,9 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
                     opt: Optional[Optimizer] = None,
                     clip_norm: Optional[float] = None, remat_every=None,
                     accum_steps: int = 1, offload_tape: bool = False,
-                    mixed_precision: bool = False) -> Callable:
+                    mixed_precision: bool = False, mesh=None,
+                    grad_constrain=None, param_unshard=None,
+                    offload: bool = False) -> Callable:
     """One sequence-batch step: the scan-BPTT mean loss and gradients
     (``training.make_seq_mean_grads``, the step ``train_batch`` takes) and
     the update, the logged loss from the same pass.
@@ -1117,34 +1730,82 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
     upcast to f32 before the batch mean (as :func:`make_opt_step`).
     Cached on the step op.  :class:`_ChainedStep` chains it (a table row a
     step: ``(rs, rp)``, or with ``opt`` ``(ratio, rp)``), the EMA over the
-    states and params."""
+    states and params.
+
+    ``mesh`` and the ZeRO pins (``grad_constrain``, ``param_unshard``)
+    make it the data-parallel step (:func:`_mesh_step`, as
+    ``make_opt_step``'s): states and params are
+    :class:`~tensor_ops_tpu_torch.parallel.mesh.Sharded` leaves (ZeRO over
+    the joint states + params); ``offload`` keeps the optimizer state in
+    pinned host memory between steps."""
     if mixed_precision and be.name != "torch":
         raise ValueError("mixed_precision requires the torch backend — "
                          "fit_sequences gates this itself")
     k = len(rnet.states)
+
+    def specs(pin):
+        return None if pin is None else pin.specs
+
     key = ("seq_fit_step", loss.struct_key(), n,
            opt.struct_key() if opt is not None else None, clip_norm,
-           remat_every, int(accum_steps), bool(offload_tape),
+           remat_every, int(accum_steps), bool(offload_tape), mesh,
+           specs(grad_constrain), specs(param_unshard), bool(offload),
            bool(mixed_precision)) + be.cache_key()
     fn = rnet.op._compiled.get(key)
     if fn is not None:
         return fn
-    if mixed_precision:
+
+    def grads_on(be_d):
+        if not mixed_precision:
+            return make_seq_mean_grads(rnet, loss, be_d, n,
+                                       remat_every=remat_every,
+                                       offload_tape=offload_tape)
         from ..backend.torch_backend import TorchBackend
 
         bf16 = torch.bfloat16
         lp_grads = make_seq_mean_grads(
-            rnet, loss, TorchBackend(bf16, be.device), n,
+            rnet, loss, TorchBackend(bf16, be_d.device), n,
             remat_every=remat_every, offload_tape=offload_tape,
             upcast=torch.float32)
 
         def mean_grads(xb, tb, leaves):
             return lp_grads(xb.to(bf16), tb.to(bf16),
                             tuple(x.to(bf16) for x in leaves))
-    else:
-        mean_grads = make_seq_mean_grads(rnet, loss, be, n,
-                                         remat_every=remat_every,
-                                         offload_tape=offload_tape)
+
+        return mean_grads
+
+    if mesh is not None:
+        from ..parallel.mesh import _rank_backend
+
+        if opt is None:
+            def update(sc, st, ls, gs):
+                new_s, new_p = dual_rate_sgd(sc[0], sc[1], ls[:k], ls[k:],
+                                             gs[:k], gs[k:])
+                return st, new_s + new_p
+        else:
+            def update(sc, st, ls, gs):
+                scaled = tuple(sc[0] * g for g in gs[:k]) + tuple(gs[k:])
+                return opt.update(st, ls, scaled, sc[1])
+
+        inner = _mesh_step(
+            mesh, [grads_on(_rank_backend(be, d)) for d in mesh.data_devices],
+            update, accum_steps=accum_steps, clip_norm=clip_norm,
+            elementwise=opt is None or opt.name in _ELEMENTWISE,
+            grad_constrain=grad_constrain, param_unshard=param_unshard,
+            offload=offload)
+        if opt is None:
+            def fn(rs, rp, xb, tb, states, params):
+                v, _, ls = inner((rs, rp), xb, tb, (),
+                                 tuple(states) + tuple(params))
+                return v, ls[:k], ls[k:]
+        else:
+            def fn(ratio, rp, xb, tb, opt_state, states, params):
+                v, o, ls = inner((ratio, rp), xb, tb, opt_state,
+                                 tuple(states) + tuple(params))
+                return v, o, ls[:k], ls[k:]
+        rnet.op._compiled[key] = fn
+        return fn
+    mean_grads = grads_on(be)
 
     def grads_of(xb, tb, states, params):
         leaves = tuple(states) + tuple(params)
@@ -1169,6 +1830,8 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
             opt_state, leaves = opt.update(opt_state, leaves, scaled, rp)
             return v, opt_state, tuple(leaves[:k]), tuple(leaves[k:])
 
+        if offload:
+            fn = _offload_step(fn, be.device, 4)
     rnet.op._compiled[key] = fn
     return fn
 
@@ -1281,13 +1944,36 @@ def fit_sequences(
     (whose host copies cannot ride a graph; an int ``chain_steps > 1``
     with it raises).  ``mixed_precision`` runs the scan-BPTT step in bf16
     on full-precision masters, routed as in ``fit`` (``True`` measures
-    once, records ``mp_route``).  ``mesh``, ZeRO (``shard_opt_state``,
-    ``zero_stage``) and ``offload_opt_state`` raise ``ValueError`` naming
-    the ROADMAP item that ports them."""
+    once, records ``mp_route``).  ``mesh``, ZeRO and ``offload_opt_state``
+    as in ``fit``, over the joint states + params: the states replicate,
+    the params take ``param_specs``; ZeRO and offload need ``optimizer``
+    (dual-rate SGD has no state); a mesh with a ``stage`` axis is refused
+    (the scan is sequential over time)."""
     mp_mode = _check_mp(mixed_precision, be)
-    _check_ported("fit_sequences", mesh=mesh,
-                  shard_opt_state=shard_opt_state, zero_stage=zero_stage,
-                  offload_opt_state=offload_opt_state)
+    shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
+                                                    zero_stage)
+    if mesh is not None and "stage" in tuple(getattr(mesh, "axis_names",
+                                                     ())):
+        raise ValueError(
+            "fit_sequences has no pipeline mode (the recurrent scan is "
+            "sequential over time, so S-1 stages would idle); pass a "
+            "(data, model) mesh from make_mesh")
+    dp = _check_mesh_options("fit_sequences", be, mesh, shard_opt_state,
+                             zstage, offload_opt_state, batch_size,
+                             chain_steps)
+    if shard_opt_state and optimizer is None:
+        raise ValueError(
+            "shard_opt_state needs optimizer state to shard — dual-rate "
+            "SGD is stateless; pass optimizer=adam() (or momentum())")
+    if offload_opt_state and optimizer is None:
+        raise ValueError(
+            "offload_opt_state needs optimizer state to offload — "
+            "dual-rate SGD is stateless; pass optimizer=adam() (or "
+            "momentum())")
+    if mesh is not None and (batch_size // accum_steps) % dp:
+        raise ValueError(
+            f"each accumulation chunk ({batch_size // accum_steps} "
+            f"sequences) must split evenly over the {dp} data ranks")
     if offload_activations and be.name == "numpy":
         raise ValueError(
             "offload_activations streams the scan-BPTT carry tape "
@@ -1319,29 +2005,44 @@ def fit_sequences(
             f"({batch_size}); ragged batches are dropped")
     use_chain = _use_chain(be, chain_steps, chain_shuffle,
                            XS.size + TS.size, "stream",
-                           allowed=not offload_activations)
+                           allowed=not (offload_activations or offload_opt_state
+                                        or mesh is not None))
     chain_dev = use_chain and chain_shuffle != "host"
     opt = optimizer
     steps_per_epoch = N // batch_size
     total_steps = epochs * steps_per_epoch
     k = len(rnet.states)
     leaves = tuple(rnet.states) + tuple(rnet.params)
-    opt_state = opt.init(leaves) if opt is not None else ()
+    pins = {}
+    if mesh is not None:
+        from ..parallel.mesh import param_specs, place
+
+        # states replicate (they are the network's, not a layer's)
+        specs = (tuple((None,) * s.dim() if isinstance(s, torch.Tensor)
+                       else (None,) * np.ndim(s) for s in rnet.states)
+                 + param_specs(rnet.param_stack, mesh))
+        leaves, opt_state, pins = _mesh_setup(
+            leaves, specs, opt, mesh, be, zstage if shard_opt_state else 0)
+    else:
+        opt_state = opt.init(leaves) if opt is not None else ()
+    if offload_opt_state:
+        opt_state = _offload_state(opt_state, "fit_sequences")
     state_path = (checkpoint_path + ".state") if checkpoint_path else None
     opt_key = (opt.struct_key()
                if opt is not None and opt.hyper is not None else None)
     ratio = rate_state / rate_param if opt is not None else None
 
     def as_rnet(ls) -> RecurrentNetwork:
-        return RecurrentNetwork(rnet.op, tuple(ls[:k]), tuple(ls[k:]),
-                                rnet.arch)
+        ls = tuple(_whole(x) for x in ls)
+        return RecurrentNetwork(rnet.op, ls[:k], ls[k:], rnet.arch)
 
     def build_step(mp_active: bool):
         return _seq_train_step(rnet, loss, be, XS.shape[1], opt=opt,
                                clip_norm=clip_norm, remat_every=remat_every,
                                accum_steps=accum_steps,
                                offload_tape=offload_activations,
-                               mixed_precision=mp_active)
+                               mixed_precision=mp_active, mesh=mesh,
+                               offload=offload_opt_state, **pins)
 
     logger = MetricsLogger(metrics_path)
     chain_fn = None
@@ -1351,7 +2052,7 @@ def fit_sequences(
             def dummy_args():
                 xb = be.zeros((batch_size,) + tuple(XS.shape[1:]))
                 tb = be.zeros((batch_size,) + tuple(TS.shape[1:]))
-                rs, rp = _scalars((rate_state, rate_param), leaves[-1])
+                rs, rp = _scalars((rate_state, rate_param), _like(leaves))
                 if opt is None:
                     return (rs, rp, xb, tb, leaves[:k], leaves[k:])
                 return (ratio, rp, xb, tb, opt_state, leaves[:k], leaves[k:])
@@ -1359,12 +2060,14 @@ def fit_sequences(
             route_key = ("mproute_seq", loss.struct_key(),
                          opt.struct_key() if opt is not None else None,
                          clip_norm, int(accum_steps), int(batch_size),
-                         remat_every, bool(offload_activations),
-                         tuple(XS.shape[1:]),
+                         remat_every, bool(offload_activations), mesh,
+                         zstage if shard_opt_state else 0,
+                         bool(offload_opt_state), tuple(XS.shape[1:]),
                          tuple(TS.shape[1:])) + be.cache_key()
             mp_active, mp_rec = _resolve_mp_route(
                 rnet, build_step, dummy_args, route_key, resume=resume,
-                state_path=state_path, carry_from=4, verbose=verbose)
+                state_path=state_path, carry_from=4, verbose=verbose,
+                graphs=mesh is None and not offload_opt_state)
         step_fn = build_step(mp_active)
         state_meta = ({"mp_route": "bf16" if mp_active else "f32"}
                       if mp_mode != "off" else None)
@@ -1380,7 +2083,11 @@ def fit_sequences(
                 raise ValueError(
                     f"checkpoint has {len(flat)} leaves, the network needs "
                     f"{k} states + {len(rnet.params)} params")
-            leaves = tuple(be.asarray(x) for x in flat)
+            if mesh is not None:
+                leaves = tuple(place(x, t.spec, mesh, be.dtype)
+                               for x, t in zip(flat, leaves))
+            else:
+                leaves = tuple(be.asarray(x) for x in flat)
             if verbose:
                 print(f"resumed from {state_path} at step {step} "
                       f"({max(total_steps - step, 0)} of {total_steps} "
@@ -1442,7 +2149,7 @@ def fit_sequences(
 
             def run_window(s, kw, state):
                 ls, o, e = state
-                rs, rp = _scalars(rates_at(s), ls[-1])
+                rs, rp = _scalars(rates_at(s), _like(ls))
                 xb, tb = next_batch()
                 if opt is None:
                     v, new_s, new_p = step_fn(rs, rp, xb, tb, ls[:k], ls[k:])
@@ -1468,8 +2175,14 @@ def fit_sequences(
                                             save_train_state_async)
 
             def save(state, at):
+                if offload_opt_state:  # the copies out, on every rank's card
+                    _sync_cards(mesh.data_devices if mesh is not None
+                                else (be.device,))
+                ls = tuple(state[0])
                 return (save_recurrent_async(checkpoint_path,
-                                             as_rnet(state[0])),
+                                             RecurrentNetwork(
+                                                 rnet.op, ls[:k], ls[k:],
+                                                 rnet.arch)),
                         save_train_state_async(state_path, state[0],
                                                state[1], at, opt_key=opt_key,
                                                ema=state[2],

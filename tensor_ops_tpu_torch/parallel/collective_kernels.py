@@ -52,6 +52,29 @@ THREADS = 256           # threads per block (csrc/ring.cuh kThreads)
 MAX_LOCAL_RANKS = 16    # ranks of one launch (csrc/ring.cuh kMaxLocalRanks)
 PHASES = {"ar": 0, "rs": 1, "ag": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
+# kernel 9's launches by phase, beside its count in ops.kernels (one-shot
+# and ring protocol alike): what the mesh's ZeRO steps are held to
+_phase_launches = {"ar": 0, "rs": 0, "ag": 0}
+
+
+def phase_counts() -> dict:
+    """Kernel 9's launches (``bidir_ring`` and ``bidir_ring.ring``) by phase
+    since the last :func:`reset_phase_counts`."""
+    with K._launch_lock:
+        return dict(_phase_launches)
+
+
+def reset_phase_counts() -> None:
+    with K._launch_lock:
+        for k in _phase_launches:
+            _phase_launches[k] = 0
+
+
+def _count(lib: str, phase: str) -> None:
+    K._count(lib)
+    if lib.startswith("bidir_ring"):
+        with K._launch_lock:
+            _phase_launches[phase] += 1
 
 
 class RankGroup:
@@ -526,7 +549,7 @@ def _ring_cuda(xs, phase: str, one_way: bool, scale: Optional[float] = None):
                 f"{lib}: the cooperative launch of {nb} blocks for each of "
                 f"R={len(ranks)} ranks on {dev} failed with cudaError_t {err}"
                 f" (720: more blocks than the card holds at once)")
-        K._count(f"{lib}.ring")
+        _count(f"{lib}.ring", phase)
     outs = [_extract(o, phase, shape, n, r, layout)
             for r, o in enumerate(outs)]
     return outs if scale is None else [t * scale for t in outs]
@@ -573,6 +596,7 @@ class _OneShotCall:
         else:
             out_shape = shape
         self.n, self.shape, self.dtype, self.card = n, shape, dtype, card
+        self.phase = phase
         self.buf_shape = (n,) + out_shape
         # the result buffer's shape, dtype and card on one element:
         # empty_like of it is the cheapest allocation per call
@@ -623,7 +647,7 @@ class _OneShotCall:
                     err = self.fn(self.desc_ptr, words.buffer_info()[0])
             if err:
                 K._check_launch(f"{self.lib} one-shot", err)
-            K._count(self.lib)
+            _count(self.lib, self.phase)
         return list(torch.unbind(out))
 
 
@@ -707,17 +731,33 @@ def ring_all_reduce_bidir(xs, scale: Optional[float] = None
     return _collective(xs, "ar", False, "ring_all_reduce_bidir", scale)
 
 
-def ring_reduce_scatter(xs) -> List[torch.Tensor]:
+def _along(xs, dim: int, run) -> List[torch.Tensor]:
+    """``run`` on the ranks' tensors with axis ``dim`` moved to the front
+    (a contiguous copy each, the kernels' leading-axis layout), and the
+    axis moved back in the results."""
+    if dim == 0:
+        return run(xs)
+    xs = [x.movedim(dim, 0).contiguous() for x in xs]
+    return [y.movedim(0, dim) for y in run(xs)]
+
+
+def ring_reduce_scatter(xs, scale: Optional[float] = None,
+                        dim: int = 0) -> List[torch.Tensor]:
     """Bidirectional ring reduce-scatter (``psum_scatter``, tiled): rank r
-    gets the summed r-th block of the leading axis.  ``shape[0]`` must be
-    divisible by the ring size."""
-    return _collective(xs, "rs", False, "ring_reduce_scatter")
+    gets the summed r-th block of axis ``dim`` (the leading axis by
+    default; another axis is moved to the front around the launch), which
+    must be divisible by the ring size.  ``scale`` multiplies each finished
+    sum (f32 on CUDA), as for :func:`ring_all_reduce`."""
+    return _along(xs, dim, lambda ys: _collective(
+        ys, "rs", False, "ring_reduce_scatter", scale))
 
 
-def ring_all_gather(xs) -> List[torch.Tensor]:
+def ring_all_gather(xs, dim: int = 0) -> List[torch.Tensor]:
     """Bidirectional ring all-gather (``all_gather``, tiled): every rank
-    gets the leading-axis concatenation of the R shards in rank order."""
-    return _collective(xs, "ag", False, "ring_all_gather")
+    gets the concatenation of the R shards in rank order along axis
+    ``dim`` (the leading axis by default)."""
+    return _along(xs, dim, lambda ys: _collective(
+        ys, "ag", False, "ring_all_gather"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,653 @@
+"""Device meshes and the data axis of sharded training: the counterpart of
+``tensor_ops_tpu/parallel/mesh.py``.
+
+The JAX package annotates leaves with ``NamedSharding``s and lets XLA insert
+the collectives.  There is no partitioner here: a :class:`Mesh` is a 2-D
+``(data, model)`` grid of torch devices, a sharded leaf (:class:`Sharded`)
+holds its spec and one tensor per data rank, and every cross-rank reduction
+and gather is an explicit call of the bidirectional ring collectives
+(kernel 9, :mod:`.collective_kernels`): :func:`reshard` moves a leaf from
+one spec to another (a slice of each rank's whole copy, which moves
+nothing, or an all-gather), :func:`reduce_mean` takes the ranks' gradients
+to their mean on a spec (an all-reduce, or a reduce-scatter over the data
+dimension).  The ZeRO rules (``zero1_place``, ``zero2_grad_constrain``,
+``zero3_param_place``, ...) are the JAX package's, on specs: one rule picks
+the dimension a leaf shards over the data axis, and the "constrain"
+functions they return reshard leaves onto the specs they carry (``.specs``).
+
+This package trains the data axis only.  ``param_specs`` is a pure function
+of the shapes and the model-axis size and runs at any size, but a mesh
+whose model axis is larger than 1 (tensor parallelism, ROADMAP.md Queue 1
+item 9b) is refused by every entry point that trains or serves on it.  A
+user of this slice builds ``make_mesh(n, shape=(n, 1))``: ``make_mesh(4)``
+factors as ``(1, 4)``, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Callable, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .collective_kernels import (_canonical, ring_all_gather,
+                                 ring_all_reduce_bidir, ring_reduce_scatter)
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+
+Spec = Tuple[Optional[str], ...]
+
+
+class Mesh:
+    """A 2-D ``(data, model)`` grid of torch devices: ``devices[i, j]`` is
+    data rank i, model rank j.  ``shape`` maps each axis name to its size,
+    as a JAX mesh's does.  A device may appear several times: ranks that
+    share one card run one after another on its current stream."""
+
+    axis_names = (DATA_AXIS, MODEL_AXIS)
+
+    def __init__(self, devices: Sequence[Sequence[torch.device]]):
+        rows = [[_canonical(torch.device(d)) for d in row] for row in devices]
+        if not rows or len({len(r) for r in rows}) != 1 or not rows[0]:
+            raise ValueError("a mesh is a non-empty 2-D grid of devices")
+        self.devices = tuple(tuple(r) for r in rows)
+        self.shape = {DATA_AXIS: len(rows), MODEL_AXIS: len(rows[0])}
+
+    @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """The devices of the data axis (model rank 0): one per data rank."""
+        return tuple(row[0] for row in self.devices)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Mesh) and self.devices == other.devices
+
+    def __hash__(self) -> int:
+        return hash(self.devices)
+
+    def __repr__(self) -> str:
+        return (f"Mesh(data={self.shape[DATA_AXIS]}, "
+                f"model={self.shape[MODEL_AXIS]}, devices="
+                f"{[[str(d) for d in r] for r in self.devices]})")
+
+
+def make_mesh(n_devices: Optional[int] = None,
+              shape: Optional[Tuple[int, int]] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A 2-D ``(data, model)`` mesh.  With no explicit shape, the device
+    count n factors as (n // tp, tp) with tp the largest of 4 and 2 that
+    divides n (the JAX package's rule).  This package trains only a model
+    axis of 1: pass ``shape=(n, 1)``.
+
+    ``devices`` defaults to the visible CUDA cards; with none visible this
+    raises (it never falls back to the CPU).  An explicit list may name a
+    device several times: ``devices=["cuda:0"] * 4`` puts 4 ranks on one
+    card, ``devices=["cpu"] * n`` runs the ranks on the CPU."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "make_mesh: no CUDA device is visible; pass devices=['cpu'] "
+                "* n to place the ranks on the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if n_devices is not None:
+        if len(devices) < n_devices:
+            raise ValueError(
+                f"requested {n_devices} devices but only {len(devices)} "
+                f"available (pass devices=[...] naming a card several times "
+                f"to place several ranks on it)")
+        devices = devices[:n_devices]
+    n = len(devices)
+    if shape is None:
+        tp = 1
+        for cand in (4, 2):
+            if n % cand == 0 and n >= cand:
+                tp = cand
+                break
+        shape = (n // tp, tp)
+    if shape[0] * shape[1] != n:
+        raise ValueError(f"mesh shape {tuple(shape)} != device count {n}")
+    return Mesh([devices[i * shape[1]:(i + 1) * shape[1]]
+                 for i in range(shape[0])])
+
+
+def param_specs(param_stack: Sequence[Tuple[int, ...]], mesh) -> Tuple[Spec, ...]:
+    """Megatron-style specs for an alternating ffLayer chain (the JAX
+    package's rule): layer-k weight ``(o, i)`` prefers ``o`` over the model
+    axis for even k and ``i`` for odd k; when the preferred dim does not
+    divide by the model-axis size the other one is taken, and when neither
+    does the weight is replicated with a warning.  Biases follow their
+    weight's output sharding.  One entry per dimension."""
+    tp = mesh.shape[MODEL_AXIS]
+    specs = []
+    layer = 0
+    for shape in param_stack:
+        if len(shape) == 2:
+            prefer_row = layer % 2 == 0
+            row_ok = shape[0] % tp == 0
+            col_ok = shape[1] % tp == 0
+            if (prefer_row and row_ok) or (row_ok and not col_ok):
+                specs.append((MODEL_AXIS, None))
+            elif col_ok:
+                specs.append((None, MODEL_AXIS))
+            else:
+                warnings.warn(
+                    f"tensor parallelism: weight {shape} has no dim "
+                    f"divisible by the model-axis size {tp}; replicating "
+                    f"it (pad the layer width to a multiple of {tp} to "
+                    f"shard it)", stacklevel=2)
+                specs.append((None, None))
+            layer += 1
+        elif len(shape) == 1:
+            prev = specs[-1] if specs else ()
+            if len(prev) >= 1 and prev[0] == MODEL_AXIS and shape[0] % tp == 0:
+                specs.append((MODEL_AXIS,))
+            else:
+                specs.append((None,))
+        else:
+            specs.append((None,) * len(shape))
+    return tuple(specs)
+
+
+def batch_spec() -> Spec:
+    return (DATA_AXIS, None)
+
+
+def _full(spec, ndim: int) -> Spec:
+    spec = tuple(spec or ())
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _data_dim(spec) -> Optional[int]:
+    return spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+
+
+class Sharded:
+    """One leaf on a mesh's data axis: ``spec`` (one entry per dimension:
+    ``None``, ``DATA_AXIS`` or ``MODEL_AXIS``) and ``shards``, one tensor per
+    data rank on that rank's device: the rank's block of the dimension the
+    spec marks ``DATA_AXIS``, or the whole leaf when it marks none
+    (replicated).  ``shape`` is the whole leaf's.  Nothing updates a shard
+    in place; ``scalar * leaf`` and ``leaf + leaf`` apply shard by shard to
+    leaves of one spec (the Polyak update).  ``np.asarray(leaf)`` gathers the whole
+    leaf to one host array."""
+
+    __slots__ = ("spec", "shards", "shape", "mesh")
+
+    def __init__(self, spec, shards, mesh: Mesh, shape=None):
+        self.shards = list(shards)
+        x0 = self.shards[0]
+        self.spec = _full(spec, x0.dim())
+        self.mesh = mesh
+        if shape is None:
+            shape = list(x0.shape)
+            d = _data_dim(self.spec)
+            if d is not None:
+                shape[d] *= len(self.shards)
+        self.shape = tuple(shape)
+
+    @property
+    def dim(self) -> Optional[int]:
+        """The dimension sharded over the data axis (None: replicated)."""
+        return _data_dim(self.spec)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def rank_nbytes(self, r: int) -> int:
+        """Bytes rank ``r`` holds of this leaf."""
+        return self.shards[r].numel() * self.shards[r].element_size()
+
+    def numpy(self) -> np.ndarray:
+        """The whole leaf as one host array (each shard copied to the host;
+        bf16 widened to f32, as checkpoints store it)."""
+        def host(x):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+        if self.dim is None:
+            return host(self.shards[0])
+        return np.concatenate([host(x) for x in self.shards], axis=self.dim)
+
+    def __array__(self, dtype=None, copy=None):
+        a = self.numpy()
+        return a if dtype is None else a.astype(dtype)
+
+    def full(self) -> torch.Tensor:
+        """The whole leaf on rank 0's device: rank 0's copy, or for a
+        sharded leaf an all-gather over the data ranks."""
+        if self.dim is None:
+            return self.shards[0]
+        return _all_gather(self.shards, self.dim)[0]
+
+    def map(self, fn: Callable, *others) -> "Sharded":
+        """``fn`` shard by shard over this leaf and ``others`` (leaves of
+        the same spec, or scalars), the result on this leaf's spec."""
+        for o in others:
+            if isinstance(o, Sharded) and o.spec != self.spec:
+                raise ValueError(f"shard-wise op on specs {self.spec} and "
+                                 f"{o.spec}")
+        shards = [fn(x, *(o.shards[r] if isinstance(o, Sharded) else o
+                          for o in others))
+                  for r, x in enumerate(self.shards)]
+        return Sharded(self.spec, shards, self.mesh, self.shape)
+
+    def __add__(self, o):
+        return self.map(lambda a, b: a + b, o)
+
+    def __rmul__(self, o):
+        return self.map(lambda a, b: b * a, o)
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={self.shape}, spec={self.spec}, "
+                f"dtype={self.dtype}, ranks={len(self.shards)})")
+
+
+def place(x, spec, mesh: Mesh, dtype: Optional[torch.dtype] = None) -> Sharded:
+    """``x`` (a tensor or an array) placed on ``mesh`` by ``spec``: each
+    data rank gets a copy of its block (or of the whole leaf) in memory of
+    its own on its device, in ``dtype`` (default: ``x``'s)."""
+    t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
+    spec = _full(spec, t.dim())
+    devs = mesh.data_devices
+    d = _data_dim(spec)
+    if d is not None and t.shape[d] % len(devs):
+        raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over "
+                         f"{len(devs)} data ranks")
+    s = t.shape[d] // len(devs) if d is not None else 0
+    shards = []
+    for r, dev in enumerate(devs):
+        part = t if d is None else t.narrow(d, r * s, s)
+        out = torch.empty(part.shape, dtype=dtype or t.dtype, device=dev)
+        shards.append(out.copy_(part))
+    return Sharded(spec, shards, mesh, tuple(t.shape))
+
+
+def place_host(host, spec, mesh: Mesh) -> Sharded:
+    """A host array placed on ``mesh`` by ``spec`` (single process: every
+    rank of the mesh is this process's)."""
+    return place(np.asarray(host), spec, mesh)
+
+
+# ---------------------------------------------------------------------------
+# Collectives on the data axis (kernel 9)
+# ---------------------------------------------------------------------------
+
+
+def _words(xs):
+    """int8 leaves (adam8bit's codes) travel as int32 words of four codes
+    along the last dimension: the kernels move f32 and int32, and a gather
+    only moves bytes."""
+    x0 = xs[0]
+    if x0.dtype == torch.int8 and x0.dim() and x0.shape[-1] % 4 == 0:
+        return [x.contiguous().view(torch.int32) for x in xs], True
+    return xs, False
+
+
+def _all_gather(xs, d: int):
+    ys, packed = _words(xs)
+    out = ring_all_gather(list(ys), dim=d)
+    return [y.contiguous().view(torch.int8) for y in out] if packed else out
+
+
+def reshard(leaf: Sharded, spec, own: bool = False) -> Sharded:
+    """``leaf`` on ``spec``: unchanged where the data dimension is the same;
+    a sharded leaf is first all-gathered to every rank (kernel 9's ``ag``);
+    a leaf that is to be sharded is sliced from each rank's whole copy, which
+    moves nothing.  ``own=True`` (what a resident leaf needs) makes each
+    moved shard contiguous memory of its own: a slice's whole copy can then
+    be freed, and a leaf gathered along another than its leading dimension
+    is stored in its own layout (a product's GEMM takes another algorithm,
+    and other roundings, on a transposed operand)."""
+    spec = _full(spec, leaf.ndim)
+    d_from, d_to = leaf.dim, _data_dim(spec)
+    if d_from == d_to:
+        return Sharded(spec, leaf.shards, leaf.mesh, leaf.shape)
+    shards = leaf.shards
+    if d_from is not None:
+        shards = _all_gather(shards, d_from)
+    if d_to is not None:
+        n = len(shards)
+        s = leaf.shape[d_to] // n
+        shards = [x.narrow(d_to, r * s, s) for r, x in enumerate(shards)]
+        if own:
+            shards = [x.clone(memory_format=torch.contiguous_format)
+                      for x in shards]
+    elif own:
+        shards = [x.contiguous() for x in shards]
+    return Sharded(spec, shards, leaf.mesh, leaf.shape)
+
+
+def reduce_mean(xs, spec, mesh: Mesh) -> Sharded:
+    """The mean of the data ranks' tensors ``xs`` (one per rank, equal
+    shapes), on ``spec``: an all-reduce (``ar``) for a replicated spec, a
+    reduce-scatter (``rs``) over the spec's data dimension otherwise; the
+    1/dp is the collective's scale.  With equal shards of a global batch,
+    the mean of the ranks' batch means is the global batch mean."""
+    spec = _full(spec, xs[0].dim())
+    d = _data_dim(spec)
+    inv = 1.0 / len(xs)
+    if d is None:
+        out = ring_all_reduce_bidir(list(xs), scale=inv)
+    else:
+        out = ring_reduce_scatter(list(xs), scale=inv, dim=d)
+    return Sharded(spec, out, mesh, tuple(xs[0].shape))
+
+
+# ---------------------------------------------------------------------------
+# The ZeRO rules
+# ---------------------------------------------------------------------------
+
+
+def _leaf_spec(x) -> Optional[Spec]:
+    """A leaf's spec now: its own for a :class:`Sharded`, none for a tensor
+    or array; ``None`` for what is no array (a Python scalar)."""
+    if isinstance(x, Sharded):
+        return x.spec
+    if isinstance(x, (torch.Tensor, np.ndarray)):
+        return (None,) * x.ndim
+    return None
+
+
+def _data_extended_sharding(x, mesh: Mesh, dp: int) -> Optional[Spec]:
+    """The shared ZeRO dim-choice rule (the JAX package's): extend a leaf's
+    spec by the data axis on the FIRST spec-free dimension the dp size
+    divides.  ``None`` (leave untouched) for scalars, empty leaves,
+    non-divisible leaves and leaves already sharded over data.  A
+    ``MODEL_AXIS`` entry counts as used even on a model axis of 1."""
+    spec = _leaf_spec(x)
+    if spec is None:
+        return None
+    return extend_spec(spec, tuple(x.shape), dp)
+
+
+def extend_spec(spec, shape, dp: int) -> Optional[Spec]:
+    """The rule of :func:`_data_extended_sharding` on a spec and a shape."""
+    if dp <= 1 or not shape or math.prod(shape) == 0:
+        return None
+    spec = list(_full(spec, len(shape)))
+    if DATA_AXIS in spec:
+        return None
+    for ax in range(len(shape)):
+        if spec[ax] is None and shape[ax] % dp == 0:
+            spec[ax] = DATA_AXIS
+            return tuple(spec)
+    return None
+
+
+def _dp(mesh: Mesh) -> int:
+    return dict(mesh.shape).get(DATA_AXIS, 1)
+
+
+def _tree_leaves(tree) -> list:
+    if isinstance(tree, (tuple, list)):
+        return [leaf for t in tree for leaf in _tree_leaves(t)]
+    return [] if tree is None else [tree]
+
+
+def _tree_unflatten(template, leaves):
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, (tuple, list)):
+            vals = [build(x) for x in t]
+            if hasattr(t, "_fields"):
+                return type(t)(*vals)
+            return type(t)(vals)
+        return next(it)
+
+    return build(template)
+
+
+class Pin:
+    """A reshard of a same-length tuple of leaves onto ``specs`` (one spec or
+    ``None``, leave untouched, per leaf): the port's form of the JAX
+    package's in-step sharding pins.  Calling it reshards with ``own=True``
+    (the result is resident); ``specs`` tells a step which reduction or
+    gather a leaf takes."""
+
+    def __init__(self, specs, what: str):
+        self.specs, self.what = tuple(specs), what
+
+    def __call__(self, leaves):
+        leaves = tuple(leaves)
+        if len(leaves) != len(self.specs):
+            raise ValueError(f"{self.what}: expected {len(self.specs)} "
+                             f"leaves, got {len(leaves)}")
+        return tuple(x if sh is None else reshard(x, sh, own=True)
+                     for x, sh in zip(leaves, self.specs))
+
+
+class TreePin(Pin):
+    """:class:`Pin` over the leaves of a pytree of tuples (an optimizer
+    state), which must keep its structure across the update."""
+
+    def __call__(self, tree):
+        leaves = _tree_leaves(tree)
+        if len(leaves) != len(self.specs):
+            raise ValueError(
+                f"{self.what} changed structure across the update "
+                f"({len(self.specs)} leaves at init, {len(leaves)} after)")
+        return _tree_unflatten(tree, super().__call__(leaves))
+
+
+def pin_shardings(shs, what: str = "leaves") -> Optional[Pin]:
+    """A :class:`Pin` onto ``shs``, or ``None`` when there is nothing to
+    pin (every entry ``None``)."""
+    shs = tuple(shs)
+    if not any(sh is not None for sh in shs):
+        return None
+    return Pin(shs, what)
+
+
+def pin_inherited(tree, what: str = "optimizer state") -> Optional[TreePin]:
+    """A pin keeping every :class:`Sharded` leaf of a same-structure tree on
+    the spec it holds NOW (the ZeRO-3 optimizer state, whose moments
+    inherited their params' data-extended specs), or ``None`` when no leaf
+    is sharded over the data axis."""
+    shs = [x.spec if isinstance(x, Sharded) and x.dim is not None else None
+           for x in _tree_leaves(tree)]
+    if not any(sh is not None for sh in shs):
+        return None
+    return TreePin(shs, what)
+
+
+def zero1_shardings(opt_state, mesh: Mesh):
+    """ZeRO-1 specs for an optimizer-state tree: each array leaf's inherited
+    spec (a moment built from a placed param carries its param's) extended
+    by the data axis (:func:`_data_extended_sharding`).  Returns
+    ``(flat_specs, template)``: a spec or ``None`` per flattened leaf, and
+    the tree whose structure they follow."""
+    dp = _dp(mesh)
+    return [_data_extended_sharding(x, mesh, dp)
+            for x in _tree_leaves(opt_state)], opt_state
+
+
+def zero1_place(opt_state, mesh: Mesh):
+    """Place an optimizer-state tree by its ZeRO-1 specs and return
+    ``(placed_state, constrain)``; ``constrain`` (a :class:`TreePin`) keeps
+    the updated state on them, or is ``None`` when nothing sharded (no data
+    axis, dp == 1, or no divisible leaf), which the caller treats as a
+    loud no-op."""
+    shs, _ = zero1_shardings(opt_state, mesh)
+    if not any(sh is not None for sh in shs):
+        return opt_state, None
+    pin = TreePin(shs, "shard_opt_state requires a structure-stable "
+                       "optimizer: optimizer state")
+    return pin(opt_state), pin
+
+
+def zero2_grad_shardings(leaves, mesh: Mesh):
+    """ZeRO-2 gradient specs: each placed training leaf's spec extended by
+    the same rule as the ZeRO-1 moments, so a gradient shard and its
+    moments' shards coincide dimension for dimension and the update needs
+    no collective.  A gradient with a spec reduces by reduce-scatter."""
+    dp = _dp(mesh)
+    return tuple(_data_extended_sharding(x, mesh, dp) for x in leaves)
+
+
+def zero2_grad_constrain(leaves, mesh: Mesh) -> Optional[Pin]:
+    """A :class:`Pin` onto the ZeRO-2 gradient specs of the placed
+    ``leaves``, or ``None`` when nothing can shard."""
+    return pin_shardings(zero2_grad_shardings(leaves, mesh),
+                         what="zero_stage=2 gradient shards")
+
+
+def zero3_param_place(leaves, mesh: Mesh):
+    """ZeRO-3 parameter sharding: each placed training leaf's spec extended
+    by the data axis (the same rule), so between steps each rank holds
+    only its 1/dp block of every divisible leaf.  Returns ``(placed,
+    unshard, constrain, specs)``: the resharded leaves, the gather at use
+    (a :class:`Pin` back onto the original specs: an all-gather each), the
+    pin of the updated leaves onto their shards, and the extended spec or
+    ``None`` per leaf (also the gradients' specs).  When nothing can shard
+    the leaves come back untouched with both pins ``None``."""
+    flat = tuple(leaves)
+    shs = tuple(_data_extended_sharding(x, mesh, _dp(mesh)) for x in flat)
+    if not any(sh is not None for sh in shs):
+        return flat, None, None, shs
+    orig = tuple(None if sh is None else x.spec for x, sh in zip(flat, shs))
+    placed = tuple(x if sh is None else reshard(x, sh, own=True)
+                   for x, sh in zip(flat, shs))
+    return (placed, Pin(orig, "zero_stage=3 gathered params"),
+            Pin(shs, "zero_stage=3 param shards"), shs)
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+
+def check_data_mesh(mesh, caller: str) -> Mesh:
+    """Refuse what this package cannot train on: anything but a
+    :class:`Mesh`, a pipeline (``stage``) axis (ROADMAP.md Queue 1 item
+    9c), a model axis larger than 1 (item 9b), and ranks that are not all
+    on the CPU or all on CUDA cards with peer access between neighbours."""
+    from .collective_kernels import RankGroup
+
+    names = tuple(getattr(mesh, "axis_names", ()))
+    if "stage" in names:
+        raise ValueError(
+            f"{caller}: a mesh with a stage axis (pipeline parallelism) is "
+            f"not ported to the PyTorch package yet (ROADMAP.md, Queue 1 "
+            f"item 9c)")
+    if not isinstance(mesh, Mesh):
+        raise ValueError(f"{caller}: mesh must be a tensor_ops_tpu_torch "
+                         f"parallel.Mesh (make_mesh), got {mesh!r}")
+    if mesh.shape[MODEL_AXIS] > 1:
+        raise ValueError(
+            f"{caller}: a mesh whose model axis is {mesh.shape[MODEL_AXIS]} "
+            f"(tensor parallelism) is not ported to the PyTorch package yet "
+            f"(ROADMAP.md, Queue 1 item 9b); pass make_mesh(n, shape=(n, 1))")
+    RankGroup(devices=mesh.data_devices)
+    return mesh
+
+
+def shard_network(net, mesh: Mesh):
+    """The network with its parameters placed on ``mesh`` by
+    :func:`param_specs` (as :class:`Sharded` leaves)."""
+    from ..models.feedforward import Network
+
+    specs = param_specs(net.param_stack, mesh)
+    return Network(net.op, tuple(place(p, s, mesh)
+                                 for p, s in zip(net.params, specs)),
+                   net.act_names)
+
+
+def _rank_backend(be, device):
+    from ..backend.torch_backend import TorchBackend
+
+    return be if torch.device(be.device) == device else TorchBackend(
+        be.dtype, device)
+
+
+def _split_rows(xb, dp: int, r: int, device, chunks: int = 1):
+    """Rank ``r``'s rows of a global batch: of each of ``chunks`` equal
+    chunks, its r-th of dp equal parts (the batch sharded over the data
+    axis, chunk by chunk), on ``device``."""
+    rest = tuple(xb.shape[1:])
+    rows = xb.shape[0] - xb.shape[0] % chunks
+    micro = rows // chunks
+    if micro % dp:
+        raise ValueError(
+            f"a batch of {xb.shape[0]} rows ({chunks} chunk(s) of {micro}) "
+            f"does not split evenly over the {dp} data ranks")
+    part = xb[:rows].reshape((chunks, dp, micro // dp) + rest)[:, r]
+    return part.reshape((-1,) + rest).to(device)
+
+
+def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
+    """Multi-rank minibatch SGD ``fn(rate, xb, yb, *params) -> (mean_loss,
+    new_params)`` on a mesh whose model axis is 1: the batch splits over the
+    data ranks, each rank takes its rows' mean gradient on its copy of the
+    params, and the ranks' gradients are all-reduced to their mean (kernel
+    9, scale 1/dp) before every rank takes the same step.  ``params`` are
+    :class:`Sharded` leaves (:func:`shard_network`) or tensors, which are
+    placed first; the new params come back as :class:`Sharded` leaves and
+    the loss as a 0-d tensor on rank 0's device."""
+    from ..models.training import make_mean_grads
+
+    check_data_mesh(mesh, "sharded_train_step")
+    specs = param_specs(net.param_stack, mesh)
+    devs = mesh.data_devices
+    vags = [make_mean_grads(net, loss, _rank_backend(be, d)) for d in devs]
+
+    def step(rate, xb, yb, *params):
+        params = tuple(p if isinstance(p, Sharded) else place(p, s, mesh)
+                       for p, s in zip(params, specs))
+        vals, grads = [], []
+        for r, (dev, vag) in enumerate(zip(devs, vags)):
+            v, g = vag(_split_rows(xb, len(devs), r, dev),
+                       _split_rows(yb, len(devs), r, dev),
+                       *(p.shards[r] for p in params))
+            vals.append(v.reshape(1))
+            grads.append(g)
+        v = reduce_mean(vals, (None,), mesh).shards[0].reshape(())
+        new = []
+        for i, p in enumerate(params):
+            g = reduce_mean([gr[i] for gr in grads], p.spec, mesh)
+            new.append(p.map(lambda a, b: a - rate * b, g))
+        return v, tuple(new)
+
+    return step
+
+
+def sharded_forward(net, be, mesh: Mesh) -> Callable:
+    """Multi-rank batched inference ``fn(xb, *params) -> yb`` on a mesh whose
+    model axis is 1: each data rank runs its rows of the batch; the rows
+    come back in order on rank 0's device (a gather of outputs, not a
+    reduction)."""
+    from ..models.training import _vmap
+
+    check_data_mesh(mesh, "sharded_forward")
+    specs = param_specs(net.param_stack, mesh)
+    devs = mesh.data_devices
+
+    def fwd(xb, *params):
+        params = tuple(p if isinstance(p, Sharded) else place(p, s, mesh)
+                       for p, s in zip(params, specs))
+        outs = []
+        for r, dev in enumerate(devs):
+            be_r = _rank_backend(be, dev)
+
+            def single(x, *ps, be_r=be_r):
+                return net.op.apply(be_r, (x,) + ps)[0]
+
+            run = _vmap(single, 1, len(params))
+            outs.append(run(_split_rows(xb, len(devs), r, dev),
+                            *(p.shards[r] for p in params)))
+        return Sharded((DATA_AXIS,), [o.reshape(o.shape[0], -1)
+                                      for o in outs], mesh).full().reshape(
+            (xb.shape[0],) + tuple(outs[0].shape[1:]))
+
+    return fwd

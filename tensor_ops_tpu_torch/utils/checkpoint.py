@@ -224,10 +224,28 @@ def _tree_unflatten(template, leaves_iter):
         return np.asarray(leaf, dtype=template.dtype)
     import torch
 
+    from ..parallel.mesh import Sharded, place
+
+    if isinstance(template, Sharded):
+        # a leaf of a mesh's state resumes on its template's spec, in pinned
+        # host memory again where the template was offloaded (the shards
+        # placed on the ranks' cards come back to the host)
+        out = place(leaf, template.spec, template.mesh, template.dtype)
+        if template.shards[0].device.type == "cpu" and _pinned(template):
+            out.shards = [x.cpu().pin_memory() for x in out.shards]
+        return out
     if isinstance(template, torch.Tensor):
-        return torch.as_tensor(leaf, dtype=template.dtype,
-                               device=template.device)
+        out = torch.as_tensor(leaf, dtype=template.dtype,
+                              device=template.device)
+        return out.pin_memory() if _pinned(template) else out
     return leaf
+
+
+def _pinned(template) -> bool:
+    """Whether a template leaf (its first shard) lies in pinned host memory
+    (``offload_opt_state``)."""
+    x = getattr(template, "shards", [template])[0]
+    return x.device.type == "cpu" and x.is_pinned()
 
 
 def _train_state_payload(params, opt_state, step: int, opt_key,

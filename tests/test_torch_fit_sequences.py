@@ -484,19 +484,33 @@ def test_ported_options_train(kw):
     assert res.history[-1]["loss"] < res.history[0]["loss"]
 
 
+def _cpu_mesh(n, shape=None):
+    from tensor_ops_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, shape=shape, devices=["cpu"] * n)
+
+
+# what the mesh slice still refuses (naming its ROADMAP item) and the JAX
+# package's own checks of the mesh, ZeRO and offload options
 REFUSED = [
-    (dict(mesh="a mesh"), "item 9"),
-    (dict(shard_opt_state=True), "item 9"),
-    (dict(zero_stage=2), "item 9"),
-    (dict(offload_opt_state=True), "item 9"),
+    ("mesh=a mesh", dict(mesh=_cpu_mesh(4)), "ROADMAP.md, Queue 1 item 9b"),
+    ("shard_opt_state=True", dict(shard_opt_state=True),
+     r"ZeRO-1 \(shard_opt_state/zero_stage\) shards over the mesh's data"),
+    ("zero_stage=2", dict(zero_stage=2, mesh=_cpu_mesh(2, (2, 1))),
+     "dual-rate SGD is stateless; pass optimizer=adam"),
+    ("offload_opt_state=True", dict(offload_opt_state=True),
+     "offload_opt_state needs optimizer state to offload"),
 ]
 
 
-@pytest.mark.parametrize("kw,item", REFUSED,
-                         ids=[_option_id(k) for k, _ in REFUSED])
+@pytest.mark.parametrize("kw,item", [r[1:] for r in REFUSED],
+                         ids=[r[0] for r in REFUSED])
 def test_unported_options_raise(kw, item):
+    """A model axis > 1 raises naming its ROADMAP item; ZeRO without a mesh
+    and ZeRO or offload without optimizer state raise the JAX package's
+    messages."""
     XS, TS = sine(n_seqs=8, T_=3)
-    with pytest.raises(ValueError, match=f"ROADMAP.md, Queue 1 {item}"):
+    with pytest.raises(ValueError, match=item):
         t_fit_seq(trnet(TB, jrnet(JNB, 4, 0)), t_sq(1), TB, XS, TS,
                   verbose=False, **kw)
 

@@ -3,8 +3,9 @@
 ``fused_rnn_seq``), data-parallel, ``fit`` (with the NumPy oracle, the dots
 app and the autoencoder) and ``fit_sequences`` paths (with ``adam8bit``,
 EMA, accumulation and both examples' entry points), chained steps (host
-and device shuffles, both loops) and a ``mixed_precision`` bf16 step run
-end to end, in a fresh interpreter where ``import jax`` fails."""
+and device shuffles, both loops), a ``mixed_precision`` bf16 step and a
+2-rank CPU mesh ``fit`` (ZeRO-3, offload, EMA) run end to end, in a fresh
+interpreter where ``import jax`` fails."""
 
 import os
 import re
@@ -207,6 +208,18 @@ with tempfile.TemporaryDirectory() as d:
     assert chain.chain_counts()["captures"] == 0  # no card here
 assert sys.modules["jax"] is None
 assert not any(m.startswith("jax.") or m == "jaxlib" for m in sys.modules)
+# the mesh's data axis: a 2-rank CPU mesh fit at ZeRO-3 with offload and
+# EMA
+from tensor_ops_tpu_torch.parallel import mesh as pmesh
+from tensor_ops_tpu_torch.models import adam, cross_entropy, fit
+m2 = pmesh.make_mesh(2, shape=(2, 1), devices=["cpu"] * 2)
+rx = np.random.default_rng(0)
+Xm, Ym = rx.uniform(size=(16, 12)), np.eye(4)[rx.integers(0, 4, 16)]
+rm = fit(gen_net(be, 12, 4, [(8, act_logistic())], act_softmax(), Rng(be, 0)),
+         cross_entropy(4), be, Xm, Ym, batch_size=8, optimizer=adam(),
+         mesh=m2, zero_stage=3, offload_opt_state=True, ema_decay=0.9,
+         verbose=False)
+assert rm.steps == 2 and all(np.isfinite(h["loss"]) for h in rm.history)
 print("NAMES", len(names))
 """
 

@@ -304,25 +304,44 @@ def test_ported_options_train(kw):
     assert res.history[-1]["loss"] < res.history[0]["loss"]
 
 
+def _cpu_mesh(n, shape=None):
+    from tensor_ops_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, shape=shape, devices=["cpu"] * n)
+
+
+# what the mesh slice still refuses (naming its ROADMAP item) and the JAX
+# package's own checks of the mesh and ZeRO options
 REFUSED = [
-    (dict(profile_dir="prof"), "item 8"),
-    (dict(mesh="a mesh"), "item 9"),
-    (dict(shard_opt_state=True), "item 9"),
-    (dict(zero_stage=2), "item 9"),
-    (dict(offload_opt_state=True), "item 9"),
-    (dict(pipeline_microbatches=4), "item 9"),
-    (dict(pipeline_schedule="gpipe"), "item 9"),
-    (dict(pipeline_chunks=2), "item 9"),
+    ("profile_dir=prof", dict(profile_dir="prof"),
+     "ROADMAP.md, Queue 1 item 8"),
+    ("mesh=a mesh", dict(mesh=_cpu_mesh(4)), "ROADMAP.md, Queue 1 item 9b"),
+    ("shard_opt_state=True", dict(shard_opt_state=True),
+     r"ZeRO-1 \(shard_opt_state/zero_stage\) shards over the mesh's data"),
+    ("zero_stage=2", dict(zero_stage=2),
+     r"ZeRO-2 \(shard_opt_state/zero_stage\) shards over the mesh's data"),
+    ("mesh=batch over 3 ranks", dict(mesh=_cpu_mesh(3, (3, 1))),
+     r"batch_size \(20\) must be divisible by the data-axis size \(3\)"),
+    ("pipeline_microbatches=4", dict(pipeline_microbatches=4),
+     "ROADMAP.md, Queue 1 item 9c"),
+    ("pipeline_schedule=gpipe", dict(pipeline_schedule="gpipe"),
+     "ROADMAP.md, Queue 1 item 9c"),
+    ("pipeline_chunks=2", dict(pipeline_chunks=2),
+     "ROADMAP.md, Queue 1 item 9c"),
 ]
 
 
-@pytest.mark.parametrize("kw,item", REFUSED,
-                         ids=[_option_id(k) for k, _ in REFUSED])
+@pytest.mark.parametrize("kw,item", [r[1:] for r in REFUSED],
+                         ids=[r[0] for r in REFUSED])
 def test_unported_options_raise(kw, item):
+    """The options of later ROADMAP items raise naming the item, and the
+    mesh and ZeRO options raise the JAX package's messages where the
+    configuration is wrong (ZeRO without a mesh, a batch that does not
+    split over the data ranks)."""
     X, Y, _ = data(20, 1)
-    with pytest.raises(ValueError, match=f"ROADMAP.md, Queue 1 {item}"):
+    with pytest.raises(ValueError, match=item):
         t_fit(tnet(TB, jnet(JNB).params), t_xent(O), TB, X, Y, verbose=False,
-              **kw)
+              batch_size=20, **kw)
 
 
 def test_option_values_checked_as_jax_does():
