@@ -225,8 +225,25 @@ without printing a result line:
    distance ``accum_steps=4`` makes.  With 4 or more cards the replicated
    and ZeRO-3 runs also run on 4 cards (the ring protocol), bit-equal to
    the one-card runs (a one-card machine skips them).
+24. The mesh's model axis, in the same interpreter after phase 23: the
+   flagship served through ``shard_fused`` + ``Predictor`` on meshes
+   (1, 4) and (2, 2) of the card at buckets 1, 8, 32, 128 and 512, each
+   result within 1e-5 of ``run_xla`` on one device and of the CPU f64
+   run, ``fused_linear`` and ``fused_mlp_forward`` never launched, kernel
+   9's launches per request equal to ``TP_SERVE``; 784 -> 2048 -> 2048 ->
+   10 served on (1, 4): p50 per request, kernels, busy time and idle
+   share.  ``fit`` through the tensor-parallel executor on (2, 2)
+   (replicated, ZeRO-1/2/3, ZeRO-3 with offload) and (1, 4): kernel 9's
+   launches equal ``TP_RUNS``; ZeRO-1 bit-equal to the replicated run,
+   ZeRO-3 to ZeRO-2, offload to ZeRO-3, a Ctrl-C at step 30 of ZeRO-3
+   resumed bit-equal; samples/s over steps 11-60; 5 sgd steps on each mesh
+   within ``TOL_5_STEPS`` of one device; one ZeRO-3 step's wall, profile
+   and idle share.  Then ``fit_sequences`` on (2, 2) (its cell on weights
+   gathered over the model axis, one warning) against one device within
+   phase 23's bound.
    ``chip_smoke.cards_main()`` runs only the phases that need several
-   cards (the cross-card ring and these 4-card runs) on a four-card
+   cards (the cross-card ring, these 4-card runs and the (2, 2) and (1, 4)
+   fit runs with one rank a card, bit-equal to one card) on a four-card
    machine.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
@@ -240,7 +257,7 @@ and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
 come from calling it directly; ``bidir_ring``'s launches add the mesh
-phase's.  Kernel 7 appears twice too: as
+and model-axis phases'.  Kernel 7 appears twice too: as
 ``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
 launches for the 8 served sequences, timed at n = 64, B = 1), and as
 ``fused_rnn_step`` the per-step entry (the public per-step function and the
@@ -4599,10 +4616,337 @@ def phase_mesh_cards(f, runs, tmp: str) -> None:
                   f"zero3+offload on {MESH_DP} cards")
 
 
+# The mesh's model axis (phase 24): the port's tensor parallelism on the
+# one card with its device repeated, meshes (2, 2) and (1, 4).  The flagship's
+# layout changes with tp: at tp = 2 W0 (300, 784) is row-parallel, W1 (100,
+# 300) column-parallel and W2 (10, 100) row-parallel with the softmax suffix
+# after an all-gather; at tp = 4 W2 is column-parallel (10 % 4).  Kernel 9's
+# launches, (ar, rs, ag), per request of shard_fused serving (each data
+# group serves the whole request, replicated as in the JAX package): at (1,
+# 4) the two column-parallel layers' partial sums (2 ar); at (2, 2) per data
+# group W1's partial sums and W2's gather (1 ar + 1 ag), twice.
+TP_SERVE = (((1, 4), (2, 0, 0)), ((2, 2), (2, 0, 2)))
+TP_BUCKETS = (1, 8, 32, 128, 512)
+TP_SERVE_TOL = (1e-5, 0.0)
+# 784 -> 2048 -> 2048 -> 10 served on (1, 4) at B = 128 (random weights,
+# seed 24): layout row, column, column; TP_WIDE_REQUESTS timed requests
+TP_WIDE, TP_WIDE_B, TP_WIDE_REQUESTS = (784, 2048, 2048, 10), 128, 50
+# fit through the executor (the phase 23 configuration: adam, lr 0.02,
+# B = 100, one epoch = 60 steps), kernel 9's launches per step and at the
+# end.  At (2, 2) each data group's step takes 2 ar + 1 ag (forward: W1's
+# partial sums, W2's gather; backward: the partial input cotangents of W2's
+# row-parallel layer; W1's and W0's backward move nothing), the loss 1 ar
+# and the 6 leaves' gradients one reduction per model rank each (12 ar, or
+# at ZeRO-2/3 8 rs for the 4 leaves the ZeRO rule shards, W0, W1, b1 and
+# W2, and 4 ar); ZeRO-1/2 rebuild the 4 sharded leaves after the update
+# (8 ag), ZeRO-3 gathers them at use (8 ag).  FitResult.net gathers every
+# model-sharded leaf at the end: 10 ag (W0, b0, W1, W2, b2 over each data
+# rank's model group), at ZeRO-3 18 (the data axis first).  At (1, 4) a step
+# is 2 ar (W1's and W2's partial sums) + 1 ag (the cotangent of W2's sliced
+# input); one data rank reduces nothing; the end gathers W0, b0, W1, W2.
+TP_RUNS = (
+    ("replicated", (2, 2), {}, (17, 0, 2), (0, 0, 10)),
+    ("zero1", (2, 2), dict(shard_opt_state=True), (17, 0, 10), (0, 0, 10)),
+    ("zero2", (2, 2), dict(zero_stage=2), (9, 8, 10), (0, 0, 10)),
+    ("zero3", (2, 2), dict(zero_stage=3), (9, 8, 10), (0, 0, 18)),
+    ("zero3+offload", (2, 2), dict(zero_stage=3, offload_opt_state=True),
+     (9, 8, 10), (0, 0, 18)),
+    ("(1, 4) replicated", (1, 4), {}, (2, 0, 1), (0, 0, 4)),
+)
+
+
+def _tp_mesh(shape, devices=None):
+    from tensor_ops_tpu_torch.parallel import make_mesh
+
+    n = shape[0] * shape[1]
+    return make_mesh(n, shape=shape, devices=devices or [DEVICE] * n)
+
+
+def _counted(fn):
+    """``fn()`` with every launch count reset first; returns (its result,
+    the launches by kernel name, kernel 9's by phase)."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    CK.reset_phase_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, K.launch_counts(), CK.phase_counts()
+
+
+def _phases(t) -> dict:
+    return dict(zip(("ar", "rs", "ag"), t))
+
+
+def phase_tp_serving(f) -> dict:
+    """shard_fused + Predictor on (1, 4) and (2, 2): every bucket against
+    run_xla on one device and the CPU f64 run, no fused kernel launched,
+    kernel 9's launches per request as TP_SERVE; then the 2048-wide model
+    on (1, 4) timed.  Returns the launches by kernel name."""
+    from tensor_ops_tpu_torch.models import FusedMLP, Predictor
+    from tensor_ops_tpu_torch.parallel import shard_fused
+
+    fm = FusedMLP.from_network(f.net)
+    fm64 = FusedMLP(tuple(w.double().cpu() for w in fm.weights),
+                    tuple(b.double().cpu() for b in fm.biases), fm.acts,
+                    fm.softmax_out)
+    launches = {n: 0 for n in RING_NAMES}
+    r = np.random.default_rng(24)
+    for shape, per in TP_SERVE:
+        p = Predictor(shard_fused(fm, _tp_mesh(shape)), buckets=TP_BUCKETS)
+        check(p._sharded, f"tp serving {shape}: the Predictor did not take "
+              f"the mesh route")
+        errs = []
+        for b in TP_BUCKETS:
+            x = r.uniform(0, 1, size=(b, FLAGSHIP[0])).astype(np.float32)
+            out, counts, phases = _counted(lambda: p.predict(x))
+            check(all(counts[k] == 0 for k in SERVE_KERNELS),
+                  f"tp serving {shape} B={b}: fused kernels launched "
+                  f"{ {k: counts[k] for k in SERVE_KERNELS} }")
+            check(phases == _phases(per), f"tp serving {shape} B={b}: kernel "
+                  f"9 launches {phases}, the design predicts {_phases(per)}")
+            for n in RING_NAMES:
+                launches[n] += counts[n]
+            with torch.inference_mode():
+                one = fm.run_xla(torch.as_tensor(x, device=DEVICE))
+                cpu = fm64.run_xla(torch.as_tensor(x, dtype=torch.float64))
+            errs.append((max_err(torch.as_tensor(out), one, TP_SERVE_TOL),
+                         max_err(torch.as_tensor(out), cpu, TP_SERVE_TOL)))
+        log(f"[tp] flagship served on {shape} through shard_fused + "
+            f"Predictor at buckets {TP_BUCKETS}: max|err| against run_xla on "
+            f"one device {max(e[0] for e in errs):.2e}, against CPU f64 "
+            f"{max(e[1] for e in errs):.2e} (tol {TP_SERVE_TOL[0]:g}); kernel "
+            f"9 {_phases(per)} a request as predicted, fused_linear and "
+            f"fused_mlp_forward 0")
+
+    ws = [torch.as_tensor(r.normal(0, 1 / math.sqrt(i), size=(o, i)),
+                          dtype=torch.float32)
+          for i, o in zip(TP_WIDE[:-1], TP_WIDE[1:])]
+    bs = [torch.zeros(o) for o in TP_WIDE[1:]]
+    wide = FusedMLP(tuple(w.to(DEVICE) for w in ws),
+                    tuple(b.to(DEVICE) for b in bs),
+                    ("logistic", "logistic", "identity"), True)
+    p = Predictor(shard_fused(wide, _tp_mesh((1, 4))), buckets=(TP_WIDE_B,))
+    x = r.uniform(0, 1, size=(TP_WIDE_B, TP_WIDE[0])).astype(np.float32)
+    for _ in range(5):
+        p.predict(x)
+    p.timer.samples.clear()
+    for _ in range(TP_WIDE_REQUESTS):
+        p.predict(x)
+    p50_us = p.latency()["p50_s"] * 1e6
+    with torch.inference_mode():
+        e = max_err(torch.as_tensor(p.predict(x)), wide.run_xla(
+            torch.as_tensor(x, device=DEVICE)), TP_SERVE_TOL)
+    prof = _profile_steps(lambda: p.predict(x))
+    top = ", ".join(f"{n} {us:.1f} us" for n, us in
+                    list(prof["by_kernel"].items())[:4])
+    log(f"[tp] {'-'.join(map(str, TP_WIDE))} served on (1, 4), B="
+        f"{TP_WIDE_B}: p50 {p50_us:.1f} us a request (host clock, "
+        f"{TP_WIDE_REQUESTS} requests), {prof['launches']:.0f} kernels and "
+        f"{prof['copies']:.0f} copies a request, device busy "
+        f"{prof['busy_us']:.1f} us, idle share "
+        f"{1 - prof['busy_us'] / p50_us:.3f}; max|err| against run_xla on "
+        f"one device {e:.2e}; most device time: {top}")
+    return launches
+
+
+def _tp_fit_runs(f, names=None, devices=None):
+    """The TP_RUNS configurations (those in ``names``, else all) through
+    fit, each holding kernel 9's launches to the design's counts; the
+    meshes on ``devices`` (default: the card, repeated).  Returns (results
+    by name, launches by kernel name)."""
+    from tensor_ops_tpu_torch.models import fit
+
+    steps = -(-len(f.tX) // MESH_B)
+    runs, launches = {}, {n: 0 for n in RING_NAMES}
+    for name, shape, zkw, per, end in TP_RUNS:
+        if names is not None and name not in names:
+            continue
+        mesh = _tp_mesh(shape, devices)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # ZeRO at dp = 1 warns
+            res, counts, phases = _counted(lambda: fit(
+                f.net, f.loss, f.be, f.tX, f.tY, optimizer=_opt("adam"),
+                mesh=mesh, **zkw, **f.kw))
+        runs[name] = res
+        h = res.history
+        check(res.steps == steps and all(math.isfinite(x["loss"]) for x in h)
+              and h[-1]["loss"] < h[0]["loss"],
+              f"tp {name}: {res.steps} steps, losses {h}")
+        # one launch a call on one card; across cards the ring protocol
+        # launches once a card of the group: at (2, 2) and (1, 4) with one
+        # rank a card every group that calls spans max(dp, tp) cards
+        per_call = 1 if devices is None else max(shape)
+        want = {p: (steps * n + e) * per_call
+                for p, n, e in zip(("ar", "rs", "ag"), per, end)}
+        ring = "bidir_ring" if devices is None else "bidir_ring.ring"
+        check(phases == want and counts[ring] == sum(want.values()),
+              f"tp {name} on {shape}: kernel 9 launches {phases} ({ring} "
+              f"{counts[ring]}), the design predicts {want}")
+        for n in RING_NAMES:
+            launches[n] += counts[n]
+        rate, first_ms = _fit_rate(res, MESH_B)
+        log(f"[tp] fit {name} on {shape}{' (one rank a card)' * bool(devices)}"
+            f": loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}; kernel 9 "
+            f"{phases} = per step {_phases(per)} x {steps} + {_phases(end)} "
+            f"at the end, as predicted; {rate:.1f} samples/s over steps "
+            f"{FIT_TIMED_FROM + 1}-{steps} (host clock); first step "
+            f"{first_ms:.1f} ms; params on {res.specs[0::2]}")
+    return runs, launches
+
+
+def phase_model_axis(tmp: str) -> dict:
+    """The mesh's model axis on the card (phase 24): returns the kernel
+    launches of its runs."""
+    from tensor_ops_tpu_torch.models import fit, sgd
+    from tensor_ops_tpu_torch.models.trainer import _mesh_setup, make_opt_step
+    from tensor_ops_tpu_torch.parallel import param_specs
+
+    f = _mesh_flagship(tmp)
+    launches = phase_tp_serving(f)
+    runs, fit_launches = _tp_fit_runs(f)
+    for n in RING_NAMES:
+        launches[n] += fit_launches[n]
+    rep = runs["replicated"]
+    check(_bit_equal(runs["zero1"], rep), "tp (2, 2): zero1 differs from "
+          "the replicated run (the same sums, an elementwise update)")
+    check(_bit_equal(runs["zero3"], runs["zero2"]),
+          "tp (2, 2): zero3 differs from zero2 (the same sums)")
+    check(_bit_equal(runs["zero3+offload"], runs["zero3"]),
+          "tp (2, 2): offload_opt_state changed the ZeRO-3 run")
+    log("[tp] (2, 2): zero1 bit-equal to the replicated run; zero3 to zero2; "
+        "zero3+offload to zero3")
+    mesh22 = _tp_mesh((2, 2))
+    _crash_resume(f, mesh22, {}, runs["zero3"],
+                  os.path.join(tmp, "tp22.npz"), "tp (2, 2) zero3")
+
+    # 5 sgd steps on each mesh against fit on one device (phase 23's bound)
+    n5 = 5 * MESH_B
+    kw = dict(f.kw, log_every=1)
+    single, *five = [fit(f.net, f.loss, f.be, f.tX[:n5], f.tY[:n5],
+                         optimizer=sgd(), chain_steps=1, **kw, **m)
+                     for m in ({}, dict(mesh=mesh22),
+                               dict(mesh=_tp_mesh((1, 4))))]
+    e5 = [max(max_err(a, b, TOL_5_STEPS) for a, b in
+              zip(res.net.params, single.net.params)) for res in five]
+    log(f"[tp] 5 sgd steps vs fit on one device: params max|err| (2, 2) "
+        f"{e5[0]:.2e}, (1, 4) {e5[1]:.2e} (tol {TOL_5_STEPS[0]:g}+"
+        f"{TOL_5_STEPS[1]:g}|ref|): the column-parallel layers sum their "
+        f"partial products in the ring's order")
+
+    # one ZeRO-3 step at (2, 2) profiled
+    opt = _opt("adam")
+    params, state, pins = _mesh_setup(f.net.params, param_specs(
+        f.net.param_stack, mesh22), opt, mesh22, f.be, 3)
+    step_fn = make_opt_step(f.net, f.loss, f.be, opt, mesh=mesh22, **pins)
+    xb = f.be.asarray(f.tX[:MESH_B].astype(np.float32))
+    yb = f.be.asarray(f.tY[:MESH_B].astype(np.float32))
+    box = [state, params]
+
+    def one_step():
+        v, box[0], box[1] = step_fn(MESH_LR, xb, yb, box[0], box[1])
+        return v
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        one_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / 20 * 1e6
+    prof = _profile_steps(one_step)
+    top = ", ".join(f"{n} {us:.1f} us" for n, us in
+                    list(prof["by_kernel"].items())[:6])
+    log(f"[tp] one zero3 step on (2, 2) (2 data ranks x {MESH_B // 2} rows, "
+        f"2 model ranks): {wall_us:.1f} us wall (host clock, 20 steps "
+        f"between synchronises); {prof['launches']:.0f} kernels and "
+        f"{prof['copies']:.0f} copies a step, device busy "
+        f"{prof['busy_us']:.1f} us, idle share "
+        f"{1 - prof['busy_us'] / wall_us:.3f}; most device time: {top}")
+
+    seq = phase_tp_seq(f.be, mesh22)
+    for n in RING_NAMES:
+        launches[n] += seq[n]
+    return launches
+
+
+def phase_tp_seq(be, mesh) -> dict:
+    """fit_sequences on (2, 2): the recurrent model (seed 7) with adam, its
+    cell on the leaves gathered over the model axis, against one device
+    within phase 23's bound (TOL_SEQ_FIT plus twice the distance that
+    regrouping the batch into the data axis's chunks makes)."""
+    from tensor_ops_tpu_torch.models import adam, fit_sequences, squared_error
+    from tensor_ops_tpu_torch.parallel import mesh as M
+
+    net = rnn_model(be)
+    r = np.random.default_rng(0)
+    n = MESH_SEQ_STEPS * SEQ_FIT_BATCH
+    XS = r.standard_normal((n, RNN_N, RNN_IN)).astype(np.float32)
+    TS = r.standard_normal((n, RNN_N, RNN_OUT)).astype(np.float32)
+    loss = squared_error(RNN_OUT)
+    kw = dict(epochs=1, batch_size=SEQ_FIT_BATCH, log_every=1, verbose=False,
+              chain_steps=1, optimizer=adam(), **SEQ_FIT_RATES)
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        on_mesh, counts, phases = _counted(lambda: fit_sequences(
+            net, loss, be, XS, TS, mesh=mesh, **kw))
+    check(sum("all-gathered over the model" in str(x.message) for x in w)
+          == 1, "tp fit_sequences: not one warning of the gathered cell")
+    single = fit_sequences(net, loss, be, XS, TS, **kw)
+    chunked = fit_sequences(net, loss, be, XS, TS, accum_steps=dp, **kw)
+    # the design: each step gathers every model-sharded leaf in each data
+    # group, reduces the loss and each leaf over each data group; the end
+    # gathers the model-sharded leaves once more (FitSeqResult.net)
+    leaves = list(net.states) + list(net.params)
+    specs = [(None,) * s.dim() for s in net.states] + list(
+        M.param_specs(net.param_stack, mesh))
+    n_m = sum("model" in sp for sp in specs)
+    want = {"ar": MESH_SEQ_STEPS * (1 + tp * len(leaves)), "rs": 0,
+            "ag": (MESH_SEQ_STEPS + 1) * dp * n_m}
+    check(phases == want and n_m > 0, f"tp fit_sequences: kernel 9 "
+          f"launches {phases}, the design predicts {want}")
+    out = []
+    for name, get in (("loss", lambda res: torch.tensor(
+            [x["loss"] for x in res.history])),
+                      ("leaves", lambda res: torch.cat(
+                          [t.double().cpu().reshape(-1)
+                           for t in _leaves(res.net)]))):
+        ref = get(single).double()
+        drift = float((get(chunked).double() - ref).abs().max())
+        tol = TOL_SEQ_FIT + 2 * drift
+        e = max_err(get(on_mesh), ref, (tol, 0.0))
+        out.append(f"{name} max|err| {e:.2e} (tol {tol:.2e})")
+    log(f"[tp] fit_sequences (Elman {RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT}, "
+        f"n={RNN_N}, B={SEQ_FIT_BATCH}, adam, {MESH_SEQ_STEPS} steps) on "
+        f"{dp, tp} vs one device: {'; '.join(out)}; kernel 9 {phases} as "
+        f"predicted ({n_m} of {len(leaves)} leaves on the model axis, the "
+        f"cell on gathered weights, one warning)")
+    return counts
+
+
+def phase_model_axis_cards(f, tmp: str) -> None:
+    """The (2, 2) and (1, 4) replicated fit runs with one rank a card (the
+    ring protocol) bit-equal to the same meshes on one card."""
+    names = ("replicated", "(1, 4) replicated")
+    one, _ = _tp_fit_runs(f, names)
+    cards = [f"cuda:{i}" for i in range(4)]
+    four, _ = _tp_fit_runs(f, names, devices=cards)
+    for name in names:
+        check(_bit_equal(four[name], one[name]), f"tp {name} on 4 cards "
+              f"differs from the same mesh on one card")
+    log(f"[tp] {' and '.join(names)} on 4 cards (ring protocol) bit-equal to "
+        f"the same meshes on one card")
+
+
 def cards_main() -> None:
     """The phases that need several cards, alone (on a machine with 4):
     the cross-card ring against its plain versions, and the 4-card mesh
-    runs of :func:`phase_mesh_cards` against the same runs on one card.
+    runs of :func:`phase_mesh_cards` and :func:`phase_model_axis_cards`
+    against the same runs on one card.
     ``python3 -c "import chip_smoke; chip_smoke.cards_main()"``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     check(torch.cuda.device_count() >= MESH_DP, f"cards_main needs "
@@ -4612,22 +4956,27 @@ def cards_main() -> None:
         f = _mesh_flagship(tmp)
         runs, _ = _mesh_fit_runs(f, ("replicated", "zero3"))
         timed("mesh on 4 cards", phase_mesh_cards, f, runs, tmp)
+        timed("model axis on 4 cards", phase_model_axis_cards, f, tmp)
 
 
 def mesh_main(out: str) -> None:
-    """Phase 23 in its own interpreter (after every profiled phase of the
-    smoke's process); writes its kernel launches to ``out``."""
+    """Phases 23 and 24 in their own interpreter (after every profiled
+    phase of the smoke's process); writes their kernel launches to
+    ``out``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         launches = timed("mesh", phase_mesh, tmp)
+        tp = timed("model axis", phase_model_axis, tmp)
+    for n in RING_NAMES:
+        launches[n] += tp[n]
     with open(out, "w") as f:
         json.dump(launches, f)
 
 
 def phase_mesh_proc(tmp: str) -> dict:
-    """Run :func:`mesh_main` in a second interpreter; its lines print as
-    they come; returns its kernel launches."""
+    """Run :func:`mesh_main` (phases 23 and 24) in a second interpreter;
+    its lines print as they come; returns its kernel launches."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, "mesh_launches.json")
     sys.stdout.flush()
@@ -4737,7 +5086,8 @@ def main() -> int:
     for n in ("ring_all_reduce", "bidir_ring"):
         launches[n] = dp[n]["launches"]
         launches[f"{n}.ring"] = dp[n]["protocol launches"]
-    # and kernel 9 on the mesh's fit and fit_sequences runs (phase 23)
+    # and kernel 9 on the mesh's fit and fit_sequences runs and the model
+    # axis's serving and training (phases 23 and 24)
     for n in RING_NAMES:
         launches[n] += mesh_launches[n]
     least = bounds()

@@ -6,8 +6,8 @@ mixed precision and step chaining, ``chain``), recurrent networks
 (``recurrent``), the autoencoder (``autoencoder``), the kernel-fused
 ``FusedMLP``, ``FusedRNN`` and ``FusedAutoencoder``, the int8
 ``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
-them.  The loops' mesh, ZeRO, offload and pipeline options come in a later
-slice (ROADMAP.md, Queue 1 item 9)."""
+them.  The loops' pipeline options come in a later slice (ROADMAP.md,
+Queue 1 item 9c)."""
 
 from . import (autoencoder, batched, chain, fast, feedforward, neuralnet,
                optim, recurrent, serve, trainer, training)

@@ -43,7 +43,10 @@ from .feedforward import Network
 class FusedMLP:
     """weights[k]: (o_k, i_k) — the reference ffLayer layout; acts[k] in
     {logistic, relu, tanh, identity}; final softmax applied in-graph.
-    Every weight and bias is a tensor on one device."""
+    Every weight and bias is a tensor on one device, or (``parallel.mesh.
+    shard_fused``) every one a ``Sharded`` leaf on one mesh: such a model
+    runs ``run_xla`` only (``parallel.tp.fused_forward``), the kernels
+    taking whole tensors."""
 
     weights: Tuple[torch.Tensor, ...]
     biases: Tuple[torch.Tensor, ...]
@@ -59,17 +62,37 @@ class FusedMLP:
         if not (len(self.weights) == len(self.biases) == len(self.acts)):
             raise ValueError("FusedMLP: need one weight, bias and "
                              "activation per layer")
-        for t in self.weights + self.biases:
+        leaves = self.weights + self.biases
+        if self.sharded:
+            if len({getattr(t, "mesh", None) for t in leaves}) > 1:
+                raise ValueError("FusedMLP: a sharded model's weights and "
+                                 "biases must all be Sharded on one mesh")
+            return
+        for t in leaves:
             if not isinstance(t, torch.Tensor):
                 raise TypeError("FusedMLP holds torch tensors; use "
                                 "FusedMLP.from_numpy for numpy arrays")
-        if len({t.device for t in self.weights + self.biases}) > 1:
+        if len({t.device for t in leaves}) > 1:
             raise ValueError("FusedMLP: weights and biases must be on "
                              "one device")
 
     @property
+    def sharded(self) -> bool:
+        """Whether the weights are ``Sharded`` leaves on a mesh
+        (``parallel.mesh.shard_fused``)."""
+        return hasattr(self.weights[0], "shards")
+
+    @property
     def device(self) -> torch.device:
-        return self.weights[0].device
+        """The device the model's requests go to (on a mesh: rank 0's)."""
+        w = self.weights[0]
+        return w.shards[0].device if self.sharded else w.device
+
+    def _whole_only(self, what: str) -> None:
+        if self.sharded:
+            raise ValueError(
+                f"FusedMLP.{what}: the kernels take whole weights; a "
+                f"sharded model (shard_fused) runs run_xla")
 
     # -- conversion ------------------------------------------------------
     @classmethod
@@ -115,8 +138,12 @@ class FusedMLP:
         """Serving-storage variant: weights/biases stored in ``dtype``
         (e.g. ``torch.bfloat16`` — half the weight memory).  Activations
         still compute in f32; the final softmax runs in f32."""
-        ws = tuple(w.to(dtype) for w in self.weights)
-        bs = tuple(b.to(dtype) for b in self.biases)
+        if self.sharded:
+            ws = tuple(w.map(lambda t: t.to(dtype)) for w in self.weights)
+            bs = tuple(b.map(lambda t: t.to(dtype)) for b in self.biases)
+        else:
+            ws = tuple(w.to(dtype) for w in self.weights)
+            bs = tuple(b.to(dtype) for b in self.biases)
         return FusedMLP(ws, bs, self.acts, self.softmax_out,
                         self.precision, self.loss_kind)
 
@@ -143,12 +170,19 @@ class FusedMLP:
     def run(self, x) -> torch.Tensor:
         """Layer-by-layer forward, one ``fused_linear`` launch per layer
         (differentiable)."""
+        self._whole_only("run")
         return self._layers_forward(x, self.weights, self.biases)
 
     def run_xla(self, x) -> torch.Tensor:
         """The same network as plain PyTorch ops (cuBLAS matmuls), the
         counterpart of the JAX package's XLA route.  Weights stored in
-        another dtype are promoted to x's, as JAX promotes them."""
+        another dtype are promoted to x's, as JAX promotes them.  A sharded
+        model runs the same layers tensor-parallel on its mesh
+        (``parallel.tp.fused_forward``)."""
+        if self.sharded:
+            from ..parallel.tp import fused_forward
+
+            return fused_forward(self, x)
         h = x
         n = len(self.weights)
         for k in range(n):
@@ -161,6 +195,7 @@ class FusedMLP:
 
     def run_fused_inference(self, x) -> torch.Tensor:
         """Whole-network forward in one ``fused_mlp_forward`` launch."""
+        self._whole_only("run_fused_inference")
         return fused_mlp_forward(x, self.weights, self.biases, self.acts,
                                  self.softmax_out, precision=self.precision)
 
@@ -180,6 +215,7 @@ class FusedMLP:
         """One minibatch SGD step by autograd through the per-layer
         ``fused_linear`` (its kernel runs the forward on the card).
         Returns (mean loss as a 0-d tensor, the updated model)."""
+        self._whole_only("train")
         ws = [w.detach().requires_grad_() for w in self.weights]
         bs = [b.detach().requires_grad_() for b in self.biases]
         with torch.enable_grad():
@@ -198,6 +234,7 @@ class FusedMLP:
         (the flagship configuration), or, with ``softmax_out=False`` and
         ``loss_kind="mse"``, ``acts[-1]`` output + squared error (the
         autoencoder configuration).  Returns (mean loss, updated model)."""
+        self._whole_only("train_fullfused")
         if self.softmax_out:
             kind = "softmax_xent"
             if self.loss_kind == "mse":

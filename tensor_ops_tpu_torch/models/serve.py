@@ -10,17 +10,18 @@ batch (``batched_run``); for a ``FusedMLP``, batches under
 ``xla_threshold`` go to the whole-network kernel ``fused_mlp_forward``,
 larger ones to plain matmuls (``FusedMLP.run_xla``), and
 ``use_fused_kernel=False`` sends every batch through the per-layer kernel
-``fused_linear``.  A ``QuantizedMLP`` whose stack is uniform (every layer
-N x N, N % 128 == 0) and has one hidden activation runs the whole-MLP
-kernel ``fused_mlp_w8a8_forward`` (``run_fused``); any other, or any with
+``fused_linear``.  A ``FusedMLP`` whose weights are sharded over a mesh
+(``parallel.mesh.shard_fused``) serves every bucket through ``run_xla``,
+tensor-parallel on its mesh: the kernels take whole weights.  A
+``QuantizedMLP`` whose stack is uniform (every layer N x N, N % 128 == 0)
+and has one hidden activation runs the whole-MLP kernel
+``fused_mlp_w8a8_forward`` (``run_fused``); any other, or any with
 ``use_fused_kernel=False``, runs its per-layer int8 kernel (``run``).  No
 ``xla_threshold`` applies to int8.
 
 ``SequencePredictor`` serves the recurrent family: whole sequences through
 the ``RecurrentNetwork``'s scan, ``torch.func.vmap``-ed over a batch padded
 to a bucket.
-
-Not yet ported: the mesh-sharded route (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -39,6 +40,12 @@ from .feedforward import Network
 from .training import batched_run
 
 _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _is_model_sharded(w) -> bool:
+    """True when a weight is a ``parallel.mesh.Sharded`` leaf: placed on a
+    mesh, it can only serve through the mesh's forward."""
+    return hasattr(w, "shards") and hasattr(w, "spec")
 
 
 def _bucket_of(buckets, n: int) -> int:
@@ -103,7 +110,12 @@ class Predictor:
         model = _servable(model, be, dtype)
         q_uniform = (isinstance(model, QuantizedMLP) and use_fused_kernel
                      and model.uniform() and len(set(model.acts[:-1])) <= 1)
-        self._serving = (model, be, q_uniform)
+        # a mesh-sharded FusedMLP (parallel.mesh.shard_fused) serves on its
+        # mesh at every bucket, below xla_threshold too: the fused kernels
+        # cannot take its weights
+        sharded = isinstance(model, FusedMLP) and any(
+            _is_model_sharded(w) for w in model.weights)
+        self._serving = (model, be, q_uniform, sharded)
 
     @property
     def model(self) -> Union[Network, FusedMLP, QuantizedMLP]:
@@ -113,16 +125,22 @@ class Predictor:
     def be(self) -> Optional[Backend]:
         return self._serving[1]
 
+    @property
+    def _sharded(self) -> bool:
+        return self._serving[3]
+
     def _bucket(self, n: int) -> int:
         return _bucket_of(self.buckets, n)
 
     def _forward(self, serving, xb: torch.Tensor) -> torch.Tensor:
-        model, be, q_uniform = serving
+        model, be, q_uniform, sharded = serving
         with torch.inference_mode():
             if isinstance(model, Network):
                 return batched_run(model, be)(xb, *model.params)
             if isinstance(model, QuantizedMLP):
                 return model.run_fused(xb) if q_uniform else model.run(xb)
+            if sharded:
+                return model.run_xla(xb)
             if not self.use_fused_kernel:
                 return model.run(xb)
             if xb.shape[0] >= self.xla_threshold:
@@ -139,7 +157,7 @@ class Predictor:
 
     @staticmethod
     def _as(serving, x: np.ndarray) -> torch.Tensor:
-        model, be, _ = serving
+        model, be = serving[:2]
         if isinstance(model, Network):
             return be.asarray(x)
         return torch.as_tensor(x, dtype=torch.float32, device=model.device)

@@ -28,15 +28,17 @@ Both loops run on :func:`_drive`, the window driver: windows of steps, log
 boundary, validation, early stop, checkpoints and the Ctrl-C checkpoint,
 independent of what a step computes.
 
-``mesh`` (``parallel.make_mesh(n, shape=(n, 1))``) trains data-parallel:
-:func:`_mesh_setup` places the leaves and climbs the ZeRO ladder
-(``shard_opt_state`` / ``zero_stage``), and :func:`_mesh_step` splits each
-batch over the data ranks and reduces and gathers through kernel 9's
+``mesh`` (``parallel.make_mesh``, a ``(data, model)`` grid) trains on both
+axes: :func:`_mesh_setup` places the leaves by ``param_specs`` and climbs
+the ZeRO ladder (``shard_opt_state`` / ``zero_stage``), and
+:func:`_mesh_step` splits each batch over the data ranks, runs each data
+rank's rows on its model group (``parallel.tp``'s executor when the model
+axis is larger than 1), and reduces and gathers through kernel 9's
 collectives; ``offload_opt_state`` keeps the optimizer state in pinned
 host memory between steps.  A mesh or an offloaded state runs unchained.
-``profile_dir`` (item 8), a model axis > 1 (item 9b), the ``pipeline_*``
-options (item 9c) and several processes (item 9d) raise ``ValueError``
-naming their ROADMAP item.
+``profile_dir`` (item 8), the ``pipeline_*`` options and a stage axis (item
+9c) and several processes (item 9d) raise ``ValueError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -73,6 +75,9 @@ class FitResult:
     history: list
     steps: int
     ema_net: Optional[Network] = None  # Polyak average (ema_decay=...)
+    # on a mesh: the spec each returned parameter trained on (its leaf's
+    # placement; ``net`` holds the gathered whole tensors)
+    specs: Optional[Tuple[tuple, ...]] = None
 
 
 @dataclass
@@ -81,6 +86,8 @@ class FitSeqResult:
     history: list
     steps: int
     ema_net: Optional[RecurrentNetwork] = None  # Polyak average
+    # on a mesh: the spec each returned state, then parameter, trained on
+    specs: Optional[Tuple[tuple, ...]] = None
 
 
 class _CheckpointWrites:
@@ -399,52 +406,93 @@ def _moment_slots(state_leaves, leaves) -> Optional[list]:
 
 
 def _mesh_opt_init(opt: Optimizer, placed, resident, mesh):
-    """The optimizer state of ``placed`` (replicated :class:`Sharded` leaves)
-    on the mesh: ``opt.init`` of each rank's whole leaves, every moment of
-    an elementwise optimizer on its leaf's ``resident`` spec (the JAX
-    package's moments inherit their params' shardings), every other leaf
-    replicated."""
+    """The optimizer state of ``placed`` (:class:`Sharded` leaves on their
+    ``param_specs``, replicated over the data axis) on the mesh: for an
+    elementwise optimizer ``opt.init`` of each rank's blocks, every moment
+    on its leaf's ``resident`` spec (the JAX package's moments inherit
+    their params' shardings); for any other (``adam8bit``, whose blocks
+    ravel the whole leaf) ``opt.init`` of the whole leaves, gathered over
+    the model axis, on every rank.  Every other state leaf is replicated."""
     from ..parallel.mesh import Sharded, _tree_leaves, _tree_unflatten, reshard
 
+    elementwise = opt.name in _ELEMENTWISE
+    if not elementwise:
+        placed = [reshard(x, (None,) * x.ndim) for x in placed]
     per_rank = [opt.init(tuple(x.shards[r] for x in placed))
-                for r in range(len(mesh.data_devices))]
+                for r in range(len(mesh.rank_devices))]
     flat = [_tree_leaves(st) for st in per_rank]
-    slots = (_moment_slots(flat[0], placed) if opt.name in _ELEMENTWISE
-             else None) or [None] * len(flat[0])
+    slots = (_moment_slots(flat[0], [x.shards[0] for x in placed])
+             if elementwise else None) or [None] * len(flat[0])
     out = []
     for j, slot in enumerate(slots):
-        leaf = Sharded((), [f[j] for f in flat], mesh)
-        if slot is not None:
-            leaf = reshard(leaf, resident[slot].spec, own=True)
-        out.append(leaf)
+        shards = [f[j] for f in flat]
+        if slot is None:
+            out.append(Sharded((), shards, mesh))
+        else:
+            out.append(reshard(Sharded(placed[slot].spec, shards, mesh,
+                                       placed[slot].shape),
+                               resident[slot].spec, own=True))
     return _tree_unflatten(per_rank[0], out)
 
 
 def _clip_mesh(grads, max_norm: float):
     """:func:`clip_by_global_norm` over :class:`Sharded` gradients: with
     every gradient whole on every rank, that function on each rank's
-    copies; otherwise each rank's squared sums of its blocks are
-    all-reduced (kernel 9) and the whole gradients' added on every rank."""
-    from ..parallel.mesh import Sharded, ring_all_reduce_bidir
+    copies.  Otherwise each rank's squared sums of its blocks are reduced
+    over the axes that shard them (kernel 9, one all-reduce per group):
+    over each data group the sums of the leaves on the data axis (and,
+    apart, of those on both axes), then over each model group the sums of
+    the leaves on the model axis alone plus the data groups' sums of those
+    on both; each rank adds the whole gradients' sums, so every block
+    counts once however many ranks hold it."""
+    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Sharded,
+                                 ring_all_reduce_bidir)
 
+    mesh = grads[0].mesh
     n = len(grads[0].shards)
-    if all(g.dim is None for g in grads):
+
+    def kind(g):
+        return g.dim is not None, g.mdim is not None
+
+    kinds = {kind(g) for g in grads}
+    if kinds == {(False, False)}:
         per_rank = [clip_by_global_norm(tuple(g.shards[r] for g in grads),
                                         max_norm) for r in range(n)]
     else:
-        parts = []
-        for r in range(n):
-            part = 0.0
+        def sq(r, k):
+            x = grads[0].shards[r]
+            part = torch.zeros((), dtype=x.dtype, device=x.device)
             for g in grads:
-                if g.dim is not None:
+                if kind(g) == k:
                     part = part + (g.shards[r] * g.shards[r]).sum()
-            parts.append(part.reshape(1))
-        sharded = ring_all_reduce_bidir(parts)
+            return part
+
+        both = (True, True) in kinds
+        data = model = None
+        if (True, False) in kinds or both:
+            data = [None] * n
+            for group in mesh.groups(DATA_AXIS):
+                parts = [torch.stack([sq(r, (True, False))]
+                                     + [sq(r, (True, True))] * both)
+                         for r in group]
+                for r, y in zip(group, ring_all_reduce_bidir(parts)):
+                    data[r] = y
+        if (False, True) in kinds or both:
+            model = [None] * n
+            for group in mesh.groups(MODEL_AXIS):
+                parts = [(sq(r, (False, True))
+                          + (data[r][1] if both else 0.0)).reshape(1)
+                         for r in group]
+                for r, y in zip(group, ring_all_reduce_bidir(parts)):
+                    model[r] = y
         per_rank = []
         for r in range(n):
-            total = sharded[r].reshape(())
+            total = None
+            for red in (data, model):
+                if red is not None:
+                    total = red[r][0] if total is None else total + red[r][0]
             for g in grads:
-                if g.dim is None:
+                if kind(g) == (False, False):
                     total = total + (g.shards[r] * g.shards[r]).sum()
             scale = torch.clamp(max_norm / (total ** 0.5 + 1e-12), max=1.0)
             per_rank.append(tuple(g.shards[r] * scale for g in grads))
@@ -516,59 +564,70 @@ def _offload_state(opt_state, label: str):
     return _offload_out(opt_state)
 
 
-def _mesh_step(mesh, rank_vags, update: Callable, *, accum_steps: int,
+def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
                clip_norm, elementwise: bool, grad_constrain=None,
                param_unshard=None, offload: bool = False) -> Callable:
-    """The data-parallel step on a mesh whose model axis is 1:
-    ``step(scalars, xb, yb, opt_state, leaves) -> (loss, opt_state,
-    leaves)``, ``leaves`` and the state's arrays :class:`Sharded`, the
-    batch whole (split here over the data ranks, accumulation chunk by
-    chunk), the loss a 0-d tensor on rank 0's device.
+    """The step on a ``(data, model)`` mesh: ``step(scalars, xb, yb,
+    opt_state, leaves) -> (loss, opt_state, leaves)``, ``leaves`` and the
+    state's arrays :class:`Sharded`, the batch whole (split here over the
+    data ranks, accumulation chunk by chunk), the loss a 0-d tensor on rank
+    0's device.
 
-    Each rank takes its rows' mean loss and gradients with
-    ``rank_vags[r](x, y, leaves_r)`` on its whole copy of the leaves (ZeRO-3:
-    gathered at use by ``param_unshard``, one all-gather each); the loss and
-    each gradient reduce to their mean (kernel 9: an all-reduce, or a
-    reduce-scatter onto ``grad_constrain``'s spec at ZeRO-2/3); ``clip_norm``
-    clips them (:func:`_clip_mesh`).  Then each rank runs ``update(scalars,
-    state, leaves, grads) -> (state, leaves)`` on its layout of them: for an
-    ``elementwise`` update each leaf on the data spec of any of its sharded
-    forms (param, gradient or moments: one rule gives them all the same),
-    every rank its block alone; otherwise on whole leaves, the sharded
-    moments all-gathered first.  The results go back to the specs the
-    state and leaves came in with: a replicated leaf updated in blocks is
-    all-gathered, a sharded one updated whole keeps its block.
-    ``offload`` copies the state in from pinned host memory at the start
-    and out to new pinned memory at the end."""
-    from ..parallel.mesh import (Sharded, _split_rows, _tree_leaves,
-                                 _tree_unflatten, reduce_mean, reshard)
+    Each data rank d takes its rows' mean loss and gradients with
+    ``group_vags[d](x, y, ps)``, ``ps`` its model group's blocks of the
+    leaves in model-rank-major order (rank d * tp's leaves, then the next
+    model rank's; on a model axis of 1 the rank's whole copies), the
+    gradients in the same order, on the leaves whole over the data axis
+    (ZeRO-3: gathered at use by ``param_unshard``, one all-gather per data
+    group each).  The loss reduces to its mean over the data ranks of model
+    rank 0, each gradient over each data group (kernel 9: an all-reduce, or
+    a reduce-scatter onto ``grad_constrain``'s spec at ZeRO-2/3);
+    ``clip_norm`` clips them (:func:`_clip_mesh`).  Then each rank runs
+    ``update(scalars, state, leaves, grads) -> (state, leaves)`` on its
+    layout of them: for an ``elementwise`` update each leaf on the spec of
+    any of its data-sharded forms (param, gradient or moments: one rule
+    gives them all the same), its model blocks kept, every rank its block
+    alone; otherwise on whole leaves, gathered over both axes first.  The
+    results go back to the specs the state and leaves came in with: a leaf
+    updated in blocks it does not keep is all-gathered, a leaf updated
+    whole is sliced to its blocks.  ``offload`` copies the state in from
+    pinned host memory at the start and out to new pinned memory at the
+    end."""
+    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Sharded, _split_rows,
+                                 _tree_leaves, _tree_unflatten, reduce_mean,
+                                 reshard, ring_all_reduce_bidir)
 
-    devs = mesh.data_devices
-    dp = len(devs)
+    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    devs = mesh.rank_devices
 
     def base(spec):
-        return tuple(None if a == "data" else a for a in spec)
+        if not elementwise:
+            return (None,) * len(spec)
+        return tuple(None if a == DATA_AXIS else a for a in spec)
 
     def step(scalars, xb, yb, opt_state, leaves):
         leaves = tuple(leaves)
+        n = len(leaves)
         if offload:
             opt_state = _offload_in(opt_state, devs)
         full = param_unshard(leaves) if param_unshard is not None else leaves
-        vals, grads = [], []
-        for r, dev in enumerate(devs):
-            x_r = _split_rows(xb, dp, r, dev, accum_steps)
-            y_r = _split_rows(yb, dp, r, dev, accum_steps)
-            ps = tuple(p.shards[r] for p in full)
+        vals, grads = [], [None] * len(devs)
+        for d, row in enumerate(mesh.devices):
+            x_d = _split_rows(xb, dp, d, row[0], accum_steps)
+            y_d = _split_rows(yb, dp, d, row[0], accum_steps)
+            ranks = range(d * tp, (d + 1) * tp)
+            ps = tuple(p.shards[r] for r in ranks for p in full)
             if accum_steps > 1:
-                v, g = _accum(lambda x, y: rank_vags[r](x, y, ps), x_r, y_r,
+                v, g = _accum(lambda x, y: group_vags[d](x, y, ps), x_d, y_d,
                               accum_steps)
             else:
-                v, g = rank_vags[r](x_r, y_r, ps)
+                v, g = group_vags[d](x_d, y_d, ps)
             vals.append(v.reshape(1))
-            grads.append(g)
-        v = reduce_mean(vals, (None,), mesh).shards[0].reshape(())
+            for m, r in enumerate(ranks):
+                grads[r] = g[m * n:(m + 1) * n]
+        v = ring_all_reduce_bidir(vals, scale=1.0 / dp)[0].reshape(())
         gspecs = (grad_constrain.specs if grad_constrain is not None
-                  else (None,) * len(leaves))
+                  else (None,) * n)
         mean = tuple(reduce_mean([g[i] for g in grads], gs or full[i].spec,
                                  mesh)
                      for i, gs in enumerate(gspecs))
@@ -588,7 +647,7 @@ def _mesh_step(mesh, rank_vags, update: Callable, *, accum_steps: int,
         slots = slots or [None] * len(st_leaves)
         st_work = [reshard(x, work[s] if s is not None else base(x.spec))
                    for x, s in zip(st_leaves, slots)]
-        p_work = [reshard(full[i] if "data" not in w else leaves[i], w)
+        p_work = [reshard(full[i] if DATA_AXIS not in w else leaves[i], w)
                   for i, w in enumerate(work)]
         g_work = [reshard(g, w) for g, w in zip(mean, work)]
         new_st, new_ps = [], []
@@ -652,12 +711,14 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
     carries keep their dtype, and the values and gradients are upcast to
     f32 BEFORE the batch mean.  :class:`_ChainedStep` chains it.
 
-    ``mesh`` (a :class:`~tensor_ops_tpu_torch.parallel.mesh.Mesh` whose
-    model axis is 1; torch only) makes it the data-parallel step of
-    :func:`_mesh_step`: ``params`` and the state's arrays are
-    :class:`~tensor_ops_tpu_torch.parallel.mesh.Sharded` leaves, the batch
-    is split over the data ranks and the gradients are reduced by kernel
-    9.  The ZeRO pins come from ``parallel.mesh``: ``grad_constrain``
+    ``mesh`` (a :class:`~tensor_ops_tpu_torch.parallel.mesh.Mesh`; torch
+    only) makes it the step of :func:`_mesh_step`: ``params`` and the
+    state's arrays are :class:`~tensor_ops_tpu_torch.parallel.mesh.Sharded`
+    leaves, the batch is split over the data ranks, each data rank's rows
+    run on its model group (a model axis > 1: the tensor-parallel executor
+    ``parallel.tp.TpNetwork``, its bf16 form under ``mixed_precision``) and
+    the gradients are reduced over the data axis by kernel 9.  The ZeRO
+    pins come from ``parallel.mesh``: ``grad_constrain``
     (``zero2_grad_constrain``, or the ZeRO-3 gradient pin) reduce-scatters
     the gradients onto its specs, ``param_unshard`` (``zero3_param_place``)
     gathers sharded params at use.  The updated state and params keep the
@@ -684,18 +745,24 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
     if fn is not None:
         return fn
     if mesh is not None:
-        from ..parallel.mesh import _rank_backend
+        from ..parallel.mesh import MODEL_AXIS, _rank_backend, group_executors
 
-        rank_vags = []
-        for dev in mesh.data_devices:
-            be_r = _rank_backend(be, dev)
-            if mixed_precision:
-                rank_vags.append(_bf16_vag(net, loss, be_r))
-            else:
-                mg = make_mean_grads(net, loss, be_r)
-                rank_vags.append(lambda x, y, ps, mg=mg: mg(x, y, *ps))
+        if mesh.shape[MODEL_AXIS] > 1:
+            from ..parallel.tp import group_vag
+
+            group_vags = [group_vag(t, loss) for t in group_executors(
+                net, be, mesh, torch.bfloat16 if mixed_precision else None)]
+        else:
+            group_vags = []
+            for dev in mesh.data_devices:
+                be_r = _rank_backend(be, dev)
+                if mixed_precision:
+                    group_vags.append(_bf16_vag(net, loss, be_r))
+                else:
+                    mg = make_mean_grads(net, loss, be_r)
+                    group_vags.append(lambda x, y, ps, mg=mg: mg(x, y, *ps))
         inner = _mesh_step(
-            mesh, rank_vags,
+            mesh, group_vags,
             lambda sc, st, ps, gs: opt.update(st, ps, gs, sc[0]),
             accum_steps=accum_steps, clip_norm=clip_norm,
             elementwise=opt.name in _ELEMENTWISE,
@@ -1098,8 +1165,8 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
                         chain_steps) -> int:
     """The JAX package's eager checks of the mesh, ZeRO and offload options
     both loops share, and the refusals of what this package does not run
-    (a model axis > 1: item 9b; a stage axis: item 9c; several processes:
-    item 9d).  Returns the data-axis size (1 without a mesh)."""
+    (a stage axis: item 9c; several processes: item 9d).  Returns the
+    data-axis size (1 without a mesh)."""
     if shard_opt_state and mesh is None:
         raise ValueError(
             f"ZeRO-{zstage} (shard_opt_state/zero_stage) shards over "
@@ -1121,11 +1188,11 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
         _refuse(caller, "training in several processes", "9d")
     if mesh is None:
         return 1
-    from ..parallel.mesh import DATA_AXIS, check_data_mesh
+    from ..parallel.mesh import DATA_AXIS, check_mesh
 
     if be.name != "torch":
         raise ValueError("mesh sharding requires the torch backend")
-    check_data_mesh(mesh, caller)
+    check_mesh(mesh, caller)
     dp = mesh.shape[DATA_AXIS]
     if batch_size % dp != 0:
         raise ValueError(
@@ -1242,6 +1309,15 @@ def _whole(x):
     from ..parallel.mesh import Sharded
 
     return x.full() if isinstance(x, Sharded) else x
+
+
+def _specs(leaves) -> Optional[tuple]:
+    """Each :class:`Sharded` leaf's spec (a mesh run's result), else None."""
+    from ..parallel.mesh import Sharded
+
+    if not leaves or not isinstance(leaves[0], Sharded):
+        return None
+    return tuple(x.spec for x in leaves)
 
 
 def _like(leaves):
@@ -1447,13 +1523,18 @@ def fit(
     on the network and records it in every ``.state`` checkpoint, so
     ``resume=True`` re-takes it without measuring.
 
-    ``mesh`` (torch only; ``parallel.make_mesh(n, shape=(n, 1))``, whose
-    ranks may share a card) trains data-parallel: the parameters are placed
-    by ``param_specs`` on every data rank, each batch (``batch_size``
-    divisible by the data-axis size dp, accumulation chunks too) splits
-    over the ranks, and each rank's mean gradient is reduced to the global
-    mean by kernel 9 (an all-reduce, scale 1/dp); every rank steps its own
-    copy.  ``shard_opt_state=True`` (ZeRO-1, ``zero_stage=1``) shards the
+    ``mesh`` (torch only; ``parallel.make_mesh``, a ``(data, model)`` grid
+    whose ranks may share a card) trains on both axes: the parameters are
+    placed by ``param_specs`` (Megatron's row- and column-parallel layers
+    over the model axis, replicated over the data axis), each batch
+    (``batch_size`` divisible by the data-axis size dp, accumulation chunks
+    too) splits over the data ranks, each data rank's rows run through the
+    tensor-parallel executor on its model group (``parallel.tp``; a
+    segment it cannot split runs on gathered weights, with a warning), and
+    each rank's mean gradient is reduced to the global mean over the data
+    axis by kernel 9 (an all-reduce, scale 1/dp); every rank steps its own
+    blocks.  ``FitResult.specs`` holds each returned parameter's spec.
+    ``shard_opt_state=True`` (ZeRO-1, ``zero_stage=1``) shards the
     optimizer moments over the data axis (the first free dimension dp
     divides): each rank updates its blocks and an all-gather rebuilds the
     parameters; ``zero_stage=2`` also reduce-scatters the gradients;
@@ -1468,9 +1549,9 @@ def fit(
     unchained (an int ``chain_steps > 1`` with offload raises); with
     ``verbose`` a mesh run prints ``training_memory_report``'s line.
 
-    ``profile_dir`` (item 8), a mesh whose model axis is larger than 1
-    (item 9b) and the ``pipeline_*`` options (item 9c) raise
-    ``ValueError`` naming their ROADMAP item."""
+    ``profile_dir`` (item 8), the ``pipeline_*`` options and a mesh with a
+    stage axis (item 9c) raise ``ValueError`` naming their ROADMAP
+    item."""
     mp_mode = _check_mp(mixed_precision, be)
     _check_later("fit", profile_dir=profile_dir,
                  pipeline_microbatches=pipeline_microbatches,
@@ -1675,7 +1756,7 @@ def fit(
 
             def save(state, at):
                 if offload_opt_state:  # the copies out, on every rank's card
-                    _sync_cards(mesh.data_devices if mesh is not None
+                    _sync_cards(mesh.rank_devices if mesh is not None
                                 else (be.device,))
                 # sharded leaves gather to the host in the checkpoint writer
                 return (save_network_async(checkpoint_path, Network(
@@ -1699,7 +1780,8 @@ def fit(
             chain_fn.close()
         logger.close()
     return FitResult(as_network(params), history, step,
-                     ema_net=None if ema is None else as_network(ema))
+                     ema_net=None if ema is None else as_network(ema),
+                     specs=_specs(params))
 
 
 def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
@@ -1775,8 +1857,6 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
         return mean_grads
 
     if mesh is not None:
-        from ..parallel.mesh import _rank_backend
-
         if opt is None:
             def update(sc, st, ls, gs):
                 new_s, new_p = dual_rate_sgd(sc[0], sc[1], ls[:k], ls[k:],
@@ -1788,8 +1868,8 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
                 return opt.update(st, ls, scaled, sc[1])
 
         inner = _mesh_step(
-            mesh, [grads_on(_rank_backend(be, d)) for d in mesh.data_devices],
-            update, accum_steps=accum_steps, clip_norm=clip_norm,
+            mesh, _seq_group_vags(rnet, mesh, be, grads_on), update,
+            accum_steps=accum_steps, clip_norm=clip_norm,
             elementwise=opt is None or opt.name in _ELEMENTWISE,
             grad_constrain=grad_constrain, param_unshard=param_unshard,
             offload=offload)
@@ -1834,6 +1914,28 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
             fn = _offload_step(fn, be.device, 4)
     rnet.op._compiled[key] = fn
     return fn
+
+
+def _seq_group_vags(rnet: RecurrentNetwork, mesh, be: Backend,
+                    grads_on: Callable) -> list:
+    """The sequence step's gradient function of each data rank for
+    :func:`_mesh_step`: ``grads_on(be_r)`` on the rank's card; on a model
+    axis > 1 the scan runs on each model rank on its leaves all-gathered
+    over the model axis (``parallel.tp.gathered_vag``, one warning per
+    network): the cell is no ffLayer segment the executor can split."""
+    from ..parallel.mesh import MODEL_AXIS, _rank_backend, param_specs
+
+    tp = mesh.shape[MODEL_AXIS]
+    if tp == 1:
+        return [grads_on(_rank_backend(be, d)) for d in mesh.data_devices]
+    from ..parallel.tp import gathered_vag, warn_gathered
+
+    warn_gathered(rnet.op, [f"the recurrent cell {rnet.op!r} (its "
+                            f"sequence scan)"], tp)
+    specs = (tuple((None,) * s.dim() for s in rnet.states)
+             + param_specs(rnet.param_stack, mesh))
+    return [gathered_vag([grads_on(_rank_backend(be, d)) for d in row],
+                         specs, row) for row in mesh.devices]
 
 
 class _SeqStream:
@@ -1948,7 +2050,10 @@ def fit_sequences(
     as in ``fit``, over the joint states + params: the states replicate,
     the params take ``param_specs``; ZeRO and offload need ``optimizer``
     (dual-rate SGD has no state); a mesh with a ``stage`` axis is refused
-    (the scan is sequential over time)."""
+    (the scan is sequential over time).  On a model axis > 1 the states
+    replicate, the params take ``param_specs`` and the scan runs on the
+    leaves all-gathered over the model axis at each step (one warning):
+    the cell is no ffLayer segment the tensor-parallel executor splits."""
     mp_mode = _check_mp(mixed_precision, be)
     shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
                                                     zero_stage)
@@ -2176,7 +2281,7 @@ def fit_sequences(
 
             def save(state, at):
                 if offload_opt_state:  # the copies out, on every rank's card
-                    _sync_cards(mesh.data_devices if mesh is not None
+                    _sync_cards(mesh.rank_devices if mesh is not None
                                 else (be.device,))
                 ls = tuple(state[0])
                 return (save_recurrent_async(checkpoint_path,
@@ -2200,4 +2305,5 @@ def fit_sequences(
             chain_fn.close()
         logger.close()
     return FitSeqResult(as_rnet(leaves), history, step,
-                        ema_net=None if ema is None else as_rnet(ema))
+                        ema_net=None if ema is None else as_rnet(ema),
+                        specs=_specs(leaves))

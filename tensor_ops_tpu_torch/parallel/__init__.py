@@ -1,20 +1,23 @@
-"""Data parallelism: the ring collectives (kernels 8 and 9), the
-data-parallel whole-step trainer, and the mesh's data axis (``mesh``:
+"""Parallelism: the ring collectives (kernels 8 and 9), the data-parallel
+whole-step trainer, and the ``(data, model)`` mesh (``mesh``:
 :func:`make_mesh`, :func:`param_specs`, the sharded leaf :class:`Sharded`,
-the ZeRO rules, :func:`sharded_train_step` and :func:`sharded_forward`,
-which ``fit`` and ``fit_sequences`` train on).  Still to port from the JAX
-package's ``parallel``: the model axis (tensor parallelism and
-``shard_fused``, ROADMAP.md Queue 1 item 9b), the pipelines (``pipeline``,
-``ir_pipeline``, item 9c), and ``plan`` and ``distributed`` with training in
-several processes (item 9d)."""
+the ZeRO rules, :func:`sharded_train_step`, :func:`sharded_forward` and
+:func:`shard_fused`, which ``fit``, ``fit_sequences`` and ``Predictor`` run
+on), with the tensor-parallel executor of the model axis (``tp``) and the
+segment matching it runs on (``ir_pipeline``).  Still to port from the JAX
+package's ``parallel``: the pipelines (``pipeline`` and the rest of
+``ir_pipeline``, ROADMAP.md Queue 1 item 9c), and ``plan`` and
+``distributed`` with training in several processes (item 9d)."""
 
 from .collective_kernels import (RankGroup, dp_megakernel_train_step,
                                  ring_all_gather, ring_all_reduce,
                                  ring_all_reduce_bidir, ring_reduce_scatter)
 from .mesh import (DATA_AXIS, MODEL_AXIS, Mesh, Sharded, batch_spec,
-                   make_mesh, param_specs, place, place_host, shard_network,
-                   sharded_forward, sharded_train_step, zero1_place,
-                   zero1_shardings, zero2_grad_constrain, zero3_param_place)
+                   make_mesh, param_specs, place, place_host, shard_fused,
+                   shard_network, sharded_forward, sharded_train_step,
+                   zero1_place, zero1_shardings, zero2_grad_constrain,
+                   zero3_param_place)
+from .tp import TpNetwork
 
 __all__ = [
     "DATA_AXIS",
@@ -22,6 +25,7 @@ __all__ = [
     "Mesh",
     "RankGroup",
     "Sharded",
+    "TpNetwork",
     "batch_spec",
     "dp_megakernel_train_step",
     "make_mesh",
@@ -32,6 +36,7 @@ __all__ = [
     "ring_all_reduce",
     "ring_all_reduce_bidir",
     "ring_reduce_scatter",
+    "shard_fused",
     "shard_network",
     "sharded_forward",
     "sharded_train_step",

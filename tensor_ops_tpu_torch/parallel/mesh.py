@@ -1,26 +1,26 @@
-"""Device meshes and the data axis of sharded training: the counterpart of
+"""Device meshes and sharded training on both axes: the counterpart of
 ``tensor_ops_tpu/parallel/mesh.py``.
 
 The JAX package annotates leaves with ``NamedSharding``s and lets XLA insert
 the collectives.  There is no partitioner here: a :class:`Mesh` is a 2-D
 ``(data, model)`` grid of torch devices, a sharded leaf (:class:`Sharded`)
-holds its spec and one tensor per data rank, and every cross-rank reduction
-and gather is an explicit call of the bidirectional ring collectives
-(kernel 9, :mod:`.collective_kernels`): :func:`reshard` moves a leaf from
-one spec to another (a slice of each rank's whole copy, which moves
-nothing, or an all-gather), :func:`reduce_mean` takes the ranks' gradients
-to their mean on a spec (an all-reduce, or a reduce-scatter over the data
+holds its spec and one tensor per rank, and every cross-rank reduction and
+gather is an explicit call of the bidirectional ring collectives (kernel 9,
+:mod:`.collective_kernels`), one call per group of ranks along the axis it
+runs on: :func:`reshard` moves a leaf from one spec to another (a slice of
+each rank's whole copy, which moves nothing, or an all-gather),
+:func:`reduce_mean` takes the ranks' gradients to their mean over the data
+axis on a spec (an all-reduce, or a reduce-scatter over the data
 dimension).  The ZeRO rules (``zero1_place``, ``zero2_grad_constrain``,
 ``zero3_param_place``, ...) are the JAX package's, on specs: one rule picks
 the dimension a leaf shards over the data axis, and the "constrain"
 functions they return reshard leaves onto the specs they carry (``.specs``).
 
-This package trains the data axis only.  ``param_specs`` is a pure function
-of the shapes and the model-axis size and runs at any size, but a mesh
-whose model axis is larger than 1 (tensor parallelism, ROADMAP.md Queue 1
-item 9b) is refused by every entry point that trains or serves on it.  A
-user of this slice builds ``make_mesh(n, shape=(n, 1))``: ``make_mesh(4)``
-factors as ``(1, 4)``, as in the JAX package.
+The model axis (tensor parallelism) places the weights by ``param_specs``
+(Megatron's alternation of row- and column-parallel layers); the forward
+and backward of a network on it are :mod:`.tp`'s executor, which the JAX
+package has no counterpart of (GSPMD partitions its programs).
+``make_mesh(4)`` factors as ``(1, 4)``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,7 +45,11 @@ class Mesh:
     """A 2-D ``(data, model)`` grid of torch devices: ``devices[i, j]`` is
     data rank i, model rank j.  ``shape`` maps each axis name to its size,
     as a JAX mesh's does.  A device may appear several times: ranks that
-    share one card run one after another on its current stream."""
+    share one card run one after another on its current stream.
+
+    Ranks are numbered in one flat order, ``r = d * tp + m`` for data rank
+    d and model rank m (the row-major order of ``devices``): a
+    :class:`Sharded` leaf's ``shards[r]`` lies on ``rank_devices[r]``."""
 
     axis_names = (DATA_AXIS, MODEL_AXIS)
 
@@ -60,6 +64,26 @@ class Mesh:
     def data_devices(self) -> Tuple[torch.device, ...]:
         """The devices of the data axis (model rank 0): one per data rank."""
         return tuple(row[0] for row in self.devices)
+
+    @property
+    def rank_devices(self) -> Tuple[torch.device, ...]:
+        """Every rank's device in the flat order ``r = d * tp + m``."""
+        return tuple(d for row in self.devices for d in row)
+
+    def groups(self, axis: str) -> Tuple[Tuple[int, ...], ...]:
+        """The flat ranks of each group along ``axis``: for the data axis
+        one group per model rank m (``d * tp + m`` over d), for the model
+        axis one per data rank d (``d * tp + m`` over m)."""
+        dp, tp = self.shape[DATA_AXIS], self.shape[MODEL_AXIS]
+        if axis == DATA_AXIS:
+            return tuple(tuple(d * tp + m for d in range(dp))
+                         for m in range(tp))
+        return tuple(tuple(d * tp + m for m in range(tp)) for d in range(dp))
+
+    def coord(self, r: int, axis: str) -> int:
+        """Rank ``r``'s index along ``axis``."""
+        tp = self.shape[MODEL_AXIS]
+        return r // tp if axis == DATA_AXIS else r % tp
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self.devices == other.devices
@@ -78,8 +102,8 @@ def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """A 2-D ``(data, model)`` mesh.  With no explicit shape, the device
     count n factors as (n // tp, tp) with tp the largest of 4 and 2 that
-    divides n (the JAX package's rule).  This package trains only a model
-    axis of 1: pass ``shape=(n, 1)``.
+    divides n (the JAX package's rule); ``shape=(n, 1)`` is a data axis
+    alone.
 
     ``devices`` defaults to the visible CUDA cards; with none visible this
     raises (it never falls back to the CPU).  An explicit list may name a
@@ -161,19 +185,25 @@ def _full(spec, ndim: int) -> Spec:
     return spec + (None,) * (ndim - len(spec))
 
 
+def _axis_dim(spec, axis: str) -> Optional[int]:
+    return spec.index(axis) if axis in spec else None
+
+
 def _data_dim(spec) -> Optional[int]:
-    return spec.index(DATA_AXIS) if DATA_AXIS in spec else None
+    return _axis_dim(spec, DATA_AXIS)
 
 
 class Sharded:
-    """One leaf on a mesh's data axis: ``spec`` (one entry per dimension:
-    ``None``, ``DATA_AXIS`` or ``MODEL_AXIS``) and ``shards``, one tensor per
-    data rank on that rank's device: the rank's block of the dimension the
-    spec marks ``DATA_AXIS``, or the whole leaf when it marks none
-    (replicated).  ``shape`` is the whole leaf's.  Nothing updates a shard
-    in place; ``scalar * leaf`` and ``leaf + leaf`` apply shard by shard to
-    leaves of one spec (the Polyak update).  ``np.asarray(leaf)`` gathers the whole
-    leaf to one host array."""
+    """One leaf on a mesh: ``spec`` (one entry per dimension: ``None``,
+    ``DATA_AXIS`` or ``MODEL_AXIS``, each axis on one dimension at most)
+    and ``shards``, one tensor per rank in the mesh's flat order ``r = d *
+    tp + m`` (:attr:`Mesh.rank_devices`), on that rank's device: the rank's
+    block of each dimension the spec marks (its data rank's block of the
+    data dimension, its model rank's of the model dimension), the whole
+    extent of every other.  ``shape`` is the whole leaf's.  Nothing updates
+    a shard in place; ``scalar * leaf`` and ``leaf + leaf`` apply shard by
+    shard to leaves of one spec (the Polyak update).  ``np.asarray(leaf)``
+    gathers the whole leaf to one host array."""
 
     __slots__ = ("spec", "shards", "shape", "mesh")
 
@@ -182,17 +212,30 @@ class Sharded:
         x0 = self.shards[0]
         self.spec = _full(spec, x0.dim())
         self.mesh = mesh
+        n = mesh.shape[DATA_AXIS] * mesh.shape[MODEL_AXIS]
+        if len(self.shards) != n:
+            raise ValueError(f"a leaf on {mesh!r} holds {n} shards, got "
+                             f"{len(self.shards)}")
         if shape is None:
             shape = list(x0.shape)
-            d = _data_dim(self.spec)
-            if d is not None:
-                shape[d] *= len(self.shards)
+            for axis in (DATA_AXIS, MODEL_AXIS):
+                d = _axis_dim(self.spec, axis)
+                if d is not None:
+                    shape[d] *= mesh.shape[axis]
         self.shape = tuple(shape)
 
     @property
     def dim(self) -> Optional[int]:
         """The dimension sharded over the data axis (None: replicated)."""
         return _data_dim(self.spec)
+
+    @property
+    def mdim(self) -> Optional[int]:
+        """The dimension sharded over the model axis, when that axis is
+        larger than 1 (None: whole on every model rank)."""
+        if self.mesh.shape[MODEL_AXIS] == 1:
+            return None
+        return _axis_dim(self.spec, MODEL_AXIS)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -213,9 +256,18 @@ class Sharded:
             x = x.detach().cpu()
             return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
-        if self.dim is None:
-            return host(self.shards[0])
-        return np.concatenate([host(x) for x in self.shards], axis=self.dim)
+        tp = self.mesh.shape[MODEL_AXIS]
+        rows = []
+        for d in range(self.mesh.shape[DATA_AXIS] if self.dim is not None
+                       else 1):
+            if self.mdim is None:
+                rows.append(host(self.shards[d * tp]))
+            else:
+                rows.append(np.concatenate(
+                    [host(self.shards[d * tp + m]) for m in range(tp)],
+                    axis=self.mdim))
+        return rows[0] if self.dim is None else np.concatenate(
+            rows, axis=self.dim)
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()
@@ -223,10 +275,8 @@ class Sharded:
 
     def full(self) -> torch.Tensor:
         """The whole leaf on rank 0's device: rank 0's copy, or for a
-        sharded leaf an all-gather over the data ranks."""
-        if self.dim is None:
-            return self.shards[0]
-        return _all_gather(self.shards, self.dim)[0]
+        sharded leaf an all-gather over each sharded axis's groups."""
+        return reshard(self, (None,) * self.ndim).shards[0]
 
     def map(self, fn: Callable, *others) -> "Sharded":
         """``fn`` shard by shard over this leaf and ``others`` (leaves of
@@ -253,19 +303,24 @@ class Sharded:
 
 def place(x, spec, mesh: Mesh, dtype: Optional[torch.dtype] = None) -> Sharded:
     """``x`` (a tensor or an array) placed on ``mesh`` by ``spec``: each
-    data rank gets a copy of its block (or of the whole leaf) in memory of
-    its own on its device, in ``dtype`` (default: ``x``'s)."""
+    rank gets a copy of its block (or of the whole leaf) in memory of its
+    own on its device, in ``dtype`` (default: ``x``'s)."""
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     spec = _full(spec, t.dim())
-    devs = mesh.data_devices
-    d = _data_dim(spec)
-    if d is not None and t.shape[d] % len(devs):
-        raise ValueError(f"dim {d} of {tuple(t.shape)} does not split over "
-                         f"{len(devs)} data ranks")
-    s = t.shape[d] // len(devs) if d is not None else 0
+    cuts = []
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        d, n = _axis_dim(spec, axis), mesh.shape[axis]
+        if d is None:
+            continue
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"over {n} {axis} ranks")
+        cuts.append((axis, d, t.shape[d] // n))
     shards = []
-    for r, dev in enumerate(devs):
-        part = t if d is None else t.narrow(d, r * s, s)
+    for r, dev in enumerate(mesh.rank_devices):
+        part = t
+        for axis, d, s in cuts:
+            part = part.narrow(d, mesh.coord(r, axis) * s, s)
         out = torch.empty(part.shape, dtype=dtype or t.dtype, device=dev)
         shards.append(out.copy_(part))
     return Sharded(spec, shards, mesh, tuple(t.shape))
@@ -283,63 +338,100 @@ def place_host(host, spec, mesh: Mesh) -> Sharded:
 
 
 def _words(xs):
-    """int8 leaves (adam8bit's codes) travel as int32 words of four codes
-    along the last dimension: the kernels move f32 and int32, and a gather
-    only moves bytes."""
+    """Tensors of 1- and 2-byte elements (adam8bit's int8 codes, bf16
+    activations) travel as int32 words of several elements along the last
+    dimension: the kernels move f32 and int32, and a gather only moves
+    bytes.  Returns the words (or ``xs``) and the dtype to view them back
+    as (None when they were not packed)."""
     x0 = xs[0]
-    if x0.dtype == torch.int8 and x0.dim() and x0.shape[-1] % 4 == 0:
-        return [x.contiguous().view(torch.int32) for x in xs], True
-    return xs, False
+    k = 4 // x0.element_size()
+    if k > 1 and x0.dim() and x0.shape[-1] % k == 0:
+        return [x.contiguous().view(torch.int32) for x in xs], x0.dtype
+    return xs, None
 
 
 def _all_gather(xs, d: int):
+    """Kernel 9's ``ag`` of the ranks' blocks along dimension ``d``, in any
+    dtype: packed into int32 words where it can (:func:`_words`), else a
+    16-bit float through f32 (exact both ways)."""
     ys, packed = _words(xs)
-    out = ring_all_gather(list(ys), dim=d)
-    return [y.contiguous().view(torch.int8) for y in out] if packed else out
+    if packed is not None:
+        return [y.contiguous().view(packed)
+                for y in ring_all_gather(list(ys), dim=d)]
+    dt = xs[0].dtype
+    if dt in (torch.bfloat16, torch.float16):
+        return [y.to(dt) for y in ring_all_gather([x.float() for x in xs],
+                                                   dim=d)]
+    return ring_all_gather(list(xs), dim=d)
+
+
+def _gather_axis(shards, mesh: Mesh, axis: str, d: int) -> list:
+    """Each group along ``axis`` all-gathers its ranks' blocks of dimension
+    ``d`` (one kernel-9 call a group); returns the whole blocks in the
+    flat rank order."""
+    out = list(shards)
+    for group in mesh.groups(axis):
+        for r, y in zip(group, _all_gather([shards[r] for r in group], d)):
+            out[r] = y
+    return out
 
 
 def reshard(leaf: Sharded, spec, own: bool = False) -> Sharded:
-    """``leaf`` on ``spec``: unchanged where the data dimension is the same;
-    a sharded leaf is first all-gathered to every rank (kernel 9's ``ag``);
-    a leaf that is to be sharded is sliced from each rank's whole copy, which
-    moves nothing.  ``own=True`` (what a resident leaf needs) makes each
-    moved shard contiguous memory of its own: a slice's whole copy can then
-    be freed, and a leaf gathered along another than its leading dimension
-    is stored in its own layout (a product's GEMM takes another algorithm,
-    and other roundings, on a transposed operand)."""
+    """``leaf`` on ``spec``, axis by axis: unchanged where an axis keeps its
+    dimension (or has one rank); a dimension an axis no longer shards is
+    first all-gathered over that axis's groups (kernel 9's ``ag``); a
+    dimension an axis is to shard is sliced from each rank's whole extent,
+    which moves nothing.  ``own=True`` (what a resident leaf needs) makes
+    each moved shard contiguous memory of its own: a slice's whole copy can
+    then be freed, and a leaf gathered along another than its leading
+    dimension is stored in its own layout (a product's GEMM takes another
+    algorithm, and other roundings, on a transposed operand)."""
     spec = _full(spec, leaf.ndim)
-    d_from, d_to = leaf.dim, _data_dim(spec)
-    if d_from == d_to:
-        return Sharded(spec, leaf.shards, leaf.mesh, leaf.shape)
-    shards = leaf.shards
-    if d_from is not None:
-        shards = _all_gather(shards, d_from)
-    if d_to is not None:
-        n = len(shards)
-        s = leaf.shape[d_to] // n
-        shards = [x.narrow(d_to, r * s, s) for r, x in enumerate(shards)]
-        if own:
-            shards = [x.clone(memory_format=torch.contiguous_format)
-                      for x in shards]
-    elif own:
-        shards = [x.contiguous() for x in shards]
-    return Sharded(spec, shards, leaf.mesh, leaf.shape)
+    mesh = leaf.mesh
+    moves = [(axis, _axis_dim(leaf.spec, axis), _axis_dim(spec, axis))
+             for axis in (DATA_AXIS, MODEL_AXIS)]
+    moves = [m for m in moves if m[1] != m[2] and mesh.shape[m[0]] > 1]
+    shards, sliced = leaf.shards, False
+    for axis, d_from, _ in moves:
+        if d_from is not None:
+            shards = _gather_axis(shards, mesh, axis, d_from)
+    for axis, _, d_to in moves:
+        if d_to is not None:
+            s = leaf.shape[d_to] // mesh.shape[axis]
+            shards = [x.narrow(d_to, mesh.coord(r, axis) * s, s)
+                      for r, x in enumerate(shards)]
+            sliced = True
+    if own and moves:
+        shards = [x.clone(memory_format=torch.contiguous_format) if sliced
+                  else x.contiguous() for x in shards]
+    return Sharded(spec, shards, mesh, leaf.shape)
 
 
 def reduce_mean(xs, spec, mesh: Mesh) -> Sharded:
-    """The mean of the data ranks' tensors ``xs`` (one per rank, equal
-    shapes), on ``spec``: an all-reduce (``ar``) for a replicated spec, a
-    reduce-scatter (``rs``) over the spec's data dimension otherwise; the
+    """The mean over the data axis of the ranks' tensors ``xs`` (one per
+    rank in the flat order, each the rank's block of the model dimension
+    the spec marks), on ``spec``: each data group (one per model rank)
+    makes its own call, an all-reduce (``ar``) for a spec without the data
+    axis, a reduce-scatter (``rs``) over its data dimension otherwise; the
     1/dp is the collective's scale.  With equal shards of a global batch,
     the mean of the ranks' batch means is the global batch mean."""
     spec = _full(spec, xs[0].dim())
     d = _data_dim(spec)
-    inv = 1.0 / len(xs)
-    if d is None:
-        out = ring_all_reduce_bidir(list(xs), scale=inv)
-    else:
-        out = ring_reduce_scatter(list(xs), scale=inv, dim=d)
-    return Sharded(spec, out, mesh, tuple(xs[0].shape))
+    dp = mesh.shape[DATA_AXIS]
+    shape = list(xs[0].shape)
+    m = _axis_dim(spec, MODEL_AXIS)
+    if m is not None:
+        shape[m] *= mesh.shape[MODEL_AXIS]
+    out = list(xs)
+    for group in mesh.groups(DATA_AXIS):
+        part = [xs[r] for r in group]
+        if d is None:
+            red = ring_all_reduce_bidir(part, scale=1.0 / dp)
+        else:
+            red = ring_reduce_scatter(part, scale=1.0 / dp, dim=d)
+        for r, y in zip(group, red):
+            out[r] = y
+    return Sharded(spec, out, mesh, tuple(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -528,11 +620,11 @@ def zero3_param_place(leaves, mesh: Mesh):
 # ---------------------------------------------------------------------------
 
 
-def check_data_mesh(mesh, caller: str) -> Mesh:
-    """Refuse what this package cannot train on: anything but a
+def check_mesh(mesh, caller: str) -> Mesh:
+    """Refuse what this package cannot train or serve on: anything but a
     :class:`Mesh`, a pipeline (``stage``) axis (ROADMAP.md Queue 1 item
-    9c), a model axis larger than 1 (item 9b), and ranks that are not all
-    on the CPU or all on CUDA cards with peer access between neighbours."""
+    9c), and groups of ranks (along either axis) that are not all on the
+    CPU or all on CUDA cards with peer access between ring neighbours."""
     from .collective_kernels import RankGroup
 
     names = tuple(getattr(mesh, "axis_names", ()))
@@ -544,13 +636,15 @@ def check_data_mesh(mesh, caller: str) -> Mesh:
     if not isinstance(mesh, Mesh):
         raise ValueError(f"{caller}: mesh must be a tensor_ops_tpu_torch "
                          f"parallel.Mesh (make_mesh), got {mesh!r}")
-    if mesh.shape[MODEL_AXIS] > 1:
-        raise ValueError(
-            f"{caller}: a mesh whose model axis is {mesh.shape[MODEL_AXIS]} "
-            f"(tensor parallelism) is not ported to the PyTorch package yet "
-            f"(ROADMAP.md, Queue 1 item 9b); pass make_mesh(n, shape=(n, 1))")
-    RankGroup(devices=mesh.data_devices)
+    for axis in (DATA_AXIS, MODEL_AXIS):
+        for group in mesh.groups(axis):
+            RankGroup(devices=[mesh.rank_devices[r] for r in group])
     return mesh
+
+
+def _placed(params, specs, mesh: Mesh) -> tuple:
+    return tuple(p if isinstance(p, Sharded) else place(p, s, mesh)
+                 for p, s in zip(params, specs))
 
 
 def shard_network(net, mesh: Mesh):
@@ -562,6 +656,28 @@ def shard_network(net, mesh: Mesh):
     return Network(net.op, tuple(place(p, s, mesh)
                                  for p, s in zip(net.params, specs)),
                    net.act_names)
+
+
+def shard_fused(fm, mesh: Mesh):
+    """Tensor-parallel serving: a ``FusedMLP`` whose weights and biases
+    are placed by :func:`param_specs` (Megatron's alternation over the
+    model axis, replicated over the data axis) as :class:`Sharded` leaves.
+    Its ``run_xla`` then runs each layer's row- or column-parallel form
+    with kernel 9's collectives between them (:func:`.tp.fused_forward`),
+    and ``Predictor`` routes every request there: the fused kernels cannot
+    take sharded weights.  Use when one model's weights exceed a card."""
+    from ..models.fast import FusedMLP
+
+    check_mesh(mesh, "shard_fused")
+    stack = []
+    for w, b in zip(fm.weights, fm.biases):
+        stack += [tuple(w.shape), tuple(b.shape)]
+    specs = param_specs(tuple(stack), mesh)
+    ws = tuple(place(w, specs[2 * k], mesh) for k, w in enumerate(fm.weights))
+    bs = tuple(place(b, specs[2 * k + 1], mesh)
+               for k, b in enumerate(fm.biases))
+    return FusedMLP(ws, bs, fm.acts, fm.softmax_out, fm.precision,
+                    fm.loss_kind)
 
 
 def _rank_backend(be, device):
@@ -586,33 +702,54 @@ def _split_rows(xb, dp: int, r: int, device, chunks: int = 1):
     return part.reshape((-1,) + rest).to(device)
 
 
+def group_executors(net, be, mesh: Mesh, compute=None) -> list:
+    """One :class:`~.tp.TpNetwork` per data rank (its model group), the
+    leaves on ``param_specs``."""
+    from .tp import TpNetwork
+
+    specs = param_specs(net.param_stack, mesh)
+    return [TpNetwork(net, specs, row, be, compute) for row in mesh.devices]
+
+
 def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
     """Multi-rank minibatch SGD ``fn(rate, xb, yb, *params) -> (mean_loss,
-    new_params)`` on a mesh whose model axis is 1: the batch splits over the
-    data ranks, each rank takes its rows' mean gradient on its copy of the
-    params, and the ranks' gradients are all-reduced to their mean (kernel
-    9, scale 1/dp) before every rank takes the same step.  ``params`` are
-    :class:`Sharded` leaves (:func:`shard_network`) or tensors, which are
-    placed first; the new params come back as :class:`Sharded` leaves and
-    the loss as a 0-d tensor on rank 0's device."""
+    new_params)``: the batch splits over the data ranks; each data rank
+    takes its rows' mean gradient on its copy of the params (on a model
+    axis > 1 through :mod:`.tp`'s executor on its model group, each rank
+    its blocks); each leaf's gradients are reduced over the data axis to
+    their mean (kernel 9, scale 1/dp, one call per model rank) before
+    every rank takes the same step.  ``params`` are :class:`Sharded`
+    leaves (:func:`shard_network`) or tensors, which are placed first; the
+    new params come back as :class:`Sharded` leaves and the loss as a 0-d
+    tensor on rank 0's device."""
     from ..models.training import make_mean_grads
 
-    check_data_mesh(mesh, "sharded_train_step")
+    check_mesh(mesh, "sharded_train_step")
     specs = param_specs(net.param_stack, mesh)
-    devs = mesh.data_devices
-    vags = [make_mean_grads(net, loss, _rank_backend(be, d)) for d in devs]
+    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    if tp > 1:
+        from .tp import group_vag
+
+        vags = [group_vag(t, loss)
+                for t in group_executors(net, be, mesh)]
+    else:
+        mgs = [make_mean_grads(net, loss, _rank_backend(be, d))
+               for d in mesh.data_devices]
+        vags = [lambda x, y, ps, mg=mg: mg(x, y, *ps) for mg in mgs]
 
     def step(rate, xb, yb, *params):
-        params = tuple(p if isinstance(p, Sharded) else place(p, s, mesh)
-                       for p, s in zip(params, specs))
-        vals, grads = [], []
-        for r, (dev, vag) in enumerate(zip(devs, vags)):
-            v, g = vag(_split_rows(xb, len(devs), r, dev),
-                       _split_rows(yb, len(devs), r, dev),
-                       *(p.shards[r] for p in params))
+        params = _placed(params, specs, mesh)
+        n = len(params)
+        vals, grads = [], [None] * (dp * tp)
+        for d, (row, vag) in enumerate(zip(mesh.devices, vags)):
+            ranks = range(d * tp, (d + 1) * tp)
+            v, g = vag(_split_rows(xb, dp, d, row[0]),
+                       _split_rows(yb, dp, d, row[0]),
+                       tuple(p.shards[r] for r in ranks for p in params))
             vals.append(v.reshape(1))
-            grads.append(g)
-        v = reduce_mean(vals, (None,), mesh).shards[0].reshape(())
+            for m, r in enumerate(ranks):
+                grads[r] = g[m * n:(m + 1) * n]
+        v = ring_all_reduce_bidir(vals, scale=1.0 / dp)[0].reshape(())
         new = []
         for i, p in enumerate(params):
             g = reduce_mean([gr[i] for gr in grads], p.spec, mesh)
@@ -623,31 +760,37 @@ def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
 
 
 def sharded_forward(net, be, mesh: Mesh) -> Callable:
-    """Multi-rank batched inference ``fn(xb, *params) -> yb`` on a mesh whose
-    model axis is 1: each data rank runs its rows of the batch; the rows
-    come back in order on rank 0's device (a gather of outputs, not a
-    reduction)."""
+    """Multi-rank batched inference ``fn(xb, *params) -> yb``: each data
+    rank runs its rows of the batch (on a model axis > 1 through
+    :mod:`.tp`'s executor on its model group); the rows come back in order
+    on rank 0's device (a gather of outputs, not a reduction)."""
     from ..models.training import _vmap
 
-    check_data_mesh(mesh, "sharded_forward")
+    check_mesh(mesh, "sharded_forward")
     specs = param_specs(net.param_stack, mesh)
-    devs = mesh.data_devices
+    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    runs = None
+    if tp > 1:
+        runs = group_executors(net, be, mesh)
 
     def fwd(xb, *params):
-        params = tuple(p if isinstance(p, Sharded) else place(p, s, mesh)
-                       for p, s in zip(params, specs))
+        params = _placed(params, specs, mesh)
         outs = []
-        for r, dev in enumerate(devs):
-            be_r = _rank_backend(be, dev)
+        for d, row in enumerate(mesh.devices):
+            x = _split_rows(xb, dp, d, row[0])
+            if runs is not None:
+                ps = [tuple(p.shards[d * tp + m] for p in params)
+                      for m in range(tp)]
+                outs.append(runs[d].forward(x, ps))
+                continue
+            be_r = _rank_backend(be, row[0])
 
             def single(x, *ps, be_r=be_r):
                 return net.op.apply(be_r, (x,) + ps)[0]
 
             run = _vmap(single, 1, len(params))
-            outs.append(run(_split_rows(xb, len(devs), r, dev),
-                            *(p.shards[r] for p in params)))
-        return Sharded((DATA_AXIS,), [o.reshape(o.shape[0], -1)
-                                      for o in outs], mesh).full().reshape(
-            (xb.shape[0],) + tuple(outs[0].shape[1:]))
+            outs.append(run(x, *(p.shards[d] for p in params)))
+        rows = ring_all_gather([o.reshape(o.shape[0], -1) for o in outs])[0]
+        return rows.reshape((xb.shape[0],) + tuple(outs[0].shape[1:]))
 
     return fwd

@@ -4,8 +4,9 @@ JAX package's on the CPU: ``make_mesh``'s factoring and errors,
 (the port's spec of every leaf is the JAX package's ``NamedSharding`` spec),
 ``sharded_train_step`` and ``sharded_forward`` to 1e-9 in f64, the
 sharded leaf and its collectives along any dimension (kernel 9's plain
-versions on CPU ranks), and the refusal of what the slice does not train
-(a model axis > 1: ROADMAP.md Queue 1 item 9b)."""
+versions on CPU ranks), a model axis > 1 in the entry points, and the
+refusal of meshes the port does not train on (a stage axis: ROADMAP.md
+Queue 1 item 9c)."""
 
 import warnings
 
@@ -442,12 +443,35 @@ def test_sharded_forward_matches_jax_and_single():
 
 
 def test_model_axis_and_foreign_meshes_are_refused():
-    """A model axis > 1 is item 9b in every entry point that trains or
-    serves on a mesh; a mesh that is not the port's is refused."""
+    """A model axis, refused before it was ported, now runs in every entry
+    point that trains or serves on a mesh: sharded_train_step and
+    sharded_forward on (2, 2) equal one device.  A mesh that is not the
+    port's, and one with a stage axis (ROADMAP.md Queue 1 item 9c), are
+    refused."""
+    from tensor_ops_tpu_torch.models.training import (batched_run,
+                                                      make_mean_grads)
+
     tn = tnet(jnet(SMALL), SMALL)
+    r = np.random.default_rng(5)
+    X = TB.asarray(r.uniform(size=(8, 16)))
+    Y = TB.asarray(np.eye(4)[r.integers(0, 4, size=8)])
+    v, new = TM.sharded_train_step(tn, t_xent(4), TB, tmesh(2, 2))(
+        0.3, X, Y, *tn.params)
+    v0, g0 = make_mean_grads(tn, t_xent(4), TB)(X, Y, *tn.params)
+    assert abs(float(v) - float(v0)) < ATOL
+    for a, p, g in zip(new, tn.params, g0):
+        np.testing.assert_allclose(np.asarray(a), (p - 0.3 * g).numpy(),
+                                   atol=ATOL, rtol=0)
+    y = TM.sharded_forward(tn, TB, tmesh(2, 2))(X, *tn.params)
+    np.testing.assert_allclose(y.numpy(), batched_run(tn, TB)(
+        X, *tn.params).numpy(), atol=ATOL, rtol=0)
+
+    class StageMesh:
+        axis_names = ("stage", "data", "model")
+
     for fn in (lambda m: TM.sharded_train_step(tn, t_xent(4), TB, m),
                lambda m: TM.sharded_forward(tn, TB, m)):
-        with pytest.raises(ValueError, match="Queue 1 item 9b"):
-            fn(tmesh(2, 2))
+        with pytest.raises(ValueError, match="Queue 1 item 9c"):
+            fn(StageMesh())
         with pytest.raises(ValueError, match="parallel.Mesh"):
             fn(JM.make_mesh(4, shape=(4, 1)))

@@ -4,8 +4,10 @@
 app and the autoencoder) and ``fit_sequences`` paths (with ``adam8bit``,
 EMA, accumulation and both examples' entry points), chained steps (host
 and device shuffles, both loops), a ``mixed_precision`` bf16 step and a
-2-rank CPU mesh ``fit`` (ZeRO-3, offload, EMA) run end to end, in a fresh
-interpreter where ``import jax`` fails."""
+2-rank CPU mesh ``fit`` (ZeRO-3, offload, EMA), a tensor-parallel ``fit``
+on a ``(1, 2)`` mesh and ``shard_fused`` serving run end to end, in a fresh
+interpreter where ``import jax`` fails; ``parallel/tp.py`` and
+``parallel/ir_pipeline.py`` import on their own there."""
 
 import os
 import re
@@ -220,6 +222,24 @@ rm = fit(gen_net(be, 12, 4, [(8, act_logistic())], act_softmax(), Rng(be, 0)),
          mesh=m2, zero_stage=3, offload_opt_state=True, ema_decay=0.9,
          verbose=False)
 assert rm.steps == 2 and all(np.isfinite(h["loss"]) for h in rm.history)
+# the model axis: the executor and the segment matching import on their
+# own; fit on a (1, 2) CPU mesh trains through the executor, and a sharded
+# FusedMLP serves through the Predictor's mesh route
+import tensor_ops_tpu_torch.parallel.ir_pipeline as pip
+import tensor_ops_tpu_torch.parallel.tp as ptp
+net2m = gen_net(be, 12, 4, [(8, act_logistic())], act_softmax(), Rng(be, 0))
+assert [s.kind for s in ptp.plan(net2m, pmesh.param_specs(
+    net2m.param_stack, pmesh.make_mesh(2, devices=["cpu"] * 2)), 2)] == [
+    "row", "col"]
+assert len(pip.network_segments(net2m)) == 2
+m12 = pmesh.make_mesh(2, devices=["cpu"] * 2)
+rt = fit(net2m, cross_entropy(4), be, Xm, Ym, batch_size=8, optimizer=adam(),
+         mesh=m12, clip_norm=1.0, verbose=False)
+assert rt.specs[0] == ("model", None) and rt.steps == 2
+sp = Predictor(pmesh.shard_fused(FusedMLP.from_network(net2m), m12),
+               buckets=(4,))
+assert sp._sharded and sp.predict(Xm[:3]).shape == (3, 4)
+assert sys.modules["jax"] is None
 print("NAMES", len(names))
 """
 

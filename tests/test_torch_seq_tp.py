@@ -1,0 +1,173 @@
+"""The port's ``fit_sequences`` on a mesh with a model axis against the JAX
+package's, on the CPU in f64, as ``tests/test_fit_mesh.py:502-600`` runs
+it at ``make_mesh(8)`` = ``(2, 4)``: the loss curve, the final states and
+params at 1e-9 against the JAX run and one device, the Elman state weight
+trained on ``(model, None)``; adam with a crash/resume chain; accumulation;
+mixed precision.
+
+The params are placed by ``param_specs`` and the states replicated; the
+cell's scan is no ffLayer segment the executor splits, so it runs on each
+model rank on the leaves all-gathered over the model axis (one warning per
+network), its gradient's blocks kept by each rank."""
+
+import warnings
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import tensor_ops_tpu as T
+from tensor_ops_tpu.backend.rng import Rng as JRng
+from tensor_ops_tpu.models import act_logistic as j_logistic
+from tensor_ops_tpu.models import optim as JO
+from tensor_ops_tpu.models import squared_error as j_sq
+from tensor_ops_tpu.models.recurrent import gen_net as j_gen_rnet
+from tensor_ops_tpu.models.trainer import fit_sequences as j_fit_seq
+from tensor_ops_tpu.parallel.mesh import make_mesh as j_make_mesh
+from tensor_ops_tpu_torch import TorchBackend
+from tensor_ops_tpu_torch.backend.rng import Rng as TRng
+from tensor_ops_tpu_torch.models import act_logistic as t_logistic
+from tensor_ops_tpu_torch.models import optim as TO
+from tensor_ops_tpu_torch.models import squared_error as t_sq
+from tensor_ops_tpu_torch.models.recurrent import RecurrentNetwork
+from tensor_ops_tpu_torch.models.recurrent import gen_net as t_gen_rnet
+from tensor_ops_tpu_torch.models.trainer import fit_sequences as t_fit_seq
+from tensor_ops_tpu_torch.parallel import make_mesh as t_make_mesh
+
+ATOL = 1e-9
+JB = T.JaxBackend(dtype=jnp.float64)
+TB = TorchBackend(torch.float64, "cpu")
+
+
+def tmesh():
+    return t_make_mesh(8, devices=["cpu"] * 8)
+
+
+def seq_data(n_seq=32, n=6, seed=3):
+    r = np.random.default_rng(seed)
+    t = np.linspace(0, 1, n + 1)
+    waves = np.sin(2 * np.pi * t[None, :] + r.uniform(0, np.pi,
+                                                      size=(n_seq, 1)))
+    return waves[:, :-1, None], waves[:, 1:, None]
+
+
+def jrnet(seed=3):
+    return j_gen_rnet(JB, 1, 1, [(8, j_logistic(), j_logistic())],
+                      j_logistic(), None, JRng(JB, seed=seed))
+
+
+def trnet(seed=3):
+    jn = jrnet(seed)
+    tmpl = t_gen_rnet(TB, 1, 1, [(8, t_logistic(), t_logistic())],
+                      t_logistic(), None, TRng(TB, 0))
+    return RecurrentNetwork(
+        tmpl.op, tuple(TB.asarray(np.asarray(s)) for s in jn.states),
+        tuple(TB.asarray(np.asarray(p)) for p in jn.params), tmpl.arch)
+
+
+def host(a):
+    return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def same_runs(got, want, atol=ATOL):
+    assert len(got.history) == len(want.history) > 0
+    for g, w in zip(got.history, want.history):
+        assert abs(g["loss"] - w["loss"]) <= atol, (g, w)
+    for a, b in zip(tuple(got.net.states) + tuple(got.net.params),
+                    tuple(want.net.states) + tuple(want.net.params)):
+        if atol == 0:
+            np.testing.assert_array_equal(host(a), host(b))
+        else:
+            np.testing.assert_allclose(host(a), host(b), atol=atol, rtol=0)
+
+
+KW = dict(batch_size=16, rate_state=0.01, rate_param=0.1, epochs=3,
+          log_every=1, verbose=False)
+
+
+@pytest.fixture(scope="module")
+def dual_rate():
+    """tests/test_fit_mesh.py:502's runs: the JAX package on make_mesh(8)
+    and the port on one device and on make_mesh(8) (its warnings kept)."""
+    XS, TS = seq_data()
+    j = j_fit_seq(jrnet(), j_sq(1), JB, XS, TS, mesh=j_make_mesh(8), **KW)
+    single = t_fit_seq(trnet(), t_sq(1), TB, XS, TS, **KW)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        t = t_fit_seq(trnet(), t_sq(1), TB, XS, TS, mesh=tmesh(), **KW)
+    return j, single, t, [str(x.message) for x in w]
+
+
+def test_fit_sequences_make_mesh_8_matches_jax_and_single(dual_rate):
+    """The curve, final states and params on (2, 4) equal the JAX mesh run
+    and one device at 1e-9; the (8, 8) Elman state weight trains
+    row-parallel, as the JAX run's does."""
+    j, single, t, _ = dual_rate
+    assert len(t.history) == len(single.history) > 3
+    same_runs(t, single)
+    same_runs(t, j)
+    k = len(t.net.states)
+    assert t.specs[k] == ("model", None)
+    assert tuple(j.net.params[0].sharding.spec) == ("model", None)
+    assert all(s == (None,) * len(s) for s in t.specs[:k])
+
+
+def test_fit_sequences_cell_runs_gathered_with_one_warning(dual_rate):
+    """The recurrent cell is no ffLayer segment: one warning for the run
+    (not one per data rank or step) names it and says it runs on its
+    weights gathered over the model axis."""
+    *_, msgs = dual_rate
+    gathered = [m for m in msgs if "all-gathered over the model" in m]
+    assert len(gathered) == 1 and "recurrent cell" in gathered[0]
+
+
+def test_fit_sequences_make_mesh_8_adam_resume(tmp_path):
+    """tests/test_fit_mesh.py:529: adam with the clip on (2, 4), and a
+    crash/resume chain (resumed from other weights) that reproduces the
+    straight run bit for bit; the straight run equals the JAX one at
+    1e-9."""
+    XS, TS = seq_data()
+    kw = dict(batch_size=16, rate_param=0.05, clip_norm=1.0, log_every=1,
+              verbose=False, checkpoint_every=2)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        full = t_fit_seq(trnet(4), t_sq(1), TB, XS, TS, epochs=4,
+                         optimizer=TO.adam(), mesh=tmesh(),
+                         checkpoint_path=str(tmp_path / "a.npz"), **kw)
+        ck = str(tmp_path / "b.npz")
+        t_fit_seq(trnet(4), t_sq(1), TB, XS, TS, epochs=2,
+                  optimizer=TO.adam(), mesh=tmesh(), checkpoint_path=ck,
+                  **kw)
+        resumed = t_fit_seq(trnet(777), t_sq(1), TB, XS, TS, epochs=4,
+                            optimizer=TO.adam(), mesh=tmesh(),
+                            checkpoint_path=ck, resume=True, **kw)
+    assert full.steps == resumed.steps == 8
+    for a, b in zip(tuple(resumed.net.states) + tuple(resumed.net.params),
+                    tuple(full.net.states) + tuple(full.net.params)):
+        np.testing.assert_array_equal(host(a), host(b))
+    j = j_fit_seq(jrnet(4), j_sq(1), JB, XS, TS, epochs=4,
+                  optimizer=JO.adam(), mesh=j_make_mesh(8),
+                  checkpoint_path=str(tmp_path / "j.npz"), **kw)
+    same_runs(full, j)
+
+
+def test_fit_sequences_make_mesh_8_accum_and_mixed():
+    """tests/test_fit_mesh.py:574: accum_steps=2 equals the plain run at
+    1e-9 on (2, 4); mixed_precision="bf16" trains with the masters in
+    their dtype and the Elman weight on its model spec."""
+    XS, TS = seq_data()
+    kw = dict(epochs=2, batch_size=16, optimizer=TO.adam(), rate_param=0.05,
+              log_every=1, verbose=False, mesh=tmesh())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        plain = t_fit_seq(trnet(), t_sq(1), TB, XS, TS, **kw)
+        accum = t_fit_seq(trnet(), t_sq(1), TB, XS, TS, accum_steps=2, **kw)
+        mp = t_fit_seq(trnet(), t_sq(1), TB, XS, TS, epochs=2, batch_size=16,
+                       rate_state=0.01, rate_param=0.1,
+                       mixed_precision="bf16", log_every=1, verbose=False,
+                       mesh=tmesh())
+    same_runs(accum, plain)
+    assert all(np.isfinite(h["loss"]) for h in mp.history)
+    assert mp.net.params[0].dtype == torch.float64
+    assert mp.specs[len(mp.net.states)] == ("model", None)
