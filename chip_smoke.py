@@ -241,10 +241,23 @@ without printing a result line:
    and idle share.  Then ``fit_sequences`` on (2, 2) (its cell on weights
    gathered over the model axis, one warning) against one device within
    phase 23's bound.
+25. The pipelines, in the same interpreter after phase 24: a
+   ``PipelineMLP`` 784 -> 2048 x 8 -> 10 (random weights, seed 25), B =
+   512, through ``parallel.pipeline`` on the card with its ranks named
+   several times: GPipe on (4,) (4 stages of 2 layers, M = 4), dp x pp on
+   (2, 2), dp x pp x tp on (2, 2, 2) (2 stages of 4 layers) and the
+   circular schedule on (2,) (4 stages of 2 layers, V = 2) at M = 2 and at
+   M = 4 (a FIFO of depth 2): each forward and 5 SGD steps (lr 0.01) held to
+   the one-device sequential net on the card (TF32 off) and to the
+   sequential net in CPU f64 (``TOL_P`` forward, ``TOL_5_STEPS`` losses and
+   parameters), kernel 9's launches per forward and per step equal to
+   ``pipe_predicted``; one GPipe step's wall time, samples/s, profile and
+   idle share; and the Predictor of a (2, 1) ``shard_fused`` model (nothing
+   sharded) serving bucket 8 through one ``fused_mlp_forward`` launch.
    ``chip_smoke.cards_main()`` runs only the phases that need several
-   cards (the cross-card ring, these 4-card runs and the (2, 2) and (1, 4)
-   fit runs with one rank a card, bit-equal to one card) on a four-card
-   machine.
+   cards (the cross-card ring, these 4-card runs, the (2, 2) and (1, 4)
+   fit runs with one rank a card and the (4,) GPipe run with one stage a
+   card, bit-equal to one card) on a four-card machine.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -256,8 +269,8 @@ for the collectives' all-reduce; null where no one call does).  Kernels 8
 and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
-come from calling it directly; ``bidir_ring``'s launches add the mesh
-and model-axis phases'.  Kernel 7 appears twice too: as
+come from calling it directly; ``bidir_ring``'s launches add the mesh,
+model-axis and pipeline phases'.  Kernel 7 appears twice too: as
 ``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
 launches for the 8 served sequences, timed at n = 64, B = 1), and as
 ``fused_rnn_step`` the per-step entry (the public per-step function and the
@@ -548,10 +561,16 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def _whole(x):
+    """A tensor, or a mesh leaf (``parallel.Sharded``) whole on rank 0's
+    device (its blocks copied there: no collective)."""
+    return x.full() if hasattr(x, "shards") else x
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor, tol) -> float:
     """Max |got - want|, after checking every element against
-    ``atol + rtol * |want|``."""
-    got, want = got.double().cpu(), want.double().cpu()
+    ``atol + rtol * |want|`` (mesh leaves taken whole)."""
+    got, want = _whole(got).double().cpu(), _whole(want).double().cpu()
     check(got.shape == want.shape, f"shape {tuple(got.shape)} != "
           f"{tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()), "non-finite output")
@@ -4233,8 +4252,8 @@ MESH_DP, MESH_B, MESH_LR, MESH_LOG_EVERY, MESH_CRASH = 4, 100, 0.02, 10, 30
 # elementwise (one scale per block of 256 elements of the whole leaf): on
 # ZeRO-3 it runs on whole leaves, so the 12 sharded int8 code buffers and
 # 2 sharded scale buffers are all-gathered first (14 ag); under
-# exact_reduction its gradients take the replicated run's 6 ar.  A ZeRO-3
-# run gathers its 4 params once more at the end (FitResult.net).
+# exact_reduction its gradients take the replicated run's 6 ar.  The trained
+# leaves come back sharded, as they trained: nothing is gathered at the end.
 MESH_RUNS = (
     ("replicated", "adam", {}, (7, 0, 0)),
     ("zero1", "adam", dict(shard_opt_state=True), (7, 0, 4)),
@@ -4274,8 +4293,18 @@ def _opt(name: str):
 
 def _bit_equal(a, b) -> bool:
     return ([x["loss"] for x in a.history] == [x["loss"] for x in b.history]
-            and all(torch.equal(x, y) for x, y in
+            and all(torch.equal(_whole(x), _whole(y)) for x, y in
                     zip(a.net.params, b.net.params)))
+
+
+def _flagship_net(be, seed: int = 0):
+    """The flagship with random weights from ``seed`` (phases 23-25)."""
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import act_logistic, act_softmax, gen_net
+
+    return gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
+                   [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
+                   act_softmax(), Rng(be, seed))
 
 
 def _mesh_flagship(tmp: str):
@@ -4285,18 +4314,14 @@ def _mesh_flagship(tmp: str):
     from types import SimpleNamespace
 
     from tensor_ops_tpu_torch import TorchBackend
-    from tensor_ops_tpu_torch.backend.rng import Rng
-    from tensor_ops_tpu_torch.models import (act_logistic, act_softmax,
-                                             cross_entropy, gen_net)
+    from tensor_ops_tpu_torch.models import cross_entropy
     from tensor_ops_tpu_torch.parallel import make_mesh
 
     tX, tY, _, _ = synthetic_set(tmp)
     be = TorchBackend(torch.float32, DEVICE)
 
     def net(seed=0):
-        return gen_net(be, FLAGSHIP[0], FLAGSHIP[-1],
-                       [(h, act_logistic()) for h in FLAGSHIP[1:-1]],
-                       act_softmax(), Rng(be, seed))
+        return _flagship_net(be, seed)
 
     return SimpleNamespace(
         net=net(), make_net=net, loss=cross_entropy(FLAGSHIP[-1]), be=be,
@@ -4338,9 +4363,7 @@ def _mesh_fit_runs(f, names=None):
               f"mesh {name}: {res.steps} steps, losses {h}")
         check(h[-1]["loss"] < h[0]["loss"], f"mesh {name}: the loss did not "
               f"fall ({h[0]['loss']} -> {h[-1]['loss']})")
-        end = (0, 0, 4) if zkw.get("zero_stage") == 3 else (0, 0, 0)
-        want = {p: steps * n + e for p, n, e in zip(("ar", "rs", "ag"),
-                                                     per_step, end)}
+        want = {p: steps * n for p, n in zip(("ar", "rs", "ag"), per_step)}
         check(phases == want and counts["bidir_ring"] == sum(want.values())
               and counts["bidir_ring.ring"] == 0 and sum(want.values()) > 0,
               f"mesh {name}: kernel 9 launches {phases} (bidir_ring "
@@ -4350,8 +4373,8 @@ def _mesh_fit_runs(f, names=None):
         rate, first_ms = _fit_rate(res, MESH_B)
         log(f"[mesh] {name} ({shape}): loss {h[0]['loss']:.4f} -> "
             f"{h[-1]['loss']:.4f}; kernel 9 launches {phases} = per step "
-            f"{dict(zip(('ar', 'rs', 'ag'), per_step))} x {steps}"
-            f"{' + 4 ag at the end' if end[2] else ''}, as predicted; "
+            f"{dict(zip(('ar', 'rs', 'ag'), per_step))} x {steps}, as "
+            f"predicted; "
             f"{rate:.1f} samples/s over steps {FIT_TIMED_FROM + 1}-{steps} "
             f"(host clock at the log boundaries); first step "
             f"{first_ms:.1f} ms")
@@ -4541,7 +4564,7 @@ def phase_mesh_seq(be, mesh) -> dict:
     for name, get in (("loss", lambda res: torch.tensor(
             [x["loss"] for x in res.history])),
                       ("leaves", lambda res: torch.cat(
-                          [t.double().cpu().reshape(-1)
+                          [_whole(t).double().cpu().reshape(-1)
                            for t in _leaves(res.net)]))):
         ref = get(single).double()
         drift = float((get(chunked).double() - ref).abs().max())
@@ -4580,8 +4603,8 @@ def _crash_resume(f, mesh, zkw, straight, ck: str, name: str) -> None:
                   optimizer=_opt("adam"), mesh=mesh,
                   lr_schedule=lambda s: MESH_LR, resume=True, **zkw, **f.kw)
     check(resumed.history[0]["step"] == MESH_CRASH + 1 and all(
-        torch.equal(a, b) for a, b in zip(resumed.net.params,
-                                          straight.net.params)),
+        torch.equal(_whole(a), _whole(b)) for a, b in
+        zip(resumed.net.params, straight.net.params)),
           f"mesh {name}: the crash/resume chain differs from the straight "
           f"ZeRO-3 run")
     log(f"[mesh] {name}: Ctrl-C at step {MESH_CRASH} (its checkpoint), "
@@ -4632,26 +4655,24 @@ TP_SERVE_TOL = (1e-5, 0.0)
 # seed 24): layout row, column, column; TP_WIDE_REQUESTS timed requests
 TP_WIDE, TP_WIDE_B, TP_WIDE_REQUESTS = (784, 2048, 2048, 10), 128, 50
 # fit through the executor (the phase 23 configuration: adam, lr 0.02,
-# B = 100, one epoch = 60 steps), kernel 9's launches per step and at the
-# end.  At (2, 2) each data group's step takes 2 ar + 1 ag (forward: W1's
+# B = 100, one epoch = 60 steps), kernel 9's launches per step.  At (2, 2) each data group's step takes 2 ar + 1 ag (forward: W1's
 # partial sums, W2's gather; backward: the partial input cotangents of W2's
 # row-parallel layer; W1's and W0's backward move nothing), the loss 1 ar
 # and the 6 leaves' gradients one reduction per model rank each (12 ar, or
 # at ZeRO-2/3 8 rs for the 4 leaves the ZeRO rule shards, W0, W1, b1 and
 # W2, and 4 ar); ZeRO-1/2 rebuild the 4 sharded leaves after the update
-# (8 ag), ZeRO-3 gathers them at use (8 ag).  FitResult.net gathers every
-# model-sharded leaf at the end: 10 ag (W0, b0, W1, W2, b2 over each data
-# rank's model group), at ZeRO-3 18 (the data axis first).  At (1, 4) a step
-# is 2 ar (W1's and W2's partial sums) + 1 ag (the cotangent of W2's sliced
-# input); one data rank reduces nothing; the end gathers W0, b0, W1, W2.
+# (8 ag), ZeRO-3 gathers them at use (8 ag).  At (1, 4) a step is 2 ar
+# (W1's and W2's partial sums) + 1 ag (the cotangent of W2's sliced input);
+# one data rank reduces nothing.  The trained leaves come back sharded, as
+# they trained: nothing is gathered at the end.
 TP_RUNS = (
-    ("replicated", (2, 2), {}, (17, 0, 2), (0, 0, 10)),
-    ("zero1", (2, 2), dict(shard_opt_state=True), (17, 0, 10), (0, 0, 10)),
-    ("zero2", (2, 2), dict(zero_stage=2), (9, 8, 10), (0, 0, 10)),
-    ("zero3", (2, 2), dict(zero_stage=3), (9, 8, 10), (0, 0, 18)),
+    ("replicated", (2, 2), {}, (17, 0, 2)),
+    ("zero1", (2, 2), dict(shard_opt_state=True), (17, 0, 10)),
+    ("zero2", (2, 2), dict(zero_stage=2), (9, 8, 10)),
+    ("zero3", (2, 2), dict(zero_stage=3), (9, 8, 10)),
     ("zero3+offload", (2, 2), dict(zero_stage=3, offload_opt_state=True),
-     (9, 8, 10), (0, 0, 18)),
-    ("(1, 4) replicated", (1, 4), {}, (2, 0, 1), (0, 0, 4)),
+     (9, 8, 10)),
+    ("(1, 4) replicated", (1, 4), {}, (2, 0, 1)),
 )
 
 
@@ -4761,7 +4782,7 @@ def _tp_fit_runs(f, names=None, devices=None):
 
     steps = -(-len(f.tX) // MESH_B)
     runs, launches = {}, {n: 0 for n in RING_NAMES}
-    for name, shape, zkw, per, end in TP_RUNS:
+    for name, shape, zkw, per in TP_RUNS:
         if names is not None and name not in names:
             continue
         mesh = _tp_mesh(shape, devices)
@@ -4779,8 +4800,8 @@ def _tp_fit_runs(f, names=None, devices=None):
         # launches once a card of the group: at (2, 2) and (1, 4) with one
         # rank a card every group that calls spans max(dp, tp) cards
         per_call = 1 if devices is None else max(shape)
-        want = {p: (steps * n + e) * per_call
-                for p, n, e in zip(("ar", "rs", "ag"), per, end)}
+        want = {p: steps * n * per_call for p, n in zip(("ar", "rs", "ag"),
+                                                        per)}
         ring = "bidir_ring" if devices is None else "bidir_ring.ring"
         check(phases == want and counts[ring] == sum(want.values()),
               f"tp {name} on {shape}: kernel 9 launches {phases} ({ring} "
@@ -4790,10 +4811,10 @@ def _tp_fit_runs(f, names=None, devices=None):
         rate, first_ms = _fit_rate(res, MESH_B)
         log(f"[tp] fit {name} on {shape}{' (one rank a card)' * bool(devices)}"
             f": loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}; kernel 9 "
-            f"{phases} = per step {_phases(per)} x {steps} + {_phases(end)} "
-            f"at the end, as predicted; {rate:.1f} samples/s over steps "
-            f"{FIT_TIMED_FROM + 1}-{steps} (host clock); first step "
-            f"{first_ms:.1f} ms; params on {res.specs[0::2]}")
+            f"{phases} = per step {_phases(per)} x {steps}, as predicted; "
+            f"{rate:.1f} samples/s over steps {FIT_TIMED_FROM + 1}-{steps} "
+            f"(host clock); first step {first_ms:.1f} ms; params returned "
+            f"sharded on {[p.spec for p in res.net.params[0::2]]}")
     return runs, launches
 
 
@@ -4899,21 +4920,21 @@ def phase_tp_seq(be, mesh) -> dict:
     single = fit_sequences(net, loss, be, XS, TS, **kw)
     chunked = fit_sequences(net, loss, be, XS, TS, accum_steps=dp, **kw)
     # the design: each step gathers every model-sharded leaf in each data
-    # group, reduces the loss and each leaf over each data group; the end
-    # gathers the model-sharded leaves once more (FitSeqResult.net)
+    # group, reduces the loss and each leaf over each data group; the
+    # trained leaves come back sharded (nothing gathered at the end)
     leaves = list(net.states) + list(net.params)
     specs = [(None,) * s.dim() for s in net.states] + list(
         M.param_specs(net.param_stack, mesh))
     n_m = sum("model" in sp for sp in specs)
     want = {"ar": MESH_SEQ_STEPS * (1 + tp * len(leaves)), "rs": 0,
-            "ag": (MESH_SEQ_STEPS + 1) * dp * n_m}
+            "ag": MESH_SEQ_STEPS * dp * n_m}
     check(phases == want and n_m > 0, f"tp fit_sequences: kernel 9 "
           f"launches {phases}, the design predicts {want}")
     out = []
     for name, get in (("loss", lambda res: torch.tensor(
             [x["loss"] for x in res.history])),
                       ("leaves", lambda res: torch.cat(
-                          [t.double().cpu().reshape(-1)
+                          [_whole(t).double().cpu().reshape(-1)
                            for t in _leaves(res.net)]))):
         ref = get(single).double()
         drift = float((get(chunked).double() - ref).abs().max())
@@ -4942,11 +4963,279 @@ def phase_model_axis_cards(f, tmp: str) -> None:
         f"the same meshes on one card")
 
 
+# Phase 25: the pipelines (parallel.pipeline) at phase 24's width: a
+# PipelineMLP 784 -> 2048 x 8 -> 10 (random weights, seed 25; the 8 h -> h
+# layers are one array, shaped (S, L) for each form, so every form computes
+# the same chain), B = 512, PIPE_STEPS SGD steps at PIPE_LR, the ranks on the
+# card named several times.  (name, schedule, mesh shape, n_stages, layers
+# a stage, microbatches.)
+PIPE_I, PIPE_H, PIPE_O, PIPE_B, PIPE_LAYERS = 784, 2048, 10, 512, 8
+PIPE_LR, PIPE_STEPS, PIPE_TIMED = 0.01, 5, 20
+PIPE_RUNS = (
+    ("gpipe", "gpipe", (4,), 4, 2, 4),
+    ("dp x pp", "gpipe", (2, 2), 2, 4, 4),
+    ("dp x pp x tp", "gpipe", (2, 2, 2), 2, 4, 4),
+    ("circular M=2", "circular", (2,), 4, 2, 2),
+    ("circular M=4", "circular", (2,), 4, 2, 4),
+)
+# Each form's forward is held to the one-device sequential net on the card
+# and to the sequential net in CPU f64 at TOL_P (its probabilities), its
+# losses and parameters after PIPE_STEPS steps at TOL_5_STEPS: the stages
+# multiply microbatches of 64-128 rows where the sequential net multiplies
+# all 512 (cuBLAS may take other algorithms, other roundings), and the
+# tensor-parallel form's gather moves whole rows, so only f32 rounding
+# separates them.
+
+
+def pipe_predicted(shape, n: int, L: int, M: int, train: bool) -> dict:
+    """Kernel 9's launches (ar, rs, ag) of one forward or one step of a
+    pipeline, from parallel/pipeline.py: the model group's all-gather after
+    each layer of each valid tick (dp * n_stages * M * L when tp > 1; the
+    backward's reduce-scatter as many), the stage psum on each (data, model)
+    group (dp * tp; its transpose only on the group feeding each data
+    group's loss, dp), the rows gathered over the data groups (forward) or
+    the loss summed over them (step) when dp > 1, and each leaf's gradient
+    summed over the ranks that hold it (the 4 projections over every rank,
+    the 2 stage arrays over each data group: 2 * S * tp calls when dp >
+    1)."""
+    names = {1: ("stage",), 2: ("data", "stage"),
+             3: ("data", "stage", "model")}[len(shape)]
+    dims = dict(zip(names, shape))
+    dp, S, tp = dims.get("data", 1), dims["stage"], dims.get("model", 1)
+    gathers = dp * n * M * L if tp > 1 else 0
+    psums = dp * tp if S > 1 else 0
+    if not train:
+        return {"ar": psums, "rs": 0, "ag": gathers + (dp > 1)}
+    grads = 4 * (dp * S * tp > 1) + (2 * S * tp if dp > 1 else 0)
+    return {"ar": psums + (dp if S > 1 else 0) + (dp > 1) + grads,
+            "rs": gathers, "ag": gathers}
+
+
+def _pipe_arrays():
+    """The model's six arrays (the 8 layers stacked; each weight normal
+    over the square root of its fan-in, so that the softmax starts near
+    uniform and SGD lowers the loss) and the batch, f32."""
+    r = np.random.default_rng(25)
+    h = PIPE_H
+    arrays = [r.standard_normal((h, PIPE_I)) / np.sqrt(PIPE_I),
+              0.1 * r.standard_normal(h),
+              r.standard_normal((PIPE_LAYERS, h, h)) / np.sqrt(h),
+              0.1 * r.standard_normal((PIPE_LAYERS, h)),
+              r.standard_normal((PIPE_O, h)) / np.sqrt(h),
+              0.1 * r.standard_normal(PIPE_O)]
+    X = r.uniform(0, 1, size=(PIPE_B, PIPE_I))
+    Y = np.eye(PIPE_O)[r.integers(0, PIPE_O, size=PIPE_B)]
+    return ([a.astype(np.float32) for a in arrays], X.astype(np.float32),
+            Y.astype(np.float32))
+
+
+def _pipe_sequential(arrays, X, Y, device, dtype):
+    """The plain chain on one device: its forward, and the losses and
+    parameters of PIPE_STEPS SGD steps (torch autograd)."""
+    ps = [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
+    x = torch.tensor(X, dtype=dtype, device=device)
+    y = torch.tensor(Y, dtype=dtype, device=device)
+
+    def fwd(ps):
+        h = torch.sigmoid(torch.addmm(ps[1], x, ps[0].T))
+        for k in range(ps[2].shape[0]):
+            h = torch.sigmoid(torch.addmm(ps[3][k], h, ps[2][k].T))
+        return torch.softmax(torch.addmm(ps[5], h, ps[4].T), dim=-1)
+
+    with torch.no_grad():
+        p0 = fwd(ps)
+    losses = []
+    for _ in range(PIPE_STEPS):
+        ps = [p.detach().requires_grad_() for p in ps]
+        loss = -torch.mean(torch.sum(y * torch.log(fwd(ps) + 1e-30), dim=-1))
+        gs = torch.autograd.grad(loss, ps)
+        losses.append(float(loss.detach()))
+        ps = [(p - PIPE_LR * g).detach() for p, g in zip(ps, gs)]
+    return p0, losses, ps
+
+
+def _pipe_run(kind, shape, n, L, M, arrays, X, Y, devices=None):
+    """One form on the card (``devices``: the ranks' devices, default the
+    card repeated): its forward, kernel 9's launches of the forward and of
+    the PIPE_STEPS steps, the losses, and the parameters whole, in the
+    sequential layout (the 8 layers stacked)."""
+    from tensor_ops_tpu_torch.parallel import pipeline as PP
+
+    size = int(np.prod(shape))
+    make = {1: PP.make_pipeline_mesh, 2: PP.make_dp_pipeline_mesh,
+            3: PP.make_3d_pipeline_mesh}[len(shape)]
+    mesh = make(*shape, devices=devices or [DEVICE] * size)
+    h = PIPE_H
+    a = list(arrays)
+    a[2] = a[2].reshape(n, L, h, h)
+    a[3] = a[3].reshape(n, L, h)
+    model = PP.PipelineMLP.from_arrays(*a, device=DEVICE)
+    circ = kind == "circular"
+    model = (PP.shard_circular_model if circ else PP.shard_pipeline_model)(
+        model, mesh)
+    fwd = PP.circular_pipeline_forward if circ else PP.pipeline_forward
+    step = (PP.circular_pipeline_train_step if circ
+            else PP.pipeline_train_step)(model, mesh, M)
+    x = torch.tensor(X, device=DEVICE)
+    y = torch.tensor(Y, device=DEVICE)
+    p0, counts_f, phases_f = _counted(lambda: fwd(model, mesh, x, M))
+    box = [model.params(), []]
+
+    def steps():
+        for _ in range(PIPE_STEPS):
+            v, box[0] = step(PIPE_LR, x, y, *box[0])
+            box[1].append(v)
+
+    _, counts_s, phases_s = _counted(steps)
+    params = [_whole(p) for p in box[0]]
+    S = mesh.shape["stage"]
+    for i in (2, 3):
+        if circ:
+            params[i] = PP._interleave_chunks(params[i], n // S)
+        params[i] = params[i].reshape((PIPE_LAYERS,) + tuple(
+            params[i].shape[2:]))
+    return dict(p0=p0, losses=[float(v) for v in box[1]], params=params,
+                fwd=(counts_f, phases_f), steps=(counts_s, phases_s),
+                step=step, model=model, x=x, y=y, mesh=mesh)
+
+
+def phase_pipelines() -> dict:
+    """The pipelines on the card (phase 25): returns kernel 9's launches of
+    their forwards and steps."""
+    from tensor_ops_tpu_torch.models import FusedMLP, Predictor
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.parallel import shard_fused
+
+    arrays, X, Y = _pipe_arrays()
+    seq_p0, seq_losses, seq_ps = _pipe_sequential(arrays, X, Y, DEVICE,
+                                                  torch.float32)
+    launches = {n: 0 for n in RING_NAMES}
+    runs = {}
+    for name, kind, shape, n, L, M in PIPE_RUNS:
+        run = _pipe_run(kind, shape, n, L, M, arrays, X, Y)
+        runs[name] = run
+        want_f = pipe_predicted(shape, n, L, M, False)
+        want_s = {p: PIPE_STEPS * c for p, c in
+                  pipe_predicted(shape, n, L, M, True).items()}
+        for (counts, phases), want, what in ((run["fwd"], want_f, "forward"),
+                                             (run["steps"], want_s, "steps")):
+            check(phases == want and counts["bidir_ring"] == sum(
+                want.values()) and counts["bidir_ring.ring"] == 0,
+                f"pipeline {name} {what}: kernel 9 launches {phases} "
+                f"(bidir_ring {counts['bidir_ring']}), the design predicts "
+                f"{want}")
+            for k in RING_NAMES:
+                launches[k] += counts[k]
+        e_f = max_err(run["p0"], seq_p0, TOL_P)
+        e_l = max_err(torch.tensor(run["losses"]), torch.tensor(seq_losses),
+                      TOL_5_STEPS)
+        e_p = max(max_err(a, b, TOL_5_STEPS)
+                  for a, b in zip(run["params"], seq_ps))
+        check(run["losses"][-1] < run["losses"][0], f"pipeline {name}: the "
+              f"loss did not fall ({run['losses']})")
+        run["err_card"] = (e_f, e_l, e_p)
+        log(f"[pipe] {name} on {shape} ({kind}, n_stages {n}, {L} layers a "
+            f"stage, M={M}; {PIPE_I}->{PIPE_H}x{PIPE_LAYERS}->{PIPE_O}, "
+            f"B={PIPE_B}): vs the one-device sequential net on the card "
+            f"forward max|err| {e_f:.2e} (tol {TOL_P[0]:g}), {PIPE_STEPS} "
+            f"sgd steps losses {e_l:.2e}, params {e_p:.2e} (tol "
+            f"{TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|); loss "
+            f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}; kernel 9 "
+            f"a forward {want_f}, a step "
+            f"{pipe_predicted(shape, n, L, M, True)}, as predicted")
+
+    # one GPipe step on (4,) timed: samples/s, wall, kernels, busy time
+    g = runs["gpipe"]
+    box = [g["model"].params()]
+
+    def one_step():
+        v, box[0] = g["step"](PIPE_LR, g["x"], g["y"], *box[0])
+        return v
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PIPE_TIMED):
+        one_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / PIPE_TIMED * 1e6
+    prof = _profile_steps(one_step)
+    top = ", ".join(f"{k} {us:.1f} us" for k, us in
+                    list(prof["by_kernel"].items())[:6])
+    log(f"[pipe] one gpipe step on (4,) (S=4, L=2, M=4, B={PIPE_B}): "
+        f"{wall_us:.1f} us wall (host clock, {PIPE_TIMED} steps between "
+        f"synchronises), {PIPE_B / wall_us * 1e6:.1f} samples/s; "
+        f"{prof['launches']:.0f} kernels and {prof['copies']:.0f} copies a "
+        f"step, device busy {prof['busy_us']:.1f} us, idle share "
+        f"{1 - prof['busy_us'] / wall_us:.3f}; most device time: {top}")
+
+    # Queue 3's second fault: a (2, 1) placement shards nothing, so the
+    # Predictor serves rank 0's whole copy through the kernels below
+    # xla_threshold (bucket 8: kernel 2, no collective)
+    from tensor_ops_tpu_torch import TorchBackend
+
+    fm = FusedMLP.from_network(_flagship_net(TorchBackend(torch.float32,
+                                                          DEVICE)))
+    p21 = Predictor(shard_fused(fm, _tp_mesh((2, 1))), buckets=(8,))
+    x8 = np.random.default_rng(8).uniform(0, 1, size=(8, FLAGSHIP[0]))
+    got, counts, _ = _counted(lambda: p21.predict(x8))
+    want = Predictor(fm, buckets=(8,)).predict(x8)
+    check(not p21._serving[3] and counts["fused_mlp_forward"] == 1
+          and counts["bidir_ring"] == 0 and np.array_equal(got, want),
+          f"(2, 1) shard_fused at bucket 8: sharded route {p21._serving[3]}, "
+          f"fused_mlp_forward {counts['fused_mlp_forward']}, bidir_ring "
+          f"{counts['bidir_ring']}, equal to the whole model "
+          f"{np.array_equal(got, want)}")
+    log("[pipe] (2, 1) shard_fused + Predictor at bucket 8: served whole "
+        "from rank 0's copy, 1 fused_mlp_forward launch, no collective, "
+        "bit-equal to the unplaced model")
+
+    # the CPU f64 sequential net, last (a full-width CPU run in a process
+    # that profiles the card can leave the profiler losing device events)
+    c_p0, c_losses, c_ps = _pipe_sequential(arrays, X, Y, "cpu",
+                                            torch.float64)
+    for name, run in runs.items():
+        e_f = max_err(run["p0"], c_p0, TOL_P)
+        e_l = max_err(torch.tensor(run["losses"]), torch.tensor(c_losses),
+                      TOL_5_STEPS)
+        e_p = max(max_err(a, b, TOL_5_STEPS)
+                  for a, b in zip(run["params"], c_ps))
+        log(f"[pipe] {name} vs the CPU f64 sequential net: forward max|err| "
+            f"{e_f:.2e}, losses {e_l:.2e}, params {e_p:.2e}")
+    e_seq = max_err(seq_p0, c_p0, TOL_P)
+    log(f"[pipe] the card's sequential net vs CPU f64: forward max|err| "
+        f"{e_seq:.2e}")
+    return launches
+
+
+def phase_pipeline_cards() -> None:
+    """The (4,) GPipe forward and PIPE_STEPS steps with one stage a card
+    (hand-offs as peer copies, kernel 9 on the ring protocol): bit-equal to
+    the same run with the 4 ranks on one card."""
+    arrays, X, Y = _pipe_arrays()
+    name, kind, shape, n, L, M = PIPE_RUNS[0]
+    one = _pipe_run(kind, shape, n, L, M, arrays, X, Y)
+    four = _pipe_run(kind, shape, n, L, M, arrays, X, Y,
+                     devices=[f"cuda:{i}" for i in range(4)])
+    ring = four["fwd"][0]["bidir_ring.ring"] + four["steps"][0][
+        "bidir_ring.ring"]
+    same = (torch.equal(four["p0"].to(DEVICE), one["p0"])
+            and four["losses"] == one["losses"]
+            and all(torch.equal(a.to(DEVICE), b)
+                    for a, b in zip(four["params"], one["params"])))
+    check(ring > 0 and same, f"gpipe (4,) on 4 cards: {ring} ring launches, "
+          f"bit-equal to one card: {same}")
+    log(f"[pipe] gpipe (4,) with one stage a card: {ring} ring-protocol "
+        f"launches; forward, {PIPE_STEPS} steps' losses and parameters "
+        f"bit-equal to the 4 ranks on one card")
+
+
 def cards_main() -> None:
     """The phases that need several cards, alone (on a machine with 4):
-    the cross-card ring against its plain versions, and the 4-card mesh
-    runs of :func:`phase_mesh_cards` and :func:`phase_model_axis_cards`
-    against the same runs on one card.
+    the cross-card ring against its plain versions, and the 4-card runs of
+    :func:`phase_mesh_cards`, :func:`phase_model_axis_cards` and
+    :func:`phase_pipeline_cards` against the same runs on one card.
     ``python3 -c "import chip_smoke; chip_smoke.cards_main()"``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     check(torch.cuda.device_count() >= MESH_DP, f"cards_main needs "
@@ -4957,10 +5246,11 @@ def cards_main() -> None:
         runs, _ = _mesh_fit_runs(f, ("replicated", "zero3"))
         timed("mesh on 4 cards", phase_mesh_cards, f, runs, tmp)
         timed("model axis on 4 cards", phase_model_axis_cards, f, tmp)
+    timed("pipelines on 4 cards", phase_pipeline_cards)
 
 
 def mesh_main(out: str) -> None:
-    """Phases 23 and 24 in their own interpreter (after every profiled
+    """Phases 23, 24 and 25 in their own interpreter (after every profiled
     phase of the smoke's process); writes their kernel launches to
     ``out``."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4968,14 +5258,15 @@ def mesh_main(out: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         launches = timed("mesh", phase_mesh, tmp)
         tp = timed("model axis", phase_model_axis, tmp)
+    pipe = timed("pipelines", phase_pipelines)
     for n in RING_NAMES:
-        launches[n] += tp[n]
+        launches[n] += tp[n] + pipe[n]
     with open(out, "w") as f:
         json.dump(launches, f)
 
 
 def phase_mesh_proc(tmp: str) -> dict:
-    """Run :func:`mesh_main` (phases 23 and 24) in a second interpreter;
+    """Run :func:`mesh_main` (phases 23-25) in a second interpreter;
     its lines print as they come; returns its kernel launches."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, "mesh_launches.json")
@@ -5087,7 +5378,7 @@ def main() -> int:
         launches[n] = dp[n]["launches"]
         launches[f"{n}.ring"] = dp[n]["protocol launches"]
     # and kernel 9 on the mesh's fit and fit_sequences runs and the model
-    # axis's serving and training (phases 23 and 24)
+    # axis's serving and training and the pipelines (phases 23-25)
     for n in RING_NAMES:
         launches[n] += mesh_launches[n]
     least = bounds()

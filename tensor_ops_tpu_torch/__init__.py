@@ -8,12 +8,16 @@ never ``jax``.  Its layout mirrors the JAX package's:
 * ``ops.shapes``  — shape/stack algebra (copied: framework-free)
 * ``ops.ir``      — the staged ``TOp`` IR + transposition AD (copied)
 * ``ops.prim``    — the primitive op library (copied)
+* ``ops.introspect`` — op-graph rendering and statistics (copied)
 * ``ops.loops``   — ``ScanOp``, ``MappedOp``, ``Remat``: the recurrence and
   batching IR nodes
 * ``ops.kernels`` — the hand-written CUDA kernels and their plain versions
 * ``backend``     — the 13-primitive Tensor seam: ``TorchBackend`` and the
   float64 NumPy oracle ``NumpyBackend``
 * ``engine``      — cached graph callables (eager execution)
+* ``tensor``      — the value-level helper API (``Tensor.hs``)
+* ``testing``     — the oracles and gradient checkers (``loop_gmul``,
+  ``check_grads``, ``check_grads_vs_autograd``)
 * ``models``      — activations/losses, feed-forward and recurrent
   networks and their training (the batched loss graph among them), the
   optimizers (``adam8bit`` among them) and the loops ``fit`` and
@@ -21,6 +25,9 @@ never ``jax``.  Its layout mirrors the JAX package's:
   CUDA graph, ``models.chain``), the autoencoder, ``FusedMLP``,
   ``QuantizedMLP``, ``FusedRNN``, ``FusedAutoencoder``, ``Predictor``,
   ``SequencePredictor``
+* ``parallel``    — the ring collectives, the ``(data, model)`` mesh and
+  its sharded training and serving, and the GPipe / circular pipelines on
+  a ``stage`` axis (``parallel.pipeline``)
 * ``utils.native`` — the C++ runtime's threaded loader and kernels
 * ``apps``        — the serving CLI (``apps.serve``), the MNIST trainer
   (``apps.mnist``) and the dots demo (``apps.dots``)
@@ -34,7 +41,7 @@ from .ops import prim
 from .ops.ir import TOp, grad, run, value_and_grad, vjp
 from .ops.shapes import Shape, ShapeError, Stack
 from .ops.vfunc import VFunc, vfunc1, vfunc2, vfuncN
-from . import engine
+from . import engine, tensor
 
 __version__ = "0.1.0"
 
@@ -57,6 +64,7 @@ __all__ = [
     "grad",
     "normal",
     "prim",
+    "tensor",
     "run",
     "uniform",
     "value_and_grad",

@@ -7,7 +7,7 @@ mixed precision and step chaining, ``chain``), recurrent networks
 ``FusedMLP``, ``FusedRNN`` and ``FusedAutoencoder``, the int8
 ``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
 them.  The loops' pipeline options come in a later slice (ROADMAP.md,
-Queue 1 item 9c)."""
+Queue 1 item 9c-2)."""
 
 from . import (autoencoder, batched, chain, fast, feedforward, neuralnet,
                optim, recurrent, serve, trainer, training)

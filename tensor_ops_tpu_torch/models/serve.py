@@ -10,9 +10,12 @@ batch (``batched_run``); for a ``FusedMLP``, batches under
 ``xla_threshold`` go to the whole-network kernel ``fused_mlp_forward``,
 larger ones to plain matmuls (``FusedMLP.run_xla``), and
 ``use_fused_kernel=False`` sends every batch through the per-layer kernel
-``fused_linear``.  A ``FusedMLP`` whose weights are sharded over a mesh
-(``parallel.mesh.shard_fused``) serves every bucket through ``run_xla``,
-tensor-parallel on its mesh: the kernels take whole weights.  A
+``fused_linear``.  A ``FusedMLP`` with a weight sharded over a mesh axis of
+more than one rank (``parallel.mesh.shard_fused`` on a model axis > 1)
+serves every bucket through ``run_xla``, tensor-parallel on its mesh: the
+kernels take whole weights.  One placed on a mesh with nothing sharded (a
+``(dp, 1)`` mesh, or weights ``param_specs`` replicated) serves as a whole
+model from rank 0's copy, as the JAX package serves it.  A
 ``QuantizedMLP`` whose stack is uniform (every layer N x N, N % 128 == 0)
 and has one hidden activation runs the whole-MLP kernel
 ``fused_mlp_w8a8_forward`` (``run_fused``); any other, or any with
@@ -43,9 +46,21 @@ _DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def _is_model_sharded(w) -> bool:
-    """True when a weight is a ``parallel.mesh.Sharded`` leaf: placed on a
-    mesh, it can only serve through the mesh's forward."""
-    return hasattr(w, "shards") and hasattr(w, "spec")
+    """True when a weight is genuinely sharded (the JAX package's rule: on
+    more than one device and not fully replicated): a
+    ``parallel.mesh.Sharded`` leaf whose spec splits it over an axis of
+    more than one rank."""
+    if not (hasattr(w, "shards") and hasattr(w, "spec")):
+        return False
+    return any(a is not None and w.mesh.shape.get(a, 1) > 1 for a in w.spec)
+
+
+def _rank0_copy(model: FusedMLP) -> FusedMLP:
+    """A mesh-placed ``FusedMLP`` none of whose weights is sharded: its
+    whole copy on rank 0, which the kernels serve."""
+    return FusedMLP(tuple(w.shards[0] for w in model.weights),
+                    tuple(b.shards[0] for b in model.biases), model.acts,
+                    model.softmax_out, model.precision, model.loss_kind)
 
 
 def _bucket_of(buckets, n: int) -> int:
@@ -112,9 +127,12 @@ class Predictor:
                      and model.uniform() and len(set(model.acts[:-1])) <= 1)
         # a mesh-sharded FusedMLP (parallel.mesh.shard_fused) serves on its
         # mesh at every bucket, below xla_threshold too: the fused kernels
-        # cannot take its weights
+        # cannot take its weights; placed but with nothing sharded, it
+        # serves whole from rank 0's copy
         sharded = isinstance(model, FusedMLP) and any(
             _is_model_sharded(w) for w in model.weights)
+        if isinstance(model, FusedMLP) and model.sharded and not sharded:
+            model = _rank0_copy(model)
         self._serving = (model, be, q_uniform, sharded)
 
     @property

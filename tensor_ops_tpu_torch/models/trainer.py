@@ -75,9 +75,6 @@ class FitResult:
     history: list
     steps: int
     ema_net: Optional[Network] = None  # Polyak average (ema_decay=...)
-    # on a mesh: the spec each returned parameter trained on (its leaf's
-    # placement; ``net`` holds the gathered whole tensors)
-    specs: Optional[Tuple[tuple, ...]] = None
 
 
 @dataclass
@@ -86,8 +83,6 @@ class FitSeqResult:
     history: list
     steps: int
     ema_net: Optional[RecurrentNetwork] = None  # Polyak average
-    # on a mesh: the spec each returned state, then parameter, trained on
-    specs: Optional[Tuple[tuple, ...]] = None
 
 
 class _CheckpointWrites:
@@ -1133,13 +1128,13 @@ def _refuse(caller: str, what: str, item: str) -> None:
 def _check_later(caller: str, **later) -> None:
     """Refuse every option of the JAX package's loop ``caller`` that this
     package does not run yet, naming the ROADMAP item that will port it:
-    ``profile_dir`` (item 8) and the ``pipeline_*`` options (item 9c).
+    ``profile_dir`` (item 8) and the ``pipeline_*`` options (item 9c-2).
     None is silently ignored."""
     if later.pop("profile_dir", None):
         _refuse(caller, "profile_dir", "8")
     for name, value in later.items():
         if value is not None:
-            _refuse(caller, name, "9c")
+            _refuse(caller, name, "9c-2")
 
 
 def _normalize_zero_stage(shard_opt_state: bool, zero_stage):
@@ -1165,7 +1160,7 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
                         chain_steps) -> int:
     """The JAX package's eager checks of the mesh, ZeRO and offload options
     both loops share, and the refusals of what this package does not run
-    (a stage axis: item 9c; several processes: item 9d).  Returns the
+    (a stage axis: item 9c-2; several processes: item 9d).  Returns the
     data-axis size (1 without a mesh)."""
     if shard_opt_state and mesh is None:
         raise ValueError(
@@ -1303,21 +1298,87 @@ def _mesh_setup(leaves, specs, opt: Optional[Optimizer], mesh, be: Backend,
     return placed, opt_state, pins
 
 
-def _whole(x):
-    """A training leaf whole on one device: a :class:`Sharded` leaf on rank
-    0's (gathered by kernel 9 when sharded), anything else as it is."""
-    from ..parallel.mesh import Sharded
+def _padded_rows(x, dp: int):
+    """``x`` with zero rows appended up to a multiple of ``dp`` (the rows
+    split evenly over the data ranks), and its own row count."""
+    n = x.shape[0]
+    if n % dp:
+        x = torch.cat([x, x.new_zeros((dp - n % dp,) + tuple(x.shape[1:]))])
+    return x, n
 
-    return x.full() if isinstance(x, Sharded) else x
+
+def _mesh_evaluate(net: Network, loss: TOp, be: Backend, mesh, unshard,
+                   val, val_metric: str) -> Callable:
+    """``evaluate(state)`` of a mesh ``fit``: the validation rows through
+    the mesh's forward (``parallel.mesh.sharded_forward``: each data rank
+    its rows, on a model axis > 1 the tensor-parallel executor) on the
+    leaves as they train (a ZeRO-3 leaf gathered over the data axis at use,
+    as the step gathers it); only the outputs come to rank 0, where the
+    accuracy or the per-sample losses are taken."""
+    from ..parallel.mesh import DATA_AXIS, sharded_forward
+
+    fwd = sharded_forward(net, be, mesh)
+    xv, n = _padded_rows(be.asarray(val[0]), mesh.shape[DATA_AXIS])
+
+    def outputs(state):
+        ps = state[0] if unshard is None else unshard(state[0])
+        return fwd(xv, *ps)[:n]
+
+    if val_metric == "accuracy":
+        labels = np.asarray(val[1])
+
+        def evaluate(state):
+            a = float((outputs(state).argmax(dim=1).cpu().numpy()
+                       == labels).mean())
+            return "val_acc", a, a
+    else:
+        yv = be.asarray(val[1])
+        per_sample = torch.func.vmap(lambda o, y: loss.apply(be, (o, y))[0])
+
+        def evaluate(state):
+            v = float(per_sample(outputs(state), yv).mean())
+            return "val_loss", v, -v
+    return evaluate
 
 
-def _specs(leaves) -> Optional[tuple]:
-    """Each :class:`Sharded` leaf's spec (a mesh run's result), else None."""
-    from ..parallel.mesh import Sharded
+def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
+                       mesh, unshard, k: int, val) -> Callable:
+    """``evaluate(state)`` of a mesh ``fit_sequences``: each data rank's
+    validation sequences through the scan on its model rank 0 (on a model
+    axis > 1 the leaves all-gathered over the model group, as the step
+    runs the cell; a ZeRO-3 leaf gathered over the data axis first, as the
+    step gathers it); the per-sequence losses come to rank 0 (kernel 9's
+    ``ag`` over the data ranks) for their mean."""
+    from ..parallel.collective_kernels import ring_all_gather
+    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, _all_gather,
+                                 _rank_backend, _split_rows)
+    from .training import seq_losses
 
-    if not leaves or not isinstance(leaves[0], Sharded):
-        return None
-    return tuple(x.spec for x in leaves)
+    dp = mesh.shape[DATA_AXIS]
+    XS, n = _padded_rows(be.asarray(val[0]), dp)
+    TS, _ = _padded_rows(be.asarray(val[1]), dp)
+    groups = mesh.groups(MODEL_AXIS)
+    devs = [mesh.rank_devices[g[0]] for g in groups]
+    bes = [_rank_backend(be, d) for d in devs]
+
+    def evaluate(state):
+        ls = state[0] if unshard is None else unshard(state[0])
+        per = []
+        for d, (group, dev) in enumerate(zip(groups, devs)):
+            whole = tuple(
+                x.shards[group[0]] if x.mdim is None else
+                _all_gather([x.shards[r] for r in group], x.mdim)[0]
+                for x in ls)
+            r = RecurrentNetwork(rnet.op, whole[:k], whole[k:], rnet.arch)
+            per.append(seq_losses(r, loss, bes[d],
+                                  _split_rows(XS, dp, d, dev),
+                                  _split_rows(TS, dp, d, dev)))
+        if dp > 1:
+            per = ring_all_gather(per)
+        v = float(per[0][:n].mean())
+        return "val_loss", v, -v
+
+    return evaluate
 
 
 def _like(leaves):
@@ -1533,7 +1594,12 @@ def fit(
     segment it cannot split runs on gathered weights, with a warning), and
     each rank's mean gradient is reduced to the global mean over the data
     axis by kernel 9 (an all-reduce, scale 1/dp); every rank steps its own
-    blocks.  ``FitResult.specs`` holds each returned parameter's spec.
+    blocks.  The returned net's leaves (and ``ema_net``'s) stay
+    :class:`~tensor_ops_tpu_torch.parallel.Sharded`, each with the spec it
+    trained on (a ZeRO-3 leaf its data blocks), as the JAX package returns
+    sharded arrays: ``np.asarray`` of a leaf gathers it to the host and
+    ``save_network`` writes whole arrays.  ``val`` runs through the mesh's
+    forward (``parallel.sharded_forward``); only its outputs reach rank 0.
     ``shard_opt_state=True`` (ZeRO-1, ``zero_stage=1``) shards the
     optimizer moments over the data axis (the first free dimension dp
     divides): each rank updates its blocks and an all-gather rebuilds the
@@ -1550,7 +1616,7 @@ def fit(
     ``verbose`` a mesh run prints ``training_memory_report``'s line.
 
     ``profile_dir`` (item 8), the ``pipeline_*`` options and a mesh with a
-    stage axis (item 9c) raise ``ValueError`` naming their ROADMAP
+    stage axis (item 9c-2) raise ``ValueError`` naming their ROADMAP
     item."""
     mp_mode = _check_mp(mixed_precision, be)
     _check_later("fit", profile_dir=profile_dir,
@@ -1614,7 +1680,8 @@ def fit(
     opt_key = opt.struct_key() if opt.hyper is not None else None
 
     def as_network(ps) -> Network:
-        return Network(net.op, tuple(_whole(p) for p in ps), net.act_names)
+        # on a mesh the leaves stay Sharded, on the specs they trained on
+        return Network(net.op, tuple(ps), net.act_names)
 
     def build_step(mp_active: bool):
         return make_opt_step(net, loss, be, opt, accum_steps=accum_steps,
@@ -1736,7 +1803,10 @@ def fit(
                                zstage, mp_active, offload_opt_state))
 
         evaluate = None
-        if val is not None:
+        if val is not None and mesh is not None:
+            evaluate = _mesh_evaluate(net, loss, be, mesh,
+                                      pins["param_unshard"], val, val_metric)
+        elif val is not None:
             if val_metric == "accuracy":
                 xv, labels = be.asarray(val[0]), np.asarray(val[1])
 
@@ -1780,8 +1850,7 @@ def fit(
             chain_fn.close()
         logger.close()
     return FitResult(as_network(params), history, step,
-                     ema_net=None if ema is None else as_network(ema),
-                     specs=_specs(params))
+                     ema_net=None if ema is None else as_network(ema))
 
 
 def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
@@ -2053,7 +2122,9 @@ def fit_sequences(
     (the scan is sequential over time).  On a model axis > 1 the states
     replicate, the params take ``param_specs`` and the scan runs on the
     leaves all-gathered over the model axis at each step (one warning):
-    the cell is no ffLayer segment the tensor-parallel executor splits."""
+    the cell is no ffLayer segment the tensor-parallel executor splits.
+    The returned leaves stay ``Sharded``, and ``val`` runs on the mesh, as
+    in ``fit``."""
     mp_mode = _check_mp(mixed_precision, be)
     shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
                                                     zero_stage)
@@ -2138,7 +2209,8 @@ def fit_sequences(
     ratio = rate_state / rate_param if opt is not None else None
 
     def as_rnet(ls) -> RecurrentNetwork:
-        ls = tuple(_whole(x) for x in ls)
+        # on a mesh the leaves stay Sharded, on the specs they trained on
+        ls = tuple(ls)
         return RecurrentNetwork(rnet.op, ls[:k], ls[k:], rnet.arch)
 
     def build_step(mp_active: bool):
@@ -2268,7 +2340,10 @@ def fit_sequences(
                 return v, (ls, o, None if e is None else ema_step(e, ls))
 
         evaluate = None
-        if val is not None:
+        if val is not None and mesh is not None:
+            evaluate = _seq_mesh_evaluate(rnet, loss, be, mesh,
+                                          pins["param_unshard"], k, val)
+        elif val is not None:
             def evaluate(state):
                 v = seq_batch_loss(as_rnet(state[0]), loss, be, val[0],
                                    val[1])
@@ -2305,5 +2380,4 @@ def fit_sequences(
             chain_fn.close()
         logger.close()
     return FitSeqResult(as_rnet(leaves), history, step,
-                        ema_net=None if ema is None else as_rnet(ema),
-                        specs=_specs(leaves))
+                        ema_net=None if ema is None else as_rnet(ema))

@@ -234,7 +234,12 @@ def seq_batch_loss(rnet, loss: TOp, be: Backend, XS: Any, TS: Any) -> float:
     """Mean scan-BPTT sequence loss over ``(N, n, *in)`` sequences: the
     value-only evaluation ``fit_sequences`` uses for ``val=`` (``rnet`` is
     any RecurrentNetwork-shaped object: ``._seq_graph``, ``.states``,
-    ``.params``, ``.op``).  The sequence graph is mapped over the N
+    ``.params``, ``.op``)."""
+    return float(seq_losses(rnet, loss, be, XS, TS).mean())
+
+
+def seq_losses(rnet, loss: TOp, be: Backend, XS: Any, TS: Any):
+    """Each sequence's scan-BPTT loss: the sequence graph mapped over the N
     sequences with ``torch.func.vmap``, states and params broadcast."""
     XS, TS = be.asarray(XS), be.asarray(TS)
     n = int(XS.shape[1])
@@ -249,7 +254,7 @@ def seq_batch_loss(rnet, loss: TOp, be: Backend, XS: Any, TS: Any) -> float:
         return _vmap(single, 2, len(rnet.states) + len(rnet.params))
 
     fn = _cache(rnet, key, build)
-    return float(fn(XS, TS, *rnet.states, *rnet.params).mean())
+    return fn(XS, TS, *rnet.states, *rnet.params)
 
 
 def confusion(net: Network, be: Backend, xb: Any, yb_idx: Any,

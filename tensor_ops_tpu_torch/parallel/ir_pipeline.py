@@ -5,9 +5,10 @@ network's layer sub-graphs (:func:`network_segments`) and the row-parallel
 JAX package's names.  The tensor-parallel executor (:mod:`.tp`) runs on
 them.
 
-The rest of that module, the GPipe and circular pipelines over a ``stage``
-mesh axis and their tensor-parallel routes, is not ported yet (ROADMAP.md,
-Queue 1 item 9c).
+The rest of that module, the staged-IR pipelines over a ``stage`` mesh
+axis and their tensor-parallel routes, is not ported yet (ROADMAP.md,
+Queue 1 items 9c-2 and 9c-3; the GPipe and circular pipelines of a
+``PipelineMLP`` are :mod:`.pipeline`).
 """
 
 from __future__ import annotations

@@ -37,64 +37,118 @@ from .collective_kernels import (_canonical, ring_all_gather,
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 
 Spec = Tuple[Optional[str], ...]
 
 
 class Mesh:
-    """A 2-D ``(data, model)`` grid of torch devices: ``devices[i, j]`` is
-    data rank i, model rank j.  ``shape`` maps each axis name to its size,
-    as a JAX mesh's does.  A device may appear several times: ranks that
-    share one card run one after another on its current stream.
+    """An n-D grid of torch devices with one name per axis (``axis_names``,
+    ``(data, model)`` by default for a 2-D grid; the pipelines add a
+    ``stage`` axis: ``(stage,)``, ``(data, stage)``, ``(data, stage,
+    model)``).  ``shape`` maps each axis name to its size, as a JAX mesh's
+    does.  A device may appear several times: ranks that share one card
+    run one after another on its current stream.
 
-    Ranks are numbered in one flat order, ``r = d * tp + m`` for data rank
-    d and model rank m (the row-major order of ``devices``): a
-    :class:`Sharded` leaf's ``shards[r]`` lies on ``rank_devices[r]``."""
+    Ranks are numbered in one flat order, row-major over the axes (``r = d
+    * tp + m`` for data rank d and model rank m on a ``(data, model)``
+    grid): a :class:`Sharded` leaf's ``shards[r]`` lies on
+    ``rank_devices[r]``."""
 
-    axis_names = (DATA_AXIS, MODEL_AXIS)
-
-    def __init__(self, devices: Sequence[Sequence[torch.device]]):
-        rows = [[_canonical(torch.device(d)) for d in row] for row in devices]
-        if not rows or len({len(r) for r in rows}) != 1 or not rows[0]:
-            raise ValueError("a mesh is a non-empty 2-D grid of devices")
-        self.devices = tuple(tuple(r) for r in rows)
-        self.shape = {DATA_AXIS: len(rows), MODEL_AXIS: len(rows[0])}
+    def __init__(self, devices, axis_names: Optional[Sequence[str]] = None):
+        given = np.asarray(devices, dtype=object)
+        if given.ndim == 0 or given.size == 0 or any(
+                isinstance(d, (list, tuple)) for d in given.reshape(-1)):
+            raise ValueError("a mesh is a non-empty (rectangular) grid of "
+                             "devices")
+        grid = np.empty(given.shape, dtype=object)
+        grid.reshape(-1)[:] = [_canonical(torch.device(d))
+                               for d in given.reshape(-1)]
+        if axis_names is None:
+            if grid.ndim != 2:
+                raise ValueError(f"a {grid.ndim}-D mesh needs axis_names")
+            axis_names = (DATA_AXIS, MODEL_AXIS)
+        self.axis_names = tuple(axis_names)
+        if len(self.axis_names) != grid.ndim or len(
+                set(self.axis_names)) != grid.ndim:
+            raise ValueError(f"axis names {self.axis_names} for a "
+                             f"{grid.ndim}-D grid of devices")
+        self.devices = _tuples(grid.tolist())
+        self.shape = dict(zip(self.axis_names, grid.shape))
+        self.rank_devices = tuple(grid.reshape(-1))
+        self.size = len(self.rank_devices)
 
     @property
     def data_devices(self) -> Tuple[torch.device, ...]:
-        """The devices of the data axis (model rank 0): one per data rank."""
-        return tuple(row[0] for row in self.devices)
+        """The devices of the first data group: one per data rank."""
+        return tuple(self.rank_devices[r] for r in self.groups(DATA_AXIS)[0])
 
-    @property
-    def rank_devices(self) -> Tuple[torch.device, ...]:
-        """Every rank's device in the flat order ``r = d * tp + m``."""
-        return tuple(d for row in self.devices for d in row)
-
-    def groups(self, axis: str) -> Tuple[Tuple[int, ...], ...]:
-        """The flat ranks of each group along ``axis``: for the data axis
-        one group per model rank m (``d * tp + m`` over d), for the model
-        axis one per data rank d (``d * tp + m`` over m)."""
-        dp, tp = self.shape[DATA_AXIS], self.shape[MODEL_AXIS]
-        if axis == DATA_AXIS:
-            return tuple(tuple(d * tp + m for d in range(dp))
-                         for m in range(tp))
-        return tuple(tuple(d * tp + m for m in range(tp)) for d in range(dp))
+    def groups(self, axes) -> Tuple[Tuple[int, ...], ...]:
+        """The flat ranks of each group along ``axes`` (one axis name or
+        several): the ranks that differ only in their coordinates on those
+        axes, one group for each coordinate of the other axes (row-major),
+        each in row-major order over ``axes``.  On a ``(data, model)`` grid
+        the data axis has one group per model rank m (``d * tp + m`` over
+        d), the model axis one per data rank d (``d * tp + m`` over m).
+        An axis the mesh lacks counts as size 1."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        axes = tuple(a for a in axes if a in self.shape)
+        sizes = tuple(self.shape.values())
+        idx = np.arange(self.size).reshape(sizes)
+        inner = [self.axis_names.index(a) for a in axes]
+        outer = [i for i in range(len(sizes)) if i not in inner]
+        idx = idx.transpose(outer + inner).reshape(
+            -1, int(np.prod([sizes[i] for i in inner], dtype=np.int64)))
+        return tuple(tuple(int(r) for r in g) for g in idx)
 
     def coord(self, r: int, axis: str) -> int:
-        """Rank ``r``'s index along ``axis``."""
-        tp = self.shape[MODEL_AXIS]
-        return r // tp if axis == DATA_AXIS else r % tp
+        """Rank ``r``'s index along ``axis`` (0 for an axis the mesh
+        lacks)."""
+        if axis not in self.shape:
+            return 0
+        sizes = tuple(self.shape.values())
+        return int(np.unravel_index(r, sizes)[self.axis_names.index(axis)])
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, Mesh) and self.devices == other.devices
+        return (isinstance(other, Mesh) and self.devices == other.devices
+                and self.axis_names == other.axis_names)
 
     def __hash__(self) -> int:
-        return hash(self.devices)
+        return hash((self.devices, self.axis_names))
 
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.shape[DATA_AXIS]}, "
-                f"model={self.shape[MODEL_AXIS]}, devices="
-                f"{[[str(d) for d in r] for r in self.devices]})")
+        axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
+        return (f"Mesh({axes}, devices="
+                f"{[str(d) for d in self.rank_devices]})")
+
+
+def _tuples(x):
+    return tuple(_tuples(y) for y in x) if isinstance(x, list) else x
+
+
+def mesh_devices(devices: Optional[Sequence], need: Optional[int],
+                 what: str) -> list:
+    """The first ``need`` (default: all) of ``devices``, by default the
+    visible CUDA cards
+    (raising without one: it never falls back to the CPU).  An explicit
+    list may name a device several times (several ranks on one card) or be
+    ``["cpu"] * n``."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what}: no CUDA device is visible; pass devices=['cpu'] "
+                f"* n to place the ranks on the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = list(devices)
+    if need is None:
+        return devices
+    if len(devices) < need:
+        raise ValueError(
+            f"requested {need} devices but only {len(devices)} available "
+            f"(pass devices=[...] naming a card several times to place "
+            f"several ranks on it)")
+    return devices[:need]
 
 
 def make_mesh(n_devices: Optional[int] = None,
@@ -109,21 +163,7 @@ def make_mesh(n_devices: Optional[int] = None,
     raises (it never falls back to the CPU).  An explicit list may name a
     device several times: ``devices=["cuda:0"] * 4`` puts 4 ranks on one
     card, ``devices=["cpu"] * n`` runs the ranks on the CPU."""
-    if devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "make_mesh: no CUDA device is visible; pass devices=['cpu'] "
-                "* n to place the ranks on the CPU")
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
-    devices = list(devices)
-    if n_devices is not None:
-        if len(devices) < n_devices:
-            raise ValueError(
-                f"requested {n_devices} devices but only {len(devices)} "
-                f"available (pass devices=[...] naming a card several times "
-                f"to place several ranks on it)")
-        devices = devices[:n_devices]
+    devices = mesh_devices(devices, n_devices, "make_mesh")
     n = len(devices)
     if shape is None:
         tp = 1
@@ -145,7 +185,7 @@ def param_specs(param_stack: Sequence[Tuple[int, ...]], mesh) -> Tuple[Spec, ...
     divide by the model-axis size the other one is taken, and when neither
     does the weight is replicated with a warning.  Biases follow their
     weight's output sharding.  One entry per dimension."""
-    tp = mesh.shape[MODEL_AXIS]
+    tp = mesh.shape.get(MODEL_AXIS, 1)
     specs = []
     layer = 0
     for shape in param_stack:
@@ -194,13 +234,13 @@ def _data_dim(spec) -> Optional[int]:
 
 
 class Sharded:
-    """One leaf on a mesh: ``spec`` (one entry per dimension: ``None``,
-    ``DATA_AXIS`` or ``MODEL_AXIS``, each axis on one dimension at most)
-    and ``shards``, one tensor per rank in the mesh's flat order ``r = d *
-    tp + m`` (:attr:`Mesh.rank_devices`), on that rank's device: the rank's
-    block of each dimension the spec marks (its data rank's block of the
-    data dimension, its model rank's of the model dimension), the whole
-    extent of every other.  ``shape`` is the whole leaf's.  Nothing updates
+    """One leaf on a mesh: ``spec`` (one entry per dimension: ``None`` or
+    one of the mesh's axis names, each axis on one dimension at most) and
+    ``shards``, one tensor per rank in the mesh's flat order
+    (:attr:`Mesh.rank_devices`), on that rank's device: the rank's block of
+    each dimension the spec marks (its data rank's block of the data
+    dimension, its model rank's of the model dimension, its stage rank's
+    of the stage dimension), the whole extent of every other.  ``shape`` is the whole leaf's.  Nothing updates
     a shard in place; ``scalar * leaf`` and ``leaf + leaf`` apply shard by
     shard to leaves of one spec (the Polyak update).  ``np.asarray(leaf)``
     gathers the whole leaf to one host array."""
@@ -212,13 +252,13 @@ class Sharded:
         x0 = self.shards[0]
         self.spec = _full(spec, x0.dim())
         self.mesh = mesh
-        n = mesh.shape[DATA_AXIS] * mesh.shape[MODEL_AXIS]
+        n = mesh.size
         if len(self.shards) != n:
             raise ValueError(f"a leaf on {mesh!r} holds {n} shards, got "
                              f"{len(self.shards)}")
         if shape is None:
             shape = list(x0.shape)
-            for axis in (DATA_AXIS, MODEL_AXIS):
+            for axis in mesh.axis_names:
                 d = _axis_dim(self.spec, axis)
                 if d is not None:
                     shape[d] *= mesh.shape[axis]
@@ -233,7 +273,7 @@ class Sharded:
     def mdim(self) -> Optional[int]:
         """The dimension sharded over the model axis, when that axis is
         larger than 1 (None: whole on every model rank)."""
-        if self.mesh.shape[MODEL_AXIS] == 1:
+        if self.mesh.shape.get(MODEL_AXIS, 1) == 1:
             return None
         return _axis_dim(self.spec, MODEL_AXIS)
 
@@ -249,34 +289,53 @@ class Sharded:
         """Bytes rank ``r`` holds of this leaf."""
         return self.shards[r].numel() * self.shards[r].element_size()
 
-    def numpy(self) -> np.ndarray:
-        """The whole leaf as one host array (each shard copied to the host;
-        bf16 widened to f32, as checkpoints store it)."""
-        def host(x):
-            x = x.detach().cpu()
-            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
-
-        tp = self.mesh.shape[MODEL_AXIS]
-        rows = []
-        for d in range(self.mesh.shape[DATA_AXIS] if self.dim is not None
-                       else 1):
-            if self.mdim is None:
-                rows.append(host(self.shards[d * tp]))
+    def blocks(self):
+        """``(rank, index)`` for one rank holding each block of the leaf:
+        the first rank (coordinate 0 on every axis the spec does not
+        mark) of each block, and the slices of the whole leaf it holds."""
+        mesh = self.mesh
+        for r in range(mesh.size):
+            idx = [slice(None)] * self.ndim
+            for axis in mesh.axis_names:
+                c = mesh.coord(r, axis)
+                d = _axis_dim(self.spec, axis)
+                if d is None:
+                    if c:
+                        break
+                    continue
+                w = self.shape[d] // mesh.shape[axis]
+                idx[d] = slice(c * w, (c + 1) * w)
             else:
-                rows.append(np.concatenate(
-                    [host(self.shards[d * tp + m]) for m in range(tp)],
-                    axis=self.mdim))
-        return rows[0] if self.dim is None else np.concatenate(
-            rows, axis=self.dim)
+                yield r, tuple(idx)
+
+    def numpy(self) -> np.ndarray:
+        """The whole leaf as one host array (each block copied to the host
+        once; bf16 widened to f32, as checkpoints store it)."""
+        out = None
+        for r, idx in self.blocks():
+            x = self.shards[r].detach().cpu()
+            x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+            if out is None:
+                out = np.empty(self.shape, x.dtype)
+            out[idx] = x
+        return out
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()
         return a if dtype is None else a.astype(dtype)
 
     def full(self) -> torch.Tensor:
-        """The whole leaf on rank 0's device: rank 0's copy, or for a
-        sharded leaf an all-gather over each sharded axis's groups."""
-        return reshard(self, (None,) * self.ndim).shards[0]
+        """The whole leaf on rank 0's device, and on no other: rank 0's
+        copy when no axis shards it, else each block copied to rank 0's
+        device once (a peer copy across cards; no collective runs)."""
+        x0 = self.shards[0]
+        if all(self.mesh.shape[a] == 1 or _axis_dim(self.spec, a) is None
+               for a in self.mesh.axis_names):
+            return x0
+        out = torch.empty(self.shape, dtype=x0.dtype, device=x0.device)
+        for r, idx in self.blocks():
+            out[idx] = self.shards[r].to(x0.device)
+        return out
 
     def map(self, fn: Callable, *others) -> "Sharded":
         """``fn`` shard by shard over this leaf and ``others`` (leaves of
@@ -308,7 +367,7 @@ def place(x, spec, mesh: Mesh, dtype: Optional[torch.dtype] = None) -> Sharded:
     t = x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
     spec = _full(spec, t.dim())
     cuts = []
-    for axis in (DATA_AXIS, MODEL_AXIS):
+    for axis in mesh.axis_names:
         d, n = _axis_dim(spec, axis), mesh.shape[axis]
         if d is None:
             continue
@@ -389,7 +448,7 @@ def reshard(leaf: Sharded, spec, own: bool = False) -> Sharded:
     spec = _full(spec, leaf.ndim)
     mesh = leaf.mesh
     moves = [(axis, _axis_dim(leaf.spec, axis), _axis_dim(spec, axis))
-             for axis in (DATA_AXIS, MODEL_AXIS)]
+             for axis in mesh.axis_names]
     moves = [m for m in moves if m[1] != m[2] and mesh.shape[m[0]] > 1]
     shards, sliced = leaf.shards, False
     for axis, d_from, _ in moves:
@@ -622,17 +681,19 @@ def zero3_param_place(leaves, mesh: Mesh):
 
 def check_mesh(mesh, caller: str) -> Mesh:
     """Refuse what this package cannot train or serve on: anything but a
-    :class:`Mesh`, a pipeline (``stage``) axis (ROADMAP.md Queue 1 item
-    9c), and groups of ranks (along either axis) that are not all on the
-    CPU or all on CUDA cards with peer access between ring neighbours."""
+    :class:`Mesh`, a pipeline (``stage``) axis (the pipelines of
+    ``parallel.pipeline`` run on one; ``fit`` and the sharded entry points
+    take it with the staged-IR pipelines, ROADMAP.md Queue 1 item 9c-2),
+    and groups of ranks (along either axis) that are not all on the CPU or
+    all on CUDA cards with peer access between ring neighbours."""
     from .collective_kernels import RankGroup
 
     names = tuple(getattr(mesh, "axis_names", ()))
-    if "stage" in names:
+    if STAGE_AXIS in names:
         raise ValueError(
             f"{caller}: a mesh with a stage axis (pipeline parallelism) is "
             f"not ported to the PyTorch package yet (ROADMAP.md, Queue 1 "
-            f"item 9c)")
+            f"item 9c-2)")
     if not isinstance(mesh, Mesh):
         raise ValueError(f"{caller}: mesh must be a tensor_ops_tpu_torch "
                          f"parallel.Mesh (make_mesh), got {mesh!r}")
@@ -652,6 +713,7 @@ def shard_network(net, mesh: Mesh):
     :func:`param_specs` (as :class:`Sharded` leaves)."""
     from ..models.feedforward import Network
 
+    check_mesh(mesh, "shard_network")
     specs = param_specs(net.param_stack, mesh)
     return Network(net.op, tuple(place(p, s, mesh)
                                  for p, s in zip(net.params, specs)),

@@ -8,12 +8,11 @@ save; bf16 tensors are written as float32 (numpy has no bf16, and the
 widening is exact).
 
 This module carries the feed-forward, recurrent, ``FusedMLP``,
-``QuantizedMLP`` and ``FusedAutoencoder`` formats, and the train-state
+``QuantizedMLP``, ``FusedAutoencoder`` and ``PipelineMLP`` formats, and the train-state
 format that ``fit`` and ``fit_sequences`` write beside their servable
 checkpoints (parameters, optimizer state, the Polyak average and the global
 step: a ``.state`` file of either package resumes in the other), with asynchronous saves for the training loop; int8
-codes stay int8 in the file.  Pipeline checkpoints come with their models
-(ROADMAP.md, Queue 1).  Loaders place the model on the card unless the
+codes stay int8 in the file.  Loaders place the model on the card unless the
 caller names another device.
 """
 
@@ -385,6 +384,29 @@ def _quantized_from_arrays(arrays, meta, device="cuda"):
 def load_quantized(path: str, device="cuda"):
     arrays, meta = load_arrays(path)
     return _quantized_from_arrays(arrays, meta, device)
+
+
+def save_pipeline(path: str, model, extra_meta: Optional[dict] = None) -> None:
+    """Save a ``PipelineMLP`` (the JAX package's format: its six arrays,
+    whole; a leaf sharded on a mesh is gathered to the host)."""
+    arrays = {
+        "w_in": model.w_in, "b_in": model.b_in,
+        "stage_ws": model.stage_ws, "stage_bs": model.stage_bs,
+        "w_out": model.w_out, "b_out": model.b_out,
+    }
+    meta = {"kind": "pipeline_mlp"}
+    meta.update(extra_meta or {})
+    save_arrays(path, arrays, meta)
+
+
+def load_pipeline(path: str, device="cuda"):
+    """A ``PipelineMLP`` saved by either package, on ``device``."""
+    from ..parallel.pipeline import PipelineMLP
+
+    arrays, _ = load_arrays(path)
+    return PipelineMLP.from_arrays(
+        *(arrays[k] for k in ("w_in", "b_in", "stage_ws", "stage_bs",
+                              "w_out", "b_out")), device=device)
 
 
 def _recurrent_payload(net, extra_meta: Optional[dict]) -> Tuple[dict, dict]:

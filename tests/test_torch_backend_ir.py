@@ -128,6 +128,13 @@ def test_map_rows(tb, jb, k):
     got, want = both(tb, jb, lambda be, a: be.map_rows(
         k, lambda row: row * row.sum(), a(t)))
     close(got, want)
+    # tests/test_prims_direct.py's parity case, on the port's NumPy oracle
+    # too
+    t = np.random.default_rng(2).normal(size=(5, 3))
+    f = lambda row: row - row.mean()  # noqa: E731
+    want = jb.map_rows(1, f, jb.asarray(t))
+    for be in (tb, TT.NumpyBackend()):
+        close(be.map_rows(1, f, be.asarray(t)), want, 1e-12)
 
 
 def test_map_rows_empty_leading_axis(tb):
@@ -145,6 +152,17 @@ def test_generate_ix_rows_index(tb, jb):
     close(got, want)
     got, want = both(tb, jb, lambda be, a: be.index(a(t), (2, 1)))
     close(got, want)
+    # tests/test_prims_direct.py's parity cases, on the port's NumPy
+    # oracle too
+    t = np.random.default_rng(0).normal(size=(4, 2, 3))
+    f = lambda idx, row: row * row + idx[0] - idx[1]  # noqa: E731
+    t5 = np.random.default_rng(1).normal(size=(3, 5))
+    for be in (tb, TT.NumpyBackend()):
+        close(be.ix_rows(2, f, be.asarray(t)),
+              jb.ix_rows(2, f, jb.asarray(t)), 1e-12)
+        for idx in [(0, 0), (2, 4), (1, 3)]:
+            close(be.index(be.asarray(t5), idx),
+                  jb.index(jb.asarray(t5), idx), 1e-12)
 
 
 DISTS = [

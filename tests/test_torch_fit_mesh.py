@@ -86,6 +86,20 @@ def host(a):
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+@pytest.fixture(scope="module")
+def runs():
+    """The runs several cases read, each made once per module
+    (:func:`shared`)."""
+    return {}
+
+
+def shared(runs, key, make):
+    """``runs[key]``, made by ``make()`` the first time a case asks."""
+    if key not in runs:
+        runs[key] = make()
+    return runs[key]
+
+
 def same_runs(got, want, atol=ATOL):
     assert len(got.history) == len(want.history) > 0
     for g, w in zip(got.history, want.history):
@@ -253,22 +267,26 @@ def _placed(stage, opt, dp=4, widths=SMALL, seed=2):
     return net, mesh, params, state, pins
 
 
+def _three_steps(z, accum):
+    X, Y = data(n=32)
+    net, mesh, params, state, pins = _placed(z, TO.adam())
+    step = make_opt_step(net, t_xent(4), TB, TO.adam(), mesh=mesh,
+                         accum_steps=accum, **pins)
+    xb, yb = TB.asarray(X), TB.asarray(Y)
+    for _ in range(3):
+        v, state, params = step(0.05, xb, yb, state, params)
+    return v, state, params
+
+
 @pytest.mark.parametrize("stage,accum", [(2, 1), (2, 2), (3, 1), (3, 2)])
-def test_opt_step_zero23_equals_replicated(stage, accum):
+def test_opt_step_zero23_equals_replicated(runs, stage, accum):
     """Three steps of make_opt_step at ZeRO-2/3 (with and without
     accumulation) equal the replicated steps at 1e-9; the moments keep
-    their data specs, ZeRO-3 params their blocks."""
-    X, Y = data(n=32)
-    runs = []
-    for z in (stage, 0):
-        net, mesh, params, state, pins = _placed(z, TO.adam())
-        step = make_opt_step(net, t_xent(4), TB, TO.adam(), mesh=mesh,
-                             accum_steps=accum, **pins)
-        xb, yb = TB.asarray(X), TB.asarray(Y)
-        for _ in range(3):
-            v, state, params = step(0.05, xb, yb, state, params)
-        runs.append((v, state, params))
-    (v_z, s_z, p_z), (v_r, _, p_r) = runs
+    their data specs, ZeRO-3 params their blocks.  The replicated steps of
+    each ``accum`` are shared by the two stages."""
+    v_z, s_z, p_z = _three_steps(stage, accum)
+    v_r, _, p_r = shared(runs, ("steps", accum),
+                         lambda: _three_steps(0, accum))
     assert abs(float(v_z) - float(v_r)) < ATOL
     for a, b in zip(p_z, p_r):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=ATOL,
@@ -278,18 +296,20 @@ def test_opt_step_zero23_equals_replicated(stage, accum):
 
 
 @pytest.mark.parametrize("stage", [2, 3])
-def test_fit_zero23_equals_jax_replicated_and_zero1(tmp_path, stage):
+def test_fit_zero23_equals_jax_replicated_and_zero1(runs, tmp_path, stage):
     """zero_stage 2 and 3 on the mesh equal the JAX runs at the same stage
     (moments and all), the replicated run and ZeRO-1 at 1e-9; ZeRO-3 with
-    EMA and clip as well."""
+    EMA and clip as well.  The replicated and ZeRO-1 runs are shared by
+    the two stages."""
     t_z, _ = both(tmp_path, opt=("adam", {}), zero_stage=stage,
                   ema_decay=0.9, clip_norm=0.5)
     X, Y = data()
     kw = dict(epochs=2, batch_size=16, lr=0.05, verbose=False, log_every=1,
               mesh=tmesh(4), ema_decay=0.9, clip_norm=0.5)
     for z in (0, 1):
-        other = t_fit(tnet(jnet(seed=3)), t_xent(4), TB, X, Y,
-                      optimizer=TO.adam(), zero_stage=z, **kw)
+        other = shared(runs, ("ema clip", z), lambda: t_fit(
+            tnet(jnet(seed=3)), t_xent(4), TB, X, Y, optimizer=TO.adam(),
+            zero_stage=z, **kw))
         same_runs(t_z, other)
 
 

@@ -490,11 +490,11 @@ def _cpu_mesh(n, shape=None):
     return make_mesh(n, shape=shape, devices=["cpu"] * n)
 
 
-class _StageMesh:
-    """A stand-in for the JAX package's pipeline mesh: a stage axis."""
+def _StageMesh():
+    """A pipeline mesh: a stage axis (``parallel.pipeline``)."""
+    from tensor_ops_tpu_torch.parallel.pipeline import make_3d_pipeline_mesh
 
-    axis_names = ("stage", "data", "model")
-    shape = {"stage": 2, "data": 1, "model": 1}
+    return make_3d_pipeline_mesh(1, 2, 1, devices=["cpu"] * 2)
 
 
 # what the mesh slice still refuses (naming its ROADMAP item) and the JAX
@@ -527,7 +527,8 @@ def test_unported_options_raise(kw, item):
             res = t_fit_seq(trnet(TB, jrnet(JNB, 4, 0)), t_sq(1), TB, XS, TS,
                             verbose=False, batch_size=4, epochs=3,
                             log_every=1, **kw)
-        assert res.steps == 6 and res.specs is not None
+        assert res.steps == 6 and all(hasattr(x, "spec") for x in
+                                      res.net.states + res.net.params)
         assert all(np.isfinite(h["loss"]) for h in res.history)
         return
     with pytest.raises(ValueError, match=item):

@@ -175,10 +175,11 @@ def test_fit_make_mesh_8_flagship_matches_jax_and_single(flagship):
                    verbose=False)
     assert len(single.history) > 3
     same_runs(t, single)
-    assert t.specs[0] == ("model", None) and t.specs[1] == ("model",)
-    assert t.specs[2] == (None, "model") and t.specs[4] == (None, "model")
-    assert t.specs == tuple(jspec(p, len(s)) for p, s in
-                            zip(j.net.params, t.specs))
+    specs = tuple(p.spec for p in t.net.params)
+    assert specs[0] == ("model", None) and specs[1] == ("model",)
+    assert specs[2] == (None, "model") and specs[4] == (None, "model")
+    assert specs == tuple(jspec(p, len(s)) for p, s in
+                          zip(j.net.params, specs))
 
 
 def test_fit_make_mesh_8_adam_and_clip(tmp_path):
@@ -219,8 +220,9 @@ def test_zero_ladder_at_4x2_matches_jax(ladder, stage):
     same_states(tpath, jpath)
     same_runs(t, j)
     same_runs(t, jruns[0][0])
-    assert t.specs[0][0] == "model" and t.specs[2][1] == "model"
-    assert ("data" in t.specs[0]) == (stage == 3)
+    specs = tuple(p.spec for p in t.net.params)
+    assert specs[0][0] == "model" and specs[2][1] == "model"
+    assert ("data" in specs[0]) == (stage == 3)
 
 
 @pytest.mark.parametrize("zstage", [0, 3])
@@ -289,7 +291,7 @@ def test_zero_on_1x8_warns_and_trains():
                         mesh=tmesh((1, 8)), verbose=False, log_every=1, **kw)
         assert any(what in str(x.message) for x in w)
         assert all(np.isfinite(h["loss"]) for h in res.history)
-        assert res.specs[0] == ("model", None)
+        assert res.net.params[0].spec == ("model", None)
 
 
 def _jax_placed(stage, opt, shape, widths=SMALL):
@@ -419,7 +421,7 @@ def test_state_files_at_4x2_pass_between_packages(tmp_path, writer):
     for a, b in zip(resumed.ema_net.params, straight.ema_net.params):
         np.testing.assert_allclose(host(a), host(b), atol=ATOL, rtol=0)
     t = resumed if reader == "port" else straight
-    assert t.specs[0] == ("model", "data")
+    assert t.net.params[0].spec == ("model", "data")
 
 
 def test_mixed_precision_on_2x2(tmp_path):
@@ -455,3 +457,69 @@ def test_fit_verbose_prints_memory_line_at_4x2(capsys):
           verbose=True, log_every=100)
     out = capsys.readouterr().out
     assert "training state/device:" in out and "(zero1)" in out
+
+
+def _ag_shapes(fn):
+    """``fn()`` with the per-rank input shape of each kernel-9 all-gather
+    of more than one rank recorded."""
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+
+    seen, real = [], CK._collective
+
+    def spy(xs, phase, *a, **k):
+        if phase == "ag" and len(xs) > 1:
+            seen.append(tuple(xs[0].shape))
+        return real(xs, phase, *a, **k)
+
+    CK._collective = spy
+    try:
+        return fn(), seen
+    finally:
+        CK._collective = real
+
+
+@pytest.mark.parametrize("metric", ["accuracy", "loss"])
+def test_fit_1x4_returns_sharded_leaves_and_validates_on_the_mesh(metric):
+    """A ``(1, 4)`` fit with ``val`` returns its trained leaves Sharded on
+    their specs, each rank holding its block of the JAX run's array (the
+    JAX fit returns sharded arrays); the validation runs through the
+    mesh's forward: no all-gather of a leaf's blocks (only of activation
+    blocks, 24 validation rows against batches of 8) and no gather onto
+    one rank; losses and ``val_*`` equal the JAX run's at 1e-9."""
+    X, Y = data(n=32)
+    r = np.random.default_rng(9)
+    Xv = r.uniform(0, 1, size=(24, 16))
+    yv = (r.integers(0, 4, size=24) if metric == "accuracy"
+          else np.eye(4)[r.integers(0, 4, size=24)])
+    kw = dict(epochs=1, batch_size=8, lr=0.1, log_every=2, verbose=False,
+              val=(Xv, yv), val_metric=metric)
+    j = j_fit(jnet(seed=4), j_xent(4), JB, X, Y, mesh=jmesh((1, 4)), **kw)
+    full_calls = []
+    real_full = TM.Sharded.full
+    TM.Sharded.full = lambda self: full_calls.append(self) or real_full(self)
+    try:
+        t, shapes = _ag_shapes(lambda: t_fit(
+            tnet(jnet(seed=4)), t_xent(4), TB, X, Y, mesh=tmesh((1, 4)),
+            **kw))
+    finally:
+        TM.Sharded.full = real_full
+    key = "val_acc" if metric == "accuracy" else "val_loss"
+    assert len(t.history) == len(j.history) == 3
+    for g, w in zip(t.history, j.history):
+        assert abs(g["loss"] - w["loss"]) <= ATOL
+        assert abs(g[key] - w[key]) <= ATOL, (g, w)
+    mesh = t.net.params[0].mesh
+    for p, q in zip(t.net.params, j.net.params):
+        assert isinstance(p, TM.Sharded) and p.spec == jspec(q, p.ndim)
+        for r_, idx in p.blocks():
+            np.testing.assert_allclose(p.shards[r_].numpy(),
+                                       np.asarray(q)[idx], atol=ATOL, rtol=0)
+        if p.mdim is not None:
+            assert {tuple(x.shape) for x in p.shards} == {
+                tuple(s // 4 if i == p.mdim else s
+                      for i, s in enumerate(p.shape))}
+    leaf_blocks = {tuple(x.shape) for p in t.net.params for x in p.shards}
+    assert shapes and not leaf_blocks & set(shapes), shapes
+    # activation blocks, the feature axis moved to the front: (h/tp, rows)
+    assert all({8, 24} & set(s) for s in shapes), set(shapes)
+    assert not full_calls and mesh.shape == {"data": 1, "model": 4}

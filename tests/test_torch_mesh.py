@@ -60,6 +60,14 @@ def tnet(jn, widths=FLAGSHIP):
                                   for p in jn.params), tmpl.act_names)
 
 
+@pytest.fixture(scope="module")
+def flagship():
+    """The flagship built once by the JAX package (seed 0) and its copy in
+    the port, shared by the cases that read them (none changes them)."""
+    jn = jnet()
+    return jn, tnet(jn)
+
+
 def tmesh(dp, tp=1):
     return TM.make_mesh(dp * tp, shape=(dp, tp), devices=["cpu"] * (dp * tp))
 
@@ -122,11 +130,11 @@ def test_param_specs_warn_when_nothing_divides():
     assert any("no dim divisible" in str(x.message) for x in w)
 
 
-def _jax_placed(stage, opt, dp, widths):
-    """The JAX package's placement of ``fit``'s mesh branch at ``stage``:
-    the params (ZeRO-3: data-extended) and the optimizer state."""
+def _jax_placed(stage, opt, dp, net):
+    """The JAX package's placement of ``fit``'s mesh branch at ``stage`` of
+    the JAX network ``net``: the params (ZeRO-3: data-extended) and the
+    optimizer state."""
     mesh = JM.make_mesh(dp, shape=(dp, 1))
-    net = jnet(widths)
     specs = JM.param_specs(net.param_stack, mesh)
     params = tuple(jax.device_put(p, NamedSharding(mesh, s))
                    for p, s in zip(net.params, specs))
@@ -145,7 +153,7 @@ def _jax_placed(stage, opt, dp, widths):
 @pytest.mark.parametrize("dp", [4, 8])
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 @pytest.mark.parametrize("opt", ["adam", "momentum", "adam8bit"])
-def test_zero_specs_match_jax_leaf_by_leaf(opt, stage, dp):
+def test_zero_specs_match_jax_leaf_by_leaf(flagship, opt, stage, dp):
     """Every param and optimizer-state leaf the port places for ``fit`` on a
     (dp, 1) mesh at each ZeRO stage holds the JAX package's spec, adam8bit's
     ``(n_blocks, block)`` codes and ``(n_blocks, 1)`` scales included (at
@@ -157,9 +165,9 @@ def test_zero_specs_match_jax_leaf_by_leaf(opt, stage, dp):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         j_params, j_state = _jax_placed(stage, getattr(JO, opt)(), dp,
-                                        FLAGSHIP)
+                                        flagship[0])
         mesh = tmesh(dp)
-        net = tnet(jnet())
+        net = flagship[1]
         params, state, pins = _mesh_setup(
             net.params, TM.param_specs(net.param_stack, mesh),
             getattr(TO, opt)(), mesh, TB, stage)
@@ -178,8 +186,9 @@ def test_zero_specs_match_jax_leaf_by_leaf(opt, stage, dp):
         want = JM.zero2_grad_shardings(j_params if stage < 3 else tuple(
             jax.device_put(np.asarray(p), NamedSharding(
                 JM.make_mesh(dp, shape=(dp, 1)), s)) for p, s in zip(
-                jnet().params, JM.param_specs(
-                    jnet().param_stack, JM.make_mesh(dp, shape=(dp, 1))))),
+                flagship[0].params, JM.param_specs(
+                    flagship[0].param_stack,
+                    JM.make_mesh(dp, shape=(dp, 1))))),
             JM.make_mesh(dp, shape=(dp, 1)))
         got = pins["grad_constrain"].specs
         assert got == tuple(None if w is None else jspec(w, len(p.shape))
@@ -221,7 +230,7 @@ def _bytes(x) -> int:
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 @pytest.mark.parametrize("opt", ["adam", "momentum", "adam8bit"])
-def test_memory_report_against_jax_leaf_by_leaf(opt, stage):
+def test_memory_report_against_jax_leaf_by_leaf(flagship, opt, stage):
     """training_memory_report on the flagship at (4, 1), leaf by leaf: each
     leaf's params, gradient and moment bytes in the port's placement equal
     the JAX package's placement (its shards on one device), and equal the
@@ -234,7 +243,7 @@ def test_memory_report_against_jax_leaf_by_leaf(opt, stage):
 
     dp = 4
     mesh = tmesh(dp)
-    net = tnet(jnet())
+    jn, net = flagship
     stack = [tuple(s) for s in net.param_stack]
     j_opt = getattr(JO, opt)()
     with warnings.catch_warnings():
@@ -242,11 +251,10 @@ def test_memory_report_against_jax_leaf_by_leaf(opt, stage):
         params, state, pins = _mesh_setup(
             net.params, TM.param_specs(net.param_stack, mesh),
             getattr(TO, opt)(), mesh, TB, stage)
-        j_params, j_state = _jax_placed(stage, j_opt, dp, FLAGSHIP)
+        j_params, j_state = _jax_placed(stage, j_opt, dp, jn)
         if j_state is None:
-            j_state = _jax_placed(1, j_opt, dp, FLAGSHIP)[1]
-        j_grads = _jax_placed(3 if stage >= 2 else 0, j_opt, dp,
-                              FLAGSHIP)[0]
+            j_state = _jax_placed(1, j_opt, dp, jn)[1]
+        j_grads = _jax_placed(3 if stage >= 2 else 0, j_opt, dp, jn)[0]
         j_rows = [_j_leaf_rows(s, j_opt, stage, dp) for s in stack]
     gspecs = (pins["grad_constrain"].specs if pins["grad_constrain"]
               else (None,) * len(params))
@@ -290,7 +298,7 @@ def test_memory_report_against_jax_leaf_by_leaf(opt, stage):
             rep["optimizer_bytes"]) == (totals["params"], totals["grads"],
                                         totals["moments"])
     # the lone-leaf decomposition is the JAX package's whole report
-    j_whole = JP_report(jnet(), optimizer=j_opt, batch_size=0,
+    j_whole = JP_report(jn, optimizer=j_opt, batch_size=0,
                         mesh=JM.make_mesh(dp, shape=(dp, 1)),
                         zero_stage=stage)["per_device"]
     for key in ("params_bytes", "grads_bytes", "optimizer_bytes"):
@@ -446,7 +454,7 @@ def test_model_axis_and_foreign_meshes_are_refused():
     """A model axis, refused before it was ported, now runs in every entry
     point that trains or serves on a mesh: sharded_train_step and
     sharded_forward on (2, 2) equal one device.  A mesh that is not the
-    port's, and one with a stage axis (ROADMAP.md Queue 1 item 9c), are
+    port's, and one with a stage axis (ROADMAP.md Queue 1 item 9c-2), are
     refused."""
     from tensor_ops_tpu_torch.models.training import (batched_run,
                                                       make_mean_grads)
@@ -466,12 +474,51 @@ def test_model_axis_and_foreign_meshes_are_refused():
     np.testing.assert_allclose(y.numpy(), batched_run(tn, TB)(
         X, *tn.params).numpy(), atol=ATOL, rtol=0)
 
-    class StageMesh:
-        axis_names = ("stage", "data", "model")
+    from tensor_ops_tpu_torch.parallel.pipeline import make_3d_pipeline_mesh
 
+    stage_mesh = make_3d_pipeline_mesh(1, 2, 1, devices=["cpu"] * 2)
+    from tensor_ops_tpu_torch.models import FusedMLP
+
+    fm = FusedMLP.from_network(tn)
     for fn in (lambda m: TM.sharded_train_step(tn, t_xent(4), TB, m),
-               lambda m: TM.sharded_forward(tn, TB, m)):
-        with pytest.raises(ValueError, match="Queue 1 item 9c"):
-            fn(StageMesh())
+               lambda m: TM.sharded_forward(tn, TB, m),
+               lambda m: TM.shard_network(tn, m),
+               lambda m: TM.shard_fused(fm, m)):
+        with pytest.raises(ValueError, match="Queue 1 item 9c-2"):
+            fn(stage_mesh)
         with pytest.raises(ValueError, match="parallel.Mesh"):
             fn(JM.make_mesh(4, shape=(4, 1)))
+
+
+@pytest.mark.parametrize("spec", [("data", "model"), ("model", None),
+                                  (None, "data"), (None, None)])
+def test_full_gathers_onto_rank_0_only_and_sharded_nets_save(tmp_path, spec):
+    """``Sharded.full()`` copies each block to rank 0's device once (no
+    kernel-9 call, no copy on any other rank); ``np.asarray`` of a leaf
+    and ``save_network`` of a net of Sharded leaves write whole arrays,
+    which the JAX package's loader reads back."""
+    from tensor_ops_tpu.utils import checkpoint as JCK
+    from tensor_ops_tpu_torch.utils import checkpoint as TCK
+
+    r = np.random.default_rng(3)
+    whole = r.normal(size=(4, 6))
+    leaf = TM.place(whole, spec, tmesh(2, 2))
+    calls = []
+    real = CK._collective
+    CK._collective = lambda xs, *a, **k: calls.append(a) or real(xs, *a, **k)
+    try:
+        got = leaf.full()
+    finally:
+        CK._collective = real
+    assert not calls and got.device == leaf.shards[0].device
+    np.testing.assert_array_equal(got.numpy(), whole)
+    np.testing.assert_array_equal(np.asarray(leaf), whole)
+
+    jn = jnet(SMALL)
+    tn = tnet(jn, SMALL)
+    sharded = TM.shard_network(tn, tmesh(2, 2))
+    p = str(tmp_path / "net.npz")
+    TCK.save_network(p, sharded)
+    back = JCK.load_network(p, jn, JB)
+    for a, b in zip(back.params, tn.params):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())

@@ -5,9 +5,12 @@ app and the autoencoder) and ``fit_sequences`` paths (with ``adam8bit``,
 EMA, accumulation and both examples' entry points), chained steps (host
 and device shuffles, both loops), a ``mixed_precision`` bf16 step and a
 2-rank CPU mesh ``fit`` (ZeRO-3, offload, EMA), a tensor-parallel ``fit``
-on a ``(1, 2)`` mesh and ``shard_fused`` serving run end to end, in a fresh
-interpreter where ``import jax`` fails; ``parallel/tp.py`` and
-``parallel/ir_pipeline.py`` import on their own there."""
+on a ``(1, 2)`` mesh, ``shard_fused`` serving, the IR layer's
+introspection, tensor helpers and gradient checkers, a ``(2,)`` GPipe step
+and a ``PipelineMLP`` checkpoint run end to end, in a fresh interpreter
+where ``import jax`` fails; ``parallel/tp.py``, ``parallel/ir_pipeline.py``,
+``parallel/pipeline.py``, ``ops/introspect.py``, ``tensor.py`` and
+``testing.py`` import on their own there."""
 
 import os
 import re
@@ -235,10 +238,37 @@ assert len(pip.network_segments(net2m)) == 2
 m12 = pmesh.make_mesh(2, devices=["cpu"] * 2)
 rt = fit(net2m, cross_entropy(4), be, Xm, Ym, batch_size=8, optimizer=adam(),
          mesh=m12, clip_norm=1.0, verbose=False)
-assert rt.specs[0] == ("model", None) and rt.steps == 2
+assert rt.net.params[0].spec == ("model", None) and rt.steps == 2
 sp = Predictor(pmesh.shard_fused(FusedMLP.from_network(net2m), m12),
                buckets=(4,))
 assert sp._sharded and sp.predict(Xm[:3]).shape == (3, 4)
+# the rest of the IR layer and the pipelines: introspection, the tensor
+# helpers, the gradient checkers, a (2,) GPipe step and a PipelineMLP's
+# save and load
+import tensor_ops_tpu_torch.ops.introspect as intro
+import tensor_ops_tpu_torch.parallel.pipeline as pipe
+import tensor_ops_tpu_torch.tensor as tens
+import tensor_ops_tpu_torch.testing as testing
+from tensor_ops_tpu_torch.utils.checkpoint import load_pipeline, save_pipeline
+assert intro.graph_stats(net.op)["nodes"] == intro.describe(net.op).count(
+    "\n") + 1
+assert tens.arg_max(be, tens.one_hot(be, 1.0, 0.0, 2, 4)) == 2
+testing.check_grads_vs_autograd(TT.prim.duplicate((3,)) >> TT.prim.dot(3),
+                                be, (np.ones(3),))
+pm = pipe.make_pipeline_mesh(2, devices=["cpu"] * 2)
+pmodel = pipe.shard_pipeline_model(pipe.PipelineMLP.init(
+    4, 8, 2, 2, 1, torch.Generator().manual_seed(0), device="cpu"), pm)
+xp = torch.rand(8, 4, generator=torch.Generator().manual_seed(1))
+yp = torch.eye(2)[torch.arange(8) % 2]
+lp, newp = pipe.pipeline_train_step(pmodel, pm, 2)(0.5, xp, yp,
+                                                   *pmodel.params())
+assert np.isfinite(float(lp)) and newp[2].spec[0] == "stage"
+with tempfile.TemporaryDirectory() as d:
+    ck = os.path.join(d, "pipe.npz")
+    save_pipeline(ck, pmodel.replace_params(newp))
+    back = load_pipeline(ck, device="cpu")
+    assert all(np.array_equal(np.asarray(a), np.asarray(b))
+               for a, b in zip(back.params(), newp))
 assert sys.modules["jax"] is None
 print("NAMES", len(names))
 """

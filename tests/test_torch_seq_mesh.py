@@ -77,6 +77,20 @@ def host(a):
     return a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
+@pytest.fixture(scope="module")
+def runs():
+    """The runs several cases read, each made once per module
+    (:func:`shared`)."""
+    return {}
+
+
+def shared(runs, key, make):
+    """``runs[key]``, made by ``make()`` the first time a case asks."""
+    if key not in runs:
+        runs[key] = make()
+    return runs[key]
+
+
 def same_runs(got, want, atol=ATOL):
     assert len(got.history) == len(want.history) > 0
     for g, w in zip(got.history, want.history):
@@ -162,12 +176,12 @@ def test_fit_sequences_mesh_validation():
         t_fit_seq(trnet(jrnet()), t_sq(1), TB, XS, TS, batch_size=15,
                   mesh=tmesh(), verbose=False)
 
-    class StageMesh:
-        axis_names = ("stage",)
+    from tensor_ops_tpu_torch.parallel.pipeline import make_pipeline_mesh
 
     with pytest.raises(ValueError, match="pipeline"):
         t_fit_seq(trnet(jrnet()), t_sq(1), TB, XS, TS, batch_size=16,
-                  mesh=StageMesh(), verbose=False)
+                  mesh=make_pipeline_mesh(2, devices=["cpu"] * 2),
+                  verbose=False)
     with pytest.raises(ValueError, match="stateless"):
         t_fit_seq(trnet(jrnet()), t_sq(1), TB, XS, TS, batch_size=16,
                   mesh=tmesh(), shard_opt_state=True, verbose=False)
@@ -192,18 +206,20 @@ def test_fit_sequences_mesh_accum_and_mixed():
 
 
 @pytest.mark.parametrize("stage", [1, 2, 3])
-def test_fit_sequences_zero_ladder(tmp_path, stage):
+def test_fit_sequences_zero_ladder(runs, tmp_path, stage):
     """ZeRO over the joint states + params (test_zero1.py:216,
     test_zero2.py:219, test_zero3.py:243 at (4, 1)): each stage equals the
     JAX run at that stage (moments and all) and the replicated run at
-    1e-9; at stage 3 with EMA."""
+    1e-9; at stage 3 with EMA.  Stages 1 and 2 share their replicated
+    run."""
     XS, TS = seq_data(n_seq=16, n=8, seed=8)
     kw = dict(epochs=2, batch_size=8, rate_param=0.05, rate_state=0.01,
               ema_decay=0.9 if stage == 3 else None)
     t_z, _ = both(tmp_path, seed=7, XS=XS, TS=TS, opt="adam",
                   zero_stage=stage, **kw)
-    rep = t_fit_seq(trnet(jrnet(7)), t_sq(1), TB, XS, TS, mesh=tmesh(),
-                    optimizer=TO.adam(), log_every=1, verbose=False, **kw)
+    rep = shared(runs, ("replicated", kw["ema_decay"]), lambda: t_fit_seq(
+        trnet(jrnet(7)), t_sq(1), TB, XS, TS, mesh=tmesh(),
+        optimizer=TO.adam(), log_every=1, verbose=False, **kw))
     same_runs(t_z, rep)
 
 

@@ -108,9 +108,10 @@ def test_fit_sequences_make_mesh_8_matches_jax_and_single(dual_rate):
     same_runs(t, single)
     same_runs(t, j)
     k = len(t.net.states)
-    assert t.specs[k] == ("model", None)
+    specs = tuple(x.spec for x in t.net.states + t.net.params)
+    assert specs[k] == ("model", None)
     assert tuple(j.net.params[0].sharding.spec) == ("model", None)
-    assert all(s == (None,) * len(s) for s in t.specs[:k])
+    assert all(s == (None,) * len(s) for s in specs[:k])
 
 
 def test_fit_sequences_cell_runs_gathered_with_one_warning(dual_rate):
@@ -170,4 +171,26 @@ def test_fit_sequences_make_mesh_8_accum_and_mixed():
     same_runs(accum, plain)
     assert all(np.isfinite(h["loss"]) for h in mp.history)
     assert mp.net.params[0].dtype == torch.float64
-    assert mp.specs[len(mp.net.states)] == ("model", None)
+    assert mp.net.params[0].spec == ("model", None)
+
+
+def test_fit_sequences_val_on_a_2x2_mesh_matches_jax():
+    """``val`` of a mesh ``fit_sequences`` runs on the mesh (each data rank
+    its sequences, the per-sequence losses gathered to rank 0) and equals
+    the JAX run's ``val_loss``; the returned leaves stay Sharded."""
+    XS, TS = seq_data()
+    XV, TV = seq_data(n_seq=9, seed=8)  # 9 rows: padded to 10 over dp 2
+    kw = dict(batch_size=16, rate_state=0.01, rate_param=0.1, epochs=2,
+              log_every=1, verbose=False, val=(XV, TV))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        j = j_fit_seq(jrnet(), j_sq(1), JB, XS, TS,
+                      mesh=j_make_mesh(4, shape=(2, 2)), **kw)
+        t = t_fit_seq(trnet(), t_sq(1), TB, XS, TS,
+                      mesh=t_make_mesh(4, shape=(2, 2),
+                                       devices=["cpu"] * 4), **kw)
+    assert len(t.history) == len(j.history) > 2
+    for g, w in zip(t.history, j.history):
+        assert abs(g["loss"] - w["loss"]) <= ATOL
+        assert abs(g["val_loss"] - w["val_loss"]) <= ATOL, (g, w)
+    assert all(hasattr(x, "spec") for x in t.net.states + t.net.params)

@@ -84,7 +84,8 @@ def whole(leaf_like, blocks, mesh):
 def test_local_segments_match_jax_split(widths, tp):
     """network_segments and the row-parallel split give the JAX package's
     segments, local stacks and suffixes, and the local segment and suffix
-    compute the JAX ones' values on the same inputs."""
+    compute the JAX ones' values on the same inputs (to 1e-12 absolute or
+    relative: a few ulps of f64, whose last bits the host's libm sets)."""
     jn = jnet(widths)
     tn = tnet(jn, widths)
     j_segs = JIP.network_segments(jn)
@@ -107,14 +108,14 @@ def test_local_segments_match_jax_split(widths, tp):
         np.testing.assert_allclose(
             tl.apply(TB, tuple(TB.asarray(x) for x in xs))[0].numpy(),
             np.asarray(jl.apply(JB, tuple(jnp.asarray(x) for x in xs))[0]),
-            atol=1e-12, rtol=0)
+            atol=1e-12, rtol=1e-12)
         if tsuf is not None:
             assert tsuf.in_stack == jsuf.in_stack
             z = r.normal(size=tsuf.in_stack[0])
             np.testing.assert_allclose(
                 tsuf.apply(TB, (TB.asarray(z),))[0].numpy(),
                 np.asarray(jsuf.apply(JB, (jnp.asarray(z),))[0]),
-                atol=1e-12, rtol=0)
+                atol=1e-12, rtol=1e-12)
 
 
 def test_flagship_plan_changes_layout_with_tp():
@@ -362,3 +363,45 @@ def test_bf16_executor_trains_close_to_f32():
         got = whole(p, [g[m][i].double() for m in range(2)], mesh)
         scale = np.abs(g0[i].numpy()).max()
         assert np.abs(got - g0[i].numpy()).max() < 5e-2 * scale
+
+
+@pytest.mark.parametrize("placement", ["(2, 1)", "(1, 2)", "replicated"])
+def test_predictor_counts_sharded_weights_as_jax_does(served, placement):
+    """Predictor's mesh route follows the JAX condition: a weight counts as
+    model-sharded only when its spec splits it over an axis of more than
+    one rank.  ``shard_fused`` on (2, 1), and a model whose every weight
+    ``param_specs`` replicates (widths 5 -> 7 -> 3 on (1, 2)), serve whole
+    from rank 0's copy through the kernel routes; on (1, 2) the mesh
+    route.  The flag equals the JAX package's ``_sharded`` on the same
+    placement, and the predictions the unsharded model's."""
+    from tensor_ops_tpu.models.fast import FusedMLP as JFused
+    from tensor_ops_tpu.models.serve import Predictor as JPredictor
+
+    from tensor_ops_tpu_torch.models import FusedMLP, Predictor
+
+    fm, x, _ = served
+    shape = {"(2, 1)": (2, 1), "(1, 2)": (1, 2), "replicated": (1, 2)}[
+        placement]
+    if placement == "replicated":
+        jn = j_gen_net(JB, 5, 3, [(7, j_logistic())], j_softmax(),
+                       JRng(JB, seed=4))
+        jfm = JFused.from_network(jn)
+        fm = FusedMLP.from_numpy(
+            [np.asarray(w, np.float32) for w in jfm.weights],
+            [np.asarray(b, np.float32) for b in jfm.biases], jfm.acts,
+            jfm.softmax_out, device="cpu")
+        x = x[:, :5]
+    else:
+        jfm = JFused.from_network(j_gen_net(
+            JB, 16, 8, [(32, j_logistic()), (16, j_logistic())], j_softmax(),
+            JRng(JB, seed=2)))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jp = JPredictor(JM.shard_fused(jfm, JM.make_mesh(
+            shape[0] * shape[1], shape=shape)), buckets=(8,))
+        sfm = TM.shard_fused(fm, tmesh(*shape))
+    p = Predictor(sfm, buckets=(8,))
+    assert p._serving[3] == jp._sharded == (placement == "(1, 2)")
+    assert p._serving[0].sharded == p._serving[3]
+    ref = fm.run_xla(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(p.predict(x), ref, atol=1e-6, rtol=0)

@@ -310,11 +310,11 @@ def _cpu_mesh(n, shape=None):
     return make_mesh(n, shape=shape, devices=["cpu"] * n)
 
 
-class _StageMesh:
-    """A stand-in for the JAX package's pipeline mesh: a stage axis."""
+def _StageMesh():
+    """A pipeline mesh: a stage axis (``parallel.pipeline``)."""
+    from tensor_ops_tpu_torch.parallel.pipeline import make_3d_pipeline_mesh
 
-    axis_names = ("stage", "data", "model")
-    shape = {"stage": 2, "data": 1, "model": 1}
+    return make_3d_pipeline_mesh(1, 2, 1, devices=["cpu"] * 2)
 
 
 # what the mesh slice still refuses (naming its ROADMAP item) and the JAX
@@ -326,7 +326,7 @@ REFUSED = [
     # was ported; it trains now (item None)
     ("mesh=a mesh", dict(mesh=_cpu_mesh(4)), None),
     ("mesh=a stage axis", dict(mesh=_StageMesh()),
-     "ROADMAP.md, Queue 1 item 9c"),
+     "ROADMAP.md, Queue 1 item 9c-2"),
     ("shard_opt_state=True", dict(shard_opt_state=True),
      r"ZeRO-1 \(shard_opt_state/zero_stage\) shards over the mesh's data"),
     ("zero_stage=2", dict(zero_stage=2),
@@ -334,11 +334,11 @@ REFUSED = [
     ("mesh=batch over 3 ranks", dict(mesh=_cpu_mesh(3, (3, 1))),
      r"batch_size \(20\) must be divisible by the data-axis size \(3\)"),
     ("pipeline_microbatches=4", dict(pipeline_microbatches=4),
-     "ROADMAP.md, Queue 1 item 9c"),
+     "ROADMAP.md, Queue 1 item 9c-2"),
     ("pipeline_schedule=gpipe", dict(pipeline_schedule="gpipe"),
-     "ROADMAP.md, Queue 1 item 9c"),
+     "ROADMAP.md, Queue 1 item 9c-2"),
     ("pipeline_chunks=2", dict(pipeline_chunks=2),
-     "ROADMAP.md, Queue 1 item 9c"),
+     "ROADMAP.md, Queue 1 item 9c-2"),
 ]
 
 
@@ -355,7 +355,8 @@ def test_unported_options_raise(kw, item):
         res = t_fit(tnet(TB, jnet(JNB).params), t_xent(O), TB, X, Y,
                     verbose=False, batch_size=20, epochs=3, lr=0.5,
                     log_every=1, **kw)
-        assert res.steps == 3 and res.specs is not None
+        assert res.steps == 3 and all(hasattr(p, "spec")
+                                      for p in res.net.params)
         assert res.history[-1]["loss"] < res.history[0]["loss"]
         return
     with pytest.raises(ValueError, match=item):
