@@ -254,10 +254,30 @@ without printing a result line:
    ``pipe_predicted``; one GPipe step's wall time, samples/s, profile and
    idle share; and the Predictor of a (2, 1) ``shard_fused`` model (nothing
    sharded) serving bucket 8 through one ``fused_mlp_forward`` launch.
+26. The staged-IR pipelines, in the same interpreter after phase 25
+   (``parallel.ir_pipeline``, random weights from seed 26, each weight over
+   the square root of its fan-in): the uniform 784 -> 2048 x 9 -> 10 chain
+   (a pre of 784 -> 2048, a body of eight 2048 -> 2048 segments, a post of
+   2048 -> 10) at B = 512 through GPipe on (4,) and (2, 2) and the circular
+   schedule on (2,) at M = 2 and 4; the flagship's heterogeneous cut on
+   (3,) and (2, 2) (B = 100); the autoencoder 784 -> 128 -> 32 -> 128 ->
+   784's heterogeneous circular cut on (2,): each forward, gradient and 5
+   SGD steps (lr 0.01) held to the one-device plain chain on the card (TF32
+   off) and to CPU f64 (``TOL_P`` / ``TOL_5_STEPS``), kernel 9's launches
+   equal to ``irp_predicted``.  Then ``fit`` on those meshes: 5 sgd steps
+   on (2, 2) (flagship) and (4,) (uniform) held to ``fit`` on one device,
+   the flagship on (2, 2) through the ZeRO rungs (``IRP_FIT_RUNS``'
+   launches; ZeRO-1 bit-equal to replicated, ZeRO-3 to ZeRO-2, offload to
+   ZeRO-3), in bf16 (its loss falls), and with ``accum_steps=2`` stopped by
+   Ctrl-C and resumed bit-equal; a circular resume of a GPipe checkpoint
+   and a stage mesh with a model axis of 2 refused; the uniform chain's
+   ``fit`` on (4,) at B = 512: samples/s over steps 11-20, one step's wall,
+   kernels, busy time and idle share.
    ``chip_smoke.cards_main()`` runs only the phases that need several
    cards (the cross-card ring, these 4-card runs, the (2, 2) and (1, 4)
-   fit runs with one rank a card and the (4,) GPipe run with one stage a
-   card, bit-equal to one card) on a four-card machine.
+   fit runs with one rank a card, the (4,) GPipe run and the uniform
+   chain's staged-IR ``fit`` on (4,) with one stage a card, bit-equal to
+   one card) on a four-card machine.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -270,7 +290,7 @@ and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
 come from calling it directly; ``bidir_ring``'s launches add the mesh,
-model-axis and pipeline phases'.  Kernel 7 appears twice too: as
+model-axis and both pipeline phases'.  Kernel 7 appears twice too: as
 ``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
 launches for the 8 served sequences, timed at n = 64, B = 1), and as
 ``fused_rnn_step`` the per-step entry (the public per-step function and the
@@ -5231,6 +5251,482 @@ def phase_pipeline_cards() -> None:
         f"bit-equal to the 4 ranks on one card")
 
 
+# Phase 26: the staged-IR pipelines (parallel.ir_pipeline) and fit's
+# pipeline mode at phase 25's width.  Three gen_net chains from seeded
+# arrays (seed 26; weights normal over the square root of the fan-in, biases
+# 0.1 normal): the uniform 784 -> 2048 x 9 -> 10 softmax (a pre of 784 ->
+# 2048, a body of eight 2048 -> 2048 segments, a post of 2048 -> 10), the
+# flagship and the autoencoder 784 -> 128 -> 32 -> 128 -> 784 (squared
+# error), with the ranks on the card named several times.  (name, chain,
+# schedule, mesh shape, microbatches, batch rows.)
+IRP_LR, IRP_STEPS, IRP_TIMED = 0.01, 5, 20
+IRP_RUNS = (
+    ("gpipe", "uniform", "gpipe", (4,), 4, 512),
+    ("dp x pp", "uniform", "gpipe", (2, 2), 4, 512),
+    ("circular M=2", "uniform", "circular", (2,), 2, 512),
+    ("circular M=4", "uniform", "circular", (2,), 4, 512),
+    ("hetero", "flagship", "gpipe", (3,), 4, 100),
+    ("hetero dp x pp", "flagship", "gpipe", (2, 2), 2, 100),
+    ("hetero circular", "autoencoder", "circular", (2,), 2, 100),
+)
+IRP_CHAINS = {"uniform": ((784,) + (2048,) * 9 + (10,), "softmax"),
+              "flagship": (FLAGSHIP, "softmax"),
+              "autoencoder": ((784, 128, 32, 128, 784), "logistic")}
+# fit on the meshes: the flagship on (2, 2) (M = 2, B = 100) through the
+# ZeRO rungs (adam, IRP_FIT_STEPS steps); kernel 9's launches per step,
+# (ar, rs, ag): the stage psum and its transpose on each data group (4),
+# the loss averaged over the data groups (1) and the packed leaf's gradient
+# averaged over the data axis on each stage rank (2 ar, or 2 rs where ZeRO-2
+# and 3 shard it); ZeRO-1 and 2 gather the updated leaf on each stage rank
+# (2 ag), ZeRO-3 gathers it at use instead, and once more at the run's end
+# (the returned net is the parameter stack: each stage's data blocks
+# gathered on its stage's ranks, 2 ag a run).
+IRP_FIT_STEPS, IRP_FIT_B, IRP_FIT_M, IRP_CRASH = 20, 100, 2, 5
+IRP_FIT_RUNS = (
+    ("replicated", {}, (7, 0, 0), 0),
+    ("zero1", dict(shard_opt_state=True), (7, 0, 2), 0),
+    ("zero2", dict(zero_stage=2), (5, 2, 2), 0),
+    ("zero3", dict(zero_stage=3), (5, 2, 2), 2),
+    ("zero3+offload", dict(zero_stage=3, offload_opt_state=True), (5, 2, 2),
+     2),
+)
+# the uniform chain's fit on (4,) (M = 4): the timed run's batch, and the
+# batch of the 5 sgd steps held to one device (whose per-sample gradients
+# of the 35M parameters at once bound its batch: 128 rows hold 18 GB)
+IRP_TIMED_B, IRP_SGD_B = 512, 128
+
+
+def irp_predicted(shape, n_leaves: int, n_repl: int, train: bool) -> dict:
+    """Kernel 9's launches (ar, rs, ag) of one forward or one SGD step of
+    a staged-IR pipeline, from parallel/ir_pipeline.py: the stage psum once
+    per data group (dp; its transpose dp more in a step), the rows gathered
+    over the data groups (forward) or the loss averaged over them (step)
+    when dp > 1, each replicated leaf's gradient summed over each data
+    group's stage ranks (n_repl * dp), and each leaf's gradient averaged
+    over the data axis on each stage rank (n_leaves * S when dp > 1)."""
+    dp, S = (1,) * (2 - len(shape)) + tuple(shape)
+    psum = dp * (S > 1)
+    if not train:
+        return {"ar": psum, "rs": 0, "ag": int(dp > 1)}
+    return {"ar": 2 * psum + n_repl * psum + (dp > 1)
+            + (n_leaves * S if dp > 1 else 0), "rs": 0, "ag": 0}
+
+
+def _irp_arrays(chain: str):
+    """The chain's parameter arrays (f32, seed 26) and its activations."""
+    widths, out_act = IRP_CHAINS[chain]
+    r = np.random.default_rng(26)
+    arrays = []
+    for i, o in zip(widths[:-1], widths[1:]):
+        arrays += [r.standard_normal((o, i)) / np.sqrt(i),
+                   0.1 * r.standard_normal(o)]
+    acts = ["logistic"] * (len(widths) - 2) + [out_act]
+    return [a.astype(np.float32) for a in arrays], acts
+
+
+def _irp_net(chain: str, be, arrays=None):
+    """The port's gen_net chain holding ``arrays`` (default the seeded
+    ones) on ``be``, and its loss."""
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (Network, act_logistic,
+                                             act_softmax, cross_entropy,
+                                             gen_net, squared_error)
+
+    widths, out_act = IRP_CHAINS[chain]
+    arrays = arrays if arrays is not None else _irp_arrays(chain)[0]
+    tmpl = gen_net(be, widths[0], widths[-1],
+                   [(h, act_logistic()) for h in widths[1:-1]],
+                   act_softmax() if out_act == "softmax" else act_logistic(),
+                   Rng(be, 0))
+    loss = (cross_entropy if out_act == "softmax" else squared_error)(
+        widths[-1])
+    return Network(tmpl.op, tuple(be.asarray(a) for a in arrays),
+                   tmpl.act_names), loss
+
+
+def _irp_batch(chain: str, B: int):
+    r = np.random.default_rng(27)
+    widths, out_act = IRP_CHAINS[chain]
+    X = r.uniform(0, 1, size=(B, widths[0])).astype(np.float32)
+    Y = (np.eye(widths[-1])[r.integers(0, widths[-1], size=B)]
+         if out_act == "softmax" else X).astype(np.float32)
+    return X, Y
+
+
+def _irp_plain(chain: str, X, Y, device, dtype):
+    """The plain chain on one device (torch autograd): its output, the
+    gradients at the start, and the losses and parameters of IRP_STEPS SGD
+    steps."""
+    arrays, acts = _irp_arrays(chain)
+    ps = [torch.tensor(a, dtype=dtype, device=device) for a in arrays]
+    x = torch.tensor(X, dtype=dtype, device=device)
+    y = torch.tensor(Y, dtype=dtype, device=device)
+
+    def fwd(ps):
+        h = x
+        for k, act in enumerate(acts):
+            z = torch.addmm(ps[2 * k + 1], h, ps[2 * k].T)
+            h = torch.softmax(z, dim=-1) if act == "softmax" else \
+                torch.sigmoid(z)
+        return h
+
+    def loss(p):
+        if acts[-1] == "softmax":
+            return -torch.mean(torch.sum(y * torch.log(p), dim=-1))
+        return torch.mean(torch.sum((y - p) ** 2, dim=-1))
+
+    with torch.no_grad():
+        out0 = fwd(ps)
+    losses, grads0 = [], None
+    for _ in range(IRP_STEPS):
+        ps = [p.detach().requires_grad_() for p in ps]
+        v = loss(fwd(ps))
+        gs = torch.autograd.grad(v, ps)
+        grads0 = grads0 or [g.detach() for g in gs]
+        losses.append(float(v.detach()))
+        ps = [(p - IRP_LR * g).detach() for p, g in zip(ps, gs)]
+    return dict(out=out0, grads=grads0, losses=losses, params=ps)
+
+
+def _irp_mesh(shape, devices=None):
+    from tensor_ops_tpu_torch.parallel import pipeline as PP
+
+    n = int(np.prod(shape))
+    make = PP.make_pipeline_mesh if len(shape) == 1 else \
+        PP.make_dp_pipeline_mesh
+    return make(*shape, devices=devices or [DEVICE] * n)
+
+
+def _irp_run(name, chain, sched, shape, M, B):
+    """One form on the card: its forward, gradients and IRP_STEPS SGD steps
+    through ``parallel.ir_pipeline``, each with kernel 9's launches, the
+    results as the network's parameter stack."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.parallel import ir_pipeline as IP
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net, loss = _irp_net(chain, be)
+    mesh = _irp_mesh(shape)
+    X, Y = _irp_batch(chain, B)
+    x, y = torch.tensor(X, device=DEVICE), torch.tensor(Y, device=DEVICE)
+    loss_fn, pnet = IP.make_ir_pipeline_loss(net, loss, be, mesh, M,
+                                             schedule=sched, n_chunks=2)
+    step, _ = IP.ir_pipeline_train_step(net, loss, be, mesh, M,
+                                        schedule=sched, n_chunks=2)
+    flat = IP.shard_pipelined_params(pnet, mesh).flat_params()
+    out, _, ph_f = _counted(lambda: loss_fn.forward(flat, x))
+    (v, g), _, ph_g = _counted(lambda: loss_fn.value_and_grad(flat, x, y))
+    box = [flat, []]
+
+    def steps():
+        for _ in range(IRP_STEPS):
+            v, box[0] = step(IRP_LR, x, y, *box[0])
+            box[1].append(float(v))
+
+    _, counts_s, ph_s = _counted(steps)
+    specs = IP.pipelined_specs(pnet)
+    n_repl = sum("stage" not in s for s in specs)
+    want_f = irp_predicted(shape, len(specs), n_repl, False)
+    want_s = irp_predicted(shape, len(specs), n_repl, True)
+    for got, want, what in ((ph_f, want_f, "forward"),
+                            (ph_g, want_s, "gradient"),
+                            (ph_s, {k: IRP_STEPS * n for k, n in
+                                    want_s.items()}, "steps")):
+        check(got == want, f"ir pipeline {name} {what}: kernel 9 launches "
+              f"{got}, the design predicts {want}")
+    check(counts_s["bidir_ring.ring"] == 0, f"ir pipeline {name}: the ring "
+          f"protocol ran on one card")
+    launches = sum(ph_f.values()) + sum(ph_g.values()) + sum(ph_s.values())
+    return dict(out=out, grads=list(pnet.unflatten(g).to_network_params()),
+                losses=box[1], kind=type(pnet).__name__, launches=launches,
+                params=list(pnet.unflatten(box[0]).to_network_params()),
+                per=(want_f, want_s), text=IP.describe_partition(pnet))
+
+
+def phase_ir_pipelines(tmp: str) -> dict:
+    """The staged-IR pipelines and fit's pipeline mode on the card (phase
+    26): returns kernel 9's launches."""
+    launches = {n: 0 for n in RING_NAMES}
+    plain = {}
+    runs = {}
+    for name, chain, sched, shape, M, B in IRP_RUNS:
+        X, Y = _irp_batch(chain, B)
+        if (chain, B) not in plain:
+            plain[chain, B] = _irp_plain(chain, X, Y, DEVICE, torch.float32)
+        ref = plain[chain, B]
+        run = _irp_run(name, chain, sched, shape, M, B)
+        runs[name] = (chain, B, run)
+        tol_out = TOL_P if IRP_CHAINS[chain][1] == "softmax" else TOL_Z
+        e_f = max_err(run["out"], ref["out"], tol_out)
+        e_g = max(max_err(a, b, TOL_P)
+                  for a, b in zip(run["grads"], ref["grads"]))
+        e_l = max_err(torch.tensor(run["losses"]),
+                      torch.tensor(ref["losses"]), TOL_5_STEPS)
+        e_p = max(max_err(a, b, TOL_5_STEPS)
+                  for a, b in zip(run["params"], ref["params"]))
+        check(run["losses"][-1] < run["losses"][0], f"ir pipeline {name}: "
+              f"the loss did not fall ({run['losses']})")
+        launches["bidir_ring"] += run["launches"]
+        log(f"[irp] {name} on {shape} ({run['kind']}, {sched}, M={M}, "
+            f"B={B}, {'-'.join(map(str, IRP_CHAINS[chain][0][:3]))}..."
+            f"{IRP_CHAINS[chain][0][-1]}): vs the one-device plain chain on "
+            f"the card forward max|err| {e_f:.2e} (tol {tol_out[0]:g}), "
+            f"gradients {e_g:.2e} (tol {TOL_P[0]:g}), {IRP_STEPS} sgd steps "
+            f"losses {e_l:.2e}, params {e_p:.2e} (tol {TOL_5_STEPS[0]:g}+"
+            f"{TOL_5_STEPS[1]:g}|ref|); loss {run['losses'][0]:.4f} -> "
+            f"{run['losses'][-1]:.4f}; kernel 9 a forward {run['per'][0]}, "
+            f"a step {run['per'][1]}, as predicted")
+    log("[irp] partitions: " + " | ".join(
+        runs[n][2]["text"].splitlines()[0] for n in ("gpipe", "hetero",
+                                                     "hetero circular")))
+    fit_launches = phase_ir_fit(tmp)
+    launches["bidir_ring"] += fit_launches
+    # the CPU f64 plain chains, last (a full-width CPU run in a process
+    # that profiles the card can leave the profiler losing device events)
+    for (chain, B), ref in plain.items():
+        X, Y = _irp_batch(chain, B)
+        cpu = _irp_plain(chain, X, Y, "cpu", torch.float64)
+        tol_out = TOL_P if IRP_CHAINS[chain][1] == "softmax" else TOL_Z
+        for name, (c, b, run) in runs.items():
+            if (c, b) != (chain, B):
+                continue
+            e_f = max_err(run["out"], cpu["out"], tol_out)
+            e_g = max(max_err(a, b_, TOL_P)
+                      for a, b_ in zip(run["grads"], cpu["grads"]))
+            e_l = max_err(torch.tensor(run["losses"]),
+                          torch.tensor(cpu["losses"]), TOL_5_STEPS)
+            e_p = max(max_err(a, b_, TOL_5_STEPS)
+                      for a, b_ in zip(run["params"], cpu["params"]))
+            log(f"[irp] {name} vs the CPU f64 plain chain: forward max|err| "
+                f"{e_f:.2e}, gradients {e_g:.2e}, losses {e_l:.2e}, params "
+                f"{e_p:.2e}")
+    return launches
+
+
+def _irp_fit(chain, shape, X, Y, M, devices=None, **kw):
+    """``fit`` of the chain on the stage mesh of ``shape`` (``None``: one
+    device), with kernel 9's launches by phase."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import fit
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net, loss = _irp_net(chain, be)
+    mesh = None if shape is None else _irp_mesh(shape, devices)
+    extra = {} if shape is None else dict(mesh=mesh, pipeline_microbatches=M)
+    kw = dict(dict(epochs=1, log_every=1, verbose=False, lr=IRP_LR), **kw)
+    return _counted(lambda: fit(net, loss, be, X, Y, **extra, **kw))
+
+
+def _irp_whole(res):
+    return [p.to(DEVICE) for p in res.net.params]
+
+
+def phase_ir_fit(tmp: str) -> int:
+    """fit's pipeline mode on the card: returns kernel 9's launches."""
+    from tensor_ops_tpu_torch.models import sgd
+
+    tX, tY, _, _ = synthetic_set(tmp)
+    total = 0
+    # 5 sgd steps on each mesh against fit on one device, the same batches
+    for chain, shape, M, B in (("flagship", (2, 2), IRP_FIT_M, IRP_FIT_B),
+                               ("uniform", (4,), 4, IRP_SGD_B)):
+        X, Y = tX[:5 * B], tY[:5 * B]
+        one, _, _ = _irp_fit(chain, None, X, Y, M, batch_size=B,
+                             optimizer=sgd(), chain_steps=1)
+        pp, _, ph = _irp_fit(chain, shape, X, Y, M, batch_size=B,
+                             optimizer=sgd())
+        total += sum(ph.values())
+        e_l = max_err(torch.tensor([h["loss"] for h in pp.history]),
+                      torch.tensor([h["loss"] for h in one.history]),
+                      TOL_5_STEPS)
+        e_p = max(max_err(a, b, TOL_5_STEPS)
+                  for a, b in zip(_irp_whole(pp), _irp_whole(one)))
+        log(f"[irp] fit {chain} on {shape} (M={M}, B={B}), 5 sgd steps vs "
+            f"fit on one device: losses max|err| {e_l:.2e}, params {e_p:.2e} "
+            f"(tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|)")
+
+    # the flagship on (2, 2) through the ZeRO rungs (adam)
+    n = IRP_FIT_STEPS * IRP_FIT_B
+    X, Y = tX[:n], tY[:n]
+    runs = {}
+    for name, zkw, per_step, end in IRP_FIT_RUNS:
+        res, counts, ph = _irp_fit("flagship", (2, 2), X, Y, IRP_FIT_M,
+                                   batch_size=IRP_FIT_B, optimizer=_opt(
+                                       "adam"), **zkw)
+        want = {p: IRP_FIT_STEPS * k for p, k in zip(("ar", "rs", "ag"),
+                                                      per_step)}
+        want["ag"] += end
+        check(ph == want and counts["bidir_ring.ring"] == 0,
+              f"ir fit {name}: kernel 9 launches {ph}, the design predicts "
+              f"{want}")
+        h = res.history
+        check(res.steps == IRP_FIT_STEPS and h[-1]["loss"] < h[0]["loss"],
+              f"ir fit {name}: {res.steps} steps, loss {h[0]['loss']} -> "
+              f"{h[-1]['loss']}")
+        total += sum(ph.values())
+        runs[name] = res
+    for a, b in (("zero1", "replicated"), ("zero3", "zero2"),
+                 ("zero3+offload", "zero3")):
+        check(_bit_equal(runs[a], runs[b]), f"ir fit: {a} differs from {b}")
+    e = max(max_err(a, b, TOL_MESH) for a, b in
+            zip(runs["zero2"].net.params, runs["replicated"].net.params))
+    log(f"[irp] fit flagship on (2, 2) (hetero, M={IRP_FIT_M}, "
+        f"B={IRP_FIT_B}, adam, {IRP_FIT_STEPS} steps): kernel 9 per step "
+        f"{', '.join(f'{n} {p}' for n, _, p, _ in IRP_FIT_RUNS)} (+2 ag at a "
+        f"ZeRO-3 run's end) as predicted; "
+        f"zero1 bit-equal to replicated, zero3 to zero2, zero3+offload to "
+        f"zero3; zero2 vs replicated params max|err| {e:.2e}; loss "
+        f"{runs['replicated'].history[0]['loss']:.4f} -> "
+        f"{runs['replicated'].history[-1]['loss']:.4f}")
+
+    # bf16 on f32 masters: the loss falls
+    res, _, ph = _irp_fit("flagship", (2, 2), X, Y, IRP_FIT_M,
+                          batch_size=IRP_FIT_B, optimizer=_opt("adam"),
+                          mixed_precision="bf16")
+    total += sum(ph.values())
+    h = res.history
+    check(h[-1]["loss"] < h[0]["loss"] and all(p.dtype == torch.float32
+                                               for p in res.net.params),
+          f"ir fit bf16: loss {h[0]['loss']} -> {h[-1]['loss']}")
+    log(f"[irp] fit flagship on (2, 2) in bf16 (f32 masters): loss "
+        f"{h[0]['loss']:.4f} -> {h[-1]['loss']:.4f}")
+
+    # accum_steps=2, Ctrl-C at step IRP_CRASH, resumed: bit-equal
+    ck = os.path.join(tmp, "irp.npz")
+    akw = dict(batch_size=2 * IRP_FIT_B, accum_steps=2,
+               optimizer=_opt("adam"))
+    straight, _, ph = _irp_fit("flagship", (2, 2), X, Y, IRP_FIT_M, **akw)
+    total += sum(ph.values())
+
+    def boom(s):
+        if s == IRP_CRASH:
+            raise KeyboardInterrupt
+        return IRP_LR
+
+    try:
+        _, _, ph = _irp_fit("flagship", (2, 2), X, Y, IRP_FIT_M,
+                            lr_schedule=boom, checkpoint_path=ck, **akw)
+        check(False, "the interrupted pipeline fit did not stop")
+    except KeyboardInterrupt:
+        pass
+    resumed, _, ph = _irp_fit("flagship", (2, 2), X, Y, IRP_FIT_M,
+                              lr_schedule=lambda s: IRP_LR,
+                              checkpoint_path=ck, resume=True, **akw)
+    total += sum(ph.values())
+    check(resumed.history[0]["step"] == IRP_CRASH + 1 and all(
+        torch.equal(a, b) for a, b in zip(resumed.net.params,
+                                          straight.net.params)),
+          "ir fit: the accum_steps=2 crash/resume chain differs from the "
+          "straight run")
+    log(f"[irp] fit flagship on (2, 2), accum_steps=2: Ctrl-C at step "
+        f"{IRP_CRASH}, resumed to the budget: bit-equal to the straight run")
+
+    # a circular resume of a GPipe checkpoint, and a model axis of 2
+    from tensor_ops_tpu_torch.parallel import pipeline as PP
+
+    ck2 = os.path.join(tmp, "irp_layout.npz")
+    _irp_fit("autoencoder", (2,), X[:200], X[:200], 2, batch_size=100,
+             checkpoint_path=ck2, checkpoint_every=1)
+    for what, kw in (
+            ("layout", dict(mesh=_irp_mesh((2,)), pipeline_schedule="circular",
+                            checkpoint_path=ck2, resume=True)),
+            ("9c-3", dict(mesh=PP.make_3d_pipeline_mesh(
+                1, 2, 2, devices=[DEVICE] * 4)))):
+        from tensor_ops_tpu_torch import TorchBackend
+        from tensor_ops_tpu_torch.models import fit
+
+        be = TorchBackend(torch.float32, DEVICE)
+        net, loss = _irp_net("autoencoder", be)
+        try:
+            fit(net, loss, be, X[:200], X[:200], batch_size=100,
+                pipeline_microbatches=2, verbose=False, **kw)
+            check(False, f"ir fit: not refused ({what})")
+        except ValueError as e:
+            check(what in str(e), f"ir fit: refused with {e!r}, not naming "
+                  f"{what}")
+    log("[irp] a circular resume of a GPipe checkpoint is refused by its "
+        "layout; a stage mesh with a model axis of 2 names item 9c-3")
+
+    # samples/s of the uniform chain's fit on (4,) (adam, M=4), and one
+    # step's wall, kernels, busy time and idle share
+    B = IRP_TIMED_B
+    Xu = np.concatenate([tX] * (-(-IRP_TIMED * B // len(tX))))[:IRP_TIMED * B]
+    Yu = np.concatenate([tY] * (-(-IRP_TIMED * B // len(tY))))[:IRP_TIMED * B]
+    res, _, ph = _irp_fit("uniform", (4,), Xu, Yu, 4, batch_size=B,
+                          optimizer=_opt("adam"))
+    total += sum(ph.values())
+    rate, first_ms = _fit_rate(res, B)
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models.trainer import _mesh_setup, make_opt_step
+    from tensor_ops_tpu_torch.parallel import ir_pipeline as IP
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net, loss = _irp_net("uniform", be)
+    mesh = _irp_mesh((4,))
+    part = IP.partition_network(net, 4, mesh)
+    opt = _opt("adam")
+    params, state, pins = _mesh_setup(part.flat_params(),
+                                      IP.pipelined_specs(part), opt, mesh,
+                                      be, 0)
+    step_fn = make_opt_step(net, loss, be, opt, mesh=mesh,
+                            pipeline=(part.skeleton(), 4, "gpipe"), **pins)
+    xb = be.asarray(Xu[:B].astype(np.float32))
+    yb = be.asarray(Yu[:B].astype(np.float32))
+    box = [state, params]
+
+    def one_step():
+        v, box[0], box[1] = step_fn(IRP_LR, xb, yb, box[0], box[1])
+        return v
+
+    for _ in range(3):
+        one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) / 5 * 1e6
+    prof = _profile_steps(one_step, steps=3)
+    top = ", ".join(f"{k} {us:.1f} us" for k, us in
+                    list(prof["by_kernel"].items())[:6])
+    log(f"[irp] fit uniform 784->2048x9->10 on (4,) (gpipe, M=4, B={B}, "
+        f"adam): {rate:.1f} samples/s over steps {FIT_TIMED_FROM + 1}-"
+        f"{res.steps} (host clock at the log boundaries); first step "
+        f"{first_ms:.1f} ms; one step {wall_us:.1f} us wall (host clock, 5 "
+        f"steps between synchronises), {prof['launches']:.0f} kernels and "
+        f"{prof['copies']:.0f} copies a step, device busy "
+        f"{prof['busy_us']:.1f} us, idle share "
+        f"{1 - prof['busy_us'] / wall_us:.3f}; most device time: {top}")
+    return total
+
+
+def phase_ir_pipeline_cards(tmp: str) -> None:
+    """The uniform chain's fit on (4,) with one stage a card (5 sgd steps):
+    bit-equal to the same run with the 4 ranks on one card."""
+    from tensor_ops_tpu_torch.models import sgd
+
+    tX, tY, _, _ = synthetic_set(tmp)
+    X, Y = tX[:5 * IRP_SGD_B], tY[:5 * IRP_SGD_B]
+    one, _, _ = _irp_fit("uniform", (4,), X, Y, 4, batch_size=IRP_SGD_B,
+                         optimizer=sgd())
+    four, counts, _ = _irp_fit("uniform", (4,), X, Y, 4,
+                               devices=[f"cuda:{i}" for i in range(4)],
+                               batch_size=IRP_SGD_B, optimizer=sgd())
+    devs = {str(p.device) for p in four.net.params}
+    same = ([h["loss"] for h in one.history]
+            == [h["loss"] for h in four.history]
+            and all(torch.equal(a.to(DEVICE), b) for a, b in
+                    zip(four.net.params, one.net.params)))
+    check(counts["bidir_ring.ring"] > 0 and len(devs) == 4 and same,
+          f"ir fit (4,) on 4 cards: {counts['bidir_ring.ring']} ring "
+          f"launches, leaves on {sorted(devs)}, bit-equal to one card: "
+          f"{same}")
+    log(f"[irp] fit uniform on (4,) with one stage a card: "
+        f"{counts['bidir_ring.ring']} ring-protocol launches, the returned "
+        f"leaves on {len(devs)} cards; 5 sgd steps' losses and parameters "
+        f"bit-equal to the 4 ranks on one card")
+
+
 def cards_main() -> None:
     """The phases that need several cards, alone (on a machine with 4):
     the cross-card ring against its plain versions, and the 4-card runs of
@@ -5246,11 +5742,12 @@ def cards_main() -> None:
         runs, _ = _mesh_fit_runs(f, ("replicated", "zero3"))
         timed("mesh on 4 cards", phase_mesh_cards, f, runs, tmp)
         timed("model axis on 4 cards", phase_model_axis_cards, f, tmp)
+        timed("staged-IR fit on 4 cards", phase_ir_pipeline_cards, tmp)
     timed("pipelines on 4 cards", phase_pipeline_cards)
 
 
 def mesh_main(out: str) -> None:
-    """Phases 23, 24 and 25 in their own interpreter (after every profiled
+    """Phases 23, 24, 25 and 26 in their own interpreter (after every profiled
     phase of the smoke's process); writes their kernel launches to
     ``out``."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5259,8 +5756,10 @@ def mesh_main(out: str) -> None:
         launches = timed("mesh", phase_mesh, tmp)
         tp = timed("model axis", phase_model_axis, tmp)
     pipe = timed("pipelines", phase_pipelines)
+    with tempfile.TemporaryDirectory() as tmp:
+        irp = timed("staged-IR pipelines", phase_ir_pipelines, tmp)
     for n in RING_NAMES:
-        launches[n] += tp[n] + pipe[n]
+        launches[n] += tp[n] + pipe[n] + irp[n]
     with open(out, "w") as f:
         json.dump(launches, f)
 

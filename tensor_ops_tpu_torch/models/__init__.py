@@ -6,8 +6,9 @@ mixed precision and step chaining, ``chain``), recurrent networks
 (``recurrent``), the autoencoder (``autoencoder``), the kernel-fused
 ``FusedMLP``, ``FusedRNN`` and ``FusedAutoencoder``, the int8
 ``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
-them.  The loops' pipeline options come in a later slice (ROADMAP.md,
-Queue 1 item 9c-2)."""
+them.  ``fit`` trains pipeline-parallel on a mesh with a ``stage`` axis
+(``parallel.ir_pipeline``); its tensor-parallel pipelines come in a later
+slice (ROADMAP.md, Queue 1 item 9c-3)."""
 
 from . import (autoencoder, batched, chain, fast, feedforward, neuralnet,
                optim, recurrent, serve, trainer, training)

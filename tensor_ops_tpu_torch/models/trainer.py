@@ -35,10 +35,13 @@ the ZeRO ladder (``shard_opt_state`` / ``zero_stage``), and
 rank's rows on its model group (``parallel.tp``'s executor when the model
 axis is larger than 1), and reduces and gathers through kernel 9's
 collectives; ``offload_opt_state`` keeps the optimizer state in pinned
-host memory between steps.  A mesh or an offloaded state runs unchained.
-``profile_dir`` (item 8), the ``pipeline_*`` options and a stage axis (item
-9c) and several processes (item 9d) raise ``ValueError`` naming their
-ROADMAP item.
+host memory between steps.  A mesh with a ``stage`` axis trains
+pipeline-parallel over the staged IR (``parallel.ir_pipeline``: the
+partition's leaves on the stage axis, each data group's microbatches
+through the schedule, the same ZeRO ladder and step).  A mesh or an
+offloaded state runs unchained.  ``profile_dir`` (item 8), a stage mesh
+with a model axis (item 9c-3) and several processes (item 9d) raise
+``ValueError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -436,18 +439,20 @@ def _clip_mesh(grads, max_norm: float):
     copies.  Otherwise each rank's squared sums of its blocks are reduced
     over the axes that shard them (kernel 9, one all-reduce per group):
     over each data group the sums of the leaves on the data axis (and,
-    apart, of those on both axes), then over each model group the sums of
-    the leaves on the model axis alone plus the data groups' sums of those
-    on both; each rank adds the whole gradients' sums, so every block
-    counts once however many ranks hold it."""
-    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Sharded,
-                                 ring_all_reduce_bidir)
+    apart, of those on both it and another axis), then over each group of
+    the other axes (the model axis, or the stage axis) the sums of the
+    leaves on those axes alone plus the data groups' sums of those on
+    both; each rank adds the whole gradients' sums, so every block counts
+    once however many ranks hold it."""
+    from ..parallel.mesh import DATA_AXIS, Sharded, ring_all_reduce_bidir
 
     mesh = grads[0].mesh
     n = len(grads[0].shards)
+    inner = tuple(a for a in mesh.axis_names if a != DATA_AXIS)
 
     def kind(g):
-        return g.dim is not None, g.mdim is not None
+        return g.dim is not None, any(a in g.spec and mesh.shape[a] > 1
+                                      for a in inner)
 
     kinds = {kind(g) for g in grads}
     if kinds == {(False, False)}:
@@ -474,7 +479,7 @@ def _clip_mesh(grads, max_norm: float):
                     data[r] = y
         if (False, True) in kinds or both:
             model = [None] * n
-            for group in mesh.groups(MODEL_AXIS):
+            for group in mesh.groups(inner):
                 parts = [(sq(r, (False, True))
                           + (data[r][1] if both else 0.0)).reshape(1)
                          for r in group]
@@ -561,17 +566,21 @@ def _offload_state(opt_state, label: str):
 
 def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
                clip_norm, elementwise: bool, grad_constrain=None,
-               param_unshard=None, offload: bool = False) -> Callable:
-    """The step on a ``(data, model)`` mesh: ``step(scalars, xb, yb,
-    opt_state, leaves) -> (loss, opt_state, leaves)``, ``leaves`` and the
-    state's arrays :class:`Sharded`, the batch whole (split here over the
-    data ranks, accumulation chunk by chunk), the loss a 0-d tensor on rank
-    0's device.
+               param_unshard=None, offload: bool = False,
+               chunks: Optional[int] = None) -> Callable:
+    """The step on a ``(data, model)`` mesh (or a pipeline's ``(data,
+    stage)`` one, whose stage axis takes the model axis's place here):
+    ``step(scalars, xb, yb, opt_state, leaves) -> (loss, opt_state,
+    leaves)``, ``leaves`` and the state's arrays :class:`Sharded`, the
+    batch whole (split here over the data ranks: each rank takes its part
+    of each of ``chunks`` equal chunks, by default the accumulation
+    chunks; a pipeline's are its microbatches), the loss a 0-d tensor on
+    rank 0's device.
 
     Each data rank d takes its rows' mean loss and gradients with
-    ``group_vags[d](x, y, ps)``, ``ps`` its model group's blocks of the
-    leaves in model-rank-major order (rank d * tp's leaves, then the next
-    model rank's; on a model axis of 1 the rank's whole copies), the
+    ``group_vags[d](x, y, ps)``, ``ps`` its group's blocks of the leaves
+    in rank-major order (rank d * tp's leaves, then the next model rank's;
+    on a model axis of 1 the rank's whole copies), the
     gradients in the same order, on the leaves whole over the data axis
     (ZeRO-3: gathered at use by ``param_unshard``, one all-gather per data
     group each).  The loss reduces to its mean over the data ranks of model
@@ -588,12 +597,14 @@ def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
     whole is sliced to its blocks.  ``offload`` copies the state in from
     pinned host memory at the start and out to new pinned memory at the
     end."""
-    from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, Sharded, _split_rows,
+    from ..parallel.mesh import (DATA_AXIS, Sharded, _split_rows,
                                  _tree_leaves, _tree_unflatten, reduce_mean,
                                  reshard, ring_all_reduce_bidir)
 
-    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    groups = mesh.groups(tuple(a for a in mesh.axis_names if a != DATA_AXIS))
     devs = mesh.rank_devices
+    chunks = chunks or accum_steps
 
     def base(spec):
         if not elementwise:
@@ -607,10 +618,9 @@ def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
             opt_state = _offload_in(opt_state, devs)
         full = param_unshard(leaves) if param_unshard is not None else leaves
         vals, grads = [], [None] * len(devs)
-        for d, row in enumerate(mesh.devices):
-            x_d = _split_rows(xb, dp, d, row[0], accum_steps)
-            y_d = _split_rows(yb, dp, d, row[0], accum_steps)
-            ranks = range(d * tp, (d + 1) * tp)
+        for d, ranks in enumerate(groups):
+            x_d = _split_rows(xb, dp, d, devs[ranks[0]], chunks)
+            y_d = _split_rows(yb, dp, d, devs[ranks[0]], chunks)
             ps = tuple(p.shards[r] for r in ranks for p in full)
             if accum_steps > 1:
                 v, g = _accum(lambda x, y: group_vags[d](x, y, ps), x_d, y_d,
@@ -686,7 +696,7 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
                   clip_norm: Optional[float] = None,
                   mixed_precision: bool = False,
                   mesh=None, grad_constrain=None, param_unshard=None,
-                  offload: bool = False) -> Callable:
+                  offload: bool = False, pipeline=None) -> Callable:
     """``(lr, xb, yb, opt_state, params) -> (loss, opt_state, params)``:
     one optimizer step on a batch.  ``lr`` is a float or a 0-d tensor;
     ``loss`` comes back as a 0-d tensor on the device (no synchronise), or
@@ -717,7 +727,12 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
     (``zero2_grad_constrain``, or the ZeRO-3 gradient pin) reduce-scatters
     the gradients onto its specs, ``param_unshard`` (``zero3_param_place``)
     gathers sharded params at use.  The updated state and params keep the
-    specs they came in with.
+    specs they came in with.  ``pipeline=(partition, M, schedule)`` on a
+    mesh with a stage axis takes each data group's gradients through the
+    staged-IR pipeline (``parallel.ir_pipeline.make_ir_pipeline_loss``:
+    ``params`` are the partition's flat leaves, each accumulation chunk
+    flows through the M-microbatch grid, the data axis splitting each
+    microbatch).
 
     ``offload=True`` keeps the optimizer state in pinned host memory
     between steps: the step copies it to the device at its start and to
@@ -735,14 +750,30 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
 
     key = ("optstep", loss.struct_key(), opt.struct_key(), int(accum_steps),
            clip_norm, bool(mixed_precision), mesh, specs(grad_constrain),
-           specs(param_unshard), bool(offload)) + be.cache_key()
+           specs(param_unshard), bool(offload),
+           None if pipeline is None else (
+               type(pipeline[0]).__name__, pipeline[1], pipeline[2],
+               getattr(pipeline[0], "n_chunks", 1))) + be.cache_key()
     fn = net.op._compiled.get(key)
     if fn is not None:
         return fn
     if mesh is not None:
         from ..parallel.mesh import MODEL_AXIS, _rank_backend, group_executors
 
-        if mesh.shape[MODEL_AXIS] > 1:
+        chunks = None
+        if pipeline is not None:
+            from ..backend.torch_backend import TorchBackend
+            from ..parallel.ir_pipeline import make_ir_pipeline_loss
+
+            part, M, schedule = pipeline
+            # bf16 compute on the masters (the JAX package's recipe)
+            be_c = (TorchBackend(torch.bfloat16, be.device)
+                    if mixed_precision else be)
+            ploss, _ = make_ir_pipeline_loss(net, loss, be_c, mesh, M,
+                                             pnet=part, schedule=schedule)
+            group_vags = [ploss.group_vag(d) for d in range(len(ploss.groups))]
+            chunks = accum_steps * M
+        elif mesh.shape.get(MODEL_AXIS, 1) > 1:
             from ..parallel.tp import group_vag
 
             group_vags = [group_vag(t, loss) for t in group_executors(
@@ -762,7 +793,7 @@ def make_opt_step(net: Network, loss: TOp, be: Backend, opt: Optimizer,
             accum_steps=accum_steps, clip_norm=clip_norm,
             elementwise=opt.name in _ELEMENTWISE,
             grad_constrain=grad_constrain, param_unshard=param_unshard,
-            offload=offload)
+            offload=offload, chunks=chunks)
 
         def mesh_step(lr, xb, yb, opt_state, params):
             return inner((lr,), xb, yb, opt_state, params)
@@ -1125,16 +1156,12 @@ def _refuse(caller: str, what: str, item: str) -> None:
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
-def _check_later(caller: str, **later) -> None:
-    """Refuse every option of the JAX package's loop ``caller`` that this
+def _check_later(caller: str, profile_dir: Optional[str]) -> None:
+    """Refuse the option of the JAX package's loop ``caller`` that this
     package does not run yet, naming the ROADMAP item that will port it:
-    ``profile_dir`` (item 8) and the ``pipeline_*`` options (item 9c-2).
-    None is silently ignored."""
-    if later.pop("profile_dir", None):
+    ``profile_dir`` (item 8).  None is silently ignored."""
+    if profile_dir:
         _refuse(caller, "profile_dir", "8")
-    for name, value in later.items():
-        if value is not None:
-            _refuse(caller, name, "9c-2")
 
 
 def _normalize_zero_stage(shard_opt_state: bool, zero_stage):
@@ -1160,8 +1187,10 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
                         chain_steps) -> int:
     """The JAX package's eager checks of the mesh, ZeRO and offload options
     both loops share, and the refusals of what this package does not run
-    (a stage axis: item 9c-2; several processes: item 9d).  Returns the
-    data-axis size (1 without a mesh)."""
+    (a stage axis beside a model axis: item 9c-3; several processes: item
+    9d; ``fit_sequences`` refuses a stage axis before this).  Returns the
+    data-axis size (1 without a mesh or data axis).  A pipeline's batch is
+    checked by its microbatch grid instead (``fit``)."""
     if shard_opt_state and mesh is None:
         raise ValueError(
             f"ZeRO-{zstage} (shard_opt_state/zero_stage) shards over "
@@ -1183,13 +1212,13 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
         _refuse(caller, "training in several processes", "9d")
     if mesh is None:
         return 1
-    from ..parallel.mesh import DATA_AXIS, check_mesh
+    from ..parallel.mesh import DATA_AXIS, STAGE_AXIS, check_mesh
 
     if be.name != "torch":
         raise ValueError("mesh sharding requires the torch backend")
-    check_mesh(mesh, caller)
-    dp = mesh.shape[DATA_AXIS]
-    if batch_size % dp != 0:
+    check_mesh(mesh, caller, stage=True)
+    dp = dict(mesh.shape).get(DATA_AXIS, 1)
+    if STAGE_AXIS not in mesh.axis_names and batch_size % dp != 0:
         raise ValueError(
             f"batch_size ({batch_size}) must be divisible by the "
             f"data-axis size ({dp})")
@@ -1341,6 +1370,39 @@ def _mesh_evaluate(net: Network, loss: TOp, be: Backend, mesh, unshard,
     return evaluate
 
 
+def _staged_evaluate(net: Network, loss: TOp, be: Backend, as_network,
+                     val, val_metric: str) -> Callable:
+    """``evaluate(state)`` of a pipeline ``fit``: the validation rows
+    through the network's segments in chain order, each on the rank of the
+    stage that holds its leaves (``parallel.ir_pipeline.staged_forward``);
+    only the activations move, and the accuracy or the per-sample losses
+    are taken where the last segment ran."""
+    from ..parallel.ir_pipeline import staged_forward
+    from ..parallel.mesh import _rank_backend
+
+    xv = be.asarray(val[0])
+
+    def outputs(state):
+        return staged_forward(as_network(state[0]), be)(xv)
+
+    if val_metric == "accuracy":
+        labels = np.asarray(val[1])
+
+        def evaluate(state):
+            a = float((outputs(state).argmax(dim=1).cpu().numpy()
+                       == labels).mean())
+            return "val_acc", a, a
+    else:
+        def evaluate(state):
+            out = outputs(state)
+            be_o = _rank_backend(be, out.device)
+            yv = be_o.asarray(val[1])
+            v = float(torch.func.vmap(
+                lambda o, y: loss.apply(be_o, (o, y))[0])(out, yv).mean())
+            return "val_loss", v, -v
+    return evaluate
+
+
 def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
                        mesh, unshard, k: int, val) -> Callable:
     """``evaluate(state)`` of a mesh ``fit_sequences``: each data rank's
@@ -1431,8 +1493,8 @@ def _use_chain(be: Backend, chain_steps, chain_shuffle: str,
                n_values: int, what: str, allowed: bool = True) -> bool:
     """Whether the run chains: ``allowed``, a torch backend and
     ``chain_steps != 1``, and for ``"auto"`` a dataset of at most 1 GiB on
-    the device (the JAX package's gate; its mesh, ``profile_dir`` and
-    offload back-offs are refused before this).  A device
+    the device (the JAX package's gate: a mesh, a pipeline's included, and
+    an offloaded state come with ``allowed=False``).  A device
     ``chain_shuffle`` without chaining raises, as there."""
     use = False
     if allowed and be.name == "torch" and chain_steps != 1:
@@ -1494,9 +1556,9 @@ def fit(
     val_metric: str = "accuracy",
     profile_dir: Optional[str] = None,
     mesh=None,
-    pipeline_microbatches: Optional[int] = None,
-    pipeline_schedule: Optional[str] = None,
-    pipeline_chunks: Optional[int] = None,
+    pipeline_microbatches: int = 4,
+    pipeline_schedule: str = "gpipe",
+    pipeline_chunks: int = 2,
     prefetch: int = 2,
     chain_steps="auto",
     chain_shuffle: str = "host",
@@ -1615,16 +1677,33 @@ def fit(
     unchained (an int ``chain_steps > 1`` with offload raises); with
     ``verbose`` a mesh run prints ``training_memory_report``'s line.
 
-    ``profile_dir`` (item 8), the ``pipeline_*`` options and a mesh with a
-    stage axis (item 9c-2) raise ``ValueError`` naming their ROADMAP
-    item."""
+    A mesh with a ``stage`` axis (``parallel.make_pipeline_mesh(S)`` /
+    ``make_dp_pipeline_mesh(D, S)``) trains PIPELINE-parallel over the
+    staged IR: the network is cut at its composition points
+    (``parallel.partition_network``, or ``partition_network_circular``
+    under ``pipeline_schedule="circular"`` with ``pipeline_chunks`` chunks
+    a stage rank; ``verbose`` prints ``describe_partition``), each stage
+    rank runs its segments' sub-graphs with their own transposition as
+    the backward, and each accumulation chunk flows through the schedule
+    as ``pipeline_microbatches`` microbatches (each split over the data
+    axis), with the same optimizer, clip, schedule, ZeRO ladder, offload,
+    EMA and checkpoint surface.  Ragged last batches are dropped (an
+    epoch is ``len(X) // batch_size`` steps).  The flat partitioned leaves
+    train and go into the ``.state`` file, whose layout string
+    (``pipeline:{schedule}:S{S}[:V{V}][:P{shape}]``) a resume checks; the
+    servable checkpoint and the returned nets hold the ordinary parameter
+    stack, each layer's leaves on the card of the stage that trained them
+    (``val`` runs each segment there).  Without a stage axis the
+    ``pipeline_*`` options are unused, as in the JAX package.
+
+    ``profile_dir`` (item 8) and a stage mesh with a model axis larger
+    than 1 (item 9c-3) raise ``ValueError`` naming their ROADMAP item."""
     mp_mode = _check_mp(mixed_precision, be)
-    _check_later("fit", profile_dir=profile_dir,
-                 pipeline_microbatches=pipeline_microbatches,
-                 pipeline_schedule=pipeline_schedule,
-                 pipeline_chunks=pipeline_chunks)
+    _check_later("fit", profile_dir)
     shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
                                                     zero_stage)
+    pipeline_mode = mesh is not None and "stage" in tuple(
+        getattr(mesh, "axis_names", ()))
     dp = _check_mesh_options("fit", be, mesh, shard_opt_state, zstage,
                              offload_opt_state, batch_size, chain_steps)
     _check_knobs(accum_steps, ema_decay, batch_size, "samples")
@@ -1643,7 +1722,28 @@ def fit(
                  f"evenly into batches ({batch_size}): a ragged tail batch "
                  f"cannot ride the fixed-shape index window — trim the "
                  f"dataset or use chain_shuffle='host'")
-    if mesh is not None:
+    if pipeline_mode:
+        # each accumulation chunk flows through the microbatch grid
+        M = pipeline_microbatches
+        chunk = batch_size // accum_steps
+        if chunk % M != 0:
+            raise ValueError(
+                f"batch rows per accumulation chunk ({chunk}) must be "
+                f"divisible by pipeline_microbatches ({M})")
+        if (chunk // M) % dp != 0:
+            raise ValueError(
+                f"microbatch rows ({chunk // M}) must be divisible by the "
+                f"data-axis size ({dp})")
+        if pipeline_schedule not in ("gpipe", "circular"):
+            raise ValueError(
+                f"pipeline_schedule must be 'gpipe' or 'circular', got "
+                f"{pipeline_schedule!r}")
+        if X.shape[0] < batch_size:
+            raise ValueError(
+                f"pipeline training drops ragged batches (the microbatch "
+                f"grid needs full ones): dataset ({X.shape[0]} rows) must "
+                f"hold at least one batch ({batch_size})")
+    elif mesh is not None:
         tail = X.shape[0] % batch_size
         if tail and (tail // accum_steps) % dp:
             raise ValueError(
@@ -1660,11 +1760,41 @@ def fit(
                            allowed=mesh is None and not offload_opt_state)
     chain_dev = use_chain and chain_shuffle != "host"
     opt = optimizer or sgd()
-    steps_per_epoch = (X.shape[0] + batch_size - 1) // batch_size
+    if pipeline_mode:
+        # ragged final batches cannot flow through the fixed microbatch
+        # grid: the loader reshuffles instead (drop_last)
+        steps_per_epoch = X.shape[0] // batch_size
+    else:
+        steps_per_epoch = (X.shape[0] + batch_size - 1) // batch_size
     total_steps = epochs * steps_per_epoch
     params = tuple(net.params)
-    pins = {}
-    if mesh is not None:
+    pins, part, layout = {}, None, "flat"
+    if pipeline_mode:
+        from ..parallel import ir_pipeline as IP
+        from ..parallel.mesh import place
+
+        S = mesh.shape["stage"]
+        if pipeline_schedule == "circular":
+            part = IP.partition_network_circular(net, S, pipeline_chunks,
+                                                 mesh)
+        else:
+            part = IP.partition_network(net, S, mesh)
+        if verbose:
+            print(IP.describe_partition(part))
+        params, opt_state, pins = _mesh_setup(
+            part.flat_params(), IP.pipelined_specs(part), opt, mesh, be,
+            zstage if shard_opt_state else 0)
+        # the flat .state leaves' layout: the schedules reorder same-shaped
+        # stacks and a packed leaf hides its rows, so a resume across
+        # layouts is refused by name
+        layout = f"pipeline:{pipeline_schedule}:S{S}"
+        if pipeline_schedule == "circular":
+            layout += f":V{pipeline_chunks}"
+        packed = getattr(part, "packed", None)
+        if packed is not None:
+            layout += ":P" + "x".join(str(int(d)) for d in packed.shape)
+        part = part.skeleton()
+    elif mesh is not None:
         from ..parallel.mesh import param_specs, place
 
         params, opt_state, pins = _mesh_setup(
@@ -1680,13 +1810,22 @@ def fit(
     opt_key = opt.struct_key() if opt.hyper is not None else None
 
     def as_network(ps) -> Network:
-        # on a mesh the leaves stay Sharded, on the specs they trained on
+        # on a mesh the leaves stay Sharded, on the specs they trained on;
+        # a pipeline's go back to the parameter stack, each layer's on its
+        # stage's rank (ZeRO-3 blocks gathered over the data axis first)
+        if pipeline_mode:
+            if pins["param_unshard"] is not None:
+                ps = pins["param_unshard"](ps)
+            ps = part.unflatten(tuple(ps)).to_network_params()
         return Network(net.op, tuple(ps), net.act_names)
 
     def build_step(mp_active: bool):
         return make_opt_step(net, loss, be, opt, accum_steps=accum_steps,
                              clip_norm=clip_norm, mixed_precision=mp_active,
-                             mesh=mesh, offload=offload_opt_state, **pins)
+                             mesh=mesh, offload=offload_opt_state,
+                             pipeline=(part, pipeline_microbatches,
+                                       pipeline_schedule)
+                             if pipeline_mode else None, **pins)
 
     # the records' `t` counts from here, so the first one holds the
     # loader's build and its first copies as well as the first step
@@ -1694,6 +1833,7 @@ def fit(
     loader = chain_fn = None
     try:
         loader = NativeLoader(X, Y, batch=batch_size, seed=seed,
+                              drop_last=pipeline_mode,
                               index_mode=use_chain and not chain_dev)
         mp_active, mp_rec = mp_mode == "bf16", None
         if mp_mode == "auto":
@@ -1708,7 +1848,8 @@ def fit(
             # measured at one must not be reused at another
             route_key = ("mproute", loss.struct_key(), opt.struct_key(),
                          clip_norm, int(accum_steps), int(batch_size), mesh,
-                         zstage if shard_opt_state else 0,
+                         layout, pipeline_microbatches if pipeline_mode
+                         else None, zstage if shard_opt_state else 0,
                          bool(offload_opt_state), tuple(X.shape[1:]),
                          tuple(Y.shape[1:])) + be.cache_key()
             mp_active, mp_rec = _resolve_mp_route(
@@ -1718,7 +1859,7 @@ def fit(
         step_fn = build_step(mp_active)
         # the route travels with every .state checkpoint, so resume
         # re-takes it without measuring
-        state_meta = {"layout": "flat"}
+        state_meta = {"layout": layout}
         if mp_mode != "off":
             state_meta["mp_route"] = "bf16" if mp_active else "f32"
         step = 0
@@ -1728,12 +1869,12 @@ def fit(
 
             rparams, opt_state, step, r_ema = load_train_state(
                 state_path, opt_state, opt_key=opt_key,
-                expect_meta={"layout": "flat"}, with_ema=True)
+                expect_meta={"layout": layout}, with_ema=True)
             if len(rparams) != len(params):
                 raise ValueError(
                     f"checkpoint holds {len(rparams)} parameter leaves but "
-                    f"this network has {len(params)} -- resume with the "
-                    f"same model")
+                    f"this configuration expects {len(params)} -- resume "
+                    f"with the same model/pipeline configuration")
             if mesh is not None:
                 # each leaf back on the spec it trains on (ZeRO-3: its
                 # block); the moments came back on their templates' specs
@@ -1798,12 +1939,15 @@ def fit(
                 v, o, ps = step_fn(lr_now, xb, yb, o, ps)
                 return v, (ps, o, None if e is None else ema_step(e, ps))
 
-        if verbose and mesh is not None:
+        if verbose and mesh is not None and not pipeline_mode:
             print(_memory_line(net, opt, batch_size, mesh, shard_opt_state,
                                zstage, mp_active, offload_opt_state))
 
         evaluate = None
-        if val is not None and mesh is not None:
+        if val is not None and pipeline_mode:
+            evaluate = _staged_evaluate(net, loss, be, as_network, val,
+                                        val_metric)
+        elif val is not None and mesh is not None:
             evaluate = _mesh_evaluate(net, loss, be, mesh,
                                       pins["param_unshard"], val, val_metric)
         elif val is not None:
@@ -1829,8 +1973,8 @@ def fit(
                     _sync_cards(mesh.rank_devices if mesh is not None
                                 else (be.device,))
                 # sharded leaves gather to the host in the checkpoint writer
-                return (save_network_async(checkpoint_path, Network(
-                            net.op, tuple(state[0]), net.act_names)),
+                return (save_network_async(checkpoint_path,
+                                           as_network(state[0])),
                         save_train_state_async(state_path, state[0],
                                                state[1], at, opt_key=opt_key,
                                                ema=state[2],

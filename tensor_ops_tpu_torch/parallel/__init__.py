@@ -4,12 +4,12 @@ of named axes; :func:`make_mesh`, :func:`param_specs`, the sharded leaf
 :class:`Sharded`, the ZeRO rules, :func:`sharded_train_step`,
 :func:`sharded_forward` and :func:`shard_fused`, which ``fit``,
 ``fit_sequences`` and ``Predictor`` run on), the tensor-parallel executor
-of the model axis (``tp``) and the segment matching it runs on
-(``ir_pipeline``), and the GPipe and circular pipelines on a ``stage``
-axis (``pipeline``).  Still to port from the JAX package's ``parallel``:
-the staged-IR pipelines (the rest of ``ir_pipeline``, ROADMAP.md Queue 1
-items 9c-2 and 9c-3), and ``plan`` and ``distributed`` with training in
-several processes (item 9d)."""
+of the model axis (``tp``), the GPipe and circular pipelines of a
+``PipelineMLP`` on a ``stage`` axis (``pipeline``) and the staged-IR
+pipelines of any ``gen_net`` chain (``ir_pipeline``, ``fit``'s pipeline
+mode).  Still to port from the JAX package's ``parallel``: the
+tensor-parallel pipelines (ROADMAP.md Queue 1 item 9c-3), and ``plan`` and
+``distributed`` with training in several processes (item 9d)."""
 
 from .collective_kernels import (RankGroup, dp_megakernel_train_step,
                                  ring_all_gather, ring_all_reduce,
@@ -19,6 +19,15 @@ from .mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh, Sharded, batch_spec,
                    shard_network, sharded_forward, sharded_train_step,
                    zero1_place, zero1_shardings, zero2_grad_constrain,
                    zero3_param_place)
+from .ir_pipeline import (describe_partition, ir_pipeline_grads,
+                          ir_pipeline_train_step, make_ir_pipeline_loss,
+                          partition_network, partition_network_circular,
+                          shard_pipelined_params, split_network,
+                          split_network_circular, split_network_hetero,
+                          split_network_hetero_circular, unchain)
+from .pipeline import (PipelineMLP, make_dp_pipeline_mesh, make_pipeline_mesh,
+                       pipeline_forward, pipeline_train_step,
+                       shard_pipeline_model)
 from .tp import TpNetwork
 
 __all__ = [
@@ -26,13 +35,24 @@ __all__ = [
     "MODEL_AXIS",
     "STAGE_AXIS",
     "Mesh",
+    "PipelineMLP",
     "RankGroup",
     "Sharded",
     "TpNetwork",
     "batch_spec",
+    "describe_partition",
     "dp_megakernel_train_step",
+    "ir_pipeline_grads",
+    "ir_pipeline_train_step",
+    "make_dp_pipeline_mesh",
+    "make_ir_pipeline_loss",
     "make_mesh",
+    "make_pipeline_mesh",
     "param_specs",
+    "partition_network",
+    "partition_network_circular",
+    "pipeline_forward",
+    "pipeline_train_step",
     "place",
     "place_host",
     "ring_all_gather",
@@ -41,8 +61,15 @@ __all__ = [
     "ring_reduce_scatter",
     "shard_fused",
     "shard_network",
+    "shard_pipeline_model",
+    "shard_pipelined_params",
     "sharded_forward",
     "sharded_train_step",
+    "split_network",
+    "split_network_circular",
+    "split_network_hetero",
+    "split_network_hetero_circular",
+    "unchain",
     "zero1_place",
     "zero1_shardings",
     "zero2_grad_constrain",

@@ -468,19 +468,21 @@ def reshard(leaf: Sharded, spec, own: bool = False) -> Sharded:
 
 def reduce_mean(xs, spec, mesh: Mesh) -> Sharded:
     """The mean over the data axis of the ranks' tensors ``xs`` (one per
-    rank in the flat order, each the rank's block of the model dimension
-    the spec marks), on ``spec``: each data group (one per model rank)
+    rank in the flat order, each the rank's block of the dimensions the
+    spec's other axes mark), on ``spec``: each data group (one per rank of
+    the other axes)
     makes its own call, an all-reduce (``ar``) for a spec without the data
     axis, a reduce-scatter (``rs``) over its data dimension otherwise; the
     1/dp is the collective's scale.  With equal shards of a global batch,
     the mean of the ranks' batch means is the global batch mean."""
     spec = _full(spec, xs[0].dim())
     d = _data_dim(spec)
-    dp = mesh.shape[DATA_AXIS]
+    dp = mesh.shape.get(DATA_AXIS, 1)
     shape = list(xs[0].shape)
-    m = _axis_dim(spec, MODEL_AXIS)
-    if m is not None:
-        shape[m] *= mesh.shape[MODEL_AXIS]
+    for axis in mesh.axis_names:
+        m = _axis_dim(spec, axis)
+        if axis != DATA_AXIS and m is not None:
+            shape[m] *= mesh.shape[axis]
     out = list(xs)
     for group in mesh.groups(DATA_AXIS):
         part = [xs[r] for r in group]
@@ -679,25 +681,28 @@ def zero3_param_place(leaves, mesh: Mesh):
 # ---------------------------------------------------------------------------
 
 
-def check_mesh(mesh, caller: str) -> Mesh:
+def check_mesh(mesh, caller: str, stage: bool = False) -> Mesh:
     """Refuse what this package cannot train or serve on: anything but a
-    :class:`Mesh`, a pipeline (``stage``) axis (the pipelines of
-    ``parallel.pipeline`` run on one; ``fit`` and the sharded entry points
-    take it with the staged-IR pipelines, ROADMAP.md Queue 1 item 9c-2),
-    and groups of ranks (along either axis) that are not all on the CPU or
-    all on CUDA cards with peer access between ring neighbours."""
+    :class:`Mesh`; a pipeline (``stage``) axis unless ``stage`` (``fit``'s
+    pipeline mode, the staged-IR pipelines of ``parallel.ir_pipeline``),
+    and beside it a model axis larger than 1 (the 3-D mesh's
+    tensor-parallel pipelines, ROADMAP.md Queue 1 item 9c-3); and groups of
+    ranks (along any axis) that are not all on the CPU or all on CUDA cards
+    with peer access between ring neighbours."""
     from .collective_kernels import RankGroup
 
     names = tuple(getattr(mesh, "axis_names", ()))
-    if STAGE_AXIS in names:
-        raise ValueError(
-            f"{caller}: a mesh with a stage axis (pipeline parallelism) is "
-            f"not ported to the PyTorch package yet (ROADMAP.md, Queue 1 "
-            f"item 9c-2)")
+    if STAGE_AXIS in names and (not stage or dict(mesh.shape).get(
+            MODEL_AXIS, 1) > 1):
+        what = ("a stage mesh with a model axis larger than 1 (the "
+                "tensor-parallel pipelines)" if stage else
+                "a mesh with a stage axis (the 3-D mesh's partitions)")
+        raise ValueError(f"{caller}: {what} is not ported to the PyTorch "
+                         f"package yet (ROADMAP.md, Queue 1 item 9c-3)")
     if not isinstance(mesh, Mesh):
         raise ValueError(f"{caller}: mesh must be a tensor_ops_tpu_torch "
                          f"parallel.Mesh (make_mesh), got {mesh!r}")
-    for axis in (DATA_AXIS, MODEL_AXIS):
+    for axis in mesh.axis_names:
         for group in mesh.groups(axis):
             RankGroup(devices=[mesh.rank_devices[r] for r in group])
     return mesh

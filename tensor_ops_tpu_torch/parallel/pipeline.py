@@ -184,11 +184,22 @@ class _StageSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *xs):
-        return tuple(ring_all_reduce_bidir(list(xs)))
+        return tuple(_sum16(list(xs)))
 
     @staticmethod
     def backward(ctx, *gs):
-        return tuple(ring_all_reduce_bidir([g.contiguous() for g in gs]))
+        return tuple(_sum16([g.contiguous() for g in gs]))
+
+
+def _sum16(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Kernel 9's all-reduce, a 16-bit float crossing as f32 (the kernels
+    move f32 and int32; a stage psum adds zeros to one rank's value, so
+    the round trip is exact)."""
+    dt = xs[0].dtype
+    if dt in (torch.bfloat16, torch.float16):
+        return [y.to(dt) for y in ring_all_reduce_bidir([x.float()
+                                                          for x in xs])]
+    return ring_all_reduce_bidir(xs)
 
 
 class _FeatureGather(torch.autograd.Function):
@@ -248,10 +259,11 @@ def _stage_fn(ws, bs, xs, tp: int):
     return xs
 
 
-def _schedule(lay: _Layout, d: int, leaves, inject, M: int, V: int,
-              fifo: bool) -> List[List[torch.Tensor]]:
+def _schedule(lay: _Layout, d: int, stage: Callable, inject, M: int,
+              V: int, fifo: bool) -> List[List[torch.Tensor]]:
     """Data group ``d``'s ticks: T = V*M + S - 1 of them; at tick t stage
     rank s runs its local chunk v = (t-s) // M on microbatch (t-s) % M
+    (``stage(s, v, xs) -> ys``, one tensor per model rank in and out)
     when 0 <= t-s < V*M, and skips the tick otherwise.  Stage 0 takes
     chunk 0's input from ``inject`` (one list per microbatch, one tensor
     per model rank) and a wrapped chunk's from stage S-1, through a FIFO of
@@ -262,7 +274,6 @@ def _schedule(lay: _Layout, d: int, leaves, inject, M: int, V: int,
     stage: the schedule collects there), one tensor per model rank."""
     S, tp = lay.S, lay.tp
     ranks = lay.rank[d]
-    ws_all, bs_all = leaves[2], leaves[3]
     F = M - S if fifo else 0
     queue = [None] * max(F, 0)
     state = [None] * S
@@ -282,9 +293,7 @@ def _schedule(lay: _Layout, d: int, leaves, inject, M: int, V: int,
                 x_in = inject[m] if v == 0 else x_wrap
             else:
                 x_in = state[s]
-            rs = ranks[s]
-            ys[s] = _stage_fn([ws_all[r][v] for r in rs],
-                              [bs_all[r][v] for r in rs], x_in, tp)
+            ys[s] = stage(s, v, x_in)
             if s == S - 1 and v == V - 1:
                 outputs[m] = ys[s]
         # the ring shift: stage s's outputs to stage s+1's ranks
@@ -298,6 +307,16 @@ def _schedule(lay: _Layout, d: int, leaves, inject, M: int, V: int,
              for y, r in zip(last, ranks[s])] for s in range(S)]
 
 
+def _stage_sum(lay: _Layout, outs) -> None:
+    """``lax.psum`` over each (data, model) stage group of one data group's
+    schedule outputs (:func:`_schedule`), in place: every stage rank then
+    holds the last stage's outputs."""
+    for j in range(lay.tp):
+        summed = _group_op(_StageSum, [outs[s][j] for s in range(lay.S)])
+        for s in range(lay.S):
+            outs[s][j] = summed[s]
+
+
 def _pipelined(lay: _Layout, leaves, xb, M: int, V: int, fifo: bool):
     """The embed -> pipelined body -> project -> softmax chain on every data
     group; returns, per data group, its softmax output (its rows of each
@@ -306,8 +325,7 @@ def _pipelined(lay: _Layout, leaves, xb, M: int, V: int, fifo: bool):
     if B % M:
         raise ValueError(f"the batch ({B} rows) does not split into "
                          f"{M} microbatches")
-    S, tp = lay.S, lay.tp
-    w_in, b_in, _, _, w_out, b_out = leaves
+    w_in, b_in, ws_all, bs_all, w_out, b_out = leaves
     probs = []
     for d in range(lay.dp):
         ranks = lay.rank[d]
@@ -317,11 +335,14 @@ def _pipelined(lay: _Layout, leaves, xb, M: int, V: int, fifo: bool):
                                          w_in[r].T)) for r in ranks[0]]
         inject = [[e.reshape(M, -1, e.shape[-1])[m] for e in emb]
                   for m in range(M)]
-        outs = _schedule(lay, d, leaves, inject, M, V, fifo)
-        for j in range(tp):  # lax.psum over each (data, model) stage group
-            summed = _group_op(_StageSum, [outs[s][j] for s in range(S)])
-            for s in range(S):
-                outs[s][j] = summed[s]
+
+        def stage(s, v, xs, ranks=ranks):
+            rs = ranks[s]
+            return _stage_fn([ws_all[r][v] for r in rs],
+                             [bs_all[r][v] for r in rs], xs, lay.tp)
+
+        outs = _schedule(lay, d, stage, inject, M, V, fifo)
+        _stage_sum(lay, outs)
         z = torch.addmm(b_out[home], outs[0][0], w_out[home].T)
         probs.append(torch.softmax(z, dim=-1))
     return probs

@@ -454,8 +454,8 @@ def test_model_axis_and_foreign_meshes_are_refused():
     """A model axis, refused before it was ported, now runs in every entry
     point that trains or serves on a mesh: sharded_train_step and
     sharded_forward on (2, 2) equal one device.  A mesh that is not the
-    port's, and one with a stage axis (ROADMAP.md Queue 1 item 9c-2), are
-    refused."""
+    port's, and one with a stage axis (the 3-D mesh's partitions, ROADMAP.md
+    Queue 1 item 9c-3), are refused."""
     from tensor_ops_tpu_torch.models.training import (batched_run,
                                                       make_mean_grads)
 
@@ -484,7 +484,7 @@ def test_model_axis_and_foreign_meshes_are_refused():
                lambda m: TM.sharded_forward(tn, TB, m),
                lambda m: TM.shard_network(tn, m),
                lambda m: TM.shard_fused(fm, m)):
-        with pytest.raises(ValueError, match="Queue 1 item 9c-2"):
+        with pytest.raises(ValueError, match="Queue 1 item 9c-3"):
             fn(stage_mesh)
         with pytest.raises(ValueError, match="parallel.Mesh"):
             fn(JM.make_mesh(4, shape=(4, 1)))

@@ -6,8 +6,10 @@ EMA, accumulation and both examples' entry points), chained steps (host
 and device shuffles, both loops), a ``mixed_precision`` bf16 step and a
 2-rank CPU mesh ``fit`` (ZeRO-3, offload, EMA), a tensor-parallel ``fit``
 on a ``(1, 2)`` mesh, ``shard_fused`` serving, the IR layer's
-introspection, tensor helpers and gradient checkers, a ``(2,)`` GPipe step
-and a ``PipelineMLP`` checkpoint run end to end, in a fresh interpreter
+introspection, tensor helpers and gradient checkers, a ``(2,)`` GPipe step,
+a ``PipelineMLP`` checkpoint, the staged-IR pipelines' gradients and
+``fit`` on a ``(2,)`` stage mesh (GPipe and circular, ZeRO-1 on ``(2,
+2)``) run end to end, in a fresh interpreter
 where ``import jax`` fails; ``parallel/tp.py``, ``parallel/ir_pipeline.py``,
 ``parallel/pipeline.py``, ``ops/introspect.py``, ``tensor.py`` and
 ``testing.py`` import on their own there."""
@@ -269,6 +271,21 @@ with tempfile.TemporaryDirectory() as d:
     back = load_pipeline(ck, device="cpu")
     assert all(np.array_equal(np.asarray(a), np.asarray(b))
                for a, b in zip(back.params(), newp))
+# the staged-IR pipelines: the gradients of a heterogeneous partition, and
+# fit's pipeline mode (GPipe, circular, dp x pp with ZeRO-1)
+import tensor_ops_tpu_torch.parallel.ir_pipeline as irp
+netp = gen_net(be, 12, 4, [(8, act_logistic())] * 3, act_softmax(),
+               Rng(be, 0))
+vg, gg = irp.ir_pipeline_grads(netp, cross_entropy(4), be, pm, 2)(
+    Xm, Ym, *irp.partition_network(netp, 2).flat_params())
+assert np.isfinite(float(vg)) and gg[2].spec[0] == "stage"
+for kw in (dict(mesh=pm), dict(mesh=pm, pipeline_schedule="circular"),
+           dict(mesh=pipe.make_dp_pipeline_mesh(2, 2, devices=["cpu"] * 4),
+                shard_opt_state=True)):
+    rp = fit(netp, cross_entropy(4), be, Xm, Ym, batch_size=8,
+             optimizer=adam(), verbose=False, **kw)
+    assert rp.steps == 2 and len(rp.net.params) == len(netp.params)
+assert "balance" in irp.describe_partition(irp.partition_network(netp, 3))
 assert sys.modules["jax"] is None
 print("NAMES", len(names))
 """

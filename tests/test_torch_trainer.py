@@ -310,11 +310,12 @@ def _cpu_mesh(n, shape=None):
     return make_mesh(n, shape=shape, devices=["cpu"] * n)
 
 
-def _StageMesh():
-    """A pipeline mesh: a stage axis (``parallel.pipeline``)."""
+def _StageMesh(tp=1):
+    """A pipeline mesh: a stage axis (``parallel.pipeline``), with a model
+    axis of ``tp``."""
     from tensor_ops_tpu_torch.parallel.pipeline import make_3d_pipeline_mesh
 
-    return make_3d_pipeline_mesh(1, 2, 1, devices=["cpu"] * 2)
+    return make_3d_pipeline_mesh(1, 2, tp, devices=["cpu"] * 2 * tp)
 
 
 # what the mesh slice still refuses (naming its ROADMAP item) and the JAX
@@ -325,20 +326,22 @@ REFUSED = [
     # make_mesh(4) is (1, 4): a model axis, refused before the model axis
     # was ported; it trains now (item None)
     ("mesh=a mesh", dict(mesh=_cpu_mesh(4)), None),
-    ("mesh=a stage axis", dict(mesh=_StageMesh()),
-     "ROADMAP.md, Queue 1 item 9c-2"),
+    # a stage axis trains pipeline-parallel (item None); beside a model
+    # axis larger than 1 it takes the tensor-parallel pipelines
+    ("mesh=a stage axis", dict(mesh=_StageMesh()), None),
+    ("mesh=a stage axis and a model axis", dict(mesh=_StageMesh(2)),
+     "ROADMAP.md, Queue 1 item 9c-3"),
     ("shard_opt_state=True", dict(shard_opt_state=True),
      r"ZeRO-1 \(shard_opt_state/zero_stage\) shards over the mesh's data"),
     ("zero_stage=2", dict(zero_stage=2),
      r"ZeRO-2 \(shard_opt_state/zero_stage\) shards over the mesh's data"),
     ("mesh=batch over 3 ranks", dict(mesh=_cpu_mesh(3, (3, 1))),
      r"batch_size \(20\) must be divisible by the data-axis size \(3\)"),
-    ("pipeline_microbatches=4", dict(pipeline_microbatches=4),
-     "ROADMAP.md, Queue 1 item 9c-2"),
-    ("pipeline_schedule=gpipe", dict(pipeline_schedule="gpipe"),
-     "ROADMAP.md, Queue 1 item 9c-2"),
-    ("pipeline_chunks=2", dict(pipeline_chunks=2),
-     "ROADMAP.md, Queue 1 item 9c-2"),
+    # without a stage axis the pipeline options are unused, as in the JAX
+    # package (they were refused before the pipelines were ported)
+    ("pipeline_microbatches=4", dict(pipeline_microbatches=4), None),
+    ("pipeline_schedule=gpipe", dict(pipeline_schedule="gpipe"), None),
+    ("pipeline_chunks=2", dict(pipeline_chunks=2), None),
 ]
 
 
@@ -348,14 +351,17 @@ def test_unported_options_raise(kw, item):
     """The options of later ROADMAP items raise naming the item, and the
     mesh and ZeRO options raise the JAX package's messages where the
     configuration is wrong (ZeRO without a mesh, a batch that does not
-    split over the data ranks).  A mesh with a model axis, once refused
-    here, trains (``item`` None)."""
+    split over the data ranks).  A mesh with a model axis or a stage axis,
+    and the pipeline options, once refused here, train (``item`` None): a
+    mesh's leaves come back Sharded, a pipeline's as the parameter stack."""
     X, Y, _ = data(20, 1)
     if item is None:
         res = t_fit(tnet(TB, jnet(JNB).params), t_xent(O), TB, X, Y,
                     verbose=False, batch_size=20, epochs=3, lr=0.5,
                     log_every=1, **kw)
-        assert res.steps == 3 and all(hasattr(p, "spec")
+        mesh = kw.get("mesh")
+        sharded = mesh is not None and "stage" not in mesh.axis_names
+        assert res.steps == 3 and all(hasattr(p, "spec") == sharded
                                       for p in res.net.params)
         assert res.history[-1]["loss"] < res.history[0]["loss"]
         return
