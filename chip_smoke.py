@@ -270,14 +270,30 @@ without printing a result line:
    launches; ZeRO-1 bit-equal to replicated, ZeRO-3 to ZeRO-2, offload to
    ZeRO-3), in bf16 (its loss falls), and with ``accum_steps=2`` stopped by
    Ctrl-C and resumed bit-equal; a circular resume of a GPipe checkpoint
-   and a stage mesh with a model axis of 2 refused; the uniform chain's
-   ``fit`` on (4,) at B = 512: samples/s over steps 11-20, one step's wall,
-   kernels, busy time and idle share.
+   refused; the autoencoder on a stage mesh with a model axis of 2, (1, 2,
+   2), trains; the uniform chain's ``fit`` on (4,) at B = 512: samples/s
+   over steps 11-20, one step's wall, kernels, busy time and idle share.
+27. The tensor-parallel pipelines, in the same interpreter after phase 26
+   (phase 26's chains, weights and batches): the uniform chain's body
+   row-split over the model axis through GPipe on (2, 2, 2) and the
+   circular schedule on (1, 2, 2) (M = 4, V = 2, B = 512); the flagship's
+   hetero-tp cut on (1, 3, 2) and the autoencoder's hetero-tp circular
+   cut on (1, 2, 2) (B = 100): each forward, gradient and 5 SGD steps held
+   to the one-device plain chain on the card and to CPU f64, kernel 9's
+   launches equal to ``irp_tp_predicted`` (its all-gathers over each model
+   group between segments and their reduce-scatter transposes among
+   them).  Then ``fit`` of the uniform chain on (2, 2, 2): 5 sgd steps
+   held to ``fit`` on one device, the ZeRO rungs (``IRP_TP_FIT_RUNS``'
+   launches; ZeRO-1 bit-equal to replicated, ZeRO-3 to ZeRO-2, offload to
+   ZeRO-3), ``accum_steps=2`` stopped by Ctrl-C and resumed bit-equal, and
+   20 adam steps at B = 512: samples/s, one step's wall, kernels, busy
+   time and idle share.  The CPU f64 comparisons of phases 26 and 27 run
+   after both.
    ``chip_smoke.cards_main()`` runs only the phases that need several
    cards (the cross-card ring, these 4-card runs, the (2, 2) and (1, 4)
-   fit runs with one rank a card, the (4,) GPipe run and the uniform
-   chain's staged-IR ``fit`` on (4,) with one stage a card, bit-equal to
-   one card) on a four-card machine.
+   fit runs with one rank a card, the (4,) GPipe run, the uniform chain's
+   staged-IR ``fit`` on (4,) with one stage a card and on (1, 2, 2) with
+   one rank a card, each bit-equal to one card) on a four-card machine.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -290,7 +306,7 @@ and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
 come from calling it directly; ``bidir_ring``'s launches add the mesh,
-model-axis and both pipeline phases'.  Kernel 7 appears twice too: as
+model-axis and the three pipeline phases'.  Kernel 7 appears twice too: as
 ``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
 launches for the 8 served sequences, timed at n = 64, B = 1), and as
 ``fused_rnn_step`` the per-step entry (the public per-step function and the
@@ -5312,6 +5328,29 @@ def irp_predicted(shape, n_leaves: int, n_repl: int, train: bool) -> dict:
             + (n_leaves * S if dp > 1 else 0), "rs": 0, "ag": 0}
 
 
+def irp_tp_predicted(shape, M: int, n_segs: int, n_leaves: int,
+                     n_repl: int, train: bool) -> dict:
+    """Kernel 9's launches (ar, rs, ag) of one forward or one SGD step of
+    a staged-IR pipeline on a (dp, S, tp) mesh whose partition row-splits
+    over the model axis, from parallel/ir_pipeline.py: each data group
+    all-gathers every segment's activation over its model group once a
+    microbatch (dp * M * n_segs ag; as many rs transposes in a step), takes
+    the stage psum of its home column (dp; its transpose dp more in a
+    step); the rows gather over the data groups (forward) or the loss
+    averages over them (step) when dp > 1; each replicated leaf's gradient
+    is summed over each data group's stage and model ranks (n_repl * dp),
+    and each leaf's averaged over the data axis on each stage and model
+    rank (n_leaves * S * tp when dp > 1)."""
+    dp, S, tp = shape
+    gathers = dp * M * n_segs * (tp > 1)
+    psum = dp * (S > 1)
+    if not train:
+        return {"ar": psum, "rs": 0, "ag": gathers + (dp > 1)}
+    return {"ar": 2 * psum + n_repl * dp + (dp > 1)
+            + (n_leaves * S * tp if dp > 1 else 0),
+            "rs": gathers, "ag": gathers}
+
+
 def _irp_arrays(chain: str):
     """The chain's parameter arrays (f32, seed 26) and its activations."""
     widths, out_act = IRP_CHAINS[chain]
@@ -5392,8 +5431,8 @@ def _irp_mesh(shape, devices=None):
     from tensor_ops_tpu_torch.parallel import pipeline as PP
 
     n = int(np.prod(shape))
-    make = PP.make_pipeline_mesh if len(shape) == 1 else \
-        PP.make_dp_pipeline_mesh
+    make = (PP.make_pipeline_mesh, PP.make_dp_pipeline_mesh,
+            PP.make_3d_pipeline_mesh)[len(shape) - 1]
     return make(*shape, devices=devices or [DEVICE] * n)
 
 
@@ -5424,10 +5463,17 @@ def _irp_run(name, chain, sched, shape, M, B):
             box[1].append(float(v))
 
     _, counts_s, ph_s = _counted(steps)
-    specs = IP.pipelined_specs(pnet)
+    specs = IP.pipelined_specs(pnet, mesh)
     n_repl = sum("stage" not in s for s in specs)
-    want_f = irp_predicted(shape, len(specs), n_repl, False)
-    want_s = irp_predicted(shape, len(specs), n_repl, True)
+    if len(shape) == 3:
+        n_segs = (pnet.n_body if isinstance(pnet, IP.PipelinedNetwork) else
+                  sum(len(ops) for ops in getattr(pnet, "stage_ops", None)
+                      or pnet.chunk_ops))
+        want_f, want_s = (irp_tp_predicted(shape, M, n_segs, len(specs),
+                                           n_repl, t) for t in (False, True))
+    else:
+        want_f, want_s = (irp_predicted(shape, len(specs), n_repl, t)
+                          for t in (False, True))
     for got, want, what in ((ph_f, want_f, "forward"),
                             (ph_g, want_s, "gradient"),
                             (ph_s, {k: IRP_STEPS * n for k, n in
@@ -5443,17 +5489,25 @@ def _irp_run(name, chain, sched, shape, M, B):
                 per=(want_f, want_s), text=IP.describe_partition(pnet))
 
 
-def phase_ir_pipelines(tmp: str) -> dict:
-    """The staged-IR pipelines and fit's pipeline mode on the card (phase
-    26): returns kernel 9's launches."""
-    launches = {n: 0 for n in RING_NAMES}
-    plain = {}
-    runs = {}
-    for name, chain, sched, shape, M, B in IRP_RUNS:
+_IRP_PLAIN = {}
+
+
+def _irp_plain_cached(chain: str, B: int, device, dtype):
+    """:func:`_irp_plain` of the chain's seeded batch of ``B`` rows, once a
+    process (phases 26 and 27 hold the same chains to it)."""
+    key = (chain, B, str(device), dtype)
+    if key not in _IRP_PLAIN:
         X, Y = _irp_batch(chain, B)
-        if (chain, B) not in plain:
-            plain[chain, B] = _irp_plain(chain, X, Y, DEVICE, torch.float32)
-        ref = plain[chain, B]
+        _IRP_PLAIN[key] = _irp_plain(chain, X, Y, device, dtype)
+    return _IRP_PLAIN[key]
+
+
+def _irp_forms(forms) -> tuple:
+    """Each form of ``forms`` (IRP_RUNS' tuples) on the card against the
+    one-device plain chain; returns (kernel 9's launches, the runs)."""
+    total, runs = 0, {}
+    for name, chain, sched, shape, M, B in forms:
+        ref = _irp_plain_cached(chain, B, DEVICE, torch.float32)
         run = _irp_run(name, chain, sched, shape, M, B)
         runs[name] = (chain, B, run)
         tol_out = TOL_P if IRP_CHAINS[chain][1] == "softmax" else TOL_Z
@@ -5466,7 +5520,7 @@ def phase_ir_pipelines(tmp: str) -> dict:
                   for a, b in zip(run["params"], ref["params"]))
         check(run["losses"][-1] < run["losses"][0], f"ir pipeline {name}: "
               f"the loss did not fall ({run['losses']})")
-        launches["bidir_ring"] += run["launches"]
+        total += run["launches"]
         log(f"[irp] {name} on {shape} ({run['kind']}, {sched}, M={M}, "
             f"B={B}, {'-'.join(map(str, IRP_CHAINS[chain][0][:3]))}..."
             f"{IRP_CHAINS[chain][0][-1]}): vs the one-device plain chain on "
@@ -5476,31 +5530,40 @@ def phase_ir_pipelines(tmp: str) -> dict:
             f"{TOL_5_STEPS[1]:g}|ref|); loss {run['losses'][0]:.4f} -> "
             f"{run['losses'][-1]:.4f}; kernel 9 a forward {run['per'][0]}, "
             f"a step {run['per'][1]}, as predicted")
+    return total, runs
+
+
+def irp_cpu_check(runs: dict) -> None:
+    """Every form of phases 26 and 27 against the plain chain in CPU f64
+    (after both: a full-width CPU run in a process that profiles the card
+    can leave the profiler losing device events)."""
+    for name, (chain, B, run) in runs.items():
+        cpu = _irp_plain_cached(chain, B, "cpu", torch.float64)
+        tol_out = TOL_P if IRP_CHAINS[chain][1] == "softmax" else TOL_Z
+        e_f = max_err(run["out"], cpu["out"], tol_out)
+        e_g = max(max_err(a, b_, TOL_P)
+                  for a, b_ in zip(run["grads"], cpu["grads"]))
+        e_l = max_err(torch.tensor(run["losses"]),
+                      torch.tensor(cpu["losses"]), TOL_5_STEPS)
+        e_p = max(max_err(a, b_, TOL_5_STEPS)
+                  for a, b_ in zip(run["params"], cpu["params"]))
+        log(f"[irp] {name} vs the CPU f64 plain chain: forward max|err| "
+            f"{e_f:.2e}, gradients {e_g:.2e}, losses {e_l:.2e}, params "
+            f"{e_p:.2e}")
+
+
+def phase_ir_pipelines(tmp: str) -> tuple:
+    """The staged-IR pipelines and fit's pipeline mode on the card (phase
+    26): returns kernel 9's launches and the forms' runs (held to CPU f64
+    by :func:`irp_cpu_check`)."""
+    launches = {n: 0 for n in RING_NAMES}
+    n, runs = _irp_forms(IRP_RUNS)
+    launches["bidir_ring"] += n
     log("[irp] partitions: " + " | ".join(
         runs[n][2]["text"].splitlines()[0] for n in ("gpipe", "hetero",
                                                      "hetero circular")))
-    fit_launches = phase_ir_fit(tmp)
-    launches["bidir_ring"] += fit_launches
-    # the CPU f64 plain chains, last (a full-width CPU run in a process
-    # that profiles the card can leave the profiler losing device events)
-    for (chain, B), ref in plain.items():
-        X, Y = _irp_batch(chain, B)
-        cpu = _irp_plain(chain, X, Y, "cpu", torch.float64)
-        tol_out = TOL_P if IRP_CHAINS[chain][1] == "softmax" else TOL_Z
-        for name, (c, b, run) in runs.items():
-            if (c, b) != (chain, B):
-                continue
-            e_f = max_err(run["out"], cpu["out"], tol_out)
-            e_g = max(max_err(a, b_, TOL_P)
-                      for a, b_ in zip(run["grads"], cpu["grads"]))
-            e_l = max_err(torch.tensor(run["losses"]),
-                          torch.tensor(cpu["losses"]), TOL_5_STEPS)
-            e_p = max(max_err(a, b_, TOL_5_STEPS)
-                      for a, b_ in zip(run["params"], cpu["params"]))
-            log(f"[irp] {name} vs the CPU f64 plain chain: forward max|err| "
-                f"{e_f:.2e}, gradients {e_g:.2e}, losses {e_l:.2e}, params "
-                f"{e_p:.2e}")
-    return launches
+    launches["bidir_ring"] += phase_ir_fit(tmp)
+    return launches, runs
 
 
 def _irp_fit(chain, shape, X, Y, M, devices=None, **kw):
@@ -5517,6 +5580,21 @@ def _irp_fit(chain, shape, X, Y, M, devices=None, **kw):
     return _counted(lambda: fit(net, loss, be, X, Y, **extra, **kw))
 
 
+_IRP_ONE = {}
+
+
+def _irp_fit_one(chain, X, Y, B):
+    """5 sgd steps of ``fit`` of the chain on one device (unchained), once
+    a process for a given batch."""
+    from tensor_ops_tpu_torch.models import sgd
+
+    key = (chain, len(X), B)
+    if key not in _IRP_ONE:
+        _IRP_ONE[key] = _irp_fit(chain, None, X, Y, 4, batch_size=B,
+                                 optimizer=sgd(), chain_steps=1)[0]
+    return _IRP_ONE[key]
+
+
 def _irp_whole(res):
     return [p.to(DEVICE) for p in res.net.params]
 
@@ -5531,8 +5609,7 @@ def phase_ir_fit(tmp: str) -> int:
     for chain, shape, M, B in (("flagship", (2, 2), IRP_FIT_M, IRP_FIT_B),
                                ("uniform", (4,), 4, IRP_SGD_B)):
         X, Y = tX[:5 * B], tY[:5 * B]
-        one, _, _ = _irp_fit(chain, None, X, Y, M, batch_size=B,
-                             optimizer=sgd(), chain_steps=1)
+        one = _irp_fit_one(chain, X, Y, B)
         pp, _, ph = _irp_fit(chain, shape, X, Y, M, batch_size=B,
                              optimizer=sgd())
         total += sum(ph.values())
@@ -5621,40 +5698,52 @@ def phase_ir_fit(tmp: str) -> int:
     log(f"[irp] fit flagship on (2, 2), accum_steps=2: Ctrl-C at step "
         f"{IRP_CRASH}, resumed to the budget: bit-equal to the straight run")
 
-    # a circular resume of a GPipe checkpoint, and a model axis of 2
-    from tensor_ops_tpu_torch.parallel import pipeline as PP
+    # a circular resume of a GPipe checkpoint is refused; a stage mesh with
+    # a model axis of 2 trains (the autoencoder's hetero-tp cut)
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import fit
 
     ck2 = os.path.join(tmp, "irp_layout.npz")
     _irp_fit("autoencoder", (2,), X[:200], X[:200], 2, batch_size=100,
              checkpoint_path=ck2, checkpoint_every=1)
-    for what, kw in (
-            ("layout", dict(mesh=_irp_mesh((2,)), pipeline_schedule="circular",
-                            checkpoint_path=ck2, resume=True)),
-            ("9c-3", dict(mesh=PP.make_3d_pipeline_mesh(
-                1, 2, 2, devices=[DEVICE] * 4)))):
-        from tensor_ops_tpu_torch import TorchBackend
-        from tensor_ops_tpu_torch.models import fit
-
-        be = TorchBackend(torch.float32, DEVICE)
-        net, loss = _irp_net("autoencoder", be)
-        try:
-            fit(net, loss, be, X[:200], X[:200], batch_size=100,
-                pipeline_microbatches=2, verbose=False, **kw)
-            check(False, f"ir fit: not refused ({what})")
-        except ValueError as e:
-            check(what in str(e), f"ir fit: refused with {e!r}, not naming "
-                  f"{what}")
-    log("[irp] a circular resume of a GPipe checkpoint is refused by its "
-        "layout; a stage mesh with a model axis of 2 names item 9c-3")
+    be = TorchBackend(torch.float32, DEVICE)
+    net, loss = _irp_net("autoencoder", be)
+    try:
+        fit(net, loss, be, X[:200], X[:200], batch_size=100,
+            pipeline_microbatches=2, verbose=False, mesh=_irp_mesh((2,)),
+            pipeline_schedule="circular", checkpoint_path=ck2, resume=True)
+        check(False, "ir fit: a circular resume of a GPipe checkpoint was "
+              "not refused")
+    except ValueError as e:
+        check("layout" in str(e), f"ir fit: refused with {e!r}, not naming "
+              f"the layout")
+    res, _, ph = _irp_fit("autoencoder", (1, 2, 2), X[:400], X[:400], 2,
+                          batch_size=100)
+    total += sum(ph.values())
+    h = res.history
+    check(res.steps == 4 and h[-1]["loss"] < h[0]["loss"] and ph["ag"] > 0,
+          f"ir fit on (1, 2, 2): {res.steps} steps, loss {h[0]['loss']} -> "
+          f"{h[-1]['loss']}, kernel 9 {ph}")
+    log(f"[irp] a circular resume of a GPipe checkpoint is refused by its "
+        f"layout; the autoencoder on (1, 2, 2) (a model axis of 2) trains: "
+        f"loss {h[0]['loss']:.4f} -> {h[-1]['loss']:.4f} in 4 steps, kernel "
+        f"9 {ph}")
 
     # samples/s of the uniform chain's fit on (4,) (adam, M=4), and one
     # step's wall, kernels, busy time and idle share
+    return total + _irp_timing(tX, tY, (4,), 4)
+
+
+def _irp_timing(tX, tY, shape, M: int) -> int:
+    """The uniform chain's fit on ``shape`` (adam, M microbatches, B =
+    IRP_TIMED_B, IRP_TIMED steps): samples/s over the later steps; then one
+    step's wall (host clock), kernels, busy time and idle share.  Returns
+    kernel 9's launches of the fit."""
     B = IRP_TIMED_B
     Xu = np.concatenate([tX] * (-(-IRP_TIMED * B // len(tX))))[:IRP_TIMED * B]
     Yu = np.concatenate([tY] * (-(-IRP_TIMED * B // len(tY))))[:IRP_TIMED * B]
-    res, _, ph = _irp_fit("uniform", (4,), Xu, Yu, 4, batch_size=B,
+    res, _, ph = _irp_fit("uniform", shape, Xu, Yu, M, batch_size=B,
                           optimizer=_opt("adam"))
-    total += sum(ph.values())
     rate, first_ms = _fit_rate(res, B)
     from tensor_ops_tpu_torch import TorchBackend
     from tensor_ops_tpu_torch.models.trainer import _mesh_setup, make_opt_step
@@ -5662,14 +5751,15 @@ def phase_ir_fit(tmp: str) -> int:
 
     be = TorchBackend(torch.float32, DEVICE)
     net, loss = _irp_net("uniform", be)
-    mesh = _irp_mesh((4,))
-    part = IP.partition_network(net, 4, mesh)
+    mesh = _irp_mesh(shape)
+    part = IP.partition_network(net, shape[-2 if len(shape) == 3 else -1],
+                                mesh)
     opt = _opt("adam")
     params, state, pins = _mesh_setup(part.flat_params(),
-                                      IP.pipelined_specs(part), opt, mesh,
-                                      be, 0)
+                                      IP.pipelined_specs(part, mesh), opt,
+                                      mesh, be, 0)
     step_fn = make_opt_step(net, loss, be, opt, mesh=mesh,
-                            pipeline=(part.skeleton(), 4, "gpipe"), **pins)
+                            pipeline=(part.skeleton(), M, "gpipe"), **pins)
     xb = be.asarray(Xu[:B].astype(np.float32))
     yb = be.asarray(Yu[:B].astype(np.float32))
     box = [state, params]
@@ -5689,15 +5779,186 @@ def phase_ir_fit(tmp: str) -> int:
     prof = _profile_steps(one_step, steps=3)
     top = ", ".join(f"{k} {us:.1f} us" for k, us in
                     list(prof["by_kernel"].items())[:6])
-    log(f"[irp] fit uniform 784->2048x9->10 on (4,) (gpipe, M=4, B={B}, "
-        f"adam): {rate:.1f} samples/s over steps {FIT_TIMED_FROM + 1}-"
-        f"{res.steps} (host clock at the log boundaries); first step "
-        f"{first_ms:.1f} ms; one step {wall_us:.1f} us wall (host clock, 5 "
-        f"steps between synchronises), {prof['launches']:.0f} kernels and "
-        f"{prof['copies']:.0f} copies a step, device busy "
-        f"{prof['busy_us']:.1f} us, idle share "
+    log(f"[irp] fit uniform 784->2048x9->10 on {shape} (gpipe, M={M}, "
+        f"B={B}, adam, {type(part).__name__}): {rate:.1f} samples/s over "
+        f"steps {FIT_TIMED_FROM + 1}-{res.steps} (host clock at the log "
+        f"boundaries); first step {first_ms:.1f} ms; one step "
+        f"{wall_us:.1f} us wall (host clock, 5 steps between synchronises), "
+        f"{prof['launches']:.0f} kernels and {prof['copies']:.0f} copies a "
+        f"step, device busy {prof['busy_us']:.1f} us, idle share "
         f"{1 - prof['busy_us'] / wall_us:.3f}; most device time: {top}")
-    return total
+    return sum(ph.values())
+
+
+# Phase 27: the tensor-parallel pipelines on the (data, stage, model) mesh,
+# at phase 26's widths and seeds: the uniform chain's body row-split over
+# the model axis (GPipe on (2, 2, 2), circular on (1, 2, 2)), the
+# flagship's hetero-tp cut on (1, 3, 2) and the autoencoder's hetero-tp
+# circular cut on (1, 2, 2).  (name, chain, schedule, mesh shape,
+# microbatches, batch rows.)
+IRP_TP_RUNS = (
+    ("uniform tp", "uniform", "gpipe", (2, 2, 2), 4, 512),
+    ("uniform tp circular", "uniform", "circular", (1, 2, 2), 4, 512),
+    ("hetero tp", "flagship", "gpipe", (1, 3, 2), 4, 100),
+    ("hetero tp circular", "autoencoder", "circular", (1, 2, 2), 2, 100),
+)
+# fit of the uniform chain on (2, 2, 2) (M = 4, B = IRP_SGD_B, adam,
+# IRP_TP_FIT_STEPS steps) through the ZeRO rungs; kernel 9's launches per
+# step, (ar, rs, ag): each data group's activation gathers over its model
+# group, 4 microbatches x 8 body segments (64 ag for the 2 groups, 64 rs
+# transposes), the stage psum and its transpose (4), the 4 replicated
+# leaves' gradient sums over each data group's 4 ranks (8), the loss over
+# the data groups (1) and each of the 6 leaves' gradient averaged over the
+# data axis on each of the 4 (stage, model) ranks (24 ar; ZeRO-2 and 3
+# reduce-scatter the 5 leaves with a free dimension dp divides: 20 rs and
+# 4 ar).  ZeRO-1 and 2 gather those 5 updated leaves (20 ag), ZeRO-3
+# gathers them at use instead, and once more at the run's end (the
+# returned parameter stack, 20 ag a run).
+IRP_TP_FIT_STEPS = 5
+# adam at IRP_LR drives the 2048-wide chain's loss up within 5 steps; the
+# rungs and the crash/resume chain take a step size at which it falls
+IRP_TP_ADAM_LR = 3e-5
+IRP_TP_FIT_RUNS = (
+    ("replicated", {}, (37, 64, 64), 0),
+    ("zero1", dict(shard_opt_state=True), (37, 64, 84), 0),
+    ("zero2", dict(zero_stage=2), (17, 84, 84), 0),
+    ("zero3", dict(zero_stage=3), (17, 84, 84), 20),
+    ("zero3+offload", dict(zero_stage=3, offload_opt_state=True),
+     (17, 84, 84), 20),
+)
+
+
+def phase_ir_tp(tmp: str) -> tuple:
+    """The tensor-parallel pipelines on the card (phase 27): returns kernel
+    9's launches and the forms' runs (held to CPU f64 by
+    :func:`irp_cpu_check`)."""
+    launches = {n: 0 for n in RING_NAMES}
+    n, runs = _irp_forms(IRP_TP_RUNS)
+    launches["bidir_ring"] += n
+    log("[irp-tp] partitions: " + " | ".join(
+        runs[n][2]["text"].splitlines()[0] for n in (
+            "hetero tp", "hetero tp circular")))
+    launches["bidir_ring"] += phase_ir_tp_fit(tmp)
+    return launches, runs
+
+
+def phase_ir_tp_fit(tmp: str) -> int:
+    """fit of the uniform chain on (2, 2, 2) on the card: returns kernel 9's
+    launches."""
+    from tensor_ops_tpu_torch.models import sgd
+
+    tX, tY, _, _ = synthetic_set(tmp)
+    shape, M, B = (2, 2, 2), 4, IRP_SGD_B
+    total = 0
+    # 5 sgd steps against fit on one device, the same batches
+    X, Y = tX[:5 * B], tY[:5 * B]
+    one = _irp_fit_one("uniform", X, Y, B)
+    pp, _, ph = _irp_fit("uniform", shape, X, Y, M, batch_size=B,
+                         optimizer=sgd())
+    total += sum(ph.values())
+    e_l = max_err(torch.tensor([h["loss"] for h in pp.history]),
+                  torch.tensor([h["loss"] for h in one.history]),
+                  TOL_5_STEPS)
+    e_p = max(max_err(a, b, TOL_5_STEPS)
+              for a, b in zip(_irp_whole(pp), _irp_whole(one)))
+    log(f"[irp-tp] fit uniform on {shape} (M={M}, B={B}), 5 sgd steps vs "
+        f"fit on one device: losses max|err| {e_l:.2e}, params {e_p:.2e} "
+        f"(tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|)")
+
+    # the ZeRO rungs (adam)
+    n = IRP_TP_FIT_STEPS * B
+    X, Y = tX[:n], tY[:n]
+    runs = {}
+    for name, zkw, per_step, end in IRP_TP_FIT_RUNS:
+        res, counts, ph = _irp_fit("uniform", shape, X, Y, M, batch_size=B,
+                                   optimizer=_opt("adam"),
+                                   lr=IRP_TP_ADAM_LR, **zkw)
+        want = {p: IRP_TP_FIT_STEPS * k for p, k in zip(("ar", "rs", "ag"),
+                                                         per_step)}
+        want["ag"] += end
+        check(ph == want and counts["bidir_ring.ring"] == 0,
+              f"ir tp fit {name}: kernel 9 launches {ph}, the design "
+              f"predicts {want}")
+        h = res.history
+        check(res.steps == IRP_TP_FIT_STEPS and h[-1]["loss"] < h[0]["loss"],
+              f"ir tp fit {name}: {res.steps} steps, loss {h[0]['loss']} -> "
+              f"{h[-1]['loss']}")
+        total += sum(ph.values())
+        runs[name] = res
+    for a, b in (("zero1", "replicated"), ("zero3", "zero2"),
+                 ("zero3+offload", "zero3")):
+        check(_bit_equal(runs[a], runs[b]), f"ir tp fit: {a} differs from "
+              f"{b}")
+    e = max(max_err(a, b, TOL_MESH) for a, b in
+            zip(runs["zero2"].net.params, runs["replicated"].net.params))
+    log(f"[irp-tp] fit uniform on {shape} (M={M}, B={B}, adam, "
+        f"{IRP_TP_FIT_STEPS} steps): kernel 9 per step "
+        f"{', '.join(f'{n} {p}' for n, _, p, _ in IRP_TP_FIT_RUNS)} (+20 ag "
+        f"at a ZeRO-3 run's end) as predicted; zero1 bit-equal to "
+        f"replicated, zero3 to zero2, zero3+offload to zero3; zero2 vs "
+        f"replicated params max|err| {e:.2e}; loss "
+        f"{runs['replicated'].history[0]['loss']:.4f} -> "
+        f"{runs['replicated'].history[-1]['loss']:.4f}")
+
+    # accum_steps=2, Ctrl-C at step IRP_CRASH, resumed: bit-equal
+    n = (IRP_CRASH + 3) * B
+    X, Y = tX[:n], tY[:n]
+    ck = os.path.join(tmp, "irp_tp.npz")
+    akw = dict(batch_size=B, accum_steps=2, optimizer=_opt("adam"),
+               lr=IRP_TP_ADAM_LR)
+    straight, _, ph = _irp_fit("uniform", shape, X, Y, M, **akw)
+    total += sum(ph.values())
+
+    def boom(s):
+        if s == IRP_CRASH:
+            raise KeyboardInterrupt
+        return IRP_TP_ADAM_LR
+
+    try:
+        _, _, ph = _irp_fit("uniform", shape, X, Y, M, lr_schedule=boom,
+                            checkpoint_path=ck, **akw)
+        check(False, "the interrupted tensor-parallel fit did not stop")
+    except KeyboardInterrupt:
+        pass
+    resumed, _, ph = _irp_fit("uniform", shape, X, Y, M,
+                              lr_schedule=lambda s: IRP_TP_ADAM_LR,
+                              checkpoint_path=ck, resume=True, **akw)
+    total += sum(ph.values())
+    check(resumed.history[0]["step"] == IRP_CRASH + 1 and all(
+        torch.equal(a, b) for a, b in zip(resumed.net.params,
+                                          straight.net.params)),
+          "ir tp fit: the accum_steps=2 crash/resume chain differs from the "
+          "straight run")
+    log(f"[irp-tp] fit uniform on {shape}, accum_steps=2: Ctrl-C at step "
+        f"{IRP_CRASH}, resumed to the budget: bit-equal to the straight run")
+
+    # samples/s, one step's wall, kernels, busy time and idle share
+    return total + _irp_timing(tX, tY, shape, M)
+
+
+def phase_ir_tp_cards(tmp: str) -> None:
+    """The uniform chain's fit on (1, 2, 2) with one rank a card (5 sgd
+    steps): bit-equal to the same run with the 4 ranks on one card."""
+    from tensor_ops_tpu_torch.models import sgd
+
+    tX, tY, _, _ = synthetic_set(tmp)
+    X, Y = tX[:5 * IRP_SGD_B], tY[:5 * IRP_SGD_B]
+    shape = (1, 2, 2)
+    one, _, _ = _irp_fit("uniform", shape, X, Y, 4, batch_size=IRP_SGD_B,
+                         optimizer=sgd())
+    four, counts, _ = _irp_fit("uniform", shape, X, Y, 4,
+                               devices=[f"cuda:{i}" for i in range(4)],
+                               batch_size=IRP_SGD_B, optimizer=sgd())
+    same = ([h["loss"] for h in one.history]
+            == [h["loss"] for h in four.history]
+            and all(torch.equal(a.to(DEVICE), b) for a, b in
+                    zip(four.net.params, one.net.params)))
+    check(counts["bidir_ring.ring"] > 0 and same,
+          f"ir tp fit (1, 2, 2) on 4 cards: {counts['bidir_ring.ring']} "
+          f"ring launches, bit-equal to one card: {same}")
+    log(f"[irp-tp] fit uniform on (1, 2, 2) with one rank a card: "
+        f"{counts['bidir_ring.ring']} ring-protocol launches; 5 sgd steps' "
+        f"losses and parameters bit-equal to the 4 ranks on one card")
 
 
 def phase_ir_pipeline_cards(tmp: str) -> None:
@@ -5743,13 +6004,14 @@ def cards_main() -> None:
         timed("mesh on 4 cards", phase_mesh_cards, f, runs, tmp)
         timed("model axis on 4 cards", phase_model_axis_cards, f, tmp)
         timed("staged-IR fit on 4 cards", phase_ir_pipeline_cards, tmp)
+        timed("tensor-parallel pipeline fit on 4 cards", phase_ir_tp_cards,
+              tmp)
     timed("pipelines on 4 cards", phase_pipeline_cards)
 
 
 def mesh_main(out: str) -> None:
-    """Phases 23, 24, 25 and 26 in their own interpreter (after every profiled
-    phase of the smoke's process); writes their kernel launches to
-    ``out``."""
+    """Phases 23 to 27 in their own interpreter (after every profiled phase
+    of the smoke's process); writes their kernel launches to ``out``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
@@ -5757,15 +6019,19 @@ def mesh_main(out: str) -> None:
         tp = timed("model axis", phase_model_axis, tmp)
     pipe = timed("pipelines", phase_pipelines)
     with tempfile.TemporaryDirectory() as tmp:
-        irp = timed("staged-IR pipelines", phase_ir_pipelines, tmp)
+        irp, runs = timed("staged-IR pipelines", phase_ir_pipelines, tmp)
+        irp_tp, runs_tp = timed("tensor-parallel pipelines", phase_ir_tp,
+                                tmp)
+    timed("staged-IR pipelines vs CPU f64", irp_cpu_check,
+          dict(runs, **runs_tp))
     for n in RING_NAMES:
-        launches[n] += tp[n] + pipe[n] + irp[n]
+        launches[n] += tp[n] + pipe[n] + irp[n] + irp_tp[n]
     with open(out, "w") as f:
         json.dump(launches, f)
 
 
 def phase_mesh_proc(tmp: str) -> dict:
-    """Run :func:`mesh_main` (phases 23-25) in a second interpreter;
+    """Run :func:`mesh_main` (phases 23-27) in a second interpreter;
     its lines print as they come; returns its kernel launches."""
     here = os.path.dirname(os.path.abspath(__file__))
     out = os.path.join(tmp, "mesh_launches.json")
@@ -5773,7 +6039,7 @@ def phase_mesh_proc(tmp: str) -> dict:
     proc = subprocess.run(
         [sys.executable, "-c", "import sys, chip_smoke; "
          "chip_smoke.mesh_main(sys.argv[1])", out],
-        timeout=600, cwd=here, env=dict(os.environ, PYTHONPATH=here))
+        timeout=800, cwd=here, env=dict(os.environ, PYTHONPATH=here))
     check(proc.returncode == 0, f"the mesh phase failed (exit "
           f"{proc.returncode})")
     with open(out) as f:
@@ -5877,7 +6143,7 @@ def main() -> int:
         launches[n] = dp[n]["launches"]
         launches[f"{n}.ring"] = dp[n]["protocol launches"]
     # and kernel 9 on the mesh's fit and fit_sequences runs and the model
-    # axis's serving and training and the pipelines (phases 23-25)
+    # axis's serving and training and the pipelines (phases 23-27)
     for n in RING_NAMES:
         launches[n] += mesh_launches[n]
     least = bounds()

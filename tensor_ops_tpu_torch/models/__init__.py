@@ -6,9 +6,9 @@ mixed precision and step chaining, ``chain``), recurrent networks
 (``recurrent``), the autoencoder (``autoencoder``), the kernel-fused
 ``FusedMLP``, ``FusedRNN`` and ``FusedAutoencoder``, the int8
 ``QuantizedMLP``, and the ``Predictor`` and ``SequencePredictor`` that serve
-them.  ``fit`` trains pipeline-parallel on a mesh with a ``stage`` axis
-(``parallel.ir_pipeline``); its tensor-parallel pipelines come in a later
-slice (ROADMAP.md, Queue 1 item 9c-3)."""
+them.  ``fit`` trains pipeline-parallel on a mesh with a ``stage`` axis, and
+tensor-parallel beside it on a ``(data, stage, model)`` mesh
+(``parallel.ir_pipeline``)."""
 
 from . import (autoencoder, batched, chain, fast, feedforward, neuralnet,
                optim, recurrent, serve, trainer, training)

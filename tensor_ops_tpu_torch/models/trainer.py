@@ -37,11 +37,11 @@ axis is larger than 1), and reduces and gathers through kernel 9's
 collectives; ``offload_opt_state`` keeps the optimizer state in pinned
 host memory between steps.  A mesh with a ``stage`` axis trains
 pipeline-parallel over the staged IR (``parallel.ir_pipeline``: the
-partition's leaves on the stage axis, each data group's microbatches
+partition's leaves on the stage axis, and on a ``(data, stage, model)``
+mesh row-split over the model axis too, each data group's microbatches
 through the schedule, the same ZeRO ladder and step).  A mesh or an
-offloaded state runs unchained.  ``profile_dir`` (item 8), a stage mesh
-with a model axis (item 9c-3) and several processes (item 9d) raise
-``ValueError`` naming their ROADMAP item.
+offloaded state runs unchained.  ``profile_dir`` (item 8) and several
+processes (item 9d) raise ``ValueError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -442,8 +442,10 @@ def _clip_mesh(grads, max_norm: float):
     apart, of those on both it and another axis), then over each group of
     the other axes (the model axis, or the stage axis) the sums of the
     leaves on those axes alone plus the data groups' sums of those on
-    both; each rank adds the whole gradients' sums, so every block counts
-    once however many ranks hold it."""
+    both, each block there from the first rank of the group that holds it
+    (a leaf of a 3-D mesh may lie on the stage axis and whole over the
+    model axis); each rank adds the whole gradients' sums, so every block
+    counts once however many ranks hold it."""
     from ..parallel.mesh import DATA_AXIS, Sharded, ring_all_reduce_bidir
 
     mesh = grads[0].mesh
@@ -454,6 +456,10 @@ def _clip_mesh(grads, max_norm: float):
         return g.dim is not None, any(a in g.spec and mesh.shape[a] > 1
                                       for a in inner)
 
+    def holds(g, r):
+        # rank r is the first of its inner group to hold its block of g
+        return all(mesh.coord(r, a) == 0 for a in inner if a not in g.spec)
+
     kinds = {kind(g) for g in grads}
     if kinds == {(False, False)}:
         per_rank = [clip_by_global_norm(tuple(g.shards[r] for g in grads),
@@ -463,7 +469,7 @@ def _clip_mesh(grads, max_norm: float):
             x = grads[0].shards[r]
             part = torch.zeros((), dtype=x.dtype, device=x.device)
             for g in grads:
-                if kind(g) == k:
+                if kind(g) == k and (not k[1] or holds(g, r)):
                     part = part + (g.shards[r] * g.shards[r]).sum()
             return part
 
@@ -1186,9 +1192,9 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
                         zstage: int, offload_opt_state: bool, batch_size: int,
                         chain_steps) -> int:
     """The JAX package's eager checks of the mesh, ZeRO and offload options
-    both loops share, and the refusals of what this package does not run
-    (a stage axis beside a model axis: item 9c-3; several processes: item
-    9d; ``fit_sequences`` refuses a stage axis before this).  Returns the
+    both loops share, and the refusal of what this package does not run
+    (several processes: item 9d; ``fit_sequences`` refuses a stage axis
+    before this).  Returns the
     data-axis size (1 without a mesh or data axis).  A pipeline's batch is
     checked by its microbatch grid instead (``fit``)."""
     if shard_opt_state and mesh is None:
@@ -1216,7 +1222,7 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
 
     if be.name != "torch":
         raise ValueError("mesh sharding requires the torch backend")
-    check_mesh(mesh, caller, stage=True)
+    check_mesh(mesh, caller)
     dp = dict(mesh.shape).get(DATA_AXIS, 1)
     if STAGE_AXIS not in mesh.axis_names and batch_size % dp != 0:
         raise ValueError(
@@ -1678,13 +1684,17 @@ def fit(
     ``verbose`` a mesh run prints ``training_memory_report``'s line.
 
     A mesh with a ``stage`` axis (``parallel.make_pipeline_mesh(S)`` /
-    ``make_dp_pipeline_mesh(D, S)``) trains PIPELINE-parallel over the
+    ``make_dp_pipeline_mesh(D, S)`` / ``make_3d_pipeline_mesh(D, S, T)``)
+    trains PIPELINE-parallel over the
     staged IR: the network is cut at its composition points
     (``parallel.partition_network``, or ``partition_network_circular``
     under ``pipeline_schedule="circular"`` with ``pipeline_chunks`` chunks
     a stage rank; ``verbose`` prints ``describe_partition``), each stage
     rank runs its segments' sub-graphs with their own transposition as
-    the backward, and each accumulation chunk flows through the schedule
+    the backward (on a model axis > 1 each model rank its row block of
+    each segment, between segments kernel 9's all-gather, when the
+    partition row-splits; else the model axis sits idle, with a warning),
+    and each accumulation chunk flows through the schedule
     as ``pipeline_microbatches`` microbatches (each split over the data
     axis), with the same optimizer, clip, schedule, ZeRO ladder, offload,
     EMA and checkpoint surface.  Ragged last batches are dropped (an
@@ -1696,8 +1706,8 @@ def fit(
     (``val`` runs each segment there).  Without a stage axis the
     ``pipeline_*`` options are unused, as in the JAX package.
 
-    ``profile_dir`` (item 8) and a stage mesh with a model axis larger
-    than 1 (item 9c-3) raise ``ValueError`` naming their ROADMAP item."""
+    ``profile_dir`` (item 8) raises ``ValueError`` naming its ROADMAP
+    item."""
     mp_mode = _check_mp(mixed_precision, be)
     _check_later("fit", profile_dir)
     shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
@@ -1782,8 +1792,8 @@ def fit(
         if verbose:
             print(IP.describe_partition(part))
         params, opt_state, pins = _mesh_setup(
-            part.flat_params(), IP.pipelined_specs(part), opt, mesh, be,
-            zstage if shard_opt_state else 0)
+            part.flat_params(), IP.pipelined_specs(part, mesh), opt, mesh,
+            be, zstage if shard_opt_state else 0)
         # the flat .state leaves' layout: the schedules reorder same-shaped
         # stacks and a packed leaf hides its rows, so a resume across
         # layouts is refused by name

@@ -7,9 +7,10 @@ of named axes; :func:`make_mesh`, :func:`param_specs`, the sharded leaf
 of the model axis (``tp``), the GPipe and circular pipelines of a
 ``PipelineMLP`` on a ``stage`` axis (``pipeline``) and the staged-IR
 pipelines of any ``gen_net`` chain (``ir_pipeline``, ``fit``'s pipeline
-mode).  Still to port from the JAX package's ``parallel``: the
-tensor-parallel pipelines (ROADMAP.md Queue 1 item 9c-3), and ``plan`` and
-``distributed`` with training in several processes (item 9d)."""
+mode), on a ``(data, stage, model)`` mesh tensor-parallel too, and the mesh
+planner (``plan``: :func:`plan_meshes`, :func:`describe_plans`).  Still to
+port from the JAX package's ``parallel``: ``distributed`` with training in
+several processes (ROADMAP.md Queue 1 item 9d)."""
 
 from .collective_kernels import (RankGroup, dp_megakernel_train_step,
                                  ring_all_gather, ring_all_reduce,
@@ -24,10 +25,14 @@ from .ir_pipeline import (describe_partition, ir_pipeline_grads,
                           partition_network, partition_network_circular,
                           shard_pipelined_params, split_network,
                           split_network_circular, split_network_hetero,
-                          split_network_hetero_circular, unchain)
-from .pipeline import (PipelineMLP, make_dp_pipeline_mesh, make_pipeline_mesh,
+                          split_network_hetero_circular,
+                          split_network_hetero_tp,
+                          split_network_hetero_tp_circular, unchain)
+from .pipeline import (PipelineMLP, make_3d_pipeline_mesh,
+                       make_dp_pipeline_mesh, make_pipeline_mesh,
                        pipeline_forward, pipeline_train_step,
                        shard_pipeline_model)
+from .plan import describe_plans, plan_meshes
 from .tp import TpNetwork
 
 __all__ = [
@@ -41,9 +46,11 @@ __all__ = [
     "TpNetwork",
     "batch_spec",
     "describe_partition",
+    "describe_plans",
     "dp_megakernel_train_step",
     "ir_pipeline_grads",
     "ir_pipeline_train_step",
+    "make_3d_pipeline_mesh",
     "make_dp_pipeline_mesh",
     "make_ir_pipeline_loss",
     "make_mesh",
@@ -52,6 +59,7 @@ __all__ = [
     "partition_network",
     "partition_network_circular",
     "pipeline_forward",
+    "plan_meshes",
     "pipeline_train_step",
     "place",
     "place_host",
@@ -69,6 +77,8 @@ __all__ = [
     "split_network_circular",
     "split_network_hetero",
     "split_network_hetero_circular",
+    "split_network_hetero_tp",
+    "split_network_hetero_tp_circular",
     "unchain",
     "zero1_place",
     "zero1_shardings",

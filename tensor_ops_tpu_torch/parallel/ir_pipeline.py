@@ -1,6 +1,6 @@
 """Pipeline parallelism over the staged IR itself: the counterpart of
-``tensor_ops_tpu/parallel/ir_pipeline.py`` on a mesh with a ``stage`` axis
-and no model axis.
+``tensor_ops_tpu/parallel/ir_pipeline.py`` on a mesh with a ``stage`` axis,
+and with a ``model`` axis beside it (the ``(data, stage, model)`` mesh).
 
 A ``Network`` built with ``then`` / ``gen_net`` is a chain of layer
 sub-graphs (:func:`network_segments`).  A partition cuts that chain over
@@ -9,8 +9,15 @@ identical segments, the heterogeneous cut (:func:`split_network_hetero`)
 packs FLOP-balanced groups of any segments into one ``(S, Lmax)`` leaf, and
 their circular forms (:func:`split_network_circular`,
 :func:`split_network_hetero_circular`) store the chunks in the interleaved
-order of the circular schedule.  The layouts are the JAX package's leaf for
-leaf, so a ``.state`` file of either package resumes in the other.
+order of the circular schedule.  On a model axis of tp > 1 every segment
+that matches the ffLayer pattern is also row-split over the model ranks
+(:func:`_tp_local_segment_split`): the uniform body's stacks split their
+row dimension over the model axis (:func:`pipeline_tp_segment`), and the
+heterogeneous cuts pack each model rank's row slices
+(:func:`split_network_hetero_tp`, ``(S, tp, Lmax)``;
+:func:`split_network_hetero_tp_circular`, ``(S, V, tp, Lmax)``).  The
+layouts are the JAX package's leaf for leaf, so a ``.state`` file of either
+package resumes in the other.
 
 Every stage evaluates its segments' own staged sub-graphs, and their
 backward is the IR's transposition (``op.transpose``): ``torch.autograd``
@@ -32,8 +39,17 @@ kernel 9.  The ring carries each stage boundary at its own width (an eager
 hand-off has no fixed shape; the JAX package pads to the widest boundary
 for ``lax.switch``, which changes no value).
 
-The tensor-parallel partitions (a model axis larger than 1) are not ported
-yet: ROADMAP.md, Queue 1 item 9c-3.
+With the model axis, each model rank of a stage runs its row block of each
+segment on the whole activation, and kernel 9's all-gather over the model
+group (``pipeline._FeatureGather``) restores the whole activation between
+segments; a segment's non-rowwise tail (the softmax normalization) then
+runs whole on every model rank.  The gather's transpose reduce-scatters
+the cotangents each model rank holds as its share of the sum, so the
+stage psum, the ``post`` segments and the loss run on the home column
+alone (model rank 0): every cotangent enters the model group once.  A
+partition that cannot row-split leaves the model axis idle, as the JAX
+package does, with its warning: model rank 0 of each stage runs it, and
+the gradients of its leaves are summed over the model group.
 """
 
 from __future__ import annotations
@@ -52,7 +68,8 @@ from ..ops.shapes import ShapeError
 from .collective_kernels import ring_all_reduce_bidir
 from .mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh, Sharded,
                    _all_gather, _split_rows, place, reduce_mean)
-from .pipeline import _Layout, _schedule, _stage_sum, _sum16
+from .pipeline import (_FeatureGather, _Layout, _StageSum, _group_op,
+                       _schedule, _sum16)
 
 
 # ---------------------------------------------------------------------------
@@ -178,20 +195,30 @@ def _pad_stack(rows, lmax: int):
     return np.stack([np.pad(r, (0, lmax - r.shape[0])) for r in rows])
 
 
-def _stage_rank(mesh: Mesh, s: int) -> int:
-    """The first rank (data 0) of stage ``s``."""
-    return int(_Layout(mesh).rank[0, s, 0])
-
-
-def _row(leaf, j: int):
-    """Row ``j`` of ``leaf``'s leading (stage-split) axis: on a
-    :class:`Sharded` leaf, the view in the shard of the stage rank that
-    holds it (data rank 0), on that rank's device."""
-    if isinstance(leaf, Sharded):
-        per = leaf.shards[0].shape[0]
-        s, k = divmod(j, per)
-        return leaf.shards[_stage_rank(leaf.mesh, s)][k]
-    return leaf[j]
+def _row(leaf, j: int, *rest: int):
+    """Row ``j`` of ``leaf``'s leading (stage-split) axis, indexed further
+    by ``rest``: on a :class:`Sharded` leaf, the view in the shard of the
+    stage rank that holds it (data rank 0), on that rank's device; where
+    the leaf's spec splits a later dimension over the model axis, the
+    model ranks' blocks of it copied there and joined (no collective)."""
+    if not isinstance(leaf, Sharded):
+        for i in (j,) + rest:
+            leaf = leaf[i]
+        return leaf
+    per = leaf.shards[0].shape[0]
+    s, k = divmod(j, per)
+    ranks = [int(r) for r in _Layout(leaf.mesh).rank[0, s]]
+    blocks = []
+    for r in ranks:
+        x = leaf.shards[r][k]
+        for i in rest:
+            x = x[i]
+        blocks.append(x)
+    md = leaf.mdim
+    if md is None:
+        return blocks[0]
+    dev = blocks[0].device
+    return torch.cat([b.to(dev) for b in blocks], dim=md - 1 - len(rest))
 
 
 def _home(leaf):
@@ -210,6 +237,22 @@ def _unpack(row, ops) -> list:
         for sh in op.in_stack[1:]:
             k = _numel(sh)
             ps.append(row[ofs:ofs + k].reshape(sh))
+            ofs += k
+    return ps
+
+
+def _unpack_tp(rows, ops, tp: int) -> list:
+    """The params of the full-width ``ops`` from the ``tp`` model ranks'
+    rows (``rows[m]`` rank m's row slices of every param, flat): each
+    param's slices joined along its row dimension."""
+    ps, ofs = [], 0
+    for op in ops:
+        for sh in op.in_stack[1:]:
+            loc = (sh[0] // tp,) + tuple(sh[1:])
+            k = _numel(loc)
+            parts = [rows[m][ofs:ofs + k].reshape(loc) for m in range(tp)]
+            ps.append(torch.cat(parts) if isinstance(parts[0], torch.Tensor)
+                      else np.concatenate(parts))
             ofs += k
     return ps
 
@@ -441,6 +484,116 @@ def split_network(net: Network, n_stages: int) -> PipelinedNetwork:
                             post=segs[best_start + n_body:])
 
 
+@dataclass
+class HeteroTpPipelinedNetwork:
+    """A heterogeneous partition that also tensor-parallels: every segment
+    matches the row-shardable ffLayer pattern (elementwise tails, and
+    softmax tails whose normalization runs whole after the all-gather), so
+    each stage's params pack as ``(S, tp, Lmax)`` rows of per-model-rank
+    row slices, split over both the stage and the model axes.  Each rank
+    runs its stage's row-local segments (:func:`_tp_local_segment_split`)
+    with an activation all-gather between segments."""
+
+    stage_ops: List[List[TOp]]        # full-width segment ops per stage
+    local_ops: List[List[Tuple[TOp, Optional[TOp]]]]  # (row-local, suffix)
+    packed: Optional[Any]             # (S, tp, Lmax)
+    width: int                        # the widest stage boundary H
+    lmax: int
+    tp: int
+
+    @property
+    def n_stages(self) -> int:
+        return len(self.stage_ops)
+
+    @property
+    def in_width(self) -> int:
+        return self.stage_ops[0][0].in_stack[0][0]
+
+    @property
+    def out_width(self) -> int:
+        return self.stage_ops[-1][-1].out_stack[0][0]
+
+    def flat_params(self) -> Tuple[Any, ...]:
+        return (self.packed,)
+
+    def unflatten(self, flat) -> "HeteroTpPipelinedNetwork":
+        (packed,) = flat
+        return HeteroTpPipelinedNetwork(self.stage_ops, self.local_ops,
+                                        packed, self.width, self.lmax,
+                                        self.tp)
+
+    def skeleton(self) -> "HeteroTpPipelinedNetwork":
+        return HeteroTpPipelinedNetwork(self.stage_ops, self.local_ops,
+                                        None, self.width, self.lmax, self.tp)
+
+    def to_network_params(self) -> Tuple[Any, ...]:
+        """The Network stack: each param's tp row slices joined back to
+        full width, in chain order (on placed leaves, on the device of the
+        stage's first rank)."""
+        ps: List[Any] = []
+        for s, ops in enumerate(self.stage_ops):
+            ps.extend(_unpack_tp(_row(self.packed, s), ops, self.tp))
+        return tuple(ps)
+
+
+def _hetero_tp_groups(net: Network, n_groups: int, tp: int):
+    """The shared core of the tensor-parallel heterogeneous cuts (GPipe
+    stages and circular chunk groups): the ``then``-chain cut into
+    ``n_groups`` contiguous FLOP-balanced groups with every segment
+    row-split over ``tp``: ``(group_ops, local_ops, per_rank_rows,
+    ring_width)``, or None when a segment does not match the ffLayer
+    pattern or its width does not divide by ``tp`` (the caller falls back,
+    loudly)."""
+    segs = network_segments(net)
+    if len(segs) < n_groups:
+        return None
+    local = [_tp_local_segment_split(op, tp) for op, _ in segs]
+    if any(lo is None for lo in local):
+        return None
+    widths = set()
+    for op, _ in segs:
+        for sh in (op.in_stack[0], op.out_stack[0]):
+            if len(sh) != 1:
+                return None
+            widths.add(sh[0])
+    H = max(widths)
+    bounds = _balanced_partition([_op_flops(op) for op, _ in segs],
+                                 n_groups)
+    like = net.params[0]
+    group_ops, local_ops, rows = [], [], []
+    for a, b in bounds:
+        group_ops.append([op for op, _ in segs[a:b]])
+        local_ops.append(local[a:b])
+        per_rank = []
+        for m in range(tp):
+            flat = []
+            for op, ps in segs[a:b]:
+                for sh, p in zip(op.in_stack[1:], ps):
+                    o_l = sh[0] // tp
+                    flat.append(_ravel(p[m * o_l:(m + 1) * o_l]))
+            per_rank.append(_concat_rows(flat, like))
+        rows.append(per_rank)
+    return group_ops, local_ops, rows, H
+
+
+def split_network_hetero_tp(net: Network, n_stages: int, tp: int
+                            ) -> Optional[HeteroTpPipelinedNetwork]:
+    """The heterogeneous FLOP-balanced cut with every segment row-split
+    over ``tp`` model ranks: possible only when every segment matches the
+    ffLayer pattern with a tp-divisible output width (else None; the
+    caller falls back to the model-replicated heterogeneous cut).
+    Softmax-tailed segments split too: the affine rows and the exp run
+    row-local, the normalization whole after the all-gather."""
+    r = _hetero_tp_groups(net, n_stages, tp)
+    if r is None:
+        return None
+    stage_ops, local_ops, rows, H = r
+    lmax = max(int(x.shape[0]) for sh in rows for x in sh)
+    packed = _stack([_pad_stack(sh, lmax) for sh in rows])
+    return HeteroTpPipelinedNetwork(stage_ops, local_ops, packed, H, lmax,
+                                    tp)
+
+
 # ---------------------------------------------------------------------------
 # circular (interleaved) partitions
 # ---------------------------------------------------------------------------
@@ -582,69 +735,178 @@ def split_network_hetero_circular(net: Network, n_stages: int,
     return HeteroCircularPipelinedNetwork(group_ops, packed, H, lmax, S, V)
 
 
+@dataclass
+class HeteroTpCircularPipelinedNetwork:
+    """A heterogeneous circular partition that also tensor-parallels: the
+    ``S*V`` chunk groups of :class:`HeteroCircularPipelinedNetwork` with
+    every segment row-split over ``tp`` model ranks.  Packed rows ``(S, V,
+    tp, Lmax)``: ``[d, v, m]`` holds chunk ``v*S + d``'s model-rank-``m``
+    row slices, so a ``(stage, None, model, None)`` split hands each rank
+    its V chunk rows for its model rank.  Softmax-tailed segments run the
+    sharded-softmax decomposition."""
+
+    chunk_ops: List[List[TOp]]        # S*V chunk groups, chain order
+    local_ops: List[List[Tuple[TOp, Optional[TOp]]]]  # per chunk/segment
+    packed: Optional[Any]             # (S, V, tp, Lmax)
+    width: int                        # the widest stage boundary H
+    lmax: int
+    tp: int
+    S: int
+    V: int
+
+    @property
+    def n_stages(self) -> int:
+        return self.S
+
+    @property
+    def n_chunks(self) -> int:
+        return self.V
+
+    @property
+    def in_width(self) -> int:
+        return self.chunk_ops[0][0].in_stack[0][0]
+
+    @property
+    def out_width(self) -> int:
+        return self.chunk_ops[-1][-1].out_stack[0][0]
+
+    def flat_params(self) -> Tuple[Any, ...]:
+        return (self.packed,)
+
+    def unflatten(self, flat: Tuple[Any, ...]
+                  ) -> "HeteroTpCircularPipelinedNetwork":
+        (packed,) = flat
+        return HeteroTpCircularPipelinedNetwork(
+            self.chunk_ops, self.local_ops, packed, self.width, self.lmax,
+            self.tp, self.S, self.V)
+
+    def skeleton(self) -> "HeteroTpCircularPipelinedNetwork":
+        return HeteroTpCircularPipelinedNetwork(
+            self.chunk_ops, self.local_ops, None, self.width, self.lmax,
+            self.tp, self.S, self.V)
+
+    def to_network_params(self) -> Tuple[Any, ...]:
+        """The Network stack: chunks in chain order, each param's tp row
+        slices joined back to full width."""
+        ps: List[Any] = []
+        for c, ops in enumerate(self.chunk_ops):
+            ps.extend(_unpack_tp(_row(self.packed, c % self.S, c // self.S),
+                                 ops, self.tp))
+        return tuple(ps)
+
+
+def split_network_hetero_tp_circular(
+        net: Network, n_stages: int, n_chunks: int, tp: int
+        ) -> Optional[HeteroTpCircularPipelinedNetwork]:
+    """The heterogeneous circular cut with every segment row-split over
+    ``tp`` model ranks: ``S*V`` FLOP-balanced chunk groups packed as ``(S,
+    V, tp, Lmax)`` rows (``[d, v, m]`` = chunk ``v*S + d``, model rank
+    ``m``).  None when a segment does not match the ffLayer pattern or its
+    width does not divide by ``tp`` (the caller falls back to the
+    model-replicated heterogeneous circular cut, loudly)."""
+    _check_chunks(n_chunks)
+    S, V = n_stages, n_chunks
+    r = _hetero_tp_groups(net, S * V, tp)
+    if r is None:
+        return None
+    group_ops, local_ops, rows, H = r
+    lmax = max(int(x.shape[0]) for sh in rows for x in sh)
+    padded = [_pad_stack(sh, lmax) for sh in rows]  # S*V of (tp, Lmax)
+    packed = _stack([_stack([padded[v * S + d] for v in range(V)])
+                     for d in range(S)])            # (S, V, tp, Lmax)
+    return HeteroTpCircularPipelinedNetwork(group_ops, local_ops, packed, H,
+                                            lmax, tp, S, V)
+
+
 # ---------------------------------------------------------------------------
 # routing and placement
 # ---------------------------------------------------------------------------
 
 
 def _check_mesh(mesh, caller: str) -> int:
-    """The stage-axis size of ``mesh``; refuses a mesh without a stage axis
-    and one whose model axis is larger than 1 (the tensor-parallel
-    partitions, ROADMAP.md Queue 1 item 9c-3)."""
+    """The stage-axis size of ``mesh``; refuses anything but a
+    :class:`Mesh` with a stage axis."""
     names = tuple(getattr(mesh, "axis_names", ()))
     if not isinstance(mesh, Mesh) or STAGE_AXIS not in names:
         raise ValueError(f"{caller}: needs a tensor_ops_tpu_torch Mesh with "
                          f"a stage axis (make_pipeline_mesh), got {mesh!r}")
-    if mesh.shape.get(MODEL_AXIS, 1) > 1:
-        raise ValueError(
-            f"{caller}: a stage mesh with a model axis of "
-            f"{mesh.shape[MODEL_AXIS]} takes the tensor-parallel pipeline "
-            f"partitions, which are not ported to the PyTorch package yet "
-            f"(ROADMAP.md, Queue 1 item 9c-3)")
     return mesh.shape[STAGE_AXIS]
+
+
+def _model_size(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get(MODEL_AXIS, 1)
 
 
 def partition_network(net: Network, n_stages: int,
                       mesh: Optional[Mesh] = None):
     """The stage partition ``fit`` / ``make_ir_pipeline_loss`` use: the
-    uniform stacked-body cut when the network has one, else the
-    heterogeneous FLOP-balanced cut.  A mesh with a model axis larger than
-    1 is refused (item 9c-3)."""
-    if mesh is not None:
-        _check_mesh(mesh, "partition_network")
+    uniform stacked-body cut when the network has one; else, when the mesh
+    has a model axis larger than 1 and every segment row-splits over it,
+    the tensor-parallel heterogeneous cut; else the model-replicated
+    heterogeneous FLOP-balanced cut."""
     try:
         return split_network(net, n_stages)
     except ShapeError:
-        return split_network_hetero(net, n_stages)
+        pass
+    if _model_size(mesh) > 1:
+        tp = split_network_hetero_tp(net, n_stages, _model_size(mesh))
+        if tp is not None:
+            return tp
+    return split_network_hetero(net, n_stages)
 
 
 def partition_network_circular(net: Network, n_stages: int, n_chunks: int,
                                mesh: Optional[Mesh] = None):
     """The circular-schedule partition: the uniform interleaved cut when
-    the network has a long-enough uniform run, else the heterogeneous
-    FLOP-balanced circular cut (S*V chunk groups), so any chain with >=
-    S*V segments runs the interleaved schedule.  A mesh with a model axis
-    larger than 1 is refused (item 9c-3)."""
-    if mesh is not None:
-        _check_mesh(mesh, "partition_network_circular")
+    the network has a long-enough uniform run; else, when the mesh has a
+    model axis larger than 1 and every segment row-splits over it, the
+    tensor-parallel heterogeneous circular cut; else the model-replicated
+    heterogeneous FLOP-balanced circular cut (S*V chunk groups), so any
+    chain with >= S*V segments runs the interleaved schedule."""
     try:
         return split_network_circular(net, n_stages, n_chunks)
     except ShapeError:
-        return split_network_hetero_circular(net, n_stages, n_chunks)
+        pass
+    if _model_size(mesh) > 1:
+        tp = split_network_hetero_tp_circular(net, n_stages, n_chunks,
+                                              _model_size(mesh))
+        if tp is not None:
+            return tp
+    return split_network_hetero_circular(net, n_stages, n_chunks)
 
 
-def pipelined_specs(pnet) -> Tuple[Tuple[Optional[str], ...], ...]:
-    """One spec per flat leaf: the body stacks and the packed rows over the
-    stage axis on their leading dimension, ``pre`` / ``post`` leaves
-    replicated."""
+def pipeline_tp_segment(pnet, mesh: Mesh) -> Optional[TOp]:
+    """The row-local body segment when this partition tensor-parallels
+    over the mesh's model axis (a uniform body matching the ffLayer pattern
+    with a tp-divisible width); None otherwise."""
+    if _model_size(mesh) <= 1 or not _uniform(pnet) or pnet.body_op is None:
+        return None
+    return _tp_local_segment(pnet.body_op, _model_size(mesh))
+
+
+def pipelined_specs(pnet, mesh: Optional[Mesh] = None
+                    ) -> Tuple[Tuple[Optional[str], ...], ...]:
+    """One spec per flat leaf (the JAX package's): the body stacks and the
+    packed rows over the stage axis on their leading dimension, ``pre`` /
+    ``post`` leaves replicated; a tensor-parallel body's stacks also over
+    the model axis on their row dimension (when ``mesh`` has a model axis
+    the body row-splits over), the tensor-parallel packed rows over the
+    model axis on their ``tp`` dimension: ``(stage, model, None)`` and
+    ``(stage, None, model, None)``."""
+    if isinstance(pnet, HeteroTpPipelinedNetwork):
+        return ((STAGE_AXIS, MODEL_AXIS, None),)
+    if isinstance(pnet, HeteroTpCircularPipelinedNetwork):
+        return ((STAGE_AXIS, None, MODEL_AXIS, None),)
     if isinstance(pnet, (HeteroPipelinedNetwork,
                          HeteroCircularPipelinedNetwork)):
         nd = 3 if isinstance(pnet, HeteroCircularPipelinedNetwork) else 2
         return ((STAGE_AXIS,) + (None,) * (nd - 1),)
+    tp = mesh is not None and pipeline_tp_segment(pnet, mesh) is not None
     specs = []
     for op, _ in pnet.pre:
         specs.extend((None,) * len(sh) for sh in op.in_stack[1:])
-    specs.extend((STAGE_AXIS,) + (None,) * len(sh)
+    specs.extend((STAGE_AXIS,) + ((MODEL_AXIS,) + (None,) * (len(sh) - 1)
+                                  if tp else (None,) * len(sh))
                  for sh in pnet.body_op.in_stack[1:])
     for op, _ in pnet.post:
         specs.extend((None,) * len(sh) for sh in op.in_stack[1:])
@@ -653,11 +915,12 @@ def pipelined_specs(pnet) -> Tuple[Tuple[Optional[str], ...], ...]:
 
 def shard_pipelined_params(pnet, mesh: Mesh):
     """The partition with its leaves placed on ``mesh``
-    (:class:`~.mesh.Sharded`, :func:`pipelined_specs`): the body stacks or
-    the packed rows over the stage axis, ``pre`` / ``post`` replicated."""
+    (:class:`~.mesh.Sharded`, :func:`pipelined_specs` on ``mesh``): the body
+    stacks or the packed rows over the stage axis (and over the model axis
+    where they row-split), ``pre`` / ``post`` replicated."""
     _check_mesh(mesh, "shard_pipelined_params")
     flat = [x if isinstance(x, Sharded) else place(x, s, mesh)
-            for x, s in zip(pnet.flat_params(), pipelined_specs(pnet))]
+            for x, s in zip(pnet.flat_params(), pipelined_specs(pnet, mesh))]
     return pnet.unflatten(tuple(flat))
 
 
@@ -668,6 +931,11 @@ def shard_pipelined_params(pnet, mesh: Mesh):
 
 def _uniform(pnet) -> bool:
     return isinstance(pnet, PipelinedNetwork)
+
+
+def _tp_partition(pnet) -> bool:
+    return isinstance(pnet, (HeteroTpPipelinedNetwork,
+                             HeteroTpCircularPipelinedNetwork))
 
 
 class _PipelinedLoss:
@@ -687,18 +955,35 @@ class _PipelinedLoss:
 
         self.pnet = pnet.skeleton()
         self.loss, self.mesh, self.M = loss, mesh, M
-        self.lay = _Layout(mesh)
+        self.tp_local = pipeline_tp_segment(self.pnet, mesh)
+        # the ranks that run the schedule: every model rank of a stage
+        # when the partition row-splits, else model rank 0 of each
+        self.lay = _Layout(mesh, home_column=not (
+            _tp_partition(pnet) or self.tp_local is not None))
         self.V = pnet.n_chunks if circular else 1
         self.fifo = circular
         self.dtype = be.dtype
         self._bes = {d: TorchBackend(self.dtype, d)
                      for d in dict.fromkeys(mesh.rank_devices)}
         self._calls: dict = {}
-        self.specs = pipelined_specs(self.pnet)
-        self.repl = [i for i, s in enumerate(self.specs)
-                     if STAGE_AXIS not in s]
+        self.specs = pipelined_specs(self.pnet, mesh)
         self.groups = mesh.groups(tuple(a for a in mesh.axis_names
                                         if a != DATA_AXIS))
+        # each leaf's gradient is summed over the ranks of its data group
+        # that hold the same block: over the stage and model ranks for a
+        # replicated leaf, over the model ranks for a stage-split leaf the
+        # model axis leaves whole (kernel 9, one call per such set)
+        self.sums = []
+        for d, group in enumerate(self.groups):
+            pos = {r: k for k, r in enumerate(group)}
+            per = []
+            for i, spec in enumerate(self.specs):
+                axes = tuple(a for a in (STAGE_AXIS, MODEL_AXIS)
+                             if mesh.shape.get(a, 1) > 1 and a not in spec)
+                if axes:
+                    per.extend((i, [pos[r] for r in g])
+                               for g in mesh.groups(axes) if g[0] in pos)
+            self.sums.append(per)
 
     def _call(self, op: TOp, dev, n_batched: int = 1) -> Callable:
         key = (id(op), dev, n_batched)
@@ -706,29 +991,55 @@ class _PipelinedLoss:
             self._calls[key] = batched_ir_call(op, self._bes[dev], n_batched)
         return self._calls[key]
 
-    def _chunk(self, r: int, s: int, v: int, x, ps):
-        """Stage rank ``r`` (stage ``s``) runs its local chunk ``v`` on
-        ``x`` with its leaf shards ``ps``."""
-        pnet, dev = self.pnet, self.lay.dev(r)
+    def _segments(self, s: int, v: int):
+        """Stage ``s``'s local chunk ``v`` of a packed partition: its
+        segments as ``(op, suffix)`` pairs (``op`` row-local on a
+        tensor-parallel partition, ``suffix`` the tail it runs whole), and
+        the index of its row in a rank's shard of the packed leaf."""
+        pnet = self.pnet
+        if isinstance(pnet, HeteroTpCircularPipelinedNetwork):
+            return pnet.local_ops[v * pnet.S + s], (0, v, 0)
+        if isinstance(pnet, HeteroTpPipelinedNetwork):
+            return pnet.local_ops[s], (0, 0)
         if isinstance(pnet, HeteroCircularPipelinedNetwork):
-            ops, row = pnet.chunk_ops[v * pnet.S + s], ps[0][0, v]
-        elif isinstance(pnet, HeteroPipelinedNetwork):
-            ops, row = pnet.stage_ops[s], ps[0][0]
-        else:
-            i0 = sum(len(p) for _, p in pnet.pre)
-            body = ps[i0:i0 + len(pnet.body_params)]
-            Lc = body[0].shape[0] // self.V
-            call = self._call(pnet.body_op, dev)
+            return [(op, None) for op in pnet.chunk_ops[v * pnet.S + s]], \
+                (0, v)
+        return [(op, None) for op in pnet.stage_ops[s]], (0,)
+
+    def _chunk(self, rs, s: int, v: int, xs, shards):
+        """Stage ``s``'s ranks ``rs`` (one per model rank that runs) run
+        their local chunk ``v`` on ``xs`` (one input each) with their leaf
+        shards; between segments the model group all-gathers the
+        activation.  Returns one output per rank."""
+        devs = [self.lay.dev(r) for r in rs]
+        ps = [shards[r] for r in rs]
+
+        def seg(op, args):
+            a = [self._call(op, dev)(x, *p)
+                 for x, dev, p in zip(xs, devs, args)]
+            return _group_op(_FeatureGather, a)
+
+        if _uniform(self.pnet):
+            i0 = sum(len(p) for _, p in self.pnet.pre)
+            nb = len(self.pnet.body_params)
+            Lc = ps[0][i0].shape[0] // self.V
+            op = self.tp_local or self.pnet.body_op
             for k in range(v * Lc, (v + 1) * Lc):
-                x = call(x, *(p[k] for p in body))
-            return x
-        for op, p in zip(ops, _segment_params(ops, row)):
-            x = self._call(op, dev)(x, *p)
-        return x
+                xs = seg(op, [[p[k] for p in pr[i0:i0 + nb]] for pr in ps])
+            return xs
+        segs, at = self._segments(s, v)
+        args = [_segment_params([op for op, _ in segs], p[0][at])
+                for p in ps]
+        for k, (op, suffix) in enumerate(segs):
+            xs = seg(op, [a[k] for a in args])
+            if suffix is not None:
+                xs = [self._call(suffix, dev)(x) for x, dev in zip(xs, devs)]
+        return xs
 
     def group_output(self, d: int, shards: dict, x):
         """Data group ``d``'s output rows (microbatch by microbatch) on its
-        home rank (stage 0), ``shards[r]`` rank r's flat leaves."""
+        home rank (stage 0, model 0), ``shards[r]`` rank r's flat
+        leaves."""
         lay, pnet, M = self.lay, self.pnet, self.M
         ranks = lay.rank[d]
         home = int(ranks[0][0])
@@ -739,15 +1050,15 @@ class _PipelinedLoss:
             for op, p in pnet.pre:
                 h = self._call(op, dev)(h, *shards[home][i:i + len(p)])
                 i += len(p)
-        inject = [[part] for part in h.reshape((M, -1) + h.shape[1:])]
+        inject = [[part.to(lay.dev(int(r))) for r in ranks[0]]
+                  for part in h.reshape((M, -1) + h.shape[1:])]
 
         def stage(s, v, xs):
-            r = int(ranks[s][0])
-            return [self._chunk(r, s, v, xs[0], shards[r])]
+            return self._chunk([int(r) for r in ranks[s]], s, v, xs, shards)
 
         outs = _schedule(lay, d, stage, inject, M, self.V, self.fifo)
-        _stage_sum(lay, outs)
-        h = outs[0][0]
+        # the stage psum of the home column, whose output the rest reads
+        h = _group_op(_StageSum, [outs[s][0] for s in range(lay.S)])[0]
         if _uniform(pnet):
             i = len(self.specs) - sum(len(p) for _, p in pnet.post)
             for op, p in pnet.post:
@@ -763,6 +1074,7 @@ class _PipelinedLoss:
 
     def group_vag(self, d: int) -> Callable:
         group = self.groups[d]
+        sums = self.sums[d]
         n = len(self.specs)
         dt = self.dtype
 
@@ -778,12 +1090,9 @@ class _PipelinedLoss:
             # the masters' dtype, before the gradient sums
             gs = [g.to(p.dtype) for g, p in zip(gs, ps)]
             v = v.to(ps[0].dtype)
-            if len(group) > 1:
-                # each replicated leaf's gradient over the group's ranks
-                for i in self.repl:
-                    for k, g in enumerate(_sum16([gs[k * n + i] for k in
-                                                  range(len(group))])):
-                        gs[k * n + i] = g
+            for i, ks in sums:
+                for k, g in zip(ks, _sum16([gs[k * n + i] for k in ks])):
+                    gs[k * n + i] = g
             return v.detach(), tuple(gs)
 
         return vag
@@ -873,6 +1182,12 @@ def _segment_params(ops, row) -> list:
     return out
 
 
+def _warn_idle(what: str) -> None:
+    import warnings
+
+    warnings.warn(f"staged-IR pipeline: {what}", stacklevel=3)
+
+
 def make_ir_pipeline_loss(net: Network, loss: TOp, be, mesh: Mesh,
                           n_microbatches: int, pnet=None,
                           schedule: str = "gpipe", n_chunks: int = 2):
@@ -888,45 +1203,76 @@ def make_ir_pipeline_loss(net: Network, loss: TOp, be, mesh: Mesh,
     ``pnet`` may be a prebuilt partition (or a skeleton of one: only its
     structure is used).  Uniform-body networks take the stacked-params
     cut (:func:`split_network`); any other ``then``-chain the heterogeneous
-    FLOP-balanced one (:func:`split_network_hetero`).
+    FLOP-balanced one (:func:`split_network_hetero`), tensor-parallel over
+    the mesh's model axis when every segment row-splits
+    (:func:`split_network_hetero_tp`).  A uniform body that matches the
+    ffLayer pattern row-splits over the model axis too
+    (:func:`pipeline_tp_segment`); a partition that cannot leaves the
+    model axis idle, with a warning.
     ``schedule="circular"`` runs the interleaved schedule: each device
     holds ``n_chunks`` (V) round-robin chunks of the chain and the
     activation ring wraps V times, shrinking the bubble to (S-1)/(VM+S-1);
     it requires ``n_microbatches >= S`` (M > S buffers the wrap in a
     depth-(M-S) FIFO).  On a bf16 backend the forward and backward run in
-    bf16 on the masters the leaves hold (``fit``'s ``mixed_precision``).
-    A mesh whose model axis is larger than 1 is refused (ROADMAP.md Queue 1
-    item 9c-3)."""
+    bf16 on the masters the leaves hold (``fit``'s ``mixed_precision``)."""
     if be.name != "torch":
         raise ValueError("ir pipeline requires the torch backend")
     S = _check_mesh(mesh, "make_ir_pipeline_loss")
+    tp = _model_size(mesh)
     if pnet is None:
         pnet = (partition_network_circular(net, S, n_chunks, mesh)
                 if schedule == "circular" else partition_network(net, S, mesh))
     circ_uniform = isinstance(pnet, CircularPipelinedNetwork)
-    if isinstance(pnet, HeteroCircularPipelinedNetwork):
+    if isinstance(pnet, (HeteroCircularPipelinedNetwork,
+                         HeteroTpCircularPipelinedNetwork)):
         if schedule != "circular":
             raise ValueError("a hetero circular partition runs only under "
                              "schedule='circular'")
         built = pnet.S
+        if isinstance(pnet, HeteroCircularPipelinedNetwork) and tp > 1:
+            _warn_idle(
+                "this heterogeneous circular partition does not shard over "
+                "the model axis (a segment doesn't match the row-shardable "
+                "ffLayer pattern or its width doesn't divide the model-axis "
+                "size) — it will sit idle (replicated chunks)")
+    elif isinstance(pnet, HeteroTpPipelinedNetwork):
+        if schedule == "circular":
+            raise ShapeError(
+                "the circular schedule needs a hetero-circular partition "
+                "for this network: build pnet with "
+                "split_network_hetero_tp_circular (or omit pnet)")
+        built = pnet.n_stages
     elif isinstance(pnet, HeteroPipelinedNetwork):
         if schedule == "circular":
             raise ShapeError(
                 "the circular schedule needs chunk-ordered params: build "
                 "pnet with split_network_hetero_circular (or omit pnet)")
         built = pnet.n_stages
+        if tp > 1:
+            _warn_idle("heterogeneous partitions do not shard over the "
+                       "model axis — it will sit idle (replicated stages)")
     else:
         if schedule == "circular" and not circ_uniform:
             raise ValueError(
                 "schedule='circular' needs a circular partition: omit pnet "
                 "or build it with split_network_circular")
         built = pnet.n_stages if circ_uniform else S
+        if tp > 1 and pipeline_tp_segment(pnet, mesh) is None:
+            _warn_idle(
+                "the body segment does not match the row-shardable ffLayer "
+                "pattern (or its width does not divide the model-axis "
+                "size) — the model axis will sit idle (replicated body)")
     if built != S:
         # the stage-split rows (and a circular cut's interleave) are
         # S-specific: another stage count would train another network
         raise ValueError(
             f"partition was built for {built} stages but the mesh's stage "
             f"axis is {S} — rebuild pnet for this mesh (or omit it)")
+    if _tp_partition(pnet) and pnet.tp != tp:
+        raise ValueError(
+            f"partition was row-split over {pnet.tp} model ranks but the "
+            f"mesh's model axis is {tp} — rebuild pnet for this mesh (or "
+            f"omit it)")
     circular = schedule == "circular"
     if circular and n_microbatches < S:
         raise ValueError(
@@ -1019,9 +1365,10 @@ def staged_forward(net: Network, be) -> Callable:
 def describe_partition(pnet) -> str:
     """Human-readable stage map of a pipeline partition: per-stage segment
     counts, boundary widths, parameter counts, FLOP estimates and the
-    load-balance ratio (max/mean stage FLOPs; 1.00 is perfect), for the
-    uniform, circular, heterogeneous and heterogeneous circular
-    partitions."""
+    load-balance ratio (max/mean stage FLOPs; 1.00 is perfect), for every
+    kind ``partition_network`` / ``partition_network_circular`` return:
+    uniform, circular, heterogeneous and heterogeneous circular, and both
+    heterogeneous kinds tensor-parallel."""
     lines: List[str] = []
 
     def seg_width(op: TOp) -> str:
@@ -1033,7 +1380,31 @@ def describe_partition(pnet) -> str:
         return int(sum(np.prod(s, dtype=np.int64) if s else 1
                        for s in op.in_stack[1:]))
 
-    if isinstance(pnet, HeteroCircularPipelinedNetwork):
+    def tagged(ops, locs) -> str:
+        return ", ".join(seg_width(op) + (" (+replicated tail)"
+                                          if suf is not None else "")
+                         for op, (_, suf) in zip(ops, locs))
+
+    if isinstance(pnet, HeteroTpCircularPipelinedNetwork):
+        lines.append(
+            f"heterogeneous circular x tp partition: {pnet.S} stages x "
+            f"{pnet.V} chunks/device, tp={pnet.tp}, ring width "
+            f"{pnet.width}, packed rows (S={pnet.S}, V={pnet.V}, "
+            f"tp={pnet.tp}, Lmax={pnet.lmax})")
+        flops = []
+        for c, (ops_c, locs) in enumerate(zip(pnet.chunk_ops,
+                                              pnet.local_ops)):
+            f = sum(_op_flops(op) for op in ops_c)
+            flops.append(f)
+            lines.append(
+                f"  chunk {c} (device {c % pnet.S}, slot {c // pnet.S}): "
+                f"{len(ops_c)} segment(s) [{tagged(ops_c, locs)}], "
+                f"{sum(seg_nparams(op) for op in ops_c)} params "
+                f"(1/{pnet.tp} per shard), ~{f:.0f} FLOPs/sample")
+        # a device runs ALL its V chunks: balance is over per-device sums
+        flops = [sum(flops[c] for c in range(len(flops))
+                     if c % pnet.S == d) for d in range(pnet.S)]
+    elif isinstance(pnet, HeteroCircularPipelinedNetwork):
         lines.append(
             f"heterogeneous circular partition: {pnet.S} stages x "
             f"{pnet.V} chunks/device, ring width {pnet.width}, packed "
@@ -1051,6 +1422,20 @@ def describe_partition(pnet) -> str:
         # a device runs ALL its V chunks: balance is over per-device sums
         flops = [sum(flops[c] for c in range(len(flops))
                      if c % pnet.S == d) for d in range(pnet.S)]
+    elif isinstance(pnet, HeteroTpPipelinedNetwork):
+        lines.append(
+            f"heterogeneous x tp partition: {pnet.n_stages} stages, "
+            f"tp={pnet.tp}, ring width {pnet.width}, packed rows "
+            f"(S={pnet.n_stages}, tp={pnet.tp}, Lmax={pnet.lmax})")
+        flops = []
+        for s, (ops_s, locs) in enumerate(zip(pnet.stage_ops,
+                                              pnet.local_ops)):
+            f = sum(_op_flops(op) for op in ops_s)
+            flops.append(f)
+            lines.append(
+                f"  stage {s}: {len(ops_s)} segment(s) [{tagged(ops_s, locs)}]"
+                f", {sum(seg_nparams(op) for op in ops_s)} params"
+                f" (1/{pnet.tp} per shard), ~{f:.0f} FLOPs/sample")
     elif isinstance(pnet, HeteroPipelinedNetwork):
         lines.append(
             f"heterogeneous partition: {pnet.n_stages} stages, ring "

@@ -681,24 +681,13 @@ def zero3_param_place(leaves, mesh: Mesh):
 # ---------------------------------------------------------------------------
 
 
-def check_mesh(mesh, caller: str, stage: bool = False) -> Mesh:
+def check_mesh(mesh, caller: str) -> Mesh:
     """Refuse what this package cannot train or serve on: anything but a
-    :class:`Mesh`; a pipeline (``stage``) axis unless ``stage`` (``fit``'s
-    pipeline mode, the staged-IR pipelines of ``parallel.ir_pipeline``),
-    and beside it a model axis larger than 1 (the 3-D mesh's
-    tensor-parallel pipelines, ROADMAP.md Queue 1 item 9c-3); and groups of
-    ranks (along any axis) that are not all on the CPU or all on CUDA cards
-    with peer access between ring neighbours."""
+    :class:`Mesh`, and groups of ranks (along any axis) that are not all on
+    the CPU or all on CUDA cards with peer access between ring
+    neighbours."""
     from .collective_kernels import RankGroup
 
-    names = tuple(getattr(mesh, "axis_names", ()))
-    if STAGE_AXIS in names and (not stage or dict(mesh.shape).get(
-            MODEL_AXIS, 1) > 1):
-        what = ("a stage mesh with a model axis larger than 1 (the "
-                "tensor-parallel pipelines)" if stage else
-                "a mesh with a stage axis (the 3-D mesh's partitions)")
-        raise ValueError(f"{caller}: {what} is not ported to the PyTorch "
-                         f"package yet (ROADMAP.md, Queue 1 item 9c-3)")
     if not isinstance(mesh, Mesh):
         raise ValueError(f"{caller}: mesh must be a tensor_ops_tpu_torch "
                          f"parallel.Mesh (make_mesh), got {mesh!r}")
@@ -769,13 +758,23 @@ def _split_rows(xb, dp: int, r: int, device, chunks: int = 1):
     return part.reshape((-1,) + rest).to(device)
 
 
+def _replicas(mesh: Mesh):
+    """The model groups of ``mesh`` (one per data and stage coordinate, in
+    the flat order; on a ``(data, model)`` grid one per data rank), each
+    with its data rank: every group runs its data rank's rows on its own
+    copy of the leaves, which ``param_specs`` replicates over a stage
+    axis."""
+    return [(g, mesh.coord(g[0], DATA_AXIS)) for g in mesh.groups(MODEL_AXIS)]
+
+
 def group_executors(net, be, mesh: Mesh, compute=None) -> list:
-    """One :class:`~.tp.TpNetwork` per data rank (its model group), the
+    """One :class:`~.tp.TpNetwork` per model group (:func:`_replicas`), the
     leaves on ``param_specs``."""
     from .tp import TpNetwork
 
     specs = param_specs(net.param_stack, mesh)
-    return [TpNetwork(net, specs, row, be, compute) for row in mesh.devices]
+    return [TpNetwork(net, specs, [mesh.rank_devices[r] for r in g], be,
+                      compute) for g, _ in _replicas(mesh)]
 
 
 def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
@@ -785,37 +784,43 @@ def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
     axis > 1 through :mod:`.tp`'s executor on its model group, each rank
     its blocks); each leaf's gradients are reduced over the data axis to
     their mean (kernel 9, scale 1/dp, one call per model rank) before
-    every rank takes the same step.  ``params`` are :class:`Sharded`
-    leaves (:func:`shard_network`) or tensors, which are placed first; the
-    new params come back as :class:`Sharded` leaves and the loss as a 0-d
+    every rank takes the same step.  On a mesh with a stage axis every
+    leaf is replicated over it, as the JAX package's ``param_specs``
+    leaves it: each stage coordinate's model groups take the same step on
+    their own copies.  ``params`` are :class:`Sharded` leaves
+    (:func:`shard_network`) or tensors, which are placed first; the new
+    params come back as :class:`Sharded` leaves and the loss as a 0-d
     tensor on rank 0's device."""
     from ..models.training import make_mean_grads
 
     check_mesh(mesh, "sharded_train_step")
     specs = param_specs(net.param_stack, mesh)
-    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
-    if tp > 1:
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    reps = _replicas(mesh)
+    if mesh.shape.get(MODEL_AXIS, 1) > 1:
         from .tp import group_vag
 
         vags = [group_vag(t, loss)
                 for t in group_executors(net, be, mesh)]
     else:
-        mgs = [make_mean_grads(net, loss, _rank_backend(be, d))
-               for d in mesh.data_devices]
+        mgs = [make_mean_grads(net, loss,
+                               _rank_backend(be, mesh.rank_devices[g[0]]))
+               for g, _ in reps]
         vags = [lambda x, y, ps, mg=mg: mg(x, y, *ps) for mg in mgs]
 
     def step(rate, xb, yb, *params):
         params = _placed(params, specs, mesh)
         n = len(params)
-        vals, grads = [], [None] * (dp * tp)
-        for d, (row, vag) in enumerate(zip(mesh.devices, vags)):
-            ranks = range(d * tp, (d + 1) * tp)
-            v, g = vag(_split_rows(xb, dp, d, row[0]),
-                       _split_rows(yb, dp, d, row[0]),
-                       tuple(p.shards[r] for r in ranks for p in params))
-            vals.append(v.reshape(1))
-            for m, r in enumerate(ranks):
-                grads[r] = g[m * n:(m + 1) * n]
+        vals, grads = [], [None] * mesh.size
+        for (g, d), vag in zip(reps, vags):
+            dev = mesh.rank_devices[g[0]]
+            v, gr = vag(_split_rows(xb, dp, d, dev),
+                        _split_rows(yb, dp, d, dev),
+                        tuple(p.shards[r] for r in g for p in params))
+            if mesh.coord(g[0], STAGE_AXIS) == 0:
+                vals.append(v.reshape(1))
+            for m, r in enumerate(g):
+                grads[r] = gr[m * n:(m + 1) * n]
         v = ring_all_reduce_bidir(vals, scale=1.0 / dp)[0].reshape(())
         new = []
         for i, p in enumerate(params):
@@ -829,34 +834,38 @@ def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
 def sharded_forward(net, be, mesh: Mesh) -> Callable:
     """Multi-rank batched inference ``fn(xb, *params) -> yb``: each data
     rank runs its rows of the batch (on a model axis > 1 through
-    :mod:`.tp`'s executor on its model group); the rows come back in order
-    on rank 0's device (a gather of outputs, not a reduction)."""
+    :mod:`.tp`'s executor on its model group; on a stage axis the model
+    groups of stage 0, the others holding the same copies); the rows come
+    back in order on rank 0's device (a gather of outputs, not a
+    reduction)."""
     from ..models.training import _vmap
 
     check_mesh(mesh, "sharded_forward")
     specs = param_specs(net.param_stack, mesh)
-    dp, tp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    dp = mesh.shape.get(DATA_AXIS, 1)
+    reps = [(k, g, d) for k, (g, d) in enumerate(_replicas(mesh))
+            if mesh.coord(g[0], STAGE_AXIS) == 0]
     runs = None
-    if tp > 1:
+    if mesh.shape.get(MODEL_AXIS, 1) > 1:
         runs = group_executors(net, be, mesh)
 
     def fwd(xb, *params):
         params = _placed(params, specs, mesh)
         outs = []
-        for d, row in enumerate(mesh.devices):
-            x = _split_rows(xb, dp, d, row[0])
+        for k, g, d in reps:
+            dev = mesh.rank_devices[g[0]]
+            x = _split_rows(xb, dp, d, dev)
             if runs is not None:
-                ps = [tuple(p.shards[d * tp + m] for p in params)
-                      for m in range(tp)]
-                outs.append(runs[d].forward(x, ps))
+                ps = [tuple(p.shards[r] for p in params) for r in g]
+                outs.append(runs[k].forward(x, ps))
                 continue
-            be_r = _rank_backend(be, row[0])
+            be_r = _rank_backend(be, dev)
 
             def single(x, *ps, be_r=be_r):
                 return net.op.apply(be_r, (x,) + ps)[0]
 
             run = _vmap(single, 1, len(params))
-            outs.append(run(x, *(p.shards[d] for p in params)))
+            outs.append(run(x, *(p.shards[g[0]] for p in params)))
         rows = ring_all_gather([o.reshape(o.shape[0], -1) for o in outs])[0]
         return rows.reshape((xb.shape[0],) + tuple(outs[0].shape[1:]))
 

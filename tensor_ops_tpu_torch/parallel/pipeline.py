@@ -206,15 +206,27 @@ class _FeatureGather(torch.autograd.Function):
     """``lax.all_gather(..., MODEL_AXIS, axis=1, tiled=True)`` over a model
     group: kernel 9's ``ag`` of the ranks' feature blocks; its transpose,
     the reduce-scatter (``rs``) of the cotangents, which each model rank
-    holds as its partial share of the sum."""
+    holds as its partial share of the sum.  16-bit floats cross as f32
+    (the gather is exact both ways; the sums of the transpose are taken
+    in f32 and rounded once)."""
 
     @staticmethod
     def forward(ctx, *xs):
-        return tuple(ring_all_gather(list(xs), dim=1))
+        return tuple(_as16(ring_all_gather, [x.contiguous() for x in xs]))
 
     @staticmethod
     def backward(ctx, *gs):
-        return tuple(ring_reduce_scatter([g.contiguous() for g in gs], dim=1))
+        return tuple(_as16(ring_reduce_scatter, [g.contiguous()
+                                                 for g in gs]))
+
+
+def _as16(fn, xs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """Kernel 9's ``fn`` along dimension 1 (the kernels move f32 and
+    int32): a 16-bit float operand through f32 and back."""
+    dt = xs[0].dtype
+    if dt in (torch.bfloat16, torch.float16):
+        return [y.to(dt) for y in fn([x.float() for x in xs], dim=1)]
+    return fn(xs, dim=1)
 
 
 def _group_op(fn, xs: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -228,9 +240,11 @@ def _group_op(fn, xs: List[torch.Tensor]) -> List[torch.Tensor]:
 
 class _Layout:
     """The ranks of a mesh by (data, stage, model) coordinate (an axis the
-    mesh lacks has size 1)."""
+    mesh lacks has size 1); with ``home_column`` only model rank 0 of each
+    (data, stage) pair, the ranks that run a partition which leaves the
+    model axis idle."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, home_column: bool = False):
         if STAGE_AXIS not in mesh.axis_names:
             raise ValueError(f"a pipeline needs a mesh with a stage axis "
                              f"(make_pipeline_mesh), got {mesh!r}")
@@ -242,6 +256,8 @@ class _Layout:
         for r in range(mesh.size):
             self.rank[mesh.coord(r, DATA_AXIS), mesh.coord(r, STAGE_AXIS),
                       mesh.coord(r, MODEL_AXIS)] = r
+        if home_column:
+            self.rank, self.tp = self.rank[:, :, :1], 1
 
     def dev(self, r: int) -> torch.device:
         return self.mesh.rank_devices[r]

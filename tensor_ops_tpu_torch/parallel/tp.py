@@ -439,12 +439,13 @@ def fused_forward(fm, x: torch.Tensor) -> torch.Tensor:
     ``param_specs``: the same plain PyTorch layers, each model group
     running the row-, column-parallel or replicated form of each layer (as
     :class:`TpNetwork` does), the batch replicated over the data axis as in
-    the JAX package (every data rank serves it); returns data rank 0's
-    output on its first device."""
+    the JAX package (every data rank serves it, and on a stage axis every
+    stage rank, which holds the same copies); returns the first model
+    group's output on its first device."""
     from ..ops.kernels import _act_fn
 
     mesh = fm.weights[0].mesh
-    tp = mesh.shape[MODEL_AXIS]
+    tp = mesh.shape.get(MODEL_AXIS, 1)
     n = len(fm.weights)
     out = None
     for group in mesh.groups(MODEL_AXIS):

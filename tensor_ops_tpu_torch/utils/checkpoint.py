@@ -28,14 +28,18 @@ import numpy as np
 
 
 def _to_numpy(v: Any) -> np.ndarray:
+    """A host copy of ``v``: a tensor on the CPU is copied too (``.cpu()``
+    returns it unchanged, and ``.numpy()`` would share its memory), so an
+    asynchronous write never reads memory the caller may reuse."""
     import torch
 
     if isinstance(v, torch.Tensor):
-        v = v.detach().cpu()
+        v = v.detach()
         if v.dtype == torch.bfloat16:
             v = v.float()
-        return v.numpy()
-    return np.asarray(v)
+        return (v.numpy().copy() if v.device.type == "cpu"
+                else v.cpu().numpy())
+    return np.array(v)
 
 
 def save_arrays(path: str, arrays: Dict[str, Any], meta: Optional[dict] = None) -> None:

@@ -36,6 +36,7 @@ from tensor_ops_tpu_torch.models import gen_net as t_gen_net
 from tensor_ops_tpu_torch.models import squared_error as t_se
 from tensor_ops_tpu_torch.models.optim import adam as t_adam
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 I, H, Z = 8, 5, 3

@@ -30,6 +30,7 @@ from tensor_ops_tpu_torch.models import cross_entropy as t_xent
 from tensor_ops_tpu_torch.models import gen_net as t_gen_net
 from tensor_ops_tpu_torch.ops import ir as t_ir
 from tensor_ops_tpu_torch.ops import prim as TP
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-9
 

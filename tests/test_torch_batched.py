@@ -31,6 +31,7 @@ from tensor_ops_tpu_torch.models.feedforward import Network
 from tensor_ops_tpu_torch.models.training import make_vmapped_grads
 from tensor_ops_tpu_torch.ops import ir
 from tensor_ops_tpu_torch.ops import prim as P
+from torch_threads import one_torch_thread  # noqa: F401
 
 TB = TorchBackend(torch.float64, "cpu")
 TNB = NumpyBackend()

@@ -38,6 +38,7 @@ from tensor_ops_tpu_torch.models.trainer import fit
 from tensor_ops_tpu_torch.utils import checkpoint as TC
 from tensor_ops_tpu_torch.utils import native as nat
 from tensor_ops_tpu_torch.utils.native import NativeLoader
+from torch_threads import one_torch_thread  # noqa: F401
 
 TB = TorchBackend(torch.float64, "cpu")
 TNB = NumpyBackend()

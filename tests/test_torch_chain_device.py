@@ -21,6 +21,7 @@ from tensor_ops_tpu_torch.models.optim import adam, cosine_schedule, sgd
 from tensor_ops_tpu_torch.models.trainer import (_device_fixed_perm,
                                                  _device_window_indices,
                                                  _device_window_offsets, fit)
+from torch_threads import one_torch_thread  # noqa: F401
 
 TB = TorchBackend(torch.float64, "cpu")
 TNB = NumpyBackend()

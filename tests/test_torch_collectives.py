@@ -25,6 +25,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from tensor_ops_tpu.parallel import collective_kernels as JC
 from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.parallel import collective_kernels as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_DEV = 8
 

@@ -16,6 +16,7 @@ import torch
 import apps.dots as jdots
 from tensor_ops_tpu_torch import TorchBackend
 from tensor_ops_tpu_torch.apps import dots
+from torch_threads import one_torch_thread  # noqa: F401
 
 # 6,000 samples at rate 2 from seed 3: enough training that the raster is
 # not blank (the default 50,000 take minutes on the per-sample oracle)

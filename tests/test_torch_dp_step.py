@@ -21,6 +21,7 @@ from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.parallel import (RankGroup, dp_megakernel_train_step,
                                            ring_all_reduce)
 from tensor_ops_tpu_torch.parallel import collective_kernels as C
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_DEV = 8
 DIMS, ACTS, LR = (16, 32, 10), ("logistic", "identity"), 0.05

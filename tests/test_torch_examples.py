@@ -10,6 +10,7 @@ import subprocess
 import sys
 
 import pytest
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -45,6 +45,7 @@ from tensor_ops_tpu_torch.ops.shapes import ShapeError
 from tensor_ops_tpu_torch.parallel import pipeline as TP
 from tensor_ops_tpu_torch.utils.checkpoint import (load_arrays,
                                                    network_from_arrays)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 JB = T.JaxBackend(dtype=jnp.float64)
@@ -262,7 +263,11 @@ def test_fit_pipeline_accum_chunk_validated():
 def test_fit_pipeline_mixed_precision_and_accum_resume(tmp_path):
     """bf16 on f32 masters trains to finite, falling losses on (8,); a
     Ctrl-C-free crash/resume under (pipeline x accum) is bit-equal to the
-    straight run, which equals the JAX package's at 1e-9."""
+    straight run, which equals the JAX package's at 1e-9: its one-device
+    run, which the JAX package's own tests hold its (8,) pipeline to at
+    1e-9.  (Its (8,) pipeline, nine ticks of an 8-device ring a microbatch
+    grid, missed XLA's 40 s rendezvous termination timeout under the test
+    run's load and aborted the worker running this test.)"""
     X, Y = classes(128, 12, 2, seed=23)
     mesh = meshes((8,))[1]
     tb32 = TorchBackend(torch.float32, "cpu")
@@ -282,12 +287,39 @@ def test_fit_pipeline_mixed_precision_and_accum_resume(tmp_path):
     resumed = t_fit(pair[1], t_xent(2), TB, X, Y, epochs=2,
                     checkpoint_path=ck, checkpoint_every=2, resume=True,
                     mesh=mesh, optimizer=TO.adam(), **kw)
-    jr, tr = both(pair, (j_xent(2), t_xent(2)), X, Y, (8,), epochs=2,
-                  opt="adam", **kw)
+    tr = t_fit(pair[1], t_xent(2), TB, X, Y, epochs=2, mesh=mesh,
+               optimizer=TO.adam(), **kw)
+    jr = j_fit(pair[0], j_xent(2), JB, X, Y, epochs=2, optimizer=JO.adam(),
+               **{k: v for k, v in kw.items()
+                  if not k.startswith("pipeline")})
     assert resumed.steps == tr.steps == 8
     for a, b in zip(resumed.net.params, tr.net.params):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
     assert_close(tr, jr)
+
+
+def test_async_checkpoint_copies_cpu_tensors(tmp_path):
+    """``save_arrays_async`` copies a CPU tensor before it returns (its
+    docstring's promise; ``.cpu().numpy()`` alone would share the tensor's
+    memory): a change made after the call, while the one writer thread is
+    still busy, does not reach the file."""
+    import threading
+
+    from tensor_ops_tpu_torch.utils import checkpoint as CKP
+
+    t = torch.arange(6, dtype=torch.float64)
+    path = str(tmp_path / "a.npz")
+    CKP.save_arrays_async(str(tmp_path / "warm.npz"), {"w": t}).result()
+    gate = threading.Event()
+    busy = CKP._ASYNC_POOL.submit(gate.wait)
+    fut = CKP.save_arrays_async(path, {"a": t}, {"step": 1})
+    t.add_(100.0)
+    gate.set()
+    busy.result()
+    fut.result()
+    arrays, meta = CKP.load_arrays(path)
+    np.testing.assert_array_equal(arrays["a"], np.arange(6.0))
+    assert meta == {"step": 1}
 
 
 @multi
@@ -325,12 +357,25 @@ def test_pipeline_chunks_and_schedule_validated():
               pipeline_schedule="1f1b", verbose=False)
 
 
-def test_stage_mesh_with_a_model_axis_refused():
-    _, tn = nets(12, 2, [(16, "logistic")] * 9, "softmax", 47)
-    X, Y = np.zeros((32, 12)), np.eye(2)[np.zeros(32, int)]
-    with pytest.raises(ValueError, match="Queue 1 item 9c-3"):
-        t_fit(tn, t_xent(2), TB, X, Y, batch_size=16, verbose=False,
-              mesh=TP.make_3d_pipeline_mesh(1, 2, 2, devices=["cpu"] * 4))
+@multi
+def test_stage_mesh_with_a_model_axis_refused(monkeypatch):
+    """A stage mesh with a model axis, refused before the tensor-parallel
+    pipelines were ported, trains: on (1, 2, 2) the port's fit equals the
+    JAX package's at 1e-9.  What is still refused on it is training in
+    several processes (ROADMAP.md Queue 1 item 9d)."""
+    X, Y = classes(64, 12, 2, seed=47)
+    kw = dict(epochs=1, batch_size=16, lr=0.05, verbose=False, prefetch=0,
+              log_every=1, pipeline_microbatches=2)
+    pair = nets(12, 2, [(16, "logistic")] * 9, "softmax", 47)
+    jm = JP.make_3d_pipeline_mesh(1, 2, 2)
+    tm = TP.make_3d_pipeline_mesh(1, 2, 2, devices=["cpu"] * 4)
+    jr = j_fit(pair[0], j_xent(2), JB, X, Y, mesh=jm, **kw)
+    tr = t_fit(pair[1], t_xent(2), TB, X, Y, mesh=tm, **kw)
+    assert_close(tr, jr)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(ValueError, match="Queue 1 item 9d"):
+        t_fit(pair[1], t_xent(2), TB, X, Y, mesh=tm, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ from tensor_ops_tpu_torch.models.trainer import FitSeqResult
 from tensor_ops_tpu_torch.models.trainer import fit_sequences as t_fit_seq
 from tensor_ops_tpu_torch.models.training import seq_batch_loss
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 JB = T.JaxBackend(dtype=jnp.float64)

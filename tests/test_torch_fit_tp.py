@@ -50,6 +50,7 @@ from tensor_ops_tpu_torch.parallel import mesh as TM
 from tensor_ops_tpu_torch.utils import checkpoint as TC
 from tensor_ops_tpu_torch.utils.profiling import \
     training_memory_report as t_report
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 JB = T.JaxBackend(dtype=jnp.float64)

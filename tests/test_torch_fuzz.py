@@ -20,6 +20,7 @@ from tensor_ops_tpu.ops import prim as JP
 from tensor_ops_tpu_torch.ops import ir as t_ir
 from tensor_ops_tpu_torch.ops import prim as TP
 from tensor_ops_tpu_torch.testing import check_grads_vs_autograd, fd_grad
+from torch_threads import one_torch_thread  # noqa: F401
 
 DIMS = (2, 3, 4)
 TOL = 1e-9

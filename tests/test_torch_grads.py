@@ -19,6 +19,7 @@ from tensor_ops_tpu_torch.ops import prim as TP
 from tensor_ops_tpu_torch.testing import (check_grads,
                                           check_grads_vs_autograd)
 from tensor_ops_tpu_torch.testing import rand as r
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-9
 TB = TT.TorchBackend(torch.float64, "cpu")

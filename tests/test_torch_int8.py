@@ -36,6 +36,7 @@ import torch
 from tensor_ops_tpu.ops import pallas_kernels as PK
 from tensor_ops_tpu.testing import rand as r
 from tensor_ops_tpu_torch.ops import kernels as K
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def f32(a):

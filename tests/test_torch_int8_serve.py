@@ -53,6 +53,7 @@ from tensor_ops_tpu_torch.models import FusedMLP, Predictor, QuantizedMLP
 from tensor_ops_tpu_torch.ops import cuda_build
 from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 PRINT_ROUNDING = 5e-7
 

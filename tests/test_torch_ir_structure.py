@@ -18,6 +18,7 @@ from tensor_ops_tpu_torch.ops import ir as t_ir
 from tensor_ops_tpu_torch.ops import prim as TP
 from tensor_ops_tpu_torch.ops.shapes import ShapeError
 from tensor_ops_tpu_torch.testing import check_grads, check_grads_vs_autograd
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-9
 TB = TT.TorchBackend(torch.float64, "cpu")

@@ -22,6 +22,7 @@ from tensor_ops_tpu.ops import pallas_kernels as PK
 from tensor_ops_tpu.testing import rand as r
 from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.ops.cuda_build import CSRC_DIR
+from torch_threads import one_torch_thread  # noqa: F401
 
 ACTS = ("identity", "logistic", "relu", "tanh")
 FLAGSHIP = (784, 300, 100, 10)

@@ -42,6 +42,7 @@ from tensor_ops_tpu_torch.models.trainer import fit as t_fit
 from tensor_ops_tpu_torch.models.trainer import make_opt_step
 from tensor_ops_tpu_torch.utils import checkpoint as TC
 from tensor_ops_tpu_torch.utils.native import NativeLoader
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 JB = T.JaxBackend(dtype=jnp.float64)

@@ -38,6 +38,7 @@ from tensor_ops_tpu_torch.models import optim as TO
 from tensor_ops_tpu_torch.models.trainer import _mesh_setup
 from tensor_ops_tpu_torch.parallel import collective_kernels as CK
 from tensor_ops_tpu_torch.parallel import mesh as TM
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 JB = T.JaxBackend(dtype=jnp.float64)
@@ -453,9 +454,12 @@ def test_sharded_forward_matches_jax_and_single():
 def test_model_axis_and_foreign_meshes_are_refused():
     """A model axis, refused before it was ported, now runs in every entry
     point that trains or serves on a mesh: sharded_train_step and
-    sharded_forward on (2, 2) equal one device.  A mesh that is not the
-    port's, and one with a stage axis (the 3-D mesh's partitions, ROADMAP.md
-    Queue 1 item 9c-3), are refused."""
+    sharded_forward on (2, 2) equal one device.  So does a mesh with a
+    stage axis, refused before the 3-D mesh's partitions were ported: as
+    the JAX package's param_specs leave them, the leaves replicate over the
+    stage axis, and on (2, 2, 2) the step and the forward equal the JAX
+    package's on its 3-D mesh.  A mesh that is not the port's is
+    refused."""
     from tensor_ops_tpu_torch.models.training import (batched_run,
                                                       make_mean_grads)
 
@@ -474,18 +478,42 @@ def test_model_axis_and_foreign_meshes_are_refused():
     np.testing.assert_allclose(y.numpy(), batched_run(tn, TB)(
         X, *tn.params).numpy(), atol=ATOL, rtol=0)
 
+    import tensor_ops_tpu.parallel.pipeline as JP
     from tensor_ops_tpu_torch.parallel.pipeline import make_3d_pipeline_mesh
 
-    stage_mesh = make_3d_pipeline_mesh(1, 2, 1, devices=["cpu"] * 2)
+    jn = jnet(SMALL, seed=2)
+    tn = tnet(jn, SMALL)
+    for shape in ((2, 2, 2), (1, 2, 1)):
+        jm = JP.make_3d_pipeline_mesh(*shape)
+        tm = make_3d_pipeline_mesh(*shape, devices=["cpu"] * int(
+            np.prod(shape)))
+        jv, jnew = JM.sharded_train_step(jn, j_xent(4), JB, jm)(
+            0.3, JB.asarray(np.asarray(X)), JB.asarray(np.asarray(Y)),
+            *JM.shard_network(jn, jm).params)
+        v, new = TM.sharded_train_step(tn, t_xent(4), TB, tm)(
+            0.3, X, Y, *TM.shard_network(tn, tm).params)
+        assert abs(float(v) - float(jv)) < ATOL
+        for a, b in zip(new, jnew):
+            assert "stage" not in a.spec
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                       atol=ATOL, rtol=0)
+            # rank 0's copy and stage 1's (data 0, model 0) stay equal
+            assert torch.equal(a.shards[0], a.shards[shape[2]])
+        y = TM.sharded_forward(tn, TB, tm)(X, *tn.params)
+        jy = JM.sharded_forward(jn, JB, jm)(JB.asarray(np.asarray(X)),
+                                           *jn.params)
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=ATOL,
+                                   rtol=0)
     from tensor_ops_tpu_torch.models import FusedMLP
 
     fm = FusedMLP.from_network(tn)
+    sf = TM.shard_fused(fm, tm)
+    np.testing.assert_allclose(sf.run_xla(X).numpy(), fm.run_xla(X).numpy(),
+                               atol=ATOL, rtol=0)
     for fn in (lambda m: TM.sharded_train_step(tn, t_xent(4), TB, m),
                lambda m: TM.sharded_forward(tn, TB, m),
                lambda m: TM.shard_network(tn, m),
                lambda m: TM.shard_fused(fm, m)):
-        with pytest.raises(ValueError, match="Queue 1 item 9c-3"):
-            fn(stage_mesh)
         with pytest.raises(ValueError, match="parallel.Mesh"):
             fn(JM.make_mesh(4, shape=(4, 1)))
 

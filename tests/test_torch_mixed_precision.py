@@ -43,6 +43,7 @@ from tensor_ops_tpu_torch.models import optim as TO
 from tensor_ops_tpu_torch.models.feedforward import Network
 from tensor_ops_tpu_torch.models.recurrent import gen_net as gen_rnet
 from tensor_ops_tpu_torch.utils.checkpoint import load_meta
+from torch_threads import one_torch_thread  # noqa: F401
 
 TB = TorchBackend(torch.float64, "cpu")
 BF16_TOL = 2.0 ** -6  # four bf16 roundings of the largest gradient

@@ -18,6 +18,7 @@ from tensor_ops_tpu_torch.backend.rng import Rng
 from tensor_ops_tpu_torch.models import act_logistic, act_softmax, gen_net
 from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.utils import checkpoint, mnist_data
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

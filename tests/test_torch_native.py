@@ -12,6 +12,7 @@ import torch
 from tensor_ops_tpu.utils import native as JN
 from tensor_ops_tpu_torch import NumpyBackend
 from tensor_ops_tpu_torch.utils import native as TN
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def dataset(n=100, seed=0):

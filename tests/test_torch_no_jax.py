@@ -9,7 +9,8 @@ on a ``(1, 2)`` mesh, ``shard_fused`` serving, the IR layer's
 introspection, tensor helpers and gradient checkers, a ``(2,)`` GPipe step,
 a ``PipelineMLP`` checkpoint, the staged-IR pipelines' gradients and
 ``fit`` on a ``(2,)`` stage mesh (GPipe and circular, ZeRO-1 on ``(2,
-2)``) run end to end, in a fresh interpreter
+2)``), a hetero-tp gradient and ``fit`` on a ``(2, 2, 2)`` mesh, and the
+mesh planner run end to end, in a fresh interpreter
 where ``import jax`` fails; ``parallel/tp.py``, ``parallel/ir_pipeline.py``,
 ``parallel/pipeline.py``, ``ops/introspect.py``, ``tensor.py`` and
 ``testing.py`` import on their own there."""
@@ -20,6 +21,7 @@ import subprocess
 import sys
 
 import tensor_ops_tpu_torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -286,6 +288,22 @@ for kw in (dict(mesh=pm), dict(mesh=pm, pipeline_schedule="circular"),
              optimizer=adam(), verbose=False, **kw)
     assert rp.steps == 2 and len(rp.net.params) == len(netp.params)
 assert "balance" in irp.describe_partition(irp.partition_network(netp, 3))
+# the tensor-parallel pipelines: a hetero-tp gradient and fit on (2, 2, 2)
+m3 = pipe.make_3d_pipeline_mesh(2, 2, 2, devices=["cpu"] * 8)
+pyr = gen_net(be, 16, 16, [(8, act_logistic()), (4, act_logistic())],
+              act_logistic(), Rng(be, 1))
+ptp = irp.partition_network(pyr, 2, m3)
+assert type(ptp).__name__ == "HeteroTpPipelinedNetwork"
+Xp = np.random.default_rng(2).uniform(size=(8, 16))
+vt, gt = irp.ir_pipeline_grads(pyr, squared_error(16), be, m3, 2)(
+    Xp, Xp, *ptp.flat_params())
+assert np.isfinite(float(vt)) and gt[0].spec == ("stage", "model", None)
+r3 = fit(netp, cross_entropy(4), be, np.concatenate([Xm] * 4),
+         np.concatenate([Ym] * 4), batch_size=16, optimizer=adam(),
+         verbose=False, mesh=m3, pipeline_microbatches=2)
+assert r3.steps == 4 and len(r3.net.params) == len(netp.params)
+from tensor_ops_tpu_torch.parallel import describe_plans, plan_meshes
+assert "(2,2,2)" in describe_plans(plan_meshes(pyr, 8, 64), top=20)
 assert sys.modules["jax"] is None
 print("NAMES", len(names))
 """

@@ -16,6 +16,7 @@ from tensor_ops_tpu_torch.backend import base as TBase
 from tensor_ops_tpu_torch.backend.rng import Rng as TRng
 from tensor_ops_tpu_torch.models import neuralnet as TNN
 from tensor_ops_tpu_torch.ops import vfunc as TV
+from torch_threads import one_torch_thread  # noqa: F401
 
 JNB, TNB = T.NumpyBackend(), NumpyBackend()
 TOL_POINTWISE = 1e-12

@@ -11,6 +11,7 @@ import torch
 
 from tensor_ops_tpu.models import optim as JO
 from tensor_ops_tpu_torch.models import optim as TO
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-12
 SHAPES = [(4, 3), (4,), (2, 4)]

@@ -44,6 +44,7 @@ from tensor_ops_tpu_torch.models import optim as TO
 from tensor_ops_tpu_torch.models.optim import _sr_uniform
 from tensor_ops_tpu_torch.models.trainer import fit as t_fit
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 JB = T.JaxBackend(dtype=jnp.float64)
 TB = TorchBackend(torch.float64, "cpu")

@@ -27,6 +27,7 @@ from tensor_ops_tpu.utils import checkpoint as JC
 from tensor_ops_tpu_torch.parallel import collective_kernels as CK
 from tensor_ops_tpu_torch.parallel import pipeline as TP
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL_FWD, TOL_STEP, TOL_F64 = 1e-6, 1e-5, 1e-9
 

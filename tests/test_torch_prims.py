@@ -17,6 +17,7 @@ from tensor_ops_tpu_torch.ops import ir as t_ir
 from tensor_ops_tpu_torch.ops import prim as TP
 from tensor_ops_tpu_torch.testing import loop_gmul
 from tensor_ops_tpu_torch.testing import rand as r
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-9
 PORT = (TT.TorchBackend(torch.float64, "cpu"), TT.NumpyBackend())

@@ -19,6 +19,7 @@ from tensor_ops_tpu_torch.backend.base import (beta, custom, exponential,
                                                gamma, normal, uniform)
 from tensor_ops_tpu_torch.backend.rng import Rng
 from tensor_ops_tpu_torch.ops.shapes import ShapeError
+from torch_threads import one_torch_thread  # noqa: F401
 
 TB = TT.TorchBackend(torch.float64, "cpu")
 TNB = TT.NumpyBackend()

@@ -34,6 +34,7 @@ from tensor_ops_tpu_torch.ops import ir as t_ir
 from tensor_ops_tpu_torch.ops.loops import MappedOp, ScanOp, _sqrt_divisor
 from tensor_ops_tpu_torch.ops.shapes import ShapeError
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-9
 

@@ -32,6 +32,7 @@ from tensor_ops_tpu_torch.models import FusedRNN, act_logistic
 from tensor_ops_tpu_torch.models.recurrent import fully_connected
 from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 ACTS = ("identity", "logistic", "relu", "tanh")
 TOL = 1e-5

@@ -23,6 +23,7 @@ from tensor_ops_tpu_torch.models import chain as C
 from tensor_ops_tpu_torch.models import recurrent as R
 from tensor_ops_tpu_torch.models.optim import adam, cosine_schedule
 from tensor_ops_tpu_torch.models.trainer import fit_sequences
+from torch_threads import one_torch_thread  # noqa: F401
 
 TB = TorchBackend(torch.float64, "cpu")
 TNB = NumpyBackend()

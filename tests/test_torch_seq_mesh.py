@@ -37,6 +37,7 @@ from tensor_ops_tpu_torch.models.recurrent import gen_net as t_gen_rnet
 from tensor_ops_tpu_torch.models.trainer import fit_sequences as t_fit_seq
 from tensor_ops_tpu_torch.parallel import make_mesh as t_make_mesh
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 JB = T.JaxBackend(dtype=jnp.float64)

@@ -34,6 +34,7 @@ from tensor_ops_tpu_torch.models import SequencePredictor
 from tensor_ops_tpu_torch.models import act_logistic as t_logistic
 from tensor_ops_tpu_torch.ops.ir import CompiledCache
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-9
 APP_TOL = 1e-6

@@ -34,6 +34,7 @@ from tensor_ops_tpu_torch.models import act_softmax as t_softmax
 from tensor_ops_tpu_torch.models import gen_net as t_gen_net
 from tensor_ops_tpu_torch.ops import kernels as K
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 HIDDEN = (300, 100)  # the flagship's widths

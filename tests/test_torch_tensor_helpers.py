@@ -13,6 +13,7 @@ from tensor_ops_tpu import tensor as JT
 from tensor_ops_tpu.ops.shapes import ShapeError as JShapeError
 from tensor_ops_tpu_torch.ops.shapes import ShapeError
 from tensor_ops_tpu_torch.testing import rand as r
+from torch_threads import one_torch_thread  # noqa: F401
 
 TT = T.tensor
 TOL = 1e-9

@@ -37,6 +37,7 @@ from tensor_ops_tpu_torch.ops import prim as P
 from tensor_ops_tpu_torch.parallel import ir_pipeline as TIP
 from tensor_ops_tpu_torch.parallel import mesh as TM
 from tensor_ops_tpu_torch.parallel import tp as TP
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 JB = T.JaxBackend(dtype=jnp.float64)

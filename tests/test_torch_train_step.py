@@ -24,6 +24,7 @@ from tensor_ops_tpu.models.fast import FusedMLP as JFusedMLP
 from tensor_ops_tpu.ops import pallas_kernels as PK
 from tensor_ops_tpu_torch.models import FusedMLP
 from tensor_ops_tpu_torch.ops import kernels as K
+from torch_threads import one_torch_thread  # noqa: F401
 
 FLAGSHIP = (784, 300, 100, 10)
 

@@ -36,6 +36,7 @@ from tensor_ops_tpu_torch.models import gen_net as t_gen_net
 from tensor_ops_tpu_torch.models import optim as TO
 from tensor_ops_tpu_torch.models.trainer import fit as t_fit
 from tensor_ops_tpu_torch.utils import checkpoint as TC
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 I, H, O = 12, 8, 4
@@ -326,11 +327,11 @@ REFUSED = [
     # make_mesh(4) is (1, 4): a model axis, refused before the model axis
     # was ported; it trains now (item None)
     ("mesh=a mesh", dict(mesh=_cpu_mesh(4)), None),
-    # a stage axis trains pipeline-parallel (item None); beside a model
-    # axis larger than 1 it takes the tensor-parallel pipelines
+    # a stage axis trains pipeline-parallel (item None), and beside a model
+    # axis larger than 1 too (the tensor-parallel pipelines, refused before
+    # they were ported)
     ("mesh=a stage axis", dict(mesh=_StageMesh()), None),
-    ("mesh=a stage axis and a model axis", dict(mesh=_StageMesh(2)),
-     "ROADMAP.md, Queue 1 item 9c-3"),
+    ("mesh=a stage axis and a model axis", dict(mesh=_StageMesh(2)), None),
     ("shard_opt_state=True", dict(shard_opt_state=True),
      r"ZeRO-1 \(shard_opt_state/zero_stage\) shards over the mesh's data"),
     ("zero_stage=2", dict(zero_stage=2),
@@ -351,9 +352,10 @@ def test_unported_options_raise(kw, item):
     """The options of later ROADMAP items raise naming the item, and the
     mesh and ZeRO options raise the JAX package's messages where the
     configuration is wrong (ZeRO without a mesh, a batch that does not
-    split over the data ranks).  A mesh with a model axis or a stage axis,
-    and the pipeline options, once refused here, train (``item`` None): a
-    mesh's leaves come back Sharded, a pipeline's as the parameter stack."""
+    split over the data ranks).  A mesh with a model axis, a stage axis or
+    both, and the pipeline options, once refused here, train (``item``
+    None): a mesh's leaves come back Sharded, a pipeline's as the parameter
+    stack."""
     X, Y, _ = data(20, 1)
     if item is None:
         res = t_fit(tnet(TB, jnet(JNB).params), t_xent(O), TB, X, Y,

@@ -28,6 +28,7 @@ from tensor_ops_tpu_torch.models import act_softmax as t_softmax
 from tensor_ops_tpu_torch.models import cross_entropy as t_xent
 from tensor_ops_tpu_torch.models import gen_net as t_gen_net
 from tensor_ops_tpu_torch.models import training as TT
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-9
 SMALL = (12, (8,), 4)
