@@ -289,11 +289,32 @@ without printing a result line:
    20 adam steps at B = 512: samples/s, one step's wall, kernels, busy
    time and idle share.  The CPU f64 comparisons of phases 26 and 27 run
    after both.
+28. Several processes, in an interpreter of its own with a time limit
+   (``procs_main``: it is process 0 and starts process 1, both
+   ``init_distributed`` through the ``TOPS_*`` variables, 2 ranks each on
+   the card): kernels 8-9 over the 4 ranks of both processes (ar with and
+   without the 1/n scale, rs, ag, the one-way ring; f32 and int32) bit-equal
+   to the plain version in every process; the flagship's ``fit`` on (2, 2)
+   (data across the processes; ZeRO-3, adam, B = 512, 2 steps with a
+   checkpoint from process 0, then a resume to 5), ``fit_sequences`` of the
+   Elman 32 -> [512] -> 32 on (2, 2) and the uniform chain's staged-IR
+   ``fit`` on (data=2, stage=2) and on a stage-only (4,) mesh across the
+   processes (B = 512, M = 4, 3 sgd steps): each bit-equal to the same
+   mesh's ranks in one process (the same batches: each process's loader
+   shard, concatenated), within TOL_5_STEPS of CPU f64 (an adam run's
+   parameters within TOL_MESH, as phase 23's), and kernel 9's calls across
+   processes equal to ``proc_predicted``, every one a launch of the
+   one-shot over IPC (none through the host); a step's samples/s, wall,
+   kernels, busy time and idle share of the flagship and the (4,) chain,
+   beside the same step in one process.
    ``chip_smoke.cards_main()`` runs only the phases that need several
    cards (the cross-card ring, these 4-card runs, the (2, 2) and (1, 4)
    fit runs with one rank a card, the (4,) GPipe run, the uniform chain's
    staged-IR ``fit`` on (4,) with one stage a card and on (1, 2, 2) with
-   one rank a card, each bit-equal to one card) on a four-card machine.
+   one rank a card, each bit-equal to one card, and phase 28's
+   collectives, the flagship's ``fit`` on (4, 1) and the chain's on (4,)
+   in 4 processes of one card each, on the ring protocol over CUDA IPC,
+   bit-equal to one process on the 4 cards) on a four-card machine.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -306,7 +327,7 @@ and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
 come from calling it directly; ``bidir_ring``'s launches add the mesh,
-model-axis and the three pipeline phases'.  Kernel 7 appears twice too: as
+model-axis and the three pipeline phases' and process 0's of phase 28.  Kernel 7 appears twice too: as
 ``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
 launches for the 8 served sequences, timed at n = 64, B = 1), and as
 ``fused_rnn_step`` the per-step entry (the public per-step function and the
@@ -5938,17 +5959,22 @@ def phase_ir_tp_fit(tmp: str) -> int:
 
 def phase_ir_tp_cards(tmp: str) -> None:
     """The uniform chain's fit on (1, 2, 2) with one rank a card (5 sgd
-    steps): bit-equal to the same run with the 4 ranks on one card."""
+    steps): bit-equal to the same run with the 4 ranks on one card; counts
+    the ring calls that waited for another thread's (autograd's backward
+    threads, one a card, issue them at once; the launch lock orders them)."""
     from tensor_ops_tpu_torch.models import sgd
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
 
     tX, tY, _, _ = synthetic_set(tmp)
     X, Y = tX[:5 * IRP_SGD_B], tY[:5 * IRP_SGD_B]
     shape = (1, 2, 2)
     one, _, _ = _irp_fit("uniform", shape, X, Y, 4, batch_size=IRP_SGD_B,
                          optimizer=sgd())
+    waits = CK._ring_waits
     four, counts, _ = _irp_fit("uniform", shape, X, Y, 4,
                                devices=[f"cuda:{i}" for i in range(4)],
                                batch_size=IRP_SGD_B, optimizer=sgd())
+    waits = CK._ring_waits - waits
     same = ([h["loss"] for h in one.history]
             == [h["loss"] for h in four.history]
             and all(torch.equal(a.to(DEVICE), b) for a, b in
@@ -5957,8 +5983,9 @@ def phase_ir_tp_cards(tmp: str) -> None:
           f"ir tp fit (1, 2, 2) on 4 cards: {counts['bidir_ring.ring']} "
           f"ring launches, bit-equal to one card: {same}")
     log(f"[irp-tp] fit uniform on (1, 2, 2) with one rank a card: "
-        f"{counts['bidir_ring.ring']} ring-protocol launches; 5 sgd steps' "
-        f"losses and parameters bit-equal to the 4 ranks on one card")
+        f"{counts['bidir_ring.ring']} ring-protocol launches, {waits} calls "
+        f"waited for another thread's; 5 sgd steps' losses and parameters "
+        f"bit-equal to the 4 ranks on one card")
 
 
 def phase_ir_pipeline_cards(tmp: str) -> None:
@@ -5988,11 +6015,606 @@ def phase_ir_pipeline_cards(tmp: str) -> None:
         f"bit-equal to the 4 ranks on one card")
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: several processes
+# ---------------------------------------------------------------------------
+
+# Phase 28: PROC_N processes share the card, PROC_RANKS ranks each (the
+# chip machine has one card); cards_main runs one process a card.  The
+# flagship's fit on (2, 2) at B = 512 (ZeRO-3, adam, PROC_FLAG_STEPS steps:
+# 2, a checkpoint from process 0, then a resume to 5), fit_sequences of the
+# Elman 32 -> [512] -> 32 on (2, 2) (PROC_SEQ_N sequences of PROC_SEQ_LEN
+# steps, B = PROC_SEQ_B: 2 steps), and the uniform chain's staged-IR fit on
+# (data=2, stage=2) and on (4,) at B = 512, M = 4 (PROC_IRP_STEPS sgd
+# steps).  The datasets hold one batch of a step (an epoch is one step),
+# drawn from seed 28 on the host alike in every process.
+PROC_N, PROC_RANKS, PROC_TIMEOUT_S = 2, 2, 420
+PROC_FLAG_B, PROC_FLAG_LR, PROC_FLAG_STEPS = 512, 0.002, 5
+PROC_SEQ_N, PROC_SEQ_LEN, PROC_SEQ_B = 128, 16, 64
+PROC_IRP_B, PROC_IRP_M, PROC_IRP_STEPS = 512, 4, 3
+PROC_TIMED_STEPS = 5
+PROC_DEVICE = "cuda:0"  # phase 28's card (every process's ranks on it)
+PROC_CARD = "cuda:{}"   # cards_main's card of process p (one card each)
+PROC_RUNS = ("flagship (2, 2)", "fit_sequences (2, 2)", "staged IR (2, 2)",
+             "staged IR (4,)")
+CARDS_PROC_RUNS = ("flagship (4, 1)", "staged IR (4,)")
+
+
+def proc_predicted(name: str, M: int = PROC_IRP_M) -> dict:
+    """Kernel 9's calls across processes (ar, rs, ag) that process 0 makes
+    in each phase-28 run (one launch each on the card), from the code:
+
+    * flagship, ZeRO-3 (W1, W2, b2 and W3 shard over the data axis; b1 and
+      b3 have no free dimension): per step each sharded leaf gathered at
+      use and its gradient reduce-scattered, each other gradient
+      all-reduced, once per data group (one a model rank), and the loss
+      averaged over the data ranks once;
+    * fit_sequences (dual-rate SGD): each of the 6 leaves' gradients (the
+      state and 5 parameters) all-reduced once per data group, and the loss;
+    * staged IR on (data=2, stage=2): the batch's rows all-gathered over the
+      data ranks, x and y (M > 1 microbatches cut each data rank's rows from
+      every process's block), the loss, and each of the 6 flat leaves'
+      gradients all-reduced once per data group (one a stage rank);
+    * staged IR on (4,) (no data axis: each process loads the full stream):
+      each hand-off of a microbatch across the processes' boundary and its
+      reverse (an all-gather over the pair, M each way), the stage psum
+      and its transpose, the loss copied to every process (an all-reduce of
+      the home's value and zeros), and the 4 replicated leaves' gradients
+      (the chain's first and last layers) summed over the stage ranks.
+
+    Returns the counts for the whole run."""
+    groups = 1 if name.endswith("(4, 1)") else 2  # data groups
+    per_step, steps = {
+        "flagship": ((2 * groups + 1, 4 * groups, 4 * groups),
+                     PROC_FLAG_STEPS),
+        "fit_sequences": ((6 * 2 + 1, 0, 0), 2),
+        "staged IR (2, 2)": ((1 + 6 * 2, 0, 2), PROC_IRP_STEPS),
+        "staged IR (4,)": ((2 + 1 + 4, 0, 2 * M), PROC_IRP_STEPS),
+    }[name if name.startswith("staged") else name.split()[0]]
+    return {p: steps * n for p, n in zip(("ar", "rs", "ag"), per_step)}
+
+
+def _sync() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _proc_data():
+    """Phase 28's data and initial leaves (numpy), the same in every
+    process: the flagship's (seed 0) and the Elman model's (seed 7) drawn
+    on the CPU, the uniform chain's (seed 26)."""
+    from tensor_ops_tpu_torch import TorchBackend
+
+    cpu = TorchBackend(torch.float32, "cpu")
+    r = np.random.default_rng(28)
+    X = r.uniform(0, 1, size=(PROC_FLAG_B, FLAGSHIP[0])).astype(np.float32)
+    Y = np.eye(FLAGSHIP[-1])[r.integers(0, FLAGSHIP[-1], size=PROC_FLAG_B)]
+    XS = r.uniform(-1, 1, size=(PROC_SEQ_N, PROC_SEQ_LEN, RNN_IN))
+    TS = r.uniform(0, 1, size=(PROC_SEQ_N, PROC_SEQ_LEN, RNN_OUT))
+    rnet = rnn_model(cpu)
+    cX, cY = _irp_batch("uniform", PROC_IRP_B)
+    return dict(
+        X=X, Y=Y.astype(np.float32), XS=XS.astype(np.float32),
+        TS=TS.astype(np.float32),
+        flag=[p.numpy() for p in _flagship_net(cpu, 0).params],
+        rnn=([s.numpy() for s in rnet.states],
+             [p.numpy() for p in rnet.params]),
+        cX=cX, cY=cY, chain=_irp_arrays("uniform")[0])
+
+
+def _proc_nets(d, be):
+    """The flagship, the Elman model and the uniform chain holding phase
+    28's initial leaves on ``be``, with their losses."""
+    from tensor_ops_tpu_torch.models import Network, cross_entropy, squared_error
+    from tensor_ops_tpu_torch.models.recurrent import RecurrentNetwork
+
+    flag = _flagship_net(be, 0)
+    flag = Network(flag.op, tuple(be.asarray(a) for a in d["flag"]),
+                   flag.act_names)
+    rt = rnn_model(be)
+    rnet = RecurrentNetwork(rt.op, tuple(be.asarray(a) for a in d["rnn"][0]),
+                            tuple(be.asarray(a) for a in d["rnn"][1]),
+                            rt.arch)
+    chain, closs = _irp_net("uniform", be, d["chain"])
+    return dict(flag=(flag, cross_entropy(FLAGSHIP[-1])),
+                rnn=(rnet, squared_error(RNN_OUT)), chain=(chain, closs))
+
+
+def _proc_fit(name: str, d, be, mesh, ck: str):
+    """One phase-28 run through ``fit`` / ``fit_sequences`` on ``mesh``
+    (its own process's or one spanning processes): the flagship in two
+    legs (checkpoints every 2 steps, then a resume), the others in one.
+    Returns ``(losses, result)``."""
+    from tensor_ops_tpu_torch.models import adam, fit, fit_sequences, sgd
+
+    nets = _proc_nets(d, be)
+    kw = dict(log_every=1, verbose=False, chain_steps=1)
+    if name.startswith("flagship"):
+        net, loss = nets["flag"]
+        run = dict(kw, batch_size=PROC_FLAG_B, lr=PROC_FLAG_LR, mesh=mesh,
+                   zero_stage=3, checkpoint_path=ck, checkpoint_every=2)
+        r1 = fit(net, loss, be, d["X"], d["Y"], epochs=2,
+                 optimizer=adam(), **run)
+        net, _ = _proc_nets(d, be)["flag"]
+        r2 = fit(net, loss, be, d["X"], d["Y"], epochs=PROC_FLAG_STEPS,
+                 optimizer=adam(), resume=True, **run)
+        return [h["loss"] for h in r1.history + r2.history], r2
+    if name.startswith("fit_sequences"):
+        rnet, loss = nets["rnn"]
+        res = fit_sequences(rnet, loss, be, d["XS"], d["TS"], epochs=1,
+                            batch_size=PROC_SEQ_B, mesh=mesh,
+                            **SEQ_FIT_RATES, **kw)
+        return [h["loss"] for h in res.history], res
+    net, loss = nets["chain"]
+    res = fit(net, loss, be, d["cX"], d["cY"], epochs=PROC_IRP_STEPS,
+              batch_size=PROC_IRP_B, lr=IRP_LR, optimizer=sgd(), mesh=mesh,
+              pipeline_microbatches=PROC_IRP_M, **kw)
+    return [h["loss"] for h in res.history], res
+
+
+def _proc_mesh(name: str, devices=None):
+    from tensor_ops_tpu_torch.parallel import (make_dp_pipeline_mesh,
+                                               make_mesh, make_pipeline_mesh)
+
+    if name.endswith("(4,)"):
+        return make_pipeline_mesh(4, devices=devices)
+    if name.startswith("staged IR"):
+        return make_dp_pipeline_mesh(2, 2, devices=devices)
+    shape = (4, 1) if name.endswith("(4, 1)") else (2, 2)
+    return make_mesh(4, shape=shape, devices=devices)
+
+
+def _host_leaves(res, mesh) -> list:
+    from tensor_ops_tpu_torch.models.trainer import _global_host_tree
+
+    leaves = tuple(getattr(res.net, "states", ())) + tuple(res.net.params)
+    return [np.asarray(x) for x in _global_host_tree(leaves, mesh)]
+
+
+def _proc_step_timing(step_fn, profile: bool) -> dict:
+    """One warm step, then PROC_TIMED_STEPS timed on the host clock, then
+    as many under ``torch.profiler`` where ``profile`` (process 0; the
+    others run them unprofiled, so that every process makes the same
+    calls): a step's wall time, kernels, device busy time and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+    step_fn()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(PROC_TIMED_STEPS):
+        step_fn()
+    _sync()
+    wall = (time.perf_counter() - t0) / PROC_TIMED_STEPS
+    if not profile:
+        for _ in range(PROC_TIMED_STEPS):
+            step_fn()
+        _sync()
+        return {"wall_ms": wall * 1e3}
+    with prof_ctx(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROC_TIMED_STEPS):
+            step_fn()
+        _sync()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / PROC_TIMED_STEPS
+    kernels = sum(1 for e in dev if not e.name.startswith(
+        ("Memcpy", "Memset"))) / PROC_TIMED_STEPS
+    return {"wall_ms": wall * 1e3, "kernels": kernels,
+            "busy_ms": busy / 1e3,
+            "idle": 1 - busy / 1e3 / (wall * 1e3) if dev else float("nan")}
+
+
+def _proc_step(name: str, d, be, mesh):
+    """A mesh step of the run's configuration and its arguments (fixed
+    inputs: the timing's step, the data's first batch)."""
+    from tensor_ops_tpu_torch.models import adam, sgd
+    from tensor_ops_tpu_torch.models.trainer import (_like, _mesh_setup,
+                                                     _scalars, make_opt_step)
+    from tensor_ops_tpu_torch.parallel import ir_pipeline as IP
+    from tensor_ops_tpu_torch.parallel.mesh import global_batch, param_specs
+
+    nets = _proc_nets(d, be)
+    if name.startswith("flagship"):
+        net, loss = nets["flag"]
+        opt, B, X, Y = adam(), PROC_FLAG_B, d["X"], d["Y"]
+        leaves, specs, pipe, z = (net.params, param_specs(net.param_stack,
+                                                          mesh), None, 3)
+    else:
+        net, loss = nets["chain"]
+        opt, B, X, Y = sgd(), PROC_IRP_B, d["cX"], d["cY"]
+        part = IP.partition_network(net, mesh.shape["stage"], mesh)
+        leaves, specs, z = part.flat_params(), IP.pipelined_specs(part,
+                                                                  mesh), 0
+        pipe = (part.skeleton(), PROC_IRP_M, "gpipe")
+    params, state, pins = _mesh_setup(leaves, specs, opt, mesh, be, z)
+    step = make_opt_step(net, loss, be, opt, mesh=mesh, pipeline=pipe,
+                         **pins)
+    xb, yb = be.asarray(X[:B]), be.asarray(Y[:B])
+    if mesh.multi and "data" in mesh.axis_names:
+        from tensor_ops_tpu_torch.parallel import distributed as D
+
+        n, p = D.process_count(), D.process_index()
+        b = B // n
+        chunks = 1 if pipe is None else PROC_IRP_M
+        xb = global_batch(xb[p * b:(p + 1) * b], mesh, chunks)
+        yb = global_batch(yb[p * b:(p + 1) * b], mesh, chunks)
+    lr = _scalars([0.01], _like(params))[0]
+    box = [state, params]
+
+    def run():
+        _, box[0], box[1] = step(lr, xb, yb, box[0], box[1])
+
+    return run, B
+
+
+def _proc_collectives() -> int:
+    """Kernels 8-9 over the global mesh's ranks (every process's): each
+    process passes its ranks' inputs (drawn alike everywhere, seed 28) and
+    Remote markers for the others', and its ranks' results must equal the
+    plain version over every rank's input on its card, bit for bit: ``ar``
+    with and without the 1/n scale, ``rs``, ``ag`` (f32 N(0, 1), and an
+    int32 ``ar``), and the one-way ring, at the flagship's first weight's
+    size and at sizes that do not fill whole pieces.  Returns the calls."""
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+    from tensor_ops_tpu_torch.parallel import distributed as D
+    from tensor_ops_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(shape=(len(D.global_devices()), 1))
+    n, dev = mesh.size, mesh.rank_devices[mesh.local_ranks[0]]
+    g = torch.Generator().manual_seed(28)
+    calls = 0
+    for shape in ((n * 75, 784), (n * 3, 37), (n,)):
+        for dtype in (torch.float32, torch.int32):
+            every = [torch.randn(shape, generator=g) for _ in range(n)]
+            if dtype == torch.int32:
+                every = [(1000 * e).to(torch.int32) for e in every]
+            xs = [every[r].to(mesh.rank_devices[r]) if mesh.is_local(r)
+                  else mesh.remote(r) for r in range(n)]
+            here = [e.to(dev) for e in every]
+            cases = [("ar", False, None), ("ag", False, None),
+                     ("ar", True, None)]
+            if dtype == torch.float32:
+                cases += [("ar", False, 1 / n), ("rs", False, 1 / n)]
+            for phase, one_way, scale in cases:
+                fn = {("ar", True): CK.ring_all_reduce,
+                      ("ar", False): CK.ring_all_reduce_bidir,
+                      ("rs", False): CK.ring_reduce_scatter,
+                      ("ag", False): CK.ring_all_gather}[(phase, one_way)]
+                got = fn(xs) if phase == "ag" else fn(xs, scale=scale)
+                want = CK.oneshot_ref(here, phase, one_way, scale)
+                for r in mesh.local_ranks:
+                    check(torch.equal(got[r].to(dev), want[r]),
+                          f"{phase}{' one-way' * one_way} across processes "
+                          f"at {shape} {dtype}: rank {r} differs from the "
+                          f"plain version")
+                calls += 1
+    return calls
+
+
+def _proc_runs(names, d, be, mesh_of, shared: str, profile: bool) -> dict:
+    """The runs ``names`` on the meshes ``mesh_of(name)`` gives: each
+    ``fit`` run's losses, whole leaves (host), launch counts and its
+    calls across processes; the timed steps of the flagship and of the
+    chain on (4,)."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+
+    out = {"collectives": _proc_collectives()}
+    for name in names:
+        mesh = mesh_of(name)
+        _sync()
+        K.reset_launch_counts()
+        CK.reset_phase_counts()
+        CK.reset_xproc_counts()
+        losses, res = _proc_fit(name, d, be, mesh,
+                                os.path.join(shared, f"p28_{len(out)}.npz"))
+        _sync()
+        out[name] = dict(losses=losses, counts=K.launch_counts(),
+                         phases=CK.phase_counts(), xproc=CK.xproc_counts(),
+                         leaves=_host_leaves(res, mesh))
+        if name.startswith("flagship") or name.endswith("(4,)"):
+            run, B = _proc_step(name, d, be, mesh)
+            t = _proc_step_timing(run, profile)
+            t["samples_per_s"] = B / t["wall_ms"] * 1e3
+            out[name]["timing"] = t
+    return out
+
+
+def _shard_batches(X, Y, B: int, n_proc: int, steps: int, drop_last: bool):
+    """The global batches of ``n_proc`` processes' loader shards (fit's
+    split: each process's ``NativeLoader(shard=(p, n_proc))`` of B / n_proc
+    rows), concatenated in process order."""
+    from tensor_ops_tpu_torch.utils.native import NativeLoader
+
+    loaders = [NativeLoader(X, Y, batch=B // n_proc, seed=0,
+                            shard=(k, n_proc), drop_last=drop_last)
+               for k in range(n_proc)]
+    try:
+        for _ in range(steps):
+            xs, ys = zip(*(ld.next() for ld in loaders))
+            yield np.concatenate(xs), np.concatenate(ys)
+    finally:
+        for ld in loaders:
+            ld.close()
+
+
+def _proc_one(name: str, d, be, mesh, n_proc: int, shared: str):
+    """The run ``name`` in one process on ``mesh`` (``None``: one device),
+    with the several-process run's batches: ``fit_sequences`` and the
+    stage-only fit load the same stream anyway; the data-axis fits take the
+    ``n_proc`` shards concatenated (fit's own loader would order the rows
+    otherwise), through the same step, uninterrupted.  Returns ``(losses,
+    whole leaves)``."""
+    from tensor_ops_tpu_torch.models import adam, sgd
+    from tensor_ops_tpu_torch.models.trainer import (_like, _mesh_setup,
+                                                     _scalars, make_opt_step)
+    from tensor_ops_tpu_torch.parallel import ir_pipeline as IP
+    from tensor_ops_tpu_torch.parallel.mesh import param_specs
+
+    if name.startswith("fit_sequences") or name.endswith("(4,)"):
+        losses, res = _proc_fit(name, d, be, mesh,
+                                os.path.join(shared, "one.npz"))
+        leaves = tuple(getattr(res.net, "states", ())) + tuple(res.net.params)
+        return losses, [np.asarray(_whole(x).cpu()) for x in leaves]
+    nets = _proc_nets(d, be)
+    pipe = name.startswith("staged IR")
+    net, loss = nets["chain" if pipe else "flag"]
+    opt = sgd() if pipe else adam()
+    lr = IRP_LR if pipe else PROC_FLAG_LR
+    B, X, Y = ((PROC_IRP_B, d["cX"], d["cY"]) if pipe else
+               (PROC_FLAG_B, d["X"], d["Y"]))
+    steps = PROC_IRP_STEPS if pipe else PROC_FLAG_STEPS
+    part = None
+    if mesh is None:
+        params, state = tuple(net.params), opt.init(tuple(net.params))
+        step = make_opt_step(net, loss, be, opt)
+    else:
+        if pipe:
+            part = IP.partition_network(net, mesh.shape["stage"], mesh)
+            leaves, specs = part.flat_params(), IP.pipelined_specs(part, mesh)
+        else:
+            leaves, specs = net.params, param_specs(net.param_stack, mesh)
+        params, state, pins = _mesh_setup(leaves, specs, opt, mesh, be,
+                                          0 if pipe else 3)
+        step = make_opt_step(
+            net, loss, be, opt, mesh=mesh, pipeline=None if part is None
+            else (part.skeleton(), PROC_IRP_M, "gpipe"), **pins)
+    losses = []
+    for xb, yb in _shard_batches(X, Y, B, n_proc, steps, drop_last=pipe):
+        lr_t = _scalars([lr], _like(params))[0]
+        v, state, params = step(lr_t, be.asarray(xb), be.asarray(yb), state,
+                                params)
+        losses.append(float(v))
+    if part is not None:
+        whole = tuple(torch.as_tensor(np.asarray(p)) for p in params)
+        params = part.skeleton().unflatten(whole).to_network_params()
+    return losses, [np.asarray(_whole(p).cpu()) if hasattr(p, "shards")
+                    else np.asarray(p.detach().cpu()) for p in params]
+
+
+def _chain_f64(d, batches) -> tuple:
+    """The uniform chain's sgd steps on ``batches`` by plain autograd on
+    the CPU in float64 (the staged-IR runs' reference): losses and
+    leaves."""
+    arrays, acts = _irp_arrays("uniform")
+    ps = [torch.tensor(a, dtype=torch.float64) for a in arrays]
+    losses = []
+    for xb, yb in batches:
+        x = torch.tensor(xb, dtype=torch.float64)
+        y = torch.tensor(yb, dtype=torch.float64)
+        ps = [p.detach().requires_grad_() for p in ps]
+        h = x
+        for k, act in enumerate(acts):
+            z = torch.addmm(ps[2 * k + 1], h, ps[2 * k].T)
+            h = torch.softmax(z, dim=-1) if act == "softmax" else \
+                torch.sigmoid(z)
+        v = -torch.mean(torch.sum(y * torch.log(h), dim=-1))
+        gs = torch.autograd.grad(v, ps)
+        losses.append(float(v.detach()))
+        ps = [(p - IRP_LR * g).detach() for p, g in zip(ps, gs)]
+    return losses, [p.numpy() for p in ps]
+
+
+def _proc_f64(name: str, d, n_proc: int) -> tuple:
+    """The run's semantics on the CPU in float64, on its batches."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.utils.native import NativeLoader
+
+    if name.startswith("staged IR"):
+        if name.endswith("(4,)"):
+            ld = NativeLoader(d["cX"], d["cY"], batch=PROC_IRP_B, seed=0,
+                              drop_last=True)
+            batches = [ld.next() for _ in range(PROC_IRP_STEPS)]
+            ld.close()
+        else:
+            batches = list(_shard_batches(d["cX"], d["cY"], PROC_IRP_B,
+                                          n_proc, PROC_IRP_STEPS, True))
+        return _chain_f64(d, batches)
+    be = TorchBackend(torch.float64, "cpu")
+    if name.startswith("fit_sequences"):
+        losses, res = _proc_fit(name, d, be, None, "")
+        return losses, [x.numpy() for x in tuple(res.net.states)
+                        + tuple(res.net.params)]
+    return _proc_one(name, d, be, None, n_proc, "")
+
+
+def proc_worker() -> None:
+    """A process of phase 28 (or of cards_main's runs across processes)
+    other than process 0: ``init_distributed`` from the ``TOPS_*``
+    variables, then the runs that ``TOPS_PROC_RUNS`` names, as process 0
+    makes them, checkpoints in ``TOPS_PROC_DIR`` (process 0's)."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.parallel.distributed import (
+        init_distributed, shutdown_distributed)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_distributed()
+    be = TorchBackend(torch.float32,
+                      os.environ["TOPS_LOCAL_DEVICES"].split(",")[0])
+    _proc_runs(os.environ["TOPS_PROC_RUNS"].split(";"), _proc_data(), be,
+               _proc_mesh, os.environ["TOPS_PROC_DIR"], profile=False)
+    shutdown_distributed()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def procs_main(out: str, cards: bool = False) -> None:
+    """Phase 28 (or, ``cards=True``, cards_main's runs across processes):
+    this interpreter is process 0 and starts the others
+    (:func:`proc_worker`), every process ``init_distributed`` through the
+    ``TOPS_*`` variables; then each run is held bit for bit to the same
+    mesh's ranks in this one process, and to CPU float64 (losses within
+    TOL_5_STEPS, parameters too after sgd, within TOL_MESH after adam);
+    kernel 9's calls across processes to
+    :func:`proc_predicted`, all on the card's route (none through the
+    host).  Writes process 0's launches to ``out``."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.parallel import distributed as D
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = 4 if cards else PROC_N
+    local = ([[PROC_CARD.format(p)] for p in range(n)] if cards
+             else [[PROC_DEVICE] * PROC_RANKS] * n)
+    names = CARDS_PROC_RUNS if cards else PROC_RUNS
+    route = "ring" if cards else "oneshot"
+    if torch.device(local[0][0]).type == "cuda":
+        check(torch.cuda.is_available(), "several processes on cards: no "
+              "card is visible")
+    else:
+        route = "cpu"  # a rehearsal, PROC_DEVICE or PROC_CARD set to "cpu"
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    d = _proc_data()
+    with tempfile.TemporaryDirectory() as shared:
+        env = dict(os.environ, PYTHONPATH=here,
+                   TOPS_COORDINATOR=f"localhost:{port}",
+                   TOPS_NUM_PROCESSES=str(n), TOPS_PROC_DIR=shared,
+                   TOPS_PROC_RUNS=";".join(names))
+        workers = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.proc_worker()"], cwd=here,
+            env=dict(env, TOPS_PROCESS_ID=str(p),
+                     TOPS_LOCAL_DEVICES=",".join(local[p])))
+            for p in range(1, n)]
+        try:
+            t0 = time.perf_counter()
+            D.init_distributed(f"localhost:{port}", n, 0,
+                               local_devices=local[0])
+            be = TorchBackend(torch.float32, local[0][0])
+            multi = _proc_runs(names, d, be, _proc_mesh, shared, profile=True)
+            D.shutdown_distributed()
+            rcs = [w.wait(timeout=PROC_TIMEOUT_S) for w in workers]
+            wall = time.perf_counter() - t0
+        finally:
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+                    w.wait()
+        check(rcs == [0] * (n - 1), f"processes 1-{n - 1} exited {rcs}")
+        devices = [x for row in local for x in row]
+        launches = {k: 0 for k in RING_NAMES}
+        for name in names:
+            m = multi[name]
+            one = _proc_one(name, d, be, _proc_mesh(name, devices), n, shared)
+            same = (m["losses"] == one[0] and len(m["leaves"]) == len(one[1])
+                    and all(np.array_equal(a, b)
+                            for a, b in zip(m["leaves"], one[1])))
+            check(same, f"{name} in {n} processes: not bit-equal to one "
+                  f"process on the same ranks (losses {m['losses']} vs "
+                  f"{one[0]})")
+            # the losses at TOL_5_STEPS; the parameters too after sgd,
+            # and at TOL_MESH after adam (phase 23: its sign steps on
+            # cancellation residues exceed five sgd steps' bound)
+            f64 = _proc_f64(name, d, n)
+            tol = TOL_MESH if name.startswith("flagship") else TOL_5_STEPS
+            err = max(max_err(torch.tensor(m["losses"]),
+                              torch.tensor(f64[0]), TOL_5_STEPS),
+                      max(max_err(torch.from_numpy(a), torch.from_numpy(b),
+                                  tol)
+                          for a, b in zip(m["leaves"], f64[1])))
+            want = proc_predicted(name)
+            x = m["xproc"]
+            got = {k: x[k] for k in want}
+            routes = {k: x[k] for k in ("cpu", "oneshot", "ring")}
+            check(got == want and routes[route] == sum(want.values())
+                  and sum(routes.values()) == routes[route],
+                  f"{name}: kernel 9 across processes {got} (routes "
+                  f"{routes}), predicted {want} on the {route} route")
+            for k in RING_NAMES:
+                launches[k] += m["counts"][k]
+            where = "1 rank(s) each, one card a process" if cards else (
+                f"{PROC_RANKS} rank(s) each, one card")
+            log(f"[procs] {name} in {n} processes ({where}): losses "
+                f"{m['losses'][0]:.6f} -> {m['losses'][-1]:.6f}, "
+                f"bit-equal to one process on the same ranks, max |err| "
+                f"{err:.3e} from CPU f64 (tol {tol}); kernel 9 across "
+                f"processes {got} = predicted, {x[route]} "
+                f"{route} launches ({m['counts']['bidir_ring']} bidir_ring, "
+                f"{m['counts']['bidir_ring.ring']} bidir_ring.ring in all)")
+            if "timing" in m:
+                t = m["timing"]
+                t1 = _proc_one_timing(name, d, be, devices)
+                log(f"[timing] {name} step in {n} processes: "
+                    f"{t['samples_per_s']:.1f} samples/s, wall "
+                    f"{t['wall_ms']:.2f} ms, {t['kernels']:.0f} kernels, "
+                    f"busy {t['busy_ms']:.2f} ms, idle {t['idle']:.3f} "
+                    f"(process 0's); one process on the same ranks: "
+                    f"{t1['samples_per_s']:.1f} samples/s, wall "
+                    f"{t1['wall_ms']:.2f} ms, {t1['kernels']:.0f} kernels, "
+                    f"busy {t1['busy_ms']:.2f} ms, idle {t1['idle']:.3f} "
+                    f"(wall: host clock over {PROC_TIMED_STEPS} steps after "
+                    f"one; kernels and busy: torch.profiler over "
+                    f"{PROC_TIMED_STEPS} more)")
+        log(f"[procs] kernels 8-9 across the {n} processes: "
+            f"{multi['collectives']} calls (ar, ar scaled, rs, ag, one-way; "
+            f"f32 and int32) bit-equal to the plain version over every "
+            f"rank's input, in every process")
+        log(f"[procs] the {n} processes' runs took {wall:.1f} s")
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def _proc_one_timing(name: str, d, be, devices) -> dict:
+    run, B = _proc_step(name, d, be, _proc_mesh(name, devices))
+    t = _proc_step_timing(run, True)
+    t["samples_per_s"] = B / t["wall_ms"] * 1e3
+    return t
+
+
+def phase_procs(tmp: str, cards: bool = False) -> dict:
+    """Run :func:`procs_main` (phase 28) in an interpreter of its own with
+    a time limit; its lines print as they come; returns its launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "procs_launches.json")
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.procs_main(sys.argv[1], sys.argv[2] == '1')", out,
+         "1" if cards else "0"],
+        timeout=PROC_TIMEOUT_S + 120, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, f"the several-process phase failed (exit "
+          f"{proc.returncode})")
+    with open(out) as f:
+        return json.load(f)
+
+
 def cards_main() -> None:
     """The phases that need several cards, alone (on a machine with 4):
-    the cross-card ring against its plain versions, and the 4-card runs of
+    the cross-card ring against its plain versions, the 4-card runs of
     :func:`phase_mesh_cards`, :func:`phase_model_axis_cards` and
-    :func:`phase_pipeline_cards` against the same runs on one card.
+    :func:`phase_pipeline_cards` against the same runs on one card, and
+    4 processes of one card each (:func:`procs_main`, ``cards=True``: the
+    ring protocol over CUDA IPC) against one process on the 4 cards.
     ``python3 -c "import chip_smoke; chip_smoke.cards_main()"``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     check(torch.cuda.device_count() >= MESH_DP, f"cards_main needs "
@@ -6006,7 +6628,12 @@ def cards_main() -> None:
         timed("staged-IR fit on 4 cards", phase_ir_pipeline_cards, tmp)
         timed("tensor-parallel pipeline fit on 4 cards", phase_ir_tp_cards,
               tmp)
+        timed("4 processes, one card each", phase_procs, tmp, True)
     timed("pipelines on 4 cards", phase_pipeline_cards)
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+
+    log(f"[ring] {CK._ring_waits} ring-protocol calls of this process "
+        f"waited for another thread's call (the launch lock)")
 
 
 def mesh_main(out: str) -> None:
@@ -6120,6 +6747,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mesh_launches = timed("mesh (second interpreter)", phase_mesh_proc,
                               tmp)
+        proc_launches = timed("several processes (own interpreter)",
+                              phase_procs, tmp)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "
@@ -6143,9 +6772,10 @@ def main() -> int:
         launches[n] = dp[n]["launches"]
         launches[f"{n}.ring"] = dp[n]["protocol launches"]
     # and kernel 9 on the mesh's fit and fit_sequences runs and the model
-    # axis's serving and training and the pipelines (phases 23-27)
+    # axis's serving and training and the pipelines (phases 23-27), and
+    # process 0's in phase 28's runs across processes
     for n in RING_NAMES:
-        launches[n] += mesh_launches[n]
+        launches[n] += mesh_launches[n] + proc_launches[n]
     least = bounds()
     for n in KERNELS:
         log(f"[bound] {n}: {least[n][0]:.6f} ms by {least[n][1]} (H100 SXM "

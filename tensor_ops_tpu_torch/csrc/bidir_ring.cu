@@ -19,6 +19,7 @@
 // (oneshot.cuh: one launch, each element folded in the order its piece
 // travels); ranks on several cards take the ring protocol (ring.cuh: its
 // ordering and what bounds it).
+#include "ipc.cuh"
 #include "oneshot.cuh"
 #include "ring.cuh"
 
@@ -42,3 +43,5 @@ __global__ void __launch_bounds__(oneshot::kThreads)
 RING_C_ENTRIES(bidir_ring, bidir_ring_kernel, 2)
 // bidir_ring_oneshot: see oneshot.cuh (D = 2, every phase).
 ONESHOT_C_ENTRY(bidir_ring, bidir_ring_oneshot_kernel)
+// bidir_ring_ipc_*: see ipc.cuh (ranks of several processes).
+IPC_C_ENTRIES(bidir_ring)

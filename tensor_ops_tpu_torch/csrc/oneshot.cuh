@@ -30,6 +30,11 @@
 //       piece 1 ((x2 + x1) + x0) + x3;
 //   rs, rank 2's block: piece 0 ((x3 + x0) + x1) + x2,
 //       piece 1 ((x1 + x0) + x3) + x2.
+// Ranks of several processes on one card (parallel/collective_kernels.py
+// _ipc_collective): each process launches the one-shot over every rank's
+// input, the other processes' read through CUDA IPC mappings of their
+// staging buffers (ipc.cuh), and writes only its own ranks' outputs (Desc
+// mask; a rank of another process has no output pointer here).
 // A thread folds its R values in exactly that order with __fadd_rn (never an
 // FMA; int32 adds wrap), so the result equals the ring protocol and the
 // plain versions in parallel/collective_kernels.py bit for bit.  An optional
@@ -74,6 +79,7 @@ struct Desc {
   int n;
   int D;
   int vec;  // 16-byte positions allowed (size and part multiples of 4)
+  int mask;  // bit r: write rank r's output (ranks of other processes: 0)
 };
 
 // One launch's arguments, passed by value in the kernel's parameter space.
@@ -129,7 +135,7 @@ __device__ __forceinline__ void body(const Args& a) {
         if (k < n) v[k] = load<V>(a, k, q);
 #pragma unroll
       for (int dst = 0; dst < MAXR; ++dst) {
-        if (dst >= n) continue;
+        if (dst >= n || !((d.mask >> dst) & 1)) continue;
         V* o = static_cast<V*>(a.out[dst]);
 #pragma unroll
         for (int k = 0; k < MAXR; ++k)
@@ -167,8 +173,8 @@ __device__ __forceinline__ void body(const Args& a) {
     if (d.phase == kAllReduce) {
 #pragma unroll
       for (int k = 0; k < MAXR; ++k)
-        if (k < n) static_cast<V*>(a.out[k])[q] = acc;
-    } else {
+        if (k < n && ((d.mask >> k) & 1)) static_cast<V*>(a.out[k])[q] = acc;
+    } else if ((d.mask >> own) & 1) {
       static_cast<V*>(a.out[own])[q - own * (d.part / W)] = acc;
     }
   }

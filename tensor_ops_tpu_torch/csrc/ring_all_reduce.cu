@@ -12,6 +12,7 @@
 // (oneshot.cuh: one launch, each rank's input read once, each element
 // folded in the ring's order); ranks on several cards take the ring protocol
 // (ring.cuh: its ordering and what bounds it).
+#include "ipc.cuh"
 #include "oneshot.cuh"
 #include "ring.cuh"
 
@@ -36,3 +37,5 @@ __global__ void __launch_bounds__(oneshot::kThreads)
 RING_C_ENTRIES(ring_all_reduce, ring_all_reduce_kernel, 1)
 // ring_all_reduce_oneshot: see oneshot.cuh (D = 1, phase 0).
 ONESHOT_C_ENTRY(ring_all_reduce, ring_all_reduce_oneshot_kernel)
+// ring_all_reduce_ipc_*: see ipc.cuh (ranks of several processes).
+IPC_C_ENTRIES(ring_all_reduce)

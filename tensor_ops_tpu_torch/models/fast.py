@@ -86,7 +86,7 @@ class FusedMLP:
     def device(self) -> torch.device:
         """The device the model's requests go to (on a mesh: rank 0's)."""
         w = self.weights[0]
-        return w.shards[0].device if self.sharded else w.device
+        return w.local.device if self.sharded else w.device
 
     def _whole_only(self, what: str) -> None:
         if self.sharded:

@@ -58,8 +58,8 @@ def _is_model_sharded(w) -> bool:
 def _rank0_copy(model: FusedMLP) -> FusedMLP:
     """A mesh-placed ``FusedMLP`` none of whose weights is sharded: its
     whole copy on rank 0, which the kernels serve."""
-    return FusedMLP(tuple(w.shards[0] for w in model.weights),
-                    tuple(b.shards[0] for b in model.biases), model.acts,
+    return FusedMLP(tuple(w.local for w in model.weights),
+                    tuple(b.local for b in model.biases), model.acts,
                     model.softmax_out, model.precision, model.loss_kind)
 
 

@@ -40,8 +40,11 @@ pipeline-parallel over the staged IR (``parallel.ir_pipeline``: the
 partition's leaves on the stage axis, and on a ``(data, stage, model)``
 mesh row-split over the model axis too, each data group's microbatches
 through the schedule, the same ZeRO ladder and step).  A mesh or an
-offloaded state runs unchained.  ``profile_dir`` (item 8) and several
-processes (item 9d) raise ``ValueError`` naming their ROADMAP item.
+offloaded state runs unchained.  In several processes
+(``parallel.distributed``) the mesh spans them: each process loads its
+shard of every batch (a stage-only mesh: the whole stream), and process 0
+writes the checkpoints, which every process resumes from.
+``profile_dir`` (item 8) raises ``ValueError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -242,12 +245,21 @@ def _decide_mp_route(build_step, make_args, carry_from: int = 3,
     time them on a dummy batch (:func:`_measure_mp_route`) and keep bf16
     only when it is more than 3% faster (near-ties stay on f32, so
     repeated runs of one configuration do not flip routes on timing
-    noise).  Returns ``(use_bf16, {"mp_f32_us", "mp_bf16_us"})``."""
+    noise).  Under several processes every process measures the same
+    global step, but process 0's verdict is broadcast (the JAX package's
+    rule): per-process verdicts could differ on a near-tie, and processes
+    running different steps would wait on each other's collectives for
+    ever.  Returns ``(use_bf16, {"mp_f32_us", "mp_bf16_us"})``."""
+    from ..parallel.distributed import broadcast_object, process_count
+
     f32_us, bf16_us = _measure_mp_route(build_step(False), build_step(True),
                                         make_args(), carry_from=carry_from,
                                         graphs=graphs)
-    return bf16_us < 0.97 * f32_us, {"mp_f32_us": round(f32_us, 2),
-                                     "mp_bf16_us": round(bf16_us, 2)}
+    use_bf16 = bf16_us < 0.97 * f32_us
+    if process_count() > 1:
+        use_bf16 = bool(broadcast_object(use_bf16, src=0))
+    return use_bf16, {"mp_f32_us": round(f32_us, 2),
+                      "mp_bf16_us": round(bf16_us, 2)}
 
 
 def _resolve_mp_route(net, build_step, dummy_args, route_key, *, resume,
@@ -416,21 +428,23 @@ def _mesh_opt_init(opt: Optimizer, placed, resident, mesh):
     elementwise = opt.name in _ELEMENTWISE
     if not elementwise:
         placed = [reshard(x, (None,) * x.ndim) for x in placed]
-    per_rank = [opt.init(tuple(x.shards[r] for x in placed))
-                for r in range(len(mesh.rank_devices))]
-    flat = [_tree_leaves(st) for st in per_rank]
-    slots = (_moment_slots(flat[0], [x.shards[0] for x in placed])
-             if elementwise else None) or [None] * len(flat[0])
+    per_rank = {r: opt.init(tuple(x.shards[r] for x in placed))
+                for r in mesh.local_ranks}
+    flat = {r: _tree_leaves(st) for r, st in per_rank.items()}
+    f0 = flat[mesh.local_ranks[0]]
+    slots = (_moment_slots(f0, [x.local for x in placed])
+             if elementwise else None) or [None] * len(f0)
     out = []
     for j, slot in enumerate(slots):
-        shards = [f[j] for f in flat]
+        shards = [flat[r][j] if r in flat else mesh.remote(r)
+                  for r in range(mesh.size)]
         if slot is None:
             out.append(Sharded((), shards, mesh))
         else:
             out.append(reshard(Sharded(placed[slot].spec, shards, mesh,
                                        placed[slot].shape),
                                resident[slot].spec, own=True))
-    return _tree_unflatten(per_rank[0], out)
+    return _tree_unflatten(per_rank[mesh.local_ranks[0]], out)
 
 
 def _clip_mesh(grads, max_norm: float):
@@ -446,10 +460,12 @@ def _clip_mesh(grads, max_norm: float):
     (a leaf of a 3-D mesh may lie on the stage axis and whole over the
     model axis); each rank adds the whole gradients' sums, so every block
     counts once however many ranks hold it."""
-    from ..parallel.mesh import DATA_AXIS, Sharded, ring_all_reduce_bidir
+    from ..parallel.mesh import (DATA_AXIS, Sharded, _local_groups,
+                                 ring_all_reduce_bidir)
 
     mesh = grads[0].mesh
     n = len(grads[0].shards)
+    mine = mesh.local_ranks
     inner = tuple(a for a in mesh.axis_names if a != DATA_AXIS)
 
     def kind(g):
@@ -462,8 +478,8 @@ def _clip_mesh(grads, max_norm: float):
 
     kinds = {kind(g) for g in grads}
     if kinds == {(False, False)}:
-        per_rank = [clip_by_global_norm(tuple(g.shards[r] for g in grads),
-                                        max_norm) for r in range(n)]
+        per_rank = {r: clip_by_global_norm(tuple(g.shards[r] for g in grads),
+                                           max_norm) for r in mine}
     else:
         def sq(r, k):
             x = grads[0].shards[r]
@@ -473,26 +489,29 @@ def _clip_mesh(grads, max_norm: float):
                     part = part + (g.shards[r] * g.shards[r]).sum()
             return part
 
+        def each(group, part):
+            return [part(r) if mesh.is_local(r) else mesh.remote(r)
+                    for r in group]
+
         both = (True, True) in kinds
         data = model = None
         if (True, False) in kinds or both:
             data = [None] * n
-            for group in mesh.groups(DATA_AXIS):
-                parts = [torch.stack([sq(r, (True, False))]
-                                     + [sq(r, (True, True))] * both)
-                         for r in group]
+            for group in _local_groups(mesh, DATA_AXIS):
+                parts = each(group, lambda r: torch.stack(
+                    [sq(r, (True, False))] + [sq(r, (True, True))] * both))
                 for r, y in zip(group, ring_all_reduce_bidir(parts)):
                     data[r] = y
         if (False, True) in kinds or both:
             model = [None] * n
-            for group in mesh.groups(inner):
-                parts = [(sq(r, (False, True))
-                          + (data[r][1] if both else 0.0)).reshape(1)
-                         for r in group]
+            for group in _local_groups(mesh, inner):
+                parts = each(group, lambda r: (
+                    sq(r, (False, True))
+                    + (data[r][1] if both else 0.0)).reshape(1))
                 for r, y in zip(group, ring_all_reduce_bidir(parts)):
                     model[r] = y
-        per_rank = []
-        for r in range(n):
+        per_rank = {}
+        for r in mine:
             total = None
             for red in (data, model):
                 if red is not None:
@@ -501,8 +520,10 @@ def _clip_mesh(grads, max_norm: float):
                 if kind(g) == (False, False):
                     total = total + (g.shards[r] * g.shards[r]).sum()
             scale = torch.clamp(max_norm / (total ** 0.5 + 1e-12), max=1.0)
-            per_rank.append(tuple(g.shards[r] * scale for g in grads))
-    return tuple(Sharded(g.spec, [pr[i] for pr in per_rank], g.mesh, g.shape)
+            per_rank[r] = tuple(g.shards[r] * scale for g in grads)
+    return tuple(Sharded(g.spec, [per_rank[r][i] if r in per_rank
+                                  else mesh.remote(r) for r in range(n)],
+                         g.mesh, g.shape)
                  for i, g in enumerate(grads))
 
 
@@ -534,11 +555,12 @@ def _offload_in(state, devices):
     """The offloaded optimizer state back on the card at a step's start:
     each leaf (each rank's shard) copied to ``devices`` (one per rank, or
     one for a single device) from pinned memory, without waiting."""
-    from ..parallel.mesh import Sharded
+    from ..parallel.mesh import Remote, Sharded
 
     def leaf(x):
         if isinstance(x, Sharded):
-            return Sharded(x.spec, [s.to(d, non_blocking=True)
+            return Sharded(x.spec, [s if type(s) is Remote else
+                                    s.to(d, non_blocking=True)
                                     for s, d in zip(x.shards, devices)],
                            x.mesh, x.shape)
         if isinstance(x, torch.Tensor):
@@ -604,8 +626,8 @@ def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
     pinned host memory at the start and out to new pinned memory at the
     end."""
     from ..parallel.mesh import (DATA_AXIS, Sharded, _split_rows,
-                                 _tree_leaves, _tree_unflatten, reduce_mean,
-                                 reshard, ring_all_reduce_bidir)
+                                 _tree_leaves, _tree_unflatten, first_local,
+                                 reduce_mean, reshard, ring_all_reduce_bidir)
 
     dp = mesh.shape.get(DATA_AXIS, 1)
     groups = mesh.groups(tuple(a for a in mesh.axis_names if a != DATA_AXIS))
@@ -625,8 +647,14 @@ def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
         full = param_unshard(leaves) if param_unshard is not None else leaves
         vals, grads = [], [None] * len(devs)
         for d, ranks in enumerate(groups):
-            x_d = _split_rows(xb, dp, d, devs[ranks[0]], chunks)
-            y_d = _split_rows(yb, dp, d, devs[ranks[0]], chunks)
+            mine = [r for r in ranks if mesh.is_local(r)]
+            if not mine:  # another process's data rank
+                vals.append(mesh.remote(ranks[0]))
+                for r in ranks:
+                    grads[r] = (mesh.remote(r),) * n
+                continue
+            x_d = _split_rows(xb, dp, d, devs[mine[0]], chunks)
+            y_d = _split_rows(yb, dp, d, devs[mine[0]], chunks)
             ps = tuple(p.shards[r] for r in ranks for p in full)
             if accum_steps > 1:
                 v, g = _accum(lambda x, y: group_vags[d](x, y, ps), x_d, y_d,
@@ -636,7 +664,7 @@ def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
             vals.append(v.reshape(1))
             for m, r in enumerate(ranks):
                 grads[r] = g[m * n:(m + 1) * n]
-        v = ring_all_reduce_bidir(vals, scale=1.0 / dp)[0].reshape(())
+        v = first_local(ring_all_reduce_bidir(vals, scale=1.0 / dp)).reshape(())
         gspecs = (grad_constrain.specs if grad_constrain is not None
                   else (None,) * n)
         mean = tuple(reduce_mean([g[i] for g in grads], gs or full[i].spec,
@@ -661,21 +689,27 @@ def _mesh_step(mesh, group_vags, update: Callable, *, accum_steps: int,
         p_work = [reshard(full[i] if DATA_AXIS not in w else leaves[i], w)
                   for i, w in enumerate(work)]
         g_work = [reshard(g, w) for g, w in zip(mean, work)]
-        new_st, new_ps = [], []
-        for r, dev in enumerate(devs):
+        new_st, new_ps = {}, {}
+        for r in mesh.local_ranks:
+            dev = devs[r]
             sc = tuple(s.to(dev) if isinstance(s, torch.Tensor) else s
                        for s in scalars)
             st_r = _tree_unflatten(opt_state, [x.shards[r] for x in st_work])
             st_r, ps_r = update(sc, st_r, tuple(p.shards[r] for p in p_work),
                                 tuple(g.shards[r] for g in g_work))
-            new_st.append(_tree_leaves(st_r))
-            new_ps.append(tuple(ps_r))
+            new_st[r] = _tree_leaves(st_r)
+            new_ps[r] = tuple(ps_r)
+
+        def ranked(per, j):
+            return [per[r][j] if r in per else mesh.remote(r)
+                    for r in range(len(devs))]
+
         state = _tree_unflatten(opt_state, [
-            reshard(Sharded(w.spec, [f[j] for f in new_st], mesh, w.shape),
+            reshard(Sharded(w.spec, ranked(new_st, j), mesh, w.shape),
                     x.spec, own=True)
             for j, (x, w) in enumerate(zip(st_leaves, st_work))])
         out = tuple(
-            reshard(Sharded(w, [f[i] for f in new_ps], mesh, p.shape),
+            reshard(Sharded(w, ranked(new_ps, i), mesh, p.shape),
                     p.spec, own=True)
             for i, (p, w) in enumerate(zip(leaves, work)))
         if offload:
@@ -1021,7 +1055,8 @@ def _drive(state, run_window: Callable, *, step: int, total_steps: int,
            evaluate: Optional[Callable] = None,
            early_stop_patience: int = 0, save: Optional[Callable] = None,
            checkpoint_every: int = 0, verbose: bool = True,
-           torn: Optional[Callable[[], bool]] = None):
+           torn: Optional[Callable[[], bool]] = None,
+           interrupt_save: bool = True):
     """The window driver of both loops: run from global step ``step`` to
     ``total_steps`` and return ``(state, history, step)``.
 
@@ -1048,7 +1083,9 @@ def _drive(state, run_window: Callable, *, step: int, total_steps: int,
     it propagates, whatever ``checkpoint_every``: resuming from it
     continues exactly.  ``torn()`` true means a second Ctrl-C escaped in
     the middle of a window whose state is updated in place (a CUDA graph's
-    buffers): then nothing is saved and the last checkpoint stands."""
+    buffers): then nothing is saved and the last checkpoint stands.
+    ``interrupt_save=False`` (several processes: the checkpoint's gather
+    is a collective no lone process may enter) skips the Ctrl-C save."""
     history = []
     saves = _CheckpointWrites()
     best, since_best = float("-inf"), 0
@@ -1095,7 +1132,7 @@ def _drive(state, run_window: Callable, *, step: int, total_steps: int,
         # the reference trains until Ctrl-C (MNIST.hs:297-313); here
         # Ctrl-C leaves an exact-resume checkpoint at the snapshot's step
         s_state, s_step = snap
-        if save is not None and s_step > 0:
+        if save is not None and s_step > 0 and interrupt_save:
             if torn is not None and torn():
                 if verbose:
                     print("interrupt landed inside a window (double Ctrl-C): "
@@ -1162,6 +1199,54 @@ def _refuse(caller: str, what: str, item: str) -> None:
         f"(ROADMAP.md, Queue 1 item {item})")
 
 
+def _check_process_data_alignment(mesh, n_proc: int) -> None:
+    """Multi-process batch assembly (each process's loader shard feeds the
+    data ranks it holds) requires every data-axis row of the mesh to live
+    on ONE process: a row spanning processes cannot be fed from any single
+    rank's local rows.  Raise a clear error with the fix (the JAX
+    package's check and text)."""
+    from ..parallel.mesh import DATA_AXIS
+
+    axis = mesh.axis_names.index(DATA_AXIS)
+    procs = np.asarray(mesh.rank_procs).reshape(tuple(mesh.shape.values()))
+    rows = np.moveaxis(procs, axis, 0)
+    bad = []
+    for i in range(rows.shape[0]):
+        held = {int(p) for p in rows[i].flat}
+        if len(held) != 1:
+            bad.append((i, sorted(held)))
+    if bad:
+        raise ValueError(
+            f"multi-process fit needs the mesh's data axis aligned to "
+            f"process boundaries, but data row(s) {bad} span multiple "
+            f"processes — each rank's loader shard can only fill rows "
+            f"its own devices hold.  Pick a mesh shape whose data-axis "
+            f"size is a multiple of the process count with "
+            f"process-contiguous rows, e.g. "
+            f"make_mesh(n, shape=({n_proc}*k, tp)).")
+
+
+def _global_host_tree(tree, mesh=None):
+    """Host numpy copies of every leaf of a (possibly sharded, possibly
+    multi-process) tree of tuples: a :class:`~..parallel.mesh.Sharded`
+    leaf is gathered whole (a collective when the mesh spans processes —
+    ALL processes must call this together), a tensor copied to the host,
+    anything else kept.  What multi-process checkpointing needs before
+    process 0 writes."""
+    from ..parallel.mesh import Sharded, _tree_leaves, _tree_unflatten
+
+    def fetch(x):
+        if isinstance(x, Sharded):
+            return x.numpy()
+        if isinstance(x, torch.Tensor):
+            x = x.detach()
+            return (x.float() if x.dtype == torch.bfloat16 else x).cpu() \
+                .numpy().copy()
+        return x
+
+    return _tree_unflatten(tree, [fetch(x) for x in _tree_leaves(tree)])
+
+
 def _check_later(caller: str, profile_dir: Optional[str]) -> None:
     """Refuse the option of the JAX package's loop ``caller`` that this
     package does not run yet, naming the ROADMAP item that will port it:
@@ -1192,11 +1277,14 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
                         zstage: int, offload_opt_state: bool, batch_size: int,
                         chain_steps) -> int:
     """The JAX package's eager checks of the mesh, ZeRO and offload options
-    both loops share, and the refusal of what this package does not run
-    (several processes: item 9d; ``fit_sequences`` refuses a stage axis
-    before this).  Returns the
-    data-axis size (1 without a mesh or data axis).  A pipeline's batch is
-    checked by its microbatch grid instead (``fit``)."""
+    both loops share (``fit_sequences`` refuses a stage axis before this),
+    and those of several processes: a run without a mesh is refused with
+    the JAX package's reason, so is an int ``chain_steps > 1`` (a captured
+    CUDA graph cannot hold the host barriers that order the processes'
+    collectives), and ``"auto"`` backs off to unchained steps with a
+    warning.  Returns the data-axis size (1 without a mesh or data axis).
+    A pipeline's batch is checked by its microbatch grid instead
+    (``fit``)."""
     if shard_opt_state and mesh is None:
         raise ValueError(
             f"ZeRO-{zstage} (shard_opt_state/zero_stage) shards over "
@@ -1212,10 +1300,31 @@ def _check_mesh_options(caller: str, be: Backend, mesh, shard_opt_state,
             "chain_steps > 1 cannot combine with offload_opt_state: the "
             "moments' host copies cannot ride inside a captured step — "
             "use chain_steps='auto' (which backs off) or chain_steps=1")
-    if (torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        _refuse(caller, "training in several processes", "9d")
+    from ..parallel.distributed import process_count
+
+    n_proc = process_count()
+    if n_proc > 1 and mesh is None:
+        raise ValueError(
+            f"{caller} without a mesh under a multi-process runtime would "
+            f"train an independent (divergent) replica per process on the "
+            f"full dataset; pass mesh=make_mesh() so the batch shards "
+            f"globally")
+    if n_proc > 1 and isinstance(chain_steps, int) and chain_steps > 1:
+        raise ValueError(
+            f"chain_steps > 1 cannot run in {n_proc} processes: a captured "
+            f"step (one CUDA graph) cannot hold the host barriers and "
+            f"exchanges that order the processes' collectives — use "
+            f"chain_steps='auto' (which backs off) or chain_steps=1")
+    if n_proc > 1 and chain_steps == "auto":
+        warnings.warn(
+            f"{caller}: {n_proc} processes run unchained "
+            f"(chain_steps='auto' backs off): a captured step cannot hold "
+            f"the host barriers that order the processes' collectives",
+            stacklevel=3)
+    if n_proc > 1 and batch_size % n_proc:
+        raise ValueError(
+            f"batch_size ({batch_size}) must be divisible by the process "
+            f"count ({n_proc}): each process loads its share of a batch")
     if mesh is None:
         return 1
     from ..parallel.mesh import DATA_AXIS, STAGE_AXIS, check_mesh
@@ -1419,7 +1528,7 @@ def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
     ``ag`` over the data ranks) for their mean."""
     from ..parallel.collective_kernels import ring_all_gather
     from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, _all_gather,
-                                 _rank_backend, _split_rows)
+                                 _rank_backend, _split_rows, first_local)
     from .training import seq_losses
 
     dp = mesh.shape[DATA_AXIS]
@@ -1433,6 +1542,9 @@ def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
         ls = state[0] if unshard is None else unshard(state[0])
         per = []
         for d, (group, dev) in enumerate(zip(groups, devs)):
+            if not mesh.is_local(group[0]):  # another process's data rank
+                per.append(mesh.remote(group[0]))
+                continue
             whole = tuple(
                 x.shards[group[0]] if x.mdim is None else
                 _all_gather([x.shards[r] for r in group], x.mdim)[0]
@@ -1443,18 +1555,19 @@ def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
                                   _split_rows(TS, dp, d, dev)))
         if dp > 1:
             per = ring_all_gather(per)
-        v = float(per[0][:n].mean())
+        v = float(first_local(per)[:n].mean())
         return "val_loss", v, -v
 
     return evaluate
 
 
 def _like(leaves):
-    """A tensor of the training leaves' dtype and (rank 0's) device."""
+    """A tensor of the training leaves' dtype and device (this process's
+    first rank's: rank 0's in one process)."""
     from ..parallel.mesh import Sharded
 
     x = leaves[0] if len(leaves) else None
-    return x.shards[0] if isinstance(x, Sharded) else x
+    return x.local if isinstance(x, Sharded) else x
 
 
 def _memory_line(net, opt, batch_size: int, mesh, shard_opt_state: bool,
@@ -1537,6 +1650,23 @@ def _check_knobs(accum_steps: int, ema_decay, batch_size: int,
             f"batch_size ({batch_size}) must be divisible by accum_steps "
             f"({accum_steps}): the step would silently drop the remainder "
             f"{batch_size % accum_steps} {what} of every batch")
+
+
+def _processes(mesh, pipeline_mode: bool = False):
+    """``(n_proc, proc_idx, mp_replicated)`` of a run: the process count
+    and index, and whether its mesh spans processes without a data axis
+    (a stage-only pipeline: every process loads the full stream).  A mesh
+    with a data axis (or any mesh of a non-pipeline run) must have its
+    data rows on one process each (:func:`_check_process_data_alignment`)."""
+    from ..parallel.distributed import process_count, process_index
+
+    n_proc = process_count()
+    if n_proc == 1:
+        return 1, 0, False
+    has_data = "data" in mesh.axis_names
+    if has_data or not pipeline_mode:
+        _check_process_data_alignment(mesh, n_proc)
+    return n_proc, process_index(), not has_data
 
 
 def fit(
@@ -1716,6 +1846,7 @@ def fit(
         getattr(mesh, "axis_names", ()))
     dp = _check_mesh_options("fit", be, mesh, shard_opt_state, zstage,
                              offload_opt_state, batch_size, chain_steps)
+    n_proc, proc_idx, mp_replicated = _processes(mesh, pipeline_mode)
     _check_knobs(accum_steps, ema_decay, batch_size, "samples")
     if early_stop_patience and val is None:
         raise ValueError(
@@ -1822,8 +1953,13 @@ def fit(
     def as_network(ps) -> Network:
         # on a mesh the leaves stay Sharded, on the specs they trained on;
         # a pipeline's go back to the parameter stack, each layer's on its
-        # stage's rank (ZeRO-3 blocks gathered over the data axis first)
-        if pipeline_mode:
+        # stage's rank (ZeRO-3 blocks gathered over the data axis first);
+        # in several processes whole on this process's device (a gather
+        # of the host copies, which every process calls)
+        if pipeline_mode and n_proc > 1:
+            ps = tuple(be.asarray(p) for p in _global_host_tree(tuple(ps)))
+            ps = part.unflatten(ps).to_network_params()
+        elif pipeline_mode:
             if pins["param_unshard"] is not None:
                 ps = pins["param_unshard"](ps)
             ps = part.unflatten(tuple(ps)).to_network_params()
@@ -1842,9 +1978,21 @@ def fit(
     logger = MetricsLogger(metrics_path)
     loader = chain_fn = None
     try:
-        loader = NativeLoader(X, Y, batch=batch_size, seed=seed,
-                              drop_last=pipeline_mode,
-                              index_mode=use_chain and not chain_dev)
+        if mp_replicated:
+            # a stage-only mesh across processes: every process loads the
+            # identical full stream (same seed); batches replicate
+            loader = NativeLoader(X, Y, batch=batch_size, seed=seed,
+                                  drop_last=True)
+        elif n_proc > 1:
+            # each process loads only its disjoint shard: its rows of the
+            # global batch (assembled in next_batch)
+            loader = NativeLoader(X, Y, batch=batch_size // n_proc,
+                                  seed=seed, shard=(proc_idx, n_proc),
+                                  drop_last=pipeline_mode)
+        else:
+            loader = NativeLoader(X, Y, batch=batch_size, seed=seed,
+                                  drop_last=pipeline_mode,
+                                  index_mode=use_chain and not chain_dev)
         mp_active, mp_rec = mp_mode == "bf16", None
         if mp_mode == "auto":
             def dummy_args():
@@ -1934,13 +2082,23 @@ def fit(
                 v, o, ps, e = chain_fn(lrs, sel, o, ps, e or ())
                 return v, (ps, o, e or None)
         else:
-            if prefetch > 1 and be.name == "torch" and step < total_steps:
+            if (prefetch > 1 and be.name == "torch" and step < total_steps
+                    and n_proc == 1):
                 next_batch = DevicePrefetcher(loader, be.device, be.dtype,
                                               depth=prefetch).next
             else:
+                from ..parallel.mesh import global_batch
+
+                chunks = accum_steps * (pipeline_microbatches
+                                        if pipeline_mode else 1)
+
                 def next_batch():
                     xb, yb = loader.next()
-                    return be.asarray(xb), be.asarray(yb)
+                    xb, yb = be.asarray(xb), be.asarray(yb)
+                    if n_proc > 1 and not mp_replicated:
+                        xb = global_batch(xb, mesh, chunks)
+                        yb = global_batch(yb, mesh, chunks)
+                    return xb, yb
 
             def run_window(s, k, state):
                 ps, o, e = state
@@ -1982,6 +2140,22 @@ def fit(
                 if offload_opt_state:  # the copies out, on every rank's card
                     _sync_cards(mesh.rank_devices if mesh is not None
                                 else (be.device,))
+                if n_proc > 1:
+                    # leaves across processes: every process joins the
+                    # gather of the host copies, process 0 writes
+                    host = _global_host_tree(tuple(state), mesh)
+                    if proc_idx != 0:
+                        return ()
+                    ps = host[0]
+                    if pipeline_mode:
+                        ps = part.unflatten(tuple(ps)).to_network_params()
+                    return (save_network_async(
+                                checkpoint_path,
+                                Network(net.op, tuple(ps), net.act_names)),
+                            save_train_state_async(
+                                state_path, host[0], host[1], at,
+                                opt_key=opt_key, ema=host[2],
+                                extra_meta=state_meta))
                 # sharded leaves gather to the host in the checkpoint writer
                 return (save_network_async(checkpoint_path,
                                            as_network(state[0])),
@@ -1996,7 +2170,11 @@ def fit(
             window_len=window_len, log_every=log_every, logger=logger,
             evaluate=evaluate, early_stop_patience=early_stop_patience,
             save=save, checkpoint_every=checkpoint_every, verbose=verbose,
-            torn=torn)
+            torn=torn, interrupt_save=n_proc == 1)
+        if n_proc > 1:  # process 0's checkpoint writes are on disk
+            from ..parallel.distributed import barrier
+
+            barrier(mesh.procs)
     finally:
         if loader is not None:
             loader.close()
@@ -2168,9 +2346,13 @@ class _SeqStream:
     ``start_step`` alone, so a crash/resume chain draws the same batches."""
 
     def __init__(self, XS, TS, batch: int, seed: int, start_step: int,
-                 steps_per_epoch: int):
+                 steps_per_epoch: int, shard=None):
         self.XS, self.TS, self.batch = XS, TS, batch
         self.spe = steps_per_epoch
+        # several processes: every process draws the SAME global
+        # permutation (same seed) and takes its contiguous row block of
+        # each batch; together they assemble the one-process batch
+        self.shard = shard
         self._rng = np.random.default_rng(seed)
         self._perm = self._rng.permutation(XS.shape[0])
         for _ in range(start_step // steps_per_epoch):
@@ -2189,6 +2371,10 @@ class _SeqStream:
         if self._b == self.spe:
             self._b = 0
             self._perm = self._rng.permutation(self.XS.shape[0])
+        if self.shard is not None:
+            rank, n = self.shard
+            local = self.batch // n
+            idx = idx[rank * local:(rank + 1) * local]
         return idx
 
 
@@ -2291,6 +2477,7 @@ def fit_sequences(
     dp = _check_mesh_options("fit_sequences", be, mesh, shard_opt_state,
                              zstage, offload_opt_state, batch_size,
                              chain_steps)
+    n_proc, proc_idx, _ = _processes(mesh)
     if shard_opt_state and optimizer is None:
         raise ValueError(
             "shard_opt_state needs optimizer state to shard — dual-rate "
@@ -2431,7 +2618,8 @@ def fit_sequences(
             ema = _ema_init(r_ema, leaves, be, step, "fit_sequences")
             ema_step = _ema_update(ema_decay)
 
-        stream = _SeqStream(XS, TS, batch_size, seed, step, steps_per_epoch)
+        stream = _SeqStream(XS, TS, batch_size, seed, step, steps_per_epoch,
+                            shard=(proc_idx, n_proc) if n_proc > 1 else None)
 
         def rates_at(s):
             if lr_schedule is None:
@@ -2470,13 +2658,20 @@ def fit_sequences(
                     o = out[0]
                 return v, (out[-2] + out[-1], o, e or None)
         else:
-            if prefetch > 1 and be.name == "torch" and step < total_steps:
+            if (prefetch > 1 and be.name == "torch" and step < total_steps
+                    and n_proc == 1):
                 next_batch = DevicePrefetcher(stream, be.device, be.dtype,
                                               depth=prefetch).next
             else:
+                from ..parallel.mesh import global_batch
+
                 def next_batch():
                     xb, tb = stream.next()
-                    return be.asarray(xb), be.asarray(tb)
+                    xb, tb = be.asarray(xb), be.asarray(tb)
+                    if n_proc > 1:
+                        xb = global_batch(xb, mesh, accum_steps)
+                        tb = global_batch(tb, mesh, accum_steps)
+                    return xb, tb
 
             def run_window(s, kw, state):
                 ls, o, e = state
@@ -2512,6 +2707,12 @@ def fit_sequences(
                 if offload_opt_state:  # the copies out, on every rank's card
                     _sync_cards(mesh.rank_devices if mesh is not None
                                 else (be.device,))
+                if n_proc > 1:
+                    # leaves across processes: every process joins the
+                    # gather of the host copies, process 0 writes
+                    state = _global_host_tree(tuple(state), mesh)
+                    if proc_idx != 0:
+                        return ()
                 ls = tuple(state[0])
                 return (save_recurrent_async(checkpoint_path,
                                              RecurrentNetwork(
@@ -2528,7 +2729,11 @@ def fit_sequences(
             window_len=window_len, log_every=log_every, logger=logger,
             evaluate=evaluate, early_stop_patience=early_stop_patience,
             save=save, checkpoint_every=checkpoint_every, verbose=verbose,
-            torn=torn)
+            torn=torn, interrupt_save=n_proc == 1)
+        if n_proc > 1:  # process 0's checkpoint writes are on disk
+            from ..parallel.distributed import barrier
+
+            barrier(mesh.procs)
     finally:
         if chain_fn is not None:
             chain_fn.close()

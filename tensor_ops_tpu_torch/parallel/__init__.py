@@ -8,10 +8,12 @@ of the model axis (``tp``), the GPipe and circular pipelines of a
 ``PipelineMLP`` on a ``stage`` axis (``pipeline``) and the staged-IR
 pipelines of any ``gen_net`` chain (``ir_pipeline``, ``fit``'s pipeline
 mode), on a ``(data, stage, model)`` mesh tensor-parallel too, and the mesh
-planner (``plan``: :func:`plan_meshes`, :func:`describe_plans`).  Still to
-port from the JAX package's ``parallel``: ``distributed`` with training in
-several processes (ROADMAP.md Queue 1 item 9d)."""
+planner (``plan``: :func:`plan_meshes`, :func:`describe_plans`), and
+training in several processes (``distributed``: :func:`init_distributed`
+wires them; a mesh then spans every process's ranks)."""
 
+from .distributed import (init_distributed, process_count, process_index,
+                          shutdown_distributed)
 from .collective_kernels import (RankGroup, dp_megakernel_train_step,
                                  ring_all_gather, ring_all_reduce,
                                  ring_all_reduce_bidir, ring_reduce_scatter)
@@ -48,6 +50,7 @@ __all__ = [
     "describe_partition",
     "describe_plans",
     "dp_megakernel_train_step",
+    "init_distributed",
     "ir_pipeline_grads",
     "ir_pipeline_train_step",
     "make_3d_pipeline_mesh",
@@ -61,6 +64,8 @@ __all__ = [
     "pipeline_forward",
     "plan_meshes",
     "pipeline_train_step",
+    "process_count",
+    "process_index",
     "place",
     "place_host",
     "ring_all_gather",
@@ -71,6 +76,7 @@ __all__ = [
     "shard_network",
     "shard_pipeline_model",
     "shard_pipelined_params",
+    "shutdown_distributed",
     "sharded_forward",
     "sharded_train_step",
     "split_network",

@@ -57,6 +57,45 @@ _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _phase_launches = {"ar": 0, "rs": 0, "ag": 0}
 
 
+# several processes (parallel.distributed): set while a process group of more
+# than one process is up; a collective whose ranks include another process's
+# (a Remote marker in place of its tensor) then takes _xproc
+_MULTI = False
+
+
+class Remote:
+    """The place of a rank that another process holds, in a per-rank list
+    (a :class:`~.mesh.Sharded` leaf's shards, a collective's inputs and
+    results): it names that process and holds nothing."""
+
+    __slots__ = ("proc",)
+
+    def __init__(self, proc: int):
+        self.proc = proc
+
+    def __repr__(self) -> str:
+        return f"Remote(proc={self.proc})"
+
+
+_remotes: dict = {}
+
+
+def remote(proc: int) -> Remote:
+    """The (shared) marker of process ``proc``'s ranks."""
+    r = _remotes.get(proc)
+    if r is None:
+        r = _remotes.setdefault(proc, Remote(proc))
+    return r
+
+
+def first_local(xs):
+    """The first entry of ``xs`` that is no :class:`Remote` marker."""
+    for x in xs:
+        if type(x) is not Remote:
+            return x
+    raise ValueError("no rank of this process in the list")
+
+
 def phase_counts() -> dict:
     """Kernel 9's launches (``bidir_ring`` and ``bidir_ring.ring``) by phase
     since the last :func:`reset_phase_counts`."""
@@ -350,7 +389,7 @@ def _check_phase(phase: str) -> None:
 
 
 def _check_phase_shape(xs, phase: str) -> None:
-    n, shape = len(xs), xs[0].shape
+    n, shape = len(xs), first_local(xs).shape
     if phase in ("rs", "ag") and len(shape) == 0:
         raise ValueError(f"bidir_ring {phase}: a 0-d tensor has no leading "
                          f"axis")
@@ -385,6 +424,15 @@ class _Scratch:
 
 
 _state_lock = threading.Lock()
+# One call's ring-protocol launches on all its cards, and its epoch, under
+# one lock (_launch_ring): autograd runs a backward's nodes on one thread per
+# card, and two collectives launched from two threads could otherwise reach
+# two cards in opposite orders, each card's kernel then waiting for the
+# other's forever (the 20 s trap).  Under the lock every card sees the calls
+# in one order.  _ring_waits counts the calls that found another thread's
+# call inside: each one an interleaving that the lock kept out.
+_launch_order = threading.Lock()
+_ring_waits = 0
 _scratch: dict = {}    # (lib, devices) -> _Scratch
 _capacity: dict = {}   # (lib, card index) -> co-resident blocks
 _peers_enabled: set = set()
@@ -500,6 +548,50 @@ def _get_scratch(lib: str, devices, words: int,
         return sc, sc.epoch
 
 
+def _launch_ring(lib: str, phase: str, n: int, cards: dict, xs, outs,
+                 layout, sub: int, nb: int, scratch, sys_scope: int,
+                 route: Optional[str] = None) -> None:
+    """One call of the ring protocol over ``n`` ranks: a cooperative launch
+    on each card of ``cards`` (card index -> the ranks it runs), rank r's
+    input ``xs[r]`` and ``(n, D, H)`` result ``outs[r]``.  ``scratch()``
+    gives the scratch (its ``tables`` and ``nb_cap``) and this call's
+    epoch; it is taken, and every card launched, under ``_launch_order``,
+    so that every card sees the calls of all threads in one order.
+    ``route`` also counts each launch as one across processes."""
+    global _ring_waits
+    fn = _entry(lib, "launch")
+    D, H, x_stride, x_len, x_size = layout
+    if not _launch_order.acquire(blocking=False):
+        _launch_order.acquire()
+        _ring_waits += 1
+    try:
+        sc, epoch = scratch()
+        for card, ranks in cards.items():
+            dev = torch.device("cuda", card)
+            c_ranks = (ctypes.c_int * len(ranks))(*ranks)
+            c_xs = (ctypes.c_void_p * len(ranks))(*(xs[r].data_ptr()
+                                                    for r in ranks))
+            c_outs = (ctypes.c_void_p * len(ranks))(*(outs[r].data_ptr()
+                                                      for r in ranks))
+            with torch.cuda.device(dev):
+                err = fn(_DTYPE_CODES[xs[ranks[0]].dtype], PHASES[phase], n,
+                         len(ranks), c_ranks, c_xs, c_outs,
+                         K._p(sc.tables[dev]), H, sub, nb, sc.nb_cap,
+                         x_stride, x_len, x_size, epoch, sys_scope,
+                         K._stream(dev))
+            if err != 0:
+                raise RuntimeError(
+                    f"{lib}: the cooperative launch of {nb} blocks for each "
+                    f"of R={len(ranks)} ranks on {dev} failed with "
+                    f"cudaError_t {err} (720: more blocks than the card "
+                    f"holds at once)")
+            _count(f"{lib}.ring", phase)
+            if route is not None:
+                _xcount(route, phase)
+    finally:
+        _launch_order.release()
+
+
 def _ring_cuda(xs, phase: str, one_way: bool, scale: Optional[float] = None):
     """The ring protocol (``csrc/ring.cuh``): the route of ranks spread over
     several cards, one cooperative launch per card.  ``scale`` multiplies
@@ -512,7 +604,7 @@ def _ring_cuda(xs, phase: str, one_way: bool, scale: Optional[float] = None):
     devices = tuple(_canonical(x.device) for x in xs)
     shape = tuple(xs[0].shape)
     layout = _layout(phase, shape, n, one_way)
-    D, H, x_stride, x_len, x_size = layout
+    D, H = layout[:2]
     if H == 0:
         outs = [_extract(torch.empty((n, D, 0), dtype=x.dtype, device=d),
                          phase, shape, n, r, layout)
@@ -529,27 +621,9 @@ def _ring_cuda(xs, phase: str, one_way: bool, scale: Optional[float] = None):
     xs = [x.contiguous() for x in xs]
     outs = [torch.empty((n, D, H), dtype=x.dtype, device=d)
             for x, d in zip(xs, devices)]
-    sc, epoch = _get_scratch(lib, devices, 2 * D * H, nb)
-    fn = _entry(lib, "launch")
-    sys_scope = int(len(cards) > 1)
-    for card, ranks in cards.items():
-        dev = torch.device("cuda", card)
-        c_ranks = (ctypes.c_int * len(ranks))(*ranks)
-        c_xs = (ctypes.c_void_p * len(ranks))(*(xs[r].data_ptr()
-                                                for r in ranks))
-        c_outs = (ctypes.c_void_p * len(ranks))(*(outs[r].data_ptr()
-                                                  for r in ranks))
-        with torch.cuda.device(dev):
-            err = fn(_DTYPE_CODES[xs[0].dtype], PHASES[phase], n, len(ranks),
-                     c_ranks, c_xs, c_outs, K._p(sc.tables[dev]), H, sub, nb,
-                     sc.nb_cap, x_stride, x_len, x_size, epoch, sys_scope,
-                     K._stream(dev))
-        if err != 0:
-            raise RuntimeError(
-                f"{lib}: the cooperative launch of {nb} blocks for each of "
-                f"R={len(ranks)} ranks on {dev} failed with cudaError_t {err}"
-                f" (720: more blocks than the card holds at once)")
-        _count(f"{lib}.ring", phase)
+    _launch_ring(lib, phase, n, cards, xs, outs, layout, sub, nb,
+                 lambda: _get_scratch(lib, devices, 2 * D * H, nb),
+                 int(len(cards) > 1))
     outs = [_extract(o, phase, shape, n, r, layout)
             for r, o in enumerate(outs)]
     return outs if scale is None else [t * scale for t in outs]
@@ -562,7 +636,8 @@ class _Desc(ctypes.Structure):
                 ("part", ctypes.c_longlong), ("scale", ctypes.c_float),
                 ("has_scale", ctypes.c_int), ("dtype", ctypes.c_int),
                 ("phase", ctypes.c_int), ("n", ctypes.c_int),
-                ("D", ctypes.c_int), ("vec", ctypes.c_int)]
+                ("D", ctypes.c_int), ("vec", ctypes.c_int),
+                ("mask", ctypes.c_int)]
 
 
 class _OneShotCall:
@@ -571,10 +646,13 @@ class _OneShotCall:
     rank's result shape in one ``(R, *result)`` buffer, the JAX layout's
     piece length and directions, whether 16-byte positions apply (the
     size, and for ``rs`` each rank's block, a multiple of 4; the C entry
-    also checks the pointers' alignment), and the bound C entry."""
+    also checks the pointers' alignment), and the bound C entry.  ``mine``
+    names the ranks whose results a launch writes (across processes, this
+    process's: the kernel's output mask); by default all R."""
 
     def __init__(self, phase: str, shape, n: int, one_way: bool, dtype,
-                 scale: Optional[float], card: int):
+                 scale: Optional[float], card: int,
+                 mine: Optional[Sequence[int]] = None):
         self.lib = "ring_all_reduce" if one_way else "bidir_ring"
         if dtype not in _DTYPE_CODES:
             raise ValueError(f"{self.lib} on CUDA takes float32 or int32 "
@@ -596,8 +674,8 @@ class _OneShotCall:
         else:
             out_shape = shape
         self.n, self.shape, self.dtype, self.card = n, shape, dtype, card
-        self.phase = phase
-        self.buf_shape = (n,) + out_shape
+        self.phase, self.mine = phase, mine
+        self.buf_shape = (n if mine is None else len(mine),) + out_shape
         # the result buffer's shape, dtype and card on one element:
         # empty_like of it is the cheapest allocation per call
         self.like = torch.empty(1, dtype=dtype, device=(
@@ -606,7 +684,9 @@ class _OneShotCall:
         self.desc = _Desc(size, H, part, 0.0 if scale is None else scale,
                           int(scale is not None), _DTYPE_CODES[dtype],
                           PHASES[phase], n, D,
-                          int(size % 4 == 0 and part % 4 == 0))
+                          int(size % 4 == 0 and part % 4 == 0),
+                          (1 << n) - 1 if mine is None
+                          else sum(1 << r for r in mine))
         self.desc_ptr = ctypes.addressof(self.desc)
         self.fn = None
 
@@ -629,6 +709,9 @@ class _OneShotCall:
         return self.launch([x.data_ptr() for x in xs])
 
     def launch(self, ptrs: list) -> List[torch.Tensor]:
+        """One launch over the R input addresses ``ptrs``, the results of
+        the ranks ``mine`` written into one buffer whose rows are
+        returned."""
         out = torch.empty_like(self.like)
         if self.out_elems:
             if self.fn is None:
@@ -636,7 +719,13 @@ class _OneShotCall:
             card = self.card
             base = out.data_ptr()
             step = self.out_elems * out.element_size()
-            ptrs += range(base, base + self.n * step, step)
+            if self.mine is None:
+                ptrs += range(base, base + self.n * step, step)
+            else:  # 0 for another process's rank: the mask skips it
+                outs = [0] * self.n
+                for j, r in enumerate(self.mine):
+                    outs[r] = base + j * step
+                ptrs += outs
             ptrs.append(torch._C._cuda_getCurrentRawStream(card))
             # the 2n + 1 addresses as one buffer of 64-bit words
             words = array.array("Q", ptrs)
@@ -693,6 +782,8 @@ def _cards(xs) -> set:
 
 def _collective(xs, phase: str, one_way: bool, name: str,
                 scale: Optional[float] = None):
+    if _MULTI and any(type(x) is Remote for x in xs):
+        return _xproc(list(xs), phase, one_way, name, scale)
     # a call shape the one-shot has run before: one pass over the ranks (on
     # one card the wrapper's host time is most of a call)
     if type(xs) is list and len(xs) > 1 and type(xs[0]) is torch.Tensor:
@@ -737,8 +828,9 @@ def _along(xs, dim: int, run) -> List[torch.Tensor]:
     axis moved back in the results."""
     if dim == 0:
         return run(xs)
-    xs = [x.movedim(dim, 0).contiguous() for x in xs]
-    return [y.movedim(0, dim) for y in run(xs)]
+    xs = [x if type(x) is Remote else x.movedim(dim, 0).contiguous()
+          for x in xs]
+    return [y if type(y) is Remote else y.movedim(0, dim) for y in run(xs)]
 
 
 def ring_reduce_scatter(xs, scale: Optional[float] = None,
@@ -758,6 +850,54 @@ def ring_all_gather(xs, dim: int = 0) -> List[torch.Tensor]:
     ``dim`` (the leading axis by default)."""
     return _along(xs, dim, lambda ys: _collective(
         ys, "ag", False, "ring_all_gather"))
+
+
+# ---------------------------------------------------------------------------
+# Ranks of several processes
+# ---------------------------------------------------------------------------
+
+
+def _xproc(xs, phase: str, one_way: bool, name: str,
+           scale: Optional[float] = None):
+    """A collective whose ranks live in several processes: ``xs`` holds this
+    process's tensors and a :class:`Remote` marker for each other rank;
+    the result holds this process's ranks' results and the markers.  Every
+    process that holds a rank of the group makes the same call.
+
+    On the CPU each process sends its ranks' inputs over gloo as an
+    all-gather of bytes and folds them with :func:`oneshot_ref`, the same
+    plain code and order as one process (never gloo's own reduction, whose
+    order of summation differs).  On cards the kernels read the other
+    processes' buffers through CUDA IPC (:func:`_ipc_collective`)."""
+    from . import distributed as D
+
+    me = D.process_index()
+    owner = [me if type(x) is not Remote else x.proc for x in xs]
+    mine = [i for i, p in enumerate(owner) if p == me]
+    local = _check_inputs([xs[i] for i in mine], name)
+    x0 = local[0]
+    procs = sorted(set(owner))
+    if not x0.is_cuda:
+        full = list(xs)
+        nbytes = x0.numel() * x0.element_size()
+        per = {p: [i for i, q in enumerate(owner) if q == p] for p in procs}
+        kmax = max(len(v) for v in per.values())
+        buf = torch.zeros(kmax * nbytes, dtype=torch.uint8)
+        if nbytes:
+            buf[:len(mine) * nbytes] = torch.cat(
+                [x.contiguous().reshape(-1).view(torch.uint8) for x in local])
+        for p, got in zip(procs, D.all_gather_bytes(procs, buf)):
+            if p == me:
+                continue
+            for k, i in enumerate(per[p]):
+                full[i] = got[k * nbytes:(k + 1) * nbytes].view(
+                    x0.dtype).reshape(x0.shape)
+        _check_phase_shape(full, phase)
+        outs = oneshot_ref(full, phase, one_way, scale)
+        _xcount("cpu", phase)
+        return [outs[i] if owner[i] == me else xs[i] for i in range(len(xs))]
+    _check_phase_shape(xs, phase)
+    return _ipc_collective(xs, owner, phase, one_way, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -828,3 +968,325 @@ def dp_megakernel_train_step(group: RankGroup, acts, *, lr,
     rank) until the next call.  ``new_ws``/``new_bs`` are rank 0's copy and
     the loss lies on rank 0's device."""
     return _DPStep(group, acts, lr, precision, bidirectional)
+
+
+
+# ---------------------------------------------------------------------------
+# Cards of several processes: CUDA IPC
+# ---------------------------------------------------------------------------
+
+# calls whose ranks lived in several processes, by route ("cpu": the plain
+# fold of the bytes gloo carried; "oneshot": the one-shot launched over the
+# ranks of several processes on one card; "ring": the protocol, each
+# process's ranks on cards of their own), beside the kernel's own launch
+# count: what phase 28 of chip_smoke.py holds to its prediction
+_xproc_launches = {"cpu": 0, "oneshot": 0, "ring": 0}
+_xproc_phases = {"ar": 0, "rs": 0, "ag": 0}
+
+
+def _xcount(route: str, phase: str) -> None:
+    with K._launch_lock:
+        _xproc_launches[route] += 1
+        _xproc_phases[phase] += 1
+_ipc_state: dict = {}     # (route, lib, owner, card) -> _IpcOneShot/_IpcRing
+_ipc_kept: list = []      # outgrown ones, alive until _release_ipc
+_IPC_ARGS = {"alloc": [ctypes.c_longlong, ctypes.POINTER(ctypes.c_void_p)],
+             "free": [ctypes.c_void_p],
+             "handle": [ctypes.c_void_p, ctypes.c_char_p],
+             "open": [ctypes.c_char_p, ctypes.POINTER(ctypes.c_void_p)],
+             "close": [ctypes.c_void_p],
+             "copy": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p]}
+
+
+def xproc_counts() -> dict:
+    """This process's calls of kernels 8-9 whose ranks lived in several
+    processes since the last :func:`reset_xproc_counts`, by route (on
+    cards each is one launch) and by phase (``"ar"``, ``"rs"``,
+    ``"ag"``)."""
+    with K._launch_lock:
+        return dict(_xproc_launches, **_xproc_phases)
+
+
+def reset_xproc_counts() -> None:
+    with K._launch_lock:
+        for d in (_xproc_launches, _xproc_phases):
+            for k in d:
+                d[k] = 0
+
+
+def _ipc(lib: str, what: str, *args, device=None) -> None:
+    """The C entry ``<lib>_ipc_<what>`` (csrc/ipc.cuh), with ``device``
+    current when given; raises on a CUDA error."""
+    fn = K._kernel(lib, f"{lib}_ipc_{what}", _IPC_ARGS[what])
+    if device is None:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
+    K._check_launch(f"{lib} ipc {what}", err)
+
+
+def _alloc(lib: str, nbytes: int, device) -> int:
+    """``nbytes`` (zeroed) by cudaMalloc on ``device``: a whole allocation,
+    whose IPC handle names exactly it."""
+    ptr = ctypes.c_void_p()
+    _ipc(lib, "alloc", nbytes, ctypes.byref(ptr), device=device)
+    return ptr.value
+
+
+def _export(lib: str, ptr: int) -> bytes:
+    buf = ctypes.create_string_buffer(64)
+    _ipc(lib, "handle", ctypes.c_void_p(ptr), buf)
+    return buf.raw
+
+
+def _open(lib: str, handle: bytes, device) -> int:
+    ptr = ctypes.c_void_p()
+    _ipc(lib, "open", ctypes.c_char_p(handle), ctypes.byref(ptr),
+         device=device)
+    return ptr.value
+
+
+class _IpcOneShot:
+    """The one-shot across processes that share one card: each process's
+    ranks' inputs staged, double-buffered, in memory of its own (cudaMalloc,
+    exported), and the other processes' staging mapped.  A call stages this
+    process's inputs into buffer ``calls % 2``, waits for the copies, meets
+    the others at a host barrier (every input of the call is then staged),
+    and launches the one-shot over every rank's input, writing its own
+    ranks' outputs (the mask).  A buffer is written again two calls later,
+    after the next call's barrier, which every process passes only once its
+    stream (and so its read of this call) is done: no scratch is reused
+    before every reader is done."""
+
+    def __init__(self, lib: str, owner, me: int, device, nbytes: int):
+        from . import distributed as D
+
+        self.lib, self.me, self.device = lib, me, device
+        self.procs = sorted(set(owner))
+        self.count = {p: owner.count(p) for p in self.procs}
+        self.cap = _ceil(nbytes, 256) * 256
+        self.base = _alloc(lib, 2 * self.count[me] * self.cap, device)
+        told = D.all_gather_object(self.procs, (_export(lib, self.base),
+                                                self.cap))
+        if len({c for _, c in told}) != 1:
+            raise RuntimeError(f"{lib}: processes staged calls of different "
+                               f"sizes {sorted({c for _, c in told})}")
+        self.mapped = {p: _open(lib, h, device)
+                       for p, (h, _) in zip(self.procs, told) if p != me}
+        self.calls = 0
+
+    def addr(self, p: int, k: int, slot: int) -> int:
+        base = self.base if p == self.me else self.mapped[p]
+        return base + (slot * self.count[p] + k) * self.cap
+
+    def release(self) -> None:
+        for ptr in self.mapped.values():
+            _ipc(self.lib, "close", ctypes.c_void_p(ptr))
+        self.mapped = {}
+
+    def free(self) -> None:
+        _ipc(self.lib, "free", ctypes.c_void_p(self.base))
+
+
+class _IpcRing:
+    """The ring protocol's scratch across processes whose ranks sit on cards
+    of their own, one card a process: each process's ranks' comm slots and
+    flags (cudaMalloc, zeroed, exported), the other processes' mapped on
+    its card, and one table of every rank's addresses there.  Every
+    process's flags are zero before any process launches (a barrier after
+    the fill), and the epochs start equal: each process makes the same
+    calls in the same order."""
+
+    def __init__(self, lib: str, owner, ranks, device, slot_words: int,
+                 nb_cap: int):
+        from . import distributed as D
+
+        self.lib, self.slot_words, self.nb_cap = lib, slot_words, nb_cap
+        self.procs = sorted(set(owner))
+        rows = [None] * len(owner)
+        for i in ranks:
+            rows[i] = [_alloc(lib, slot_words * 4, device),
+                       _alloc(lib, 2 * 3 * nb_cap * 8, device)]
+        self.own = [p for i in ranks for p in rows[i]]
+        told = D.all_gather_object(self.procs, {
+            i: (_export(lib, rows[i][0]), _export(lib, rows[i][1]))
+            for i in ranks})
+        self.mapped = []
+        for handles in told:
+            for i, (ha, hb) in handles.items():
+                if rows[i] is None:
+                    rows[i] = [_open(lib, ha, device), _open(lib, hb, device)]
+                    self.mapped += rows[i]
+        self.tables = {device: torch.tensor(rows, dtype=torch.int64,
+                                            device=device)}
+        torch.cuda.synchronize(device)
+        D.barrier(self.procs)
+        self.epoch = 0
+        self.nb: dict = {}
+
+    def next_epoch(self):
+        """This scratch and the next call's epoch (``_launch_ring``)."""
+        self.epoch += 1
+        return self, self.epoch
+
+    def release(self) -> None:
+        for ptr in self.mapped:
+            _ipc(self.lib, "close", ctypes.c_void_p(ptr))
+        self.mapped = []
+
+    def free(self) -> None:
+        for ptr in self.own:
+            _ipc(self.lib, "free", ctypes.c_void_p(ptr))
+
+
+def _cards_of(procs) -> dict:
+    """Each process's cards (their UUIDs), from the global device list."""
+    from . import distributed as D
+
+    out = {p: set() for p in procs}
+    for g in D.global_devices():
+        if g.proc in out:
+            out[g.proc].add(g.card)
+    return out
+
+
+def _ipc_collective(xs, owner, phase: str, one_way: bool,
+                    scale: Optional[float] = None):
+    """Kernels 8-9 over ranks of several processes on cards.  Processes that
+    share one card take the one-shot over IPC (:class:`_IpcOneShot`): two
+    contexts on one card do not run at once without MPS, so a ring whose
+    blocks spin on flags that another process's kernel sets could stall;
+    the one-shot waits on nothing on the card.  Processes on cards of their
+    own, one card a process, take the ring protocol over IPC
+    (:class:`_IpcRing`, system-scope fences), each launching for its own
+    ranks.  Any other layout raises: a process on several cards would reach
+    the other processes' buffers from cards their mappings were not opened
+    on."""
+    from . import distributed as D
+
+    lib = "ring_all_reduce" if one_way else "bidir_ring"
+    me = D.process_index()
+    procs = sorted(set(owner))
+    local = [i for i, p in enumerate(owner) if p == me]
+    x0 = xs[local[0]]
+    if x0.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{lib} on CUDA takes float32 or int32 tensors, got "
+                         f"{x0.dtype}")
+    cards = _cards_of(procs)
+    every = set().union(*cards.values())
+    if len(every) == 1:
+        return _ipc_oneshot(lib, xs, owner, me, local, phase, one_way, scale)
+    if all(len(c) == 1 for c in cards.values()) and len(every) == len(procs):
+        return _ipc_ring(lib, xs, owner, me, local, phase, one_way, scale)
+    raise ValueError(
+        f"{lib}: ranks of processes {procs} on "
+        f"{ {p: len(c) for p, c in cards.items()} } cards a process, "
+        f"{len(every)} in all; across processes the collectives run with "
+        f"every process on one shared card, or each on a card of its own")
+
+
+def _ipc_oneshot(lib, xs, owner, me, local, phase, one_way, scale):
+    from . import distributed as D
+
+    n = len(xs)
+    x0 = xs[local[0]]
+    dev = _canonical(x0.device)
+    if any(_canonical(xs[i].device) != dev for i in local):
+        raise ValueError(f"{lib}: this process's ranks on several cards")
+    # the call shape's constants, as one process's one-shot has them (its
+    # checks of R, the dtype and the scale included), writing this
+    # process's ranks' results
+    call = _OneShotCall(phase, x0.shape, n, one_way, x0.dtype, scale,
+                        dev.index, local)
+    nbytes = x0.numel() * x0.element_size()
+    key = ("oneshot", lib, tuple(owner), dev.index)
+    st = _ipc_state.get(key)
+    if st is None or st.cap < nbytes:
+        if st is not None:
+            _ipc_kept.append(st)
+        st = _ipc_state[key] = _IpcOneShot(lib, owner, me, dev, nbytes)
+    slot = st.calls % 2
+    st.calls += 1
+    stream = torch.cuda.current_stream(dev)
+    srcs = [xs[i].contiguous() for i in local]
+    for k, x in enumerate(srcs):
+        _ipc(lib, "copy", ctypes.c_void_p(st.addr(me, k, slot)),
+             ctypes.c_void_p(x.data_ptr()), nbytes,
+             ctypes.c_void_p(stream.cuda_stream))
+    stream.synchronize()
+    D.barrier(st.procs)
+    seen = {p: 0 for p in st.procs}
+    ins = []
+    for p in owner:
+        ins.append(srcs[seen[p]].data_ptr() if p == me
+                   else st.addr(p, seen[p], slot))
+        seen[p] += 1
+    rows = iter(call.launch(ins))
+    if call.out_elems:
+        _xcount("oneshot", phase)
+    return [next(rows) if p == me else xs[i] for i, p in enumerate(owner)]
+
+
+def _ipc_ring(lib, xs, owner, me, local, phase, one_way, scale):
+    from . import distributed as D
+
+    n = len(xs)
+    x0 = xs[local[0]]
+    shape = tuple(x0.shape)
+    layout = _layout(phase, shape, n, one_way)
+    D_, H = layout[:2]
+    dev = _canonical(x0.device)
+    if H == 0:
+        outs = [_extract(torch.empty((n, D_, 0), dtype=x0.dtype, device=dev),
+                         phase, shape, n, i, layout) if p == me else xs[i]
+                for i, p in enumerate(owner)]
+        return outs if scale is None else [
+            t if p != me else t * scale for t, p in zip(outs, owner)]
+    cards = {dev.index: local}
+    key = ("ring", lib, tuple(owner), dev.index)
+    nb_local = _blocks_per_rank(lib, cards, D_ * H)
+    sc = _ipc_state.get(key)
+    if sc is None or sc.slot_words < 2 * D_ * H or H not in sc.nb:
+        nb = min(D.all_gather_object(sorted(set(owner)), nb_local))
+        if sc is None or sc.slot_words < 2 * D_ * H or sc.nb_cap < nb:
+            if sc is not None:
+                _ipc_kept.append(sc)
+            sc = _ipc_state[key] = _IpcRing(
+                lib, owner, local, dev,
+                max(2 * D_ * H, sc.slot_words if sc else 0),
+                max(nb, sc.nb_cap if sc else 0))
+        sc.nb[H] = nb
+    nb = sc.nb[H]
+    grain = CHUNK // D_
+    sub = _ceil(_ceil(H, grain), nb) * grain
+    nb = _ceil(H, sub)
+    srcs = {i: xs[i].contiguous() for i in local}
+    bufs = {i: torch.empty((n, D_, H), dtype=x0.dtype, device=dev)
+            for i in local}
+    _launch_ring(lib, phase, n, cards, srcs, bufs, layout, sub, nb,
+                 sc.next_epoch, 1, route="ring")
+    outs = []
+    for i in range(n):
+        if i not in bufs:
+            outs.append(xs[i])
+            continue
+        y = _extract(bufs[i], phase, shape, n, i, layout)
+        outs.append(y if scale is None else y * scale)
+    return outs
+
+
+def _release_ipc() -> None:
+    """Close the other processes' mappings, meet them at a barrier, then
+    free this process's IPC buffers (``shutdown_distributed``)."""
+    from . import distributed as D
+
+    held = list(_ipc_state.values()) + _ipc_kept
+    for st in held:
+        st.release()
+    D._dist().barrier()
+    for st in held:
+        st.free()
+    _ipc_state.clear()
+    _ipc_kept.clear()

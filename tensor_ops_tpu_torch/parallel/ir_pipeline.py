@@ -68,7 +68,8 @@ from ..ops.shapes import ShapeError
 from .collective_kernels import ring_all_reduce_bidir
 from .mesh import (DATA_AXIS, MODEL_AXIS, STAGE_AXIS, Mesh, Sharded,
                    _all_gather, _split_rows, place, reduce_mean)
-from .pipeline import (_FeatureGather, _Layout, _StageSum, _group_op,
+from .collective_kernels import Remote, first_local
+from .pipeline import (_FeatureGather, _Layout, _Link, _StageSum, _group_op,
                        _schedule, _sum16)
 
 
@@ -205,7 +206,7 @@ def _row(leaf, j: int, *rest: int):
         for i in (j,) + rest:
             leaf = leaf[i]
         return leaf
-    per = leaf.shards[0].shape[0]
+    per = leaf.local.shape[0]
     s, k = divmod(j, per)
     ranks = [int(r) for r in _Layout(leaf.mesh).rank[0, s]]
     blocks = []
@@ -222,8 +223,9 @@ def _row(leaf, j: int, *rest: int):
 
 
 def _home(leaf):
-    """A replicated leaf: rank 0's copy of a :class:`Sharded` one."""
-    return leaf.shards[0] if isinstance(leaf, Sharded) else leaf
+    """A replicated leaf: this process's first copy of a :class:`Sharded`
+    one (rank 0's in one process)."""
+    return leaf.local if isinstance(leaf, Sharded) else leaf
 
 
 def _numel(sh) -> int:
@@ -963,8 +965,9 @@ class _PipelinedLoss:
         self.V = pnet.n_chunks if circular else 1
         self.fifo = circular
         self.dtype = be.dtype
-        self._bes = {d: TorchBackend(self.dtype, d)
-                     for d in dict.fromkeys(mesh.rank_devices)}
+        self._bes = {mesh.rank_devices[r]: TorchBackend(
+            self.dtype, mesh.rank_devices[r]) for r in mesh.local_ranks}
+        self._shapes: dict = {}  # what each hand-off between processes holds
         self._calls: dict = {}
         self.specs = pipelined_specs(self.pnet, mesh)
         self.groups = mesh.groups(tuple(a for a in mesh.axis_names
@@ -1040,31 +1043,55 @@ class _PipelinedLoss:
         """Data group ``d``'s output rows (microbatch by microbatch) on its
         home rank (stage 0, model 0), ``shards[r]`` rank r's flat
         leaves."""
+        return self._group_run(d, shards, x)[0]
+
+    def _link(self, d: int, x):
+        """The cross-process hand-offs of data group ``d``'s schedule, or
+        None when every rank of the group is this process's."""
+        procs = {self.mesh.rank_procs[r] for r in self.groups[d]}
+        if len(procs) == 1:
+            return None
+        return _Link(self.mesh, self._shapes, x.shape[0] // self.M, procs)
+
+    def _group_run(self, d: int, shards: dict, x):
+        """:meth:`group_output` and the schedule's :class:`_Link` (None in
+        one process); under several processes the output is a marker where
+        the home rank is another process's, and the link keeps this
+        process's stage sums (``link.sums``)."""
         lay, pnet, M = self.lay, self.pnet, self.M
         ranks = lay.rank[d]
         home = int(ranks[0][0])
+        link = self._link(d, x)
         dev = lay.dev(home)
-        h = x.to(dev)
-        i = 0
-        if _uniform(pnet):
-            for op, p in pnet.pre:
-                h = self._call(op, dev)(h, *shards[home][i:i + len(p)])
-                i += len(p)
-        inject = [[part.to(lay.dev(int(r))) for r in ranks[0]]
-                  for part in h.reshape((M, -1) + h.shape[1:])]
+        inject = None
+        if link is None or self.mesh.is_local(home):
+            h = x.to(dev)
+            i = 0
+            if _uniform(pnet):
+                for op, p in pnet.pre:
+                    h = self._call(op, dev)(h, *shards[home][i:i + len(p)])
+                    i += len(p)
+            inject = [[part.to(lay.dev(int(r))) for r in ranks[0]]
+                      for part in h.reshape((M, -1) + h.shape[1:])]
 
         def stage(s, v, xs):
             return self._chunk([int(r) for r in ranks[s]], s, v, xs, shards)
 
-        outs = _schedule(lay, d, stage, inject, M, self.V, self.fifo)
+        outs = _schedule(lay, d, stage, inject, M, self.V, self.fifo, link)
         # the stage psum of the home column, whose output the rest reads
-        h = _group_op(_StageSum, [outs[s][0] for s in range(lay.S)])[0]
+        summed = _group_op(_StageSum, [outs[s][0] for s in range(lay.S)],
+                           () if link is None else link.tokens)
+        h = summed[0]
+        if link is not None:
+            link.sums = [o for o in summed if type(o) is not Remote]
+            if type(h) is Remote:
+                return h, link
         if _uniform(pnet):
             i = len(self.specs) - sum(len(p) for _, p in pnet.post)
             for op, p in pnet.post:
                 h = self._call(op, dev)(h, *shards[home][i:i + len(p)])
                 i += len(p)
-        return h
+        return h, link
 
     def group_losses(self, d: int, shards: dict, x, y):
         """The per-sample losses of data group ``d``'s rows, on its home
@@ -1077,6 +1104,8 @@ class _PipelinedLoss:
         sums = self.sums[d]
         n = len(self.specs)
         dt = self.dtype
+        if len({self.mesh.rank_procs[r] for r in group}) > 1:
+            return self._split_vag(d)
 
         def vag(x, y, ps):
             leaves = {r: tuple(p.detach().to(dt).requires_grad_()
@@ -1097,30 +1126,114 @@ class _PipelinedLoss:
 
         return vag
 
+    def _split_vag(self, d: int) -> Callable:
+        """:meth:`group_vag` of a data group whose ranks live in several
+        processes: each process runs its stages' ticks, the hand-offs and
+        the stage sum join the processes (kernel 9), and each process takes
+        the gradients of its ranks' leaves by one ``autograd.grad`` from
+        its roots: the loss where the home rank is its own, else its stage
+        sums' outputs (zero cotangents: their backward is its part of the
+        sum's transpose), with the receivers' anchors among the inputs so
+        that each reverse hand-off runs.  Every process runs its backward
+        nodes in the reverse order of their creation, so the processes meet
+        at each cross-process node in the same order.  The loss is then
+        all-reduced over the home column's stage ranks (the home's value
+        and zeros: the same bits), so every process holds it."""
+        mesh, lay = self.mesh, self.lay
+        group = self.groups[d]
+        sums = self.sums[d]
+        n = len(self.specs)
+        dt = self.dtype
+        home = int(lay.rank[d][0][0])
+        column = [int(r) for r in lay.rank[d][:, 0]]
+
+        def vag(x, y, ps):
+            mine = [(k, r) for k, r in enumerate(group) if mesh.is_local(r)]
+            leaves = {r: tuple(p.detach().to(dt).requires_grad_()
+                               for p in ps[k * n:(k + 1) * n])
+                      for k, r in mine}
+            h, link = self._group_run(d, leaves, x.to(dt))
+            flat = [p for _, r in mine for p in leaves[r]]
+            if mesh.is_local(home):
+                v = self._call(self.loss, h.device, 2)(
+                    h, y.to(dt).to(h.device)).mean()
+                roots, couts = [v], [None]
+            else:
+                v = None
+                roots = [o for o in link.sums if o.requires_grad]
+                couts = [torch.zeros_like(o) for o in roots]
+            gs = list(torch.autograd.grad(roots, flat + link.anchors, couts,
+                                          allow_unused=True))[:len(flat)]
+            gs = [torch.zeros_like(p) if g is None else g
+                  for p, g in zip(flat, gs)]
+            local = iter(g.to(p.dtype) for g, p in
+                         zip(gs, (p for k, _ in mine
+                                  for p in ps[k * n:(k + 1) * n])))
+            full = [next(local) if mesh.is_local(r) else mesh.remote(r)
+                    for r in group for _ in range(n)]
+            for i, ks in sums:
+                if not any(mesh.is_local(group[k]) for k in ks):
+                    continue  # another process's ranks alone
+                for k, g in zip(ks, _sum16([full[k * n + i] for k in ks])):
+                    full[k * n + i] = g
+            like = first_local(full)
+            v = link.column_value(column, mesh.remote(home) if v is None
+                                  else v.detach().to(like.dtype).reshape(1))
+            return v.reshape(()), tuple(full)
+
+        return vag
+
     def _rows(self, xb, d: int) -> torch.Tensor:
         """Data group ``d``'s rows of a batch (its part of each microbatch)
-        on its home rank, in the backend's dtype."""
-        dev = self.lay.dev(self.groups[d][0])
+        on its home rank (this process's first rank of the group), in the
+        backend's dtype."""
+        dev = self.lay.dev(next(r for r in self.groups[d]
+                                if self.mesh.is_local(r)))
         return _split_rows(self._batch(xb), self.lay.dp, d, dev,
                            chunks=self.M).to(self.dtype)
 
-    def _each_group(self, flat, fn) -> list:
-        """``fn(d, shards)`` for each data group without autograd,
-        ``shards[r]`` rank r's leaves in the backend's dtype."""
-        placed = _placed(flat, self.specs, self.mesh)
+    def _each_group(self, flat, fn, what: str) -> list:
+        """``fn(d, shards, link)`` for each data group without autograd,
+        ``shards[r]`` rank r's leaves in the backend's dtype, ``link`` the
+        group's hand-offs between processes (None in one process); under
+        several processes a group's result (a tensor on its home rank)
+        reaches every process of the group (``_Link.column_value``), and a
+        group this process holds no rank of gives its Remote marker."""
+        mesh = self.mesh
+        placed = _placed(flat, self.specs, mesh)
+        out = []
         with torch.no_grad():
-            return [fn(d, {r: tuple(p.shards[r].to(self.dtype)
-                                    for p in placed) for r in group})
-                    for d, group in enumerate(self.groups)]
+            for d, group in enumerate(self.groups):
+                mine = [r for r in group if mesh.is_local(r)]
+                if not mine:
+                    out.append(mesh.remote(group[0]))
+                    continue
+                shards = {r: tuple(placed[i].shards[r].to(self.dtype)
+                                   for i in range(len(placed)))
+                          for r in mine}
+                v, link = fn(d, shards)
+                if link is not None:
+                    v = link.column_value(
+                        [int(r) for r in self.lay.rank[d][:, 0]], v, what)
+                out.append(v)
+        return out
 
     def __call__(self, flat, xb, yb):
-        """The batch-mean loss alone (0-d, rank 0's device)."""
+        """The batch-mean loss alone (0-d, rank 0's device; under several
+        processes on this process's first device of its data group)."""
         dt = torch.promote_types(self.dtype, torch.float32)
-        vals = self._each_group(flat, lambda d, shards: self.group_losses(
-            d, shards, self._rows(xb, d), self._rows(yb, d)).mean().to(dt)
-            .reshape(1))
-        return ring_all_reduce_bidir(vals, scale=1.0 / self.lay.dp)[0] \
-            .reshape(())
+
+        def loss(d, shards):
+            x, y = self._rows(xb, d), self._rows(yb, d)
+            h, link = self._group_run(d, shards, x)
+            if type(h) is Remote:
+                return h, link
+            return (self._call(self.loss, h.device, 2)(
+                h, y.to(h.device)).mean().to(dt).reshape(1), link)
+
+        vals = self._each_group(flat, loss, "loss")
+        return first_local(ring_all_reduce_bidir(
+            vals, scale=1.0 / self.lay.dp)).reshape(())
 
     def _batch(self, xb) -> torch.Tensor:
         """A batch as a tensor, its rows checked against the microbatch
@@ -1145,7 +1258,13 @@ class _PipelinedLoss:
         n = len(placed)
         vals, grads = [], [None] * mesh.size
         for d, group in enumerate(self.groups):
-            dev = lay.dev(group[0])
+            mine = [r for r in group if mesh.is_local(r)]
+            if not mine:  # another process's data rank
+                vals.append(mesh.remote(group[0]))
+                for r in group:
+                    grads[r] = (mesh.remote(r),) * n
+                continue
+            dev = lay.dev(mine[0])
             v, g = self.group_vag(d)(
                 _split_rows(xb, lay.dp, d, dev, chunks=self.M),
                 _split_rows(yb, lay.dp, d, dev, chunks=self.M),
@@ -1153,7 +1272,8 @@ class _PipelinedLoss:
             vals.append(v.reshape(1))
             for k, r in enumerate(group):
                 grads[r] = g[k * n:(k + 1) * n]
-        v = ring_all_reduce_bidir(vals, scale=1.0 / lay.dp)[0].reshape(())
+        v = first_local(ring_all_reduce_bidir(vals, scale=1.0 / lay.dp)
+                        ).reshape(())
         return v, tuple(reduce_mean([g[i] for g in grads], p.spec, mesh)
                         for i, p in enumerate(placed))
 
@@ -1161,11 +1281,11 @@ class _PipelinedLoss:
         """The pipelined network's output rows, in order, on rank 0's
         device (kernel 9's ``ag`` over the data groups' home ranks when dp
         > 1)."""
-        outs = self._each_group(flat, lambda d, shards: self.group_output(
-            d, shards, self._rows(xb, d)))
+        outs = self._each_group(flat, lambda d, shards: self._group_run(
+            d, shards, self._rows(xb, d)), "output")
         if self.lay.dp == 1:
             return outs[0]
-        rows = _all_gather(outs, 0)[0]
+        rows = first_local(_all_gather(outs, 0))
         o = rows.shape[-1]
         return (rows.reshape(self.lay.dp, self.M, -1, o).transpose(0, 1)
                 .reshape(-1, o))

@@ -32,8 +32,10 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .collective_kernels import (_canonical, ring_all_gather,
-                                 ring_all_reduce_bidir, ring_reduce_scatter)
+from . import distributed as D
+from .collective_kernels import (Remote, _canonical, first_local, remote,
+                                 ring_all_gather, ring_all_reduce_bidir,
+                                 ring_reduce_scatter)
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -53,7 +55,14 @@ class Mesh:
     Ranks are numbered in one flat order, row-major over the axes (``r = d
     * tp + m`` for data rank d and model rank m on a ``(data, model)``
     grid): a :class:`Sharded` leaf's ``shards[r]`` lies on
-    ``rank_devices[r]``."""
+    ``rank_devices[r]``.
+
+    Under several processes (:mod:`.distributed`) a mesh is global: it is
+    built from the global device list (``distributed.GlobalDevice``
+    entries, process-major) in every process alike, ``rank_procs[r]`` is
+    the process that holds rank r, ``local_ranks`` this process's, and a
+    rank of another process holds a :class:`~.collective_kernels.Remote`
+    marker in every per-rank list (``remote(r)``)."""
 
     def __init__(self, devices, axis_names: Optional[Sequence[str]] = None):
         given = np.asarray(devices, dtype=object)
@@ -61,9 +70,24 @@ class Mesh:
                 isinstance(d, (list, tuple)) for d in given.reshape(-1)):
             raise ValueError("a mesh is a non-empty (rectangular) grid of "
                              "devices")
+        me, multi = D.process_index(), D.process_count() > 1
+        procs, cards, devs = [], [], []
+        for d in given.reshape(-1):
+            if isinstance(d, D.GlobalDevice):
+                procs.append(d.proc)
+                cards.append(d.card)
+                d = d.device
+            elif multi:
+                raise ValueError(
+                    "several processes: build the mesh from the global "
+                    "device list (make_mesh() etc. without devices=, or "
+                    "distributed.global_devices())")
+            else:
+                procs.append(me)
+                cards.append(None)
+            devs.append(_canonical(torch.device(d)))
         grid = np.empty(given.shape, dtype=object)
-        grid.reshape(-1)[:] = [_canonical(torch.device(d))
-                               for d in given.reshape(-1)]
+        grid.reshape(-1)[:] = devs
         if axis_names is None:
             if grid.ndim != 2:
                 raise ValueError(f"a {grid.ndim}-D mesh needs axis_names")
@@ -77,6 +101,38 @@ class Mesh:
         self.shape = dict(zip(self.axis_names, grid.shape))
         self.rank_devices = tuple(grid.reshape(-1))
         self.size = len(self.rank_devices)
+        self.rank_procs = tuple(procs)
+        self.rank_cards = tuple(cards)
+        self.procs = tuple(sorted(set(procs)))
+        self.multi = len(self.procs) > 1
+        self._me = me
+        self.local_ranks = tuple(r for r in range(self.size)
+                                 if procs[r] == me)
+        if not self.local_ranks:
+            raise ValueError(f"process {me} holds no rank of the mesh: a "
+                             f"mesh spans every process")
+        if self.multi:
+            D.register_groups(self._proc_sets())
+
+    def _proc_sets(self) -> list:
+        """The processes of every group along every set of axes, and of
+        every pair of ranks (a pipeline's stage shift)."""
+        names = self.axis_names
+        sets = set()
+        for k in range(1, 1 << len(names)):
+            axes = tuple(a for i, a in enumerate(names) if k >> i & 1)
+            for g in self.groups(axes):
+                sets.add(frozenset(self.rank_procs[r] for r in g))
+        sets.update(frozenset((p, q)) for p in self.procs for q in self.procs)
+        return [tuple(sorted(s)) for s in sets]
+
+    def is_local(self, r: int) -> bool:
+        """Whether this process holds rank ``r``."""
+        return self.rank_procs[r] == self._me
+
+    def remote(self, r: int) -> Remote:
+        """The marker of rank ``r`` in per-rank lists (another process's)."""
+        return remote(self.rank_procs[r])
 
     @property
     def data_devices(self) -> Tuple[torch.device, ...]:
@@ -111,10 +167,11 @@ class Mesh:
 
     def __eq__(self, other) -> bool:
         return (isinstance(other, Mesh) and self.devices == other.devices
-                and self.axis_names == other.axis_names)
+                and self.axis_names == other.axis_names
+                and self.rank_procs == other.rank_procs)
 
     def __hash__(self) -> int:
-        return hash((self.devices, self.axis_names))
+        return hash((self.devices, self.axis_names, self.rank_procs))
 
     def __repr__(self) -> str:
         axes = ", ".join(f"{a}={n}" for a, n in self.shape.items())
@@ -132,7 +189,10 @@ def mesh_devices(devices: Optional[Sequence], need: Optional[int],
     visible CUDA cards
     (raising without one: it never falls back to the CPU).  An explicit
     list may name a device several times (several ranks on one card) or be
-    ``["cpu"] * n``."""
+    ``["cpu"] * n``.  Under several processes the default is the global
+    device list (:func:`.distributed.global_devices`, process-major)."""
+    if devices is None and D.process_count() > 1:
+        devices = D.global_devices()
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -243,13 +303,17 @@ class Sharded:
     of the stage dimension), the whole extent of every other.  ``shape`` is the whole leaf's.  Nothing updates
     a shard in place; ``scalar * leaf`` and ``leaf + leaf`` apply shard by
     shard to leaves of one spec (the Polyak update).  ``np.asarray(leaf)``
-    gathers the whole leaf to one host array."""
+    gathers the whole leaf to one host array.  Under several processes
+    ``shards[r]`` of another process's rank is its
+    :class:`~.collective_kernels.Remote` marker, the shard-wise ops touch
+    this process's shards only, and ``np.asarray(leaf)`` and :meth:`full`
+    are collectives that every process calls."""
 
     __slots__ = ("spec", "shards", "shape", "mesh")
 
     def __init__(self, spec, shards, mesh: Mesh, shape=None):
         self.shards = list(shards)
-        x0 = self.shards[0]
+        x0 = first_local(self.shards)
         self.spec = _full(spec, x0.dim())
         self.mesh = mesh
         n = mesh.size
@@ -278,8 +342,13 @@ class Sharded:
         return _axis_dim(self.spec, MODEL_AXIS)
 
     @property
+    def local(self) -> torch.Tensor:
+        """This process's first shard (rank 0's in a single process)."""
+        return first_local(self.shards)
+
+    @property
     def dtype(self) -> torch.dtype:
-        return self.shards[0].dtype
+        return self.local.dtype
 
     @property
     def ndim(self) -> int:
@@ -310,11 +379,22 @@ class Sharded:
 
     def numpy(self) -> np.ndarray:
         """The whole leaf as one host array (each block copied to the host
-        once; bf16 widened to f32, as checkpoints store it)."""
+        once; bf16 widened to f32, as checkpoints store it).  Under several
+        processes each process copies the blocks it holds and every
+        process receives the others' over gloo (a collective of the host
+        copies, which every process of the mesh calls)."""
+        def host(x):
+            x = x.detach().cpu()
+            return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+
+        blocks = [(idx, host(self.shards[r])) for r, idx in self.blocks()
+                  if self.mesh.is_local(r)]
+        if self.mesh.multi:
+            blocks = [b for part in D.all_gather_object(self.mesh.procs,
+                                                        blocks)
+                      for b in part]
         out = None
-        for r, idx in self.blocks():
-            x = self.shards[r].detach().cpu()
-            x = (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+        for idx, x in blocks:
             if out is None:
                 out = np.empty(self.shape, x.dtype)
             out[idx] = x
@@ -327,11 +407,15 @@ class Sharded:
     def full(self) -> torch.Tensor:
         """The whole leaf on rank 0's device, and on no other: rank 0's
         copy when no axis shards it, else each block copied to rank 0's
-        device once (a peer copy across cards; no collective runs)."""
-        x0 = self.shards[0]
+        device once (a peer copy across cards; no collective runs).  Under
+        several processes the whole leaf lands on this process's first
+        rank's device, gathered through the host (:meth:`numpy`)."""
+        x0 = self.local
         if all(self.mesh.shape[a] == 1 or _axis_dim(self.spec, a) is None
                for a in self.mesh.axis_names):
             return x0
+        if self.mesh.multi:
+            return torch.as_tensor(self.numpy()).to(x0.device, x0.dtype)
         out = torch.empty(self.shape, dtype=x0.dtype, device=x0.device)
         for r, idx in self.blocks():
             out[idx] = self.shards[r].to(x0.device)
@@ -344,7 +428,8 @@ class Sharded:
             if isinstance(o, Sharded) and o.spec != self.spec:
                 raise ValueError(f"shard-wise op on specs {self.spec} and "
                                  f"{o.spec}")
-        shards = [fn(x, *(o.shards[r] if isinstance(o, Sharded) else o
+        shards = [x if type(x) is Remote else
+                  fn(x, *(o.shards[r] if isinstance(o, Sharded) else o
                           for o in others))
                   for r, x in enumerate(self.shards)]
         return Sharded(self.spec, shards, self.mesh, self.shape)
@@ -377,6 +462,9 @@ def place(x, spec, mesh: Mesh, dtype: Optional[torch.dtype] = None) -> Sharded:
         cuts.append((axis, d, t.shape[d] // n))
     shards = []
     for r, dev in enumerate(mesh.rank_devices):
+        if not mesh.is_local(r):
+            shards.append(mesh.remote(r))
+            continue
         part = t
         for axis, d, s in cuts:
             part = part.narrow(d, mesh.coord(r, axis) * s, s)
@@ -386,8 +474,9 @@ def place(x, spec, mesh: Mesh, dtype: Optional[torch.dtype] = None) -> Sharded:
 
 
 def place_host(host, spec, mesh: Mesh) -> Sharded:
-    """A host array placed on ``mesh`` by ``spec`` (single process: every
-    rank of the mesh is this process's)."""
+    """A host array placed on ``mesh`` by ``spec``: every process holds the
+    whole host copy (built alike from one seed) and places the blocks of
+    its own ranks."""
     return place(np.asarray(host), spec, mesh)
 
 
@@ -402,11 +491,17 @@ def _words(xs):
     dimension: the kernels move f32 and int32, and a gather only moves
     bytes.  Returns the words (or ``xs``) and the dtype to view them back
     as (None when they were not packed)."""
-    x0 = xs[0]
+    x0 = first_local(xs)
     k = 4 // x0.element_size()
     if k > 1 and x0.dim() and x0.shape[-1] % k == 0:
-        return [x.contiguous().view(torch.int32) for x in xs], x0.dtype
+        return _local_map(lambda x: x.contiguous().view(torch.int32),
+                          xs), x0.dtype
     return xs, None
+
+
+def _local_map(fn, xs) -> list:
+    """``fn`` of each tensor of ``xs``, the Remote markers kept."""
+    return [x if type(x) is Remote else fn(x) for x in xs]
 
 
 def _all_gather(xs, d: int):
@@ -415,12 +510,12 @@ def _all_gather(xs, d: int):
     16-bit float through f32 (exact both ways)."""
     ys, packed = _words(xs)
     if packed is not None:
-        return [y.contiguous().view(packed)
-                for y in ring_all_gather(list(ys), dim=d)]
-    dt = xs[0].dtype
+        return _local_map(lambda y: y.contiguous().view(packed),
+                          ring_all_gather(list(ys), dim=d))
+    dt = first_local(xs).dtype
     if dt in (torch.bfloat16, torch.float16):
-        return [y.to(dt) for y in ring_all_gather([x.float() for x in xs],
-                                                   dim=d)]
+        return _local_map(lambda y: y.to(dt), ring_all_gather(
+            _local_map(lambda x: x.float(), xs), dim=d))
     return ring_all_gather(list(xs), dim=d)
 
 
@@ -429,10 +524,17 @@ def _gather_axis(shards, mesh: Mesh, axis: str, d: int) -> list:
     ``d`` (one kernel-9 call a group); returns the whole blocks in the
     flat rank order."""
     out = list(shards)
-    for group in mesh.groups(axis):
+    for group in _local_groups(mesh, axis):
         for r, y in zip(group, _all_gather([shards[r] for r in group], d)):
             out[r] = y
     return out
+
+
+def _local_groups(mesh: Mesh, axes) -> list:
+    """The groups along ``axes`` that hold a rank of this process (every
+    group in a single process): the ones whose collectives it joins."""
+    return [g for g in mesh.groups(axes)
+            if any(mesh.is_local(r) for r in g)]
 
 
 def reshard(leaf: Sharded, spec, own: bool = False) -> Sharded:
@@ -457,12 +559,14 @@ def reshard(leaf: Sharded, spec, own: bool = False) -> Sharded:
     for axis, _, d_to in moves:
         if d_to is not None:
             s = leaf.shape[d_to] // mesh.shape[axis]
-            shards = [x.narrow(d_to, mesh.coord(r, axis) * s, s)
+            shards = [x if type(x) is Remote else
+                      x.narrow(d_to, mesh.coord(r, axis) * s, s)
                       for r, x in enumerate(shards)]
             sliced = True
     if own and moves:
-        shards = [x.clone(memory_format=torch.contiguous_format) if sliced
-                  else x.contiguous() for x in shards]
+        shards = _local_map(
+            lambda x: x.clone(memory_format=torch.contiguous_format)
+            if sliced else x.contiguous(), shards)
     return Sharded(spec, shards, mesh, leaf.shape)
 
 
@@ -475,16 +579,17 @@ def reduce_mean(xs, spec, mesh: Mesh) -> Sharded:
     axis, a reduce-scatter (``rs``) over its data dimension otherwise; the
     1/dp is the collective's scale.  With equal shards of a global batch,
     the mean of the ranks' batch means is the global batch mean."""
-    spec = _full(spec, xs[0].dim())
+    x0 = first_local(xs)
+    spec = _full(spec, x0.dim())
     d = _data_dim(spec)
     dp = mesh.shape.get(DATA_AXIS, 1)
-    shape = list(xs[0].shape)
+    shape = list(x0.shape)
     for axis in mesh.axis_names:
         m = _axis_dim(spec, axis)
         if axis != DATA_AXIS and m is not None:
             shape[m] *= mesh.shape[axis]
     out = list(xs)
-    for group in mesh.groups(DATA_AXIS):
+    for group in _local_groups(mesh, DATA_AXIS):
         part = [xs[r] for r in group]
         if d is None:
             red = ring_all_reduce_bidir(part, scale=1.0 / dp)
@@ -684,8 +789,9 @@ def zero3_param_place(leaves, mesh: Mesh):
 def check_mesh(mesh, caller: str) -> Mesh:
     """Refuse what this package cannot train or serve on: anything but a
     :class:`Mesh`, and groups of ranks (along any axis) that are not all on
-    the CPU or all on CUDA cards with peer access between ring
-    neighbours."""
+    the CPU or all on CUDA cards with peer access between ring neighbours
+    (under several processes: this process's ranks of each group, and the
+    CPU or cards alike across the processes)."""
     from .collective_kernels import RankGroup
 
     if not isinstance(mesh, Mesh):
@@ -693,7 +799,14 @@ def check_mesh(mesh, caller: str) -> Mesh:
                          f"parallel.Mesh (make_mesh), got {mesh!r}")
     for axis in mesh.axis_names:
         for group in mesh.groups(axis):
-            RankGroup(devices=[mesh.rank_devices[r] for r in group])
+            mine = [mesh.rank_devices[r] for r in group if mesh.is_local(r)]
+            if mine:
+                RankGroup(devices=mine)
+            if mesh.multi and len({bool(mesh.rank_cards[r])
+                                   for r in group}) > 1:
+                raise ValueError(
+                    f"{caller}: the {axis} group {group} mixes CPU ranks "
+                    f"and cards across processes")
     return mesh
 
 
@@ -758,6 +871,34 @@ def _split_rows(xb, dp: int, r: int, device, chunks: int = 1):
     return part.reshape((-1,) + rest).to(device)
 
 
+def global_batch(xb, mesh: Mesh, chunks: int = 1):
+    """A step's global batch in several processes, from this process's rows
+    (process p's loader shard gives rows ``[p*b, (p+1)*b)`` of a batch of
+    ``P*b``), ready for :func:`_split_rows`.  With one chunk each data rank
+    of p reads only p's rows, which land in place (the other rows are
+    zeros that no rank here reads); with several (accumulation chunks or
+    microbatches) a data rank's rows lie in every process's block, and
+    the blocks are all-gathered over a data group (kernel 9's ``ag``).  A
+    mesh of one process returns ``xb``."""
+    if not mesh.multi:
+        return xb
+    P, p = len(mesh.procs), mesh.procs.index(mesh._me)
+    b, rest = xb.shape[0], tuple(xb.shape[1:])
+    if chunks == 1:
+        out = xb.new_zeros((P * b,) + rest)
+        out[p * b:(p + 1) * b] = xb
+        return out
+    group = mesh.groups(DATA_AXIS)[0]
+    mine = [r for r in group if mesh.is_local(r)]
+    if b % len(mine):
+        raise ValueError(f"{b} rows of a process do not split over its "
+                         f"{len(mine)} data ranks")
+    parts = iter(xb.reshape((len(mine), b // len(mine)) + rest))
+    xs = [next(parts).to(mesh.rank_devices[r]) if mesh.is_local(r)
+          else mesh.remote(r) for r in group]
+    return first_local(_all_gather(xs, 0)).to(xb.device)
+
+
 def _replicas(mesh: Mesh):
     """The model groups of ``mesh`` (one per data and stage coordinate, in
     the flat order; on a ``(data, model)`` grid one per data rank), each
@@ -813,6 +954,12 @@ def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
         n = len(params)
         vals, grads = [], [None] * mesh.size
         for (g, d), vag in zip(reps, vags):
+            if not mesh.is_local(g[0]):  # another process's model group
+                if mesh.coord(g[0], STAGE_AXIS) == 0:
+                    vals.append(mesh.remote(g[0]))
+                for r in g:
+                    grads[r] = (mesh.remote(r),) * n
+                continue
             dev = mesh.rank_devices[g[0]]
             v, gr = vag(_split_rows(xb, dp, d, dev),
                         _split_rows(yb, dp, d, dev),
@@ -821,7 +968,7 @@ def sharded_train_step(net, loss, be, mesh: Mesh) -> Callable:
                 vals.append(v.reshape(1))
             for m, r in enumerate(g):
                 grads[r] = gr[m * n:(m + 1) * n]
-        v = ring_all_reduce_bidir(vals, scale=1.0 / dp)[0].reshape(())
+        v = first_local(ring_all_reduce_bidir(vals, scale=1.0 / dp)).reshape(())
         new = []
         for i, p in enumerate(params):
             g = reduce_mean([gr[i] for gr in grads], p.spec, mesh)
@@ -853,6 +1000,9 @@ def sharded_forward(net, be, mesh: Mesh) -> Callable:
         params = _placed(params, specs, mesh)
         outs = []
         for k, g, d in reps:
+            if not mesh.is_local(g[0]):  # another process's model group
+                outs.append(mesh.remote(g[0]))
+                continue
             dev = mesh.rank_devices[g[0]]
             x = _split_rows(xb, dp, d, dev)
             if runs is not None:
@@ -866,7 +1016,9 @@ def sharded_forward(net, be, mesh: Mesh) -> Callable:
 
             run = _vmap(single, 1, len(params))
             outs.append(run(x, *(p.shards[g[0]] for p in params)))
-        rows = ring_all_gather([o.reshape(o.shape[0], -1) for o in outs])[0]
-        return rows.reshape((xb.shape[0],) + tuple(outs[0].shape[1:]))
+        rows = first_local(ring_all_gather(
+            _local_map(lambda o: o.reshape(o.shape[0], -1), outs)))
+        return rows.reshape((xb.shape[0],)
+                            + tuple(first_local(outs).shape[1:]))
 
     return fwd

@@ -441,7 +441,8 @@ def fused_forward(fm, x: torch.Tensor) -> torch.Tensor:
     :class:`TpNetwork` does), the batch replicated over the data axis as in
     the JAX package (every data rank serves it, and on a stage axis every
     stage rank, which holds the same copies); returns the first model
-    group's output on its first device."""
+    group's output on its first device (under several processes, this
+    process's first group's: a model group lies in one process)."""
     from ..ops.kernels import _act_fn
 
     mesh = fm.weights[0].mesh
@@ -449,6 +450,8 @@ def fused_forward(fm, x: torch.Tensor) -> torch.Tensor:
     n = len(fm.weights)
     out = None
     for group in mesh.groups(MODEL_AXIS):
+        if not mesh.is_local(group[0]):
+            continue  # another process's model group
         devs = [mesh.rank_devices[r] for r in group]
         h = [x.to(d) for d in devs]
         dt = x.dtype

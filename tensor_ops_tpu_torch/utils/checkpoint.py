@@ -227,15 +227,16 @@ def _tree_unflatten(template, leaves_iter):
         return np.asarray(leaf, dtype=template.dtype)
     import torch
 
-    from ..parallel.mesh import Sharded, place
+    from ..parallel.mesh import Remote, Sharded, place
 
     if isinstance(template, Sharded):
         # a leaf of a mesh's state resumes on its template's spec, in pinned
         # host memory again where the template was offloaded (the shards
         # placed on the ranks' cards come back to the host)
         out = place(leaf, template.spec, template.mesh, template.dtype)
-        if template.shards[0].device.type == "cpu" and _pinned(template):
-            out.shards = [x.cpu().pin_memory() for x in out.shards]
+        if template.local.device.type == "cpu" and _pinned(template):
+            out.shards = [x if isinstance(x, Remote) else
+                          x.cpu().pin_memory() for x in out.shards]
         return out
     if isinstance(template, torch.Tensor):
         out = torch.as_tensor(leaf, dtype=template.dtype,
@@ -247,7 +248,7 @@ def _tree_unflatten(template, leaves_iter):
 def _pinned(template) -> bool:
     """Whether a template leaf (its first shard) lies in pinned host memory
     (``offload_opt_state``)."""
-    x = getattr(template, "shards", [template])[0]
+    x = getattr(template, "local", template)
     return x.device.type == "cpu" and x.is_pinned()
 
 

@@ -15,6 +15,13 @@ global input is split over the ranks along its leading axis, as
 ``out_specs=P("data")`` concatenates them.  Each JAX result is computed
 once per module (interpret-mode runs take seconds each)."""
 
+import contextlib
+import ctypes
+import itertools
+import threading
+import time
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -303,6 +310,59 @@ def test_a_new_scratch_is_ordered_after_its_fills(monkeypatch):
     assert ordered == [[0, 1], [0, 1]]
 
 
+def test_ring_calls_from_two_threads_reach_every_card_in_one_order(
+        monkeypatch):
+    """Autograd runs a backward's nodes on one thread per card, so two ring
+    calls over one group of cards can be issued at once from two threads.
+    A card that ran them in another order than its neighbour would wait
+    for the neighbour's kernel, queued behind its own, until the
+    protocol's trap.  Each call takes its epoch and launches on every card
+    under one lock: thread A stalls inside its first launch (as a launch
+    through ctypes, which releases the GIL, may), and thread B's calls wait
+    for it (counted in ``_ring_waits``), so both cards see one order."""
+    seen = {0: [], 1: []}
+    a_inside = threading.Event()
+
+    def launch(dtype, phase, n, n_local, ranks, xs, outs, table, H, sub, nb,
+               nb_cap, x_stride, x_len, x_size, epoch, sys_scope, stream):
+        card = ranks[0]  # rank r on card r
+        seen[card].append(epoch)
+        if threading.current_thread().name == "A" and not a_inside.is_set():
+            a_inside.set()
+            time.sleep(0.3)
+        return 0
+
+    epochs = itertools.count(1)
+    sc = SimpleNamespace(nb_cap=1, tables={
+        torch.device("cuda", c): torch.zeros(2, 2, dtype=torch.int64)
+        for c in (0, 1)})
+    monkeypatch.setattr(C, "_entry", lambda lib, what: launch)
+    monkeypatch.setattr(C, "_count", lambda lib, phase: None)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(K, "_p", lambda t: 0)
+    monkeypatch.setattr(K, "_stream", lambda dev: 0)
+    xs = [torch.zeros(4), torch.zeros(4)]
+    layout = C._layout("ar", (4,), 2)
+
+    def calls():
+        if threading.current_thread().name == "B":
+            a_inside.wait(10)
+        for _ in range(3):
+            C._launch_ring("bidir_ring", "ar", 2, {0: [0], 1: [1]}, xs, xs,
+                           layout, 1, 1, lambda: (sc, next(epochs)), 1)
+
+    waits = C._ring_waits
+    threads = [threading.Thread(target=calls, name=name) for name in "AB"]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+    assert sorted(seen[0]) == [1, 2, 3, 4, 5, 6]
+    assert seen[0] == seen[1]
+    assert C._ring_waits > waits
+
+
 # -- the one-shot route ---------------------------------------------------------
 
 
@@ -462,3 +522,32 @@ def test_oneshot_fast_path_takes_only_its_own_call_shape(monkeypatch):
                   torch.zeros(4, 3).T):
         assert call.fast([xs[0], other]) is None
     assert len(launched) == 1
+
+
+def test_oneshot_call_writes_only_the_ranks_it_is_given(monkeypatch):
+    """Across processes a launch writes this process's ranks alone: the
+    kernel's output mask holds them, the buffer has one row for each, and
+    every other rank's output address is 0; all R inputs are read."""
+    call = C._OneShotCall("ar", (3, 4), 4, False, torch.float32, None, -1,
+                          mine=[1, 3])
+    assert call.buf_shape == (2, 3, 4) and call.desc.mask == 0b1010
+    assert C._OneShotCall("ar", (3, 4), 4, False, torch.float32, None,
+                          -1).desc.mask == 0b1111
+    words = []
+
+    def launch(desc, ptr):
+        words.extend((ctypes.c_uint64 * 9).from_address(ptr))
+        return 0
+
+    call.fn = launch
+    monkeypatch.setattr(C, "_count", lambda lib, phase: None)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: -1,
+                        raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda card: 77, raising=False)
+    rows = call.launch([11, 12, 13, 14])
+    assert len(rows) == 2 and rows[0].shape == (3, 4)
+    step = 3 * 4 * 4
+    base = rows[0].data_ptr()
+    assert rows[1].data_ptr() == base + step
+    assert words == [11, 12, 13, 14, 0, base, 0, base + step, 77]

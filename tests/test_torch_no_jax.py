@@ -319,6 +319,18 @@ def test_port_runs_without_jax():
     assert n >= 40  # the package walk reaches every module, examples too
 
 
+def test_two_processes_run_without_jax(tmp_path):
+    """``init_distributed`` and kernel 9's phases over the ranks of two
+    processes (``tests/torch_mp_worker.py``'s ``coll`` scenario) in two
+    interpreters where ``import jax`` fails."""
+    from test_torch_multihost import launch
+
+    runs = launch(tmp_path, "coll", prelude='import sys; '
+                  'sys.modules["jax"] = None; ')
+    assert [r["info"]["process_count"] for r in runs] == [2, 2]
+    assert all(len(r["coll"]["ar"]) == 4 for r in runs)
+
+
 def test_no_jax_import_in_sources():
     """Neither JAX nor the JAX package is imported anywhere in the port
     (nor by the smoke script and the port's tools), not even lazily inside a
