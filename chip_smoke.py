@@ -315,6 +315,34 @@ without printing a result line:
    collectives, the flagship's ``fit`` on (4, 1) and the chain's on (4,)
    in 4 processes of one card each, on the ring protocol over CUDA IPC,
    bit-equal to one process on the 4 cards) on a four-card machine.
+29. Tooling, in an interpreter of its own with a time limit
+   (``tooling_main``; its plan cache a temporary file named by
+   ``TENSOR_OPS_TPU_TORCH_PLAN_CACHE``): each of the seven
+   ``ops.autotune`` sweeps at a main-path shape (kernel 1 at the flagship's
+   three layers for B = 8 and 100, kernel 2 at B = 8, kernel 3 at B = 100,
+   kernels 4 and 5 at 784 -> 300 for B = 8, kernel 6 at 3 x 512 for B = 16,
+   kernel 7's sequence at 32 -> 512 for B = 1): every candidate held to the
+   plain version (kernels 5 and 6 bit for bit) and rerun bit for bit, the
+   rule's plan among them, the winner on disk with its provenance and seen
+   by a fresh ``TileCache``, the wrappers' next call at the shape on the
+   tuned plan and bit-equal to an explicit ``plan=`` call, each winner's
+   µs beside the rule's; ``profile_step`` of a ``train_fullfused`` step at
+   B = 100 counting the flops of the plain step on the CPU, its rates below
+   the f32 peak and the memory rate; the NaN checks (a NaN through
+   ``fused_linear`` raises naming it, one first made in a backward on
+   autograd's device thread raises, neither with the checks off);
+   ``device_trace`` over a bucket-8 request and a ``train_fullfused`` step
+   holding kernels 2's and 3's device events; ``fit(profile_dir=...)`` of
+   the flagship (6 steps) writing a trace with device events, bit-equal to
+   ``chain_steps=1``; ``examples/plan_and_budget.py`` on the card, its
+   ``memory_analysis`` of the forward at B = 4096 exactly X and the
+   parameters in and B x 10 f32 out; and nothing written under
+   ``~/.cache/tensor_ops_tpu_torch`` (its listing the same before and
+   after).  The sweeps time each plan's device time in a CUDA graph
+   (kernel 7's routes as the host launches them), and a plan replaces the
+   rule only where it is faster by more than the rounds' spread.
+   Phases 1-28 run with ``TENSOR_OPS_TPU_TORCH_PLAN_CACHE`` on an empty
+   temporary file, so every plan there is the fixed rule's.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -339,6 +367,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import glob
 import io
 import json
 import math
@@ -347,6 +376,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1845,6 +1875,14 @@ HOST_LAUNCH_API = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                    "cudaGraphLaunch")
 
 
+def _kernel_name(raw: str) -> str:
+    """A device event's kernel name without its namespace, template
+    arguments and parameters (``mlp_forward_kernel``)."""
+    name = raw.replace("(anonymous namespace)::", "")
+    name = name.replace("void ", "").split("(")[0].split("<")[0]
+    return name.split("::")[-1]
+
+
 def _profile_steps(step, steps: int = 10) -> dict:
     """The device work of one call of ``step`` (a training step, a request
     or a kernel): CUDA kernels launched, copies and memsets, and device busy
@@ -1882,9 +1920,7 @@ def _profile_steps(step, steps: int = 10) -> dict:
             copies += 1
         else:
             launches += 1
-        name = e.name.replace("(anonymous namespace)::", "")
-        name = name.replace("void ", "").split("(")[0].split("<")[0]
-        name = name.split("::")[-1]
+        name = _kernel_name(e.name)
         by_kernel[name] = by_kernel.get(name, 0.0) + us / steps
         calls[name] = calls.get(name, 0) + 1
     return {"launches": launches / steps, "copies": copies / steps,
@@ -6697,6 +6733,460 @@ def phase_chained() -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 29: the tooling (utils/profiling.py, ops/autotune.py)
+# ---------------------------------------------------------------------------
+
+TOOL_TIMEOUT_S = 420
+# the sweeps: (kernel 1) the flagship's layers at B = 8 and 100
+TUNE_LINEAR = tuple((B, FLAGSHIP[i], FLAGSHIP[i + 1],
+                     "identity" if i == 2 else "logistic")
+                    for B in (8, 100) for i in range(3))
+PLAN_CACHE_DIR = os.path.join(os.path.expanduser("~"), ".cache",
+                              "tensor_ops_tpu_torch")
+
+
+def _trace_kernel_names(logdir: str) -> dict:
+    """{kernel name: device events} of the trace files under ``logdir``."""
+    names = {}
+    for path in sorted(glob.glob(os.path.join(logdir, "**", "*.json"),
+                                 recursive=True)):
+        with open(path) as f:
+            for e in json.load(f).get("traceEvents", []):
+                if e.get("cat") == "kernel":
+                    n = _kernel_name(e.get("name", ""))
+                    names[n] = names.get(n, 0) + 1
+    return names
+
+
+def _traced(what: str, run, base: str) -> dict:
+    """``run()`` under ``device_trace`` into a directory of ``base``; the
+    trace's device kernels by name.  The profiler has now and then handed
+    back no device events: trace again, at most twice more, and fail the
+    phase if the last trace has none either."""
+    from tensor_ops_tpu_torch.utils.profiling import device_trace
+
+    for attempt in range(3):
+        d = os.path.join(base, f"{what}-{attempt}")
+        with device_trace(d):
+            run()
+        names = _trace_kernel_names(d)
+        if names:
+            return names
+    check(False, f"{what}: no device events in the trace after 3 tries")
+
+
+def _tool_layer(seed: int, B: int, Kd: int, O: int):
+    r = np.random.default_rng(seed)
+    x = torch.tensor(r.uniform(0, 1, size=(B, Kd)), dtype=torch.float32)
+    w = torch.tensor(r.normal(size=(O, Kd)) / math.sqrt(Kd),
+                     dtype=torch.float32)
+    b = torch.tensor(r.normal(size=(O,)) * 0.1, dtype=torch.float32)
+    return x.to(DEVICE), w.to(DEVICE), b.to(DEVICE)
+
+
+def _tool_sweeps() -> list:
+    """(label, autotune entry, its arguments, candidates, call(plan), plain(),
+    held(out, ref) -> max |err|, plan(card name) -> the wrappers' plan) of
+    each sweep: every kernel with a plan, at one main-path shape each
+    (kernel 1 at each flagship layer)."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    dev = torch.cuda.current_device()
+    sms = K._sm_count(dev)
+    sweeps = []
+
+    def tensors(out):
+        return K._tensors(out)
+
+    def close(tol):
+        def held(out, ref):
+            return max(max_err(a, b, tol)
+                       for a, b in zip(tensors(out), tensors(ref)))
+        return held
+
+    def exact(out, ref):
+        check(all(torch.equal(a, b) for a, b in
+                  zip(tensors(out), tensors(ref))), "not bit-equal to the "
+              "plain version")
+        return 0.0
+
+    for n, (B, Kd, O, act) in enumerate(TUNE_LINEAR):
+        x, w, b = _tool_layer(2900 + n, B, Kd, O)
+        sweeps.append((
+            f"fused_linear B={B} {Kd}->{O}", "autotune_linear",
+            ((B, Kd, O), dict(act=act)),
+            K.linear_candidates(B, Kd, O, torch.float32, True, sms),
+            lambda p, x=x, w=w, b=b, act=act: K.fused_linear(x, w, b, act,
+                                                             plan=p),
+            lambda x=x, w=w, b=b, act=act: K.fused_linear_ref(x, w, b, act),
+            close(TOL_Z),
+            lambda name, B=B, Kd=Kd, O=O: K.linear_plan(
+                B, Kd, O, torch.float32, True, sms, device_name=name)))
+    acts = ["logistic", "logistic", "identity"]
+    layers = [_tool_layer(2910 + k, 8, FLAGSHIP[k], FLAGSHIP[k + 1])
+              for k in range(3)]
+    x8 = layers[0][0]
+    ws, bs = [l[1] for l in layers], [l[2] for l in layers]
+    sweeps.append((
+        "fused_mlp_forward B=8 784-300-100-10", "autotune_mlp_forward",
+        ((8, FLAGSHIP, acts), {}), K.mlp_forward_candidates(8, FLAGSHIP),
+        lambda p: K.fused_mlp_forward(x8, ws, bs, acts, True, plan=p),
+        lambda: K.fused_mlp_forward_ref(x8, ws, bs, acts, True),
+        close(TOL_P),
+        lambda name: K.mlp_forward_plan(8, FLAGSHIP, device_name=name)))
+    x100 = _tool_layer(2913, 100, FLAGSHIP[0], 1)[0]
+    y100 = torch.eye(10, device=DEVICE)[torch.arange(100) % 10]
+    cap = K._train_step_capacity(dev)
+
+    def held_step(out, ref):
+        e = max_err(out[0], ref[0], TOL_LOSS)
+        return max([e] + [max_err(a, b, TOL_PARAM) for a, b in
+                          zip(out[1] + out[2], ref[1] + ref[2])])
+
+    sweeps.append((
+        "fused_mlp_train_step B=100 784-300-100-10",
+        "autotune_mlp_train_step", ((100, FLAGSHIP, acts), {}),
+        K.train_grid_candidates(cap, sms, 100, FLAGSHIP),
+        lambda g: K.fused_mlp_train_step(x100, y100, ws, bs, 0.1, acts,
+                                         plan=g),
+        lambda: K.fused_mlp_train_step_ref(x100, y100, ws, bs, 0.1, acts),
+        held_step,
+        lambda name: K.train_grid(cap, sms, 100, FLAGSHIP, device_name=name)))
+    q, sc = K.quantize_weights_int8(ws[0])
+    sweeps.append((
+        "fused_linear_w8 B=8 784->300", "autotune_linear_w8",
+        ((8, 784, 300), dict(act="logistic")),
+        K.w8_candidates(8, 784, 300, "default", sms),
+        lambda p: K.fused_linear_w8(x8, q, sc, bs[0], "logistic", plan=p),
+        lambda: K.fused_linear_w8_ref(x8, q, sc, bs[0], "logistic"),
+        close(TOL_Z),
+        lambda name: K.w8_plan(8, 784, 300, "default", sms,
+                               device_name=name)))
+    xs8 = x8 * 4 - 2  # signed activations
+    sweeps.append((
+        "fused_linear_w8a8 B=8 784->300", "autotune_linear_w8a8",
+        ((8, 784, 300), {}), K.w8a8_candidates(8, 784, 300, sms),
+        lambda p: K.fused_linear_w8a8(xs8, q, sc, bs[0], "identity", plan=p),
+        lambda: K.fused_linear_w8a8_ref(xs8, q, sc, bs[0], "identity"),
+        exact,
+        lambda name: K.w8a8_plan(8, 784, 300, sms, device_name=name)))
+    r = np.random.default_rng(2920)
+    wq6 = torch.tensor(r.integers(-127, 128, size=(3, 512, 512)),
+                       dtype=torch.int8, device=DEVICE)
+    sw6 = torch.tensor(r.uniform(0.002, 0.01, size=(3, 512)),
+                       dtype=torch.float32, device=DEVICE)
+    b6 = torch.tensor(r.normal(size=(3, 512)) * 0.1, dtype=torch.float32,
+                      device=DEVICE)
+    x6 = torch.tensor(r.normal(size=(16, 512)), dtype=torch.float32,
+                      device=DEVICE)
+    sweeps.append((
+        "fused_mlp_w8a8_forward B=16 3x512", "autotune_mlp_w8a8",
+        ((16, 512, 3), {}), K.mlp_w8a8_candidates(16, 512, 3, sms),
+        lambda p: K.fused_mlp_w8a8_forward(x6, wq6, sw6, b6, "relu", plan=p),
+        lambda: K.fused_mlp_w8a8_forward_ref(x6, wq6, sw6, b6, "relu"),
+        exact,
+        lambda name: K.mlp_w8a8_plan(16, 512, 3, sms, device_name=name)))
+    xs7 = torch.tensor(r.normal(size=(64, 1, 32)), dtype=torch.float32,
+                       device=DEVICE)
+    wx7, ws7 = (torch.tensor(r.normal(size=sh) * 0.5 / math.sqrt(sh[1]),
+                             dtype=torch.float32, device=DEVICE)
+                for sh in ((512, 32), (512, 512)))
+    b7 = torch.tensor(r.normal(size=(512,)) * 0.1, dtype=torch.float32,
+                      device=DEVICE)
+    s7 = torch.zeros(1, 512, device=DEVICE)
+    sweeps.append((
+        "fused_rnn_seq n=64 B=1 32->512", "autotune_rnn_step",
+        ((1, 32, 512), {}), K.rnn_seq_candidates(1, 32, 512),
+        lambda p: K.fused_rnn_seq(xs7, s7, wx7, ws7, b7, "logistic", plan=p),
+        lambda: K.fused_rnn_seq_ref(xs7, s7, wx7, ws7, b7, "logistic"),
+        close(TOL_SEQ),
+        lambda name: K.rnn_seq_plan(1, 32, 512, device_name=name)))
+    return sweeps
+
+
+def phase_autotune() -> None:
+    """Each of the seven sweeps at its main-path shape: every candidate
+    held to the plain version and rerun bit for bit; the rule's plan among
+    the candidates; the winner on disk with its provenance, seen by a fresh
+    ``TileCache``; the wrappers' next call at the shape on the tuned plan,
+    bit-equal to an explicit ``plan=`` call."""
+    from tensor_ops_tpu_torch.ops import autotune
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    path = autotune._CACHE.path
+    card = torch.cuda.get_device_name(0)
+    cache = autotune.TileCache(path)
+    with torch.no_grad():
+        for (label, entry, (args, kw), cands, call, plain, held,
+             planned) in _tool_sweeps():
+            ref = plain()
+            worst = 0.0
+            for p in cands:
+                out = call(p)
+                again = call(p)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(
+                    K._tensors(out), K._tensors(again))),
+                    f"{label}: plan {p}: a rerun differs")
+                worst = max(worst, held(out, ref))
+            report = {}
+            best = getattr(autotune, entry)(*args, cache=cache, report=report,
+                                            **kw)
+            check(report.get("rule") is not None and best in cands,
+                  f"{label}: the rule's plan or the winner is not a "
+                  f"candidate")
+            with open(path) as f:
+                disk = json.load(f)[report["key"]]
+            check(disk["plan"] == report["best"] and disk["us"] > 0
+                  and disk["candidates"] == len(cands)
+                  and disk["spread_us"] >= 0,
+                  f"{label}: the winner on disk is {disk}")
+            check(autotune.TileCache(path).get(report["key"]) == disk,
+                  f"{label}: a fresh TileCache does not see the winner")
+            check(planned(card) == best, f"{label}: the plan does not take "
+                  f"the tuned entry")
+            tuned, explicit = call(None), call(best)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(
+                K._tensors(tuned), K._tensors(explicit))),
+                f"{label}: the tuned call differs from plan={best}")
+            timer = ("a host-launched stream" if entry == "autotune_rnn_step"
+                     else "device time in a CUDA graph")
+            each = [(p, round(us, 2), round(sp, 2))
+                    for p, us, sp in report["results"]]
+            log(f"[tune] {label}: {len(cands)} candidates, each within its "
+                f"tolerance of the plain version (max|err| {worst:.2e}) and "
+                f"bit-equal on a rerun; winner {report['best']} "
+                f"{report['best_us']:.2f} us (spread "
+                f"{disk['spread_us']:.2f}), the rule {report['rule']} "
+                f"{report['rule_us']:.2f} us, per call by {timer}, the median "
+                f"of 5 rounds; each candidate (plan, us, spread): {each}; "
+                f"the tuned call bit-equal to plan=")
+    K.clear_plan_caches()
+
+
+def phase_costs() -> None:
+    """``profile_step`` of a ``train_fullfused`` step at B = 100 (kernel
+    3): its flops equal ``cost_analysis`` of the plain step on the CPU, its
+    rates below the card's peaks; the NaN checks on the card."""
+    from tensor_ops_tpu_torch.models import FusedMLP
+    from tensor_ops_tpu_torch.utils.profiling import (cost_analysis,
+                                                      enable_nan_checks,
+                                                      profile_step)
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    r = np.random.default_rng(2930)
+    ws = [r.normal(size=(FLAGSHIP[k + 1], FLAGSHIP[k])).astype(np.float32)
+          / np.float32(math.sqrt(FLAGSHIP[k])) for k in range(3)]
+    bs = [np.zeros(d, np.float32) for d in FLAGSHIP[1:]]
+    acts = ["logistic", "logistic", "identity"]
+    xb = r.uniform(0, 1, size=(100, FLAGSHIP[0])).astype(np.float32)
+    yb = np.eye(10, dtype=np.float32)[r.integers(0, 10, 100)]
+    fm = FusedMLP.from_numpy(ws, bs, acts, device=DEVICE)
+    x, y = torch.tensor(xb, device=DEVICE), torch.tensor(yb, device=DEVICE)
+
+    def step(m):
+        return m.train_fullfused(0.05, x, y)[1]
+
+    K.reset_launch_counts()
+    for steps in ((20, 120), (50, 500), (100, 2000)):
+        stats = profile_step(step, fm, steps=steps, reps=3)
+        if stats["per_step_s"] > 0:
+            break
+    check(K.launch_counts()["fused_mlp_train_step"] > 0,
+          "profile_step did not launch kernel 3")
+    cpu = FusedMLP.from_numpy(ws, bs, acts, device="cpu")
+    plain = cost_analysis(lambda m: m.train_fullfused(
+        0.05, torch.tensor(xb), torch.tensor(yb)), cpu)
+    check(stats["flops"] == plain["flops"] > 0, f"kernel 3's step counts "
+          f"{stats['flops']} flops, the plain step on the CPU "
+          f"{plain['flops']}")
+    check(0 < stats["tflops_per_s"] < PEAK_OPS["f32"] / 1e12
+          and 0 < stats["gbytes_per_s"] < HBM_BPS / 1e9,
+          f"profile_step's rates out of range: {stats}")
+    log(f"[tools] profile_step train_fullfused B=100: "
+        f"{stats['per_step_s'] * 1e6:.1f} us a step (steps {steps[0]} and "
+        f"{steps[1]}, host-launched), {stats['flops']:.0f} flops (the plain "
+        f"step on the CPU: {plain['flops']:.0f}), "
+        f"{stats['bytes_accessed']:.0f} bytes, "
+        f"{stats['tflops_per_s']:.4f} TFLOP/s, "
+        f"{stats['gbytes_per_s']:.2f} GB/s, first call "
+        f"{stats['compile_s'] * 1e3:.1f} ms")
+
+    w, b = (torch.tensor(a, device=DEVICE) for a in (ws[0], bs[0]))
+    xn = x[:8].clone()
+    xn[0, 3] = float("nan")
+    tids = []
+    v = torch.ones(4, device=DEVICE, requires_grad=True)
+    v.register_hook(lambda g: tids.append(threading.get_ident()) or g)
+    (v * 2).sum().backward()
+    enable_nan_checks(True)
+    try:
+        try:
+            K.fused_linear(xn, w, b, "logistic")
+            check(False, "a NaN through fused_linear did not raise")
+        except FloatingPointError as e:
+            check("fused_linear" in str(e), f"the NaN check named: {e}")
+        z = torch.zeros(4, device=DEVICE, requires_grad=True)
+        loss = (torch.sqrt(z) * 0).sum()
+        try:
+            loss.backward()
+            check(False, "a NaN first made in the backward did not raise")
+        except FloatingPointError as e:
+            caught = str(e)
+    finally:
+        enable_nan_checks(False)
+    y_nan = K.fused_linear(xn, w, b, "logistic")
+    z = torch.zeros(4, device=DEVICE, requires_grad=True)
+    (torch.sqrt(z) * 0).sum().backward()
+    check(bool(torch.isnan(y_nan).any()) and bool(torch.isnan(z.grad).all()),
+          "with the checks off the NaNs should pass through")
+    log(f"[tools] NaN checks on the card: a NaN in x through fused_linear "
+        f"raised naming fused_linear; a NaN first made in the backward "
+        f"raised ({caught}; autograd ran the card's backward on thread "
+        f"{tids[0]}, the caller is {threading.get_ident()}); with the checks "
+        f"off neither raised")
+
+
+def phase_traces(tmp: str) -> None:
+    """``device_trace`` over a bucket-8 request and a ``train_fullfused``
+    step: the hand kernels' device events under their names; ``fit(
+    profile_dir=...)`` of the flagship for 6 steps: a trace with device
+    events, parameters bit-equal to the same ``fit`` with
+    ``chain_steps=1``."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import (FusedMLP, Predictor, adam,
+                                             cross_entropy, fit)
+
+    be = TorchBackend(torch.float32, DEVICE)
+    net = _flagship_net(be)
+    fm = FusedMLP.from_network(net)
+    pred = Predictor(fm, buckets=(8,))
+    rows = np.random.default_rng(2940).uniform(0, 1, size=(5, FLAGSHIP[0]))
+    pred.predict(rows)
+    names = _traced("request", lambda: pred.predict(rows), tmp)
+    check("mlp_forward_kernel" in names, f"the request's trace: {names}")
+    x = torch.rand(100, FLAGSHIP[0], device=DEVICE,
+                   generator=torch.Generator(DEVICE).manual_seed(1))
+    y = torch.eye(10, device=DEVICE)[torch.arange(100) % 10]
+    fm.train_fullfused(0.05, x, y)
+    steps = _traced("train_fullfused", lambda: fm.train_fullfused(0.05, x, y),
+                    tmp)
+    check("mlp_train_step_kernel" in steps, f"the step's trace: {steps}")
+    log(f"[tools] device_trace: a bucket-8 request traced {names} and a "
+        f"train_fullfused step {steps} (device events by kernel)")
+
+    r = np.random.default_rng(2941)
+    X = r.uniform(0, 1, size=(600, FLAGSHIP[0]))
+    Y = np.eye(10)[r.integers(0, 10, 600)]
+    kw = dict(epochs=1, batch_size=100, lr=0.02, optimizer=adam(),
+              verbose=False, log_every=1)
+    plain = fit(net, cross_entropy(10), be, X, Y, chain_steps=1, **kw)
+    for attempt in range(3):
+        d = os.path.join(tmp, f"fit-{attempt}")
+        res = fit(net, cross_entropy(10), be, X, Y, profile_dir=d, **kw)
+        traced = _trace_kernel_names(d)
+        if traced:
+            break
+    check(bool(traced), "fit(profile_dir=...): no device events in its "
+          "trace after 3 runs")
+    check(res.steps == plain.steps == 6
+          and all(torch.equal(a, b) for a, b in zip(res.net.params,
+                                                    plain.net.params)),
+          "fit(profile_dir=...) is not bit-equal to chain_steps=1")
+    log(f"[tools] fit(profile_dir=...) of the flagship, 6 steps: a trace of "
+        f"steps 2-5 with {sum(traced.values())} device kernel events "
+        f"({len(traced)} kernels), parameters bit-equal to chain_steps=1")
+
+
+def phase_plan_and_budget() -> None:
+    """``examples/plan_and_budget.py`` on the card: its forward's measured
+    bytes at B = 4096 are exactly X and the parameters in, B x 10 f32
+    out."""
+    from tensor_ops_tpu_torch.examples import plan_and_budget
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = plan_and_budget.main([])
+    ma = out["memory"]
+    params = sum(FLAGSHIP[k] * FLAGSHIP[k + 1] + FLAGSHIP[k + 1]
+                 for k in range(3)) * 4
+    check(ma["argument_size_in_bytes"] == 4096 * FLAGSHIP[0] * 4 + params
+          and ma["output_size_in_bytes"] == 4096 * 10 * 4,
+          f"memory_analysis of the forward at B=4096: {ma}")
+    check(math.isfinite(out["loss"]), "plan_and_budget: the step's loss")
+    log(f"[tools] plan_and_budget on the card: winner "
+        f"(dp={out['mesh']['data']}, tp={out['mesh']['model']}); "
+        f"memory_analysis of the flagship forward at B=4096: {ma}; "
+        f"the step's loss {out['loss']:.4f}")
+
+
+def _pinned_plan_cache() -> str:
+    """The plan cache this process uses, which must be the file that
+    ``TENSOR_OPS_TPU_TORCH_PLAN_CACHE`` names, outside ``~/.cache``: the
+    sweeps write their winners there, and a winner that reached the home's
+    cache would change the plans of every later run on the machine."""
+    from tensor_ops_tpu_torch.ops import autotune
+
+    env = os.environ.get(autotune.ENV_VAR)
+    path = autotune._CACHE.path
+    cache_dir = os.path.join(os.path.realpath(os.path.expanduser("~")),
+                             ".cache") + os.sep
+    check(bool(env) and path == env
+          and not os.path.realpath(path).startswith(cache_dir),
+          f"the plan cache is {path}: set {autotune.ENV_VAR} to a file "
+          f"outside {cache_dir}")
+    return path
+
+
+def tooling_main() -> None:
+    """Phase 29 in its own interpreter: the sweeps, the costs and the NaN
+    checks, the traces (into a temporary directory of its own), the
+    example.  ``TENSOR_OPS_TPU_TORCH_PLAN_CACHE`` must name the phase's
+    cache file, outside ``~/.cache``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[tools] the plan cache: {_pinned_plan_cache()}")
+    timed("autotune sweeps", phase_autotune)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("costs and NaN checks", phase_costs)
+        timed("traces", phase_traces, tmp)
+    timed("plan_and_budget", phase_plan_and_budget)
+
+
+def _listing(top: str) -> list:
+    """(path, size, mtime) of every file under ``top``, sorted."""
+    out = []
+    for root, _, files in os.walk(top):
+        for f in files:
+            st = os.stat(os.path.join(root, f))
+            out.append((os.path.join(root, f), st.st_size, st.st_mtime_ns))
+    return sorted(out)
+
+
+def phase_tooling(tmp: str) -> None:
+    """Run :func:`tooling_main` (phase 29) in an interpreter of its own with
+    a time limit, its plan cache a file of ``tmp``; nothing under
+    ``~/.cache/tensor_ops_tpu_torch`` may be written or removed by it."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    before = _listing(PLAN_CACHE_DIR)
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.tooling_main()"],
+        timeout=TOOL_TIMEOUT_S, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here,
+                 TENSOR_OPS_TPU_TORCH_PLAN_CACHE=os.path.join(
+                     tmp, "plans.json")))
+    check(proc.returncode == 0, f"the tooling phase failed (exit "
+          f"{proc.returncode})")
+    after = _listing(PLAN_CACHE_DIR)
+    check(after == before, f"the tooling phase changed {PLAN_CACHE_DIR}: "
+          f"{before} -> {after}")
+    log(f"[tools] {PLAN_CACHE_DIR} unchanged by the phase ({len(after)} "
+        f"files before and after)")
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging the phase's wall time."""
     t0 = time.perf_counter()
@@ -6706,8 +7196,19 @@ def timed(name: str, fn, *args):
 
 
 def main() -> int:
+    """The whole smoke, its plan cache an empty temporary file: every plan
+    of phases 1-28 is the fixed rule's whatever the home's cache holds, and
+    no sweep of phase 29 can reach the home."""
+    with tempfile.TemporaryDirectory() as plans:
+        os.environ["TENSOR_OPS_TPU_TORCH_PLAN_CACHE"] = os.path.join(
+            plans, "plans.json")
+        return smoke()
+
+
+def smoke() -> int:
     t_start = time.perf_counter()
     name, card = phase_environment()
+    _pinned_plan_cache()
     timed("build", phase_build)
     worst = timed("kernels 1-3", phase_kernels)
     qm, weights, xs = timed("4x4096 stack on the CPU", int8_stack_cpu)
@@ -6749,6 +7250,7 @@ def main() -> int:
                               tmp)
         proc_launches = timed("several processes (own interpreter)",
                               phase_procs, tmp)
+        timed("tooling (own interpreter)", phase_tooling, tmp)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "

@@ -44,11 +44,14 @@ offloaded state runs unchained.  In several processes
 (``parallel.distributed``) the mesh spans them: each process loads its
 shard of every batch (a stage-only mesh: the whole stream), and process 0
 writes the checkpoints, which every process resumes from.
-``profile_dir`` (item 8) raises ``ValueError`` naming its ROADMAP item.
+``profile_dir`` traces steps 2-5 of ``fit``'s run through
+``utils.profiling.device_trace``; under it, and while
+``utils.profiling.enable_nan_checks`` is on, the loops run unchained.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import sys
@@ -1056,7 +1059,7 @@ def _drive(state, run_window: Callable, *, step: int, total_steps: int,
            early_stop_patience: int = 0, save: Optional[Callable] = None,
            checkpoint_every: int = 0, verbose: bool = True,
            torn: Optional[Callable[[], bool]] = None,
-           interrupt_save: bool = True):
+           interrupt_save: bool = True, trace_dir: Optional[str] = None):
     """The window driver of both loops: run from global step ``step`` to
     ``total_steps`` and return ``(state, history, step)``.
 
@@ -1085,14 +1088,27 @@ def _drive(state, run_window: Callable, *, step: int, total_steps: int,
     the middle of a window whose state is updated in place (a CUDA graph's
     buffers): then nothing is saved and the last checkpoint stands.
     ``interrupt_save=False`` (several processes: the checkpoint's gather
-    is a collective no lone process may enter) skips the Ctrl-C save."""
+    is a collective no lone process may enter) skips the Ctrl-C save.
+    ``trace_dir`` traces the run's second to fifth steps
+    (``utils.profiling.device_trace``; the windows there are single steps),
+    the trace stopped in the ``finally`` of a shorter or interrupted run."""
     history = []
     saves = _CheckpointWrites()
     best, since_best = float("-inf"), 0
     first = step + 1  # a resumed run logs its first step too
     snap = (state, step)
+    trace = contextlib.ExitStack()
+    trace_from = first if trace_dir else None
     try:
         while step < total_steps:
+            if trace_from is not None:
+                if step == trace_from:
+                    from ..utils.profiling import device_trace
+
+                    trace.enter_context(device_trace(trace_dir))
+                elif step >= trace_from + 4:
+                    trace.close()
+                    trace_from = None
             k = window_len(step) if window_len is not None else 1
             with _sigint_shield():
                 v, new_state = run_window(step, k, state)
@@ -1146,6 +1162,7 @@ def _drive(state, run_window: Callable, *, step: int, total_steps: int,
                       f"resume=True continues exactly here")
         raise
     finally:
+        trace.close()
         err = saves.join()
         if err is not None and sys.exc_info()[0] is None:
             raise err
@@ -1191,12 +1208,6 @@ def _longest_window(window_len: Callable, step: int, total: int) -> int:
         k = window_len(step)
         longest, step = max(longest, k), step + k
     return longest
-
-
-def _refuse(caller: str, what: str, item: str) -> None:
-    raise ValueError(
-        f"{caller}: {what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md, Queue 1 item {item})")
 
 
 def _check_process_data_alignment(mesh, n_proc: int) -> None:
@@ -1245,14 +1256,6 @@ def _global_host_tree(tree, mesh=None):
         return x
 
     return _tree_unflatten(tree, [fetch(x) for x in _tree_leaves(tree)])
-
-
-def _check_later(caller: str, profile_dir: Optional[str]) -> None:
-    """Refuse the option of the JAX package's loop ``caller`` that this
-    package does not run yet, naming the ROADMAP item that will port it:
-    ``profile_dir`` (item 8).  None is silently ignored."""
-    if profile_dir:
-        _refuse(caller, "profile_dir", "8")
 
 
 def _normalize_zero_stage(shard_opt_state: bool, zero_stage):
@@ -1612,18 +1615,30 @@ def _use_chain(be: Backend, chain_steps, chain_shuffle: str,
                n_values: int, what: str, allowed: bool = True) -> bool:
     """Whether the run chains: ``allowed``, a torch backend and
     ``chain_steps != 1``, and for ``"auto"`` a dataset of at most 1 GiB on
-    the device (the JAX package's gate: a mesh, a pipeline's included, and
-    an offloaded state come with ``allowed=False``).  A device
-    ``chain_shuffle`` without chaining raises, as there."""
+    the device (the JAX package's gate: a mesh, a pipeline's included, an
+    offloaded state and a ``profile_dir`` come with ``allowed=False``).
+    While ``enable_nan_checks`` is on, ``"auto"`` runs unchained and an int
+    ``chain_steps > 1`` raises: a step captured in a CUDA graph cannot
+    synchronise to check its ops.  A device ``chain_shuffle`` without
+    chaining raises, as there."""
+    from ..ops.kernels import nan_checks_enabled
+
+    checks = nan_checks_enabled()
+    if checks and chain_steps != "auto" and chain_steps > 1:
+        raise ValueError(
+            f"chain_steps={chain_steps} captures the steps in a CUDA graph, "
+            f"where enable_nan_checks cannot check each op (it synchronises)"
+            f": use chain_steps='auto' or 1, or turn the checks off")
     use = False
-    if allowed and be.name == "torch" and chain_steps != 1:
+    if allowed and be.name == "torch" and chain_steps != 1 and not checks:
         use = (chain_steps != "auto"
                or n_values * be.dtype.itemsize <= (1 << 30))
     if chain_shuffle != "host" and not use:
         raise ValueError(
             f"chain_shuffle={chain_shuffle!r} needs step chaining to "
-            f"engage: the torch backend, chain_steps != 1, and (in auto "
-            f"mode) a dataset small enough to stay on the device — this "
+            f"engage: the torch backend, no mesh/offload/profile_dir, NaN "
+            f"checks off, chain_steps != 1, and (in auto mode) a dataset "
+            f"small enough to stay on the device — this "
             f"configuration fell back to unchained steps, where the host "
             f"{what} already owns the shuffle")
     return use
@@ -1836,10 +1851,17 @@ def fit(
     (``val`` runs each segment there).  Without a stage axis the
     ``pipeline_*`` options are unused, as in the JAX package.
 
-    ``profile_dir`` (item 8) raises ``ValueError`` naming its ROADMAP
-    item."""
+    ``profile_dir`` traces steps 2-5 of this run (relative to its first
+    step: past the first step's warm-up, short enough to view) through
+    ``utils.profiling.device_trace`` into that directory, the trace stopped
+    at the loop's end when the run is shorter or interrupted; the run is
+    unchained under it (the JAX package's gate), and the NumPy oracle, with
+    nothing to trace, refuses it."""
     mp_mode = _check_mp(mixed_precision, be)
-    _check_later("fit", profile_dir)
+    if profile_dir and be.name != "torch":
+        raise ValueError(
+            "profile_dir captures a torch.profiler trace and requires the "
+            "torch backend (the numpy backend has nothing to trace)")
     shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
                                                     zero_stage)
     pipeline_mode = mesh is not None and "stage" in tuple(
@@ -1895,10 +1917,12 @@ def fit(
             raise ValueError(
                 f"each accumulation chunk ({batch_size // accum_steps} "
                 f"rows) must split evenly over the {dp} data ranks")
-    # a mesh or an offloaded state runs unchained (the JAX package's gate)
+    # a mesh, an offloaded state or a trace runs unchained (the JAX
+    # package's gate)
     use_chain = _use_chain(be, chain_steps, chain_shuffle, X.size + Y.size,
                            "loader",
-                           allowed=mesh is None and not offload_opt_state)
+                           allowed=(mesh is None and not offload_opt_state
+                                    and not profile_dir))
     chain_dev = use_chain and chain_shuffle != "host"
     opt = optimizer or sgd()
     if pipeline_mode:
@@ -2170,7 +2194,7 @@ def fit(
             window_len=window_len, log_every=log_every, logger=logger,
             evaluate=evaluate, early_stop_patience=early_stop_patience,
             save=save, checkpoint_every=checkpoint_every, verbose=verbose,
-            torn=torn, interrupt_save=n_proc == 1)
+            torn=torn, interrupt_save=n_proc == 1, trace_dir=profile_dir)
         if n_proc > 1:  # process 0's checkpoint writes are on disk
             from ..parallel.distributed import barrier
 

@@ -54,6 +54,7 @@ dequantized weight to bf16 at ``"default"``, so both its versions do.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
@@ -97,6 +98,82 @@ def reset_launch_counts() -> None:
 def _count(name: str) -> None:
     with _launch_lock:
         _launches[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# The tooling's view of a launch (utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+# NaN checks (profiling.enable_nan_checks): each wrapper checks its kernel's
+# outputs, since a launch through ctypes is no aten op a dispatch mode sees.
+_nan_checks = False
+# cost_analysis / memory_analysis: the counting dispatch mode while it runs.
+_cost_mode = None
+
+
+def nan_checks_enabled() -> bool:
+    """Whether ``profiling.enable_nan_checks`` is on."""
+    return _nan_checks
+
+
+def _tensors(out) -> List[torch.Tensor]:
+    """The tensors of ``out``, a tensor or a nest of tuples, lists, dicts
+    and dataclasses, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    elif dataclasses.is_dataclass(out) and not isinstance(out, type):
+        out = [getattr(out, f.name) for f in dataclasses.fields(out)]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _tensors(o)]
+    return []
+
+
+def _check_nan(name: str, out) -> None:
+    for t in _tensors(out):
+        if (t.is_floating_point() and t.device.type != "meta"
+                and bool(torch.isnan(t).any())):
+            raise FloatingPointError(
+                f"invalid value (nan) encountered in {name} (a hand-written "
+                f"kernel's output, checked under enable_nan_checks)")
+
+
+def _meta(a):
+    """``a`` with every tensor in it replaced by a meta tensor of its
+    shape, strides and dtype."""
+    if isinstance(a, torch.Tensor):
+        return torch.empty_strided(a.shape, a.stride(), dtype=a.dtype,
+                                   device="meta")
+    if isinstance(a, (tuple, list)):
+        return type(a)(_meta(x) for x in a)
+    return a
+
+
+def _watched(name: str, run: Callable, plain: Callable = None,
+             args: tuple = (), cost: tuple = None):
+    """``run()``, a kernel's launch on the card, under the tooling: the
+    dispatch modes (the NaN checks, the counting of ``cost_analysis``) are
+    set aside while it runs, so the wrapper's own allocations and copies are
+    neither checked nor counted; then the counting mode counts the plain
+    version's math, ``plain(*args)`` run on meta tensors of the same shapes
+    (or ``cost``, ``(flops, transcendentals, bytes)``), and the NaN checks
+    look at the kernel's outputs."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    mode = _cost_mode
+    with _disable_current_modes():
+        out = run()
+        if _nan_checks:
+            _check_nan(name, out)
+        if mode is not None and plain is not None:
+            margs = _meta(args)
+    if mode is not None:
+        if plain is not None:
+            plain(*margs)
+        elif cost is not None:
+            mode.add(*cost)
+    return out
 
 
 def _act_fn(name: str) -> Callable:
@@ -212,6 +289,88 @@ def _scratch_for(name: str, dev: int, stream: int, numel: int,
 
 
 # ---------------------------------------------------------------------------
+# Measured plans (ops/autotune.py)
+# ---------------------------------------------------------------------------
+
+_device_names: Dict[int, str] = {}
+
+
+def _device_name(dev: int) -> str:
+    """``torch.cuda.get_device_name(dev)``, cached: the card a tuned plan
+    was measured on."""
+    name = _device_names.get(dev)
+    if name is None:
+        name = _device_names[dev] = torch.cuda.get_device_name(dev)
+    return name
+
+
+class Tuning(NamedTuple):
+    """How ``ops.autotune`` files a kernel's plans: ``key(*shape)`` gives
+    the cache key's parameters, ``free(plan)`` the plan's free parameters
+    (an entry's ``"plan"``).  Read by the plans' probes (:func:`_tuned`)
+    and by the sweeps alike."""
+    key: Callable
+    free: Callable
+
+
+def _tuned(kernel: str, device_name, candidates: Callable, *shape):
+    """The plan ``ops.autotune`` measured for ``kernel`` at ``shape`` (the
+    arguments of its :data:`TUNING` key) on the card named
+    ``device_name``, or None (no entry, or no card name).  The entry holds
+    the plan's free parameters; it must name one of ``candidates()``, the
+    plans that pass the plan's own checks at this shape on this card, or
+    ``ValueError`` names the key and the file (a stale or foreign entry is
+    never dropped in silence)."""
+    if device_name is None:
+        return None
+    from . import autotune
+
+    tuning = TUNING[kernel]  # defined below, with the plans
+    hit = autotune.lookup(kernel, device_name, **tuning.key(*shape))
+    if hit is None:
+        return None
+    key, want, path = hit
+    for plan in candidates():
+        if list(tuning.free(plan)) == list(want):
+            return plan
+    raise ValueError(
+        f"{kernel}: the tuned plan {want} of {key!r} in {path} does not pass "
+        f"the plan's checks at this shape on this card; run the sweep again "
+        f"or remove the entry")
+
+
+def _with_rule(cands: list, rule) -> list:
+    """The candidates with the fixed rule's plan among them."""
+    return cands if rule in cands else cands + [rule]
+
+
+def _check_plan(kernel: str, plan, candidates: list):
+    """``plan``, an explicit ``plan=``, if it is one of the candidates the
+    plan's checks pass at this call's shape; ``ValueError`` otherwise."""
+    if plan not in candidates:
+        raise ValueError(f"{kernel}: plan {plan} is not one this shape can "
+                         f"run on this card (see its candidates)")
+    return plan
+
+
+def _pow2_upto(n: int) -> List[int]:
+    out, s = [], 1
+    while s <= n:
+        out.append(s)
+        s *= 2
+    return out
+
+
+def clear_plan_caches() -> None:
+    """Forget every wrapper's per-shape plans, so that the next call of a
+    shape plans again (a new tuned entry takes effect): the counterpart of
+    the JAX package's ``jax.clear_caches()`` after a sweep."""
+    for cache in (_linear_calls, _mlp_calls, _train_grids, _w8_calls,
+                  _w8a8_calls, _mlp8_calls, _seq_routes):
+        cache.clear()
+
+
+# ---------------------------------------------------------------------------
 # fused_linear: act(x @ w.T + b)
 # ---------------------------------------------------------------------------
 
@@ -259,30 +418,35 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def linear_plan(B: int, K: int, O: int, dtype=torch.float32,
-                aligned: bool = True, sms: int = H100_SMS) -> LinearPlan:
-    """The instance of ``fused_linear`` for x (B, K), w (O, K), a fixed
-    rule (not an autotuner):
-
-    * B <= 16: ``gemv``, one warp per output column, 4 columns a block;
-    * at least ``sms`` 128 x 128 output tiles: ``large``;
-    * otherwise ``tile`` (32 x 64 output tiles); where the tiles are fewer
-      than ``sms`` and K > 64, K is split over enough blocks to give every
-      SM one (each split walking at least 64 k, a multiple of 16), the
-      partials added in split order by the last block of each tile.
-
-    ``vec`` (16-byte loads) needs K % 4 == 0 and ``aligned`` operands (x
-    and w 4-element aligned); otherwise the same instance loads scalars.
-    f32 and bf16 operands take the same plan.  Raises ``ValueError`` for a
-    dtype the kernel does not take or a grid the card cannot launch."""
-    if dtype not in _LINEAR_ENTRIES:
-        raise ValueError(f"fused_linear on CUDA takes float32 or bfloat16 "
-                         f"x, got {dtype}")
-    vec = K % 4 == 0 and aligned
-    if B <= GEMV_ROWS[-1]:
+def _linear_make(B: int, K: int, O: int, instance: str, split: int,
+                 vec: bool) -> LinearPlan:
+    """The plan of ``instance`` with K split over about ``split`` blocks
+    (each walking a multiple of the tile's 16 k), or None where the grid is
+    more than the card can launch."""
+    if instance == "gemv":
         rows = next(r for r in GEMV_ROWS if r >= B)
         return LinearPlan("gemv", vec, rows, (_cdiv(O, GEMV_WARPS), 1, 1),
                           LINEAR_INSTANCES["gemv"][2], 1, max(K, 1), 0)
+    bm, bn, bk = LINEAR_INSTANCES[instance][1]
+    gx, gy = _cdiv(O, bn), _cdiv(B, bm)
+    if gy > GRID_YZ_MAX:
+        return None
+    kchunk = max(K, 1)
+    if split > 1:
+        kchunk = _cdiv(_cdiv(K, split), bk) * bk
+        split = _cdiv(K, kchunk)
+    return LinearPlan(instance, vec, bm, (gx, gy, split),
+                      LINEAR_INSTANCES[instance][2], split, kchunk,
+                      split * B * O if split > 1 else 0)
+
+
+def _linear_free(plan: LinearPlan) -> list:
+    return [plan.instance, plan.split]
+
+
+def _linear_rule(B: int, K: int, O: int, vec: bool, sms: int) -> LinearPlan:
+    if B <= GEMV_ROWS[-1]:
+        return _linear_make(B, K, O, "gemv", 1, vec)
     bm, bn, _ = LINEAR_INSTANCES["large"][1]
     gx, gy = _cdiv(O, bn), _cdiv(B, bm)
     if gx * gy >= sms:
@@ -294,15 +458,71 @@ def linear_plan(B: int, K: int, O: int, dtype=torch.float32,
     if gy > GRID_YZ_MAX:
         raise ValueError(f"fused_linear: {B} rows need {gy} row tiles, more "
                          f"than the grid's {GRID_YZ_MAX}")
-    split, kchunk = 1, max(K, 1)
+    split = 1
     if instance == "tile" and gx * gy < sms and K > SPLIT_MIN_K:
-        bk = LINEAR_INSTANCES["tile"][1][2]
         split = min(_cdiv(sms, gx * gy), _cdiv(K, SPLIT_MIN_K))
-        kchunk = _cdiv(_cdiv(K, split), bk) * bk
-        split = _cdiv(K, kchunk)
-    return LinearPlan(instance, vec, bm, (gx, gy, split),
-                      LINEAR_INSTANCES[instance][2], split, kchunk,
-                      split * B * O if split > 1 else 0)
+    return _linear_make(B, K, O, instance, split, vec)
+
+
+def _linear_check_dtype(dtype) -> None:
+    if dtype not in _LINEAR_ENTRIES:
+        raise ValueError(f"fused_linear on CUDA takes float32 or bfloat16 "
+                         f"x, got {dtype}")
+
+
+def linear_plan(B: int, K: int, O: int, dtype=torch.float32,
+                aligned: bool = True, sms: int = H100_SMS, *,
+                device_name: str = None) -> LinearPlan:
+    """The instance of ``fused_linear`` for x (B, K), w (O, K), a fixed
+    rule:
+
+    * B <= 16: ``gemv``, one warp per output column, 4 columns a block;
+    * at least ``sms`` 128 x 128 output tiles: ``large``;
+    * otherwise ``tile`` (32 x 64 output tiles); where the tiles are fewer
+      than ``sms`` and K > 64, K is split over enough blocks to give every
+      SM one (each split walking at least 64 k, a multiple of 16), the
+      partials added in split order by the last block of each tile.
+
+    ``vec`` (16-byte loads) needs K % 4 == 0 and ``aligned`` operands (x
+    and w 4-element aligned); otherwise the same instance loads scalars.
+    f32 and bf16 operands take the same plan.  With ``device_name`` (the
+    card's name, as the wrapper passes it) an entry of ``ops.autotune``'s
+    cache for this shape and card replaces the rule (it must be one of
+    :func:`linear_candidates`).  Raises ``ValueError`` for a dtype the
+    kernel does not take, a grid the card cannot launch or a stale tuned
+    entry."""
+    _linear_check_dtype(dtype)
+    vec = K % 4 == 0 and aligned
+    tuned = _tuned("linear", device_name,
+                   lambda: linear_candidates(B, K, O, dtype, aligned, sms),
+                   B, K, O, dtype)
+    return tuned if tuned is not None else _linear_rule(B, K, O, vec, sms)
+
+
+def linear_candidates(B: int, K: int, O: int, dtype=torch.float32,
+                      aligned: bool = True,
+                      sms: int = H100_SMS) -> List[LinearPlan]:
+    """Every plan ``fused_linear`` can run at this shape, for the tuner:
+    the gemv (B <= 16), the tile with K split over 1, 2, 4, .. blocks (each
+    a multiple of 16 k, at most 64 splits) and the large tile, the fixed
+    rule's plan among them."""
+    _linear_check_dtype(dtype)
+    vec = K % 4 == 0 and aligned
+    wanted = [("gemv", 1)] if B <= GEMV_ROWS[-1] else []
+    bk = LINEAR_INSTANCES["tile"][1][2]
+    wanted += [("tile", s) for s in _pow2_upto(min(64, _cdiv(K, bk)))]
+    wanted.append(("large", 1))
+    cands, seen = [], set()
+    for instance, split in wanted:
+        plan = _linear_make(B, K, O, instance, split, vec)
+        if plan is not None and tuple(_linear_free(plan)) not in seen:
+            seen.add(tuple(_linear_free(plan)))
+            cands.append(plan)
+    return _with_rule(cands, _linear_rule(B, K, O, vec, sms))
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
 
 
 _linear_calls: dict = {}  # (B, K, O, dtype, aligned, card) -> (plan, entry)
@@ -310,11 +530,12 @@ _LINEAR_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                     + [ctypes.c_void_p] * 3)
 
 
-def _fused_linear_cuda(x, w, b, act: str, save_z: bool):
+def _fused_linear_cuda(x, w, b, act: str, save_z: bool, plan=None):
     """The kernel: f32 x with f32 operands, or bf16 x with bf16 operands (w
     rounded to bf16 as the plain version rounds it); f32 accumulation, b
-    and z f32, y in x's dtype.  The instance is ``linear_plan``'s, cached
-    per call shape."""
+    and z f32, y in x's dtype.  The instance is ``plan`` (one of
+    :func:`linear_candidates`) or ``linear_plan``'s, cached per call
+    shape."""
     entry = _LINEAR_ENTRIES.get(x.dtype)
     if entry is None:
         raise ValueError(f"fused_linear on CUDA takes float32 or bfloat16 "
@@ -340,12 +561,17 @@ def _fused_linear_cuda(x, w, b, act: str, save_z: bool):
         return y, z
     xp, wp = x.data_ptr(), w.data_ptr()
     aligned = (xp | wp) % (4 * x.element_size()) == 0
-    key = (B, K, O, x.dtype, aligned, dev)
+    key = (B, K, O, x.dtype, aligned, dev, plan)
     call = _linear_calls.get(key)
     if call is None:
-        call = (linear_plan(B, K, O, x.dtype, aligned, _sm_count(dev)),
-                _kernel("fused_linear", entry, _LINEAR_ARGTYPES,
-                        keep_gil=True))
+        sms = _sm_count(dev)
+        chosen = (linear_plan(B, K, O, x.dtype, aligned, sms,
+                              device_name=_device_name(dev))
+                  if plan is None else _check_plan(
+                      "fused_linear", plan,
+                      linear_candidates(B, K, O, x.dtype, aligned, sms)))
+        call = (chosen, _kernel("fused_linear", entry, _LINEAR_ARGTYPES,
+                                keep_gil=True))
         _linear_calls[key] = call
     plan, fn = call
     stream = torch._C._cuda_getCurrentRawStream(dev)
@@ -372,9 +598,14 @@ class _FusedLinear(torch.autograd.Function):
     plain PyTorch, the math of ``_fused_linear_bwd``."""
 
     @staticmethod
-    def forward(ctx, x, w, b, act, save_z):
+    def forward(ctx, x, w, b, act, save_z, plan):
         if x.is_cuda:
-            y, z = _fused_linear_cuda(x, w, b, act, save_z)
+            run = lambda: _fused_linear_cuda(x, w, b, act, save_z, plan)  # noqa: E731
+            if _nan_checks or _cost_mode is not None:
+                y, z = _watched("fused_linear", run, fused_linear_ref,
+                                (x, w, b, act, True))
+            else:
+                y, z = run()
         else:
             y, z = fused_linear_ref(x, w, b, act, save_z=True)
         if save_z:
@@ -389,17 +620,20 @@ class _FusedLinear(torch.autograd.Function):
         dx = (dz.float() @ w.float()).to(x.dtype)
         dw = (dz.float().T @ x.float()).to(w.dtype)
         db = dz.sum(dim=0).to(b.dtype)
-        return dx, dw, db, None, None
+        return dx, dw, db, None, None, None
 
 
-def fused_linear(x, w, b, act: str = "identity", precision: str = "default"):
+def fused_linear(x, w, b, act: str = "identity", precision: str = "default",
+                 plan: LinearPlan = None):
     """``act(x @ w.T + b)``: x (B, i), w (o, i) in the ffLayer layout
     (``FeedForward.hs:209-213``), b (o,).  Differentiable; the forward
-    keeps the f32 pre-activation only when a gradient will be taken."""
+    keeps the f32 pre-activation only when a gradient will be taken.  On
+    the card ``plan`` (one of :func:`linear_candidates`) replaces
+    :func:`linear_plan`'s; the plain version ignores it."""
     _check_names([act], precision)
     save_z = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, w, b))
-    return _FusedLinear.apply(x, w, b, act, save_z)
+    return _FusedLinear.apply(x, w, b, act, save_z, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -440,31 +674,65 @@ class MlpPlan(NamedTuple):
     smem_bytes: int
 
 
-def mlp_forward_plan(batch: int, widths: Sequence[int]) -> MlpPlan:
+def _mlp_stride(widths: Sequence[int]) -> int:
+    stride = _cdiv(max(widths), 4) * 4
+    return stride + 4 if stride % 32 == 0 else stride
+
+
+def _mlp_smem(rows: int, stride: int) -> int:
+    return 2 * rows * stride * 4 + 8 * MAX_LAYERS
+
+
+def _mlp_make(batch: int, stride: int, rows: int) -> MlpPlan:
+    tiles = _cdiv(batch, rows)
+    return MlpPlan(rows, stride, tiles, tiles * MLP_CLUSTER,
+                   _mlp_smem(rows, stride))
+
+
+def _mlp_rows_cover(batch: int) -> int:
+    return next(r for r in MLP_ROWS if r >= min(batch, MLP_ROWS[-1]))
+
+
+def _mlp_rule(batch: int, widths: Sequence[int]) -> MlpPlan:
+    stride = _mlp_stride(widths)
+    rows = _mlp_rows_cover(batch)
+    while rows > 1 and _mlp_smem(rows, stride) > MAX_SMEM_BYTES:
+        rows //= 2
+    if _mlp_smem(1, stride) > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"fused_mlp_forward: a layer width of {max(widths)} needs "
+            f"{2 * stride * 4} bytes of shared memory per batch row, more "
+            f"than the {MAX_SMEM_BYTES} one block has")
+    return _mlp_make(batch, stride, rows)
+
+
+def mlp_forward_plan(batch: int, widths: Sequence[int], *,
+                     device_name: str = None) -> MlpPlan:
     """The whole-chain kernel's plan for ``batch`` rows through layers of
     ``widths`` (``[i, o_0, .., o_{L-1}]``), a fixed rule: the row tile is
     the least of :data:`MLP_ROWS` that covers ``min(batch, 8)``, halved
     while its two ``rows x stride`` f32 buffers and the 16 layers' 8-byte
-    mbarriers overflow one block's shared memory; ``stride`` is the widest width rounded up to 4 floats (16-byte
-    rows), plus 4 where that is a multiple of 32 (rows on distinct banks).
-    Raises ``ValueError`` naming the width when not even one row fits."""
-    widest = max(widths)
-    stride = _cdiv(widest, 4) * 4
-    if stride % 32 == 0:
-        stride += 4
-    def smem(rows):
-        return 2 * rows * stride * 4 + 8 * MAX_LAYERS
+    mbarriers overflow one block's shared memory; ``stride`` is the widest
+    width rounded up to 4 floats (16-byte rows), plus 4 where that is a
+    multiple of 32 (rows on distinct banks).  With ``device_name`` a tuned
+    entry (one of :func:`mlp_forward_candidates`) replaces the rule.
+    Raises ``ValueError`` naming the width when not even one row fits, and
+    for a stale tuned entry."""
+    tuned = _tuned("mlp_fwd", device_name,
+                   lambda: mlp_forward_candidates(batch, widths), batch,
+                   widths)
+    return tuned if tuned is not None else _mlp_rule(batch, widths)
 
-    rows = next(r for r in MLP_ROWS if r >= min(batch, MLP_ROWS[-1]))
-    while rows > 1 and smem(rows) > MAX_SMEM_BYTES:
-        rows //= 2
-    if smem(1) > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"fused_mlp_forward: a layer width of {widest} needs "
-            f"{2 * stride * 4} bytes of shared memory per batch row, more "
-            f"than the {MAX_SMEM_BYTES} one block has")
-    tiles = _cdiv(batch, rows)
-    return MlpPlan(rows, stride, tiles, tiles * MLP_CLUSTER, smem(rows))
+
+def mlp_forward_candidates(batch: int,
+                           widths: Sequence[int]) -> List[MlpPlan]:
+    """Every row tile of :data:`MLP_ROWS` up to the one that covers the
+    batch whose buffers fit one block's shared memory, for the tuner."""
+    rule = _mlp_rule(batch, widths)
+    cands = [_mlp_make(batch, rule.stride, r) for r in MLP_ROWS
+             if r <= _mlp_rows_cover(batch)
+             and _mlp_smem(r, rule.stride) <= MAX_SMEM_BYTES]
+    return _with_rule(cands, rule)
 
 
 _mlp_calls: dict = {}  # (B, dims, acts, softmax_out, card) -> call
@@ -499,18 +767,23 @@ def _mlp_widths(x, weights, biases) -> List[int]:
     return dims
 
 
-def _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out):
-    """The kernel: ``mlp_forward_plan``'s row tiles, one cluster each; the
-    plan, the C entry and the ctypes widths and activations cached per call
-    shape."""
+def _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out,
+                            plan=None):
+    """The kernel: ``plan``'s or ``mlp_forward_plan``'s row tiles, one
+    cluster each; the plan, the C entry and the ctypes widths and
+    activations cached per call shape."""
     n, B, dev = len(weights), x.shape[0], x.get_device()
     key = (tuple(x.shape), tuple(tuple(w.shape) for w in weights),
            tuple(tuple(b.shape) for b in biases), tuple(acts),
-           bool(softmax_out), dev)
+           bool(softmax_out), dev, plan)
     call = _mlp_calls.get(key)
     if call is None:
         dims = _mlp_widths(x, weights, biases)
-        call = (mlp_forward_plan(B, dims),
+        chosen = (mlp_forward_plan(B, dims, device_name=_device_name(dev))
+                  if plan is None else _check_plan(
+                      "fused_mlp_forward", plan,
+                      mlp_forward_candidates(B, dims)))
+        call = (chosen,
                 _kernel("fused_mlp_forward", "fused_mlp_forward_f32",
                         _MLP_ARGTYPES, keep_gil=True),
                 (ctypes.c_int * (n + 1))(*dims),
@@ -538,7 +811,8 @@ def _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out):
 
 
 def fused_mlp_forward(x, weights, biases, acts: Sequence[str],
-                      softmax_out: bool = True, precision: str = "default"):
+                      softmax_out: bool = True, precision: str = "default",
+                      plan: MlpPlan = None):
     """Whole ffLayer-chain forward in ONE kernel launch: one cluster of 16
     blocks per batch tile, the tile's activations in every block's shared
     memory across layers, each layer's columns spread over the cluster's
@@ -547,13 +821,19 @@ def fused_mlp_forward(x, weights, biases, acts: Sequence[str],
     weights[k]: (o_k, i_k) with i_{k+1} == o_k; acts[k] applied after
     layer k (the last layer uses a softmax over its real width when
     ``softmax_out``).  Weights of any float dtype are read as f32.  The
-    batch tile is chosen by :func:`mlp_forward_plan`."""
+    batch tile is ``plan``'s (one of :func:`mlp_forward_candidates`) or
+    :func:`mlp_forward_plan`'s; the plain version ignores ``plan``."""
     if not (len(weights) == len(biases) == len(acts)) or not weights:
         raise ValueError("fused_mlp_forward: need one weight, bias and "
                          "activation per layer")
     _check_names(acts, precision)
     if x.is_cuda:
-        return _fused_mlp_forward_cuda(x, weights, biases, acts, softmax_out)
+        run = lambda: _fused_mlp_forward_cuda(  # noqa: E731
+            x, weights, biases, acts, softmax_out, plan)
+        if _nan_checks or _cost_mode is not None:
+            return _watched("fused_mlp_forward", run, fused_mlp_forward_ref,
+                            (x, weights, biases, acts, softmax_out))
+        return run()
     return fused_mlp_forward_ref(x, weights, biases, acts, softmax_out)
 
 
@@ -627,19 +907,35 @@ def train_step_scratch_floats(batch: int, widths: Sequence[int]) -> int:
 
 
 def train_grid(capacity: int, sms: int, batch: int,
-               widths: Sequence[int]) -> int:
+               widths: Sequence[int], *, device_name: str = None) -> int:
     """The step kernel's grid: one block per SM (``sms``), at most the
     blocks the card holds at once (``capacity``), since the stages meet at
     grid barriers, whose cost grows with the blocks that meet (a second
-    block per SM made the step slower on the H100).  Raises ``ValueError``
-    naming the shapes when the card holds none."""
+    block per SM made the step slower on the H100).  With ``device_name`` a
+    tuned grid (one of :func:`train_grid_candidates`) replaces the rule.
+    Raises ``ValueError`` naming the shapes when the card holds none, and
+    for a stale tuned entry."""
     if capacity < 1:
         raise ValueError(
             f"fused_mlp_train_step: the card cannot hold a cooperative grid "
             f"of the step kernel ({capacity} co-resident blocks of "
             f"{TRAIN_THREADS} threads) for widths "
             f"{'-'.join(map(str, widths))} at batch {batch}")
-    return min(capacity, sms)
+    tuned = _tuned("mlp_train", device_name,
+                   lambda: train_grid_candidates(capacity, sms, batch,
+                                                 widths), batch, widths)
+    return tuned if tuned is not None else min(capacity, sms)
+
+
+def train_grid_candidates(capacity: int, sms: int, batch: int,
+                          widths: Sequence[int]) -> List[int]:
+    """Grids of the step kernel for the tuner: a quarter, a half, three
+    quarters and all of the SMs, and every block the card holds at once
+    (at most ``capacity``), the rule's grid among them."""
+    rule = train_grid(capacity, sms, batch, widths)
+    cands = sorted({g for g in (sms // 4, sms // 2, 3 * sms // 4, sms,
+                                capacity) if 1 <= g <= capacity})
+    return _with_rule(cands, rule)
 
 
 def _train_step_widths(x, y, weights, biases) -> List[int]:
@@ -695,13 +991,27 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind):
+_train_grids: dict = {}  # (batch, dims, card, plan) -> grid
+
+
+def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
+                               plan=None):
     """The kernel: one cooperative launch with a grid barrier between each
-    two of :func:`train_stages`."""
+    two of :func:`train_stages`, on ``plan`` blocks (one of
+    :func:`train_grid_candidates`) or ``train_grid``'s, cached per call
+    shape."""
     dims = _train_step_widths(x, y, weights, biases)
     n, batch, dev = len(weights), x.shape[0], x.get_device()
-    grid = train_grid(_train_step_capacity(dev), _sm_count(dev), batch,
-                      dims)
+    key = (batch, tuple(dims), dev, plan)
+    grid = _train_grids.get(key)
+    if grid is None:
+        cap, sms = _train_step_capacity(dev), _sm_count(dev)
+        grid = (train_grid(cap, sms, batch, dims,
+                           device_name=_device_name(dev))
+                if plan is None else _check_plan(
+                    "fused_mlp_train_step", plan,
+                    train_grid_candidates(cap, sms, batch, dims)))
+        _train_grids[key] = grid
     xf, yf = _f32(x), _f32(y)
     ws = [_f32(w) for w in weights]
     bs = [_f32(b) for b in biases]
@@ -746,7 +1056,7 @@ def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind):
 
 def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
                          precision: str = "default",
-                         loss_kind: str = "softmax_xent"):
+                         loss_kind: str = "softmax_xent", plan: int = None):
     """One whole SGD step of an ffLayer chain: forward, loss, backward and
     ``w -= lr * g``, in one cooperative launch over the whole card.
 
@@ -756,7 +1066,9 @@ def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
     output and squared error summed over the outputs (pass ``y = x`` for an
     autoencoder).  Both are meaned over the batch.  Returns ``(loss,
     new_weights, new_biases)``; the loss is a 0-d f32 tensor on x's
-    device.  On the card the stages are :func:`train_stages`."""
+    device.  On the card the stages are :func:`train_stages`, over ``plan``
+    blocks (one of :func:`train_grid_candidates`) or :func:`train_grid`'s;
+    the plain version ignores ``plan``."""
     if not (len(weights) == len(biases) == len(acts)) or not weights:
         raise ValueError("fused_mlp_train_step: need one weight, bias and "
                          "activation per layer")
@@ -765,8 +1077,14 @@ def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
         raise ValueError(f"unknown loss_kind {loss_kind!r} "
                          f"(known: {sorted(LOSS_KINDS)})")
     if x.is_cuda:
-        return _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts,
-                                          loss_kind)
+        run = lambda: _fused_mlp_train_step_cuda(  # noqa: E731
+            x, y, weights, biases, lr, acts, loss_kind, plan)
+        if _nan_checks or _cost_mode is not None:
+            return _watched("fused_mlp_train_step", run,
+                            fused_mlp_train_step_ref,
+                            (x, y, weights, biases, lr, acts, precision,
+                             loss_kind))
+        return run()
     return fused_mlp_train_step_ref(x, y, weights, biases, lr, acts,
                                     precision, loss_kind)
 
@@ -936,8 +1254,53 @@ class W8Plan(NamedTuple):
     scratch_floats: int
 
 
+def _w8_make(B: int, K: int, O: int, instance: str, split: int) -> W8Plan:
+    """The plan of ``instance`` with K split over about ``split`` blocks
+    (each a multiple of the instance's k step), or None where the grid is
+    more than the card can launch."""
+    if instance == "gemv":
+        bk = W8_GEMV_K
+        rows = next(r for r in W8_GEMV_ROWS if r >= B)
+        gx, gy = _cdiv(O, W8_GEMV_WARPS), 1
+    else:
+        rows, bn, bk = W8_INSTANCES[instance][1]
+        gx, gy = _cdiv(O, bn), _cdiv(B, rows)
+    if gy > GRID_YZ_MAX:
+        return None
+    kchunk = max(K, 1)
+    if split > 1:
+        kchunk = _cdiv(_cdiv(K, split), bk) * bk
+        split = _cdiv(K, kchunk)
+    return W8Plan(instance, K % 4 == 0, rows, (gx, gy, split),
+                  W8_INSTANCES[instance][2], split, kchunk,
+                  split * B * O if split > 1 else 0)
+
+
+def _w8_rule(B: int, K: int, O: int, precision: str, sms: int) -> W8Plan:
+    if B <= W8_GEMV_ROWS[-1]:
+        instance, min_k = "gemv", W8_GEMV_SPLIT_MIN_K
+        gx, gy = _cdiv(O, W8_GEMV_WARPS), 1
+    else:
+        instance = "mma" if precision == "default" else "simt"
+        rows, bn, _ = W8_INSTANCES[instance][1]
+        gx, gy, min_k = _cdiv(O, bn), _cdiv(B, rows), W8_SPLIT_MIN_K
+    if gy > GRID_YZ_MAX:
+        raise ValueError(f"fused_linear_w8: {B} rows need {gy} row tiles, "
+                         f"more than the grid's {GRID_YZ_MAX}")
+    split = 1
+    if gx * gy < sms and K >= 2 * min_k:
+        split = min(_cdiv(sms, gx * gy), K // min_k)
+    return _w8_make(B, K, O, instance, split)
+
+
+def _w8_checks(B: int, K: int, precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    int8_tile_rows(B, padded_width(K), 4)
+
+
 def w8_plan(B: int, K: int, O: int, precision: str = "default",
-            sms: int = H100_SMS) -> W8Plan:
+            sms: int = H100_SMS, *, device_name: str = None) -> W8Plan:
     """The instance of ``fused_linear_w8`` for x (B, K) and codes (O,
     padded_width(K)), a fixed rule:
 
@@ -950,31 +1313,37 @@ def w8_plan(B: int, K: int, O: int, precision: str = "default",
     :data:`W8_SPLIT_MIN_K` k (:data:`W8_GEMV_SPLIT_MIN_K` for the gemv), a
     multiple of the instance's k step; the partials are added in split
     order by the last block of each tile.  ``vec`` (16-byte loads of x) needs
-    K % 4 == 0.  Raises ``ValueError`` for a K whose padded rows do not fit
-    one block's shared memory as f32 (the refusal of :func:`int8_tile_rows`)
-    and for a grid the card cannot launch."""
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
-    int8_tile_rows(B, padded_width(K), 4)
-    if B <= W8_GEMV_ROWS[-1]:
-        instance, bk, min_k = "gemv", W8_GEMV_K, W8_GEMV_SPLIT_MIN_K
-        rows = next(r for r in W8_GEMV_ROWS if r >= B)
-        gx, gy = _cdiv(O, W8_GEMV_WARPS), 1
-    else:
-        instance = "mma" if precision == "default" else "simt"
-        rows, bn, bk = W8_INSTANCES[instance][1]
-        gx, gy, min_k = _cdiv(O, bn), _cdiv(B, rows), W8_SPLIT_MIN_K
-    if gy > GRID_YZ_MAX:
-        raise ValueError(f"fused_linear_w8: {B} rows need {gy} row tiles, "
-                         f"more than the grid's {GRID_YZ_MAX}")
-    split, kchunk = 1, max(K, 1)
-    if gx * gy < sms and K >= 2 * min_k:
-        split = min(_cdiv(sms, gx * gy), K // min_k)
-        kchunk = _cdiv(_cdiv(K, split), bk) * bk
-        split = _cdiv(K, kchunk)
-    return W8Plan(instance, K % 4 == 0, rows, (gx, gy, split),
-                  W8_INSTANCES[instance][2], split, kchunk,
-                  split * B * O if split > 1 else 0)
+    K % 4 == 0.  With ``device_name`` a tuned entry (one of
+    :func:`w8_candidates`) replaces the rule.  Raises ``ValueError`` for a K
+    whose padded rows do not fit one block's shared memory as f32 (the
+    refusal of :func:`int8_tile_rows`), for a grid the card cannot launch
+    and for a stale tuned entry."""
+    _w8_checks(B, K, precision)
+    tuned = _tuned("linear_w8", device_name,
+                   lambda: w8_candidates(B, K, O, precision, sms),
+                   B, K, O, precision)
+    return tuned if tuned is not None else _w8_rule(B, K, O, precision, sms)
+
+
+def w8_candidates(B: int, K: int, O: int, precision: str = "default",
+                  sms: int = H100_SMS) -> List[W8Plan]:
+    """Every plan ``fused_linear_w8`` can run at this shape and precision,
+    for the tuner: the gemv (B <= 16) and the precision's tile (``mma`` at
+    ``"default"``, ``simt`` at ``"highest"``), each with K split over 1, 2,
+    4, .. blocks (a multiple of the instance's k step, at most 64 splits),
+    the fixed rule's plan among them."""
+    _w8_checks(B, K, precision)
+    tile = "mma" if precision == "default" else "simt"
+    instances = (["gemv"] if B <= W8_GEMV_ROWS[-1] else []) + [tile]
+    cands, seen = [], set()
+    for instance in instances:
+        bk = W8_GEMV_K if instance == "gemv" else W8_INSTANCES[instance][1][2]
+        for split in _pow2_upto(min(64, _cdiv(K, bk))):
+            plan = _w8_make(B, K, O, instance, split)
+            if plan is not None and (instance, plan.split) not in seen:
+                seen.add((instance, plan.split))
+                cands.append(plan)
+    return _with_rule(cands, _w8_rule(B, K, O, precision, sms))
 
 
 _w8_calls: dict = {}  # (B, K, Kp, O, precision, card) -> (plan, entry)
@@ -982,19 +1351,26 @@ _W8_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
 
 
-def _fused_linear_w8_cuda(x, wq, scale, b, act, precision):
-    """The kernel: ``w8_plan``'s instance, the plan and the C entry cached
-    per call shape, the split's scratch kept per card and stream."""
+def _fused_linear_w8_cuda(x, wq, scale, b, act, precision, plan=None):
+    """The kernel: ``plan``'s or ``w8_plan``'s instance, the plan and the C
+    entry cached per call shape, the split's scratch kept per card and
+    stream."""
     B, K, O = _int8_shapes("fused_linear_w8", x, wq, scale, b)
     xf, q, s, bf = _int8_operands(x, wq, scale, b)
     y = torch.empty((B, O), dtype=torch.float32, device=x.device)
     if B == 0 or O == 0:
         return y.to(x.dtype)
     dev, Kp = x.get_device(), q.shape[1]
-    key = (B, K, Kp, O, precision, dev)
+    key = (B, K, Kp, O, precision, dev, plan)
     call = _w8_calls.get(key)
     if call is None:
-        call = (w8_plan(B, K, O, precision, _sm_count(dev)),
+        sms = _sm_count(dev)
+        chosen = (w8_plan(B, K, O, precision, sms,
+                          device_name=_device_name(dev))
+                  if plan is None else _check_plan(
+                      "fused_linear_w8", plan,
+                      w8_candidates(B, K, O, precision, sms)))
+        call = (chosen,
                 _kernel("fused_linear_w8", "fused_linear_w8_f32",
                         _W8_ARGTYPES, keep_gil=True))
         _w8_calls[key] = call
@@ -1019,15 +1395,21 @@ def _fused_linear_w8_cuda(x, wq, scale, b, act, precision):
 
 
 def fused_linear_w8(x, wq, scale, b, act: str = "identity",
-                    precision: str = "default"):
+                    precision: str = "default", plan: W8Plan = None):
     """``act(x @ (wq * scale).T + b)`` with int8 weights dequantized in the
     kernel.  x (B, i); wq (o, i) int8 codes, or (o, padded_width(i)) with
     zero codes past i (:func:`pad_codes`); scale (o, 1) or (o,) f32; b
     (o,).  Not differentiable (a serving kernel).  On the card the instance
-    is :func:`w8_plan`'s."""
+    is ``plan``'s (one of :func:`w8_candidates`) or :func:`w8_plan`'s; the
+    plain version ignores ``plan``."""
     _check_names([act], precision)
     if x.is_cuda:
-        return _fused_linear_w8_cuda(x, wq, scale, b, act, precision)
+        run = lambda: _fused_linear_w8_cuda(  # noqa: E731
+            x, wq, scale, b, act, precision, plan)
+        if _nan_checks or _cost_mode is not None:
+            return _watched("fused_linear_w8", run, fused_linear_w8_ref,
+                            (x, wq, scale, b, act, precision))
+        return run()
     return fused_linear_w8_ref(x, wq, scale, b, act, precision)
 
 
@@ -1099,7 +1481,7 @@ def w8a8_smem_bytes(instance: str, rows: int, tiles: int, kchunk: int) -> int:
 
 
 def w8a8_plan(B: int, K: int, O: int, sms: int = H100_SMS,
-              instance: str = None) -> W8a8Plan:
+              instance: str = None, *, device_name: str = None) -> W8a8Plan:
     """The plan of ``fused_linear_w8a8`` for x (B, K) and codes (O,
     padded_width(K)), a fixed rule:
 
@@ -1115,14 +1497,21 @@ def w8a8_plan(B: int, K: int, O: int, sms: int = H100_SMS,
       fit its shared memory, and then fewer rows a block.
 
     ``instance`` forces the instance (to time the two designs against each
-    other).  Raises ``ValueError`` for an unknown instance, the one launch
-    at more than 8 rows, a grid the card cannot launch, and a K whose slice
-    does not fit a block's shared memory even at 8 rows and the largest
-    split (naming the width: K > 230,912 at any B)."""
+    other).  Without ``instance``, ``device_name`` takes a tuned entry
+    (one of :func:`w8a8_candidates`) in place of the rule.  Raises
+    ``ValueError`` for an unknown instance, the one launch at more than 8
+    rows, a grid the card cannot launch, a K whose slice does not fit a
+    block's shared memory even at 8 rows and the largest split (naming the
+    width: K > 230,912 at any B), and a stale tuned entry."""
     if instance is not None and instance not in W8A8_INSTANCES:
         raise ValueError(f"fused_linear_w8a8: unknown instance {instance!r}")
     if B < 1 or K < 1 or O < 1:
         raise ValueError(f"fused_linear_w8a8: empty shape {(B, K, O)}")
+    if instance is None:
+        tuned = _tuned("linear_w8a8", device_name,
+                       lambda: w8a8_candidates(B, K, O, sms), B, K, O)
+        if tuned is not None:
+            return tuned
     rows = next((r for r in W8A8_ROWS if r >= B), W8A8_ROWS[-1])
     if instance is None:
         instance = ("fused" if rows == W8A8_ROWS[0] and K <= W8A8_FUSED_MAX_K
@@ -1173,24 +1562,95 @@ def w8a8_plan(B: int, K: int, O: int, sms: int = H100_SMS,
                     B * padded_width(K) + 4 * B if instance == "pdl" else 0)
 
 
-_w8a8_calls: dict = {}  # (B, K, Kp, O, card) -> (plan, entry)
+def _w8a8_free(plan: W8a8Plan) -> list:
+    return [plan.instance, plan.rows, plan.tiles, plan.split]
+
+
+def _dims(widths: Sequence[int]) -> str:
+    return "x".join(map(str, widths))
+
+
+# the JAX package's kernel names, each with its key and free parameters
+TUNING: Dict[str, Tuning] = {
+    "linear": Tuning(lambda B, K, O, dtype: dict(B=B, K=K, O=O,
+                                                 dtype=_dtype_name(dtype)),
+                     _linear_free),
+    "mlp_fwd": Tuning(lambda B, widths: dict(B=B, dims=_dims(widths)),
+                      lambda p: [p.rows]),
+    "mlp_train": Tuning(lambda B, widths: dict(B=B, dims=_dims(widths)),
+                        lambda g: [g]),
+    "linear_w8": Tuning(lambda B, K, O, precision: dict(
+        B=B, K=K, O=O, precision=precision), lambda p: [p.instance, p.split]),
+    "linear_w8a8": Tuning(lambda B, K, O: dict(B=B, K=K, O=O),
+                          _w8a8_free),
+    "mlp_w8a8": Tuning(lambda B, N, L: dict(B=B, N=N, L=L),
+                       lambda p: [p.rows, p.depth]),
+    "rnn_step": Tuning(lambda B, I, O: dict(B=B, I=I, O=O), lambda p: [p]),
+}
+
+
+def w8a8_candidates(B: int, K: int, O: int,
+                    sms: int = H100_SMS) -> List[W8a8Plan]:
+    """Every plan ``fused_linear_w8a8`` can run at this shape, for the
+    tuner: the one launch (B <= 8, no split) and the pair under
+    programmatic dependent launch, at each row tile of :data:`W8A8_ROWS`
+    from 8 up to the one that holds B, each count of m16 tiles a block, and
+    (the pair) K split over 1 to 8 blocks of a cluster; those whose shared
+    memory and grid fit, the fixed rule's plan among them."""
+    rule = w8a8_plan(B, K, O, sms)
+    chunks = _cdiv(K, W8A8_CHUNK)
+    n16 = _cdiv(O, W8A8_TILE_COLS)
+    top = next((r for r in W8A8_ROWS if r >= B), W8A8_ROWS[-1])
+    cands, seen = [], set()
+    for instance in ("fused", "pdl"):
+        rows_all = ([W8A8_ROWS[0]] if instance == "fused" else
+                    [r for r in W8A8_ROWS if r <= top])
+        if instance == "fused" and top > W8A8_ROWS[0]:
+            continue
+        for rows in rows_all:
+            for t in W8A8_TILES:
+                for want in range(1, (1 if instance == "fused" else
+                                      min(W8A8_MAX_SPLIT, chunks)) + 1):
+                    kchunk = W8A8_CHUNK * _cdiv(chunks, want)
+                    s = _cdiv(chunks, kchunk // W8A8_CHUNK)
+                    smem = w8a8_smem_bytes(instance, rows, t, kchunk)
+                    gx, gy = _cdiv(n16, t), _cdiv(B, rows)
+                    if (smem > MAX_SMEM_BYTES or gx > GRID_YZ_MAX
+                            or gy > GRID_YZ_MAX
+                            or (instance, rows, t, s) in seen):
+                        continue
+                    seen.add((instance, rows, t, s))
+                    cands.append(W8a8Plan(
+                        instance, rows, t, (s, gx, gy), s, kchunk, smem,
+                        B * padded_width(K) + 4 * B
+                        if instance == "pdl" else 0))
+    return _with_rule(cands, rule)
+
+
+_w8a8_calls: dict = {}  # (B, K, Kp, O, card, plan) -> (plan, entry)
 _W8A8_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                   + [ctypes.c_void_p])
 
 
-def _w8a8_call(B: int, K: int, Kp: int, O: int, dev: int):
-    """(plan, C entry) of one call shape, cached."""
-    key = (B, K, Kp, O, dev)
+def _w8a8_call(B: int, K: int, Kp: int, O: int, dev: int, plan=None):
+    """(plan, C entry) of one call shape, cached: ``plan`` (one of
+    :func:`w8a8_candidates`) or ``w8a8_plan``'s."""
+    key = (B, K, Kp, O, dev, plan)
     call = _w8a8_calls.get(key)
     if call is None:
-        call = (w8a8_plan(B, K, O, _sm_count(dev)),
+        sms = _sm_count(dev)
+        chosen = (w8a8_plan(B, K, O, sms, device_name=_device_name(dev))
+                  if plan is None else _check_plan(
+                      "fused_linear_w8a8", plan,
+                      w8a8_candidates(B, K, O, sms)))
+        call = (chosen,
                 _kernel("fused_linear_w8a8", "fused_linear_w8a8_f32",
                         _W8A8_ARGTYPES, keep_gil=True))
         _w8a8_calls[key] = call
     return call
 
 
-def _fused_linear_w8a8_cuda(x, wq, scale, b, act):
+def _fused_linear_w8a8_cuda(x, wq, scale, b, act, plan=None):
     """The kernel: ``w8a8_plan``'s instance, the plan and the C entry cached
     per call shape, the pair's codes and scales kept per card and stream;
     raises ``RuntimeError`` when the C entry refuses the plan or the launch
@@ -1202,7 +1662,7 @@ def _fused_linear_w8a8_cuda(x, wq, scale, b, act):
         return y.to(x.dtype)
     dev = x.get_device()
     Kp = q.shape[1]
-    plan, fn = _w8a8_call(B, K, Kp, O, dev)
+    plan, fn = _w8a8_call(B, K, Kp, O, dev, plan)
     stream = torch._C._cuda_getCurrentRawStream(dev)
     xq = sx = None
     if plan.instance == "pdl":
@@ -1220,7 +1680,8 @@ def _fused_linear_w8a8_cuda(x, wq, scale, b, act):
     return y.to(x.dtype)
 
 
-def fused_linear_w8a8(x, wq, scale, b, act: str = "identity"):
+def fused_linear_w8a8(x, wq, scale, b, act: str = "identity",
+                      plan: W8a8Plan = None):
     """``act((xq @ wq.T) * sx * sw.T + b)`` with both operands int8 and an
     int32 accumulator; x (B, i) float is quantized per row (``amax / 127``,
     round half to even).  wq (o, i) int8 codes, or (o, padded_width(i))
@@ -1231,11 +1692,17 @@ def fused_linear_w8a8(x, wq, scale, b, act: str = "identity"):
     ``"pdl"``, the row quantizer and then the product, launched under
     programmatic dependent launch so that the product issues its weight
     loads before it waits for the codes; K is split over a cluster of up to
-    8 blocks where it is long and the blocks few.  On the CPU x is
-    quantized by :func:`quantize_acts_int8`."""
+    8 blocks where it is long and the blocks few; ``plan`` (one of
+    :func:`w8a8_candidates`) replaces the rule's.  On the CPU x is
+    quantized by :func:`quantize_acts_int8`, and ``plan`` is ignored."""
     _check_names([act], "default")
     if x.is_cuda:
-        return _fused_linear_w8a8_cuda(x, wq, scale, b, act)
+        run = lambda: _fused_linear_w8a8_cuda(  # noqa: E731
+            x, wq, scale, b, act, plan)
+        if _nan_checks or _cost_mode is not None:
+            return _watched("fused_linear_w8a8", run, fused_linear_w8a8_ref,
+                            (x, wq, scale, b, act))
+        return run()
     return fused_linear_w8a8_ref(x, wq, scale, b, act)
 
 
@@ -1287,8 +1754,8 @@ def mlp_w8a8_smem_bytes(rows: int, kc: int, depth: int, tiles: int) -> int:
             + 4 * MLP8_MAX_ROWS + 12 * MLP8_MAX_STAGES)
 
 
-def mlp_w8a8_plan(B: int, N: int, L: int,
-                  sms: int = H100_SMS) -> MlpW8a8Plan:
+def mlp_w8a8_plan(B: int, N: int, L: int, sms: int = H100_SMS, *,
+                  device_name: str = None) -> MlpW8a8Plan:
     """The whole-MLP int8 kernel's plan for B rows through L layers of
     N x N (N a multiple of 128), a fixed rule: one block per SM, at most one
     per 32-column tile (``grid = min(N / 32, sms)``, each block the tiles
@@ -1298,11 +1765,17 @@ def mlp_w8a8_plan(B: int, N: int, L: int,
     stages) that fits.  Refuses, naming the width, only what
     :func:`int8_tile_rows` refuses (a row of N codes wider than a block's
     shared memory); every other (B, N) runs, a batch too large for one
-    group as several groups in the same launch."""
+    group as several groups in the same launch.  With ``device_name`` a
+    tuned entry (one of :func:`mlp_w8a8_candidates`) replaces the rule
+    (``ValueError`` for a stale one)."""
     int8_tile_rows(B, N, 1)
     if N % 128 or N < 128 or B < 1 or L < 1:
         raise ValueError(f"fused_mlp_w8a8_forward: B={B}, N={N}, L={L}; "
                          f"needs B, L >= 1 and N a multiple of 128")
+    tuned = _tuned("mlp_w8a8", device_name,
+                   lambda: mlp_w8a8_candidates(B, N, L, sms), B, N, L)
+    if tuned is not None:
+        return tuned
     n_tiles = N // MLP8_COLS
     grid = min(n_tiles, sms, MLP8_MAX_GRID)
     tiles = _cdiv(n_tiles, grid)
@@ -1320,17 +1793,44 @@ def mlp_w8a8_plan(B: int, N: int, L: int,
                        mlp_w8a8_smem_bytes(rows, kc, depth, tiles))
 
 
-_mlp8_calls: dict = {}  # (B, N, L, card) -> (plan, entry)
+def mlp_w8a8_candidates(B: int, N: int, L: int,
+                        sms: int = H100_SMS) -> List[MlpW8a8Plan]:
+    """Plans of the whole-MLP int8 kernel for the tuner: the rule's grid and
+    stages, the rows of 1, 2, 4, .. groups (at most 64 rows a group) and
+    rings of 2 to 8 stages, those whose shared memory fits, the fixed
+    rule's plan among them."""
+    rule = mlp_w8a8_plan(B, N, L, sms)
+    cands, seen = [], set()
+    for groups in _pow2_upto(B):
+        rows = _cdiv(B, groups)
+        if rows > MLP8_MAX_ROWS or rows in seen:
+            continue
+        seen.add(rows)
+        for depth in range(2, MLP8_MAX_STAGES + 1):
+            smem = mlp_w8a8_smem_bytes(rows, rule.kc, depth, rule.tiles)
+            if smem <= MAX_SMEM_BYTES:
+                cands.append(MlpW8a8Plan(rows, _cdiv(B, rows), rule.grid,
+                                         rule.tiles, rule.kc, depth, smem))
+    return _with_rule(cands, rule)
+
+
+_mlp8_calls: dict = {}  # (B, N, L, card, plan) -> (plan, entry)
 _MLP8_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p])
 
 
-def _mlp_w8a8_call(B: int, N: int, L: int, dev: int):
-    """(plan, C entry) of one call shape, cached."""
-    key = (B, N, L, dev)
+def _mlp_w8a8_call(B: int, N: int, L: int, dev: int, plan=None):
+    """(plan, C entry) of one call shape, cached: ``plan`` (one of
+    :func:`mlp_w8a8_candidates`) or ``mlp_w8a8_plan``'s."""
+    key = (B, N, L, dev, plan)
     call = _mlp8_calls.get(key)
     if call is None:
-        call = (mlp_w8a8_plan(B, N, L, _sm_count(dev)),
+        sms = _sm_count(dev)
+        chosen = (mlp_w8a8_plan(B, N, L, sms, device_name=_device_name(dev))
+                  if plan is None else _check_plan(
+                      "fused_mlp_w8a8_forward", plan,
+                      mlp_w8a8_candidates(B, N, L, sms)))
+        call = (chosen,
                 _kernel("fused_mlp_w8a8_forward",
                         "fused_mlp_w8a8_forward_f32", _MLP8_ARGTYPES,
                         keep_gil=True))
@@ -1357,7 +1857,7 @@ def _mlp_w8a8_launch(plan: MlpW8a8Plan, fn, xf, q, s, bf, y,
         _check_launch("fused_mlp_w8a8_forward", err)
 
 
-def _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act):
+def _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act, plan=None):
     """The kernel: ``mlp_w8a8_plan``'s one cooperative launch, the plan and
     the C entry cached per call shape, the scratch kept per card and
     stream."""
@@ -1376,13 +1876,14 @@ def _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act):
     if B == 0:
         return y
     dev = x.get_device()
-    plan, fn = _mlp_w8a8_call(B, N, L, dev)
+    plan, fn = _mlp_w8a8_call(B, N, L, dev, plan)
     _mlp_w8a8_launch(plan, fn, xf, q, s, bf, y, hidden_act, dev)
     _count("fused_mlp_w8a8_forward")
     return y
 
 
-def fused_mlp_w8a8_forward(x, wqs, sws, bs, hidden_act: str = "relu"):
+def fused_mlp_w8a8_forward(x, wqs, sws, bs, hidden_act: str = "relu",
+                           plan: MlpW8a8Plan = None):
     """Whole uniform-width int8 MLP: x (B, N) float; wqs (L, N, N) int8
     codes (layer-stacked); sws (L, N) f32 scales; bs (L, N) f32 biases.
     Hidden layers apply ``hidden_act`` and are requantized per row for the
@@ -1391,7 +1892,9 @@ def fused_mlp_w8a8_forward(x, wqs, sws, bs, hidden_act: str = "relu"):
     :func:`mlp_w8a8_plan`, bit-equal to the chain of
     :func:`fused_linear_w8a8`.  Needs
     N % 128 == 0 (the JAX kernel's rule, on which ``Predictor`` routes);
-    other stacks use the per-layer :func:`fused_linear_w8a8`."""
+    other stacks use the per-layer :func:`fused_linear_w8a8`.  ``plan``
+    (one of :func:`mlp_w8a8_candidates`) replaces the rule's on the card;
+    the plain version ignores it."""
     _check_names([hidden_act], "default")
     if x.ndim != 2:
         raise ValueError(f"fused_mlp_w8a8_forward wants x (B, N), got "
@@ -1404,7 +1907,13 @@ def fused_mlp_w8a8_forward(x, wqs, sws, bs, hidden_act: str = "relu"):
             f"int8 codes, got x {tuple(x.shape)}, wqs {tuple(wqs.shape)} "
             f"{wqs.dtype}")
     if x.is_cuda:
-        return _fused_mlp_w8a8_forward_cuda(x, wqs, sws, bs, hidden_act)
+        run = lambda: _fused_mlp_w8a8_forward_cuda(  # noqa: E731
+            x, wqs, sws, bs, hidden_act, plan)
+        if _nan_checks or _cost_mode is not None:
+            return _watched("fused_mlp_w8a8_forward", run,
+                            fused_mlp_w8a8_forward_ref,
+                            (x, wqs, sws, bs, hidden_act))
+        return run()
     return fused_mlp_w8a8_forward_ref(x, wqs, sws, bs, hidden_act)
 
 
@@ -1481,7 +1990,12 @@ class _FusedRNNStep(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, s, wx, ws, b, act):
         if x.is_cuda:
-            y, snew = _fused_rnn_step_cuda(x, s, wx, ws, b, act)
+            run = lambda: _fused_rnn_step_cuda(x, s, wx, ws, b, act)  # noqa: E731
+            if _nan_checks or _cost_mode is not None:
+                y, snew = _watched("fused_rnn_step", run, fused_rnn_step_ref,
+                                   (x, s, wx, ws, b, act))
+            else:
+                y, snew = run()
         else:
             y, snew = fused_rnn_step_ref(x, s, wx, ws, b, act)
         ctx.save_for_backward(x, s, wx, ws, b, y)
@@ -1525,21 +2039,36 @@ def rnn_seq_smem_bytes(B: int, I: int, O: int) -> int:
     return 4 * (4 + cpb * (I + O) + 2 * B * O + cpb + B * cpb)
 
 
-def rnn_seq_plan(B: int, I: int, O: int) -> str:
+def _rnn_resident_fits(B: int, I: int, O: int) -> bool:
+    if B < 1 or I < 0 or O < 1:
+        raise ValueError(f"rnn_seq_plan: no sequence kernel for B={B}, "
+                         f"I={I}, O={O}")
+    return (B <= RNN_SEQ_ROWS and O <= RNN_SEQ_MAX_O
+            and rnn_seq_smem_bytes(B, I, O) <= MAX_SMEM_BYTES)
+
+
+def rnn_seq_plan(B: int, I: int, O: int, *, device_name: str = None) -> str:
     """How ``fused_rnn_seq`` runs B sequences through an Elman cell I -> O
     on the card, a fixed rule: ``"resident"`` (one launch of the sequence
     kernel, the weights spread over a 16-block cluster's shared memory) when
     B <= 4, O <= 512 (a warp per column) and :func:`rnn_seq_smem_bytes`
     fits one block;
     otherwise ``"steps"`` (one ``fused_rnn_step`` launch per timestep).
-    Raises ``ValueError`` for an empty shape."""
-    if B < 1 or I < 0 or O < 1:
-        raise ValueError(f"rnn_seq_plan: no sequence kernel for B={B}, "
-                         f"I={I}, O={O}")
-    if (B <= RNN_SEQ_ROWS and O <= RNN_SEQ_MAX_O
-            and rnn_seq_smem_bytes(B, I, O) <= MAX_SMEM_BYTES):
-        return "resident"
-    return "steps"
+    With ``device_name`` a tuned entry (one of :func:`rnn_seq_candidates`)
+    replaces the rule.  Raises ``ValueError`` for an empty shape and a
+    stale tuned entry."""
+    resident = _rnn_resident_fits(B, I, O)
+    tuned = _tuned("rnn_step", device_name,
+                   lambda: rnn_seq_candidates(B, I, O), B, I, O)
+    if tuned is not None:
+        return tuned
+    return "resident" if resident else "steps"
+
+
+def rnn_seq_candidates(B: int, I: int, O: int) -> List[str]:
+    """The routes a sequence can take at this shape, for the tuner:
+    ``"resident"`` where it fits and ``"steps"``."""
+    return (["resident"] if _rnn_resident_fits(B, I, O) else []) + ["steps"]
 
 
 def fused_rnn_seq_ref(xs, s0, wx, ws, b, act: str = "logistic"):
@@ -1556,6 +2085,7 @@ def fused_rnn_seq_ref(xs, s0, wx, ws, b, act: str = "logistic"):
 
 
 _seq_clusters: Dict[tuple, int] = {}
+_seq_routes: Dict[tuple, str] = {}  # (B, I, O, card, plan) -> route
 _SEQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -1574,11 +2104,12 @@ def _seq_cluster_capacity(dev: int, B: int, I: int, O: int) -> int:
     return n
 
 
-def _fused_rnn_seq_cuda(xs, s0, wx, ws, b, act: str):
-    """The card's route: ``rnn_seq_plan``'s, one launch of the sequence
-    kernel or one step launch per timestep.  Raises where the plan's launch
-    cannot run (no cluster of 16 blocks fits the card, or the launch is
-    refused); it never falls back to the plain version."""
+def _fused_rnn_seq_cuda(xs, s0, wx, ws, b, act: str, plan: str = None):
+    """The card's route: ``plan`` (one of :func:`rnn_seq_candidates`) or
+    ``rnn_seq_plan``'s, one launch of the sequence kernel or one step
+    launch per timestep.  Raises where the plan's launch cannot run (no
+    cluster of 16 blocks fits the card, or the launch is refused); it never
+    falls back to the plain version."""
     if xs.ndim != 3 or s0.ndim != 2:
         raise ValueError(f"fused_rnn_seq wants xs (n, B, i) and s0 (B, o); "
                          f"got {tuple(xs.shape)}, {tuple(s0.shape)}")
@@ -1586,16 +2117,24 @@ def _fused_rnn_seq_cuda(xs, s0, wx, ws, b, act: str):
     if n == 0 or B == 0:
         _step_shapes_checked(xs.new_empty((B, I)), s0, wx, ws, b)
         return xs.new_empty((n, B, wx.shape[0])), s0.clone()
-    plan = rnn_seq_plan(B, I, wx.shape[0])
-    if plan == "steps":
+    # one step's checks cover the shapes, dtypes and devices
+    _step_shapes_checked(xs[0], s0, wx, ws, b)
+    O, dev = wx.shape[0], xs.get_device()
+    key = (B, I, O, dev, plan)
+    route = _seq_routes.get(key)
+    if route is None:
+        if plan is None:
+            route = rnn_seq_plan(B, I, O, device_name=_device_name(dev))
+        else:
+            route = _check_plan("fused_rnn_seq", plan,
+                                rnn_seq_candidates(B, I, O))
+        _seq_routes[key] = route
+    if route == "steps":
         s, ys = s0, []
         for t in range(n):
             y, s = _fused_rnn_step_cuda(xs[t], s, wx, ws, b, act)
             ys.append(y)
         return torch.stack(ys), s
-    # one step's checks cover the shapes, dtypes and devices
-    _step_shapes_checked(xs[0], s0, wx, ws, b)
-    O, dev = wx.shape[0], xs.get_device()
     if _seq_cluster_capacity(dev, B, I, O) < 1:
         raise RuntimeError(
             f"fused_rnn_seq: the card cannot hold one cluster of "
@@ -1623,9 +2162,15 @@ class _FusedRNNSeq(torch.autograd.Function):
     dz_t wx``) with the weight gradients summed over time."""
 
     @staticmethod
-    def forward(ctx, xs, s0, wx, ws, b, act):
+    def forward(ctx, xs, s0, wx, ws, b, act, plan):
         if xs.is_cuda:
-            ys, sfin = _fused_rnn_seq_cuda(xs, s0, wx, ws, b, act)
+            run = lambda: _fused_rnn_seq_cuda(  # noqa: E731
+                xs, s0, wx, ws, b, act, plan)
+            if _nan_checks or _cost_mode is not None:
+                ys, sfin = _watched("fused_rnn_seq", run, fused_rnn_seq_ref,
+                                    (xs, s0, wx, ws, b, act))
+            else:
+                ys, sfin = run()
         else:
             ys, sfin = fused_rnn_seq_ref(xs, s0, wx, ws, b, act)
         ctx.save_for_backward(xs, s0, wx, ws, b, ys)
@@ -1644,7 +2189,7 @@ class _FusedRNNSeq(torch.autograd.Function):
             ds = dz @ ws
         if n == 0:
             return (xs.new_zeros(xs.shape), ds, torch.zeros_like(wx),
-                    torch.zeros_like(ws), torch.zeros_like(b), None)
+                    torch.zeros_like(ws), torch.zeros_like(b), None, None)
         dz = torch.stack(dzs)                      # (n, B, o)
         # the states s_0 .. s_{n-1} the steps read
         states = torch.cat([s0[None].to(zs.dtype),
@@ -1652,17 +2197,18 @@ class _FusedRNNSeq(torch.autograd.Function):
         flat = dz.reshape(-1, dz.shape[-1])
         return (dz @ wx, ds, flat.T @ xs.reshape(-1, xs.shape[-1]),
                 flat.T @ states.reshape(-1, states.shape[-1]),
-                flat.sum(dim=0), None)
+                flat.sum(dim=0), None, None)
 
 
 def fused_rnn_seq(xs, s0, wx, ws, b, act: str = "logistic",
-                  precision: str = "default"):
+                  precision: str = "default", plan: str = None):
     """A whole Elman sequence: xs (n, B, i), s0 (B, o), wx (o, i), ws (o,
     o), b (o,) -> ``(ys, s_final)``, ys (n, B, o) the pre-activations
     ``z_t = x_t @ wx.T + s_t @ ws.T + b`` and ``s_{t+1} = act(z_t)``.  On
     the card, :func:`rnn_seq_plan` picks one launch for the sequence (counted
     as ``fused_rnn_step.seq``) or one ``fused_rnn_step`` launch per step;
-    on the CPU it is the plain loop.  Differentiable (BPTT in plain
-    PyTorch)."""
+    on the CPU it is the plain loop.  ``plan`` (``"resident"`` or
+    ``"steps"``, one of :func:`rnn_seq_candidates`) replaces the rule's on
+    the card.  Differentiable (BPTT in plain PyTorch)."""
     _check_names([act], precision)
-    return _FusedRNNSeq.apply(xs, s0, wx, ws, b, act)
+    return _FusedRNNSeq.apply(xs, s0, wx, ws, b, act, plan)

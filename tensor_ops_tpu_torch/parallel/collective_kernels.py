@@ -782,6 +782,21 @@ def _cards(xs) -> set:
 
 def _collective(xs, phase: str, one_way: bool, name: str,
                 scale: Optional[float] = None):
+    if (K._nan_checks or K._cost_mode is not None) and any(
+            type(x) is torch.Tensor and x.is_cuda for x in xs):
+        # the tooling (utils/profiling.py): the launches' outputs checked
+        # for NaN, each rank's input read once and output written once
+        out = K._watched(name, lambda: _collective_run(xs, phase, one_way,
+                                                       name, scale))
+        if K._cost_mode is not None:
+            K._cost_mode.add(0, 0, sum(t.nbytes
+                                       for t in K._tensors([xs, out])))
+        return out
+    return _collective_run(xs, phase, one_way, name, scale)
+
+
+def _collective_run(xs, phase: str, one_way: bool, name: str,
+                    scale: Optional[float] = None):
     if _MULTI and any(type(x) is Remote for x in xs):
         return _xproc(list(xs), phase, one_way, name, scale)
     # a call shape the one-shot has run before: one pass over the ranks (on

@@ -13,9 +13,11 @@ sharding ``fit`` applies), so the operator's comparison is one call:
 
 Scores are analytic, not measured: they rank configurations by arithmetic
 intensity and schedule overhead, and ignore the collectives' latency, which
-depends on the interconnect.  Measure the top candidates on the cards before
-committing hardware; the planner's job is to shrink the search space,
-stating what it ignores.
+depends on the interconnect.  Measure the top candidates on the cards with
+``utils.profiling.profile_step`` / ``utils.profiling.memory_analysis``
+before committing hardware (``examples/plan_and_budget.py`` walks the
+three); the planner's job is to shrink the search space, stating what it
+ignores.
 """
 
 from __future__ import annotations

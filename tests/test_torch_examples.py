@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -67,3 +68,26 @@ def test_examples_refuse_a_missing_card(module):
         [sys.executable, "-m", f"tensor_ops_tpu_torch.examples.{module}"],
         env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
+
+
+def test_plan_and_budget_runs():
+    """The operator's pre-flight on CPU ranks at a small batch: the ranked
+    meshes, the budget rows per optimizer and ZeRO, the forward's measured
+    bytes (its arguments X and the parameters, its output B x 10 f32) and
+    one fit step on the winner."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-m", "tensor_ops_tpu_torch.examples.plan_and_budget",
+         "--cpu", "--batch", "64"],
+        env=env, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    out = r.stdout
+    assert "analytic winner: (dp=" in out
+    assert out.count("zero1=") == 4
+    params = (784 * 300 + 300 + 300 * 100 + 100 + 100 * 10 + 10) * 4
+    line = next(x for x in out.splitlines() if x.startswith("  arguments"))
+    assert line.split()[1] == f"{(64 * 784 * 4 + params) / 1e6:.2f}"
+    assert line.split()[4] == f"{64 * 10 * 4 / 1e6:.2f}"
+    loss = float(out.split("step loss: ")[1].split()[0])
+    assert np.isfinite(loss)

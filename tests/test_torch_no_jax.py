@@ -9,8 +9,10 @@ on a ``(1, 2)`` mesh, ``shard_fused`` serving, the IR layer's
 introspection, tensor helpers and gradient checkers, a ``(2,)`` GPipe step,
 a ``PipelineMLP`` checkpoint, the staged-IR pipelines' gradients and
 ``fit`` on a ``(2,)`` stage mesh (GPipe and circular, ZeRO-1 on ``(2,
-2)``), a hetero-tp gradient and ``fit`` on a ``(2, 2, 2)`` mesh, and the
-mesh planner run end to end, in a fresh interpreter
+2)``), a hetero-tp gradient and ``fit`` on a ``(2, 2, 2)`` mesh, the
+mesh planner, and the tooling (cost and memory analysis, ``profile_step``,
+a ``fit(profile_dir=...)``, the NaN checks and a plan sweep's mechanics)
+run end to end, in a fresh interpreter
 where ``import jax`` fails; ``parallel/tp.py``, ``parallel/ir_pipeline.py``,
 ``parallel/pipeline.py``, ``ops/introspect.py``, ``tensor.py`` and
 ``testing.py`` import on their own there."""
@@ -304,6 +306,39 @@ r3 = fit(netp, cross_entropy(4), be, np.concatenate([Xm] * 4),
 assert r3.steps == 4 and len(r3.net.params) == len(netp.params)
 from tensor_ops_tpu_torch.parallel import describe_plans, plan_meshes
 assert "(2,2,2)" in describe_plans(plan_meshes(pyr, 8, 64), top=20)
+# the tooling: profiling, a traced fit, the NaN checks and the autotuner's
+# mechanics on the CPU (an injected timer; a cache in a temporary file)
+from tensor_ops_tpu_torch.utils import profiling as prof
+from tensor_ops_tpu_torch.ops import autotune as tune
+from tensor_ops_tpu_torch.ops import kernels as K
+wc = torch.ones(16, 16)
+assert prof.cost_analysis(lambda c: torch.tanh(c @ wc), wc)["flops"] == 8192
+assert prof.memory_analysis(lambda c: c @ wc, wc)["output_size_in_bytes"] \
+    == 1024
+assert prof.profile_step(lambda c: c @ wc * 0.5, wc, steps=(2, 4),
+                         reps=1)["flops"] == 8192
+with tempfile.TemporaryDirectory() as d:
+    rp = fit(net, cross_entropy(4), be, X, Y, epochs=2, batch_size=8,
+             profile_dir=os.path.join(d, "t"), verbose=False)
+    assert rp.steps == 10 and os.listdir(os.path.join(d, "t"))
+    with prof.device_trace(os.path.join(d, "u")):
+        pass
+    prof.enable_nan_checks(True)
+    try:
+        torch.log(-torch.ones(1))
+        raise AssertionError("the NaN checks let a NaN through")
+    except FloatingPointError:
+        pass
+    finally:
+        prof.enable_nan_checks(False)
+    cache = tune.TileCache(os.path.join(d, "plans.json"))
+    cands = K.linear_candidates(8, 784, 300)
+    best = tune.sweep("linear", (8, 784, 300, torch.float32), cands,
+                      lambda p: p, timer=lambda call: [float(call().split)],
+                      cache=cache, dev="NVIDIA H100 80GB HBM3")
+    assert best.split == 1 and tune.TileCache(cache.path).get(tune.make_key(
+        "linear", dev="NVIDIA H100 80GB HBM3", B=8, K=784, O=300,
+        dtype="float32"))["candidates"] == len(cands)
 assert sys.modules["jax"] is None
 print("NAMES", len(names))
 """
