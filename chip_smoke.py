@@ -101,7 +101,13 @@ without printing a result line:
    one-way ring: ranks bit-identical after every step, step 1 against one
    ``fused_mlp_train_step`` on the 400-row batch, 5 steps against the plain
    dp step in CPU float64, the loss falls, and 4 train-step and 6 one-shot
-   launches per step (the 1/n inside them; no ring-protocol launch).
+   launches per step (the 1/n inside them; no ring-protocol launch).  Then
+   the JAX call's form, a ``Mesh`` and ``axis="data"``, for 5 steps on
+   ``make_mesh(4, shape=(4, 1))`` and on ``(2, 2)`` of the card's ranks:
+   every step bit-equal to ``RankGroup(4)``'s and ``RankGroup(2)``'s run on
+   the same 400 rows, every rank's parameters bit-identical, and 4
+   train-step launches and 6 one-shot launches per data group a step (6 on
+   (4, 1), 12 on (2, 2)).
 12. Fit slice: the flagship (random weights, seed 0, as ``gen_net`` draws
    them on the card) through ``fit`` (adam, lr 0.02, B = 100, 2 epochs =
    120 steps of the synthetic set's 6,000 rows, its 1,000 test rows as
@@ -304,9 +310,14 @@ without printing a result line:
    shard, concatenated), within TOL_5_STEPS of CPU f64 (an adam run's
    parameters within TOL_MESH, as phase 23's), and kernel 9's calls across
    processes equal to ``proc_predicted``, every one a launch of the
-   one-shot over IPC (none through the host); a step's samples/s, wall,
-   kernels, busy time and idle share of the flagship and the (4,) chain,
-   beside the same step in one process.
+   one-shot over IPC (none through the host); and 3 steps of the
+   flagship's ``dp_megakernel_train_step`` on a ``(4,)`` data mesh of both
+   processes' ranks (B = 512), bit-equal to one process and within
+   TOL_5_STEPS of CPU f64, 2 train-step launches a process a step, 6
+   cross-process one-shots a step (``proc_predicted``) and the loss's
+   other ranks in one gather over gloo a step; a step's samples/s, wall,
+   kernels, busy time and idle share of the flagship, the (4,) chain and
+   the dp step, beside the same step in one process.
    ``chip_smoke.cards_main()`` runs only the phases that need several
    cards (the cross-card ring, these 4-card runs, the (2, 2) and (1, 4)
    fit runs with one rank a card, the (4,) GPipe run, the uniform chain's
@@ -343,6 +354,17 @@ without printing a result line:
    rule only where it is faster by more than the rounds' spread.
    Phases 1-28 run with ``TENSOR_OPS_TPU_TORCH_PLAN_CACHE`` on an empty
    temporary file, so every plan there is the fixed rule's.
+30. The dry run, in an interpreter of its own with a time limit
+   (``dryrun_main``): ``tensor_ops_tpu_torch.dryrun``'s runs of
+   ``dryrun_multichip(8, devices=["cuda:0"] * 8)``, each run's loss, wall
+   time and launches: every key of ``DRYRUN_KEYS`` (the JAX dry run's runs),
+   every loss finite, the dry run's own checks (the ZeRO rungs against the
+   replicated adam run at 1e-5, the flagship's hetero and hetero-tp cuts
+   against the sequential step at 1e-6, the cuts' types, the sharded
+   ``Predictor`` and its ``reload``), and its dp-megakernel step's 8
+   train-step and 4 one-shot launches; then ``entry()`` on the card:
+   (32, 10), rows summing to 1 within 1e-5, within 1e-5 of
+   ``entry(device="cpu")`` run in f64.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path, its largest difference from its plain version, its time
@@ -354,10 +376,13 @@ for the collectives' all-reduce; null where no one call does).  Kernels 8
 and 9 appear twice: under their names the one-shot, the one-card route the
 dp slice runs; as ``NAME.ring`` the ring protocol, the route of ranks on
 several cards, whose launches on the one-card path are 0 and whose times
-come from calling it directly; ``bidir_ring``'s launches add the mesh,
-model-axis and the three pipeline phases' and process 0's of phase 28.  Kernel 7 appears twice too: as
-``fused_rnn_step.seq`` the sequence entry that ``FusedRNN`` runs (8
-launches for the 8 served sequences, timed at n = 64, B = 1), and as
+come from calling it directly; ``bidir_ring``'s launches add the dp step's
+mesh form, the mesh, model-axis and the three pipeline phases', process
+0's of phase 28 and the dry run's.  ``fused_mlp_train_step``'s are the
+``--fused`` mnist run's and the dp step's of the mesh form (phase 11),
+process 0's in phase 28 and the dry run (phase 30).  Kernel 7 appears
+twice too: as ``fused_rnn_step.seq`` the sequence entry that ``FusedRNN``
+runs (8 launches for the 8 served sequences, timed at n = 64, B = 1), and as
 ``fused_rnn_step`` the per-step entry (the public per-step function and the
 "steps" plan of a cell too wide for the cluster: 0 launches on that path,
 timed at B = 1).  The last line is ``{"ok": true, "device": {...}}``.
@@ -538,6 +563,9 @@ RNN_TRAIN_N, RNN_TRAIN_RATE = 8, 1e-6
 # JAX tests' shapes (per rank; the leading axis a multiple of R, so that the
 # reduce-scatter splits it) and the flagship's six parameter shapes.
 DP_RANKS, DP_ROWS, DP_STEPS = 4, 100, 5
+# the dp step's mesh form on the card's DP_RANKS ranks, each held to the
+# rank group of its data axis's size
+DP_MESHES = ((4, 1), (2, 2))
 RING_RANKS = (2, 3, 4, 8)
 PROTOCOL_RANKS = (2, 4, 8)
 # kernels per dp step: 4 train-step launches, 6 collectives, and the
@@ -3634,14 +3662,17 @@ def phase_ring_cross_card() -> None:
 def phase_dp_slice(tmp: str) -> dict:
     """The flagship at full width (gen_net, seed 0) for DP_STEPS steps of
     dp_megakernel_train_step over DP_RANKS ranks of DP_ROWS rows of the
-    synthetic set, on each route (bidirectional ring, then one-way)."""
+    synthetic set, on each route (bidirectional ring, then one-way); then
+    the JAX call's form on each mesh of DP_MESHES, held bit for bit to the
+    rank group of its data axis's size."""
     from tensor_ops_tpu_torch import TorchBackend
     from tensor_ops_tpu_torch.backend.rng import Rng
     from tensor_ops_tpu_torch.models import (FusedMLP, act_logistic,
                                              act_softmax, gen_net)
     from tensor_ops_tpu_torch.ops import kernels as K
     from tensor_ops_tpu_torch.parallel import (RankGroup,
-                                               dp_megakernel_train_step)
+                                               dp_megakernel_train_step,
+                                               make_mesh)
     from tensor_ops_tpu_torch.utils.mnist_data import load_mnist
 
     with no_download(), contextlib.redirect_stdout(io.StringIO()):
@@ -3668,10 +3699,11 @@ def phase_dp_slice(tmp: str) -> dict:
         other = "ring_all_reduce" if bidirectional else "bidir_ring"
         step = dp_megakernel_train_step(group, acts, lr=TRAIN_RATE,
                                         bidirectional=bidirectional)
-        ws, bs, losses = ws0, bs0, []
+        ws, bs, losses, trail = ws0, bs0, [], []
         K.reset_launch_counts()
         for i in range(DP_STEPS):
             loss, ws, bs = step(x32, y32, ws, bs)
+            trail.append((loss, ws, bs))
             if i == 0:
                 first = (loss, ws, bs)
             r0 = step.replicas[0][0] + step.replicas[0][1]
@@ -3720,6 +3752,54 @@ def phase_dp_slice(tmp: str) -> dict:
             f"{e5:.2e} (tol {TOL_5_STEPS[0]:g}+{TOL_5_STEPS[1]:g}|ref|)")
         out[route] = {"launches": counts[route], "losses": losses,
                       "protocol launches": counts[f"{route}.ring"]}
+        if bidirectional:
+            trails = {DP_RANKS: trail}
+    # the JAX call's form, a mesh and its data axis: on (4, 1) the rank
+    # group of 4; on (2, 2) each model column repeats its data shard's
+    # step, so every rank equals the rank group of 2's rank of its data
+    # coordinate (rank 2 takes the rows of data shard 1)
+    out["mesh launches"] = {"fused_mlp_train_step": 0, "bidir_ring": 0}
+    for shape in DP_MESHES:
+        dp_n = shape[0]
+        if dp_n not in trails:
+            ref = dp_megakernel_train_step(RankGroup(dp_n), acts,
+                                           lr=TRAIN_RATE)
+            ws, bs, trails[dp_n] = ws0, bs0, []
+            for _ in range(DP_STEPS):
+                loss, ws, bs = ref(x32, y32, ws, bs)
+                trails[dp_n].append((loss, ws, bs))
+        mesh = make_mesh(DP_RANKS, shape=shape, devices=[DEVICE] * DP_RANKS)
+        step = dp_megakernel_train_step(mesh, acts, lr=TRAIN_RATE,
+                                        axis="data")
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        ws, bs = ws0, bs0
+        for i, (l_ref, ws_ref, bs_ref) in enumerate(trails[dp_n]):
+            loss, ws, bs = step(x32, y32, ws, bs)
+            check(torch.equal(loss, l_ref) and all(
+                torch.equal(a, c) for a, c in zip(ws + bs, ws_ref + bs_ref)),
+                f"dp on the {shape} mesh: step {i + 1} differs from "
+                f"RankGroup({dp_n})'s")
+            for r, (r_ws, r_bs) in enumerate(step.replicas):
+                check(all(torch.equal(a, c)
+                          for a, c in zip(r_ws + r_bs, ws + bs)),
+                      f"dp on the {shape} mesh: rank {r}'s parameters "
+                      f"differ from rank 0's after step {i + 1}")
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        want = {"fused_mlp_train_step": DP_RANKS * DP_STEPS,
+                "bidir_ring": 6 * (DP_RANKS // dp_n) * DP_STEPS,
+                "ring_all_reduce": 0, "bidir_ring.ring": 0,
+                "ring_all_reduce.ring": 0}
+        check(all(counts[k] == v for k, v in want.items()),
+              f"dp on the {shape} mesh: launches {counts}, want {want}")
+        for k in out["mesh launches"]:
+            out["mesh launches"][k] += counts[k]
+        log(f"[dp] mesh {shape}, axis 'data': {DP_STEPS} steps of "
+            f"dp_megakernel_train_step bit-equal to RankGroup({dp_n})'s on "
+            f"the same {B} rows (loss and parameters, every step), every "
+            f"rank's parameters bit-identical after every step; launches "
+            f"{ {k: counts[k] for k in want} } = {want}")
     return out
 
 
@@ -6069,10 +6149,13 @@ PROC_FLAG_B, PROC_FLAG_LR, PROC_FLAG_STEPS = 512, 0.002, 5
 PROC_SEQ_N, PROC_SEQ_LEN, PROC_SEQ_B = 128, 16, 64
 PROC_IRP_B, PROC_IRP_M, PROC_IRP_STEPS = 512, 4, 3
 PROC_TIMED_STEPS = 5
+# the flagship's dp step on a (4,) data mesh of both processes' ranks:
+# PROC_DP_STEPS steps on phase 28's B = 512 rows, 128 a rank
+PROC_DP_STEPS = 3
 PROC_DEVICE = "cuda:0"  # phase 28's card (every process's ranks on it)
 PROC_CARD = "cuda:{}"   # cards_main's card of process p (one card each)
 PROC_RUNS = ("flagship (2, 2)", "fit_sequences (2, 2)", "staged IR (2, 2)",
-             "staged IR (4,)")
+             "staged IR (4,)", "dp step (4,)")
 CARDS_PROC_RUNS = ("flagship (4, 1)", "staged IR (4,)")
 
 
@@ -6096,7 +6179,10 @@ def proc_predicted(name: str, M: int = PROC_IRP_M) -> dict:
       reverse (an all-gather over the pair, M each way), the stage psum
       and its transpose, the loss copied to every process (an all-reduce of
       the home's value and zeros), and the 4 replicated leaves' gradients
-      (the chain's first and last layers) summed over the stage ranks.
+      (the chain's first and last layers) summed over the stage ranks;
+    * the dp step on (4,) (one data group over both processes): each of
+      the flagship's 6 updated leaves all-reduced once; the loss's other
+      ranks come over gloo (no kernel-9 call).
 
     Returns the counts for the whole run."""
     groups = 1 if name.endswith("(4, 1)") else 2  # data groups
@@ -6106,6 +6192,7 @@ def proc_predicted(name: str, M: int = PROC_IRP_M) -> dict:
         "fit_sequences": ((6 * 2 + 1, 0, 0), 2),
         "staged IR (2, 2)": ((1 + 6 * 2, 0, 2), PROC_IRP_STEPS),
         "staged IR (4,)": ((2 + 1 + 4, 0, 2 * M), PROC_IRP_STEPS),
+        "dp": ((6, 0, 0), PROC_DP_STEPS),
     }[name if name.startswith("staged") else name.split()[0]]
     return {p: steps * n for p, n in zip(("ar", "rs", "ag"), per_step)}
 
@@ -6189,9 +6276,12 @@ def _proc_fit(name: str, d, be, mesh, ck: str):
 
 
 def _proc_mesh(name: str, devices=None):
-    from tensor_ops_tpu_torch.parallel import (make_dp_pipeline_mesh,
+    from tensor_ops_tpu_torch.parallel import (Mesh, make_dp_pipeline_mesh,
                                                make_mesh, make_pipeline_mesh)
+    from tensor_ops_tpu_torch.parallel.mesh import mesh_devices
 
+    if name.startswith("dp step"):
+        return Mesh(mesh_devices(devices, 4, name), ("data",))
     if name.endswith("(4,)"):
         return make_pipeline_mesh(4, devices=devices)
     if name.startswith("staged IR"):
@@ -6241,6 +6331,38 @@ def _proc_step_timing(step_fn, profile: bool) -> dict:
             "idle": 1 - busy / 1e3 / (wall * 1e3) if dev else float("nan")}
 
 
+def _proc_dp_step(d, be, mesh):
+    """The flagship's dp step on ``mesh`` (the data-parallel slice's
+    activations and rate) and its arguments: phase 28's B rows and initial
+    leaves on ``be``, which every process passes alike."""
+    from tensor_ops_tpu_torch.parallel import dp_megakernel_train_step
+
+    step = dp_megakernel_train_step(mesh, ("logistic", "logistic",
+                                           "identity"), lr=TRAIN_RATE)
+    # the flagship's leaves alternate (w, b) a layer
+    return step, (be.asarray(d["X"]), be.asarray(d["Y"]),
+                  [be.asarray(a) for a in d["flag"][0::2]],
+                  [be.asarray(a) for a in d["flag"][1::2]])
+
+
+def _proc_dp(d, be, mesh) -> tuple:
+    """PROC_DP_STEPS dp steps on ``mesh``: each step's loss, the last
+    step's leaves (host) and the loss's gathers over gloo; every local
+    rank's leaves bit-identical after every step."""
+    step, (x, y, ws, bs) = _proc_dp_step(d, be, mesh)
+    losses = []
+    for i in range(PROC_DP_STEPS):
+        loss, ws, bs = step(x, y, ws, bs)
+        losses.append(float(loss))
+        for r in mesh.local_ranks:
+            r_ws, r_bs = step.replicas[r]
+            check(all(torch.equal(a, c) for a, c in zip(r_ws + r_bs, ws + bs)),
+                  f"dp step: rank {r}'s leaves differ from the first local "
+                  f"rank's after step {i + 1}")
+    return (losses, [np.asarray(t.cpu()) for t in ws + bs],
+            step.loss_gathers)
+
+
 def _proc_step(name: str, d, be, mesh):
     """A mesh step of the run's configuration and its arguments (fixed
     inputs: the timing's step, the data's first batch)."""
@@ -6250,6 +6372,9 @@ def _proc_step(name: str, d, be, mesh):
     from tensor_ops_tpu_torch.parallel import ir_pipeline as IP
     from tensor_ops_tpu_torch.parallel.mesh import global_batch, param_specs
 
+    if name.startswith("dp step"):
+        step, (x, y, ws, bs) = _proc_dp_step(d, be, mesh)
+        return (lambda: step(x, y, ws, bs)), PROC_FLAG_B
     nets = _proc_nets(d, be)
     if name.startswith("flagship"):
         net, loss = nets["flag"]
@@ -6343,12 +6468,17 @@ def _proc_runs(names, d, be, mesh_of, shared: str, profile: bool) -> dict:
         K.reset_launch_counts()
         CK.reset_phase_counts()
         CK.reset_xproc_counts()
-        losses, res = _proc_fit(name, d, be, mesh,
-                                os.path.join(shared, f"p28_{len(out)}.npz"))
+        gathers = None
+        if name.startswith("dp step"):
+            losses, leaves, gathers = _proc_dp(d, be, mesh)
+        else:
+            losses, res = _proc_fit(name, d, be, mesh, os.path.join(
+                shared, f"p28_{len(out)}.npz"))
+            leaves = _host_leaves(res, mesh)
         _sync()
         out[name] = dict(losses=losses, counts=K.launch_counts(),
                          phases=CK.phase_counts(), xproc=CK.xproc_counts(),
-                         leaves=_host_leaves(res, mesh))
+                         leaves=leaves, gathers=gathers)
         if name.startswith("flagship") or name.endswith("(4,)"):
             run, B = _proc_step(name, d, be, mesh)
             t = _proc_step_timing(run, profile)
@@ -6388,6 +6518,8 @@ def _proc_one(name: str, d, be, mesh, n_proc: int, shared: str):
     from tensor_ops_tpu_torch.parallel import ir_pipeline as IP
     from tensor_ops_tpu_torch.parallel.mesh import param_specs
 
+    if name.startswith("dp step"):
+        return _proc_dp(d, be, mesh)[:2]
     if name.startswith("fit_sequences") or name.endswith("(4,)"):
         losses, res = _proc_fit(name, d, be, mesh,
                                 os.path.join(shared, "one.npz"))
@@ -6457,6 +6589,9 @@ def _proc_f64(name: str, d, n_proc: int) -> tuple:
     from tensor_ops_tpu_torch import TorchBackend
     from tensor_ops_tpu_torch.utils.native import NativeLoader
 
+    if name.startswith("dp step"):
+        return _proc_dp(d, TorchBackend(torch.float64, "cpu"),
+                        _proc_mesh(name, ["cpu"] * 4))[:2]
     if name.startswith("staged IR"):
         if name.endswith("(4,)"):
             ld = NativeLoader(d["cX"], d["cY"], batch=PROC_IRP_B, seed=0,
@@ -6557,7 +6692,7 @@ def procs_main(out: str, cards: bool = False) -> None:
                     w.wait()
         check(rcs == [0] * (n - 1), f"processes 1-{n - 1} exited {rcs}")
         devices = [x for row in local for x in row]
-        launches = {k: 0 for k in RING_NAMES}
+        launches = {k: 0 for k in RING_NAMES + ("fused_mlp_train_step",)}
         for name in names:
             m = multi[name]
             one = _proc_one(name, d, be, _proc_mesh(name, devices), n, shared)
@@ -6585,8 +6720,19 @@ def procs_main(out: str, cards: bool = False) -> None:
                   and sum(routes.values()) == routes[route],
                   f"{name}: kernel 9 across processes {got} (routes "
                   f"{routes}), predicted {want} on the {route} route")
-            for k in RING_NAMES:
+            for k in launches:
                 launches[k] += m["counts"][k]
+            if name.startswith("dp step"):
+                k3 = m["counts"]["fused_mlp_train_step"]
+                check(k3 == len(local[0]) * PROC_DP_STEPS
+                      and m["gathers"] == PROC_DP_STEPS,
+                      f"{name}: {k3} train-step launches and "
+                      f"{m['gathers']} loss gathers in process 0, want "
+                      f"{len(local[0])} and 1 a step")
+                log(f"[procs] {name}: process 0 launched kernel 3 {k3} "
+                    f"times ({len(local[0])} a step); the loss's other "
+                    f"ranks came over gloo, {m['gathers']} gathers (one a "
+                    f"step, apart from kernel 9's calls)")
             where = "1 rank(s) each, one card a process" if cards else (
                 f"{PROC_RANKS} rank(s) each, one card")
             log(f"[procs] {name} in {n} processes ({where}): losses "
@@ -7187,6 +7333,100 @@ def phase_tooling(tmp: str) -> None:
         f"files before and after)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 30: the dry run (tensor_ops_tpu_torch.dryrun) and entry()
+# ---------------------------------------------------------------------------
+
+DRYRUN_N, DRYRUN_TIMEOUT_S = 8, 300
+DRYRUN_DEVICE = "cuda:0"  # the card every rank of the dry run shares
+# every run of the JAX package's dry run at 8 ranks, in its order
+DRYRUN_KEYS = (
+    "dp_tp", "fit", "fit_adam", "fit_zero2", "fit_zero3", "fit_zero3_offload",
+    "gpipe", "staged_ir", "staged_ir_circular", "staged_ir_circular_hetero",
+    "staged_ir_flagship", "fit_dp_pipeline", "dp_megakernel", "pipeline_3d",
+    "mesh_3d", "hetero_tp_pyramid", "hetero_tp_flagship",
+    "hetero_tp_circular", "serve_reload", "fit_sequences")
+# its dp-megakernel run: kernel 3 once a rank; kernel 9 (the one-shot) once
+# a tensor, 2 weights and 2 biases
+DRYRUN_DP_LAUNCHES = {"fused_mlp_train_step": DRYRUN_N, "bidir_ring": 4,
+                      "ring_all_reduce": 0, "bidir_ring.ring": 0,
+                      "ring_all_reduce.ring": 0}
+TOL_ENTRY = (1e-5, 0.0)
+
+
+def dryrun_main(out: str) -> None:
+    """Phase 30 in its own interpreter: ``dryrun_multichip``'s runs on
+    DRYRUN_N ranks of the card (each run's loss, wall time and launches;
+    every key of DRYRUN_KEYS, every loss finite, the dp-megakernel run's
+    launches DRYRUN_DP_LAUNCHES), then ``entry()`` on the card against
+    ``entry(device="cpu")`` in f64.  Writes the dry run's launches of
+    kernels 3, 8 and 9 to ``out``."""
+    from tensor_ops_tpu_torch import dryrun
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    names = RING_NAMES + ("fused_mlp_train_step",)
+    launches = dict.fromkeys(names, 0)
+    runs = {}
+    _sync()
+    K.reset_launch_counts()
+    t0 = t_all = time.perf_counter()
+    for key, loss in dryrun.dryrun_runs(DRYRUN_N, [DRYRUN_DEVICE] * DRYRUN_N):
+        _sync()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        runs[key] = counts
+        for k in names:
+            launches[k] += counts[k]
+        check(math.isfinite(loss), f"dry run {key}: loss {loss}")
+        log(f"[dryrun] {key}: {loss:.6f} in {wall:.2f} s wall (host clock "
+            f"to a synchronise); launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+    total = time.perf_counter() - t_all
+    check(tuple(runs) == DRYRUN_KEYS, f"the dry run's runs {tuple(runs)}, "
+          f"want {DRYRUN_KEYS}")
+    dp = {k: runs["dp_megakernel"][k] for k in DRYRUN_DP_LAUNCHES}
+    check(dp == DRYRUN_DP_LAUNCHES, f"the dry run's dp-megakernel run "
+          f"launched {dp}, want {DRYRUN_DP_LAUNCHES}")
+    log(f"[dryrun] {len(runs)} runs on {DRYRUN_N} ranks of {DRYRUN_DEVICE} in "
+        f"{total:.1f} s, every loss finite and every check of the JAX dry "
+        f"run held; the dp-megakernel run launched {dp}; kernels 3, 8 and 9 "
+        f"in all {launches}")
+    fn, args = dryrun.entry()
+    got = fn(*args)
+    _sync()
+    check(got.device.type == "cuda" and tuple(got.shape) == (32, FLAGSHIP[-1]),
+          f"entry() gave {tuple(got.shape)} on {got.device}")
+    rows = max_err(got.sum(1), torch.ones(32), TOL_ENTRY)
+    fn_c, args_c = dryrun.entry(device="cpu")
+    e64 = max_err(got, fn_c(*(a.double() for a in args_c)), TOL_ENTRY)
+    log(f"[dryrun] entry(): {tuple(got.shape)} on {got.device}, rows sum to "
+        f"1 within {rows:.2e}, max |err| {e64:.2e} from entry(device='cpu') "
+        f"in f64 (tol {TOL_ENTRY[0]:g})")
+    with open(out, "w") as f:
+        json.dump(launches, f)
+
+
+def phase_dryrun(tmp: str) -> dict:
+    """Run :func:`dryrun_main` (phase 30) in an interpreter of its own with
+    a time limit; its lines print as they come; returns its launches."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "dryrun_launches.json")
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke.dryrun_main(sys.argv[1])", out],
+        timeout=DRYRUN_TIMEOUT_S, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, f"the dry-run phase failed (exit "
+          f"{proc.returncode})")
+    with open(out) as f:
+        return json.load(f)
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging the phase's wall time."""
     t0 = time.perf_counter()
@@ -7251,6 +7491,7 @@ def smoke() -> int:
         proc_launches = timed("several processes (own interpreter)",
                               phase_procs, tmp)
         timed("tooling (own interpreter)", phase_tooling, tmp)
+        dry_launches = timed("dry run (own interpreter)", phase_dryrun, tmp)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "
@@ -7275,9 +7516,17 @@ def smoke() -> int:
         launches[f"{n}.ring"] = dp[n]["protocol launches"]
     # and kernel 9 on the mesh's fit and fit_sequences runs and the model
     # axis's serving and training and the pipelines (phases 23-27), and
-    # process 0's in phase 28's runs across processes
+    # process 0's in phase 28's runs across processes, and the dry run's
+    # (phase 30); kernel 3 and 9 on the dp step's mesh form (phase 11), and
+    # kernel 3 on the dp step of phases 28 and 30
     for n in RING_NAMES:
-        launches[n] += mesh_launches[n] + proc_launches[n]
+        launches[n] += (mesh_launches[n] + proc_launches[n]
+                        + dry_launches[n])
+    launches["bidir_ring"] += dp["mesh launches"]["bidir_ring"]
+    launches["fused_mlp_train_step"] += (
+        dp["mesh launches"]["fused_mlp_train_step"]
+        + proc_launches["fused_mlp_train_step"]
+        + dry_launches["fused_mlp_train_step"])
     least = bounds()
     for n in KERNELS:
         log(f"[bound] {n}: {least[n][0]:.6f} ms by {least[n][1]} (H100 SXM "

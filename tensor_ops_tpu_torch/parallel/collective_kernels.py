@@ -924,66 +924,122 @@ class _DPStep:
     """``step(xb, yb, ws, bs) -> (loss, new_ws, new_bs)``: see
     :func:`dp_megakernel_train_step`."""
 
-    def __init__(self, group: RankGroup, acts, lr, precision: str,
+    def __init__(self, mesh, acts, lr, axis: str, precision: str,
                  bidirectional: bool):
-        self.group, self.acts, self.lr = group, list(acts), lr
-        self.precision = precision
+        from .mesh import DATA_AXIS, Mesh, _local_groups, check_mesh
+
+        if isinstance(mesh, RankGroup):
+            mesh = Mesh(list(mesh.devices), (DATA_AXIS,))
+        mesh = check_mesh(mesh, "dp_megakernel_train_step")
+        if axis not in mesh.shape:
+            raise ValueError(
+                f"dp_megakernel_train_step: axis {axis!r} is not an axis of "
+                f"the mesh, whose axes are {mesh.axis_names}")
+        self.mesh, self.axis, self.n = mesh, axis, mesh.shape[axis]
+        self.acts, self.lr, self.precision = list(acts), lr, precision
         self.all_reduce = (ring_all_reduce_bidir if bidirectional
                            else ring_all_reduce)
+        self.first_group = mesh.groups(axis)[0]
+        self.mine = _local_groups(mesh, axis)  # the groups this process joins
         self.replicas = None
+        self.loss_gathers = 0
 
     def __call__(self, xb, yb, ws, bs):
-        devs = self.group.devices
-        n = len(devs)
+        from .mesh import _split_rows
+
+        mesh, n = self.mesh, self.n
         if xb.shape[0] % n or yb.shape[0] != xb.shape[0]:
             raise ValueError(
                 f"dp_megakernel_train_step: a global batch of {xb.shape[0]} "
-                f"rows (targets {yb.shape[0]}) does not split over {n} ranks")
-        k = xb.shape[0] // n
-        losses, new_ws, new_bs = [], [], []
-        for r, d in enumerate(devs):
-            loss, w_r, b_r = K.fused_mlp_train_step(
-                xb[r * k:(r + 1) * k].to(d), yb[r * k:(r + 1) * k].to(d),
-                [w.to(d) for w in ws], [b.to(d) for b in bs], self.lr,
+                f"rows (targets {yb.shape[0]}) does not split over {n} ranks "
+                f"of the {self.axis!r} axis")
+        losses, new_ws, new_bs = {}, {}, {}
+        for r in mesh.local_ranks:
+            d, dev = mesh.coord(r, self.axis), mesh.rank_devices[r]
+            losses[r], new_ws[r], new_bs[r] = K.fused_mlp_train_step(
+                _split_rows(xb, n, d, dev), _split_rows(yb, n, d, dev),
+                [w.to(dev) for w in ws], [b.to(dev) for b in bs], self.lr,
                 self.acts, precision=self.precision)
-            losses.append(loss)
-            new_ws.append(w_r)
-            new_bs.append(b_r)
         inv = 1.0 / n
-        # one ring call per tensor, as the JAX step does; the 1/n is the
-        # collective's scale, applied to each finished sum
-        red_w = [self.all_reduce([w_r[i] for w_r in new_ws], scale=inv)
-                 for i in range(len(ws))]
-        red_b = [self.all_reduce([b_r[i] for b_r in new_bs], scale=inv)
-                 for i in range(len(bs))]
-        self.replicas = [([t[r] for t in red_w], [t[r] for t in red_b])
-                         for r in range(n)]
-        total = losses[0]
-        for v in losses[1:]:
-            total = total + v.to(total.device)
-        return total * inv, self.replicas[0][0], self.replicas[0][1]
+        # one ring call per tensor and group, as the JAX step's one psum per
+        # tensor over the axis; the 1/n is the collective's scale, applied
+        # to each finished sum
+        for new, count in ((new_ws, len(ws)), (new_bs, len(bs))):
+            for i in range(count):
+                for g in self.mine:
+                    red = self.all_reduce(
+                        [new[r][i] if mesh.is_local(r) else mesh.remote(r)
+                         for r in g], scale=inv)
+                    for r, y in zip(g, red):
+                        if mesh.is_local(r):
+                            new[r][i] = y
+        self.replicas = [(new_ws[r], new_bs[r]) if mesh.is_local(r)
+                         else mesh.remote(r) for r in range(mesh.size)]
+        # every group holds the same losses: the first group's, summed in
+        # its rank order on this process's first rank's device
+        first = mesh.local_ranks[0]
+        dev = mesh.rank_devices[first]
+        vals = [v.to(dev)
+                for v in self._group_losses(losses, self.first_group)]
+        total = vals[0]
+        for v in vals[1:]:
+            total = total + v
+        return total * inv, new_ws[first], new_bs[first]
+
+    def _group_losses(self, losses: dict, group) -> list:
+        """The losses of ``group``'s ranks, in its order: this process's
+        tensors, and the other processes' from one gather of every
+        process's losses over gloo (no kernel-9 call)."""
+        mesh = self.mesh
+        if all(mesh.is_local(r) for r in group):
+            return [losses[r] for r in group]
+        from . import distributed as D
+
+        mine = torch.stack([losses[r].reshape(()) for r in mesh.local_ranks])
+        owned = {p: [r for r in range(mesh.size) if mesh.rank_procs[r] == p]
+                 for p in mesh.procs}
+        width = max(map(len, owned.values())) * mine.element_size()
+        buf = torch.zeros(width, dtype=torch.uint8)
+        buf[:mine.numel() * mine.element_size()] = (
+            mine.cpu().view(torch.uint8).reshape(-1))
+        got = {}
+        for p, b in zip(mesh.procs, D.all_gather_bytes(mesh.procs, buf)):
+            got.update(zip(owned[p], b.view(mine.dtype)))
+        self.loss_gathers += 1
+        return [losses[r] if mesh.is_local(r) else got[r] for r in group]
 
 
-def dp_megakernel_train_step(group: RankGroup, acts, *, lr,
+def dp_megakernel_train_step(mesh, acts, *, lr, axis: str = "data",
                              precision: str = "default",
                              bidirectional: bool = True) -> _DPStep:
-    """Data-parallel whole-step training over the ranks of ``group``: each
-    rank runs ``fused_mlp_train_step`` (kernel 3) on its shard of the global
-    batch (split in rank order along the leading axis), then every updated
-    weight and bias is summed by the ring (one call per tensor; kernel 9
-    with ``bidirectional=True``, the default, kernel 8 with ``False``) and
-    multiplied by ``1 / n`` inside that call: the mean-gradient SGD step on
-    the whole batch.
-    The loss is the rank-order sum of the ranks' losses times ``1 / n``.
+    """Data-parallel whole-step training over ``mesh``'s ``axis``, the JAX
+    package's ``shard_map`` with the batch on ``axis`` and the parameters
+    replicated over every axis: each rank runs ``fused_mlp_train_step``
+    (kernel 3) on the shard of the global batch its coordinate on ``axis``
+    names (the rows split in order along the leading axis), then every
+    updated weight and bias is summed over each group of ``axis`` by the
+    ring (one call per tensor and group; kernel 9 with
+    ``bidirectional=True``, the default, kernel 8 with ``False``) and
+    multiplied by ``1 / n`` inside that call, ``n`` the axis's size: the
+    mean-gradient SGD step on the whole batch.  The loss is the rank-order
+    sum of the first group's losses times ``1 / n``.
+
+    ``mesh`` is a :class:`~.mesh.Mesh` of any dimension (an axis it lacks
+    raises ``ValueError``) or a :class:`RankGroup`, taken as a 1-D mesh
+    over ``"data"``.  On a mesh that spans several processes every process
+    passes the same global batch and runs kernel 3 on its own ranks only;
+    the reductions then cross the processes (:func:`_xproc`), and the
+    loss's other ranks come over gloo, one gather a step
+    (``step.loss_gathers`` counts them).
 
     Returns ``step(xb, yb, ws, bs) -> (loss, new_ws, new_bs)``.  ``ws`` and
     ``bs`` are one copy of the parameters, moved to each rank's device as
     needed; every rank then holds its own copy of the result, identical on
-    all ranks, and ``step.replicas`` keeps them (a list of ``(ws, bs)`` per
-    rank) until the next call.  ``new_ws``/``new_bs`` are rank 0's copy and
-    the loss lies on rank 0's device."""
-    return _DPStep(group, acts, lr, precision, bidirectional)
-
+    all ranks, and ``step.replicas`` keeps them (one ``(ws, bs)`` per rank
+    of the mesh in its flat order, a :class:`Remote` marker for another
+    process's rank) until the next call.  ``new_ws``/``new_bs`` are this
+    process's first rank's copy and the loss lies on its device."""
+    return _DPStep(mesh, acts, lr, axis, precision, bidirectional)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """The port's data-parallel whole step (``dp_megakernel_train_step`` over a
-``RankGroup``) against the JAX package's on the 8-device CPU mesh, against
-the port's single ``fused_mlp_train_step`` on the whole batch, and the rank
+``RankGroup``, and over a port ``Mesh`` called as the JAX tests call it)
+against the JAX package's on CPU meshes of the same shape, against the
+port's single ``fused_mlp_train_step`` on the whole batch, and the rank
 group's placement rules.
 
 On CPU ranks each rank's step is the plain train step and the ring is its
@@ -18,8 +19,9 @@ from jax.sharding import Mesh
 
 from tensor_ops_tpu.parallel import collective_kernels as JC
 from tensor_ops_tpu_torch.ops import kernels as K
+from tensor_ops_tpu_torch.parallel import Mesh as TMesh
 from tensor_ops_tpu_torch.parallel import (RankGroup, dp_megakernel_train_step,
-                                           ring_all_reduce)
+                                           make_mesh, ring_all_reduce)
 from tensor_ops_tpu_torch.parallel import collective_kernels as C
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -47,36 +49,52 @@ def jax_test_case():
 
 @pytest.fixture(scope="module")
 def jax_dp():
-    """The JAX dp step's (loss, ws, bs) per ``bidirectional``, computed on
-    first use (interpret mode)."""
+    """The JAX dp step's (loss, ws, bs) per ``bidirectional`` and mesh shape
+    (``("data",)`` for one axis, ``("data", "model")`` for two), computed
+    on first use (interpret mode)."""
     cache = {}
 
-    def get(bidirectional):
-        if bidirectional not in cache:
+    def get(bidirectional, shape=(N_DEV,)):
+        key = (bidirectional, shape)
+        if key not in cache:
             xb, yb, ws, bs = jax_test_case()
-            mesh = Mesh(np.array(jax.devices()[:N_DEV]), ("data",))
+            devs = np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape)
+            mesh = Mesh(devs, ("data", "model")[:len(shape)])
             step = JC.dp_megakernel_train_step(mesh, list(ACTS), lr=LR,
                                                bidirectional=bidirectional)
             loss, nws, nbs = step(jnp.asarray(xb), jnp.asarray(yb),
                                   tuple(map(jnp.asarray, ws)),
                                   tuple(map(jnp.asarray, bs)))
-            cache[bidirectional] = (float(loss), [np.asarray(w) for w in nws],
-                                    [np.asarray(b) for b in nbs])
-        return cache[bidirectional]
+            cache[key] = (float(loss), [np.asarray(w) for w in nws],
+                          [np.asarray(b) for b in nbs])
+        return cache[key]
 
     return get
 
 
+def tensors(inputs, dtype=torch.float32):
+    return tuple(torch.as_tensor(np.asarray(a), dtype=dtype)
+                 if not isinstance(a, list) else
+                 [torch.as_tensor(np.asarray(t), dtype=dtype) for t in a]
+                 for a in inputs)
+
+
 def port_dp(n, inputs, bidirectional, dtype=torch.float32, dims_acts=ACTS,
             lr=LR):
-    xb, yb, ws, bs = (torch.as_tensor(np.asarray(a), dtype=dtype)
-                      if not isinstance(a, list) else
-                      [torch.as_tensor(np.asarray(t), dtype=dtype) for t in a]
-                      for a in inputs)
+    xb, yb, ws, bs = tensors(inputs, dtype)
     step = dp_megakernel_train_step(RankGroup(devices=["cpu"] * n),
                                     dims_acts, lr=lr,
                                     bidirectional=bidirectional)
     return step, step(xb, yb, ws, bs), (xb, yb, ws, bs)
+
+
+def port_mesh(shape):
+    """The port's CPU mesh of ``shape``: ``(n,)`` a 1-D ``("data",)`` mesh,
+    as the JAX tests build theirs, ``(d, m)`` a ``(data, model)`` grid."""
+    n = int(np.prod(shape))
+    if len(shape) == 1:
+        return TMesh(["cpu"] * n, ("data",))
+    return make_mesh(n, shape=shape, devices=["cpu"] * n)
 
 
 def close(got, want, atol):
@@ -95,6 +113,76 @@ def test_dp_step_matches_jax_dp_step(jax_dp, bidirectional):
     for got, want in zip(ws + bs, j_ws + j_bs):
         assert tuple(got.shape) == want.shape and got.dtype == torch.float32
         close(got.numpy(), want, 2e-6)
+
+
+MESHES = [(N_DEV,), (4, 1), (2, 2)]
+# The JAX mesh each port mesh is held to.  The JAX rings name their
+# neighbours by LOGICAL device id, which is the flat index: on (2, 2) the
+# data axis's neighbour of rank (0, 1) is then itself, and the JAX step's
+# interpret-mode run waits for ever.  Each model column of its shard_map
+# computes the step of the (2,) data mesh, which is the reference there.
+JAX_MESH = {(N_DEV,): (N_DEV,), (4, 1): (4, 1), (2, 2): (2,)}
+
+
+@pytest.mark.parametrize("axis", [{}, {"axis": "data"}],
+                         ids=["axis-default", "axis-data"])
+@pytest.mark.parametrize("shape", MESHES, ids=["8", "4x1", "2x2"])
+def test_mesh_dp_step_matches_jax_dp_step_on_its_mesh(jax_dp, shape, axis):
+    """The JAX tests' call (a mesh, ``lr=``, ``axis`` passed or left to its
+    default) on the port's mesh of the JAX mesh's shape: on ``(2, 2)`` the
+    batch splits over the data axis and each model column repeats its data
+    shard's step, as the JAX ``shard_map`` does."""
+    j_loss, j_ws, j_bs = jax_dp(True, JAX_MESH[shape])
+    mesh = port_mesh(shape)
+    xb, yb, ws, bs = tensors(jax_test_case())
+    step = dp_megakernel_train_step(mesh, list(ACTS), lr=LR, **axis)
+    loss, nws, nbs = step(xb, yb, ws, bs)
+    assert loss.ndim == 0 and loss.dtype == torch.float32
+    close(float(loss), j_loss, 2e-6)
+    for got, want in zip(nws + nbs, j_ws + j_bs):
+        assert tuple(got.shape) == want.shape and got.dtype == torch.float32
+        close(got.numpy(), want, 2e-6)
+    assert len(step.replicas) == mesh.size
+    for r_ws, r_bs in step.replicas:
+        assert all(torch.equal(a, b) for a, b in zip(r_ws + r_bs, nws + nbs))
+
+
+@pytest.mark.parametrize("bidirectional", [True, False],
+                         ids=["bidir", "one-way"])
+@pytest.mark.parametrize("shape", MESHES, ids=["8", "4x1", "2x2"])
+def test_mesh_dp_step_is_the_rank_group_step_bit_for_bit(shape,
+                                                         bidirectional):
+    """Rank r takes the rows of its data coordinate, not of its flat index
+    (on ``(2, 2)`` rank 2 is data shard 1): each mesh equals a rank group of
+    the data axis's size, loss and every rank's parameters bit for bit, over
+    two steps."""
+    mesh = port_mesh(shape)
+    xb, yb, ws, bs = tensors(jax_test_case())
+    step = dp_megakernel_train_step(mesh, ACTS, lr=LR,
+                                    bidirectional=bidirectional)
+    group = dp_megakernel_train_step(RankGroup(devices=["cpu"] * shape[0]),
+                                     ACTS, lr=LR, bidirectional=bidirectional)
+    a, b = (ws, bs), (ws, bs)
+    for _ in range(2):
+        la, *a = step(xb, yb, *a)
+        lb, *b = group(xb, yb, *b)
+        assert torch.equal(la, lb)
+        want = b[0] + b[1]
+        for r in range(mesh.size):
+            r_ws, r_bs = step.replicas[r]
+            assert all(torch.equal(x, y) for x, y in zip(r_ws + r_bs, want))
+
+
+def test_mesh_dp_step_refuses_an_axis_the_mesh_lacks():
+    mesh = port_mesh((2, 2))
+    with pytest.raises(ValueError, match=r"axis 'stage' is not an axis of the "
+                                         r"mesh, whose axes are \('data', "
+                                         r"'model'\)"):
+        dp_megakernel_train_step(mesh, ACTS, lr=LR, axis="stage")
+    xb, yb, ws, bs = tensors(jax_test_case())
+    step = dp_megakernel_train_step(port_mesh((4, 1)), ACTS, lr=LR)
+    with pytest.raises(ValueError, match="does not split over 4 ranks"):
+        step(xb[:30], yb[:30], ws, bs)
 
 
 @pytest.mark.parametrize("bidirectional", [True, False],

@@ -62,6 +62,7 @@ from tensor_ops_tpu_torch.models.trainer import (
 from tensor_ops_tpu_torch.parallel import collective_kernels as K
 from tensor_ops_tpu_torch.parallel import distributed as D
 from tensor_ops_tpu_torch.parallel import ir_pipeline as IP
+from tensor_ops_tpu_torch.parallel import Mesh as TMesh
 from tensor_ops_tpu_torch.parallel import (make_dp_pipeline_mesh, make_mesh,
                                            make_pipeline_mesh, param_specs)
 from tensor_ops_tpu_torch.utils.native import NativeLoader
@@ -93,16 +94,16 @@ def _free_port() -> int:
 
 
 def launch(tmp, scenarios: str, prelude: str = "", procs: int = 2,
-           timeout: float = 120.0) -> list:
-    """Run ``procs`` workers (4 CPU ranks each) on ``scenarios``; returns
-    each process's JSON.  ``prelude`` runs before the worker (``python
-    -c``), e.g. to block ``import jax``."""
+           timeout: float = 120.0, local: int = 4) -> list:
+    """Run ``procs`` workers (``local`` CPU ranks each) on ``scenarios``;
+    returns each process's JSON.  ``prelude`` runs before the worker
+    (``python -c``), e.g. to block ``import jax``."""
     port = _free_port()
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
     env.update({"TOPS_COORDINATOR": f"localhost:{port}",
                 "TOPS_NUM_PROCESSES": str(procs),
-                "TOPS_LOCAL_DEVICES": "cpu,cpu,cpu,cpu",
+                "TOPS_LOCAL_DEVICES": ",".join(["cpu"] * local),
                 "TOPS_MP_CKPT": str(tmp / "mp_ck.npz"),
                 "TOPS_MP_SCENARIOS": scenarios,
                 "PYTHONPATH": ROOT + os.pathsep + env.get("PYTHONPATH", "")})
@@ -352,6 +353,33 @@ def test_collectives_across_processes_bit_equal_to_one_process(runs):
                     err_msg=f"{k}, rank {r}")
 
 
+@pytest.fixture(scope="module")
+def dp_runs(tmp_path_factory):
+    return launch(tmp_path_factory.mktemp("dp"), "dp", local=2)
+
+
+def test_dp_step_across_processes_bit_equal_to_one_process(dp_runs):
+    """``dp_megakernel_train_step`` on a ``(4,)`` data mesh of 2 processes
+    of 2 CPU ranks: in both processes, three steps' losses and parameters
+    and the last step's replicas of its own ranks bit-equal to the same
+    mesh in one process; each step's 4 reductions cross the processes (the
+    plain fold of gloo's bytes) and the loss's other ranks come in one
+    gather over gloo."""
+    import torch_mp_worker as W
+
+    one = W.run_dp(TMesh(["cpu"] * 4, ("data",)))
+    assert one["gathers"] == 0 and one["xproc"]["ar"] == 0
+    for k, run in enumerate(dp_runs):
+        got = run["dp"]
+        assert got["losses"] == one["losses"]
+        assert got["params"] == one["params"]
+        assert set(got["replicas"]) == {str(2 * k), str(2 * k + 1)}
+        for r, rep in got["replicas"].items():
+            assert rep == one["replicas"][r]
+        assert got["xproc"]["cpu"] == got["xproc"]["ar"] == 12
+        assert got["gathers"] == 3
+
+
 # ---------------------------------------------------------------------------
 # Ports of tests/test_parallel.py's distributed cases and of the alignment
 # check of tests/test_multihost.py
@@ -479,7 +507,15 @@ def test_dryrun_multichip_entrypoint():
     from tensor_ops_tpu_torch import dryrun
 
     out = dryrun.dryrun_multichip(8, devices=CPU8)
-    assert set(out) == {"dp_tp", "gpipe", "staged_ir", "mesh_3d"}
+    # every run of the JAX dry run (__graft_entry__.dryrun_multichip), in
+    # its order, at 8 ranks
+    assert list(out) == [
+        "dp_tp", "fit", "fit_adam", "fit_zero2", "fit_zero3",
+        "fit_zero3_offload", "gpipe", "staged_ir", "staged_ir_circular",
+        "staged_ir_circular_hetero", "staged_ir_flagship", "fit_dp_pipeline",
+        "dp_megakernel", "pipeline_3d", "mesh_3d", "hetero_tp_pyramid",
+        "hetero_tp_flagship", "hetero_tp_circular", "serve_reload",
+        "fit_sequences"]
     assert all(np.isfinite(v) for v in out.values())
 
 

@@ -7,6 +7,7 @@ and device shuffles, both loops), a ``mixed_precision`` bf16 step and a
 2-rank CPU mesh ``fit`` (ZeRO-3, offload, EMA), a tensor-parallel ``fit``
 on a ``(1, 2)`` mesh, ``shard_fused`` serving, the IR layer's
 introspection, tensor helpers and gradient checkers, a ``(2,)`` GPipe step,
+the dp step on a ``(2, 2)`` mesh, the dry run at 4 ranks and ``entry()``,
 a ``PipelineMLP`` checkpoint, the staged-IR pipelines' gradients and
 ``fit`` on a ``(2,)`` stage mesh (GPipe and circular, ZeRO-1 on ``(2,
 2)``), a hetero-tp gradient and ``fit`` on a ``(2, 2, 2)`` mesh, the
@@ -133,6 +134,18 @@ with tempfile.TemporaryDirectory() as d:
                           [torch.zeros(8, 12), torch.zeros(4, 8)],
                           [torch.zeros(8), torch.zeros(4)])
     assert float(loss) > 0 and len(step.replicas) == 4
+    mstep = PL.dp_megakernel_train_step(
+        PL.make_mesh(4, shape=(2, 2), devices=["cpu"] * 4),
+        ["logistic", "identity"], lr=0.1, axis="data")
+    mloss, _, _ = mstep(xb, torch.eye(4)[[0, 1, 2, 3] * 2],
+                        [torch.zeros(8, 12), torch.zeros(4, 8)],
+                        [torch.zeros(8), torch.zeros(4)])
+    assert float(mloss) > 0 and len(mstep.replicas) == 4
+    # the dry run and entry()
+    from tensor_ops_tpu_torch import dryrun
+    assert len(dryrun.dryrun_multichip(4, ["cpu"] * 4)) == 15
+    efn, eargs = dryrun.entry(device="cpu")
+    assert tuple(efn(*eargs).shape) == (32, 10)
 
     mnist_data._fetch = offline
     mnist.main(["--epochs", "1", "--limit", "100", "-b", "100", "--minibatch",

@@ -16,9 +16,11 @@ scenarios (``TOPS_MP_SCENARIOS``, comma-separated, these four by default):
 
 ``api``: the entry points below ``fit`` across both processes (the
 pipelines' steps and forwards, the staged-IR loss and gradients,
-``sharded_train_step`` / ``sharded_forward``); and ``coll``: kernel 9's
+``sharded_train_step`` / ``sharded_forward``); ``coll``: kernel 9's
 phases (and kernel 8) over ranks of both processes, on the inputs every
-process draws alike.
+process draws alike; and ``dp``: three steps of
+``dp_megakernel_train_step`` on a ``(data,)`` mesh of every process's
+ranks.
 
 ``TOPS_MP_OUT`` names the JSON file of this process's losses and the
 trained leaves (gathered whole in every process)."""
@@ -140,6 +142,37 @@ def run_api(m8, mesh):
     return api
 
 
+def run_dp(mesh, steps: int = 3):
+    """``steps`` of the data-parallel whole step on ``mesh`` (a 12-16-4
+    MLP, the global batch of 32 rows every process passes alike): each
+    step's loss and returned parameters, the last step's replicas of this
+    process's ranks, the calls of kernels 8-9 across processes and the
+    loss's gathers over gloo."""
+    from tensor_ops_tpu_torch.parallel import dp_megakernel_train_step
+    from tensor_ops_tpu_torch.parallel import collective_kernels as K
+
+    g = np.random.default_rng(21)
+    dims = (12, 16, 4)
+    ws = [torch.tensor(g.normal(size=(dims[k + 1], dims[k])) * 0.3,
+                       dtype=torch.float32) for k in range(2)]
+    bs = [torch.tensor(g.normal(size=dims[k + 1]) * 0.1, dtype=torch.float32)
+          for k in range(2)]
+    xb = torch.tensor(X[:32], dtype=torch.float32)
+    yb = torch.tensor(Y[:32], dtype=torch.float32)
+    K.reset_xproc_counts()
+    step = dp_megakernel_train_step(mesh, ("logistic", "identity"), lr=0.5)
+    losses, params = [], []
+    for _ in range(steps):
+        loss, ws, bs = step(xb, yb, ws, bs)
+        losses.append(float(loss))
+        params.append([t.tolist() for t in ws + bs])
+    return {"losses": losses, "params": params,
+            "replicas": {str(r): [t.tolist() for t in rep[0] + rep[1]]
+                         for r, rep in enumerate(step.replicas)
+                         if mesh.is_local(r)},
+            "xproc": K.xproc_counts(), "gathers": step.loss_gathers}
+
+
 def main() -> None:
     info = init_distributed()
     assert info["initialized"], info
@@ -235,6 +268,12 @@ def main() -> None:
         out["coll"] = {k: {str(r): v[r].numpy().tolist()
                            for r in mesh.local_ranks if v[r] is not None}
                        for k, v in got.items()}
+
+    if "dp" in SCEN:
+        from tensor_ops_tpu_torch.parallel import Mesh
+        from tensor_ops_tpu_torch.parallel.distributed import global_devices
+
+        out["dp"] = run_dp(Mesh(global_devices(), ("data",)))
 
     with open(os.environ["TOPS_MP_OUT"], "w") as f:
         json.dump(out, f)
