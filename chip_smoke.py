@@ -61,7 +61,9 @@ without printing a result line:
    ``quantized_mlp`` checkpoint of it (``fused_linear_w8``), and the 4 x 4096
    stack saved with ``save_quantized`` (``fused_mlp_w8a8_forward``); each
    is held against the plain ``QuantizedMLP`` on the CPU, and the int8
-   classes against the f32 ones; a request makes 3, 3 and 1 launches.
+   classes against the f32 ones; a request's graph holds 3, 3 and 1
+   launches (the app's one request captures it: its warm-up forward
+   launches them once more).
 8. Recurrent kernel: ``fused_rnn_step`` against its plain version at the
    recurrent slice's shapes (B = 1 and 256, 32 -> 512) and ragged ones (B =
    37 and 5, 3 -> 45), every activation, bit for bit on a rerun, and the
@@ -178,7 +180,8 @@ without printing a result line:
    the card (fit with adamw, a cosine schedule, clipping and EMA; a crash
    and a resume to the full budget; the EMA net served in int8 by
    ``Predictor``): the served accuracy above 0.9 and exactly 2 launches of
-   ``fused_linear_w8a8`` per request and warm-up; kernel 5 at the served
+   ``fused_linear_w8a8`` per request (its graph's replay) and per bucket's
+   capture at warm-up (its warm-up forward); kernel 5 at the served
    2 -> 32 -> 2 shapes (B = 8, 64 and 512) bit-equal to its plain version,
    and its device time per call at B = 64 beside its plain version's and
    its bound.
@@ -259,7 +262,8 @@ without printing a result line:
    parameters), kernel 9's launches per forward and per step equal to
    ``pipe_predicted``; one GPipe step's wall time, samples/s, profile and
    idle share; and the Predictor of a (2, 1) ``shard_fused`` model (nothing
-   sharded) serving bucket 8 through one ``fused_mlp_forward`` launch.
+   sharded) serving bucket 8 from a request graph of one
+   ``fused_mlp_forward`` launch.
 26. The staged-IR pipelines, in the same interpreter after phase 25
    (``parallel.ir_pipeline``, random weights from seed 26, each weight over
    the square root of its fan-in): the uniform 784 -> 2048 x 9 -> 10 chain
@@ -365,9 +369,34 @@ without printing a result line:
    train-step and 4 one-shot launches; then ``entry()`` on the card:
    (32, 10), rows summing to 1 within 1e-5, within 1e-5 of
    ``entry(device="cpu")`` run in f64.
+31. Request graphs, in an interpreter of its own with a time limit
+   (``graphs_main``): the flagship (random weights, seed 0) served by
+   ``Predictor`` at buckets 1, 8, 32, 128 and 512 on each single-device
+   route (f32 through kernel 2 below ``xla_threshold`` and ``run_xla``
+   above, f32 per layer through kernel 1, bf16, w8 through kernel 4, w8a8
+   through kernel 5) and as a staged-IR ``Network``, the 4 x 4096 int8
+   stack at B = 16 (kernel 6) and the recurrent model of phase 9 by
+   ``SequencePredictor`` at buckets 8 and 256, n = 64: each bucket's
+   request, served from its CUDA graph, bit-equal to the private direct
+   forward, its kernel launches (the graph's, counted at the replay) equal
+   to the direct forward's; 600 rows captured at first use (bucket 1024);
+   every bucket replayed again in reverse order after the last capture,
+   still bit-equal; by ``torch.profiler`` one graph launch a request and
+   the hand-written kernels in it (``GRAPH_KERNELS``); host-clock p50s
+   graph against direct in interleaved rounds, with the idle share of the
+   request at buckets 8 and 512; kernel 5's two instances at bucket 8, each
+   by a request graph captured with it; the JAX package's serving soak (4
+   threads, 6 reloads alternating the flagship in f32 and w8a8), at bucket
+   8 and at bucket 128 (``run_xla``, cuBLAS, against kernel 5): no error,
+   every response bit-equal to one model's direct forward, captures only
+   in warm-up and reload; a shuffled stream of 12 sequence lengths on an
+   unwarmed ``SequencePredictor``: one capture a length, each response
+   bit-equal, first-use and replay p50s; and the device bytes the graphs
+   of a flagship, a stack and a sequence predictor hold.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
-on its main path, its largest difference from its plain version, its time
+on its main path (a request served from its graph counts the launches the
+graph holds, each time it replays it), its largest difference from its plain version, its time
 and its plain version's, its bound (the larger of the bytes it must move
 over 3.35 TB/s and its operations over the peak rate of their type) and
 the time of one PyTorch call computing the same function (``torch.addmm``
@@ -1293,6 +1322,10 @@ def phase_int8_serving(tmp: str, ckpt: str, stack) -> dict:
                                                        save_quantized)
 
     buckets = ",".join(map(str, BUCKETS))
+    # the app answers -i with one request and no warm-up: its bucket's
+    # request graph is captured then, whose warm-up forward launches each
+    # kernel directly once before the graph's replay launches it again
+    per = 2
     x = np.random.default_rng(3).uniform(0, 1, size=(64, FLAGSHIP[0]))
     x = x.astype(np.float32)
     xfile = os.path.join(tmp, "int8_batch.npy")
@@ -1317,16 +1350,18 @@ def phase_int8_serving(tmp: str, ckpt: str, stack) -> dict:
          "--buckets", buckets]), len(x))
     torch.cuda.synchronize()
     launches["fused_linear_w8a8"] = K.launch_counts()["fused_linear_w8a8"]
-    check(launches["fused_linear_w8a8"] == 3, f"--int8 flagship: "
+    check(launches["fused_linear_w8a8"] == 3 * per, f"--int8 flagship: "
           f"{launches['fused_linear_w8a8']} fused_linear_w8a8 launches for "
-          f"one request, want 3")
+          f"one request, want 3 in its graph, {3 * per} with its capture's "
+          f"warm-up")
     want = plain.run(torch.as_tensor(x)).numpy()
     e = max_err(torch.as_tensor(served), torch.as_tensor(want),
                 (step + rounding, 0.0))
     agree = float((served.argmax(1) == f32_classes).mean())
     check(agree > 0.8, f"--int8 classes agree with f32 on {agree:.3f} < 0.8")
     log(f"[int8] serve app --int8 (w8a8) on the flagship checkpoint, "
-        f"{len(x)} rows: 3 fused_linear_w8a8 launches; vs the plain "
+        f"{len(x)} rows: 3 fused_linear_w8a8 launches in the request's "
+        f"graph (and 3 by its capture's warm-up); vs the plain "
         f"QuantizedMLP on the CPU max|err| {e:.2e} (tol one code step "
         f"{step:.2e} + {rounding:g}); classes agree with f32 on "
         f"{agree:.3f} (JAX test: > 0.8)")
@@ -1341,15 +1376,17 @@ def phase_int8_serving(tmp: str, ckpt: str, stack) -> dict:
          buckets]), len(x))
     torch.cuda.synchronize()
     launches["fused_linear_w8"] = K.launch_counts()["fused_linear_w8"]
-    check(launches["fused_linear_w8"] == 3, f"w8 checkpoint: "
-          f"{launches['fused_linear_w8']} fused_linear_w8 launches, want 3")
+    check(launches["fused_linear_w8"] == 3 * per, f"w8 checkpoint: "
+          f"{launches['fused_linear_w8']} fused_linear_w8 launches, want "
+          f"{3 * per} (3 in the graph, 3 by its capture's warm-up)")
     want = w8.run(torch.as_tensor(x)).numpy()
     e = max_err(torch.as_tensor(served), torch.as_tensor(want),
                 (TOL_P[0] + rounding, 0.0))
     agree = float((served.argmax(1) == f32_classes).mean())
     check(agree > 0.8, f"w8 classes agree with f32 on {agree:.3f} < 0.8")
     log(f"[int8] serve app on a mode=w8 quantized_mlp checkpoint: 3 "
-        f"fused_linear_w8 launches; vs the plain QuantizedMLP on the CPU "
+        f"fused_linear_w8 launches in the request's graph (and 3 by its "
+        f"capture's warm-up); vs the plain QuantizedMLP on the CPU "
         f"max|err| {e:.2e} (tol {TOL_P[0]:g} + {rounding:g}); classes "
         f"agree with f32 on {agree:.3f}")
 
@@ -1366,9 +1403,10 @@ def phase_int8_serving(tmp: str, ckpt: str, stack) -> dict:
     torch.cuda.synchronize()
     counts = K.launch_counts()
     launches["fused_mlp_w8a8_forward"] = counts["fused_mlp_w8a8_forward"]
-    check(counts["fused_mlp_w8a8_forward"] == 1
+    check(counts["fused_mlp_w8a8_forward"] == per
           and counts["fused_linear_w8a8"] == 0,
-          f"4x4096 stack: launches {counts}, want one fused_mlp_w8a8_forward")
+          f"4x4096 stack: launches {counts}, want one fused_mlp_w8a8_forward "
+          f"in the request's graph and one by its capture's warm-up")
     want = qm.run_fused(torch.as_tensor(xs))
     e = max_err(torch.as_tensor(served), want, (rounding, 0.0))
     gpu_qm = load_quantized(spath, device=DEVICE)
@@ -1377,7 +1415,8 @@ def phase_int8_serving(tmp: str, ckpt: str, stack) -> dict:
     check(torch.equal(got.cpu(), want), "4x4096 stack on the card is not "
           "bit-equal to the plain QuantizedMLP on the CPU")
     log(f"[int8] serve app on the 4x4096 quantized_mlp checkpoint, B=16: one "
-        f"fused_mlp_w8a8_forward launch; printed logits vs the plain "
+        f"fused_mlp_w8a8_forward launch in the request's graph (and one by "
+        f"its capture's warm-up); printed logits vs the plain "
         f"QuantizedMLP on the CPU max|err| {e:.2e} (tol {rounding:g}, the "
         f"printing); run_fused on the card bit-equal to it")
 
@@ -1863,37 +1902,70 @@ def w8a8_direct(B: int, layers, h, what: str) -> dict:
     return total
 
 
-def w8a8_request_turns(pred, x) -> None:
-    """The --int8 flagship request on each instance of kernel 5, in the
-    turns of W8A8_TURNS: each turn's median host-clock wall time of
-    TIMED_RUNS ``Predictor.predict`` calls, unprofiled, then the profiler's
-    kernels and device busy time per request over 10 more."""
-    wall = {"fused": [], "pdl": []}
-    busy = {"fused": [], "pdl": []}
-    kernels = {}
-    for inst in W8A8_TURNS:
+def _replay_us(graph, replays: int = 20, reps: int = 5) -> float:
+    """Device time per replay of a captured CUDA graph: ``replays``
+    back-to-back replays between CUDA events, the median of ``reps``."""
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        for _ in range(replays):
+            graph.replay()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e) * 1e3 / replays)
+    return statistics.median(out)
+
+
+def w8a8_request_turns(model, x) -> dict:
+    """The --int8 flagship request at bucket ``len(x)`` on each instance of
+    kernel 5, each served from a request graph captured with that instance
+    forced (both outputs bit-equal first), in the turns of W8A8_TURNS: each
+    turn's median host-clock wall time of TIMED_RUNS ``Predictor.predict``
+    calls, unprofiled, and the graph's device time per replay (CUDA events
+    over back-to-back replays); then the profiler's kernels and device busy
+    time per request over 10 more.  Returns {instance: median wall us}."""
+    from tensor_ops_tpu_torch.models import Predictor
+
+    b = len(x)
+    preds, outs = {}, {}
+    for inst in ("fused", "pdl"):
         with w8a8_instance(inst):
-            for _ in range(3):
-                pred.predict(x)
-            torch.cuda.synchronize()
-            ts = []
-            for _ in range(TIMED_RUNS):
-                t0 = time.perf_counter()
-                pred.predict(x)
-                ts.append((time.perf_counter() - t0) * 1e6)
-            wall[inst].append(statistics.median(ts))
-            prof = _profile_steps(lambda: pred.predict(x))
-        busy[inst].append(prof["busy_us"])
-        kernels[inst] = ", ".join(f"{n} x{c:g}"
-                                  for n, c in prof["calls"].items())
-    for inst in wall:
-        log(f"[timing] --int8 flagship request bucket {len(x)} on the "
-            f"{inst} instance (turns {'/'.join(W8A8_TURNS)}): wall "
+            preds[inst] = Predictor(model, buckets=(b,))
+            preds[inst].warmup()
+        outs[inst] = preds[inst].predict(x)
+    check(np.array_equal(outs["fused"], outs["pdl"]), f"--int8 request "
+          f"bucket {b}: the two instances' request graphs differ")
+    wall = {"fused": [], "pdl": []}
+    dev = {"fused": [], "pdl": []}
+    for inst in W8A8_TURNS:
+        pred = preds[inst]
+        for _ in range(3):
+            pred.predict(x)
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(TIMED_RUNS):
+            t0 = time.perf_counter()
+            pred.predict(x)
+            ts.append((time.perf_counter() - t0) * 1e6)
+        wall[inst].append(statistics.median(ts))
+        dev[inst].append(_replay_us(pred._serving[4].get(b, True).graph))
+    for inst, pred in preds.items():
+        prof = _profile_steps(lambda: pred.predict(x), whole=True)
+        kernels = ", ".join(f"{n} x{c:g}" for n, c in prof["calls"].items())
+        log(f"[graphs] --int8 flagship request bucket {b} on the {inst} "
+            f"instance, from its request graph (turns "
+            f"{'/'.join(W8A8_TURNS)}): wall "
             f"{statistics.median(wall[inst]):.1f} us/request (turn medians "
             + ", ".join(f"{u:.1f}" for u in wall[inst])
-            + f"), device busy {statistics.median(busy[inst]):.2f} us ("
-            + ", ".join(f"{u:.2f}" for u in busy[inst])
-            + f"); kernels {kernels[inst]}")
+            + f"), device time per replay {statistics.median(dev[inst]):.2f}"
+            f" us (" + ", ".join(f"{u:.2f}" for u in dev[inst])
+            + f"), device busy {prof['busy_us']:.2f} us, graph launches "
+            f"{prof['graph_launches']:g}; kernels {kernels}")
+    return {i: statistics.median(w) for i, w in wall.items()}
 
 
 # the runtime calls by which the host launches work on the card
@@ -1911,21 +1983,28 @@ def _kernel_name(raw: str) -> str:
     return name.split("::")[-1]
 
 
-def _profile_steps(step, steps: int = 10) -> dict:
+def _profile_steps(step, steps: int = 10, whole: bool = False) -> dict:
     """The device work of one call of ``step`` (a training step, a request
     or a kernel): CUDA kernels launched, copies and memsets, and device busy
     time per call (``torch.profiler`` over ``steps`` calls, kernel and copy
     rows only), and time and launches per call by kernel name; and the
     launches the host issued per call (the runtime calls the profiler
-    records: graph launches apart from kernel launches and copies)."""
+    records: graph launches apart from kernel launches and copies).
+    ``whole``: every call launches the same kernels, so a count of some
+    kernel that is not a multiple of ``steps`` means the profiler lost
+    events (it has, from graph launches): profile again, as when it hands
+    back none.  (Copies are left out of that test: it loses one
+    host-to-device copy of a request's ten in every profile of some
+    request graphs.)"""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     step()
     torch.cuda.synchronize()
     # the profiler now and then hands back no device events at all (seen
-    # once in a dozen runs on the card): profile again, at most twice more
-    for attempt in range(3):
+    # once in a dozen runs on the card), or loses some: profile again, at
+    # most three times more
+    for attempt in range(4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -1933,7 +2012,11 @@ def _profile_steps(step, steps: int = 10) -> dict:
             torch.cuda.synchronize()
         events = prof.events()
         device = [e for e in events if e.device_type == DeviceType.CUDA]
-        if device:
+        seen = {}
+        for e in device:
+            if not e.name.startswith(("Memcpy", "Memset")):
+                seen[e.name] = seen.get(e.name, 0) + 1
+        if device and not (whole and any(c % steps for c in seen.values())):
             break
     api = {}
     for e in events:
@@ -2018,8 +2101,6 @@ def phase_int8_timing(sv, stack) -> dict:
                   and prof["calls"].get("w8a8_kernel") == 3,
                   f"--int8 request bucket {b}: kernels {prof['calls']}, "
                   f"want 3 w8a8_kernel and no quantize_rows_kernel")
-    w8a8_request_turns(preds[0][1], r.uniform(0, 1, size=(
-        W8A8_DIRECT_B, FLAGSHIP[0])).astype(np.float32))
 
     times = {}
     with torch.inference_mode():
@@ -5351,6 +5432,7 @@ def phase_pipelines() -> dict:
     fm = FusedMLP.from_network(_flagship_net(TorchBackend(torch.float32,
                                                           DEVICE)))
     p21 = Predictor(shard_fused(fm, _tp_mesh((2, 1))), buckets=(8,))
+    p21.warmup()  # its request graph: a request then replays it
     x8 = np.random.default_rng(8).uniform(0, 1, size=(8, FLAGSHIP[0]))
     got, counts, _ = _counted(lambda: p21.predict(x8))
     want = Predictor(fm, buckets=(8,)).predict(x8)
@@ -7427,6 +7509,398 @@ def phase_dryrun(tmp: str) -> dict:
         return json.load(f)
 
 
+# Phase 31, request graphs: the flagship's single-device Predictor routes
+# at the Predictor's default buckets (kernel 2 below xla_threshold = 64,
+# run_xla above; kernel 1, 4 and 5 routes at every bucket), the 4 x 4096
+# stack at its bucket, the staged-IR Network route, and the recurrent
+# model's SequencePredictor at RNN_BUCKETS, n = RNN_N.  GRAPH_BEYOND rows
+# take a bucket beyond the top one (its graph captured at first use).
+GRAPH_BUCKETS = (1, 8, 32, 128, 512)
+GRAPH_BEYOND = 600
+GRAPH_ROUNDS, GRAPH_TIMED = 3, 20
+GRAPH_SOAK_THREADS, GRAPH_SOAK_SWAPS = 4, 6
+# the soak's arms, (bucket, rows a request): kernel 2 against kernel 5, and
+# run_xla (cuBLAS) against kernel 5
+GRAPH_SOAK_ARMS = ((8, 5), (128, 100))
+# a stream of requests of mixed sequence lengths on a SequencePredictor
+# none of whose lengths was warmed: GRAPH_MIX_REPEAT requests of each
+# length at bucket 8, in a shuffled order
+GRAPH_MIX_LENGTHS = (16, 24, 32, 40, 48, 56, 72, 80, 88, 96, 104, 112)
+GRAPH_MIX_REPEAT = 3
+GRAPH_TIMEOUT_S = 300
+# the hand-written kernels a request's graph holds at bucket 8 (the stack
+# at its bucket), by the profiler's names
+GRAPH_KERNELS = {
+    "f32 fused": {"mlp_forward_kernel": 1},
+    "f32 per-layer": {"linear_gemv_kernel": 3},
+    "bf16": {"mlp_forward_kernel": 1},
+    "w8": {"w8_gemv_kernel": 3},
+    "w8a8": {"w8a8_kernel": 3},
+    "4x4096 stack": {"mlp_w8a8_kernel": 1},
+    "Network": {}, "SequencePredictor": {}}
+
+
+def _direct_request(pred, x):
+    """A request of exactly a bucket's rows by the private direct forward
+    (every kernel launched from the host), as ``predict`` ran before
+    request graphs."""
+    from tensor_ops_tpu_torch.models import serve as S
+
+    st = pred._serving
+    if isinstance(pred, S.SequencePredictor):
+        out = S._seq_run(st[0], st[1], st[1].asarray(x))
+    else:
+        out = pred._forward(st, pred._as(st, x))
+    return out.cpu().numpy()
+
+
+def _graph_routes(be):
+    """Phase 31's predictors: (name, predictor, buckets, input shape)."""
+    from tensor_ops_tpu_torch.models import (FusedMLP, Predictor,
+                                             QuantizedMLP, SequencePredictor)
+
+    net = _flagship_net(be)
+    fm = FusedMLP.from_network(net)
+    r = np.random.default_rng(0)
+    ws = [(r.normal(size=(STACK_N, STACK_N)) * math.sqrt(2.0 / STACK_N))
+          .astype(np.float32) for _ in range(STACK_L)]
+    stack = QuantizedMLP.from_fused(FusedMLP.from_numpy(
+        ws, [np.zeros(STACK_N, np.float32)] * STACK_L, STACK_ACTS,
+        softmax_out=False, device=DEVICE))
+    flat = (FLAGSHIP[0],)
+    return [
+        ("f32 fused", Predictor(fm, buckets=GRAPH_BUCKETS), GRAPH_BUCKETS,
+         flat),
+        ("f32 per-layer", Predictor(fm, buckets=GRAPH_BUCKETS,
+                                    use_fused_kernel=False), GRAPH_BUCKETS,
+         flat),
+        ("bf16", Predictor(fm, buckets=GRAPH_BUCKETS, dtype="bf16"),
+         GRAPH_BUCKETS, flat),
+        ("w8", Predictor(QuantizedMLP.from_fused(fm, mode="w8"),
+                         buckets=GRAPH_BUCKETS), GRAPH_BUCKETS, flat),
+        ("w8a8", Predictor(QuantizedMLP.from_fused(fm),
+                           buckets=GRAPH_BUCKETS), GRAPH_BUCKETS, flat),
+        ("4x4096 stack", Predictor(stack, buckets=(STACK_B,)), (STACK_B,),
+         (STACK_N,)),
+        ("Network", Predictor(net, be, buckets=GRAPH_BUCKETS), GRAPH_BUCKETS,
+         flat),
+        ("SequencePredictor", SequencePredictor(rnn_model(be), be,
+                                                buckets=RNN_BUCKETS),
+         RNN_BUCKETS, (RNN_N, RNN_IN)),
+    ]
+
+
+def _device_bytes() -> tuple:
+    """(allocated, reserved) device bytes, after ``empty_cache``; torch's
+    cuBLAS workspaces of direct calls are dropped first (a capture drops
+    them, and they are no graph's)."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _graph_bytes(pred, buckets, shape, key) -> list:
+    """The device bytes each bucket's request graph holds, captured one
+    after another as ``warmup`` captures them: allocated and reserved
+    (after ``empty_cache``) before and after the capture of ``key(b)``,
+    the model's own caches made first by a direct request at each
+    bucket.  [(bucket, allocated, reserved)]."""
+    for b in buckets:
+        _direct_request(pred, np.zeros((b,) + shape, np.float32))
+    graphs = pred._serving[-1]
+    out, prev = [], _device_bytes()
+    for b in buckets:
+        graphs.get(key(b), keep=True)
+        now = _device_bytes()
+        out.append((b, now[0] - prev[0], now[1] - prev[1]))
+        prev = now
+    return out
+
+
+def _graph_mixed_lengths(be) -> None:
+    """A SequencePredictor none of whose lengths was warmed serves a
+    shuffled stream of GRAPH_MIX_REPEAT requests of each of
+    GRAPH_MIX_LENGTHS at bucket 8: one capture per length (at its first
+    request), every response bit-equal to the direct forward; host-clock
+    p50 of the first requests of a length (warm-up and capture) and of the
+    others (replays); the device bytes each length's graph holds."""
+    from tensor_ops_tpu_torch.models import SequencePredictor
+    from tensor_ops_tpu_torch.models import serve as S
+
+    pred = SequencePredictor(rnn_model(be), be, buckets=RNN_BUCKETS)
+    r = np.random.default_rng(311)
+    order = [n for n in GRAPH_MIX_LENGTHS for _ in range(GRAPH_MIX_REPEAT)]
+    r.shuffle(order)
+    xs = {n: r.uniform(0, 1, size=(8, n, RNN_IN)).astype(np.float32)
+          for n in GRAPH_MIX_LENGTHS}
+    want = {n: _direct_request(pred, x) for n, x in xs.items()}
+    c0 = S.graph_counts()["captures"]
+    first, again, held = [], [], {}
+    prev = _device_bytes()
+    for n in order:
+        t0 = time.perf_counter()
+        got = pred.predict(xs[n])
+        (again if n in held else first).append(
+            (time.perf_counter() - t0) * 1e6)
+        check(np.array_equal(got, want[n]), f"request graphs: the mixed "
+              f"stream's length {n} is not bit-equal to its direct forward")
+        if n not in held:  # the bytes its capture took, outside the timing
+            now = _device_bytes()
+            held[n] = (now[0] - prev[0], now[1] - prev[1])
+            prev = now
+    caps = S.graph_counts()["captures"] - c0
+    check(caps == len(GRAPH_MIX_LENGTHS), f"request graphs: the mixed "
+          f"stream of {len(GRAPH_MIX_LENGTHS)} lengths captured {caps}")
+    log(f"[graphs] SequencePredictor, mixed lengths {GRAPH_MIX_LENGTHS} at "
+        f"bucket 8, {len(order)} requests shuffled, none warmed: {caps} "
+        f"captures (one a length), every response bit-equal to the direct "
+        f"forward; host-clock p50 {statistics.median(first) / 1e3:.1f} ms "
+        f"for a length's first request (warm-up and capture), "
+        f"{statistics.median(again) / 1e3:.2f} ms for the others "
+        f"(replays); the {caps} graphs hold "
+        f"{sum(a for a, _ in held.values())} bytes allocated, "
+        f"{sum(r for _, r in held.values())} reserved; by length "
+        + ", ".join(f"{n}: {held[n][0]} / {held[n][1]}"
+                    for n in sorted(held)))
+
+
+def _graph_soak(fm, bucket: int, rows: int) -> None:
+    """The JAX package's serving soak (tests/test_serve.py:490) on the
+    card: GRAPH_SOAK_THREADS threads predict ``rows`` rows (bucket
+    ``bucket``) while GRAPH_SOAK_SWAPS reloads alternate the flagship's
+    FusedMLP and its w8a8 QuantizedMLP; no error, every response bit-equal
+    to one model's direct forward, and captures only in warmup and
+    reload."""
+    import threading
+
+    from tensor_ops_tpu_torch.models import Predictor, QuantizedMLP
+    from tensor_ops_tpu_torch.models import serve as S
+
+    qm = QuantizedMLP.from_fused(fm)
+    x = np.random.default_rng(31).uniform(0, 1, size=(rows, FLAGSHIP[0]))
+    x = x.astype(np.float32)
+    xb = np.pad(x, ((0, bucket - rows), (0, 0)))
+    want = [_direct_request(Predictor(m, buckets=(bucket,)), xb)[:rows]
+            for m in (fm, qm)]
+    check(not np.allclose(want[0], want[1]), "soak: the two models agree")
+    S.reset_graph_counts()
+    pred = Predictor(fm, buckets=(bucket,))
+    t0 = time.perf_counter()
+    pred.warmup()
+    warmup_s = time.perf_counter() - t0
+    errors, torn, lat = [], [], []
+    stop = threading.Event()
+
+    def client():
+        while not stop.is_set():
+            t = time.perf_counter()
+            try:
+                out = pred.predict(x)
+            except Exception as e:  # noqa: BLE001 — collected, checked
+                errors.append(repr(e))
+                return
+            lat.append(time.perf_counter() - t)
+            if not any(np.array_equal(out, w) for w in want):
+                torn.append(out)
+                return
+
+    threads = [threading.Thread(target=client)
+               for _ in range(GRAPH_SOAK_THREADS)]
+    for t in threads:
+        t.start()
+    captures, reloads = [], []
+    try:
+        for k in range(GRAPH_SOAK_SWAPS):
+            t0 = time.perf_counter()
+            pred.reload(qm if k % 2 == 0 else fm)
+            reloads.append(time.perf_counter() - t0)
+            captures.append(S.graph_counts()["captures"])
+            time.sleep(0.1)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    counts = S.graph_counts()
+    check(not errors, f"soak: predict raised under reload: {errors[:3]}")
+    check(not torn, "soak: a response was neither model's output")
+    check(len(lat) > 50, f"soak: only {len(lat)} requests")
+    check(captures == list(range(2, GRAPH_SOAK_SWAPS + 2))
+          and counts["captures"] == GRAPH_SOAK_SWAPS + 1,
+          f"soak: captures after each reload {captures}, in all "
+          f"{counts['captures']}: a request captured")
+    check(pred.latency()["n"] == len(lat), "soak: the timer lost requests")
+    s = np.sort(lat)
+    log(f"[graphs] soak: {GRAPH_SOAK_THREADS} threads, {GRAPH_SOAK_SWAPS} "
+        f"reloads alternating the flagship f32 and w8a8 at bucket "
+        f"{bucket} ({rows} rows): {len(lat)} requests, 0 errors, every response "
+        f"bit-equal to one model's direct forward, {counts['captures']} "
+        f"captures (1 warm-up + 1 a reload, none in a request), "
+        f"{counts['replays']} replays; request p50 {s[len(s) // 2] * 1e6:.1f}"
+        f" us, p99 {s[int(0.99 * (len(s) - 1))] * 1e6:.1f} us, max "
+        f"{s[-1] * 1e6:.1f} us (host clock); the warm-up's capture "
+        f"{warmup_s * 1e3:.1f} ms, a reload (conversion and capture) "
+        f"{statistics.median(reloads) * 1e3:.1f} ms median, "
+        f"{max(reloads) * 1e3:.1f} ms at most")
+
+
+def graphs_main() -> None:
+    """Phase 31 in its own interpreter: every single-device route of
+    ``Predictor`` and the ``SequencePredictor`` served from request graphs,
+    each bucket bit-equal to the direct forward, and again after every
+    other graph was captured; the launches a graph holds equal the direct
+    forward's; one graph launch a request and the kernels in it; p50s
+    graph against direct in interleaved rounds with idle shares; kernel
+    5's two instances by request graph; the soak; the graphs' bytes."""
+    from tensor_ops_tpu_torch import TorchBackend
+    from tensor_ops_tpu_torch.models import FusedMLP, Predictor
+    from tensor_ops_tpu_torch.models import serve as S
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    be = TorchBackend(torch.float32, DEVICE)
+    routes = _graph_routes(be)
+    r = np.random.default_rng(310)
+    xs, want = {}, {}
+    S.reset_graph_counts()
+    for name, pred, buckets, shape in routes:
+        t0 = time.perf_counter()
+        if isinstance(pred, Predictor):
+            pred.warmup()
+        else:
+            pred.warmup([RNN_N])
+        cap_s = time.perf_counter() - t0
+        held = []
+        for b in buckets:
+            x = r.uniform(0, 1, size=(b,) + shape).astype(np.float32)
+            xs[name, b] = x
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            want[name, b] = _direct_request(pred, x)
+            direct = K.launch_counts()
+            K.reset_launch_counts()
+            got = pred.predict(x)
+            graph = K.launch_counts()
+            check(np.array_equal(got, want[name, b]), f"request graphs: "
+                  f"{name} at bucket {b} is not bit-equal to its direct "
+                  f"forward (max |diff| "
+                  f"{np.abs(got - want[name, b]).max():.3g})")
+            check(graph == direct, f"request graphs: {name} at bucket {b} "
+                  f"counted {graph}, its direct forward {direct}")
+            held.append(f"{b}: " + (", ".join(
+                f"{k} x{v}" for k, v in graph.items() if v) or "none"))
+        log(f"[graphs] {name}: {len(buckets)} graphs captured in "
+            f"{cap_s * 1e3:.1f} ms, each bucket bit-equal to the direct "
+            f"forward; hand-written launches a request (held = direct): "
+            + "; ".join(held))
+    name, pred, _, shape = routes[0]
+    x = r.uniform(0, 1, size=(GRAPH_BEYOND,) + shape).astype(np.float32)
+    before = S.graph_counts()["captures"]
+    got = pred.predict(x)
+    top = -(-GRAPH_BEYOND // GRAPH_BUCKETS[-1]) * GRAPH_BUCKETS[-1]
+    check(S.graph_counts()["captures"] == before + 1
+          and np.array_equal(got, _direct_request(
+              pred, np.pad(x, ((0, top - GRAPH_BEYOND), (0, 0))))[
+                  :GRAPH_BEYOND]),
+          f"request graphs: {GRAPH_BEYOND} rows (bucket {top}) were not "
+          f"captured at first use or differ from the direct forward")
+    # every graph replayed again, in reverse order, after the last capture
+    for name, pred, buckets, shape in reversed(routes):
+        for b in reversed(buckets):
+            check(np.array_equal(pred.predict(xs[name, b]), want[name, b]),
+                  f"request graphs: {name} at bucket {b} changed after "
+                  f"the later captures")
+    log(f"[graphs] {GRAPH_BEYOND} rows captured at first use at bucket "
+        f"{top}, bit-equal; then every bucket of every route replayed in "
+        f"reverse order after the last capture: all still bit-equal; "
+        f"{S.graph_counts()['captures']} captures in all")
+
+    # one graph launch a request, and the kernels inside it; the device
+    # busy time of a request at that bucket by each arm
+    busy = {}
+    for name, pred, buckets, shape in routes:
+        b = 8 if 8 in buckets else buckets[0]
+        prof = _profile_steps(lambda: pred.predict(xs[name, b]), steps=5,
+                              whole=True)
+        busy[name, "graph"] = prof["busy_us"]
+        busy[name, "direct"] = _profile_steps(
+            lambda: _direct_request(pred, xs[name, b]), steps=5)["busy_us"]
+        calls = prof["calls"]
+        for kname, n in GRAPH_KERNELS[name].items():
+            check(calls.get(kname) == n, f"request graphs: {name} at bucket "
+                  f"{b} ran {calls.get(kname)} {kname}, want {n}")
+        check(prof["graph_launches"] == 1, f"request graphs: {name} at "
+              f"bucket {b}: {prof['graph_launches']} graph launches a "
+              f"request")
+        log(f"[graphs] {name} bucket {b}, profiler per request: "
+            f"{prof['graph_launches']:g} graph launch, "
+            f"{prof['other_launches']:g} other host launches (copies), "
+            f"{prof['launches']:g} kernels and {prof['copies']:g} copies on "
+            f"the card: " + ", ".join(f"{k} x{v:g}" for k, v in calls.items()))
+
+    # graph against direct, interleaved rounds
+    for name, pred, buckets, shape in routes:
+        line = []
+        for b in buckets:
+            x = xs[name, b]
+            arms = {"graph": lambda: pred.predict(x),
+                    "direct": lambda: _direct_request(pred, x)}
+            ts = {a: [] for a in arms}
+            for _ in range(GRAPH_ROUNDS):
+                for a, fn in arms.items():
+                    for _ in range(3):
+                        fn()
+                    torch.cuda.synchronize()
+                    for _ in range(GRAPH_TIMED):
+                        t0 = time.perf_counter()
+                        fn()
+                        ts[a].append((time.perf_counter() - t0) * 1e6)
+            p50 = {a: statistics.median(t) for a, t in ts.items()}
+            part = f"{b}: graph {p50['graph']:.1f} us"
+            if b == (8 if 8 in buckets else buckets[0]):
+                idle = {a: 1 - busy[name, a] / p50[a] for a in arms}
+                part += (f" (idle {idle['graph']:.3f}), direct "
+                         f"{p50['direct']:.1f} us (idle {idle['direct']:.3f})")
+            else:
+                part += f", direct {p50['direct']:.1f} us"
+            line.append(part)
+        log(f"[graphs] {name} p50 per request by bucket (host clock, "
+            f"{GRAPH_ROUNDS} interleaved rounds of {GRAPH_TIMED}; at the "
+            f"profiled bucket the idle share, 1 - profiler busy / p50): "
+            + "; ".join(line))
+
+    w8a8_request_turns(routes[4][1].model, xs["w8a8", W8A8_DIRECT_B])
+    for bucket, rows in GRAPH_SOAK_ARMS:
+        _graph_soak(routes[0][1].model, bucket, rows)
+    _graph_mixed_lengths(be)
+
+    for name, pred, buckets, shape in (routes[0], routes[5], routes[7]):
+        if isinstance(pred, Predictor):
+            fresh, key = Predictor(pred.model, buckets=buckets), int
+        else:
+            fresh = type(pred)(pred.rnet, pred.be, buckets=buckets)
+            key = lambda b: (b, RNN_N)  # noqa: E731
+        held = _graph_bytes(fresh, buckets, shape, key)
+        log(f"[graphs] device bytes held by the request graphs of a "
+            f"{name} at buckets {buckets}: {sum(h[1] for h in held)} "
+            f"allocated, {sum(h[2] for h in held)} reserved; by bucket "
+            + ", ".join(f"{b}: {a} / {r}" for b, a, r in held)
+            + " (torch.cuda memory_allocated / memory_reserved after "
+            "empty_cache, before and after each bucket's capture)")
+
+
+def phase_graphs() -> None:
+    """Run :func:`graphs_main` (phase 31) in an interpreter of its own with
+    a time limit; its lines print as they come."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.graphs_main()"],
+        timeout=GRAPH_TIMEOUT_S, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, f"the request-graph phase failed (exit "
+          f"{proc.returncode})")
+
+
 def timed(name: str, fn, *args):
     """``fn(*args)``, logging the phase's wall time."""
     t0 = time.perf_counter()
@@ -7492,6 +7966,7 @@ def smoke() -> int:
                               phase_procs, tmp)
         timed("tooling (own interpreter)", phase_tooling, tmp)
         dry_launches = timed("dry run (own interpreter)", phase_dryrun, tmp)
+    timed("request graphs (own interpreter)", phase_graphs)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "

@@ -98,36 +98,72 @@ def _failing_op(err: BaseException) -> str:
     return f"{f.name} ({f.filename}:{f.lineno}: {(f.line or '').strip()})"
 
 
-def capture(fn: Callable[[bool], Any], device) -> "torch.cuda.CUDAGraph":
+def _clear_cublas_workspaces() -> None:
+    """Drop the cuBLAS workspaces torch keeps per (handle, stream): the
+    next cuBLAS call on a stream allocates its own anew.  A torch built
+    without CUDA has none (and no such call)."""
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+
+
+def capture(fn: Callable[[bool], Any], device,
+            what: str = "the training step",
+            remedy: str = ("a chained window is never run eagerly on the "
+                           "card; pass chain_steps=1 to train unchained"),
+            stream: Optional["torch.cuda.Stream"] = None
+            ) -> "torch.cuda.CUDAGraph":
     """Run ``fn(False)`` once on a side stream (warm-up: cuBLAS handles,
     workspaces and the caching allocator's blocks), then capture one call
-    of ``fn(True)`` into a new CUDA graph and return it.  Raises
-    :class:`CaptureError` naming the operation that broke capture."""
+    of ``fn(True)`` into a new CUDA graph and return it.
+
+    With no ``stream`` the side stream is a new one and a full garbage
+    collection runs first, which frees the graphs and blocks of earlier
+    windows.  A caller that passes ``stream`` holds no reference cycle
+    over its graphs and gets no collection (it would stall every other
+    thread of the process): ``stream`` is then the side stream and the
+    capture's too (else the capture's is torch's own), so that what the
+    kernels keep per stream is made by the warm-up, outside the capture.
+
+    torch keeps one cuBLAS workspace per (handle, stream), and streams
+    come from a pool and recur.  The workspaces are dropped before the
+    warm-up, before the capture and after it, as ``torch.compile``'s
+    graphs do: a captured cuBLAS call then writes a workspace allocated
+    inside the capture, which the graph's own memory pool keeps, and no
+    warm-up or later call on the same stream writes it while the graph
+    replays.  Raises :class:`CaptureError` naming ``what`` was captured,
+    the operation that broke capture and the caller's ``remedy``."""
     t0 = time.perf_counter()
     device = torch.device(device)
     # a collection inside the capture could destroy an unreachable graph,
     # which a capturing stream refuses (the capture is then invalidated):
-    # collect first, and not during it
-    gc.collect()
+    # collect first (unless the caller's graphs hold no cycles), and never
+    # during it
+    if stream is None:
+        gc.collect()
     collecting = gc.isenabled()
     gc.disable()
     try:
         cur = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
+        side = stream if stream is not None else torch.cuda.Stream(device)
         side.wait_stream(cur)
+        _clear_cublas_workspaces()
         with torch.cuda.stream(side):
             fn(False)
         cur.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        _clear_cublas_workspaces()
+        on = {} if stream is None else {"stream": stream}
+        with torch.cuda.graph(graph, capture_error_mode="thread_local",
+                              **on):
             fn(True)
+        _clear_cublas_workspaces()
         torch.cuda.synchronize(device)
     except Exception as err:  # noqa: BLE001 — re-raised with its site
         raise CaptureError(
-            f"capturing the training step in a CUDA graph failed at "
-            f"{_failing_op(err)}: {type(err).__name__}: {err} — a chained "
-            f"window is never run eagerly on the card; pass chain_steps=1 "
-            f"to train unchained") from err
+            f"capturing {what} in a CUDA graph failed at "
+            f"{_failing_op(err)}: {type(err).__name__}: {err} — "
+            f"{remedy}") from err
     finally:
         if collecting:
             gc.enable()

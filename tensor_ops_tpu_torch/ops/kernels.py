@@ -53,6 +53,7 @@ dequantized weight to bf16 at ``"default"``, so both its versions do.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import threading
@@ -95,9 +96,38 @@ def reset_launch_counts() -> None:
             _launches[k] = 0
 
 
+# a CUDA graph's capture: the thread that captures records its wrapper calls
+# here (they only enter the graph) instead of counting them as launches
+_held = threading.local()
+
+
 def _count(name: str) -> None:
+    held = getattr(_held, "counts", None)
+    if held is not None:
+        held[name] = held.get(name, 0) + 1
+        return
     with _launch_lock:
         _launches[name] += 1
+
+
+@contextlib.contextmanager
+def held_launches():
+    """Inside, this thread's wrapper calls are not counted but recorded in
+    the dict it yields: a CUDA graph's capture, whose kernels run (and are
+    counted by :func:`count_launches`) each time the graph is replayed."""
+    _held.counts = held = {}
+    try:
+        yield held
+    finally:
+        _held.counts = None
+
+
+def count_launches(held: Dict[str, int]) -> None:
+    """Count one replay of a captured graph: the launches it holds
+    (:func:`held_launches`)."""
+    with _launch_lock:
+        for name, n in held.items():
+            _launches[name] += n
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +316,14 @@ def _scratch_for(name: str, dev: int, stream: int, numel: int,
         buf = make(max(numel, 1), dtype=dtype, device=torch.device("cuda", dev))
         _scratch[key] = buf
     return buf
+
+
+def take_scratch(stream: int) -> List[torch.Tensor]:
+    """Remove the buffers kept for the raw stream ``stream`` and return
+    them.  A CUDA graph captured on that stream keeps them from then on, so
+    no later launch on the stream (streams come from a pool and recur) can
+    replace a buffer the graph's kernels still write."""
+    return [_scratch.pop(k) for k in list(_scratch) if k[2] == stream]
 
 
 # ---------------------------------------------------------------------------

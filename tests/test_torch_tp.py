@@ -322,7 +322,10 @@ def test_predictor_reload_switches_the_route_atomically(served):
     assert not p._sharded and p._serving[0] is fm
     np.testing.assert_allclose(p.predict(x), ref, atol=1e-6, rtol=0)
     p.reload(sfm)
-    assert p._sharded and p._serving[0] is sfm and len(p._serving) == 4
+    # the serving state: (model, backend, int8 stack, sharded, graphs);
+    # the mesh route runs direct, so it holds no request graphs
+    assert p._sharded and p._serving[0] is sfm and len(p._serving) == 5
+    assert p._serving[4] is None
     np.testing.assert_allclose(p.predict(x), ref, atol=1e-6, rtol=0)
     bf = Predictor(sfm, buckets=(8,), dtype="bf16")
     assert bf._sharded and bf.model.weights[0].dtype == torch.bfloat16
