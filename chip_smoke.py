@@ -393,6 +393,26 @@ without printing a result line:
    unwarmed ``SequencePredictor``: one capture a length, each response
    bit-equal, first-use and replay p50s; and the device bytes the graphs
    of a flagship, a stack and a sequence predictor hold.
+32. Compiled entry points, in an interpreter of its own with a time limit
+   (``compiled_main``): every entry point the JAX package jits, on the card
+   from one CUDA graph per shape (``engine``): the engine's compiled
+   forward, gradient and VJP behind ``Network``, ``RecurrentNetwork`` and
+   ``Encoder``; ``Network.train``; the per-sample fold (1,000 samples) and
+   the induction loop (5,000 steps), one captured step replayed once a
+   step; ``batched_run`` (``accuracy``, ``confusion``), ``train_minibatch``,
+   ``batch_loss``, ``seq_losses``, ``seq_batch_loss`` and
+   ``RecurrentNetwork.train_batch``; ``FusedMLP.train`` (kernel 1),
+   ``train_fullfused`` and ``FusedAutoencoder.train`` (kernel 3),
+   ``FusedRNN`` at 32 -> 512 (kernel 7's sequence launch) and 32 -> 1024
+   (its step launches), ``impl="pallas"`` and ``"xla"``: each bit-equal to
+   its direct call (``engine.direct``) at its first call and at a replay,
+   its hand-written launches equal, captures at the first call only; new
+   rates without a capture (kernel 3 reads its rate from the card's
+   memory); each route graph against direct in interleaved turns (wall per
+   call, kernels and graph launches per call, busy time, idle share); the
+   mnist app's default fold, ``--minibatch 100``, ``--fused`` and
+   ``--induce 3`` on the synthetic set with samples/s; the bytes the
+   engine's graphs hold.
 
 The second-to-last line is ``{"kernels": [...]}``: per kernel its launches
 on its main path (a request served from its graph counts the launches the
@@ -7522,6 +7542,10 @@ GRAPH_SOAK_THREADS, GRAPH_SOAK_SWAPS = 4, 6
 # the soak's arms, (bucket, rows a request): kernel 2 against kernel 5, and
 # run_xla (cuBLAS) against kernel 5
 GRAPH_SOAK_ARMS = ((8, 5), (128, 100))
+# the soak's race arm: rounds of direct cuBLAS calls on streams torch's pool
+# hands out (every pooled stream recurs) and of new captures, while request
+# graphs of run_xla replay
+GRAPH_RACE_ROUNDS, GRAPH_RACE_STREAMS = 12, 64
 # a stream of requests of mixed sequence lengths on a SequencePredictor
 # none of whose lengths was warmed: GRAPH_MIX_REPEAT requests of each
 # length at bucket 8, in a shuffled order
@@ -7592,10 +7616,10 @@ def _graph_routes(be):
 
 def _device_bytes() -> tuple:
     """(allocated, reserved) device bytes, after ``empty_cache``; torch's
-    cuBLAS workspaces of direct calls are dropped first (a capture drops
-    them, and they are no graph's)."""
+    cuBLAS workspaces stay (graphs read the ones they were captured
+    with), so a graph's bytes include a workspace its capture stream had
+    not held before."""
     torch.cuda.synchronize()
-    torch._C._cuda_clearCublasWorkspaces()
     torch.cuda.empty_cache()
     return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
 
@@ -7744,6 +7768,83 @@ def _graph_soak(fm, bucket: int, rows: int) -> None:
         f"{max(reloads) * 1e3:.1f} ms at most")
 
 
+def _graph_race_soak(be, fm) -> None:
+    """The soak's race arm: GRAPH_SOAK_THREADS threads replay the request
+    graph of the flagship's run_xla (cuBLAS) at bucket 128 (100 rows)
+    while this thread, GRAPH_RACE_ROUNDS times, runs a direct cuBLAS call
+    on each of GRAPH_RACE_STREAMS streams torch's pool hands out (each
+    pooled stream comes back, the capture streams of older graphs among
+    them before every graph captured on the card's own) and then captures
+    graphs whose warm-ups call cuBLAS: a request graph of run_xla at a new
+    bucket, the engine's ``batched_run`` at a new row count.  Every
+    response must be bit-equal to the direct forward: no warm-up and no
+    direct call wrote the workspace a replaying graph reads."""
+    import threading
+
+    from tensor_ops_tpu_torch import engine
+    from tensor_ops_tpu_torch.models import Predictor
+    from tensor_ops_tpu_torch.models import serve as S
+    from tensor_ops_tpu_torch.models import training as TT
+
+    r = np.random.default_rng(33)
+    x = r.uniform(0, 1, size=(100, FLAGSHIP[0])).astype(np.float32)
+    pred = Predictor(fm, buckets=(128,))
+    want = _direct_request(pred, np.pad(x, ((0, 28), (0, 0))))[:100]
+    pred.warmup()
+    net = _flagship_net(be)
+    X = be.asarray(r.uniform(0, 1, size=(300, FLAGSHIP[0])))
+    a = torch.rand(1024, FLAGSHIP[0], device=DEVICE)
+    b = torch.rand(FLAGSHIP[0], 1024, device=DEVICE)
+    errors, torn, done = [], [], [0]
+    stop = threading.Event()
+
+    def client():
+        while not stop.is_set():
+            try:
+                out = pred.predict(x)
+            except Exception as e:  # noqa: BLE001 — collected, checked
+                errors.append(repr(e))
+                return
+            done[0] += 1
+            if not np.array_equal(out, want):
+                torn.append(out)
+                return
+
+    e0, s0 = engine.graph_counts()["captures"], S.graph_counts()["captures"]
+    threads = [threading.Thread(target=client)
+               for _ in range(GRAPH_SOAK_THREADS)]
+    for t in threads:
+        t.start()
+    try:
+        for k in range(GRAPH_RACE_ROUNDS):
+            cur = torch.cuda.current_stream()
+            for _ in range(GRAPH_RACE_STREAMS):
+                side = torch.cuda.Stream()
+                side.wait_stream(cur)
+                with torch.cuda.stream(side):
+                    (a @ b).sum()
+                cur.wait_stream(side)
+            Predictor(fm, buckets=(136 + 8 * k,)).warmup()
+            TT.batched_run(net, be)(X[:200 + k], *net.params)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    caps = (engine.graph_counts()["captures"] - e0,
+            S.graph_counts()["captures"] - s0)
+    check(not errors, f"race soak: predict raised: {errors[:3]}")
+    check(not torn, "race soak: a response was not the direct forward's")
+    check(done[0] > 50, f"race soak: only {done[0]} requests")
+    check(caps == (GRAPH_RACE_ROUNDS, GRAPH_RACE_ROUNDS),
+          f"race soak: {caps} captures (engine, request graphs)")
+    log(f"[graphs] race soak: {GRAPH_SOAK_THREADS} threads replayed the "
+        f"run_xla request graph at bucket 128 ({done[0]} requests) while "
+        f"{GRAPH_RACE_ROUNDS} rounds ran a direct cuBLAS call on each of "
+        f"{GRAPH_RACE_STREAMS} pooled streams and captured {caps[1]} request "
+        f"graphs and {caps[0]} engine graphs, their warm-ups calling cuBLAS: "
+        f"0 errors, every response bit-equal to the direct forward")
+
+
 def graphs_main() -> None:
     """Phase 31 in its own interpreter: every single-device route of
     ``Predictor`` and the ``SequencePredictor`` served from request graphs,
@@ -7871,6 +7972,7 @@ def graphs_main() -> None:
     w8a8_request_turns(routes[4][1].model, xs["w8a8", W8A8_DIRECT_B])
     for bucket, rows in GRAPH_SOAK_ARMS:
         _graph_soak(routes[0][1].model, bucket, rows)
+    _graph_race_soak(be, routes[0][1].model)
     _graph_mixed_lengths(be)
 
     for name, pred, buckets, shape in (routes[0], routes[5], routes[7]):
@@ -7898,6 +8000,432 @@ def phase_graphs() -> None:
         timeout=GRAPH_TIMEOUT_S, cwd=here,
         env=dict(os.environ, PYTHONPATH=here))
     check(proc.returncode == 0, f"the request-graph phase failed (exit "
+          f"{proc.returncode})")
+
+
+# Phase 32, compiled entry points: every entry point the JAX package jits,
+# on the card from one CUDA graph per shape (engine.Compiled) or, for the
+# per-sample fold and the induction loop, one captured step replayed once a
+# step (engine.Loop): the flagship (random weights, seed 0) at one sample,
+# at the app's minibatch of 100, at a 1,000-sample fold chunk and at 5,000
+# induction steps; the recurrent model of phase 9 (n = 64, 8 sequences);
+# the 784-128-32-128-784 autoencoder at 100 rows; FusedRNN at the recurrent
+# cell's 32 -> 512 (kernel 7's sequence launch) and at 32 -> 1024, a cell
+# too wide for the sequence kernel (one step launch a step).
+COMPILED_TIMEOUT_S = 300
+COMPILED_B = 100
+COMPILED_FOLD, COMPILED_FOLD_PROFILED = 1000, 100
+COMPILED_INDUCE, COMPILED_INDUCE_PROFILED = 5000, 500
+COMPILED_VAL = 1000
+COMPILED_RNN_WIDE = 1024
+COMPILED_TURNS, COMPILED_CALLS = 2, 20
+# the mnist app's routes, each one epoch of the synthetic set
+COMPILED_APP_ROUTES = ((), ("--minibatch", "100"),
+                       ("--minibatch", "100", "--fused"), ("--induce", "3"))
+# entry points that replay an earlier entry's graph (the same compiled
+# function at the same shapes): their first call captures nothing
+COMPILED_SHARED = {"Network.network_gradient": "Network.net_grad",
+                   "Network.induce": "Network.net_grad",
+                   "RecurrentNetwork.train": "RecurrentNetwork.seq_grad",
+                   "Encoder.train": "Encoder.grad",
+                   "accuracy": "batched_run", "confusion": "batched_run",
+                   "seq_batch_loss": "seq_losses"}
+
+
+def _out_leaves(out) -> list:
+    """The tensors and numbers of an entry point's result, the parameters
+    (and states) of the models in it included."""
+    from tensor_ops_tpu_torch.models import (Encoder, FusedAutoencoder,
+                                             FusedMLP, FusedRNN, Network,
+                                             RecurrentNetwork)
+
+    if isinstance(out, (tuple, list)):
+        return [x for o in out for x in _out_leaves(o)]
+    if isinstance(out, Network):
+        return list(out.params)
+    if isinstance(out, RecurrentNetwork):
+        return list(out.states) + list(out.params)
+    if isinstance(out, Encoder):
+        return _out_leaves((out.encoder, out.decoder))
+    if isinstance(out, FusedAutoencoder):
+        return _out_leaves(out.mlp)
+    if isinstance(out, FusedMLP):
+        return list(out.to_params())
+    if isinstance(out, FusedRNN):
+        return [out.wX, out.wS, out.b, out.s0]
+    return [out]
+
+
+def _same_out(a, b) -> bool:
+    la, lb = _out_leaves(a), _out_leaves(b)
+    if len(la) != len(lb):
+        return False
+    for x, y in zip(la, lb):
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            return False
+        if isinstance(x, torch.Tensor):
+            if not torch.equal(x, y):
+                return False
+        elif not np.array_equal(np.asarray(x), np.asarray(y)):
+            return False
+    return True
+
+
+def _compiled_entries(be):
+    """Phase 32's entry points: (item, name, call)."""
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (Encoder, FusedAutoencoder,
+                                             FusedMLP, FusedRNN,
+                                             act_logistic, cross_entropy,
+                                             gen_net, squared_error)
+    from tensor_ops_tpu_torch.models import training as TT
+
+    net = _flagship_net(be)
+    loss = cross_entropy(FLAGSHIP[-1])
+    r = np.random.default_rng(320)
+    X = be.asarray(r.uniform(0, 1, size=(COMPILED_FOLD, FLAGSHIP[0])))
+    labels = r.integers(0, FLAGSHIP[-1], size=COMPILED_FOLD)
+    Y = be.asarray(np.eye(FLAGSHIP[-1])[labels])
+    x1, y1 = X[0], Y[0]
+    xb, yb = X[:COMPILED_B], Y[:COMPILED_B]
+    rnet = rnn_model(be)
+    rloss = squared_error(RNN_OUT)
+    XS = be.asarray(r.uniform(0, 1, size=(RNN_SEQS, RNN_N, RNN_IN)))
+    TS = be.asarray(r.uniform(0, 1, size=(RNN_SEQS, RNN_N, RNN_OUT)))
+    xs, ts = XS[0], TS[0]
+    rng = Rng(be, 0)
+    i, h, z = AE_DIMS[0], AE_DIMS[1], AE_DIMS[2]
+    enc = Encoder(gen_net(be, i, z, [(h, act_logistic())], act_logistic(),
+                          rng),
+                  gen_net(be, z, i, [(h, act_logistic())], act_logistic(),
+                          rng))
+    eloss = squared_error(i)
+    fae = FusedAutoencoder.from_encoder(enc)
+    fm = FusedMLP.from_network(net)
+    rnns = {}
+    for o in (RNN_HIDDEN, COMPILED_RNN_WIDE):
+        w = np.random.default_rng(o)
+        s = 1 / math.sqrt(RNN_IN + o)
+        for impl in ("pallas", "xla") if o == RNN_HIDDEN else ("pallas",):
+            rnns[o, impl] = FusedRNN.from_numpy(
+                *(np.asarray(a, np.float32) for a in (
+                    w.normal(size=(o, RNN_IN)) * s, w.normal(size=(o, o)) * s,
+                    w.normal(size=o) * 0.1, w.normal(size=o) * 0.5)),
+                impl=impl, device=DEVICE)
+    rxs = np.asarray(r.normal(size=(RNN_N, RNN_IN)), np.float32)
+    rtg = {o: np.asarray(0.3 * r.normal(size=(RNN_N, o)), np.float32)
+           for o in (RNN_HIDDEN, COMPILED_RNN_WIDE)}
+    out = [
+        (1, "Network.run", lambda: net.run(be, x1)),
+        (1, "Network.net_grad", lambda: net.net_grad(loss, be, x1, y1)),
+        (1, "Network.network_gradient",
+         lambda: net.network_gradient(loss, be, x1, y1)),
+        (1, "Network.loss_value", lambda: net.loss_value(loss, be, x1, y1)),
+        (1, "Network.induce", lambda: net.induce(loss, 0.5, be, y1, x1)),
+        (1, "RecurrentNetwork.run", lambda: rnet.run(be, xs[0])),
+        (1, "RecurrentNetwork.run_seq", lambda: rnet.run_seq(be, xs)),
+        (1, "RecurrentNetwork.seq_grad",
+         lambda: rnet.seq_grad(rloss, be, xs, ts)),
+        (1, "RecurrentNetwork.seq_loss",
+         lambda: rnet.seq_loss(rloss, be, xs, ts)),
+        (1, "RecurrentNetwork.train",
+         lambda: rnet.train(rloss, 0.01, 0.05, be, xs, ts)),
+        (1, "Encoder.test_loss", lambda: enc.test_loss(eloss, be, X[1])),
+        (1, "Encoder.grad", lambda: enc.grad(eloss, be, X[1])),
+        (1, "Encoder.train", lambda: enc.train(eloss, 0.5, be, X[1])),
+        (2, "Network.train", lambda: net.train(loss, TRAIN_RATE, be, x1,
+                                               y1)),
+        (3, "train_fold", lambda: TT.train_fold(net, loss, be, TRAIN_RATE,
+                                                X, Y)),
+        (3, "induce_many", lambda: net.induce_many(
+            loss, 1.0, be, y1, X[2], COMPILED_INDUCE)),
+        (4, "batched_run", lambda: TT.batched_run(net, be)(X, *net.params)),
+        (4, "accuracy", lambda: TT.accuracy(net, be, X, labels)),
+        (4, "confusion", lambda: TT.confusion(net, be, X, labels, 10)),
+        (4, "train_minibatch", lambda: TT.train_minibatch(
+            net, loss, be, TRAIN_RATE, xb, yb)),
+        (4, "batch_loss", lambda: TT.batch_loss(net, loss, be, xb, yb)),
+        (4, "seq_losses", lambda: TT.seq_losses(rnet, rloss, be, XS, TS)),
+        (4, "seq_batch_loss", lambda: TT.seq_batch_loss(rnet, rloss, be, XS,
+                                                        TS)),
+        (4, "RecurrentNetwork.train_batch", lambda: rnet.train_batch(
+            rloss, 0.01, 0.05, be, XS, TS)),
+        (5, "FusedMLP.train", lambda: fm.train(TRAIN_RATE, xb, yb)),
+        (5, "FusedMLP.train_fullfused",
+         lambda: fm.train_fullfused(TRAIN_RATE, xb, yb)),
+        (5, "FusedAutoencoder.train", lambda: fae.train(AE_RATE, xb)),
+    ]
+    for (o, impl), m in rnns.items():
+        out.append((5, f"FusedRNN {RNN_IN}->{o} {impl} seq_forward",
+                    lambda m=m: m.seq_forward(rxs)))
+        out.append((5, f"FusedRNN {RNN_IN}->{o} {impl} train",
+                    lambda m=m, o=o: m.train(0.01, 0.001, rxs, rtg[o])))
+    return out
+
+
+def _call_counted(call):
+    """``call()``, the hand-written launches it counted and its wall
+    microseconds (host clock, the card drained before and after)."""
+    from tensor_ops_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) * 1e6
+    return out, {k: v for k, v in K.launch_counts().items() if v}, us
+
+
+def _compiled_checks(be) -> dict:
+    """Every entry point bit-equal to its direct call at its first call (a
+    capture) and at a replay, the launches each counts equal, captures only
+    at the first call; returns the entries by name and the wall
+    microseconds of each direct call."""
+    from tensor_ops_tpu_torch import engine
+
+    entries = _compiled_entries(be)
+    walls = {}
+    for item, name, call in entries:
+        with engine.direct():
+            want, direct, walls[name] = _call_counted(call)
+        c0 = engine.graph_counts()["captures"]
+        first, n_first, _ = _call_counted(call)
+        c1 = engine.graph_counts()["captures"]
+        again, n_again, _ = _call_counted(call)
+        c2 = engine.graph_counts()["captures"]
+        check(_same_out(first, want) and _same_out(again, want),
+              f"compiled entry points: {name} is not bit-equal to its "
+              f"direct call (first call {_same_out(first, want)}, replay "
+              f"{_same_out(again, want)})")
+        check(n_first == direct and n_again == direct,
+              f"compiled entry points: {name} counted {n_first} at its "
+              f"capture and {n_again} at a replay, its direct call "
+              f"{direct}")
+        shared = COMPILED_SHARED.get(name)
+        check((c1 == c0 if shared else c1 > c0) and c2 == c1,
+              f"compiled entry points: {name} captured {c1 - c0} graphs at "
+              f"its first call and {c2 - c1} at its second")
+        log(f"[compiled] item {item} {name}: "
+            + (f"replays {shared}'s graph" if shared
+               else f"{c1 - c0} capture(s)")
+            + f", first call and replay bit-equal to the direct call; "
+            f"hand-written "
+            f"launches a call (direct = capture = replay): "
+            + (", ".join(f"{k} x{v}" for k, v in direct.items()) or "none"))
+    want_kernels = {"FusedMLP.train": ("fused_linear", 3),
+                    "FusedMLP.train_fullfused": ("fused_mlp_train_step", 1),
+                    "FusedAutoencoder.train": ("fused_mlp_train_step", 1),
+                    f"FusedRNN {RNN_IN}->{RNN_HIDDEN} pallas train":
+                        ("fused_rnn_step.seq", 1),
+                    f"FusedRNN {RNN_IN}->{COMPILED_RNN_WIDE} pallas train":
+                        ("fused_rnn_step", RNN_N)}
+    by_name = {name: call for _, name, call in entries}
+    for name, (kname, n) in want_kernels.items():
+        _, got, _ = _call_counted(by_name[name])
+        check(got.get(kname) == n, f"compiled entry points: a replay of "
+              f"{name} counted {got}, want {kname} x{n}")
+    return by_name, walls
+
+
+def _second_rates(be, by_name) -> None:
+    """A new rate replays the graph of the first and gives the direct
+    result at that rate."""
+    from tensor_ops_tpu_torch import engine
+    from tensor_ops_tpu_torch.models import FusedMLP, cross_entropy
+    from tensor_ops_tpu_torch.models import training as TT
+
+    net = _flagship_net(be, seed=1)
+    fm = FusedMLP.from_network(net)
+    loss = cross_entropy(FLAGSHIP[-1])
+    r = np.random.default_rng(321)
+    X = be.asarray(r.uniform(0, 1, size=(COMPILED_B, FLAGSHIP[0])))
+    Y = be.asarray(np.eye(FLAGSHIP[-1])[r.integers(0, 10, COMPILED_B)])
+    calls = {"Network.train": lambda v: net.train(loss, v, be, X[0], Y[0]),
+             "train_fold": lambda v: TT.train_fold(net, loss, be, v, X, Y),
+             "train_fullfused (kernel 3's rate from the card's memory)":
+                 lambda v: fm.train_fullfused(v, X, Y)}
+    for what, call in calls.items():
+        call(TRAIN_RATE)
+        c0 = engine.graph_counts()["captures"]
+        for v in (0.05, 0.7):
+            with engine.direct():
+                want = call(v)
+            check(_same_out(call(v), want), f"compiled entry points: "
+                  f"{what} at rate {v} is not its direct result")
+        check(engine.graph_counts()["captures"] == c0, f"compiled entry "
+              f"points: a new rate of {what} captured")
+    log(f"[compiled] new rates (0.05, 0.7 after {TRAIN_RATE}) replay the "
+        f"graph of the first, each bit-equal to its direct call: "
+        + ", ".join(calls))
+    # beside bf16 weights a rate keys the graph by its value (a 0-d float32
+    # rate would be rounded to bf16 on the card)
+    fm16 = fm.astype(torch.bfloat16)
+    caps = []
+    for v in (TRAIN_RATE, 0.05, TRAIN_RATE):
+        with engine.direct():
+            want = fm16.train(v, X, Y)
+        c0 = engine.graph_counts()["captures"]
+        check(_same_out(fm16.train(v, X, Y), want), f"compiled entry "
+              f"points: bf16 FusedMLP.train at rate {v} is not its direct "
+              f"result")
+        check(_same_out(fm16.train(v, X, Y), want), f"compiled entry "
+              f"points: a replay of bf16 FusedMLP.train at rate {v} is not "
+              f"its direct result")
+        caps.append(engine.graph_counts()["captures"] - c0)
+    check(caps == [1, 1, 0], f"compiled entry points: bf16 FusedMLP.train "
+          f"captured {caps} at rates {TRAIN_RATE}, 0.05, {TRAIN_RATE}")
+    log(f"[compiled] bf16 FusedMLP.train at rates {TRAIN_RATE}, 0.05, "
+        f"{TRAIN_RATE}: {caps} captures (a graph per rate's value), the "
+        f"first call and a replay of each bit-equal to its direct call")
+
+
+def _turns(arms: dict, calls: int, turns: int = COMPILED_TURNS) -> dict:
+    """Host-clock microseconds per call of each arm, ``turns`` turns of
+    ``calls`` calls each, the arms interleaved (the order reversed every
+    other turn), the card drained after each turn; the median of the
+    turns."""
+    ts = {a: [] for a in arms}
+    names = list(arms)
+    for t in range(turns):
+        for a in (names if t % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                arms[a]()
+            torch.cuda.synchronize()
+            ts[a].append((time.perf_counter() - t0) / calls * 1e6)
+    return {a: statistics.median(v) for a, v in ts.items()}
+
+
+def _compiled_timing(be, by_name, walls) -> None:
+    """Each route graph against direct: wall per call (host clock,
+    interleaved turns; the fold's and the induction's direct call once, in
+    the checks, ``walls``), kernels, graph launches and device busy time
+    per call (profiler), the idle share (1 - busy / wall)."""
+    from tensor_ops_tpu_torch import engine
+    from tensor_ops_tpu_torch.models import cross_entropy
+    from tensor_ops_tpu_torch.models import training as TT
+
+    net = _flagship_net(be)
+    loss = cross_entropy(FLAGSHIP[-1])
+    r = np.random.default_rng(322)
+    X = be.asarray(r.uniform(0, 1, size=(COMPILED_FOLD, FLAGSHIP[0])))
+    Y = be.asarray(np.eye(FLAGSHIP[-1])[r.integers(0, 10, COMPILED_FOLD)])
+    Xv = be.asarray(r.uniform(0, 1, size=(COMPILED_VAL, FLAGSHIP[0])))
+    small = {"fold": lambda: TT.train_fold(net, loss, be, TRAIN_RATE,
+                                           X[:COMPILED_FOLD_PROFILED],
+                                           Y[:COMPILED_FOLD_PROFILED]),
+             "induce": lambda: net.induce_many(loss, 1.0, be, Y[0], X[1],
+                                               COMPILED_INDUCE_PROFILED)}
+    routes = [
+        ("--minibatch step (train_minibatch, B=100)",
+         by_name["train_minibatch"], None, COMPILED_CALLS),
+        ("FusedMLP.train (B=100)", by_name["FusedMLP.train"], None,
+         COMPILED_CALLS),
+        ("--fused step (train_fullfused, B=100)",
+         by_name["FusedMLP.train_fullfused"], None, COMPILED_CALLS),
+        ("Network.train (one sample)", by_name["Network.train"], None,
+         COMPILED_CALLS),
+        (f"validation (batched_run, {COMPILED_VAL} rows)",
+         lambda: TT.batched_run(net, be)(Xv, *net.params), None,
+         COMPILED_CALLS),
+        (f"fold (train_fold, {COMPILED_FOLD} samples)",
+         by_name["train_fold"],
+         ("fold", COMPILED_FOLD // COMPILED_FOLD_PROFILED), 1),
+        (f"--induce (induce_many, {COMPILED_INDUCE} steps)",
+         by_name["induce_many"],
+         ("induce", COMPILED_INDUCE // COMPILED_INDUCE_PROFILED), 1),
+        (f"FusedRNN {RNN_IN}->{RNN_HIDDEN} pallas train (n={RNN_N})",
+         by_name[f"FusedRNN {RNN_IN}->{RNN_HIDDEN} pallas train"], None,
+         COMPILED_CALLS),
+        ("FusedAutoencoder.train (B=100)", by_name["FusedAutoencoder.train"],
+         None, COMPILED_CALLS),
+    ]
+
+    def direct(fn):
+        def run():
+            with engine.direct():
+                return fn()
+        return run
+
+    once = {"fold": walls["train_fold"], "induce": walls["induce_many"]}
+    for name, fn, scaled, calls in routes:
+        fn()
+        arms = {"graph": fn, "direct": direct(fn)}
+        if scaled is None:
+            wall = _turns(arms, calls)
+        else:
+            wall = _turns({"graph": fn}, calls)
+            wall["direct"] = once[scaled[0]]
+        line = []
+        for a, arm in arms.items():
+            if scaled is None:
+                prof, k = _profile_steps(arm, steps=5, whole=True), 1
+            else:
+                sub = small[scaled[0]]
+                prof = _profile_steps(sub if a == "graph" else direct(sub),
+                                      steps=1, whole=True)
+                k = scaled[1]
+            busy = prof["busy_us"] * k
+            line.append(
+                f"{a} {wall[a]:.1f} us (kernels {prof['launches'] * k:.0f}, "
+                f"graph launches {prof['graph_launches'] * k:.0f}, busy "
+                f"{busy:.1f} us, idle {1 - busy / wall[a]:.3f})")
+        log(f"[compiled] {name}, per call: " + "; ".join(line)
+            + (f" (the direct wall from one call, in the checks; kernels, "
+               f"launches and busy from a profile of 1/{scaled[1]} of the "
+               f"call, times {scaled[1]})" if scaled else ""))
+
+
+def compiled_main() -> None:
+    """Phase 32 in its own interpreter: every compiled entry point (items
+    1-5) bit-equal to its direct call on the card, its launches equal,
+    captures only on a new shape, new rates without a capture; each route
+    graph against direct; the mnist app's default fold, ``--minibatch
+    100``, ``--fused`` and ``--induce`` on the synthetic set; the bytes the
+    engine's graphs hold."""
+    from tensor_ops_tpu_torch import TorchBackend, engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    be = TorchBackend(torch.float32, DEVICE)
+    engine.reset_graph_counts()
+    a0, r0 = _device_bytes()
+    by_name, walls = _compiled_checks(be)
+    _second_rates(be, by_name)
+    _compiled_timing(be, by_name, walls)
+    with tempfile.TemporaryDirectory() as tmp:
+        for extra in COMPILED_APP_ROUTES:
+            c0 = engine.graph_counts()
+            run = run_mnist_app(tmp, list(extra))
+            c1 = engine.graph_counts()
+            log(f"[compiled] mnist {' '.join(extra) or '(default fold)'}: "
+                f"{run['samples_per_s']:.0f} training samples/s (batches "
+                f"2-6, --metrics); {c1['captures'] - c0['captures']} "
+                f"captures, {c1['replays'] - c0['replays']} replays")
+    a1, r1 = _device_bytes()
+    pool = engine.pool_bytes(DEVICE)
+    counts = engine.graph_counts()
+    log(f"[compiled] the engine's graphs after every route: "
+        f"{counts['captures']} captures ({counts['capture_s']:.2f} s of host "
+        f"time), {counts['replays']} replays; their memory pool "
+        f"{pool['reserved']} bytes reserved, {pool['allocated']} allocated; "
+        f"the phase's device bytes (graphs, their static buffers and what "
+        f"the phase keeps) {a1 - a0} allocated, {r1 - r0} reserved "
+        f"(memory_allocated / memory_reserved after empty_cache)")
+
+
+def phase_compiled() -> None:
+    """Run :func:`compiled_main` (phase 32) in an interpreter of its own
+    with a time limit; its lines print as they come."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.compiled_main()"],
+        timeout=COMPILED_TIMEOUT_S, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    check(proc.returncode == 0, f"the compiled-entry phase failed (exit "
           f"{proc.returncode})")
 
 
@@ -7967,6 +8495,7 @@ def smoke() -> int:
         timed("tooling (own interpreter)", phase_tooling, tmp)
         dry_launches = timed("dry run (own interpreter)", phase_dryrun, tmp)
     timed("request graphs (own interpreter)", phase_graphs)
+    timed("compiled entry points (own interpreter)", phase_compiled)
     for route in ("fused", "minibatch"):
         log(f"[timing] mnist app --minibatch 100{' --fused' * (route == 'fused')}"
             f": {tr[route]['samples_per_s']:.0f} training samples/s "

@@ -53,7 +53,9 @@
 // cross-entropy is -Σ y·log(p > 0 ? p : 1), as the TPU kernel takes it (not
 // FusedMLP._loss's log(p + 1e-30)).  The update is
 // w - lr·g with each product and difference rounded on its own, as the
-// plain version's `w - lr * g`.
+// plain version's `w - lr * g`.  The rate comes by value, or from a float on
+// the card (`lr_dev`), which a CUDA graph of the step reads at each replay,
+// so a graph captured once serves every rate.
 //
 // Precision: both precision names compute in IEEE fp32 FMA.  On the TPU
 // "default" meant bf16 multiplies on the MXU.
@@ -99,6 +101,7 @@ struct StepArgs {
   int loss_kind;
   int B;
   float lr;
+  const float* lr_dev;  // when set, the rate: read by each block at its G stages
 };
 
 __device__ __forceinline__ int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -228,7 +231,7 @@ __device__ void mean_loss(const StepArgs& a) {
 template <bool VEC>
 __device__ void backward_stage(const StepArgs& a, int l, float* smem) {
   const int K = a.dims[l], O = a.dims[l + 1], B = a.B;
-  const float lr = a.lr;
+  const float lr = a.lr_dev ? __ldg(a.lr_dev) : a.lr;
   const float* dz = a.dz[l & 1];
   const int ldz = round4(O);
   const int w_nt = ceil_div(K, StepTile::BN);
@@ -353,14 +356,15 @@ extern "C" int fused_mlp_train_step_capacity(int* blocks) {
 // row padded to 4 floats.  `vec` selects 16-byte loads (every dims[l], l <
 // L, a multiple of 4, and x and the weights 16-byte aligned).  `grid` blocks
 // (at most fused_mlp_train_step_capacity's) run the step as one cooperative
-// launch.  `loss` receives the mean loss.  Returns a cudaError_t: 0 on success, the first failure
-// otherwise.
+// launch.  `loss` receives the mean loss.  `lr_dev`, when not null, points to
+// the rate on the card and replaces `lr`.  Returns a cudaError_t: 0 on
+// success, the first failure otherwise.
 extern "C" int fused_mlp_train_step_f32(
     const void* x, const void* y, int B, int n_layers, const void* const* ws,
     const void* const* bs, void* const* new_ws, void* const* new_bs,
-    const int* dims, const int* acts, int loss_kind, float lr, void* scratch,
-    void* part, void* counters, int part_cap, void* loss, int vec, int grid,
-    void* stream) {
+    const int* dims, const int* acts, int loss_kind, float lr,
+    const void* lr_dev, void* scratch, void* part, void* counters,
+    int part_cap, void* loss, int vec, int grid, void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || B < 1 || grid < 1 ||
       (loss_kind != kSoftmaxXent && loss_kind != kSquaredError))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -397,6 +401,7 @@ extern "C" int fused_mlp_train_step_f32(
   a.loss_kind = loss_kind;
   a.B = B;
   a.lr = lr;
+  a.lr_dev = static_cast<const float*>(lr_dev);
   const void* kernel = vec ? reinterpret_cast<const void*>(mlp_train_step_kernel<true>)
                            : reinterpret_cast<const void*>(mlp_train_step_kernel<false>);
   void* params[] = {&a};

@@ -25,26 +25,30 @@ same step eagerly, as the JAX package runs it unchained.
 Elsewhere (the CPU) the window is the same step run eagerly ``k`` times on
 the same tables.  :func:`chain_counts` holds the captures, their host
 time and the replays of this process.
+
+:func:`engine.capture` captures the step; the engine's ``CaptureError``
+is this module's too.
 """
 
 from __future__ import annotations
 
-import gc
-import os
 import time
-import traceback
 from typing import Any, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from .. import engine
+from ..engine import CaptureError
+
 _COUNTS = {"captures": 0, "capture_s": 0.0, "replays": 0}
 
 
 def chain_counts() -> dict:
-    """``{"captures", "capture_s", "replays"}`` of this process: graphs
-    captured, the host seconds their warm-up and capture took, and the
-    graph launches made by chained windows."""
+    """``{"captures", "capture_s", "replays"}`` of this process's chained
+    windows: graphs captured, the host seconds their warm-up and capture
+    took, and graph launches (the request graphs and the engine's keep
+    counts of their own)."""
     return dict(_COUNTS)
 
 
@@ -52,131 +56,11 @@ def reset_chain_counts() -> None:
     _COUNTS.update(captures=0, capture_s=0.0, replays=0)
 
 
-def uses_graphs(device) -> bool:
-    """Whether a chained window on ``device`` replays a CUDA graph."""
-    return torch.device(device).type == "cuda"
-
-
-def flatten(tree) -> List[Any]:
-    """The leaves of a tree of tuples and lists (``None`` is empty), in
-    order: the training state ``(params, opt_state, ema)``."""
-    if tree is None:
-        return []
-    if isinstance(tree, (tuple, list)):
-        return [leaf for t in tree for leaf in flatten(t)]
-    return [tree]
-
-
-def unflatten(template, leaves: Sequence[Any]):
-    """Rebuild ``template``'s structure from ``leaves`` (flatten's order)."""
-    it = iter(leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, (tuple, list)):
-            return type(t)(build(x) for x in t)
-        return next(it)
-
-    return build(template)
-
-
-class CaptureError(RuntimeError):
-    """A step could not be captured in a CUDA graph."""
-
-
-def _failing_op(err: BaseException) -> str:
-    """``function (file:line: code)`` of the innermost frame of ``err``'s
-    traceback outside torch and outside this module: the operation of the
-    step (or of a caller's optimizer) that broke capture."""
-    here = os.path.abspath(__file__)
-    torch_dir = os.path.dirname(os.path.abspath(torch.__file__))
-    frames = traceback.extract_tb(err.__traceback__)
-    own = [f for f in frames if os.path.abspath(f.filename) != here
-           and not os.path.abspath(f.filename).startswith(torch_dir)]
-    f = (own or frames)[-1]
-    return f"{f.name} ({f.filename}:{f.lineno}: {(f.line or '').strip()})"
-
-
-def _clear_cublas_workspaces() -> None:
-    """Drop the cuBLAS workspaces torch keeps per (handle, stream): the
-    next cuBLAS call on a stream allocates its own anew.  A torch built
-    without CUDA has none (and no such call)."""
-    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
-    if clear is not None:
-        clear()
-
-
-def capture(fn: Callable[[bool], Any], device,
-            what: str = "the training step",
-            remedy: str = ("a chained window is never run eagerly on the "
-                           "card; pass chain_steps=1 to train unchained"),
-            stream: Optional["torch.cuda.Stream"] = None
-            ) -> "torch.cuda.CUDAGraph":
-    """Run ``fn(False)`` once on a side stream (warm-up: cuBLAS handles,
-    workspaces and the caching allocator's blocks), then capture one call
-    of ``fn(True)`` into a new CUDA graph and return it.
-
-    With no ``stream`` the side stream is a new one and a full garbage
-    collection runs first, which frees the graphs and blocks of earlier
-    windows.  A caller that passes ``stream`` holds no reference cycle
-    over its graphs and gets no collection (it would stall every other
-    thread of the process): ``stream`` is then the side stream and the
-    capture's too (else the capture's is torch's own), so that what the
-    kernels keep per stream is made by the warm-up, outside the capture.
-
-    torch keeps one cuBLAS workspace per (handle, stream), and streams
-    come from a pool and recur.  The workspaces are dropped before the
-    warm-up, before the capture and after it, as ``torch.compile``'s
-    graphs do: a captured cuBLAS call then writes a workspace allocated
-    inside the capture, which the graph's own memory pool keeps, and no
-    warm-up or later call on the same stream writes it while the graph
-    replays.  Raises :class:`CaptureError` naming ``what`` was captured,
-    the operation that broke capture and the caller's ``remedy``."""
-    t0 = time.perf_counter()
-    device = torch.device(device)
-    # a collection inside the capture could destroy an unreachable graph,
-    # which a capturing stream refuses (the capture is then invalidated):
-    # collect first (unless the caller's graphs hold no cycles), and never
-    # during it
-    if stream is None:
-        gc.collect()
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        cur = torch.cuda.current_stream(device)
-        side = stream if stream is not None else torch.cuda.Stream(device)
-        side.wait_stream(cur)
-        _clear_cublas_workspaces()
-        with torch.cuda.stream(side):
-            fn(False)
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        _clear_cublas_workspaces()
-        on = {} if stream is None else {"stream": stream}
-        with torch.cuda.graph(graph, capture_error_mode="thread_local",
-                              **on):
-            fn(True)
-        _clear_cublas_workspaces()
-        torch.cuda.synchronize(device)
-    except Exception as err:  # noqa: BLE001 — re-raised with its site
-        raise CaptureError(
-            f"capturing {what} in a CUDA graph failed at "
-            f"{_failing_op(err)}: {type(err).__name__}: {err} — "
-            f"{remedy}") from err
-    finally:
-        if collecting:
-            gc.enable()
-    _COUNTS["captures"] += 1
-    _COUNTS["capture_s"] += time.perf_counter() - t0
-    return graph
-
-
 class StepChain:
     """Windows of ``body`` over the resident dataset ``(Xd, Yd)``.
 
     ``body(scalars, xb, yb, leaves) -> (loss, new_leaves)`` is one training
-    step on the flat state ``leaves`` (:func:`flatten` order), ``scalars``
+    step on the flat state ``leaves`` (``engine.flatten`` order), ``scalars``
     a tuple of ``n_scalars`` 0-d tensors in ``dtype``.  :meth:`run` takes a
     window's scalar table (``(k, n_scalars)`` float64, host) and row table
     (``(k, rows)`` int64, host or device) and returns the last step's loss
@@ -212,7 +96,7 @@ class StepChain:
     def run(self, scalars: np.ndarray, rows, leaves: Sequence[Any]):
         k = scalars.shape[0]
         rows = torch.as_tensor(rows, dtype=torch.int64, device=self.device)
-        if not uses_graphs(self.device) or rows.shape[1] != self.batch:
+        if not engine.uses_graphs(self.device) or rows.shape[1] != self.batch:
             return self._eager(scalars, rows, list(leaves))
         self.busy = True
         leaves = [self._on_device(x) for x in leaves]
@@ -286,5 +170,8 @@ class StepChain:
                 self.loss.copy_(v)
                 self.ctr.add_(1)
 
-        self.graph = capture(step, dev)
+        t0 = time.perf_counter()
+        self.graph = engine.capture(step, dev)
+        _COUNTS["captures"] += 1
+        _COUNTS["capture_s"] += time.perf_counter() - t0
         self.cap_captured = cap

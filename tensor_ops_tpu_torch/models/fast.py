@@ -21,6 +21,13 @@ for a uniform stack, the whole-MLP ``fused_mlp_w8a8_forward``.
 driven over a sequence either by a loop of plain PyTorch steps
 (``impl="xla"``) or by one ``fused_rnn_seq`` call, one launch of the
 sequence kernel on the card (``impl="pallas"``).
+
+The trainers (``FusedMLP.train``, ``train_fullfused``,
+``FusedAutoencoder.train``, ``FusedRNN.seq_forward`` and ``FusedRNN.train``)
+are compiled (``engine.jit``): on the card each runs from one CUDA graph per
+input shape, its kernels' launches inside, the rates traced.  The graphs
+live in the model's ``_cache``, which the models a trainer returns share,
+as the JAX package's ``_cache`` holds its jitted steps.
 """
 
 from __future__ import annotations
@@ -31,12 +38,22 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import engine
 from ..ops.kernels import (_act_fn, _check_names, fused_linear,
                            fused_linear_w8, fused_linear_w8a8,
                            fused_mlp_forward, fused_mlp_train_step,
                            fused_mlp_w8a8_forward, fused_rnn_seq, pad_codes,
                            quantize_weights_int8)
 from .feedforward import Network
+
+
+def _compiled(cache: dict, key, build) -> "engine.Compiled":
+    """``cache[key]``, made by ``build()`` when missing: a model's compiled
+    trainers, shared by the models its trainers return."""
+    fn = cache.get(key)
+    if fn is None:
+        fn = cache[key] = build()
+    return fn
 
 
 @dataclass
@@ -46,7 +63,8 @@ class FusedMLP:
     Every weight and bias is a tensor on one device, or (``parallel.mesh.
     shard_fused``) every one a ``Sharded`` leaf on one mesh: such a model
     runs ``run_xla`` only (``parallel.tp.fused_forward``), the kernels
-    taking whole tensors."""
+    taking whole tensors.  ``_cache`` holds the compiled trainers, shared
+    with the models they return."""
 
     weights: Tuple[torch.Tensor, ...]
     biases: Tuple[torch.Tensor, ...]
@@ -54,8 +72,11 @@ class FusedMLP:
     softmax_out: bool = True
     precision: str = "default"
     loss_kind: str = "ce"  # "ce" (cross-entropy) or "mse" (squared error)
+    _cache: dict = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
+        if self._cache is None:
+            self._cache = {}
         self.weights = tuple(self.weights)
         self.biases = tuple(self.biases)
         self.acts = tuple(self.acts)
@@ -145,7 +166,7 @@ class FusedMLP:
             ws = tuple(w.to(dtype) for w in self.weights)
             bs = tuple(b.to(dtype) for b in self.biases)
         return FusedMLP(ws, bs, self.acts, self.softmax_out,
-                        self.precision, self.loss_kind)
+                        self.precision, self.loss_kind, self._cache)
 
     def to_params(self) -> Tuple[torch.Tensor, ...]:
         out: List[torch.Tensor] = []
@@ -209,23 +230,39 @@ class FusedMLP:
 
     def _replaced(self, weights, biases) -> "FusedMLP":
         return FusedMLP(tuple(weights), tuple(biases), self.acts,
-                        self.softmax_out, self.precision, self.loss_kind)
+                        self.softmax_out, self.precision, self.loss_kind,
+                        self._cache)
+
+    def step_fn(self) -> "engine.Compiled":
+        """The compiled minibatch SGD step ``fn(rate, xb, yb, ws, bs) ->
+        (loss, ws', bs')``: autograd through the per-layer
+        ``fused_linear``, one CUDA graph per shape on the card."""
+        def build():
+            def step(rate, xb, yb, ws, bs):
+                ws = [w.detach().requires_grad_() for w in ws]
+                bs = [b.detach().requires_grad_() for b in bs]
+                with torch.enable_grad():
+                    v = self._loss(xb, yb, ws, bs)
+                    grads = torch.autograd.grad(v, ws + bs)
+                n = len(ws)
+                with torch.no_grad():
+                    new_ws = tuple(w - rate * g
+                                   for w, g in zip(ws, grads[:n]))
+                    new_bs = tuple(b - rate * g
+                                   for b, g in zip(bs, grads[n:]))
+                return v.detach(), new_ws, new_bs
+
+            return engine.jit(step, "the FusedMLP.train step")
+
+        return _compiled(self._cache, "step", build)
 
     def train(self, rate: float, xb, yb) -> Tuple[torch.Tensor, "FusedMLP"]:
         """One minibatch SGD step by autograd through the per-layer
         ``fused_linear`` (its kernel runs the forward on the card).
         Returns (mean loss as a 0-d tensor, the updated model)."""
         self._whole_only("train")
-        ws = [w.detach().requires_grad_() for w in self.weights]
-        bs = [b.detach().requires_grad_() for b in self.biases]
-        with torch.enable_grad():
-            v = self._loss(xb, yb, ws, bs)
-            grads = torch.autograd.grad(v, ws + bs)
-        n = len(ws)
-        with torch.no_grad():
-            new_ws = [w - rate * g for w, g in zip(ws, grads[:n])]
-            new_bs = [b - rate * g for b, g in zip(bs, grads[n:])]
-        return v.detach(), self._replaced(new_ws, new_bs)
+        v, ws, bs = self.step_fn()(rate, xb, yb, self.weights, self.biases)
+        return v, self._replaced(ws, bs)
 
     def train_fullfused(self, rate: float, xb, yb
                         ) -> Tuple[float, "FusedMLP"]:
@@ -244,9 +281,17 @@ class FusedMLP:
         else:
             raise ValueError(
                 "train_fullfused supports softmax+ce or mse without softmax")
-        v, ws, bs = fused_mlp_train_step(
-            xb, yb, list(self.weights), list(self.biases), rate, self.acts,
-            precision=self.precision, loss_kind=kind)
+
+        def build():
+            def step(xb, yb, ws, bs, rate):
+                return fused_mlp_train_step(
+                    xb, yb, list(ws), list(bs), rate, self.acts,
+                    precision=self.precision, loss_kind=kind)
+
+            return engine.jit(step, "the train_fullfused step")
+
+        fn = _compiled(self._cache, ("fullstep", kind), build)
+        v, ws, bs = fn(xb, yb, self.weights, self.biases, rate)
         return float(v), self._replaced(ws, bs)
 
 
@@ -443,7 +488,7 @@ class FusedRNN:
       CPU its plain version.
 
     The model is immutable: ``train`` returns a new one, with the same
-    ``impl``."""
+    ``impl`` and the same ``_cache`` of compiled steps."""
 
     wX: torch.Tensor
     wS: torch.Tensor
@@ -452,8 +497,11 @@ class FusedRNN:
     act: str = "logistic"
     precision: str = "default"
     impl: str = "xla"
+    _cache: dict = field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
+        if self._cache is None:
+            self._cache = {}
         _check_names([self.act], self.precision)
         if self.impl not in RNN_IMPLS:
             raise ValueError(f"unknown FusedRNN impl {self.impl!r} "
@@ -512,9 +560,15 @@ class FusedRNN:
 
     def seq_forward(self, xs) -> Tuple[torch.Tensor, torch.Tensor]:
         """xs: (n, i) -> (ys: (n, o) pre-activations, final state (o,))."""
-        with torch.no_grad():
-            return self._scan(self.wX, self.wS, self.b, self.s0,
-                              self._as(xs))
+        def build():
+            def run(xs, wX, wS, b, s0):
+                with torch.no_grad():
+                    return self._scan(wX, wS, b, s0, xs)
+
+            return engine.jit(run, f"the FusedRNN sequence ({self.impl})")
+
+        fn = _compiled(self._cache, ("seq", self.impl), build)
+        return fn(self._as(xs), self.wX, self.wS, self.b, self.s0)
 
     def train(self, rate_state: float, rate_param: float, xs, targets
               ) -> Tuple[float, "FusedRNN"]:
@@ -522,15 +576,24 @@ class FusedRNN:
         ``sum((targets - ys) ** 2)`` by autograd through the steps, with the
         reference's dual state/param rates (``trainNetwork'``).  Returns
         (loss before the step, the updated model)."""
-        xs, tg = self._as(xs), self._as(targets)
-        ps = [p.detach().requires_grad_()
-              for p in (self.wX, self.wS, self.b, self.s0)]
-        with torch.enable_grad():
-            ys, _ = self._scan(*ps, xs)
-            v = ((tg - ys) ** 2).sum()
-            g = torch.autograd.grad(v, ps)
-        with torch.no_grad():
-            wX, wS, b = (p - rate_param * gp for p, gp in zip(ps[:3], g[:3]))
-            s0 = ps[3] - rate_state * g[3]
-        return float(v.detach()), FusedRNN(wX, wS, b, s0, self.act,
-                                           self.precision, impl=self.impl)
+        def build():
+            def step(rS, rP, wX, wS, b, s0, xs, tg):
+                ps = [p.detach().requires_grad_() for p in (wX, wS, b, s0)]
+                with torch.enable_grad():
+                    ys, _ = self._scan(*ps, xs)
+                    v = ((tg - ys) ** 2).sum()
+                    g = torch.autograd.grad(v, ps)
+                with torch.no_grad():
+                    wX, wS, b = (p - rP * gp
+                                 for p, gp in zip(ps[:3], g[:3]))
+                    s0 = ps[3] - rS * g[3]
+                return v.detach(), wX, wS, b, s0
+
+            return engine.jit(step, f"the FusedRNN.train step ({self.impl})")
+
+        fn = _compiled(self._cache, ("train", self.impl), build)
+        v, wX, wS, b, s0 = fn(rate_state, rate_param, self.wX, self.wS,
+                              self.b, self.s0, self._as(xs),
+                              self._as(targets))
+        return float(v), FusedRNN(wX, wS, b, s0, self.act, self.precision,
+                                  impl=self.impl, _cache=self._cache)

@@ -5,8 +5,9 @@ A :class:`Network` pairs one staged op ``('[i] : ps) -> '[[o]]`` with its
 parameter stack (the reference stores params as an existential shape-list,
 ``FeedForward.hs:57-61``; here just a tuple of tensors whose shapes are the
 op's input stack tail).  Training and gradients compose the network op
-with a loss op and run one staged forward + transposition, evaluated
-eagerly (the JAX package jits the same graph into one XLA program).
+with a loss op and run one staged forward + transposition, compiled as
+the JAX package jits it into one XLA program (``engine``): on the card one
+CUDA graph per input shape, evaluated node by node elsewhere.
 """
 
 from __future__ import annotations
@@ -125,10 +126,22 @@ class Network:
     def train(self, loss: TOp, rate: float, be: Backend, x: Any, y: Any
               ) -> "Network":
         """One per-sample SGD step ``p <- p - r*g`` (``trainNetwork``,
-        ``FeedForward.hs:131-148``)."""
-        grads = ir.grad(self._loss_op(loss), be, (x,) + self.params + (y,))
-        new_params = tuple(p - rate * g
-                           for p, g in zip(self.params, grads[1:-1]))
+        ``FeedForward.hs:131-148``).  The gradient and the update compile
+        into one program (one CUDA graph per shape on the card); the rate
+        is traced, so changing it never recaptures."""
+        composed = self._loss_op(loss)
+        key = ("train", loss.struct_key()) + be.cache_key()
+        fn = self.op._compiled.get(key)
+        if fn is None:
+
+            def step(rate_, x_, y_, *params):
+                grads = ir.grad(composed, be, (x_,) + params + (y_,))
+                return tuple(p - rate_ * g
+                             for p, g in zip(params, grads[1:-1]))
+
+            fn = engine.maybe_jit(step, be, "the per-sample step")
+            self.op._compiled[key] = fn
+        new_params = fn(rate, x, y, *self.params)
         return Network(self.op, new_params, self.act_names)
 
     def induce(self, loss: TOp, rate: float, be: Backend, y: Any, x: Any
@@ -141,15 +154,22 @@ class Network:
     def induce_many(self, loss: TOp, rate: float, be: Backend, y: Any,
                     x: Any, steps: int) -> Any:
         """``steps`` induction iterations (``induceNum`` runs 5000
-        sequential ``induceNetwork`` calls, ``app/MNIST.hs:399-411``), as
-        a Python loop over the staged gradient; the JAX package runs them
-        in one jitted ``fori_loop``."""
-        composed = self._loss_op(loss)
-        xc = x
-        for _ in range(int(steps)):
-            grads = ir.grad(composed, be, (xc,) + self.params + (y,))
-            xc = xc - rate * grads[0]
-        return xc
+        sequential ``induceNetwork`` calls, ``app/MNIST.hs:399-411``) in
+        one ``engine.Loop``: on the card ONE captured induction step on a
+        static input, replayed ``steps`` times (the JAX package's jitted
+        ``fori_loop``), elsewhere a Python loop."""
+        key = ("induce", loss.struct_key()) + be.cache_key()
+        fn = self.op._compiled.get(key)
+        if fn is None:
+            composed = self._loss_op(loss)
+
+            def body(_, xc, rate_, y_, *params):
+                grads = ir.grad(composed, be, (xc,) + params + (y_,))
+                return xc - rate_ * grads[0]
+
+            fn = engine.Loop(body, "the induction step")
+            self.op._compiled[key] = fn
+        return fn(steps, x, rate, y, *self.params)
 
 
 def unchain(op: TOp) -> list:

@@ -216,15 +216,26 @@ class RecurrentNetwork:
         sequence at a time): ``torch.func.vmap`` of the scan-BPTT gradient
         over a leading batch axis of ``(B, n, *in_shape)`` inputs, the
         gradients meaned over the batch (``training.make_seq_mean_grads``,
-        which ``fit_sequences`` steps on too)."""
+        which ``fit_sequences`` steps on too), gradient and update compiled
+        into one program (one CUDA graph per shape on the card)."""
         from .training import make_seq_mean_grads
 
         n = int(be.shape_of(xs_batch)[1])
         k = len(self.states)
-        _, grads = make_seq_mean_grads(self, loss, be, n)(
-            xs_batch, targets_batch, self.states + self.params)
-        new_s, new_p = dual_rate_sgd(rate_state, rate_param, self.states,
-                                     self.params, grads[:k], grads[k:])
+        key = ("seq_batch", loss.struct_key(), n) + be.cache_key()
+        fn = self.op._compiled.get(key)
+        if fn is None:
+            mean_grads = make_seq_mean_grads(self, loss, be, n)
+
+            def step(rs, rp, xb, tb, states, params):
+                _, grads = mean_grads(xb, tb, states + params)
+                return dual_rate_sgd(rs, rp, states, params, grads[:k],
+                                     grads[k:])
+
+            fn = engine.maybe_jit(step, be, "the batched-sequence step")
+            self.op._compiled[key] = fn
+        new_s, new_p = fn(rate_state, rate_param, xs_batch, targets_batch,
+                          self.states, self.params)
         return RecurrentNetwork(self.op, new_s, new_p, self.arch)
 
 

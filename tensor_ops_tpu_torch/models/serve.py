@@ -34,8 +34,9 @@ replayed from then on (:class:`RequestGraph`).  The graphs belong to the
 serving state, which ``reload()`` swaps in one assignment; the shapes
 beyond the buckets (the lengths ``warmup`` did not name) are kept in an
 LRU with the bound of the op's ``CompiledCache``, as the JAX package keeps
-its compiled forwards.  A capture that fails raises ``chain.CaptureError`` naming the operation: a
-request on the card never runs by direct launches.  The mesh-sharded route
+its compiled forwards.  A capture that fails raises
+``engine.CaptureError`` naming the operation: a request on the card never
+runs by direct launches.  The mesh-sharded route
 (``tp.fused_forward``, whose kernel-9 calls across the group's ranks are
 ordered by a host lock) and a model on the CPU run direct.
 """
@@ -50,11 +51,10 @@ from typing import Any, Callable, Dict, Hashable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import engine
 from ..backend.base import Backend
 from ..ops import ir
-from ..ops import kernels as K
 from ..utils.profiling import StepTimer
-from . import chain as C
 from .fast import FusedMLP, QuantizedMLP
 from .feedforward import Network
 from .training import batched_run
@@ -93,8 +93,8 @@ def _bucket_of(buckets, n: int) -> int:
 
 _REMEDY = ("a request on the card is never served by direct launches; a "
            "model on the CPU runs direct")
-# one capture at a time in the process: a stream of the pool may recur, and
-# the scratch a capture takes is found by its stream
+# one capture of a shape at a time (the capture itself takes the engine's
+# lock: the card's capture stream is shared)
 _capture_lock = threading.Lock()
 _counts_lock = threading.Lock()
 _COUNTS = {"captures": 0, "replays": 0}
@@ -116,11 +116,12 @@ def _bump(key: str) -> None:
         _COUNTS[key] += 1
 
 
-class RequestGraph:
+class RequestGraph(engine.Captured):
     """One request shape's forward captured in a CUDA graph over the static
     input ``x``: the output ``out`` it rewrites on every replay, the kernel
     launches it holds (counted on every replay, as a direct forward counts
-    them) and the scratch its kernels write, which is its own.
+    them) and the scratch its kernels write, which is its own
+    (:class:`engine.Captured`).
 
     :meth:`run` holds the graph's lock from the input's copy to the
     output's copy to the host, so concurrent requests on one shape take
@@ -130,34 +131,23 @@ class RequestGraph:
                  x: torch.Tensor, what: str):
         self.x = x
         self.out: Optional[torch.Tensor] = None
-        self.launches: Dict[str, int] = {}
-        self.lock = threading.Lock()
 
         def fn(commit: bool) -> None:
             with torch.inference_mode():
-                if not commit:
-                    forward(x)
-                    return
-                with K.held_launches() as held:
-                    self.out = forward(x)
-                self.launches = held
+                out = forward(x)
+            if commit:
+                self.out = out
 
-        # warm-up and capture on one stream of their own: the per-stream
-        # scratch is made outside the capture and then taken by this graph
-        # (and with a stream given, capture runs no garbage collection,
-        # which would stall every request thread)
-        stream = torch.cuda.Stream(x.device) if x.is_cuda else None
-        self.graph = C.capture(fn, x.device, what=what, remedy=_REMEDY,
-                               stream=stream)
-        self.scratch = ([] if stream is None
-                        else K.take_scratch(stream.cuda_stream))
+        # warmed up on the card's replay stream, captured on its capture
+        # stream (Captured's; no garbage collection, which would stall
+        # every request thread), in a memory pool of its own
+        super().__init__(fn, x.device, what, _REMEDY)
 
     def run(self, x: np.ndarray) -> np.ndarray:
         src = torch.from_numpy(x)
         with self.lock:
             self.x.copy_(src)
-            self.graph.replay()
-            K.count_launches(self.launches)
+            self.replay()
             out = self.out.cpu()
         _bump("replays")
         return out.numpy()
@@ -244,7 +234,7 @@ class _Graphs:
 def _graphs_on(device) -> bool:
     """Whether a model on ``device`` (None: a backend without one, the
     NumPy oracle) serves from request graphs."""
-    return device is not None and C.uses_graphs(device)
+    return device is not None and engine.uses_graphs(device)
 
 
 def _servable(model, be: Optional[Backend], dtype: Optional[str]):
@@ -360,8 +350,11 @@ class Predictor:
         return _bucket_of(self.buckets, n)
 
     def _forward(self, serving, xb: torch.Tensor) -> torch.Tensor:
-        """The direct forward: every kernel launched from the host."""
-        return _direct(serving, xb, self.use_fused_kernel, self.xla_threshold)
+        """The direct forward: every kernel launched from the host (the
+        engine's compiled ``batched_run`` of a ``Network`` included)."""
+        with engine.direct():
+            return _direct(serving, xb, self.use_fused_kernel,
+                           self.xla_threshold)
 
     def warmup(self) -> None:
         """Ready every bucket ahead of serving: on the card capture its

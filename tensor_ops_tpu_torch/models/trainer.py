@@ -64,6 +64,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import engine
 from ..backend.base import Backend
 from ..ops import ir
 from ..ops.ir import TOp
@@ -174,7 +175,7 @@ def _measure_mp_route(step_f32, step_bf16, args, carry_from: int = 3,
     if not graphs:
         return _measure_eager(step_f32, step_bf16, head, carry0, rounds,
                               steps)
-    leaves0 = C.flatten(carry0)
+    leaves0 = engine.flatten(carry0)
     dev = next((x.device for x in leaves0 if isinstance(x, torch.Tensor)),
                torch.device("cpu"))
     runs = []
@@ -182,20 +183,20 @@ def _measure_mp_route(step_f32, step_bf16, args, carry_from: int = 3,
         bufs = [x.clone() for x in leaves0]
 
         def once(commit=True, step=step, bufs=bufs):
-            out = step(*head, *C.unflatten(carry0, bufs))
+            out = step(*head, *engine.unflatten(carry0, bufs))
             if commit:
-                for b, n in zip(bufs, C.flatten(out[1:])):
+                for b, n in zip(bufs, engine.flatten(out[1:])):
                     b.copy_(n)
 
-        if C.uses_graphs(dev):
-            runs.append(C.capture(once, dev).replay)
+        if engine.uses_graphs(dev):
+            runs.append(engine.capture(once, dev).replay)
         else:
             runs.append(once)
     best = [float("inf"), float("inf")]
     for _ in range(rounds):
         for i, run in enumerate(runs):
             run()  # the state carried in, the caches warm
-            if C.uses_graphs(dev):
+            if engine.uses_graphs(dev):
                 e0 = torch.cuda.Event(enable_timing=True)
                 e1 = torch.cuda.Event(enable_timing=True)
                 e0.record()
@@ -221,7 +222,7 @@ def _measure_eager(step_f32, step_bf16, head, carry0, rounds: int,
     ``rounds``."""
     from ..parallel.mesh import Sharded
 
-    devices = [t.device for x in C.flatten(carry0)
+    devices = [t.device for x in engine.flatten(carry0)
                for t in (x.shards if isinstance(x, Sharded) else (x,))
                if isinstance(t, torch.Tensor)]
 
@@ -551,7 +552,7 @@ def _offload_out(state):
                            x.shape)
         return host(x)
 
-    return C.unflatten(state, [leaf(x) for x in C.flatten(state)])
+    return engine.unflatten(state, [leaf(x) for x in engine.flatten(state)])
 
 
 def _offload_in(state, devices):
@@ -570,7 +571,7 @@ def _offload_in(state, devices):
             return x.to(devices[0], non_blocking=True)
         return x
 
-    return C.unflatten(state, [leaf(x) for x in C.flatten(state)])
+    return engine.unflatten(state, [leaf(x) for x in engine.flatten(state)])
 
 
 def _sync_cards(devices) -> None:
@@ -586,7 +587,7 @@ def _offload_state(opt_state, label: str):
     """Place an optimizer state in pinned host memory between steps
     (``offload_opt_state=True``), each leaf keeping its spec; warns when
     the state holds no arrays (sgd is stateless: nothing to offload)."""
-    if not any(getattr(x, "shape", ()) for x in C.flatten(opt_state)):
+    if not any(getattr(x, "shape", ()) for x in engine.flatten(opt_state)):
         warnings.warn(
             f"{label}: offload_opt_state=True but the optimizer state "
             f"holds no arrays (sgd is stateless) — nothing to offload",
@@ -934,17 +935,17 @@ class _ChainedStep(C.StepChain):
         rows = (sel if self.chain_spec is None
                 else _window_rows(self.chain_spec, int(sel), k, self.device))
         self._tmpl = tuple(state[:-1]) + ((state[-1] or None),)
-        v, leaves = self.run(scalars, rows, C.flatten(self._tmpl))
-        *out, ema = C.unflatten(self._tmpl, leaves)
+        v, leaves = self.run(scalars, rows, engine.flatten(self._tmpl))
+        *out, ema = engine.unflatten(self._tmpl, leaves)
         return (v,) + tuple(out) + (ema or (),)
 
     def _body(self, sc, xb, yb, leaves):
-        *st, ema = C.unflatten(self._tmpl, leaves)
+        *st, ema = engine.unflatten(self._tmpl, leaves)
         out = self.step(*sc, xb, yb, *st)
         v, new = out[0], tuple(out[1:])
         if ema is not None:
             ema = self.ema_update(ema, self.ema_of(new))
-        return v, C.flatten(new + (ema,))
+        return v, engine.flatten(new + (ema,))
 
 
 def _chained(be: Backend, X, Y, step_fn: Callable, n_scalars: int,

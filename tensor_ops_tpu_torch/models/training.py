@@ -5,8 +5,12 @@ The staged per-sample graph is mapped over the batch axis with
 ``torch.func.vmap`` (params broadcast) and the per-sample gradients are
 averaged, so the card sees ``[B, i] x [o, i]`` products instead of rank-1
 chains.  The AD is still the framework's own graph transposition (vmap maps
-over it); ``torch.autograd`` is never used on the model.  On the NumPy
-oracle (``NumpyBackend``) each function loops over the samples, as the JAX
+over it); ``torch.autograd`` is never used on the model.  The entry points
+the JAX package jits (``batched_run``, ``batched_step``, ``train_fold``,
+``batch_loss``, ``seq_losses``) are compiled (``engine.maybe_jit``,
+``engine.Loop``): on the card one CUDA graph per shape, the fold one
+per-sample step replayed once a sample.  On the NumPy oracle
+(``NumpyBackend``) each function loops over the samples, as the JAX
 package's numpy branches do.
 """
 
@@ -17,6 +21,7 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import engine
 from ..backend.base import Backend
 from ..ops import ir
 from ..ops.ir import TOp
@@ -146,7 +151,8 @@ def batched_run(net: Network, be: Backend) -> Callable:
         def single(x, *params):
             return net.op.apply(be, (x,) + params)[0]
 
-        return _vmap(single, 1, len(net.params))
+        return engine.maybe_jit(_vmap(single, 1, len(net.params)), be,
+                                "batched_run")
 
     return _cache(net, key, build)
 
@@ -163,7 +169,7 @@ def batched_step(net: Network, loss: TOp, be: Backend) -> Callable:
             v, grads = mean_grads(xb, yb, *params)
             return v, tuple(p - rate * g for p, g in zip(params, grads))
 
-        return step
+        return engine.maybe_jit(step, be, "the minibatch step")
 
     return _cache(net, key, build)
 
@@ -171,15 +177,24 @@ def batched_step(net: Network, loss: TOp, be: Backend) -> Callable:
 def train_fold(net: Network, loss: TOp, be: Backend, rate: float, X: Any,
                Y: Any) -> Network:
     """The reference's per-sample SGD fold (``trainAll = foldl'
-    trainNetwork``, ``app/MNIST.hs:390-396``): a Python loop over the
-    samples carrying the parameters, the same steps as calling
-    :meth:`Network.train` per sample (the JAX package runs them as one
-    ``lax.scan``)."""
-    composed = net._loss_op(loss)
-    params = net.params
-    for x, y in zip(X, Y):
-        grads = ir.grad(composed, be, (x,) + params + (y,))
-        params = tuple(p - rate * g for p, g in zip(params, grads[1:-1]))
+    trainNetwork``, ``app/MNIST.hs:390-396``), the same steps as calling
+    :meth:`Network.train` per sample: an ``engine.Loop`` over the samples
+    carrying the parameters, on the card ONE captured per-sample step
+    replayed once a sample (the JAX package's one ``lax.scan``), elsewhere
+    a Python loop."""
+    key = ("fold", loss.struct_key()) + be.cache_key()
+
+    def build():
+        composed = net._loss_op(loss)
+
+        def body(i, params, rate, X, Y):
+            x, y = engine.take(X, i), engine.take(Y, i)
+            grads = ir.grad(composed, be, (x,) + params + (y,))
+            return tuple(p - rate * g for p, g in zip(params, grads[1:-1]))
+
+        return engine.Loop(body, "the per-sample fold's step")
+
+    params = _cache(net, key, build)(len(X), tuple(net.params), rate, X, Y)
     return Network(net.op, params, net.act_names)
 
 
@@ -224,7 +239,8 @@ def batch_loss(net: Network, loss: TOp, be: Backend, xb: Any,
         def single(x, y, *params):
             return composed.apply(be, (x,) + params + (y,))[0]
 
-        return _vmap(single, 2, len(net.params))
+        return engine.maybe_jit(_vmap(single, 2, len(net.params)), be,
+                                "batch_loss")
 
     fn = _cache(net, key, build)
     return float(fn(be.asarray(xb), be.asarray(yb), *net.params).mean())
@@ -251,7 +267,9 @@ def seq_losses(rnet, loss: TOp, be: Backend, XS: Any, TS: Any):
         def single(xs, ts, *sp):
             return g.apply(be, (xs,) + sp + (ts,))[0]
 
-        return _vmap(single, 2, len(rnet.states) + len(rnet.params))
+        return engine.maybe_jit(
+            _vmap(single, 2, len(rnet.states) + len(rnet.params)), be,
+            "seq_losses")
 
     fn = _cache(rnet, key, build)
     return fn(XS, TS, *rnet.states, *rnet.params)

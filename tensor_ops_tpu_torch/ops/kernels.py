@@ -399,10 +399,23 @@ def _pow2_upto(n: int) -> List[int]:
     return out
 
 
+_plan_epoch = 0
+
+
+def plan_epoch() -> int:
+    """How many times :func:`clear_plan_caches` has run: part of a compiled
+    call's key (``engine.py``), since a CUDA graph keeps the plans it was
+    captured with."""
+    return _plan_epoch
+
+
 def clear_plan_caches() -> None:
     """Forget every wrapper's per-shape plans, so that the next call of a
     shape plans again (a new tuned entry takes effect): the counterpart of
-    the JAX package's ``jax.clear_caches()`` after a sweep."""
+    the JAX package's ``jax.clear_caches()`` after a sweep.  The engine's
+    graphs of earlier plans are not replayed again."""
+    global _plan_epoch
+    _plan_epoch += 1
     for cache in (_linear_calls, _mlp_calls, _train_grids, _w8_calls,
                   _w8a8_calls, _mlp8_calls, _seq_routes):
         cache.clear()
@@ -1037,7 +1050,8 @@ def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
     """The kernel: one cooperative launch with a grid barrier between each
     two of :func:`train_stages`, on ``plan`` blocks (one of
     :func:`train_grid_candidates`) or ``train_grid``'s, cached per call
-    shape."""
+    shape.  A tensor ``lr`` (0-d, on the card) is read by the kernel from
+    its memory, a number is passed by value."""
     dims = _train_step_widths(x, y, weights, biases)
     n, batch, dev = len(weights), x.shape[0], x.get_device()
     key = (batch, tuple(dims), dev, plan)
@@ -1071,7 +1085,7 @@ def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
     fn = _kernel("fused_mlp_train_step", "fused_mlp_train_step_f32",
                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                   ctypes.c_int] + [ctypes.c_void_p] * 6
-                 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 3
+                 + [ctypes.c_int, ctypes.c_float] + [ctypes.c_void_p] * 4
                  + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2
                  + [ctypes.c_void_p])
 
@@ -1080,9 +1094,14 @@ def _fused_mlp_train_step_cuda(x, y, weights, biases, lr, acts, loss_kind,
 
     c_dims = (ctypes.c_int * (n + 1))(*dims)
     c_acts = (ctypes.c_int * n)(*(ACT_CODES[a] for a in acts))
+    if isinstance(lr, torch.Tensor):
+        lr_t = _f32(lr.to(x.device).reshape(()))
+        lr_val, lr_dev = 0.0, lr_t.data_ptr()
+    else:
+        lr_val, lr_dev = float(lr), None
     err = _launch_on(dev, fn, xf.data_ptr(), yf.data_ptr(), batch, n,
                      ptrs(ws), ptrs(bs), ptrs(new_ws), ptrs(new_bs), c_dims,
-                     c_acts, LOSS_KINDS[loss_kind], float(lr),
+                     c_acts, LOSS_KINDS[loss_kind], lr_val, lr_dev,
                      scratch.data_ptr(), part.data_ptr(), counters.data_ptr(),
                      part_cap, loss.data_ptr(), int(vec), grid, stream)
     _check_launch("fused_mlp_train_step", err)
@@ -1102,9 +1121,11 @@ def fused_mlp_train_step(x, y, weights, biases, lr, acts: Sequence[str],
     ``loss_kind="softmax_xent"`` (the flagship): softmax output and
     cross-entropy, ``acts[-1]`` ignored; ``"squared_error"``: ``acts[-1]``
     output and squared error summed over the outputs (pass ``y = x`` for an
-    autoencoder).  Both are meaned over the batch.  Returns ``(loss,
-    new_weights, new_biases)``; the loss is a 0-d f32 tensor on x's
-    device.  On the card the stages are :func:`train_stages`, over ``plan``
+    autoencoder).  Both are meaned over the batch.  ``lr`` is a number or
+    a 0-d tensor (on the card the kernel reads it from the card's memory,
+    so a CUDA graph of the step takes a new rate at each replay).  Returns
+    ``(loss, new_weights, new_biases)``; the loss is a 0-d f32 tensor on
+    x's device.  On the card the stages are :func:`train_stages`, over ``plan``
     blocks (one of :func:`train_grid_candidates`) or :func:`train_grid`'s;
     the plain version ignores ``plan``."""
     if not (len(weights) == len(biases) == len(acts)) or not weights:

@@ -278,7 +278,9 @@ def cost_analysis(fn, *args) -> dict:
     its result written once).  A hand-written kernel counts the work of its
     plain version's math (its wrapper runs that on meta tensors of the same
     shapes), so a step through a kernel on the card counts what its plain
-    version counts on the CPU.  Unlike XLA, which also counts one flop per
+    version counts on the CPU.  The engine's compiled calls run direct
+    under the counting mode, so a graph's work counts as its function's.
+    Unlike XLA, which also counts one flop per
     element of elementwise arithmetic, only products count as flops."""
     with _counting(_CountingMode()) as mode:
         fn(*args)
@@ -339,8 +341,9 @@ def profile_step(step, init, steps=(50, 250), reps: int = 6,
         # {'per_step_s', 'steps_per_s', 'flops', 'bytes_accessed',
         #  'tflops_per_s', 'gbytes_per_s', 'compile_s'}
 
-    ``compile_s`` is the time of the counted first call (the port compiles
-    nothing per call; a kernel's first call builds it)."""
+    ``compile_s`` is the time of the counted first call, which runs direct
+    (a kernel's first call builds it); a compiled call captures its CUDA
+    graph in the loop's first, untimed runs."""
     t0 = time.perf_counter()
     ca = cost_analysis(step, init, *args)
     compile_s = time.perf_counter() - t0
@@ -378,7 +381,11 @@ def memory_analysis(fn, *args) -> dict:
     allocate during the call (a dispatch mode tracks them) less the outputs.
     Both read the whole process.  ``generated_code_size_in_bytes`` is left
     out: nothing is compiled per call (the kernels' code is built once into
-    shared libraries)."""
+    shared libraries).  The engine's compiled calls inside run direct
+    (``engine.direct``), so temp counts what the function allocates, not a
+    graph's replay into memory it already holds."""
+    from .. import engine
+
     arg_ts = _distinct(_kernels._tensors(args))
     cards = sorted({t.device for t in arg_ts if t.is_cuda},
                    key=lambda d: d.index or 0)
@@ -387,7 +394,8 @@ def memory_analysis(fn, *args) -> dict:
         torch.cuda.synchronize(dev)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        out = fn(*args)
+        with engine.direct():
+            out = fn(*args)
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev)
     else:

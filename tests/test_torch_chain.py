@@ -7,7 +7,7 @@ the JAX package's chained ``fit`` in f64 on the same numpy data.
 On the CPU a window runs the step eagerly; the card replays one CUDA
 graph of it.  The graph path's bookkeeping (static buffers updated in
 place, the scalar and row tables, the device step counter, the copy-in of
-handed-in state) is exercised here by a stand-in for ``chain.capture``
+handed-in state) is exercised here by a stand-in for ``engine.capture``
 whose "replay" calls the captured function again; a capture that fails
 raises instead of running the window eagerly."""
 
@@ -31,6 +31,7 @@ from tensor_ops_tpu_torch import NumpyBackend, TorchBackend
 from tensor_ops_tpu_torch.backend.rng import Rng
 from tensor_ops_tpu_torch.models import (act_logistic, act_softmax,
                                          cross_entropy, gen_net)
+from tensor_ops_tpu_torch import engine
 from tensor_ops_tpu_torch.models import chain as C
 from tensor_ops_tpu_torch.models import optim as TO
 from tensor_ops_tpu_torch.models.feedforward import Network
@@ -73,13 +74,13 @@ def graph_path(monkeypatch):
     the captured function (what a CUDA graph replays)."""
     captured = []
 
-    def fake_capture(fn, device):
+    def fake_capture(fn, device, what="the training step", **kw):
         fn(False)
-        captured.append(fn)
+        captured.append(what)
         return type("Graph", (), {"replay": staticmethod(lambda: fn(True))})
 
-    monkeypatch.setattr(C, "uses_graphs", lambda device: True)
-    monkeypatch.setattr(C, "capture", fake_capture)
+    monkeypatch.setattr(engine, "uses_graphs", lambda device: True)
+    monkeypatch.setattr(engine, "capture", fake_capture)
     return captured
 
 
@@ -264,7 +265,7 @@ def test_capture_failure_raises_and_never_runs_eagerly(monkeypatch):
         finally:
             capturing.pop()
 
-    monkeypatch.setattr(C, "uses_graphs", lambda device: True)
+    monkeypatch.setattr(engine, "uses_graphs", lambda device: True)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None: Stream())
     monkeypatch.setattr(torch.cuda, "Stream", lambda d=None: Stream())
     monkeypatch.setattr(torch.cuda, "stream",
@@ -288,7 +289,7 @@ def test_capture_failure_raises_and_never_runs_eagerly(monkeypatch):
             optimizer=opt, verbose=False)
     assert "chain_steps=1" in str(info.value)
     assert steps == [1, 1]  # the warm-up, then the failed capture
-    monkeypatch.setattr(C, "uses_graphs", lambda device: False)
+    monkeypatch.setattr(engine, "uses_graphs", lambda device: False)
     assert fit(_mknet(TB), cross_entropy(4), TB, X, Y, batch_size=32,
                optimizer=opt, verbose=False).steps == 4
 
@@ -345,7 +346,7 @@ def test_capture_holds_the_garbage_collector(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda d=None: None)
     seen = []
     assert gc.isenabled()
-    C.capture(lambda commit: seen.append((commit, gc.isenabled())), "cpu")
+    engine.capture(lambda commit: seen.append((commit, gc.isenabled())), "cpu")
     assert seen == [(False, False), (True, False)] and gc.isenabled()
 
 

@@ -16,6 +16,7 @@ from tensor_ops_tpu_torch import NumpyBackend, TorchBackend
 from tensor_ops_tpu_torch.backend.rng import Rng
 from tensor_ops_tpu_torch.models import (act_logistic, act_softmax,
                                          cross_entropy, gen_net)
+from tensor_ops_tpu_torch import engine
 from tensor_ops_tpu_torch.models import chain as C
 from tensor_ops_tpu_torch.models.optim import adam, cosine_schedule, sgd
 from tensor_ops_tpu_torch.models.trainer import (_device_fixed_perm,
@@ -166,7 +167,7 @@ def test_device_mode_graph_path_uploads_no_indices(monkeypatch):
     device from the start step; the windows' rows are the stream's."""
     seen = []
 
-    def fake_capture(fn, device):
+    def fake_capture(fn, device, what="the training step", **kw):
         fn(False)
         return type("Graph", (), {"replay": staticmethod(lambda: fn(True))})
 
@@ -176,8 +177,8 @@ def test_device_mode_graph_path_uploads_no_indices(monkeypatch):
         seen.append(rows)
         return real_run(self, scalars, rows, leaves)
 
-    monkeypatch.setattr(C, "uses_graphs", lambda device: True)
-    monkeypatch.setattr(C, "capture", fake_capture)
+    monkeypatch.setattr(engine, "uses_graphs", lambda device: True)
+    monkeypatch.setattr(engine, "capture", fake_capture)
     monkeypatch.setattr(C.StepChain, "run", run)
     X, Y = _data(512)
     kw = dict(epochs=2, batch_size=64, lr=0.1, log_every=4, verbose=False,
@@ -187,7 +188,7 @@ def test_device_mode_graph_path_uploads_no_indices(monkeypatch):
     rows = torch.cat(seen).numpy()
     assert np.array_equal(rows, _device_window_indices(5, 512, 64, 8, 0,
                                                        16).numpy())
-    monkeypatch.setattr(C, "uses_graphs", lambda device: False)
+    monkeypatch.setattr(engine, "uses_graphs", lambda device: False)
     r2 = fit(_mknet(TB), cross_entropy(4), TB, X, Y, **kw)
     assert _equal(r1.net.params, r2.net.params)
 

@@ -19,6 +19,7 @@ from tensor_ops_tpu.models.trainer import fit_sequences as j_fit_seq
 from tensor_ops_tpu_torch import NumpyBackend, TorchBackend
 from tensor_ops_tpu_torch.backend.rng import Rng
 from tensor_ops_tpu_torch.models import act_logistic, squared_error
+from tensor_ops_tpu_torch import engine
 from tensor_ops_tpu_torch.models import chain as C
 from tensor_ops_tpu_torch.models import recurrent as R
 from tensor_ops_tpu_torch.models.optim import adam, cosine_schedule
@@ -59,12 +60,12 @@ KW = dict(batch_size=8, rate_state=0.01, rate_param=0.05, verbose=False,
 @pytest.fixture
 def graph_path(monkeypatch):
     """``StepChain``'s graph path on the CPU (see tests/test_torch_chain)."""
-    def fake_capture(fn, device):
+    def fake_capture(fn, device, what="the training step", **kw):
         fn(False)
         return type("Graph", (), {"replay": staticmethod(lambda: fn(True))})
 
-    monkeypatch.setattr(C, "uses_graphs", lambda device: True)
-    monkeypatch.setattr(C, "capture", fake_capture)
+    monkeypatch.setattr(engine, "uses_graphs", lambda device: True)
+    monkeypatch.setattr(engine, "capture", fake_capture)
 
 
 @pytest.mark.parametrize("graphs", [False, True], ids=["eager", "graph"])

@@ -4,7 +4,7 @@ On the card ``Predictor`` serves each bucket, and ``SequencePredictor``
 each (bucket, length) pair, from a CUDA graph captured at warm-up, before
 a reload's switch or at first use; a model on the CPU runs direct.  The
 CPU cannot capture, so the ``graph_path`` fixture stands in for
-``chain.capture`` as ``tests/test_torch_chain.py`` does: the stand-in warms
+``engine.capture`` as ``tests/test_torch_chain.py`` does: the stand-in warms
 the forward up and returns a graph whose replay calls the captured
 function, which rewrites the graph's output as a replay does.  The
 serving state's bookkeeping (the graphs held by the state a reload swaps
@@ -46,6 +46,7 @@ from tensor_ops_tpu_torch.models import (FusedMLP, Network, Predictor,
 from tensor_ops_tpu_torch.models import act_logistic as t_logistic
 from tensor_ops_tpu_torch.models import act_relu as t_relu
 from tensor_ops_tpu_torch.models import act_softmax as t_softmax
+from tensor_ops_tpu_torch import engine
 from tensor_ops_tpu_torch.models import chain as C
 from tensor_ops_tpu_torch.models import gen_net as t_gen_net
 from tensor_ops_tpu_torch.models import serve as S
@@ -66,14 +67,15 @@ def graph_path(monkeypatch):
     replay runs it again.  Returns the list of what each capture named."""
     captured = []
 
-    def fake_capture(fn, device, what="", remedy="", stream=None):
+    def fake_capture(fn, device, what="", remedy="", streams=None,
+                     pool=None):
         fn(False)
         fn(True)
         captured.append(what)
         return type("Graph", (), {"replay": staticmethod(lambda: fn(True))})
 
-    monkeypatch.setattr(C, "uses_graphs", lambda device: True)
-    monkeypatch.setattr(C, "capture", fake_capture)
+    monkeypatch.setattr(engine, "uses_graphs", lambda device: True)
+    monkeypatch.setattr(engine, "capture", fake_capture)
     return captured
 
 
@@ -462,12 +464,14 @@ def test_reload_recaptures_the_shapes_beyond_the_buckets(jb, graph_path,
     assert S.graph_counts()["captures"] - before == len(fixed + extra)
 
 
-def test_capture_clears_cublas_workspaces_around_warmup_and_capture(
+def test_capture_keeps_cublas_workspaces_and_warms_up_off_the_capture_stream(
         monkeypatch):
-    """``chain.capture`` drops torch's per-(handle, stream) cuBLAS
-    workspaces before the warm-up, before the capture and after it, so a
-    captured cuBLAS call writes a workspace of the graph's own; a given
-    stream is the warm-up's and the capture's and gets no collection."""
+    """``engine.capture`` leaves torch's per-(handle, stream) cuBLAS
+    workspaces in place (dropping them around a capture freed memory that
+    later graphs read, an illegal address on the card).  Given streams, the
+    warm-up runs on the first and the capture on the second, with no
+    collection; without them a collection, a new side stream for the
+    warm-up and torch's own capture stream."""
     events = []
 
     class Stream:
@@ -494,17 +498,16 @@ def test_capture_clears_cublas_workspaces_around_warmup_and_capture(
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
     monkeypatch.setattr(torch._C, "_cuda_clearCublasWorkspaces",
                         lambda: events.append("clear"), raising=False)
-    monkeypatch.setattr(C.gc, "collect", lambda: events.append("collect"))
-    try:
-        for stream in (None, Stream()):
-            events.clear()
-            C.capture(lambda commit: events.append(("fn", commit)), "cuda",
-                      stream=stream)
-            assert events == (["collect"] * (stream is None) + [
-                "clear", ("warm-up on", stream or mine), ("fn", False),
-                "clear", ("capture on", stream), ("fn", True), "clear"])
-    finally:
-        C.reset_chain_counts()
+    monkeypatch.setattr(engine.gc, "collect",
+                        lambda: events.append("collect"))
+    warm, cap = Stream(), Stream()
+    for streams in (None, (warm, cap)):
+        events.clear()
+        engine.capture(lambda commit: events.append(("fn", commit)), "cuda",
+                       streams=streams)
+        assert events == (["collect"] * (streams is None) + [
+            ("warm-up on", warm if streams else mine), ("fn", False),
+            ("capture on", cap if streams else None), ("fn", True)])
 
 
 def test_concurrent_requests_on_one_graph_take_turns(graph_path):
@@ -569,7 +572,7 @@ def test_held_launches_are_counted_by_replays():
 
 
 def test_capture_error_names_what_and_remedy(monkeypatch):
-    """``chain.capture`` reports what the caller was capturing and its
+    """``engine.capture`` reports what the caller was capturing and its
     remedy; the training chain keeps its own words."""
     def refuse(device=None):
         raise RuntimeError("operation not permitted when stream is "
@@ -577,7 +580,7 @@ def test_capture_error_names_what_and_remedy(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "current_stream", refuse)
     with pytest.raises(C.CaptureError) as info:
-        C.capture(lambda commit: None, "cuda",
+        engine.capture(lambda commit: None, "cuda",
                   what="the FusedMLP request forward at batch 8",
                   remedy=S._REMEDY)
     msg = str(info.value)
@@ -585,7 +588,7 @@ def test_capture_error_names_what_and_remedy(monkeypatch):
                           "8 in a CUDA graph failed at")
     assert S._REMEDY in msg and "chain_steps" not in msg
     with pytest.raises(C.CaptureError, match="training step.*chain_steps=1"):
-        C.capture(lambda commit: None, "cuda")
+        engine.capture(lambda commit: None, "cuda")
 
 
 def test_a_failed_capture_raises_and_never_serves_direct(graph_path,
@@ -599,12 +602,12 @@ def test_a_failed_capture_raises_and_never_serves_direct(graph_path,
     pred = Predictor(a, buckets=(4,))
     pred.warmup()
     before = pred.predict(x)
-    capture = C.capture
+    capture = engine.capture
 
-    def refuse(fn, device, what="", remedy="", stream=None):
+    def refuse(fn, device, what="", remedy="", streams=None, pool=None):
         raise C.CaptureError(f"capturing {what} failed — {remedy}")
 
-    monkeypatch.setattr(C, "capture", refuse)
+    monkeypatch.setattr(engine, "capture", refuse)
     with pytest.raises(C.CaptureError, match="batch 4"):
         Predictor(b, buckets=(4,)).warmup()
     with pytest.raises(C.CaptureError, match="batch 8"):
@@ -613,6 +616,6 @@ def test_a_failed_capture_raises_and_never_serves_direct(graph_path,
         pred.reload(b)
     assert pred.model is a
     np.testing.assert_array_equal(pred.predict(x), before)
-    monkeypatch.setattr(C, "capture", capture)
+    monkeypatch.setattr(engine, "capture", capture)
     pred.reload(b)
     assert pred.model is b and not np.array_equal(pred.predict(x), before)
