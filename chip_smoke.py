@@ -172,8 +172,9 @@ without printing a result line:
    against the whole-batch step (``TOL_5_STEPS``); adam with ``ema_decay``
    and ``accum_steps=2``, interrupted by a Ctrl-C at step 2 and resumed,
    bit-equal to the straight run, EMA included; ``offload_activations``
-   bit-equal; 3 steps against the same loop on the CPU in f64, run in a
-   second interpreter (within 1e-5 plus twice the CPU f32 run's drift);
+   bit-equal; 3 steps of 128 sequences against the same loop on the CPU
+   in f64, run in a second interpreter (within 1e-5 plus twice the CPU
+   f32 run's drift);
    sequences/s over steps 2-32 and the first step's time from the
    history's host-clock stamps, and the peak device memory.
 17. Production fit: ``tensor_ops_tpu_torch.examples.production_fit`` on
@@ -247,9 +248,15 @@ without printing a result line:
    ZeRO-3 to ZeRO-2, offload to ZeRO-3, a Ctrl-C at step 30 of ZeRO-3
    resumed bit-equal; samples/s over steps 11-60; 5 sgd steps on each mesh
    within ``TOL_5_STEPS`` of one device; one ZeRO-3 step's wall, profile
-   and idle share.  Then ``fit_sequences`` on (2, 2) (its cell on weights
-   gathered over the model axis, one warning) against one device within
-   phase 23's bound.
+   and idle share.  Then ``fit_sequences`` on (2, 2), its Elman cell split
+   over the model axis (``parallel/tp_seq.py``: each model rank its rows
+   of the state weight, the state all-gathered at each timestep, no weight
+   gathered, no warning), with adam and with dual-rate sgd, against one
+   device within ``TOL_5_STEPS`` (the loss curves; the leaves after sgd)
+   and against the one-device run in f64 on the card within a floor plus
+   twice the one-device f32 run's drift (losses and leaves), and the sgd
+   run with ``remat_every`` and ``offload_activations`` against the sgd
+   run; kernel 9's launches equal to ``tp_seq_predicted``.
 25. The pipelines, in the same interpreter after phase 24: a
    ``PipelineMLP`` 784 -> 2048 x 8 -> 10 (random weights, seed 25), B =
    512, through ``parallel.pipeline`` on the card with its ranks named
@@ -402,14 +409,22 @@ without printing a result line:
    step; ``batched_run`` (``accuracy``, ``confusion``), ``train_minibatch``,
    ``batch_loss``, ``seq_losses``, ``seq_batch_loss`` and
    ``RecurrentNetwork.train_batch``; ``FusedMLP.train`` (kernel 1),
-   ``train_fullfused`` and ``FusedAutoencoder.train`` (kernel 3),
    ``FusedRNN`` at 32 -> 512 (kernel 7's sequence launch) and 32 -> 1024
-   (its step launches), ``impl="pallas"`` and ``"xla"``: each bit-equal to
-   its direct call (``engine.direct``) at its first call and at a replay,
-   its hand-written launches equal, captures at the first call only; new
-   rates without a capture (kernel 3 reads its rate from the card's
-   memory); each route graph against direct in interleaved turns (wall per
-   call, kernels and graph launches per call, busy time, idle share); the
+   (its step launches), ``impl="pallas"`` and ``"xla"``, and ``run_xla``
+   at buckets 8 and 64: each bit-equal to its direct call
+   (``engine.direct``) at its first call and at a replay, its hand-written
+   launches equal, captures at the first call only (one per shape for
+   ``run_xla``); the calls that run direct, ``FusedMLP.run`` (kernel 1
+   three times) and ``QuantizedMLP.run`` (kernel 4 or 5 three times) at
+   buckets 8 and 64 and the one-launch calls, ``train_fullfused`` and
+   ``FusedAutoencoder.train`` (kernel 3), ``run_fused_inference`` (kernel
+   2) and ``QuantizedMLP.run_fused`` (kernel 6, on a uniform 3 x 1024
+   stack): no capture, their launches counted; new rates without a
+   capture; each route graph against direct in interleaved turns, a
+   direct call direct only (wall per call, kernels and graph launches per
+   call, busy time, idle share); ``run_xla``'s graph at the 4 x 4096
+   stack, whose static bytes are its input and output rows alone (the
+   weights read in place); the
    mnist app's default fold, ``--minibatch 100``, ``--fused`` and
    ``--induce 3`` on the synthetic set with samples/s; the bytes the
    engine's graphs hold.
@@ -439,8 +454,10 @@ timed at B = 1).  The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import atexit
 import concurrent.futures
 import contextlib
+import gc
 import glob
 import io
 import json
@@ -650,14 +667,17 @@ FIT_SGD_ROWS = 500
 # sequences of n = 64 steps, inputs and targets standard normal (seed 0),
 # batch 256 (16 steps an epoch), dual-rate SGD at the source's rates for 2
 # epochs; adam with EMA and accum_steps=2 for SEQ_FIT_ADAM_STEPS steps; and
-# SEQ_FIT_CPU_STEPS steps held against the same loop on the CPU in f64.
+# SEQ_FIT_CPU_STEPS steps of SEQ_FIT_CPU_BATCH sequences held against the
+# same loop on the CPU in f64 (the batch halved for the host's time: at 1
+# step the drift bound below has no steps' drift to hold the card's first
+# forward against).
 SEQ_FIT_SEQS, SEQ_FIT_BATCH, SEQ_FIT_EPOCHS = 4096, 256, 2
 SEQ_FIT_RATES = dict(rate_state=0.01, rate_param=0.05)
 SEQ_FIT_LOG_EVERY = 4
 SEQ_FIT_ADAM_STEPS, SEQ_FIT_EMA = 4, 0.9
-SEQ_FIT_CPU_STEPS = 3
+SEQ_FIT_CPU_STEPS, SEQ_FIT_CPU_BATCH = 3, 128
 # The card's f32 run against CPU f64 over SEQ_FIT_CPU_STEPS steps: each
-# step's sums over 256 sequences of 64 steps of 544-long products are taken
+# step's sums over 128 sequences of 64 steps of 544-long products are taken
 # in another order, and BPTT through the recurrence carries those
 # differences on (the recurrent slice's 64-step trajectories drift by what
 # the host's BLAS gives); as there, the bound is 1e-5 plus twice the drift
@@ -2617,7 +2637,7 @@ def _seq_fit_on_cpu(src: str, dst: str) -> None:
         net = RecurrentNetwork(tmpl.op, leaves[:k], leaves[k:], tmpl.arch)
         t0 = time.perf_counter()
         res = fit_sequences(net, squared_error(RNN_OUT), cpu, z["XS"],
-                            z["TS"], epochs=1, batch_size=SEQ_FIT_BATCH,
+                            z["TS"], epochs=1, batch_size=SEQ_FIT_CPU_BATCH,
                             log_every=1, verbose=False, chain_steps=1,
                             **SEQ_FIT_RATES)
         out[f"{tag}_s"] = time.perf_counter() - t0
@@ -2627,13 +2647,15 @@ def _seq_fit_on_cpu(src: str, dst: str) -> None:
     np.savez(dst, **out)
 
 
-def _held_to_f64(card, cpu: dict, floor: float) -> str:
-    """The card run's losses and leaves against the CPU f64 run's, each
-    within ``floor`` plus twice the CPU f32 run's largest distance from the
-    f64 one (its drift), measured apart for the losses and the leaves;
-    returns the log line."""
+def _held_to_f64(card, cpu: dict, floor: float,
+                 f32: str = "the CPU f32 run") -> str:
+    """The card run's losses and leaves against the f64 run's (``cpu``'s
+    ``f64_loss`` and ``f64_leaves``), each within ``floor`` plus twice the
+    f32 run's largest distance from the f64 one (its drift: ``f32_loss``,
+    ``f32_leaves``; ``f32`` names that run), measured apart for the losses
+    and the leaves; returns the log line."""
     got = {"loss": torch.tensor([x["loss"] for x in card.history]),
-           "leaves": torch.cat([t.double().cpu().reshape(-1)
+           "leaves": torch.cat([_whole(t).double().cpu().reshape(-1)
                                 for t in _leaves(card.net)])}
     out = []
     for name, c in got.items():
@@ -2643,7 +2665,7 @@ def _held_to_f64(card, cpu: dict, floor: float) -> str:
         tol = floor + 2 * drift
         e = max_err(c, ref, (tol, 0.0))
         out.append(f"{name} max|err| {e:.2e} (tol {tol:.2e} = {floor:g} + 2 "
-                   f"x the CPU f32 run's drift {drift:.2e})")
+                   f"x {f32}'s drift {drift:.2e})")
     return "; ".join(out)
 
 
@@ -2710,6 +2732,23 @@ def phase_seq_fit(tmp: str) -> dict:
         f"{t[1] * 1e3:.1f} ms from fit_sequences' start (the first run on "
         f"this network in the process); peak device memory {peak} bytes "
         f"(torch.cuda.max_memory_allocated)")
+
+    # the CPU runs of the comparison with f64 below, in a second
+    # interpreter from the caller's leaves, started now: they overlap the
+    # checks that follow, none of which is timed
+    n_c = SEQ_FIT_CPU_STEPS * SEQ_FIT_CPU_BATCH
+    src, dst = os.path.join(tmp, "seq_cpu_in.npz"), os.path.join(
+        tmp, "seq_cpu_out.npz")
+    np.savez(src, XS=XS[:n_c], TS=TS[:n_c],
+             **{f"leaf_{i}": t.cpu().numpy()
+                for i, t in enumerate(_leaves(net))})
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import sys, chip_smoke; "
+         "chip_smoke._seq_fit_on_cpu(*sys.argv[1:])", src, dst],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=here,
+        env=dict(os.environ, PYTHONPATH=here))
+    atexit.register(proc.kill)   # a failed check below leaves it no orphan
 
     # crash at the end of epoch 1, resume to the budget
     ck = os.path.join(tmp, "seq.npz")
@@ -2796,25 +2835,19 @@ def phase_seq_fit(tmp: str) -> dict:
         "the run without it")
 
     # the first steps on the card in f32 against the CPU in f64 (and f32,
-    # for the drift), the CPU runs in a second interpreter
-    n_c = SEQ_FIT_CPU_STEPS * B
+    # for the drift), the CPU runs' interpreter started above
     card = fit_sequences(net, loss, be, XS[:n_c], TS[:n_c], epochs=1,
-                         **dict(kw, log_every=1))
-    src, dst = os.path.join(tmp, "seq_cpu_in.npz"), os.path.join(
-        tmp, "seq_cpu_out.npz")
-    np.savez(src, XS=XS[:n_c], TS=TS[:n_c],
-             **{f"leaf_{i}": t.cpu().numpy()
-                for i, t in enumerate(_leaves(net))})
-    here = os.path.dirname(os.path.abspath(__file__))
-    proc = subprocess.run(
-        [sys.executable, "-c", "import sys, chip_smoke; "
-         "chip_smoke._seq_fit_on_cpu(*sys.argv[1:])", src, dst],
-        capture_output=True, text=True, timeout=600, cwd=here,
-        env=dict(os.environ, PYTHONPATH=here))
+                         **dict(kw, log_every=1,
+                                batch_size=SEQ_FIT_CPU_BATCH))
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
     check(proc.returncode == 0, f"the CPU runs of fit_sequences failed:\n"
-          f"{proc.stdout}{proc.stderr[-3000:]}")
+          f"{out}{err[-3000:]}")
     cpu = dict(np.load(dst))
-    log(f"[seqfit] {SEQ_FIT_CPU_STEPS} dual-rate steps vs the same "
+    log(f"[seqfit] {SEQ_FIT_CPU_STEPS} dual-rate steps of "
+        f"{SEQ_FIT_CPU_BATCH} sequences vs the same "
         f"fit_sequences on the CPU in f64: "
         f"{_held_to_f64(card, cpu, TOL_SEQ_FIT)} (CPU runs in a second "
         f"interpreter, {float(cpu['f64_s']):.1f} s in f64, "
@@ -4553,6 +4586,9 @@ TOL_MESH = (1e-3, 1e-3)
 # the recurrent model of phase 9 on the mesh: adam at ZeRO-2, MESH_SEQ_STEPS
 # steps of 256 sequences (64 a rank)
 MESH_SEQ_STEPS = 4
+# phase 24's split with remat_every (blocks of 8 of the 64 timesteps) and
+# offload_activations
+SEQ_TP_REMAT = 8
 
 
 def _opt(name: str):
@@ -5168,12 +5204,56 @@ def phase_model_axis(tmp: str) -> dict:
     return launches
 
 
+def tp_seq_predicted(dp: int, tp: int, n: int, leaves: int,
+                     steps: int, recompute: bool = False) -> dict:
+    """Kernel 9's launches (ar, rs, ag) of ``steps`` steps of
+    ``fit_sequences`` on ``(dp, tp)`` of the Elman model (32 -> [512] ->
+    32: its state weight on (model, None), its input weight on (None,
+    model), its bias replicated, the output layer on (model, None) with an
+    elementwise activation), from ``parallel/tp_seq.py``.  Each data
+    group's step: forward, the input weight's partial products all-reduced
+    once a sequence, the state all-gathered at each of the n timesteps,
+    the row-split output gathered for the loss; backward, the output
+    layer's input cotangent all-reduced, the state's at each timestep, and
+    the cell's sliced (wX x + b) cotangent gathered.  Then the loss and
+    each leaf's gradient on each model rank reduced over the data axis.
+    No weight is gathered.  With ``recompute`` (``remat_every`` or
+    ``offload_activations``) the backward recomputes the n timesteps from
+    the kept states, their n state gathers again."""
+    return {"ar": steps * (1 + tp * leaves + dp * (n + 2)), "rs": 0,
+            "ag": steps * dp * (n + 2 + (n if recompute else 0))}
+
+
 def phase_tp_seq(be, mesh) -> dict:
-    """fit_sequences on (2, 2): the recurrent model (seed 7) with adam, its
-    cell on the leaves gathered over the model axis, against one device
-    within phase 23's bound (TOL_SEQ_FIT plus twice the distance that
-    regrouping the batch into the data axis's chunks makes)."""
+    """fit_sequences on (2, 2): the recurrent model (seed 7), its cell split
+    over the model axis (parallel/tp_seq.py: each model rank its rows of
+    the state weight, no weight gathered, no warning), with adam and with
+    the reference's dual-rate sgd.  Against one device: the loss curves of
+    both within TOL_5_STEPS, the bound phase 24 holds its tensor-parallel
+    fit runs to, and the leaves after sgd.  Against the same run on one
+    device in f64 on the card: the losses and leaves of both within a
+    floor (TOL_SEQ_FIT for sgd, TOL_MESH's for adam) plus twice the
+    one-device f32 run's distance from it, as the recurrent fit slice
+    holds the card to CPU f64.  The split sums the input weight's partial
+    products, the state's cotangent over the model ranks and a sequence's
+    weight gradient in one contraction, in another order than the
+    one-device scan, so the losses (~2,000 here) differ by ulps, above
+    TOL_SEQ_FIT's 1e-5 (one f32 ulp of 2,048 is 2.4e-4); adam's first
+    steps move a weight by lr * sign(g), so a gradient that is a
+    cancellation residue takes the sign its order rounds to and the weight
+    lands up to 2 lr away (see TOL_MESH): there one device itself lies
+    ~0.1 from f64 (tools/seq_tp_against_f64.py), so adam's leaves are held
+    to f64 and not to one device, while sgd moves each by lr * g.  The
+    distance that regrouping the batch
+    into the data axis's chunks makes (the gathered route's bound,
+    TOL_SEQ_FIT plus twice it) is printed beside.  Then the sgd leg with
+    ``remat_every=SEQ_TP_REMAT`` and ``offload_activations`` (the kept
+    states through pinned host memory): within TOL_5_STEPS of the sgd
+    leg (only the state weight's gradient sums block by block).  Kernel
+    9's launches as :func:`tp_seq_predicted`."""
+    from tensor_ops_tpu_torch import TorchBackend
     from tensor_ops_tpu_torch.models import adam, fit_sequences, squared_error
+    from tensor_ops_tpu_torch.models.recurrent import RecurrentNetwork
     from tensor_ops_tpu_torch.parallel import mesh as M
 
     net = rnn_model(be)
@@ -5182,45 +5262,101 @@ def phase_tp_seq(be, mesh) -> dict:
     XS = r.standard_normal((n, RNN_N, RNN_IN)).astype(np.float32)
     TS = r.standard_normal((n, RNN_N, RNN_OUT)).astype(np.float32)
     loss = squared_error(RNN_OUT)
-    kw = dict(epochs=1, batch_size=SEQ_FIT_BATCH, log_every=1, verbose=False,
-              chain_steps=1, optimizer=adam(), **SEQ_FIT_RATES)
     dp, tp = mesh.shape["data"], mesh.shape["model"]
-    with warnings.catch_warnings(record=True) as w:
-        warnings.simplefilter("always")
-        on_mesh, counts, phases = _counted(lambda: fit_sequences(
-            net, loss, be, XS, TS, mesh=mesh, **kw))
-    check(sum("all-gathered over the model" in str(x.message) for x in w)
-          == 1, "tp fit_sequences: not one warning of the gathered cell")
-    single = fit_sequences(net, loss, be, XS, TS, **kw)
-    chunked = fit_sequences(net, loss, be, XS, TS, accum_steps=dp, **kw)
-    # the design: each step gathers every model-sharded leaf in each data
-    # group, reduces the loss and each leaf over each data group; the
-    # trained leaves come back sharded (nothing gathered at the end)
     leaves = list(net.states) + list(net.params)
     specs = [(None,) * s.dim() for s in net.states] + list(
         M.param_specs(net.param_stack, mesh))
-    n_m = sum("model" in sp for sp in specs)
-    want = {"ar": MESH_SEQ_STEPS * (1 + tp * len(leaves)), "rs": 0,
-            "ag": MESH_SEQ_STEPS * dp * n_m}
-    check(phases == want and n_m > 0, f"tp fit_sequences: kernel 9 "
+    check(specs[len(net.states):] == [
+        ("model", None), (None, "model"), (None,), ("model", None),
+        ("model",)], f"tp fit_sequences: the leaves' specs {specs}")
+    want = tp_seq_predicted(dp, tp, RNN_N, len(leaves), MESH_SEQ_STEPS)
+    launches = {k: 0 for k in RING_NAMES}
+    be64 = TorchBackend(torch.float64, DEVICE)
+    net64 = RecurrentNetwork(net.op, tuple(s.double() for s in net.states),
+                             tuple(p.double() for p in net.params), net.arch)
+
+    def curve(res):
+        return torch.tensor([x["loss"] for x in res.history],
+                            dtype=torch.float64)
+
+    def flat(res):
+        return torch.cat([_whole(t).double().cpu().reshape(-1)
+                          for t in _leaves(res.net)])
+
+    for opt_name, opt in (("adam", adam()), ("dual-rate sgd", None)):
+        kw = dict(epochs=1, batch_size=SEQ_FIT_BATCH, log_every=1,
+                  verbose=False, chain_steps=1, optimizer=opt,
+                  **SEQ_FIT_RATES)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            on_mesh, counts, phases = _counted(lambda: fit_sequences(
+                net, loss, be, XS, TS, mesh=mesh, **kw))
+            wall = time.perf_counter() - t0
+        said = [str(x.message) for x in w if "model" in str(x.message)]
+        check(not said, f"tp fit_sequences ({opt_name}): warned {said}")
+        check(phases == want, f"tp fit_sequences ({opt_name}): kernel 9 "
+              f"launches {phases}, the design predicts {want}")
+        check(on_mesh.net.params[0].spec == ("model", None), f"tp "
+              f"fit_sequences ({opt_name}): the state weight came back on "
+              f"{on_mesh.net.params[0].spec}")
+        for k in RING_NAMES:
+            launches[k] += counts[k]
+        single = fit_sequences(net, loss, be, XS, TS, **kw)
+        chunked = fit_sequences(net, loss, be, XS, TS, accum_steps=dp, **kw)
+        f64 = fit_sequences(net64, loss, be64, XS.astype(np.float64),
+                            TS.astype(np.float64), **kw)
+        out = []
+        for name, get in (("loss", curve), ("leaves", flat)):
+            ref = get(single)
+            drift = float((get(chunked) - ref).abs().max())
+            if name == "leaves" and opt is not None:
+                e = float((get(on_mesh) - ref).abs().max())
+                out.append(f"leaves max|err| {e:.2e} (held to f64 below: "
+                           f"adam's sign steps; the chunked run's distance "
+                           f"{drift:.2e})")
+                continue
+            e = max_err(get(on_mesh), ref, TOL_5_STEPS)
+            out.append(f"{name} max|err| {e:.2e} (tol {TOL_5_STEPS[0]:g}+"
+                       f"{TOL_5_STEPS[1]:g}|ref|; the chunked run's distance "
+                       f"{drift:.2e})")
+        ref = {"f64_loss": curve(f64), "f64_leaves": flat(f64),
+               "f32_loss": curve(single), "f32_leaves": flat(single)}
+        out.append("vs the one-device run in f64 on the card: " + _held_to_f64(
+            on_mesh, ref, TOL_SEQ_FIT if opt is None else TOL_MESH[0],
+            "the one-device f32 run"))
+        log(f"[tp] fit_sequences (Elman {RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT}, "
+            f"n={RNN_N}, B={SEQ_FIT_BATCH}, {opt_name}, {MESH_SEQ_STEPS} "
+            f"steps) on {dp, tp} vs one device: {'; '.join(out)}; kernel 9 "
+            f"{phases} as predicted (the cell split over the model axis: the "
+            f"state gathered at each timestep, no weight gathered, no "
+            f"warning); the run {wall:.2f} s (host clock)")
+    sgd = on_mesh
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        memo, counts, phases = _counted(lambda: fit_sequences(
+            net, loss, be, XS, TS, mesh=mesh, remat_every=SEQ_TP_REMAT,
+            offload_activations=True, **kw))
+    said = [str(x.message) for x in w if "model" in str(x.message)]
+    check(not said, f"tp fit_sequences (remat, offload): warned {said}")
+    want = tp_seq_predicted(dp, tp, RNN_N, len(leaves), MESH_SEQ_STEPS,
+                            recompute=True)
+    check(phases == want, f"tp fit_sequences (remat, offload): kernel 9 "
           f"launches {phases}, the design predicts {want}")
-    out = []
-    for name, get in (("loss", lambda res: torch.tensor(
-            [x["loss"] for x in res.history])),
-                      ("leaves", lambda res: torch.cat(
-                          [_whole(t).double().cpu().reshape(-1)
-                           for t in _leaves(res.net)]))):
-        ref = get(single).double()
-        drift = float((get(chunked).double() - ref).abs().max())
-        tol = TOL_SEQ_FIT + 2 * drift
-        e = max_err(get(on_mesh), ref, (tol, 0.0))
-        out.append(f"{name} max|err| {e:.2e} (tol {tol:.2e})")
-    log(f"[tp] fit_sequences (Elman {RNN_IN}->[{RNN_HIDDEN}]->{RNN_OUT}, "
-        f"n={RNN_N}, B={SEQ_FIT_BATCH}, adam, {MESH_SEQ_STEPS} steps) on "
-        f"{dp, tp} vs one device: {'; '.join(out)}; kernel 9 {phases} as "
-        f"predicted ({n_m} of {len(leaves)} leaves on the model axis, the "
-        f"cell on gathered weights, one warning)")
-    return counts
+    for k in RING_NAMES:
+        launches[k] += counts[k]
+    e_loss = max_err(torch.tensor([x["loss"] for x in memo.history]),
+                     torch.tensor([x["loss"] for x in sgd.history]),
+                     TOL_5_STEPS)
+    e_leaves = max(max_err(a, b, TOL_5_STEPS) for a, b in
+                   zip(_leaves(memo.net), _leaves(sgd.net)))
+    log(f"[tp] fit_sequences on {dp, tp}, dual-rate sgd with remat_every="
+        f"{SEQ_TP_REMAT} and offload_activations (the block-entry states "
+        f"through pinned host memory) vs without: loss max|err| "
+        f"{e_loss:.2e}, leaves {e_leaves:.2e} (tol {TOL_5_STEPS[0]:g}+"
+        f"{TOL_5_STEPS[1]:g}|ref|); kernel 9 {phases} as predicted (the "
+        f"backward's recomputed state gathers included), no warning")
+    return launches
 
 
 def phase_model_axis_cards(f, tmp: str) -> None:
@@ -6271,7 +6407,9 @@ def proc_predicted(name: str, M: int = PROC_IRP_M) -> dict:
       all-reduced, once per data group (one a model rank), and the loss
       averaged over the data ranks once;
     * fit_sequences (dual-rate SGD): each of the 6 leaves' gradients (the
-      state and 5 parameters) all-reduced once per data group, and the loss;
+      state and 5 parameters) all-reduced once per data group, and the loss
+      (the cell's calls over the model axis stay inside a process: a model
+      group lies in one);
     * staged IR on (data=2, stage=2): the batch's rows all-gathered over the
       data ranks, x and y (M > 1 microbatches cut each data rank's rows from
       every process's block), the loss, and each of the 6 flat leaves'
@@ -8019,6 +8157,21 @@ COMPILED_INDUCE, COMPILED_INDUCE_PROFILED = 5000, 500
 COMPILED_VAL = 1000
 COMPILED_RNN_WIDE = 1024
 COMPILED_TURNS, COMPILED_CALLS = 2, 20
+# the forwards of item 11b at the serving buckets 8 and 64: run_xla
+# compiled, FusedMLP.run, the two QuantizedMLP.run modes and the
+# one-launch calls direct; QuantizedMLP.run_fused on a uniform int8 stack
+# of COMPILED_STACK_L layers of COMPILED_STACK_N (relu, softmax out)
+COMPILED_BUCKETS = (8, 64)
+COMPILED_STACK_N, COMPILED_STACK_L = 1024, 3
+# the forwards of several launches, timed at each bucket
+COMPILED_FORWARDS = ("FusedMLP.run", "FusedMLP.run_xla",
+                     "QuantizedMLP w8 run", "QuantizedMLP w8a8 run")
+# the calls that run direct, capturing nothing (entry names begin so):
+# those of one kernel launch, and the forwards a graph made no faster
+COMPILED_DIRECT = ("FusedMLP.train_fullfused", "FusedAutoencoder.train",
+                   "FusedMLP.run_fused_inference", "QuantizedMLP.run_fused",
+                   "FusedMLP.run (", "QuantizedMLP w8 run",
+                   "QuantizedMLP w8a8 run")
 # the mnist app's routes, each one epoch of the synthetic set
 COMPILED_APP_ROUTES = ((), ("--minibatch", "100"),
                        ("--minibatch", "100", "--fused"), ("--induce", "3"))
@@ -8073,11 +8226,8 @@ def _same_out(a, b) -> bool:
 
 def _compiled_entries(be):
     """Phase 32's entry points: (item, name, call)."""
-    from tensor_ops_tpu_torch.backend.rng import Rng
-    from tensor_ops_tpu_torch.models import (Encoder, FusedAutoencoder,
-                                             FusedMLP, FusedRNN,
-                                             act_logistic, cross_entropy,
-                                             gen_net, squared_error)
+    from tensor_ops_tpu_torch.models import (FusedMLP, FusedRNN, QuantizedMLP,
+                                             cross_entropy, squared_error)
     from tensor_ops_tpu_torch.models import training as TT
 
     net = _flagship_net(be)
@@ -8093,14 +8243,8 @@ def _compiled_entries(be):
     XS = be.asarray(r.uniform(0, 1, size=(RNN_SEQS, RNN_N, RNN_IN)))
     TS = be.asarray(r.uniform(0, 1, size=(RNN_SEQS, RNN_N, RNN_OUT)))
     xs, ts = XS[0], TS[0]
-    rng = Rng(be, 0)
-    i, h, z = AE_DIMS[0], AE_DIMS[1], AE_DIMS[2]
-    enc = Encoder(gen_net(be, i, z, [(h, act_logistic())], act_logistic(),
-                          rng),
-                  gen_net(be, z, i, [(h, act_logistic())], act_logistic(),
-                          rng))
-    eloss = squared_error(i)
-    fae = FusedAutoencoder.from_encoder(enc)
+    enc, fae = _compiled_autoencoder(be)
+    eloss = squared_error(AE_DIMS[0])
     fm = FusedMLP.from_network(net)
     rnns = {}
     for o in (RNN_HIDDEN, COMPILED_RNN_WIDE):
@@ -8115,6 +8259,8 @@ def _compiled_entries(be):
     rxs = np.asarray(r.normal(size=(RNN_N, RNN_IN)), np.float32)
     rtg = {o: np.asarray(0.3 * r.normal(size=(RNN_N, o)), np.float32)
            for o in (RNN_HIDDEN, COMPILED_RNN_WIDE)}
+    qms = {mode: QuantizedMLP.from_fused(fm, mode) for mode in ("w8", "w8a8")}
+    uq, xu = _uniform_int8_stack()
     out = [
         (1, "Network.run", lambda: net.run(be, x1)),
         (1, "Network.net_grad", lambda: net.net_grad(loss, be, x1, y1)),
@@ -8160,7 +8306,53 @@ def _compiled_entries(be):
                     lambda m=m: m.seq_forward(rxs)))
         out.append((5, f"FusedRNN {RNN_IN}->{o} {impl} train",
                     lambda m=m, o=o: m.train(0.01, 0.001, rxs, rtg[o])))
+    for b in COMPILED_BUCKETS:
+        xq = X[:b]
+        out += [
+            ("11b", f"FusedMLP.run (B={b})", lambda x=xq: fm.run(x)),
+            ("11b", f"FusedMLP.run_xla (B={b})", lambda x=xq: fm.run_xla(x)),
+            ("11b", f"QuantizedMLP w8 run (B={b})",
+             lambda x=xq: qms["w8"].run(x)),
+            ("11b", f"QuantizedMLP w8a8 run (B={b})",
+             lambda x=xq: qms["w8a8"].run(x)),
+            ("11b", f"FusedMLP.run_fused_inference (B={b})",
+             lambda x=xq: fm.run_fused_inference(x)),
+            ("11b", f"QuantizedMLP.run_fused (B={b})",
+             lambda x=xu[:b]: uq.run_fused(x))]
     return out
+
+
+def _compiled_autoencoder(be):
+    """Phase 32's autoencoder (AE_DIMS, seed 0): the staged-IR ``Encoder``
+    and its ``FusedAutoencoder``."""
+    from tensor_ops_tpu_torch.backend.rng import Rng
+    from tensor_ops_tpu_torch.models import (Encoder, FusedAutoencoder,
+                                             act_logistic, gen_net)
+
+    rng = Rng(be, 0)
+    i, h, z = AE_DIMS[0], AE_DIMS[1], AE_DIMS[2]
+    enc = Encoder(gen_net(be, i, z, [(h, act_logistic())], act_logistic(),
+                          rng),
+                  gen_net(be, z, i, [(h, act_logistic())], act_logistic(),
+                          rng))
+    return enc, FusedAutoencoder.from_encoder(enc)
+
+
+def _uniform_int8_stack():
+    """Phase 32's uniform int8 stack (seed 323; weights normal over the
+    square root of the width) on the card and its input rows."""
+    from tensor_ops_tpu_torch.models import FusedMLP, QuantizedMLP
+
+    r = np.random.default_rng(323)
+    n, L = COMPILED_STACK_N, COMPILED_STACK_L
+    ws = [np.asarray(r.normal(size=(n, n)) / math.sqrt(n), np.float32)
+          for _ in range(L)]
+    bs = [np.asarray(0.1 * r.normal(size=n), np.float32) for _ in range(L)]
+    fm = FusedMLP.from_numpy(ws, bs, ("relu",) * (L - 1) + ("identity",),
+                             device=DEVICE)
+    x = torch.as_tensor(np.asarray(r.uniform(0, 1, size=(
+        max(COMPILED_BUCKETS), n)), np.float32), device=DEVICE)
+    return QuantizedMLP.from_fused(fm, "w8a8"), x
 
 
 def _call_counted(call):
@@ -8180,8 +8372,9 @@ def _call_counted(call):
 def _compiled_checks(be) -> dict:
     """Every entry point bit-equal to its direct call at its first call (a
     capture) and at a replay, the launches each counts equal, captures only
-    at the first call; returns the entries by name and the wall
-    microseconds of each direct call."""
+    at the first call (exactly one for ``run_xla``); the calls that run
+    direct (``COMPILED_DIRECT``) capture nothing; returns the entries by
+    name and the wall microseconds of each direct call."""
     from tensor_ops_tpu_torch import engine
 
     entries = _compiled_entries(be)
@@ -8203,15 +8396,21 @@ def _compiled_checks(be) -> dict:
               f"capture and {n_again} at a replay, its direct call "
               f"{direct}")
         shared = COMPILED_SHARED.get(name)
-        check((c1 == c0 if shared else c1 > c0) and c2 == c1,
+        one = name.startswith(COMPILED_DIRECT)
+        captured = (c1 == c0 if shared or one
+                    else c1 == c0 + 1 if item == "11b" else c1 > c0)
+        check(captured and c2 == c1,
               f"compiled entry points: {name} captured {c1 - c0} graphs at "
               f"its first call and {c2 - c1} at its second")
         log(f"[compiled] item {item} {name}: "
             + (f"replays {shared}'s graph" if shared
+               else "direct: no capture" if one
                else f"{c1 - c0} capture(s)")
-            + f", first call and replay bit-equal to the direct call; "
-            f"hand-written "
-            f"launches a call (direct = capture = replay): "
+            + f", first call and "
+            + ("second call" if one else "replay")
+            + " bit-equal to the direct call; hand-written launches a call "
+            + ("(direct = second call): " if one
+               else "(direct = capture = replay): ")
             + (", ".join(f"{k} x{v}" for k, v in direct.items()) or "none"))
     want_kernels = {"FusedMLP.train": ("fused_linear", 3),
                     "FusedMLP.train_fullfused": ("fused_mlp_train_step", 1),
@@ -8220,11 +8419,25 @@ def _compiled_checks(be) -> dict:
                         ("fused_rnn_step.seq", 1),
                     f"FusedRNN {RNN_IN}->{COMPILED_RNN_WIDE} pallas train":
                         ("fused_rnn_step", RNN_N)}
+    for b in COMPILED_BUCKETS:
+        want_kernels.update({
+            f"FusedMLP.run (B={b})": ("fused_linear", 3),
+            f"QuantizedMLP w8 run (B={b})": ("fused_linear_w8", 3),
+            f"QuantizedMLP w8a8 run (B={b})": ("fused_linear_w8a8", 3),
+            f"FusedMLP.run_fused_inference (B={b})": ("fused_mlp_forward",
+                                                      1),
+            f"QuantizedMLP.run_fused (B={b})": ("fused_mlp_w8a8_forward",
+                                                1)})
     by_name = {name: call for _, name, call in entries}
     for name, (kname, n) in want_kernels.items():
         _, got, _ = _call_counted(by_name[name])
-        check(got.get(kname) == n, f"compiled entry points: a replay of "
-              f"{name} counted {got}, want {kname} x{n}")
+        check(got.get(kname) == n, f"compiled entry points: a "
+              f"{'call' if name.startswith(COMPILED_DIRECT) else 'replay'} "
+              f"of {name} counted {got}, want {kname} x{n}")
+    for b in COMPILED_BUCKETS:
+        _, got, _ = _call_counted(by_name[f"FusedMLP.run_xla (B={b})"])
+        check(not got, f"compiled entry points: a replay of FusedMLP.run_xla "
+              f"(B={b}) counted {got}, want no hand-written launch")
     return by_name, walls
 
 
@@ -8243,7 +8456,7 @@ def _second_rates(be, by_name) -> None:
     Y = be.asarray(np.eye(FLAGSHIP[-1])[r.integers(0, 10, COMPILED_B)])
     calls = {"Network.train": lambda v: net.train(loss, v, be, X[0], Y[0]),
              "train_fold": lambda v: TT.train_fold(net, loss, be, v, X, Y),
-             "train_fullfused (kernel 3's rate from the card's memory)":
+             "train_fullfused (direct, kernel 3's rate by value)":
                  lambda v: fm.train_fullfused(v, X, Y)}
     for what, call in calls.items():
         call(TRAIN_RATE)
@@ -8256,8 +8469,8 @@ def _second_rates(be, by_name) -> None:
         check(engine.graph_counts()["captures"] == c0, f"compiled entry "
               f"points: a new rate of {what} captured")
     log(f"[compiled] new rates (0.05, 0.7 after {TRAIN_RATE}) replay the "
-        f"graph of the first, each bit-equal to its direct call: "
-        + ", ".join(calls))
+        f"graph of the first (train_fullfused: no graph), each bit-equal to "
+        f"its direct call: " + ", ".join(calls))
     # beside bf16 weights a rate keys the graph by its value (a 0-d float32
     # rate would be rounded to bf16 on the card)
     fm16 = fm.astype(torch.bfloat16)
@@ -8283,10 +8496,11 @@ def _second_rates(be, by_name) -> None:
 def _turns(arms: dict, calls: int, turns: int = COMPILED_TURNS) -> dict:
     """Host-clock microseconds per call of each arm, ``turns`` turns of
     ``calls`` calls each, the arms interleaved (the order reversed every
-    other turn), the card drained after each turn; the median of the
-    turns."""
+    other turn), the garbage collected before the turns, the card drained
+    before and after each turn; the median of the turns."""
     ts = {a: [] for a in arms}
     names = list(arms)
+    gc.collect()   # an earlier route's garbage is not these turns'
     for t in range(turns):
         for a in (names if t % 2 == 0 else names[::-1]):
             torch.cuda.synchronize()
@@ -8302,9 +8516,10 @@ def _compiled_timing(be, by_name, walls) -> None:
     """Each route graph against direct: wall per call (host clock,
     interleaved turns; the fold's and the induction's direct call once, in
     the checks, ``walls``), kernels, graph launches and device busy time
-    per call (profiler), the idle share (1 - busy / wall)."""
+    per call (profiler), the idle share (1 - busy / wall).  A call that
+    runs direct (``COMPILED_DIRECT``) is timed direct only."""
     from tensor_ops_tpu_torch import engine
-    from tensor_ops_tpu_torch.models import cross_entropy
+    from tensor_ops_tpu_torch.models import FusedMLP, cross_entropy
     from tensor_ops_tpu_torch.models import training as TT
 
     net = _flagship_net(be)
@@ -8318,30 +8533,47 @@ def _compiled_timing(be, by_name, walls) -> None:
                                            Y[:COMPILED_FOLD_PROFILED]),
              "induce": lambda: net.induce_many(loss, 1.0, be, Y[0], X[1],
                                                COMPILED_INDUCE_PROFILED)}
+    fm = FusedMLP.from_network(net)
+    fae = _compiled_autoencoder(be)[1]
+    uq, xu = _uniform_int8_stack()
+    xb, yb = X[:COMPILED_B], Y[:COMPILED_B]
+    # (name, call, (small run, scale) or None, calls, direct only)
     routes = [
         ("--minibatch step (train_minibatch, B=100)",
-         by_name["train_minibatch"], None, COMPILED_CALLS),
+         by_name["train_minibatch"], None, COMPILED_CALLS, False),
         ("FusedMLP.train (B=100)", by_name["FusedMLP.train"], None,
-         COMPILED_CALLS),
+         COMPILED_CALLS, False),
         ("--fused step (train_fullfused, B=100)",
-         by_name["FusedMLP.train_fullfused"], None, COMPILED_CALLS),
+         lambda: fm.train_fullfused(TRAIN_RATE, xb, yb), None,
+         COMPILED_CALLS, True),
         ("Network.train (one sample)", by_name["Network.train"], None,
-         COMPILED_CALLS),
+         COMPILED_CALLS, False),
         (f"validation (batched_run, {COMPILED_VAL} rows)",
          lambda: TT.batched_run(net, be)(Xv, *net.params), None,
-         COMPILED_CALLS),
+         COMPILED_CALLS, False),
         (f"fold (train_fold, {COMPILED_FOLD} samples)",
          by_name["train_fold"],
-         ("fold", COMPILED_FOLD // COMPILED_FOLD_PROFILED), 1),
+         ("fold", COMPILED_FOLD // COMPILED_FOLD_PROFILED), 1, False),
         (f"--induce (induce_many, {COMPILED_INDUCE} steps)",
          by_name["induce_many"],
-         ("induce", COMPILED_INDUCE // COMPILED_INDUCE_PROFILED), 1),
+         ("induce", COMPILED_INDUCE // COMPILED_INDUCE_PROFILED), 1, False),
         (f"FusedRNN {RNN_IN}->{RNN_HIDDEN} pallas train (n={RNN_N})",
          by_name[f"FusedRNN {RNN_IN}->{RNN_HIDDEN} pallas train"], None,
-         COMPILED_CALLS),
-        ("FusedAutoencoder.train (B=100)", by_name["FusedAutoencoder.train"],
-         None, COMPILED_CALLS),
+         COMPILED_CALLS, False),
+        ("FusedAutoencoder.train (B=100)", lambda: fae.train(AE_RATE, xb),
+         None, COMPILED_CALLS, True),
     ]
+    for b in COMPILED_BUCKETS:
+        for name in COMPILED_FORWARDS:
+            entry = f"{name} (B={b})"
+            routes.append((entry, by_name[entry], None, COMPILED_CALLS,
+                           entry.startswith(COMPILED_DIRECT)))
+        routes.append((f"FusedMLP.run_fused_inference (B={b})",
+                       lambda x=X[:b]: fm.run_fused_inference(x), None,
+                       COMPILED_CALLS, True))
+        routes.append((f"QuantizedMLP.run_fused (B={b})",
+                       lambda x=xu[:b]: uq.run_fused(x), None,
+                       COMPILED_CALLS, True))
 
     def direct(fn):
         def run():
@@ -8350,12 +8582,15 @@ def _compiled_timing(be, by_name, walls) -> None:
         return run
 
     once = {"fold": walls["train_fold"], "induce": walls["induce_many"]}
-    for name, fn, scaled, calls in routes:
-        fn()
-        arms = {"graph": fn, "direct": direct(fn)}
+    for name, fn, scaled, calls, direct_only in routes:
+        arms = ({"direct": fn} if direct_only
+                else {"graph": fn, "direct": direct(fn)})
         if scaled is None:
+            for arm in arms.values():
+                arm()
             wall = _turns(arms, calls)
         else:
+            fn()
             wall = _turns({"graph": fn}, calls)
             wall["direct"] = once[scaled[0]]
         line = []
@@ -8375,16 +8610,52 @@ def _compiled_timing(be, by_name, walls) -> None:
         log(f"[compiled] {name}, per call: " + "; ".join(line)
             + (f" (the direct wall from one call, in the checks; kernels, "
                f"launches and busy from a profile of 1/{scaled[1]} of the "
-               f"call, times {scaled[1]})" if scaled else ""))
+               f"call, times {scaled[1]})" if scaled else "")
+            + (" (the call runs direct)" if direct_only else ""))
+
+
+def _stack_graph_bytes() -> None:
+    """``FusedMLP.run_xla``'s graph at the 4 x 4096 serving stack (f32,
+    seed 324, B = STACK_B // 2): it reads the model's weights where they
+    lie, so its static buffers are its input and output rows alone,
+    whatever the weights' size; bit-equal to the direct call."""
+    from tensor_ops_tpu_torch import engine
+    from tensor_ops_tpu_torch.models import FusedMLP
+
+    r = np.random.default_rng(324)
+    n, b = STACK_N, STACK_B // 2
+    fm = FusedMLP.from_numpy(
+        [np.asarray(r.normal(size=(n, n)) / math.sqrt(n), np.float32)
+         for _ in range(STACK_L)],
+        [np.asarray(0.1 * r.normal(size=n), np.float32)
+         for _ in range(STACK_L)], ("relu",) * STACK_L, device=DEVICE)
+    x = torch.rand(b, n, device=DEVICE)
+    with torch.inference_mode():
+        with engine.direct():
+            want = fm.run_xla(x)
+        got = [fm.run_xla(x) for _ in range(2)]
+    check(all(torch.equal(g, want) for g in got), "compiled entry points: "
+          "FusedMLP.run_xla at the 4x4096 stack is not bit-equal to its "
+          "direct call")
+    weights = sum(t.numel() * t.element_size() for t in fm.to_params())
+    static = fm._cache["fwd_xla"].static_bytes()
+    rows = x.numel() * x.element_size() + want.numel() * want.element_size()
+    check(static == rows, f"compiled entry points: FusedMLP.run_xla's graph "
+          f"at the 4x4096 stack holds {static} static bytes, want its input "
+          f"and output rows' {rows} (the weights read in place)")
+    log(f"[compiled] FusedMLP.run_xla's graph at the {STACK_L}x{STACK_N} "
+        f"stack, B={b}: {static} static bytes (its input and output rows; "
+        f"the weights, {weights} bytes, read in place), bit-equal to its "
+        f"direct call")
 
 
 def compiled_main() -> None:
     """Phase 32 in its own interpreter: every compiled entry point (items
-    1-5) bit-equal to its direct call on the card, its launches equal,
-    captures only on a new shape, new rates without a capture; each route
-    graph against direct; the mnist app's default fold, ``--minibatch
-    100``, ``--fused`` and ``--induce`` on the synthetic set; the bytes the
-    engine's graphs hold."""
+    1-5 and 11b) bit-equal to its direct call on the card, its launches
+    equal, captures only on a new shape, new rates without a capture; the
+    one-launch calls direct; each route graph against direct; the mnist
+    app's default fold, ``--minibatch 100``, ``--fused`` and ``--induce``
+    on the synthetic set; the bytes the engine's graphs hold."""
     from tensor_ops_tpu_torch import TorchBackend, engine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -8394,6 +8665,7 @@ def compiled_main() -> None:
     by_name, walls = _compiled_checks(be)
     _second_rates(be, by_name)
     _compiled_timing(be, by_name, walls)
+    _stack_graph_bytes()
     with tempfile.TemporaryDirectory() as tmp:
         for extra in COMPILED_APP_ROUTES:
             c0 = engine.graph_counts()

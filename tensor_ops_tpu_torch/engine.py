@@ -12,7 +12,10 @@ caller owns: a value returned earlier is never overwritten.  Every float
 argument is traced, as JAX traces a rate: it enters the graph as a 0-d
 tensor in a static buffer, so a new rate never recaptures, except beside a
 bf16 or f16 tensor, where the graph keys on the float's value to stay
-bit-equal to the direct call (:func:`_traces_floats`).  The first call of
+bit-equal to the direct call (:func:`_traces_floats`).  The arguments a
+:class:`Compiled` is told to read in place (a model's weights) are no
+graph inputs: the graph reads them where they lie and keys on their
+addresses, with no copy.  The first call of
 a signature runs the function direct (the capture's warm-up, whose
 results it returns) and captures it; the kernel launches a replay holds are
 counted at every replay, so a call counts what a direct call counts.
@@ -135,9 +138,12 @@ def maybe_jit(fn: Callable, be: Backend, what: str = "a compiled call"
     return jit(fn, what)
 
 
-def jit(fn: Callable, what: str = "a compiled call") -> "Compiled":
-    """:class:`Compiled` of ``fn``; ``what`` names it in a capture error."""
-    return Compiled(fn, what)
+def jit(fn: Callable, what: str = "a compiled call",
+        in_place: Sequence[int] = ()) -> "Compiled":
+    """:class:`Compiled` of ``fn``; ``what`` names it in a capture error;
+    ``in_place`` the positions of the arguments whose tensors the graph
+    reads where they lie (:class:`Compiled`)."""
+    return Compiled(fn, what, in_place)
 
 
 # ---------------------------------------------------------------------------
@@ -275,14 +281,37 @@ def _card(device: torch.device) -> tuple:
     streams out again after 32 requests)."""
     got = _per_card.get(device)
     if got is None:
-        if device.type == "cuda":
-            got = (torch.cuda.Stream(device, priority=-1),
-                   torch.cuda.Stream(device, priority=-1),
-                   torch.cuda.graph_pool_handle())
-        else:
-            got = (None, None, None)
-        _per_card[device] = got
-    return got
+        with _capture_lock:
+            got = _per_card.get(device)
+            if got is None:
+                got = _per_card[device] = (_card_streams(device)
+                                           if device.type == "cuda"
+                                           else (None, None, None))
+    return got[:3]
+
+
+def _card_streams(device: torch.device) -> tuple:
+    """A card's capture and replay streams, its pool, and the pool's
+    anchor (:func:`_anchor`)."""
+    on = torch.cuda.Stream(device, priority=-1)
+    replay = torch.cuda.Stream(device, priority=-1)
+    pool = torch.cuda.graph_pool_handle()
+    return on, replay, pool, _anchor(device, on, pool)
+
+
+def _anchor(device: torch.device, stream, pool) -> "torch.cuda.CUDAGraph":
+    """A graph of one fill captured in ``pool`` on ``stream``, kept for the
+    process's life.  A capture can leave blocks in the pool that outlive
+    its graph (the capture stream's cuBLAS workspace, made at the first
+    cuBLAS call on it); once every graph of a pool is gone, the caching
+    allocator refuses a new capture into a pool that still holds blocks,
+    so one graph stays."""
+    anchor = torch.cuda.CUDAGraph()
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.graph(anchor, pool=pool, stream=stream,
+                          capture_error_mode="thread_local"):
+        torch.zeros(1, device=device)
+    return anchor
 
 
 class Captured:
@@ -471,20 +500,25 @@ def _signature(args, traced: bool) -> Hashable:
 
 class _Statics:
     """The static buffers of a call's leaves: an empty contiguous tensor for
-    each tensor (on its own device); for each float, when ``traced``, a 0-d
-    tensor on ``device``, float64 beside a float64 tensor (its arithmetic
-    is float64), else float32, whose product with a float32 tensor takes
-    the bits of the Python number's; the value itself for the rest."""
+    each tensor (on its own device) but those read in place (``fixed``,
+    the leaf itself, until :meth:`release`); for each float, when
+    ``traced``, a 0-d tensor on ``device``, float64 beside a float64 tensor
+    (its arithmetic is float64), else float32, whose product with a float32
+    tensor takes the bits of the Python number's; the value itself for the
+    rest."""
 
     def __init__(self, leaves: List[Any], device: torch.device,
-                 traced: bool):
+                 traced: bool, fixed: Sequence[bool] = ()):
         rate = (torch.float64 if any(isinstance(t, torch.Tensor)
                                      and t.dtype == torch.float64
                                      for t in leaves) else torch.float32)
         self.bufs: List[Any] = []
         self.tensors, self.floats = [], []
+        self.fixed = [i for i, f in enumerate(fixed) if f]
         for i, leaf in enumerate(leaves):
-            if isinstance(leaf, torch.Tensor):
+            if i in self.fixed:
+                self.bufs.append(leaf)
+            elif isinstance(leaf, torch.Tensor):
                 self.tensors.append(i)
                 self.bufs.append(torch.empty(leaf.shape, dtype=leaf.dtype,
                                              device=leaf.device))
@@ -504,6 +538,17 @@ class _Statics:
                                  [leaves[i] for i in self.tensors])
         for i in self.floats:
             self.bufs[i].fill_(float(leaves[i]))
+
+    def release(self) -> None:
+        """Drop the references to the leaves read in place, once the graph
+        holds their addresses: the graph keeps no caller's tensor alive."""
+        for i in self.fixed:
+            self.bufs[i] = None
+
+    def nbytes(self) -> int:
+        """The bytes of the static tensor buffers."""
+        return sum(b.numel() * b.element_size() for b in self.bufs
+                   if isinstance(b, torch.Tensor))
 
 
 def _tensor_leaves(res, what: str) -> List[torch.Tensor]:
@@ -546,9 +591,11 @@ def _captured(step: Callable, device: torch.device, what: str) -> Captured:
     return captured
 
 
-def _graph_key(args, traced: bool) -> Hashable:
+def _graph_key(args, traced: bool, where: tuple = ()) -> Hashable:
+    """The call's signature, the plan epoch, the inference mode and
+    ``where`` the tensors read in place lie (:meth:`Compiled._where`)."""
     return (_signature(args, traced), K.plan_epoch(),
-            torch.is_inference_mode_enabled())
+            torch.is_inference_mode_enabled(), where)
 
 
 # ---------------------------------------------------------------------------
@@ -561,8 +608,9 @@ class _Graph:
     captured call, which copies its results into the output buffers."""
 
     def __init__(self, fn: Callable, args, leaves: List[Any],
-                 device: torch.device, what: str, traced: bool):
-        self.statics = _Statics(leaves, device, traced)
+                 device: torch.device, what: str, traced: bool,
+                 fixed: Sequence[bool] = ()):
+        self.statics = _Statics(leaves, device, traced, fixed)
         static_args = unflatten(args, self.statics.bufs)
         self.outs: List[torch.Tensor] = []
         self.first = self.template = None
@@ -580,6 +628,13 @@ class _Graph:
                 b.copy_(o)
 
         self.captured = _captured(step, device, what)
+        self.statics.release()
+
+    def nbytes(self) -> int:
+        """The bytes of the graph's static inputs and outputs (outside the
+        pool)."""
+        return self.statics.nbytes() + sum(
+            b.numel() * b.element_size() for b in self.outs)
 
     def first_call(self):
         """The warm-up's results, the first call's (the capture ran no
@@ -598,12 +653,38 @@ class _Graph:
 
 class Compiled:
     """``fn`` with one CUDA graph per call signature on the card (see the
-    module's docstring); ``fn`` itself is the direct call."""
+    module's docstring); ``fn`` itself is the direct call.
 
-    def __init__(self, fn: Callable, what: str = "a compiled call"):
+    The tensors of the arguments at the positions ``in_place`` (a model's
+    weights) are no graph inputs: the graph reads them where they lie, as
+    a request graph reads its model's weights, and keys on their addresses
+    and strides.  They get no static copy and no copy per call, and the
+    graph holds no reference to them; a call on tensors that lie elsewhere
+    (another model's) captures a graph of its own."""
+
+    def __init__(self, fn: Callable, what: str = "a compiled call",
+                 in_place: Sequence[int] = ()):
         self.fn = fn
         self.what = what
+        self.in_place = tuple(sorted(set(in_place)))
         self.graphs = ir.CompiledCache()
+
+    def _fixed(self, args) -> List[bool]:
+        """Per leaf of ``args``, whether the graph reads it in place."""
+        return [i in self.in_place and isinstance(leaf, torch.Tensor)
+                for i, a in enumerate(args) for leaf in flatten(a)]
+
+    def _where(self, args) -> tuple:
+        """The address and strides of each tensor read in place: a graph
+        reads the memory it was captured on, so it replays only on the
+        tensors found there now."""
+        return tuple((t.data_ptr(), t.stride()) for i in self.in_place
+                     for t in flatten(args[i]) if isinstance(t, torch.Tensor))
+
+    def static_bytes(self) -> int:
+        """The bytes of the static inputs and outputs of this callable's
+        graphs."""
+        return sum(g.nbytes() for g in list(self.graphs.values()))
 
     def __call__(self, *args):
         leaves = flatten(args)
@@ -614,11 +695,14 @@ class Compiled:
         made = []
 
         def make():
-            g = _Graph(self.fn, args, leaves, device, self.what, traced)
+            g = _Graph(self.fn, args, leaves, device, self.what, traced,
+                       self._fixed(args))
             made.append(g)
             return g
 
-        g = _get(self.graphs, _graph_key(args, traced), make)
+        key = _graph_key(args, traced,
+                         self._where(args) if self.in_place else ())
+        g = _get(self.graphs, key, make)
         if made:
             return g.first_call()
         return g.run(leaves)

@@ -22,12 +22,20 @@ driven over a sequence either by a loop of plain PyTorch steps
 (``impl="xla"``) or by one ``fused_rnn_seq`` call, one launch of the
 sequence kernel on the card (``impl="pallas"``).
 
-The trainers (``FusedMLP.train``, ``train_fullfused``,
-``FusedAutoencoder.train``, ``FusedRNN.seq_forward`` and ``FusedRNN.train``)
-are compiled (``engine.jit``): on the card each runs from one CUDA graph per
-input shape, its kernels' launches inside, the rates traced.  The graphs
-live in the model's ``_cache``, which the models a trainer returns share,
-as the JAX package's ``_cache`` holds its jitted steps.
+The trainers of several launches (``FusedMLP.train``,
+``FusedRNN.seq_forward`` and ``FusedRNN.train``) and ``FusedMLP.run_xla``
+are compiled (``engine.jit``): on the card each runs from one CUDA graph
+per input shape and dtype, its kernels' launches inside, the rates traced;
+``run_xla``'s graph reads the model's weights where they lie.  The graphs
+live in the model's ``_cache``, which the models a trainer returns (and
+``astype``'s) share, under the JAX package's keys, as its ``_cache`` holds
+its jitted calls.  The other calls launch direct: those of one kernel
+launch (``run_fused_inference``, ``train_fullfused``,
+``FusedAutoencoder.train``, ``QuantizedMLP.run_fused``), as the JAX
+package's ``jit`` of one ``pallas_call`` is one dispatch, and
+``FusedMLP.run`` and ``QuantizedMLP.run`` (three launches and a softmax),
+which a graph made no faster on the card: its host path costs what the
+wrappers of three launches cost.
 """
 
 from __future__ import annotations
@@ -45,6 +53,51 @@ from ..ops.kernels import (_act_fn, _check_names, fused_linear,
                            fused_mlp_w8a8_forward, fused_rnn_seq, pad_codes,
                            quantize_weights_int8)
 from .feedforward import Network
+
+
+def _layers(x, weights, biases, acts, softmax_out: bool,
+            precision: str) -> torch.Tensor:
+    """The layer-by-layer forward on ``fused_linear``, the softmax over the
+    last layer when ``softmax_out``."""
+    h = x
+    n = len(weights)
+    for k in range(n):
+        if k == n - 1 and softmax_out:
+            z = fused_linear(h, weights[k], biases[k], "identity", precision)
+            h = torch.softmax(z, dim=-1)
+        else:
+            h = fused_linear(h, weights[k], biases[k], acts[k], precision)
+    return h
+
+
+def _xla_layers(x, weights, biases, acts, softmax_out: bool) -> torch.Tensor:
+    """The same network as plain PyTorch matmuls, each weight promoted to
+    x's dtype."""
+    h = x
+    n = len(weights)
+    for k in range(n):
+        z = h @ weights[k].to(h.dtype).T + biases[k].to(h.dtype)
+        if k == n - 1 and softmax_out:
+            h = torch.softmax(z, dim=-1)
+        else:
+            h = _act_fn(acts[k])(z)
+    return h
+
+
+def _q_layers(x, qs, scales, biases, acts, softmax_out: bool,
+              mode: str) -> torch.Tensor:
+    """The int8 forward, one ``fused_linear_w8a8`` (or ``fused_linear_w8``)
+    launch per layer on the padded codes, the softmax over the last layer
+    when ``softmax_out``."""
+    layer = fused_linear_w8a8 if mode == "w8a8" else fused_linear_w8
+    h = x
+    n = len(qs)
+    for k, (q, s, b) in enumerate(zip(qs, scales, biases)):
+        if k == n - 1 and softmax_out:
+            h = torch.softmax(layer(h, q, s, b, "identity"), dim=-1)
+        else:
+            h = layer(h, q, s, b, acts[k])
+    return h
 
 
 def _compiled(cache: dict, key, build) -> "engine.Compiled":
@@ -175,54 +228,49 @@ class FusedMLP:
         return tuple(out)
 
     # -- forward -----------------------------------------------------------
-    def _layers_forward(self, x, weights, biases) -> torch.Tensor:
-        h = x
-        n = len(weights)
-        for k in range(n):
-            if k == n - 1 and self.softmax_out:
-                z = fused_linear(h, weights[k], biases[k], "identity",
-                                 self.precision)
-                h = torch.softmax(z, dim=-1)
-            else:
-                h = fused_linear(h, weights[k], biases[k], self.acts[k],
-                                 self.precision)
-        return h
-
     def run(self, x) -> torch.Tensor:
-        """Layer-by-layer forward, one ``fused_linear`` launch per layer
-        (differentiable)."""
+        """Layer-by-layer forward, one ``fused_linear`` launch per layer and
+        the softmax (differentiable), direct: from a CUDA graph it was no
+        faster (``chip_smoke.py``'s phase 32 on an H100 80GB HBM3 at 700 W,
+        the flagship: 245.4 against 199.5 us a call at B = 8, 279.6 against
+        297.1 at B = 64; ``tools/forward_graph_vs_direct.py``).  A
+        ``Predictor`` serves it from its request graphs."""
         self._whole_only("run")
-        return self._layers_forward(x, self.weights, self.biases)
+        return _layers(x, self.weights, self.biases, self.acts,
+                       self.softmax_out, self.precision)
 
     def run_xla(self, x) -> torch.Tensor:
         """The same network as plain PyTorch ops (cuBLAS matmuls), the
-        counterpart of the JAX package's XLA route.  Weights stored in
-        another dtype are promoted to x's, as JAX promotes them.  A sharded
-        model runs the same layers tensor-parallel on its mesh
-        (``parallel.tp.fused_forward``)."""
+        counterpart of the JAX package's XLA route, compiled
+        (``_cache["fwd_xla"]``): on the card one CUDA graph per input shape
+        and dtype and per place of the weights, which it reads where they
+        lie (a model whose weights lie elsewhere captures its own), half
+        the direct call's time (phase 32, as above: 213.8 against 418.2 us
+        at B = 8).  A call that autograd records runs direct.  Weights
+        stored in another dtype are promoted to x's, as JAX promotes them.
+        A sharded model runs the same layers tensor-parallel on its mesh,
+        direct (``parallel.tp.fused_forward``)."""
         if self.sharded:
             from ..parallel.tp import fused_forward
 
             return fused_forward(self, x)
-        h = x
-        n = len(self.weights)
-        for k in range(n):
-            z = h @ self.weights[k].to(h.dtype).T + self.biases[k].to(h.dtype)
-            if k == n - 1 and self.softmax_out:
-                h = torch.softmax(z, dim=-1)
-            else:
-                h = _act_fn(self.acts[k])(z)
-        return h
+        acts, soft = self.acts, self.softmax_out
+        fn = _compiled(self._cache, "fwd_xla", lambda: engine.jit(
+            lambda x, ws, bs: _xla_layers(x, ws, bs, acts, soft),
+            "the FusedMLP.run_xla forward", in_place=(1, 2)))
+        return fn(x, self.weights, self.biases)
 
     def run_fused_inference(self, x) -> torch.Tensor:
-        """Whole-network forward in one ``fused_mlp_forward`` launch."""
+        """Whole-network forward in one ``fused_mlp_forward`` launch, direct:
+        a graph of one launch saves none (the module's docstring)."""
         self._whole_only("run_fused_inference")
         return fused_mlp_forward(x, self.weights, self.biases, self.acts,
                                  self.softmax_out, precision=self.precision)
 
     # -- training -----------------------------------------------------------
     def _loss(self, x, y, weights, biases) -> torch.Tensor:
-        p = self._layers_forward(x, weights, biases)
+        p = _layers(x, weights, biases, self.acts, self.softmax_out,
+                    self.precision)
         if self.loss_kind == "mse":
             return ((y - p) ** 2).sum(dim=-1).mean()
         # match crossEntropy = -<log p, y>
@@ -266,11 +314,17 @@ class FusedMLP:
 
     def train_fullfused(self, rate: float, xb, yb
                         ) -> Tuple[float, "FusedMLP"]:
-        """The ENTIRE SGD step (forward, backward, update) in the
-        ``fused_mlp_train_step`` kernel: softmax output + cross-entropy
+        """The ENTIRE SGD step (forward, backward, update) in one
+        ``fused_mlp_train_step`` launch: softmax output + cross-entropy
         (the flagship configuration), or, with ``softmax_out=False`` and
         ``loss_kind="mse"``, ``acts[-1]`` output + squared error (the
-        autoencoder configuration).  Returns (mean loss, updated model)."""
+        autoencoder configuration).  Returns (mean loss, updated model).
+
+        The launch is direct, the rate passed by value: through a CUDA
+        graph the step took longer, its one launch saving nothing against
+        the graph's copies in and out (``chip_smoke.py``'s phase 32 on an
+        H100 80GB HBM3 at 700 W, B = 100: 206.4 and 301.0 us a call by
+        graph against 160.4 and 201.4 us direct)."""
         self._whole_only("train_fullfused")
         if self.softmax_out:
             kind = "softmax_xent"
@@ -282,16 +336,9 @@ class FusedMLP:
             raise ValueError(
                 "train_fullfused supports softmax+ce or mse without softmax")
 
-        def build():
-            def step(xb, yb, ws, bs, rate):
-                return fused_mlp_train_step(
-                    xb, yb, list(ws), list(bs), rate, self.acts,
-                    precision=self.precision, loss_kind=kind)
-
-            return engine.jit(step, "the train_fullfused step")
-
-        fn = _compiled(self._cache, ("fullstep", kind), build)
-        v, ws, bs = fn(xb, yb, self.weights, self.biases, rate)
+        v, ws, bs = fused_mlp_train_step(
+            xb, yb, list(self.weights), list(self.biases), rate, self.acts,
+            precision=self.precision, loss_kind=kind)
         return float(v), self._replaced(ws, bs)
 
 
@@ -335,7 +382,10 @@ class FusedAutoencoder:
 
     def train(self, rate: float, xb) -> Tuple[float, "FusedAutoencoder"]:
         """One joint SGD step on reconstruction loss, the whole step in one
-        ``fused_mlp_train_step`` launch on the card."""
+        ``fused_mlp_train_step`` launch on the card, direct as
+        ``FusedMLP.train_fullfused``'s (phase 32 of ``chip_smoke.py``, H100
+        80GB HBM3 at 700 W, B = 100: 319.5 and 318.8 us a call by graph
+        against 227.5 and 249.3 us direct)."""
         v, m = self.mlp.train_fullfused(rate, xb, xb)
         return v, FusedAutoencoder(m, self.n_enc)
 
@@ -436,24 +486,22 @@ class QuantizedMLP:
 
     def run(self, x) -> torch.Tensor:
         """Layer by layer, one ``fused_linear_w8a8`` (or ``fused_linear_w8``)
-        launch per layer; softmax over the last layer when ``softmax_out``."""
-        layer = fused_linear_w8a8 if self.mode == "w8a8" else fused_linear_w8
-        h = x
-        n = len(self.wqs)
-        for k, (q, s, b) in enumerate(zip(self._padded(), self.scales,
-                                          self.biases)):
-            if k == n - 1 and self.softmax_out:
-                h = torch.softmax(layer(h, q, s, b, "identity"), dim=-1)
-            else:
-                h = layer(h, q, s, b, self.acts[k])
-        return h
+        launch per layer on the codes padded once per model; softmax over
+        the last layer when ``softmax_out``.  Direct: from a CUDA graph it
+        was no faster (phase 32 of ``chip_smoke.py`` on an H100 80GB HBM3
+        at 700 W, the flagship at B = 8: w8 302.3 against 258.6 us a call,
+        w8a8 260.5 against 247.4).  A ``Predictor`` serves it from its
+        request graphs."""
+        return _q_layers(x, self._padded(), self.scales, self.biases,
+                         self.acts, self.softmax_out, self.mode)
 
     def run_fused(self, x) -> torch.Tensor:
         """The whole MLP through ``fused_mlp_w8a8_forward``: needs a uniform
         128-multiple stack and one shared hidden activation.  The kernel
         gives raw logits; the softmax, or ``acts[-1]`` when
         ``softmax_out=False``, is applied here, so ``run_fused`` computes
-        what ``run`` does."""
+        what ``run`` does.  Direct: one launch and one elementwise op, which
+        a graph's copies in and out would cost more than they save."""
         if not self.uniform():
             raise ValueError("run_fused needs a uniform 128-multiple stack")
         hidden = set(self.acts[:-1])

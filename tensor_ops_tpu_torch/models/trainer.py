@@ -1525,14 +1525,18 @@ def _staged_evaluate(net: Network, loss: TOp, be: Backend, as_network,
 def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
                        mesh, unshard, k: int, val) -> Callable:
     """``evaluate(state)`` of a mesh ``fit_sequences``: each data rank's
-    validation sequences through the scan on its model rank 0 (on a model
-    axis > 1 the leaves all-gathered over the model group, as the step
-    runs the cell; a ZeRO-3 leaf gathered over the data axis first, as the
-    step gathers it); the per-sequence losses come to rank 0 (kernel 9's
-    ``ag`` over the data ranks) for their mean."""
+    validation sequences through its model group as the step runs them (a
+    ``gen_net`` chain split over a model axis > 1 by
+    ``parallel.tp_seq.SeqTpNetwork``; another graph on its model rank 0,
+    its leaves all-gathered over the model group; a ZeRO-3 leaf gathered
+    over the data axis first, as the step gathers it); the per-sequence
+    losses come to rank 0 (kernel 9's ``ag`` over the data ranks) for
+    their mean."""
     from ..parallel.collective_kernels import ring_all_gather
     from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, _all_gather,
-                                 _rank_backend, _split_rows, first_local)
+                                 _rank_backend, _split_rows, first_local,
+                                 param_specs)
+    from ..parallel.tp_seq import SeqTpNetwork, chain_layers
     from .training import seq_losses
 
     dp = mesh.shape[DATA_AXIS]
@@ -1541,6 +1545,14 @@ def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
     groups = mesh.groups(MODEL_AXIS)
     devs = [mesh.rank_devices[g[0]] for g in groups]
     bes = [_rank_backend(be, d) for d in devs]
+    layers = None
+    if len(groups[0]) > 1:
+        specs = (tuple((None,) * len(s) for s in rnet.state_stack)
+                 + param_specs(rnet.param_stack, mesh))
+        layers = chain_layers(rnet, specs, len(groups[0]))
+    if layers is not None:
+        exes = [SeqTpNetwork(layers, [mesh.rank_devices[r] for r in g], be)
+                for g in groups]
 
     def evaluate(state):
         ls = state[0] if unshard is None else unshard(state[0])
@@ -1549,14 +1561,19 @@ def _seq_mesh_evaluate(rnet: RecurrentNetwork, loss: TOp, be: Backend,
             if not mesh.is_local(group[0]):  # another process's data rank
                 per.append(mesh.remote(group[0]))
                 continue
+            xs = _split_rows(XS, dp, d, dev)
+            ts = _split_rows(TS, dp, d, dev)
+            if layers is not None:
+                per.append(exes[d].losses(
+                    loss, xs, ts, [tuple(x.shards[r] for x in ls)
+                                   for r in group]))
+                continue
             whole = tuple(
                 x.shards[group[0]] if x.mdim is None else
                 _all_gather([x.shards[r] for r in group], x.mdim)[0]
                 for x in ls)
             r = RecurrentNetwork(rnet.op, whole[:k], whole[k:], rnet.arch)
-            per.append(seq_losses(r, loss, bes[d],
-                                  _split_rows(XS, dp, d, dev),
-                                  _split_rows(TS, dp, d, dev)))
+            per.append(seq_losses(r, loss, bes[d], xs, ts))
         if dp > 1:
             per = ring_all_gather(per)
         v = float(first_local(per)[:n].mean())
@@ -2294,7 +2311,9 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
                 return opt.update(st, ls, scaled, sc[1])
 
         inner = _mesh_step(
-            mesh, _seq_group_vags(rnet, mesh, be, grads_on), update,
+            mesh, _seq_group_vags(rnet, mesh, be, grads_on, loss,
+                                  mixed_precision, remat_every,
+                                  offload_tape), update,
             accum_steps=accum_steps, clip_norm=clip_norm,
             elementwise=opt is None or opt.name in _ELEMENTWISE,
             grad_constrain=grad_constrain, param_unshard=param_unshard,
@@ -2343,23 +2362,36 @@ def _seq_train_step(rnet: RecurrentNetwork, loss: TOp, be: Backend, n: int,
 
 
 def _seq_group_vags(rnet: RecurrentNetwork, mesh, be: Backend,
-                    grads_on: Callable) -> list:
+                    grads_on: Callable, loss: TOp,
+                    mixed_precision: bool, remat_every=None,
+                    offload_tape: bool = False) -> list:
     """The sequence step's gradient function of each data rank for
     :func:`_mesh_step`: ``grads_on(be_r)`` on the rank's card; on a model
-    axis > 1 the scan runs on each model rank on its leaves all-gathered
-    over the model axis (``parallel.tp.gathered_vag``, one warning per
-    network): the cell is no ffLayer segment the executor can split."""
+    axis > 1 a ``gen_net`` chain runs on its model group with each leaf on
+    its ``param_specs`` block (``parallel.tp_seq.SeqTpNetwork``: the
+    Elman cell's state weight row-parallel, as GSPMD partitions the JAX
+    package's scan; ``remat_every`` and ``offload_tape`` act on its kept
+    states as on the scan's carries).  A recurrent graph built another way
+    runs on each model rank on its leaves all-gathered over the model axis
+    (``parallel.tp.gathered_vag``, one warning per network)."""
     from ..parallel.mesh import MODEL_AXIS, _rank_backend, param_specs
 
     tp = mesh.shape[MODEL_AXIS]
     if tp == 1:
         return [grads_on(_rank_backend(be, d)) for d in mesh.data_devices]
-    from ..parallel.tp import gathered_vag, warn_gathered
+    from ..parallel.tp import gathered_vag, group_vag, warn_gathered
+    from ..parallel.tp_seq import SeqTpNetwork, chain_layers
 
-    warn_gathered(rnet.op, [f"the recurrent cell {rnet.op!r} (its "
-                            f"sequence scan)"], tp)
     specs = (tuple((None,) * s.dim() for s in rnet.states)
              + param_specs(rnet.param_stack, mesh))
+    layers = chain_layers(rnet, specs, tp)
+    if layers is not None:
+        compute = torch.bfloat16 if mixed_precision else None
+        return [group_vag(SeqTpNetwork(layers, row, be, compute,
+                                       remat_every, offload_tape), loss)
+                for row in mesh.devices]
+    warn_gathered(rnet.op, [f"the recurrent graph {rnet.op!r} (not a "
+                            f"gen_net chain)"], tp)
     return [gathered_vag([grads_on(_rank_backend(be, d)) for d in row],
                          specs, row) for row in mesh.devices]
 
@@ -2485,11 +2517,13 @@ def fit_sequences(
     the params take ``param_specs``; ZeRO and offload need ``optimizer``
     (dual-rate SGD has no state); a mesh with a ``stage`` axis is refused
     (the scan is sequential over time).  On a model axis > 1 the states
-    replicate, the params take ``param_specs`` and the scan runs on the
-    leaves all-gathered over the model axis at each step (one warning):
-    the cell is no ffLayer segment the tensor-parallel executor splits.
-    The returned leaves stay ``Sharded``, and ``val`` runs on the mesh, as
-    in ``fit``."""
+    replicate, the params take ``param_specs`` and a ``gen_net`` chain
+    runs split over the model axis, each weight on its spec (the Elman
+    state weight row-parallel, the state all-gathered at each timestep:
+    ``parallel.tp_seq``), as GSPMD partitions the JAX package's scan; a
+    recurrent graph built another way runs on its leaves all-gathered over
+    the model axis at each step (one warning).  The returned leaves stay
+    ``Sharded``, and ``val`` runs on the mesh, as in ``fit``."""
     mp_mode = _check_mp(mixed_precision, be)
     shard_opt_state, zstage = _normalize_zero_stage(shard_opt_state,
                                                     zero_stage)

@@ -17,10 +17,11 @@ rank or split over the model axis along its feature dimension:
   activation (a whole one is sliced, which moves nothing); its partial
   products go through an all-reduce before the replicated bias and tail;
 * a layer whose weight is replicated takes the whole activation;
-* any other segment (the recurrent cell's scan, a graph built another
-  way, a weight the split cannot take) runs on its weights all-gathered
-  over the model axis at each use, with one warning per network naming
-  it: the results are the same and the leaves stay sharded at rest.
+* any other segment (a graph built another way, a weight the split cannot
+  take) runs on its weights all-gathered over the model axis at each use,
+  with one warning per network naming it: the results are the same and
+  the leaves stay sharded at rest.  A recurrent ``gen_net`` chain has an
+  executor of its own (:mod:`.tp_seq`), on these rules.
 
 The backward is the IR's own transposition of each local segment (a
 vmapped VJP, which recomputes the segment's forward), each collective
@@ -213,6 +214,7 @@ class TpNetwork:
         self.compute = compute
         dtype = compute or be.dtype
         self.bes = [TorchBackend(dtype, d) for d in self.devices]
+        self.n_leaves = len(net.params)
         self.segs = plan(net, specs, self.tp)
         warn_gathered(net.op, [s.name for s in self.segs
                                if s.kind == GATHER], self.tp)
@@ -388,11 +390,12 @@ class TpNetwork:
 # ---------------------------------------------------------------------------
 
 
-def group_vag(tpnet: TpNetwork, loss: TOp) -> Callable:
-    """``fn(x, y, ps) -> (mean loss, grads)`` for ``trainer._mesh_step``:
-    ``ps`` and ``grads`` flat in model-rank-major order (rank 0's leaves,
-    then rank 1's, ...)."""
-    n = len(tpnet.net.params)
+def group_vag(tpnet, loss: TOp) -> Callable:
+    """``fn(x, y, ps) -> (mean loss, grads)`` for ``trainer._mesh_step`` of
+    a :class:`TpNetwork` (or a ``tp_seq.SeqTpNetwork``): ``ps`` and
+    ``grads`` flat in model-rank-major order (rank 0's leaves, then rank
+    1's, ...)."""
+    n = tpnet.n_leaves
 
     def vag(x, y, ps):
         v, grads = tpnet.value_and_grad(
@@ -403,11 +406,12 @@ def group_vag(tpnet: TpNetwork, loss: TOp) -> Callable:
 
 
 def gathered_vag(vags: Sequence[Callable], specs, devices) -> Callable:
-    """A whole-graph fallback for ``trainer._mesh_step``: ``vags[m](x, y,
-    leaves)`` (one per model rank, on its device) run on the leaves
-    all-gathered over the model axis; each rank keeps its block of each
-    model-sharded leaf's gradient.  ``ps`` and the grads flat in
-    model-rank-major order, as :func:`group_vag`'s."""
+    """The step of a recurrent graph that is no ``gen_net`` chain, for
+    ``trainer._mesh_step``: ``vags[m](x, y, leaves)`` (one per model rank,
+    on its device) run on the leaves all-gathered over the model axis;
+    each rank keeps its block of each model-sharded leaf's gradient.
+    ``ps`` and the grads flat in model-rank-major order, as
+    :func:`group_vag`'s."""
     tp = len(devices)
     n = len(specs)
     mdims = [_axis_dim(_full(s, len(s)), MODEL_AXIS) for s in specs]

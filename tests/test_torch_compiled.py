@@ -19,8 +19,12 @@ package's counterpart on the same numpy inputs: 1e-9 in f64 for the staged
 IR (the JAX package's own bound, ``tests/test_backends.py``), the
 ``tests/test_pallas.py``, ``tests/test_torch_rnn_step.py`` and
 ``tests/test_torch_autoencoder.py`` tolerances (1e-5 absolute and relative
-in f32) where a kernel's plain version runs; exactly for classes and
-counts."""
+in f32) where a kernel's plain version runs, ``tests/test_torch_int8_serve.py``'s
+for the int8 forwards (1e-6 for w8, one code step of the last layer for
+w8a8); exactly for classes and counts.  The calls that run direct
+(``DIRECT``: those of one kernel launch, ``FusedMLP.run`` and
+``QuantizedMLP.run``) capture nothing through the graph path and give the
+direct call's bits; ``run_xla``'s graph reads the weights in place."""
 
 import contextlib
 import threading
@@ -348,6 +352,57 @@ def _enc(name):
     return case
 
 
+def quantized_pair(mode, seed=3):
+    """``mlp_pair``'s network quantized by the JAX package, its codes in the
+    port's ``QuantizedMLP``, and the one-code-step w8a8 tolerance."""
+    jm, _, x, _ = mlp_pair(seed)
+    jq = JF.QuantizedMLP.from_fused(jm, mode=mode)
+    tq = TM.QuantizedMLP.from_numpy(
+        [np.asarray(q) for q in jq.wqs], [np.asarray(s) for s in jq.scales],
+        [np.asarray(b) for b in jq.biases], jq.acts, jq.softmax_out, mode,
+        device="cpu")
+    tol = 1e-6 if mode == "w8" else float(np.asarray(jq.scales[-1]).max())
+    return jq, tq, x, (tol, 0.0)
+
+
+def uniform_quantized(seed=40, N=128, L=3, B=5):
+    """A uniform 128-wide int8 stack (relu, softmax out) in both packages,
+    ``tests/test_torch_int8.py``'s ``uniform_stack``."""
+    from tensor_ops_tpu.ops import pallas_kernels as PK
+    from tensor_ops_tpu.testing import rand as r
+
+    ws = [jnp.asarray(r(seed + k, N, N) * 0.2, jnp.float32) for k in range(L)]
+    bs = [jnp.asarray(r(seed + 10 + k, N) * 0.1, jnp.float32)
+          for k in range(L)]
+    qs, ss = zip(*(PK.quantize_weights_int8(w) for w in ws))
+    acts = ("relu",) * (L - 1) + ("identity",)
+    jq = JF.QuantizedMLP(tuple(qs), tuple(ss), tuple(bs), acts)
+    tq = TM.QuantizedMLP.from_numpy(
+        [np.asarray(q) for q in qs], [np.asarray(s) for s in ss],
+        [np.asarray(b) for b in bs], acts, device="cpu")
+    return jq, tq, f32(r(seed + 20, B, N))
+
+
+def _forward(name):
+    """The forwards: ``FusedMLP.run`` / ``run_xla`` /
+    ``run_fused_inference``, ``QuantizedMLP.run`` in both modes and
+    ``run_fused``."""
+    def case():
+        if name.startswith("QuantizedMLP-"):
+            jq, tq, x, tol = quantized_pair(name.split("-")[1])
+            return (lambda: tq.run(torch.tensor(x))), jq.run(
+                jnp.asarray(x)), tol
+        if name == "QuantizedMLP.run_fused":
+            jq, tq, x = uniform_quantized()
+            return ((lambda: tq.run_fused(torch.tensor(x))),
+                    jq.run_fused(jnp.asarray(x)), TOL32)
+        jm, tm, x, _ = mlp_pair()
+        method = name.split(".")[1]
+        return ((lambda: getattr(tm, method)(torch.tensor(x))),
+                getattr(jm, method)(jnp.asarray(x)), TOL32)
+    return case
+
+
 def _fused(name):
     def case():
         if name.startswith("FusedRNN"):
@@ -391,7 +446,16 @@ CASES = {
         "FusedAutoencoder.train", "FusedRNN-xla-seq_forward",
         "FusedRNN-pallas-seq_forward", "FusedRNN-xla-train",
         "FusedRNN-pallas-train")},
+    **{n: _forward(n) for n in (
+        "FusedMLP.run", "FusedMLP.run_xla", "FusedMLP.run_fused_inference",
+        "QuantizedMLP-w8-run", "QuantizedMLP-w8a8-run",
+        "QuantizedMLP.run_fused")},
 }
+# the calls that run direct, never from a graph: those of one kernel
+# launch, and the forwards a graph made no faster on the card
+DIRECT = {"FusedMLP.train_fullfused", "FusedAutoencoder.train",
+          "FusedMLP.run_fused_inference", "QuantizedMLP.run_fused",
+          "FusedMLP.run", "QuantizedMLP-w8-run", "QuantizedMLP-w8a8-run"}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -399,16 +463,22 @@ def test_entry_point_graph_path_is_its_direct_call_and_matches_jax(
         name, graph_path):
     """The first call (the capture's warm-up) and a replay are bit-equal
     to the direct call; the JAX package's result is within the
-    tolerance; at least one capture, and the replay captures nothing."""
+    tolerance; at least one capture, and the replay captures nothing.  A
+    call that runs direct (``DIRECT``) captures nothing and replays
+    nothing: every call is its direct call."""
     port, want, tol = CASES[name]()
     with engine.direct():
         direct = port()
     first = port()
     caps = engine.graph_counts()["captures"]
     again = port()
-    assert caps >= 1 and graph_path
-    assert engine.graph_counts()["captures"] == caps
-    assert engine.graph_counts()["replays"] >= 1
+    if name in DIRECT:
+        assert engine.graph_counts() | {"capture_s": 0} == {
+            "captures": 0, "capture_s": 0, "replays": 0} and not graph_path
+    else:
+        assert caps >= 1 and graph_path
+        assert engine.graph_counts()["captures"] == caps
+        assert engine.graph_counts()["replays"] >= 1
     assert bit_equal(first, direct), name
     assert bit_equal(again, direct), name
     close(again, want, tol)
@@ -418,10 +488,118 @@ def test_entry_point_graph_path_is_its_direct_call_and_matches_jax(
 # the mechanism
 # ---------------------------------------------------------------------------
 
+def test_run_under_autograd_runs_direct_and_differentiates(graph_path):
+    """``FusedMLP.run`` recorded by autograd (weights that require grad)
+    runs direct, captures nothing, and its gradient is the direct call's
+    and the JAX package's ``jax.grad`` of its forward (1e-5)."""
+    import jax
+
+    jm, tm, x, _ = mlp_pair()
+    ws = [w.clone().requires_grad_() for w in tm.weights]
+    bs = [b.clone().requires_grad_() for b in tm.biases]
+    m = FusedMLP(ws, bs, tm.acts, tm.softmax_out, tm.precision)
+    cot = f32(np.random.default_rng(8).normal(size=(16, 4)))
+    got = torch.autograd.grad((m.run(torch.tensor(x)) * torch.tensor(cot))
+                              .sum(), ws + bs)
+    assert engine.graph_counts()["captures"] == 0 and not graph_path
+    with engine.direct():
+        want = torch.autograd.grad(
+            (m.run(torch.tensor(x)) * torch.tensor(cot)).sum(), ws + bs)
+    assert bit_equal(list(got), list(want))
+
+    def jloss(ws, bs):
+        return (JF.FusedMLP(ws, bs, jm.acts, precision="highest")
+                .run(jnp.asarray(x)) * cot).sum()
+
+    jg = jax.grad(jloss, argnums=(0, 1))(jm.weights, jm.biases)
+    close(list(got), list(jg[0]) + list(jg[1]), TOL32)
+
+
+def test_a_forward_keys_its_graph_on_the_weights_dtype(graph_path):
+    """``astype`` shares the model's ``_cache``: its bf16 weights take a
+    graph of their own beside the f32 one, each call bit-equal to its
+    direct call, a second call of either replaying."""
+    _, tm, x, _ = mlp_pair()
+    x = torch.tensor(x)
+    bf = tm.astype(torch.bfloat16)
+    for model in (tm, bf, tm, bf):
+        with engine.direct():
+            want = model.run_xla(x)
+        assert bit_equal(model.run_xla(x), want), model.weights[0].dtype
+    assert bf._cache is tm._cache and len(tm._cache["fwd_xla"].graphs) == 2
+    assert engine.graph_counts()["captures"] == 2
+    assert engine.graph_counts()["replays"] == 2
+
+
+# the compiled forwards: (model maker, method, cache key)
+IN_PLACE = {
+    "FusedMLP.run_xla": (lambda: mlp_pair()[1:3], "run_xla", "fwd_xla"),
+}
+
+
+@pytest.mark.parametrize("name", list(IN_PLACE))
+def test_a_forward_reads_its_weights_in_place(graph_path, name):
+    """A compiled forward's graph reads the model's weights where they lie:
+    its static buffers are its input and output rows alone, it keeps no
+    reference to a weight, a weight changed in place is read by the next
+    replay (no capture), and a model whose weights lie elsewhere (a
+    trainer's next model, sharing the cache) captures a graph of its own;
+    every call bit-equal to its direct call."""
+    make, method, key = IN_PLACE[name]
+    model, x = make()
+    x = torch.tensor(x)
+    call = getattr(model, method)
+    out = call(x)
+    fn = model._cache[key]
+    (g,) = fn.graphs.values()
+    assert fn.static_bytes() == x.nbytes + out.nbytes
+    assert not [b for b in g.statics.bufs if isinstance(b, torch.Tensor)
+                and b.numel() > x.numel()]
+    w = model.biases[0]
+    w.add_(0.25)
+    with engine.direct():
+        want = call(x)
+    assert bit_equal(call(x), want)
+    assert engine.graph_counts()["captures"] == 1
+    if isinstance(model, FusedMLP):
+        other = model._replaced([v.clone() for v in model.weights],
+                                [v.clone() for v in model.biases])
+        with engine.direct():
+            want = getattr(other, method)(x)
+        assert bit_equal(getattr(other, method)(x), want)
+        assert other._cache is model._cache and len(fn.graphs) == 2
+        assert engine.graph_counts()["captures"] == 2
+
+
+@pytest.mark.parametrize("mode", ["w8", "w8a8"])
+def test_quantized_forward_pads_its_codes_once(graph_path, monkeypatch,
+                                               mode):
+    """``QuantizedMLP.run`` (direct) takes the codes padded once per model
+    (``_cache["padded"]``), never per call; ``run_fused`` takes the stack
+    made once at construction; neither captures."""
+    import tensor_ops_tpu_torch.models.fast as TF
+
+    pads = []
+    real = TF.pad_codes
+    monkeypatch.setattr(TF, "pad_codes", lambda q: pads.append(1) or real(q))
+    _, tq, x, _ = quantized_pair(mode)
+    x = torch.tensor(x)
+    outs = [tq.run(x) for _ in range(3)]
+    padded = tq._cache["padded"]
+    outs.append(tq.run(x))
+    assert len(pads) == len(tq.wqs) and tq._cache["padded"] is padded
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    _, uq, ux = uniform_quantized()
+    stacked = uq._cache["stacked"]
+    uq.run_fused(torch.tensor(ux))
+    assert uq._cache["stacked"] is stacked
+    assert engine.graph_counts()["captures"] == 0 and not graph_path
+
+
 def test_a_second_rate_reuses_the_graph(graph_path):
     """A rate is traced: new rates replay the graph of the first and give
-    each rate's direct result (the per-sample step, the fold and kernel 3's
-    step, whose rate the card's kernel reads from memory)."""
+    each rate's direct result (the per-sample step and the fold); kernel
+    3's step launches direct, its rate by value, and captures nothing."""
     _, tnet, _, tl = ff_pair()
     x, y, _ = ff_data(6)
     tx, ty = TB.asarray(x), TB.asarray(y)
@@ -438,7 +616,8 @@ def test_a_second_rate_reuses_the_graph(graph_path):
             with engine.direct():
                 want = call(rate)
             assert bit_equal(call(rate), want), (what, rate)
-        assert engine.graph_counts()["captures"] == 1, what
+        assert engine.graph_counts()["captures"] == (
+            0 if what == "fullfused" else 1), what
 
 
 def test_kernel3_takes_its_rate_as_a_tensor():
@@ -501,7 +680,8 @@ def test_every_graph_of_a_card_shares_its_capture_and_replay_streams(
     the card's one capture stream, which runs nothing else, and both warm
     up and replay on its one replay stream: no warm-up or replay writes
     the cuBLAS workspace of the capture stream, and the graphs that
-    captured with it run one at a time."""
+    captured with it run one at a time.  The card's pool keeps one anchor
+    graph, captured there once."""
     from tensor_ops_tpu_torch.models import serve as S
 
     default = _FakeStream()
@@ -532,6 +712,8 @@ def test_every_graph_of_a_card_shares_its_capture_and_replay_streams(
             pass
 
     monkeypatch.setattr(engine, "_per_card", {})
+    monkeypatch.setattr(engine, "_anchor", lambda device, stream, pool:
+                        log.append(("anchor", stream, pool)))
     monkeypatch.setattr(torch.cuda, "Stream", new_stream)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: current[-1])
@@ -563,6 +745,9 @@ def test_every_graph_of_a_card_shares_its_capture_and_replay_streams(
     captures = [e for e in log if e[0] == "capture"]
     assert captures == [("capture", capture_stream, pool),
                         ("capture", capture_stream, None)]
+    # the pool's anchor graph, captured once on the capture stream
+    assert [e for e in log if e[0] == "anchor"] == [
+        ("anchor", capture_stream, pool)]
     assert ("fn", False, replay_stream) in log
     assert ("fn", True, default) in log  # inside the capture
     assert [e for e in log if e[0] == "replay"] == [
@@ -645,9 +830,9 @@ def test_fused_models_keep_one_cache_across_steps(graph_path):
     m = tm
     for _ in range(3):
         _, m = m.train(0.1, x, y)
-        _, m = m.train_fullfused(0.1, x, y)
+        _, m = m.train_fullfused(0.1, x, y)   # direct: no graph
     assert m._cache is tm._cache
-    assert engine.graph_counts()["captures"] == 2
+    assert engine.graph_counts()["captures"] == 1
     assert tm.astype(torch.float64)._cache is tm._cache
     _, tr, xs, tg = rnn_fused("pallas")
     r = tr
@@ -655,13 +840,13 @@ def test_fused_models_keep_one_cache_across_steps(graph_path):
         _, r = r.train(0.01, 0.001, xs, tg)
         r.seq_forward(xs)
     assert r._cache is tr._cache
-    assert engine.graph_counts()["captures"] == 4
+    assert engine.graph_counts()["captures"] == 3
     _, tf, X = fae_pair()
     f = tf
     for _ in range(3):
         _, f = f.train(0.5, torch.tensor(X))
     assert f.mlp._cache is tf.mlp._cache
-    assert engine.graph_counts()["captures"] == 5
+    assert engine.graph_counts()["captures"] == 3
 
 
 def test_a_failed_capture_raises_and_never_runs_direct(monkeypatch):

@@ -520,14 +520,16 @@ def test_unported_options_raise(kw, item):
     """A stage axis raises (the scan has no pipeline mode); ZeRO without a
     mesh and ZeRO or offload without optimizer state raise the JAX
     package's messages.  A mesh with a model axis, once refused here,
-    trains (``item`` None), its cell on weights gathered over the model
-    axis with one warning."""
+    trains (``item`` None), its cell split over the model axis without a
+    warning."""
     XS, TS = sine(n_seqs=8, T_=3)
     if item is None:
-        with pytest.warns(UserWarning, match="all-gathered over the model"):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
             res = t_fit_seq(trnet(TB, jrnet(JNB, 4, 0)), t_sq(1), TB, XS, TS,
                             verbose=False, batch_size=4, epochs=3,
                             log_every=1, **kw)
+        assert not [x for x in w if "model" in str(x.message)]
         assert res.steps == 6 and all(hasattr(x, "spec") for x in
                                       res.net.states + res.net.params)
         assert all(np.isfinite(h["loss"]) for h in res.history)

@@ -6,9 +6,11 @@ trained on ``(model, None)``; adam with a crash/resume chain; accumulation;
 mixed precision.
 
 The params are placed by ``param_specs`` and the states replicated; the
-cell's scan is no ffLayer segment the executor splits, so it runs on each
-model rank on the leaves all-gathered over the model axis (one warning per
-network), its gradient's blocks kept by each rank."""
+cell runs split over the model axis (``parallel.tp_seq``): each model rank
+its rows of the state weight, the state all-gathered at each timestep, no
+weight gathered at any use and no warning.  ``tests/test_torch_seq_tp_split.py``
+holds the other placements the rule gives (a column-parallel input weight,
+two stacked cells, ZeRO-3, bf16)."""
 
 import warnings
 
@@ -87,24 +89,45 @@ KW = dict(batch_size=16, rate_state=0.01, rate_param=0.1, epochs=3,
           log_every=1, verbose=False)
 
 
+def collective_calls(fn):
+    """``fn()`` with each kernel-9 call of more than one rank recorded as
+    ``(phase, per-rank input shape)``: what launches on the card."""
+    from tensor_ops_tpu_torch.parallel import collective_kernels as CK
+
+    seen, real = [], CK._collective
+
+    def spy(xs, phase, *a, **k):
+        if len(xs) > 1:
+            seen.append((phase, tuple(xs[0].shape)))
+        return real(xs, phase, *a, **k)
+
+    CK._collective = spy
+    try:
+        return fn(), seen
+    finally:
+        CK._collective = real
+
+
 @pytest.fixture(scope="module")
 def dual_rate():
     """tests/test_fit_mesh.py:502's runs: the JAX package on make_mesh(8)
-    and the port on one device and on make_mesh(8) (its warnings kept)."""
+    and the port on one device and on make_mesh(8) (its warnings and
+    kernel-9 calls kept)."""
     XS, TS = seq_data()
     j = j_fit_seq(jrnet(), j_sq(1), JB, XS, TS, mesh=j_make_mesh(8), **KW)
     single = t_fit_seq(trnet(), t_sq(1), TB, XS, TS, **KW)
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
-        t = t_fit_seq(trnet(), t_sq(1), TB, XS, TS, mesh=tmesh(), **KW)
-    return j, single, t, [str(x.message) for x in w]
+        t, calls = collective_calls(lambda: t_fit_seq(
+            trnet(), t_sq(1), TB, XS, TS, mesh=tmesh(), **KW))
+    return j, single, t, [str(x.message) for x in w], calls
 
 
 def test_fit_sequences_make_mesh_8_matches_jax_and_single(dual_rate):
     """The curve, final states and params on (2, 4) equal the JAX mesh run
     and one device at 1e-9; the (8, 8) Elman state weight trains
     row-parallel, as the JAX run's does."""
-    j, single, t, _ = dual_rate
+    j, single, t, *_ = dual_rate
     assert len(t.history) == len(single.history) > 3
     same_runs(t, single)
     same_runs(t, j)
@@ -115,13 +138,25 @@ def test_fit_sequences_make_mesh_8_matches_jax_and_single(dual_rate):
     assert all(s == (None,) * len(s) for s in specs[:k])
 
 
-def test_fit_sequences_cell_runs_gathered_with_one_warning(dual_rate):
-    """The recurrent cell is no ffLayer segment: one warning for the run
-    (not one per data rank or step) names it and says it runs on its
-    weights gathered over the model axis."""
-    *_, msgs = dual_rate
-    gathered = [m for m in msgs if "all-gathered over the model" in m]
-    assert len(gathered) == 1 and "recurrent cell" in gathered[0]
+def test_fit_sequences_cell_runs_split_without_warning(dual_rate):
+    """The cell runs split (``parallel.tp_seq``): no warning, and kernel 9's
+    calls are the design's.  Per step and data group (n = 6 timesteps, B =
+    8 sequences a data rank): the state's all-gather at each timestep, the
+    output layer's (column-parallel, (1, 8)) all-reduce of its partial
+    products and, backward, the all-gather of its sliced input's
+    cotangent and the all-reduce of the state's partial cotangents at each
+    timestep; then the loss and each of the 6 leaves' gradients on each of
+    the 4 model ranks reduced over the data axis.  The gathered route made
+    one all-gather a model-sharded leaf a data group a step instead of
+    the per-timestep calls."""
+    *_, msgs, calls = dual_rate
+    assert not [m for m in msgs if "model" in m], msgs
+    steps, dp, tp, n, leaves = 6, 2, 4, 6, 6
+    ar = [c for c in calls if c[0] == "ar"]
+    ag = [c for c in calls if c[0] == "ag"]
+    assert len(ar) == steps * (1 + tp * leaves + dp * (n + 1))
+    assert len(ag) == steps * dp * (n + 1)
+    assert not [c for c in calls if c[0] == "rs"]
 
 
 def test_fit_sequences_make_mesh_8_adam_resume(tmp_path):

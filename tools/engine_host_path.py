@@ -3,10 +3,11 @@
 
     python3 tools/engine_host_path.py
 
-``FusedMLP.train_fullfused`` at the flagship (784-300-100-10, B = 100,
-seeded weights) through the engine's graph path (``engine.Compiled``):
+``FusedMLP.train_fullfused``'s step at the flagship (784-300-100-10, B =
+100, seeded weights), one kernel-3 launch, put through the engine's graph
+path here (``engine.jit``; the entry point itself launches it direct):
 host-clock microseconds a call (500 calls after 20, the card drained
-before and after) of the whole entry point, of its compiled call by the
+before and after) of the whole entry point, of the compiled call by the
 graph and direct (``engine.direct``), and of each piece of the graph path
 alone (the flatten, the rules, the signature, the input copies, the replay
 on the card's replay stream, a bare ``replay()``, the output copies, a
@@ -32,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from tensor_ops_tpu_torch import engine  # noqa: E402
 from tensor_ops_tpu_torch.models import FusedMLP  # noqa: E402
+from tensor_ops_tpu_torch.ops import kernels as K  # noqa: E402
 
 
 def timed(what: str, f, n: int = 500) -> None:
@@ -60,10 +62,11 @@ def main() -> None:
     x = torch.rand(100, 784, device="cuda")
     y = torch.eye(10, device="cuda")[
         torch.randint(0, 10, (100,), device="cuda")]
-    for _ in range(5):
-        fm.train_fullfused(0.3, x, y)
-    fn = fm._cache[("fullstep", "softmax_xent")]
+    fn = engine.jit(lambda x, y, ws, bs, rate: K.fused_mlp_train_step(
+        x, y, list(ws), list(bs), rate, fm.acts), "the train_fullfused step")
     args = (x, y, fm.weights, fm.biases, 0.3)
+    for _ in range(5):
+        fn(*args)
     g = next(iter(fn.graphs.values()))
     leaves = engine.flatten(args)
     side = torch.cuda.Stream()
@@ -73,7 +76,7 @@ def main() -> None:
             pass
 
     event = torch.cuda.Event()
-    timed("train_fullfused (graph path, float(v) included)",
+    timed("train_fullfused (direct, float(v) included)",
           lambda: fm.train_fullfused(0.3, x, y))
     timed("compiled call (graph path)", lambda: fn(*args))
     with engine.direct():
